@@ -1,0 +1,66 @@
+// Shared device helpers for the port's hand-written Hopper kernels.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mit {
+
+// Finite stand-in for -inf in online softmax (keeps exp() NaN-free on rows
+// or tiles with no valid key), the same constant as the TPU kernels.
+constexpr float kNeg = -1e30f;
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));  // round to nearest even
+}
+
+// Four consecutive elements as float. The pointer must be 16-byte (f32) or
+// 8-byte (bf16) aligned; the wrappers check base alignment and the element
+// offsets used here are multiples of 4.
+__device__ __forceinline__ void load4(const float* p, float o[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float o[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  o[0] = __uint_as_float(v.x << 16);  // element 0 sits in the low half
+  o[1] = __uint_as_float(v.x & 0xffff0000u);
+  o[2] = __uint_as_float(v.y << 16);
+  o[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// Round a probability to the storage type of V before the P.V product.
+__device__ __forceinline__ float round_as(float x, const float*) { return x; }
+__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
+  return bf16_round(x);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+}  // namespace mit

@@ -1,0 +1,342 @@
+// Hand-written Hopper attention kernels for head_dim 128.
+//
+// flash_decode_kernel  replaces moe_infinity_tpu/ops/flash_attention.py
+//                      _decode_kernel / flash_decode (one query token).
+// flash_attend_kernel  replaces _attend_kernel / flash_attend (T >= 1, with
+//                      additive bias, causal and pad masks).
+//
+// Both keep the TPU kernels' arithmetic: scores and softmax in f32, online
+// softmax with the finite kNeg, a row with no valid key returns 0, softcap
+// before the bias. flash_attend rounds p to V's type before P.V, as the TPU
+// kernel does; flash_decode keeps p in f32, as its TPU kernel does.
+//
+// What bounds them on the H100: at the NLLB path's shapes (S <= a few
+// hundred keys, B*H <= 64 heads) both are bound by launch latency and by the
+// bytes of the live K/V rows; neither comes near the tensor cores. So the
+// design reads each live K/V row once per block, from device memory, with
+// 8-byte (bf16) or 16-byte (f32) loads per lane, and never reads rows past
+// the live length (kv_len, and the causal bound). Scores and P.V run on the
+// CUDA cores; a tensor-core (wgmma) version is later work.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kDh = 128;  // each lane owns 4 of the 128 head dims
+
+// ---------------------------------------------------------------------------
+// Decode: grid (Hkv, B). One block serves all `rep` query heads of one kv
+// head, so the cache rows of that head are read once. Each warp walks every
+// kDecWarps-th live key with its own online-softmax state; the warps merge
+// through shared memory at the end.
+// ---------------------------------------------------------------------------
+constexpr int kDecWarps = 4;
+
+template <typename T, int MAXR>
+__global__ void __launch_bounds__(kDecWarps * 32) flash_decode_kernel(
+    const T* __restrict__ q,            // [B, H, Dh]
+    const T* __restrict__ k,            // [B, S, Hkv, Dh]
+    const T* __restrict__ v,            // [B, S, Hkv, Dh]
+    const int32_t* __restrict__ qpos,   // [B]
+    const uint8_t* __restrict__ mask,   // [B, S] or null
+    T* __restrict__ out,                // [B, H, Dh]
+    int H, int Hkv, int S, int rep, int kv_len, int causal, float scale,
+    float softcap) {
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int row_len = min(kv_len, S);
+  if (causal) row_len = min(row_len, qpos[b] + 1);
+
+  float qr[MAXR][4], m[MAXR], l[MAXR], acc[MAXR][4];
+#pragma unroll
+  for (int r = 0; r < MAXR; ++r) {
+    m[r] = mit::kNeg;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[r][i] = 0.f;
+      qr[r][i] = 0.f;
+    }
+    if (r < rep)
+      mit::load4(q + ((size_t)b * H + (size_t)hk * rep + r) * kDh + lane * 4,
+                 qr[r]);
+  }
+
+  const size_t srow = (size_t)Hkv * kDh;
+  const size_t base = (size_t)b * S * srow + (size_t)hk * kDh + lane * 4;
+  const uint8_t* mrow = mask ? mask + (size_t)b * S : nullptr;
+  for (int s = warp; s < row_len; s += kDecWarps) {
+    if (mrow && !mrow[s]) continue;  // uniform across the warp
+    float kf[4], vf[4];
+    mit::load4(k + base + (size_t)s * srow, kf);
+    mit::load4(v + base + (size_t)s * srow, vf);
+#pragma unroll
+    for (int r = 0; r < MAXR; ++r) {
+      if (r >= rep) break;
+      float sc = mit::warp_sum(qr[r][0] * kf[0] + qr[r][1] * kf[1] +
+                               qr[r][2] * kf[2] + qr[r][3] * kf[3]) *
+                 scale;
+      if (softcap > 0.f) sc = tanhf(sc / softcap) * softcap;
+      const float mn = fmaxf(m[r], sc);
+      const float alpha = expf(m[r] - mn);
+      const float p = expf(sc - mn);
+      l[r] = l[r] * alpha + p;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[r][i] = acc[r][i] * alpha + p * vf[i];
+      m[r] = mn;
+    }
+  }
+
+  __shared__ float sm_m[kDecWarps][MAXR];
+  __shared__ float sm_l[kDecWarps][MAXR];
+  __shared__ float sm_acc[kDecWarps][MAXR][kDh];
+#pragma unroll
+  for (int r = 0; r < MAXR; ++r) {
+    if (r >= rep) break;
+    if (lane == 0) {
+      sm_m[warp][r] = m[r];
+      sm_l[warp][r] = l[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sm_acc[warp][r][lane * 4 + i] = acc[r][i];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < rep * kDh; idx += blockDim.x) {
+    const int r = idx / kDh, d = idx % kDh;
+    float M = mit::kNeg;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) M = fmaxf(M, sm_m[w][r]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float c = expf(sm_m[w][r] - M);
+      L += sm_l[w][r] * c;
+      A += sm_acc[w][r][d] * c;
+    }
+    mit::store(out + ((size_t)b * H + (size_t)hk * rep + r) * kDh + d,
+               L > 0.f ? A / L : 0.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// General attention: grid (ceil(T/kBT), H, B). A block owns kBT query rows
+// of one head (each output row has exactly one owner) and walks the live key
+// range in tiles of kBS keys staged in shared memory. In the score phase lane
+// j owns key j of the tile; in the P.V phase lane j owns head dims
+// [4j, 4j+4). Each warp carries the online-softmax state of 4 query rows.
+// ---------------------------------------------------------------------------
+constexpr int kBT = 16;
+constexpr int kBS = 32;
+constexpr int kAttWarps = 4;
+constexpr int kRows = kBT / kAttWarps;
+
+template <typename T>
+__global__ void __launch_bounds__(kAttWarps * 32) flash_attend_kernel(
+    const T* __restrict__ q,             // [B, T, H, Dh]
+    const T* __restrict__ k,             // [B, S, Hkv, Dh]
+    const T* __restrict__ v,             // [B, S, Hkv, Dh]
+    const int32_t* __restrict__ qpos,    // [B, T]
+    const float* __restrict__ bias,      // strided [B|1, H|1, T|1, S] or null
+    long long bsb, long long bsh, long long bst,
+    const uint8_t* __restrict__ mask,    // [B, S] or null
+    T* __restrict__ out,                 // [B, T, H, Dh]
+    int Tq, int H, int Hkv, int S, int kv_len, int causal, float scale,
+    float softcap) {
+  __shared__ float q_s[kBT][kDh];
+  __shared__ float k_s[kBS][kDh + 1];  // +1: lane j reads row j conflict-free
+  __shared__ __align__(16) float v_s[kBS][kDh];
+
+  const int t0 = blockIdx.x * kBT, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t qstride = (size_t)H * kDh;
+  const size_t kstride = (size_t)Hkv * kDh;
+
+  for (int i = tid; i < kBT * (kDh / 4); i += blockDim.x) {
+    const int r = i / (kDh / 4), c = (i % (kDh / 4)) * 4;
+    float f[4] = {0.f, 0.f, 0.f, 0.f};
+    if (t0 + r < Tq)
+      mit::load4(q + ((size_t)b * Tq + t0 + r) * qstride + (size_t)h * kDh + c,
+                 f);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) q_s[r][c + e] = f[e];
+  }
+
+  // live keys: below kv_len and, when causal, at most the block's last
+  // query position (tiles wholly in the future are never read)
+  int kv_end = min(kv_len, S);
+  int pos[kRows];
+  bool row_ok[kRows];
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+    const int t = t0 + warp * kRows + rr;
+    row_ok[rr] = t < Tq;
+    pos[rr] = row_ok[rr] ? qpos[(size_t)b * Tq + t] : -1;
+  }
+  if (causal) {
+    int mx = -1;
+    for (int r = 0; r < kBT && t0 + r < Tq; ++r)
+      mx = max(mx, qpos[(size_t)b * Tq + t0 + r]);
+    kv_end = min(kv_end, mx + 1);
+  }
+
+  float m[kRows], l[kRows], acc[kRows][4];
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+    m[rr] = mit::kNeg;
+    l[rr] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[rr][i] = 0.f;
+  }
+
+  for (int s0 = 0; s0 < kv_end; s0 += kBS) {
+    __syncthreads();  // the previous tile is consumed; q_s is staged
+    for (int i = tid; i < kBS * (kDh / 4); i += blockDim.x) {
+      const int j = i / (kDh / 4), c = (i % (kDh / 4)) * 4;
+      float kf[4] = {0.f, 0.f, 0.f, 0.f}, vf[4] = {0.f, 0.f, 0.f, 0.f};
+      if (s0 + j < kv_end) {  // rows past the live range stay zero
+        const size_t off =
+            ((size_t)b * S + s0 + j) * kstride + (size_t)hk * kDh + c;
+        mit::load4(k + off, kf);
+        mit::load4(v + off, vf);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) k_s[j][c + e] = kf[e];
+      *reinterpret_cast<float4*>(&v_s[j][c]) =
+          make_float4(vf[0], vf[1], vf[2], vf[3]);
+    }
+    __syncthreads();
+
+    const int key = s0 + lane;
+    bool kvalid = key < kv_end;
+    if (kvalid && mask) kvalid = mask[(size_t)b * S + key] != 0;
+
+    float sc[kRows];
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) sc[rr] = 0.f;
+    for (int d = 0; d < kDh; ++d) {
+      const float kd = k_s[lane][d];
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr)
+        sc[rr] = fmaf(q_s[warp * kRows + rr][d], kd, sc[rr]);
+    }
+
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      const int t = t0 + warp * kRows + rr;
+      float x = sc[rr] * scale;
+      if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+      const bool valid = kvalid && row_ok[rr] && (!causal || key <= pos[rr]);
+      if (bias != nullptr && valid)
+        x += bias[b * bsb + h * bsh + t * bst + key];
+      x = valid ? x : mit::kNeg;
+      const float mn = fmaxf(m[rr], mit::warp_max(x));
+      const float alpha = expf(m[rr] - mn);
+      const float p = valid ? expf(x - mn) : 0.f;
+      l[rr] = l[rr] * alpha + mit::warp_sum(p);
+      const float pb = mit::round_as(p, v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[rr][i] *= alpha;
+#pragma unroll 8
+      for (int j = 0; j < kBS; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, pb, j);
+        const float4 vv = *reinterpret_cast<const float4*>(&v_s[j][lane * 4]);
+        acc[rr][0] = fmaf(pj, vv.x, acc[rr][0]);
+        acc[rr][1] = fmaf(pj, vv.y, acc[rr][1]);
+        acc[rr][2] = fmaf(pj, vv.z, acc[rr][2]);
+        acc[rr][3] = fmaf(pj, vv.w, acc[rr][3]);
+      }
+      m[rr] = mn;
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+    if (!row_ok[rr]) continue;
+    const int t = t0 + warp * kRows + rr;
+    T* o = out + ((size_t)b * Tq + t) * qstride + (size_t)h * kDh + lane * 4;
+    const float inv = l[rr] > 0.f ? 1.f / l[rr] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      mit::store(o + i, l[rr] > 0.f ? acc[rr][i] * inv : 0.f);
+  }
+}
+
+template <typename T>
+int launch_decode(const void* q, const void* k, const void* v,
+                  const void* qpos, const void* mask, void* out, int B, int H,
+                  int Hkv, int S, int kv_len, int causal, float scale,
+                  float softcap, cudaStream_t stream) {
+  const int rep = H / Hkv;
+  const dim3 grid(Hkv, B);
+  const int threads = kDecWarps * 32;
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const int32_t* pp = static_cast<const int32_t*>(qpos);
+  const uint8_t* mp = static_cast<const uint8_t*>(mask);
+  T* op = static_cast<T*>(out);
+#define MIT_DECODE(R)                                                       \
+  flash_decode_kernel<T, R><<<grid, threads, 0, stream>>>(                  \
+      qp, kp, vp, pp, mp, op, H, Hkv, S, rep, kv_len, causal, scale, softcap)
+  if (rep <= 1)
+    MIT_DECODE(1);
+  else if (rep <= 2)
+    MIT_DECODE(2);
+  else if (rep <= 4)
+    MIT_DECODE(4);
+  else if (rep <= 8)
+    MIT_DECODE(8);
+  else
+    return (int)cudaErrorInvalidValue;
+#undef MIT_DECODE
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_attend(const void* q, const void* k, const void* v,
+                  const void* qpos, const void* bias, long long bsb,
+                  long long bsh, long long bst, const void* mask, void* out,
+                  int B, int Tq, int H, int Hkv, int S, int kv_len,
+                  int causal, float scale, float softcap,
+                  cudaStream_t stream) {
+  const dim3 grid((Tq + kBT - 1) / kBT, H, B);
+  flash_attend_kernel<T><<<grid, kAttWarps * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int32_t*>(qpos),
+      static_cast<const float*>(bias), bsb, bsh, bst,
+      static_cast<const uint8_t*>(mask), static_cast<T*>(out), Tq, H, Hkv, S,
+      kv_len, causal, scale, softcap);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int mit_flash_decode(const void* q, const void* k, const void* v,
+                                const void* qpos, const void* mask, void* out,
+                                int B, int H, int Hkv, int S, int kv_len,
+                                int causal, float scale, float softcap,
+                                int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_decode<__nv_bfloat16>(q, k, v, qpos, mask, out, B, H, Hkv,
+                                        S, kv_len, causal, scale, softcap, st);
+  return launch_decode<float>(q, k, v, qpos, mask, out, B, H, Hkv, S, kv_len,
+                              causal, scale, softcap, st);
+}
+
+extern "C" int mit_flash_attend(const void* q, const void* k, const void* v,
+                                const void* qpos, const void* bias,
+                                long long bsb, long long bsh, long long bst,
+                                const void* mask, void* out, int B, int Tq,
+                                int H, int Hkv, int S, int kv_len, int causal,
+                                float scale, float softcap, int is_bf16,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_attend<__nv_bfloat16>(q, k, v, qpos, bias, bsb, bsh, bst,
+                                        mask, out, B, Tq, H, Hkv, S, kv_len,
+                                        causal, scale, softcap, st);
+  return launch_attend<float>(q, k, v, qpos, bias, bsb, bsh, bst, mask, out,
+                              B, Tq, H, Hkv, S, kv_len, causal, scale,
+                              softcap, st);
+}

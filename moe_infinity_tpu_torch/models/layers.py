@@ -1,0 +1,157 @@
+"""Shared transformer building blocks of the port (plain functions on
+tensors), from ``moe_infinity_tpu/models/layers.py``.
+
+Dense weights keep the HF ``[out, in]`` layout. Activations are batch-first
+``[B, T, D]``. ``attend`` sends every call to the attention kernels: K1
+(``flash_decode``) for one query token without a bias, K2 (``flash_attend``)
+otherwise; on CUDA tensors they launch the CUDA kernels, on CPU tensors they
+run their plain versions. ``set_attention_impl("naive")`` selects the einsum
+oracle ``attend_reference`` instead (for f32 parity tests).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+
+def layer_norm(x, weight, bias: Optional[torch.Tensor], eps: float):
+    dtype = x.dtype
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dtype)
+
+
+def linear(x, w, b: Optional[torch.Tensor] = None):
+    """x [..., in] @ w[out, in] (HF layout) -> [..., out]. A plain matmul,
+    as the JAX package leaves the dense projections to XLA."""
+    y = torch.matmul(x, w.to(x.dtype).t())
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+class KVCache:
+    """Per-layer contiguous KV cache, k/v ``[B, S_max, Hkv, Dh]``, updated
+    in place (the JAX version returns a new cache)."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor):
+        self.k = k
+        self.v = v
+
+    @classmethod
+    def empty(cls, batch, max_len, n_kv, head_dim, dtype, device):
+        shape = (batch, max_len, n_kv, head_dim)
+        return cls(
+            torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device),
+        )
+
+    def update(self, k_new, v_new, offset: int) -> "KVCache":
+        """Write [B, T, Hkv, Dh] at time ``offset``."""
+        T = k_new.shape[1]
+        self.k[:, offset:offset + T] = k_new
+        self.v[:, offset:offset + T] = v_new
+        return self
+
+
+# "flash" (the kernels) or "naive" (the einsum oracle, for parity tests)
+_ATTN_IMPL = "flash"
+
+
+def set_attention_impl(impl: str) -> None:
+    global _ATTN_IMPL
+    if impl not in ("flash", "naive"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    _ATTN_IMPL = impl
+
+
+def get_attention_impl() -> str:
+    return _ATTN_IMPL
+
+
+def attend(
+    q,  # [B, T, H, Dh]
+    k_cache,  # [B, S, Hkv, Dh]
+    v_cache,
+    q_positions,  # [B, T] absolute positions of the queries
+    kv_len: int,  # number of valid cache entries
+    *,
+    scale: Optional[float] = None,
+    causal: bool = True,
+    logit_softcap: Optional[float] = None,
+    bias: Optional[torch.Tensor] = None,  # [B|1, H|1, T|1, S] additive
+    pad_mask: Optional[torch.Tensor] = None,  # [B, S] True = valid key
+):
+    """Masked multi-head attention over a (possibly over-allocated) cache,
+    GQA by grouping, softmax in f32. Returns [B, T, H, Dh] in q's dtype."""
+    kw = dict(scale=scale, causal=causal, logit_softcap=logit_softcap,
+              pad_mask=pad_mask)
+    if _ATTN_IMPL == "naive":
+        return attend_reference(q, k_cache, v_cache, q_positions, kv_len,
+                                bias=bias, **kw)
+    if q.shape[1] == 1 and bias is None:
+        return fa.flash_decode(q, k_cache, v_cache, q_positions, kv_len, **kw)
+    return fa.flash_attend(q, k_cache, v_cache, q_positions, kv_len, bias=bias, **kw)
+
+
+def attend_reference(
+    q, k_cache, v_cache, q_positions, kv_len: int, *,
+    scale: Optional[float] = None,
+    causal: bool = True,
+    logit_softcap: Optional[float] = None,
+    bias: Optional[torch.Tensor] = None,
+    pad_mask: Optional[torch.Tensor] = None,
+):
+    """The einsum oracle: masked logits take finfo(f32).min (so a row with no
+    valid key averages V, unlike the kernels, which return 0)."""
+    B, T, H, Dh = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    if scale is None:
+        scale = Dh ** -0.5
+    rep = H // Hkv
+    qg = q.reshape(B, T, Hkv, rep, Dh).float()
+    logits = torch.einsum("bthgd,bshd->bhgts", qg, k_cache.float()) * scale
+    if logit_softcap is not None:
+        logits = torch.tanh(logits / logit_softcap) * logit_softcap
+    if bias is not None:
+        Bb, Hb, Tb, Sb = bias.shape
+        b32 = bias.float()
+        logits = logits + (b32[:, :, None] if Hb == 1 else b32.reshape(Bb, Hkv, rep, Tb, Sb))
+    key_pos = torch.arange(S, device=q.device)
+    valid = (key_pos < kv_len)[None, None, None, None, :]
+    if causal:
+        valid = valid & (
+            key_pos[None, None, None, None, :]
+            <= q_positions.long()[:, None, None, :, None]
+        )
+    if pad_mask is not None:
+        valid = valid & pad_mask.to(torch.bool)[:, None, None, None, :]
+    logits = torch.where(valid, logits, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgts,bshd->bthgd", probs, v_cache.float())
+    return out.reshape(B, T, H, Dh).to(q.dtype)
+
+
+def sinusoidal_embedding(num_positions: int, dim: int,
+                         padding_idx: Optional[int] = 1, device="cpu"):
+    """M2M100-style sinusoidal table [num_positions, dim] (f32)."""
+    half = dim // 2
+    emb = np.log(10000.0) / (half - 1)
+    emb = np.exp(np.arange(half, dtype=np.float64) * -emb)
+    pos = np.arange(num_positions, dtype=np.float64)[:, None] * emb[None, :]
+    table = np.concatenate([np.sin(pos), np.cos(pos)], axis=1)
+    if dim % 2 == 1:
+        table = np.concatenate([table, np.zeros((num_positions, 1))], axis=1)
+    if padding_idx is not None:
+        table[padding_idx] = 0.0
+    return torch.tensor(table, dtype=torch.float32, device=device)

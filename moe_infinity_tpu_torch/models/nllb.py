@@ -1,0 +1,284 @@
+"""NLLB-MoE (facebook/nllb-moe-54b) in PyTorch, from
+``moe_infinity_tpu/models/nllb.py``. Inference-mode semantics:
+
+* pre-LN transformer with biased LayerNorms and biased attention
+  projections; scaled dot-product attention (1/sqrt(d_head));
+* sinusoidal positions (M2M100 table, padding_idx = pad id, position ids =
+  cumsum of the non-pad mask + padding_idx), embeddings scaled by
+  sqrt(d_model);
+* top-2 router: top-1 by softmax prob, top-2 = argmax of the logits with
+  the top-1 masked out, combine weights the two probs normalised to sum to
+  one (no capacity dropping at eval);
+* sparse FF every ``sparse_step`` blocks at (i + 1) % step == 0; expert FFNs
+  carry fc1/fc2 biases.
+
+Parameters are nested dicts of tensors with the JAX package's keys and
+layouts (dense ``[out, in]``, experts ``[E, D, F]``), so ``bridge`` carries
+one into the other.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List
+
+import torch
+
+from moe_infinity_tpu_torch import resolve_device
+from moe_infinity_tpu_torch.models.layers import (
+    KVCache,
+    attend,
+    layer_norm,
+    linear,
+    sinusoidal_embedding,
+)
+from moe_infinity_tpu_torch.ops.moe import grouped_ffn
+
+
+@dataclass(frozen=True)
+class NllbSpec:
+    vocab_size: int
+    d_model: int
+    num_heads: int
+    encoder_layers: int
+    decoder_layers: int
+    encoder_ffn_dim: int
+    decoder_ffn_dim: int
+    encoder_sparse_step: int
+    decoder_sparse_step: int
+    num_experts: int
+    pad_token_id: int
+    decoder_start_token_id: int
+    max_positions: int
+    scale_embedding: bool
+
+    def is_sparse(self, block: int, decoder: bool) -> bool:
+        step = self.decoder_sparse_step if decoder else self.encoder_sparse_step
+        return step > 0 and (block + 1) % step == 0
+
+    def moe_layer_id(self, block: int, decoder: bool) -> int:
+        step = self.decoder_sparse_step if decoder else self.encoder_sparse_step
+        base = 0
+        if decoder:
+            base = self.encoder_layers // self.encoder_sparse_step
+        return base + block // step
+
+
+def _pad_bias(mask):
+    """[B, S] (1 = real token) -> additive f32 bias [B, 1, 1, S]."""
+    return torch.where(
+        mask[:, None, None, :] > 0, 0.0, torch.finfo(torch.float32).min
+    ).to(torch.float32)
+
+
+class NllbModel:
+    arch = "nllb"
+
+    def __init__(self, spec: NllbSpec, compute_dtype=torch.float32, device="cuda"):
+        self.spec = spec
+        self.dtype = compute_dtype
+        self.device = resolve_device(device)
+        self._pos_table = sinusoidal_embedding(
+            spec.max_positions + spec.pad_token_id + 1,
+            spec.d_model,
+            padding_idx=spec.pad_token_id,
+            device=self.device,
+        )
+        self._scale = spec.d_model ** 0.5 if spec.scale_embedding else 1.0
+
+    # ---- params ---------------------------------------------------------
+    def init_random(self, generator: torch.Generator, device=None, expert_dtype="int4"):
+        """Random params and resident expert tree at spec geometry, built
+        directly on ``device`` (the model's by default) from ``generator``
+        (which must live on that device). Experts are packed int4 (random
+        bytes, scales near 0.0043 so weights have std near 0.02); dense
+        experts at NLLB-54B size would take 103 GB. Biases are zero, router
+        weights std 0.5, other matrices std 0.02."""
+        if expert_dtype != "int4":
+            raise ValueError(f"expert_dtype {expert_dtype!r}: only 'int4' is built")
+        s = self.spec
+        dev = resolve_device(device) if device is not None else self.device
+        D, E = s.d_model, s.num_experts
+        g = generator
+
+        def mat(shape, dtype=self.dtype, std=0.02):
+            return torch.empty(shape, dtype=dtype, device=dev).normal_(0.0, std, generator=g)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+        def ones(*shape):
+            return torch.ones(shape, dtype=torch.float32, device=dev)
+
+        def attn():
+            return {
+                "q": mat((D, D)), "qb": zeros(D),
+                "k": mat((D, D)), "kb": zeros(D),
+                "v": mat((D, D)), "vb": zeros(D),
+                "o": mat((D, D)), "ob": zeros(D),
+            }
+
+        def packed(d_in, d_out):
+            return torch.randint(-128, 128, (E, d_in, d_out // 2),
+                                 dtype=torch.int8, device=dev, generator=g)
+
+        def scale(d_out):
+            return torch.empty((E, d_out), dtype=torch.float32,
+                               device=dev).uniform_(0.003, 0.0056, generator=g)
+
+        def expert_layer(F):
+            return {"gate4": packed(D, F), "gate_scale": scale(F),
+                    "down4": packed(F, D), "down_scale": scale(D),
+                    "gate_bias": zeros(E, F), "down_bias": zeros(E, D)}
+
+        experts: List[Dict[str, Any]] = []
+
+        def block(i, decoder):
+            F = s.decoder_ffn_dim if decoder else s.encoder_ffn_dim
+            b: Dict[str, Any] = {
+                "self_attn": attn(),
+                "ln0_w": ones(D), "ln0_b": zeros(D),
+                "lnf_w": ones(D), "lnf_b": zeros(D),
+            }
+            if decoder:
+                b["cross_attn"] = attn()
+                b["lnc_w"] = ones(D)
+                b["lnc_b"] = zeros(D)
+            if s.is_sparse(i, decoder):
+                b["router"] = mat((E, D), torch.float32, std=0.5)
+                b["router_bias"] = zeros(E)
+                experts.append(expert_layer(F))
+            else:
+                b["fc1"] = mat((F, D))
+                b["fc1b"] = zeros(F)
+                b["fc2"] = mat((D, F))
+                b["fc2b"] = zeros(D)
+            return b
+
+        params = {
+            "embed": mat((s.vocab_size, D)),
+            "enc_blocks": [block(i, False) for i in range(s.encoder_layers)],
+            "enc_final_ln_w": ones(D),
+            "enc_final_ln_b": zeros(D),
+            "dec_blocks": [block(i, True) for i in range(s.decoder_layers)],
+            "dec_final_ln_w": ones(D),
+            "dec_final_ln_b": zeros(D),
+        }
+        tree = {
+            "layers": experts,
+            "slot_map": torch.arange(E, dtype=torch.int32, device=dev),
+        }
+        return params, tree
+
+    # ---- building blocks -------------------------------------------------
+    def _attn(self, a, x_q, k, v, q_pos, kv_len, *, causal, pad_bias=None):
+        B, T, D = x_q.shape
+        H = self.spec.num_heads
+        Dh = D // H
+        q = linear(x_q, a["q"], a["qb"]).reshape(B, T, H, Dh)
+        out = attend(q, k, v, q_pos, kv_len, scale=Dh ** -0.5, causal=causal,
+                     bias=pad_bias)
+        return linear(out.reshape(B, T, D), a["o"], a["ob"])
+
+    def _kv(self, a, x):
+        B, T, D = x.shape
+        H = self.spec.num_heads
+        k = linear(x, a["k"], a["kb"]).reshape(B, T, H, D // H)
+        v = linear(x, a["v"], a["vb"]).reshape(B, T, H, D // H)
+        return k, v
+
+    def _route_top2(self, b, h):
+        """Eval-mode NLLB top-2 (no capacity dropping): (cw [BT, 2] f32,
+        ids [BT, 2] int32)."""
+        E = self.spec.num_experts
+        B, T, D = h.shape
+        logits = linear(h.float(), b["router"]).reshape(B * T, E)
+        rb = b.get("router_bias")
+        if rb is not None:
+            logits = logits + rb
+        probs = torch.softmax(logits, dim=-1)
+        top1 = torch.argmax(probs, dim=-1)
+        masked = logits.scatter(1, top1[:, None], float("-inf"))
+        top2 = torch.argmax(masked, dim=-1)
+        w1 = probs.gather(1, top1[:, None])[:, 0]
+        w2 = probs.gather(1, top2[:, None])[:, 0]
+        denom = torch.clamp(w1 + w2, min=torch.finfo(torch.float32).eps)
+        ids = torch.stack([top1, top2], dim=-1).to(torch.int32)
+        cw = torch.stack([w1 / denom, w2 / denom], dim=-1)
+        return cw, ids
+
+    def _ff(self, b, h, mli, experts, for_layer, impl):
+        B, T, D = h.shape
+        if mli is None:
+            a = torch.relu(linear(h, b["fc1"], b["fc1b"]))
+            return linear(a, b["fc2"], b["fc2b"])
+        cw, ids = self._route_top2(b, h)
+        weights, slot_map, biases = for_layer(experts, mli)
+        y = grouped_ffn(h.reshape(B * T, D), ids, cw, slot_map, weights, "relu",
+                        biases=biases, impl=impl)
+        return y.reshape(B, T, D)
+
+    def _positions(self, tokens, past):
+        mask = (tokens != self.spec.pad_token_id).to(torch.int32)
+        return (torch.cumsum(mask, dim=1) + past) * mask + self.spec.pad_token_id
+
+    def _embed(self, params, tokens, past=0):
+        x = params["embed"][tokens.long()].to(self.dtype) * self._scale
+        pos = self._positions(tokens, past)
+        return x + self._pos_table[pos.long()].to(self.dtype)
+
+    # ---- encoder --------------------------------------------------------
+    def encode(self, params, experts, tokens, pad_mask, for_layer, impl="ragged"):
+        s = self.spec
+        B, T = tokens.shape
+        x = self._embed(params, tokens)
+        bias = _pad_bias(pad_mask)
+        q_pos = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
+        for i, b in enumerate(params["enc_blocks"]):
+            h = layer_norm(x, b["ln0_w"], b["ln0_b"], 1e-5)
+            k, v = self._kv(b["self_attn"], h)
+            x = x + self._attn(b["self_attn"], h, k, v, q_pos, T, causal=False,
+                               pad_bias=bias)
+            h = layer_norm(x, b["lnf_w"], b["lnf_b"], 1e-5)
+            mli = s.moe_layer_id(i, False) if s.is_sparse(i, False) else None
+            x = x + self._ff(b, h, mli, experts, for_layer, impl)
+        return layer_norm(x, params["enc_final_ln_w"], params["enc_final_ln_b"], 1e-5)
+
+    # ---- decoder --------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int) -> List[KVCache]:
+        s = self.spec
+        H = s.num_heads
+        return [
+            KVCache.empty(batch, max_len, H, s.d_model // H, self.dtype, self.device)
+            for _ in range(s.decoder_layers)
+        ]
+
+    def cross_kv(self, params, enc_out):
+        return [self._kv(b["cross_attn"], enc_out) for b in params["dec_blocks"]]
+
+    def decode_step(self, params, experts, dec_tokens, positions, kvs, kv_len: int,
+                    enc_mask, cross, for_layer, impl="ragged"):
+        """One decoder step for tokens [B, T] at cache offset ``kv_len``;
+        writes the step's K/V into ``kvs`` in place. Returns (logits
+        [B, T, V] f32, kvs)."""
+        s = self.spec
+        B, T = dec_tokens.shape
+        x = self._embed(params, dec_tokens, past=kv_len)
+        cross_bias = _pad_bias(enc_mask)
+        for i, b in enumerate(params["dec_blocks"]):
+            h = layer_norm(x, b["ln0_w"], b["ln0_b"], 1e-5)
+            k, v = self._kv(b["self_attn"], h)
+            kv = kvs[i].update(k, v, kv_len)
+            x = x + self._attn(b["self_attn"], h, kv.k, kv.v, positions,
+                               kv_len + T, causal=True)
+            h = layer_norm(x, b["lnc_w"], b["lnc_b"], 1e-5)
+            ck, cv = cross[i]
+            x = x + self._attn(b["cross_attn"], h, ck, cv, positions, ck.shape[1],
+                               causal=False, pad_bias=cross_bias)
+            h = layer_norm(x, b["lnf_w"], b["lnf_b"], 1e-5)
+            mli = s.moe_layer_id(i, True) if s.is_sparse(i, True) else None
+            x = x + self._ff(b, h, mli, experts, for_layer, impl)
+        x = layer_norm(x, params["dec_final_ln_w"], params["dec_final_ln_b"], 1e-5)
+        # the LM head in f32, as the JAX model computes it
+        logits = linear(x.float(), params["embed"].float())
+        return logits, kvs

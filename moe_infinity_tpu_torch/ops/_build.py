@@ -1,0 +1,133 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface (``_build/<name>-<hash>.so``, the hash covering the
+sources, headers and flags), loaded with ``ctypes``. All stale libraries
+build in parallel at first use, one ``nvcc`` per source. Nothing here runs
+at import time: a machine without ``nvcc`` can import every module of the
+port and run its plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",
+]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[tuple, ctypes._CFuncPtr] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(src: Path) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cuh")) + [src]:
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every stale ``csrc/*.cu``, all ``nvcc`` processes at once.
+    Returns {source stem: library path}. Raises with nvcc's output if any
+    build fails. ptxas's register/spill report lands in ``<lib>.log``."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    targets = {src.stem: (src, _target(src)) for src in sorted(CSRC.glob("*.cu"))}
+    stale = {k: v for k, v in targets.items() if not v[1].exists()}
+    if stale:
+        nvcc = _nvcc()
+        procs = {}
+        for stem, (src, out) in stale.items():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+            procs[stem] = (
+                subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                ),
+                tmp,
+                out,
+            )
+        errors = []
+        for stem, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            out.with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {stem}.cu:\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)  # atomic: a reader never sees half a file
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    return {stem: out for stem, (_, out) in targets.items()}
+
+
+def function(stem: str, name: str, argtypes) -> ctypes._CFuncPtr:
+    """C entry point ``name`` of ``csrc/<stem>.cu`` (built on demand), typed
+    with ``argtypes``; every entry point returns cudaGetLastError()."""
+    fn = _fns.get((stem, name))
+    if fn is None:
+        with _lock:
+            lib = _libs.get(stem)
+            if lib is None:
+                lib = ctypes.CDLL(str(build_all()[stem]))
+                _libs[stem] = lib
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[(stem, name)] = fn
+    return fn
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error (a refused launch)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_ptr(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def same_device(*tensors) -> torch.device:
+    """The one CUDA device all given tensors (None skipped) live on."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t is not None and t.device != dev:
+            raise ValueError(f"tensors on different devices: {t.device} vs {dev}")
+    return dev
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def check_aligned(name: str, t: torch.Tensor, nbytes: int = 16) -> None:
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name} must be {nbytes}-byte aligned")

@@ -1,0 +1,250 @@
+"""Flash attention for the port: hand-written CUDA kernels and their plain
+PyTorch versions.
+
+* ``flash_decode`` (K1) replaces ``moe_infinity_tpu/ops/flash_attention.py``
+  ``_decode_kernel``/``flash_decode``: one query token per row; all
+  ``rep = H / Hkv`` query heads of a kv head share one pass over the live
+  cache rows ``row_len = min(kv_len, q_pos + 1 if causal, S)``.
+* ``flash_attend`` (K2) replaces ``_attend_kernel``/``flash_attend``: T >= 1
+  queries, causal masking from absolute positions, keys >= kv_len masked,
+  an additive f32 bias broadcasting over ``[B|1, H|1, T|1, S]``, softcap
+  before the bias, an optional ``[B, S]`` key pad mask.
+
+Both kernels (``csrc/flash_attention.cu``) are bound on the H100 by launch
+latency and the live K/V bytes at the NLLB path's sizes; the source note
+there says what the design does about it. The wrappers launch the kernel for
+CUDA tensors (raising on a shape it does not take: head_dim 128, rep <= 8)
+and run the plain version for CPU tensors. The plain versions repeat the
+kernels' arithmetic, including what differs from the einsum oracle
+``models.layers.attend_reference``: a row with no valid key returns 0, and
+``flash_attend`` rounds p to V's dtype before the P.V product.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from moe_infinity_tpu_torch.ops import _build
+
+_NEG = -1e30  # finite -inf stand-in, as in the kernels
+
+# launches of each kernel since the last reset (plain runs never count)
+LAUNCHES = {"flash_decode": 0, "flash_attend": 0}
+
+_DTYPES = (torch.bfloat16, torch.float32)
+_c = ctypes.c_void_p
+_DECODE_ARGS = [_c] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [
+    ctypes.c_int, _c,
+]
+_ATTEND_ARGS = [_c] * 5 + [ctypes.c_longlong] * 3 + [_c] * 2 + [
+    ctypes.c_int
+] * 7 + [ctypes.c_float] * 2 + [ctypes.c_int, _c]
+
+
+def _check_qkv(q, k, v, name):
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise ValueError(f"{name}: q/k/v must share dtype bf16 or f32")
+    if q.shape[-1] != 128:
+        raise ValueError(f"{name}: the kernel takes head_dim 128, got {q.shape[-1]}")
+    H, Hkv = q.shape[-2], k.shape[2]
+    if H % Hkv != 0 or H // Hkv > 8:
+        raise ValueError(f"{name}: H={H} over Hkv={Hkv} (rep <= 8 required)")
+    for n, t in (("q", q), ("k", k), ("v", v)):
+        _build.check_aligned(f"{name} {n}", t)
+
+
+def _mask_u8(pad_mask, B, S, name):
+    if pad_mask is None:
+        return None
+    if tuple(pad_mask.shape) != (B, S):
+        raise ValueError(f"{name}: pad_mask must be [B, S]")
+    return pad_mask.to(torch.bool).contiguous()  # bool is one byte, 0 or 1
+
+
+# ---------------------------------------------------------------------------
+# K1: decode
+# ---------------------------------------------------------------------------
+
+def flash_decode(
+    q: torch.Tensor,  # [B, 1, H, Dh]
+    k_cache: torch.Tensor,  # [B, S, Hkv, Dh]
+    v_cache: torch.Tensor,
+    q_positions: torch.Tensor,  # [B, 1] int
+    kv_len: int,
+    *,
+    scale: Optional[float] = None,
+    causal: bool = True,
+    logit_softcap: Optional[float] = None,
+    pad_mask: Optional[torch.Tensor] = None,  # [B, S] True = valid key
+) -> torch.Tensor:
+    """One query token per row: returns [B, 1, H, Dh] in q's dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    fn = _decode_cuda if q.is_cuda else flash_decode_plain
+    out = fn(
+        q[:, 0], k_cache, v_cache, q_positions.reshape(-1), int(kv_len),
+        scale=float(scale), causal=causal, logit_softcap=logit_softcap,
+        pad_mask=pad_mask,
+    )
+    return out[:, None]
+
+
+def _decode_cuda(q, k, v, q_positions, kv_len, *, scale, causal,
+                 logit_softcap, pad_mask):
+    B, H, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != Dh:
+        raise ValueError("flash_decode: k/v must be [B, S, Hkv, Dh]")
+    _check_qkv(q, k, v, "flash_decode")
+    qpos = q_positions.to(torch.int32).contiguous()
+    mask = _mask_u8(pad_mask, B, S, "flash_decode")
+    dev = _build.same_device(q, k, v, qpos, mask)
+    out = torch.empty_like(q)
+    fn = _build.function("flash_attention", "mit_flash_decode", _DECODE_ARGS)
+    err = fn(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(qpos),
+        _build.ptr(mask), _build.ptr(out), B, H, Hkv, S, kv_len, int(causal),
+        scale, float(logit_softcap or 0.0), int(q.dtype == torch.bfloat16),
+        _build.stream_ptr(dev),
+    )
+    _build.check(err, "flash_decode")
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def flash_decode_plain(q, k, v, q_positions, kv_len, *, scale, causal=True,
+                       logit_softcap=None, pad_mask=None):
+    """K1's arithmetic in PyTorch: f32 scores and p, zero for a row with no
+    valid key."""
+    B, H, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    qf = q.float().reshape(B, Hkv, rep, Dh)
+    s = torch.einsum("bgrd,bsgd->bgrs", qf, k.float()) * scale
+    if logit_softcap is not None:
+        s = torch.tanh(s / logit_softcap) * logit_softcap
+    row_len = torch.full((B,), min(kv_len, S), dtype=torch.int64, device=q.device)
+    if causal:
+        row_len = torch.minimum(row_len, q_positions.reshape(B).long() + 1)
+    valid = torch.arange(S, device=q.device)[None, :] < row_len[:, None]
+    if pad_mask is not None:
+        valid = valid & pad_mask.to(torch.bool)
+    valid = valid[:, None, None, :]
+    s = torch.where(valid, s, _NEG)
+    p = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bgrs,bsgd->bgrd", p, v.float())
+    o = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
+    return o.reshape(B, H, Dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K2: general attention
+# ---------------------------------------------------------------------------
+
+def flash_attend(
+    q: torch.Tensor,  # [B, T, H, Dh]
+    k_cache: torch.Tensor,  # [B, S, Hkv, Dh]
+    v_cache: torch.Tensor,
+    q_positions: torch.Tensor,  # [B, T] int
+    kv_len: int,
+    *,
+    scale: Optional[float] = None,
+    causal: bool = True,
+    logit_softcap: Optional[float] = None,
+    bias: Optional[torch.Tensor] = None,  # [B|1, H|1, T|1, S] additive
+    pad_mask: Optional[torch.Tensor] = None,  # [B, S] True = valid key
+) -> torch.Tensor:
+    """Same contract as ``models.layers.attend``. Always K2 (the T == 1,
+    bias-free case goes to ``flash_decode`` through ``attend``)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    fn = _attend_cuda if q.is_cuda else flash_attend_plain
+    return fn(
+        q, k_cache, v_cache, q_positions, int(kv_len), scale=float(scale),
+        causal=causal, logit_softcap=logit_softcap, bias=bias,
+        pad_mask=pad_mask,
+    )
+
+
+def _attend_cuda(q, k, v, q_positions, kv_len, *, scale, causal,
+                 logit_softcap, bias, pad_mask):
+    B, T, H, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != Dh:
+        raise ValueError("flash_attend: k/v must be [B, S, Hkv, Dh]")
+    _check_qkv(q, k, v, "flash_attend")
+    if T > 65535 * 16 or B > 65535:
+        raise ValueError("flash_attend: grid too large")
+    qpos = q_positions.to(torch.int32).contiguous()
+    if tuple(qpos.shape) != (B, T):
+        raise ValueError("flash_attend: q_positions must be [B, T]")
+    strides = (0, 0, 0)
+    if bias is not None:
+        if bias.dim() != 4 or bias.shape[3] != S:
+            raise ValueError(
+                "flash_attend: bias must be [B|1, H|1, T|1, S] (an S-broadcast "
+                "bias is not taken)"
+            )
+        Bb, Hb, Tb, _ = bias.shape
+        if Bb not in (1, B) or Hb not in (1, H) or Tb not in (1, T):
+            raise ValueError(f"flash_attend: bias {tuple(bias.shape)} does not broadcast")
+        bias = bias.to(torch.float32).contiguous()
+        strides = (
+            Hb * Tb * S if Bb > 1 else 0,
+            Tb * S if Hb > 1 else 0,
+            S if Tb > 1 else 0,
+        )
+    mask = _mask_u8(pad_mask, B, S, "flash_attend")
+    dev = _build.same_device(q, k, v, qpos, bias, mask)
+    out = torch.empty_like(q)
+    fn = _build.function("flash_attention", "mit_flash_attend", _ATTEND_ARGS)
+    err = fn(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(qpos),
+        _build.ptr(bias), *strides, _build.ptr(mask), _build.ptr(out),
+        B, T, H, Hkv, S, kv_len, int(causal), scale,
+        float(logit_softcap or 0.0), int(q.dtype == torch.bfloat16),
+        _build.stream_ptr(dev),
+    )
+    _build.check(err, "flash_attend")
+    LAUNCHES["flash_attend"] += 1
+    return out
+
+
+def flash_attend_plain(q, k, v, q_positions, kv_len, *, scale, causal=True,
+                       logit_softcap=None, bias=None, pad_mask=None):
+    """K2's arithmetic in PyTorch: f32 scores, softcap then bias, zero for a
+    row with no valid key, p rounded to V's dtype for the P.V product, V rows
+    past kv_len zeroed."""
+    B, T, H, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    qf = q.float().reshape(B, T, Hkv, rep, Dh)
+    s = torch.einsum("btgrd,bsgd->bgrts", qf, k.float()) * scale
+    if logit_softcap is not None:
+        s = torch.tanh(s / logit_softcap) * logit_softcap
+    if bias is not None:
+        Bb, Hb, Tb, Sb = bias.shape
+        b32 = bias.float()
+        if Hb == 1:
+            s = s + b32[:, :, None]
+        else:
+            s = s + b32.reshape(Bb, Hkv, rep, Tb, Sb)
+    key = torch.arange(S, device=q.device)
+    live = key < min(kv_len, S)  # [S]
+    valid = live[None, None, :].expand(B, T, S)
+    if causal:
+        valid = valid & (key[None, None, :] <= q_positions.long()[:, :, None])
+    if pad_mask is not None:
+        valid = valid & pad_mask.to(torch.bool)[:, None, :]
+    valid = valid[:, None, None]  # [B, 1, 1, T, S]
+    s = torch.where(valid, s, _NEG)
+    p = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    vf = torch.where(live[None, :, None, None], v.float(), 0.0)
+    o = torch.einsum("bgrts,bsgd->bgrtd", p.to(v.dtype).float(), vf)
+    o = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, T, H, Dh).to(q.dtype)

@@ -1,0 +1,190 @@
+"""Grouped matmul (K3) with fused weight dequantization, and the grouped
+expert FFN built on it.
+
+``gmm`` replaces ``moe_infinity_tpu/ops/gmm.py`` ``_gmm_kernel``/``gmm``:
+``out[T, F] = bf16(x[T, D]) @ bf16(w[group_ids[g] + group_offset])`` over
+rows sorted by group, f32 accumulation, the per-output-channel ``scale``
+after the dot. Weights are bf16, int8 or split-nibble packed int4
+(``[S, D, F/2]`` int8; low nibbles are columns ``[0, F/2)``, high nibbles
+``[F/2, F)``). The kernel (``csrc/gmm.cu``) is bound by the routed experts'
+weight bytes on the NLLB path; its source note says what the design does
+about it. For CUDA tensors the wrapper launches it, for CPU tensors it runs
+``gmm_plain``, which repeats its arithmetic (x and w rounded to bf16, exact
+products, f32 sums).
+
+``gffn_pallas`` replaces ``gffn_pallas`` of the JAX package: sort the
+(token, k) rows by slot, compact the groups to the routed slots on the
+device, gate gmm, gate bias, activation, down gmm, down bias, and the
+combine-weighted ``index_add_``. No host sync: the groups are compacted to
+``min(S, T*K)`` and an empty one owns no work in the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from moe_infinity_tpu_torch.ops import _build
+
+# launches of the kernel since the last reset (plain runs never count)
+LAUNCHES = {"gmm": 0}
+
+_KIND = {torch.bfloat16: 0, torch.int8: 1}  # WKind in csrc/gmm.cu
+_INT4 = 2
+_c = ctypes.c_void_p
+_GMM_ARGS = [_c] * 6 + [ctypes.c_int] * 8 + [_c, _c]
+_ROWS_PER_CHUNK = 8  # kRM in csrc/gmm.cu: a block owns one chunk of a group
+
+
+def gmm(
+    x: torch.Tensor,  # [T, D] rows sorted by group
+    w: torch.Tensor,  # [S_total, D, F] or packed int4 [S_total, D, F // 2]
+    group_sizes: torch.Tensor,  # [G] int
+    scale: Optional[torch.Tensor] = None,  # [S_total, F] f32
+    group_offset: int = 0,  # base row into w and scale
+    group_ids: Optional[torch.Tensor] = None,  # [G] rows into w (identity)
+    *,
+    packed: bool = False,
+) -> torch.Tensor:
+    """Grouped matmul; returns f32 [T, F]. Rows past sum(group_sizes) are
+    zero."""
+    G = group_sizes.shape[0]
+    if group_ids is None:
+        group_ids = torch.arange(G, dtype=torch.int32, device=x.device)
+    fn = _gmm_cuda if x.is_cuda else gmm_plain
+    return fn(x, w, group_sizes, scale, int(group_offset), group_ids, packed=packed)
+
+
+def _gmm_cuda(x, w, group_sizes, scale, group_offset, group_ids, *, packed):
+    T, D = x.shape
+    S_total, Dw, Fw = w.shape
+    F = 2 * Fw if packed else Fw
+    G = group_sizes.shape[0]
+    if Dw != D:
+        raise ValueError(f"gmm: x has D={D}, w has D={Dw}")
+    if packed and w.dtype != torch.int8:
+        raise ValueError("gmm: packed int4 weights are int8 [S, D, F/2]")
+    kind = _INT4 if packed else _KIND.get(w.dtype)
+    if kind is None:
+        raise ValueError(f"gmm: weight dtype {w.dtype} is not taken")
+    if Fw % 4 != 0:
+        raise ValueError("gmm: the weight's last dim must be a multiple of 4")
+    max_chunks = -(-T // _ROWS_PER_CHUNK) + G
+    if G != group_ids.shape[0] or max_chunks > 65535:
+        raise ValueError("gmm: group_ids must match group_sizes; rows/8 + G <= 65535")
+    _build.check_aligned("gmm w", w)
+    if scale is not None:
+        if scale.dtype != torch.float32 or tuple(scale.shape) != (S_total, F):
+            raise ValueError("gmm: scale must be f32 [S, F]")
+        _build.check_aligned("gmm scale", scale, 4)
+    out = torch.zeros(T, F, dtype=torch.float32, device=x.device)
+    if T == 0 or G == 0:
+        return out
+    xb = x.to(torch.bfloat16).contiguous()  # the kernel's operand rounding
+    gstart = torch.zeros(G + 1, dtype=torch.int32, device=x.device)
+    gstart[1:] = torch.cumsum(group_sizes, 0, dtype=torch.int32)
+    cchunk = torch.zeros(G + 1, dtype=torch.int32, device=x.device)
+    chunks = (group_sizes + (_ROWS_PER_CHUNK - 1)) // _ROWS_PER_CHUNK
+    cchunk[1:] = torch.cumsum(chunks, 0, dtype=torch.int32)
+    gids = group_ids.to(torch.int32).contiguous()
+    dev = _build.same_device(xb, w, scale, gstart, cchunk, gids)
+    fn = _build.function("gmm", "mit_gmm", _GMM_ARGS)
+    err = fn(
+        _build.ptr(xb), _build.ptr(w), _build.ptr(scale), _build.ptr(gstart),
+        _build.ptr(cchunk), _build.ptr(gids), group_offset, G, max_chunks,
+        _ROWS_PER_CHUNK, D, Fw, F, kind, _build.ptr(out), _build.stream_ptr(dev),
+    )
+    _build.check(err, "gmm")
+    LAUNCHES["gmm"] += 1
+    return out
+
+
+def gmm_plain(x, w, group_sizes, scale=None, group_offset=0, group_ids=None,
+              *, packed=False):
+    """K3's arithmetic in PyTorch, one f32 matmul per non-empty group (reads
+    the group sizes on the host)."""
+    from moe_infinity_tpu_torch.ops.moe import unpack_int4
+
+    T, D = x.shape
+    F = 2 * w.shape[2] if packed else w.shape[2]
+    G = group_sizes.shape[0]
+    if group_ids is None:
+        group_ids = torch.arange(G)
+    xb = x.to(torch.bfloat16).float()
+    out = torch.zeros(T, F, dtype=torch.float32, device=x.device)
+    start = 0
+    for n, gid in zip(group_sizes.tolist(), group_ids.tolist()):
+        if n:
+            wg = w[gid + group_offset]
+            wf = unpack_int4(wg).float() if packed else wg.to(torch.bfloat16).float()
+            seg = xb[start:start + n] @ wf
+            if scale is not None:
+                seg = seg * scale[gid + group_offset].float()
+            out[start:start + n] = seg
+        start += n
+    return out
+
+
+# --------------------------------------------------------------------------
+# Grouped FFN on gmm (impl="pallas" of ops.moe.grouped_ffn)
+# --------------------------------------------------------------------------
+
+def compact_groups(sorted_slots: torch.Tensor, num_groups: int):
+    """(group_ids, group_sizes) of the distinct slots in ``sorted_slots``,
+    in ascending order, padded to ``num_groups`` with slot 0 and count 0 -
+    ``unique(size=G, fill_value=0, return_counts=True)`` without the
+    host sync a data-dependent size would cost."""
+    n = sorted_slots.shape[0]
+    new = torch.ones(n, dtype=torch.bool, device=sorted_slots.device)
+    new[1:] = sorted_slots[1:] != sorted_slots[:-1]
+    gidx = torch.cumsum(new, 0) - 1  # group index of each sorted row
+    ids = torch.zeros(num_groups, dtype=torch.int32, device=sorted_slots.device)
+    ids.scatter_(0, gidx, sorted_slots.to(torch.int32))
+    sizes = torch.zeros(num_groups, dtype=torch.int32, device=sorted_slots.device)
+    sizes.index_add_(0, gidx, torch.ones_like(gidx, dtype=torch.int32))
+    return ids, sizes
+
+
+def gffn_pallas(x, expert_ids, combine_weights, expert_to_slot,
+                weights: Dict[str, torch.Tensor], activation, biases=None):
+    """Grouped FFN on the gmm kernel; signature of ops.moe._gffn_ragged.
+    Takes the non-gated 'gate'/'down' roles (NLLB), packed int4 under
+    'gate4'/'down4'."""
+    from moe_infinity_tpu_torch.ops.moe import _activate
+
+    for k in ("up", "up4", "gateup", "gateup4"):
+        if k in weights:
+            raise ValueError(f"gffn_pallas: weight role {k!r} is not ported yet")
+    T, D = x.shape
+    K = expert_ids.shape[1]
+    S = next(weights[k].shape[0] for k in ("gate4", "gate") if k in weights)
+    compute_dtype = x.dtype
+
+    flat_slots = expert_to_slot[expert_ids.long()].reshape(-1)
+    order = torch.argsort(flat_slots, stable=True)
+    sorted_slots = flat_slots[order].long()
+    inv_token = order // K
+    xs = x[inv_token]
+    # compact the grid to the routed slots: at most T*K of S are active
+    group_ids, group_sizes = compact_groups(sorted_slots, min(S, flat_slots.shape[0]))
+
+    def run(role, xin):
+        p = role + "4" in weights
+        return gmm(
+            xin, weights[role + "4"] if p else weights[role], group_sizes,
+            weights.get(role + "_scale"), group_ids=group_ids, packed=p,
+        )
+
+    h = run("gate", xs)
+    if biases is not None and "gate_bias" in biases:
+        h = h + biases["gate_bias"][sorted_slots]
+    h = _activate(h, None, activation)
+    out = run("down", h.to(compute_dtype))
+    if biases is not None and "down_bias" in biases:
+        out = out + biases["down_bias"][sorted_slots]
+    out = out * combine_weights.reshape(-1)[order].float()[:, None]
+    combined = torch.zeros(T, D, dtype=torch.float32, device=x.device)
+    combined.index_add_(0, inv_token, out)
+    return combined.to(compute_dtype)

@@ -1,0 +1,151 @@
+"""MoE compute ops: int4 packing and the slot-indexed grouped expert FFN.
+
+Port of ``moe_infinity_tpu/ops/moe.py``. Weight layout ("compute layout"):
+gate ``[S, D, F]``, down ``[S, F, D]``; a packed int4 array lives under
+``"<role>4"`` (``[S, D, F/2]`` int8, split nibbles) with its scale under
+``"<role>_scale"`` ``[S, out]``. A per-layer int32 ``expert_to_slot[E]``
+maps router expert ids to weight rows.
+
+Implementations of ``grouped_ffn``:
+  * ``"ragged"`` - plain PyTorch: sort by slot, one matmul per routed group
+    (reads the group sizes on the host), combine;
+  * ``"pallas"`` - the gmm kernel (K3) through ``ops.gmm.gffn_pallas``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def _activate(h_gate, h_up, activation: str):
+    if activation == "relu":
+        a = torch.relu(h_gate)
+    elif activation == "gelu":
+        a = F.gelu(h_gate)
+    elif activation == "gelu_tanh":
+        a = F.gelu(h_gate, approximate="tanh")
+    elif activation == "silu":
+        a = F.silu(h_gate)
+    else:
+        raise ValueError(f"unknown activation {activation}")
+    return a * h_up if h_up is not None else a
+
+
+def _dequant(w, scale: Optional[torch.Tensor], dtype):
+    """Row-wise dequant: w [..., in, out] x scale [..., out]."""
+    if scale is None:
+        return w.to(dtype)
+    return w.float() * scale[..., None, :].float()
+
+
+# --------------------------------------------------------------------------
+# int4 packing: two signed nibbles per int8 byte, split along the last axis
+# (byte i holds channel i low and channel i + N/2 high).
+# --------------------------------------------------------------------------
+
+def pack_int4(v: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-8, 7] [..., N] -> packed int8 [..., N/2]."""
+    n = v.shape[-1] // 2
+    lo = v[..., :n].to(torch.int8) & 0x0F
+    hi = v[..., n:].to(torch.int8) << 4
+    return hi | lo
+
+
+def unpack_int4(w8: torch.Tensor) -> torch.Tensor:
+    """Inverse of pack_int4, sign-extended by arithmetic shifts on int8."""
+    lo = (w8 << 4) >> 4
+    hi = w8 >> 4
+    return torch.cat([lo, hi], dim=-1)
+
+
+def _unpack4_weights(weights: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """'<role>4' packed entries -> full int8 '<role>' arrays."""
+    if not any(k.endswith("4") for k in weights):
+        return weights
+    return {
+        (k[:-1] if k.endswith("4") else k): (unpack_int4(v) if k.endswith("4") else v)
+        for k, v in weights.items()
+    }
+
+
+def grouped_ffn(
+    x: torch.Tensor,  # [T, D]
+    expert_ids: torch.Tensor,  # [T, K] int router choices
+    combine_weights: torch.Tensor,  # [T, K] f32
+    expert_to_slot: torch.Tensor,  # [E] int (identity when resident)
+    weights: Dict[str, torch.Tensor],
+    activation: str,
+    *,
+    biases: Optional[Dict[str, torch.Tensor]] = None,
+    impl: str = "ragged",
+) -> torch.Tensor:
+    """Apply the routed expert FFN and combine. Returns [T, D] in x.dtype.
+    biases (NLLB): 'gate_bias' [S, F], 'down_bias' [S, D]."""
+    # a -1 slot (non-resident expert) contributes zero, never a stale slot
+    expert_ids = expert_ids.long()
+    invalid = expert_to_slot[expert_ids] < 0
+    combine_weights = torch.where(invalid, 0.0, combine_weights.float())
+    expert_to_slot = expert_to_slot.clamp(min=0)
+    if impl == "ragged":
+        return _gffn_ragged(
+            x, expert_ids, combine_weights, expert_to_slot,
+            _unpack4_weights(weights), activation, biases,
+        )
+    if impl == "pallas":
+        from moe_infinity_tpu_torch.ops.gmm import gffn_pallas
+
+        return gffn_pallas(
+            x, expert_ids, combine_weights, expert_to_slot, weights,
+            activation, biases,
+        )
+    raise ValueError(f"grouped_ffn impl {impl!r} is not ported (ragged, pallas)")
+
+
+def _ragged_dot(xs, w, scale, sizes, dtype):
+    """Per-group ``xs_g @ dequant(w[g])`` with operands in ``dtype`` and f32
+    sums (jax.lax.ragged_dot with preferred f32). Dequantizes only the
+    routed groups."""
+    out = torch.zeros(xs.shape[0], w.shape[-1], dtype=torch.float32, device=xs.device)
+    start = 0
+    for g, n in enumerate(sizes.tolist()):
+        if n:
+            wg = _dequant(w[g], None if scale is None else scale[g], dtype)
+            out[start:start + n] = xs[start:start + n].float() @ wg.to(dtype).float()
+        start += n
+    return out
+
+
+def _gffn_ragged(x, expert_ids, combine_weights, expert_to_slot, weights,
+                 activation, biases):
+    T, D = x.shape
+    K = expert_ids.shape[1]
+    for k in ("up", "gateup"):
+        if k in weights:
+            raise ValueError(f"grouped_ffn: weight role {k!r} is not ported yet")
+    S = weights["gate"].shape[0]
+    compute_dtype = x.dtype
+
+    flat_slots = expert_to_slot[expert_ids].reshape(-1).long()
+    order = torch.argsort(flat_slots, stable=True)
+    inv_token = order // K
+    xs = x[inv_token]
+    sorted_slots = flat_slots[order]
+    sizes = torch.bincount(flat_slots, minlength=S)
+
+    h = _ragged_dot(xs, weights["gate"], weights.get("gate_scale"), sizes, compute_dtype)
+    if biases is not None and "gate_bias" in biases:
+        h = h + biases["gate_bias"][sorted_slots]
+    h = _activate(h, None, activation)
+    out = _ragged_dot(
+        h.to(compute_dtype), weights["down"], weights.get("down_scale"), sizes,
+        compute_dtype,
+    )
+    if biases is not None and "down_bias" in biases:
+        out = out + biases["down_bias"][sorted_slots]
+    out = out * combine_weights.reshape(-1)[order][:, None]
+    combined = torch.zeros(T, D, dtype=torch.float32, device=x.device)
+    combined.index_add_(0, inv_token, out)
+    return combined.to(compute_dtype)

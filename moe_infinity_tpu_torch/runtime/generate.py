@@ -1,0 +1,162 @@
+"""Encoder-decoder generation, from ``moe_infinity_tpu/runtime/generate.py``.
+
+``Seq2SeqGenerator`` encodes once, computes the cross-attention K/V, then
+decodes greedily in a Python loop. The loop keeps the tokens on the device
+and copies them to the host once at the end; with ``eos_token_id`` set it
+reads each step's tokens on the host to stop finished rows, as the JAX
+version does. Sampled decode and logprobs wait for the port of
+``runtime/sampling.py``.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+
+def eos_hit(tok, eos_token_id):
+    """HF semantics: eos_token_id may be an int or a list/tuple of ints."""
+    if isinstance(eos_token_id, (list, tuple)):
+        return np.isin(tok, np.asarray(eos_token_id))
+    return tok == eos_token_id
+
+
+def _bucket_len(n: int, buckets=(16, 32, 64, 128, 256, 512, 1024, 2048, 4096)) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return ((n + 1023) // 1024) * 1024
+
+
+@dataclass
+class GenerationResult:
+    sequences: np.ndarray  # [B, 1 + new] decoder start token, then tokens
+    num_generated: np.ndarray  # [B]
+    # encode_ms / decode_ms: device time (CUDA events) or host time (CPU)
+    stats: dict = field(default_factory=dict)
+
+
+class _Clock:
+    """Marks on the device's timeline (CUDA events, read after the final
+    copy has synchronised) or the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+
+    def mark(self):
+        if self.cuda:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+        return time.perf_counter()
+
+    def ms(self, a, b) -> float:
+        if self.cuda:
+            b.synchronize()
+            return a.elapsed_time(b)
+        return (b - a) * 1e3
+
+
+class Seq2SeqGenerator:
+    """Encoder-decoder generation (NLLB): encode once, precompute
+    cross-attention K/V, then greedy incremental decode."""
+
+    def __init__(self, model, params, experts, for_layer: Callable, *,
+                 impl: str = "ragged"):
+        self.model = model
+        self.params = params
+        self.experts = experts
+        self._for_layer = for_layer
+        self._impl = impl
+
+    @torch.inference_mode()
+    def generate(
+        self,
+        input_ids: np.ndarray,
+        max_new_tokens: int = 32,
+        *,
+        attention_mask: Optional[np.ndarray] = None,
+        eos_token_id: Optional[int] = 1,
+        pad_token_id: int = 0,
+        decoder_start_token_id: Optional[int] = None,
+        temperature: float = 0.0,
+        do_sample: Optional[bool] = None,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        min_p: float = 0.0,
+        repetition_penalty: float = 1.0,
+        presence_penalty: float = 0.0,
+        frequency_penalty: float = 0.0,
+        logprobs: int = 0,
+        logit_bias=None,
+        seed: int = 0,
+    ) -> GenerationResult:
+        """Greedy decode of ``max_new_tokens`` per row. The sampling keywords
+        keep the JAX signature: any that asks for more than greedy argmax
+        raises NotImplementedError (top_k/top_p/min_p/seed only act when
+        sampling)."""
+        sampled = do_sample if do_sample is not None else temperature != 0.0
+        if (sampled and temperature != 0.0) or repetition_penalty != 1.0 \
+                or presence_penalty != 0.0 or frequency_penalty != 0.0 \
+                or logprobs or logit_bias:
+            raise NotImplementedError(
+                "only greedy decode is ported; sampling, penalties, logprobs "
+                "and logit_bias wait for the port of runtime/sampling.py"
+            )
+        model, dev = self.model, self.model.device
+        input_ids = np.atleast_2d(np.asarray(input_ids))
+        B, T = input_ids.shape
+        start = (decoder_start_token_id if decoder_start_token_id is not None
+                 else model.spec.decoder_start_token_id)
+        tokens = torch.as_tensor(input_ids, dtype=torch.int32).to(dev)
+        mask = (torch.as_tensor(attention_mask, dtype=torch.float32).to(dev)
+                if attention_mask is not None
+                else torch.ones(B, T, dtype=torch.float32, device=dev))
+
+        clock = _Clock(dev)
+        t0 = clock.mark()
+        enc_out = model.encode(self.params, self.experts, tokens, mask,
+                               self._for_layer, self._impl)
+        cross = model.cross_kv(self.params, enc_out)
+        t1 = clock.mark()
+        kvs = model.init_cache(B, _bucket_len(max_new_tokens + 1))
+
+        out = np.full((B, max_new_tokens + 1), pad_token_id, dtype=np.int64)
+        out[:, 0] = start
+        finished = np.zeros(B, dtype=bool)
+        num_gen = np.zeros(B, dtype=np.int64)
+        new_toks = torch.empty(B, max_new_tokens, dtype=torch.int64, device=dev)
+        cur = torch.full((B, 1), start, dtype=torch.int32, device=dev)
+        steps = 0
+        for step in range(max_new_tokens):
+            positions = torch.full((B, 1), step, dtype=torch.int32, device=dev)
+            logits, kvs = model.decode_step(
+                self.params, self.experts, cur, positions, kvs, step, mask,
+                cross, self._for_layer, self._impl,
+            )
+            nxt = torch.argmax(logits[:, -1, :], dim=-1)
+            new_toks[:, step] = nxt
+            steps = step + 1
+            if eos_token_id is not None:
+                tok_host = nxt.cpu().numpy()
+                out[~finished, step + 1] = tok_host[~finished]
+                num_gen[~finished] += 1
+                finished |= eos_hit(tok_host, eos_token_id)
+                if finished.all():
+                    break
+            cur = nxt[:, None].to(torch.int32)
+        t2 = clock.mark()
+        if eos_token_id is None:
+            out[:, 1:steps + 1] = new_toks[:, :steps].cpu().numpy()  # one sync
+            num_gen[:] = steps
+        stats = {"encode_ms": clock.ms(t0, t1), "decode_ms": clock.ms(t1, t2),
+                 "decode_steps": steps}
+        return GenerationResult(
+            sequences=out[:, : int(num_gen.max()) + 1],
+            num_generated=num_gen,
+            stats=stats,
+        )

@@ -1,0 +1,96 @@
+"""Shared helpers of the port's parity tests (tests/test_torch_*.py): move
+JAX arrays to the port through numpy, and build tiny NLLB models in both
+packages from one seed."""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import torch
+
+from moe_infinity_tpu_torch import bridge
+
+TINY_NLLB = dict(
+    vocab_size=96, d_model=256, num_heads=2,  # head_dim 128, as NLLB-54B
+    encoder_layers=2, decoder_layers=2,
+    encoder_ffn_dim=512, decoder_ffn_dim=512,
+    encoder_sparse_step=2, decoder_sparse_step=2,
+    num_experts=8, pad_token_id=1, decoder_start_token_id=2,
+    max_positions=64, scale_embedding=True,
+)
+
+
+def jax_to_numpy(tree):
+    """JAX pytree -> numpy arrays, bf16 as uint16 bits (bridge convention)."""
+
+    def conv(a):
+        a = np.asarray(a)
+        return a.view(np.uint16) if a.dtype == ml_dtypes.bfloat16 else a
+
+    return jax.tree.map(conv, tree)
+
+
+def to_port(tree, device="cpu"):
+    return bridge.to_torch(jax_to_numpy(tree), device)
+
+
+def np32(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+@contextlib.contextmanager
+def jax_kernels_interpreted(monkeypatch):
+    """Route the JAX package through its Pallas kernels in interpret mode, as
+    its own tests do, restoring the switches afterwards."""
+    from moe_infinity_tpu.models import layers as jl
+    from moe_infinity_tpu.ops import flash_attention as jfa
+    from moe_infinity_tpu.ops import gmm as jgmm
+
+    prev_impl, prev_interp = jl.get_attention_impl(), jfa._INTERPRET
+    jl.set_attention_impl("flash")
+    jfa.set_flash_interpret(True)
+    monkeypatch.setattr(
+        jgmm, "gffn_pallas", functools.partial(jgmm.gffn_pallas, interpret=True)
+    )
+    try:
+        yield
+    finally:
+        jl.set_attention_impl(prev_impl)
+        jfa.set_flash_interpret(prev_interp)
+
+
+@contextlib.contextmanager
+def port_attention(impl):
+    from moe_infinity_tpu_torch.models import layers as tl
+
+    prev = tl.get_attention_impl()
+    tl.set_attention_impl(impl)
+    try:
+        yield
+    finally:
+        tl.set_attention_impl(prev)
+
+
+def int4_expert_tree(rng, spec, n_layers):
+    """Packed int4 expert tree as numpy (same arrays feed both packages)."""
+    from moe_infinity_tpu.ops.moe import pack_int4
+
+    E, D, F = spec["num_experts"], spec["d_model"], spec["encoder_ffn_dim"]
+    layers = []
+    for _ in range(n_layers):
+        vg = rng.integers(-8, 8, (E, D, F)).astype(np.int8)
+        vd = rng.integers(-8, 8, (E, F, D)).astype(np.int8)
+        layers.append({
+            "gate4": np.asarray(pack_int4(jnp.asarray(vg))),
+            "gate_scale": rng.uniform(0.003, 0.0056, (E, F)).astype(np.float32),
+            "down4": np.asarray(pack_int4(jnp.asarray(vd))),
+            "down_scale": rng.uniform(0.003, 0.0056, (E, D)).astype(np.float32),
+            "gate_bias": (rng.standard_normal((E, F)) * 0.02).astype(np.float32),
+            "down_bias": (rng.standard_normal((E, D)) * 0.02).astype(np.float32),
+        })
+    return {"layers": layers, "slot_map": np.arange(E, dtype=np.int32)}

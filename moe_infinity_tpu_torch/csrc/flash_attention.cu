@@ -4,15 +4,17 @@
 //                      _decode_kernel / flash_decode (one query token).
 // flash_attend_kernel  replaces _attend_kernel / flash_attend (T >= 1, with
 //                      additive bias, causal and pad masks).
+// paged_decode_kernel  replaces _paged_decode_kernel / paged_flash_decode
+//                      (one query token over a paged K/V pool).
 //
-// Both keep the TPU kernels' arithmetic: scores and softmax in f32, online
+// All keep the TPU kernels' arithmetic: scores and softmax in f32, online
 // softmax with the finite kNeg, a row with no valid key returns 0, softcap
 // before the bias. flash_attend rounds p to V's type before P.V, as the TPU
-// kernel does; flash_decode keeps p in f32, as its TPU kernel does.
+// kernel does; the decode kernels keep p in f32, as theirs do.
 //
-// What bounds them on the H100: at the NLLB path's shapes (S <= a few
-// hundred keys, B*H <= 64 heads) both are bound by launch latency and by the
-// bytes of the live K/V rows; neither comes near the tensor cores. So the
+// What bounds them on the H100: at the serving paths' shapes (S <= a few
+// hundred keys, B*H <= 128 heads) all are bound by launch latency and by the
+// bytes of the live K/V rows; none comes near the tensor cores. So the
 // design reads each live K/V row once per block, from device memory, with
 // 8-byte (bf16) or 16-byte (f32) loads per lane, and never reads rows past
 // the live length (kv_len, and the causal bound). Scores and P.V run on the
@@ -27,25 +29,42 @@ constexpr int kDh = 128;  // each lane owns 4 of the 128 head dims
 // Decode: grid (Hkv, B). One block serves all `rep` query heads of one kv
 // head, so the cache rows of that head are read once. Each warp walks every
 // kDecWarps-th live key with its own online-softmax state; the warps merge
-// through shared memory at the end.
+// through shared memory at the end. The contiguous kernel (K1) and the paged
+// one (K4) share this body and differ only in where key s's row lives.
 // ---------------------------------------------------------------------------
 constexpr int kDecWarps = 4;
 
-template <typename T, int MAXR>
-__global__ void __launch_bounds__(kDecWarps * 32) flash_decode_kernel(
-    const T* __restrict__ q,            // [B, H, Dh]
-    const T* __restrict__ k,            // [B, S, Hkv, Dh]
-    const T* __restrict__ v,            // [B, S, Hkv, Dh]
-    const int32_t* __restrict__ qpos,   // [B]
-    const uint8_t* __restrict__ mask,   // [B, S] or null
-    T* __restrict__ out,                // [B, H, Dh]
-    int H, int Hkv, int S, int rep, int kv_len, int causal, float scale,
-    float softcap) {
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int row_len = min(kv_len, S);
-  if (causal) row_len = min(row_len, qpos[b] + 1);
+// Row of key s (kv head hk) in a contiguous [B, S, Hkv, Dh] cache.
+struct ContigRows {
+  size_t base;  // element offset of (b, 0, hk, 0)
+  size_t srow;  // Hkv * Dh
+  __device__ __forceinline__ size_t operator()(int s) const {
+    return base + (size_t)s * srow;
+  }
+};
 
+// Row of logical key s in a [NP, page, Hkv, Dh] pool: physical page
+// table[s / page], slot s % page.
+struct PagedRows {
+  const int32_t* table;  // page_table row b, [P]
+  size_t hoff;           // hk * Dh
+  size_t srow;           // Hkv * Dh
+  int page;
+  __device__ __forceinline__ size_t operator()(int s) const {
+    const int p = s / page;
+    return ((size_t)table[p] * page + (s - p * page)) * srow + hoff;
+  }
+};
+
+// Attention of the rep query heads of (b, hk) over the live keys
+// [0, row_len), skipping keys whose mask byte is 0. A row with no valid key
+// gives 0. Scale, then softcap, then mask, with f32 sums, as the TPU kernels.
+template <typename T, int MAXR, typename Rows>
+__device__ __forceinline__ void decode_block(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const uint8_t* __restrict__ mrow, T* __restrict__ out, Rows rows, int b,
+    int hk, int H, int rep, int row_len, float scale, float softcap) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float qr[MAXR][4], m[MAXR], l[MAXR], acc[MAXR][4];
 #pragma unroll
   for (int r = 0; r < MAXR; ++r) {
@@ -61,14 +80,12 @@ __global__ void __launch_bounds__(kDecWarps * 32) flash_decode_kernel(
                  qr[r]);
   }
 
-  const size_t srow = (size_t)Hkv * kDh;
-  const size_t base = (size_t)b * S * srow + (size_t)hk * kDh + lane * 4;
-  const uint8_t* mrow = mask ? mask + (size_t)b * S : nullptr;
   for (int s = warp; s < row_len; s += kDecWarps) {
     if (mrow && !mrow[s]) continue;  // uniform across the warp
+    const size_t off = rows(s) + lane * 4;
     float kf[4], vf[4];
-    mit::load4(k + base + (size_t)s * srow, kf);
-    mit::load4(v + base + (size_t)s * srow, vf);
+    mit::load4(k + off, kf);
+    mit::load4(v + off, vf);
 #pragma unroll
     for (int r = 0; r < MAXR; ++r) {
       if (r >= rep) break;
@@ -115,6 +132,50 @@ __global__ void __launch_bounds__(kDecWarps * 32) flash_decode_kernel(
     mit::store(out + ((size_t)b * H + (size_t)hk * rep + r) * kDh + d,
                L > 0.f ? A / L : 0.f);
   }
+}
+
+template <typename T, int MAXR>
+__global__ void __launch_bounds__(kDecWarps * 32) flash_decode_kernel(
+    const T* __restrict__ q,            // [B, H, Dh]
+    const T* __restrict__ k,            // [B, S, Hkv, Dh]
+    const T* __restrict__ v,            // [B, S, Hkv, Dh]
+    const int32_t* __restrict__ qpos,   // [B]
+    const uint8_t* __restrict__ mask,   // [B, S] or null
+    T* __restrict__ out,                // [B, H, Dh]
+    int H, int Hkv, int S, int rep, int kv_len, int causal, float scale,
+    float softcap) {
+  const int hk = blockIdx.x, b = blockIdx.y;
+  int row_len = min(kv_len, S);
+  if (causal) row_len = min(row_len, qpos[b] + 1);
+  const size_t srow = (size_t)Hkv * kDh;
+  const ContigRows rows{(size_t)b * S * srow + (size_t)hk * kDh, srow};
+  decode_block<T, MAXR>(q, k, v, mask ? mask + (size_t)b * S : nullptr, out,
+                        rows, b, hk, H, rep, row_len, scale, softcap);
+}
+
+// K4: replaces moe_infinity_tpu/ops/flash_attention.py _paged_decode_kernel /
+// paged_flash_decode. Pages are read in place through the page table (no
+// gathered copy of the pool); the hole mask is logical, [B, P * page].
+// Bound on the H100 by the live K/V bytes and, at decode batch 4, by launch
+// latency; like K1 it reads no row at or past the row's live length.
+template <typename T, int MAXR>
+__global__ void __launch_bounds__(kDecWarps * 32) paged_decode_kernel(
+    const T* __restrict__ q,              // [B, H, Dh]
+    const T* __restrict__ pool_k,         // [NP, page, Hkv, Dh]
+    const T* __restrict__ pool_v,         // [NP, page, Hkv, Dh]
+    const int32_t* __restrict__ table,    // [B, P] physical page ids
+    const int32_t* __restrict__ lengths,  // [B] live keys per row
+    const uint8_t* __restrict__ mask,     // [B, P * page] or null
+    T* __restrict__ out,                  // [B, H, Dh]
+    int H, int Hkv, int P, int page, int rep, float scale, float softcap) {
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int S = P * page;
+  const int row_len = max(0, min(lengths[b], S));
+  const PagedRows rows{table + (size_t)b * P, (size_t)hk * kDh,
+                       (size_t)Hkv * kDh, page};
+  decode_block<T, MAXR>(q, pool_k, pool_v,
+                        mask ? mask + (size_t)b * S : nullptr, out, rows, b,
+                        hk, H, rep, row_len, scale, softcap);
 }
 
 // ---------------------------------------------------------------------------
@@ -293,6 +354,38 @@ int launch_decode(const void* q, const void* k, const void* v,
 }
 
 template <typename T>
+int launch_paged(const void* q, const void* pool_k, const void* pool_v,
+                 const void* table, const void* lengths, const void* mask,
+                 void* out, int B, int H, int Hkv, int P, int page,
+                 float scale, float softcap, cudaStream_t stream) {
+  const int rep = H / Hkv;
+  const dim3 grid(Hkv, B);
+  const int threads = kDecWarps * 32;
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(pool_k);
+  const T* vp = static_cast<const T*>(pool_v);
+  const int32_t* tp = static_cast<const int32_t*>(table);
+  const int32_t* lp = static_cast<const int32_t*>(lengths);
+  const uint8_t* mp = static_cast<const uint8_t*>(mask);
+  T* op = static_cast<T*>(out);
+#define MIT_PAGED(R)                                                        \
+  paged_decode_kernel<T, R><<<grid, threads, 0, stream>>>(                  \
+      qp, kp, vp, tp, lp, mp, op, H, Hkv, P, page, rep, scale, softcap)
+  if (rep <= 1)
+    MIT_PAGED(1);
+  else if (rep <= 2)
+    MIT_PAGED(2);
+  else if (rep <= 4)
+    MIT_PAGED(4);
+  else if (rep <= 8)
+    MIT_PAGED(8);
+  else
+    return (int)cudaErrorInvalidValue;
+#undef MIT_PAGED
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_attend(const void* q, const void* k, const void* v,
                   const void* qpos, const void* bias, long long bsb,
                   long long bsh, long long bst, const void* mask, void* out,
@@ -339,4 +432,19 @@ extern "C" int mit_flash_attend(const void* q, const void* k, const void* v,
   return launch_attend<float>(q, k, v, qpos, bias, bsb, bsh, bst, mask, out,
                               B, Tq, H, Hkv, S, kv_len, causal, scale,
                               softcap, st);
+}
+
+extern "C" int mit_paged_flash_decode(const void* q, const void* pool_k,
+                                      const void* pool_v, const void* table,
+                                      const void* lengths, const void* mask,
+                                      void* out, int B, int H, int Hkv, int P,
+                                      int page, float scale, float softcap,
+                                      int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_paged<__nv_bfloat16>(q, pool_k, pool_v, table, lengths,
+                                       mask, out, B, H, Hkv, P, page, scale,
+                                       softcap, st);
+  return launch_paged<float>(q, pool_k, pool_v, table, lengths, mask, out, B,
+                             H, Hkv, P, page, scale, softcap, st);
 }

@@ -4,9 +4,12 @@ tensors), from ``moe_infinity_tpu/models/layers.py``.
 Dense weights keep the HF ``[out, in]`` layout. Activations are batch-first
 ``[B, T, D]``. ``attend`` sends every call to the attention kernels: K1
 (``flash_decode``) for one query token without a bias, K2 (``flash_attend``)
-otherwise; on CUDA tensors they launch the CUDA kernels, on CPU tensors they
-run their plain versions. ``set_attention_impl("naive")`` selects the einsum
-oracle ``attend_reference`` instead (for f32 parity tests).
+otherwise; ``attend_cache`` sends a one-token causal step over a paged cache
+to K4 (``paged_flash_decode``), which reads the pool's pages in place, and
+everything else to ``attend`` on the gathered view. On CUDA tensors the
+kernels launch, on CPU tensors their plain versions run.
+``set_attention_impl("naive")`` selects the einsum oracle
+``attend_reference`` instead (for f32 parity tests).
 """
 
 from __future__ import annotations
@@ -17,6 +20,13 @@ import numpy as np
 import torch
 
 from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+
+def rms_norm(x, weight, eps: float):
+    """LLaMA-style RMSNorm: normalise in f32, scale, cast back."""
+    x32 = x.float()
+    x32 = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+    return (x32 * weight.float()).to(x.dtype)
 
 
 def layer_norm(x, weight, bias: Optional[torch.Tensor], eps: float):
@@ -40,6 +50,38 @@ def linear(x, w, b: Optional[torch.Tensor] = None):
     return y
 
 
+# --------------------------------------------------------------------------
+# Rotary position embeddings (f32, as the JAX package computes them)
+# --------------------------------------------------------------------------
+
+def rope_cos_sin(positions, dim: int, base: float = 10000.0, *,
+                 scaling_factor: float = 1.0):
+    """Default (llama/neox) RoPE tables: cos/sin [B, T, dim] f32, the
+    half-duplicated ``cat(freqs, freqs)`` convention."""
+    inv_freq = 1.0 / (
+        base ** (torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim)
+    )
+    freqs = (positions.float() / scaling_factor)[..., None] * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def _rotate_half(x):
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def apply_rope(q, k, cos, sin):
+    """q [B, T, H, Dh], k [B, T, Hkv, Dh], cos/sin [B, T, Dh]; rotated in
+    f32 and cast back."""
+    cos = cos[:, :, None, :].float()
+    sin = sin[:, :, None, :].float()
+    q32, k32 = q.float(), k.float()
+    q_out = q32 * cos + _rotate_half(q32) * sin
+    k_out = k32 * cos + _rotate_half(k32) * sin
+    return q_out.to(q.dtype), k_out.to(k.dtype)
+
+
 class KVCache:
     """Per-layer contiguous KV cache, k/v ``[B, S_max, Hkv, Dh]``, updated
     in place (the JAX version returns a new cache)."""
@@ -55,6 +97,10 @@ class KVCache:
             torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device),
         )
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[1]
 
     def update(self, k_new, v_new, offset: int) -> "KVCache":
         """Write [B, T, Hkv, Dh] at time ``offset``."""
@@ -102,6 +148,35 @@ def attend(
     if q.shape[1] == 1 and bias is None:
         return fa.flash_decode(q, k_cache, v_cache, q_positions, kv_len, **kw)
     return fa.flash_attend(q, k_cache, v_cache, q_positions, kv_len, bias=bias, **kw)
+
+
+def attend_cache(
+    q,  # [B, T, H, Dh]
+    kv,  # KVCache or PagedKVCache, already holding this step's K/V
+    q_positions,  # [B, T]
+    kv_len: int,
+    *,
+    scale: Optional[float] = None,
+    causal: bool = True,
+    logit_softcap: Optional[float] = None,
+    bias: Optional[torch.Tensor] = None,
+    pad_mask: Optional[torch.Tensor] = None,  # [B, S] True = valid key
+):
+    """``attend`` over a cache object. A one-token causal step without a
+    bias over a paged cache goes to K4, which reads the pool's pages in
+    place, with ``min(kv_len, q_pos + 1)`` live keys per row; everything
+    else runs ``attend`` on the cache's (gathered) logical view."""
+    if (_ATTN_IMPL == "flash" and q.shape[1] == 1 and causal and bias is None
+            and hasattr(kv, "pool_k")):
+        row_len = torch.clamp(q_positions[:, 0].to(torch.int32) + 1, max=int(kv_len))
+        out = fa.paged_flash_decode(
+            q[:, 0], kv.pool_k, kv.pool_v, kv.page_table, row_len,
+            scale=scale, logit_softcap=logit_softcap, pad_mask=pad_mask,
+        )
+        return out[:, None]
+    return attend(q, kv.k, kv.v, q_positions, kv_len, scale=scale,
+                  causal=causal, logit_softcap=logit_softcap, bias=bias,
+                  pad_mask=pad_mask)
 
 
 def attend_reference(

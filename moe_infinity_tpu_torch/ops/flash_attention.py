@@ -9,9 +9,13 @@ PyTorch versions.
   queries, causal masking from absolute positions, keys >= kv_len masked,
   an additive f32 bias broadcasting over ``[B|1, H|1, T|1, S]``, softcap
   before the bias, an optional ``[B, S]`` key pad mask.
+* ``paged_flash_decode`` (K4) replaces ``_paged_decode_kernel``/
+  ``paged_flash_decode``: K1 over a page pool ``[NP, page, Hkv, Dh]`` read
+  in place through a ``[B, P]`` page table, the first ``lengths[b]`` logical
+  keys of each row live, an optional logical hole mask ``[B, P * page]``.
 
-Both kernels (``csrc/flash_attention.cu``) are bound on the H100 by launch
-latency and the live K/V bytes at the NLLB path's sizes; the source note
+The kernels (``csrc/flash_attention.cu``) are bound on the H100 by launch
+latency and the live K/V bytes at the serving paths' sizes; the source note
 there says what the design does about it. The wrappers launch the kernel for
 CUDA tensors (raising on a shape it does not take: head_dim 128, rep <= 8)
 and run the plain version for CPU tensors. The plain versions repeat the
@@ -32,7 +36,7 @@ from moe_infinity_tpu_torch.ops import _build
 _NEG = -1e30  # finite -inf stand-in, as in the kernels
 
 # launches of each kernel since the last reset (plain runs never count)
-LAUNCHES = {"flash_decode": 0, "flash_attend": 0}
+LAUNCHES = {"flash_decode": 0, "flash_attend": 0, "paged_flash_decode": 0}
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _c = ctypes.c_void_p
@@ -42,6 +46,9 @@ _DECODE_ARGS = [_c] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [
 _ATTEND_ARGS = [_c] * 5 + [ctypes.c_longlong] * 3 + [_c] * 2 + [
     ctypes.c_int
 ] * 7 + [ctypes.c_float] * 2 + [ctypes.c_int, _c]
+_PAGED_ARGS = [_c] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [
+    ctypes.c_int, _c,
+]
 
 
 def _check_qkv(q, k, v, name):
@@ -60,7 +67,7 @@ def _mask_u8(pad_mask, B, S, name):
     if pad_mask is None:
         return None
     if tuple(pad_mask.shape) != (B, S):
-        raise ValueError(f"{name}: pad_mask must be [B, S]")
+        raise ValueError(f"{name}: pad_mask must be [B, S] = [{B}, {S}]")
     return pad_mask.to(torch.bool).contiguous()  # bool is one byte, 0 or 1
 
 
@@ -248,3 +255,72 @@ def flash_attend_plain(q, k, v, q_positions, kv_len, *, scale, causal=True,
     o = torch.einsum("bgrts,bsgd->bgrtd", p.to(v.dtype).float(), vf)
     o = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
     return o.permute(0, 3, 1, 2, 4).reshape(B, T, H, Dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K4: decode over a paged pool
+# ---------------------------------------------------------------------------
+
+def paged_flash_decode(
+    q: torch.Tensor,  # [B, H, Dh]
+    pool_k: torch.Tensor,  # [NP, page, Hkv, Dh]
+    pool_v: torch.Tensor,
+    page_table: torch.Tensor,  # [B, P] int physical page ids
+    lengths: torch.Tensor,  # [B] int live keys per row (causality folded in)
+    *,
+    scale: Optional[float] = None,
+    logit_softcap: Optional[float] = None,
+    pad_mask: Optional[torch.Tensor] = None,  # [B, P * page] True = valid
+) -> torch.Tensor:
+    """One query token per row over the pool's pages: returns [B, H, Dh] in
+    q's dtype. Row b attends to its logical keys ``[0, lengths[b])`` (at
+    most ``P * page``), key j read from page ``page_table[b, j // page]``,
+    slot ``j % page``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    fn = _paged_cuda if q.is_cuda else paged_flash_decode_plain
+    return fn(q, pool_k, pool_v, page_table, lengths, scale=float(scale),
+              logit_softcap=logit_softcap, pad_mask=pad_mask)
+
+
+def _paged_cuda(q, pool_k, pool_v, page_table, lengths, *, scale,
+                logit_softcap, pad_mask):
+    B, H, Dh = q.shape
+    if pool_k.dim() != 4 or pool_k.shape != pool_v.shape or pool_k.shape[3] != Dh:
+        raise ValueError("paged_flash_decode: pools must be [NP, page, Hkv, Dh]")
+    page, Hkv = pool_k.shape[1], pool_k.shape[2]
+    if page_table.dim() != 2 or page_table.shape[0] != B or lengths.shape != (B,):
+        raise ValueError("paged_flash_decode: page_table must be [B, P], lengths [B]")
+    P = page_table.shape[1]
+    _check_qkv(q, pool_k, pool_v, "paged_flash_decode")
+    mask = _mask_u8(pad_mask, B, P * page, "paged_flash_decode")
+    table = page_table.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    dev = _build.same_device(q, pool_k, pool_v, table, lens, mask)
+    out = torch.empty_like(q)
+    fn = _build.function("flash_attention", "mit_paged_flash_decode", _PAGED_ARGS)
+    err = fn(
+        _build.ptr(q), _build.ptr(pool_k), _build.ptr(pool_v), _build.ptr(table),
+        _build.ptr(lens), _build.ptr(mask), _build.ptr(out), B, H, Hkv, P, page,
+        scale, float(logit_softcap or 0.0), int(q.dtype == torch.bfloat16),
+        _build.stream_ptr(dev),
+    )
+    _build.check(err, "paged_flash_decode")
+    LAUNCHES["paged_flash_decode"] += 1
+    return out
+
+
+def paged_flash_decode_plain(q, pool_k, pool_v, page_table, lengths, *, scale,
+                             logit_softcap=None, pad_mask=None):
+    """K4's arithmetic in PyTorch: gather the rows' pages into a contiguous
+    view, then K1's plain arithmetic with ``lengths[b]`` live keys."""
+    B = q.shape[0]
+    P, page = page_table.shape[1], pool_k.shape[1]
+    idx = page_table.long()
+    k = pool_k[idx].reshape(B, P * page, *pool_k.shape[2:])
+    v = pool_v[idx].reshape(B, P * page, *pool_v.shape[2:])
+    # causal with q position lengths - 1 keeps exactly the first lengths keys
+    return flash_decode_plain(
+        q, k, v, lengths.long() - 1, P * page, scale=scale, causal=True,
+        logit_softcap=logit_softcap, pad_mask=pad_mask,
+    )

@@ -14,7 +14,8 @@ products, f32 sums).
 
 ``gffn_pallas`` replaces ``gffn_pallas`` of the JAX package: sort the
 (token, k) rows by slot, compact the groups to the routed slots on the
-device, gate gmm, gate bias, activation, down gmm, down bias, and the
+device, gate gmm (and up gmm, or one fused gateup gmm whose output halves
+are ``[gate | up]``), gate bias, activation, down gmm, down bias, and the
 combine-weighted ``index_add_``. No host sync: the groups are compacted to
 ``min(S, T*K)`` and an empty one owns no work in the kernel.
 """
@@ -150,16 +151,19 @@ def compact_groups(sorted_slots: torch.Tensor, num_groups: int):
 def gffn_pallas(x, expert_ids, combine_weights, expert_to_slot,
                 weights: Dict[str, torch.Tensor], activation, biases=None):
     """Grouped FFN on the gmm kernel; signature of ops.moe._gffn_ragged.
-    Takes the non-gated 'gate'/'down' roles (NLLB), packed int4 under
-    'gate4'/'down4'."""
+    Takes 'gate'/'down' (NLLB), gated 'gate'/'up'/'down' (Mixtral) and fused
+    'gateup', each bf16, int8 with '<role>_scale', or packed int4 under
+    '<role>4'. A packed 'gateup4' needs no split: its low nibbles are the
+    gate columns and its high nibbles the up columns, so one gmm emits
+    [gate | up]."""
     from moe_infinity_tpu_torch.ops.moe import _activate
 
-    for k in ("up", "up4", "gateup", "gateup4"):
-        if k in weights:
-            raise ValueError(f"gffn_pallas: weight role {k!r} is not ported yet")
+    if any(w.dim() != 3 for k, w in weights.items() if not k.endswith("_scale")):
+        raise ValueError("gffn_pallas: pre-tiled [S, F/tf, D, tf] weights are not ported")
     T, D = x.shape
     K = expert_ids.shape[1]
-    S = next(weights[k].shape[0] for k in ("gate4", "gate") if k in weights)
+    S = next(weights[k].shape[0] for k in ("gateup4", "gateup", "gate4", "gate")
+             if k in weights)
     compute_dtype = x.dtype
 
     flat_slots = expert_to_slot[expert_ids.long()].reshape(-1)
@@ -177,10 +181,19 @@ def gffn_pallas(x, expert_ids, combine_weights, expert_to_slot,
             weights.get(role + "_scale"), group_ids=group_ids, packed=p,
         )
 
-    h = run("gate", xs)
+    def has(role):
+        return role in weights or role + "4" in weights
+
+    if has("gateup"):
+        hcat = run("gateup", xs)
+        F = hcat.shape[-1] // 2
+        h, h_up = hcat[:, :F], hcat[:, F:]
+    else:
+        h = run("gate", xs)
+        h_up = run("up", xs) if has("up") else None
     if biases is not None and "gate_bias" in biases:
         h = h + biases["gate_bias"][sorted_slots]
-    h = _activate(h, None, activation)
+    h = _activate(h, h_up, activation)
     out = run("down", h.to(compute_dtype))
     if biases is not None and "down_bias" in biases:
         out = out + biases["down_bias"][sorted_slots]

@@ -1,7 +1,9 @@
-"""MoE compute ops: int4 packing and the slot-indexed grouped expert FFN.
+"""MoE compute ops: routing, int4 packing and the slot-indexed grouped
+expert FFN.
 
 Port of ``moe_infinity_tpu/ops/moe.py``. Weight layout ("compute layout"):
-gate ``[S, D, F]``, down ``[S, F, D]``; a packed int4 array lives under
+gate/up ``[S, D, F]``, down ``[S, F, D]``, or gate and up fused as
+``gateup`` ``[S, D, 2F]`` (``fuse_gateup``); a packed int4 array lives under
 ``"<role>4"`` (``[S, D, F/2]`` int8, split nibbles) with its scale under
 ``"<role>_scale"`` ``[S, out]``. A per-layer int32 ``expert_to_slot[E]``
 maps router expert ids to weight rows.
@@ -18,6 +20,26 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+
+def topk_router(router_logits, k: int, *, pre_softmax: bool = True,
+                normalize: bool = False, scaling: float = 1.0):
+    """Generic top-k router over ``[T, E]`` logits (promoted to f32).
+    Returns (combine_weights [T, k] f32, expert_ids [T, k] int32, probs
+    [T, E] f32). pre_softmax: top-k of the softmax probs (Mixtral), else
+    softmax over the top-k raw logits; normalize: the k weights sum to 1."""
+    logits = router_logits.float()
+    probs = torch.softmax(logits, dim=-1)
+    if pre_softmax:
+        weights, ids = torch.topk(probs, k, dim=-1)
+    else:
+        top_logits, ids = torch.topk(logits, k, dim=-1)
+        weights = torch.softmax(top_logits, dim=-1)
+    if normalize:
+        weights = weights / weights.sum(dim=-1, keepdim=True)
+    if scaling != 1.0:
+        weights = weights * scaling
+    return weights, ids.to(torch.int32), probs
 
 
 def _activate(h_gate, h_up, activation: str):
@@ -71,6 +93,39 @@ def _unpack4_weights(weights: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor
     }
 
 
+def _split_gateup(weights: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """View a fused 'gateup' [S, D, 2F] dict as separate gate/up (views, no
+    copies)."""
+    w = dict(weights)
+    gu = w.pop("gateup")
+    F = gu.shape[-1] // 2
+    w["gate"], w["up"] = gu[..., :F], gu[..., F:]
+    if "gateup_scale" in w:
+        sc = w.pop("gateup_scale")
+        w["gate_scale"], w["up_scale"] = sc[..., :F], sc[..., F:]
+    return w
+
+
+def fuse_gateup(weights: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Concatenate gate and up (and their scales) into 'gateup': one grouped
+    matmul then serves both projections. Packed int4 fuses by unpack,
+    concatenate, repack (split packing is positional), so the fused array's
+    low nibbles are the gate columns and its high nibbles the up columns."""
+    if "up4" in weights and "gateup4" not in weights:
+        w = dict(weights)
+        w["gateup4"] = pack_int4(torch.cat(
+            [unpack_int4(w.pop("gate4")), unpack_int4(w.pop("up4"))], dim=-1
+        ))
+    elif "up" in weights and "gateup" not in weights:
+        w = dict(weights)
+        w["gateup"] = torch.cat([w.pop("gate"), w.pop("up")], dim=-1)
+    else:
+        return weights
+    if "gate_scale" in w:
+        w["gateup_scale"] = torch.cat([w.pop("gate_scale"), w.pop("up_scale")], dim=-1)
+    return w
+
+
 def grouped_ffn(
     x: torch.Tensor,  # [T, D]
     expert_ids: torch.Tensor,  # [T, K] int router choices
@@ -83,7 +138,10 @@ def grouped_ffn(
     impl: str = "ragged",
 ) -> torch.Tensor:
     """Apply the routed expert FFN and combine. Returns [T, D] in x.dtype.
-    biases (NLLB): 'gate_bias' [S, F], 'down_bias' [S, D]."""
+    weights: 'gate' [S, D, F], optional 'up' [S, D, F] (gated, e.g. SiLU
+    for Mixtral), or fused 'gateup' [S, D, 2F]; 'down' [S, F, D]; optional
+    '<role>_scale' [S, out]. biases (NLLB): 'gate_bias' [S, F], 'down_bias'
+    [S, D]."""
     # a -1 slot (non-resident expert) contributes zero, never a stale slot
     expert_ids = expert_ids.long()
     invalid = expert_to_slot[expert_ids] < 0
@@ -122,10 +180,7 @@ def _gffn_ragged(x, expert_ids, combine_weights, expert_to_slot, weights,
                  activation, biases):
     T, D = x.shape
     K = expert_ids.shape[1]
-    for k in ("up", "gateup"):
-        if k in weights:
-            raise ValueError(f"grouped_ffn: weight role {k!r} is not ported yet")
-    S = weights["gate"].shape[0]
+    S = weights["gateup" if "gateup" in weights else "gate"].shape[0]
     compute_dtype = x.dtype
 
     flat_slots = expert_to_slot[expert_ids].reshape(-1).long()
@@ -135,14 +190,20 @@ def _gffn_ragged(x, expert_ids, combine_weights, expert_to_slot, weights,
     sorted_slots = flat_slots[order]
     sizes = torch.bincount(flat_slots, minlength=S)
 
-    h = _ragged_dot(xs, weights["gate"], weights.get("gate_scale"), sizes, compute_dtype)
-    if biases is not None and "gate_bias" in biases:
-        h = h + biases["gate_bias"][sorted_slots]
-    h = _activate(h, None, activation)
-    out = _ragged_dot(
-        h.to(compute_dtype), weights["down"], weights.get("down_scale"), sizes,
-        compute_dtype,
-    )
+    def dot(role, xin):
+        return _ragged_dot(xin, weights[role], weights.get(role + "_scale"),
+                           sizes, compute_dtype)
+
+    if "gateup" in weights:
+        hcat = dot("gateup", xs)
+        F = hcat.shape[-1] // 2
+        h = _activate(hcat[:, :F], hcat[:, F:], activation)
+    else:
+        h = dot("gate", xs)
+        if biases is not None and "gate_bias" in biases:
+            h = h + biases["gate_bias"][sorted_slots]
+        h = _activate(h, dot("up", xs) if "up" in weights else None, activation)
+    out = dot("down", h.to(compute_dtype))
     if biases is not None and "down_bias" in biases:
         out = out + biases["down_bias"][sorted_slots]
     out = out * combine_weights.reshape(-1)[order][:, None]

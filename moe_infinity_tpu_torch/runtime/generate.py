@@ -1,18 +1,24 @@
-"""Encoder-decoder generation, from ``moe_infinity_tpu/runtime/generate.py``.
+"""Token generation, from ``moe_infinity_tpu/runtime/generate.py``.
 
-``Seq2SeqGenerator`` encodes once, computes the cross-attention K/V, then
-decodes greedily in a Python loop. The loop keeps the tokens on the device
-and copies them to the host once at the end; with ``eos_token_id`` set it
-reads each step's tokens on the host to stop finished rows, as the JAX
-version does. Sampled decode and logprobs wait for the port of
-``runtime/sampling.py``.
+* ``Generator`` over a ``ResidentStepper`` (decoder-only models, every
+  expert resident): prefill the prompt in one forward (K2), then greedy
+  one-token steps over a contiguous KV cache (K1), reading each step's
+  token on the host as the JAX loop does.
+* ``Seq2SeqGenerator`` (encoder-decoder): encodes once, computes the
+  cross-attention K/V, then decodes greedily in a Python loop. The loop
+  keeps the tokens on the device and copies them to the host once at the
+  end; with ``eos_token_id`` set it reads each step's tokens on the host to
+  stop finished rows, as the JAX version does.
+
+Sampled decode, logprobs and ``decode_scan`` wait for the port of
+``runtime/sampling.py``; asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,10 +38,29 @@ def _bucket_len(n: int, buckets=(16, 32, 64, 128, 256, 512, 1024, 2048, 4096)) -
     return ((n + 1023) // 1024) * 1024
 
 
+def require_greedy(*, temperature=0.0, do_sample=None, top_k=0, top_p=1.0,
+                   min_p=0.0, repetition_penalty=1.0, presence_penalty=0.0,
+                   frequency_penalty=0.0, logprobs=0, logit_bias=None,
+                   seed=0) -> None:
+    """Raise NotImplementedError for any sampling keyword that asks for more
+    than greedy argmax (top_k/top_p/min_p/seed only act when sampling)."""
+    sampled = do_sample if do_sample is not None else temperature != 0.0
+    if (sampled and temperature != 0.0) or repetition_penalty != 1.0 \
+            or presence_penalty != 0.0 or frequency_penalty != 0.0 \
+            or logprobs or logit_bias:
+        raise NotImplementedError(
+            "only greedy decode is ported; sampling, penalties, logprobs "
+            "and logit_bias wait for the port of runtime/sampling.py"
+        )
+
+
 @dataclass
 class GenerationResult:
-    sequences: np.ndarray  # [B, 1 + new] decoder start token, then tokens
+    # decoder-only: [B, prompt + new] padded with pad_token_id;
+    # seq2seq: [B, 1 + new], the decoder start token, then tokens
+    sequences: np.ndarray
     num_generated: np.ndarray  # [B]
+    router_trace: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None
     # encode_ms / decode_ms: device time (CUDA events) or host time (CPU)
     stats: dict = field(default_factory=dict)
 
@@ -59,6 +84,120 @@ class _Clock:
             b.synchronize()
             return a.elapsed_time(b)
         return (b - a) * 1e3
+
+
+class ResidentStepper:
+    """Whole-model forward over fully resident experts (decoder-only)."""
+
+    def __init__(self, model, params, experts, for_layer: Callable, *,
+                 impl: str = "ragged"):
+        self.model = model
+        self.params = params
+        self.experts = experts
+        self._for_layer = for_layer
+        self._impl = impl
+
+    def init_cache(self, batch: int, max_len: int):
+        return self.model.init_cache(batch, max_len)
+
+    def begin_sequences(self, batch: int):
+        return None
+
+    def end_sequences(self, seq_ids):
+        pass
+
+    def forward(self, tokens, positions, kv, kv_len: int, seq_ids=None):
+        """(logits [B, T, V] f32, kv, router trace)."""
+        return self.model.forward(
+            self.params, self.experts, tokens, positions, kv, kv_len,
+            for_layer=self._for_layer, impl=self._impl,
+        )
+
+    def decode_scan(self, *args, **kwargs):
+        raise NotImplementedError(
+            "decode_scan (the on-device decode loop) waits for the port of "
+            "runtime/sampling.py"
+        )
+
+
+class Generator:
+    """Host-side greedy generation loop over a stepper (decoder-only)."""
+
+    def __init__(self, model=None, params=None, experts=None,
+                 for_layer: Optional[Callable] = None, *, stepper=None,
+                 impl: str = "ragged", max_seq_len: int = 2048):
+        if stepper is None:
+            if model is None or params is None:
+                raise ValueError("pass either stepper= or (model, params, experts, for_layer)")
+            stepper = ResidentStepper(model, params, experts, for_layer, impl=impl)
+        self.stepper = stepper
+        self.max_seq_len = max_seq_len
+
+    @torch.inference_mode()
+    def generate(
+        self,
+        input_ids: np.ndarray,  # [B, T] prompts of one length
+        max_new_tokens: int = 32,
+        *,
+        eos_token_id: Optional[int] = None,
+        pad_token_id: int = 0,
+        collect_trace: bool = False,
+        **sampling,
+    ) -> GenerationResult:
+        """Greedy: prefill, then one step per new token. ``sampling`` takes
+        the JAX signature's sampling keywords; any that asks for more than
+        argmax raises NotImplementedError."""
+        require_greedy(**sampling)
+        input_ids = np.asarray(input_ids)
+        if input_ids.ndim == 1:
+            input_ids = input_ids[None]
+        B, T = input_ids.shape
+        cap = min(self.max_seq_len, _bucket_len(T + max_new_tokens))
+        if T + max_new_tokens > cap:
+            raise ValueError(f"prompt {T} + new {max_new_tokens} exceeds capacity {cap}")
+        dev = self.stepper.model.device
+        kv = self.stepper.init_cache(B, cap)
+        seq_ids = self.stepper.begin_sequences(B)
+
+        tokens = torch.as_tensor(input_ids, dtype=torch.int32).to(dev)
+        positions = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+        logits, kv, trace = self.stepper.forward(tokens, positions, kv, 0, seq_ids=seq_ids)
+        traces = []
+        if collect_trace:
+            traces.append((trace[0].cpu().numpy(), trace[1].cpu().numpy()))
+        next_tok = torch.argmax(logits[:, -1, :], dim=-1)
+
+        out = np.full((B, T + max_new_tokens), pad_token_id, dtype=np.int64)
+        out[:, :T] = input_ids
+        finished = np.zeros(B, dtype=bool)
+        num_gen = np.zeros(B, dtype=np.int64)
+        cur = T
+        for step in range(max_new_tokens):
+            tok_host = next_tok.cpu().numpy()
+            out[~finished, cur] = tok_host[~finished]
+            num_gen[~finished] += 1
+            cur += 1
+            if eos_token_id is not None:
+                finished |= eos_hit(tok_host, eos_token_id)
+                if finished.all():
+                    break
+            if step == max_new_tokens - 1:
+                break
+            positions = torch.full((B, 1), cur - 1, dtype=torch.int32, device=dev)
+            logits, kv, trace = self.stepper.forward(
+                torch.as_tensor(tok_host[:, None], dtype=torch.int32).to(dev),
+                positions, kv, cur - 1, seq_ids=seq_ids,
+            )
+            if collect_trace:
+                traces.append((trace[0].cpu().numpy(), trace[1].cpu().numpy()))
+            next_tok = torch.argmax(logits[:, -1, :], dim=-1)
+
+        self.stepper.end_sequences(seq_ids)
+        return GenerationResult(
+            sequences=out[:, :cur],
+            num_generated=num_gen,
+            router_trace=traces if collect_trace else None,
+        )
 
 
 class Seq2SeqGenerator:
@@ -97,16 +236,14 @@ class Seq2SeqGenerator:
     ) -> GenerationResult:
         """Greedy decode of ``max_new_tokens`` per row. The sampling keywords
         keep the JAX signature: any that asks for more than greedy argmax
-        raises NotImplementedError (top_k/top_p/min_p/seed only act when
-        sampling)."""
-        sampled = do_sample if do_sample is not None else temperature != 0.0
-        if (sampled and temperature != 0.0) or repetition_penalty != 1.0 \
-                or presence_penalty != 0.0 or frequency_penalty != 0.0 \
-                or logprobs or logit_bias:
-            raise NotImplementedError(
-                "only greedy decode is ported; sampling, penalties, logprobs "
-                "and logit_bias wait for the port of runtime/sampling.py"
-            )
+        raises NotImplementedError (``require_greedy``)."""
+        require_greedy(
+            temperature=temperature, do_sample=do_sample,
+            repetition_penalty=repetition_penalty,
+            presence_penalty=presence_penalty,
+            frequency_penalty=frequency_penalty, logprobs=logprobs,
+            logit_bias=logit_bias,
+        )
         model, dev = self.model, self.model.device
         input_ids = np.atleast_2d(np.asarray(input_ids))
         B, T = input_ids.shape

@@ -1,0 +1,208 @@
+"""The port's ContinuousBatcher and Generator against the JAX package's
+Generator: a tiny Mixtral (the spec of tests/test_continuous.py) at f32 on
+the CPU, weights made once by the JAX model's init_random and carried over
+by the bridge. Greedy tokens must be equal, token for token. Requests join
+mid-decode deterministically: the second is submitted from the first's
+on_token callback, so it is seated while the first decodes. The query and
+key projections are scaled up (x40, in both packages) so that attention is
+sharp: with init_random's std-0.02 weights it is near uniform, and RoPE
+fed the shared columns instead of each row's positions would go unseen."""
+
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from moe_infinity_tpu.models.mixtral import MixtralModel as JMixtralModel
+from moe_infinity_tpu.models.mixtral import MixtralSpec as JMixtralSpec
+from moe_infinity_tpu.runtime.generate import Generator as JGenerator
+from moe_infinity_tpu.runtime.providers import ResidentProvider as JProvider
+from moe_infinity_tpu_torch.models.mixtral import MixtralModel, MixtralSpec
+from moe_infinity_tpu_torch.runtime.continuous import ContinuousBatcher, RequestSampling
+from moe_infinity_tpu_torch.runtime.generate import Generator
+from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+from torch_port_helpers import to_port
+
+TINY = dict(
+    vocab_size=128, hidden_size=48, intermediate_size=96, num_layers=2,
+    num_heads=6, num_kv_heads=2, head_dim=8, num_experts=4, top_k=2,
+    rms_eps=1e-6, rope_theta=1e4, tie_embeddings=False,
+)
+TIMEOUT = 60
+
+
+@pytest.fixture(scope="module")
+def models():
+    jmodel = JMixtralModel(JMixtralSpec(**TINY), compute_dtype=jnp.float32)
+    jparams, jtree = jmodel.init_random(jax.random.PRNGKey(4))
+    for layer in jparams["layers"]:
+        layer["q"], layer["k"] = layer["q"] * 40.0, layer["k"] * 40.0
+    jgen = JGenerator(jmodel, jparams, jtree, JProvider.for_layer, max_seq_len=64)
+    model = MixtralModel(MixtralSpec(**TINY), compute_dtype=torch.float32, device="cpu")
+    cache = {}
+
+    def want(prompt, n):
+        """The JAX Generator's isolated greedy run (memoised)."""
+        key = (tuple(int(t) for t in prompt), n)
+        if key not in cache:
+            cache[key] = jgen.generate(np.asarray(prompt)[None], max_new_tokens=n).sequences[0]
+        return cache[key]
+
+    return model, to_port(jparams), to_port(jtree), want, jgen
+
+
+def _batcher(models, **kw):
+    model, params, tree = models[:3]
+    cfg = dict(max_batch_size=3, page_size=8, num_pages=48, max_cols=96)
+    cfg.update(kw)
+    return ContinuousBatcher(model, params, tree, ResidentProvider.for_layer, **cfg)
+
+
+@pytest.fixture(scope="module", params=[1, 4], ids=["chunk1", "chunk4"])
+def batcher(request, models):
+    b = _batcher(models, prefill_chunk=request.param,
+                 **({"num_pages": 64, "max_cols": 128} if request.param > 1 else {}))
+    yield b
+    b.shutdown()
+
+
+def _join_after(batcher, n_tokens, prompt, **kw):
+    """on_token callback that submits `prompt` once the first request has
+    generated n_tokens; returns (callback, holder of the second future)."""
+    holder, seen = {}, []
+    ready = threading.Event()
+
+    def on_token(tok):
+        seen.append(tok)
+        if len(seen) == n_tokens:
+            holder["f"] = batcher.submit(prompt, **kw)
+            ready.set()
+
+    return on_token, holder, ready
+
+
+def test_staggered_requests_match_isolated(batcher, models):
+    want = models[3]
+    p1, p2 = np.array([5, 31, 8]), np.array([9, 3, 44, 6, 21, 2, 17, 8, 4, 11])
+    cb, holder, ready = _join_after(batcher, 2, p2, max_new_tokens=6)
+    f1 = batcher.submit(p1, max_new_tokens=10, on_token=cb)
+    np.testing.assert_array_equal(f1.result(timeout=TIMEOUT), want(p1, 10))
+    assert ready.wait(TIMEOUT)
+    np.testing.assert_array_equal(holder["f"].result(timeout=TIMEOUT), want(p2, 6))
+
+
+def test_three_way_staggered(batcher, models):
+    want = models[3]
+    prompts = [np.array([7, 11, 13, 17, 19, 23]), np.array([29, 31, 37]),
+               np.array([41, 43, 47, 53, 59, 61, 67, 71])]
+    cb2, h2, r2 = _join_after(batcher, 1, prompts[2], max_new_tokens=5)
+    cb1, h1, r1 = _join_after(batcher, 1, prompts[1], max_new_tokens=5, on_token=cb2)
+    f0 = batcher.submit(prompts[0], max_new_tokens=5, on_token=cb1)
+    np.testing.assert_array_equal(f0.result(timeout=TIMEOUT), want(prompts[0], 5))
+    assert r1.wait(TIMEOUT) and r2.wait(TIMEOUT)
+    np.testing.assert_array_equal(h1["f"].result(timeout=TIMEOUT), want(prompts[1], 5))
+    np.testing.assert_array_equal(h2["f"].result(timeout=TIMEOUT), want(prompts[2], 5))
+
+
+def test_slot_reuse_after_completion(batcher, models):
+    """Five requests through three slots: two wait and take freed slots."""
+    want = models[3]
+    prompts = [np.array([7, 11]), np.array([13, 17, 19]), np.array([23]),
+               np.array([29, 31]), np.array([37])]
+    futures = [batcher.submit(p, max_new_tokens=5) for p in prompts]
+    for p, f in zip(prompts, futures):
+        np.testing.assert_array_equal(f.result(timeout=TIMEOUT), want(p, 5))
+
+
+def test_eos_frees_slot_early(batcher, models):
+    want = models[3]
+    p = np.array([5, 31, 8])
+    ref = want(p, 8)
+    eos = int(ref[5])  # stop at the 3rd generated token
+    got = batcher.submit(p, max_new_tokens=8, eos_token_id=eos).result(TIMEOUT)
+    np.testing.assert_array_equal(got, ref[:np.where(ref[3:] == eos)[0][0] + 4])
+
+
+def test_step_stats_count_widths(models):
+    b = _batcher(models, prefill_chunk=4, num_pages=64, max_cols=128)
+    try:
+        b.submit(np.array([5, 31, 8, 77, 12, 9, 3]), max_new_tokens=3).result(TIMEOUT)
+        st = b.step_stats()
+    finally:
+        b.shutdown()
+    # 7 prompt tokens: chunks of 4 and 3 (the second yields token 1), then 2 steps
+    assert st[4]["steps"] == 2 and st[1]["steps"] == 2
+    assert all(v["ms_per_step"] > 0 for v in st.values())
+
+
+def test_failing_step_fails_futures_and_serving_continues(models):
+    """A step that raises lands in every active future; the scheduler
+    thread rebuilds the pools and serves the next request exactly
+    (mirrors tests/test_continuous.py:405)."""
+    want = models[3]
+    b = _batcher(models)
+    orig = b._forward
+    state = {"armed": True}
+
+    def poisoned(*a, **k):
+        if state["armed"]:
+            state["armed"] = False
+            raise RuntimeError("injected step failure")
+        return orig(*a, **k)
+
+    b._forward = poisoned
+    try:
+        f = b.submit(np.array([5, 31, 8]), max_new_tokens=4)
+        with pytest.raises(RuntimeError, match="injected"):
+            f.result(timeout=TIMEOUT)
+        p = np.array([7, 11, 13])
+        np.testing.assert_array_equal(
+            b.submit(p, max_new_tokens=5).result(timeout=TIMEOUT), want(p, 5))
+        assert b._thread.is_alive()
+    finally:
+        b.shutdown()
+    assert not b._thread.is_alive()
+
+
+def test_generator_matches_jax(models):
+    model, params, tree, _, jgen = models
+    prompt = np.array([[5, 31, 8, 77], [9, 3, 44, 6]])
+    want = jgen.generate(
+        prompt, max_new_tokens=6, eos_token_id=int(prompt[0, 0]), collect_trace=True)
+    got = Generator(model, params, tree, ResidentProvider.for_layer, max_seq_len=64).generate(
+        prompt, max_new_tokens=6, eos_token_id=int(prompt[0, 0]), collect_trace=True)
+    np.testing.assert_array_equal(got.sequences, want.sequences)
+    np.testing.assert_array_equal(got.num_generated, want.num_generated)
+    assert len(got.router_trace) == len(want.router_trace)
+    for (ids, _), (jids, _) in zip(got.router_trace, want.router_trace):
+        np.testing.assert_array_equal(ids, jids)
+
+
+def test_unported_options_raise(models):
+    model, params, tree = models[:3]
+    with pytest.raises(NotImplementedError):
+        ContinuousBatcher(model, params, tree, ResidentProvider.for_layer, arena=object())
+    with pytest.raises(ValueError, match="multiple"):
+        ContinuousBatcher(model, params, tree, ResidentProvider.for_layer,
+                          page_size=8, max_cols=90)
+    b = _batcher(models)
+    try:
+        with pytest.raises(NotImplementedError):
+            b.submit(np.array([1, 2]), temperature=0.7)
+        with pytest.raises(NotImplementedError):
+            b.submit(np.array([1, 2]), sampling=RequestSampling(repetition_penalty=1.2))
+        with pytest.raises(NotImplementedError):
+            b.submit(np.array([1, 2]), logit_bias={3: 1.0})
+        # greedy settings pass (temperature 0 with top_k is still argmax)
+        b.submit(np.array([1, 2]), max_new_tokens=1, top_k=5, do_sample=False).result(TIMEOUT)
+    finally:
+        b.shutdown()
+    gen = Generator(model, params, tree, ResidentProvider.for_layer)
+    with pytest.raises(NotImplementedError):
+        gen.generate(np.array([[1, 2]]), max_new_tokens=2, temperature=0.5)
+    with pytest.raises(NotImplementedError):
+        gen.stepper.decode_scan(None, None, None, 2)

@@ -148,3 +148,62 @@ def test_grouped_ffn_pallas_kernel_matches_plain(dev):
     want = grouped_ffn(x.cpu(), ids.cpu(), cw.cpu(), slot.cpu(), cpu, "relu",
                        biases={k: v.cpu() for k, v in b.items()}, impl="pallas")
     _close(got.cpu(), want, 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rep,holes,softcap", [
+    (4, True, None), (8, False, None), (4, False, 30.0), (1, True, None),
+])
+def test_paged_flash_decode_kernel(dev, dtype, rep, holes, softcap):
+    """Shuffled page table, hole mask, a row of length 0 (gives 0) and a
+    row past the table's columns (clamped to P * page)."""
+    g = _gen(dev)
+    B, Hkv, Dh, page, P, NP = 4, 2, 128, 16, 6, 40
+    H = Hkv * rep
+    q = torch.randn(B, H, Dh, generator=g, device=dev).to(dtype)
+    pk = torch.randn(NP, page, Hkv, Dh, generator=g, device=dev).to(dtype)
+    pv = torch.randn(NP, page, Hkv, Dh, generator=g, device=dev).to(dtype)
+    table = torch.stack([torch.randperm(NP, generator=g, device=dev)[:P]
+                         for _ in range(B)]).to(torch.int32)
+    lengths = torch.tensor([37, 0, 96, 200], dtype=torch.int32, device=dev)
+    mask = torch.rand(B, P * page, generator=g, device=dev) > 0.3 if holes else None
+    kw = dict(logit_softcap=softcap, pad_mask=mask)
+    got = fa.paged_flash_decode(q, pk, pv, table, lengths, **kw)
+    want = fa.paged_flash_decode_plain(q, pk, pv, table, lengths, scale=Dh ** -0.5, **kw)
+    _close(got, want, 2e-3 if dtype == torch.float32 else 2e-2)
+    assert bool((got[1] == 0).all())
+
+
+def test_paged_flash_decode_kernel_rejects_mixed_devices(dev):
+    q = torch.zeros(1, 8, 128, device=dev)
+    pool = torch.zeros(4, 16, 2, 128, device=dev)
+    table = torch.zeros(1, 2, dtype=torch.int32)  # on the CPU
+    with pytest.raises(ValueError, match="different devices"):
+        fa.paged_flash_decode(q, pool, pool, table, torch.ones(1, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_grouped_ffn_pallas_gated_int8_kernel_matches_plain(dev, fused):
+    """Mixtral's SiLU-gated FFN on K3: gate + up (two launches) or fused
+    gateup (one), int8 weights with per-channel scales."""
+    from moe_infinity_tpu_torch.ops.moe import fuse_gateup
+
+    g = _gen(dev)
+    T, D, F, E, K = 8, 512, 768, 8, 2
+    x = torch.randn(T, D, generator=g, device=dev).to(torch.bfloat16)
+    ids = torch.stack([torch.randperm(E, generator=g, device=dev)[:K] for _ in range(T)])
+    cw = torch.rand(T, K, generator=g, device=dev)
+    slot = torch.arange(E, dtype=torch.int32, device=dev)
+    w = {}
+    for role, (d_in, d_out) in (("gate", (D, F)), ("up", (D, F)), ("down", (F, D))):
+        w[role] = torch.randint(-127, 127, (E, d_in, d_out), generator=g, device=dev,
+                                dtype=torch.int8)
+        w[role + "_scale"] = torch.rand(E, d_out, generator=g, device=dev) * 1e-3 + 1e-3
+    if fused:
+        w = fuse_gateup(w)
+    before = gm.LAUNCHES["gmm"]
+    got = grouped_ffn(x, ids, cw, slot, w, "silu", impl="pallas")
+    assert gm.LAUNCHES["gmm"] - before == (2 if fused else 3)
+    cpu = {k: v.cpu() for k, v in w.items()}
+    want = grouped_ffn(x.cpu(), ids.cpu(), cw.cpu(), slot.cpu(), cpu, "silu", impl="pallas")
+    _close(got.cpu(), want, 2e-2)

@@ -121,7 +121,10 @@ def test_gffn_pallas_nllb_packed_matches_jax(rng, S, dtype):
 
 
 def test_gffn_pallas_rejects_unported_roles():
-    w = {"gateup4": torch.zeros(2, 4, 4, dtype=torch.int8)}
+    """The gated roles are ported; a pre-tiled [S, F/tf, D, tf] weight
+    (ops/gmm.py::pack_tiled of the JAX package) is not."""
+    w = {"gate": torch.zeros(2, 1, 4, 4, dtype=torch.bfloat16),
+         "down": torch.zeros(2, 4, 4, dtype=torch.bfloat16)}
     with pytest.raises(ValueError, match="not ported"):
         gm.gffn_pallas(torch.zeros(2, 4), torch.zeros(2, 2, dtype=torch.int32),
                        torch.ones(2, 2), torch.arange(2), w, "silu")

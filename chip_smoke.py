@@ -7,9 +7,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device and build: needs a CUDA device, prints the card's name and power
    limit, builds every kernel from ``moe_infinity_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version on the card, at the shapes
-   of the NLLB-MoE-54B and Mixtral-8x7B paths, with the error, its
-   tolerance and the times of the kernel, the plain version and one library
-   call for the same function;
+   of the NLLB-MoE-54B, Mixtral-8x7B and DeepSeek-V2-Lite paths, with the
+   error, its tolerance and the times of the kernel, the plain version and
+   one library call for the same function;
 3. the seq2seq main path: NLLB-MoE-54B geometry (d_model 2048, 16 heads,
    FFN 8192, 128 experts top-2, every 4th block sparse, vocab 256,206) with
    random weights from a seed, bf16 compute, packed int4 experts, resident
@@ -27,10 +27,23 @@ Phases, each printing its own lines; any failure exits non-zero:
 6. its whole-path check: at full width and 2 layers, a 16-wide chunk step
    and a one-token step over paged caches with holes, logits through the
    kernels against the plain versions on the card (f32 on three seeds,
-   bf16 on one).
+   bf16 on one);
+7. the MLA main path: DeepSeek-V2-Lite (``bench.py``'s ``DSV2_LITE_SPEC``:
+   d_model 2048, 27 layers, 16 heads, latent 512 + rope key 64, 64 routed
+   experts top-6 of FFN 1408 plus 2 shared experts, the first layer dense,
+   vocab 102,400, untied embeddings) at full width and depth, bf16 compute,
+   bf16 experts made on the card from a seed, served by ``ContinuousBatcher``
+   with phase 5's traffic, then request 1 alone through ``Generator``, then
+   through ``FusedRunner`` (prefill and a 15-token ``decode`` over the
+   stacked expert pool, K3 at group offsets above 0); K5 and K3 must launch
+   on each of the three, K5 27 times per one-token step;
+8. its whole-path check: at full width and 1 dense + 2 MoE layers, the
+   same two steps over paged caches with holes, logits through the kernels
+   against the plain versions (f32 on three seeds, bf16 on one), and once
+   more with ``fold_mla_params`` applied.
 
 The line before the last is the per-kernel JSON record (launches: the sum
-of phase 3's and phase 5's counts); the last line is
+of the counts of phases 3, 5 and 7); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -73,6 +86,18 @@ PROMPT_LENS = (24, 40, 64, 96, 17, 33, 50, 80)  # 8 requests into 4 slots
 SLOTS, PAGE, MAX_COLS, CHUNK = 4, 16, 512, 16
 NLLB_KERNELS = ("flash_decode", "flash_attend", "gmm")
 BATCHER_KERNELS = ("paged_flash_decode", "flash_attend", "gmm")
+
+# bench.py DSV2_LITE_SPEC (the published DeepSeek-V2-Lite geometry)
+DSV2_LITE = dict(
+    vocab_size=102400, hidden_size=2048, intermediate_size=10944,
+    moe_intermediate_size=1408, num_layers=27, num_heads=16,
+    q_lora_rank=None, kv_lora_rank=512, qk_nope_head_dim=128,
+    qk_rope_head_dim=64, v_head_dim=128, num_experts=64, top_k=6,
+    n_shared_experts=2, first_k_dense_replace=1, topk_method="greedy",
+    n_group=None, topk_group=None, routed_scaling_factor=1.0,
+    rms_eps=1e-6, rope_theta=10000.0, tie_embeddings=False,
+)
+MLA_KERNELS = ("mla_flash_decode", "gmm")
 
 
 def say(*a):
@@ -416,11 +441,135 @@ def check_paged_decode(g, dev):
     )
 
 
+def check_mla_decode(g, dev):
+    """K5 at DeepSeek-V2-Lite's batcher decode step: B=4, H=16, R=512, P=64,
+    bf16 caches of 512 columns, rows of 113, 200, 37 and 512 live keys with a
+    hole mask (K4's case); once more with f32 caches and the folded scale
+    1.0; a row with no valid key gives 0."""
+    import torch.nn.functional as F_
+
+    from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+    B, H, R, P, S = SLOTS, DSV2_LITE["num_heads"], 512, 64, MAX_COLS
+    scale = (DSV2_LITE["qk_nope_head_dim"] + P) ** -0.5
+    q_lat = torch.randn(B, H, R, generator=g, device=dev)
+    q_pe = torch.randn(B, H, P, generator=g, device=dev)
+    c32 = torch.randn(B, S, R, generator=g, device=dev)
+    kpe32 = torch.randn(B, S, P, generator=g, device=dev)
+    c, kpe = c32.to(torch.bfloat16), kpe32.to(torch.bfloat16)
+    lengths = torch.tensor([113, 200, 37, 512], dtype=torch.int32, device=dev)
+    pos = lengths - 1
+    holes = torch.rand(B, S, generator=g, device=dev) > 0.1
+    run = lambda: fa.mla_flash_decode(  # noqa: E731
+        q_lat, q_pe, c, kpe, pos, S, scale=scale, pad_mask=holes)
+    plain = lambda: fa.mla_flash_decode_plain(  # noqa: E731
+        q_lat, q_pe, c, kpe, pos, S, scale=scale, pad_mask=holes)
+    what = "mla_flash_decode B=4 H=16 R=512 P=64 S=512 lengths=(113,200,37,512) holes"
+    err = compare(f"{what} bf16 caches", run(), plain())
+    err = max(err, compare(
+        f"{what} f32 caches scale=1.0",
+        fa.mla_flash_decode(q_lat * scale, q_pe * scale, c32, kpe32, pos, S, scale=1.0,
+                            pad_mask=holes),
+        fa.mla_flash_decode_plain(q_lat * scale, q_pe * scale, c32, kpe32, pos, S, scale=1.0,
+                                  pad_mask=holes)))
+    empty = holes.clone()
+    empty[2] = False
+    out = fa.mla_flash_decode(q_lat, q_pe, c, kpe, pos, S, scale=scale, pad_mask=empty)
+    err = max(err, compare(
+        f"{what}, row 2 without a valid key", out,
+        fa.mla_flash_decode_plain(q_lat, q_pe, c, kpe, pos, S, scale=scale, pad_mask=empty)))
+    if not bool((out[2] == 0).all()):
+        raise AssertionError("mla_flash_decode: a row with no valid key must give 0")
+    live = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+    valid = int((live & holes).sum())
+    nbytes = (valid * (R + P) * c.element_size()  # live latent and rope-key rows
+              + int(lengths.sum()) + B * 4  # mask bytes of the live range, positions
+              + B * H * (R + P) * 4 + B * H * R * 4)  # f32 q in, f32 out
+    b_ms, b_by = bound_ms(nbytes, 2 * H * valid * (2 * R + P))
+    # library yardstick: one SDPA call on q = [q_lat | q_pe], the shared key
+    # [c | k_pe] expanded over the heads, value c, the same mask as a float bias
+    qs = torch.cat([q_lat, q_pe], -1).to(torch.bfloat16)[:, :, None, :]
+    ks = torch.cat([c, kpe], -1)[:, None].expand(B, H, S, R + P)
+    vs = c[:, None].expand(B, H, S, R)
+    bias = torch.where(live & holes, 0.0, float("-inf")).to(torch.bfloat16)[:, None, None, :]
+    lib = lambda: F_.scaled_dot_product_attention(  # noqa: E731
+        qs, ks, vs, attn_mask=bias, scale=scale)
+    torch.cuda.synchronize()
+    say(f"[check] SDPA yardstick vs mla_flash_decode (q and p are bf16 there): max_abs_diff="
+        f"{(lib()[:, :, 0].float() - run()).abs().max().item():.3e} (reported, not held)")
+    return dict(
+        name="mla_flash_decode", route="cuda",
+        source="moe_infinity_tpu_torch/csrc/flash_attention.cu",
+        replaces="moe_infinity_tpu/ops/flash_attention.py:507",
+        max_abs_err=err, ms=cuda_ms(run), plain_ms=cuda_ms(plain),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib),
+        shape=f"B={B} H={H} R={R} P={P} S={S}, {valid} valid keys, bf16 caches "
+              f"(library: SDPA over the key expanded to {H} heads)",
+    )
+
+
+def check_gmm_deepseek(g, dev):
+    """K3 at one DeepSeek-V2-Lite decode MoE layer: gate, up and down over 24
+    rows (4 tokens x top-6) routed over 64 experts, D=2048 F=1408, in bf16
+    (11 column tiles) and packed int4 (704 stored columns: 5.5 tiles, the
+    partial tile), all 64 groups passed uncompacted as the fused runner passes
+    them; the bf16 case once more at group_offset 128 into a 3-layer pool."""
+    import torch.nn.functional as F_
+
+    from moe_infinity_tpu_torch.ops import gmm as gm
+
+    E, D, F, T, K = DSV2_LITE["num_experts"], 2048, 1408, SLOTS, DSV2_LITE["top_k"]
+    rows = T * K
+    flat = torch.stack([torch.randperm(E, generator=g, device=dev)[:K] for _ in range(T)]).reshape(-1)
+    gsz = torch.zeros(E, dtype=torch.int32, device=dev)
+    gsz.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    active = int((gsz > 0).sum())
+    x = torch.randn(rows, D, generator=g, device=dev).to(torch.bfloat16)
+    errs = []
+    for kind, offset in (("bf16", 0), ("int4", 0), ("bf16", 2 * E)):
+        S, packed = offset + E, kind == "int4"
+        w, sc = {}, {}
+        for role, (d_in, d_out) in (("gate", (D, F)), ("up", (D, F)), ("down", (F, D))):
+            if packed:
+                w[role] = torch.randint(-128, 128, (S, d_in, d_out // 2), generator=g,
+                                        device=dev, dtype=torch.int8)
+                sc[role] = torch.rand(S, d_out, generator=g, device=dev) * 0.0026 + 0.003
+            else:
+                w[role] = (torch.randn(S, d_in, d_out, generator=g, device=dev) * 0.02
+                           ).to(torch.bfloat16)
+                sc[role] = None
+        kw = dict(group_offset=offset, packed=packed)
+        a = (F_.silu(gm.gmm(x, w["gate"], gsz, sc["gate"], **kw))
+             * gm.gmm(x, w["up"], gsz, sc["up"], **kw)).to(torch.bfloat16)
+
+        def calls(fn):
+            return lambda: [fn(xin, w[r], gsz, sc[r], **kw)
+                            for r, xin in (("gate", x), ("up", x), ("down", a))]
+
+        run, plain = calls(gm.gmm), calls(gm.gmm_plain)
+        label = f"{kind} V2-Lite decode rows={rows} active={active} of {E} offset={offset}"
+        errs += [compare(f"gmm {label} {r}", got, want)
+                 for r, got, want in zip(("gate", "up", "down"), run(), plain())]
+        wbytes = sum(active * v.shape[1] * v.shape[2] * v.element_size() for v in w.values())
+        nbytes = (wbytes + (active * (2 * F + D) * 4 if packed else 0)
+                  + 2 * rows * D * 2 + rows * F * 2 + 2 * rows * F * 4 + rows * D * 4)
+        b_ms, b_by = bound_ms(nbytes, 2 * rows * D * F * 3)
+        say(f"[time] gmm DeepSeek-V2-Lite decode MoE layer (gate + up + down, {rows} rows over "
+            f"{active} of {E} experts, {kind}, D={D} F={F}, group_offset={offset}): "
+            f"ms={cuda_ms(run):.4f} plain_ms={cuda_ms(plain, iters=5, warmup=1):.4f} "
+            f"bound_ms={b_ms:.5f} ({b_by})")
+        del w, sc
+        torch.cuda.empty_cache()
+    return max(errs)
+
+
 def phase_kernels(dev):
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     recs = [check_flash_decode(g, dev), check_flash_attend(g, dev),
-            check_gmm_mixtral(g, dev, check_gmm(g, dev)), check_paged_decode(g, dev)]
+            check_gmm_mixtral(g, dev, check_gmm(g, dev)), check_paged_decode(g, dev),
+            check_mla_decode(g, dev)]
+    recs[2]["max_abs_err"] = max(recs[2]["max_abs_err"], check_gmm_deepseek(g, dev))
     for r in recs:
         say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
@@ -511,7 +660,8 @@ def _require_launched(counts, names, what):
 def _profile(label, fn, n):
     """Run fn() n times under torch.profiler: host wall time per call, the
     device's busy time per call (sum of kernel intervals; one stream, so no
-    overlap) and its busy share, and the kernels taking the most time."""
+    overlap) and its busy share, and the kernels taking the most time.
+    Returns the busy time per call (None when the trace holds no kernel)."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -530,12 +680,13 @@ def _profile(label, fn, n):
             by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n
     if not by_name:
         say(f"[profile] {label}: device time not measured (no CUDA events traced)")
-        return
+        return None
     busy = sum(by_name.values())
     say(f"[profile] {label}: wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
         f"busy_share={busy / wall_ms:.3f}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         say(f"[profile]   {ms:8.3f} ms  {name[:110]}")
+    return busy
 
 
 def _profile_main_path(model, params, provider, ids, mask):
@@ -591,7 +742,8 @@ class _plain_kernels:
     def __enter__(self):
         from moe_infinity_tpu_torch.ops import flash_attention as fa, gmm as gm
 
-        self._saved = (fa.flash_decode, fa.flash_attend, fa.paged_flash_decode, gm.gmm)
+        self._saved = (fa.flash_decode, fa.flash_attend, fa.paged_flash_decode,
+                       fa.mla_flash_decode, gm.gmm)
 
         def decode(q, k, v, qp, kv_len, *, scale=None, causal=True,
                    logit_softcap=None, pad_mask=None):
@@ -619,17 +771,22 @@ class _plain_kernels:
                 logit_softcap=logit_softcap, pad_mask=pad_mask,
             )
 
+        def mla(q_lat, q_pe, c, kpe, qp, kv_len, *, scale, pad_mask=None):
+            return fa.mla_flash_decode_plain(q_lat, q_pe, c, kpe, qp.reshape(-1), int(kv_len),
+                                             scale=float(scale), pad_mask=pad_mask)
+
         def gmm(x, w, gs, scale=None, group_offset=0, group_ids=None, *, packed=False):
             return gm.gmm_plain(x, w, gs, scale, group_offset, group_ids, packed=packed)
 
-        fa.flash_decode, fa.flash_attend, fa.paged_flash_decode, gm.gmm = (
-            decode, attend, paged, gmm)
+        (fa.flash_decode, fa.flash_attend, fa.paged_flash_decode, fa.mla_flash_decode,
+         gm.gmm) = (decode, attend, paged, mla, gmm)
         return self
 
     def __exit__(self, *exc):
         from moe_infinity_tpu_torch.ops import flash_attention as fa, gmm as gm
 
-        fa.flash_decode, fa.flash_attend, fa.paged_flash_decode, gm.gmm = self._saved
+        (fa.flash_decode, fa.flash_attend, fa.paged_flash_decode, fa.mla_flash_decode,
+         gm.gmm) = self._saved
         return False
 
 
@@ -692,11 +849,111 @@ def _mixtral(dev, dtype, seed, **spec_overrides):
     return model, params, ResidentProvider(tree), g
 
 
+def _serve_batcher(tag, model, params, experts, g):
+    """Serve PROMPT_LENS' 8 requests, submitted together, through a
+    ContinuousBatcher of 4 slots, 16 greedy tokens each, after a warm-up
+    request that runs both step widths. Prints the run's times and counts,
+    checks what came back, and returns (the batcher with its thread stopped,
+    prompts, outputs, launch counts of the 8 requests, step stats)."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.continuous import ContinuousBatcher
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    vocab, dev = model.spec.vocab_size, model.device
+    prompts = [torch.randint(1, vocab, (n,), generator=g, device=dev).cpu().numpy()
+               for n in PROMPT_LENS]
+    batcher = ContinuousBatcher(
+        model, params, experts, ResidentProvider.for_layer, impl="pallas",
+        max_batch_size=SLOTS, page_size=PAGE, max_cols=MAX_COLS,
+        num_pages=(MAX_COLS // PAGE) * (SLOTS + 1), prefill_chunk=CHUNK,
+    )
+    try:
+        batcher.submit(prompts[4], max_new_tokens=2).result(timeout=600)  # warm-up
+        torch.cuda.synchronize()
+        batcher.reset_step_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        futures = [batcher.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        outs = [f.result(timeout=600) for f in futures]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        steps = batcher.step_stats()
+    finally:
+        batcher.shutdown()
+    n_tok = len(prompts) * NEW_TOKENS
+    say(f"[{tag}] {len(prompts)} requests x {NEW_TOKENS} tokens (prompts "
+        f"{PROMPT_LENS}): wall_s={wall:.3f} tokens_per_s={n_tok / wall:.2f} "
+        f"max_memory_allocated_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    for w, st in steps.items():
+        say(f"[{tag}] steps of width {w}: {st['steps']} at "
+            f"{st['ms_per_step']:.3f} ms per step (host clock, ends in the argmax read)")
+    say(f"[{tag}] launches {json.dumps(counts)}")
+    say(f"[{tag}] request 1 tokens {outs[0][len(prompts[0]):].tolist()}")
+    for p, out in zip(prompts, outs):
+        if out.shape != (len(p) + NEW_TOKENS,) or not np.array_equal(out[:len(p)], p):
+            raise AssertionError(f"request of {len(p)} tokens came back as {out.shape}")
+        if not np.all((out >= 0) & (out < vocab)):
+            raise AssertionError("token ids out of range")
+    return batcher, prompts, outs, counts, steps
+
+
+def _profile_batcher(label, batcher, prompts):
+    """Profile the batcher's own steps, driven here with its thread stopped:
+    the first 16-wide chunk step of 4 fresh requests, then 4 one-token steps.
+    Returns the one-token step's device busy time."""
+    for p in prompts[:SLOTS]:
+        batcher.submit(p, max_new_tokens=NEW_TOKENS)
+    with torch.inference_mode():
+        batcher._admit()
+        _profile(f"{label}batcher chunk step W=16 (4 rows prefilling)",
+                 batcher._step_iteration, 1)
+        while any(s.prefilling for s in batcher._slots):
+            batcher._step_iteration()
+        return _profile(f"{label}batcher decode step W=1 (4 rows)", batcher._step_iteration, 4)
+
+
+def _paged_step_inputs(model, g):
+    """Inputs of ``_batcher_steps``: a shuffled page table over all pages but
+    the null page, a hole mask for rows fed 16, 16, 9 and 1 tokens, tokens."""
+    dev = model.device
+    B, P, NP = SLOTS, MAX_COLS // PAGE, (MAX_COLS // PAGE) * (SLOTS + 1)
+    fed = torch.tensor([16, 16, 9, 1], device=dev)
+    valid = torch.zeros(B, MAX_COLS, dtype=torch.bool, device=dev)
+    valid[torch.arange(MAX_COLS, device=dev)[None, :] < fed[:, None]] = True
+    return dict(
+        num_pages=NP, valid=valid,
+        table=(torch.randperm(NP - 1, generator=g, device=dev)[:B * P] + 1)
+        .reshape(B, P).to(torch.int32),
+        toks1=torch.randint(1, model.spec.vocab_size, (B, CHUNK), generator=g,
+                            device=dev, dtype=torch.int32),
+        toks2=torch.randint(1, model.spec.vocab_size, (B, 1), generator=g,
+                            device=dev, dtype=torch.int32),
+        rope2=fed.to(torch.int32)[:, None],
+    )
+
+
+def _hold_steps(what, dtype, got, want):
+    """f32 logits of the two steps are held to the tolerance; bf16 is
+    reported per request and must be finite."""
+    for label, a, b in (("W=16 chunk step", got[0], want[0]),
+                        ("W=1 paged step", got[1], want[1])):
+        full = what.format(step=label)
+        if dtype == torch.float32:
+            compare(full, a, b)
+        else:
+            rows = (a - b).abs().amax(dim=(1, 2)).tolist()
+            same = (a.argmax(-1) == b.argmax(-1)).all().item()
+            say(f"[check] {full}: per-request max_abs_err={['%.3e' % r for r in rows]} "
+                f"argmax equal={same} (reported, not held to a tolerance)")
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{full}: logits are not finite")
+
+
 def phase_mixtral(dev):
     """Serve 8 requests through 4 slots; returns the launch counts of the
     batcher's run and of the Generator's run."""
     from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
-    from moe_infinity_tpu_torch.runtime.continuous import ContinuousBatcher
     from moe_infinity_tpu_torch.runtime.generate import Generator
     from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 
@@ -711,45 +968,9 @@ def phase_mixtral(dev):
     say(f"[mixtral] weights built on the card in {time.perf_counter() - t0:.1f} s; "
         f"experts {provider.nbytes() / 1e9:.2f} GB, allocated "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    vocab = model.spec.vocab_size
-    prompts = [torch.randint(1, vocab, (n,), generator=g, device=dev).cpu().numpy()
-               for n in PROMPT_LENS]
     experts = provider.pytree()
-    batcher = ContinuousBatcher(
-        model, params, experts, ResidentProvider.for_layer, impl="pallas",
-        max_batch_size=SLOTS, page_size=PAGE, max_cols=MAX_COLS,
-        num_pages=(MAX_COLS // PAGE) * (SLOTS + 1), prefill_chunk=CHUNK,
-    )
-    try:
-        # warm-up: one request runs both step widths once
-        batcher.submit(prompts[4], max_new_tokens=2).result(timeout=600)
-        torch.cuda.synchronize()
-        batcher.reset_step_stats()
-        reset_launches()
-        t0 = time.perf_counter()
-        futures = [batcher.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
-        outs = [f.result(timeout=600) for f in futures]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = launch_counts()
-        steps = batcher.step_stats()
-    finally:
-        batcher.shutdown()
-    n_tok = len(prompts) * NEW_TOKENS
-    say(f"[mixtral] {len(prompts)} requests x {NEW_TOKENS} tokens (prompts "
-        f"{PROMPT_LENS}): wall_s={wall:.3f} tokens_per_s={n_tok / wall:.2f} "
-        f"max_memory_allocated_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
-    for w, st in steps.items():
-        say(f"[mixtral] steps of width {w}: {st['steps']} at "
-            f"{st['ms_per_step']:.3f} ms per step (host clock, ends in the argmax read)")
-    say(f"[mixtral] launches {json.dumps(counts)}")
-    say(f"[mixtral] request 1 tokens {outs[0][len(prompts[0]):].tolist()}")
+    batcher, prompts, outs, counts, _ = _serve_batcher("mixtral", model, params, experts, g)
     _require_launched(counts, BATCHER_KERNELS, "Mixtral batcher path")
-    for p, out in zip(prompts, outs):
-        if out.shape != (len(p) + NEW_TOKENS,) or not np.array_equal(out[:len(p)], p):
-            raise AssertionError(f"request of {len(p)} tokens came back as {out.shape}")
-        if not np.all((out >= 0) & (out < vocab)):
-            raise AssertionError("token ids out of range")
 
     # request 1 alone through Generator: contiguous cache, K2 prefill, K1 decode
     reset_launches()
@@ -761,33 +982,26 @@ def phase_mixtral(dev):
     say(f"[mixtral] Generator alone, request 1: tokens equal to the batcher's: {same} "
         f"(bf16, reported, not held); launches {json.dumps(gen_counts)}")
 
-    # profile the batcher's own steps, driven here with its thread stopped
-    for p in prompts[:SLOTS]:
-        batcher.submit(p, max_new_tokens=NEW_TOKENS)
-    with torch.inference_mode():
-        batcher._admit()
-        _profile("batcher chunk step W=16 (4 rows prefilling)", batcher._step_iteration, 1)
-        while any(s.prefilling for s in batcher._slots):
-            batcher._step_iteration()
-        _profile("batcher decode step W=1 (4 rows)", batcher._step_iteration, 4)
+    _profile_batcher("", batcher, prompts)
     del batcher, params, provider, experts, model
     torch.cuda.empty_cache()
     return {k: counts[k] + gen_counts[k] for k in counts}
 
 
-def _batcher_steps(model, params, experts, inputs):
+def _batcher_steps(model, params, experts, inputs, trace_ids=None):
     """A 16-wide chunk step, then a one-token step, over fresh paged caches
     as the batcher builds them: rows fed 16, 16, 9 and 1 real tokens in the
-    chunk (the rest are hole columns), per-row RoPE positions."""
+    chunk (the rest are hole columns), per-row RoPE positions. Returns the two
+    steps' logits; trace_ids, a list, collects their routed expert ids."""
     from moe_infinity_tpu_torch.runtime.paged_kv import PagedKVCache
     from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 
-    s = model.spec
     dev = model.device
-    shape = (inputs["num_pages"], PAGE, s.num_kv_heads, s.head_dim)
-    kvs = [PagedKVCache(torch.zeros(shape, dtype=model.dtype, device=dev),
-                        torch.zeros(shape, dtype=model.dtype, device=dev), inputs["table"])
-           for _ in range(s.num_layers)]
+    lead = (inputs["num_pages"], PAGE)  # pools shaped as the batcher shapes them
+    kvs = [PagedKVCache(torch.zeros(lead + tuple(kv.k.shape[2:]), dtype=model.dtype, device=dev),
+                        torch.zeros(lead + tuple(kv.v.shape[2:]), dtype=model.dtype, device=dev),
+                        inputs["table"])
+           for kv in model.init_cache(1, 1)]
     valid = inputs["valid"].clone()
     B = valid.shape[0]
     chunk = torch.arange(CHUNK, dtype=torch.int32, device=dev).expand(B, CHUNK)
@@ -797,10 +1011,12 @@ def _batcher_steps(model, params, experts, inputs):
                                   inputs["rope2"], CHUNK)):
         if col:
             valid[:, col] = True
-        logits, _, _ = model.forward(params, experts, toks, pos, kvs, col,
-                                     for_layer=ResidentProvider.for_layer, impl="pallas",
-                                     rope_positions=rope, key_valid=valid)
+        logits, _, trace = model.forward(params, experts, toks, pos, kvs, col,
+                                         for_layer=ResidentProvider.for_layer, impl="pallas",
+                                         rope_positions=rope, key_valid=valid)
         out.append(logits)
+        if trace_ids is not None:
+            trace_ids.append(trace[0])
     return out
 
 
@@ -841,20 +1057,7 @@ def phase_mixtral_whole_path(dev):
                         (torch.bfloat16, 77)):
         model, params, provider, g = _mixtral(dev, dtype, seed, num_layers=2)
         experts = provider.pytree()
-        B, P, NP = SLOTS, MAX_COLS // PAGE, (MAX_COLS // PAGE) * (SLOTS + 1)
-        fed = torch.tensor([16, 16, 9, 1], device=dev)
-        valid = torch.zeros(B, MAX_COLS, dtype=torch.bool, device=dev)
-        valid[torch.arange(MAX_COLS, device=dev)[None, :] < fed[:, None]] = True
-        inputs = dict(
-            num_pages=NP, valid=valid,
-            table=(torch.randperm(NP - 1, generator=g, device=dev)[:B * P] + 1)
-            .reshape(B, P).to(torch.int32),
-            toks1=torch.randint(1, model.spec.vocab_size, (B, CHUNK), generator=g,
-                                device=dev, dtype=torch.int32),
-            toks2=torch.randint(1, model.spec.vocab_size, (B, 1), generator=g,
-                                device=dev, dtype=torch.int32),
-            rope2=fed.to(torch.int32)[:, None],
-        )
+        inputs = _paged_step_inputs(model, g)
         xs_got, xs_want = [], []
         with torch.inference_mode():
             reset_launches()
@@ -872,20 +1075,188 @@ def phase_mixtral_whole_path(dev):
             say(f"[check] seed {seed}: K3 inputs whose bf16 rounding differs between the "
                 f"kernel and plain runs, per call (layer 0 gate, up, down, layer 1 ...; "
                 f"W=16 step, then W=1): {flips} of {[a.numel() for a in xs_got]}")
-        for label, a, b in (("W=16 chunk step", got[0], want[0]),
-                            ("W=1 paged step", got[1], want[1])):
-            full = (f"Mixtral whole path logits {name} seed {seed}, {label} (full width, "
-                    f"2 layers, int8 experts, paged, holes)")
-            if dtype == torch.float32:
-                compare(full, a, b)
-            else:
-                rows = (a - b).abs().amax(dim=(1, 2)).tolist()
-                same = (a.argmax(-1) == b.argmax(-1)).all().item()
-                say(f"[check] {full}: per-request max_abs_err={['%.3e' % r for r in rows]} "
-                    f"argmax equal={same} (reported, not held to a tolerance)")
-                if not bool(torch.isfinite(a).all()):
-                    raise AssertionError("bf16 Mixtral whole-path logits are not finite")
+        _hold_steps(f"Mixtral whole path logits {name} seed {seed}, {{step}} (full width, "
+                    f"2 layers, int8 experts, paged, holes)", dtype, got, want)
         del model, params, provider, experts, got, want, xs_got, xs_want
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: DeepSeek-V2-Lite (MLA) through the batcher, Generator and
+# the fused runner
+# ---------------------------------------------------------------------------
+
+def _deepseek(dev, dtype, seed, **spec_overrides):
+    from moe_infinity_tpu_torch.models.deepseek_v2 import DeepseekV2Model, DeepseekV2Spec
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    model = DeepseekV2Model(DeepseekV2Spec(**dict(DSV2_LITE, **spec_overrides)),
+                            compute_dtype=dtype, device=dev)
+    params, tree = model.init_random(g, expert_dtype="bf16")
+    return model, params, ResidentProvider(tree), g
+
+
+def _require_mla_counts(counts, one_token_steps, steps, what, layers=DSV2_LITE["num_layers"]):
+    """K5 launches once per layer of every one-token step and nowhere else;
+    K3 three times (gate, up, down) per MoE layer of every step."""
+    _require_launched(counts, MLA_KERNELS, what)
+    moe_layers = layers - DSV2_LITE["first_k_dense_replace"]
+    want = {"mla_flash_decode": layers * one_token_steps, "gmm": 3 * moe_layers * steps}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def phase_deepseek(dev):
+    """Serve 8 requests through 4 slots, then request 1 through Generator and
+    through FusedRunner; returns the three runs' launch counts summed."""
+    import warnings
+
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.fused import FusedRunner
+    from moe_infinity_tpu_torch.runtime.generate import Generator
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    L = DSV2_LITE["num_layers"]
+    say(f"[deepseek] DeepSeek-V2-Lite geometry, {L} layers (1 dense + {L - 1} MoE), bf16 compute, "
+        f"bf16 experts, impl=pallas; ContinuousBatcher(max_batch_size={SLOTS}, "
+        f"page_size={PAGE}, max_cols={MAX_COLS}, "
+        f"num_pages={(MAX_COLS // PAGE) * (SLOTS + 1)}, prefill_chunk={CHUNK})")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params, provider, g = _deepseek(dev, torch.bfloat16, 2468)
+    torch.cuda.synchronize()
+    say(f"[deepseek] weights built on the card in {time.perf_counter() - t0:.1f} s; "
+        f"experts {provider.nbytes() / 1e9:.2f} GB, allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    vocab = model.spec.vocab_size
+    experts = provider.pytree()
+    batcher, prompts, outs, counts, steps = _serve_batcher("deepseek", model, params, experts, g)
+    n_steps = sum(st["steps"] for st in steps.values())
+    _require_mla_counts(counts, steps.get(1, {"steps": 0})["steps"], n_steps,
+                        "DeepSeek batcher path")
+
+    # request 1 alone through Generator: contiguous caches, einsum prefill, K5 decode
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = Generator(model, params, experts, ResidentProvider.for_layer, impl="pallas",
+                    max_seq_len=MAX_COLS).generate(prompts[0][None], max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = launch_counts()
+    _require_mla_counts(gen_counts, NEW_TOKENS - 1, NEW_TOKENS, "DeepSeek Generator path")
+    say(f"[deepseek] Generator alone, request 1: {gen_s * 1e3 / NEW_TOKENS:.3f} ms per token "
+        f"(prefill of {PROMPT_LENS[0]} included); tokens equal to the batcher's: "
+        f"{np.array_equal(res.sequences[0], outs[0])} (bf16, reported, not held); "
+        f"launches {json.dumps(gen_counts)}")
+
+    busy = _profile_batcher("DeepSeek ", batcher, prompts)
+    with torch.inference_mode():
+        # the gathered view: every layer of a paged step copies its rows' pages
+        # into [B, 512, 1, R] and [B, 512, 1, P] before attention reads them
+        from moe_infinity_tpu_torch.runtime.paged_kv import PagedKVCache
+
+        table = torch.from_numpy(batcher.alloc.table(
+            [id(s.req) if s.active else "__free__" for s in batcher._slots],
+            batcher.max_pages_per_seq)).to(dev)
+        kv0 = PagedKVCache(*batcher._pools[0], table)
+        view_ms = cuda_ms(lambda: (kv0.k, kv0.v)) * L
+        say(f"[deepseek] gathered view of the paged caches: {view_ms:.3f} ms of device time per "
+            f"step ({L} layers)" + (f", {view_ms / busy:.3f} of the W=1 step's device busy time"
+                                    if busy else ""))
+    del batcher, kv0
+
+    # request 1 through the fused runner: one stacked pool, K3 at offsets li * E
+    torch.cuda.synchronize()
+    say(f"[deepseek] peak memory of the batcher and Generator runs: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    pool = model.stack_experts(experts["layers"])
+    del experts, provider
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runner = FusedRunner(model, params, pool, moe_impl="gmm")
+    T = len(prompts[0])
+    tok = torch.as_tensor(prompts[0][None], dtype=torch.int32, device=dev)
+    pos = torch.arange(T, dtype=torch.int32, device=dev)[None]
+    pos0 = torch.full((1,), T, dtype=torch.int32, device=dev)
+
+    def fused():
+        logits, kv = runner.prefill(tok, pos, runner.init_cache(1, 64), 0)
+        tok0 = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+        toks, _ = runner.decode(tok0, pos0, kv, NEW_TOKENS - 1)
+        return torch.cat([tok0, toks], dim=1)
+
+    fused()  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            new = fused()
+            queued_s = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    fused_counts = launch_counts()
+    _require_mla_counts(fused_counts, NEW_TOKENS - 1, NEW_TOKENS, "DeepSeek FusedRunner path")
+    new = new[0].cpu().numpy()
+    if new.shape != (NEW_TOKENS,) or not np.all((new >= 0) & (new < vocab)):
+        raise AssertionError(f"FusedRunner returned {new.shape}")
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    say(f"[deepseek] FusedRunner, request 1: prefill + {NEW_TOKENS - 1}-token decode "
+        f"{fused_s * 1e3 / NEW_TOKENS:.3f} ms per token (host had queued all of it after "
+        f"{queued_s * 1e3 / NEW_TOKENS:.3f} ms per token); host reads flagged by "
+        f"torch.cuda.set_sync_debug_mode: {len(syncs)} (decode reads its start column once); "
+        f"tokens equal to Generator's: {np.array_equal(new, res.sequences[0][T:])}, to the "
+        f"batcher's: {np.array_equal(new, outs[0][T:])} (bf16, reported, not held); "
+        f"max_memory_allocated_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}; "
+        f"launches {json.dumps(fused_counts)}")
+    for w in syncs:
+        say(f"[deepseek]   host read at {Path(w.filename).name}:{w.lineno}")
+    del runner, pool, params, model
+    torch.cuda.empty_cache()
+    return {k: counts[k] + gen_counts[k] + fused_counts[k] for k in counts}
+
+
+def phase_deepseek_whole_path(dev):
+    """As phase 6, at DeepSeek-V2-Lite's width with 1 dense + 2 MoE layers and
+    bf16 experts: f32 compute held to the tolerance on three seeds, bf16
+    reported; then seed 77 at f32 once more with fold_mla_params applied
+    (K5 at scale 1.0, the folded q and o projections)."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+
+    cases = [(torch.float32, 77, False), (torch.float32, 78, False), (torch.float32, 79, False),
+             (torch.bfloat16, 77, False), (torch.float32, 77, True)]
+    for dtype, seed, fold in cases:
+        model, params, provider, g = _deepseek(dev, dtype, seed, num_layers=3)
+        if fold:
+            params = model.fold_mla_params(params)
+        experts = provider.pytree()
+        inputs = _paged_step_inputs(model, g)
+        ids_got, ids_want = [], []
+        with torch.inference_mode():
+            reset_launches()
+            got = _batcher_steps(model, params, experts, inputs, ids_got)
+            counts = launch_counts()
+            with _plain_kernels():
+                want = _batcher_steps(model, params, experts, inputs, ids_want)
+        if launch_counts() != counts:
+            raise AssertionError(f"the plain run launched kernels: {counts} -> {launch_counts()}")
+        _require_mla_counts(counts, 1, 2, "DeepSeek whole-path check", layers=3)
+        flips = sum(int((a != b).sum()) for a, b in zip(ids_got, ids_want))
+        say(f"[check] seed {seed}: expert choices that differ between the kernel and plain "
+            f"runs: {flips} of {sum(a.numel() for a in ids_got)}")
+        name = str(dtype).split(".")[-1] + (" folded" if fold else "")
+        _hold_steps(f"DeepSeek whole path logits {name} seed {seed}, {{step}} (full width, "
+                    f"1 dense + 2 MoE layers, bf16 experts, paged, holes)", dtype, got, want)
+        del model, params, provider, experts, got, want
         torch.cuda.empty_cache()
 
 
@@ -897,8 +1268,10 @@ def main() -> int:
     phase_whole_path(dev)
     mix_counts = phase_mixtral(dev)
     phase_mixtral_whole_path(dev)
+    mla_counts = phase_deepseek(dev)
+    phase_deepseek_whole_path(dev)
     for r in recs:
-        r["launches"] = counts[r["name"]] + mix_counts[r["name"]]
+        r["launches"] = counts[r["name"]] + mix_counts[r["name"]] + mla_counts[r["name"]]
         r.pop("shape")
     say(f"[card] {smi}")
     print(json.dumps({"kernels": recs}), flush=True)

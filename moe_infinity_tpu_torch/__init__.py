@@ -1,7 +1,8 @@
 """moe_infinity_tpu_torch: the PyTorch + CUDA port of moe_infinity_tpu.
 
 The port runs on an NVIDIA Hopper GPU. Its hot kernels (flash decode, flash
-attention, the grouped int4 matmul) are CUDA C++ under ``csrc/``, built with
+attention, paged decode, absorbed-MLA decode and the grouped matmul with
+fused dequantisation) are CUDA C++ under ``csrc/``, built with
 ``nvcc`` at first use; every kernel has a plain PyTorch version beside it,
 which is what runs for CPU tensors. Entry points run on ``"cuda"`` unless the
 caller passes ``device="cpu"``.

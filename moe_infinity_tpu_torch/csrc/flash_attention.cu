@@ -1,4 +1,5 @@
-// Hand-written Hopper attention kernels for head_dim 128.
+// Hand-written Hopper attention kernels: head_dim 128 (K1, K2, K4) and the
+// absorbed-MLA decode over a 512 + 64 wide latent cache (K5).
 //
 // flash_decode_kernel  replaces moe_infinity_tpu/ops/flash_attention.py
 //                      _decode_kernel / flash_decode (one query token).
@@ -6,6 +7,9 @@
 //                      additive bias, causal and pad masks).
 // paged_decode_kernel  replaces _paged_decode_kernel / paged_flash_decode
 //                      (one query token over a paged K/V pool).
+// mla_decode_kernel    replaces _mla_decode_kernel / mla_flash_decode (one
+//                      query token of DeepSeek's absorbed MLA; its own note
+//                      stands above it).
 //
 // All keep the TPU kernels' arithmetic: scores and softmax in f32, online
 // softmax with the finite kNeg, a row with no valid key returns 0, softcap
@@ -402,6 +406,251 @@ int launch_attend(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K5, absorbed-MLA decode: replaces moe_infinity_tpu/ops/flash_attention.py
+// _mla_decode_kernel / mla_flash_decode.
+//   score[h, s] = (q_lat[h] . c[s] + q_pe[h] . k_pe[s]) * scale
+//   out[h]      = sum_s softmax(score)[h, s] * c[s]
+// The values are the latent itself and one key stream serves every head.
+// q, scores, p and the sums are f32 whatever the cache type (p is not rounded
+// before p.c, as in the TPU kernel); a row with no valid key gives 0; no key
+// at or past row_len = min(kv_len, qpos + 1, S) is read, nor one whose mask
+// byte is 0.
+//
+// What bounds it on the H100: a V2-Lite decode step reads a few hundred keys
+// of 1,152 bytes per batch row, about 1 MB in all, so the byte bound is well
+// under a microsecond and the kernel is bound by launch latency and by how
+// many SMs it reaches. The TPU kernel's grid of one program per batch row
+// would fill 4 of 132 SMs. Here block (split, head group, b) owns kMlaHeads
+// heads of one batch row over one contiguous range of `kc` keys, walks it in
+// tiles of kMlaKeys keys staged in shared memory as f32, and writes its
+// online-softmax state (m, l) and its unnormalised [heads, R] sum to scratch;
+// mla_merge_kernel combines the live splits of a row. The wrapper picks kc so
+// that the splits of all rows come to about two blocks per SM. The head groups
+// of a row re-read the same keys, which hit L2. Both products run on the CUDA
+// cores from shared memory; a tensor-core version is later work.
+//
+// In a block of 256 threads: score phase, thread (key s = t % 16, head
+// h = t / 16) takes the 576-long dot product, and the 16 lanes of a head
+// reduce max and sum by shuffles, each keeping the head's (m, l); value
+// phase, thread (4 latent columns, 8 heads) accumulates p[s, h] * c[s, cols]
+// in registers.
+// ---------------------------------------------------------------------------
+constexpr int kMlaR = 512;       // latent width (the value width)
+constexpr int kMlaP = 64;        // rope key width
+constexpr int kMlaW = kMlaR + kMlaP;
+constexpr int kMlaHeads = 16;    // heads per block
+constexpr int kMlaKeys = 16;     // keys per tile
+constexpr int kMlaThreads = 256;
+constexpr int kMlaKeyStride = kMlaW + 4;  // rows 4 banks apart: 16-byte reads
+                                          // of 16 rows meet in pairs only
+constexpr int kMlaSmemFloats = kMlaHeads * kMlaW + kMlaKeys * kMlaKeyStride +
+                               kMlaKeys * kMlaHeads + kMlaHeads + kMlaKeys;
+
+__device__ __forceinline__ int mla_row_len(const int32_t* qpos, int b, int S,
+                                           int kv_len) {
+  return max(0, min(min(kv_len, S), qpos[b] + 1));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMlaThreads) mla_decode_kernel(
+    const float* __restrict__ q_lat,    // [B, H, R]
+    const float* __restrict__ q_pe,     // [B, H, P]
+    const T* __restrict__ c,            // [B, S, R]
+    const T* __restrict__ kpe,          // [B, S, P]
+    const int32_t* __restrict__ qpos,   // [B]
+    const uint8_t* __restrict__ mask,   // [B, S] or null
+    float* __restrict__ part_acc,       // [B, NS, H, R]
+    float* __restrict__ part_ml,        // [B, NS, H, 2]
+    int H, int S, int kv_len, int kc, int NS, float scale) {
+  extern __shared__ __align__(16) float mla_smem[];
+  float* q_s = mla_smem;                            // [heads][W]
+  float* key_s = q_s + kMlaHeads * kMlaW;           // [keys][W + 4]
+  float* p_s = key_s + kMlaKeys * kMlaKeyStride;    // [keys][heads]
+  float* alpha_s = p_s + kMlaKeys * kMlaHeads;      // [heads]
+  int* valid_s = reinterpret_cast<int*>(alpha_s + kMlaHeads);  // [keys]
+
+  const int split = blockIdx.x, h0 = blockIdx.y * kMlaHeads, b = blockIdx.z;
+  const int row_len = mla_row_len(qpos, b, S, kv_len);
+  const int k_begin = split * kc;
+  if (k_begin >= row_len) return;  // a split past the live keys owns nothing
+  const int k_end = min(k_begin + kc, row_len);
+  const int tid = threadIdx.x;
+
+  // the block's queries: [q_lat | q_pe] per head, zero for a head past H
+  for (int i = tid; i < kMlaHeads * (kMlaW / 4); i += kMlaThreads) {
+    const int h = i / (kMlaW / 4), g = i % (kMlaW / 4);
+    float f[4] = {0.f, 0.f, 0.f, 0.f};
+    if (h0 + h < H) {
+      const size_t row = (size_t)b * H + h0 + h;
+      if (g < kMlaR / 4)
+        mit::load4(q_lat + row * kMlaR + g * 4, f);
+      else
+        mit::load4(q_pe + row * kMlaP + (g - kMlaR / 4) * 4, f);
+    }
+    *reinterpret_cast<float4*>(q_s + h * kMlaW + g * 4) =
+        make_float4(f[0], f[1], f[2], f[3]);
+  }
+
+  const int s_own = tid & (kMlaKeys - 1), h_own = tid / kMlaKeys;  // scores
+  const int cg = tid & 127, hg = tid >> 7;                         // values
+  float m_run = mit::kNeg, l_run = 0.f;
+  float acc[8][4];
+#pragma unroll
+  for (int hh = 0; hh < 8; ++hh)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[hh][j] = 0.f;
+
+  for (int t0 = k_begin; t0 < k_end; t0 += kMlaKeys) {
+    __syncthreads();  // the previous tile is consumed; q_s is staged
+    if (tid < kMlaKeys) {
+      const int ks = t0 + tid;
+      valid_s[tid] =
+          ks < k_end && (mask == nullptr || mask[(size_t)b * S + ks] != 0);
+    }
+    __syncthreads();
+    // stage the tile as f32: [c | k_pe] per key, zero for a key not read
+    for (int i = tid; i < kMlaKeys * (kMlaW / 4); i += kMlaThreads) {
+      const int s = i / (kMlaW / 4), g = i % (kMlaW / 4);
+      float f[4] = {0.f, 0.f, 0.f, 0.f};
+      if (valid_s[s]) {
+        const size_t row = (size_t)b * S + t0 + s;
+        if (g < kMlaR / 4)
+          mit::load4(c + row * kMlaR + g * 4, f);
+        else
+          mit::load4(kpe + row * kMlaP + (g - kMlaR / 4) * 4, f);
+      }
+      *reinterpret_cast<float4*>(key_s + s * kMlaKeyStride + g * 4) =
+          make_float4(f[0], f[1], f[2], f[3]);
+    }
+    __syncthreads();
+
+    // scores of (key s_own, head h_own), then the head's online softmax
+    // among its 16 lanes
+    const float4* kr =
+        reinterpret_cast<const float4*>(key_s + s_own * kMlaKeyStride);
+    const float4* qr = reinterpret_cast<const float4*>(q_s + h_own * kMlaW);
+    float sc = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < kMlaW / 4; ++i) {
+      const float4 kv4 = kr[i], qv4 = qr[i];
+      sc = fmaf(kv4.x, qv4.x, sc);
+      sc = fmaf(kv4.y, qv4.y, sc);
+      sc = fmaf(kv4.z, qv4.z, sc);
+      sc = fmaf(kv4.w, qv4.w, sc);
+    }
+    const bool ok = valid_s[s_own] != 0;
+    sc = ok ? sc * scale : mit::kNeg;
+    float mx = sc;
+#pragma unroll
+    for (int o = kMlaKeys / 2; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float m_new = fmaxf(m_run, mx);
+    const float alpha = expf(m_run - m_new);
+    const float p = ok ? expf(sc - m_new) : 0.f;
+    float ps = p;
+#pragma unroll
+    for (int o = kMlaKeys / 2; o > 0; o >>= 1)
+      ps += __shfl_xor_sync(0xffffffffu, ps, o);
+    l_run = l_run * alpha + ps;
+    m_run = m_new;
+    p_s[s_own * kMlaHeads + h_own] = p;
+    if (s_own == 0) alpha_s[h_own] = alpha;
+    __syncthreads();
+
+    // values: acc[h, cols] = acc * alpha[h] + sum_s p[s, h] * c[s, cols]
+#pragma unroll
+    for (int hh = 0; hh < 8; ++hh) {
+      const float a = alpha_s[hg * 8 + hh];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[hh][j] *= a;
+    }
+#pragma unroll 4
+    for (int s = 0; s < kMlaKeys; ++s) {
+      const float4 cv =
+          *reinterpret_cast<const float4*>(key_s + s * kMlaKeyStride + cg * 4);
+      const float4 pa =
+          *reinterpret_cast<const float4*>(p_s + s * kMlaHeads + hg * 8);
+      const float4 pb =
+          *reinterpret_cast<const float4*>(p_s + s * kMlaHeads + hg * 8 + 4);
+      const float pv[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+      for (int hh = 0; hh < 8; ++hh) {
+        acc[hh][0] = fmaf(pv[hh], cv.x, acc[hh][0]);
+        acc[hh][1] = fmaf(pv[hh], cv.y, acc[hh][1]);
+        acc[hh][2] = fmaf(pv[hh], cv.z, acc[hh][2]);
+        acc[hh][3] = fmaf(pv[hh], cv.w, acc[hh][3]);
+      }
+    }
+  }
+
+  // this split's state, one writer per element
+  const size_t base = ((size_t)b * NS + split) * H;
+  if (s_own == 0 && h0 + h_own < H) {
+    part_ml[(base + h0 + h_own) * 2] = m_run;
+    part_ml[(base + h0 + h_own) * 2 + 1] = l_run;
+  }
+#pragma unroll
+  for (int hh = 0; hh < 8; ++hh) {
+    const int h = h0 + hg * 8 + hh;
+    if (h < H)
+      *reinterpret_cast<float4*>(part_acc + (base + h) * kMlaR + cg * 4) =
+          make_float4(acc[hh][0], acc[hh][1], acc[hh][2], acc[hh][3]);
+  }
+}
+
+// Combine the live splits of (b, h): grid (H, B), thread = 4 latent columns.
+__global__ void __launch_bounds__(kMlaR / 4) mla_merge_kernel(
+    const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+    const int32_t* __restrict__ qpos, float* __restrict__ out,  // [B, H, R]
+    int H, int S, int kv_len, int kc, int NS) {
+  const int h = blockIdx.x, b = blockIdx.y, cg = threadIdx.x;
+  const int row_len = mla_row_len(qpos, b, S, kv_len);
+  const int live = min(NS, (row_len + kc - 1) / kc);
+  float M = mit::kNeg;
+  for (int j = 0; j < live; ++j)
+    M = fmaxf(M, part_ml[(((size_t)b * NS + j) * H + h) * 2]);
+  float L = 0.f, A[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int j = 0; j < live; ++j) {
+    const size_t row = ((size_t)b * NS + j) * H + h;
+    const float w = expf(part_ml[row * 2] - M);
+    L += part_ml[row * 2 + 1] * w;
+    const float4 a =
+        *reinterpret_cast<const float4*>(part_acc + row * kMlaR + cg * 4);
+    A[0] = fmaf(a.x, w, A[0]);
+    A[1] = fmaf(a.y, w, A[1]);
+    A[2] = fmaf(a.z, w, A[2]);
+    A[3] = fmaf(a.w, w, A[3]);
+  }
+  const float inv = L > 0.f ? 1.f / L : 0.f;
+  *reinterpret_cast<float4*>(out + ((size_t)b * H + h) * kMlaR + cg * 4) =
+      make_float4(A[0] * inv, A[1] * inv, A[2] * inv, A[3] * inv);
+}
+
+template <typename T>
+int launch_mla(const void* q_lat, const void* q_pe, const void* c,
+               const void* kpe, const void* qpos, const void* mask,
+               void* part_acc, void* part_ml, void* out, int B, int H, int S,
+               int kv_len, int kc, int NS, float scale, cudaStream_t stream) {
+  const int smem = kMlaSmemFloats * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      mla_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int32_t* pp = static_cast<const int32_t*>(qpos);
+  const dim3 grid(NS, (H + kMlaHeads - 1) / kMlaHeads, B);
+  mla_decode_kernel<T><<<grid, kMlaThreads, smem, stream>>>(
+      static_cast<const float*>(q_lat), static_cast<const float*>(q_pe),
+      static_cast<const T*>(c), static_cast<const T*>(kpe), pp,
+      static_cast<const uint8_t*>(mask), static_cast<float*>(part_acc),
+      static_cast<float*>(part_ml), H, S, kv_len, kc, NS, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  mla_merge_kernel<<<dim3(H, B), kMlaR / 4, 0, stream>>>(
+      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
+      pp, static_cast<float*>(out), H, S, kv_len, kc, NS);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int mit_flash_decode(const void* q, const void* k, const void* v,
@@ -447,4 +696,27 @@ extern "C" int mit_paged_flash_decode(const void* q, const void* pool_k,
                                        softcap, st);
   return launch_paged<float>(q, pool_k, pool_v, table, lengths, mask, out, B,
                              H, Hkv, P, page, scale, softcap, st);
+}
+
+// R and P must be 512 and 64 (every published DeepSeek MLA geometry); kc is
+// the keys per split and NS >= ceil(min(kv_len, S) / kc) the scratch's split
+// dimension.
+extern "C" int mit_mla_flash_decode(const void* q_lat, const void* q_pe,
+                                    const void* c, const void* kpe,
+                                    const void* qpos, const void* mask,
+                                    void* part_acc, void* part_ml, void* out,
+                                    int B, int H, int S, int R, int P,
+                                    int kv_len, int kc, int NS, float scale,
+                                    int is_bf16, void* stream) {
+  const int live_max = kv_len < S ? kv_len : S;
+  if (R != kMlaR || P != kMlaP || kc <= 0 || NS <= 0 ||
+      (long long)NS * kc < live_max || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_mla<__nv_bfloat16>(q_lat, q_pe, c, kpe, qpos, mask, part_acc,
+                                     part_ml, out, B, H, S, kv_len, kc, NS,
+                                     scale, st);
+  return launch_mla<float>(q_lat, q_pe, c, kpe, qpos, mask, part_acc, part_ml,
+                           out, B, H, S, kv_len, kc, NS, scale, st);
 }

@@ -13,15 +13,23 @@ PyTorch versions.
   ``paged_flash_decode``: K1 over a page pool ``[NP, page, Hkv, Dh]`` read
   in place through a ``[B, P]`` page table, the first ``lengths[b]`` logical
   keys of each row live, an optional logical hole mask ``[B, P * page]``.
+* ``mla_flash_decode`` (K5) replaces ``_mla_decode_kernel``/
+  ``mla_flash_decode``: one query token of DeepSeek's absorbed MLA. Scores
+  are ``(q_lat . c + q_pe . k_pe) * scale`` over the shared latent cache
+  ``c [B, S, R]`` and rope-key cache ``k_pe [B, S, P]``, the values are the
+  latent itself, and one key stream serves all H heads; q and the result
+  are f32 whatever the cache type.
 
 The kernels (``csrc/flash_attention.cu``) are bound on the H100 by launch
 latency and the live K/V bytes at the serving paths' sizes; the source note
 there says what the design does about it. The wrappers launch the kernel for
-CUDA tensors (raising on a shape it does not take: head_dim 128, rep <= 8)
-and run the plain version for CPU tensors. The plain versions repeat the
+CUDA tensors (raising on a shape it does not take: head_dim 128 and rep <= 8
+for K1, K2 and K4; R 512 with P 64 for K5, at any S and H) and run the plain
+version for CPU tensors. The plain versions repeat the
 kernels' arithmetic, including what differs from the einsum oracle
 ``models.layers.attend_reference``: a row with no valid key returns 0, and
-``flash_attend`` rounds p to V's dtype before the P.V product.
+``flash_attend`` rounds p to V's dtype before the P.V product (the decode
+kernels, K5 among them, keep p in f32).
 """
 
 from __future__ import annotations
@@ -36,7 +44,8 @@ from moe_infinity_tpu_torch.ops import _build
 _NEG = -1e30  # finite -inf stand-in, as in the kernels
 
 # launches of each kernel since the last reset (plain runs never count)
-LAUNCHES = {"flash_decode": 0, "flash_attend": 0, "paged_flash_decode": 0}
+LAUNCHES = {"flash_decode": 0, "flash_attend": 0, "paged_flash_decode": 0,
+            "mla_flash_decode": 0}
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _c = ctypes.c_void_p
@@ -49,6 +58,10 @@ _ATTEND_ARGS = [_c] * 5 + [ctypes.c_longlong] * 3 + [_c] * 2 + [
 _PAGED_ARGS = [_c] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [
     ctypes.c_int, _c,
 ]
+_MLA_ARGS = [_c] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, _c]
+_MLA_R, _MLA_P = 512, 64  # kMlaR, kMlaP in csrc/flash_attention.cu
+_MLA_TILE, _MLA_HEADS = 16, 16  # kMlaKeys, kMlaHeads
+_MLA_BLOCKS = 264  # blocks aimed at: two per SM of an H100
 
 
 def _check_qkv(q, k, v, name):
@@ -324,3 +337,103 @@ def paged_flash_decode_plain(q, pool_k, pool_v, page_table, lengths, *, scale,
         q, k, v, lengths.long() - 1, P * page, scale=scale, causal=True,
         logit_softcap=logit_softcap, pad_mask=pad_mask,
     )
+
+
+# ---------------------------------------------------------------------------
+# K5: absorbed-MLA decode
+# ---------------------------------------------------------------------------
+
+def mla_flash_decode(
+    q_lat: torch.Tensor,  # [B, H, R] absorbed latent query
+    q_pe: torch.Tensor,  # [B, H, P] roped query
+    c_cache: torch.Tensor,  # [B, S, R] compressed latent cache
+    kpe_cache: torch.Tensor,  # [B, S, P] roped shared key cache
+    q_positions: torch.Tensor,  # [B] int cache column of the query
+    kv_len: int,  # valid cache entries
+    *,
+    scale: float,
+    pad_mask: Optional[torch.Tensor] = None,  # [B, S] True = valid key
+) -> torch.Tensor:
+    """One query token per row of absorbed MLA: returns out_lat [B, H, R] f32
+    (the caller applies w_uv or o_fold). Row b attends to the keys
+    ``s < min(kv_len, q_positions[b] + 1, S)`` whose mask entry is set."""
+    fn = _mla_cuda if q_lat.is_cuda else mla_flash_decode_plain
+    return fn(q_lat, q_pe, c_cache, kpe_cache, q_positions.reshape(-1),
+              int(kv_len), scale=float(scale), pad_mask=pad_mask)
+
+
+def _mla_check(q_lat, q_pe, c, kpe, q_positions):
+    B, H, R = q_lat.shape
+    P = q_pe.shape[-1]
+    if tuple(q_pe.shape) != (B, H, P):
+        raise ValueError("mla_flash_decode: q_pe must be [B, H, P]")
+    S = c.shape[1]
+    if tuple(c.shape) != (B, S, R) or tuple(kpe.shape) != (B, S, P):
+        raise ValueError("mla_flash_decode: caches must be [B, S, R] and [B, S, P]")
+    if c.dtype != kpe.dtype or c.dtype not in _DTYPES:
+        raise ValueError("mla_flash_decode: the caches must share dtype bf16 or f32")
+    if q_positions.shape != (B,):
+        raise ValueError("mla_flash_decode: q_positions must be [B]")
+    return B, H, R, P, S
+
+
+def _mla_splits(B: int, H: int, live_max: int):
+    """(keys per split, splits) for rows of at most ``live_max`` live keys:
+    whole tiles of keys, as many splits as bring all rows and head groups
+    to about ``_MLA_BLOCKS`` blocks."""
+    want = max(1, _MLA_BLOCKS // (B * -(-H // _MLA_HEADS)))
+    kc = max(1, -(-live_max // (want * _MLA_TILE))) * _MLA_TILE
+    return kc, max(1, -(-live_max // kc))
+
+
+def _mla_cuda(q_lat, q_pe, c, kpe, q_positions, kv_len, *, scale, pad_mask):
+    B, H, R, P, S = _mla_check(q_lat, q_pe, c, kpe, q_positions)
+    if (R, P) != (_MLA_R, _MLA_P):
+        raise ValueError(
+            f"mla_flash_decode: the kernel takes R={_MLA_R} with P={_MLA_P}, "
+            f"got R={R} P={P}"
+        )
+    ql = q_lat.to(torch.float32).contiguous()
+    qp = q_pe.to(torch.float32).contiguous()
+    for n, t in (("q_lat", ql), ("q_pe", qp), ("c_cache", c), ("kpe_cache", kpe)):
+        _build.check_aligned(f"mla_flash_decode {n}", t)
+    qpos = q_positions.to(torch.int32).contiguous()
+    mask = _mask_u8(pad_mask, B, S, "mla_flash_decode")
+    dev = _build.same_device(ql, qp, c, kpe, qpos, mask)
+    out = torch.empty(B, H, R, dtype=torch.float32, device=dev)
+    if B == 0 or H == 0:
+        return out
+    kc, NS = _mla_splits(B, H, max(0, min(kv_len, S)))
+    part_acc = torch.empty(B, NS, H, R, dtype=torch.float32, device=dev)
+    part_ml = torch.empty(B, NS, H, 2, dtype=torch.float32, device=dev)
+    fn = _build.function("flash_attention", "mit_mla_flash_decode", _MLA_ARGS)
+    err = fn(
+        _build.ptr(ql), _build.ptr(qp), _build.ptr(c), _build.ptr(kpe),
+        _build.ptr(qpos), _build.ptr(mask), _build.ptr(part_acc),
+        _build.ptr(part_ml), _build.ptr(out), B, H, S, R, P, kv_len, kc, NS,
+        scale, int(c.dtype == torch.bfloat16), _build.stream_ptr(dev),
+    )
+    _build.check(err, "mla_flash_decode")
+    LAUNCHES["mla_flash_decode"] += 1
+    return out
+
+
+def mla_flash_decode_plain(q_lat, q_pe, c, kpe, q_positions, kv_len, *, scale,
+                           pad_mask=None):
+    """K5's arithmetic in PyTorch at any R and P: f32 scores, p and sums (p
+    is not rounded to the cache type), zero for a row with no valid key, and
+    no use of a key that is not valid."""
+    B, H, R, P, S = _mla_check(q_lat, q_pe, c, kpe, q_positions)
+    cf = c.float()
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), cf)
+         + torch.einsum("bhp,bsp->bhs", q_pe.float(), kpe.float())) * scale
+    row_len = torch.clamp(q_positions.long() + 1, max=min(kv_len, S))
+    valid = torch.arange(S, device=c.device)[None, :] < row_len[:, None]
+    if pad_mask is not None:
+        valid = valid & pad_mask.to(torch.bool)
+    vh = valid[:, None, :]
+    s = torch.where(vh, s, _NEG)
+    p = torch.where(vh, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhs,bsr->bhr", p, torch.where(valid[:, :, None], cf, 0.0))
+    return torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)

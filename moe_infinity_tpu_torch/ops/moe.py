@@ -11,7 +11,11 @@ maps router expert ids to weight rows.
 Implementations of ``grouped_ffn``:
   * ``"ragged"`` - plain PyTorch: sort by slot, one matmul per routed group
     (reads the group sizes on the host), combine;
-  * ``"pallas"`` - the gmm kernel (K3) through ``ops.gmm.gffn_pallas``.
+  * ``"pallas"`` - the gmm kernel (K3) through ``ops.gmm.gffn_pallas``;
+  * ``"gather"`` - plain PyTorch, no sort: each (token, k) row gathers its
+    expert's slab and runs a batched matvec (plain XLA in the JAX package);
+  * ``"dense"`` - plain PyTorch reference: every slot for every token
+    through one-hot masks, O(T*S*F*D), for tests and tiny models.
 """
 
 from __future__ import annotations
@@ -159,7 +163,95 @@ def grouped_ffn(
             x, expert_ids, combine_weights, expert_to_slot, weights,
             activation, biases,
         )
-    raise ValueError(f"grouped_ffn impl {impl!r} is not ported (ragged, pallas)")
+    if impl == "gather":
+        return _gffn_gather(
+            x, expert_ids, combine_weights, expert_to_slot, weights,
+            activation, biases,
+        )
+    if impl == "dense":
+        return _gffn_dense(
+            x, expert_ids, combine_weights, expert_to_slot,
+            _unpack4_weights(weights), activation, biases,
+        )
+    raise ValueError(f"unknown grouped_ffn impl {impl!r}")
+
+
+def _row_dot(x, w):
+    """Per-row ``x[t] @ w[t]`` with exact products of the operands and f32
+    sums (einsum with preferred f32 in the JAX package)."""
+    return torch.einsum("td,tdf->tf", x.float(), w.float())
+
+
+def _gffn_gather(x, expert_ids, combine_weights, expert_to_slot, weights,
+                 activation, biases):
+    """Decode-path grouped FFN as gather + batched matvec: each (token, k)
+    row gathers its expert's slab; combine is a weighted sum over k. int8 and
+    packed int4 slabs become bf16 (exact), and x is rounded to the slab's
+    type, as in the JAX package."""
+    T, D = x.shape
+    K = expert_ids.shape[1]
+    compute_dtype = x.dtype
+    rows = expert_to_slot[expert_ids].reshape(-1).long()  # [T*K]
+    x_rep = x.repeat_interleave(K, dim=0)  # [TK, D]
+
+    def dq(role):
+        if role + "4" in weights:  # packed int4: gather bytes, then unpack
+            return unpack_int4(weights[role + "4"][rows]).to(torch.bfloat16)
+        w = weights[role][rows]
+        return w.to(torch.bfloat16) if w.dtype == torch.int8 else w
+
+    def scaled(h, role):
+        sc = weights.get(role + "_scale")
+        return h if sc is None else h * sc[rows]
+
+    if "gateup" in weights or "gateup4" in weights:
+        wgu = dq("gateup")
+        xb = x_rep.to(wgu.dtype)
+        hcat = scaled(_row_dot(xb, wgu), "gateup")
+        F = hcat.shape[-1] // 2
+        h = _activate(hcat[:, :F], hcat[:, F:], activation)
+    else:
+        wg = dq("gate")
+        xb = x_rep.to(wg.dtype)
+        h = scaled(_row_dot(xb, wg), "gate")
+        if biases is not None and "gate_bias" in biases:
+            h = h + biases["gate_bias"][rows]
+        hu = None
+        if "up" in weights or "up4" in weights:
+            hu = scaled(_row_dot(xb, dq("up")), "up")
+        h = _activate(h, hu, activation)
+    out = scaled(_row_dot(h.to(compute_dtype), dq("down")), "down")
+    if biases is not None and "down_bias" in biases:
+        out = out + biases["down_bias"][rows]
+    out = out * combine_weights.reshape(-1).float()[:, None]
+    return out.reshape(T, K, D).sum(dim=1).to(compute_dtype)
+
+
+def _gffn_dense(x, expert_ids, combine_weights, expert_to_slot, weights,
+                activation, biases):
+    """Reference implementation: every slot for every token, mixed by the
+    per-token per-slot combine weight."""
+    if "gateup" in weights:
+        weights = _split_gateup(weights)
+    S = weights["gate"].shape[0]
+    compute_dtype = x.dtype
+    slot_ids = expert_to_slot[expert_ids].long()  # [T, K]
+    onehot = F.one_hot(slot_ids, S).float()  # [T, K, S]
+    mix = torch.einsum("tk,tks->ts", combine_weights.float(), onehot)
+    x32 = x.float()
+
+    def w32(role):
+        return _dequant(weights[role], weights.get(role + "_scale"), compute_dtype).float()
+
+    h = torch.einsum("td,sdf->tsf", x32, w32("gate"))
+    if biases is not None and "gate_bias" in biases:
+        h = h + biases["gate_bias"][None]
+    h_up = torch.einsum("td,sdf->tsf", x32, w32("up")) if "up" in weights else None
+    h = _activate(h, h_up, activation)
+    out = torch.einsum("tsf,sfd->tsd", h, w32("down"))
+    if biases is not None and "down_bias" in biases:
+        out = out + biases["down_bias"][None]
+    return torch.einsum("tsd,ts->td", out, mix).to(compute_dtype)
 
 
 def _ragged_dot(xs, w, scale, sizes, dtype):

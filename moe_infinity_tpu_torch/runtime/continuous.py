@@ -17,7 +17,10 @@ Requests join and leave a persistent decode batch mid-flight:
 
 A one-token step (W = 1) reads the pool in place through K4
 (``paged_flash_decode``); a ``prefill_chunk``-wide step runs K2 over the
-gathered view. One scheduler thread runs every step; the page table goes to
+gathered view. An MLA model (DeepSeek) reads the gathered view of its latent
+and rope-key pools on every step and hands it to K5 on a one-token step, as
+the JAX model does; the pools take each model's own cache slot shapes. One
+scheduler thread runs every step; the page table goes to
 the device and the argmax comes back to the host each step, as in the JAX
 version. A step that raises fails every active request's future, rebuilds
 the pools and leaves the thread serving.

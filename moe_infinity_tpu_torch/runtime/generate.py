@@ -1,9 +1,10 @@
 """Token generation, from ``moe_infinity_tpu/runtime/generate.py``.
 
 * ``Generator`` over a ``ResidentStepper`` (decoder-only models, every
-  expert resident): prefill the prompt in one forward (K2), then greedy
-  one-token steps over a contiguous KV cache (K1), reading each step's
-  token on the host as the JAX loop does.
+  expert resident): prefill the prompt in one forward (K2; an einsum
+  softmax for an MLA model), then greedy one-token steps over a contiguous
+  KV cache (K1, or K5 for MLA), reading each step's token on the host as
+  the JAX loop does.
 * ``Seq2SeqGenerator`` (encoder-decoder): encodes once, computes the
   cross-attention K/V, then decodes greedily in a Python loop. The loop
   keeps the tokens on the device and copies them to the host once at the

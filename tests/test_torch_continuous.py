@@ -6,7 +6,9 @@ mid-decode deterministically: the second is submitted from the first's
 on_token callback, so it is seated while the first decodes. The query and
 key projections are scaled up (x40, in both packages) so that attention is
 sharp: with init_random's std-0.02 weights it is near uniform, and RoPE
-fed the shared columns instead of each row's positions would go unseen."""
+fed the shared columns instead of each row's positions would go unseen.
+The last section serves a tiny DeepSeek-V2 (MLA caches, K5's plain version)
+through the same batcher, held to the JAX Generator in the same way."""
 
 import threading
 
@@ -206,3 +208,105 @@ def test_unported_options_raise(models):
         gen.generate(np.array([[1, 2]]), max_new_tokens=2, temperature=0.5)
     with pytest.raises(NotImplementedError):
         gen.stepper.decode_scan(None, None, None, 2)
+
+
+# ---- DeepSeek-V2 (MLA) through the same batcher -----------------------------------
+# The pools take the model's asymmetric cache slots (latent R wide, rope key
+# P wide); a one-token step hands the gathered view to K5's plain version.
+# The q and kv_a projections are scaled x40 in both packages: kv_a's rope-key
+# rows then give sharp position-dependent scores (its latent rows are
+# RMS-normed, so their scale drops out).
+
+DS_TINY = dict(
+    vocab_size=128, hidden_size=64, intermediate_size=96,
+    moe_intermediate_size=48, num_layers=2, num_heads=4,
+    q_lora_rank=None, kv_lora_rank=32, qk_nope_head_dim=32,
+    qk_rope_head_dim=16, v_head_dim=32, num_experts=8, top_k=2,
+    n_shared_experts=1, first_k_dense_replace=1, topk_method="greedy",
+    n_group=None, topk_group=None, routed_scaling_factor=1.0,
+    rms_eps=1e-6, rope_theta=10000.0, tie_embeddings=False,
+)  # the spec of tests/test_continuous.py:75-83
+
+
+@pytest.fixture(scope="module")
+def ds_models():
+    from moe_infinity_tpu.models.deepseek_v2 import DeepseekV2ModelJax
+    from moe_infinity_tpu.models.deepseek_v2 import DeepseekV2Spec as JSpec
+    from moe_infinity_tpu_torch.models.deepseek_v2 import DeepseekV2Model, DeepseekV2Spec
+
+    jmodel = DeepseekV2ModelJax(JSpec(**DS_TINY), compute_dtype=jnp.float32)
+    jparams, jtree = jmodel.init_random(jax.random.PRNGKey(6))
+    for layer in jparams["layers"]:
+        layer["q"], layer["kv_a"] = layer["q"] * 40.0, layer["kv_a"] * 40.0
+    jgen = JGenerator(jmodel, jparams, jtree, JProvider.for_layer, max_seq_len=64)
+    model = DeepseekV2Model(DeepseekV2Spec(**DS_TINY), compute_dtype=torch.float32, device="cpu")
+    cache = {}
+
+    def want(prompt, n):
+        key = (tuple(int(t) for t in prompt), n)
+        if key not in cache:
+            cache[key] = jgen.generate(np.asarray(prompt)[None], max_new_tokens=n).sequences[0]
+        return cache[key]
+
+    return model, to_port(jparams), to_port(jtree), want, jgen
+
+
+@pytest.fixture(scope="module", params=[1, 4], ids=["chunk1", "chunk4"])
+def ds_batcher(request, ds_models):
+    model, params, tree = ds_models[:3]
+    b = ContinuousBatcher(model, params, tree, ResidentProvider.for_layer, max_batch_size=3,
+                          page_size=8, num_pages=64, max_cols=128, prefill_chunk=request.param)
+    yield b
+    b.shutdown()
+
+
+def test_deepseek_pools_take_the_asymmetric_cache(ds_batcher):
+    for pk, pv in ds_batcher._pools:
+        assert tuple(pk.shape) == (64, 8, 1, 32) and tuple(pv.shape) == (64, 8, 1, 16)
+
+
+def test_deepseek_staggered_requests_match_jax(ds_batcher, ds_models):
+    want = ds_models[3]
+    p1, p2 = np.array([5, 31, 8]), np.array([9, 3, 44, 6, 21, 2, 17, 8, 4, 11])
+    cb, holder, ready = _join_after(ds_batcher, 2, p2, max_new_tokens=6)
+    f1 = ds_batcher.submit(p1, max_new_tokens=10, on_token=cb)
+    np.testing.assert_array_equal(f1.result(timeout=TIMEOUT), want(p1, 10))
+    assert ready.wait(TIMEOUT)
+    np.testing.assert_array_equal(holder["f"].result(timeout=TIMEOUT), want(p2, 6))
+
+
+def test_deepseek_three_way_staggered_match_jax(ds_batcher, ds_models):
+    want = ds_models[3]
+    prompts = [np.array([7, 11, 13, 17, 19, 23]), np.array([29, 31, 37]),
+               np.array([41, 43, 47, 53, 59, 61, 67, 71])]
+    cb2, h2, r2 = _join_after(ds_batcher, 1, prompts[2], max_new_tokens=5)
+    cb1, h1, r1 = _join_after(ds_batcher, 1, prompts[1], max_new_tokens=5, on_token=cb2)
+    f0 = ds_batcher.submit(prompts[0], max_new_tokens=5, on_token=cb1)
+    np.testing.assert_array_equal(f0.result(timeout=TIMEOUT), want(prompts[0], 5))
+    assert r1.wait(TIMEOUT) and r2.wait(TIMEOUT)
+    np.testing.assert_array_equal(h1["f"].result(timeout=TIMEOUT), want(prompts[1], 5))
+    np.testing.assert_array_equal(h2["f"].result(timeout=TIMEOUT), want(prompts[2], 5))
+
+
+def test_deepseek_slot_reuse_match_jax(ds_batcher, ds_models):
+    want = ds_models[3]
+    prompts = [np.array([7, 11]), np.array([13, 17, 19]), np.array([23]),
+               np.array([29, 31]), np.array([37])]
+    futures = [ds_batcher.submit(p, max_new_tokens=5) for p in prompts]
+    for p, f in zip(prompts, futures):
+        np.testing.assert_array_equal(f.result(timeout=TIMEOUT), want(p, 5))
+
+
+@pytest.mark.parametrize("attn", ["naive", "flash"])
+def test_deepseek_generator_matches_jax(ds_models, attn):
+    from torch_port_helpers import port_attention
+
+    model, params, tree, _, jgen = ds_models
+    prompt = np.array([[5, 31, 8, 77], [9, 3, 44, 6]])
+    want = jgen.generate(prompt, max_new_tokens=6, collect_trace=True)
+    with port_attention(attn):
+        got = Generator(model, params, tree, ResidentProvider.for_layer, max_seq_len=64).generate(
+            prompt, max_new_tokens=6, collect_trace=True)
+    np.testing.assert_array_equal(got.sequences, want.sequences)
+    for (ids, _), (jids, _) in zip(got.router_trace, want.router_trace):
+        np.testing.assert_array_equal(ids, jids)

@@ -207,3 +207,114 @@ def test_grouped_ffn_pallas_gated_int8_kernel_matches_plain(dev, fused):
     cpu = {k: v.cpu() for k, v in w.items()}
     want = grouped_ffn(x.cpu(), ids.cpu(), cw.cpu(), slot.cpu(), cpu, "silu", impl="pallas")
     _close(got.cpu(), want, 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,S,kv_len,holes,scale", [
+    (16, 512, 512, True, 192 ** -0.5),  # V2-Lite's batcher decode step
+    (16, 64, 41, False, 1.0),  # one request, folded scale, kv_len below S
+    (128, 200, 200, True, 192 ** -0.5),  # V2/V3 heads; no power of two divides S
+    (5, 37, 37, True, 0.3),  # a head group that is not full
+])
+def test_mla_flash_decode_kernel(dev, dtype, H, S, kv_len, holes, scale):
+    """K5 against its plain version: mixed types (f32 q and out, caches in
+    `dtype`), a row with no valid key (gives 0), a row past kv_len."""
+    g = _gen(dev)
+    B, R, P = 4, 512, 64
+    q_lat = torch.randn(B, H, R, generator=g, device=dev)
+    q_pe = torch.randn(B, H, P, generator=g, device=dev)
+    c = torch.randn(B, S, R, generator=g, device=dev).to(dtype)
+    kpe = torch.randn(B, S, P, generator=g, device=dev).to(dtype)
+    pos = torch.tensor([S // 5, S // 2, 7, S + 3], dtype=torch.int32, device=dev)
+    mask = torch.rand(B, S, generator=g, device=dev) > 0.2 if holes else None
+    if holes:
+        mask[2] = False
+    before = fa.LAUNCHES["mla_flash_decode"]
+    got = fa.mla_flash_decode(q_lat, q_pe, c, kpe, pos, kv_len, scale=scale, pad_mask=mask)
+    assert fa.LAUNCHES["mla_flash_decode"] == before + 1
+    want = fa.mla_flash_decode_plain(q_lat, q_pe, c, kpe, pos, kv_len, scale=scale, pad_mask=mask)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, H, R)
+    _close(got, want, 2e-3 if dtype == torch.float32 else 2e-2)
+    if holes:
+        assert bool((got[2] == 0).all())
+
+
+def test_mla_flash_decode_kernel_rejects_what_it_does_not_take(dev):
+    z = lambda *s: torch.zeros(*s, device=dev)  # noqa: E731
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="R=512"):
+        fa.mla_flash_decode(z(1, 4, 128), z(1, 4, 32), z(1, 8, 128), z(1, 8, 32), pos, 8, scale=1.0)
+    with pytest.raises(ValueError, match="different devices"):
+        fa.mla_flash_decode(z(1, 4, 512), z(1, 4, 64), z(1, 8, 512), z(1, 8, 64),
+                            torch.zeros(1, dtype=torch.int32), 8, scale=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.mla_flash_decode(z(1, 4, 512), z(1, 4, 64), z(1, 8, 1024)[:, :, ::2], z(1, 8, 64),
+                            pos, 8, scale=1.0)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("offset", [0, 128])
+def test_gmm_kernel_deepseek_widths(dev, kind, offset):
+    """D 2048, F 1408 (V2-Lite): 11 column tiles for bf16 and int8, 5.5 for
+    packed int4 (the partial tile), all 64 groups passed uncompacted with
+    most of them empty, and a group offset into a stacked pool."""
+    g = _gen(dev)
+    E, D, F, rows = 64, 2048, 1408, 24
+    S = offset + E
+    flat = torch.randint(0, E, (rows,), generator=g, device=dev)
+    sizes = torch.zeros(E, dtype=torch.int32, device=dev)
+    sizes.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    x = torch.randn(rows, D, generator=g, device=dev)
+    scale = None
+    if kind == "bf16":
+        w = (torch.randn(S, D, F, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    else:
+        Fw = F // 2 if kind == "int4" else F
+        w = torch.randint(-128, 128, (S, D, Fw), generator=g, device=dev, dtype=torch.int8)
+        scale = torch.rand(S, F, generator=g, device=dev) * 0.01
+    packed = kind == "int4"
+    got = gm.gmm(x, w, sizes, scale, group_offset=offset, packed=packed)
+    want = gm.gmm_plain(x, w, sizes, scale, group_offset=offset, packed=packed)
+    _close(got, want, 2e-2)
+
+
+@pytest.mark.parametrize("moe_impl", ["gmm", "gather"])
+def test_deepseek_fused_step_kernels_match_cpu(dev, moe_impl):
+    """A narrow DeepSeek model at R 512, P 64 on the card (K5, and K3 with a
+    group offset) against the same weights on the CPU (the plain versions):
+    prefill and one-token logits of the fused runner, f32."""
+    from moe_infinity_tpu_torch.models.deepseek_v2 import DeepseekV2Model, DeepseekV2Spec
+    from moe_infinity_tpu_torch.runtime.fused import FusedRunner
+
+    spec = DeepseekV2Spec(
+        vocab_size=512, hidden_size=256, intermediate_size=512, moe_intermediate_size=192,
+        num_layers=3, num_heads=16, q_lora_rank=None, kv_lora_rank=512, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, num_experts=8, top_k=2, n_shared_experts=2,
+        first_k_dense_replace=1, topk_method="greedy", n_group=None, topk_group=None,
+        routed_scaling_factor=1.0, rms_eps=1e-6, rope_theta=10000.0, tie_embeddings=False,
+    )
+    model = DeepseekV2Model(spec, torch.float32, device=dev)
+    params, tree = model.init_random(_gen(dev))
+    cpu_model = DeepseekV2Model(spec, torch.float32, device="cpu")
+    to_cpu = lambda t: (  # noqa: E731
+        {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict)
+        else [to_cpu(v) for v in t] if isinstance(t, list) else t.cpu())
+    tok = torch.randint(1, 512, (2, 9), generator=_gen(dev), device=dev, dtype=torch.int32)
+    pos = torch.arange(9, dtype=torch.int32, device=dev).expand(2, 9)
+    out = {}
+    for name, m, p, t in (("card", model, params, tree),
+                          ("cpu", cpu_model, to_cpu(params), to_cpu(tree))):
+        runner = FusedRunner(m, p, m.stack_experts(t["layers"]), moe_impl=moe_impl)
+        d = m.device
+        kv = runner.init_cache(2, 32)
+        before = dict(fa.LAUNCHES), dict(gm.LAUNCHES)
+        l1, kv = runner.prefill(tok.to(d), pos.to(d), kv, 0)
+        l2, kv = runner.prefill(tok[:, :1].to(d), torch.full((2, 1), 9, dtype=torch.int32, device=d),
+                                kv, 9)
+        out[name] = (l1.cpu(), l2.cpu())
+        k5 = fa.LAUNCHES["mla_flash_decode"] - before[0]["mla_flash_decode"]
+        k3 = gm.LAUNCHES["gmm"] - before[1]["gmm"]
+        assert k5 == (3 if name == "card" else 0)
+        assert k3 == (12 if name == "card" and moe_impl == "gmm" else 0)
+    for a, b in zip(out["card"], out["cpu"]):
+        _close(a, b, 2e-2 if moe_impl == "gmm" else 2e-3)

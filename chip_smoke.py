@@ -9,7 +9,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. each kernel against its plain PyTorch version on the card, at the shapes
    of the NLLB-MoE-54B, Mixtral-8x7B and DeepSeek-V2-Lite paths, with the
    error, its tolerance and the times of the kernel, the plain version and
-   one library call for the same function;
+   one library call for the same function; K4 and K1 also at long rows
+   (8192 columns), the decode body at the edges of its split plan, and K2's
+   few-row route with every bias form;
 3. the seq2seq main path: NLLB-MoE-54B geometry (d_model 2048, 16 heads,
    FFN 8192, 128 experts top-2, every 4th block sparse, vocab 256,206) with
    random weights from a seed, bf16 compute, packed int4 experts, resident
@@ -41,6 +43,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    same two steps over paged caches with holes, logits through the kernels
    against the plain versions (f32 on three seeds, bf16 on one), and once
    more with ``fold_mla_params`` applied.
+
+``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
+of 2 to 8 blocks per SM and stops (no main path, no result lines).
 
 The line before the last is the per-kernel JSON record (launches: the sum
 of the counts of phases 3, 5 and 7); the last line is
@@ -98,6 +103,10 @@ DSV2_LITE = dict(
     rms_eps=1e-6, rope_theta=10000.0, tie_embeddings=False,
 )
 MLA_KERNELS = ("mla_flash_decode", "gmm")
+# device functions of csrc/flash_attention.cu, as a profile names them
+ATTENTION_KERNELS = ("flash_decode_kernel", "paged_decode_kernel", "attend_rows_kernel",
+                     "flash_attend_kernel", "flash_attend_f32_kernel", "mla_decode_kernel",
+                     "mla_merge_kernel")
 
 
 def say(*a):
@@ -169,10 +178,26 @@ def phase_device():
     for stem, path in libs.items():
         log = path.with_suffix(".log")
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    say(f"[ptxas] {stem}: {line.strip()}")
+            _say_ptxas(stem, log.read_text())
     return smi
+
+
+def _say_ptxas(stem, log):
+    """One line per kernel of ptxas's report: registers, shared memory,
+    stack and spills, under the kernel's name without its namespace."""
+    import re
+
+    name, spill = "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+_cu_[0-9a-f]{8}\d+", "", m.group(1))
+            name = re.sub(r"13__nv_bfloat16", "bf16", name)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            say(f"[ptxas] {stem}: {name[:48]}: "
+                f"{line.split(':', 1)[-1].strip()}; {spill}")
 
 
 # ---------------------------------------------------------------------------
@@ -254,8 +279,56 @@ def check_flash_attend(g, dev):
             library_ms=cuda_ms(_sdpa_mask_call(q, k, v, bias.to(torch.bfloat16))),
             shape=f"{label}: B={B} T={T} H={H} Dh={Dh} S={S} bf16",
         )
-    say(f"[time] flash_attend encoder shape: {json.dumps(recs['encoder'])}")
-    return recs["cross"]
+    for label in ("encoder", "cross"):
+        say(f"[time] flash_attend NLLB {label} shape: {json.dumps(recs[label])}")
+    return max(r["max_abs_err"] for r in recs.values())
+
+
+def check_flash_attend_chunk(g, dev):
+    """K2 at the Mixtral batcher's 16-wide chunk step over the gathered view:
+    B=4, T=16, H=32 over Hkv=8, S=512, causal, a key_valid mask with holes,
+    no bias, the queries at columns 250-265 (kv_len 266), bf16."""
+    import torch.nn.functional as F_
+
+    from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+    B, T, H, Hkv, Dh, S = SLOTS, CHUNK, 32, 8, 128, MAX_COLS
+    col0 = 250
+    kv_len = col0 + T
+    q = torch.randn(B, T, H, Dh, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, S, Hkv, Dh, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, S, Hkv, Dh, generator=g, device=dev).to(torch.bfloat16)
+    pos = (col0 + torch.arange(T, dtype=torch.int32, device=dev)).expand(B, T).contiguous()
+    holes = torch.rand(B, S, generator=g, device=dev) > 0.1
+    holes[:, col0:kv_len] = True  # this step's own columns are live
+    run = lambda: fa.flash_attend(q, k, v, pos, kv_len, pad_mask=holes)  # noqa: E731
+    plain = lambda: fa.flash_attend_plain(  # noqa: E731
+        q, k, v, pos, kv_len, scale=Dh ** -0.5, pad_mask=holes
+    )
+    err = compare(f"flash_attend chunk step B={B} T={T} H={H} Hkv={Hkv} S={S} causal, "
+                  f"columns {col0}-{kv_len - 1}, holes", run(), plain())
+    key = torch.arange(S, device=dev)
+    ok = holes[:, None, :] & (key[None, None, :] <= pos[:, :, None])  # [B, T, S]
+    read = int(ok.any(1).sum())  # keys some query of the row attends to
+    nbytes = (2 * B * T * H * Dh * 2 + 2 * read * Hkv * Dh * 2  # q, out, live K and V rows
+              + B * kv_len + B * T * 4)  # mask bytes of the live range, positions
+    b_ms, b_by = bound_ms(nbytes, 4 * H * Dh * int(ok.sum()))
+    rep = H // Hkv
+    kt = k.repeat_interleave(rep, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(rep, dim=2).transpose(1, 2)
+    fmask = torch.where(ok, 0.0, float("-inf")).to(torch.bfloat16)[:, None]
+    qt = q.transpose(1, 2)
+    lib = lambda: F_.scaled_dot_product_attention(qt, kt, vt, attn_mask=fmask)  # noqa: E731
+    rec = dict(
+        name="flash_attend", route="cuda",
+        source="moe_infinity_tpu_torch/csrc/flash_attention.cu",
+        replaces="moe_infinity_tpu/ops/flash_attention.py:81",
+        max_abs_err=err, ms=cuda_ms(run), plain_ms=cuda_ms(plain),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib),
+        shape=f"Mixtral chunk step: B={B} T={T} H={H} Hkv={Hkv} Dh={Dh} S={S} causal, "
+              f"{read} keys read, bf16 (library: SDPA, KV heads expanded beforehand)",
+    )
+    return rec
 
 
 def _routed_rows(g, dev, tokens, E, K=2):
@@ -421,8 +494,8 @@ def check_paged_decode(g, dev):
     qs = q[:, :, None, :]
     lib = lambda: F_.scaled_dot_product_attention(qs, kc, vc, attn_mask=bias)  # noqa: E731
     # K1 over the same rows gathered into a contiguous cache: the same
-    # decode_block body without the page indirection, so the two times
-    # split K4's cost between its shared body and the page-table reads
+    # decode body without the page table, so the two times show what the
+    # page-table reads cost
     kg = pk[idx].reshape(B, S, Hkv, Dh)
     vg = pv[idx].reshape(B, S, Hkv, Dh)
     q1, qpos = q[:, None], (lengths - 1)[:, None]
@@ -439,6 +512,134 @@ def check_paged_decode(g, dev):
         shape=f"B={B} H={H} Hkv={Hkv} page={PAGE} P={P} pool={NP} "
               f"{valid} valid keys, bf16 (library: SDPA on a pre-gathered view)",
     )
+
+
+def _paged_case(g, dev, dtype, *, B, H, Hkv, P, NP, lengths, hole_share=0.1, dead=()):
+    """Inputs of one K4 call over a shuffled page table: (q, pool_k, pool_v,
+    table, lengths, holes); ``dead`` lists (row, first key, last key) ranges
+    that are all holes."""
+    Dh, S = 128, P * PAGE
+    q = torch.randn(B, H, Dh, generator=g, device=dev).to(dtype)
+    pk = torch.randn(NP, PAGE, Hkv, Dh, generator=g, device=dev).to(dtype)
+    pv = torch.randn(NP, PAGE, Hkv, Dh, generator=g, device=dev).to(dtype)
+    table = torch.randperm(NP, generator=g, device=dev)[:B * P].reshape(B, P).to(torch.int32)
+    holes = torch.rand(B, S, generator=g, device=dev) > hole_share
+    for row, lo, hi in dead:
+        holes[row, lo:hi] = False
+    return q, pk, pv, table, torch.tensor(lengths, dtype=torch.int32, device=dev), holes
+
+
+def check_decode_long(g, dev):
+    """K4 and K1 at long rows, where the byte bound means something: B=4,
+    H=32 over Hkv=8, page 16, 512 pages a row (8192 columns) from a pool of
+    2100 pages (69 MB each for K and V), rows of 8192, 6000, 3000 and 1000
+    keys with holes, bf16."""
+    import torch.nn.functional as F_
+
+    from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+    B, H, Hkv, Dh, P, NP = 4, 32, 8, 128, 512, 2100
+    S = P * PAGE
+    q, pk, pv, table, lengths, holes = _paged_case(
+        g, dev, torch.bfloat16, B=B, H=H, Hkv=Hkv, P=P, NP=NP,
+        lengths=[8192, 6000, 3000, 1000])
+    run = lambda: fa.paged_flash_decode(q, pk, pv, table, lengths, pad_mask=holes)  # noqa: E731
+    plain = lambda: fa.paged_flash_decode_plain(  # noqa: E731
+        q, pk, pv, table, lengths, scale=Dh ** -0.5, pad_mask=holes)
+    err = compare(f"paged_flash_decode long rows B={B} H={H} Hkv={Hkv} page={PAGE} P={P} "
+                  f"lengths=(8192,6000,3000,1000) holes", run(), plain())
+    live = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+    valid = int((live & holes).sum())
+    nbytes = (2 * valid * Hkv * Dh * 2 + int(lengths.sum())
+              + 2 * B * H * Dh * 2 + B * P * 4 + B * 4)
+    b_ms, b_by = bound_ms(nbytes, 4 * H * Dh * valid)
+    idx = table.long()
+    kg = pk[idx].reshape(B, S, Hkv, Dh)
+    vg = pv[idx].reshape(B, S, Hkv, Dh)
+    q1, qpos = q[:, None], (lengths - 1)[:, None]
+    contig = lambda: fa.flash_decode(q1, kg, vg, qpos, S, pad_mask=holes)  # noqa: E731
+    compare("flash_decode on the gathered long rows vs paged_flash_decode", contig()[:, 0], run())
+    rep = H // Hkv
+    kc = kg.repeat_interleave(rep, dim=2).transpose(1, 2)
+    vc = vg.repeat_interleave(rep, dim=2).transpose(1, 2)
+    bias = torch.where(live & holes, 0.0, float("-inf")).to(torch.bfloat16)[:, None, None, :]
+    qs = q[:, :, None, :]
+    lib = lambda: F_.scaled_dot_product_attention(qs, kc, vc, attn_mask=bias)  # noqa: E731
+    say(f"[time] long rows ({valid} valid keys, {2 * valid * Hkv * Dh * 2 / 1e6:.1f} MB of K and V): "
+        f"paged_flash_decode ms={cuda_ms(run):.4f} flash_decode on the gathered rows ms="
+        f"{cuda_ms(contig):.4f} plain_ms={cuda_ms(plain, iters=5, warmup=1):.4f} "
+        f"bound_ms={b_ms:.5f} ({b_by}) library_ms={cuda_ms(lib):.4f} (SDPA on a pre-gathered "
+        f"view, KV heads expanded beforehand)")
+    return err
+
+
+def check_decode_edges(g, dev):
+    """The decode body where its split plan has edges: a row of 0 live keys
+    beside a long one, four splits that lie wholly in holes, a live length
+    that is no multiple of the tile; rep 1, 2, 4 and 8; bf16 and f32; through
+    K4 and, on the gathered rows, through K1."""
+    from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+    B, Hkv, Dh, P, NP = 3, 2, 128, 64, 200
+    S = P * PAGE
+    errs = []
+    for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, 2e-3)):
+        for rep in (1, 2, 4, 8):
+            q, pk, pv, table, lengths, holes = _paged_case(
+                g, dev, dtype, B=B, H=Hkv * rep, Hkv=Hkv, P=P, NP=NP,
+                lengths=[0, 1000, 333], dead=[(1, 128, 384)])
+            kc, ns = fa._decode_splits(B * Hkv, S)
+            if not (ns > 6 and kc * 2 <= 128 and 384 <= kc * ns):
+                raise AssertionError(f"the plan ({kc}, {ns}) leaves no split wholly in holes")
+            name = f"rep={rep} {str(dtype).split('.')[-1]} lengths=(0,1000,333), keys 128-383 of row 1 holes"
+            want = fa.paged_flash_decode_plain(q, pk, pv, table, lengths, scale=Dh ** -0.5,
+                                               pad_mask=holes)
+            got = fa.paged_flash_decode(q, pk, pv, table, lengths, pad_mask=holes)
+            errs.append(compare(f"paged_flash_decode edges {name}", got, want, tol))
+            idx = table.long()
+            got1 = fa.flash_decode(q[:, None], pk[idx].reshape(B, S, Hkv, Dh),
+                                   pv[idx].reshape(B, S, Hkv, Dh), (lengths - 1)[:, None], S,
+                                   pad_mask=holes)[:, 0]
+            errs.append(compare(f"flash_decode edges {name}", got1, want, tol))
+            if not bool((got[0] == 0).all() and (got1[0] == 0).all()):
+                raise AssertionError("a row of 0 live keys must give 0")
+    return max(errs)
+
+
+def check_attend_rows(g, dev):
+    """K2's few-row route (the decode body with a bias, per-row positions and
+    p rounded to V's type): every bias broadcast form, causal=False, a row
+    with no valid key, T * rep = 4 and 8 query rows per kv head, bf16 and f32."""
+    from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+    B, Hkv, rep, Dh, S = 3, 2, 4, 128, 200
+    H = Hkv * rep
+    errs = []
+    for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, 2e-3)):
+        for T in (1, 2):
+            forms = {"B11S": (B, 1, 1, S), "1H1S": (1, H, 1, S), "11TS": (1, 1, T, S),
+                     "BHTS": (B, H, T, S), "none": None}
+            for form, shape in forms.items():
+                q = torch.randn(B, T, H, Dh, generator=g, device=dev).to(dtype)
+                k = torch.randn(B, S, Hkv, Dh, generator=g, device=dev).to(dtype)
+                v = torch.randn(B, S, Hkv, Dh, generator=g, device=dev).to(dtype)
+                pos = (70 + torch.arange(T, dtype=torch.int32, device=dev)).expand(B, T).contiguous()
+                bias = torch.randn(*shape, generator=g, device=dev) if shape else None
+                mask = torch.rand(B, S, generator=g, device=dev) > 0.2
+                mask[1] = False  # row 1 has no valid key
+                causal = form == "none"
+                kw = dict(causal=causal, bias=bias, pad_mask=mask)
+                before = fa.LAUNCHES["flash_attend"]
+                got = fa.flash_attend(q, k, v, pos, 150, **kw)
+                if fa.LAUNCHES["flash_attend"] != before + 1:
+                    raise AssertionError("flash_attend must count one launch")
+                want = fa.flash_attend_plain(q, k, v, pos, 150, scale=Dh ** -0.5, **kw)
+                errs.append(compare(
+                    f"flash_attend rows T={T} rep={rep} {str(dtype).split('.')[-1]} bias={form} "
+                    f"causal={causal}, row 1 empty", got, want, tol))
+                if not bool((got[1] == 0).all()):
+                    raise AssertionError("flash_attend: a row with no valid key must give 0")
+    return max(errs)
 
 
 def check_mla_decode(g, dev):
@@ -558,6 +759,21 @@ def check_gmm_deepseek(g, dev):
             f"{active} of {E} experts, {kind}, D={D} F={F}, group_offset={offset}): "
             f"ms={cuda_ms(run):.4f} plain_ms={cuda_ms(plain, iters=5, warmup=1):.4f} "
             f"bound_ms={b_ms:.5f} ({b_by})")
+        if kind == "bf16" and offset == 0:
+            # library yardstick where one PyTorch call computes the function:
+            # bf16 weights without scales, the gate projection alone
+            gate = lambda: gm.gmm(x, w["gate"], gsz, None)  # noqa: E731
+            line = f"[time] gmm V2-Lite bf16 gate projection alone: ms={cuda_ms(gate):.4f} "
+            if hasattr(torch, "_grouped_mm"):
+                ends = torch.cumsum(gsz, 0).to(torch.int32)
+                lib = lambda: torch._grouped_mm(x, w["gate"], offs=ends)  # noqa: E731
+                torch.cuda.synchronize()
+                gap = (lib().float() - gate().float()).abs().max().item()
+                line += (f"library_ms={cuda_ms(lib):.4f} (torch._grouped_mm, bf16 out; "
+                         f"max_abs_diff={gap:.3e}, reported, not held)")
+            else:
+                line += "library_ms=None (this torch has no torch._grouped_mm)"
+            say(line)
         del w, sc
         torch.cuda.empty_cache()
     return max(errs)
@@ -566,10 +782,16 @@ def check_gmm_deepseek(g, dev):
 def phase_kernels(dev):
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    recs = [check_flash_decode(g, dev), check_flash_attend(g, dev),
+    k2_err = check_flash_attend(g, dev)
+    recs = [check_flash_decode(g, dev), check_flash_attend_chunk(g, dev),
             check_gmm_mixtral(g, dev, check_gmm(g, dev)), check_paged_decode(g, dev),
             check_mla_decode(g, dev)]
+    recs[1]["max_abs_err"] = max(recs[1]["max_abs_err"], k2_err, check_attend_rows(g, dev))
     recs[2]["max_abs_err"] = max(recs[2]["max_abs_err"], check_gmm_deepseek(g, dev))
+    long_err = check_decode_long(g, dev)
+    edge_err = check_decode_edges(g, dev)  # through K4 and K1 alike
+    recs[0]["max_abs_err"] = max(recs[0]["max_abs_err"], long_err, edge_err)
+    recs[3]["max_abs_err"] = max(recs[3]["max_abs_err"], long_err, edge_err)
     for r in recs:
         say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
@@ -684,8 +906,12 @@ def _profile(label, fn, n):
     busy = sum(by_name.values())
     say(f"[profile] {label}: wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
         f"busy_share={busy / wall_ms:.3f}")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    for name, ms in ranked[:8]:
         say(f"[profile]   {ms:8.3f} ms  {name[:110]}")
+    for name, ms in ranked[8:]:  # the attention kernels, wherever they rank
+        if any(k in name for k in ATTENTION_KERNELS):
+            say(f"[profile]   {ms:8.3f} ms  {name[:110]}")
     return busy
 
 
@@ -764,7 +990,7 @@ class _plain_kernels:
             )
 
         def paged(q, pk, pv, table, lengths, *, scale=None, logit_softcap=None,
-                  pad_mask=None):
+                  pad_mask=None, max_len=None):
             return fa.paged_flash_decode_plain(
                 q, pk, pv, table, lengths,
                 scale=scale if scale is not None else q.shape[-1] ** -0.5,
@@ -1260,9 +1486,32 @@ def phase_deepseek_whole_path(dev):
         torch.cuda.empty_cache()
 
 
+def sweep_decode_plans(dev):
+    """``--decode-plans``: K4 at the Mixtral decode shape and at the long rows
+    under split plans aimed at 2 to 8 blocks per SM (the wrapper's
+    ``_DEC_BLOCKS``), first and last the same, to show the spread."""
+    from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+    kept = fa._DEC_BLOCKS
+    try:
+        for blocks in (264, 396, 528, 792, 1056, 264):
+            fa._DEC_BLOCKS = blocks
+            g = torch.Generator(device=dev)
+            g.manual_seed(0)
+            say(f"[plan] _DEC_BLOCKS={blocks}")
+            check_paged_decode(g, dev)
+            check_decode_long(g, dev)
+    finally:
+        fa._DEC_BLOCKS = kept
+
+
 def main() -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
+    if "--decode-plans" in sys.argv[1:]:
+        sweep_decode_plans(dev)
+        say(f"[card] {smi}")
+        return 0
     recs = phase_kernels(dev)
     counts = phase_main_path(dev)
     phase_whole_path(dev)

@@ -34,14 +34,17 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float o[4]) {
   o[3] = __uint_as_float(v.y & 0xffff0000u);
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// Four consecutive elements from float; alignment as for load4.
+__device__ __forceinline__ void store4(float* p, const float x[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
 }
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float x[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+  uint2 v;
+  v.x = *reinterpret_cast<const unsigned*>(&lo);
+  v.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = v;
 }
 
 // Round a probability to the storage type of V before the P.V product.

@@ -172,6 +172,7 @@ def attend_cache(
         out = fa.paged_flash_decode(
             q[:, 0], kv.pool_k, kv.pool_v, kv.page_table, row_len,
             scale=scale, logit_softcap=logit_softcap, pad_mask=pad_mask,
+            max_len=int(kv_len),
         )
         return out[:, None]
     return attend(q, kv.k, kv.v, q_positions, kv_len, scale=scale,

@@ -20,16 +20,28 @@ PyTorch versions.
   latent itself, and one key stream serves all H heads; q and the result
   are f32 whatever the cache type.
 
-The kernels (``csrc/flash_attention.cu``) are bound on the H100 by launch
-latency and the live K/V bytes at the serving paths' sizes; the source note
-there says what the design does about it. The wrappers launch the kernel for
-CUDA tensors (raising on a shape it does not take: head_dim 128 and rep <= 8
-for K1, K2 and K4; R 512 with P 64 for K5, at any S and H) and run the plain
-version for CPU tensors. The plain versions repeat the
-kernels' arithmetic, including what differs from the einsum oracle
-``models.layers.attend_reference``: a row with no valid key returns 0, and
-``flash_attend`` rounds p to V's dtype before the P.V product (the decode
-kernels, K5 among them, keep p in f32).
+What bounds the kernels (``csrc/flash_attention.cu``) on the H100, and what
+their design does about it: a decode step moves the live K/V rows once and
+does 4 operations per byte, so bytes bound it, and at the serving paths'
+sizes those bytes take under a microsecond: what is left is a launch and
+every dependent trip to device memory. K1, K4 and K2 with at most 8 query
+rows per kv head (NLLB's cross-attention) share one decode body: the keys of
+a (batch row, kv head) are split over blocks (``_decode_splits`` plans whole
+64-key tiles for about six blocks per SM from an integer the caller holds,
+never from ``lengths``, which would be a host read per layer), a block
+starts a whole tile's loads at once, and the last split of a row to finish
+merges them all; a plan of one split writes the result itself. K2 with more
+rows runs both products on the tensor cores for bf16 (``mma.sync``) and in
+full f32 on the CUDA cores for f32. One call counts one launch whatever it
+runs.
+
+The wrappers launch the kernel for CUDA tensors (raising on a shape it does
+not take: head_dim 128 and rep <= 8 for K1, K2 and K4; R 512 with P 64 for
+K5, at any S and H) and run the plain version for CPU tensors. The plain
+versions repeat the kernels' arithmetic, including what differs from the
+einsum oracle ``models.layers.attend_reference``: a row with no valid key
+returns 0, and ``flash_attend`` rounds p to V's dtype before the P.V product
+(the decode kernels, K5 among them, keep p in f32).
 """
 
 from __future__ import annotations
@@ -49,15 +61,17 @@ LAUNCHES = {"flash_decode": 0, "flash_attend": 0, "paged_flash_decode": 0,
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _c = ctypes.c_void_p
-_DECODE_ARGS = [_c] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [
-    ctypes.c_int, _c,
-]
+_ROWS_ARGS = [ctypes.c_int] + [_c] * 9 + [ctypes.c_longlong] * 3 + [_c] * 3 + [
+    ctypes.c_int
+] * 12 + [ctypes.c_float] * 2 + [ctypes.c_int, _c]
 _ATTEND_ARGS = [_c] * 5 + [ctypes.c_longlong] * 3 + [_c] * 2 + [
     ctypes.c_int
 ] * 7 + [ctypes.c_float] * 2 + [ctypes.c_int, _c]
-_PAGED_ARGS = [_c] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [
-    ctypes.c_int, _c,
-]
+_DEC_CONTIG, _DEC_PAGED, _DEC_ATTEND = 0, 1, 2  # DecKind in csrc/flash_attention.cu
+_DEC_TILE = 64  # kDecTile: keys per tile of the decode body
+_DEC_ROWS = 8  # query rows of one kv head the decode body takes
+_DEC_BLOCKS = 792  # blocks aimed at: six per SM of an H100, three resident at a time
+_TICKETS = {}  # (device, stream) -> zeroed counters of the decode body's merge
 _MLA_ARGS = [_c] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, _c]
 _MLA_R, _MLA_P = 512, 64  # kMlaR, kMlaP in csrc/flash_attention.cu
 _MLA_TILE, _MLA_HEADS = 16, 16  # kMlaKeys, kMlaHeads
@@ -82,6 +96,83 @@ def _mask_u8(pad_mask, B, S, name):
     if tuple(pad_mask.shape) != (B, S):
         raise ValueError(f"{name}: pad_mask must be [B, S] = [{B}, {S}]")
     return pad_mask.to(torch.bool).contiguous()  # bool is one byte, 0 or 1
+
+
+def _decode_splits(pairs: int, live_max: int):
+    """(keys per split, splits) of the decode body for ``pairs`` (batch row,
+    kv head) pairs whose rows hold at most ``live_max`` live keys: whole
+    tiles, as many splits as bring all pairs to about ``_DEC_BLOCKS`` blocks,
+    one split for a row of at most one tile per wanted block."""
+    want = max(1, _DEC_BLOCKS // max(1, pairs))
+    kc = max(1, -(-live_max // (want * _DEC_TILE))) * _DEC_TILE
+    return kc, max(1, -(-live_max // kc))
+
+
+def _tickets(dev, n: int) -> torch.Tensor:
+    """``n`` int32 counters, zero between launches, for the decode body's
+    merge: the last split of a (batch row, kv head) to finish draws the last
+    ticket, merges, and sets the counter back to 0. One buffer per device and
+    stream, since launches on one stream run in order."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _TICKETS[key] = torch.zeros(max(4096, n), dtype=torch.int32, device=dev)
+    return buf
+
+
+def _bias_strides(bias, B, H, T, S, name):
+    """(f32 contiguous bias, its B, H and T strides with 0 for a broadcast
+    axis) for a bias [B|1, H|1, T|1, S]."""
+    if bias is None:
+        return None, (0, 0, 0)
+    if bias.dim() != 4 or bias.shape[3] != S:
+        raise ValueError(
+            f"{name}: bias must be [B|1, H|1, T|1, S] (an S-broadcast "
+            "bias is not taken)"
+        )
+    Bb, Hb, Tb, _ = bias.shape
+    if Bb not in (1, B) or Hb not in (1, H) or Tb not in (1, T):
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} does not broadcast")
+    strides = (
+        Hb * Tb * S if Bb > 1 else 0,
+        Tb * S if Hb > 1 else 0,
+        S if Tb > 1 else 0,
+    )
+    return bias.to(torch.float32).contiguous(), strides
+
+
+def _launch_rows(kind, name, q, k, v, *, Tq, S, live_max, kv_len=0, causal=False,
+                 qpos=None, lengths=None, table=None, P=0, page=0, mask=None,
+                 bias=None, strides=(0, 0, 0), round_p=False, scale,
+                 logit_softcap):
+    """Launch the decode body on q [B, Tq, H, Dh] (or [B, H, Dh], Tq = 1)
+    and return the result in q's shape. ``live_max`` bounds every row's live
+    keys; the split plan comes from it alone."""
+    B, H, Hkv = q.shape[0], q.shape[-2], k.shape[2]
+    dev = _build.same_device(q, k, v, qpos, lengths, table, mask, bias)
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    kc, NS = _decode_splits(B * Hkv, max(0, live_max))
+    part_acc = part_ml = tickets = None
+    if NS > 1:  # each split's unnormalised sum and (m, l), for the merge
+        n_acc = B * Hkv * NS * Tq * (H // Hkv) * 128
+        scratch = torch.empty(n_acc + n_acc // 64, dtype=torch.float32, device=dev)
+        part_acc, part_ml = scratch[:n_acc], scratch[n_acc:]
+        tickets = _tickets(dev, B * Hkv)
+    fn = _build.function("flash_attention", "mit_decode_rows", _ROWS_ARGS)
+    err = fn(
+        kind, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+        _build.ptr(qpos), _build.ptr(lengths), _build.ptr(table), _build.ptr(mask),
+        _build.ptr(bias), *strides, _build.ptr(part_acc), _build.ptr(part_ml),
+        _build.ptr(tickets),
+        B, Tq, H, Hkv, S, P, page, kv_len, int(causal), int(round_p), kc, NS,
+        scale, float(logit_softcap or 0.0), int(q.dtype == torch.bfloat16),
+        _build.stream_ptr(dev),
+    )
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -120,19 +211,14 @@ def _decode_cuda(q, k, v, q_positions, kv_len, *, scale, causal,
         raise ValueError("flash_decode: k/v must be [B, S, Hkv, Dh]")
     _check_qkv(q, k, v, "flash_decode")
     qpos = q_positions.to(torch.int32).contiguous()
-    mask = _mask_u8(pad_mask, B, S, "flash_decode")
-    dev = _build.same_device(q, k, v, qpos, mask)
-    out = torch.empty_like(q)
-    fn = _build.function("flash_attention", "mit_flash_decode", _DECODE_ARGS)
-    err = fn(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(qpos),
-        _build.ptr(mask), _build.ptr(out), B, H, Hkv, S, kv_len, int(causal),
-        scale, float(logit_softcap or 0.0), int(q.dtype == torch.bfloat16),
-        _build.stream_ptr(dev),
+    if tuple(qpos.shape) != (B,):
+        raise ValueError("flash_decode: q_positions must be [B, 1]")
+    return _launch_rows(
+        _DEC_CONTIG, "flash_decode", q, k, v, Tq=1, S=S,
+        live_max=min(kv_len, S), kv_len=kv_len, causal=causal, qpos=qpos,
+        mask=_mask_u8(pad_mask, B, S, "flash_decode"), scale=scale,
+        logit_softcap=logit_softcap,
     )
-    _build.check(err, "flash_decode")
-    LAUNCHES["flash_decode"] += 1
-    return out
 
 
 def flash_decode_plain(q, k, v, q_positions, kv_len, *, scale, causal=True,
@@ -202,25 +288,19 @@ def _attend_cuda(q, k, v, q_positions, kv_len, *, scale, causal,
     qpos = q_positions.to(torch.int32).contiguous()
     if tuple(qpos.shape) != (B, T):
         raise ValueError("flash_attend: q_positions must be [B, T]")
-    strides = (0, 0, 0)
-    if bias is not None:
-        if bias.dim() != 4 or bias.shape[3] != S:
-            raise ValueError(
-                "flash_attend: bias must be [B|1, H|1, T|1, S] (an S-broadcast "
-                "bias is not taken)"
-            )
-        Bb, Hb, Tb, _ = bias.shape
-        if Bb not in (1, B) or Hb not in (1, H) or Tb not in (1, T):
-            raise ValueError(f"flash_attend: bias {tuple(bias.shape)} does not broadcast")
-        bias = bias.to(torch.float32).contiguous()
-        strides = (
-            Hb * Tb * S if Bb > 1 else 0,
-            Tb * S if Hb > 1 else 0,
-            S if Tb > 1 else 0,
-        )
+    bias, strides = _bias_strides(bias, B, H, T, S, "flash_attend")
     mask = _mask_u8(pad_mask, B, S, "flash_attend")
+    if T * (H // Hkv) <= _DEC_ROWS:  # few query rows per kv head: the decode body
+        return _launch_rows(
+            _DEC_ATTEND, "flash_attend", q, k, v, Tq=T, S=S,
+            live_max=min(kv_len, S), kv_len=kv_len, causal=causal, qpos=qpos,
+            mask=mask, bias=bias, strides=strides, round_p=True, scale=scale,
+            logit_softcap=logit_softcap,
+        )
     dev = _build.same_device(q, k, v, qpos, bias, mask)
     out = torch.empty_like(q)
+    if B == 0:
+        return out
     fn = _build.function("flash_attention", "mit_flash_attend", _ATTEND_ARGS)
     err = fn(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(qpos),
@@ -284,43 +364,44 @@ def paged_flash_decode(
     scale: Optional[float] = None,
     logit_softcap: Optional[float] = None,
     pad_mask: Optional[torch.Tensor] = None,  # [B, P * page] True = valid
+    max_len: Optional[int] = None,  # a bound on lengths the caller holds
 ) -> torch.Tensor:
     """One query token per row over the pool's pages: returns [B, H, Dh] in
     q's dtype. Row b attends to its logical keys ``[0, lengths[b])`` (at
     most ``P * page``), key j read from page ``page_table[b, j // page]``,
-    slot ``j % page``."""
+    slot ``j % page``. ``max_len`` (default ``P * page``) sizes the kernel's
+    key splits without reading ``lengths`` on the host; a bound that is too
+    small costs time, not keys (the last split takes the rest)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    fn = _paged_cuda if q.is_cuda else paged_flash_decode_plain
-    return fn(q, pool_k, pool_v, page_table, lengths, scale=float(scale),
-              logit_softcap=logit_softcap, pad_mask=pad_mask)
+    if not q.is_cuda:
+        return paged_flash_decode_plain(
+            q, pool_k, pool_v, page_table, lengths, scale=float(scale),
+            logit_softcap=logit_softcap, pad_mask=pad_mask)
+    return _paged_cuda(q, pool_k, pool_v, page_table, lengths, scale=float(scale),
+                       logit_softcap=logit_softcap, pad_mask=pad_mask,
+                       max_len=max_len)
 
 
 def _paged_cuda(q, pool_k, pool_v, page_table, lengths, *, scale,
-                logit_softcap, pad_mask):
+                logit_softcap, pad_mask, max_len=None):
     B, H, Dh = q.shape
     if pool_k.dim() != 4 or pool_k.shape != pool_v.shape or pool_k.shape[3] != Dh:
         raise ValueError("paged_flash_decode: pools must be [NP, page, Hkv, Dh]")
-    page, Hkv = pool_k.shape[1], pool_k.shape[2]
+    page = pool_k.shape[1]
     if page_table.dim() != 2 or page_table.shape[0] != B or lengths.shape != (B,):
         raise ValueError("paged_flash_decode: page_table must be [B, P], lengths [B]")
     P = page_table.shape[1]
+    S = P * page
     _check_qkv(q, pool_k, pool_v, "paged_flash_decode")
-    mask = _mask_u8(pad_mask, B, P * page, "paged_flash_decode")
-    table = page_table.to(torch.int32).contiguous()
-    lens = lengths.to(torch.int32).contiguous()
-    dev = _build.same_device(q, pool_k, pool_v, table, lens, mask)
-    out = torch.empty_like(q)
-    fn = _build.function("flash_attention", "mit_paged_flash_decode", _PAGED_ARGS)
-    err = fn(
-        _build.ptr(q), _build.ptr(pool_k), _build.ptr(pool_v), _build.ptr(table),
-        _build.ptr(lens), _build.ptr(mask), _build.ptr(out), B, H, Hkv, P, page,
-        scale, float(logit_softcap or 0.0), int(q.dtype == torch.bfloat16),
-        _build.stream_ptr(dev),
+    return _launch_rows(
+        _DEC_PAGED, "paged_flash_decode", q, pool_k, pool_v, Tq=1, S=S,
+        live_max=S if max_len is None else min(int(max_len), S),
+        lengths=lengths.to(torch.int32).contiguous(),
+        table=page_table.to(torch.int32).contiguous(), P=P, page=page,
+        mask=_mask_u8(pad_mask, B, S, "paged_flash_decode"), scale=scale,
+        logit_softcap=logit_softcap,
     )
-    _build.check(err, "paged_flash_decode")
-    LAUNCHES["paged_flash_decode"] += 1
-    return out
 
 
 def paged_flash_decode_plain(q, pool_k, pool_v, page_table, lengths, *, scale,

@@ -318,3 +318,109 @@ def test_deepseek_fused_step_kernels_match_cpu(dev, moe_impl):
         assert k3 == (12 if name == "card" and moe_impl == "gmm" else 0)
     for a, b in zip(out["card"], out["cpu"]):
         _close(a, b, 2e-2 if moe_impl == "gmm" else 2e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_decode_body_split_edges(dev, dtype, rep):
+    """The decode body where its split plan has edges, through K4 and, on the
+    gathered rows, K1: a row of 0 live keys beside a long one, splits that lie
+    wholly in holes, a live length that is no multiple of the tile."""
+    g = _gen(dev)
+    B, Hkv, Dh, page, P, NP = 3, 2, 128, 16, 64, 200
+    S, H = P * page, Hkv * rep
+    kc, ns = fa._decode_splits(B * Hkv, S)
+    assert kc == 64 and ns == 16  # keys 128-383 cover four whole splits
+    q = torch.randn(B, H, Dh, generator=g, device=dev).to(dtype)
+    pk = torch.randn(NP, page, Hkv, Dh, generator=g, device=dev).to(dtype)
+    pv = torch.randn(NP, page, Hkv, Dh, generator=g, device=dev).to(dtype)
+    table = torch.randperm(NP, generator=g, device=dev)[:B * P].reshape(B, P).to(torch.int32)
+    lengths = torch.tensor([0, 1000, 333], dtype=torch.int32, device=dev)
+    mask = torch.rand(B, S, generator=g, device=dev) > 0.1
+    mask[1, 128:384] = False
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    want = fa.paged_flash_decode_plain(q, pk, pv, table, lengths, scale=Dh ** -0.5, pad_mask=mask)
+    before = dict(fa.LAUNCHES)
+    got = fa.paged_flash_decode(q, pk, pv, table, lengths, pad_mask=mask)
+    short = fa.paged_flash_decode(q, pk, pv, table, lengths, pad_mask=mask, max_len=1000)
+    low = fa.paged_flash_decode(q, pk, pv, table, lengths, pad_mask=mask, max_len=200)
+    idx = table.long()
+    got1 = fa.flash_decode(q[:, None], pk[idx].reshape(B, S, Hkv, Dh),
+                           pv[idx].reshape(B, S, Hkv, Dh), (lengths - 1)[:, None], S,
+                           pad_mask=mask)[:, 0]
+    assert fa.LAUNCHES["paged_flash_decode"] == before["paged_flash_decode"] + 3
+    assert fa.LAUNCHES["flash_decode"] == before["flash_decode"] + 1
+    for out in (got, short, low, got1):  # a bound that is too small costs time only
+        _close(out, want, tol)
+        assert bool((out[0] == 0).all())
+
+
+def test_decode_body_never_reads_a_hole(dev):
+    """NaN in masked keys and past a row's length never reaches the result."""
+    g = _gen(dev)
+    B, H, Hkv, Dh, S = 2, 8, 2, 128, 300
+    q = torch.randn(B, 1, H, Dh, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, S, Hkv, Dh, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, S, Hkv, Dh, generator=g, device=dev).to(torch.bfloat16)
+    mask = torch.rand(B, S, generator=g, device=dev) > 0.3
+    pos = torch.tensor([[150], [299]], dtype=torch.int32, device=dev)
+    want = fa.flash_decode_plain(q[:, 0], k, v, pos[:, 0], 280, scale=Dh ** -0.5, pad_mask=mask)
+    k[~mask], v[~mask] = float("nan"), float("nan")
+    k[0, 151:], v[0, 151:] = float("nan"), float("nan")
+    k[1, 280:], v[1, 280:] = float("nan"), float("nan")
+    got = fa.flash_decode(q, k, v, pos, 280, pad_mask=mask)[:, 0]
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, want, 2e-2)
+    got2 = fa.flash_attend(q.expand(B, 16, H, Dh).contiguous(), k, v,
+                           pos.expand(B, 16).contiguous(), 280, pad_mask=mask)
+    assert bool(torch.isfinite(got2.float()).all())  # the tensor-core kernel too
+    _close(got2[:, 0], want, 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("bias", ["B11S", "1H1S", "11TS", "BHTS", None])
+def test_flash_attend_few_rows_route(dev, dtype, T, bias):
+    """K2 with at most 8 query rows per kv head (the decode body): every bias
+    broadcast form, causal=False, a row with no valid key, one launch."""
+    g = _gen(dev)
+    B, Hkv, rep, Dh, S = 3, 2, 4, 128, 200
+    H = Hkv * rep
+    q = torch.randn(B, T, H, Dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, Hkv, Dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, Hkv, Dh, generator=g, device=dev).to(dtype)
+    pos = (70 + torch.arange(T, dtype=torch.int32, device=dev)).expand(B, T).contiguous()
+    shape = {"B11S": (B, 1, 1, S), "1H1S": (1, H, 1, S), "11TS": (1, 1, T, S),
+             "BHTS": (B, H, T, S)}.get(bias)
+    b = torch.randn(*shape, generator=g, device=dev) if shape else None
+    mask = torch.rand(B, S, generator=g, device=dev) > 0.2
+    mask[1] = False
+    kw = dict(causal=bias is None, bias=b, pad_mask=mask)
+    before = fa.LAUNCHES["flash_attend"]
+    got = fa.flash_attend(q, k, v, pos, 150, **kw)
+    assert fa.LAUNCHES["flash_attend"] == before + 1
+    want = fa.flash_attend_plain(q, k, v, pos, 150, scale=Dh ** -0.5, **kw)
+    _close(got, want, 2e-3 if dtype == torch.float32 else 2e-2)
+    assert bool((got[1] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 16, 17, 64])
+@pytest.mark.parametrize("S,kv_len,softcap", [(64, 64, None), (300, 266, None), (200, 200, 30.0)])
+def test_flash_attend_gqa_rep4(dev, dtype, T, S, kv_len, softcap):
+    """K2 at GQA rep 4 across its routes (the decode body at T = 1, the
+    tensor-core kernel with one and with two key halves, the f32 kernel):
+    causal with a hole mask, the queries ending at the last live column."""
+    g = _gen(dev)
+    B, Hkv, rep, Dh = 2, 2, 4, 128
+    H = Hkv * rep
+    q = torch.randn(B, T, H, Dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, Hkv, Dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, Hkv, Dh, generator=g, device=dev).to(dtype)
+    pos = (kv_len - T + torch.arange(T, dtype=torch.int32, device=dev)).expand(B, T).contiguous()
+    mask = torch.rand(B, S, generator=g, device=dev) > 0.15
+    mask[:, max(kv_len - T, 0):kv_len] = True
+    kw = dict(causal=True, logit_softcap=softcap, pad_mask=mask)
+    got = fa.flash_attend(q, k, v, pos, kv_len, **kw)
+    want = fa.flash_attend_plain(q, k, v, pos, kv_len, scale=Dh ** -0.5, **kw)
+    _close(got, want, 2e-3 if dtype == torch.float32 else 2e-2)

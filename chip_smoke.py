@@ -45,7 +45,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    more with ``fold_mla_params`` applied.
 
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
-of 2 to 8 blocks per SM and stops (no main path, no result lines).
+of 2 to 8 blocks per SM and stops (no main path, no result lines);
+``python3 chip_smoke.py --gmm`` builds the kernels, runs phase 2's K3 checks
+and times alone and stops the same way.
 
 The line before the last is the per-kernel JSON record (launches: the sum
 of the counts of phases 3, 5 and 7); the last line is
@@ -345,6 +347,22 @@ def _routed_rows(g, dev, tokens, E, K=2):
     return gid, gsz, int(torch.unique(flat).numel())
 
 
+def _plan(rows, G, D, Fw):
+    """K3's split plan for one call, as its wrapper takes it."""
+    from moe_infinity_tpu_torch.ops import gmm as gm
+
+    p = gm._gmm_plan(rows, G, D, Fw)
+    return f"{p.tiles}x{p.chunks}x{p.splits}"
+
+
+def _layer_plans(x, w, gsz):
+    """The plans of a layer's gate, up and down calls, as tiles x chunks x
+    splits (the grid)."""
+    rows, G = x.shape[0], gsz.shape[0]
+    return "plans " + " ".join(f"{r}={_plan(rows, G, w[r].shape[1], w[r].shape[2])}"
+                               for r in ROLES)
+
+
 def _gmm_case(name, g, dev, *, rows, D, F, S, kind, gid=None, gsz=None,
               active=None, time_it=False):
     from moe_infinity_tpu_torch.ops import gmm as gm
@@ -365,7 +383,7 @@ def _gmm_case(name, g, dev, *, rows, D, F, S, kind, gid=None, gsz=None,
     plain = lambda: gm.gmm_plain(  # noqa: E731
         x, w, gsz, scale, group_ids=gid, packed=packed
     )
-    err = compare(f"gmm {name}", run(), plain())
+    err = compare(f"gmm {name} plan={_plan(rows, gsz.shape[0], D, Fw)}", run(), plain())
     if not time_it:
         return err, None
     wbytes = active * D * Fw * w.element_size()
@@ -412,49 +430,123 @@ def check_gmm(g, dev):
     return max(errs)
 
 
-def check_gmm_mixtral(g, dev, err_nllb):
-    """One Mixtral decode MoE layer on K3: gate, up and down launches over 8
-    rows (4 tokens x top-2) routed to all 8 experts, int8 with per-channel
-    scales, D=4096 F=14336."""
+ROLES = ("gate", "up", "down")
+
+
+def _layer_weights(g, dev, S, D, F, kind):
+    """gate, up and down weights of S experts from the generator: bf16, int8
+    with per-channel scales, or packed int4 with scales."""
+    w, sc = {}, {}
+    for role, (d_in, d_out) in zip(ROLES, ((D, F), (D, F), (F, D))):
+        if kind == "bf16":
+            w[role] = (torch.randn(S, d_in, d_out, generator=g, device=dev) * 0.02
+                       ).to(torch.bfloat16)
+            sc[role] = None
+            continue
+        fw = d_out // 2 if kind == "int4" else d_out
+        w[role] = torch.randint(-128, 128, (S, d_in, fw), generator=g, device=dev,
+                                dtype=torch.int8)
+        sc[role] = torch.rand(S, d_out, generator=g, device=dev) * 0.0026 + 0.003
+        if kind == "int8":
+            sc[role] = sc[role] / 3
+    return w, sc
+
+
+def _check_layer(label, x, w, sc, gsz, active, **kw):
+    """One MoE layer on K3 (gate and up on x, down on silu(gate) * up) held
+    against gmm_plain role by role, then timed. Returns the error, the times,
+    the bound and the down projection's input."""
     import torch.nn.functional as F_
 
     from moe_infinity_tpu_torch.ops import gmm as gm
-    from moe_infinity_tpu_torch.ops.gmm import compact_groups
 
-    E, D, F, rows = 8, 4096, 14336, 8
-    flat = torch.randperm(E, generator=g, device=dev)  # 4 tokens x 2 experts
-    gid, gsz = compact_groups(torch.sort(flat).values, E)
-    x = torch.randn(rows, D, generator=g, device=dev).to(torch.bfloat16)
-    w, sc = {}, {}
-    for role, (d_in, d_out) in (("gate", (D, F)), ("up", (D, F)), ("down", (F, D))):
-        w[role] = torch.randint(-127, 127, (E, d_in, d_out), generator=g, device=dev,
-                                dtype=torch.int8)
-        sc[role] = torch.rand(E, d_out, generator=g, device=dev) * 1e-3 + 1e-3
-    h = gm.gmm(x, w["gate"], gsz, sc["gate"], group_ids=gid)
-    hu = gm.gmm(x, w["up"], gsz, sc["up"], group_ids=gid)
-    a = (F_.silu(h) * hu).to(torch.bfloat16)
+    a = (F_.silu(gm.gmm(x, w["gate"], gsz, sc["gate"], **kw))
+         * gm.gmm(x, w["up"], gsz, sc["up"], **kw)).to(torch.bfloat16)
 
     def calls(fn):
-        return lambda: [fn(xin, w[r], gsz, sc[r], group_ids=gid)
-                        for r, xin in (("gate", x), ("up", x), ("down", a))]
+        return lambda: [fn(xin, w[r], gsz, sc[r], **kw) for r, xin in zip(ROLES, (x, x, a))]
 
     run, plain = calls(gm.gmm), calls(gm.gmm_plain)
-    errs = [err_nllb] + [
-        compare(f"gmm int8 Mixtral decode {r} rows={rows} active={E}", got, want)
-        for r, got, want in zip(("gate", "up", "down"), run(), plain())
-    ]
-    nbytes = (E * 3 * D * F + E * (2 * F + D) * 4  # weights, scales
+    err = max(compare(f"gmm {label} {r}", got, want)
+              for r, got, want in zip(ROLES, run(), plain()))
+    (rows, D), F = x.shape, a.shape[1]
+    nbytes = (sum(active * v.shape[1] * v.shape[2] * v.element_size() for v in w.values())
+              + (0 if sc["gate"] is None else active * (2 * F + D) * 4)  # scales
               + 2 * rows * D * 2 + rows * F * 2  # x read twice, a
               + 2 * rows * F * 4 + rows * D * 4)  # f32 outputs
     b_ms, b_by = bound_ms(nbytes, 2 * rows * D * F * 3)
+    return dict(max_abs_err=err, ms=cuda_ms(run), plain_ms=cuda_ms(plain, iters=5, warmup=1),
+                bound_ms=b_ms, bound_by=b_by, a=a)
+
+
+def check_gmm_mixtral(g, dev):
+    """K3 at one Mixtral MoE layer at both step widths of the batcher, int8
+    with per-channel scales, D=4096 F=14336, gate + up + down: the W=1 decode
+    step (8 rows, 4 tokens x top-2, one row on each of the 8 experts) and the
+    W=16 chunk step (128 rows, 64 tokens x top-2 over the 8 experts). Returns
+    K3's record (the decode layer) and the W=16 layer's error."""
+    from moe_infinity_tpu_torch.ops.gmm import compact_groups
+
+    E, D, F = 8, 4096, 14336
+    w, sc = _layer_weights(g, dev, E, D, F, "int8")
+    flat = torch.randperm(E, generator=g, device=dev)  # 4 tokens x 2 experts
+    gid, gsz = compact_groups(torch.sort(flat).values, E)
+    x = torch.randn(8, D, generator=g, device=dev).to(torch.bfloat16)
+    dec = _check_layer("int8 Mixtral decode rows=8 active=8", x, w, sc, gsz, E, group_ids=gid)
+    tokens = SLOTS * CHUNK
+    gid16, gsz16, active = _routed_rows(g, dev, tokens, E)
+    x16 = torch.randn(2 * tokens, D, generator=g, device=dev).to(torch.bfloat16)
+    w16 = _check_layer(f"int8 Mixtral W=16 chunk step rows={2 * tokens} active={active}",
+                       x16, w, sc, gsz16, active, group_ids=gid16)
+    say(f"[time] gmm Mixtral W=16 chunk-step MoE layer (gate + up + down, {2 * tokens} rows "
+        f"over {active} experts, group sizes {gsz16.tolist()}, int8 + scales, D={D} F={F}): "
+        f"ms={w16['ms']:.4f} plain_ms={w16['plain_ms']:.4f} bound_ms={w16['bound_ms']:.5f} "
+        f"({w16['bound_by']}) library_ms=None (no PyTorch call takes int8 weights with "
+        f"per-channel scales); {_layer_plans(x16, w, gsz16)}")
+    say(f"[time] gmm Mixtral decode MoE layer: {_layer_plans(x, w, gsz)}")
+    del w, sc
+    torch.cuda.empty_cache()
+    dec.pop("a")
     return dict(
         name="gmm", route="cuda", source="moe_infinity_tpu_torch/csrc/gmm.cu",
-        replaces="moe_infinity_tpu/ops/gmm.py:46", max_abs_err=max(errs),
-        ms=cuda_ms(run), plain_ms=cuda_ms(plain, iters=5, warmup=1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape="one Mixtral decode MoE layer: gate + up + down launches, 8 rows "
-              "over 8 experts, int8 + scales, D=4096 F=14336",
-    )
+        replaces="moe_infinity_tpu/ops/gmm.py:46", library_ms=None,
+        shape=f"one Mixtral decode MoE layer: gate + up + down launches, 8 rows "
+              f"over 8 experts, int8 + scales, D={D} F={F}", **dec,
+    ), w16["max_abs_err"]
+
+
+def check_gmm_edges(g, dev):
+    """K3 at the edges of its 64-row chunks and 64-deep k-tiles in each
+    weight type: groups of 0, 1, 15, 16, 17, 63, 64, 65 and 150 rows with 5
+    rows past the last group (they stay zero), D=328 (8 past the last whole
+    k-tile) and a half column tile; a last group that ends at a chunk edge
+    and one that ends at T; a wide call (one k-split) and a deep one over
+    few blocks (several)."""
+    errs = []
+    sizes = [0, 1, 15, 16, 17, 0, 63, 64, 65, 150]
+    for kind, F in (("bf16", 320), ("int8", 704), ("int4", 1408)):
+        errs.append(_gmm_case(
+            f"{kind} edge groups {sizes} + 5 rows past them, D=328 F={F}", g, dev,
+            rows=sum(sizes) + 5, D=328, F=F, S=len(sizes), kind=kind,
+            gsz=torch.tensor(sizes, dtype=torch.int32, device=dev))[0])
+    for kind, sz, D, F in (("int8", [64, 64], 256, 512),  # the last group ends at a chunk edge
+                           ("int4", [37, 27, 0], 256, 512),  # ... and at T = 64
+                           ("int8", [4] * 16, 512, 8192),  # wide: one split
+                           ("bf16", [3, 0], 8192, 256)):  # deep over few blocks: several
+        errs.append(_gmm_case(f"{kind} groups {sz} D={D} F={F}", g, dev, rows=sum(sz), D=D,
+                              F=F, S=len(sz), kind=kind,
+                              gsz=torch.tensor(sz, dtype=torch.int32, device=dev))[0])
+    return max(errs)
+
+
+def phase_gmm(g, dev):
+    """Every K3 check of phase 2 (``--gmm`` runs these alone); returns K3's
+    record with the largest error of them all."""
+    err = check_gmm(g, dev)
+    rec, w16_err = check_gmm_mixtral(g, dev)
+    rec["max_abs_err"] = max(rec["max_abs_err"], err, w16_err, check_gmm_deepseek(g, dev),
+                             check_gmm_edges(g, dev))
+    return rec
 
 
 def check_paged_decode(g, dev):
@@ -715,8 +807,6 @@ def check_gmm_deepseek(g, dev):
     (11 column tiles) and packed int4 (704 stored columns: 5.5 tiles, the
     partial tile), all 64 groups passed uncompacted as the fused runner passes
     them; the bf16 case once more at group_offset 128 into a 3-layer pool."""
-    import torch.nn.functional as F_
-
     from moe_infinity_tpu_torch.ops import gmm as gm
 
     E, D, F, T, K = DSV2_LITE["num_experts"], 2048, 1408, SLOTS, DSV2_LITE["top_k"]
@@ -728,53 +818,38 @@ def check_gmm_deepseek(g, dev):
     x = torch.randn(rows, D, generator=g, device=dev).to(torch.bfloat16)
     errs = []
     for kind, offset in (("bf16", 0), ("int4", 0), ("bf16", 2 * E)):
-        S, packed = offset + E, kind == "int4"
-        w, sc = {}, {}
-        for role, (d_in, d_out) in (("gate", (D, F)), ("up", (D, F)), ("down", (F, D))):
-            if packed:
-                w[role] = torch.randint(-128, 128, (S, d_in, d_out // 2), generator=g,
-                                        device=dev, dtype=torch.int8)
-                sc[role] = torch.rand(S, d_out, generator=g, device=dev) * 0.0026 + 0.003
-            else:
-                w[role] = (torch.randn(S, d_in, d_out, generator=g, device=dev) * 0.02
-                           ).to(torch.bfloat16)
-                sc[role] = None
-        kw = dict(group_offset=offset, packed=packed)
-        a = (F_.silu(gm.gmm(x, w["gate"], gsz, sc["gate"], **kw))
-             * gm.gmm(x, w["up"], gsz, sc["up"], **kw)).to(torch.bfloat16)
-
-        def calls(fn):
-            return lambda: [fn(xin, w[r], gsz, sc[r], **kw)
-                            for r, xin in (("gate", x), ("up", x), ("down", a))]
-
-        run, plain = calls(gm.gmm), calls(gm.gmm_plain)
-        label = f"{kind} V2-Lite decode rows={rows} active={active} of {E} offset={offset}"
-        errs += [compare(f"gmm {label} {r}", got, want)
-                 for r, got, want in zip(("gate", "up", "down"), run(), plain())]
-        wbytes = sum(active * v.shape[1] * v.shape[2] * v.element_size() for v in w.values())
-        nbytes = (wbytes + (active * (2 * F + D) * 4 if packed else 0)
-                  + 2 * rows * D * 2 + rows * F * 2 + 2 * rows * F * 4 + rows * D * 4)
-        b_ms, b_by = bound_ms(nbytes, 2 * rows * D * F * 3)
-        say(f"[time] gmm DeepSeek-V2-Lite decode MoE layer (gate + up + down, {rows} rows over "
-            f"{active} of {E} experts, {kind}, D={D} F={F}, group_offset={offset}): "
-            f"ms={cuda_ms(run):.4f} plain_ms={cuda_ms(plain, iters=5, warmup=1):.4f} "
-            f"bound_ms={b_ms:.5f} ({b_by})")
+        w, sc = _layer_weights(g, dev, offset + E, D, F, kind)
+        r = _check_layer(f"{kind} V2-Lite decode rows={rows} active={active} of {E} "
+                         f"offset={offset}", x, w, sc, gsz, active, group_offset=offset,
+                         packed=kind == "int4")
+        errs.append(r["max_abs_err"])
+        line = (f"[time] gmm DeepSeek-V2-Lite decode MoE layer (gate + up + down, {rows} rows "
+                f"over {active} of {E} experts, {kind}, D={D} F={F}, group_offset={offset}): "
+                f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}); {_layer_plans(x, w, gsz)}")
         if kind == "bf16" and offset == 0:
             # library yardstick where one PyTorch call computes the function:
-            # bf16 weights without scales, the gate projection alone
+            # bf16 weights without scales, for the layer and the gate alone
             gate = lambda: gm.gmm(x, w["gate"], gsz, None)  # noqa: E731
-            line = f"[time] gmm V2-Lite bf16 gate projection alone: ms={cuda_ms(gate):.4f} "
+            gate_line = f"[time] gmm V2-Lite bf16 gate projection alone: ms={cuda_ms(gate):.4f} "
             if hasattr(torch, "_grouped_mm"):
                 ends = torch.cumsum(gsz, 0).to(torch.int32)
-                lib = lambda: torch._grouped_mm(x, w["gate"], offs=ends)  # noqa: E731
+                lib_gate = lambda: torch._grouped_mm(x, w["gate"], offs=ends)  # noqa: E731
+                lib = lambda: [torch._grouped_mm(xin, w[n], offs=ends)  # noqa: E731
+                               for n, xin in zip(ROLES, (x, x, r["a"]))]
                 torch.cuda.synchronize()
-                gap = (lib().float() - gate().float()).abs().max().item()
-                line += (f"library_ms={cuda_ms(lib):.4f} (torch._grouped_mm, bf16 out; "
-                         f"max_abs_diff={gap:.3e}, reported, not held)")
+                gap = (lib_gate().float() - gate().float()).abs().max().item()
+                line += f" library_ms={cuda_ms(lib):.4f} (torch._grouped_mm x3, bf16 out)"
+                gate_line += (f"library_ms={cuda_ms(lib_gate):.4f} (torch._grouped_mm, bf16 out; "
+                              f"max_abs_diff={gap:.3e}, reported, not held)")
             else:
-                line += "library_ms=None (this torch has no torch._grouped_mm)"
+                line += " library_ms=None (this torch has no torch._grouped_mm)"
+                gate_line += "library_ms=None (this torch has no torch._grouped_mm)"
             say(line)
-        del w, sc
+            say(gate_line)
+        else:
+            say(line)
+        del w, sc, r
         torch.cuda.empty_cache()
     return max(errs)
 
@@ -783,11 +858,9 @@ def phase_kernels(dev):
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     k2_err = check_flash_attend(g, dev)
-    recs = [check_flash_decode(g, dev), check_flash_attend_chunk(g, dev),
-            check_gmm_mixtral(g, dev, check_gmm(g, dev)), check_paged_decode(g, dev),
-            check_mla_decode(g, dev)]
+    recs = [check_flash_decode(g, dev), check_flash_attend_chunk(g, dev), phase_gmm(g, dev),
+            check_paged_decode(g, dev), check_mla_decode(g, dev)]
     recs[1]["max_abs_err"] = max(recs[1]["max_abs_err"], k2_err, check_attend_rows(g, dev))
-    recs[2]["max_abs_err"] = max(recs[2]["max_abs_err"], check_gmm_deepseek(g, dev))
     long_err = check_decode_long(g, dev)
     edge_err = check_decode_edges(g, dev)  # through K4 and K1 alike
     recs[0]["max_abs_err"] = max(recs[0]["max_abs_err"], long_err, edge_err)
@@ -1510,6 +1583,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     if "--decode-plans" in sys.argv[1:]:
         sweep_decode_plans(dev)
+        say(f"[card] {smi}")
+        return 0
+    if "--gmm" in sys.argv[1:]:
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        r = phase_gmm(g, dev)
+        say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e}")
         say(f"[card] {smi}")
         return 0
     recs = phase_kernels(dev)

@@ -46,18 +46,9 @@ namespace {
 constexpr int kDh = 128;  // a lane owns 4 of the 128 head dims
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
+using mit::cp_async16;
+using mit::cp_async_commit;
+using mit::cp_async_wait;
 
 // ---------------------------------------------------------------------------
 // The decode body: grid (split, Hkv, B). A block owns the `Tq * rep` query
@@ -548,34 +539,10 @@ constexpr int mma_smem_bytes() {  // two buffers of K then V
   return 2 * 2 * HALVES * kMmaTile * kMmaRowBytes;
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 out
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
-  return *reinterpret_cast<const unsigned*>(&h);
-}
+using mit::ldmatrix_x4;
+using mit::ldmatrix_x4_trans;
+using mit::mma_bf16;
+using mit::pack_bf16;
 
 template <int HALVES>
 __global__ void __launch_bounds__(HALVES * kMmaUnits * 32) flash_attend_kernel(

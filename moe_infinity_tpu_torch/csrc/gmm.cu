@@ -1,81 +1,72 @@
-// Hand-written Hopper grouped matmul with fused weight dequantization.
+// Hand-written Hopper grouped matmul with fused weight dequantization (K3).
 //
 // Replaces moe_infinity_tpu/ops/gmm.py _gmm_kernel / gmm:
 //   out[r, :] = bf16(x[r, :]) @ bf16(w[group_ids[g] + group_offset]) * scale
 // for the rows r of group g (rows are sorted by group; group g owns rows
 // [group_start[g], group_start[g+1])). f32 accumulation, the per-output
-// channel scale applied after the dot. Weights: bf16, int8, or split-nibble
-// packed int4 (byte c of a row holds output channel c
-// in its low nibble and channel c + F/2 in its high nibble, sign-extended).
+// channel scale applied after the sum. Weights: bf16, int8, or split-nibble
+// packed int4 (byte c of a row holds output channel c in its low nibble and
+// channel c + F/2 in its high nibble, sign-extended).
 //
-// What bounds it on the H100: on the NLLB path every group holds a handful of
-// rows (4 requests x top-2 at decode: 8 rows over <= 8 experts), so each
-// expert slab is read once for a few rows of work and the kernel is bound by
-// the routed experts' weight bytes (16.8 MB per int4 expert), at 3.35 TB/s.
-// The design therefore (a) reads each routed slab exactly once per row chunk
-// of up to 8 rows, with coalesced 4-byte loads per lane (128 bytes per warp
-// per weight row), (b) moves and computes nothing for an empty group - it
-// owns no chunk, so cost follows routed groups, not slots - and (c) unpacks
-// the nibbles in registers with arithmetic shifts, so packed int4 costs half
-// the bytes of int8. The products run on the CUDA cores, so a prefill-sized
-// call (hundreds of rows) is bound by them instead; a tensor-core (wgmma)
-// version for large groups is later work.
+// What bounds it on the H100: the routed experts' weight bytes, at 3.35
+// TB/s. A decode step gives each routed expert a few rows (8 to 24 rows in
+// all), Mixtral's 16-wide chunk step about 16 and NLLB's prefill about 4:
+// at most some 64 operations per weight byte, far below the tensor cores'
+// 295 but above what the CUDA cores' 67 TFLOP/s keep up with. The design:
 //
-// Ownership: the rows of each group are cut into chunks of up to kRM rows,
-// and block (tile, c) owns output columns of tile `tile` for the rows of
-// chunk c. Groups own disjoint row ranges, so every output element has one
-// writer and no block carries state to another; a group that routes many
-// rows spreads over many blocks instead of serialising in one. The wrapper
-// passes the cumulative chunk counts; the grid's chunk axis is an upper bound
-// (rows / kRM + groups) and the blocks past the last chunk return at once.
-// Rows outside every group are left as the caller initialised them (zero).
+// - Ownership. Block (column tile, chunk, k-split) owns 128 stored columns
+//   of a chunk of up to 64 rows of one group over a range of the reduction.
+//   A group of up to 64 rows reads its weight slab once; an empty group owns
+//   no chunk and moves no byte, so cost follows routed groups, not slots.
+//   The block computes only the ceil(rows / 16) m16 tiles that hold rows, so
+//   a one-row decode group costs one. Groups own disjoint rows, so every
+//   output element has one writer. The wrapper passes the cumulative chunk
+//   counts; the grid's chunk axis is a bound (rows / 64 + groups) and the
+//   blocks past the last chunk return at once.
+// - Loads. The block walks its range in 64-deep k-tiles: 16-byte cp.async
+//   copies of the x tile (bf16) and of the weight tile in its stored type
+//   (16 KB bf16, 8 KB int8 or packed int4), kStages stages deep so that three
+//   are in flight while one is consumed. Rows past the chunk, columns past
+//   the weight's width and the tail of D are zero-filled by cp.async's source
+//   size, never read.
+// - Dequantization. Each warp converts its own 16 stored columns of an int8
+//   or int4 stage into a bf16 tile (exact: -128..127 and -8..7 are bf16
+//   values), so only a __syncwarp stands between conversion and use. This
+//   costs about ten bytes of shared-memory traffic per int4 byte read.
+// - Products on the tensor cores: mma.sync m16n8k16 bf16 -> f32, A fragments
+//   from the x tile by ldmatrix, B fragments from the bf16 weight tile by
+//   ldmatrix.trans, each B fragment used for every live m16 tile. Rows of
+//   every shared tile are padded by 16 bytes, so that ldmatrix's 8 rows fall
+//   in 8 bank groups.
+// - Split-K for short grids. Where the column tiles times the chunks are too
+//   few blocks for the card, the wrapper's planner cuts the reduction into
+//   whole k-tile splits (grid.z). Each split writes its f32 partial tile to a
+//   workspace; the last split of a (column tile, chunk) to finish (a
+//   __threadfence() and a ticket counter it resets to 0) sums the partials in
+//   split order, applies the scale and stores: deterministic, one launch.
 #include "common.cuh"
 
 namespace {
 
 enum WKind { kBF16 = 0, kINT8 = 1, kINT4 = 2 };
 
+constexpr int kThreads = 256;  // 8 warps; warp w owns stored columns [16w, 16w + 16)
+constexpr int kBN = 128;       // stored columns of a tile
+constexpr int kBM = 64;        // rows of a chunk
+constexpr int kBK = 64;        // depth of a k-tile
+constexpr int kStages = 4;
+constexpr int kXRow = kBK * 2 + 16;  // bytes of an x row of a stage, padded
+
 template <int KIND>
-struct W;
-
-template <>
-struct W<kBF16> {
-  using S = __nv_bfloat16;
-  static constexpr int NOUT = 4;
-  __device__ static void load(const S* p, float w[4]) { mit::load4(p, w); }
+struct Tile {
+  static constexpr int kElt = KIND == kBF16 ? 2 : 1;  // bytes of a stored weight
+  static constexpr int kWCopies = kBN * kElt / 16;    // 16-byte copies per weight row
+  static constexpr int kWRow = kBN * kElt + 16;       // bytes of a stage's weight row
+  static constexpr int kHalves = KIND == kINT4 ? 2 : 1;  // int4: low and high nibbles
+  static constexpr int kBRow = kHalves * kBN * 2 + 16;   // bytes of a bf16 tile row
+  static constexpr int kStage = kBM * kXRow + kBK * kWRow;
+  static constexpr int kSmem = kStages * kStage + (KIND == kBF16 ? 0 : kBK * kBRow);
 };
-
-template <>
-struct W<kINT8> {
-  using S = int8_t;
-  static constexpr int NOUT = 4;
-  __device__ static void load(const S* p, float w[4]) {
-    const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      w[j] = (float)((int32_t)(u << (24 - 8 * j)) >> 24);
-  }
-};
-
-template <>
-struct W<kINT4> {
-  using S = int8_t;
-  static constexpr int NOUT = 8;  // 4 low-nibble + 4 high-nibble channels
-  __device__ static void load(const S* p, float w[8]) {
-    const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      w[j] = (float)((int32_t)(u << (28 - 8 * j)) >> 28);      // low nibble
-      w[4 + j] = (float)((int32_t)(u << (24 - 8 * j)) >> 28);  // high nibble
-    }
-  }
-};
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 128;  // storage columns per block: 32 lanes x 4
-constexpr int kRM = 8;      // rows per chunk
-constexpr int kKC = 256;    // reduction depth staged per step
 
 struct Args {
   const __nv_bfloat16* x;  // [T, D]
@@ -84,83 +75,78 @@ struct Args {
   const int32_t* gstart;   // [G + 1] first row of each group
   const int32_t* cchunk;   // [G + 1] first chunk of each group
   const int32_t* gids;     // [G]
-  int G, goff, D, Fw, F;
-  float* out;              // [T, F]
+  float* part;             // [splits, T, F] partial sums when splits > 1
+  int32_t* tickets;        // [chunks, tiles], zero between launches, when splits > 1
+  int G, goff, T, D, Fw, F, kps, splits;
+  float* out;  // [T, F]
 };
 
-// One chunk of R (>= live rows) rows of a group: the block's warps split the
-// reduction dimension; lane l holds 4 storage columns of every row.
-template <int KIND, int R>
-__device__ __forceinline__ void gmm_chunk(const Args& a, int gw, int r0,
-                                          int nr, float (*xs)[kKC],
-                                          float (*red)[8][32]) {
-  using Tr = W<KIND>;
-  constexpr int NOUT = Tr::NOUT;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int u0 = blockIdx.x * kTile + lane * 4;
-  const bool col_ok = u0 < a.Fw;
-  const typename Tr::S* wg =
-      static_cast<const typename Tr::S*>(a.w) + (size_t)gw * a.D * a.Fw;
+// bf16 pair (lo in the low half) of two int8 values, each byte b of `u`
+// placed as the f32 2^23 + (b ^ 0x80) and shifted down by 2^23 + 128.
+__device__ __forceinline__ unsigned int8_pair(unsigned u, unsigned sel_lo,
+                                              unsigned sel_hi) {
+  const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, sel_lo)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(u, 0x4B000000u, sel_hi)) - 8388736.f;
+  return mit::pack_bf16(lo, hi);
+}
 
-  float acc[R][NOUT];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < NOUT; ++j) acc[r][j] = 0.f;
+// bf16 pair of two nibbles already offset to 0..15 in the low nibbles of
+// bytes of `q`: the bf16 128 + q (0x4300 | q) less 136 is q - 8, exactly.
+__device__ __forceinline__ unsigned int4_pair(unsigned q, unsigned sel) {
+  const unsigned v = __byte_perm(q, 0x43434343u, sel);
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                   __floats2bfloat162_rn(136.f, 136.f));
+  return *reinterpret_cast<const unsigned*>(&r);
+}
 
-  for (int k0 = 0; k0 < a.D; k0 += kKC) {
-    const int kc = min(kKC, a.D - k0);
-    __syncthreads();  // xs and red of the previous step are consumed
-    for (int i = tid; i < R * kKC; i += kThreads) {
-      const int r = i / kKC, kk = i % kKC;
-      xs[r][kk] = (r < nr && kk < kc)
-                      ? __bfloat162float(a.x[(size_t)(r0 + r) * a.D + k0 + kk])
-                      : 0.f;
-    }
-    __syncthreads();
-    if (col_ok) {
-      const typename Tr::S* wk = wg + (size_t)k0 * a.Fw + u0;
-#pragma unroll 4
-      for (int kk = warp; kk < kc; kk += kWarps) {
-        float wv[NOUT];
-        Tr::load(wk + (size_t)kk * a.Fw, wv);
+// Warp `warp` converts its 16 stored columns of the raw stage `raw` into
+// the bf16 tile `bq` (int4: low nibbles at columns [0, 128), high nibbles
+// at [128, 256)); lane l takes rows l and l + 32.
+template <int KIND>
+__device__ __forceinline__ void dequant(const unsigned char* raw, unsigned char* bq,
+                                        int warp, int lane) {
+  using C = Tile<KIND>;
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float xv = xs[r][kk];
+  for (int h = 0; h < 2; ++h) {
+    const int row = lane + 32 * h;
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + row * C::kWRow + warp * 16);
+    const unsigned u[4] = {v.x, v.y, v.z, v.w};
+    unsigned char* dst = bq + row * C::kBRow + warp * 32;
+    if (KIND == kINT8) {
+      unsigned o[8];
 #pragma unroll
-          for (int j = 0; j < NOUT; ++j) acc[r][j] = fmaf(xv, wv[j], acc[r][j]);
-        }
+      for (int j = 0; j < 4; ++j) {
+        const unsigned b = u[j] ^ 0x80808080u;
+        o[2 * j] = int8_pair(b, 0x7440, 0x7441);
+        o[2 * j + 1] = int8_pair(b, 0x7442, 0x7443);
       }
-    }
-  }
-
-  // reduce the warps' partial sums row by row, apply the scale, store
-  const int half = (KIND == kINT4) ? a.Fw : 0;
+      reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
+      reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
+    } else {
+      unsigned lo[8], hi[8];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (r >= nr) break;  // nr is uniform across the block
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < NOUT; ++j) red[warp][j][lane] = acc[r][j];
-    __syncthreads();
-    for (int idx = tid; idx < NOUT * 32; idx += kThreads) {
-      const int j = idx / 32, ln = idx % 32;
-      const int u = blockIdx.x * kTile + ln * 4;
-      if (u >= a.Fw) continue;
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += red[w][j][ln];
-      const int col = (j < 4) ? u + j : half + u + (j - 4);
-      if (a.scale != nullptr) s *= a.scale[(size_t)gw * a.F + col];
-      a.out[(size_t)(r0 + r) * a.F + col] = s;
+      for (int j = 0; j < 4; ++j) {
+        const unsigned ql = (u[j] & 0x0F0F0F0Fu) ^ 0x08080808u;
+        const unsigned qh = ((u[j] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+        lo[2 * j] = int4_pair(ql, 0x5140);
+        lo[2 * j + 1] = int4_pair(ql, 0x5342);
+        hi[2 * j] = int4_pair(qh, 0x5140);
+        hi[2 * j + 1] = int4_pair(qh, 0x5342);
+      }
+      reinterpret_cast<uint4*>(dst)[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      reinterpret_cast<uint4*>(dst)[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+      reinterpret_cast<uint4*>(dst + kBN * 2)[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      reinterpret_cast<uint4*>(dst + kBN * 2)[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
     }
   }
 }
 
 template <int KIND>
-__global__ void __launch_bounds__(kThreads) gmm_kernel(Args a) {
-  __shared__ float xs[kRM][kKC];
-  __shared__ float red[kWarps][8][32];
+__global__ void __launch_bounds__(kThreads, 2) gmm_kernel(const Args a) {
+  using C = Tile<KIND>;
+  constexpr int NT = 2 * C::kHalves;  // n8 tiles of a warp
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int last;
   const int c = blockIdx.y;
   if (c >= a.cchunk[a.G]) return;  // past the last chunk: nothing to do
   // the group owning chunk c: the last g with cchunk[g] <= c (an empty
@@ -173,29 +159,206 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(Args a) {
     else
       hi = mid;
   }
-  const int r0 = a.gstart[lo] + (c - a.cchunk[lo]) * kRM;
-  const int nr = min(kRM, a.gstart[lo + 1] - r0);
-  const int gw = a.gids[lo] + a.goff;
-  if (nr > 4)
-    gmm_chunk<KIND, 8>(a, gw, r0, nr, xs, red);
-  else if (nr > 2)
-    gmm_chunk<KIND, 4>(a, gw, r0, nr, xs, red);
-  else if (nr > 1)
-    gmm_chunk<KIND, 2>(a, gw, r0, nr, xs, red);
-  else
-    gmm_chunk<KIND, 1>(a, gw, r0, nr, xs, red);
+  const int r0 = a.gstart[lo] + (c - a.cchunk[lo]) * kBM;
+  const int nr = min(kBM, a.gstart[lo + 1] - r0);
+  const int mts = (nr + 15) >> 4;  // live m16 tiles, uniform across the block
+  const size_t gw = (size_t)a.gids[lo] + a.goff;
+  const int nk = (a.D + kBK - 1) / kBK;
+  const int kt0 = blockIdx.z * a.kps;  // the host plans no empty split
+  const int kt1 = min(nk, kt0 + a.kps);
+  const int col0 = blockIdx.x * kBN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const unsigned char* xg = reinterpret_cast<const unsigned char*>(a.x + (size_t)r0 * a.D);
+  const unsigned char* wg =
+      static_cast<const unsigned char*>(a.w) + gw * a.D * a.Fw * C::kElt;
+
+  // stage s <- k-tile kt: the chunk's live m16 tiles of x, kBK weight rows
+  auto load = [&](int kt, int s) {
+    unsigned char* xs = smem + s * C::kStage;
+    unsigned char* ws = xs + kBM * kXRow;
+    const int k0 = kt * kBK;
+    for (int i = tid; i < mts * 16 * 8; i += kThreads) {
+      const int r = i >> 3, k = k0 + (i & 7) * 8;
+      const bool ok = r < nr && k < a.D;
+      mit::cp_async16(xs + r * kXRow + (i & 7) * 16,
+                      ok ? xg + ((size_t)r * a.D + k) * 2 : xg, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int j = 0; j < kBK * C::kWCopies / kThreads; ++j) {
+      const int i = tid + j * kThreads;
+      const int kk = i / C::kWCopies, ch = i % C::kWCopies;
+      const int col = col0 + ch * (16 / C::kElt);
+      const bool ok = k0 + kk < a.D && col < a.Fw;
+      mit::cp_async16(ws + kk * C::kWRow + ch * 16,
+                      ok ? wg + ((size_t)(k0 + kk) * a.Fw + col) * C::kElt : wg,
+                      ok ? 16 : 0);
+    }
+  };
+
+  float acc[4][NT][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (kt0 + s < kt1) load(kt0 + s, s);
+    mit::cp_async_commit();
+  }
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int s = (kt - kt0) % kStages;
+    mit::cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage s has landed; every warp is done with stage s - 1
+    {
+      const int nxt = kt + kStages - 1;
+      if (nxt < kt1) load(nxt, (nxt - kt0) % kStages);
+      mit::cp_async_commit();
+    }
+    const unsigned char* xs = smem + s * C::kStage;
+    const unsigned char* bt = xs + kBM * kXRow;
+    if (KIND != kBF16) {
+      unsigned char* bq = smem + kStages * C::kStage;
+      dequant<KIND>(bt, bq, warp, lane);
+      __syncwarp();  // the warp reads only the columns it converted
+      bt = bq;
+    }
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      unsigned b[C::kHalves][4];
+      const unsigned char* bp =
+          bt + (ks * 16 + (lane & 15)) * C::kBRow + (warp * 16 + (lane >> 4) * 8) * 2;
+#pragma unroll
+      for (int h = 0; h < C::kHalves; ++h) mit::ldmatrix_x4_trans(b[h], bp + h * kBN * 2);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        if (m < mts) {
+          unsigned af[4];
+          mit::ldmatrix_x4(af, xs + (m * 16 + (lane & 15)) * kXRow +
+                                   (ks * 16 + (lane >> 4) * 8) * 2);
+#pragma unroll
+          for (int h = 0; h < C::kHalves; ++h) {
+            mit::mma_bf16(acc[m][2 * h], af, b[h][0], b[h][1]);
+            mit::mma_bf16(acc[m][2 * h + 1], af, b[h][2], b[h][3]);
+          }
+        }
+      }
+    }
+  }
+  mit::cp_async_wait<0>();  // no copy outlives the block
+
+  // Fragment (m, n, e) of a lane: rows m * 16 + lane / 4 + 8e, stored columns
+  // u and u + 1; output columns h * Fw + u (int4's high half at F/2 = Fw).
+  const bool split = a.splits > 1;
+  float* part = a.part + (size_t)blockIdx.z * a.T * a.F;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    if (m >= mts) break;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int u = col0 + warp * 16 + (n & 1) * 8 + (lane & 3) * 2;
+      if (u >= a.Fw) continue;  // Fw is even: the pair is in or out
+      const int col = (n >> 1) * a.Fw + u;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = m * 16 + (lane >> 2) + 8 * e;
+        if (row >= nr) continue;
+        const size_t at = (size_t)(r0 + row) * a.F + col;
+        float v0 = acc[m][n][2 * e], v1 = acc[m][n][2 * e + 1];
+        if (split) {
+          *reinterpret_cast<float2*>(part + at) = make_float2(v0, v1);
+          continue;
+        }
+        if (a.scale != nullptr) {
+          v0 *= a.scale[gw * a.F + col];
+          v1 *= a.scale[gw * a.F + col + 1];
+        }
+        *reinterpret_cast<float2*>(a.out + at) = make_float2(v0, v1);
+      }
+    }
+  }
+  if (!split) return;
+
+  // The last split of (tile, chunk) to finish sums the partials in split
+  // order; its own are still in registers.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* ticket = a.tickets + (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    last = atomicAdd(ticket, 1) == a.splits - 1;
+    if (last) *ticket = 0;  // every other split has drawn: ready for the next call
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    if (m >= mts) break;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int u = col0 + warp * 16 + (n & 1) * 8 + (lane & 3) * 2;
+      if (u >= a.Fw) continue;
+      const int col = (n >> 1) * a.Fw + u;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = m * 16 + (lane >> 2) + 8 * e;
+        if (row >= nr) continue;
+        const size_t at = (size_t)(r0 + row) * a.F + col;
+        float v0 = 0.f, v1 = 0.f;
+        for (int z = 0; z < a.splits; ++z) {
+          if (z == (int)blockIdx.z) {
+            v0 += acc[m][n][2 * e];
+            v1 += acc[m][n][2 * e + 1];
+          } else {
+            const float2 p = __ldcg(
+                reinterpret_cast<const float2*>(a.part + (size_t)z * a.T * a.F + at));
+            v0 += p.x;
+            v1 += p.y;
+          }
+        }
+        if (a.scale != nullptr) {
+          v0 *= a.scale[gw * a.F + col];
+          v1 *= a.scale[gw * a.F + col + 1];
+        }
+        *reinterpret_cast<float2*>(a.out + at) = make_float2(v0, v1);
+      }
+    }
+  }
+}
+
+template <int KIND>
+int launch(const Args& a, dim3 grid, cudaStream_t st) {
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gmm_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<KIND>::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  gmm_kernel<KIND><<<grid, kThreads, Tile<KIND>::kSmem, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// rows_per_chunk must equal kRM (the wrapper's chunk counts assume it);
-// max_chunks bounds the chunk count (rows / kRM + G) and sizes the grid.
+// rows_per_chunk must equal kBM (the wrapper's chunk counts assume it);
+// max_chunks bounds the chunk count (rows / kBM + G) and sizes the grid.
+// `splits` whole-k-tile splits of ceil(ceil(D / 64) / splits) k-tiles each,
+// none empty; with more than one, `part` holds splits * T * F floats and
+// `tickets` max_chunks * ceil(Fw / 128) zeroed counters.
 extern "C" int mit_gmm(const void* x, const void* w, const void* scale,
-                       const void* gstart, const void* cchunk,
-                       const void* gids, int goff, int G, int max_chunks,
-                       int rows_per_chunk, int D, int Fw, int F, int kind,
-                       void* out, void* stream) {
-  if (rows_per_chunk != kRM || max_chunks > 65535)
+                       const void* gstart, const void* cchunk, const void* gids,
+                       void* part, void* tickets, int goff, int G, int max_chunks,
+                       int rows_per_chunk, int T, int D, int Fw, int F, int kind,
+                       int splits, void* out, void* stream) {
+  const int nk = (D + kBK - 1) / kBK;
+  const int kps = splits > 0 ? (nk + splits - 1) / splits : 0;
+  const int elt = kind == kBF16 ? 2 : 1;
+  if (rows_per_chunk != kBM || max_chunks > 65535 || splits < 1 ||
+      splits > 65535 || (splits - 1) * kps >= nk || D % 8 != 0 ||
+      (Fw * elt) % 16 != 0 || (splits > 1 && (part == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.x = static_cast<const __nv_bfloat16*>(x);
@@ -204,26 +367,27 @@ extern "C" int mit_gmm(const void* x, const void* w, const void* scale,
   a.gstart = static_cast<const int32_t*>(gstart);
   a.cchunk = static_cast<const int32_t*>(cchunk);
   a.gids = static_cast<const int32_t*>(gids);
+  a.part = static_cast<float*>(part);
+  a.tickets = static_cast<int32_t*>(tickets);
   a.G = G;
   a.goff = goff;
+  a.T = T;
   a.D = D;
   a.Fw = Fw;
   a.F = F;
+  a.kps = kps;
+  a.splits = splits;
   a.out = static_cast<float*>(out);
-  const dim3 grid((Fw + kTile - 1) / kTile, max_chunks);
+  const dim3 grid((Fw + kBN - 1) / kBN, max_chunks, splits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case kBF16:
-      gmm_kernel<kBF16><<<grid, kThreads, 0, st>>>(a);
-      break;
+      return launch<kBF16>(a, grid, st);
     case kINT8:
-      gmm_kernel<kINT8><<<grid, kThreads, 0, st>>>(a);
-      break;
+      return launch<kINT8>(a, grid, st);
     case kINT4:
-      gmm_kernel<kINT4><<<grid, kThreads, 0, st>>>(a);
-      break;
+      return launch<kINT4>(a, grid, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

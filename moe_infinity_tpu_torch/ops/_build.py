@@ -33,6 +33,8 @@ NVCC_FLAGS = [
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, ctypes._CFuncPtr] = {}
+_tickets: Dict[tuple, torch.Tensor] = {}  # (device, stream) -> zeroed counters
+_workspaces: Dict[tuple, torch.Tensor] = {}  # (device, stream) -> f32 scratch
 
 
 def _nvcc() -> str:
@@ -111,6 +113,29 @@ def check(err: int, what: str) -> None:
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def tickets(dev, n: int) -> torch.Tensor:
+    """``n`` int32 counters, zero between launches, for a kernel's merge of
+    its splits: the last split of an output tile to finish draws the last
+    ticket, merges, and sets the counter back to 0. One buffer per device and
+    stream, shared by the kernels, since launches on one stream run in order;
+    it only grows."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _tickets[key] = torch.zeros(max(4096, n), dtype=torch.int32, device=dev)
+    return buf
+
+
+def workspace(dev, n: int) -> torch.Tensor:
+    """``n`` f32 of scratch for a kernel's split partials, kept per device and
+    stream as ``tickets`` is; it only grows, so no call allocates one."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _workspaces.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _workspaces[key] = torch.empty(max(1 << 20, n), dtype=torch.float32, device=dev)
+    return buf
 
 
 def same_device(*tensors) -> torch.device:

@@ -71,7 +71,6 @@ _DEC_CONTIG, _DEC_PAGED, _DEC_ATTEND = 0, 1, 2  # DecKind in csrc/flash_attentio
 _DEC_TILE = 64  # kDecTile: keys per tile of the decode body
 _DEC_ROWS = 8  # query rows of one kv head the decode body takes
 _DEC_BLOCKS = 792  # blocks aimed at: six per SM of an H100, three resident at a time
-_TICKETS = {}  # (device, stream) -> zeroed counters of the decode body's merge
 _MLA_ARGS = [_c] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, _c]
 _MLA_R, _MLA_P = 512, 64  # kMlaR, kMlaP in csrc/flash_attention.cu
 _MLA_TILE, _MLA_HEADS = 16, 16  # kMlaKeys, kMlaHeads
@@ -106,18 +105,6 @@ def _decode_splits(pairs: int, live_max: int):
     want = max(1, _DEC_BLOCKS // max(1, pairs))
     kc = max(1, -(-live_max // (want * _DEC_TILE))) * _DEC_TILE
     return kc, max(1, -(-live_max // kc))
-
-
-def _tickets(dev, n: int) -> torch.Tensor:
-    """``n`` int32 counters, zero between launches, for the decode body's
-    merge: the last split of a (batch row, kv head) to finish draws the last
-    ticket, merges, and sets the counter back to 0. One buffer per device and
-    stream, since launches on one stream run in order."""
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
-    buf = _TICKETS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _TICKETS[key] = torch.zeros(max(4096, n), dtype=torch.int32, device=dev)
-    return buf
 
 
 def _bias_strides(bias, B, H, T, S, name):
@@ -159,7 +146,7 @@ def _launch_rows(kind, name, q, k, v, *, Tq, S, live_max, kv_len=0, causal=False
         n_acc = B * Hkv * NS * Tq * (H // Hkv) * 128
         scratch = torch.empty(n_acc + n_acc // 64, dtype=torch.float32, device=dev)
         part_acc, part_ml = scratch[:n_acc], scratch[n_acc:]
-        tickets = _tickets(dev, B * Hkv)
+        tickets = _build.tickets(dev, B * Hkv)
     fn = _build.function("flash_attention", "mit_decode_rows", _ROWS_ARGS)
     err = fn(
         kind, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),

@@ -4,13 +4,18 @@ expert FFN built on it.
 ``gmm`` replaces ``moe_infinity_tpu/ops/gmm.py`` ``_gmm_kernel``/``gmm``:
 ``out[T, F] = bf16(x[T, D]) @ bf16(w[group_ids[g] + group_offset])`` over
 rows sorted by group, f32 accumulation, the per-output-channel ``scale``
-after the dot. Weights are bf16, int8 or split-nibble packed int4
+after the sum. Weights are bf16, int8 or split-nibble packed int4
 (``[S, D, F/2]`` int8; low nibbles are columns ``[0, F/2)``, high nibbles
 ``[F/2, F)``). The kernel (``csrc/gmm.cu``) is bound by the routed experts'
-weight bytes on the NLLB path; its source note says what the design does
-about it. For CUDA tensors the wrapper launches it, for CPU tensors it runs
-``gmm_plain``, which repeats its arithmetic (x and w rounded to bf16, exact
-products, f32 sums).
+weight bytes: a block owns 128 stored columns of a chunk of up to 64 rows of
+one group, so a group of up to 64 rows reads its slab once; 64-deep k-tiles
+arrive by ``cp.async`` several stages ahead, int8 and int4 are converted to
+bf16 in shared memory, and the products run on the tensor cores
+(``mma.sync``). Where the column tiles times the chunks leave the card short
+of blocks, ``_gmm_plan`` cuts the reduction into k-splits that the kernel
+merges in split order in the same launch. For CUDA tensors the wrapper
+launches it, for CPU tensors it runs ``gmm_plain``, which repeats its
+arithmetic (x and w rounded to bf16, exact products, f32 sums).
 
 ``gffn_pallas`` replaces ``gffn_pallas`` of the JAX package: sort the
 (token, k) rows by slot, compact the groups to the routed slots on the
@@ -23,7 +28,7 @@ combine-weighted ``index_add_``. No host sync: the groups are compacted to
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -35,8 +40,36 @@ LAUNCHES = {"gmm": 0}
 _KIND = {torch.bfloat16: 0, torch.int8: 1}  # WKind in csrc/gmm.cu
 _INT4 = 2
 _c = ctypes.c_void_p
-_GMM_ARGS = [_c] * 6 + [ctypes.c_int] * 8 + [_c, _c]
-_ROWS_PER_CHUNK = 8  # kRM in csrc/gmm.cu: a block owns one chunk of a group
+_GMM_ARGS = [_c] * 8 + [ctypes.c_int] * 10 + [_c, _c]
+# kBM, kBN and kBK in csrc/gmm.cu: a block owns one chunk of up to 64 rows of
+# a group and 128 stored columns, and walks the reduction in 64-deep k-tiles
+_ROWS_PER_CHUNK = 64
+_TILE_COLS = 128
+_K_TILE = 64
+_GMM_BLOCKS = 528  # blocks a call should bring: 4 per SM of the H100's 132
+_GMM_MIN_KTILES = 4  # k-tiles of a split at the least
+
+
+class GmmPlan(NamedTuple):
+    tiles: int  # column tiles of 128 stored columns: the grid's x
+    chunks: int  # bound of the 64-row chunks, ceil(T / 64) + G: the grid's y
+    splits: int  # whole-k-tile splits of the reduction: the grid's z
+    ktiles: int  # k-tiles of each split but the last, ceil(ceil(D / 64) / splits)
+
+
+def _gmm_plan(T: int, G: int, D: int, Fw: int) -> GmmPlan:
+    """K3's launch for T rows in G groups, from these integers alone (the
+    group sizes stay on the device). Busy blocks are taken to be the column
+    tiles times min(G, T) chunks, which is exact when every group fits one
+    chunk, as at decode. Where they fall short of ``_GMM_BLOCKS``, the
+    reduction is cut into the fewest whole-k-tile splits that reach it, none
+    shallower than ``_GMM_MIN_KTILES`` and none empty."""
+    tiles = -(-Fw // _TILE_COLS)
+    nk = -(-D // _K_TILE)
+    busy = tiles * max(1, min(G, T))
+    splits = max(1, min(-(-_GMM_BLOCKS // busy), nk // _GMM_MIN_KTILES))
+    kps = -(-nk // splits)
+    return GmmPlan(tiles, -(-T // _ROWS_PER_CHUNK) + G, -(-nk // kps), kps)
 
 
 def gmm(
@@ -70,11 +103,14 @@ def _gmm_cuda(x, w, group_sizes, scale, group_offset, group_ids, *, packed):
     kind = _INT4 if packed else _KIND.get(w.dtype)
     if kind is None:
         raise ValueError(f"gmm: weight dtype {w.dtype} is not taken")
-    if Fw % 4 != 0:
-        raise ValueError("gmm: the weight's last dim must be a multiple of 4")
-    max_chunks = -(-T // _ROWS_PER_CHUNK) + G
-    if G != group_ids.shape[0] or max_chunks > 65535:
-        raise ValueError("gmm: group_ids must match group_sizes; rows/8 + G <= 65535")
+    if D % 8 or (Fw * w.element_size()) % 16:
+        raise ValueError(
+            f"gmm: the kernel copies rows in 16-byte pieces, so D must be a multiple "
+            f"of 8 (got {D}) and a stored weight row a multiple of 16 bytes (got "
+            f"{Fw} x {w.element_size()})")
+    plan = _gmm_plan(T, G, D, Fw)
+    if G != group_ids.shape[0] or plan.chunks > 65535:
+        raise ValueError("gmm: group_ids must match group_sizes; rows/64 + G <= 65535")
     _build.check_aligned("gmm w", w)
     if scale is not None:
         if scale.dtype != torch.float32 or tuple(scale.shape) != (S_total, F):
@@ -84,6 +120,8 @@ def _gmm_cuda(x, w, group_sizes, scale, group_offset, group_ids, *, packed):
     if T == 0 or G == 0:
         return out
     xb = x.to(torch.bfloat16).contiguous()  # the kernel's operand rounding
+    if xb.data_ptr() % 16:  # rows arrive in 16-byte copies
+        xb = xb.clone()
     gstart = torch.zeros(G + 1, dtype=torch.int32, device=x.device)
     gstart[1:] = torch.cumsum(group_sizes, 0, dtype=torch.int32)
     cchunk = torch.zeros(G + 1, dtype=torch.int32, device=x.device)
@@ -91,11 +129,16 @@ def _gmm_cuda(x, w, group_sizes, scale, group_offset, group_ids, *, packed):
     cchunk[1:] = torch.cumsum(chunks, 0, dtype=torch.int32)
     gids = group_ids.to(torch.int32).contiguous()
     dev = _build.same_device(xb, w, scale, gstart, cchunk, gids)
+    part = tickets = None
+    if plan.splits > 1:
+        part = _build.workspace(dev, plan.splits * T * F)
+        tickets = _build.tickets(dev, plan.chunks * plan.tiles)
     fn = _build.function("gmm", "mit_gmm", _GMM_ARGS)
     err = fn(
         _build.ptr(xb), _build.ptr(w), _build.ptr(scale), _build.ptr(gstart),
-        _build.ptr(cchunk), _build.ptr(gids), group_offset, G, max_chunks,
-        _ROWS_PER_CHUNK, D, Fw, F, kind, _build.ptr(out), _build.stream_ptr(dev),
+        _build.ptr(cchunk), _build.ptr(gids), _build.ptr(part), _build.ptr(tickets),
+        group_offset, G, plan.chunks, _ROWS_PER_CHUNK, T, D, Fw, F, kind, plan.splits,
+        _build.ptr(out), _build.stream_ptr(dev),
     )
     _build.check(err, "gmm")
     LAUNCHES["gmm"] += 1

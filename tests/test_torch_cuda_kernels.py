@@ -101,7 +101,7 @@ def test_gmm_kernel(dev, kind):
 
 
 def test_gmm_kernel_skewed_groups_split_into_chunks(dev):
-    """A group routing many rows spreads over many blocks (8-row chunks)."""
+    """A group routing many rows spreads over many blocks (64-row chunks)."""
     g = _gen(dev)
     S, D, F = 8, 512, 1024
     sizes = torch.tensor([0, 150, 3, 0, 21, 1, 0, 8], dtype=torch.int32, device=dev)
@@ -112,6 +112,76 @@ def test_gmm_kernel_skewed_groups_split_into_chunks(dev):
     got = gm.gmm(x, w, sizes, scale, packed=True)
     want = gm.gmm_plain(x, w, sizes, scale, packed=True)
     _close(got, want, 2e-2)
+
+
+def _gmm_inputs(dev, kind, sizes, D, F, rows_past=0, S=None):
+    g = _gen(dev)
+    S = S or len(sizes)
+    T = sum(sizes) + rows_past
+    x = torch.randn(T, D, generator=g, device=dev)
+    scale = None
+    if kind == "bf16":
+        w = (torch.randn(S, D, F, generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    else:
+        Fw = F // 2 if kind == "int4" else F
+        w = torch.randint(-128, 128, (S, D, Fw), generator=g, device=dev, dtype=torch.int8)
+        scale = torch.rand(S, F, generator=g, device=dev) * 0.01
+    return x, w, torch.tensor(sizes, dtype=torch.int32, device=dev), scale
+
+
+@pytest.mark.parametrize("kind,F", [("bf16", 320), ("int8", 704), ("int4", 1408)])
+@pytest.mark.parametrize("sizes", [
+    [0, 1, 15, 16, 17, 0, 63, 64, 65, 150],  # the 64-row chunks' and m16 tiles' edges
+    [64, 64],  # the last group ends at a chunk edge
+    [37, 27, 0],  # ... and at T
+])
+def test_gmm_kernel_chunk_edges(dev, kind, F, sizes):
+    """Also D=328 (8 past the last whole 64-deep k-tile), a half column tile,
+    and rows past the last group, which stay zero."""
+    x, w, sz, scale = _gmm_inputs(dev, kind, sizes, 328, F, rows_past=5)
+    got = gm.gmm(x, w, sz, scale, packed=kind == "int4")
+    want = gm.gmm_plain(x, w, sz, scale, packed=kind == "int4")
+    _close(got, want, 2e-2)
+    assert bool((got[sum(sizes):] == 0).all())
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_gmm_kernel_several_splits_against_one(dev, kind, monkeypatch):
+    """NLLB's decode down projection (8 rows, D=8192) under the plan's
+    splits, then under one; the split run repeats to the bit (the tickets
+    are back at 0 after every call)."""
+    x, w, sz, scale = _gmm_inputs(dev, kind, [3, 1, 0, 4], 8192, 1024)
+    packed = kind == "int4"
+    assert gm._gmm_plan(8, 4, 8192, w.shape[2]).splits > 1
+    split = [gm.gmm(x, w, sz, scale, packed=packed) for _ in range(3)]
+    monkeypatch.setattr(gm, "_GMM_BLOCKS", 1)
+    assert gm._gmm_plan(8, 4, 8192, w.shape[2]).splits == 1
+    one = gm.gmm(x, w, sz, scale, packed=packed)
+    torch.cuda.synchronize()
+    assert torch.equal(split[0], split[1]) and torch.equal(split[0], split[2])
+    # the same f32 sums in another order: within 3e-5 of the largest output
+    torch.testing.assert_close(split[0], one, rtol=0, atol=3e-5 * one.abs().max().item())
+    _close(one, gm.gmm_plain(x, w, sz, scale, packed=packed), 2e-2)
+
+
+def test_gmm_kernel_on_a_second_stream_without_a_host_sync(dev):
+    """A split call queued on another stream takes that stream's tickets
+    and workspace; no call reads the group sizes on the host."""
+    x, w, sz, scale = _gmm_inputs(dev, "int8", [5, 0, 3], 4096, 512)
+    want = gm.gmm_plain(x, w, sz, scale)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = gm.gmm(x, w, sz, scale)
+        with torch.cuda.stream(side):
+            got = gm.gmm(x, w, sz, scale)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    side.synchronize()
+    _close(got, want, 2e-2)
+    assert torch.equal(first, got)
 
 
 def test_gmm_kernel_compacted_ids_and_offset(dev):

@@ -47,7 +47,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
 ``python3 chip_smoke.py --gmm`` builds the kernels, runs phase 2's K3 checks
-and times alone and stops the same way.
+and times alone, times whole decode layers under other split and stage
+plans, and stops the same way.
 
 The line before the last is the per-kernel JSON record (launches: the sum
 of the counts of phases 3, 5 and 7); the last line is
@@ -1578,6 +1579,52 @@ def sweep_decode_plans(dev):
         fa._DEC_BLOCKS = kept
 
 
+def sweep_gmm_plans(dev):
+    """The tail of ``--gmm``: K3's time for whole decode layers under other
+    block targets of the split planner (``_GMM_BLOCKS``) and shared-memory
+    budgets (``_GMM_SMEM``, which sets the stages), the first plan again
+    last, to show the spread."""
+    from moe_infinity_tpu_torch.ops import gmm as gm
+    from moe_infinity_tpu_torch.ops.gmm import compact_groups
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+
+    def layer(x, w, sc, gsz, gid=None, offset=0, packed=False, roles=ROLES):
+        h = torch.randn(x.shape[0], w["down"].shape[1], generator=g, device=dev).to(torch.bfloat16)
+        kw = dict(group_ids=gid, group_offset=offset, packed=packed)
+        return lambda: [gm.gmm(h if r == "down" else x, w[r], gsz, sc[r], **kw) for r in roles]
+
+    cases = {}
+    gid, gsz, _ = _routed_rows(g, dev, 4, 128)
+    w, sc = _layer_weights(g, dev, 128, 2048, 8192, "int4")
+    x = torch.randn(8, 2048, generator=g, device=dev).to(torch.bfloat16)
+    cases["nllb_decode"] = layer(x, w, sc, gsz, gid, packed=True, roles=("gate", "down"))
+    w, sc = _layer_weights(g, dev, 8, 4096, 14336, "int8")
+    gid, gsz = compact_groups(torch.sort(torch.randperm(8, generator=g, device=dev)).values, 8)
+    x = torch.randn(8, 4096, generator=g, device=dev).to(torch.bfloat16)
+    cases["mixtral_decode"] = layer(x, w, sc, gsz, gid)
+    gid, gsz, _ = _routed_rows(g, dev, SLOTS * CHUNK, 8)
+    x = torch.randn(2 * SLOTS * CHUNK, 4096, generator=g, device=dev).to(torch.bfloat16)
+    cases["mixtral_w16"] = layer(x, w, sc, gsz, gid)
+    flat = torch.stack([torch.randperm(64, generator=g, device=dev)[:6] for _ in range(SLOTS)])
+    gsz = torch.zeros(64, dtype=torch.int32, device=dev)
+    gsz.index_add_(0, flat.reshape(-1), torch.ones(24, dtype=torch.int32, device=dev))
+    x = torch.randn(24, 2048, generator=g, device=dev).to(torch.bfloat16)
+    for kind in ("bf16", "int4"):
+        w, sc = _layer_weights(g, dev, 64, 2048, 1408, kind)
+        cases[f"v2lite_{kind}"] = layer(x, w, sc, gsz, packed=kind == "int4")
+    kept = gm._GMM_BLOCKS, gm._GMM_SMEM
+    try:
+        for blocks, smem in ((528, 110), (264, 110), (792, 110), (1056, 110), (528, 72),
+                             (264, 72), (528, 110)):
+            gm._GMM_BLOCKS, gm._GMM_SMEM = blocks, smem * 1024
+            say(f"[plan] _GMM_BLOCKS={blocks} _GMM_SMEM={smem} KB: "
+                + " ".join(f"{k}={cuda_ms(fn):.4f}" for k, fn in cases.items()))
+    finally:
+        gm._GMM_BLOCKS, gm._GMM_SMEM = kept
+
+
 def main() -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -1591,6 +1638,7 @@ def main() -> int:
         r = phase_gmm(g, dev)
         say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e}")
+        sweep_gmm_plans(dev)
         say(f"[card] {smi}")
         return 0
     recs = phase_kernels(dev)

@@ -21,12 +21,14 @@
 //   The block computes only the ceil(rows / 16) m16 tiles that hold rows, so
 //   a one-row decode group costs one. Groups own disjoint rows, so every
 //   output element has one writer. The wrapper passes the cumulative chunk
-//   counts; the grid's chunk axis is a bound (rows / 64 + groups) and the
-//   blocks past the last chunk return at once.
+//   sizes; each block finds its chunk by one scan of them, and the grid's
+//   chunk axis is a bound (rows / 64 + groups): the blocks past the last
+//   chunk return at once.
 // - Loads. The block walks its range in 64-deep k-tiles: 16-byte cp.async
 //   copies of the x tile (bf16) and of the weight tile in its stored type
-//   (16 KB bf16, 8 KB int8 or packed int4), kStages stages deep so that three
-//   are in flight while one is consumed. Rows past the chunk, columns past
+//   (16 KB bf16, 8 KB int8 or packed int4), as many stages deep as the shared
+//   memory of two blocks per SM holds (4 to 8: the x tile is as tall as the
+//   call's rows need), so that 80 to 128 KB per SM are in flight. Rows past the chunk, columns past
 //   the weight's width and the tail of D are zero-filled by cp.async's source
 //   size, never read.
 // - Dequantization. Each warp converts its own 16 stored columns of an int8
@@ -44,6 +46,8 @@
 //   workspace; the last split of a (column tile, chunk) to finish (a
 //   __threadfence() and a ticket counter it resets to 0) sums the partials in
 //   split order, applies the scale and stores: deterministic, one launch.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -51,35 +55,105 @@ namespace {
 enum WKind { kBF16 = 0, kINT8 = 1, kINT4 = 2 };
 
 constexpr int kThreads = 256;  // 8 warps; warp w owns stored columns [16w, 16w + 16)
+constexpr int kWarps = kThreads / 32;
 constexpr int kBN = 128;       // stored columns of a tile
 constexpr int kBM = 64;        // rows of a chunk
 constexpr int kBK = 64;        // depth of a k-tile
-constexpr int kStages = 4;
-constexpr int kXRow = kBK * 2 + 16;  // bytes of an x row of a stage, padded
+constexpr int kMaxStages = 8;
+constexpr int kXCopies = kBK * 2 / 16;  // 16-byte copies per x row
+constexpr int kXRow = kBK * 2 + 16;     // bytes of an x row of a stage, padded
+constexpr unsigned kFull = 0xffffffffu;
 
-template <int KIND>
+template <int KIND, int MT>  // MT: m16 tiles the x tile holds
 struct Tile {
   static constexpr int kElt = KIND == kBF16 ? 2 : 1;  // bytes of a stored weight
   static constexpr int kWCopies = kBN * kElt / 16;    // 16-byte copies per weight row
   static constexpr int kWRow = kBN * kElt + 16;       // bytes of a stage's weight row
   static constexpr int kHalves = KIND == kINT4 ? 2 : 1;  // int4: low and high nibbles
   static constexpr int kBRow = kHalves * kBN * 2 + 16;   // bytes of a bf16 tile row
-  static constexpr int kStage = kBM * kXRow + kBK * kWRow;
-  static constexpr int kSmem = kStages * kStage + (KIND == kBF16 ? 0 : kBK * kBRow);
+  static constexpr int kXBytes = MT * 16 * kXRow;
+  static constexpr int kStage = kXBytes + kBK * kWRow;
+  static constexpr int kConv = KIND == kBF16 ? 0 : kBK * kBRow;  // the bf16 tile
+  // stages that `budget` bytes of shared memory hold, and their bytes
+  static int stages(int budget) {
+    return std::max(2, std::min(kMaxStages, (budget - kConv) / kStage));
+  }
+  static int smem(int stages) { return stages * kStage + kConv; }
 };
 
 struct Args {
   const __nv_bfloat16* x;  // [T, D]
   const void* w;           // [S, D, Fw]
   const float* scale;      // [S, F] or null
-  const int32_t* gstart;   // [G + 1] first row of each group
-  const int32_t* cchunk;   // [G + 1] first chunk of each group
-  const int32_t* gids;     // [G]
+  const int32_t* sizes;    // [G] rows of each group
+  const int32_t* gids;     // [G], or null for 0 .. G - 1
   float* part;             // [splits, T, F] partial sums when splits > 1
   int32_t* tickets;        // [chunks, tiles], zero between launches, when splits > 1
-  int G, goff, T, D, Fw, F, kps, splits;
+  int G, goff, T, D, Fw, F, kps, splits, stages;
   float* out;  // [T, F]
 };
+
+__device__ __forceinline__ void cp_async_wait_n(int n) {  // n < kMaxStages - 1
+  switch (n) {
+    case 0: mit::cp_async_wait<0>(); break;
+    case 1: mit::cp_async_wait<1>(); break;
+    case 2: mit::cp_async_wait<2>(); break;
+    case 3: mit::cp_async_wait<3>(); break;
+    case 4: mit::cp_async_wait<4>(); break;
+    case 5: mit::cp_async_wait<5>(); break;
+    default: mit::cp_async_wait<6>(); break;
+  }
+}
+
+// The chunk `c` of the call: f = {group, first row, rows, weight row}, or
+// f[0] = -1 past the last chunk. One coalesced read of the group sizes and
+// ids (kThreads groups at a time): the block scans the sizes and the chunk
+// counts ceil(size / kBM); the thread whose group holds chunk c writes f.
+// G > 0.
+__device__ __forceinline__ void find_chunk(const Args& a, int c, int* sw, int* f) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int rows0 = 0, chunks0 = 0;  // totals of the groups before this pass
+  if (tid == 0) f[0] = -1;
+  for (int g0 = 0; g0 < a.G; g0 += kThreads) {
+    const int g = g0 + tid;
+    const int n = g < a.G ? a.sizes[g] : 0;
+    const int id = g >= a.G ? 0 : a.gids != nullptr ? a.gids[g] : g;
+    const int nc = (n + kBM - 1) / kBM;
+    int sn = n, sc = nc;  // inclusive scans over the warp
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int un = __shfl_up_sync(kFull, sn, o), uc = __shfl_up_sync(kFull, sc, o);
+      if (lane >= o) {
+        sn += un;
+        sc += uc;
+      }
+    }
+    if (lane == 31) {
+      sw[warp] = sn;
+      sw[kWarps + warp] = sc;
+    }
+    __syncthreads();
+    int bn = rows0, bc = chunks0;
+    for (int v = 0; v < warp; ++v) {
+      bn += sw[v];
+      bc += sw[kWarps + v];
+    }
+    const int c0 = bc + sc - nc;  // the first chunk of group g
+    if (c0 <= c && c < c0 + nc) {
+      const int k = c - c0;
+      f[0] = g;
+      f[1] = bn + sn - n + k * kBM;
+      f[2] = min(kBM, n - k * kBM);
+      f[3] = id;
+    }
+    for (int v = 0; v < kWarps; ++v) {
+      rows0 += sw[v];
+      chunks0 += sw[kWarps + v];
+    }
+    __syncthreads();
+    if (f[0] >= 0) break;  // uniform: every thread reads f after the barrier
+  }
+}
 
 // bf16 pair (lo in the low half) of two int8 values, each byte b of `u`
 // placed as the f32 2^23 + (b ^ 0x80) and shifted down by 2^23 + 128.
@@ -93,21 +167,21 @@ __device__ __forceinline__ unsigned int8_pair(unsigned u, unsigned sel_lo,
 // bf16 pair of two nibbles already offset to 0..15 in the low nibbles of
 // bytes of `q`: the bf16 128 + q (0x4300 | q) less 136 is q - 8, exactly.
 __device__ __forceinline__ unsigned int4_pair(unsigned q, unsigned sel) {
-  const unsigned v = __byte_perm(q, 0x43434343u, sel);
+  const unsigned v = __byte_perm(q, 0x43434343u, sel), k = 0x43084308u;  // bf16 136, 136
   const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
-                                   __floats2bfloat162_rn(136.f, 136.f));
+                                   *reinterpret_cast<const __nv_bfloat162*>(&k));
   return *reinterpret_cast<const unsigned*>(&r);
 }
 
 // Warp `warp` converts its 16 stored columns of the raw stage `raw` into
 // the bf16 tile `bq` (int4: low nibbles at columns [0, 128), high nibbles
-// at [128, 256)); lane l takes rows l and l + 32.
-template <int KIND>
+// at [128, 256)); lane l takes rows l, l + 32, ...
+template <int KIND, int MT>
 __device__ __forceinline__ void dequant(const unsigned char* raw, unsigned char* bq,
                                         int warp, int lane) {
-  using C = Tile<KIND>;
+  using C = Tile<KIND, MT>;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < kBK / 32; ++h) {
     const int row = lane + 32 * h;
     const uint4 v = *reinterpret_cast<const uint4*>(raw + row * C::kWRow + warp * 16);
     const unsigned u[4] = {v.x, v.y, v.z, v.w};
@@ -141,87 +215,103 @@ __device__ __forceinline__ void dequant(const unsigned char* raw, unsigned char*
   }
 }
 
-template <int KIND>
+// Grid (column tile, k-split, chunk).
+template <int KIND, int MT>
 __global__ void __launch_bounds__(kThreads, 2) gmm_kernel(const Args a) {
-  using C = Tile<KIND>;
+  using C = Tile<KIND, MT>;
   constexpr int NT = 2 * C::kHalves;  // n8 tiles of a warp
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int last;
-  const int c = blockIdx.y;
-  if (c >= a.cchunk[a.G]) return;  // past the last chunk: nothing to do
-  // the group owning chunk c: the last g with cchunk[g] <= c (an empty
-  // group has no chunk, so it is never chosen and moves no bytes)
-  int lo = 0, hi = a.G;  // cchunk[lo] <= c < cchunk[hi]
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (a.cchunk[mid] <= c)
-      lo = mid;
-    else
-      hi = mid;
-  }
-  const int r0 = a.gstart[lo] + (c - a.cchunk[lo]) * kBM;
-  const int nr = min(kBM, a.gstart[lo + 1] - r0);
-  const int mts = (nr + 15) >> 4;  // live m16 tiles, uniform across the block
-  const size_t gw = (size_t)a.gids[lo] + a.goff;
+  __shared__ int sw[2 * kWarps], f[4], last;
+  find_chunk(a, blockIdx.z, sw, f);
+  if (f[0] < 0) return;  // past the last chunk: nothing to do
+  const int r0 = f[1], nr = f[2];
+  const int mts = (nr + 15) >> 4;  // live m16 tiles (<= MT), uniform across the block
+  const size_t gw = (size_t)f[3] + a.goff;
   const int nk = (a.D + kBK - 1) / kBK;
-  const int kt0 = blockIdx.z * a.kps;  // the host plans no empty split
+  const int kt0 = blockIdx.y * a.kps;  // the host plans no empty split
   const int kt1 = min(nk, kt0 + a.kps);
   const int col0 = blockIdx.x * kBN;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int stages = a.stages;
   const unsigned char* xg = reinterpret_cast<const unsigned char*>(a.x + (size_t)r0 * a.D);
   const unsigned char* wg =
       static_cast<const unsigned char*>(a.w) + gw * a.D * a.Fw * C::kElt;
 
-  // stage s <- k-tile kt: the chunk's live m16 tiles of x, kBK weight rows
+  // The loader's copies are fixed per thread: x copy i = tid + kThreads * j
+  // is piece i % kXCopies of row i / kXCopies of every k-tile, weight copy j
+  // likewise; their sources advance one k-tile per load (loads run in k-tile
+  // order), so a load costs a compare, an add and a cp.async per copy.
+  constexpr int JX = (MT * 16 * kXCopies + kThreads - 1) / kThreads;
+  constexpr int JW = kBK * C::kWCopies / kThreads;
+  const unsigned char* xsrc[JX];
+  const unsigned char* wsrc[JW];
+  int xdst[JX], xk[JX], wdst[JW], wk[JW];
+  bool xok[JX], wok[JW];
+#pragma unroll
+  for (int j = 0; j < JX; ++j) {
+    const int i = tid + j * kThreads, r = i / kXCopies, ch = i % kXCopies;
+    xdst[j] = r < mts * 16 ? r * kXRow + ch * 16 : -1;  // -1: no copy
+    xok[j] = r < nr;
+    xk[j] = ch * 8;
+    xsrc[j] = xg + ((size_t)r * a.D + kt0 * kBK + ch * 8) * 2;
+  }
+#pragma unroll
+  for (int j = 0; j < JW; ++j) {
+    const int i = tid + j * kThreads, kk = i / C::kWCopies, ch = i % C::kWCopies;
+    const int col = col0 + ch * (16 / C::kElt);
+    wdst[j] = kk * C::kWRow + ch * 16;
+    wk[j] = kk;
+    wok[j] = col < a.Fw;
+    wsrc[j] = wg + ((size_t)(kt0 * kBK + kk) * a.Fw + col) * C::kElt;
+  }
+  const size_t wstep = (size_t)kBK * a.Fw * C::kElt;
+  // stage s <- the next k-tile, kt
   auto load = [&](int kt, int s) {
     unsigned char* xs = smem + s * C::kStage;
-    unsigned char* ws = xs + kBM * kXRow;
+    unsigned char* ws = xs + C::kXBytes;
     const int k0 = kt * kBK;
-    for (int i = tid; i < mts * 16 * 8; i += kThreads) {
-      const int r = i >> 3, k = k0 + (i & 7) * 8;
-      const bool ok = r < nr && k < a.D;
-      mit::cp_async16(xs + r * kXRow + (i & 7) * 16,
-                      ok ? xg + ((size_t)r * a.D + k) * 2 : xg, ok ? 16 : 0);
+    const bool full = k0 + kBK <= a.D;  // else zero-fill the rows past D
+#pragma unroll
+    for (int j = 0; j < JX; ++j) {
+      if (xdst[j] < 0) continue;
+      const bool ok = xok[j] && (full || k0 + xk[j] < a.D);
+      mit::cp_async16(xs + xdst[j], ok ? xsrc[j] : xg, ok ? 16 : 0);
+      xsrc[j] += kBK * 2;
     }
 #pragma unroll
-    for (int j = 0; j < kBK * C::kWCopies / kThreads; ++j) {
-      const int i = tid + j * kThreads;
-      const int kk = i / C::kWCopies, ch = i % C::kWCopies;
-      const int col = col0 + ch * (16 / C::kElt);
-      const bool ok = k0 + kk < a.D && col < a.Fw;
-      mit::cp_async16(ws + kk * C::kWRow + ch * 16,
-                      ok ? wg + ((size_t)(k0 + kk) * a.Fw + col) * C::kElt : wg,
-                      ok ? 16 : 0);
+    for (int j = 0; j < JW; ++j) {
+      const bool ok = wok[j] && (full || k0 + wk[j] < a.D);
+      mit::cp_async16(ws + wdst[j], ok ? wsrc[j] : wg, ok ? 16 : 0);
+      wsrc[j] += wstep;
     }
   };
 
-  float acc[4][NT][4];
+  float acc[MT][NT][4];
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
 
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < stages - 1; ++s) {
     if (kt0 + s < kt1) load(kt0 + s, s);
     mit::cp_async_commit();
   }
+  int s = 0;  // the stage of k-tile kt
   for (int kt = kt0; kt < kt1; ++kt) {
-    const int s = (kt - kt0) % kStages;
-    mit::cp_async_wait<kStages - 2>();
+    cp_async_wait_n(stages - 2);
     __syncthreads();  // stage s has landed; every warp is done with stage s - 1
     {
-      const int nxt = kt + kStages - 1;
-      if (nxt < kt1) load(nxt, (nxt - kt0) % kStages);
+      const int nxt = kt + stages - 1;
+      if (nxt < kt1) load(nxt, s == 0 ? stages - 1 : s - 1);
       mit::cp_async_commit();
     }
     const unsigned char* xs = smem + s * C::kStage;
-    const unsigned char* bt = xs + kBM * kXRow;
+    const unsigned char* bt = xs + C::kXBytes;
     if (KIND != kBF16) {
-      unsigned char* bq = smem + kStages * C::kStage;
-      dequant<KIND>(bt, bq, warp, lane);
+      unsigned char* bq = smem + stages * C::kStage;
+      dequant<KIND, MT>(bt, bq, warp, lane);
       __syncwarp();  // the warp reads only the columns it converted
       bt = bq;
     }
@@ -233,7 +323,7 @@ __global__ void __launch_bounds__(kThreads, 2) gmm_kernel(const Args a) {
 #pragma unroll
       for (int h = 0; h < C::kHalves; ++h) mit::ldmatrix_x4_trans(b[h], bp + h * kBN * 2);
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
+      for (int m = 0; m < MT; ++m) {
         if (m < mts) {
           unsigned af[4];
           mit::ldmatrix_x4(af, xs + (m * 16 + (lane & 15)) * kXRow +
@@ -246,15 +336,16 @@ __global__ void __launch_bounds__(kThreads, 2) gmm_kernel(const Args a) {
         }
       }
     }
+    s = s + 1 == stages ? 0 : s + 1;
   }
   mit::cp_async_wait<0>();  // no copy outlives the block
 
   // Fragment (m, n, e) of a lane: rows m * 16 + lane / 4 + 8e, stored columns
   // u and u + 1; output columns h * Fw + u (int4's high half at F/2 = Fw).
   const bool split = a.splits > 1;
-  float* part = a.part + (size_t)blockIdx.z * a.T * a.F;
+  float* part = a.part + (size_t)blockIdx.y * a.T * a.F;
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {
+  for (int m = 0; m < MT; ++m) {
     if (m >= mts) break;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -286,7 +377,7 @@ __global__ void __launch_bounds__(kThreads, 2) gmm_kernel(const Args a) {
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    int* ticket = a.tickets + (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    int* ticket = a.tickets + (size_t)blockIdx.z * gridDim.x + blockIdx.x;
     last = atomicAdd(ticket, 1) == a.splits - 1;
     if (last) *ticket = 0;  // every other split has drawn: ready for the next call
   }
@@ -294,7 +385,7 @@ __global__ void __launch_bounds__(kThreads, 2) gmm_kernel(const Args a) {
   if (!last) return;
   __threadfence();
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {
+  for (int m = 0; m < MT; ++m) {
     if (m >= mts) break;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -308,7 +399,7 @@ __global__ void __launch_bounds__(kThreads, 2) gmm_kernel(const Args a) {
         const size_t at = (size_t)(r0 + row) * a.F + col;
         float v0 = 0.f, v1 = 0.f;
         for (int z = 0; z < a.splits; ++z) {
-          if (z == (int)blockIdx.z) {
+          if (z == (int)blockIdx.y) {
             v0 += acc[m][n][2 * e];
             v1 += acc[m][n][2 * e + 1];
           } else {
@@ -328,35 +419,47 @@ __global__ void __launch_bounds__(kThreads, 2) gmm_kernel(const Args a) {
   }
 }
 
-template <int KIND>
-int launch(const Args& a, dim3 grid, cudaStream_t st) {
-  static bool sized = false;
-  if (!sized) {
+template <int KIND, int MT>
+int launch(const Args& a, dim3 grid, int budget, cudaStream_t st) {
+  using C = Tile<KIND, MT>;
+  Args b = a;
+  b.stages = C::stages(budget);
+  const int smem = C::smem(b.stages);
+  static int sized = 0;  // the kernel's dynamic shared memory limit so far
+  if (smem > sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gmm_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<KIND>::kSmem);
+        gmm_kernel<KIND, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    sized = true;
+    sized = smem;
   }
-  gmm_kernel<KIND><<<grid, kThreads, Tile<KIND>::kSmem, st>>>(a);
+  gmm_kernel<KIND, MT><<<grid, kThreads, smem, st>>>(b);
   return (int)cudaGetLastError();
+}
+
+template <int KIND>
+int launch_kind(const Args& a, dim3 grid, int mt, int budget, cudaStream_t st) {
+  if (mt <= 1) return launch<KIND, 1>(a, grid, budget, st);
+  if (mt == 2) return launch<KIND, 2>(a, grid, budget, st);
+  return launch<KIND, 4>(a, grid, budget, st);
 }
 
 }  // namespace
 
-// rows_per_chunk must equal kBM (the wrapper's chunk counts assume it);
-// max_chunks bounds the chunk count (rows / kBM + G) and sizes the grid.
 // `splits` whole-k-tile splits of ceil(ceil(D / 64) / splits) k-tiles each,
 // none empty; with more than one, `part` holds splits * T * F floats and
-// `tickets` max_chunks * ceil(Fw / 128) zeroed counters.
+// `tickets` max_chunks * ceil(Fw / 128) zeroed counters. rows_per_chunk
+// must equal kBM; max_chunks bounds the chunk count (rows / kBM + G) and
+// sizes the grid. The x tile holds min(T, kBM) rows rounded up to m16 tiles;
+// `smem_budget` bytes of shared memory per block set the stages.
 extern "C" int mit_gmm(const void* x, const void* w, const void* scale,
-                       const void* gstart, const void* cchunk, const void* gids,
-                       void* part, void* tickets, int goff, int G, int max_chunks,
-                       int rows_per_chunk, int T, int D, int Fw, int F, int kind,
-                       int splits, void* out, void* stream) {
+                       const void* sizes, const void* gids, void* part, void* tickets,
+                       int goff, int G, int max_chunks, int rows_per_chunk, int T,
+                       int D, int Fw, int F, int kind, int splits, int smem_budget,
+                       void* out, void* stream) {
   const int nk = (D + kBK - 1) / kBK;
   const int kps = splits > 0 ? (nk + splits - 1) / splits : 0;
   const int elt = kind == kBF16 ? 2 : 1;
-  if (rows_per_chunk != kBM || max_chunks > 65535 || splits < 1 ||
+  if (rows_per_chunk != kBM || G < 1 || max_chunks > 65535 || splits < 1 ||
       splits > 65535 || (splits - 1) * kps >= nk || D % 8 != 0 ||
       (Fw * elt) % 16 != 0 || (splits > 1 && (part == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -364,8 +467,7 @@ extern "C" int mit_gmm(const void* x, const void* w, const void* scale,
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.w = w;
   a.scale = static_cast<const float*>(scale);
-  a.gstart = static_cast<const int32_t*>(gstart);
-  a.cchunk = static_cast<const int32_t*>(cchunk);
+  a.sizes = static_cast<const int32_t*>(sizes);
   a.gids = static_cast<const int32_t*>(gids);
   a.part = static_cast<float*>(part);
   a.tickets = static_cast<int32_t*>(tickets);
@@ -377,16 +479,18 @@ extern "C" int mit_gmm(const void* x, const void* w, const void* scale,
   a.F = F;
   a.kps = kps;
   a.splits = splits;
+  a.stages = 0;
   a.out = static_cast<float*>(out);
-  const dim3 grid((Fw + kBN - 1) / kBN, max_chunks, splits);
+  const dim3 grid((Fw + kBN - 1) / kBN, splits, max_chunks);
+  const int mt = (std::min(T, kBM) + 15) / 16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case kBF16:
-      return launch<kBF16>(a, grid, st);
+      return launch_kind<kBF16>(a, grid, mt, smem_budget, st);
     case kINT8:
-      return launch<kINT8>(a, grid, st);
+      return launch_kind<kINT8>(a, grid, mt, smem_budget, st);
     case kINT4:
-      return launch<kINT4>(a, grid, st);
+      return launch_kind<kINT4>(a, grid, mt, smem_budget, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -40,7 +40,7 @@ LAUNCHES = {"gmm": 0}
 _KIND = {torch.bfloat16: 0, torch.int8: 1}  # WKind in csrc/gmm.cu
 _INT4 = 2
 _c = ctypes.c_void_p
-_GMM_ARGS = [_c] * 8 + [ctypes.c_int] * 10 + [_c, _c]
+_GMM_ARGS = [_c] * 7 + [ctypes.c_int] * 11 + [_c, _c]
 # kBM, kBN and kBK in csrc/gmm.cu: a block owns one chunk of up to 64 rows of
 # a group and 128 stored columns, and walks the reduction in 64-deep k-tiles
 _ROWS_PER_CHUNK = 64
@@ -48,12 +48,13 @@ _TILE_COLS = 128
 _K_TILE = 64
 _GMM_BLOCKS = 528  # blocks a call should bring: 4 per SM of the H100's 132
 _GMM_MIN_KTILES = 4  # k-tiles of a split at the least
+_GMM_SMEM = 110 * 1024  # shared memory of a block, which sets its stages: 2 blocks per SM
 
 
 class GmmPlan(NamedTuple):
     tiles: int  # column tiles of 128 stored columns: the grid's x
-    chunks: int  # bound of the 64-row chunks, ceil(T / 64) + G: the grid's y
-    splits: int  # whole-k-tile splits of the reduction: the grid's z
+    chunks: int  # bound of the 64-row chunks, ceil(T / 64) + G: the grid's z
+    splits: int  # whole-k-tile splits of the reduction: the grid's y
     ktiles: int  # k-tiles of each split but the last, ceil(ceil(D / 64) / splits)
 
 
@@ -84,9 +85,6 @@ def gmm(
 ) -> torch.Tensor:
     """Grouped matmul; returns f32 [T, F]. Rows past sum(group_sizes) are
     zero."""
-    G = group_sizes.shape[0]
-    if group_ids is None:
-        group_ids = torch.arange(G, dtype=torch.int32, device=x.device)
     fn = _gmm_cuda if x.is_cuda else gmm_plain
     return fn(x, w, group_sizes, scale, int(group_offset), group_ids, packed=packed)
 
@@ -109,7 +107,7 @@ def _gmm_cuda(x, w, group_sizes, scale, group_offset, group_ids, *, packed):
             f"of 8 (got {D}) and a stored weight row a multiple of 16 bytes (got "
             f"{Fw} x {w.element_size()})")
     plan = _gmm_plan(T, G, D, Fw)
-    if G != group_ids.shape[0] or plan.chunks > 65535:
+    if (group_ids is not None and G != group_ids.shape[0]) or plan.chunks > 65535:
         raise ValueError("gmm: group_ids must match group_sizes; rows/64 + G <= 65535")
     _build.check_aligned("gmm w", w)
     if scale is not None:
@@ -122,23 +120,19 @@ def _gmm_cuda(x, w, group_sizes, scale, group_offset, group_ids, *, packed):
     xb = x.to(torch.bfloat16).contiguous()  # the kernel's operand rounding
     if xb.data_ptr() % 16:  # rows arrive in 16-byte copies
         xb = xb.clone()
-    gstart = torch.zeros(G + 1, dtype=torch.int32, device=x.device)
-    gstart[1:] = torch.cumsum(group_sizes, 0, dtype=torch.int32)
-    cchunk = torch.zeros(G + 1, dtype=torch.int32, device=x.device)
-    chunks = (group_sizes + (_ROWS_PER_CHUNK - 1)) // _ROWS_PER_CHUNK
-    cchunk[1:] = torch.cumsum(chunks, 0, dtype=torch.int32)
-    gids = group_ids.to(torch.int32).contiguous()
-    dev = _build.same_device(xb, w, scale, gstart, cchunk, gids)
+    sizes = group_sizes.to(torch.int32).contiguous()
+    gids = None if group_ids is None else group_ids.to(torch.int32).contiguous()
+    dev = _build.same_device(xb, w, scale, sizes, gids)
     part = tickets = None
     if plan.splits > 1:
         part = _build.workspace(dev, plan.splits * T * F)
         tickets = _build.tickets(dev, plan.chunks * plan.tiles)
     fn = _build.function("gmm", "mit_gmm", _GMM_ARGS)
     err = fn(
-        _build.ptr(xb), _build.ptr(w), _build.ptr(scale), _build.ptr(gstart),
-        _build.ptr(cchunk), _build.ptr(gids), _build.ptr(part), _build.ptr(tickets),
-        group_offset, G, plan.chunks, _ROWS_PER_CHUNK, T, D, Fw, F, kind, plan.splits,
-        _build.ptr(out), _build.stream_ptr(dev),
+        _build.ptr(xb), _build.ptr(w), _build.ptr(scale), _build.ptr(sizes), _build.ptr(gids),
+        _build.ptr(part), _build.ptr(tickets), group_offset, G, plan.chunks,
+        _ROWS_PER_CHUNK, T, D, Fw, F, kind, plan.splits, _GMM_SMEM, _build.ptr(out),
+        _build.stream_ptr(dev),
     )
     _build.check(err, "gmm")
     LAUNCHES["gmm"] += 1

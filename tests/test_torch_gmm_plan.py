@@ -87,9 +87,8 @@ def test_the_planner_takes_integers_only():
 
 # ---- the wrapper's launch, with the kernel replaced ------------------------------
 
-_NAMES = ["x", "w", "scale", "gstart", "cchunk", "gids", "part", "tickets", "goff", "G",
-          "max_chunks", "rows_per_chunk", "T", "D", "Fw", "F", "kind", "splits", "out",
-          "stream"]
+_NAMES = ["x", "w", "scale", "sizes", "gids", "part", "tickets", "goff", "G", "max_chunks",
+          "rows_per_chunk", "T", "D", "Fw", "F", "kind", "splits", "smem", "out", "stream"]
 
 
 @pytest.fixture

@@ -46,9 +46,9 @@ _GMM_ARGS = [_c] * 7 + [ctypes.c_int] * 11 + [_c, _c]
 _ROWS_PER_CHUNK = 64
 _TILE_COLS = 128
 _K_TILE = 64
-_GMM_BLOCKS = 528  # blocks a call should bring: 4 per SM of the H100's 132
+_GMM_BLOCKS = 264  # blocks a call should bring: two per SM of the H100's 132
 _GMM_MIN_KTILES = 4  # k-tiles of a split at the least
-_GMM_SMEM = 110 * 1024  # shared memory of a block, which sets its stages: 2 blocks per SM
+_GMM_SMEM = 72 * 1024  # shared memory of a block, which sets its stages: up to 3 per SM
 
 
 class GmmPlan(NamedTuple):

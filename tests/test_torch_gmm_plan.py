@@ -24,14 +24,15 @@ KT, BN, BM = gm._K_TILE, gm._TILE_COLS, gm._ROWS_PER_CHUNK
 # ---- the planner ---------------------------------------------------------------
 
 @pytest.mark.parametrize("T,G,D,Fw,splits", [
-    (8, 8, 8192, 1024, 9),  # NLLB decode down: 8 column tiles x 8 chunks
-    (8, 8, 2048, 4096, 3),  # NLLB decode gate
-    (24, 24, 2048, 1408, 2),  # V2-Lite bf16 gate and up, groups compacted
-    (24, 64, 2048, 1408, 2),  # ... and uncompacted, as the fused runner passes them
-    (24, 24, 1408, 2048, 2),  # V2-Lite bf16 down
-    (24, 24, 2048, 704, 4),  # V2-Lite packed int4 gate: 5.5 column tiles
+    (8, 8, 8192, 1024, 5),  # NLLB decode down: 8 column tiles x 8 chunks
+    (8, 8, 2048, 4096, 2),  # NLLB decode gate
+    (24, 24, 2048, 1408, 1),  # V2-Lite bf16 gate and up, groups compacted
+    (24, 64, 2048, 1408, 1),  # ... and uncompacted, as the fused runner passes them
+    (24, 24, 1408, 2048, 1),  # V2-Lite bf16 down
+    (24, 24, 2048, 704, 2),  # V2-Lite packed int4 gate: 5.5 column tiles
+    (24, 24, 1408, 1024, 2),  # V2-Lite packed int4 down
     (8, 8, 4096, 14336, 1),  # Mixtral decode gate: 112 tiles x 8 chunks fill the card
-    (8, 8, 14336, 4096, 3),  # Mixtral decode down
+    (8, 8, 14336, 4096, 2),  # Mixtral decode down
     (128, 8, 4096, 14336, 1),  # Mixtral W=16 chunk step
     (512, 128, 2048, 4096, 1),  # NLLB prefill gate
     (512, 128, 8192, 1024, 1),  # NLLB prefill down
@@ -63,7 +64,7 @@ def test_splits_are_whole_k_tiles_covering_each_once(D, T, G, Fw):
 
 @pytest.mark.parametrize("T,G,D,Fw", [
     (8, 8, 8192, 1024), (8, 8, 2048, 4096), (24, 24, 2048, 704), (1, 1, 65536, 128),
-    (8, 8, 14336, 4096), (24, 64, 2048, 1408),
+    (8, 8, 14336, 4096), (24, 24, 1408, 1024),
 ])
 def test_a_short_grid_is_split_to_a_few_blocks_per_sm(T, G, D, Fw):
     plan = gm._gmm_plan(T, G, D, Fw)
@@ -115,9 +116,10 @@ def fake_kernel(monkeypatch):
 
 
 @pytest.mark.parametrize("kind,T,G,D,Fw,splits", [
-    ("int4", 8, 8, 8192, 1024, 9),  # NLLB decode down: split, workspace and tickets
+    ("int4", 8, 8, 8192, 1024, 5),  # NLLB decode down: split, workspace and tickets
     ("int8", 8, 8, 4096, 14336, 1),  # Mixtral decode gate: one split, no workspace
-    ("bf16", 24, 64, 2048, 1408, 2),
+    ("bf16", 24, 24, 1408, 1024, 2),
+    ("bf16", 24, 64, 2048, 1408, 1),  # uncompacted groups
 ])
 def test_one_call_is_one_launch_without_a_host_read(fake_kernel, kind, T, G, D, Fw, splits):
     dt = torch.bfloat16 if kind == "bf16" else torch.int8

@@ -10,8 +10,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    of the NLLB-MoE-54B, Mixtral-8x7B and DeepSeek-V2-Lite paths, with the
    error, its tolerance and the times of the kernel, the plain version and
    one library call for the same function; K4 and K1 also at long rows
-   (8192 columns), the decode body at the edges of its split plan, and K2's
-   few-row route with every bias form;
+   (8192 columns), the decode body at the edges of its split plan, K2's
+   few-row route with every bias form, and K3 at the edges of its 64-row
+   chunks and 64-deep k-tiles, at one k-split and at several, and at
+   Mixtral's 16-wide chunk step, each with the plan it took;
 3. the seq2seq main path: NLLB-MoE-54B geometry (d_model 2048, 16 heads,
    FFN 8192, 128 experts top-2, every 4th block sparse, vocab 256,206) with
    random weights from a seed, bf16 compute, packed int4 experts, resident
@@ -1616,8 +1618,8 @@ def sweep_gmm_plans(dev):
         cases[f"v2lite_{kind}"] = layer(x, w, sc, gsz, packed=kind == "int4")
     kept = gm._GMM_BLOCKS, gm._GMM_SMEM
     try:
-        for blocks, smem in ((528, 110), (264, 110), (792, 110), (1056, 110), (528, 72),
-                             (264, 72), (528, 110)):
+        for blocks, smem in ((264, 72), (528, 72), (792, 72), (264, 110), (528, 110),
+                             (264, 72)):
             gm._GMM_BLOCKS, gm._GMM_SMEM = blocks, smem * 1024
             say(f"[plan] _GMM_BLOCKS={blocks} _GMM_SMEM={smem} KB: "
                 + " ".join(f"{k}={cuda_ms(fn):.4f}" for k, fn in cases.items()))

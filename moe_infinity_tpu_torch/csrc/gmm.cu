@@ -12,29 +12,35 @@
 // TB/s. A decode step gives each routed expert a few rows (8 to 24 rows in
 // all), Mixtral's 16-wide chunk step about 16 and NLLB's prefill about 4:
 // at most some 64 operations per weight byte, far below the tensor cores'
-// 295 but above what the CUDA cores' 67 TFLOP/s keep up with. The design:
+// 295 but above what the CUDA cores' 67 TFLOP/s keep up with. Measured with
+// the loads or the products cut out of the kernel, bf16 calls are bound by
+// the loads; int8 and int4 calls by the conversion to bf16 and the products,
+// whose instructions take longer than the loads they wait on; every call
+// pays about 4 us of launch and output zeroing. The design:
 //
-// - Ownership. Block (column tile, chunk, k-split) owns 128 stored columns
+// - Ownership. Block (column tile, k-split, chunk) owns 128 stored columns
 //   of a chunk of up to 64 rows of one group over a range of the reduction.
 //   A group of up to 64 rows reads its weight slab once; an empty group owns
 //   no chunk and moves no byte, so cost follows routed groups, not slots.
 //   The block computes only the ceil(rows / 16) m16 tiles that hold rows, so
 //   a one-row decode group costs one. Groups own disjoint rows, so every
-//   output element has one writer. The wrapper passes the cumulative chunk
-//   sizes; each block finds its chunk by one scan of them, and the grid's
-//   chunk axis is a bound (rows / 64 + groups): the blocks past the last
-//   chunk return at once.
+//   output element has one writer. The wrapper passes the group sizes; each
+//   block finds its chunk by one scan of them, and the grid's chunk axis is
+//   a bound (rows / 64 + groups), last, so that the blocks past the last
+//   chunk come after the live ones and return at once.
 // - Loads. The block walks its range in 64-deep k-tiles: 16-byte cp.async
 //   copies of the x tile (bf16) and of the weight tile in its stored type
-//   (16 KB bf16, 8 KB int8 or packed int4), as many stages deep as the shared
-//   memory of two blocks per SM holds (4 to 8: the x tile is as tall as the
-//   call's rows need), so that 80 to 128 KB per SM are in flight. Rows past the chunk, columns past
-//   the weight's width and the tail of D are zero-filled by cp.async's source
-//   size, never read.
+//   (16 KB bf16, 8 KB int8 or packed int4), as many stages deep as a
+//   shared-memory budget holds (the x tile is only as tall as the call's rows
+//   need). Each thread's copy sources are computed once and advanced by a
+//   k-tile per load. Rows past the chunk, columns past the weight's width and
+//   the tail of D are zero-filled by cp.async's source size, never read.
 // - Dequantization. Each warp converts its own 16 stored columns of an int8
 //   or int4 stage into a bf16 tile (exact: -128..127 and -8..7 are bf16
-//   values), so only a __syncwarp stands between conversion and use. This
-//   costs about ten bytes of shared-memory traffic per int4 byte read.
+//   values, built from the bytes with byte permutes and one add), so only a
+//   __syncwarp stands between conversion and use. This costs about ten bytes
+//   of shared-memory traffic per int4 byte read; converting straight into
+//   the B fragments in registers is the later fix.
 // - Products on the tensor cores: mma.sync m16n8k16 bf16 -> f32, A fragments
 //   from the x tile by ldmatrix, B fragments from the bf16 weight tile by
 //   ldmatrix.trans, each B fragment used for every live m16 tile. Rows of
@@ -42,7 +48,7 @@
 //   in 8 bank groups.
 // - Split-K for short grids. Where the column tiles times the chunks are too
 //   few blocks for the card, the wrapper's planner cuts the reduction into
-//   whole k-tile splits (grid.z). Each split writes its f32 partial tile to a
+//   whole k-tile splits (grid.y). Each split writes its f32 partial tile to a
 //   workspace; the last split of a (column tile, chunk) to finish (a
 //   __threadfence() and a ticket counter it resets to 0) sums the partials in
 //   split order, applies the scale and stores: deterministic, one launch.

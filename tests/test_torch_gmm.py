@@ -130,15 +130,20 @@ def test_gffn_pallas_rejects_unported_roles():
                        torch.ones(2, 2), torch.arange(2), w, "silu")
 
 
-@pytest.mark.parametrize("what", ["float32_weights", "odd_width", "scale_shape"])
+@pytest.mark.parametrize("what", ["float32_weights", "odd_width", "scale_shape",
+                                  "short_x_rows", "int8_row_bytes"])
 def test_gmm_cuda_path_rejects_what_the_kernel_does_not_take(what):
-    """Checked before any launch, so CPU tensors show it."""
-    x = torch.zeros(4, 8)
+    """Checked before any launch, so CPU tensors show it. The kernel copies
+    16-byte pieces: D % 8 == 0 for x, a multiple of 16 bytes per weight row."""
+    D = 12 if what == "short_x_rows" else 8
+    x = torch.zeros(4, D)
     sizes = torch.tensor([4], dtype=torch.int32)
     ids = torch.zeros(1, dtype=torch.int32)
     w = {"float32_weights": torch.zeros(1, 8, 8),
          "odd_width": torch.zeros(1, 8, 6, dtype=torch.bfloat16),
-         "scale_shape": torch.zeros(1, 8, 8, dtype=torch.bfloat16)}[what]
+         "scale_shape": torch.zeros(1, 8, 8, dtype=torch.bfloat16),
+         "short_x_rows": torch.zeros(1, 12, 8, dtype=torch.bfloat16),
+         "int8_row_bytes": torch.zeros(1, 8, 8, dtype=torch.int8)}[what]
     scale = torch.zeros(1, 4) if what == "scale_shape" else None
     with pytest.raises(ValueError):
         gm._gmm_cuda(x, w, sizes, scale, 0, ids, packed=False)

@@ -50,7 +50,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
 ``python3 chip_smoke.py --gmm`` builds the kernels, runs phase 2's K3 checks
 and times alone, times whole decode layers under other split and stage
-plans, and stops the same way.
+plans, and stops the same way; ``--gmm-cuts`` (alone or after ``--gmm``)
+builds K3 again with its loads, or its conversion and products, or all but
+its launch cut out (``GMM_CUTS``), and with 128-deep k-tiles, and times each
+on the gate projections of the decode shapes.
 
 The line before the last is the per-kernel JSON record (launches: the sum
 of the counts of phases 3, 5 and 7); the last line is
@@ -196,7 +199,10 @@ def _say_ptxas(stem, log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+_cu_[0-9a-f]{8}\d+", "", m.group(1))
+            name = m.group(1)
+            ns = re.match(r"_ZN(\d+)_GLOBAL__N_", name)  # the anonymous namespace
+            if ns:  # skip it by its mangled length, then the length of the name
+                name = re.sub(r"^\d+", "", name[ns.end(1) + int(ns.group(1)):])
             name = re.sub(r"13__nv_bfloat16", "bf16", name)
         elif "spill" in line:
             spill = line.strip()
@@ -436,11 +442,13 @@ def check_gmm(g, dev):
 ROLES = ("gate", "up", "down")
 
 
-def _layer_weights(g, dev, S, D, F, kind):
-    """gate, up and down weights of S experts from the generator: bf16, int8
-    with per-channel scales, or packed int4 with scales."""
+def _layer_weights(g, dev, S, D, F, kind, roles=ROLES):
+    """gate, up and down weights (or those of ``roles``) of S experts from
+    the generator: bf16, int8 with per-channel scales, or packed int4 with
+    scales."""
     w, sc = {}, {}
-    for role, (d_in, d_out) in zip(ROLES, ((D, F), (D, F), (F, D))):
+    for role in roles:
+        d_in, d_out = (F, D) if role == "down" else (D, F)
         if kind == "bf16":
             w[role] = (torch.randn(S, d_in, d_out, generator=g, device=dev) * 0.02
                        ).to(torch.bfloat16)
@@ -1627,6 +1635,122 @@ def sweep_gmm_plans(dev):
         gm._GMM_BLOCKS, gm._GMM_SMEM = kept
 
 
+# ``--gmm-cuts``: csrc/gmm.cu rebuilt with parts taken out by these text
+# substitutions, to see what bounds a call: its loads alone (no conversion,
+# no products), its conversion and products alone (no copies), its launch
+# and output zeroing alone; and with 128-deep k-tiles
+GMM_CUTS = {
+    "whole": [],
+    "loads_only": [("    if (KIND != kBF16) {\n", "    if (false) {\n"),
+                   ("for (int ks = 0; ks < kBK / 16; ++ks)", "for (int ks = 0; ks < 0; ++ks)")],
+    "convert_and_mma_only": [
+        ("mit::cp_async16(xs + xdst[j], ok ? xsrc[j] : xg, ok ? 16 : 0);", "(void)ok;"),
+        ("mit::cp_async16(ws + wdst[j], ok ? wsrc[j] : wg, ok ? 16 : 0);", "(void)ok;")],
+    "launch_only": [("  find_chunk(a, blockIdx.z, sw, f);\n",
+                     "  return;\n  find_chunk(a, blockIdx.z, sw, f);\n")],
+    "k_tile_128": [("constexpr int kBK = 64;", "constexpr int kBK = 128;")],
+}
+
+
+def gmm_cut_sources():
+    """{cut: source of csrc/gmm.cu with the cut applied}; raises if the
+    source no longer holds a line a cut replaces."""
+    from moe_infinity_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "gmm.cu").read_text()
+    out = {}
+    for name, subs in GMM_CUTS.items():
+        s = src
+        for a, b in subs:
+            if s.count(a) != 1:
+                raise RuntimeError(f"--gmm-cuts: {name}: csrc/gmm.cu no longer holds {a!r}")
+            s = s.replace(a, b)
+        out[name] = s
+    return out
+
+
+def _gmm_gates(g, dev):
+    """{shape: (x, w, scale, sizes, ids, packed)}: the gate projection of
+    NLLB's, Mixtral's and V2-Lite's decode layers and of Mixtral's W=16
+    step, with their byte bounds in ms."""
+    from moe_infinity_tpu_torch.ops.gmm import compact_groups
+
+    cases, bounds = {}, {}
+
+    def add(name, kind, S, D, F, rows, gsz, gid, active):
+        w, sc = _layer_weights(g, dev, S, D, F, kind, roles=("gate",))
+        cases[name] = (torch.randn(rows, D, generator=g, device=dev).to(torch.bfloat16),
+                       w["gate"], sc["gate"], gsz, gid, kind == "int4")
+        nbytes = (active * D * w["gate"].shape[2] * w["gate"].element_size()
+                  + rows * D * 2 + rows * F * 4 + (0 if sc["gate"] is None else active * F * 4))
+        bounds[name] = bound_ms(nbytes, 2 * rows * D * F)[0]
+
+    gid, gsz, active = _routed_rows(g, dev, SLOTS, 128)
+    add("nllb_int4", "int4", 128, 2048, 8192, 2 * SLOTS, gsz, gid, active)
+    gid, gsz = compact_groups(torch.sort(torch.randperm(8, generator=g, device=dev)).values, 8)
+    add("mixtral_int8", "int8", 8, 4096, 14336, 8, gsz, gid, 8)
+    gid, gsz, active = _routed_rows(g, dev, SLOTS * CHUNK, 8)
+    add("mixtral_w16_int8", "int8", 8, 4096, 14336, 2 * SLOTS * CHUNK, gsz, gid, active)
+    flat = torch.stack([torch.randperm(64, generator=g, device=dev)[:6] for _ in range(SLOTS)])
+    gsz = torch.zeros(64, dtype=torch.int32, device=dev)
+    gsz.index_add_(0, flat.reshape(-1), torch.ones(6 * SLOTS, dtype=torch.int32, device=dev))
+    active = int((gsz > 0).sum())
+    for kind in ("bf16", "int4"):
+        add(f"v2lite_{kind}", kind, 64, 2048, 1408, 6 * SLOTS, gsz, None, active)
+    return cases, bounds
+
+
+def sweep_gmm_cuts(dev):
+    """K3 built once per entry of ``GMM_CUTS`` (all ``nvcc`` at once) and
+    timed on ``_gmm_gates``'s calls; the whole kernel and the 128-deep one
+    are held against ``gmm_plain`` first."""
+    import ctypes
+
+    from moe_infinity_tpu_torch.ops import _build
+    from moe_infinity_tpu_torch.ops import gmm as gm
+
+    cut_dir = _build.BUILD_DIR / "gmm_cuts"
+    cut_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in gmm_cut_sources().items():
+        (cut_dir / f"{name}.cu").write_text(src)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+             str(cut_dir / f"{name}.so"), str(cut_dir / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"--gmm-cuts: nvcc failed for {name}:\n{log[-3000:]}")
+        _say_ptxas(f"gmm[{name}]", log)
+        fn = getattr(ctypes.CDLL(str(cut_dir / f"{name}.so")), "mit_gmm")
+        fn.argtypes, fn.restype = gm._GMM_ARGS, ctypes.c_int
+        fns[name] = fn
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    cases, bounds = _gmm_gates(g, dev)
+    say("[cuts] byte bounds: " + " ".join(f"{k}={v:.4f}" for k, v in bounds.items()))
+    key, kept = ("gmm", "mit_gmm"), (_build._fns.get(("gmm", "mit_gmm")), gm._K_TILE)
+    try:
+        for name, fn in fns.items():
+            _build._fns[key] = fn
+            gm._K_TILE = 128 if name == "k_tile_128" else 64
+            runs = {k: (lambda c=c: gm.gmm(c[0], c[1], c[3], c[2], group_ids=c[4], packed=c[5]))
+                    for k, c in cases.items()}
+            if name in ("whole", "k_tile_128"):
+                for k, c in cases.items():
+                    compare(f"gmm[{name}] {k} gate", runs[k](),
+                            gm.gmm_plain(c[0], c[1], c[3], c[2], group_ids=c[4], packed=c[5]))
+            say(f"[cuts] {name}: " + " ".join(f"{k}={cuda_ms(r):.4f}" for k, r in runs.items()))
+    finally:
+        gm._K_TILE = kept[1]
+        if kept[0] is None:
+            _build._fns.pop(key, None)
+        else:
+            _build._fns[key] = kept[0]
+
+
 def main() -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -1634,13 +1758,17 @@ def main() -> int:
         sweep_decode_plans(dev)
         say(f"[card] {smi}")
         return 0
-    if "--gmm" in sys.argv[1:]:
-        g = torch.Generator(device=dev)
-        g.manual_seed(0)
-        r = phase_gmm(g, dev)
-        say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e}")
-        sweep_gmm_plans(dev)
+    if "--gmm" in sys.argv[1:] or "--gmm-cuts" in sys.argv[1:]:
+        if "--gmm" in sys.argv[1:]:
+            g = torch.Generator(device=dev)
+            g.manual_seed(0)
+            r = phase_gmm(g, dev)
+            say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+                f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e}")
+            sweep_gmm_plans(dev)
+        if "--gmm-cuts" in sys.argv[1:]:
+            sweep_gmm_cuts(dev)
         say(f"[card] {smi}")
         return 0
     recs = phase_kernels(dev)

@@ -13,10 +13,11 @@
 // all), Mixtral's 16-wide chunk step about 16 and NLLB's prefill about 4:
 // at most some 64 operations per weight byte, far below the tensor cores'
 // 295 but above what the CUDA cores' 67 TFLOP/s keep up with. Measured with
-// the loads or the products cut out of the kernel, bf16 calls are bound by
-// the loads; int8 and int4 calls by the conversion to bf16 and the products,
-// whose instructions take longer than the loads they wait on; every call
-// pays about 4 us of launch and output zeroing. The design:
+// the loads or the products cut out of the kernel (chip_smoke.py
+// --gmm-cuts), bf16 calls are bound by the loads; int8 and int4 calls by the
+// conversion to bf16 and the products, whose instructions take longer than
+// the loads they wait on; every call pays about 4 us of launch and output
+// zeroing. The design:
 //
 // - Ownership. Block (column tile, k-split, chunk) owns 128 stored columns
 //   of a chunk of up to 64 rows of one group over a range of the reduction.

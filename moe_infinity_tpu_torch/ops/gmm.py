@@ -6,14 +6,16 @@ expert FFN built on it.
 rows sorted by group, f32 accumulation, the per-output-channel ``scale``
 after the sum. Weights are bf16, int8 or split-nibble packed int4
 (``[S, D, F/2]`` int8; low nibbles are columns ``[0, F/2)``, high nibbles
-``[F/2, F)``). The kernel (``csrc/gmm.cu``) is bound by the routed experts'
-weight bytes: a block owns 128 stored columns of a chunk of up to 64 rows of
-one group, so a group of up to 64 rows reads its slab once; 64-deep k-tiles
-arrive by ``cp.async`` several stages ahead, int8 and int4 are converted to
-bf16 in shared memory, and the products run on the tensor cores
-(``mma.sync``). Where the column tiles times the chunks leave the card short
-of blocks, ``_gmm_plan`` cuts the reduction into k-splits that the kernel
-merges in split order in the same launch. For CUDA tensors the wrapper
+``[F/2, F)``). The kernel (``csrc/gmm.cu``) should be bound by the routed
+experts' weight bytes: a block owns 128 stored columns of a chunk of up to
+64 rows of one group, so a group of up to 64 rows reads its slab once;
+64-deep k-tiles arrive by ``cp.async`` several stages ahead, int8 and int4
+are converted to bf16 in shared memory, and the products run on the tensor
+cores (``mma.sync``). bf16 calls are bound by their loads; int8 and int4
+calls by that conversion and the products (``chip_smoke.py --gmm-cuts``).
+Where the column tiles times the chunks leave the card short of blocks,
+``_gmm_plan`` cuts the reduction into k-splits that the kernel merges in
+split order in the same launch. For CUDA tensors the wrapper
 launches it, for CPU tensors it runs ``gmm_plain``, which repeats its
 arithmetic (x and w rounded to bf16, exact products, f32 sums).
 

@@ -244,3 +244,13 @@ def test_emulation_at_a_planned_split(rng):
     got = _emulate(x, w, sizes, scale, packed=packed)
     want = gm.gmm_plain(x, w, torch.tensor(sizes, dtype=torch.int32), scale, packed=packed)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL, atol=TOL)
+
+
+def test_every_cut_of_the_kernel_still_applies():
+    """``chip_smoke.py --gmm-cuts`` rebuilds csrc/gmm.cu with parts cut out
+    by text substitution; each cut must still find the lines it replaces."""
+    import chip_smoke
+
+    srcs = chip_smoke.gmm_cut_sources()
+    assert set(srcs) == set(chip_smoke.GMM_CUTS)
+    assert all(src != srcs["whole"] for name, src in srcs.items() if name != "whole")

@@ -53,7 +53,7 @@ and times alone, times whole decode layers under other split and stage
 plans, and stops the same way; ``--gmm-cuts`` (alone or after ``--gmm``)
 builds K3 again with its loads, or its conversion and products, or all but
 its launch cut out (``GMM_CUTS``), and with 128-deep k-tiles, and times each
-on the gate projections of the decode shapes.
+on the same decode layers.
 
 The line before the last is the per-kernel JSON record (launches: the sum
 of the counts of phases 3, 5 and 7); the last line is
@@ -442,13 +442,11 @@ def check_gmm(g, dev):
 ROLES = ("gate", "up", "down")
 
 
-def _layer_weights(g, dev, S, D, F, kind, roles=ROLES):
-    """gate, up and down weights (or those of ``roles``) of S experts from
-    the generator: bf16, int8 with per-channel scales, or packed int4 with
-    scales."""
+def _layer_weights(g, dev, S, D, F, kind):
+    """gate, up and down weights of S experts from the generator: bf16, int8
+    with per-channel scales, or packed int4 with scales."""
     w, sc = {}, {}
-    for role in roles:
-        d_in, d_out = (F, D) if role == "down" else (D, F)
+    for role, (d_in, d_out) in zip(ROLES, ((D, F), (D, F), (F, D))):
         if kind == "bf16":
             w[role] = (torch.randn(S, d_in, d_out, generator=g, device=dev) * 0.02
                        ).to(torch.bfloat16)
@@ -1589,48 +1587,69 @@ def sweep_decode_plans(dev):
         fa._DEC_BLOCKS = kept
 
 
-def sweep_gmm_plans(dev):
-    """The tail of ``--gmm``: K3's time for whole decode layers under other
-    block targets of the split planner (``_GMM_BLOCKS``) and shared-memory
-    budgets (``_GMM_SMEM``, which sets the stages), the first plan again
-    last, to show the spread."""
-    from moe_infinity_tpu_torch.ops import gmm as gm
+def _decode_layers(g, dev):
+    """{name: (calls, byte bound in ms)} of whole decode MoE layers on K3,
+    each call the arguments of one ``gmm`` (x, w, sizes, scale, offset, ids,
+    packed), the down projection's input drawn at random: NLLB's (gate +
+    down, int4), Mixtral's at W=1 and at its W=16 step (int8), V2-Lite's
+    (bf16 and int4, its 64 groups uncompacted)."""
     from moe_infinity_tpu_torch.ops.gmm import compact_groups
 
-    g = torch.Generator(device=dev)
-    g.manual_seed(1)
-
-    def layer(x, w, sc, gsz, gid=None, offset=0, packed=False, roles=ROLES):
+    def layer(x, w, sc, gsz, gid=None, packed=False, roles=ROLES):
         h = torch.randn(x.shape[0], w["down"].shape[1], generator=g, device=dev).to(torch.bfloat16)
-        kw = dict(group_ids=gid, group_offset=offset, packed=packed)
-        return lambda: [gm.gmm(h if r == "down" else x, w[r], gsz, sc[r], **kw) for r in roles]
+        calls = [(h if r == "down" else x, w[r], gsz, sc[r], 0, gid, packed) for r in roles]
+        active, nbytes, flops = int((gsz > 0).sum()), 0, 0
+        for xin, wr, _, s, _, _, p in calls:
+            (rows, D), F = xin.shape, wr.shape[2] * (2 if p else 1)
+            nbytes += (active * (D * wr.shape[2] * wr.element_size() + (0 if s is None else F * 4))
+                       + rows * D * 2 + rows * F * 4)
+            flops += 2 * rows * D * F
+        return calls, bound_ms(nbytes, flops)[0]
 
-    cases = {}
+    layers = {}
     gid, gsz, _ = _routed_rows(g, dev, 4, 128)
     w, sc = _layer_weights(g, dev, 128, 2048, 8192, "int4")
     x = torch.randn(8, 2048, generator=g, device=dev).to(torch.bfloat16)
-    cases["nllb_decode"] = layer(x, w, sc, gsz, gid, packed=True, roles=("gate", "down"))
+    layers["nllb_decode"] = layer(x, w, sc, gsz, gid, packed=True, roles=("gate", "down"))
     w, sc = _layer_weights(g, dev, 8, 4096, 14336, "int8")
     gid, gsz = compact_groups(torch.sort(torch.randperm(8, generator=g, device=dev)).values, 8)
     x = torch.randn(8, 4096, generator=g, device=dev).to(torch.bfloat16)
-    cases["mixtral_decode"] = layer(x, w, sc, gsz, gid)
+    layers["mixtral_decode"] = layer(x, w, sc, gsz, gid)
     gid, gsz, _ = _routed_rows(g, dev, SLOTS * CHUNK, 8)
     x = torch.randn(2 * SLOTS * CHUNK, 4096, generator=g, device=dev).to(torch.bfloat16)
-    cases["mixtral_w16"] = layer(x, w, sc, gsz, gid)
+    layers["mixtral_w16"] = layer(x, w, sc, gsz, gid)
     flat = torch.stack([torch.randperm(64, generator=g, device=dev)[:6] for _ in range(SLOTS)])
     gsz = torch.zeros(64, dtype=torch.int32, device=dev)
     gsz.index_add_(0, flat.reshape(-1), torch.ones(24, dtype=torch.int32, device=dev))
     x = torch.randn(24, 2048, generator=g, device=dev).to(torch.bfloat16)
     for kind in ("bf16", "int4"):
         w, sc = _layer_weights(g, dev, 64, 2048, 1408, kind)
-        cases[f"v2lite_{kind}"] = layer(x, w, sc, gsz, packed=kind == "int4")
+        layers[f"v2lite_{kind}"] = layer(x, w, sc, gsz, packed=kind == "int4")
+    return layers
+
+
+def _gmm_calls(fn, calls):
+    """A function that runs ``fn`` (``gmm`` or ``gmm_plain``) on each call."""
+    return lambda: [fn(*c[:6], packed=c[6]) for c in calls]
+
+
+def sweep_gmm_plans(dev):
+    """The tail of ``--gmm``: K3's time for ``_decode_layers`` under other
+    block targets of the split planner (``_GMM_BLOCKS``) and shared-memory
+    budgets (``_GMM_SMEM``, which sets the stages), the first plan again
+    last, to show the spread."""
+    from moe_infinity_tpu_torch.ops import gmm as gm
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    runs = {k: _gmm_calls(gm.gmm, calls) for k, (calls, _) in _decode_layers(g, dev).items()}
     kept = gm._GMM_BLOCKS, gm._GMM_SMEM
     try:
         for blocks, smem in ((264, 72), (528, 72), (792, 72), (264, 110), (528, 110),
                              (264, 72)):
             gm._GMM_BLOCKS, gm._GMM_SMEM = blocks, smem * 1024
             say(f"[plan] _GMM_BLOCKS={blocks} _GMM_SMEM={smem} KB: "
-                + " ".join(f"{k}={cuda_ms(fn):.4f}" for k, fn in cases.items()))
+                + " ".join(f"{k}={cuda_ms(fn):.4f}" for k, fn in runs.items()))
     finally:
         gm._GMM_BLOCKS, gm._GMM_SMEM = kept
 
@@ -1669,41 +1688,10 @@ def gmm_cut_sources():
     return out
 
 
-def _gmm_gates(g, dev):
-    """{shape: (x, w, scale, sizes, ids, packed)}: the gate projection of
-    NLLB's, Mixtral's and V2-Lite's decode layers and of Mixtral's W=16
-    step, with their byte bounds in ms."""
-    from moe_infinity_tpu_torch.ops.gmm import compact_groups
-
-    cases, bounds = {}, {}
-
-    def add(name, kind, S, D, F, rows, gsz, gid, active):
-        w, sc = _layer_weights(g, dev, S, D, F, kind, roles=("gate",))
-        cases[name] = (torch.randn(rows, D, generator=g, device=dev).to(torch.bfloat16),
-                       w["gate"], sc["gate"], gsz, gid, kind == "int4")
-        nbytes = (active * D * w["gate"].shape[2] * w["gate"].element_size()
-                  + rows * D * 2 + rows * F * 4 + (0 if sc["gate"] is None else active * F * 4))
-        bounds[name] = bound_ms(nbytes, 2 * rows * D * F)[0]
-
-    gid, gsz, active = _routed_rows(g, dev, SLOTS, 128)
-    add("nllb_int4", "int4", 128, 2048, 8192, 2 * SLOTS, gsz, gid, active)
-    gid, gsz = compact_groups(torch.sort(torch.randperm(8, generator=g, device=dev)).values, 8)
-    add("mixtral_int8", "int8", 8, 4096, 14336, 8, gsz, gid, 8)
-    gid, gsz, active = _routed_rows(g, dev, SLOTS * CHUNK, 8)
-    add("mixtral_w16_int8", "int8", 8, 4096, 14336, 2 * SLOTS * CHUNK, gsz, gid, active)
-    flat = torch.stack([torch.randperm(64, generator=g, device=dev)[:6] for _ in range(SLOTS)])
-    gsz = torch.zeros(64, dtype=torch.int32, device=dev)
-    gsz.index_add_(0, flat.reshape(-1), torch.ones(6 * SLOTS, dtype=torch.int32, device=dev))
-    active = int((gsz > 0).sum())
-    for kind in ("bf16", "int4"):
-        add(f"v2lite_{kind}", kind, 64, 2048, 1408, 6 * SLOTS, gsz, None, active)
-    return cases, bounds
-
-
 def sweep_gmm_cuts(dev):
     """K3 built once per entry of ``GMM_CUTS`` (all ``nvcc`` at once) and
-    timed on ``_gmm_gates``'s calls; the whole kernel and the 128-deep one
-    are held against ``gmm_plain`` first."""
+    timed on ``_decode_layers``; the whole kernel and the 128-deep one are
+    held against ``gmm_plain`` first."""
     import ctypes
 
     from moe_infinity_tpu_torch.ops import _build
@@ -1728,20 +1716,20 @@ def sweep_gmm_cuts(dev):
         fn.argtypes, fn.restype = gm._GMM_ARGS, ctypes.c_int
         fns[name] = fn
     g = torch.Generator(device=dev)
-    g.manual_seed(3)
-    cases, bounds = _gmm_gates(g, dev)
-    say("[cuts] byte bounds: " + " ".join(f"{k}={v:.4f}" for k, v in bounds.items()))
+    g.manual_seed(1)
+    layers = _decode_layers(g, dev)
+    say("[cuts] byte bounds: " + " ".join(f"{k}={b:.4f}" for k, (_, b) in layers.items()))
     key, kept = ("gmm", "mit_gmm"), (_build._fns.get(("gmm", "mit_gmm")), gm._K_TILE)
     try:
         for name, fn in fns.items():
             _build._fns[key] = fn
             gm._K_TILE = 128 if name == "k_tile_128" else 64
-            runs = {k: (lambda c=c: gm.gmm(c[0], c[1], c[3], c[2], group_ids=c[4], packed=c[5]))
-                    for k, c in cases.items()}
+            runs = {k: _gmm_calls(gm.gmm, calls) for k, (calls, _) in layers.items()}
             if name in ("whole", "k_tile_128"):
-                for k, c in cases.items():
-                    compare(f"gmm[{name}] {k} gate", runs[k](),
-                            gm.gmm_plain(c[0], c[1], c[3], c[2], group_ids=c[4], packed=c[5]))
+                for k, (calls, _) in layers.items():
+                    for i, (got, want) in enumerate(zip(runs[k](),
+                                                        _gmm_calls(gm.gmm_plain, calls)())):
+                        compare(f"gmm[{name}] {k} call {i}", got, want)
             say(f"[cuts] {name}: " + " ".join(f"{k}={cuda_ms(r):.4f}" for k, r in runs.items()))
     finally:
         gm._K_TILE = kept[1]

@@ -13,7 +13,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    (8192 columns), the decode body at the edges of its split plan, K2's
    few-row route with every bias form, and K3 at the edges of its 64-row
    chunks and 64-deep k-tiles, at one k-split and at several, and at
-   Mixtral's 16-wide chunk step, each with the plan it took;
+   Mixtral's 16-wide chunk step, each with the plan it took; on Mixtral's
+   down calls, where K3's error comes from (``[rounding]``);
 3. the seq2seq main path: NLLB-MoE-54B geometry (d_model 2048, 16 heads,
    FFN 8192, 128 experts top-2, every 4th block sparse, vocab 256,206) with
    random weights from a seed, bf16 compute, packed int4 experts, resident
@@ -49,11 +50,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
 ``python3 chip_smoke.py --gmm`` builds the kernels, runs phase 2's K3 checks
-and times alone, times whole decode layers under other split and stage
-plans, and stops the same way; ``--gmm-cuts`` (alone or after ``--gmm``)
-builds K3 again with its loads, or its conversion and products, or all but
-its launch cut out (``GMM_CUTS``), and with 128-deep k-tiles, and times each
-on the same decode layers.
+and times alone (the same inputs as in the whole run), times whole decode
+layers under other split plans, and stops the same way.
 
 The line before the last is the per-kernel JSON record (launches: the sum
 of the counts of phases 3, 5 and 7); the last line is
@@ -488,6 +486,75 @@ def _check_layer(label, x, w, sc, gsz, active, **kw):
                 bound_ms=b_ms, bound_by=b_by, a=a)
 
 
+def _to_f32(t, toward_zero):
+    """The f64 tensor ``t`` rounded to f32: to nearest, or toward zero."""
+    r = t.float()
+    if toward_zero:
+        r = torch.where(r.double().abs() > t.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+    return r
+
+
+def gmm_rounding(label, x, w, scale, gsz, gid):
+    """Where K3's error against ``gmm_plain`` comes from, on one int8 call
+    (reported, not held). Against the exact result (f64 from the bf16 x and
+    the int8 w, whose products and sums f64 holds exactly), the line gives
+    the largest error over the largest output and the mean signed error over
+    the mean output (below 0: magnitudes come out short) of the kernel, of
+    ``gmm_plain`` and of two emulations of the kernel's order of sums: each
+    split of the plan walks 16-deep steps (one mma.sync) whose exact sum
+    with the f32 accumulator is rounded to f32, to nearest or toward zero;
+    the splits are summed in order in f32 and the scale comes after."""
+    from moe_infinity_tpu_torch.ops import gmm as gm
+
+    T, D = x.shape
+    Fw = w.shape[2]
+    depth = gm._gmm_plan(T, gsz.shape[0], D, Fw).ktiles * gm._K_TILE
+    got = gm.gmm(x, w, gsz, scale, group_ids=gid)
+    plain = gm.gmm_plain(x, w, gsz, scale, group_ids=gid)
+    sizes, ids = gsz.tolist(), gid.tolist()  # rows are sorted by group: skip empty ones
+    ids = [i for i, n in zip(ids, sizes) if n]
+    sizes = [n for n in sizes if n]
+    G, M = len(sizes), max(sizes)
+    xp = torch.zeros(G, M, D, dtype=torch.float64, device=x.device)
+    start = 0
+    for i, n in enumerate(sizes):
+        xp[i, :n] = x[start:start + n].to(torch.bfloat16).double()
+        start += n
+    wp = torch.stack([w[i].double() for i in ids])
+    sp = scale[ids].double()[:, None, :]
+    exact = torch.bmm(xp, wp) * sp
+    emu = {}
+    for rz in (True, False):
+        total = torch.zeros(G, M, Fw, device=x.device)
+        for k0 in range(0, D, depth):
+            acc = torch.zeros(G, M, Fw, device=x.device)
+            for k in range(k0, min(D, k0 + depth), 16):
+                acc = _to_f32(acc.double() + torch.bmm(xp[:, :, k:k + 16], wp[:, k:k + 16]), rz)
+            total = total + acc  # f32, in split order
+        emu[rz] = total * sp.float()
+    live = torch.cat([torch.arange(n, device=x.device) + i * M for i, n in enumerate(sizes)])
+
+    def rows(t):  # [G, M, F] -> the live rows, in x's order
+        return t.reshape(G * M, Fw)[live]
+
+    ref = rows(exact)
+    scale_max, scale_mean = ref.abs().max().item(), ref.abs().mean().item()
+
+    def err(t):
+        d = t.double() - ref
+        return (f"{d.abs().max().item() / scale_max:.3e} / "
+                f"{(d * ref.sign()).mean().item() / scale_mean:.3e}")
+
+    n = sum(sizes)
+    rz, rn = rows(emu[True]), rows(emu[False])
+    say(f"[rounding] gmm {label} (split depth {depth}, 16-deep steps): error against the exact "
+        f"result, largest over the largest output / mean signed over the mean output: kernel "
+        f"{err(got[:n])}, gmm_plain {err(plain[:n])}, emulated to nearest {err(rn)}, emulated "
+        f"toward zero {err(rz)}; kernel less emulated toward zero: largest "
+        f"{(got[:n] - rz).abs().max().item() / scale_max:.3e}, less emulated to nearest "
+        f"{(got[:n] - rn).abs().max().item() / scale_max:.3e} (reported, not held)")
+
+
 def check_gmm_mixtral(g, dev):
     """K3 at one Mixtral MoE layer at both step widths of the batcher, int8
     with per-channel scales, D=4096 F=14336, gate + up + down: the W=1 decode
@@ -507,6 +574,9 @@ def check_gmm_mixtral(g, dev):
     x16 = torch.randn(2 * tokens, D, generator=g, device=dev).to(torch.bfloat16)
     w16 = _check_layer(f"int8 Mixtral W=16 chunk step rows={2 * tokens} active={active}",
                        x16, w, sc, gsz16, active, group_ids=gid16)
+    gmm_rounding("int8 Mixtral decode down", dec["a"], w["down"], sc["down"], gsz, gid)
+    gmm_rounding("int8 Mixtral W=16 chunk step down", w16["a"], w["down"], sc["down"], gsz16,
+                 gid16)
     say(f"[time] gmm Mixtral W=16 chunk-step MoE layer (gate + up + down, {2 * tokens} rows "
         f"over {active} experts, group sizes {gsz16.tolist()}, int8 + scales, D={D} F={F}): "
         f"ms={w16['ms']:.4f} plain_ms={w16['plain_ms']:.4f} bound_ms={w16['bound_ms']:.5f} "
@@ -548,9 +618,13 @@ def check_gmm_edges(g, dev):
     return max(errs)
 
 
-def phase_gmm(g, dev):
+def phase_gmm(dev):
     """Every K3 check of phase 2 (``--gmm`` runs these alone); returns K3's
-    record with the largest error of them all."""
+    record with the largest error of them all. The cases draw from their own
+    generator, in this order, so that their inputs stay the same whatever
+    other phases draw: a new case goes last."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
     err = check_gmm(g, dev)
     rec, w16_err = check_gmm_mixtral(g, dev)
     rec["max_abs_err"] = max(rec["max_abs_err"], err, w16_err, check_gmm_deepseek(g, dev),
@@ -867,7 +941,7 @@ def phase_kernels(dev):
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     k2_err = check_flash_attend(g, dev)
-    recs = [check_flash_decode(g, dev), check_flash_attend_chunk(g, dev), phase_gmm(g, dev),
+    recs = [check_flash_decode(g, dev), check_flash_attend_chunk(g, dev), phase_gmm(dev),
             check_paged_decode(g, dev), check_mla_decode(g, dev)]
     recs[1]["max_abs_err"] = max(recs[1]["max_abs_err"], k2_err, check_attend_rows(g, dev))
     long_err = check_decode_long(g, dev)
@@ -1635,108 +1709,21 @@ def _gmm_calls(fn, calls):
 
 def sweep_gmm_plans(dev):
     """The tail of ``--gmm``: K3's time for ``_decode_layers`` under other
-    block targets of the split planner (``_GMM_BLOCKS``) and shared-memory
-    budgets (``_GMM_SMEM``, which sets the stages), the first plan again
+    block targets of the split planner (``_GMM_BLOCKS``), the first again
     last, to show the spread."""
     from moe_infinity_tpu_torch.ops import gmm as gm
 
     g = torch.Generator(device=dev)
     g.manual_seed(1)
     runs = {k: _gmm_calls(gm.gmm, calls) for k, (calls, _) in _decode_layers(g, dev).items()}
-    kept = gm._GMM_BLOCKS, gm._GMM_SMEM
+    kept = gm._GMM_BLOCKS
     try:
-        for blocks, smem in ((264, 72), (528, 72), (792, 72), (264, 110), (528, 110),
-                             (264, 72)):
-            gm._GMM_BLOCKS, gm._GMM_SMEM = blocks, smem * 1024
-            say(f"[plan] _GMM_BLOCKS={blocks} _GMM_SMEM={smem} KB: "
+        for blocks in (264, 528, 792, 264):
+            gm._GMM_BLOCKS = blocks
+            say(f"[plan] _GMM_BLOCKS={blocks}: "
                 + " ".join(f"{k}={cuda_ms(fn):.4f}" for k, fn in runs.items()))
     finally:
-        gm._GMM_BLOCKS, gm._GMM_SMEM = kept
-
-
-# ``--gmm-cuts``: csrc/gmm.cu rebuilt with parts taken out by these text
-# substitutions, to see what bounds a call: its loads alone (no conversion,
-# no products), its conversion and products alone (no copies), its launch
-# and output zeroing alone; and with 128-deep k-tiles
-GMM_CUTS = {
-    "whole": [],
-    "loads_only": [("    if (KIND != kBF16) {\n", "    if (false) {\n"),
-                   ("for (int ks = 0; ks < kBK / 16; ++ks)", "for (int ks = 0; ks < 0; ++ks)")],
-    "convert_and_mma_only": [
-        ("mit::cp_async16(xs + xdst[j], ok ? xsrc[j] : xg, ok ? 16 : 0);", "(void)ok;"),
-        ("mit::cp_async16(ws + wdst[j], ok ? wsrc[j] : wg, ok ? 16 : 0);", "(void)ok;")],
-    "launch_only": [("  find_chunk(a, blockIdx.z, sw, f);\n",
-                     "  return;\n  find_chunk(a, blockIdx.z, sw, f);\n")],
-    "k_tile_128": [("constexpr int kBK = 64;", "constexpr int kBK = 128;")],
-}
-
-
-def gmm_cut_sources():
-    """{cut: source of csrc/gmm.cu with the cut applied}; raises if the
-    source no longer holds a line a cut replaces."""
-    from moe_infinity_tpu_torch.ops import _build
-
-    src = (_build.CSRC / "gmm.cu").read_text()
-    out = {}
-    for name, subs in GMM_CUTS.items():
-        s = src
-        for a, b in subs:
-            if s.count(a) != 1:
-                raise RuntimeError(f"--gmm-cuts: {name}: csrc/gmm.cu no longer holds {a!r}")
-            s = s.replace(a, b)
-        out[name] = s
-    return out
-
-
-def sweep_gmm_cuts(dev):
-    """K3 built once per entry of ``GMM_CUTS`` (all ``nvcc`` at once) and
-    timed on ``_decode_layers``; the whole kernel and the 128-deep one are
-    held against ``gmm_plain`` first."""
-    import ctypes
-
-    from moe_infinity_tpu_torch.ops import _build
-    from moe_infinity_tpu_torch.ops import gmm as gm
-
-    cut_dir = _build.BUILD_DIR / "gmm_cuts"
-    cut_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, src in gmm_cut_sources().items():
-        (cut_dir / f"{name}.cu").write_text(src)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
-             str(cut_dir / f"{name}.so"), str(cut_dir / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"--gmm-cuts: nvcc failed for {name}:\n{log[-3000:]}")
-        _say_ptxas(f"gmm[{name}]", log)
-        fn = getattr(ctypes.CDLL(str(cut_dir / f"{name}.so")), "mit_gmm")
-        fn.argtypes, fn.restype = gm._GMM_ARGS, ctypes.c_int
-        fns[name] = fn
-    g = torch.Generator(device=dev)
-    g.manual_seed(1)
-    layers = _decode_layers(g, dev)
-    say("[cuts] byte bounds: " + " ".join(f"{k}={b:.4f}" for k, (_, b) in layers.items()))
-    key, kept = ("gmm", "mit_gmm"), (_build._fns.get(("gmm", "mit_gmm")), gm._K_TILE)
-    try:
-        for name, fn in fns.items():
-            _build._fns[key] = fn
-            gm._K_TILE = 128 if name == "k_tile_128" else 64
-            runs = {k: _gmm_calls(gm.gmm, calls) for k, (calls, _) in layers.items()}
-            if name in ("whole", "k_tile_128"):
-                for k, (calls, _) in layers.items():
-                    for i, (got, want) in enumerate(zip(runs[k](),
-                                                        _gmm_calls(gm.gmm_plain, calls)())):
-                        compare(f"gmm[{name}] {k} call {i}", got, want)
-            say(f"[cuts] {name}: " + " ".join(f"{k}={cuda_ms(r):.4f}" for k, r in runs.items()))
-    finally:
-        gm._K_TILE = kept[1]
-        if kept[0] is None:
-            _build._fns.pop(key, None)
-        else:
-            _build._fns[key] = kept[0]
+        gm._GMM_BLOCKS = kept
 
 
 def main() -> int:
@@ -1746,17 +1733,12 @@ def main() -> int:
         sweep_decode_plans(dev)
         say(f"[card] {smi}")
         return 0
-    if "--gmm" in sys.argv[1:] or "--gmm-cuts" in sys.argv[1:]:
-        if "--gmm" in sys.argv[1:]:
-            g = torch.Generator(device=dev)
-            g.manual_seed(0)
-            r = phase_gmm(g, dev)
-            say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.4f} "
-                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
-                f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e}")
-            sweep_gmm_plans(dev)
-        if "--gmm-cuts" in sys.argv[1:]:
-            sweep_gmm_cuts(dev)
+    if "--gmm" in sys.argv[1:]:
+        r = phase_gmm(dev)
+        say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+            f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e}")
+        sweep_gmm_plans(dev)
         say(f"[card] {smi}")
         return 0
     recs = phase_kernels(dev)

@@ -12,12 +12,11 @@
 // TB/s. A decode step gives each routed expert a few rows (8 to 24 rows in
 // all), Mixtral's 16-wide chunk step about 16 and NLLB's prefill about 4:
 // at most some 64 operations per weight byte, far below the tensor cores'
-// 295 but above what the CUDA cores' 67 TFLOP/s keep up with. Measured with
-// the loads or the products cut out of the kernel (chip_smoke.py
-// --gmm-cuts), bf16 calls are bound by the loads; int8 and int4 calls by the
-// conversion to bf16 and the products, whose instructions take longer than
-// the loads they wait on; every call pays about 4 us of launch and output
-// zeroing. The design:
+// 295 but above what the CUDA cores' 67 TFLOP/s keep up with. bf16 calls
+// are bound by the loads; int8 and int4 calls by the conversion to bf16 and
+// the products, whose instructions take longer than the loads they wait on;
+// every call pays about 4 us of launch and output zeroing (PERF.md). The
+// design:
 //
 // - Ownership. Block (column tile, k-split, chunk) owns 128 stored columns
 //   of a chunk of up to 64 rows of one group over a range of the reduction.
@@ -31,9 +30,9 @@
 //   chunk come after the live ones and return at once.
 // - Loads. The block walks its range in 64-deep k-tiles: 16-byte cp.async
 //   copies of the x tile (bf16) and of the weight tile in its stored type
-//   (16 KB bf16, 8 KB int8 or packed int4), as many stages deep as a
-//   shared-memory budget holds (the x tile is only as tall as the call's rows
-//   need). Each thread's copy sources are computed once and advanced by a
+//   (16 KB bf16, 8 KB int8 or packed int4), as many stages deep as 72 KB of
+//   shared memory hold, so that three one-tile blocks share an SM (the x
+//   tile is only as tall as the call's rows need). Each thread's copy sources are computed once and advanced by a
 //   k-tile per load. Rows past the chunk, columns past the weight's width and
 //   the tail of D are zero-filled by cp.async's source size, never read.
 // - Dequantization. Each warp converts its own 16 stored columns of an int8
@@ -44,7 +43,9 @@
 //   the B fragments in registers is the later fix.
 // - Products on the tensor cores: mma.sync m16n8k16 bf16 -> f32, A fragments
 //   from the x tile by ldmatrix, B fragments from the bf16 weight tile by
-//   ldmatrix.trans, each B fragment used for every live m16 tile. Rows of
+//   ldmatrix.trans, each B fragment used for every live m16 tile. The f32
+//   accumulators stay in registers; how far their rounding takes a deep
+//   reduction from an f32 matmul is measured in PERF.md. Rows of
 //   every shared tile are padded by 16 bytes, so that ldmatrix's 8 rows fall
 //   in 8 bank groups.
 // - Split-K for short grids. Where the column tiles times the chunks are too
@@ -66,7 +67,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBN = 128;       // stored columns of a tile
 constexpr int kBM = 64;        // rows of a chunk
 constexpr int kBK = 64;        // depth of a k-tile
-constexpr int kMaxStages = 8;
+constexpr int kSmemBudget = 72 * 1024;  // shared memory of a block's stages
 constexpr int kXCopies = kBK * 2 / 16;  // 16-byte copies per x row
 constexpr int kXRow = kBK * 2 + 16;     // bytes of an x row of a stage, padded
 constexpr unsigned kFull = 0xffffffffu;
@@ -81,11 +82,9 @@ struct Tile {
   static constexpr int kXBytes = MT * 16 * kXRow;
   static constexpr int kStage = kXBytes + kBK * kWRow;
   static constexpr int kConv = KIND == kBF16 ? 0 : kBK * kBRow;  // the bf16 tile
-  // stages that `budget` bytes of shared memory hold, and their bytes
-  static int stages(int budget) {
-    return std::max(2, std::min(kMaxStages, (budget - kConv) / kStage));
-  }
-  static int smem(int stages) { return stages * kStage + kConv; }
+  static constexpr int kStages = (kSmemBudget - kConv) / kStage;  // 2 to 4
+  static constexpr int kSmem = kStages * kStage + kConv;
+  static_assert(kStages >= 2, "the budget must hold two stages");
 };
 
 struct Args {
@@ -96,21 +95,9 @@ struct Args {
   const int32_t* gids;     // [G], or null for 0 .. G - 1
   float* part;             // [splits, T, F] partial sums when splits > 1
   int32_t* tickets;        // [chunks, tiles], zero between launches, when splits > 1
-  int G, goff, T, D, Fw, F, kps, splits, stages;
+  int G, goff, T, D, Fw, F, kps, splits;
   float* out;  // [T, F]
 };
-
-__device__ __forceinline__ void cp_async_wait_n(int n) {  // n < kMaxStages - 1
-  switch (n) {
-    case 0: mit::cp_async_wait<0>(); break;
-    case 1: mit::cp_async_wait<1>(); break;
-    case 2: mit::cp_async_wait<2>(); break;
-    case 3: mit::cp_async_wait<3>(); break;
-    case 4: mit::cp_async_wait<4>(); break;
-    case 5: mit::cp_async_wait<5>(); break;
-    default: mit::cp_async_wait<6>(); break;
-  }
-}
 
 // The chunk `c` of the call: f = {group, first row, rows, weight row}, or
 // f[0] = -1 past the last chunk. One coalesced read of the group sizes and
@@ -239,7 +226,7 @@ __global__ void __launch_bounds__(kThreads, 2) gmm_kernel(const Args a) {
   const int kt1 = min(nk, kt0 + a.kps);
   const int col0 = blockIdx.x * kBN;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int stages = a.stages;
+  constexpr int stages = C::kStages;
   const unsigned char* xg = reinterpret_cast<const unsigned char*>(a.x + (size_t)r0 * a.D);
   const unsigned char* wg =
       static_cast<const unsigned char*>(a.w) + gw * a.D * a.Fw * C::kElt;
@@ -307,7 +294,7 @@ __global__ void __launch_bounds__(kThreads, 2) gmm_kernel(const Args a) {
   }
   int s = 0;  // the stage of k-tile kt
   for (int kt = kt0; kt < kt1; ++kt) {
-    cp_async_wait_n(stages - 2);
+    mit::cp_async_wait<stages - 2>();
     __syncthreads();  // stage s has landed; every warp is done with stage s - 1
     {
       const int nxt = kt + stages - 1;
@@ -427,27 +414,24 @@ __global__ void __launch_bounds__(kThreads, 2) gmm_kernel(const Args a) {
 }
 
 template <int KIND, int MT>
-int launch(const Args& a, dim3 grid, int budget, cudaStream_t st) {
+int launch(const Args& a, dim3 grid, cudaStream_t st) {
   using C = Tile<KIND, MT>;
-  Args b = a;
-  b.stages = C::stages(budget);
-  const int smem = C::smem(b.stages);
-  static int sized = 0;  // the kernel's dynamic shared memory limit so far
-  if (smem > sized) {
+  static bool sized = false;  // the kernel may take C::kSmem of dynamic shared memory
+  if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gmm_kernel<KIND, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        gmm_kernel<KIND, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
     if (err != cudaSuccess) return (int)err;
-    sized = smem;
+    sized = true;
   }
-  gmm_kernel<KIND, MT><<<grid, kThreads, smem, st>>>(b);
+  gmm_kernel<KIND, MT><<<grid, kThreads, C::kSmem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int KIND>
-int launch_kind(const Args& a, dim3 grid, int mt, int budget, cudaStream_t st) {
-  if (mt <= 1) return launch<KIND, 1>(a, grid, budget, st);
-  if (mt == 2) return launch<KIND, 2>(a, grid, budget, st);
-  return launch<KIND, 4>(a, grid, budget, st);
+int launch_kind(const Args& a, dim3 grid, int mt, cudaStream_t st) {
+  if (mt <= 1) return launch<KIND, 1>(a, grid, st);
+  if (mt == 2) return launch<KIND, 2>(a, grid, st);
+  return launch<KIND, 4>(a, grid, st);
 }
 
 }  // namespace
@@ -456,13 +440,12 @@ int launch_kind(const Args& a, dim3 grid, int mt, int budget, cudaStream_t st) {
 // none empty; with more than one, `part` holds splits * T * F floats and
 // `tickets` max_chunks * ceil(Fw / 128) zeroed counters. rows_per_chunk
 // must equal kBM; max_chunks bounds the chunk count (rows / kBM + G) and
-// sizes the grid. The x tile holds min(T, kBM) rows rounded up to m16 tiles;
-// `smem_budget` bytes of shared memory per block set the stages.
+// sizes the grid. The x tile holds min(T, kBM) rows rounded up to m16 tiles.
 extern "C" int mit_gmm(const void* x, const void* w, const void* scale,
                        const void* sizes, const void* gids, void* part, void* tickets,
                        int goff, int G, int max_chunks, int rows_per_chunk, int T,
-                       int D, int Fw, int F, int kind, int splits, int smem_budget,
-                       void* out, void* stream) {
+                       int D, int Fw, int F, int kind, int splits, void* out,
+                       void* stream) {
   const int nk = (D + kBK - 1) / kBK;
   const int kps = splits > 0 ? (nk + splits - 1) / splits : 0;
   const int elt = kind == kBF16 ? 2 : 1;
@@ -486,18 +469,17 @@ extern "C" int mit_gmm(const void* x, const void* w, const void* scale,
   a.F = F;
   a.kps = kps;
   a.splits = splits;
-  a.stages = 0;
   a.out = static_cast<float*>(out);
   const dim3 grid((Fw + kBN - 1) / kBN, splits, max_chunks);
   const int mt = (std::min(T, kBM) + 15) / 16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case kBF16:
-      return launch_kind<kBF16>(a, grid, mt, smem_budget, st);
+      return launch_kind<kBF16>(a, grid, mt, st);
     case kINT8:
-      return launch_kind<kINT8>(a, grid, mt, smem_budget, st);
+      return launch_kind<kINT8>(a, grid, mt, st);
     case kINT4:
-      return launch_kind<kINT4>(a, grid, mt, smem_budget, st);
+      return launch_kind<kINT4>(a, grid, mt, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -12,7 +12,7 @@ experts' weight bytes: a block owns 128 stored columns of a chunk of up to
 64-deep k-tiles arrive by ``cp.async`` several stages ahead, int8 and int4
 are converted to bf16 in shared memory, and the products run on the tensor
 cores (``mma.sync``). bf16 calls are bound by their loads; int8 and int4
-calls by that conversion and the products (``chip_smoke.py --gmm-cuts``).
+calls by that conversion and the products (``PERF.md``).
 Where the column tiles times the chunks leave the card short of blocks,
 ``_gmm_plan`` cuts the reduction into k-splits that the kernel merges in
 split order in the same launch. For CUDA tensors the wrapper
@@ -42,7 +42,7 @@ LAUNCHES = {"gmm": 0}
 _KIND = {torch.bfloat16: 0, torch.int8: 1}  # WKind in csrc/gmm.cu
 _INT4 = 2
 _c = ctypes.c_void_p
-_GMM_ARGS = [_c] * 7 + [ctypes.c_int] * 11 + [_c, _c]
+_GMM_ARGS = [_c] * 7 + [ctypes.c_int] * 10 + [_c, _c]
 # kBM, kBN and kBK in csrc/gmm.cu: a block owns one chunk of up to 64 rows of
 # a group and 128 stored columns, and walks the reduction in 64-deep k-tiles
 _ROWS_PER_CHUNK = 64
@@ -50,7 +50,6 @@ _TILE_COLS = 128
 _K_TILE = 64
 _GMM_BLOCKS = 264  # blocks a call should bring: two per SM of the H100's 132
 _GMM_MIN_KTILES = 4  # k-tiles of a split at the least
-_GMM_SMEM = 72 * 1024  # shared memory of a block, which sets its stages: up to 3 per SM
 
 
 class GmmPlan(NamedTuple):
@@ -133,7 +132,7 @@ def _gmm_cuda(x, w, group_sizes, scale, group_offset, group_ids, *, packed):
     err = fn(
         _build.ptr(xb), _build.ptr(w), _build.ptr(scale), _build.ptr(sizes), _build.ptr(gids),
         _build.ptr(part), _build.ptr(tickets), group_offset, G, plan.chunks,
-        _ROWS_PER_CHUNK, T, D, Fw, F, kind, plan.splits, _GMM_SMEM, _build.ptr(out),
+        _ROWS_PER_CHUNK, T, D, Fw, F, kind, plan.splits, _build.ptr(out),
         _build.stream_ptr(dev),
     )
     _build.check(err, "gmm")

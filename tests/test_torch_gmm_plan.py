@@ -4,7 +4,9 @@ of the kernel's algorithm (64-row chunks of one group, m16 row tiles,
 128-column tiles, 64-deep k-tiles with zero-filled tails, per-split f32
 partials summed in split order, the scale after the sum) held against
 ``gmm_plain``, which the parity tests hold against the JAX kernel.
-Tolerance 1e-5 at f32: the two differ in summation order only."""
+Tolerance 1e-5 at f32: the two differ in summation order only. The
+emulation rounds its sums to nearest; the tensor cores round each step's
+sum toward zero, which ``chip_smoke.py``'s ``[rounding]`` lines measure."""
 
 import ctypes
 import inspect
@@ -89,7 +91,7 @@ def test_the_planner_takes_integers_only():
 # ---- the wrapper's launch, with the kernel replaced ------------------------------
 
 _NAMES = ["x", "w", "scale", "sizes", "gids", "part", "tickets", "goff", "G", "max_chunks",
-          "rows_per_chunk", "T", "D", "Fw", "F", "kind", "splits", "smem", "out", "stream"]
+          "rows_per_chunk", "T", "D", "Fw", "F", "kind", "splits", "out", "stream"]
 
 
 @pytest.fixture
@@ -246,11 +248,26 @@ def test_emulation_at_a_planned_split(rng):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL, atol=TOL)
 
 
-def test_every_cut_of_the_kernel_still_applies():
-    """``chip_smoke.py --gmm-cuts`` rebuilds csrc/gmm.cu with parts cut out
-    by text substitution; each cut must still find the lines it replaces."""
+
+@pytest.mark.parametrize("toward_zero", [False, True])
+def test_the_rounding_witness_rounds_as_it_says(rng, toward_zero):
+    """``chip_smoke.gmm_rounding`` emulates the kernel's f32 accumulator with
+    ``_to_f32``: to nearest it is the f32 cast; toward zero it never grows a
+    magnitude and is the f32 value next to the cast's, toward zero, or the
+    cast itself."""
     import chip_smoke
 
-    srcs = chip_smoke.gmm_cut_sources()
-    assert set(srcs) == set(chip_smoke.GMM_CUTS)
-    assert all(src != srcs["whole"] for name, src in srcs.items() if name != "whole")
+    t = torch.tensor(rng.standard_normal(4096) * 10.0 ** rng.integers(-3, 4, 4096),
+                     dtype=torch.float64)
+    t[:3] = torch.tensor([0.0, 1.0, -2.5])  # exact in f32
+    r = chip_smoke._to_f32(t, toward_zero)
+    near = t.float()
+    assert r.dtype == torch.float32
+    if not toward_zero:
+        assert torch.equal(r, near)
+        return
+    assert bool((r.double().abs() <= t.abs()).all())
+    nxt = torch.nextafter(near, torch.zeros_like(near))
+    assert bool(((r == near) | (r == nxt)).all())
+    assert torch.equal(r[:3], near[:3])
+    assert bool((r != near).any())  # some casts rounded up in magnitude

@@ -51,7 +51,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
 ``python3 chip_smoke.py --gmm`` builds the kernels, runs phase 2's K3 checks
 and times alone (the same inputs as in the whole run), times whole decode
-layers under other split plans, and stops the same way.
+layers under other split plans, and stops the same way;
+``python3 chip_smoke.py --mla`` does the same for K5: phase 2's K5 checks
+and times alone (V2-Lite's decode step, long rows, H=128; the same inputs
+as in the whole run), then K5 under other split plans.
 
 The line before the last is the per-kernel JSON record (launches: the sum
 of the counts of phases 3, 5 and 7); the last line is
@@ -111,8 +114,7 @@ DSV2_LITE = dict(
 MLA_KERNELS = ("mla_flash_decode", "gmm")
 # device functions of csrc/flash_attention.cu, as a profile names them
 ATTENTION_KERNELS = ("flash_decode_kernel", "paged_decode_kernel", "attend_rows_kernel",
-                     "flash_attend_kernel", "flash_attend_f32_kernel", "mla_decode_kernel",
-                     "mla_merge_kernel")
+                     "flash_attend_kernel", "flash_attend_f32_kernel", "mla_decode_kernel")
 
 
 def say(*a):
@@ -817,71 +819,126 @@ def check_attend_rows(g, dev):
     return max(errs)
 
 
-def check_mla_decode(g, dev):
-    """K5 at DeepSeek-V2-Lite's batcher decode step: B=4, H=16, R=512, P=64,
-    bf16 caches of 512 columns, rows of 113, 200, 37 and 512 live keys with a
-    hole mask (K4's case); once more with f32 caches and the folded scale
-    1.0; a row with no valid key gives 0."""
-    import torch.nn.functional as F_
-
-    from moe_infinity_tpu_torch.ops import flash_attention as fa
-
-    B, H, R, P, S = SLOTS, DSV2_LITE["num_heads"], 512, 64, MAX_COLS
-    scale = (DSV2_LITE["qk_nope_head_dim"] + P) ** -0.5
+def _mla_inputs(g, dev, *, B, H, S, lengths):
+    """f32 queries and caches of one K5 call, the caches also in bf16, the
+    rows' live lengths and a mask with 10% holes."""
+    R, P = 512, 64
     q_lat = torch.randn(B, H, R, generator=g, device=dev)
     q_pe = torch.randn(B, H, P, generator=g, device=dev)
     c32 = torch.randn(B, S, R, generator=g, device=dev)
     kpe32 = torch.randn(B, S, P, generator=g, device=dev)
-    c, kpe = c32.to(torch.bfloat16), kpe32.to(torch.bfloat16)
-    lengths = torch.tensor([113, 200, 37, 512], dtype=torch.int32, device=dev)
-    pos = lengths - 1
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
     holes = torch.rand(B, S, generator=g, device=dev) > 0.1
+    return dict(q_lat=q_lat, q_pe=q_pe, c32=c32, kpe32=kpe32, c=c32.to(torch.bfloat16),
+                kpe=kpe32.to(torch.bfloat16), lengths=lengths, holes=holes)
+
+
+def _mla_check(what, a, *, scale, dtype=torch.bfloat16, mask=None, q_mult=1.0,
+               library=False):
+    """One K5 check: the kernel against its plain version on the same inputs
+    (``q_mult`` folds the scale into q), its time and its bound, and with
+    ``library`` the SDPA yardstick. Returns a dict of the readings."""
+    import torch.nn.functional as F_
+
+    from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+    c, kpe = (a["c"], a["kpe"]) if dtype == torch.bfloat16 else (a["c32"], a["kpe32"])
+    q_lat, q_pe = a["q_lat"] * q_mult, a["q_pe"] * q_mult
+    mask = a["holes"] if mask is None else mask
+    pos, lengths = a["lengths"] - 1, a["lengths"]
+    (B, H, R), S, P = q_lat.shape, c.shape[1], q_pe.shape[-1]
     run = lambda: fa.mla_flash_decode(  # noqa: E731
-        q_lat, q_pe, c, kpe, pos, S, scale=scale, pad_mask=holes)
+        q_lat, q_pe, c, kpe, pos, S, scale=scale, pad_mask=mask)
     plain = lambda: fa.mla_flash_decode_plain(  # noqa: E731
-        q_lat, q_pe, c, kpe, pos, S, scale=scale, pad_mask=holes)
-    what = "mla_flash_decode B=4 H=16 R=512 P=64 S=512 lengths=(113,200,37,512) holes"
-    err = compare(f"{what} bf16 caches", run(), plain())
-    err = max(err, compare(
-        f"{what} f32 caches scale=1.0",
-        fa.mla_flash_decode(q_lat * scale, q_pe * scale, c32, kpe32, pos, S, scale=1.0,
-                            pad_mask=holes),
-        fa.mla_flash_decode_plain(q_lat * scale, q_pe * scale, c32, kpe32, pos, S, scale=1.0,
-                                  pad_mask=holes)))
-    empty = holes.clone()
-    empty[2] = False
-    out = fa.mla_flash_decode(q_lat, q_pe, c, kpe, pos, S, scale=scale, pad_mask=empty)
-    err = max(err, compare(
-        f"{what}, row 2 without a valid key", out,
-        fa.mla_flash_decode_plain(q_lat, q_pe, c, kpe, pos, S, scale=scale, pad_mask=empty)))
-    if not bool((out[2] == 0).all()):
-        raise AssertionError("mla_flash_decode: a row with no valid key must give 0")
-    live = torch.arange(S, device=dev)[None, :] < lengths[:, None]
-    valid = int((live & holes).sum())
+        q_lat, q_pe, c, kpe, pos, S, scale=scale, pad_mask=mask)
+    out = run()
+    err = compare(f"{what} {str(dtype).split('.')[-1]} caches", out, plain())
+    live = torch.arange(S, device=c.device)[None, :] < lengths[:, None]
+    valid = int((live & mask).sum())
     nbytes = (valid * (R + P) * c.element_size()  # live latent and rope-key rows
               + int(lengths.sum()) + B * 4  # mask bytes of the live range, positions
               + B * H * (R + P) * 4 + B * H * R * 4)  # f32 q in, f32 out
     b_ms, b_by = bound_ms(nbytes, 2 * H * valid * (2 * R + P))
-    # library yardstick: one SDPA call on q = [q_lat | q_pe], the shared key
-    # [c | k_pe] expanded over the heads, value c, the same mask as a float bias
-    qs = torch.cat([q_lat, q_pe], -1).to(torch.bfloat16)[:, :, None, :]
-    ks = torch.cat([c, kpe], -1)[:, None].expand(B, H, S, R + P)
-    vs = c[:, None].expand(B, H, S, R)
-    bias = torch.where(live & holes, 0.0, float("-inf")).to(torch.bfloat16)[:, None, None, :]
-    lib = lambda: F_.scaled_dot_product_attention(  # noqa: E731
-        qs, ks, vs, attn_mask=bias, scale=scale)
-    torch.cuda.synchronize()
-    say(f"[check] SDPA yardstick vs mla_flash_decode (q and p are bf16 there): max_abs_diff="
-        f"{(lib()[:, :, 0].float() - run()).abs().max().item():.3e} (reported, not held)")
+    r = dict(out=out, max_abs_err=err, ms=cuda_ms(run), bound_ms=b_ms, bound_by=b_by,
+             valid=valid)
+    line = (f"[time] {what} {str(dtype).split('.')[-1]} caches ({valid} valid keys, "
+            f"{nbytes / 1e6:.2f} MB): ms={r['ms']:.5f} bound_ms={b_ms:.5f} ({b_by})")
+    if dtype == torch.bfloat16:
+        line += f" plan(kc, splits)={fa._mla_splits(B, H, min(S, int(lengths.max())))}"
+    if library:
+        # one SDPA call on q = [q_lat | q_pe], the shared key [c | k_pe]
+        # expanded over the heads, value c, the same mask as a float bias
+        qs = torch.cat([q_lat, q_pe], -1).to(torch.bfloat16)[:, :, None, :]
+        ks = torch.cat([c, kpe], -1).to(torch.bfloat16)[:, None].expand(B, H, S, R + P)
+        vs = c.to(torch.bfloat16)[:, None].expand(B, H, S, R)
+        bias = torch.where(live & mask, 0.0, float("-inf")).to(torch.bfloat16)[:, None, None, :]
+        lib = lambda: F_.scaled_dot_product_attention(  # noqa: E731
+            qs, ks, vs, attn_mask=bias, scale=scale)
+        torch.cuda.synchronize()
+        gap = (lib()[:, :, 0].float() - out).abs().max().item()
+        r["library_ms"] = cuda_ms(lib)
+        r["plain_ms"] = cuda_ms(plain, iters=5, warmup=1)
+        line += (f" plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (SDPA over "
+                 f"the key expanded to {H} heads; max_abs_diff={gap:.3e}, q and p bf16 there, "
+                 f"reported, not held)")
+    say(line)
+    return r
+
+
+def check_mla_decode(g, dev):
+    """K5 at DeepSeek-V2-Lite's batcher decode step: B=4, H=16, R=512, P=64,
+    bf16 caches of 512 columns, rows of 113, 200, 37 and 512 live keys with a
+    hole mask (K4's case); once more with f32 caches and the folded scale
+    1.0; a row with no valid key gives 0. Returns K5's record."""
+    B, H, S = SLOTS, DSV2_LITE["num_heads"], MAX_COLS
+    scale = (DSV2_LITE["qk_nope_head_dim"] + 64) ** -0.5
+    a = _mla_inputs(g, dev, B=B, H=H, S=S, lengths=[113, 200, 37, 512])
+    what = "mla_flash_decode B=4 H=16 R=512 P=64 S=512 lengths=(113,200,37,512) holes"
+    r = _mla_check(what, a, scale=scale, library=True)
+    err = max(r["max_abs_err"], _mla_check(f"{what} scale=1.0", a, scale=1.0, q_mult=scale,
+                                           dtype=torch.float32)["max_abs_err"])
+    empty = a["holes"].clone()
+    empty[2] = False
+    e = _mla_check(f"{what}, row 2 without a valid key", a, scale=scale, mask=empty)
+    if not bool((e["out"][2] == 0).all()):
+        raise AssertionError("mla_flash_decode: a row with no valid key must give 0")
     return dict(
         name="mla_flash_decode", route="cuda",
         source="moe_infinity_tpu_torch/csrc/flash_attention.cu",
         replaces="moe_infinity_tpu/ops/flash_attention.py:507",
-        max_abs_err=err, ms=cuda_ms(run), plain_ms=cuda_ms(plain),
-        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib),
-        shape=f"B={B} H={H} R={R} P={P} S={S}, {valid} valid keys, bf16 caches "
+        max_abs_err=max(err, e["max_abs_err"]), ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+        shape=f"B={B} H={H} R=512 P=64 S={S}, {r['valid']} valid keys, bf16 caches "
               f"(library: SDPA over the key expanded to {H} heads)",
     )
+
+
+def check_mla_long(g, dev):
+    """K5 at long rows, where the byte bound means something: B=4, S=8192,
+    rows of 8192, 6000, 3000 and 1000 live keys with 10% holes, H=16."""
+    a = _mla_inputs(g, dev, B=4, H=16, S=8192, lengths=[8192, 6000, 3000, 1000])
+    return _mla_check("mla_flash_decode long rows B=4 H=16 S=8192 lengths=(8192,6000,3000,1000) "
+                      "holes", a, scale=192 ** -0.5, library=True)
+
+
+def check_mla_heads(g, dev):
+    """K5 at the H=128 that DeepSeek-V2 and V3 publish, at the V2-Lite rows."""
+    a = _mla_inputs(g, dev, B=SLOTS, H=128, S=MAX_COLS, lengths=[113, 200, 37, 512])
+    return _mla_check("mla_flash_decode H=128 B=4 S=512 lengths=(113,200,37,512) holes", a,
+                      scale=192 ** -0.5, library=True)
+
+
+def phase_mla(dev):
+    """Every K5 check of phase 2 (``--mla`` runs these alone); returns K5's
+    record with the largest error of them all. The cases draw from their own
+    generator, in this order, so that their inputs stay the same whatever
+    other phases draw: a new case goes last."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    rec = check_mla_decode(g, dev)
+    for r in (check_mla_long(g, dev), check_mla_heads(g, dev)):
+        rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
+    return rec
 
 
 def check_gmm_deepseek(g, dev):
@@ -942,7 +999,7 @@ def phase_kernels(dev):
     g.manual_seed(0)
     k2_err = check_flash_attend(g, dev)
     recs = [check_flash_decode(g, dev), check_flash_attend_chunk(g, dev), phase_gmm(dev),
-            check_paged_decode(g, dev), check_mla_decode(g, dev)]
+            check_paged_decode(g, dev), phase_mla(dev)]
     recs[1]["max_abs_err"] = max(recs[1]["max_abs_err"], k2_err, check_attend_rows(g, dev))
     long_err = check_decode_long(g, dev)
     edge_err = check_decode_edges(g, dev)  # through K4 and K1 alike
@@ -1726,6 +1783,36 @@ def sweep_gmm_plans(dev):
         gm._GMM_BLOCKS = kept
 
 
+def sweep_mla_plans(dev):
+    """The tail of ``--mla``: K5's time at its three timed shapes under other
+    block targets (``_MLA_BLOCKS``) and least tiles a split
+    (``_MLA_MIN_TILES``) of the split planner, the first again last, to show
+    the spread."""
+    from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    cases = {
+        "v2lite": _mla_inputs(g, dev, B=SLOTS, H=16, S=MAX_COLS, lengths=[113, 200, 37, 512]),
+        "long": _mla_inputs(g, dev, B=4, H=16, S=8192, lengths=[8192, 6000, 3000, 1000]),
+        "h128": _mla_inputs(g, dev, B=SLOTS, H=128, S=MAX_COLS, lengths=[113, 200, 37, 512]),
+    }
+    runs = {k: (lambda a=a: fa.mla_flash_decode(a["q_lat"], a["q_pe"], a["c"], a["kpe"],
+                                                a["lengths"] - 1, a["c"].shape[1],
+                                                scale=192 ** -0.5, pad_mask=a["holes"]))
+            for k, a in cases.items()}
+    kept = fa._MLA_BLOCKS, fa._MLA_MIN_TILES
+    try:
+        for blocks, tiles in ((132, 2), (264, 2), (132, 1), (132, 4), (264, 4), (132, 2)):
+            fa._MLA_BLOCKS, fa._MLA_MIN_TILES = blocks, tiles
+            plans = {k: fa._mla_splits(a["q_lat"].shape[0], a["q_lat"].shape[1],
+                                       int(a["lengths"].max())) for k, a in cases.items()}
+            say(f"[plan] _MLA_BLOCKS={blocks} _MLA_MIN_TILES={tiles}: "
+                + " ".join(f"{k}={cuda_ms(fn):.5f} {plans[k]}" for k, fn in runs.items()))
+    finally:
+        fa._MLA_BLOCKS, fa._MLA_MIN_TILES = kept
+
+
 def main() -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -1739,6 +1826,15 @@ def main() -> int:
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
             f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e}")
         sweep_gmm_plans(dev)
+        say(f"[card] {smi}")
+        return 0
+    if "--mla" in sys.argv[1:]:
+        r = phase_mla(dev)
+        say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.5f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+            f"({r['bound_by']}) library_ms={r['library_ms']:.4f} "
+            f"max_abs_err={r['max_abs_err']:.3e}")
+        sweep_mla_plans(dev)
         say(f"[card] {smi}")
         return 0
     recs = phase_kernels(dev)

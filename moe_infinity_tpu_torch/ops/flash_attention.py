@@ -32,8 +32,14 @@ never from ``lengths``, which would be a host read per layer), a block
 starts a whole tile's loads at once, and the last split of a row to finish
 merges them all; a plan of one split writes the result itself. K2 with more
 rows runs both products on the tensor cores for bf16 (``mma.sync``) and in
-full f32 on the CUDA cores for f32. One call counts one launch whatever it
-runs.
+full f32 on the CUDA cores for f32. K5 is one launch of the same shape:
+whole 32-key tiles split over blocks (``_mla_splits``) that form clusters
+of up to 8 (``_mla_cluster``), both products on the tensor cores for bf16
+caches with q and p split into bf16 halves to keep f32 precision; a
+cluster merges its splits in shared memory in split order, and a row of
+several clusters merges theirs in order through scratch and tickets from
+``_build.workspace``/``_build.tickets``. One call counts one launch
+whatever it runs.
 
 The wrappers launch the kernel for CUDA tensors (raising on a shape it does
 not take: head_dim 128 and rep <= 8 for K1, K2 and K4; R 512 with P 64 for
@@ -71,10 +77,12 @@ _DEC_CONTIG, _DEC_PAGED, _DEC_ATTEND = 0, 1, 2  # DecKind in csrc/flash_attentio
 _DEC_TILE = 64  # kDecTile: keys per tile of the decode body
 _DEC_ROWS = 8  # query rows of one kv head the decode body takes
 _DEC_BLOCKS = 792  # blocks aimed at: six per SM of an H100, three resident at a time
-_MLA_ARGS = [_c] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, _c]
+_MLA_ARGS = [_c] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, _c]
 _MLA_R, _MLA_P = 512, 64  # kMlaR, kMlaP in csrc/flash_attention.cu
-_MLA_TILE, _MLA_HEADS = 16, 16  # kMlaKeys, kMlaHeads
-_MLA_BLOCKS = 264  # blocks aimed at: two per SM of an H100
+_MLA_TILE, _MLA_HEADS = 32, 16  # kMlaTile, kMlaHeads
+_MLA_BLOCKS = 132  # blocks aimed at: one per SM of an H100 (its shared memory holds one)
+_MLA_MIN_TILES = 2  # 32-key tiles a split reads at least: one 64-key tile of the kernel
+_MLA_CLUSTER = 8  # kMlaMaxCluster: blocks of a cluster that merge in shared memory
 
 
 def _check_qkv(q, k, v, name):
@@ -447,11 +455,20 @@ def _mla_check(q_lat, q_pe, c, kpe, q_positions):
 
 def _mla_splits(B: int, H: int, live_max: int):
     """(keys per split, splits) for rows of at most ``live_max`` live keys:
-    whole tiles of keys, as many splits as bring all rows and head groups
+    whole 32-key tiles, at least ``_MLA_MIN_TILES`` a split (fewer only where
+    the row has fewer), as many splits as bring all rows and 16-head groups
     to about ``_MLA_BLOCKS`` blocks."""
+    tiles = -(-live_max // _MLA_TILE)
     want = max(1, _MLA_BLOCKS // (B * -(-H // _MLA_HEADS)))
-    kc = max(1, -(-live_max // (want * _MLA_TILE))) * _MLA_TILE
-    return kc, max(1, -(-live_max // kc))
+    per = max(1, min(tiles, max(_MLA_MIN_TILES, -(-tiles // want))))
+    return per * _MLA_TILE, max(1, -(-tiles // per))
+
+
+def _mla_cluster(splits: int) -> int:
+    """Blocks of a cluster for a plan of ``splits``: the power of two that
+    holds them all, at most ``_MLA_CLUSTER``; the splits are padded to a
+    multiple of it (a padded split owns no key)."""
+    return min(_MLA_CLUSTER, 1 << (splits - 1).bit_length())
 
 
 def _mla_cuda(q_lat, q_pe, c, kpe, q_positions, kv_len, *, scale, pad_mask):
@@ -472,14 +489,20 @@ def _mla_cuda(q_lat, q_pe, c, kpe, q_positions, kv_len, *, scale, pad_mask):
     if B == 0 or H == 0:
         return out
     kc, NS = _mla_splits(B, H, max(0, min(kv_len, S)))
-    part_acc = torch.empty(B, NS, H, R, dtype=torch.float32, device=dev)
-    part_ml = torch.empty(B, NS, H, 2, dtype=torch.float32, device=dev)
+    CL = _mla_cluster(NS)
+    NS = -(-NS // CL) * CL
+    part_acc = part_ml = tickets = None
+    if NS > CL:  # each cluster's combined state, for the merge across clusters
+        n_acc, n_ml = B * (NS // CL) * H * R, B * NS * H * 2
+        scratch = _build.workspace(dev, n_acc + n_ml)
+        part_acc, part_ml = scratch[:n_acc], scratch[n_acc:n_acc + n_ml]
+        tickets = _build.tickets(dev, B * -(-H // _MLA_HEADS) * CL)
     fn = _build.function("flash_attention", "mit_mla_flash_decode", _MLA_ARGS)
     err = fn(
         _build.ptr(ql), _build.ptr(qp), _build.ptr(c), _build.ptr(kpe),
         _build.ptr(qpos), _build.ptr(mask), _build.ptr(part_acc),
-        _build.ptr(part_ml), _build.ptr(out), B, H, S, R, P, kv_len, kc, NS,
-        scale, int(c.dtype == torch.bfloat16), _build.stream_ptr(dev),
+        _build.ptr(part_ml), _build.ptr(tickets), _build.ptr(out), B, H, S, R, P,
+        kv_len, kc, NS, CL, scale, int(c.dtype == torch.bfloat16), _build.stream_ptr(dev),
     )
     _build.check(err, "mla_flash_decode")
     LAUNCHES["mla_flash_decode"] += 1

@@ -309,6 +309,72 @@ def test_mla_flash_decode_kernel(dev, dtype, H, S, kv_len, holes, scale):
         assert bool((got[2] == 0).all())
 
 
+def _mla_case(dev, H, S, lengths, dtype=torch.bfloat16):
+    g = _gen(dev)
+    B, R, P = len(lengths), 512, 64
+    q_lat = torch.randn(B, H, R, generator=g, device=dev)
+    q_pe = torch.randn(B, H, P, generator=g, device=dev)
+    c = torch.randn(B, S, R, generator=g, device=dev).to(dtype)
+    kpe = torch.randn(B, S, P, generator=g, device=dev).to(dtype)
+    pos = torch.tensor(lengths, dtype=torch.int32, device=dev) - 1
+    mask = torch.rand(B, S, generator=g, device=dev) > 0.1
+    return q_lat, q_pe, c, kpe, pos, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [16, 128])
+def test_mla_flash_decode_one_split_and_several(dev, dtype, H, monkeypatch):
+    """The V2-Lite rows under the plan's splits, then under one split a row
+    (the kernel writes the result itself): both hold to the plain version,
+    and to each other within the f32 sums' reordering."""
+    args = _mla_case(dev, H, 512, [113, 200, 37, 512], dtype)
+    kw = dict(scale=192 ** -0.5, pad_mask=args[5])
+    assert fa._mla_splits(4, H, 512)[1] > 1
+    several = fa.mla_flash_decode(*args[:5], 512, **kw)
+    monkeypatch.setattr(fa, "_MLA_MIN_TILES", 16)
+    assert fa._mla_splits(4, H, 512)[1] == 1
+    one = fa.mla_flash_decode(*args[:5], 512, **kw)
+    want = fa.mla_flash_decode_plain(*args[:5], 512, **kw)
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    _close(several, want, tol)
+    _close(one, want, tol)
+    torch.testing.assert_close(several, one, rtol=0, atol=1e-5)
+
+
+def test_mla_flash_decode_repeats_to_the_bit(dev):
+    """The merge runs in split order, so a call repeats to the bit, and the
+    tickets are back at 0 after every call (a long row: many splits)."""
+    args = _mla_case(dev, 16, 4096, [4096, 3000, 100, 1])
+    kw = dict(scale=192 ** -0.5, pad_mask=args[5])
+    assert fa._mla_splits(4, 16, 4096)[1] > 8
+    first = fa.mla_flash_decode(*args[:5], 4096, **kw)
+    again = [fa.mla_flash_decode(*args[:5], 4096, **kw) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, a) for a in again)
+    _close(first, fa.mla_flash_decode_plain(*args[:5], 4096, **kw), 2e-2)
+
+
+def test_mla_flash_decode_on_a_second_stream_without_a_host_sync(dev):
+    """A split call queued on another stream takes that stream's tickets and
+    workspace and reads nothing on the host."""
+    args = _mla_case(dev, 128, 512, [113, 200, 37, 512])
+    kw = dict(scale=192 ** -0.5, pad_mask=args[5])
+    want = fa.mla_flash_decode_plain(*args[:5], 512, **kw)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = fa.mla_flash_decode(*args[:5], 512, **kw)
+        with torch.cuda.stream(side):
+            got = fa.mla_flash_decode(*args[:5], 512, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    side.synchronize()
+    _close(got, want, 2e-2)
+    assert torch.equal(first, got)
+
+
 def test_mla_flash_decode_kernel_rejects_what_it_does_not_take(dev):
     z = lambda *s: torch.zeros(*s, device=dev)  # noqa: E731
     pos = torch.zeros(1, dtype=torch.int32, device=dev)

@@ -165,11 +165,11 @@ def test_kernel_route_raises_on_a_width_it_does_not_take(R, P):
 
 
 @pytest.mark.parametrize("B,H,live,kc,ns", [
-    (4, 16, 512, 16, 32),  # the batcher's decode step at V2-Lite
-    (1, 16, 40, 16, 3),  # one request, short cache
-    (4, 128, 512, 64, 8),  # V2/V3 heads: 8 head groups a row
-    (4, 16, 8192, 128, 64),  # long rows: larger splits
-    (2, 16, 0, 16, 1),
+    (4, 16, 512, 64, 8),  # the batcher's decode step at V2-Lite: one cluster of 8
+    (1, 16, 40, 64, 1),  # one request, short cache: one split
+    (4, 128, 512, 128, 4),  # V2/V3 heads: 8 head groups, so longer splits
+    (4, 16, 8192, 256, 32),  # long rows: four clusters of 8 a row
+    (2, 16, 0, 32, 1),
 ])
 def test_split_choice(B, H, live, kc, ns):
     got = fa._mla_splits(B, H, live)

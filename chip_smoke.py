@@ -45,7 +45,24 @@ Phases, each printing its own lines; any failure exits non-zero:
 8. its whole-path check: at full width and 1 dense + 2 MoE layers, the
    same two steps over paged caches with holes, logits through the kernels
    against the plain versions (f32 on three seeds, bf16 on one), and once
-   more with ``fold_mla_params`` applied.
+   more with ``fold_mla_params`` applied;
+9. the offload main path: NLLB-MoE-54B at full width and depth served by
+   the per-layer ``Seq2SeqOffloadEngine``: bf16 dense weights from a seed
+   (``init_random(with_experts=False)``), ``bench.py``'s int4 store
+   (``SyntheticStore``, records distinct per expert, 1,536 of 16.86 MB), a
+   page-locked tier of 14 GiB made on the card (all decoder records and
+   part of the first encoder layer), a slot arena sized as ``bench.py``
+   sizes it at ``--hbm-gb 13`` (388 slots, a quarter of the experts), the
+   EAMC tracer and predictor, prefetch (lookahead 3, budget 8), the
+   ``priority`` policy and 4 fetch workers; phase 3's 4 requests x 16
+   greedy tokens after one warm-up generate, then a profile of one decode
+   step on the device (copies against kernels) and on the host (cProfile);
+   K1, K2 and K3 must launch, and evictions and both fetch paths must occur;
+10. its whole-path check: f32 at full width and 4+4 blocks (every 2nd
+   sparse), an arena of 128 slots, against the resident ``Seq2SeqGenerator``
+   over the same store's records (``ResidentProvider.from_store``): greedy
+   tokens equal and first-step logits within the tolerance, on two seeds,
+   the second with the decoder records in a tier copied from the store.
 
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
@@ -55,9 +72,13 @@ layers under other split plans, and stops the same way;
 ``python3 chip_smoke.py --mla`` does the same for K5: phase 2's K5 checks
 and times alone (V2-Lite's decode step, long rows, H=128; the same inputs
 as in the whole run), then K5 under other split plans.
+``python3 chip_smoke.py --offload`` runs the build and phases 9 and 10
+alone; ``--resident`` the build and phases 3, 5 and 7 (to hold those paths
+against another tree's in one call). Each prints no result line.
+Every phase prints its seconds (``[phase]``).
 
 The line before the last is the per-kernel JSON record (launches: the sum
-of the counts of phases 3, 5 and 7); the last line is
+of the counts of phases 3, 5, 7 and 9); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -677,9 +698,12 @@ def check_paged_decode(g, dev):
     vg = pv[idx].reshape(B, S, Hkv, Dh)
     q1, qpos = q[:, None], (lengths - 1)[:, None]
     contig = lambda: fa.flash_decode(q1, kg, vg, qpos, S, pad_mask=holes)  # noqa: E731
+    contig_plain = lambda: fa.flash_decode_plain(  # noqa: E731
+        q, kg, vg, lengths - 1, S, scale=Dh ** -0.5, pad_mask=holes)
     compare("flash_decode on the gathered rows vs paged_flash_decode", contig()[:, 0], run())
     say(f"[time] K4 vs K1 on the same rows ({valid} valid keys): paged ms="
-        f"{cuda_ms(run):.4f} contiguous ms={cuda_ms(contig):.4f}")
+        f"{cuda_ms(run):.4f} contiguous ms={cuda_ms(contig):.4f} contiguous plain_ms="
+        f"{cuda_ms(contig_plain, iters=5, warmup=1):.4f}")
     return dict(
         name="paged_flash_decode", route="cuda",
         source="moe_infinity_tpu_torch/csrc/flash_attention.cu",
@@ -735,6 +759,8 @@ def check_decode_long(g, dev):
     vg = pv[idx].reshape(B, S, Hkv, Dh)
     q1, qpos = q[:, None], (lengths - 1)[:, None]
     contig = lambda: fa.flash_decode(q1, kg, vg, qpos, S, pad_mask=holes)  # noqa: E731
+    contig_plain = lambda: fa.flash_decode_plain(  # noqa: E731
+        q, kg, vg, lengths - 1, S, scale=Dh ** -0.5, pad_mask=holes)
     compare("flash_decode on the gathered long rows vs paged_flash_decode", contig()[:, 0], run())
     rep = H // Hkv
     kc = kg.repeat_interleave(rep, dim=2).transpose(1, 2)
@@ -745,6 +771,7 @@ def check_decode_long(g, dev):
     say(f"[time] long rows ({valid} valid keys, {2 * valid * Hkv * Dh * 2 / 1e6:.1f} MB of K and V): "
         f"paged_flash_decode ms={cuda_ms(run):.4f} flash_decode on the gathered rows ms="
         f"{cuda_ms(contig):.4f} plain_ms={cuda_ms(plain, iters=5, warmup=1):.4f} "
+        f"flash_decode plain_ms={cuda_ms(contig_plain, iters=5, warmup=1):.4f} "
         f"bound_ms={b_ms:.5f} ({b_by}) library_ms={cuda_ms(lib):.4f} (SDPA on a pre-gathered "
         f"view, KV heads expanded beforehand)")
     return err
@@ -867,11 +894,12 @@ def _mla_check(what, a, *, scale, dtype=torch.bfloat16, mask=None, q_mult=1.0,
         line += f" plan(kc, splits)={fa._mla_splits(B, H, min(S, int(lengths.max())))}"
     if library:
         # one SDPA call on q = [q_lat | q_pe], the shared key [c | k_pe]
-        # expanded over the heads, value c, the same mask as a float bias
-        qs = torch.cat([q_lat, q_pe], -1).to(torch.bfloat16)[:, :, None, :]
-        ks = torch.cat([c, kpe], -1).to(torch.bfloat16)[:, None].expand(B, H, S, R + P)
-        vs = c.to(torch.bfloat16)[:, None].expand(B, H, S, R)
-        bias = torch.where(live & mask, 0.0, float("-inf")).to(torch.bfloat16)[:, None, None, :]
+        # expanded over the heads, value c, the same mask as a float bias,
+        # all in the caches' type
+        qs = torch.cat([q_lat, q_pe], -1).to(dtype)[:, :, None, :]
+        ks = torch.cat([c, kpe], -1).to(dtype)[:, None].expand(B, H, S, R + P)
+        vs = c.to(dtype)[:, None].expand(B, H, S, R)
+        bias = torch.where(live & mask, 0.0, float("-inf")).to(dtype)[:, None, None, :]
         lib = lambda: F_.scaled_dot_product_attention(  # noqa: E731
             qs, ks, vs, attn_mask=bias, scale=scale)
         torch.cuda.synchronize()
@@ -879,8 +907,8 @@ def _mla_check(what, a, *, scale, dtype=torch.bfloat16, mask=None, q_mult=1.0,
         r["library_ms"] = cuda_ms(lib)
         r["plain_ms"] = cuda_ms(plain, iters=5, warmup=1)
         line += (f" plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (SDPA over "
-                 f"the key expanded to {H} heads; max_abs_diff={gap:.3e}, q and p bf16 there, "
-                 f"reported, not held)")
+                 f"the key expanded to {H} heads; max_abs_diff={gap:.3e}, q and p "
+                 f"{str(dtype).split('.')[-1]} there, reported, not held)")
     say(line)
     return r
 
@@ -896,7 +924,7 @@ def check_mla_decode(g, dev):
     what = "mla_flash_decode B=4 H=16 R=512 P=64 S=512 lengths=(113,200,37,512) holes"
     r = _mla_check(what, a, scale=scale, library=True)
     err = max(r["max_abs_err"], _mla_check(f"{what} scale=1.0", a, scale=1.0, q_mult=scale,
-                                           dtype=torch.float32)["max_abs_err"])
+                                           dtype=torch.float32, library=True)["max_abs_err"])
     empty = a["holes"].clone()
     empty[2] = False
     e = _mla_check(f"{what}, row 2 without a valid key", a, scale=scale, mask=empty)
@@ -1699,6 +1727,321 @@ def phase_deepseek_whole_path(dev):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 9 and 10: NLLB-MoE-54B through the per-layer offload engine
+# ---------------------------------------------------------------------------
+
+# bench.py's --tier-gb and --hbm-gb defaults, and the KV reserve it keeps
+# out of the HBM budget (bench.py:1029, :1037-1041)
+TIER_GB, HBM_GB, KV_RESERVE = 14, 13, int(1.4 * 2**30)
+
+
+def _offload_store(spec, seed=0, cache_records=64):
+    """bench.py:991-998's store: packed int4 fc1/fc2 with f32 scales and
+    biases for every MoE layer, SyntheticStore records distinct per expert."""
+    from moe_infinity_tpu_torch.store.blob import SyntheticStore
+
+    D, F, E = spec.d_model, spec.encoder_ffn_dim, spec.num_experts
+    n_enc = sum(spec.is_sparse(i, False) for i in range(spec.encoder_layers))
+    n_moe = n_enc + sum(spec.is_sparse(i, True) for i in range(spec.decoder_layers))
+    fields = [("fc1.weight", (D, F // 2), "int4"), ("fc1.weight.scale", (F,), "float32"),
+              ("fc1.bias", (F,), "float32"), ("fc2.weight", (F, D // 2), "int4"),
+              ("fc2.weight.scale", (D,), "float32"), ("fc2.bias", (D,), "float32")]
+    return SyntheticStore(n_moe, E, fields, meta={"arch": "nllb", "num_encoder_moe_layers": n_enc},
+                          seed=seed, distinct_records=True, cache_records=cache_records)
+
+
+def _offload_engine(model, params, store, num_slots, tier):
+    """bench.py's engine (`_nllb_build`) on the per-layer path: EAMC tracer
+    and predictor, prefetch with lookahead 3 and budget 8, the priority
+    policy, 4 fetch workers, K3 for every expert FFN."""
+    from moe_infinity_tpu_torch.memory import ExpertPredictor, ExpertTracer
+    from moe_infinity_tpu_torch.runtime.arena import ExpertArena
+    from moe_infinity_tpu_torch.runtime.engine_seq2seq import Seq2SeqOffloadEngine
+
+    n_enc = store.meta["num_encoder_moe_layers"]
+    tracer = ExpertTracer(256, store.num_layers, store.num_experts, num_encoder_layers=n_enc)
+    arena = ExpertArena(store, num_slots, policy="priority", compute_dtype=model.dtype,
+                        device=model.device, num_threads=4, pinned_tier=tier)
+    return Seq2SeqOffloadEngine(model, params, arena, tracer=tracer,
+                                predictor=ExpertPredictor(tracer), prefetch=True, lookahead=3,
+                                prefetch_budget=8, impl="pallas")
+
+
+def _tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def phase_offload(dev):
+    """NLLB-MoE-54B at full width and depth served by the per-layer offload
+    engine: bf16 dense weights from a seed, int4 experts in a slot arena of
+    bench.py's --hbm-gb 13 budget, fed from a 14 GiB page-locked tier
+    (decoder records first, made on the card) and from the store (the
+    records that do not fit; kept in host memory after their first read, as
+    a page-cached store keeps them). One warm-up generate, then a timed one
+    of phase 3's 4 requests x 16 greedy tokens."""
+    from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
+
+    spec = NllbSpec(**NLLB_54B)
+    E = spec.num_experts
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    model = NllbModel(spec, compute_dtype=torch.bfloat16, device=dev)
+    params, _ = model.init_random(g, with_experts=False)
+    dense = _tree_bytes(params)
+    store = _offload_store(spec, cache_records=spec.encoder_layers * E)
+    n_rec = store.num_layers * E
+    tier = PinnedExpertTier(store, device=dev, shared_record=False, max_bytes=TIER_GB * 2**30,
+                            synth_on_device=True)
+    torch.cuda.synchronize()
+    t_tier = time.perf_counter() - t0
+    slots = max(E, int((HBM_GB * 2**30 - dense - KV_RESERVE) // store.stride))
+    engine = _offload_engine(model, params, store, slots, tier)
+    arena = engine.arena
+    dec_staged = sum(tier.record_index(l, e) is not None
+                     for l in range(store.meta["num_encoder_moe_layers"], store.num_layers)
+                     for e in range(E))
+    say(f"[offload] NLLB-MoE-54B, depth {spec.encoder_layers}+{spec.decoder_layers} blocks, "
+        f"{store.num_layers} MoE layers x {E} experts = {n_rec} int4 records of "
+        f"{store.stride / 1e6:.2f} MB ({n_rec * store.stride / 1e9:.2f} GB); dense bf16 "
+        f"{dense / 1e9:.2f} GB; tier {json.dumps(tier.stats())} "
+        f"{'page-locked' if tier.fields['fc1.weight'][0].is_pinned() else 'pageable'}, "
+        f"{dec_staged} of {n_rec - store.meta['num_encoder_moe_layers'] * E} decoder records; "
+        f"arena {slots} slots ({slots / n_rec:.3f} of the experts), {arena.nbytes() / 1e9:.2f} GB; "
+        f"set-up {time.perf_counter() - t0:.1f} s (tier {t_tier:.1f} s)")
+    ids, mask = _requests(spec.vocab_size, g, dev)
+    try:
+        t0 = time.perf_counter()
+        engine.generate(ids, max_new_tokens=NEW_TOKENS, attention_mask=mask, eos_token_id=None)
+        torch.cuda.synchronize()
+        say(f"[offload] warm-up generate {time.perf_counter() - t0:.1f} s, stats "
+            f"{json.dumps(engine.stats())}, fetches {json.dumps(arena.fetch_stats())}")
+        f0, s0 = arena.fetch_stats(), engine.stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = engine.generate(ids, max_new_tokens=NEW_TOKENS, attention_mask=mask,
+                              eos_token_id=None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        f1, s1 = arena.fetch_stats(), engine.stats()
+        dw = engine.decode_window_stats()
+        st = res.stats
+        say(f"[offload] sequences shape {res.sequences.shape}; first row "
+            f"{res.sequences[0].tolist()}")
+        say(f"[offload] encode_ms={st['encode_ms']:.3f} decode_ms_per_step="
+            f"{st['decode_ms'] / NEW_TOKENS:.3f} tokens_per_s="
+            f"{len(SRC_LENS) * NEW_TOKENS / (st['decode_ms'] / 1e3):.1f} wall_s={wall:.3f}")
+        say(f"[offload] decode window: hit_rate={dw['decode_hit_rate']:.4f} visits={dw['visits']} "
+            f"misses={dw['misses']} evictions={dw['evictions']} miss_by_layer="
+            f"{dw['miss_by_layer']} miss_churn={dw['miss_churn']} miss_fresh={dw['miss_fresh']} "
+            f"distinct_routed={dw['distinct_routed']}")
+        say(f"[offload] timed generate: visits={s1['visits'] - s0['visits']} misses="
+            f"{s1['misses'] - s0['misses']} evictions={s1['evictions'] - s0['evictions']} "
+            f"prefetches={s1['prefetches'] - s0['prefetches']} fetches tier="
+            f"{f1['fetches_tier'] - f0['fetches_tier']} store="
+            f"{f1['fetches_store'] - f0['fetches_store']} fetch_seconds_ewma="
+            f"{f1['fetch_seconds_ewma']:.6f}")
+        say(f"[offload] tier_gb={tier.stats()['pinned_tier_gb']} arena_gb="
+            f"{arena.nbytes() / 2**30:.3f} max_memory_allocated_gb="
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        say(f"[offload] launches {json.dumps(counts)}")
+        if res.sequences.shape != (len(SRC_LENS), NEW_TOKENS + 1):
+            raise AssertionError(f"unexpected output shape {res.sequences.shape}")
+        if not np.all((res.sequences >= 0) & (res.sequences < spec.vocab_size)):
+            raise AssertionError("token ids out of range")
+        _require_launched(counts, NLLB_KERNELS, "NLLB offload path")
+        if s1["evictions"] <= 0 or f1["fetches_tier"] <= 0 or f1["fetches_store"] <= 0:
+            raise AssertionError(f"offload path: no evictions, or a fetch path unused "
+                                 f"({s1}, {f1})")
+        _profile_offload_step(engine, ids, mask)
+    finally:
+        arena.shutdown()
+    del engine, arena, tier, store, params, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _profile_streams(label, fn, n):
+    """Run fn() n times under torch.profiler: host wall time per call, the
+    device's busy time per call as the union of every stream's intervals,
+    time in copies (Memcpy) and in everything else, and the largest items."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    spans, by_name = [], defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n
+    if not spans:
+        say(f"[profile] {label}: device time not measured (no CUDA events traced)")
+        return
+    busy_us, end = 0.0, -1.0
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy = busy_us / 1e3 / n
+    copies = sum(ms for k, ms in by_name.items() if "memcpy" in k.lower())
+    kernels = sum(by_name.values()) - copies
+    say(f"[profile] {label}: wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} (union of streams) "
+        f"busy_share={busy / wall_ms:.3f} kernels_ms={kernels:.3f} copies_ms={copies:.3f} "
+        f"copy_share_of_busy={min(1.0, copies / busy):.3f}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        say(f"[profile]   {ms:8.3f} ms  {name[:110]}")
+
+
+def _profile_offload_step(engine, ids, mask):
+    """One encode through the engine, then two decode steps under the
+    profiler (the first step runs before the window)."""
+    model = engine.model
+    dev = model.device
+    tok = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+    m = torch.as_tensor(mask, device=dev)
+    B = tok.shape[0]
+    seq_ids = [engine.tracer.create_entry() for _ in range(B)]
+    with torch.inference_mode():
+        _, cross = engine.run_encoder(tok, m, seq_ids)
+        engine._prefetch_decoder_tier(seq_ids)
+        kvs = engine.init_cache(B, 32)
+        cur = torch.full((B, 1), model.spec.decoder_start_token_id, dtype=torch.int32, device=dev)
+        step = [0]
+
+        def decode():
+            logits = engine.decode_step(cur, step[0], kvs, m, cross, seq_ids)
+            cur.copy_(torch.argmax(logits[:, -1], -1, keepdim=True))
+            step[0] += 1
+
+        decode()
+        _profile_streams("offload decode step (4 rows, per-layer, 6 MoE layers)", decode, 2)
+        _host_profile("offload decode step", decode, 2)
+    for sid in seq_ids:
+        engine.tracer.finish_entry(sid)
+
+
+def _host_profile(label, fn, n, top=18):
+    """Where the host's time goes, by cProfile over n calls: cumulative and
+    own ms per call of the functions with the most cumulative time. On
+    Python 3.12 cProfile sees every thread, so the fetch workers' functions
+    (``_worker``, ``_next_order_locked``) stand beside the caller's; the
+    caller's ``acquire`` is its wait for fetches. cProfile slows every
+    Python call, so these shares locate time; they do not time it."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    say(f"[host] {label}: wall_ms={wall:.3f} under cProfile; cumulative / own ms per call:")
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][3])
+    for (path, line, func), (_, calls, tt, ct, _) in rows[:top]:
+        where = f"{Path(path).parent.name}/{Path(path).name}:{line}" if line else path
+        say(f"[host]   {ct * 1e3 / n:9.3f} {tt * 1e3 / n:9.3f}  {calls / n:7.1f} calls  "
+            f"{func} ({where})")
+
+
+def _offload_first_step(engine, ids, mask):
+    model = engine.model
+    dev = model.device
+    tok = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+    m = torch.as_tensor(mask, device=dev)
+    with torch.inference_mode():
+        _, cross = engine.run_encoder(tok, m)
+        kvs = engine.init_cache(tok.shape[0], 32)
+        start = torch.full((tok.shape[0], 1), model.spec.decoder_start_token_id,
+                           dtype=torch.int32, device=dev)
+        return engine.decode_step(start, 0, kvs, m, cross)
+
+
+def phase_offload_whole_path(dev):
+    """The offload engine against the resident Seq2SeqGenerator at f32, full
+    width, 4+4 blocks with every 2nd sparse (2+2 MoE layers), an arena of E
+    slots (evictions at every MoE layer), prefetch on and 4 workers. The
+    resident experts are the store's own records (``from_store``). Seed 11
+    fetches every record from the store; seed 12 stages the decoder records
+    and 40 of the first encoder layer's in a tier copied from the store
+    (``synth_on_device=False``). Greedy tokens must be equal, first-step
+    logits within the tolerance."""
+    from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+    from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
+
+    spec = NllbSpec(**dict(NLLB_54B, encoder_layers=4, decoder_layers=4,
+                           encoder_sparse_step=2, decoder_sparse_step=2))
+    E = spec.num_experts
+    for seed, staged in ((11, False), (12, True)):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        model = NllbModel(spec, compute_dtype=torch.float32, device=dev)
+        params, _ = model.init_random(g, with_experts=False)
+        store = _offload_store(spec, seed=seed, cache_records=4 * E)
+        provider = ResidentProvider.from_store(store, dtype=torch.float32, device=dev)
+        tier = None
+        if staged:
+            n_dec = (store.num_layers - store.meta["num_encoder_moe_layers"]) * E
+            tier = PinnedExpertTier(store, device=dev, shared_record=False,
+                                    max_bytes=(n_dec + 40) * store.stride,
+                                    synth_on_device=False)
+        engine = _offload_engine(model, params, store, E, tier)
+        ids, mask = _requests(spec.vocab_size, g, dev)
+        try:
+            reset_launches()
+            got_logits = _offload_first_step(engine, ids, mask)
+            got = engine.generate(ids, max_new_tokens=NEW_TOKENS, attention_mask=mask,
+                                  eos_token_id=None)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            stats, fetch = engine.stats(), engine.arena.fetch_stats()
+            ev_by_layer = engine.arena.policy.node_stats["evictions"].sum(axis=1).tolist()
+        finally:
+            engine.arena.shutdown()
+        _require_launched(counts, NLLB_KERNELS, "NLLB offload whole-path check")
+        res = Seq2SeqGenerator(model, params, provider.pytree(), ResidentProvider.for_layer,
+                               impl="pallas")
+        want = res.generate(ids, max_new_tokens=NEW_TOKENS, attention_mask=mask,
+                            eos_token_id=None)
+        want_logits = _first_step_logits(model, params, provider, ids, mask, "pallas")
+        say(f"[check] offload seed {seed} ({'tier + store' if staged else 'store only'}): "
+            f"{E} slots, evictions by MoE layer {ev_by_layer}, misses {stats['misses']}, "
+            f"fetches {json.dumps(fetch)}")
+        compare(f"offload vs resident first-step logits f32 seed {seed} (full width, 4+4 "
+                f"blocks, int4 experts, {E}-slot arena)", got_logits, want_logits)
+        same = np.array_equal(got.sequences, want.sequences)
+        say(f"[check] offload vs resident greedy tokens seed {seed}: "
+            f"{'equal' if same else 'DIFFER'} {got.sequences[0].tolist()}")
+        if not same:
+            raise AssertionError(f"offload tokens differ from the resident path's (seed {seed})")
+        if stats["evictions"] <= 0 or (staged and fetch["fetches_tier"] <= 0):
+            raise AssertionError(f"offload whole path: no evictions or no tier fetch ({stats})")
+        del model, params, store, provider, tier, engine, res
+        torch.cuda.empty_cache()
+
+
 def sweep_decode_plans(dev):
     """``--decode-plans``: K4 at the Mixtral decode shape and at the long rows
     under split plans aimed at 2 to 8 blocks per SM (the wrapper's
@@ -1837,15 +2180,35 @@ def main() -> int:
         sweep_mla_plans(dev)
         say(f"[card] {smi}")
         return 0
-    recs = phase_kernels(dev)
-    counts = phase_main_path(dev)
-    phase_whole_path(dev)
-    mix_counts = phase_mixtral(dev)
-    phase_mixtral_whole_path(dev)
-    mla_counts = phase_deepseek(dev)
-    phase_deepseek_whole_path(dev)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn(dev)
+        say(f"[phase] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    if "--offload" in sys.argv[1:]:
+        timed(phase_offload)
+        timed(phase_offload_whole_path)
+        say(f"[card] {smi}")
+        return 0
+    if "--resident" in sys.argv[1:]:
+        timed(phase_main_path)
+        timed(phase_mixtral)
+        timed(phase_deepseek)
+        say(f"[card] {smi}")
+        return 0
+    recs = timed(phase_kernels)
+    counts = timed(phase_main_path)
+    timed(phase_whole_path)
+    mix_counts = timed(phase_mixtral)
+    timed(phase_mixtral_whole_path)
+    mla_counts = timed(phase_deepseek)
+    timed(phase_deepseek_whole_path)
+    off_counts = timed(phase_offload)
+    timed(phase_offload_whole_path)
     for r in recs:
-        r["launches"] = counts[r["name"]] + mix_counts[r["name"]] + mla_counts[r["name"]]
+        r["launches"] = sum(c[r["name"]] for c in (counts, mix_counts, mla_counts, off_counts))
         r.pop("shape")
     say(f"[card] {smi}")
     print(json.dumps({"kernels": recs}), flush=True)

@@ -15,6 +15,13 @@
 Parameters are nested dicts of tensors with the JAX package's keys and
 layouts (dense ``[out, in]``, experts ``[E, D, F]``), so ``bridge`` carries
 one into the other.
+
+The stage protocol of the JAX model (``enc_prelude``, ``enc_block_sparse_pre``,
+``enc_block_dense``, ``enc_final``, ``dec_prelude``, ``dec_embed``,
+``dec_block_sparse_pre``, ``dec_block_dense``, ``dec_final``, ``cross_kv_block``
+and ``apply_ff``) is what the offload engine drives layer by layer, with the
+routed ids read on the host between a block's routing and its experts;
+``encode`` and ``decode_step`` run the same stages in one call.
 """
 
 from __future__ import annotations
@@ -74,10 +81,11 @@ def _pad_bias(mask):
 class NllbModel:
     arch = "nllb"
 
-    def __init__(self, spec: NllbSpec, compute_dtype=torch.float32, device="cuda"):
+    def __init__(self, spec: NllbSpec, compute_dtype=torch.float32, device="cuda", mesh=None):
         self.spec = spec
         self.dtype = compute_dtype
         self.device = resolve_device(device)
+        self.mesh = mesh
         self._pos_table = sinusoidal_embedding(
             spec.max_positions + spec.pad_token_id + 1,
             spec.d_model,
@@ -87,13 +95,16 @@ class NllbModel:
         self._scale = spec.d_model ** 0.5 if spec.scale_embedding else 1.0
 
     # ---- params ---------------------------------------------------------
-    def init_random(self, generator: torch.Generator, device=None, expert_dtype="int4"):
+    def init_random(self, generator: torch.Generator, device=None, expert_dtype="int4",
+                    with_experts: bool = True):
         """Random params and resident expert tree at spec geometry, built
         directly on ``device`` (the model's by default) from ``generator``
         (which must live on that device). Experts are packed int4 (random
         bytes, scales near 0.0043 so weights have std near 0.02); dense
         experts at NLLB-54B size would take 103 GB. Biases are zero, router
-        weights std 0.5, other matrices std 0.02."""
+        weights std 0.5, other matrices std 0.02. with_experts=False skips
+        the expert tree and returns (params, None): the offload path streams
+        the experts from a store instead."""
         if expert_dtype != "int4":
             raise ValueError(f"expert_dtype {expert_dtype!r}: only 'int4' is built")
         s = self.spec
@@ -147,7 +158,8 @@ class NllbModel:
             if s.is_sparse(i, decoder):
                 b["router"] = mat((E, D), torch.float32, std=0.5)
                 b["router_bias"] = zeros(E)
-                experts.append(expert_layer(F))
+                if with_experts:
+                    experts.append(expert_layer(F))
             else:
                 b["fc1"] = mat((F, D))
                 b["fc1b"] = zeros(F)
@@ -164,6 +176,8 @@ class NllbModel:
             "dec_final_ln_w": ones(D),
             "dec_final_ln_b": zeros(D),
         }
+        if not with_experts:
+            return params, None
         tree = {
             "layers": experts,
             "slot_map": torch.arange(E, dtype=torch.int32, device=dev),
@@ -207,17 +221,6 @@ class NllbModel:
         cw = torch.stack([w1 / denom, w2 / denom], dim=-1)
         return cw, ids
 
-    def _ff(self, b, h, mli, experts, for_layer, impl):
-        B, T, D = h.shape
-        if mli is None:
-            a = torch.relu(linear(h, b["fc1"], b["fc1b"]))
-            return linear(a, b["fc2"], b["fc2b"])
-        cw, ids = self._route_top2(b, h)
-        weights, slot_map, biases = for_layer(experts, mli)
-        y = grouped_ffn(h.reshape(B * T, D), ids, cw, slot_map, weights, "relu",
-                        biases=biases, impl=impl)
-        return y.reshape(B, T, D)
-
     def _positions(self, tokens, past):
         mask = (tokens != self.spec.pad_token_id).to(torch.int32)
         return (torch.cumsum(mask, dim=1) + past) * mask + self.spec.pad_token_id
@@ -227,22 +230,99 @@ class NllbModel:
         pos = self._positions(tokens, past)
         return x + self._pos_table[pos.long()].to(self.dtype)
 
+    def _dense_ff(self, b, h):
+        a = torch.relu(linear(h, b["fc1"], b["fc1b"]))
+        return linear(a, b["fc2"], b["fc2b"])
+
+    # ---- stage protocol (the offload engine drives these) ----------------
+    def apply_ff(self, x, h, cw, ids, weights, slot_map, biases, impl):
+        """x + the routed expert FFN of h [B, T, D] (ids, cw [B, T, K])."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "expert-parallel dispatch under a mesh is not ported (ROADMAP queue-1 item 18)"
+            )
+        B, T, D = h.shape
+        K = ids.shape[-1]
+        y = grouped_ffn(h.reshape(B * T, D), ids.reshape(B * T, K), cw.reshape(B * T, K),
+                        slot_map, weights, "relu", biases=biases, impl=impl)
+        return x + y.reshape(B, T, D)
+
+    def enc_prelude(self, params, tokens, pad_mask):
+        B, T = tokens.shape
+        q_pos = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
+        return self._embed(params, tokens), _pad_bias(pad_mask), q_pos
+
+    def _enc_attn(self, b, x, bias, q_pos):
+        T = x.shape[1]
+        h = layer_norm(x, b["ln0_w"], b["ln0_b"], 1e-5)
+        k, v = self._kv(b["self_attn"], h)
+        x = x + self._attn(b["self_attn"], h, k, v, q_pos, T, causal=False, pad_bias=bias)
+        return x, layer_norm(x, b["lnf_w"], b["lnf_b"], 1e-5)
+
+    def enc_block_sparse_pre(self, b, x, bias, q_pos):
+        """(x, h, cw [B, T, 2], ids [B, T, 2]): attention and routing."""
+        x, h = self._enc_attn(b, x, bias, q_pos)
+        B, T, _ = h.shape
+        cw, ids = self._route_top2(b, h)
+        return x, h, cw.reshape(B, T, -1), ids.reshape(B, T, -1)
+
+    def enc_block_dense(self, b, x, bias, q_pos):
+        x, h = self._enc_attn(b, x, bias, q_pos)
+        return x + self._dense_ff(b, h)
+
+    def enc_final(self, params, x):
+        return layer_norm(x, params["enc_final_ln_w"], params["enc_final_ln_b"], 1e-5)
+
+    def dec_prelude(self, params, positions, cache_len: int, enc_mask):
+        return None, _pad_bias(enc_mask)  # no self-attention bias in NLLB
+
+    def dec_embed(self, params, dec_tokens, step=0):
+        return self._embed(params, dec_tokens, step)
+
+    def _dec_attn(self, b, x, kv, positions, kv_len, bias, ck, cv, cross_bias):
+        T = x.shape[1]
+        h = layer_norm(x, b["ln0_w"], b["ln0_b"], 1e-5)
+        k, v = self._kv(b["self_attn"], h)
+        kv = kv.update(k, v, kv_len)
+        x = x + self._attn(b["self_attn"], h, kv.k, kv.v, positions, kv_len + T, causal=True)
+        h = layer_norm(x, b["lnc_w"], b["lnc_b"], 1e-5)
+        x = x + self._attn(b["cross_attn"], h, ck, cv, positions, ck.shape[1],
+                           causal=False, pad_bias=cross_bias)
+        return x, layer_norm(x, b["lnf_w"], b["lnf_b"], 1e-5), kv
+
+    def dec_block_sparse_pre(self, b, x, kv, positions, kv_len, bias, ck, cv, cross_bias):
+        """(x, h, cw [B, T, 2], ids [B, T, 2], kv); the cache is written in
+        place."""
+        x, h, kv = self._dec_attn(b, x, kv, positions, kv_len, bias, ck, cv, cross_bias)
+        B, T, _ = h.shape
+        cw, ids = self._route_top2(b, h)
+        return x, h, cw.reshape(B, T, -1), ids.reshape(B, T, -1), kv
+
+    def dec_block_dense(self, b, x, kv, positions, kv_len, bias, ck, cv, cross_bias):
+        x, h, kv = self._dec_attn(b, x, kv, positions, kv_len, bias, ck, cv, cross_bias)
+        return x + self._dense_ff(b, h), kv
+
+    def dec_final(self, params, x):
+        """Logits [B, T, V] f32: the LM head in f32, as the JAX model."""
+        x = layer_norm(x, params["dec_final_ln_w"], params["dec_final_ln_b"], 1e-5)
+        return linear(x.float(), params["embed"].float())
+
+    def cross_kv_block(self, b, enc_out):
+        """One decoder block's cross-attention K/V."""
+        return self._kv(b["cross_attn"], enc_out)
+
     # ---- encoder --------------------------------------------------------
     def encode(self, params, experts, tokens, pad_mask, for_layer, impl="ragged"):
         s = self.spec
-        B, T = tokens.shape
-        x = self._embed(params, tokens)
-        bias = _pad_bias(pad_mask)
-        q_pos = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
+        x, bias, q_pos = self.enc_prelude(params, tokens, pad_mask)
         for i, b in enumerate(params["enc_blocks"]):
-            h = layer_norm(x, b["ln0_w"], b["ln0_b"], 1e-5)
-            k, v = self._kv(b["self_attn"], h)
-            x = x + self._attn(b["self_attn"], h, k, v, q_pos, T, causal=False,
-                               pad_bias=bias)
-            h = layer_norm(x, b["lnf_w"], b["lnf_b"], 1e-5)
-            mli = s.moe_layer_id(i, False) if s.is_sparse(i, False) else None
-            x = x + self._ff(b, h, mli, experts, for_layer, impl)
-        return layer_norm(x, params["enc_final_ln_w"], params["enc_final_ln_b"], 1e-5)
+            if s.is_sparse(i, False):
+                x, h, cw, ids = self.enc_block_sparse_pre(b, x, bias, q_pos)
+                weights, slot_map, biases = for_layer(experts, s.moe_layer_id(i, False))
+                x = self.apply_ff(x, h, cw, ids, weights, slot_map, biases, impl)
+            else:
+                x = self.enc_block_dense(b, x, bias, q_pos)
+        return self.enc_final(params, x)
 
     # ---- decoder --------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> List[KVCache]:
@@ -254,7 +334,7 @@ class NllbModel:
         ]
 
     def cross_kv(self, params, enc_out):
-        return [self._kv(b["cross_attn"], enc_out) for b in params["dec_blocks"]]
+        return [self.cross_kv_block(b, enc_out) for b in params["dec_blocks"]]
 
     def decode_step(self, params, experts, dec_tokens, positions, kvs, kv_len: int,
                     enc_mask, cross, for_layer, impl="ragged"):
@@ -262,23 +342,16 @@ class NllbModel:
         writes the step's K/V into ``kvs`` in place. Returns (logits
         [B, T, V] f32, kvs)."""
         s = self.spec
-        B, T = dec_tokens.shape
-        x = self._embed(params, dec_tokens, past=kv_len)
-        cross_bias = _pad_bias(enc_mask)
+        bias, cross_bias = self.dec_prelude(params, positions, kvs[0].max_len, enc_mask)
+        x = self.dec_embed(params, dec_tokens, kv_len)
         for i, b in enumerate(params["dec_blocks"]):
-            h = layer_norm(x, b["ln0_w"], b["ln0_b"], 1e-5)
-            k, v = self._kv(b["self_attn"], h)
-            kv = kvs[i].update(k, v, kv_len)
-            x = x + self._attn(b["self_attn"], h, kv.k, kv.v, positions,
-                               kv_len + T, causal=True)
-            h = layer_norm(x, b["lnc_w"], b["lnc_b"], 1e-5)
             ck, cv = cross[i]
-            x = x + self._attn(b["cross_attn"], h, ck, cv, positions, ck.shape[1],
-                               causal=False, pad_bias=cross_bias)
-            h = layer_norm(x, b["lnf_w"], b["lnf_b"], 1e-5)
-            mli = s.moe_layer_id(i, True) if s.is_sparse(i, True) else None
-            x = x + self._ff(b, h, mli, experts, for_layer, impl)
-        x = layer_norm(x, params["dec_final_ln_w"], params["dec_final_ln_b"], 1e-5)
-        # the LM head in f32, as the JAX model computes it
-        logits = linear(x.float(), params["embed"].float())
-        return logits, kvs
+            if s.is_sparse(i, True):
+                x, h, cw, ids, kvs[i] = self.dec_block_sparse_pre(
+                    b, x, kvs[i], positions, kv_len, bias, ck, cv, cross_bias)
+                weights, slot_map, biases = for_layer(experts, s.moe_layer_id(i, True))
+                x = self.apply_ff(x, h, cw, ids, weights, slot_map, biases, impl)
+            else:
+                x, kvs[i] = self.dec_block_dense(
+                    b, x, kvs[i], positions, kv_len, bias, ck, cv, cross_bias)
+        return self.dec_final(params, x), kvs

@@ -1,0 +1,264 @@
+"""Disk-backed expert store, from ``moe_infinity_tpu/store/blob.py``.
+
+``experts.blob`` / ``experts.index.json`` under the store's directory hold
+fixed-stride expert records, layer-major then expert-minor, each record
+4096-aligned. A record is the concatenation of one expert's tensors (plus
+quantization scales) at fixed offsets shared by all experts. The reader
+memory-maps the blob; ``get_record`` returns a zero-copy view.
+
+``SyntheticStore`` has the same protocol with in-RAM pseudo-random records
+from numpy, byte-identical to the JAX class for the same seed.
+
+Not ported here: the ``ram``/``direct``/``sched`` load modes and the native
+reader (``store/native.py``), ``DenseArchive`` and ``ingest.py``.
+"""
+
+from __future__ import annotations
+
+import json
+import mmap
+import os
+import threading
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from moe_infinity_tpu_torch.utils.dtypes import bf16_bits, dtype_name, np_dtype
+
+ALIGN = 4096  # page alignment of records
+FORMAT_VERSION = 1
+
+
+def _align(n: int, a: int = ALIGN) -> int:
+    return (n + a - 1) // a * a
+
+
+@dataclass(frozen=True)
+class RecordField:
+    """One tensor inside an expert record."""
+
+    name: str
+    shape: Tuple[int, ...]
+    dtype: str  # dtype name from utils.dtypes
+    offset: int  # bytes from record start
+
+    @property
+    def nbytes(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64)) * np_dtype(self.dtype).itemsize
+
+
+def build_record_layout(
+    fields: Sequence[Tuple[str, Tuple[int, ...], str]],
+) -> Tuple[List[RecordField], int]:
+    """Pack (name, shape, dtype) tensors into a record; returns fields with
+    offsets and the aligned record stride. Each field is 128-byte aligned."""
+    out: List[RecordField] = []
+    off = 0
+    for name, shape, dt in fields:
+        off = _align(off, 128)
+        f = RecordField(name, tuple(int(x) for x in shape), dt, off)
+        out.append(f)
+        off += f.nbytes
+    return out, _align(off)
+
+
+class ExpertStoreWriter:
+    """Ingest-time writer: fixed-stride records appended in any order."""
+
+    def __init__(
+        self,
+        path: str,
+        num_layers: int,
+        num_experts: int,
+        fields: Sequence[Tuple[str, Tuple[int, ...], str]],
+        meta: Optional[dict] = None,
+    ):
+        os.makedirs(path, exist_ok=True)
+        self.path = path
+        self.num_layers = num_layers
+        self.num_experts = num_experts
+        self.fields, self.stride = build_record_layout(fields)
+        self.meta = dict(meta or {})
+        self._f = open(os.path.join(path, "experts.blob"), "wb")
+        self._f.truncate(self.stride * num_layers * num_experts)
+        self._written = np.zeros((num_layers, num_experts), dtype=bool)
+        self._field_by_name = {f.name: f for f in self.fields}
+
+    def write_tensor(self, layer: int, expert: int, name: str, array: np.ndarray) -> None:
+        """bf16 fields take their raw bits as ``uint16``; int4 fields packed
+        nibbles in ``int8``."""
+        f = self._field_by_name[name]
+        a = np.ascontiguousarray(array)
+        if tuple(a.shape) != f.shape:
+            raise ValueError(
+                f"{name} shape {a.shape} != spec {f.shape} (L{layer} E{expert})"
+            )
+        want = "int8" if f.dtype == "int4" else f.dtype
+        if dtype_name(a.dtype) != want:
+            raise ValueError(f"{name} dtype {a.dtype} != spec {f.dtype}")
+        base = (layer * self.num_experts + expert) * self.stride
+        self._f.seek(base + f.offset)
+        self._f.write(a.tobytes())
+        self._written[layer, expert] = True
+
+    def finalize(self) -> None:
+        self._f.flush()
+        os.fsync(self._f.fileno())
+        self._f.close()
+        index = {
+            "version": FORMAT_VERSION,
+            "num_layers": self.num_layers,
+            "num_experts": self.num_experts,
+            "stride": self.stride,
+            "fields": [
+                {"name": f.name, "shape": list(f.shape), "dtype": f.dtype, "offset": f.offset}
+                for f in self.fields
+            ],
+            "meta": self.meta,
+        }
+        with open(os.path.join(self.path, "experts.index.json"), "w") as f:
+            json.dump(index, f, indent=1)
+
+
+class ExpertStore:
+    """Read side of the expert store, page-cache backed (``mmap``): the first
+    touch of a record faults it in from disk."""
+
+    def __init__(self, path: str, load_mode: str = "mmap"):
+        if load_mode != "mmap":
+            raise NotImplementedError(
+                f"load_mode {load_mode!r} is not ported; only 'mmap' is"
+            )
+        self.path = path
+        with open(os.path.join(path, "experts.index.json")) as f:
+            index = json.load(f)
+        if index["version"] != FORMAT_VERSION:
+            raise ValueError(f"store version {index['version']} unsupported")
+        self.num_layers: int = index["num_layers"]
+        self.num_experts: int = index["num_experts"]
+        self.stride: int = index["stride"]
+        self.fields: List[RecordField] = [
+            RecordField(d["name"], tuple(d["shape"]), d["dtype"], d["offset"])
+            for d in index["fields"]
+        ]
+        self.meta: dict = index.get("meta", {})
+        self._field_by_name = {f.name: f for f in self.fields}
+        blob_path = os.path.join(path, "experts.blob")
+        self.blob_nbytes = os.path.getsize(blob_path)
+        expected = self.stride * self.num_layers * self.num_experts
+        if self.blob_nbytes != expected:
+            raise ValueError(f"blob size {self.blob_nbytes} != expected {expected}")
+        with open(blob_path, "rb") as f:
+            self._mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        self._buf = np.frombuffer(self._mm, dtype=np.uint8)
+        self.load_mode = load_mode
+
+    @property
+    def field_names(self) -> List[str]:
+        return [f.name for f in self.fields]
+
+    def _record_base(self, layer: int, expert: int) -> int:
+        if not (0 <= layer < self.num_layers and 0 <= expert < self.num_experts):
+            raise IndexError(f"expert (L{layer}, E{expert}) out of range")
+        return (layer * self.num_experts + expert) * self.stride
+
+    def get_record(self, layer: int, expert: int, *, prio: int = 0, gen: int = 0) -> np.ndarray:
+        """Read-only uint8 view of the whole record (stride bytes)."""
+        base = self._record_base(layer, expert)
+        return self._buf[base: base + self.stride]
+
+    def get_tensor(self, layer: int, expert: int, name: str) -> np.ndarray:
+        f = self._field_by_name[name]
+        base = self._record_base(layer, expert)
+        raw = self._buf[base + f.offset: base + f.offset + f.nbytes]
+        return raw.view(np_dtype(f.dtype)).reshape(f.shape)
+
+    def get_expert(self, layer: int, expert: int, *, prio: int = 0, gen: int = 0
+                   ) -> Dict[str, np.ndarray]:
+        return {f.name: self.get_tensor(layer, expert, f.name) for f in self.fields}
+
+    def warm(self, layer: int, expert: int) -> None:
+        """Touch a record to promote it into the page cache."""
+        self.get_record(layer, expert)[:: mmap.PAGESIZE].sum()
+
+
+class SyntheticStore:
+    """ExpertStore-protocol store with in-RAM pseudo-random records.
+
+    For synthetic benchmarks at production geometry: host-to-device
+    traffic, arena behaviour and kernel shapes are those of a real store
+    without hundreds of GB on disk.
+
+    distinct_records=False (default): every (layer, expert) returns views
+    of ONE shared record buffer - cheapest, but all experts compute
+    identical outputs, which makes routing degenerate-stable and flatters
+    cache hit rates. distinct_records=True generates a deterministic
+    per-(layer, expert) record on read (seeded, LRU-cached) so expert
+    outputs - and therefore routing dynamics and cache pressure - behave
+    like a real model's. The generator is numpy, so the records equal the
+    JAX class's byte for byte.
+    """
+
+    def __init__(
+        self,
+        num_layers: int,
+        num_experts: int,
+        fields: Sequence[Tuple[str, Tuple[int, ...], str]],
+        meta: Optional[dict] = None,
+        seed: int = 0,
+        distinct_records: bool = False,
+        cache_records: int = 64,
+    ):
+        self.num_layers = num_layers
+        self.num_experts = num_experts
+        self.fields, self.stride = build_record_layout(fields)
+        self._field_by_name = {f.name: f for f in self.fields}
+        self.meta = dict(meta or {})
+        self.seed = seed
+        self.distinct = bool(distinct_records)
+        self._cache_cap = max(1, cache_records)
+        self._cache: Dict[Tuple[int, int], Dict[str, np.ndarray]] = {}
+        self._cache_lock = threading.Lock()  # arena fetch workers race
+        rng = np.random.default_rng(seed)
+        self._tensors: Dict[str, np.ndarray] = {}
+        for f in self.fields:
+            self._tensors[f.name] = self._gen_field(rng, f)
+
+    @staticmethod
+    def _gen_field(rng, f) -> np.ndarray:
+        if f.dtype in ("int8", "int4"):
+            # raw bytes ARE valid int8/packed-int4 content; ~50x faster
+            # than rng.integers at multi-MB field sizes
+            n = int(np.prod(f.shape))
+            return np.frombuffer(rng.bytes(n), dtype=np.int8).reshape(f.shape)
+        x = rng.standard_normal(f.shape) * 0.02
+        if f.dtype == "bfloat16":
+            return bf16_bits(x)
+        return x.astype(np_dtype(f.dtype))
+
+    @property
+    def field_names(self) -> List[str]:
+        return [f.name for f in self.fields]
+
+    def _record(self, layer: int, expert: int) -> Dict[str, np.ndarray]:
+        if not self.distinct:
+            return self._tensors
+        key = (layer, expert)
+        with self._cache_lock:
+            rec = self._cache.get(key)
+        if rec is None:
+            rng = np.random.default_rng(self.seed + 1 + layer * self.num_experts + expert)
+            rec = {f.name: self._gen_field(rng, f) for f in self.fields}
+            with self._cache_lock:
+                while len(self._cache) >= self._cache_cap:
+                    self._cache.pop(next(iter(self._cache)), None)
+                self._cache[key] = rec
+        return rec
+
+    def get_tensor(self, layer: int, expert: int, name: str) -> np.ndarray:
+        return self._record(layer, expert)[name]
+
+    def get_expert(self, layer: int, expert: int, *, prio: int = 0, gen: int = 0
+                   ) -> Dict[str, np.ndarray]:
+        return dict(self._record(layer, expert))

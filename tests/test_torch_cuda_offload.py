@@ -1,0 +1,200 @@
+"""The port's offload path on the card: the slot arena's side-stream
+landings against stream-ordered reads. Marked ``cuda``: they skip without a
+CUDA device. On a machine with one, run them with ``python3 -m pytest
+--noconftest -m cuda tests/test_torch_cuda_offload.py`` (``--noconftest``:
+the repo conftest imports jax).
+
+The hazards: a key is registered while its copy may still run on a worker
+stream (read after write), and a slot is evicted as soon as its key is
+released while the K3 launch that read it may only be queued (write after
+read). Copies on the CPU are synchronous, so only the card shows either.
+Every check here is exact: the same bytes through the same kernels give
+the same bits."""
+
+import numpy as np
+import pytest
+import torch
+
+from moe_infinity_tpu_torch.memory import ExpertPredictor, ExpertTracer
+from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
+from moe_infinity_tpu_torch.ops.moe import grouped_ffn
+from moe_infinity_tpu_torch.runtime.arena import ExpertArena
+from moe_infinity_tpu_torch.runtime.engine_seq2seq import Seq2SeqOffloadEngine
+from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+from moe_infinity_tpu_torch.store.blob import SyntheticStore
+from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
+
+pytestmark = pytest.mark.cuda
+
+SPEC = dict(
+    vocab_size=300, d_model=256, num_heads=2, encoder_layers=4, decoder_layers=4,
+    encoder_ffn_dim=512, decoder_ffn_dim=512, encoder_sparse_step=2,
+    decoder_sparse_step=2, num_experts=8, pad_token_id=1, decoder_start_token_id=2,
+    max_positions=128, scale_embedding=True,
+)
+D, F, E, LAYERS = 256, 512, 8, 4
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _store(seed=0):
+    fields = [("fc1.weight", (D, F // 2), "int4"), ("fc1.weight.scale", (F,), "float32"),
+              ("fc1.bias", (F,), "float32"), ("fc2.weight", (F, D // 2), "int4"),
+              ("fc2.weight.scale", (D,), "float32"), ("fc2.bias", (D,), "float32")]
+    return SyntheticStore(LAYERS, E, fields, meta={"arch": "nllb", "num_encoder_moe_layers": 2},
+                          seed=seed, distinct_records=True, cache_records=LAYERS * E)
+
+
+def _tier(store, dev, records):
+    """A tier copied from the store's records (so every key has one value),
+    decoder records first, ``records`` of them."""
+    return PinnedExpertTier(store, device=dev, shared_record=False,
+                            max_bytes=records * store.stride, synth_on_device=False)
+
+
+def _engine(model, params, store, dev, tier, slots=E):
+    tracer = ExpertTracer(64, LAYERS, E, num_encoder_layers=2)
+    arena = ExpertArena(store, slots, compute_dtype=torch.float32, device=dev, num_threads=4,
+                        pinned_tier=tier)
+    return Seq2SeqOffloadEngine(model, params, arena, tracer=tracer,
+                                predictor=ExpertPredictor(tracer), prefetch=True, lookahead=3,
+                                prefetch_budget=8, impl="pallas")
+
+
+def _inputs(dev, seed):
+    rng = np.random.default_rng(seed)
+    lens = (24, 17, 12, 6)
+    ids = np.full((4, 24), 1, np.int64)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rng.integers(3, SPEC["vocab_size"], n)
+        ids[i, n - 1] = 2
+    mask = (ids != 1).astype(np.float32)
+    return torch.as_tensor(ids, dtype=torch.int32, device=dev), torch.as_tensor(mask, device=dev)
+
+
+@pytest.mark.parametrize("seed,tier_records", [(0, 0), (1, 20), (2, 40)])
+def test_offload_decode_equals_resident_bitwise(dev, seed, tier_records):
+    """Per-layer offload through an arena of E slots with prefetch and 4
+    workers, step by step beside the resident path: logits equal bit for
+    bit at every step, over steps whose routing evicts at every MoE layer."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = NllbModel(NllbSpec(**SPEC), compute_dtype=torch.float32, device=dev)
+    params, _ = model.init_random(g, with_experts=False)
+    store = _store(seed)
+    resident = ResidentProvider.from_store(store, dtype=torch.float32, device=dev)
+    experts, for_layer = resident.pytree(), ResidentProvider.for_layer
+    tier = _tier(store, dev, tier_records) if tier_records else None
+    engine = _engine(model, params, store, dev, tier)
+    tok, mask = _inputs(dev, seed)
+    B = tok.shape[0]
+    try:
+        with torch.inference_mode():
+            seq_ids = [engine.tracer.create_entry() for _ in range(B)]
+            _, cross_o = engine.run_encoder(tok, mask, seq_ids)
+            engine._prefetch_decoder_tier(seq_ids)
+            cross_r = model.cross_kv(params, model.encode(params, experts, tok, mask,
+                                                          for_layer, "pallas"))
+            kv_o, kv_r = engine.init_cache(B, 32), model.init_cache(B, 32)
+            cur = torch.full((B, 1), 2, dtype=torch.int32, device=dev)
+            for step in range(24):
+                pos = torch.full((B, 1), step, dtype=torch.int32, device=dev)
+                got = engine.decode_step(cur, step, kv_o, mask, cross_o, seq_ids)
+                want, _ = model.decode_step(params, experts, cur, pos, kv_r, step, mask,
+                                            cross_r, for_layer, "pallas")
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), f"step {step}"
+                cur = torch.argmax(want[:, -1], -1, keepdim=True).to(torch.int32)
+        ev = engine.arena.policy.node_stats["evictions"].sum(axis=1)
+        assert (ev > 0).all(), ev
+        if tier_records:
+            assert engine.arena.fetch_stats()["fetches_tier"] > 0
+    finally:
+        engine.arena.shutdown()
+
+
+def _want_slot(store, key):
+    rec = store.get_expert(*key)
+    return {"gate4": rec["fc1.weight"], "gate_scale": rec["fc1.weight.scale"],
+            "gate_bias": rec["fc1.bias"], "down4": rec["fc2.weight"],
+            "down_scale": rec["fc2.weight.scale"], "down_bias": rec["fc2.bias"]}
+
+
+def test_landing_is_repeatable_under_prefetch_storms(dev):
+    """Random acquires against a 6-slot arena while prefetch plans are
+    replaced between them, 4 workers, tier and store paths: every acquired
+    slot holds exactly its record's bytes when the compute stream reads it."""
+    store = _store(3)
+    arena = ExpertArena(store, 6, compute_dtype=torch.float32, device=dev, num_threads=4,
+                        pinned_tier=_tier(store, dev, 12))
+    rng = np.random.default_rng(3)
+    try:
+        for _ in range(60):
+            arena.prefetch([(int(rng.integers(LAYERS)), int(rng.integers(E))) for _ in range(4)])
+            keys = sorted({(int(rng.integers(LAYERS)), int(rng.integers(E))) for _ in range(3)})
+            arena.acquire(keys, keys[0][0])
+            with arena.locked_tree(keys) as tree:
+                got = {k: {n: t[arena.key_to_slot[k]].clone() for n, t in tree.items()}
+                       for k in keys}
+            arena.release(keys)
+            torch.cuda.synchronize()
+            for k in keys:
+                for n, want in _want_slot(store, k).items():
+                    assert np.array_equal(got[k][n].cpu().numpy(), want), (k, n)
+        s = arena.fetch_stats()
+        assert s["fetches_tier"] > 0 and s["fetches_store"] > 0
+        assert arena.hit_stats()["evictions"] > 0
+    finally:
+        arena.shutdown()
+
+
+def _ffn(x, ids, cw, row, tree):
+    w = {k: v for k, v in tree.items() if "bias" not in k}
+    b = {k: v for k, v in tree.items() if "bias" in k}
+    return grouped_ffn(x, ids, cw, row, w, "relu", biases=b, impl="pallas")
+
+
+@pytest.mark.parametrize("tier_records", [0, 32])
+def test_evicted_slot_leaves_queued_launch_alone(dev, tier_records):
+    """Write after read, then read after write, on a one-slot arena: a K3
+    launch reading key A's slot is queued behind a spin of some 0.3 s; A is
+    released and B acquired, which evicts A and lands B in the same slot.
+    The queued launch must still see A's bytes, and a launch queued right
+    after the acquire must see B's: both equal the resident results."""
+    store = _store(4)
+    tier = _tier(store, dev, tier_records) if tier_records else None
+    arena = ExpertArena(store, 1, compute_dtype=torch.float32, device=dev, num_threads=4,
+                        pinned_tier=tier)
+    resident = ResidentProvider.from_store(store, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(6, D, generator=g, device=dev)
+    cw = torch.ones(6, 1, device=dev)
+    a, b = (2, 5), (2, 6)
+    try:
+        want = {}
+        for key in (a, b):
+            w, row, bias = ResidentProvider.for_layer(resident.pytree(), key[0])
+            ids = torch.full((6, 1), key[1], dtype=torch.int32, device=dev)
+            want[key] = grouped_ffn(x, ids, cw, row, w, "relu", biases=bias, impl="pallas")
+        torch.cuda.synchronize()
+        out = {}
+        for key in (a, b):
+            arena.acquire([key], key[0])
+            ids = torch.full((6, 1), key[1], dtype=torch.int32, device=dev)
+            row = torch.from_numpy(arena.slot_map(key[0])).to(dev)
+            with arena.locked_tree([key]) as tree:
+                if key == a:
+                    torch.cuda._sleep(500_000_000)
+                out[key] = _ffn(x, ids, cw, row, tree)
+            arena.release([key])
+        torch.cuda.synchronize()
+        assert arena.hit_stats()["evictions"] == 1
+        for key in (a, b):
+            assert torch.equal(out[key], want[key]), key
+    finally:
+        arena.shutdown()

@@ -1,0 +1,415 @@
+"""The port's EAMC tracer, predictor, cache policy and prefetch planner
+(``moe_infinity_tpu_torch/memory/``): the JAX suite's tests of
+``tests/test_memory_policy.py`` on the port's classes, then each class held
+to its JAX class on seeded random traces, with exact equality."""
+
+import numpy as np
+import pytest
+
+from moe_infinity_tpu import memory as jmem
+from moe_infinity_tpu.memory.prefetch_plan import adaptive_prefetch_budget as j_budget
+from moe_infinity_tpu_torch.memory import (
+    ExpertCachePolicy,
+    ExpertPredictor,
+    ExpertTracer,
+    adaptive_prefetch_budget,
+    plan_prefetch,
+)
+
+L, E = 4, 8
+
+
+def make_tracer(capacity=4):
+    return ExpertTracer(capacity, L, E)
+
+
+class TestTracer:
+    def test_update_counts(self):
+        tr = make_tracer()
+        sid = tr.create_entry()
+        tr.update_entry(sid, np.array([[0, 1], [1, 3]]), layer_idx=2)
+        m = tr.get_entry(sid).matrix
+        assert m[2, 0] == 1 and m[2, 1] == 2 and m[2, 3] == 1
+        assert m.sum() == 4
+
+    def test_token_counter_increments_on_last_layer(self):
+        tr = make_tracer()
+        sid = tr.create_entry()
+        tr.update_entry(sid, np.array([0]), layer_idx=L - 1)
+        assert tr.get_entry(sid).num_new_tokens == 1
+
+    def test_finish_fills_empty_then_evicts_least_accessed(self):
+        tr = make_tracer(capacity=2)
+        for i in range(2):
+            sid = tr.create_entry()
+            tr.update_entry(sid, np.array([i]), 0)
+            tr.finish_entry(sid)
+        assert (tr.trace_collection.sum(axis=(1, 2)) > 0).all()
+        # access slot 0 so slot 1 is the LRU victim
+        tr.collection_access[0] = 5
+        sid = tr.create_entry()
+        tr.update_entry(sid, np.array([7]), 3)
+        tr.finish_entry(sid)
+        assert tr.trace_collection[1, 3, 7] == 1
+
+    def test_find_most_similar_matches_future_pattern(self):
+        tr = make_tracer()
+        # two historical traces with distinct future-layer (>=2) patterns
+        a = np.zeros((L, E), np.float32)
+        a[2, 0] = a[3, 1] = 10
+        b = np.zeros((L, E), np.float32)
+        b[2, 5] = b[3, 6] = 10
+        tr.trace_collection[0] = a
+        tr.trace_collection[1] = b
+        query = np.zeros((L, E), np.float32)
+        query[0, 2] = 3  # past layer (ignored)
+        query[2, 5] = 2
+        query[3, 6] = 1
+        out = tr.find_most_similar(query, layer_idx=1)
+        np.testing.assert_array_equal(out, b)
+        assert tr.collection_access[1] == 1
+
+    def test_save_load_roundtrip(self, tmp_path):
+        tr = make_tracer()
+        sid = tr.create_entry()
+        tr.update_entry(sid, np.array([1, 2]), 0)
+        tr.finish_entry(sid)
+        p = tmp_path / "trace.npz"
+        tr.save_trace(p)
+        tr2 = make_tracer()
+        tr2.load_trace(p)
+        np.testing.assert_array_equal(tr2.trace_collection, tr.trace_collection)
+        assert tr2.persistent_capacity == 4
+        # persistent entries are never evicted: finishing new seqs raises
+        # access of non-persistent... capacity all persistent -> overwrite
+        # is forbidden only below persistent_capacity; with all persistent,
+        # argmin over inf still picks index 0 — guard separately
+        tr3 = ExpertTracer(8, L, E)
+        tr3.load_trace(p)
+        assert tr3.persistent_capacity == 4
+
+    def test_load_shape_mismatch_raises(self, tmp_path):
+        tr = make_tracer()
+        p = tmp_path / "bad.npz"
+        np.savez(p, collection=np.zeros((2, 3, 3)), access=np.ones(2))
+        with pytest.raises(ValueError):
+            tr.load_trace(p)
+
+
+class TestPredictor:
+    def test_predict_layer_decay(self):
+        tr = make_tracer()
+        hist = np.zeros((L, E), np.float32)
+        hist[2, 4] = 4
+        hist[3, 4] = 4
+        tr.trace_collection[0] = hist
+        pred = ExpertPredictor(tr)
+        sid = tr.create_entry()
+        out = pred.predict(sid, np.array([4]), layer_idx=1)
+        assert out[:1].sum() == 0  # past zeroed
+        # nearer layer scores higher after decay
+        assert out[2, 4] > out[3, 4] > 0
+
+    def test_predict_records_activation(self):
+        tr = make_tracer()
+        pred = ExpertPredictor(tr)
+        sid = tr.create_entry()
+        pred.predict(sid, np.array([3, 3]), layer_idx=0)
+        assert tr.get_entry(sid).matrix[0, 3] == 2
+
+
+class TestCachePolicy:
+    def _fill(self, pol, keys):
+        for k in keys:
+            pol.on_insert(k)
+
+    def test_lru_evicts_oldest(self):
+        pol = ExpertCachePolicy(L, E, policy="lru")
+        self._fill(pol, [(0, 0), (1, 1), (2, 2)])
+        pol.record_visit((0, 0), hit=True)  # refresh (0,0)
+        assert pol.pick_victims(1, current_layer=0) == [(1, 1)]
+
+    def test_lru_layers_protects_window(self):
+        pol = ExpertCachePolicy(L, E, policy="lru_layers")
+        self._fill(pol, [(0, 0), (1, 1)])
+        # current layer 0: layers [0, 3) protected -> both in window except none
+        v = pol.pick_victims(2, current_layer=3)
+        assert (3, 0) not in v  # nothing at layer 3 resident; sanity
+        assert v[0] == (0, 0)  # layer 0 outside [3, 6) window, oldest first
+
+    def test_lfu_evicts_least_visited(self):
+        pol = ExpertCachePolicy(L, E, policy="lfu")
+        self._fill(pol, [(0, 0), (0, 1)])
+        pol.record_visit((0, 0), hit=True)
+        pol.record_visit((0, 0), hit=True)
+        pol.record_visit((0, 1), hit=True)
+        assert pol.pick_victims(1, 0) == [(0, 1)]
+
+    def test_protected_never_evicted(self):
+        pol = ExpertCachePolicy(L, E, policy="lru")
+        self._fill(pol, [(0, 0), (1, 1)])
+        pol.protect((0, 0))
+        pol.replace_candidates([(1, 1)])
+        assert pol.pick_victims(2, 0) == []
+        pol.unprotect((0, 0))
+        pol.replace_candidates([])
+        assert len(pol.pick_victims(2, 0)) == 2
+
+    def test_priority_prefers_evicting_far_unused(self):
+        pol = ExpertCachePolicy(L, E, policy="priority")
+        self._fill(pol, [(1, 0), (2, 0)])
+        # layer 1 is right after current layer 0; layer 2 further ahead.
+        # equal frequency -> the farther layer evicted first
+        pol.frequency[1, 0] = pol.frequency[2, 0] = 1
+        v = pol.pick_victims(1, current_layer=0)
+        assert v == [(2, 0)]
+
+    def test_priority_frequency_dominates_same_layer(self):
+        pol = ExpertCachePolicy(L, E, policy="priority")
+        self._fill(pol, [(1, 0), (1, 1)])
+        pol.frequency[1, 0] = 100
+        pol.frequency[1, 1] = 1
+        assert pol.pick_victims(1, current_layer=0) == [(1, 1)]
+
+    def test_hit_stats(self):
+        pol = ExpertCachePolicy(L, E, policy="lru")
+        pol.on_insert((0, 0), prefetched=True)
+        pol.record_visit((0, 0), hit=True)
+        pol.record_visit((0, 1), hit=False)
+        s = pol.stats
+        assert s.visits == 2 and s.hits == 1 and s.misses == 1
+        assert s.prefetch_hits == 1 and s.prefetches == 1
+        assert s.hit_rate == 0.5
+
+    def test_encoder_decoder_topo_score(self):
+        pol = ExpertCachePolicy(4, E, num_encoder_layers=2, policy="priority")
+        t_enc = pol._topo_score(current_layer=0)
+        assert t_enc[0] == 1.0  # current encoder layer
+        assert t_enc[1] < 1.0  # later encoder layers decay
+        t_dec = pol._topo_score(current_layer=3)
+        assert t_dec[3] == 1.0
+
+
+class TestPrefetchPlan:
+    def test_orders_by_score_desc_future_only(self):
+        m = np.zeros((L, E))
+        m[0, 0] = 99  # past — excluded
+        m[2, 1] = 5
+        m[3, 2] = 9
+        plan = plan_prefetch(m, current_layer=0)
+        assert plan == [(3, 2), (2, 1)]
+
+    def test_lookahead_and_budget(self):
+        m = np.ones((L, E))
+        plan = plan_prefetch(m, current_layer=0, lookahead=1, budget=3)
+        assert len(plan) == 3
+        assert all(l == 1 for l, _ in plan)
+
+    def test_skips_resident(self):
+        m = np.zeros((L, E))
+        m[1, 0] = 2
+        m[1, 1] = 1
+        plan = plan_prefetch(m, 0, is_resident=lambda k: k == (1, 0))
+        assert plan == [(1, 1)]
+
+
+class TestNodeStats:
+    """Per-(layer, expert) counter planes + hit-rate matrix."""
+
+    def test_counters_and_hit_rate_matrix(self):
+        pol = ExpertCachePolicy(L, E, policy="lru")
+        pol.on_insert((1, 2), prefetched=True)
+        pol.record_visit((1, 2), hit=True)
+        pol.record_visit((1, 2), hit=True)
+        pol.record_visit((1, 3), hit=False)
+        ns = pol.node_stats
+        assert ns["visits"][1, 2] == 2 and ns["hits"][1, 2] == 2
+        assert ns["prefetches"][1, 2] == 1 and ns["prefetch_hits"][1, 2] == 2
+        assert ns["misses"][1, 3] == 1
+        hr = pol.hit_rate_matrix()
+        assert hr[1, 2] == 1.0 and hr[1, 3] == 0.0
+        assert hr[0, 0] == 0.0  # unvisited → 0, no div-by-zero
+
+    def test_visit_refreshes_lru_timestamp(self):
+        pol = ExpertCachePolicy(L, E, policy="lru")
+        pol.on_insert((0, 0))
+        pol.on_insert((0, 1))
+        pol.record_visit((0, 0), hit=True)  # refresh 0 → 1 becomes oldest
+        assert pol.pick_victims(1, current_layer=0) == [(0, 1)]
+
+    def test_eviction_counter(self):
+        pol = ExpertCachePolicy(L, E, policy="lru")
+        pol.on_insert((2, 5))
+        pol.on_evict((2, 5))
+        assert pol.node_stats["evictions"][2, 5] == 1
+
+
+class TestTransitionTrace:
+    """Inter-layer expert transition counts (get_trace / set_trace)."""
+
+    def test_transitions_counted(self):
+        tr = make_tracer()
+        sid = tr.create_entry()
+        tr.update_entry(sid, np.array([0, 1]), layer_idx=0)
+        tr.update_entry(sid, np.array([2]), layer_idx=1)
+        t = tr.get_trace()
+        assert t.shape == (L - 1, E, E)
+        assert t[0, 0, 2] == 1 and t[0, 1, 2] == 1
+        assert t.sum() == 2
+
+    def test_non_adjacent_layers_not_counted(self):
+        tr = make_tracer()
+        sid = tr.create_entry()
+        tr.update_entry(sid, np.array([0]), layer_idx=0)
+        tr.update_entry(sid, np.array([1]), layer_idx=2)  # skipped layer 1
+        assert tr.get_trace().sum() == 0
+
+    def test_set_trace_roundtrip_and_shape_check(self):
+        tr = make_tracer()
+        t = np.zeros((L - 1, E, E), dtype=np.float32)
+        t[1, 3, 4] = 7
+        tr.set_trace(t)
+        assert tr.get_trace()[1, 3, 4] == 7
+        with pytest.raises(ValueError):
+            tr.set_trace(np.zeros((L, E, E)))
+
+    def test_save_load_carries_transitions(self, tmp_path):
+        tr = make_tracer()
+        sid = tr.create_entry()
+        tr.update_entry(sid, np.array([0]), layer_idx=0)
+        tr.update_entry(sid, np.array([1]), layer_idx=1)
+        tr.finish_entry(sid)
+        p = tmp_path / "trace.npz"
+        tr.save_trace(p)
+        tr2 = make_tracer()
+        tr2.load_trace(p)
+        assert tr2.get_trace()[0, 0, 1] == 1
+
+
+def test_affinity_sharpens_next_layer_prediction():
+    """Inter-layer transition counts feed prediction: with an empty
+    similarity collection, the next layer's top predicted expert is the
+    one the transition statistics imply."""
+    L, E = 3, 8
+    tracer = ExpertTracer(4, L, E)
+    # learned affinity: expert i at layer l -> expert (i + 1) % E at l+1
+    trans = np.zeros((L - 1, E, E), np.float32)
+    for l in range(L - 1):
+        for i in range(E):
+            trans[l, i, (i + 1) % E] = 50.0
+    tracer.set_trace(trans)
+
+    pred = ExpertPredictor(tracer, affinity_weight=0.5)
+    sid = tracer.create_entry()
+    score = pred.predict(sid, np.array([[3]]), 0)
+    assert int(np.argmax(score[1])) == 4  # affinity says 3 -> 4
+
+    # weight 0 disables the blend: uniform tiny scores, no sharpening
+    tracer2 = ExpertTracer(4, L, E)
+    tracer2.set_trace(trans)
+    pred0 = ExpertPredictor(tracer2, affinity_weight=0.0)
+    sid2 = tracer2.create_entry()
+    score0 = pred0.predict(sid2, np.array([[3]]), 0)
+    assert np.allclose(score0[1], score0[1][0])
+
+
+# ---------------------------------------------------------------------------
+# each port class against its JAX class on seeded random traces
+# ---------------------------------------------------------------------------
+
+NL, NE, NENC = 6, 8, 3
+
+
+def _drive_tracers(seed, cls_pairs):
+    """Feed the same random routing to a port and a JAX tracer+predictor:
+    several sequences, each over every layer for a few steps, finishing
+    into a collection of capacity 3 (so it evicts). Returns the per-call
+    outputs of both, for comparison."""
+    (tr, pred), (jtr, jpred) = cls_pairs
+    rng = np.random.default_rng(seed)
+    outs, jouts = [], []
+    for _ in range(5):
+        sid = tr.create_entry()
+        jsid = jtr.create_entry(sid)
+        for _ in range(3):
+            for layer in range(NL):
+                ids = rng.integers(0, NE, size=(2, int(rng.integers(1, 4)), 2))
+                outs.append(pred.predict(sid, ids, layer))
+                jouts.append(jpred.predict(jsid, ids, layer))
+                outs.append(tr.get_entry_decoder(sid).matrix)
+                jouts.append(jtr.get_entry_decoder(jsid).matrix)
+        obs = {NENC - 1: rng.integers(0, NE, 3), NENC: rng.integers(0, NE, 2)}
+        outs.append(pred.predict_block(sid, obs, from_layer=NENC))
+        jouts.append(jpred.predict_block(jsid, obs, from_layer=NENC))
+        layer = int(rng.integers(NL))
+        outs.append(tr.find_most_similar(tr.get_entry(sid).matrix, layer))
+        jouts.append(jtr.find_most_similar(jtr.get_entry(jsid).matrix, layer))
+        tr.finish_entry(sid)
+        jtr.finish_entry(jsid)
+    return outs, jouts
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("affinity", [0.0, 0.5])
+def test_tracer_and_predictor_equal_jax(seed, affinity):
+    tr = ExpertTracer(3, NL, NE, num_encoder_layers=NENC)
+    jtr = jmem.ExpertTracer(3, NL, NE, num_encoder_layers=NENC)
+    outs, jouts = _drive_tracers(seed, ((tr, ExpertPredictor(tr, affinity)),
+                                        (jtr, jmem.ExpertPredictor(jtr, affinity))))
+    assert len(outs) == len(jouts)
+    for a, b in zip(outs, jouts):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(tr.trace_collection, jtr.trace_collection)
+    np.testing.assert_array_equal(tr.collection_access, jtr.collection_access)
+    np.testing.assert_array_equal(tr.get_trace(), jtr.get_trace())
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_prefetch_plans_equal_jax(seed):
+    rng = np.random.default_rng(seed)
+    for _ in range(20):
+        m = rng.random((NL, NE)) * (rng.random((NL, NE)) > 0.4)
+        cur = int(rng.integers(-1, NL))
+        resident = {(int(rng.integers(NL)), int(rng.integers(NE))) for _ in range(6)}
+        for kw in (dict(), dict(lookahead=int(rng.integers(1, 4))),
+                   dict(budget=int(rng.integers(1, 12))),
+                   dict(lookahead=None, budget=5, balance_layers=True),
+                   dict(lookahead=2, budget=7, balance_layers=True)):
+            kw["is_resident"] = resident.__contains__
+            assert plan_prefetch(m, cur, **kw) == jmem.plan_prefetch(m, cur, **kw), kw
+    for args in [(None, 0.1, 4, 3, 8), (0.01, None, 4, 3, 8), (0.01, 0.002, 4, 3, 8),
+                 (0.005, 0.05, 2, 3, 16), (0.02, 0.0, 4, 3, 8), (1.0, 0.001, 4, 3, 8)]:
+        assert adaptive_prefetch_budget(*args) == j_budget(*args)
+
+
+@pytest.mark.parametrize("policy", ["lru", "lru_layers", "lfu", "priority"])
+@pytest.mark.parametrize("nenc", [0, NENC])
+def test_cache_policy_victims_equal_jax(policy, nenc):
+    pol = ExpertCachePolicy(NL, NE, num_encoder_layers=nenc, policy=policy)
+    jpol = jmem.ExpertCachePolicy(NL, NE, num_encoder_layers=nenc, policy=policy)
+    rng = np.random.default_rng(hash((policy, nenc)) % 2**32)
+    for step in range(300):
+        key = (int(rng.integers(NL)), int(rng.integers(NE)))
+        op = rng.integers(6)
+        for p in (pol, jpol):
+            if op == 0:
+                p.on_insert(key, prefetched=bool(step % 3 == 0))
+            elif op == 1:
+                p.record_visit(key, hit=key in p.resident)
+            elif op == 2:
+                p.protect(key)
+            elif op == 3:
+                p.unprotect(key)
+            elif op == 4:
+                p.replace_candidates([key, (key[0], (key[1] + 1) % NE)])
+            elif key in p.resident:
+                p.on_evict(key)
+        cur = int(rng.integers(NL))
+        dm = rng.random((NL, NE)) if step % 2 else None
+        n = int(rng.integers(1, 5))
+        assert pol.pick_victims(n, cur, dm) == jpol.pick_victims(n, cur, dm)
+        np.testing.assert_array_equal(pol._topo_score(cur), jpol._topo_score(cur))
+    assert pol.stats.as_dict() == jpol.stats.as_dict()
+    for k in pol.node_stats:
+        np.testing.assert_array_equal(pol.node_stats[k], jpol.node_stats[k])
+    np.testing.assert_array_equal(pol.hit_rate_matrix(), jpol.hit_rate_matrix())

@@ -1,0 +1,240 @@
+"""The port's per-layer offload engine (``runtime/engine_seq2seq.py``) on a
+tiny NLLB (4+4 blocks, every 2nd sparse, 4 experts, d_model 32, f32) on the
+CPU, against the JAX ``Seq2SeqOffloadEngine(speculative=False)`` and the
+port's resident ``Seq2SeqGenerator``, with arenas of E and 2E slots. The
+experts live in stores written from the JAX NllbModel.init_random weights
+with the JAX ExpertStoreWriter (f32, and packed int4 with per-channel
+scales); both packages read the same files.
+
+Greedy tokens are compared exactly. With prefetch off and one fetch worker
+the arena's order of events is fixed, so the hit, miss and eviction
+counters must equal the JAX engine's too."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from moe_infinity_tpu.memory import ExpertPredictor as JPredictor
+from moe_infinity_tpu.memory import ExpertTracer as JTracer
+from moe_infinity_tpu.models.nllb import NllbModel as JNllbModel
+from moe_infinity_tpu.models.nllb import NllbSpec as JNllbSpec
+from moe_infinity_tpu.runtime.arena import ExpertArena as JArena
+from moe_infinity_tpu.runtime.engine_seq2seq import Seq2SeqOffloadEngine as JEngine
+from moe_infinity_tpu.store.blob import ExpertStore as JStore
+from moe_infinity_tpu_torch.memory import ExpertPredictor, ExpertTracer
+from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
+from moe_infinity_tpu_torch.runtime.arena import ExpertArena
+from moe_infinity_tpu_torch.runtime.engine_seq2seq import Seq2SeqOffloadEngine
+from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
+from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+from moe_infinity_tpu_torch.store.blob import ExpertStore
+from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
+
+from torch_port_helpers import port_attention, to_port, write_nllb_store
+
+SPEC = dict(
+    vocab_size=96, d_model=32, num_heads=4, encoder_layers=4, decoder_layers=4,
+    encoder_ffn_dim=64, decoder_ffn_dim=64, encoder_sparse_step=2, decoder_sparse_step=2,
+    num_experts=4, pad_token_id=1, decoder_start_token_id=2, max_positions=64,
+    scale_embedding=True,
+)
+E, N_MOE, N_ENC = 4, 4, 2
+IDS = np.array([[5, 31, 8, 77, 40, 2], [9, 3, 44, 2, 1, 1]])
+MASK = (IDS != 1).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    jmodel = JNllbModel(JNllbSpec(**SPEC), compute_dtype=jnp.float32)
+    jparams, jtree = jmodel.init_random(jax.random.PRNGKey(5))
+    root = tmp_path_factory.mktemp("torch_s2s_offload")
+    stores = {q: write_nllb_store(root / q, jtree["layers"], q, N_ENC, seed=3)
+              for q in ("float32", "int4")}
+    model = NllbModel(NllbSpec(**SPEC), compute_dtype=torch.float32, device="cpu")
+    return jmodel, jparams, model, to_port(jparams), stores
+
+
+def _jax_engine(jmodel, jparams, path, slots, prefetch, threads):
+    arena = JArena(JStore(path), slots, compute_dtype=jnp.float32, num_threads=threads)
+    tracer = JTracer(16, N_MOE, E, num_encoder_layers=N_ENC)
+    return JEngine(jmodel, jparams, arena, tracer=tracer, predictor=JPredictor(tracer),
+                   prefetch=prefetch, speculative=False)
+
+
+def _port_engine(model, params, path, slots, prefetch, threads, impl="ragged", tier=None):
+    arena = ExpertArena(ExpertStore(path), slots, compute_dtype=torch.float32, device="cpu",
+                        num_threads=threads, pinned_tier=tier)
+    tracer = ExpertTracer(16, N_MOE, E, num_encoder_layers=N_ENC)
+    return Seq2SeqOffloadEngine(model, params, arena, tracer=tracer,
+                                predictor=ExpertPredictor(tracer), prefetch=prefetch, impl=impl)
+
+
+def _resident(model, params, path, impl="ragged"):
+    provider = ResidentProvider.from_store(ExpertStore(path), dtype=torch.float32, device="cpu")
+    return Seq2SeqGenerator(model, params, provider.pytree(), ResidentProvider.for_layer,
+                            impl=impl), provider
+
+
+GEN = dict(max_new_tokens=8, attention_mask=MASK, eos_token_id=None)
+
+
+@pytest.mark.parametrize("quant", ["float32", "int4"])
+@pytest.mark.parametrize("slots", [E, 2 * E])
+@pytest.mark.parametrize("prefetch", [False, True])
+def test_greedy_tokens_equal_jax_and_resident(setup, quant, slots, prefetch):
+    jmodel, jparams, model, params, stores = setup
+    threads = 2 if prefetch else 1
+    jeng = _jax_engine(jmodel, jparams, stores[quant], slots, prefetch, threads)
+    eng = _port_engine(model, params, stores[quant], slots, prefetch, threads)
+    res, _ = _resident(model, params, stores[quant])
+    try:
+        want = jeng.generate(IDS, **GEN)
+        with port_attention("naive"):
+            got = eng.generate(IDS, **GEN)
+            base = res.generate(IDS, **GEN)
+        np.testing.assert_array_equal(got.sequences, want.sequences)
+        np.testing.assert_array_equal(got.sequences, base.sequences)
+        np.testing.assert_array_equal(got.num_generated, want.num_generated)
+        assert got.stats["decode_steps"] == 8
+        s = eng.stats()
+        assert s["visits"] > 0 and (slots > E or s["evictions"] > 0)
+        assert not eng.tracer.trace  # every sequence finished into the collection
+        assert eng.tracer.trace_collection.sum() > 0
+        if not prefetch:
+            # one worker, no prefetch: the same order of events as the JAX arena
+            assert s == jeng.stats()
+            assert eng.decode_window_stats() == jeng.decode_window_stats()
+            got_ns, want_ns = eng.node_stats(), jeng.node_stats()
+            for k in want_ns:
+                np.testing.assert_array_equal(got_ns[k], want_ns[k], err_msg=k)
+            assert eng.hit_rate() == jeng.hit_rate()
+    finally:
+        jeng.arena.shutdown()
+        eng.arena.shutdown()
+
+
+def test_eos_stops_rows_like_jax(setup):
+    jmodel, jparams, model, params, stores = setup
+    jeng = _jax_engine(jmodel, jparams, stores["float32"], E, True, 2)
+    eng = _port_engine(model, params, stores["float32"], E, True, 2)
+    try:
+        # the token that the first row emits first, as its EOS
+        first = jeng.generate(IDS, max_new_tokens=1, attention_mask=MASK, eos_token_id=None)
+        eos = int(first.sequences[0, 1])
+        want = jeng.generate(IDS, max_new_tokens=8, attention_mask=MASK, eos_token_id=eos)
+        with port_attention("naive"):
+            got = eng.generate(IDS, max_new_tokens=8, attention_mask=MASK, eos_token_id=eos)
+        np.testing.assert_array_equal(got.sequences, want.sequences)
+        np.testing.assert_array_equal(got.num_generated, want.num_generated)
+    finally:
+        jeng.arena.shutdown()
+        eng.arena.shutdown()
+
+
+@pytest.mark.parametrize("staged", [0, 6, 16])
+def test_kernel_path_offload_equals_resident_exactly(setup, staged):
+    """impl="pallas" (K3's plain version on the CPU) with the encoder on the
+    same path, through an arena of E slots fed by the store, a partial tier
+    or a full one: first-step logits and tokens equal the resident path's
+    exactly (the same bytes through the same arithmetic; only the slot
+    numbering differs)."""
+    _, _, model, params, stores = setup
+    path = stores["int4"]
+    tier = None
+    if staged:
+        store = ExpertStore(path)
+        tier = PinnedExpertTier(store, device="cpu",
+                                max_bytes=staged * sum(f.nbytes for f in store.fields))
+        assert tier.num_staged == staged
+    eng = _port_engine(model, params, path, E, True, 2, impl="pallas", tier=tier)
+    res, provider = _resident(model, params, path, impl="pallas")
+    try:
+        tok, m = torch.as_tensor(IDS, dtype=torch.int32), torch.as_tensor(MASK)
+        with torch.inference_mode():
+            _, cross = eng.run_encoder(tok, m)
+            got = eng.decode_step(torch.full((2, 1), 2, dtype=torch.int32), 0,
+                                  eng.init_cache(2, 16), m, cross)
+            enc = model.encode(params, provider.pytree(), tok, m, ResidentProvider.for_layer,
+                               "pallas")
+            want, _ = model.decode_step(params, provider.pytree(), torch.full((2, 1), 2,
+                                        dtype=torch.int32), torch.zeros(2, 1, dtype=torch.int32),
+                                        model.init_cache(2, 16), 0, m,
+                                        model.cross_kv(params, enc),
+                                        ResidentProvider.for_layer, "pallas")
+        assert torch.equal(got, want)
+        np.testing.assert_array_equal(eng.generate(IDS, **GEN).sequences,
+                                      res.generate(IDS, **GEN).sequences)
+        fs = eng.arena.fetch_stats()
+        assert fs["fetches_tier"] > 0 if staged else fs["fetches_tier"] == 0
+        assert fs["fetches_store"] > 0 if staged < N_MOE * E else fs["fetches_store"] == 0
+    finally:
+        eng.arena.shutdown()
+
+
+def test_stage_protocol_matches_jax(setup):
+    """One encoder block and one decoder block through the stage functions
+    of both models: routing and outputs agree."""
+    jmodel, jparams, model, params, _ = setup
+    tok = jnp.asarray(IDS, jnp.int32)
+    jx, jbias, jq = jmodel.enc_prelude(jparams, tok, jnp.asarray(MASK))
+    x, bias, q = model.enc_prelude(params, torch.as_tensor(IDS, dtype=torch.int32),
+                                   torch.as_tensor(MASK))
+    np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(bias.numpy(), np.asarray(jbias))
+    with port_attention("naive"):
+        out = model.enc_block_sparse_pre(params["enc_blocks"][1], x, bias, q)
+        dense = model.enc_block_dense(params["enc_blocks"][0], x, bias, q)
+    jout = jmodel.enc_block_sparse_pre(jparams["enc_blocks"][1], jx, jbias, jq)
+    jdense = jmodel.enc_block_dense(jparams["enc_blocks"][0], jx, jbias, jq)
+    for a, b in zip(out, jout):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(out[3].numpy(), np.asarray(jout[3]))  # expert ids
+    np.testing.assert_allclose(dense.numpy(), np.asarray(jdense), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(model.enc_final(params, dense).numpy(),
+                               np.asarray(jmodel.enc_final(jparams, jdense)), rtol=1e-4,
+                               atol=1e-4)
+    assert model.dec_prelude(params, None, 16, torch.as_tensor(MASK))[0] is None
+
+
+def test_init_random_without_experts():
+    model = NllbModel(NllbSpec(**SPEC), compute_dtype=torch.float32, device="cpu")
+    params, tree = model.init_random(torch.Generator().manual_seed(0), with_experts=False)
+    assert tree is None
+    assert "router" in params["enc_blocks"][1] and "fc1" in params["enc_blocks"][0]
+
+
+def test_unported_options_raise(setup):
+    _, _, model, params, stores = setup
+    path = stores["int4"]
+    arena = ExpertArena(ExpertStore(path), E, compute_dtype=torch.float32, device="cpu")
+    try:
+        for kw in (dict(speculative=True), dict(stream_decode=True),
+                   dict(dense_arena=object()), dict(host_fallback=True)):
+            with pytest.raises(NotImplementedError):
+                Seq2SeqOffloadEngine(model, params, arena, **kw)
+        eng = Seq2SeqOffloadEngine(model, params, arena)
+        with pytest.raises(NotImplementedError):
+            eng.generate(IDS, max_new_tokens=2, temperature=0.7, do_sample=True)
+        with pytest.raises(NotImplementedError):
+            eng.reset_arena(arena, speculative=True)
+        with pytest.raises(ValueError, match="one full MoE layer"):
+            Seq2SeqOffloadEngine(model, params, ExpertArena(ExpertStore(path), E - 1,
+                                                            device="cpu"))
+        with pytest.raises(NotImplementedError):
+            NllbModel(NllbSpec(**SPEC), device="cpu", mesh="mesh").apply_ff(
+                None, torch.zeros(1, 1, 32), None, None, None, None, None, "ragged")
+    finally:
+        arena.shutdown()
+    # a tier that stages whole layers in layer-aligned segments could serve
+    # direct dispatch: asking for it raises; max_direct_layers=0 keeps slots
+    store = ExpertStore(path)
+    tier = PinnedExpertTier(store, device="cpu", align_rows=E)
+    arena = ExpertArena(store, E, compute_dtype=torch.float32, device="cpu", pinned_tier=tier)
+    try:
+        with pytest.raises(NotImplementedError):
+            Seq2SeqOffloadEngine(model, params, arena, max_direct_layers=None)
+        Seq2SeqOffloadEngine(model, params, arena)  # the default, 0
+    finally:
+        arena.shutdown()

@@ -94,3 +94,42 @@ def int4_expert_tree(rng, spec, n_layers):
             "down_bias": (rng.standard_normal((E, D)) * 0.02).astype(np.float32),
         })
     return {"layers": layers, "slot_map": np.arange(E, dtype=np.int32)}
+
+
+def write_nllb_store(path, expert_layers, quant, num_encoder_moe_layers, seed=0):
+    """Write an NLLB expert store with the JAX package's ExpertStoreWriter
+    from a JAX expert tree's layers ([E, D, F] gate, [E, F, D] down, compute
+    layout). quant "float32" keeps the weights; "int4" quantizes each output
+    channel (``store/quant.py``) and packs the nibbles along the output axis.
+    Biases are drawn from ``seed`` (init_random's are zero). Returns the
+    path."""
+    from moe_infinity_tpu.store.blob import ExpertStoreWriter
+    from moe_infinity_tpu.store.quant import quantize_rowwise
+
+    g0 = np.asarray(expert_layers[0]["gate"])
+    E, D, F = g0.shape
+    if quant == "int4":
+        fields = [("fc1.weight", (D, F // 2), "int4"), ("fc1.weight.scale", (F,), "float32"),
+                  ("fc1.bias", (F,), "float32"), ("fc2.weight", (F, D // 2), "int4"),
+                  ("fc2.weight.scale", (D,), "float32"), ("fc2.bias", (D,), "float32")]
+    else:
+        fields = [("fc1.weight", (D, F), "float32"), ("fc1.bias", (F,), "float32"),
+                  ("fc2.weight", (F, D), "float32"), ("fc2.bias", (D,), "float32")]
+    rng = np.random.default_rng(seed)
+    w = ExpertStoreWriter(str(path), len(expert_layers), E, fields,
+                          meta={"arch": "nllb", "num_encoder_moe_layers": num_encoder_moe_layers})
+    for layer, lay in enumerate(expert_layers):
+        for e in range(E):
+            for tail, role in (("fc1", "gate"), ("fc2", "down")):
+                a = np.asarray(lay[role][e], np.float32)
+                if quant == "int4":
+                    q, s = quantize_rowwise(a.T, "int4")  # [out/2, in] packed, scale [out]
+                    w.write_tensor(layer, e, tail + ".weight", np.ascontiguousarray(q.T))
+                    w.write_tensor(layer, e, tail + ".weight.scale", s)
+                else:
+                    w.write_tensor(layer, e, tail + ".weight", a)
+                n = a.shape[1]
+                w.write_tensor(layer, e, tail + ".bias",
+                               (rng.standard_normal(n) * 0.02).astype(np.float32))
+    w.finalize()
+    return str(path)

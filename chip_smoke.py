@@ -62,7 +62,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    sparse), an arena of 128 slots, against the resident ``Seq2SeqGenerator``
    over the same store's records (``ResidentProvider.from_store``): greedy
    tokens equal and first-step logits within the tolerance, on two seeds,
-   the second with the decoder records in a tier copied from the store.
+   the second with the decoder records in a tier copied from the store;
+11. the offload main path at ``bench.py``'s defaults: phase 9's build served
+   by the speculative engine (``speculative=True``, ``spec_block=4``, route
+   margin 2): blocks of up to 4 greedy steps on the device with no host
+   read inside, verified once per dispatch and replayed on a miss; one
+   warm-up generate with every dispatch under
+   ``torch.cuda.set_sync_debug_mode("error")``, the timed generate, then a
+   profile of one block on the device and on the host; K1, K2 and K3 must
+   launch 24, 24 and 12 times per executed decoder step plus one encode's,
+   evictions must occur and some block must run more than once;
+12. its whole-path check: phase 10's set-up through the speculative engine
+   at k=1 and at k=4 in both ``MOE_SPEC_BLOCK_MODE`` modes, on both seeds:
+   greedy tokens equal to the resident path's, the first accepted step's
+   logits within the tolerance, and some step or block run more than once.
 
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
@@ -72,13 +85,13 @@ layers under other split plans, and stops the same way;
 ``python3 chip_smoke.py --mla`` does the same for K5: phase 2's K5 checks
 and times alone (V2-Lite's decode step, long rows, H=128; the same inputs
 as in the whole run), then K5 under other split plans.
-``python3 chip_smoke.py --offload`` runs the build and phases 9 and 10
+``python3 chip_smoke.py --offload`` runs the build and phases 9 to 12
 alone; ``--resident`` the build and phases 3, 5 and 7 (to hold those paths
 against another tree's in one call). Each prints no result line.
 Every phase prints its seconds (``[phase]``).
 
 The line before the last is the per-kernel JSON record (launches: the sum
-of the counts of phases 3, 5, 7 and 9); the last line is
+of the counts of phases 3, 5, 7, 9 and 11); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -89,6 +102,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -1174,8 +1188,8 @@ def _profile_main_path(model, params, provider, ids, mask):
 
     def decode():
         pos = torch.full((B, 1), step[0], dtype=torch.int32, device=dev)
-        logits, _ = model.decode_step(params, experts, cur, pos, kvs, step[0], m, cross,
-                                      for_layer, "pallas")
+        logits, _, _ = model.decode_step(params, experts, cur, pos, kvs, step[0], m, cross,
+                                         for_layer, "pallas")
         cur.copy_(torch.argmax(logits[:, -1], -1, keepdim=True))
         step[0] += 1
 
@@ -1197,8 +1211,8 @@ def _first_step_logits(model, params, provider, ids, mask, impl):
     start = torch.full((tok.shape[0], 1), model.spec.decoder_start_token_id,
                        dtype=torch.int32, device=dev)
     pos = torch.zeros_like(start)
-    logits, _ = model.decode_step(params, experts, start, pos, kvs, 0, m, cross,
-                                  ResidentProvider.for_layer, impl)
+    logits, _, _ = model.decode_step(params, experts, start, pos, kvs, 0, m, cross,
+                                     ResidentProvider.for_layer, impl)
     return logits
 
 
@@ -1751,10 +1765,11 @@ def _offload_store(spec, seed=0, cache_records=64):
                           seed=seed, distinct_records=True, cache_records=cache_records)
 
 
-def _offload_engine(model, params, store, num_slots, tier):
-    """bench.py's engine (`_nllb_build`) on the per-layer path: EAMC tracer
-    and predictor, prefetch with lookahead 3 and budget 8, the priority
-    policy, 4 fetch workers, K3 for every expert FFN."""
+def _offload_engine(model, params, store, num_slots, tier, **kw):
+    """bench.py's engine (`_nllb_build`): EAMC tracer and predictor, prefetch
+    with lookahead 3 and budget 8, the priority policy, 4 fetch workers, K3
+    for every expert FFN; the per-layer path unless ``kw`` asks for the
+    speculative one."""
     from moe_infinity_tpu_torch.memory import ExpertPredictor, ExpertTracer
     from moe_infinity_tpu_torch.runtime.arena import ExpertArena
     from moe_infinity_tpu_torch.runtime.engine_seq2seq import Seq2SeqOffloadEngine
@@ -1765,7 +1780,7 @@ def _offload_engine(model, params, store, num_slots, tier):
                         device=model.device, num_threads=4, pinned_tier=tier)
     return Seq2SeqOffloadEngine(model, params, arena, tracer=tracer,
                                 predictor=ExpertPredictor(tracer), prefetch=True, lookahead=3,
-                                prefetch_budget=8, impl="pallas")
+                                prefetch_budget=8, impl="pallas", **kw)
 
 
 def _tree_bytes(tree):
@@ -1776,16 +1791,13 @@ def _tree_bytes(tree):
     return tree.numel() * tree.element_size()
 
 
-def phase_offload(dev):
-    """NLLB-MoE-54B at full width and depth served by the per-layer offload
-    engine: bf16 dense weights from a seed, int4 experts in a slot arena of
-    bench.py's --hbm-gb 13 budget, fed from a 14 GiB page-locked tier
-    (decoder records first, made on the card) and from the store (the
-    records that do not fit; kept in host memory after their first read, as
-    a page-cached store keeps them). One warm-up generate, then a timed one
-    of phase 3's 4 requests x 16 greedy tokens."""
+def _offload_build(dev):
+    """Phase 9's and 11's set-up: bf16 dense weights from a seed, the int4
+    store, a 14 GiB page-locked tier (decoder records first, made on the
+    card), and the slot count of bench.py's --hbm-gb 13 budget; the records
+    the tier does not hold are kept in host memory after their first read,
+    as a page-cached store keeps them."""
     from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
-    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
     from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
 
     spec = NllbSpec(**NLLB_54B)
@@ -1798,26 +1810,43 @@ def phase_offload(dev):
     params, _ = model.init_random(g, with_experts=False)
     dense = _tree_bytes(params)
     store = _offload_store(spec, cache_records=spec.encoder_layers * E)
-    n_rec = store.num_layers * E
     tier = PinnedExpertTier(store, device=dev, shared_record=False, max_bytes=TIER_GB * 2**30,
                             synth_on_device=True)
     torch.cuda.synchronize()
     t_tier = time.perf_counter() - t0
     slots = max(E, int((HBM_GB * 2**30 - dense - KV_RESERVE) // store.stride))
-    engine = _offload_engine(model, params, store, slots, tier)
-    arena = engine.arena
+    ids, mask = _requests(spec.vocab_size, g, dev)
+    return SimpleNamespace(spec=spec, model=model, params=params, dense=dense, store=store,
+                           tier=tier, slots=slots, t0=t0, t_tier=t_tier, ids=ids, mask=mask)
+
+
+def _say_offload_setup(tag, b, arena):
+    spec, store, tier, E = b.spec, b.store, b.tier, b.spec.num_experts
+    n_rec = store.num_layers * E
+    n_enc = store.meta["num_encoder_moe_layers"]
     dec_staged = sum(tier.record_index(l, e) is not None
-                     for l in range(store.meta["num_encoder_moe_layers"], store.num_layers)
-                     for e in range(E))
-    say(f"[offload] NLLB-MoE-54B, depth {spec.encoder_layers}+{spec.decoder_layers} blocks, "
+                     for l in range(n_enc, store.num_layers) for e in range(E))
+    say(f"[{tag}] NLLB-MoE-54B, depth {spec.encoder_layers}+{spec.decoder_layers} blocks, "
         f"{store.num_layers} MoE layers x {E} experts = {n_rec} int4 records of "
         f"{store.stride / 1e6:.2f} MB ({n_rec * store.stride / 1e9:.2f} GB); dense bf16 "
-        f"{dense / 1e9:.2f} GB; tier {json.dumps(tier.stats())} "
+        f"{b.dense / 1e9:.2f} GB; tier {json.dumps(tier.stats())} "
         f"{'page-locked' if tier.fields['fc1.weight'][0].is_pinned() else 'pageable'}, "
-        f"{dec_staged} of {n_rec - store.meta['num_encoder_moe_layers'] * E} decoder records; "
-        f"arena {slots} slots ({slots / n_rec:.3f} of the experts), {arena.nbytes() / 1e9:.2f} GB; "
-        f"set-up {time.perf_counter() - t0:.1f} s (tier {t_tier:.1f} s)")
-    ids, mask = _requests(spec.vocab_size, g, dev)
+        f"{dec_staged} of {n_rec - n_enc * E} decoder records; arena {b.slots} slots "
+        f"({b.slots / n_rec:.3f} of the experts), {arena.nbytes() / 1e9:.2f} GB; set-up "
+        f"{time.perf_counter() - b.t0:.1f} s (tier {b.t_tier:.1f} s)")
+
+
+def phase_offload(dev):
+    """NLLB-MoE-54B at full width and depth served by the per-layer offload
+    engine (``_offload_build``). One warm-up generate, then a timed one of
+    phase 3's 4 requests x 16 greedy tokens."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+
+    b = _offload_build(dev)
+    spec, tier, ids, mask = b.spec, b.tier, b.ids, b.mask
+    engine = _offload_engine(b.model, b.params, b.store, b.slots, tier)
+    arena = engine.arena
+    _say_offload_setup("offload", b, arena)
     try:
         t0 = time.perf_counter()
         engine.generate(ids, max_new_tokens=NEW_TOKENS, attention_mask=mask, eos_token_id=None)
@@ -1865,7 +1894,7 @@ def phase_offload(dev):
         _profile_offload_step(engine, ids, mask)
     finally:
         arena.shutdown()
-    del engine, arena, tier, store, params, model
+    del engine, arena, tier, b
     torch.cuda.empty_cache()
     return counts
 
@@ -2042,6 +2071,262 @@ def phase_offload_whole_path(dev):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 11 and 12: the speculative offload path (bench.py's default)
+# ---------------------------------------------------------------------------
+
+NLLB_ENCODE_LAUNCHES = {"flash_attend": 24, "gmm": 12}  # one encode of NLLB-MoE-54B
+NLLB_STEP_LAUNCHES = {"flash_decode": 24, "flash_attend": 24, "gmm": 12}  # one decoder step
+
+
+def _sync_guard(engine):
+    """Run every speculative step's and block's launches under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host read inside raises.
+    The slot-row upload comes before the guarded call and the trace read
+    after it. Returns the count of guarded calls and a function that takes
+    the guard off."""
+    n = [0]
+
+    def guard(fn):
+        def run(*a):
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+            n[0] += 1
+            return out
+        return run
+
+    block_fn, step_fn = engine._spec_block_fn, engine._spec_step
+    engine._spec_block_fn = lambda k: guard(block_fn(k))
+    engine._spec_step = guard(step_fn)
+
+    def off():
+        del engine._spec_block_fn, engine._spec_step
+
+    return n, off
+
+
+def phase_offload_spec(dev):
+    """Phase 9's build served by the speculative engine, as bench.py's
+    ``nllb-offload`` preset builds it (``speculative=True``, ``spec_block=4``,
+    route margin 2): blocks of up to 4 greedy steps on the device with no
+    host read inside, verified once per dispatch. One warm-up generate with
+    every block under the sync-debug guard, then a timed one of phase 3's 4
+    requests x 16 greedy tokens, then a profile of one block on the device
+    and on the host."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.engine import spec_block_diag, speculative_stats
+
+    b = _offload_build(dev)
+    spec, tier, ids, mask = b.spec, b.tier, b.ids, b.mask
+    engine = _offload_engine(b.model, b.params, b.store, b.slots, tier, speculative=True,
+                             spec_block=4)
+    arena = engine.arena
+    _say_offload_setup("spec", b, arena)
+    gen = dict(max_new_tokens=NEW_TOKENS, attention_mask=mask, eos_token_id=None)
+    try:
+        guarded, unguard = _sync_guard(engine)
+        t0 = time.perf_counter()
+        engine.generate(ids, **gen)
+        torch.cuda.synchronize()
+        unguard()
+        say(f"[spec] warm-up generate {time.perf_counter() - t0:.1f} s, {guarded[0]} "
+            f"dispatches under sync_debug_mode=error with no host read; stats "
+            f"{json.dumps(engine.stats())}, executions {engine.replay_counts}")
+        if guarded[0] == 0:
+            raise AssertionError("speculative path: no dispatch ran under the sync guard")
+        f0, s0 = arena.fetch_stats(), engine.stats()
+        pt0, lc0, x0 = dict(engine.phase_timings), dict(engine.lease_counts), engine.executed_steps
+        r0, l0, k0 = len(engine.replay_counts), len(engine.spec_log), len(engine._k_trace)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = engine.generate(ids, **gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        steps = engine.executed_steps - x0
+        f1, s1 = arena.fetch_stats(), engine.stats()
+        dw = engine.decode_window_stats()
+        st = res.stats
+        execs = engine.replay_counts[r0:]
+        timings = {k: round(v - pt0.get(k, 0.0), 6) for k, v in engine.phase_timings.items()}
+        say(f"[spec] sequences shape {res.sequences.shape}; first row "
+            f"{res.sequences[0].tolist()}")
+        say(f"[spec] encode_ms={st['encode_ms']:.3f} decode_ms_per_token="
+            f"{st['decode_ms'] / NEW_TOKENS:.3f} tokens_per_s="
+            f"{len(SRC_LENS) * NEW_TOKENS / (st['decode_ms'] / 1e3):.1f} wall_s={wall:.3f}")
+        say(f"[spec] blocks={len(execs)} executions={execs} k_trace={engine._k_trace[k0:]} "
+            f"k_now={engine.spec_block} chosen={engine._chosen} executed_steps={steps} "
+            f"speculative={engine.speculative} step_times="
+            f"{[(n, round(t, 4)) for n, t in engine.step_times]}")
+        say(f"[spec] speculative_stats {json.dumps(speculative_stats(execs))} (all: "
+            f"{json.dumps(speculative_stats(engine.replay_counts))}) spec_block_diag "
+            f"{json.dumps(spec_block_diag(engine.spec_log[l0:]))}")
+        say(f"[spec] phase_timings (timed generate, s) {json.dumps(timings)}")
+        say(f"[spec] decode window: hit_rate={dw['decode_hit_rate']:.4f} visits={dw['visits']} "
+            f"misses={dw['misses']} evictions={dw['evictions']} miss_by_layer="
+            f"{dw['miss_by_layer']} miss_churn={dw['miss_churn']} miss_fresh={dw['miss_fresh']} "
+            f"distinct_routed={dw['distinct_routed']}")
+        say(f"[spec] timed generate: visits={s1['visits'] - s0['visits']} misses="
+            f"{s1['misses'] - s0['misses']} evictions={s1['evictions'] - s0['evictions']} "
+            f"prefetches={s1['prefetches'] - s0['prefetches']} fetches tier="
+            f"{f1['fetches_tier'] - f0['fetches_tier']} store="
+            f"{f1['fetches_store'] - f0['fetches_store']} lease_evictions="
+            f"{f1['lease_evictions'] - f0['lease_evictions']} lease_misses="
+            f"{engine.lease_counts.get('lease_misses', 0) - lc0.get('lease_misses', 0)} "
+            f"lease_rejects="
+            f"{engine.lease_counts.get('lease_rejects', 0) - lc0.get('lease_rejects', 0)} "
+            f"fetch_seconds_ewma={f1['fetch_seconds_ewma']:.6f}")
+        say(f"[spec] tier_gb={tier.stats()['pinned_tier_gb']} arena_gb="
+            f"{arena.nbytes() / 2**30:.3f} max_memory_allocated_gb="
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        want = {k: NLLB_ENCODE_LAUNCHES.get(k, 0) + n * steps
+                for k, n in NLLB_STEP_LAUNCHES.items()}
+        say(f"[spec] launches {json.dumps(counts)}; expected from {steps} executed steps "
+            f"and one encode {json.dumps(want)}")
+        if res.sequences.shape != (len(SRC_LENS), NEW_TOKENS + 1):
+            raise AssertionError(f"unexpected output shape {res.sequences.shape}")
+        if not np.all((res.sequences >= 0) & (res.sequences < spec.vocab_size)):
+            raise AssertionError("token ids out of range")
+        _require_launched(counts, NLLB_KERNELS, "NLLB speculative offload path")
+        if any(counts[k] != n for k, n in want.items()):
+            raise AssertionError(f"speculative path: launches {counts} != {want}")
+        if s1["evictions"] <= 0 or max(engine.replay_counts) <= 1:
+            raise AssertionError(f"speculative path: no evictions or no block ran more than "
+                                 f"once ({s1}, {engine.replay_counts})")
+        _profile_spec_block(engine, ids, mask)
+    finally:
+        arena.shutdown()
+    del engine, arena, tier, b
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _profile_spec_block(engine, ids, mask):
+    """One encode through the engine, one block, then two blocks at the size
+    the hill-climb holds, under the profiler and under cProfile."""
+    model = engine.model
+    dev = model.device
+    tok = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+    m = torch.as_tensor(mask, device=dev)
+    B, k = tok.shape[0], engine.spec_block
+    seq_ids = [engine.tracer.create_entry() for _ in range(B)]
+    with torch.inference_mode():
+        _, cross = engine.run_encoder(tok, m, seq_ids)
+        engine._prefetch_decoder_tier(seq_ids)
+        kvs = engine.init_cache(B, 32)
+        state = {"cur": torch.full((B, 1), model.spec.decoder_start_token_id,
+                                   dtype=torch.int32, device=dev), "step": 0}
+
+        def block():
+            toks, _ = engine._speculative_block(state["cur"], state["step"], kvs, m, cross,
+                                                engine.dec_mlis, seq_ids, k)
+            state["cur"] = torch.as_tensor(toks[:, -1:], dtype=torch.int32).to(dev)
+            state["step"] += k
+
+        block()
+        r0 = len(engine.replay_counts)
+        _profile_streams(f"speculative block (4 rows, k={k}, 6 MoE layers)", block, 2)
+        _host_profile(f"speculative block (k={k})", block, 2)
+        say(f"[profile] executions of the profiled blocks {engine.replay_counts[r0:]}")
+    for sid in seq_ids:
+        engine.tracer.finish_entry(sid)
+
+
+def phase_offload_spec_whole_path(dev):
+    """The speculative engine against the resident Seq2SeqGenerator at f32,
+    full width, 4+4 blocks with every 2nd sparse, an arena of E slots,
+    prefetch on and 4 workers (phase 10's set-up): whole steps (k=1) and
+    blocks of 4 in both MOE_SPEC_BLOCK_MODE modes, on seeds 11 (store only)
+    and 12 (decoder records in a tier copied from the store). Greedy tokens
+    must be equal and the first accepted step's logits within the
+    tolerance; some step or block must run more than once."""
+    import os
+
+    from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+    from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
+
+    spec = NllbSpec(**dict(NLLB_54B, encoder_layers=4, decoder_layers=4,
+                           encoder_sparse_step=2, decoder_sparse_step=2))
+    E = spec.num_experts
+    replays = []
+    for seed, staged in ((11, False), (12, True)):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        model = NllbModel(spec, compute_dtype=torch.float32, device=dev)
+        params, _ = model.init_random(g, with_experts=False)
+        store = _offload_store(spec, seed=seed, cache_records=4 * E)
+        provider = ResidentProvider.from_store(store, dtype=torch.float32, device=dev)
+        tier = None
+        if staged:
+            n_dec = (store.num_layers - store.meta["num_encoder_moe_layers"]) * E
+            tier = PinnedExpertTier(store, device=dev, shared_record=False,
+                                    max_bytes=n_dec * store.stride, synth_on_device=False)
+        ids, mask = _requests(spec.vocab_size, g, dev)
+        gen = dict(max_new_tokens=NEW_TOKENS, attention_mask=mask, eos_token_id=None)
+        want = Seq2SeqGenerator(model, params, provider.pytree(), ResidentProvider.for_layer,
+                                impl="pallas").generate(ids, **gen)
+        want_logits = _first_step_logits(model, params, provider, ids, mask, "pallas")
+        for k, mode in ((1, "whole"), (4, "whole"), (4, "prefix")):
+            engine = _offload_engine(model, params, store, E, tier, speculative=True,
+                                     spec_block=k)
+            step0 = []  # step 0's logits of every execution; the last is the accepted one
+            decode_step = model.decode_step
+
+            def recording(*a, **kw):
+                out = decode_step(*a, **kw)
+                if a[5] == 0:
+                    step0.append(out[0].clone())
+                return out
+
+            kept = os.environ.get("MOE_SPEC_BLOCK_MODE")
+            os.environ["MOE_SPEC_BLOCK_MODE"] = mode
+            model.decode_step = recording
+            try:
+                reset_launches()
+                got = engine.generate(ids, **gen)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                stats, fetch = engine.stats(), engine.arena.fetch_stats()
+            finally:
+                del model.decode_step
+                if kept is None:
+                    del os.environ["MOE_SPEC_BLOCK_MODE"]
+                else:
+                    os.environ["MOE_SPEC_BLOCK_MODE"] = kept
+                engine.arena.shutdown()
+            what = f"seed {seed} k={k} {mode}"
+            if not step0:
+                raise AssertionError(f"speculative whole-path check {what}: step 0 never ran "
+                                     "speculatively")
+            _require_launched(counts, NLLB_KERNELS, f"NLLB speculative whole-path check {what}")
+            say(f"[check] speculative {what} ({'tier + store' if staged else 'store only'}): "
+                f"{E} slots, executions {engine.replay_counts}, evictions "
+                f"{stats['evictions']}, misses {stats['misses']}, lease_evictions "
+                f"{fetch['lease_evictions']}, {json.dumps(engine.lease_counts)}, "
+                f"speculative={engine.speculative}")
+            compare(f"speculative vs resident first accepted step's logits f32 {what} (full "
+                    f"width, 4+4 blocks, int4 experts, {E}-slot arena)", step0[-1], want_logits)
+            same = np.array_equal(got.sequences, want.sequences)
+            say(f"[check] speculative vs resident greedy tokens {what}: "
+                f"{'equal' if same else 'DIFFER'} {got.sequences[0].tolist()}")
+            if not same:
+                raise AssertionError(f"speculative tokens differ from the resident path's "
+                                     f"({what})")
+            replays += engine.replay_counts
+            del engine
+        del model, params, store, provider, tier
+        torch.cuda.empty_cache()
+    if max(replays) <= 1:
+        raise AssertionError("speculative whole-path check: no step or block ran twice")
+
+
 def sweep_decode_plans(dev):
     """``--decode-plans``: K4 at the Mixtral decode shape and at the long rows
     under split plans aimed at 2 to 8 blocks per SM (the wrapper's
@@ -2190,6 +2475,8 @@ def main() -> int:
     if "--offload" in sys.argv[1:]:
         timed(phase_offload)
         timed(phase_offload_whole_path)
+        timed(phase_offload_spec)
+        timed(phase_offload_spec_whole_path)
         say(f"[card] {smi}")
         return 0
     if "--resident" in sys.argv[1:]:
@@ -2207,8 +2494,11 @@ def main() -> int:
     timed(phase_deepseek_whole_path)
     off_counts = timed(phase_offload)
     timed(phase_offload_whole_path)
+    spec_counts = timed(phase_offload_spec)
+    timed(phase_offload_spec_whole_path)
     for r in recs:
-        r["launches"] = sum(c[r["name"]] for c in (counts, mix_counts, mla_counts, off_counts))
+        r["launches"] = sum(c[r["name"]] for c in (counts, mix_counts, mla_counts, off_counts,
+                                                  spec_counts))
         r.pop("shape")
     say(f"[card] {smi}")
     print(json.dumps({"kernels": recs}), flush=True)

@@ -93,6 +93,9 @@ class NllbModel:
             device=self.device,
         )
         self._scale = spec.d_model ** 0.5 if spec.scale_embedding else 1.0
+        # runner-up experts per (token, layer) that ``decode_step``'s trace
+        # carries beyond the top-2 (the speculative engine sets it)
+        self.route_margin = 0
 
     # ---- params ---------------------------------------------------------
     def init_random(self, generator: torch.Generator, device=None, expert_dtype="int4",
@@ -201,9 +204,11 @@ class NllbModel:
         v = linear(x, a["v"], a["vb"]).reshape(B, T, H, D // H)
         return k, v
 
-    def _route_top2(self, b, h):
+    def _route_top2(self, b, h, margin: int = 0):
         """Eval-mode NLLB top-2 (no capacity dropping): (cw [BT, 2] f32,
-        ids [BT, 2] int32)."""
+        ids [BT, 2] int32, trace_ids [BT, 2 + margin] int32). trace_ids are
+        the top-2, then the next ``margin`` experts by logit; equal logits
+        go in ascending expert order, the order ``lax.top_k`` gives."""
         E = self.spec.num_experts
         B, T, D = h.shape
         logits = linear(h.float(), b["router"]).reshape(B * T, E)
@@ -219,7 +224,11 @@ class NllbModel:
         denom = torch.clamp(w1 + w2, min=torch.finfo(torch.float32).eps)
         ids = torch.stack([top1, top2], dim=-1).to(torch.int32)
         cw = torch.stack([w1 / denom, w2 / denom], dim=-1)
-        return cw, ids
+        if margin <= 0:
+            return cw, ids, ids
+        masked2 = masked.scatter(1, top2[:, None], float("-inf"))
+        nxt = torch.sort(masked2, dim=-1, descending=True, stable=True).indices[:, :margin]
+        return cw, ids, torch.cat([ids, nxt.to(torch.int32)], dim=-1)
 
     def _positions(self, tokens, past):
         mask = (tokens != self.spec.pad_token_id).to(torch.int32)
@@ -263,7 +272,7 @@ class NllbModel:
         """(x, h, cw [B, T, 2], ids [B, T, 2]): attention and routing."""
         x, h = self._enc_attn(b, x, bias, q_pos)
         B, T, _ = h.shape
-        cw, ids = self._route_top2(b, h)
+        cw, ids, _ = self._route_top2(b, h)
         return x, h, cw.reshape(B, T, -1), ids.reshape(B, T, -1)
 
     def enc_block_dense(self, b, x, bias, q_pos):
@@ -295,7 +304,7 @@ class NllbModel:
         place."""
         x, h, kv = self._dec_attn(b, x, kv, positions, kv_len, bias, ck, cv, cross_bias)
         B, T, _ = h.shape
-        cw, ids = self._route_top2(b, h)
+        cw, ids, _ = self._route_top2(b, h)
         return x, h, cw.reshape(B, T, -1), ids.reshape(B, T, -1), kv
 
     def dec_block_dense(self, b, x, kv, positions, kv_len, bias, ck, cv, cross_bias):
@@ -340,18 +349,30 @@ class NllbModel:
                     enc_mask, cross, for_layer, impl="ragged"):
         """One decoder step for tokens [B, T] at cache offset ``kv_len``;
         writes the step's K/V into ``kvs`` in place. Returns (logits
-        [B, T, V] f32, kvs)."""
+        [B, T, V] f32, kvs, trace): trace is the routed ids of the decoder's
+        sparse layers in order, [L_dec_moe, B, T, 2 + route_margin] int32,
+        left on the device."""
         s = self.spec
+        B, T = dec_tokens.shape
         bias, cross_bias = self.dec_prelude(params, positions, kvs[0].max_len, enc_mask)
         x = self.dec_embed(params, dec_tokens, kv_len)
+        trace = []
         for i, b in enumerate(params["dec_blocks"]):
             ck, cv = cross[i]
             if s.is_sparse(i, True):
-                x, h, cw, ids, kvs[i] = self.dec_block_sparse_pre(
-                    b, x, kvs[i], positions, kv_len, bias, ck, cv, cross_bias)
+                x, h, kvs[i] = self._dec_attn(b, x, kvs[i], positions, kv_len, bias, ck, cv,
+                                              cross_bias)
+                cw, ids, trace_ids = self._route_top2(b, h, self.route_margin)
+                trace.append(trace_ids.reshape(B, T, -1))
                 weights, slot_map, biases = for_layer(experts, s.moe_layer_id(i, True))
-                x = self.apply_ff(x, h, cw, ids, weights, slot_map, biases, impl)
+                x = self.apply_ff(x, h, cw.reshape(B, T, -1), ids.reshape(B, T, -1), weights,
+                                  slot_map, biases, impl)
             else:
                 x, kvs[i] = self.dec_block_dense(
                     b, x, kvs[i], positions, kv_len, bias, ck, cv, cross_bias)
-        return self.dec_final(params, x), kvs
+        if trace:
+            trace = torch.stack(trace)
+        else:
+            trace = torch.empty((0, B, T, 2 + self.route_margin), dtype=torch.int32,
+                                device=x.device)
+        return self.dec_final(params, x), kvs, trace

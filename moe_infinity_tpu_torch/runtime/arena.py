@@ -26,9 +26,18 @@ place of the JAX package's donation and dispatch leases:
   (``locked_tree(keys)``);
 * write after read: a slot is evicted as soon as its key is released,
   while the K3 launch that read it may still be queued. When a
-  ``locked_tree`` scope ends it records an event on the compute stream; a
-  worker's stream waits on the newest such event, and on the slot's
-  previous landing, before it overwrites the slot.
+  ``locked_tree`` or ``dispatch_snapshot`` scope ends it records an event
+  on the compute stream; a worker's stream waits on the newest such event,
+  and on the slot's previous landing, before it overwrites the slot.
+
+A speculative dispatch (``dispatch_snapshot``) reads the slots of keys it
+has not acquired, so a worker may evict one of them and queue the copy of
+another record into its slot before the scope ends: that copy is fenced
+only by the previous scope's event. The arena does not hold the copy back
+(fetches go on overlapping the dispatch); it records every key evicted
+while the scope is open and takes it out of the scope's resident set when
+the scope ends, so verification counts it as a miss and the execution that
+may have read the new record is never accepted.
 
 On the CPU (``device="cpu"``) copies are synchronous and no event is made.
 
@@ -160,6 +169,14 @@ class ExpertArena:
         # reads were queued (see locked_tree)
         self._landed: List[Optional[torch.cuda.Event]] = [None] * num_slots
         self._read_done: Optional[torch.cuda.Event] = None
+        # slots landed since the last dispatch_snapshot made its stream wait
+        self._fresh_slots: set = set()
+        # one set per open dispatch_snapshot: the keys evicted while it is open
+        self._lease_evicted: List[set] = []
+        # snapshot-resident keys that verification had to count as misses,
+        # in all and in the last dispatch_snapshot scope
+        self.lease_evictions = 0
+        self.last_lease_lost: set = set()
 
         # ---- fetch machinery ---------------------------------------------
         self._lock = threading.Lock()  # protects all residency state
@@ -228,6 +245,51 @@ class ExpertArena:
                 ev.record(torch.cuda.current_stream(self.device))
                 with self._lock:
                     self._read_done = ev
+
+    @contextmanager
+    def dispatch_snapshot(self, timings: Optional[dict] = None):
+        """Yield (slot tensors, slot rows [L, E] int32 on the device, resident
+        keys) for one speculative dispatch, taken together under the
+        residency lock; the rows are a copy, uploaded once, synchronously,
+        before the scope's launches. Queue every read of the slots inside the
+        scope, all on the current stream; the stream first waits on every
+        landing it has not waited on yet, so each resident slot holds its
+        record. A key evicted while the scope is open leaves the resident
+        set when the scope ends (its slot may have been overwritten under
+        the queued reads): judge the execution on the set after the scope.
+        timings: ``lock_wait_s`` accumulates the wait for the lock."""
+        t0 = _time.perf_counter()
+        with self._lock:
+            if timings is not None:
+                timings["lock_wait_s"] = (timings.get("lock_wait_s", 0.0)
+                                          + _time.perf_counter() - t0)
+            rows = self.expert_to_slot.copy()
+            resident = set(self.key_to_slot)
+            evicted: set = set()
+            self._lease_evicted.append(evicted)
+            fresh = [self._landed[s] for s in self._fresh_slots]
+            self._fresh_slots.clear()
+        try:
+            # the upload waits for the stream, so it goes before the waits
+            slot_rows = torch.from_numpy(rows).to(self.device)
+            if self._cuda:
+                stream = torch.cuda.current_stream(self.device)
+                for ev in fresh:
+                    stream.wait_event(ev)
+            yield self._arena, slot_rows, resident
+        finally:
+            ev = None
+            if self._cuda:
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(self.device))
+            with self._lock:
+                if ev is not None:
+                    self._read_done = ev
+                self._lease_evicted.remove(evicted)
+                lost = resident & evicted
+                self.lease_evictions += len(lost)
+                self.last_lease_lost = lost
+                resident -= lost
 
     def slot_map(self, moe_layer: int) -> np.ndarray:
         """int32 [E] expert->slot row for one layer: a copy taken under the
@@ -397,7 +459,8 @@ class ExpertArena:
         with self._lock:
             return {"fetches_tier": self.fetch_counts["tier"],
                     "fetches_store": self.fetch_counts["store"],
-                    "fetch_seconds_ewma": self.fetch_seconds_ewma}
+                    "fetch_seconds_ewma": self.fetch_seconds_ewma,
+                    "lease_evictions": self.lease_evictions}
 
     def shutdown(self) -> None:
         with self._cv:
@@ -537,6 +600,8 @@ class ExpertArena:
             self.key_to_slot[key] = slot
             self.expert_to_slot[key] = slot
             self._landed[slot] = landed
+            if landed is not None:
+                self._fresh_slots.add(slot)
             self.fetch_counts[path] += 1
             self.policy.on_insert(key, prefetched=(prio == PRIO_PREFETCH))
             self._escalated.discard(key)
@@ -564,6 +629,8 @@ class ExpertArena:
             if not victims:
                 return None
         victim = victims[0]
+        for evicted in self._lease_evicted:
+            evicted.add(victim)
         slot = self.key_to_slot.pop(victim)
         self.slot_to_key[slot] = None
         self.expert_to_slot[victim] = -1  # masked to zero contribution

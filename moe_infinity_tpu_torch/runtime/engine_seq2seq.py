@@ -1,9 +1,12 @@
 """Offload engine for encoder-decoder MoE models (NLLB), from
-``moe_infinity_tpu/runtime/engine_seq2seq.py``: the per-layer path.
+``moe_infinity_tpu/runtime/engine_seq2seq.py``.
 
 The engine owns the block loop and drives the model's stage protocol
-(``enc_prelude`` / ``enc_block_*`` / ``dec_block_*`` / ``*_final``). At every
-MoE layer the router's expert ids come back to the host; the engine then
+(``enc_prelude`` / ``enc_block_*`` / ``dec_block_*`` / ``*_final``).
+
+**Per-layer path** (the encoder always; the decoder with
+``speculative=False``). At every MoE layer the router's expert ids come back
+to the host; the engine then
 
 1. updates the EAMC tracer and runs the predictor (activation-aware),
 2. plans and enqueues prefetch for the next layers (priority queue, arena),
@@ -15,14 +18,35 @@ encoder/decoder topology scoring applies). After the encoder the whole
 decoder tier is planned from the EAMC prediction, so the first decode steps
 find their experts landing.
 
-Not ported (each raises ``NotImplementedError``): speculative whole-step and
-k-step decode (ROADMAP queue-1 items 8, 9.2-9.3), direct-tier layers (9.4),
-stream decode (13), dense-layer paging (16), the host fallback (8) and
-sampled decode (11).
+**Speculative path** (``speculative=True``, the main path's default). A
+decode step (``spec_block`` 1) or a block of k greedy steps runs on the
+device against the arena's current slots with no host read inside: each
+next token is the argmax of the logits and stays on the device, and the
+model returns the routed ids of every decoder MoE layer as one trace,
+widened by ``route_margin`` runner-ups. The host reads the trace once per
+dispatch, verifies it against the residency the dispatch saw and runs again
+after loading the misses (``runtime/engine.py``). Blocks replay whole
+(``MOE_SPEC_BLOCK_MODE=whole``, the default) or accept their verified
+prefix (``prefix``). A capacity error halves the block; at k = 1 it falls
+back to the per-layer path for good. k hill-climbs on executions per
+committed token over the halving chain. The K/V cache is written in place:
+an execution that is not accepted leaves garbage in the columns it wrote,
+and the next one rewrites each of them before any kernel reads it.
+
+One difference from the JAX engine: only capacity errors
+(``is_spec_capacity_error``) change the path. JAX treats any other
+``RuntimeError`` as transient and single-steps or falls back to the
+per-layer path; here a failed CUDA launch is a ``RuntimeError`` too, so such
+errors are raised, never hidden behind another path.
+
+Not ported (each raises ``NotImplementedError``): direct-tier layers
+(ROADMAP queue-1 item 9.4), stream decode (13), dense-layer paging (16), the
+host fallback (8, ``host_exec.py``) and sampled decode (11).
 """
 
 from __future__ import annotations
 
+import os
 import time as _time
 from typing import Optional
 
@@ -30,7 +54,19 @@ import numpy as np
 import torch
 
 from moe_infinity_tpu_torch.memory.prefetch_plan import adaptive_prefetch_budget, plan_prefetch
-from moe_infinity_tpu_torch.runtime.engine import _split_arena_tree
+from moe_infinity_tpu_torch.runtime.engine import (
+    _split_arena_tree,
+    is_spec_capacity_error,
+    make_block_monitor,
+    margin_key_fns,
+    quantize_block,
+    record_block_log,
+    run_speculative,
+    run_speculative_block,
+    spec_trace_and_prefetch,
+    speculative_stats,
+    split_margin_columns,
+)
 from moe_infinity_tpu_torch.runtime.generate import (
     GenerationResult,
     _bucket_len,
@@ -38,6 +74,9 @@ from moe_infinity_tpu_torch.runtime.generate import (
     eos_hit,
     require_greedy,
 )
+from moe_infinity_tpu_torch.utils.logger import get_logger
+
+_log = get_logger("engine_seq2seq")
 
 
 def _not_ported(what: str, item: str):
@@ -45,6 +84,11 @@ def _not_ported(what: str, item: str):
 
 
 class Seq2SeqOffloadEngine:
+    # the hill-climb of the block size: blocks per probed size, and blocks
+    # between two probes of the whole halving chain
+    _PROBE_BLOCKS = 3
+    _REPROBE_EVERY = 24
+
     def __init__(
         self,
         model,
@@ -60,6 +104,9 @@ class Seq2SeqOffloadEngine:
         prefill_impl: Optional[str] = None,
         adaptive_budget: bool = True,
         speculative: bool = False,
+        max_replays: Optional[int] = None,
+        spec_block: int = 1,
+        route_margin: int = 2,
         max_direct_layers: Optional[int] = 0,
         stream_decode: bool = False,
         dense_arena=None,
@@ -70,9 +117,12 @@ class Seq2SeqOffloadEngine:
         steps of more than one token (default ``impl``).
         max_direct_layers: 0 keeps every layer on the arena; any other value
         asks for direct-tier layers, which are not ported and raise when the
-        tier holds a layer that could serve them."""
-        if speculative:
-            raise _not_ported("speculative decode", "8 and 9.2-9.3")
+        tier holds a layer that could serve them.
+        speculative: decode by speculative steps (``spec_block`` 1) or
+        k-step blocks; max_replays bounds the executions of one step or
+        block (default: from the MoE depth and k); route_margin: runner-up
+        experts the trace carries for prefetch (``MOE_ROUTE_MARGIN``
+        overrides it)."""
         if stream_decode:
             raise _not_ported("stream_decode", "13")
         if dense_arena is not None:
@@ -99,6 +149,36 @@ class Seq2SeqOffloadEngine:
         self._pimpl = prefill_impl or impl
         self._layer_seconds = None
         self._last_layer_t = None
+        self.speculative = speculative
+        self.max_replays = max_replays
+        self.spec_block = max(1, spec_block)
+        # the configured block size: a capacity error halves spec_block and
+        # caps the hill-climb (_k_cap), which probes the halving chain below
+        self._spec_block_cfg = self.spec_block
+        self.adaptive_spec = True
+        self._k_trace: list = []
+        self._ppt_ewma: dict = {}
+        self._probe_queue: Optional[list] = None
+        self._chosen: Optional[tuple] = None
+        self._blocks_since_probe = 0
+        self._k_cap = self._spec_block_cfg
+        # executions per speculative step or block, in order
+        self.replay_counts: list = []
+        # cumulative seconds of the speculative loop by phase: lock_wait_s,
+        # dispatch_s (snapshot, launches, trace read), replay_hook_s,
+        # acquire_s, trace_prefetch_s
+        self.phase_timings: dict = {}
+        # misses that only an eviction inside a dispatch's scope made, and
+        # the executions they alone rejected (runtime/engine.py::_tally_lease)
+        self.lease_counts: dict = {}
+        self.spec_log: list = []
+        # (tokens committed, seconds) of each decode iteration
+        self.step_times: list = []
+        # decoder steps run on the device, replays included
+        self.executed_steps = 0
+        self._direct_mlis = frozenset()  # direct-tier layers: item 9.4
+        if speculative:
+            model.route_margin = max(0, int(os.environ.get("MOE_ROUTE_MARGIN", route_margin)))
         s = model.spec
         self._n_enc = s.encoder_layers
         self._n_dec = s.decoder_layers
@@ -109,10 +189,11 @@ class Seq2SeqOffloadEngine:
 
     def reset_arena(self, arena, *, speculative: Optional[bool] = None, tracer=None,
                     predictor=None) -> None:
-        """Swap the expert arena (and optionally tracer/predictor) in place."""
-        if speculative:
-            raise _not_ported("speculative decode", "8 and 9.2-9.3")
+        """Swap the expert arena (and optionally the speculative mode and
+        tracer/predictor) in place."""
         self.arena = arena
+        if speculative is not None:
+            self.speculative = speculative
         if tracer is not None:
             self.tracer = tracer
             self.predictor = predictor
@@ -201,7 +282,8 @@ class Seq2SeqOffloadEngine:
         score = self.predictor.predict_block(seq_ids[0], obs, from_layer=first_dec)
         self.arena.set_context(first_dec, self.tracer.get_entry_decoder(seq_ids[0]).matrix)
         orders = plan_prefetch(
-            score, first_dec - 1, lookahead=None, budget=self._current_budget(),
+            score, first_dec - 1, lookahead=None,
+            budget=self._current_budget() * max(1, self.spec_block),
             is_resident=self.is_resident,
         )
         if orders:
@@ -227,6 +309,7 @@ class Seq2SeqOffloadEngine:
         [B, 1, V] f32."""
         model, params, s = self.model, self.params, self.model.spec
         B = cur_tok.shape[0]
+        self.executed_steps += 1
         positions = torch.full((B, 1), step, dtype=torch.int32, device=model.device)
         bias, cross_bias = model.dec_prelude(params, positions, kvs[0].max_len, mask)
         x = model.dec_embed(params, cur_tok, step)
@@ -241,6 +324,199 @@ class Seq2SeqOffloadEngine:
                 x, kvs[i] = model.dec_block_dense(
                     b, x, kvs[i], positions, step, bias, ck, cv, cross_bias)
         return model.dec_final(params, x)
+
+    # ---- speculative decode -----------------------------------------------
+    def _spec_step(self, tree, slot_rows, tok, positions, step: int, kvs, mask, cross):
+        """One whole decoder step over the slots: (logits, kvs, trace)."""
+        weights, biases = _split_arena_tree(tree)
+        self.executed_steps += 1
+        return self.model.decode_step(
+            self.params, None, tok, positions, kvs, step, mask, cross,
+            lambda _experts, mli: (weights, slot_rows[mli], biases), self._impl,
+        )
+
+    def _spec_block_fn(self, k: int):
+        """A k-step greedy block over the slots: ``block(tree, slot_rows,
+        tok0 [B, 1], step0, kvs, mask, cross)`` queues k decode steps, each
+        fed the argmax of the step before, and returns (toks [B, k], kvs,
+        trace [L_moe, B, k, 2 + margin]), all on the device."""
+        model, params, impl = self.model, self.params, self._impl
+
+        def block(tree, slot_rows, tok0, step0: int, kvs, mask, cross):
+            weights, biases = _split_arena_tree(tree)
+
+            def for_layer(_experts, mli):
+                return weights, slot_rows[mli], biases
+
+            B = tok0.shape[0]
+            tok, toks, traces = tok0, [], []
+            for j in range(k):
+                positions = torch.full((B, 1), step0 + j, dtype=torch.int32, device=tok.device)
+                self.executed_steps += 1
+                logits, kvs, trace = model.decode_step(
+                    params, None, tok, positions, kvs, step0 + j, mask, cross, for_layer, impl)
+                tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+                toks.append(tok)
+                traces.append(trace)  # [L, B, 1, K']
+            return torch.cat(toks, dim=1), kvs, torch.cat(traces, dim=2)
+
+        return block
+
+    def _direct_filtered(self, key_fn, margin_fn, mlis):
+        """(key_fn, margin_fn) with direct-tier layers dropped from
+        verification and margin prefetch; with no direct layer, unchanged."""
+        if self._direct_mlis:
+            raise _not_ported("direct-tier dispatch", "9.4")
+        return key_fn, margin_fn
+
+    def _trace_and_prefetch(self, top, dec_mlis, seq_ids, k, extra_orders=()):
+        t0 = _time.perf_counter()
+        spec_trace_and_prefetch(
+            self, top, dec_mlis, seq_ids,
+            plan_floor=dec_mlis[0] - 1 if dec_mlis else -1,
+            budget_scale=k, extra_orders=extra_orders,
+        )
+        self.phase_timings["trace_prefetch_s"] = (
+            self.phase_timings.get("trace_prefetch_s", 0.0) + _time.perf_counter() - t0)
+
+    def _speculative_block(self, cur_tok, step: int, kvs, mask, cross, dec_mlis, seq_ids,
+                           k: int):
+        """k greedy decode steps as one speculative block. ``whole`` (the
+        default ``MOE_SPEC_BLOCK_MODE``) replays the whole block on a miss;
+        ``prefix`` accepts the verified prefix and runs the suffix again.
+        Returns (tokens [B, k] numpy, kvs)."""
+        margin = self.model.route_margin
+        if os.environ.get("MOE_SPEC_BLOCK_MODE", "whole") == "whole":
+            fn = self._spec_block_fn(k)
+
+            def run(tree, slot_rows):
+                return fn(tree, slot_rows, cur_tok, step, kvs, mask, cross)
+
+            key_fn, margin_fn = self._direct_filtered(
+                *margin_key_fns(dec_mlis, margin), dec_mlis)
+            limit = self.max_replays or (len(dec_mlis) + 2 + k)
+            on_replay, blog = make_block_monitor(self, dec_mlis, margin_fn=margin_fn)
+            (toks, kvs), ids_np, execs = run_speculative(
+                self.arena, dec_mlis, run, limit, key_fn=key_fn, on_replay=on_replay,
+                timings=self.phase_timings, counters=self.lease_counts,
+            )
+            record_block_log(self, blog)
+            self.replay_counts.append(execs)
+            top, _ = split_margin_columns(ids_np, margin)
+            self._trace_and_prefetch(
+                top.reshape(top.shape[0], top.shape[1], -1), dec_mlis, seq_ids, k,
+                extra_orders=margin_fn(ids_np) if margin_fn else ())
+            return toks.cpu().numpy(), kvs
+
+        def dispatch(tree, slot_rows, cur, j0, kk, kvs_):
+            return self._spec_block_fn(kk)(tree, slot_rows, cur, step + j0, kvs_, mask, cross)
+
+        limit = self.max_replays or (len(dec_mlis) + 2) * k
+        toks, kvs, execs, acc_ids = run_speculative_block(
+            self.arena, dec_mlis, dispatch, k, limit, cur_tok, kvs, margin=margin,
+            skip_mlis=self._direct_mlis, timings=self.phase_timings, counters=self.lease_counts,
+        )
+        self.replay_counts.append(execs)
+        self._trace_and_prefetch(acc_ids.reshape(acc_ids.shape[0], acc_ids.shape[1], -1),
+                                 dec_mlis, seq_ids, k)
+        return toks, kvs
+
+    def _speculative_step(self, cur_tok, positions, step: int, kvs, mask, cross, dec_mlis,
+                          seq_ids):
+        """One decode step as one speculative execution over the slots,
+        replayed until its routed experts were all resident. Returns
+        (logits, kvs)."""
+
+        def run(tree, slot_rows):
+            return self._spec_step(tree, slot_rows, cur_tok, positions, step, kvs, mask, cross)
+
+        margin = self.model.route_margin
+        key_fn, margin_fn = self._direct_filtered(*margin_key_fns(dec_mlis, margin), dec_mlis)
+        limit = self.max_replays or (len(dec_mlis) + 2)
+        (logits, kvs), ids_np, execs = run_speculative(
+            self.arena, dec_mlis, run, limit, key_fn=key_fn, timings=self.phase_timings,
+            counters=self.lease_counts)
+        self.replay_counts.append(execs)
+        top, _ = split_margin_columns(ids_np, margin)
+        self._trace_and_prefetch(top, dec_mlis, seq_ids, 1,
+                                 extra_orders=margin_fn(ids_np) if margin_fn else ())
+        return logits, kvs
+
+    def _halving_chain(self) -> list:
+        chain, k = [], min(self._spec_block_cfg, self._k_cap)
+        while k >= 1:
+            chain.append(k)
+            if k == 1:
+                break
+            k //= 2
+        return chain
+
+    def _adapt_spec_block(self, k: Optional[int] = None, tokens: Optional[int] = None) -> None:
+        """After a block (or step): hill-climb the block size on measured
+        executions per committed token. Probe each size of the halving chain
+        for ``_PROBE_BLOCKS`` blocks, keep the cheapest, and probe again every
+        ``_REPROBE_EVERY`` blocks or when the kept size's cost rises 1.5x
+        above its cost when chosen. A block of s steps costs at least 1/s
+        per token, so a size that cannot beat the best measured one is not
+        probed."""
+        if not self.replay_counts:
+            return
+        k = k or self.spec_block
+        toks = tokens or k
+        ppt = self.replay_counts[-1] / max(1, toks)
+        old = self._ppt_ewma.get(k)
+        self._ppt_ewma[k] = ppt if old is None else 0.7 * old + 0.3 * ppt
+        self._k_trace.append(k)
+        if len(self._k_trace) > 512:
+            del self._k_trace[: len(self._k_trace) - 512]
+        if not self.adaptive_spec:
+            return
+        self._blocks_since_probe += 1
+        chain = self._halving_chain()
+        if len(chain) == 1:
+            self.spec_block = chain[0]
+            return
+        while self._probe_queue:
+            s = self._probe_queue.pop(0)
+            best = min(self._ppt_ewma.values(), default=None)
+            if best is not None and best <= 1.0 / s:
+                continue
+            self.spec_block = s
+            return
+        if self._chosen is None:
+            if self._probe_queue is None:  # the first block: start a probe
+                self._probe_queue = [s for s in chain for _ in range(self._PROBE_BLOCKS)]
+                self.spec_block = self._probe_queue.pop(0)
+                return
+            # the probe has measured every size: choose
+            scored = {s: self._ppt_ewma[s] for s in chain if s in self._ppt_ewma}
+            best = min(scored, key=scored.get)
+            self._chosen = (best, scored[best])
+            self._blocks_since_probe = 0
+            self.spec_block = best
+            _log.info("speculative block chosen k=%d (executions/token %s)", best,
+                      {s: round(v, 2) for s, v in sorted(scored.items())})
+            return
+        cur_k, chosen_ppt = self._chosen
+        self.spec_block = cur_k
+        cur = self._ppt_ewma.get(cur_k, chosen_ppt)
+        if self._blocks_since_probe >= self._REPROBE_EVERY or cur > 1.5 * chosen_ppt:
+            # the regime may have moved either way: probe afresh
+            self._probe_queue = [s for s in chain for _ in range(self._PROBE_BLOCKS)]
+            self._chosen = None
+            self._ppt_ewma = {}
+            self._blocks_since_probe = 0
+            self.spec_block = self._probe_queue.pop(0)
+            _log.info("speculative block re-probing (from k=%d)", cur_k)
+
+    def _degrade_block(self, err) -> None:
+        """A capacity error: halve the block and cap the hill-climb there."""
+        self.spec_block = max(1, self.spec_block // 2)
+        self._k_cap = self.spec_block
+        self._probe_queue = None
+        self._chosen = None
+        self._ppt_ewma = {}
+        _log.warning("speculative block decode degraded to k=%d (%s)", self.spec_block, err)
 
     # ---- generation -------------------------------------------------------
     @torch.inference_mode()
@@ -260,7 +536,8 @@ class Seq2SeqOffloadEngine:
         the JAX signature's sampling keywords; any that asks for more than
         argmax raises NotImplementedError. cache_len: the decoder KV
         capacity (default: bucketed from max_new_tokens). ``stats`` of the
-        result: encode_ms and decode_ms on the device's timeline."""
+        result: encode_ms and decode_ms on the device's timeline, and
+        decode_steps, the tokens committed per row."""
         require_greedy(**sampling)
         model, s = self.model, self.model.spec
         dev = model.device
@@ -292,6 +569,8 @@ class Seq2SeqOffloadEngine:
         finished = np.zeros(B, dtype=bool)
         num_gen = np.zeros(B, dtype=np.int64)
         cur_tok = torch.full((B, 1), start, dtype=torch.int32, device=dev)
+        dec_mlis = self.dec_mlis
+        self.step_times = []
         # decode-window counter snapshot: decode_window_stats() isolates this
         # generate()'s decode phase from the encoder's one-shot misses
         self._dw0 = self.arena.hit_stats()
@@ -299,18 +578,63 @@ class Seq2SeqOffloadEngine:
         self._dw_miss0 = ns["misses"].copy()
         self._dw_visit0 = ns["visits"].copy()
         self._dw_evict0 = ns["evictions"].copy()
-        steps = 0
-        for step in range(max_new_tokens):
-            logits = self.decode_step(cur_tok, step, kvs, mask, cross, seq_ids)
+        step = steps = 0
+        while step < max_new_tokens:
+            it0 = _time.perf_counter()
+            if self.speculative and self.spec_block > 1:
+                k = quantize_block(max_new_tokens - step, self.spec_block)
+                try:
+                    toks, kvs = self._speculative_block(cur_tok, step, kvs, mask, cross,
+                                                        dec_mlis, seq_ids, k)
+                except RuntimeError as e:
+                    if not is_spec_capacity_error(e):
+                        raise
+                    self._degrade_block(e)
+                    continue
+                self._adapt_spec_block(k=k)
+                for jj in range(k):
+                    nxt = toks[:, jj].astype(np.int64)
+                    out[~finished, step + jj + 1] = nxt[~finished]
+                    num_gen[~finished] += 1
+                    if eos_token_id is not None:
+                        finished |= eos_hit(nxt, eos_token_id)
+                        if finished.all():
+                            break
+                # EOS can end the batch inside the block: count what was kept
+                steps = step + jj + 1
+                self.step_times.append((jj + 1, _time.perf_counter() - it0))
+                if finished.all():
+                    break
+                cur_tok = torch.as_tensor(toks[:, -1:], dtype=torch.int32).to(dev)
+                step += k
+                continue
+            logits = None
+            if self.speculative:
+                positions = torch.full((B, 1), step, dtype=torch.int32, device=dev)
+                try:
+                    logits, kvs = self._speculative_step(cur_tok, positions, step, kvs, mask,
+                                                         cross, dec_mlis, seq_ids)
+                    # after a degradation to k = 1 the hill-climb may grow k
+                    self._adapt_spec_block(k=1, tokens=1)
+                except RuntimeError as e:
+                    if not is_spec_capacity_error(e):
+                        raise
+                    _log.warning("speculative decode disabled (%s); falling back to the "
+                                 "per-layer path", e)
+                    self.speculative = False
+            if logits is None:
+                logits = self.decode_step(cur_tok, step, kvs, mask, cross, seq_ids)
             nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy().astype(np.int64)
             out[~finished, step + 1] = nxt[~finished]
             num_gen[~finished] += 1
             steps = step + 1
+            self.step_times.append((1, _time.perf_counter() - it0))
             if eos_token_id is not None:
                 finished |= eos_hit(nxt, eos_token_id)
                 if finished.all():
                     break
             cur_tok = torch.as_tensor(nxt[:, None], dtype=torch.int32).to(dev)
+            step += 1
         t2 = clock.mark()
         if self.tracer is not None and seq_ids:
             for sid in seq_ids:
@@ -323,7 +647,9 @@ class Seq2SeqOffloadEngine:
         )
 
     def stats(self) -> dict:
-        return self.arena.hit_stats()
+        out = self.arena.hit_stats()
+        out.update(speculative_stats(self.replay_counts))
+        return out
 
     def decode_window_stats(self) -> dict:
         """Counter deltas since the last generate()'s decode loop began: the

@@ -272,7 +272,7 @@ class Seq2SeqGenerator:
         steps = 0
         for step in range(max_new_tokens):
             positions = torch.full((B, 1), step, dtype=torch.int32, device=dev)
-            logits, kvs = model.decode_step(
+            logits, kvs, _ = model.decode_step(
                 self.params, self.experts, cur, positions, kvs, step, mask,
                 cross, self._for_layer, self._impl,
             )

@@ -1,5 +1,6 @@
 """The port's offload path on the card: the slot arena's side-stream
-landings against stream-ordered reads. Marked ``cuda``: they skip without a
+landings against stream-ordered reads, on the per-layer and the
+speculative path. Marked ``cuda``: they skip without a
 CUDA device. On a machine with one, run them with ``python3 -m pytest
 --noconftest -m cuda tests/test_torch_cuda_offload.py`` (``--noconftest``:
 the repo conftest imports jax).
@@ -7,7 +8,10 @@ the repo conftest imports jax).
 The hazards: a key is registered while its copy may still run on a worker
 stream (read after write), and a slot is evicted as soon as its key is
 released while the K3 launch that read it may only be queued (write after
-read). Copies on the CPU are synchronous, so only the card shows either.
+read). A speculative dispatch also reads slots of keys it has not
+acquired, so a worker may evict one and land another record in its slot
+while the dispatch's launches are queued; the arena then counts the key as
+a miss. Copies on the CPU are synchronous, so only the card shows these.
 Every check here is exact: the same bytes through the same kernels give
 the same bits."""
 
@@ -19,7 +23,9 @@ from moe_infinity_tpu_torch.memory import ExpertPredictor, ExpertTracer
 from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
 from moe_infinity_tpu_torch.ops.moe import grouped_ffn
 from moe_infinity_tpu_torch.runtime.arena import ExpertArena
+from moe_infinity_tpu_torch.runtime.engine import run_speculative
 from moe_infinity_tpu_torch.runtime.engine_seq2seq import Seq2SeqOffloadEngine
+from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
 from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 from moe_infinity_tpu_torch.store.blob import SyntheticStore
 from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
@@ -58,13 +64,13 @@ def _tier(store, dev, records):
                             max_bytes=records * store.stride, synth_on_device=False)
 
 
-def _engine(model, params, store, dev, tier, slots=E):
+def _engine(model, params, store, dev, tier, slots=E, **kw):
     tracer = ExpertTracer(64, LAYERS, E, num_encoder_layers=2)
     arena = ExpertArena(store, slots, compute_dtype=torch.float32, device=dev, num_threads=4,
                         pinned_tier=tier)
     return Seq2SeqOffloadEngine(model, params, arena, tracer=tracer,
                                 predictor=ExpertPredictor(tracer), prefetch=True, lookahead=3,
-                                prefetch_budget=8, impl="pallas")
+                                prefetch_budget=8, impl="pallas", **kw)
 
 
 def _inputs(dev, seed):
@@ -105,8 +111,8 @@ def test_offload_decode_equals_resident_bitwise(dev, seed, tier_records):
             for step in range(24):
                 pos = torch.full((B, 1), step, dtype=torch.int32, device=dev)
                 got = engine.decode_step(cur, step, kv_o, mask, cross_o, seq_ids)
-                want, _ = model.decode_step(params, experts, cur, pos, kv_r, step, mask,
-                                            cross_r, for_layer, "pallas")
+                want, _, _ = model.decode_step(params, experts, cur, pos, kv_r, step, mask,
+                                               cross_r, for_layer, "pallas")
                 torch.cuda.synchronize()
                 assert torch.equal(got, want), f"step {step}"
                 cur = torch.argmax(want[:, -1], -1, keepdim=True).to(torch.int32)
@@ -198,3 +204,95 @@ def test_evicted_slot_leaves_queued_launch_alone(dev, tier_records):
             assert torch.equal(out[key], want[key]), key
     finally:
         arena.shutdown()
+
+
+@pytest.mark.parametrize("tier_records", [0, 32])
+def test_snapshot_key_evicted_under_queued_launch_is_a_miss(dev, tier_records):
+    """A speculative dispatch on a one-slot arena reads key A's slot by a K3
+    launch queued behind a spin of some 0.3 s; inside the same dispatch
+    scope A is evicted and B lands in A's slot, a copy the launch's queued
+    read does not fence. Verification must count A as a miss, and the
+    accepted execution must equal the resident result bit for bit."""
+    store = _store(5)
+    tier = _tier(store, dev, tier_records) if tier_records else None
+    arena = ExpertArena(store, 1, compute_dtype=torch.float32, device=dev, num_threads=4,
+                        pinned_tier=tier)
+    resident = ResidentProvider.from_store(store, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(6, D, generator=g, device=dev)
+    cw = torch.ones(6, 1, device=dev)
+    a, b = (2, 5), (2, 6)
+    ids = torch.full((6, 1), a[1], dtype=torch.int32, device=dev)
+    calls = []
+    try:
+        w, row, bias = ResidentProvider.for_layer(resident.pytree(), a[0])
+        want = grouped_ffn(x, ids, cw, row, w, "relu", biases=bias, impl="pallas")
+        arena.warm([a])
+
+        def run(tree, slot_rows):
+            calls.append(int(slot_rows[a[0], a[1]]))
+            if len(calls) == 1:
+                torch.cuda._sleep(500_000_000)
+            out = _ffn(x, ids, cw, slot_rows[a[0]], tree)
+            trace = torch.full((1, 6, 1), a[1], dtype=torch.int32, device=dev)
+            if len(calls) == 1:  # evict A, land B in its slot, under the queued read
+                arena.acquire([b], b[0])
+                arena.release([b])
+            return out, trace
+
+        (got,), _, execs = run_speculative(arena, [a[0]], run, 4)
+        torch.cuda.synchronize()
+        assert execs == 2 and arena.lease_evictions == 1
+        assert calls[0] >= 0  # A was resident at the first snapshot
+        assert torch.equal(got, want)
+    finally:
+        arena.shutdown()
+
+
+@pytest.mark.parametrize("k,mode", [(1, "whole"), (4, "whole"), (4, "prefix")])
+def test_speculative_decode_equals_resident_bitwise(dev, monkeypatch, k, mode):
+    """24 speculative decode steps through an arena of 2E slots with
+    prefetch and 4 workers, beside the resident path: at k=1 every step's
+    logits equal bit for bit; blocks of 4, in both modes, give equal
+    tokens. Steps evict and replay."""
+    monkeypatch.setenv("MOE_SPEC_BLOCK_MODE", mode)
+    g = torch.Generator(device=dev).manual_seed(7)
+    model = NllbModel(NllbSpec(**SPEC), compute_dtype=torch.float32, device=dev)
+    params, _ = model.init_random(g, with_experts=False)
+    store = _store(7)
+    resident = ResidentProvider.from_store(store, dtype=torch.float32, device=dev)
+    experts, for_layer = resident.pytree(), ResidentProvider.for_layer
+    engine = _engine(model, params, store, dev, None, slots=2 * E, speculative=True,
+                     spec_block=k)
+    tok, mask = _inputs(dev, 7)
+    B = tok.shape[0]
+    try:
+        with torch.inference_mode():
+            if k == 1:
+                seq_ids = [engine.tracer.create_entry() for _ in range(B)]
+                _, cross_o = engine.run_encoder(tok, mask, seq_ids)
+                engine._prefetch_decoder_tier(seq_ids)
+                cross_r = model.cross_kv(params, model.encode(params, experts, tok, mask,
+                                                              for_layer, "pallas"))
+                kv_o, kv_r = engine.init_cache(B, 32), model.init_cache(B, 32)
+                cur = torch.full((B, 1), 2, dtype=torch.int32, device=dev)
+                for step in range(24):
+                    pos = torch.full((B, 1), step, dtype=torch.int32, device=dev)
+                    got, kv_o = engine._speculative_step(cur, pos, step, kv_o, mask, cross_o,
+                                                         engine.dec_mlis, seq_ids)
+                    want, _, _ = model.decode_step(params, experts, cur, pos, kv_r, step, mask,
+                                                   cross_r, for_layer, "pallas")
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), f"step {step}"
+                    cur = torch.argmax(want[:, -1], -1, keepdim=True).to(torch.int32)
+            else:
+                ids, m = tok.cpu().numpy(), mask.cpu().numpy()
+                got = engine.generate(ids, max_new_tokens=24, attention_mask=m,
+                                      eos_token_id=None)
+                want = Seq2SeqGenerator(model, params, experts, for_layer, impl="pallas").generate(
+                    ids, max_new_tokens=24, attention_mask=m, eos_token_id=None)
+                np.testing.assert_array_equal(got.sequences, want.sequences)
+        assert max(engine.replay_counts) > 1
+        assert engine.arena.hit_stats()["evictions"] > 0
+    finally:
+        engine.arena.shutdown()

@@ -70,8 +70,8 @@ def _port_first_step(model, params, tree, ids, mask, impl):
     cross = model.cross_kv(params, enc)
     kvs = model.init_cache(ids.shape[0], 16)
     start = torch.full((ids.shape[0], 1), 2, dtype=torch.int32)
-    logits, _ = model.decode_step(params, tree, start, torch.zeros_like(start), kvs, 0,
-                                  m, cross, for_layer, impl)
+    logits, _, _ = model.decode_step(params, tree, start, torch.zeros_like(start), kvs, 0,
+                                     m, cross, for_layer, impl)
     return np32(enc), np32(logits)
 
 

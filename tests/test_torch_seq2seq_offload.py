@@ -1,14 +1,17 @@
-"""The port's per-layer offload engine (``runtime/engine_seq2seq.py``) on a
-tiny NLLB (4+4 blocks, every 2nd sparse, 4 experts, d_model 32, f32) on the
-CPU, against the JAX ``Seq2SeqOffloadEngine(speculative=False)`` and the
-port's resident ``Seq2SeqGenerator``, with arenas of E and 2E slots. The
+"""The port's offload engine (``runtime/engine_seq2seq.py``) on a tiny NLLB
+(4+4 blocks, every 2nd sparse, 4 experts, d_model 32, f32) on the CPU,
+against the JAX ``Seq2SeqOffloadEngine`` and the port's resident
+``Seq2SeqGenerator``: the per-layer path (``speculative=False``) with arenas
+of E and 2E slots, and the speculative path (whole steps at k=1, blocks of
+k=4 in both ``MOE_SPEC_BLOCK_MODE`` modes) with arenas of 2E slots, where
+the encoder's keys push the decoder's out and replays must occur. The
 experts live in stores written from the JAX NllbModel.init_random weights
 with the JAX ExpertStoreWriter (f32, and packed int4 with per-channel
 scales); both packages read the same files.
 
 Greedy tokens are compared exactly. With prefetch off and one fetch worker
 the arena's order of events is fixed, so the hit, miss and eviction
-counters must equal the JAX engine's too."""
+counters, and the speculative executions, must equal the JAX engine's too."""
 
 import jax
 import jax.numpy as jnp
@@ -56,19 +59,21 @@ def setup(tmp_path_factory):
     return jmodel, jparams, model, to_port(jparams), stores
 
 
-def _jax_engine(jmodel, jparams, path, slots, prefetch, threads):
+def _jax_engine(jmodel, jparams, path, slots, prefetch, threads, speculative=False, **kw):
     arena = JArena(JStore(path), slots, compute_dtype=jnp.float32, num_threads=threads)
     tracer = JTracer(16, N_MOE, E, num_encoder_layers=N_ENC)
     return JEngine(jmodel, jparams, arena, tracer=tracer, predictor=JPredictor(tracer),
-                   prefetch=prefetch, speculative=False)
+                   prefetch=prefetch, speculative=speculative, **kw)
 
 
-def _port_engine(model, params, path, slots, prefetch, threads, impl="ragged", tier=None):
+def _port_engine(model, params, path, slots, prefetch, threads, impl="ragged", tier=None,
+                 **kw):
     arena = ExpertArena(ExpertStore(path), slots, compute_dtype=torch.float32, device="cpu",
                         num_threads=threads, pinned_tier=tier)
     tracer = ExpertTracer(16, N_MOE, E, num_encoder_layers=N_ENC)
     return Seq2SeqOffloadEngine(model, params, arena, tracer=tracer,
-                                predictor=ExpertPredictor(tracer), prefetch=prefetch, impl=impl)
+                                predictor=ExpertPredictor(tracer), prefetch=prefetch, impl=impl,
+                                **kw)
 
 
 def _resident(model, params, path, impl="ragged"):
@@ -158,11 +163,10 @@ def test_kernel_path_offload_equals_resident_exactly(setup, staged):
                                   eng.init_cache(2, 16), m, cross)
             enc = model.encode(params, provider.pytree(), tok, m, ResidentProvider.for_layer,
                                "pallas")
-            want, _ = model.decode_step(params, provider.pytree(), torch.full((2, 1), 2,
-                                        dtype=torch.int32), torch.zeros(2, 1, dtype=torch.int32),
-                                        model.init_cache(2, 16), 0, m,
-                                        model.cross_kv(params, enc),
-                                        ResidentProvider.for_layer, "pallas")
+            want, _, _ = model.decode_step(
+                params, provider.pytree(), torch.full((2, 1), 2, dtype=torch.int32),
+                torch.zeros(2, 1, dtype=torch.int32), model.init_cache(2, 16), 0, m,
+                model.cross_kv(params, enc), ResidentProvider.for_layer, "pallas")
         assert torch.equal(got, want)
         np.testing.assert_array_equal(eng.generate(IDS, **GEN).sequences,
                                       res.generate(IDS, **GEN).sequences)
@@ -210,15 +214,13 @@ def test_unported_options_raise(setup):
     path = stores["int4"]
     arena = ExpertArena(ExpertStore(path), E, compute_dtype=torch.float32, device="cpu")
     try:
-        for kw in (dict(speculative=True), dict(stream_decode=True),
-                   dict(dense_arena=object()), dict(host_fallback=True)):
+        for kw in (dict(stream_decode=True), dict(dense_arena=object()),
+                   dict(host_fallback=True)):
             with pytest.raises(NotImplementedError):
                 Seq2SeqOffloadEngine(model, params, arena, **kw)
         eng = Seq2SeqOffloadEngine(model, params, arena)
         with pytest.raises(NotImplementedError):
             eng.generate(IDS, max_new_tokens=2, temperature=0.7, do_sample=True)
-        with pytest.raises(NotImplementedError):
-            eng.reset_arena(arena, speculative=True)
         with pytest.raises(ValueError, match="one full MoE layer"):
             Seq2SeqOffloadEngine(model, params, ExpertArena(ExpertStore(path), E - 1,
                                                             device="cpu"))
@@ -238,3 +240,198 @@ def test_unported_options_raise(setup):
         Seq2SeqOffloadEngine(model, params, arena)  # the default, 0
     finally:
         arena.shutdown()
+
+
+# ---- speculative decode ------------------------------------------------------
+
+
+def _fresh_models(setup):
+    """New model objects over the shared params: a speculative engine sets
+    ``route_margin`` on its model."""
+    return (JNllbModel(JNllbSpec(**SPEC), compute_dtype=jnp.float32),
+            NllbModel(NllbSpec(**SPEC), compute_dtype=torch.float32, device="cpu"))
+
+
+SPEC_IDS = np.array([[5, 31, 8, 77, 40, 2], [9, 3, 44, 2, 1, 1], [60, 7, 2, 1, 1, 1]])
+SPEC_GEN = dict(max_new_tokens=8, attention_mask=(SPEC_IDS != 1).astype(np.float32),
+                eos_token_id=None)
+
+
+@pytest.mark.parametrize("prefetch", [False, True])
+@pytest.mark.parametrize("k,mode", [(1, "whole"), (4, "whole"), (4, "prefix")])
+def test_speculative_tokens_equal_jax_and_resident(setup, monkeypatch, k, mode, prefetch):
+    """Greedy tokens of the speculative engine equal the JAX speculative
+    engine's and the resident path's, on an arena of 2E slots. With prefetch
+    off and one worker, the executions of every step or block and the
+    arena's counters equal the JAX engine's, and replays occur."""
+    _, jparams, _, params, stores = setup
+    jmodel, model = _fresh_models(setup)
+    monkeypatch.setenv("MOE_SPEC_BLOCK_MODE", mode)
+    threads = 2 if prefetch else 1
+    path = stores["float32"]
+    jeng = _jax_engine(jmodel, jparams, path, 2 * E, prefetch, threads, speculative=True,
+                       spec_block=k)
+    eng = _port_engine(model, params, path, 2 * E, prefetch, threads, speculative=True,
+                       spec_block=k)
+    res, _ = _resident(model, params, path)
+    try:
+        want = jeng.generate(SPEC_IDS, **SPEC_GEN)
+        with port_attention("naive"):
+            got = eng.generate(SPEC_IDS, **SPEC_GEN)
+            base = res.generate(SPEC_IDS, **SPEC_GEN)
+        np.testing.assert_array_equal(got.sequences, want.sequences)
+        np.testing.assert_array_equal(got.sequences, base.sequences)
+        assert got.stats["decode_steps"] == 8
+        assert model.route_margin == 2 and eng.speculative
+        assert len(eng.replay_counts) == (8 if k == 1 else 2)
+        assert sum(n for n, _ in eng.step_times) == 8
+        if not prefetch:
+            assert eng.replay_counts == jeng.replay_counts
+            assert max(eng.replay_counts) > 1
+            assert eng.stats() == jeng.stats()
+            assert eng.decode_window_stats() == jeng.decode_window_stats()
+            if mode == "whole" and k > 1:
+                assert eng.spec_log == jeng.spec_log
+        assert eng.executed_steps >= 8
+        assert not eng.arena.policy.protected_ondemand
+    finally:
+        jeng.arena.shutdown()
+        eng.arena.shutdown()
+
+
+@pytest.mark.parametrize("mode", ["whole", "prefix"])
+def test_speculative_eos_mid_block(setup, monkeypatch, mode):
+    """A row's EOS inside a block stops it at the step the per-step path
+    would, and the batch ends in the middle of the block."""
+    _, jparams, _, params, stores = setup
+    jmodel, model = _fresh_models(setup)
+    monkeypatch.setenv("MOE_SPEC_BLOCK_MODE", mode)
+    path = stores["float32"]
+    res, _ = _resident(model, params, path)
+    ids, mask = IDS[:1], MASK[:1]
+    with port_attention("naive"):
+        first = res.generate(ids, max_new_tokens=3, attention_mask=mask, eos_token_id=None)
+    eos = int(first.sequences[0, 3])  # the third token: inside the first block
+    gen = dict(max_new_tokens=8, attention_mask=mask, eos_token_id=eos)
+    jeng = _jax_engine(jmodel, jparams, path, 2 * E, False, 1, speculative=True, spec_block=4)
+    eng = _port_engine(model, params, path, 2 * E, False, 1, speculative=True, spec_block=4)
+    try:
+        want = jeng.generate(ids, **gen)
+        with port_attention("naive"):
+            got = eng.generate(ids, **gen)
+            base = res.generate(ids, **gen)
+        np.testing.assert_array_equal(got.sequences, want.sequences)
+        np.testing.assert_array_equal(got.sequences, base.sequences)
+        np.testing.assert_array_equal(got.num_generated, base.num_generated)
+        assert got.num_generated[0] <= 3 and got.stats["decode_steps"] == got.num_generated[0]
+        assert len(eng.replay_counts) == 1  # one block, ended by EOS
+    finally:
+        jeng.arena.shutdown()
+        eng.arena.shutdown()
+
+
+def test_speculative_capacity_degrades_then_falls_back(setup):
+    """An arena of E slots cannot hold a step's union across the two decoder
+    MoE layers: capacity errors halve the block (4 -> 2 -> 1), then the
+    whole step fails too and the engine falls back to the per-layer path
+    for good. Tokens stay equal to the resident path's, and each engine
+    takes the same way down as the JAX engine."""
+    _, jparams, _, params, stores = setup
+    jmodel, model = _fresh_models(setup)
+    path = stores["float32"]
+    jeng = _jax_engine(jmodel, jparams, path, E, False, 1, speculative=True, spec_block=4)
+    eng = _port_engine(model, params, path, E, False, 1, speculative=True, spec_block=4)
+    res, _ = _resident(model, params, path)
+    try:
+        want = jeng.generate(SPEC_IDS, **SPEC_GEN)
+        with port_attention("naive"):
+            got = eng.generate(SPEC_IDS, **SPEC_GEN)
+            base = res.generate(SPEC_IDS, **SPEC_GEN)
+        np.testing.assert_array_equal(got.sequences, base.sequences)
+        np.testing.assert_array_equal(got.sequences, want.sequences)
+        assert eng._k_cap < 4 and eng.spec_block < 4
+        assert (eng._k_cap, eng.spec_block, eng.speculative) == (
+            jeng._k_cap, jeng.spec_block, jeng.speculative)
+        assert eng.replay_counts == jeng.replay_counts
+        assert eng.stats() == jeng.stats()
+    finally:
+        jeng.arena.shutdown()
+        eng.arena.shutdown()
+
+
+@pytest.mark.parametrize("mode", ["whole", "prefix"])
+def test_speculative_kernel_path_equals_resident(setup, monkeypatch, mode):
+    """impl="pallas" (K3's plain version on the CPU) over int4 slots, blocks
+    of 4 with prefetch on: executions that are not accepted route to
+    experts whose slot row reads -1, which K3's path masks to zero; the
+    accepted ones equal the resident path's tokens exactly."""
+    _, _, _, params, stores = setup
+    _, model = _fresh_models(setup)
+    monkeypatch.setenv("MOE_SPEC_BLOCK_MODE", mode)
+    path = stores["int4"]
+    eng = _port_engine(model, params, path, 2 * E, True, 2, impl="pallas", speculative=True,
+                       spec_block=4)
+    res, _ = _resident(model, params, path, impl="pallas")
+    try:
+        got = eng.generate(SPEC_IDS, **SPEC_GEN)
+        want = res.generate(SPEC_IDS, **SPEC_GEN)
+        np.testing.assert_array_equal(got.sequences, want.sequences)
+        assert max(eng.replay_counts) > 1
+    finally:
+        eng.arena.shutdown()
+
+
+def test_speculative_raises_what_is_not_a_capacity_error(setup, monkeypatch):
+    """Only capacity errors change the path: any other error of a dispatch
+    reaches the caller."""
+    _, _, _, params, stores = setup
+    _, model = _fresh_models(setup)
+    eng = _port_engine(model, params, stores["float32"], 2 * E, False, 1, speculative=True,
+                       spec_block=4)
+
+    def broken(*a, **kw):
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    try:
+        monkeypatch.setattr(model, "decode_step", broken)
+        with pytest.raises(RuntimeError, match="illegal memory access"):
+            eng.generate(SPEC_IDS, **SPEC_GEN)
+        assert eng.speculative and eng._k_cap == 4
+    finally:
+        eng.arena.shutdown()
+
+
+def test_route_margin_trace_equals_jax(setup):
+    """decode_step's trace with route_margin 2 on the resident path: the
+    top-2 and the next two runner-ups of every decoder MoE layer, equal to
+    the JAX model's, over several steps."""
+    from moe_infinity_tpu.runtime.providers import ResidentProvider as JResident
+
+    _, jparams, _, params, stores = setup
+    jmodel, model = _fresh_models(setup)
+    jmodel.route_margin = model.route_margin = 2
+    path = stores["float32"]
+    jres = JResident(JStore(path), dtype=jnp.float32)
+    res = ResidentProvider.from_store(ExpertStore(path), dtype=torch.float32, device="cpu")
+    tok, m = jnp.asarray(IDS, jnp.int32), jnp.asarray(MASK)
+    jcross = jmodel.cross_kv(jparams, jmodel.encode(jparams, jres.pytree(), tok, m,
+                                                    JResident.for_layer))
+    jkv = jmodel.init_cache(2, 16)
+    with port_attention("naive"), torch.inference_mode():
+        pm = torch.as_tensor(MASK)
+        cross = model.cross_kv(params, model.encode(
+            params, res.pytree(), torch.as_tensor(IDS, dtype=torch.int32), pm,
+            ResidentProvider.for_layer))
+        kv = model.init_cache(2, 16)
+        cur = np.full((2, 1), 2, np.int32)
+        for step in range(4):
+            pos = np.full((2, 1), step, np.int32)
+            jlog, jkv, jtr = jmodel.decode_step(
+                jparams, jres.pytree(), jnp.asarray(cur), jnp.asarray(pos), jkv,
+                jnp.int32(step), m, jcross, JResident.for_layer)
+            _, kv, tr = model.decode_step(
+                params, res.pytree(), torch.as_tensor(cur), torch.as_tensor(pos), kv, step, pm,
+                cross, ResidentProvider.for_layer)
+            assert tr.shape == (2, 2, 1, 4) and tr.dtype == torch.int32
+            np.testing.assert_array_equal(tr.numpy(), np.asarray(jtr))
+            cur = np.asarray(jnp.argmax(jlog[:, -1], -1))[:, None].astype(np.int32)

@@ -14,12 +14,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    few-row route with every bias form, and K3 at the edges of its 64-row
    chunks and 64-deep k-tiles, at one k-split and at several, and at
    Mixtral's 16-wide chunk step, each with the plan it took; on Mixtral's
-   down calls, where K3's error comes from (``[rounding]``);
+   down calls, where K3's error comes from (``[rounding]``); K1 with its
+   split plan from the cache's capacity (as the NLLB decoder calls it)
+   against the plan from the live keys, at capacities 32 and 1024;
 3. the seq2seq main path: NLLB-MoE-54B geometry (d_model 2048, 16 heads,
    FFN 8192, 128 experts top-2, every 4th block sparse, vocab 256,206) with
    random weights from a seed, bf16 compute, packed int4 experts, resident
    on the card, ``Seq2SeqGenerator.generate`` answering 4 padded requests
-   with 16 greedy tokens each (K1, K2 and K3 must each launch);
+   with 16 greedy tokens each (K1, K2 and K3 must each launch), first
+   eagerly (``graphs=False``, for comparison), then the main path, each
+   decode step one replay of a CUDA graph (one capture, a replay per step,
+   tokens equal to the eager run's); each prints tokens/s, decode ms per
+   token, the host's ms per step, the profiled busy share and peak memory;
 4. its whole-path check: at full width and 2+2 blocks, the first decode
    step's logits through the kernels against the plain versions on the card;
 5. the decoder-only main path: Mixtral-8x7B (``bench.py``'s
@@ -66,16 +72,24 @@ Phases, each printing its own lines; any failure exits non-zero:
 11. the offload main path at ``bench.py``'s defaults: phase 9's build served
    by the speculative engine (``speculative=True``, ``spec_block=4``, route
    margin 2): blocks of up to 4 greedy steps on the device with no host
-   read inside, verified once per dispatch and replayed on a miss; one
-   warm-up generate with every dispatch under
-   ``torch.cuda.set_sync_debug_mode("error")``, the timed generate, then a
-   profile of one block on the device and on the host; K1, K2 and K3 must
-   launch 24, 24 and 12 times per executed decoder step plus one encode's,
-   evictions must occur and some block must run more than once;
+   read inside, verified once per dispatch and replayed on a miss; first
+   eagerly (``graphs=False``, for comparison), then the main path, each
+   step and block a replay of its CUDA graph, each on a new arena: one
+   warm-up generate with every dispatch (every replay, with graphs) under
+   ``torch.cuda.set_sync_debug_mode("error")``, the timed generate (tokens
+   equal between the two), then a profile of one block on the device and
+   on the host; K1, K2 and K3 must launch 24, 24 and 12 times per executed
+   decoder step (replays and the warm-ups of captures) plus one encode's,
+   every execution of the graph run must be a replay, evictions must occur
+   and some block must run more than once;
 12. its whole-path check: phase 10's set-up through the speculative engine
-   at k=1 and at k=4 in both ``MOE_SPEC_BLOCK_MODE`` modes, on both seeds:
-   greedy tokens equal to the resident path's, the first accepted step's
-   logits within the tolerance, and some step or block run more than once.
+   at k=1 and at k=4 in both ``MOE_SPEC_BLOCK_MODE`` modes, on both seeds,
+   24 tokens, with graphs and eagerly: greedy tokens equal to the resident
+   path's, the first accepted step's logits within the tolerance, at k=1
+   every accepted step's f32 logits equal between graph and eager (and the
+   resident generator's likewise), and in bf16 graph and eager tokens
+   equal at k = 1, 2 and 4 in both block modes; some step or block must
+   run more than once.
 
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
@@ -91,7 +105,9 @@ against another tree's in one call). Each prints no result line.
 Every phase prints its seconds (``[phase]``).
 
 The line before the last is the per-kernel JSON record (launches: the sum
-of the counts of phases 3, 5, 7, 9 and 11); the last line is
+of the counts of phases 3, 5, 7, 9 and 11, graph replays included: a graph
+counts at each replay the launches it recorded when it was captured); the
+last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -270,7 +286,9 @@ def check_flash_decode(g, dev):
     from moe_infinity_tpu_torch.ops import flash_attention as fa
 
     B, H, Dh, S = 4, 16, 128, 32
-    kv_len, step = NEW_TOKENS + 1, NEW_TOKENS  # the last decode step
+    # the last decode step: the decoder passes the cache's capacity as kv_len
+    # and the causal bound of the position leaves 17 live keys
+    kv_len, step = S, NEW_TOKENS
     q = torch.randn(B, 1, H, Dh, generator=g, device=dev).to(torch.bfloat16)
     k = torch.randn(B, S, H, Dh, generator=g, device=dev).to(torch.bfloat16)
     v = torch.randn(B, S, H, Dh, generator=g, device=dev).to(torch.bfloat16)
@@ -279,8 +297,9 @@ def check_flash_decode(g, dev):
     plain = lambda: fa.flash_decode_plain(  # noqa: E731
         q[:, 0], k, v, pos[:, 0], kv_len, scale=Dh ** -0.5
     )
-    err = compare("flash_decode B=4 H=16 S=32 kv_len=17", run()[:, 0], plain())
+    err = compare("flash_decode B=4 H=16 S=32 kv_len=32 (17 live)", run()[:, 0], plain())
     live = min(kv_len, step + 1)
+    _k1_capacity_cost(g, dev, q, pos, live)
     mask = torch.full((B, 1, 1, S), float("-inf"), device=dev, dtype=torch.bfloat16)
     mask[..., :live] = 0
     nbytes = 2 * B * H * Dh * 2 + 2 * B * live * H * Dh * 2 + B * 4
@@ -294,6 +313,25 @@ def check_flash_decode(g, dev):
         library_ms=cuda_ms(_sdpa_mask_call(q, k, v, mask)),
         shape=f"B={B} H={H} Dh={Dh} S={S} live={live} bf16",
     )
+
+
+def _k1_capacity_cost(g, dev, q, pos, live):
+    """K1 with kv_len the live keys (the split plan from them) against
+    kv_len the cache's capacity (the plan from it, the causal bound leaving
+    the same keys), at phase 3's and phase 11's capacity of 32 and at 1024."""
+    from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+    B, _, H, Dh = q.shape
+    for S in (32, 1024):
+        k = torch.randn(B, S, H, Dh, generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, S, H, Dh, generator=g, device=dev).to(torch.bfloat16)
+        a, b = fa.flash_decode(q, k, v, pos, live), fa.flash_decode(q, k, v, pos, S)
+        torch.cuda.synchronize()
+        ms = [cuda_ms(lambda n=n: fa.flash_decode(q, k, v, pos, n)) for n in (live, S, live, S)]
+        say(f"[time] flash_decode capacity {S}, {live} live keys: kv_len={live} plan "
+            f"{fa._decode_splits(B * H, live)} ms={ms[0]:.5f}/{ms[2]:.5f}, kv_len={S} plan "
+            f"{fa._decode_splits(B * H, S)} ms={ms[1]:.5f}/{ms[3]:.5f}; results "
+            f"{'bit-equal' if torch.equal(a, b) else 'differ by %.3e' % (a - b).abs().max()}")
 
 
 def check_flash_attend(g, dev):
@@ -1091,39 +1129,65 @@ def phase_main_path(dev):
     say(f"[main] weights built on the card in {time.perf_counter() - t0:.1f} s; "
         f"experts {provider.nbytes() / 1e9:.2f} GB, allocated "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    gen = Seq2SeqGenerator(
-        model, params, provider.pytree(), ResidentProvider.for_layer, impl="pallas"
-    )
     ids, mask = _requests(spec.vocab_size, g, dev)
-    gen.generate(ids, max_new_tokens=2, attention_mask=mask, eos_token_id=None)  # warm-up
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    res = gen.generate(ids, max_new_tokens=NEW_TOKENS, attention_mask=mask,
-                       eos_token_id=None)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = launch_counts()
-    st = res.stats
-    say(f"[main] sequences shape {res.sequences.shape}; first row {res.sequences[0].tolist()}")
-    say(f"[main] encode_ms={st['encode_ms']:.3f} decode_ms_per_step="
-        f"{st['decode_ms'] / NEW_TOKENS:.3f} tokens_per_s="
-        f"{len(SRC_LENS) * NEW_TOKENS / (st['decode_ms'] / 1e3):.1f} "
-        f"wall_s={wall:.3f} max_memory_allocated_gb="
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
-    say(f"[main] launches {json.dumps(counts)}")
-    if res.sequences.shape != (len(SRC_LENS), NEW_TOKENS + 1):
-        raise AssertionError(f"unexpected output shape {res.sequences.shape}")
-    _require_launched(counts, NLLB_KERNELS, "NLLB main path")
-    if not np.all((res.sequences >= 0) & (res.sequences < spec.vocab_size)):
-        raise AssertionError("token ids out of range")
+    base = torch.cuda.memory_allocated()
+    runs = {}
+    # the eager path first, for comparison; then the main path, each decode
+    # step one replay of a CUDA graph (the counts returned are its own)
+    for graphs in (False, True):
+        tag = "graphs" if graphs else "eager"
+        gen = Seq2SeqGenerator(model, params, provider.pytree(), ResidentProvider.for_layer,
+                               impl="pallas", graphs=graphs)
+        torch.cuda.reset_peak_memory_stats()
+        gen.generate(ids, max_new_tokens=NEW_TOKENS, attention_mask=mask,
+                     eos_token_id=None)  # warm-up at the timed shape: its capture
+        torch.cuda.synchronize()
+        st0 = gen.graph_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = gen.generate(ids, max_new_tokens=NEW_TOKENS, attention_mask=mask,
+                           eos_token_id=None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        st, gst = res.stats, gen.graph_stats()
+        peak = torch.cuda.max_memory_allocated()
+        say(f"[main] {tag}: sequences shape {res.sequences.shape}; first row "
+            f"{res.sequences[0].tolist()}")
+        say(f"[main] {tag}: encode_ms={st['encode_ms']:.3f} decode_ms_per_token="
+            f"{st['decode_ms'] / NEW_TOKENS:.3f} tokens_per_s="
+            f"{len(SRC_LENS) * NEW_TOKENS / (st['decode_ms'] / 1e3):.1f} "
+            f"wall_s={wall:.3f} max_memory_allocated_gb={peak / 1e9:.2f} (weights "
+            f"{base / 1e9:.2f}) graphs {json.dumps(gst)} (captures in the timed generate: "
+            f"{gst.get('captures', 0) - st0.get('captures', 0)})")
+        say(f"[main] {tag}: launches {json.dumps(counts)}")
+        st3 = gen.generate(ids, max_new_tokens=NEW_TOKENS, attention_mask=mask,
+                           eos_token_id=None).stats
+        say(f"[main] {tag}: a third request: encode_ms={st3['encode_ms']:.3f} "
+            f"decode_ms_per_token={st3['decode_ms'] / NEW_TOKENS:.3f}")
+        if res.sequences.shape != (len(SRC_LENS), NEW_TOKENS + 1):
+            raise AssertionError(f"unexpected output shape {res.sequences.shape}")
+        _require_launched(counts, NLLB_KERNELS, f"NLLB main path ({tag})")
+        if not np.all((res.sequences >= 0) & (res.sequences < spec.vocab_size)):
+            raise AssertionError("token ids out of range")
+        if graphs and (gst["captures"] != 1 or gst["recaptures"]
+                       or gst["replays"] != 2 * NEW_TOKENS
+                       or gen.graph_stats()["captures"] != 1):
+            raise AssertionError(f"graphs: one capture and a replay per step expected ({gst})")
+        runs[tag] = res.sequences
+        _profile_main_path(model, params, provider, ids, mask, gen, tag)
+        del gen
+        torch.cuda.empty_cache()
+    same = np.array_equal(runs["graphs"], runs["eager"])
+    say(f"[main] graphs against eager greedy tokens: {'equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("graph and eager tokens differ")
     # logits of one more step are finite
     logits = _first_step_logits(model, params, provider, ids, mask, "pallas")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("non-finite logits")
     say(f"[main] first-step logits finite, shape {tuple(logits.shape)}")
-    _profile_main_path(model, params, provider, ids, mask)
-    del gen, params, tree, provider, model
+    del params, tree, provider, model
     torch.cuda.empty_cache()
     return counts
 
@@ -1170,7 +1234,10 @@ def _profile(label, fn, n):
     return busy
 
 
-def _profile_main_path(model, params, provider, ids, mask):
+def _profile_main_path(model, params, provider, ids, mask, gen, tag):
+    """The encoder (once, eager in both modes) and the generator's decode
+    step at the timed shape under the profiler; then the host's time per
+    step: the calls alone (queueing), 16 steps ended by one synchronize."""
     from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 
     dev, for_layer, experts = model.device, ResidentProvider.for_layer, provider.pytree()
@@ -1181,21 +1248,32 @@ def _profile_main_path(model, params, provider, ids, mask):
     def encode():
         return model.cross_kv(params, model.encode(params, experts, tok, m, for_layer, "pallas"))
 
-    cross = encode()
-    kvs = model.init_cache(B, 32)
-    cur = torch.full((B, 1), model.spec.decoder_start_token_id, dtype=torch.int32, device=dev)
-    step = [0]
-
-    def decode():
-        pos = torch.full((B, 1), step[0], dtype=torch.int32, device=dev)
-        logits, _, _ = model.decode_step(params, experts, cur, pos, kvs, step[0], m, cross,
-                                         for_layer, "pallas")
-        cur.copy_(torch.argmax(logits[:, -1], -1, keepdim=True))
-        step[0] += 1
-
     with torch.inference_mode():
-        _profile("encode (4 x 64 tokens) + cross K/V", encode, 2)
-        _profile("decode step (4 rows)", decode, 4)
+        cross = encode()
+        step_fn = gen.decoder(B, 32, m, cross)
+        cur = torch.full((B, 1), model.spec.decoder_start_token_id, dtype=torch.int32,
+                         device=dev)
+        step = [0]
+
+        def decode():
+            _, nxt = step_fn(cur, step[0])
+            cur.copy_(nxt[:, None])
+            step[0] = (step[0] + 1) % 16
+
+        decode()
+        if tag == "eager":
+            _profile("encode (4 x 64 tokens) + cross K/V", encode, 2)
+        _profile(f"decode step (4 rows, {tag})", decode, 4)
+        torch.cuda.synchronize()
+        host, t0 = 0.0, time.perf_counter()
+        for _ in range(16):
+            t1 = time.perf_counter()
+            decode()
+            host += time.perf_counter() - t1
+        torch.cuda.synchronize()
+        say(f"[profile] decode step (4 rows, {tag}): host_ms_per_step={host * 1e3 / 16:.3f} "
+            f"(the calls) wall_ms_per_step={(time.perf_counter() - t0) * 1e3 / 16:.3f} "
+            f"(16 steps, one synchronize)")
 
 
 def _first_step_logits(model, params, provider, ids, mask, impl):
@@ -2079,8 +2157,34 @@ NLLB_ENCODE_LAUNCHES = {"flash_attend": 24, "gmm": 12}  # one encode of NLLB-MoE
 NLLB_STEP_LAUNCHES = {"flash_decode": 24, "flash_attend": 24, "gmm": 12}  # one decoder step
 
 
+def _wrap_dispatches(engine, wrap, replays=True):
+    """Wrap each speculative dispatch of ``engine`` in ``wrap(fn)``: with
+    graphs and ``replays``, each replay (input copies included; a capture is
+    not wrapped); else each call of its whole step and k-step block (with
+    graphs: the graph cache's lookup, and a capture where a shape has
+    none). Returns a function that takes the wrappers off."""
+    from moe_infinity_tpu_torch.runtime import graphs
+
+    if engine.graphs is not None and replays:
+        replay = graphs.StepGraph.replay
+        graphs.StepGraph.replay = wrap(replay)
+
+        def off():
+            graphs.StepGraph.replay = replay
+
+        return off
+    block_fn, step_fn = engine._spec_block_fn, engine._spec_step
+    engine._spec_block_fn = lambda k: wrap(block_fn(k))
+    engine._spec_step = wrap(step_fn)
+
+    def off():
+        del engine._spec_block_fn, engine._spec_step
+
+    return off
+
+
 def _sync_guard(engine):
-    """Run every speculative step's and block's launches under
+    """Run every speculative dispatch under
     ``torch.cuda.set_sync_debug_mode("error")``: a host read inside raises.
     The slot-row upload comes before the guarded call and the trace read
     after it. Returns the count of guarded calls and a function that takes
@@ -2088,89 +2192,134 @@ def _sync_guard(engine):
     n = [0]
 
     def guard(fn):
-        def run(*a):
+        def run(*a, **kw):
             prev = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                out = fn(*a)
+                out = fn(*a, **kw)
             finally:
                 torch.cuda.set_sync_debug_mode(prev)
             n[0] += 1
             return out
         return run
 
-    block_fn, step_fn = engine._spec_block_fn, engine._spec_step
-    engine._spec_block_fn = lambda k: guard(block_fn(k))
-    engine._spec_step = guard(step_fn)
+    return n, _wrap_dispatches(engine, guard)
 
-    def off():
-        del engine._spec_block_fn, engine._spec_step
 
-    return n, off
+def _host_timer(engine):
+    """[host seconds inside the dispatches' calls, calls]: what the host
+    spends queueing an execution (a graph's lookup and replay, or an eager
+    step or block), without the trace read that waits for the device."""
+    t = [0.0, 0]
+
+    def timed(fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            t[0] += time.perf_counter() - t0
+            t[1] += 1
+            return out
+        return run
+
+    return t, _wrap_dispatches(engine, timed, replays=False)
 
 
 def phase_offload_spec(dev):
     """Phase 9's build served by the speculative engine, as bench.py's
     ``nllb-offload`` preset builds it (``speculative=True``, ``spec_block=4``,
     route margin 2): blocks of up to 4 greedy steps on the device with no
-    host read inside, verified once per dispatch. One warm-up generate with
-    every block under the sync-debug guard, then a timed one of phase 3's 4
-    requests x 16 greedy tokens, then a profile of one block on the device
-    and on the host."""
+    host read inside, verified once per dispatch. First the eager path
+    (``graphs=False``, for comparison), then the main path, each step and
+    block a replay of a CUDA graph, each with a new arena over the same tier
+    and store: one warm-up generate with every dispatch under the
+    sync-debug guard, then a timed one of phase 3's 4 requests x 16 greedy
+    tokens, then a profile of one block on the device and on the host."""
+    b = _offload_build(dev)
+    runs = {}
+    for graphs in (False, True):
+        counts = _offload_spec_run(dev, b, graphs, runs)
+    same = np.array_equal(runs["graphs"], runs["eager"])
+    say(f"[spec] graphs against eager greedy tokens: {'equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("speculative path: graph and eager tokens differ")
+    del b
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _offload_spec_run(dev, b, graphs, runs):
     from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
     from moe_infinity_tpu_torch.runtime.engine import spec_block_diag, speculative_stats
 
-    b = _offload_build(dev)
+    tag = "graphs" if graphs else "eager"
     spec, tier, ids, mask = b.spec, b.tier, b.ids, b.mask
+    torch.cuda.reset_peak_memory_stats()
+    say(f"[spec] {tag}: allocated before the engine is built "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     engine = _offload_engine(b.model, b.params, b.store, b.slots, tier, speculative=True,
-                             spec_block=4)
+                             spec_block=4, graphs=graphs)
     arena = engine.arena
-    _say_offload_setup("spec", b, arena)
+    _say_offload_setup(f"spec {tag}", b, arena)
     gen = dict(max_new_tokens=NEW_TOKENS, attention_mask=mask, eos_token_id=None)
     try:
         guarded, unguard = _sync_guard(engine)
         t0 = time.perf_counter()
-        engine.generate(ids, **gen)
-        torch.cuda.synchronize()
-        unguard()
-        say(f"[spec] warm-up generate {time.perf_counter() - t0:.1f} s, {guarded[0]} "
-            f"dispatches under sync_debug_mode=error with no host read; stats "
-            f"{json.dumps(engine.stats())}, executions {engine.replay_counts}")
+        try:
+            engine.generate(ids, **gen)
+            torch.cuda.synchronize()
+        finally:
+            unguard()
+        say(f"[spec] {tag}: warm-up generate {time.perf_counter() - t0:.1f} s, {guarded[0]} "
+            f"{'replays' if graphs else 'dispatches'} under sync_debug_mode=error with no "
+            f"host read; stats {json.dumps(engine.stats())}, executions "
+            f"{engine.replay_counts}, graphs {json.dumps(engine.graph_stats())}")
         if guarded[0] == 0:
             raise AssertionError("speculative path: no dispatch ran under the sync guard")
-        f0, s0 = arena.fetch_stats(), engine.stats()
+        f0, s0, g0 = arena.fetch_stats(), engine.stats(), engine.graph_stats()
         pt0, lc0, x0 = dict(engine.phase_timings), dict(engine.lease_counts), engine.executed_steps
         r0, l0, k0 = len(engine.replay_counts), len(engine.spec_log), len(engine._k_trace)
+        host, untime = _host_timer(engine)
         reset_launches()
         t0 = time.perf_counter()
-        res = engine.generate(ids, **gen)
-        torch.cuda.synchronize()
+        try:
+            res = engine.generate(ids, **gen)
+            torch.cuda.synchronize()
+        finally:
+            untime()
         wall = time.perf_counter() - t0
         counts = launch_counts()
         steps = engine.executed_steps - x0
-        f1, s1 = arena.fetch_stats(), engine.stats()
+        f1, s1, g1 = arena.fetch_stats(), engine.stats(), engine.graph_stats()
+        warm = g1.get("warmup_steps", 0) - g0.get("warmup_steps", 0)
         dw = engine.decode_window_stats()
         st = res.stats
         execs = engine.replay_counts[r0:]
         timings = {k: round(v - pt0.get(k, 0.0), 6) for k, v in engine.phase_timings.items()}
-        say(f"[spec] sequences shape {res.sequences.shape}; first row "
+        say(f"[spec] {tag}: sequences shape {res.sequences.shape}; first row "
             f"{res.sequences[0].tolist()}")
-        say(f"[spec] encode_ms={st['encode_ms']:.3f} decode_ms_per_token="
+        cap_s = g1.get("capture_s", 0) - g0.get("capture_s", 0)
+        say(f"[spec] {tag}: encode_ms={st['encode_ms']:.3f} decode_ms_per_token="
             f"{st['decode_ms'] / NEW_TOKENS:.3f} tokens_per_s="
-            f"{len(SRC_LENS) * NEW_TOKENS / (st['decode_ms'] / 1e3):.1f} wall_s={wall:.3f}")
-        say(f"[spec] blocks={len(execs)} executions={execs} k_trace={engine._k_trace[k0:]} "
-            f"k_now={engine.spec_block} chosen={engine._chosen} executed_steps={steps} "
-            f"speculative={engine.speculative} step_times="
+            f"{len(SRC_LENS) * NEW_TOKENS / (st['decode_ms'] / 1e3):.1f} wall_s={wall:.3f} "
+            f"host_ms_per_execution={host[0] * 1e3 / max(1, host[1]):.3f} (without "
+            f"captures {(host[0] - cap_s) * 1e3 / max(1, host[1]):.3f}; {host[1]} executions "
+            f"queued) max_memory_allocated_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        say(f"[spec] {tag}: blocks={len(execs)} executions={execs} k_trace="
+            f"{engine._k_trace[k0:]} k_now={engine.spec_block} chosen={engine._chosen} "
+            f"executed_steps={steps} speculative={engine.speculative} step_times="
             f"{[(n, round(t, 4)) for n, t in engine.step_times]}")
-        say(f"[spec] speculative_stats {json.dumps(speculative_stats(execs))} (all: "
+        say(f"[spec] {tag}: graphs {json.dumps(g1)}; in the timed generate: captures "
+            f"{g1.get('captures', 0) - g0.get('captures', 0)}, capture_s {cap_s:.3f}, "
+            f"warm-up steps {warm}")
+        say(f"[spec] {tag}: speculative_stats {json.dumps(speculative_stats(execs))} (all: "
             f"{json.dumps(speculative_stats(engine.replay_counts))}) spec_block_diag "
             f"{json.dumps(spec_block_diag(engine.spec_log[l0:]))}")
-        say(f"[spec] phase_timings (timed generate, s) {json.dumps(timings)}")
-        say(f"[spec] decode window: hit_rate={dw['decode_hit_rate']:.4f} visits={dw['visits']} "
-            f"misses={dw['misses']} evictions={dw['evictions']} miss_by_layer="
+        say(f"[spec] {tag}: phase_timings (timed generate, s) {json.dumps(timings)}")
+        say(f"[spec] {tag}: decode window: hit_rate={dw['decode_hit_rate']:.4f} visits="
+            f"{dw['visits']} misses={dw['misses']} evictions={dw['evictions']} miss_by_layer="
             f"{dw['miss_by_layer']} miss_churn={dw['miss_churn']} miss_fresh={dw['miss_fresh']} "
             f"distinct_routed={dw['distinct_routed']}")
-        say(f"[spec] timed generate: visits={s1['visits'] - s0['visits']} misses="
+        say(f"[spec] {tag}: timed generate: visits={s1['visits'] - s0['visits']} misses="
             f"{s1['misses'] - s0['misses']} evictions={s1['evictions'] - s0['evictions']} "
             f"prefetches={s1['prefetches'] - s0['prefetches']} fetches tier="
             f"{f1['fetches_tier'] - f0['fetches_tier']} store="
@@ -2180,34 +2329,38 @@ def phase_offload_spec(dev):
             f"lease_rejects="
             f"{engine.lease_counts.get('lease_rejects', 0) - lc0.get('lease_rejects', 0)} "
             f"fetch_seconds_ewma={f1['fetch_seconds_ewma']:.6f}")
-        say(f"[spec] tier_gb={tier.stats()['pinned_tier_gb']} arena_gb="
-            f"{arena.nbytes() / 2**30:.3f} max_memory_allocated_gb="
-            f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
-        want = {k: NLLB_ENCODE_LAUNCHES.get(k, 0) + n * steps
+        say(f"[spec] {tag}: tier_gb={tier.stats()['pinned_tier_gb']} arena_gb="
+            f"{arena.nbytes() / 2**30:.3f}")
+        want = {k: NLLB_ENCODE_LAUNCHES.get(k, 0) + n * (steps + warm)
                 for k, n in NLLB_STEP_LAUNCHES.items()}
-        say(f"[spec] launches {json.dumps(counts)}; expected from {steps} executed steps "
-            f"and one encode {json.dumps(want)}")
+        say(f"[spec] {tag}: launches {json.dumps(counts)}; expected from {steps} executed "
+            f"steps, {warm} warm-up steps of captures and one encode {json.dumps(want)}")
         if res.sequences.shape != (len(SRC_LENS), NEW_TOKENS + 1):
             raise AssertionError(f"unexpected output shape {res.sequences.shape}")
         if not np.all((res.sequences >= 0) & (res.sequences < spec.vocab_size)):
             raise AssertionError("token ids out of range")
-        _require_launched(counts, NLLB_KERNELS, "NLLB speculative offload path")
+        _require_launched(counts, NLLB_KERNELS, f"NLLB speculative offload path ({tag})")
         if any(counts[k] != n for k, n in want.items()):
             raise AssertionError(f"speculative path: launches {counts} != {want}")
         if s1["evictions"] <= 0 or max(engine.replay_counts) <= 1:
             raise AssertionError(f"speculative path: no evictions or no block ran more than "
                                  f"once ({s1}, {engine.replay_counts})")
-        _profile_spec_block(engine, ids, mask)
+        if graphs and (g1["recaptures"] or g1["replays"] - g0["replays"] != sum(execs)):
+            raise AssertionError(f"speculative path: every execution a replay, no recapture "
+                                 f"expected ({g0} -> {g1}, executions {execs})")
+        runs[tag] = res.sequences
+        _profile_spec_block(engine, ids, mask, tag)
     finally:
         arena.shutdown()
-    del engine, arena, tier, b
+    del engine, arena
     torch.cuda.empty_cache()
     return counts
 
 
-def _profile_spec_block(engine, ids, mask):
+def _profile_spec_block(engine, ids, mask, tag):
     """One encode through the engine, one block, then two blocks at the size
-    the hill-climb holds, under the profiler and under cProfile."""
+    the hill-climb holds, under the profiler and under cProfile, over the
+    buffers the engine's graphs read."""
     model = engine.model
     dev = model.device
     tok = torch.as_tensor(ids, dtype=torch.int32, device=dev)
@@ -2217,7 +2370,7 @@ def _profile_spec_block(engine, ids, mask):
     with torch.inference_mode():
         _, cross = engine.run_encoder(tok, m, seq_ids)
         engine._prefetch_decoder_tier(seq_ids)
-        kvs = engine.init_cache(B, 32)
+        kvs, m, cross = engine.decode_state(B, 32, m, cross)
         state = {"cur": torch.full((B, 1), model.spec.decoder_start_token_id,
                                    dtype=torch.int32, device=dev), "step": 0}
 
@@ -2229,25 +2382,96 @@ def _profile_spec_block(engine, ids, mask):
 
         block()
         r0 = len(engine.replay_counts)
-        _profile_streams(f"speculative block (4 rows, k={k}, 6 MoE layers)", block, 2)
-        _host_profile(f"speculative block (k={k})", block, 2)
-        say(f"[profile] executions of the profiled blocks {engine.replay_counts[r0:]}")
+        _profile_streams(f"speculative block (4 rows, k={k}, 6 MoE layers, {tag})", block, 2)
+        _host_profile(f"speculative block (k={k}, {tag})", block, 2)
+        say(f"[profile] executions of the profiled blocks {engine.replay_counts[r0:]}; "
+            f"graphs {json.dumps(engine.graph_stats())}")
     for sid in seq_ids:
         engine.tracer.finish_entry(sid)
 
 
-def phase_offload_spec_whole_path(dev):
-    """The speculative engine against the resident Seq2SeqGenerator at f32,
-    full width, 4+4 blocks with every 2nd sparse, an arena of E slots,
-    prefetch on and 4 workers (phase 10's set-up): whole steps (k=1) and
-    blocks of 4 in both MOE_SPEC_BLOCK_MODE modes, on seeds 11 (store only)
-    and 12 (decoder records in a tier copied from the store). Greedy tokens
-    must be equal and the first accepted step's logits within the
-    tolerance; some step or block must run more than once."""
+PARITY_TOKENS = 24  # phase 12's greedy tokens per request
+
+
+def _same_or_close(what, got, want):
+    """Graph against eager logits: bit for bit, else within 1e-5 (printed
+    with the difference; greedy tokens are held equal beside it)."""
+    torch.cuda.synchronize()
+    if torch.equal(got, want):
+        return "bit-equal"
+    err = (got.float() - want.float()).abs().max().item()
+    if err > 1e-5:
+        raise AssertionError(f"{what}: graph and eager logits differ by {err:.3e}")
+    return f"within {err:.3e}"
+
+
+def _spec_case(model, params, store, tier, ids, gen, k, mode, graphs, record):
+    """One speculative generate at block size k in ``mode``, with graphs on
+    or off. record: "steps" keeps every accepted whole step's logits (k=1),
+    "step0" step 0's logits of every eager execution (the last is the
+    accepted one), None nothing. Returns (result, logits, engine, counts)."""
     import os
 
-    from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
     from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+
+    engine = _offload_engine(model, params, store, store.num_experts, tier, speculative=True,
+                             spec_block=k, graphs=graphs)
+    logits = []
+    if record == "steps":
+        step_fn = engine._speculative_step
+
+        def recording_step(*a):
+            out = step_fn(*a)
+            logits.append(out[0].clone())
+            return out
+
+        engine._speculative_step = recording_step
+    elif record == "step0":  # eager only: the step is an int there
+        decode_step = model.decode_step
+
+        def recording(*a, **kw):
+            out = decode_step(*a, **kw)
+            if a[5] == 0:
+                logits.append(out[0].clone())
+            return out
+
+        model.decode_step = recording
+    kept = os.environ.get("MOE_SPEC_BLOCK_MODE")
+    os.environ["MOE_SPEC_BLOCK_MODE"] = mode
+    try:
+        reset_launches()
+        res = engine.generate(ids, **gen)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        if record == "step0":
+            del model.decode_step
+        if kept is None:
+            del os.environ["MOE_SPEC_BLOCK_MODE"]
+        else:
+            os.environ["MOE_SPEC_BLOCK_MODE"] = kept
+        engine.arena.shutdown()
+    return res, logits, engine, counts
+
+
+def phase_offload_spec_whole_path(dev):
+    """The speculative engine at full width, 4+4 blocks with every 2nd
+    sparse, an arena of E slots, prefetch on and 4 workers (phase 10's
+    set-up), on seeds 11 (store only) and 12 (decoder records in a tier
+    copied from the store), 24 greedy tokens per request:
+
+    * f32, against the resident Seq2SeqGenerator: whole steps (k=1) and
+      blocks of 4 in both MOE_SPEC_BLOCK_MODE modes, each with graphs (the
+      main path) and eagerly; greedy tokens equal, the first accepted
+      step's logits within the tolerance (k=1 both ways; k=4 eagerly, where
+      a block's logits are not kept inside a graph), and at k=1 every
+      accepted step's logits of the graph run equal to the eager run's; the
+      resident generator's 24 steps, graph against eager, likewise;
+    * bf16: graph and eager greedy tokens equal at k = 1, 2 and 4 in both
+      block modes.
+
+    Some step or block must run more than once."""
+    from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
     from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
     from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
     from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
@@ -2269,62 +2493,116 @@ def phase_offload_spec_whole_path(dev):
             tier = PinnedExpertTier(store, device=dev, shared_record=False,
                                     max_bytes=n_dec * store.stride, synth_on_device=False)
         ids, mask = _requests(spec.vocab_size, g, dev)
-        gen = dict(max_new_tokens=NEW_TOKENS, attention_mask=mask, eos_token_id=None)
-        want = Seq2SeqGenerator(model, params, provider.pytree(), ResidentProvider.for_layer,
-                                impl="pallas").generate(ids, **gen)
+        where = f"{'tier + store' if staged else 'store only'}"
+        gen = dict(max_new_tokens=PARITY_TOKENS, attention_mask=mask, eos_token_id=None)
+        resident = {gr: Seq2SeqGenerator(model, params, provider.pytree(),
+                                         ResidentProvider.for_layer, impl="pallas", graphs=gr)
+                    for gr in (True, False)}
+        want = resident[True].generate(ids, **gen)
+        if not np.array_equal(want.sequences, resident[False].generate(ids, **gen).sequences):
+            raise AssertionError(f"resident graph and eager tokens differ (seed {seed})")
+        _resident_graph_parity(model, params, provider, resident, ids, mask, seed)
         want_logits = _first_step_logits(model, params, provider, ids, mask, "pallas")
         for k, mode in ((1, "whole"), (4, "whole"), (4, "prefix")):
-            engine = _offload_engine(model, params, store, E, tier, speculative=True,
-                                     spec_block=k)
-            step0 = []  # step 0's logits of every execution; the last is the accepted one
-            decode_step = model.decode_step
-
-            def recording(*a, **kw):
-                out = decode_step(*a, **kw)
-                if a[5] == 0:
-                    step0.append(out[0].clone())
-                return out
-
-            kept = os.environ.get("MOE_SPEC_BLOCK_MODE")
-            os.environ["MOE_SPEC_BLOCK_MODE"] = mode
-            model.decode_step = recording
-            try:
-                reset_launches()
-                got = engine.generate(ids, **gen)
-                torch.cuda.synchronize()
-                counts = launch_counts()
+            runs = {}
+            for graphs in (True, False):
+                record = "steps" if k == 1 else (None if graphs else "step0")
+                got, logits, engine, counts = _spec_case(model, params, store, tier, ids, gen,
+                                                         k, mode, graphs, record)
+                tag = "graphs" if graphs else "eager"
+                what = f"seed {seed} k={k} {mode} {tag}"
+                runs[tag] = logits
+                _require_launched(counts, NLLB_KERNELS,
+                                  f"NLLB speculative whole-path check {what}")
                 stats, fetch = engine.stats(), engine.arena.fetch_stats()
-            finally:
-                del model.decode_step
-                if kept is None:
-                    del os.environ["MOE_SPEC_BLOCK_MODE"]
-                else:
-                    os.environ["MOE_SPEC_BLOCK_MODE"] = kept
-                engine.arena.shutdown()
-            what = f"seed {seed} k={k} {mode}"
-            if not step0:
-                raise AssertionError(f"speculative whole-path check {what}: step 0 never ran "
-                                     "speculatively")
-            _require_launched(counts, NLLB_KERNELS, f"NLLB speculative whole-path check {what}")
-            say(f"[check] speculative {what} ({'tier + store' if staged else 'store only'}): "
-                f"{E} slots, executions {engine.replay_counts}, evictions "
-                f"{stats['evictions']}, misses {stats['misses']}, lease_evictions "
-                f"{fetch['lease_evictions']}, {json.dumps(engine.lease_counts)}, "
-                f"speculative={engine.speculative}")
-            compare(f"speculative vs resident first accepted step's logits f32 {what} (full "
-                    f"width, 4+4 blocks, int4 experts, {E}-slot arena)", step0[-1], want_logits)
-            same = np.array_equal(got.sequences, want.sequences)
-            say(f"[check] speculative vs resident greedy tokens {what}: "
-                f"{'equal' if same else 'DIFFER'} {got.sequences[0].tolist()}")
-            if not same:
-                raise AssertionError(f"speculative tokens differ from the resident path's "
-                                     f"({what})")
-            replays += engine.replay_counts
-            del engine
-        del model, params, store, provider, tier
+                say(f"[check] speculative {what} ({where}): {E} slots, executions "
+                    f"{engine.replay_counts}, evictions {stats['evictions']}, misses "
+                    f"{stats['misses']}, lease_evictions {fetch['lease_evictions']}, "
+                    f"{json.dumps(engine.lease_counts)}, speculative={engine.speculative}, "
+                    f"graphs {json.dumps(engine.graph_stats())}")
+                if logits:
+                    compare(f"speculative vs resident first accepted step's logits f32 {what} "
+                            f"(full width, 4+4 blocks, int4 experts, {E}-slot arena)",
+                            logits[0] if record == "steps" else logits[-1], want_logits)
+                elif record is not None:
+                    raise AssertionError(f"{what}: step 0 never ran speculatively")
+                same = np.array_equal(got.sequences, want.sequences)
+                say(f"[check] speculative vs resident greedy tokens {what}: "
+                    f"{'equal' if same else 'DIFFER'} {got.sequences[0].tolist()}")
+                if not same:
+                    raise AssertionError(f"speculative tokens differ from the resident "
+                                         f"path's ({what})")
+                replays += engine.replay_counts
+                del engine
+            if k == 1:
+                if len(runs["graphs"]) != PARITY_TOKENS or len(runs["eager"]) != PARITY_TOKENS:
+                    raise AssertionError(f"k=1: {len(runs['graphs'])} and {len(runs['eager'])} "
+                                         f"accepted steps recorded, {PARITY_TOKENS} expected")
+                how = [_same_or_close(f"offload k=1 step {i} seed {seed}", a, b)
+                       for i, (a, b) in enumerate(zip(runs["graphs"], runs["eager"]))]
+                say(f"[check] offload k=1 f32 graph against eager logits over "
+                    f"{PARITY_TOKENS} accepted steps, seed {seed}: "
+                    f"{sum(h == 'bit-equal' for h in how)} bit-equal, others {sorted(set(how))}")
+        del model, params, provider, resident
+        torch.cuda.empty_cache()
+        _bf16_graph_parity(dev, spec, store, tier, seed, where)
+        del store, tier
         torch.cuda.empty_cache()
     if max(replays) <= 1:
         raise AssertionError("speculative whole-path check: no step or block ran twice")
+
+
+def _resident_graph_parity(model, params, provider, resident, ids, mask, seed):
+    """The resident generator's decode step, graph against eager, at f32
+    over 24 steps fed the eager argmax."""
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    dev = model.device
+    tok = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+    m = torch.as_tensor(mask, device=dev)
+    with torch.inference_mode():
+        cross = model.cross_kv(params, model.encode(params, provider.pytree(), tok, m,
+                                                    ResidentProvider.for_layer, "pallas"))
+        steps = [resident[gr].decoder(tok.shape[0], 32, m, cross) for gr in (True, False)]
+        cur = torch.full((tok.shape[0], 1), model.spec.decoder_start_token_id,
+                         dtype=torch.int32, device=dev)
+        how = []
+        for i in range(PARITY_TOKENS):
+            (lg, ng), (le, ne) = (st(cur, i) for st in steps)
+            how.append(_same_or_close(f"resident step {i} seed {seed}", lg, le))
+            if not torch.equal(ng, ne):
+                raise AssertionError(f"resident step {i}: graph and eager tokens differ")
+            cur = ne[:, None].to(torch.int32)
+    say(f"[check] resident f32 graph against eager logits over {PARITY_TOKENS} steps, seed "
+        f"{seed}: {sum(h == 'bit-equal' for h in how)} bit-equal, others {sorted(set(how))}")
+
+
+def _bf16_graph_parity(dev, spec, store, tier, seed, where):
+    """bf16 weights from the same seed: the speculative engine's greedy
+    tokens with graphs and eagerly, at k = 1, 2 and 4 in both block modes."""
+    from moe_infinity_tpu_torch.models.nllb import NllbModel
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    model = NllbModel(spec, compute_dtype=torch.bfloat16, device=dev)
+    params, _ = model.init_random(g, with_experts=False)
+    ids, mask = _requests(spec.vocab_size, g, dev)
+    gen = dict(max_new_tokens=PARITY_TOKENS, attention_mask=mask, eos_token_id=None)
+    for k, mode in ((1, "whole"), (2, "whole"), (2, "prefix"), (4, "whole"), (4, "prefix")):
+        seqs, execs = [], []
+        for graphs in (True, False):
+            res, _, engine, _ = _spec_case(model, params, store, tier, ids, gen, k, mode,
+                                           graphs, None)
+            seqs.append(res.sequences)
+            execs.append(engine.replay_counts)
+        same = np.array_equal(seqs[0], seqs[1])
+        say(f"[check] bf16 graph against eager greedy tokens seed {seed} k={k} {mode} "
+            f"({where}): {'equal' if same else 'DIFFER'}; executions {execs[0]} / {execs[1]}")
+        if not same:
+            raise AssertionError(f"bf16 graph and eager tokens differ (seed {seed} k={k} "
+                                 f"{mode})")
+    del model, params
+    torch.cuda.empty_cache()
 
 
 def sweep_decode_plans(dev):

@@ -102,9 +102,16 @@ class KVCache:
     def max_len(self) -> int:
         return self.k.shape[1]
 
-    def update(self, k_new, v_new, offset: int) -> "KVCache":
-        """Write [B, T, Hkv, Dh] at time ``offset``."""
+    def update(self, k_new, v_new, offset) -> "KVCache":
+        """Write [B, T, Hkv, Dh] at time ``offset``: an int, or a 0-d
+        integer tensor on the cache's device (the step a CUDA graph reads
+        at replay), written with ``index_copy_`` at ``offset + arange(T)``."""
         T = k_new.shape[1]
+        if isinstance(offset, torch.Tensor):
+            cols = offset.long() + torch.arange(T, device=offset.device)
+            self.k.index_copy_(1, cols, k_new.to(self.k.dtype))
+            self.v.index_copy_(1, cols, v_new.to(self.v.dtype))
+            return self
         self.k[:, offset:offset + T] = k_new
         self.v[:, offset:offset + T] = v_new
         return self

@@ -289,11 +289,15 @@ class NllbModel:
         return self._embed(params, dec_tokens, step)
 
     def _dec_attn(self, b, x, kv, positions, kv_len, bias, ck, cv, cross_bias):
-        T = x.shape[1]
+        """``kv_len`` (the cache offset, an int or a 0-d tensor) only places
+        the step's K/V. The self-attention reads up to the cache's capacity
+        and the causal bound from ``positions`` (the cache columns) limits
+        each row, so no launch depends on the step, and the columns past a
+        row's own hold whatever an execution that was not accepted left."""
         h = layer_norm(x, b["ln0_w"], b["ln0_b"], 1e-5)
         k, v = self._kv(b["self_attn"], h)
         kv = kv.update(k, v, kv_len)
-        x = x + self._attn(b["self_attn"], h, kv.k, kv.v, positions, kv_len + T, causal=True)
+        x = x + self._attn(b["self_attn"], h, kv.k, kv.v, positions, kv.max_len, causal=True)
         h = layer_norm(x, b["lnc_w"], b["lnc_b"], 1e-5)
         x = x + self._attn(b["cross_attn"], h, ck, cv, positions, ck.shape[1],
                            causal=False, pad_bias=cross_bias)
@@ -345,10 +349,11 @@ class NllbModel:
     def cross_kv(self, params, enc_out):
         return [self.cross_kv_block(b, enc_out) for b in params["dec_blocks"]]
 
-    def decode_step(self, params, experts, dec_tokens, positions, kvs, kv_len: int,
+    def decode_step(self, params, experts, dec_tokens, positions, kvs, kv_len,
                     enc_mask, cross, for_layer, impl="ragged"):
-        """One decoder step for tokens [B, T] at cache offset ``kv_len``;
-        writes the step's K/V into ``kvs`` in place. Returns (logits
+        """One decoder step for tokens [B, T] at cache offset ``kv_len`` (an
+        int, or a 0-d integer tensor on the device, which a CUDA graph reads
+        at replay); writes the step's K/V into ``kvs`` in place. Returns (logits
         [B, T, V] f32, kvs, trace): trace is the routed ids of the decoder's
         sparse layers in order, [L_dec_moe, B, T, 2 + route_margin] int32,
         left on the device."""

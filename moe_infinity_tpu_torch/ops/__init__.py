@@ -14,3 +14,14 @@ def reset_launches() -> None:
     for counts in (flash_attention.LAUNCHES, gmm.LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` to the launch counts: a CUDA graph adds the launches
+    counted while it was captured at each replay, and takes them back from
+    the capture itself, which runs nothing (``runtime/graphs.py``)."""
+    from moe_infinity_tpu_torch.ops import flash_attention, gmm
+
+    for k, n in counts.items():
+        table = gmm.LAUNCHES if k in gmm.LAUNCHES else flash_attention.LAUNCHES
+        table[k] += n

@@ -115,27 +115,38 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _stream_buffer(cache, what, dev, n, make) -> torch.Tensor:
+    """The buffer of ``cache`` for the current stream, grown to ``n``. Under
+    a CUDA graph capture it must exist already: one made there would come
+    from the graph's pool, so the capture's warm-up on the same stream makes
+    it (``runtime/graphs.py``)."""
+    stream = torch.cuda.current_stream(dev)
+    key = (dev, stream.cuda_stream)
+    buf = cache.get(key)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{what} for {n} elements would be made inside a CUDA graph capture; "
+                "run the captured function once on the capture stream first")
+        buf = cache[key] = make(n)
+    return buf
+
+
 def tickets(dev, n: int) -> torch.Tensor:
     """``n`` int32 counters, zero between launches, for a kernel's merge of
     its splits: the last split of an output tile to finish draws the last
-    ticket, merges, and sets the counter back to 0. One buffer per device and
-    stream, shared by the kernels, since launches on one stream run in order;
-    it only grows."""
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
-    buf = _tickets.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _tickets[key] = torch.zeros(max(4096, n), dtype=torch.int32, device=dev)
-    return buf
+    ticket, merges, and sets the counter back to 0 (so they read 0 after
+    every graph replay too). One buffer per device and stream, shared by the
+    kernels, since launches on one stream run in order; it only grows."""
+    return _stream_buffer(_tickets, "ticket counters", dev, n, lambda n: torch.zeros(
+        max(4096, n), dtype=torch.int32, device=dev))
 
 
 def workspace(dev, n: int) -> torch.Tensor:
     """``n`` f32 of scratch for a kernel's split partials, kept per device and
     stream as ``tickets`` is; it only grows, so no call allocates one."""
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
-    buf = _workspaces.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _workspaces[key] = torch.empty(max(1 << 20, n), dtype=torch.float32, device=dev)
-    return buf
+    return _stream_buffer(_workspaces, "split scratch", dev, n, lambda n: torch.empty(
+        max(1 << 20, n), dtype=torch.float32, device=dev))
 
 
 def same_device(*tensors) -> torch.device:

@@ -219,7 +219,9 @@ def _decode_cuda(q, k, v, q_positions, kv_len, *, scale, causal,
 def flash_decode_plain(q, k, v, q_positions, kv_len, *, scale, causal=True,
                        logit_softcap=None, pad_mask=None):
     """K1's arithmetic in PyTorch: f32 scores and p, zero for a row with no
-    valid key."""
+    valid key. Like the kernel, which never loads a key past a row's live
+    ones or under a hole, it lets nothing of such a key reach the sum, not
+    even a NaN."""
     B, H, Dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -237,7 +239,8 @@ def flash_decode_plain(q, k, v, q_positions, kv_len, *, scale, causal=True,
     s = torch.where(valid, s, _NEG)
     p = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
     l = p.sum(-1, keepdim=True)
-    o = torch.einsum("bgrs,bsgd->bgrd", p, v.float())
+    vf = torch.where(valid[:, 0, 0, :, None, None], v.float(), 0.0)
+    o = torch.einsum("bgrs,bsgd->bgrd", p, vf)
     o = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
     return o.reshape(B, H, Dh).to(q.dtype)
 

@@ -179,7 +179,11 @@ def run_speculative_block(arena, mlis, dispatch, k: int, limit: int, tok0, kvs,
     at dispatch is exact, so the verified prefix is accepted and only the
     suffix runs again. The suffix's cache columns hold garbage until the
     next dispatch rewrites each of them before any read: a step writes its
-    column before it attends, and no kernel reads past its ``kv_len``.
+    column before it attends, and the causal bound of its position keeps
+    it off the columns after its own (the self-attention reads up to the
+    cache's capacity, so that no launch depends on the step). The accepted
+    tokens are copied out before the next dispatch, whose graph replay may
+    overwrite the outputs of this one.
 
     Returns (tokens [B, k] numpy, kvs, executions, accepted ids
     [L_moe, B, k, K'] numpy)."""
@@ -223,9 +227,11 @@ def run_speculative_block(arena, mlis, dispatch, k: int, limit: int, tok0, kvs,
             _tally_lease(counters, arena,
                          {key for keys in step_keys[good:] for key in keys if key not in resident})
             if good > 0:
-                accepted_toks.append(toks[:, :good].cpu().numpy())
-                accepted_ids.append(ids_np[:, :, :good])
-                cur = toks[:, good - 1:good]
+                # copies: the next dispatch may replay the graph whose
+                # outputs these are (on the CPU, .numpy() shares them)
+                accepted_toks.append(toks[:, :good].cpu().numpy().copy())
+                accepted_ids.append(ids_np[:, :, :good].copy())
+                cur = toks[:, good - 1:good].clone()
                 j0 += good
             # acquire the observed union either way: on a miss it loads and
             # protects before the next dispatch; on acceptance it records

@@ -33,6 +33,20 @@ committed token over the halving chain. The K/V cache is written in place:
 an execution that is not accepted leaves garbage in the columns it wrote,
 and the next one rewrites each of them before any kernel reads it.
 
+**CUDA graphs** (``graphs=True``, the default on the card). The speculative
+whole step and each k-step block run as one CUDA graph per step shape
+(``runtime/graphs.py``), captured once and replayed at every dispatch and
+request of that shape, as the JAX engine jits ``_spec_step`` and caches
+one jitted block per k. The start token, the step offset and the slot rows
+are the graph's device inputs; the engine owns the K/V caches per
+(B, capacity) and the cross K/V and encoder mask per (B, S_enc), and copies
+each request's into them. A replay is queued on the compute stream inside
+the dispatch's ``dispatch_snapshot`` scope, after its waits and before its
+end event, so the arena's fences keep their meaning. ``graphs=False`` runs
+the same launches eagerly (for comparison); on CPU tensors the steps run
+eagerly unless a capture backend is given. The per-layer path and the
+encoder stay eager: they read the routing on the host at every MoE layer.
+
 One difference from the JAX engine: only capacity errors
 (``is_spec_capacity_error``) change the path. JAX treats any other
 ``RuntimeError`` as transient and single-steps or falls back to the
@@ -74,6 +88,13 @@ from moe_infinity_tpu_torch.runtime.generate import (
     eos_hit,
     require_greedy,
 )
+from moe_infinity_tpu_torch.runtime.graphs import (
+    CudaGraphBackend,
+    DecodeBuffers,
+    GraphCache,
+    flat_tensors,
+    step_positions,
+)
 from moe_infinity_tpu_torch.utils.logger import get_logger
 
 _log = get_logger("engine_seq2seq")
@@ -81,6 +102,32 @@ _log = get_logger("engine_seq2seq")
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported (ROADMAP queue-1 item {item})")
+
+
+def _block_steps(model, params, impl: str, k: int):
+    """The body of a k-step greedy block: ``steps(tree, rows, tok0, step0,
+    kvs, mask, cross) -> (toks [B, k], trace [L_moe, B, k, K'])``, step0 an
+    int or a 0-d tensor on the device."""
+
+    def steps(tree, rows, tok0, step0, kvs, mask, cross):
+        weights, biases = _split_arena_tree(tree)
+
+        def for_layer(_experts, mli):
+            return weights, rows[mli], biases
+
+        B = tok0.shape[0]
+        tok, toks, traces = tok0, [], []
+        for j in range(k):
+            step = step0 + j
+            logits, kvs, trace = model.decode_step(
+                params, None, tok, step_positions(step, B, tok.device), kvs, step, mask,
+                cross, for_layer, impl)
+            tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+            toks.append(tok)
+            traces.append(trace)  # [L, B, 1, K']
+        return torch.cat(toks, dim=1), torch.cat(traces, dim=2)
+
+    return steps
 
 
 class Seq2SeqOffloadEngine:
@@ -111,6 +158,8 @@ class Seq2SeqOffloadEngine:
         stream_decode: bool = False,
         dense_arena=None,
         host_fallback: bool = False,
+        graphs: bool = True,
+        graph_backend=None,
     ):
         """impl: the grouped-FFN implementation of one-token decode steps
         (``"pallas"`` is K3); prefill_impl: that of the encoder and of
@@ -122,7 +171,11 @@ class Seq2SeqOffloadEngine:
         k-step blocks; max_replays bounds the executions of one step or
         block (default: from the MoE depth and k); route_margin: runner-up
         experts the trace carries for prefetch (``MOE_ROUTE_MARGIN``
-        overrides it)."""
+        overrides it).
+        graphs: run the speculative steps and blocks as CUDA graphs on the
+        card (False runs them eagerly); graph_backend: the capture backend
+        (default ``CudaGraphBackend`` on a CUDA model; on the CPU the steps
+        run eagerly unless one is given)."""
         if stream_decode:
             raise _not_ported("stream_decode", "13")
         if dense_arena is not None:
@@ -179,6 +232,15 @@ class Seq2SeqOffloadEngine:
         self._direct_mlis = frozenset()  # direct-tier layers: item 9.4
         if speculative:
             model.route_margin = max(0, int(os.environ.get("MOE_ROUTE_MARGIN", route_margin)))
+        # one graph per step shape (the JAX engine's jit cache), and the
+        # buffers those graphs read by address
+        self.graphs: Optional[GraphCache] = None
+        if graphs and (graph_backend is not None or model.device.type == "cuda"):
+            self.graphs = GraphCache(graph_backend or CudaGraphBackend(model.device),
+                                     model.device)
+            self._buffers = DecodeBuffers(model)
+            self._param_tensors = flat_tensors(params)
+        self._spec_block_cache: dict = {}
         s = model.spec
         self._n_enc = s.encoder_layers
         self._n_dec = s.decoder_layers
@@ -227,6 +289,14 @@ class Seq2SeqOffloadEngine:
 
     def init_cache(self, batch: int, cap: int):
         return self.model.init_cache(batch, cap)
+
+    def decode_state(self, batch: int, cap: int, mask, cross):
+        """(kvs, mask, cross) of one request's decode. With graphs: the
+        engine's own buffers of this shape, which its graphs read, with the
+        request's mask and cross K/V copied in; else a new cache."""
+        if self.graphs is None:
+            return self.init_cache(batch, cap), mask, cross
+        return self._buffers.take(batch, cap, mask, cross)
 
     def _moe(self, x, h, cw, ids, mli, seq_ids):
         self._tick_layer_clock()
@@ -326,39 +396,62 @@ class Seq2SeqOffloadEngine:
         return model.dec_final(params, x)
 
     # ---- speculative decode -----------------------------------------------
-    def _spec_step(self, tree, slot_rows, tok, positions, step: int, kvs, mask, cross):
-        """One whole decoder step over the slots: (logits, kvs, trace)."""
-        weights, biases = _split_arena_tree(tree)
+    def _closes_over(self, tree, kvs, mask, cross) -> list:
+        """Every tensor a step's graph reads by address."""
+        return [*self._param_tensors, *flat_tensors(tree), *flat_tensors(kvs), mask,
+                *flat_tensors(cross)]
+
+    def _spec_step(self, tree, slot_rows, tok, positions, step, kvs, mask, cross):
+        """One whole decoder step over the slots: (logits, kvs, trace). With
+        graphs, one replay of the step's graph (``positions`` then comes from
+        the step, a device input); the logits are its static output."""
         self.executed_steps += 1
-        return self.model.decode_step(
-            self.params, None, tok, positions, kvs, step, mask, cross,
-            lambda _experts, mli: (weights, slot_rows[mli], biases), self._impl,
-        )
+        model = self.model
+
+        def run(tok, step, rows, positions):
+            weights, biases = _split_arena_tree(tree)
+            logits, _, trace = model.decode_step(
+                self.params, None, tok, positions, kvs, step, mask, cross,
+                lambda _experts, mli: (weights, rows[mli], biases), self._impl,
+            )
+            return logits, trace
+
+        if self.graphs is None:
+            logits, trace = run(tok, step, slot_rows, positions)
+        else:
+            logits, trace = self.graphs.run(
+                "step",
+                lambda tok, step, rows: run(tok, step, rows,
+                                            step_positions(step, tok.shape[0], tok.device)),
+                {"tok": tok, "step": step, "rows": slot_rows},
+                self._closes_over(tree, kvs, mask, cross))
+        return logits, kvs, trace
 
     def _spec_block_fn(self, k: int):
         """A k-step greedy block over the slots: ``block(tree, slot_rows,
         tok0 [B, 1], step0, kvs, mask, cross)`` queues k decode steps, each
         fed the argmax of the step before, and returns (toks [B, k], kvs,
-        trace [L_moe, B, k, 2 + margin]), all on the device."""
-        model, params, impl = self.model, self.params, self._impl
+        trace [L_moe, B, k, 2 + margin]), all on the device. The block's
+        body is cached per k, as the JAX engine caches its jitted block; with
+        graphs each call is one replay of the block's graph, whose outputs
+        the next replay overwrites. (The cache holds no reference to the
+        engine, so that dropping the engine frees its arena at once.)"""
+        steps = self._spec_block_cache.get(k)
+        if steps is None:
+            steps = self._spec_block_cache[k] = _block_steps(
+                self.model, self.params, self._impl, k)
 
-        def block(tree, slot_rows, tok0, step0: int, kvs, mask, cross):
-            weights, biases = _split_arena_tree(tree)
-
-            def for_layer(_experts, mli):
-                return weights, slot_rows[mli], biases
-
-            B = tok0.shape[0]
-            tok, toks, traces = tok0, [], []
-            for j in range(k):
-                positions = torch.full((B, 1), step0 + j, dtype=torch.int32, device=tok.device)
-                self.executed_steps += 1
-                logits, kvs, trace = model.decode_step(
-                    params, None, tok, positions, kvs, step0 + j, mask, cross, for_layer, impl)
-                tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
-                toks.append(tok)
-                traces.append(trace)  # [L, B, 1, K']
-            return torch.cat(toks, dim=1), kvs, torch.cat(traces, dim=2)
+        def block(tree, slot_rows, tok0, step0, kvs, mask, cross):
+            self.executed_steps += k
+            if self.graphs is None:
+                toks, trace = steps(tree, slot_rows, tok0, step0, kvs, mask, cross)
+            else:
+                toks, trace = self.graphs.run(
+                    f"block{k}",
+                    lambda tok, step, rows: steps(tree, rows, tok, step, kvs, mask, cross),
+                    {"tok": tok0, "step": step0, "rows": slot_rows},
+                    self._closes_over(tree, kvs, mask, cross), steps=k)
+            return toks, kvs, trace
 
         return block
 
@@ -406,7 +499,9 @@ class Seq2SeqOffloadEngine:
             self._trace_and_prefetch(
                 top.reshape(top.shape[0], top.shape[1], -1), dec_mlis, seq_ids, k,
                 extra_orders=margin_fn(ids_np) if margin_fn else ())
-            return toks.cpu().numpy(), kvs
+            # a copy: the next dispatch replays the graph whose output this is
+            # (on the CPU, .numpy() shares it)
+            return toks.cpu().numpy().copy(), kvs
 
         def dispatch(tree, slot_rows, cur, j0, kk, kvs_):
             return self._spec_block_fn(kk)(tree, slot_rows, cur, step + j0, kvs_, mask, cross)
@@ -563,7 +658,7 @@ class Seq2SeqOffloadEngine:
             raise ValueError(
                 f"cache_len {cap} cannot hold max_new_tokens={max_new_tokens} (+1 start token)"
             )
-        kvs = self.init_cache(B, cap)
+        kvs, mask, cross = self.decode_state(B, cap, mask, cross)
         out = np.full((B, max_new_tokens + 1), pad_token_id, dtype=np.int64)
         out[:, 0] = start
         finished = np.zeros(B, dtype=bool)
@@ -650,6 +745,11 @@ class Seq2SeqOffloadEngine:
         out = self.arena.hit_stats()
         out.update(speculative_stats(self.replay_counts))
         return out
+
+    def graph_stats(self) -> dict:
+        """Captures, replays and capture seconds of the engine's graphs
+        (empty when it runs eagerly)."""
+        return self.graphs.stats() if self.graphs is not None else {}
 
     def decode_window_stats(self) -> dict:
         """Counter deltas since the last generate()'s decode loop began: the

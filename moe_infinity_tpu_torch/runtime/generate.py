@@ -6,10 +6,15 @@
   KV cache (K1, or K5 for MLA), reading each step's token on the host as
   the JAX loop does.
 * ``Seq2SeqGenerator`` (encoder-decoder): encodes once, computes the
-  cross-attention K/V, then decodes greedily in a Python loop. The loop
-  keeps the tokens on the device and copies them to the host once at the
-  end; with ``eos_token_id`` set it reads each step's tokens on the host to
-  stop finished rows, as the JAX version does.
+  cross-attention K/V, then decodes greedily in a Python loop. On the card
+  each step is one replay of a CUDA graph per (B, capacity, S_enc)
+  (``runtime/graphs.py``), the counterpart of the JAX version's jitted
+  ``_step``: the token and the step are its device inputs, and the
+  generator owns the K/V caches, cross K/V and mask it reads
+  (``graphs=False`` runs the step eagerly). The loop keeps the tokens on
+  the device and copies them to the host once at the end; with
+  ``eos_token_id`` set it reads each step's tokens on the host, outside the
+  graph, to stop finished rows, as the JAX version does.
 
 Sampled decode, logprobs and ``decode_scan`` wait for the port of
 ``runtime/sampling.py``; asking for them raises ``NotImplementedError``.
@@ -23,6 +28,14 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from moe_infinity_tpu_torch.runtime.graphs import (
+    CudaGraphBackend,
+    DecodeBuffers,
+    GraphCache,
+    flat_tensors,
+    step_positions,
+)
 
 
 def eos_hit(tok, eos_token_id):
@@ -206,12 +219,50 @@ class Seq2SeqGenerator:
     cross-attention K/V, then greedy incremental decode."""
 
     def __init__(self, model, params, experts, for_layer: Callable, *,
-                 impl: str = "ragged"):
+                 impl: str = "ragged", graphs: bool = True, graph_backend=None):
+        """graphs: run each decode step as a CUDA graph on the card (False
+        runs it eagerly); graph_backend: the capture backend (default
+        ``CudaGraphBackend`` on a CUDA model; on the CPU the step runs
+        eagerly unless one is given)."""
         self.model = model
         self.params = params
         self.experts = experts
         self._for_layer = for_layer
         self._impl = impl
+        self.graphs = None
+        if graphs and (graph_backend is not None or model.device.type == "cuda"):
+            self.graphs = GraphCache(graph_backend or CudaGraphBackend(model.device),
+                                     model.device)
+            self._buffers = DecodeBuffers(model)
+            self._weights = flat_tensors(params) + flat_tensors(experts)
+
+    def decoder(self, B: int, cap: int, mask, cross):
+        """``step(cur [B, 1] int32, step) -> (logits [B, 1, V] f32, next
+        token [B] int64)`` over a cache of ``cap`` columns. With graphs the
+        mask and cross K/V are copied into the generator's buffers and each
+        call is one replay, whose outputs the next overwrites."""
+        model = self.model
+        if self.graphs is None:
+            kvs = model.init_cache(B, cap)
+        else:
+            kvs, mask, cross = self._buffers.take(B, cap, mask, cross)
+
+        def run(cur, step):
+            logits, _, _ = model.decode_step(
+                self.params, self.experts, cur, step_positions(step, B, cur.device), kvs,
+                step, mask, cross, self._for_layer, self._impl,
+            )
+            return logits, torch.argmax(logits[:, -1, :], dim=-1)
+
+        if self.graphs is None:
+            return run
+        reads = [*self._weights, *flat_tensors(kvs), mask, *flat_tensors(cross)]
+        return lambda cur, step: self.graphs.run("step", run, {"cur": cur, "step": step}, reads)
+
+    def graph_stats(self) -> dict:
+        """Captures, replays and capture seconds of the generator's graphs
+        (empty when it runs eagerly)."""
+        return self.graphs.stats() if self.graphs is not None else {}
 
     @torch.inference_mode()
     def generate(
@@ -261,7 +312,7 @@ class Seq2SeqGenerator:
                                self._for_layer, self._impl)
         cross = model.cross_kv(self.params, enc_out)
         t1 = clock.mark()
-        kvs = model.init_cache(B, _bucket_len(max_new_tokens + 1))
+        step_fn = self.decoder(B, _bucket_len(max_new_tokens + 1), mask, cross)
 
         out = np.full((B, max_new_tokens + 1), pad_token_id, dtype=np.int64)
         out[:, 0] = start
@@ -271,12 +322,7 @@ class Seq2SeqGenerator:
         cur = torch.full((B, 1), start, dtype=torch.int32, device=dev)
         steps = 0
         for step in range(max_new_tokens):
-            positions = torch.full((B, 1), step, dtype=torch.int32, device=dev)
-            logits, kvs, _ = model.decode_step(
-                self.params, self.experts, cur, positions, kvs, step, mask,
-                cross, self._for_layer, self._impl,
-            )
-            nxt = torch.argmax(logits[:, -1, :], dim=-1)
+            _, nxt = step_fn(cur, step)
             new_toks[:, step] = nxt
             steps = step + 1
             if eos_token_id is not None:

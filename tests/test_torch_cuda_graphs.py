@@ -1,0 +1,310 @@
+"""The NLLB decode as CUDA graphs on the card (``runtime/graphs.py``): graph
+replays against the eager path, the ticket counters after replays, the
+sync guard, the graph cache's keys, and the arena's stream order under
+replays. Marked ``cuda``: they skip without a CUDA device. On a machine
+with one, run them with ``python3 -m pytest --noconftest -m cuda
+tests/test_torch_cuda_graphs.py`` (``--noconftest``: the repo conftest
+imports jax).
+
+f32 logits of graph and eager runs are held bit for bit; where they differ,
+only by at most 1e-5 with equal tokens (a cuBLAS call may pick another
+algorithm on the capture stream's handle), and the test prints which."""
+
+import numpy as np
+import pytest
+import torch
+
+from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
+from moe_infinity_tpu_torch.ops import _build
+from moe_infinity_tpu_torch.ops.moe import grouped_ffn
+from moe_infinity_tpu_torch.runtime.arena import ExpertArena
+from moe_infinity_tpu_torch.runtime.engine import run_speculative
+from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
+from moe_infinity_tpu_torch.runtime.graphs import CudaGraphBackend, GraphCache
+from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+from test_torch_cuda_offload import D, E, SPEC, _engine, _ffn, _inputs, _store, _tier
+
+pytestmark = pytest.mark.cuda
+
+# NLLB-MoE-54B's width with 2+2 blocks: K1 splits its keys at a capacity of
+# 1024 and K3 its reduction, so both use the ticket counters
+WIDE = dict(SPEC, d_model=2048, num_heads=16, encoder_layers=2, decoder_layers=2,
+            encoder_ffn_dim=8192, decoder_ffn_dim=8192)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _same(got, want, what):
+    """Bit for bit, or within 1e-5 (printed)."""
+    if torch.equal(got, want):
+        return
+    err = (got - want).abs().max().item()
+    print(f"{what}: graph and eager differ by {err:.3e}")
+    assert err <= 1e-5, (what, err)
+
+
+def _resident(dev, spec, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = NllbModel(NllbSpec(**spec), compute_dtype=dtype, device=dev)
+    params, tree = model.init_random(g)
+    return model, params, ResidentProvider(tree).pytree()
+
+
+def _encoded(model, params, experts, tok, mask):
+    return model.cross_kv(params, model.encode(params, experts, tok, mask,
+                                               ResidentProvider.for_layer, "pallas"))
+
+
+def test_generator_graph_equals_eager_f32(dev):
+    """The resident generator's decode step, 24 steps at f32: graph and eager
+    logits equal, tokens equal; two requests of one shape, one capture."""
+    model, params, experts = _resident(dev, SPEC, torch.float32, 0)
+    tok, mask = _inputs(dev, 0)
+    graphed = Seq2SeqGenerator(model, params, experts, ResidentProvider.for_layer,
+                               impl="pallas")
+    eager = Seq2SeqGenerator(model, params, experts, ResidentProvider.for_layer,
+                             impl="pallas", graphs=False)
+    with torch.inference_mode():
+        cross = _encoded(model, params, experts, tok, mask)
+        steps = [g.decoder(4, 32, mask, cross) for g in (graphed, eager)]
+        cur = torch.full((4, 1), 2, dtype=torch.int32, device=dev)
+        for step in range(24):
+            (lg, ng), (le, ne) = (s(cur, step) for s in steps)
+            torch.cuda.synchronize()
+            assert torch.equal(ng, ne), step
+            _same(lg, le, f"generator step {step}")
+            cur = ne[:, None].to(torch.int32)
+    ids, m = tok.cpu().numpy(), mask.cpu().numpy()
+    gen = dict(max_new_tokens=24, attention_mask=m, eos_token_id=None)
+    for _ in range(2):
+        np.testing.assert_array_equal(graphed.generate(ids, **gen).sequences,
+                                      eager.generate(ids, **gen).sequences)
+    st = graphed.graph_stats()
+    # generate's step reads the same buffers as decoder(4, 32) above
+    assert (st["captures"], st["recaptures"]) == (1, 0)
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_offload_step_graph_equals_eager_f32(dev, seed):
+    """The speculative whole step (k=1) of the offload engine over an arena
+    of 2E slots with prefetch and 4 workers, 24 steps, graph against eager
+    on the same inputs: every accepted step's logits equal."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = NllbModel(NllbSpec(**SPEC), compute_dtype=torch.float32, device=dev)
+    params, _ = model.init_random(g, with_experts=False)
+    store = _store(seed)
+    engines = [_engine(model, params, store, dev, None, slots=2 * E, speculative=True,
+                       spec_block=1, graphs=gr) for gr in (True, False)]
+    tok, mask = _inputs(dev, seed)
+    try:
+        with torch.inference_mode():
+            state = []
+            for eng in engines:
+                seq_ids = [eng.tracer.create_entry() for _ in range(4)]
+                _, cross = eng.run_encoder(tok, mask, seq_ids)
+                state.append((seq_ids, cross, eng.init_cache(4, 32)))
+            cur = torch.full((4, 1), 2, dtype=torch.int32, device=dev)
+            for step in range(24):
+                pos = torch.full((4, 1), step, dtype=torch.int32, device=dev)
+                out = []
+                for eng, (seq_ids, cross, kvs) in zip(engines, state):
+                    logits, _ = eng._speculative_step(cur, pos, step, kvs, mask, cross,
+                                                      eng.dec_mlis, seq_ids)
+                    out.append(logits.clone())
+                torch.cuda.synchronize()
+                _same(out[0], out[1], f"offload step {step}")
+                cur = torch.argmax(out[1][:, -1], -1, keepdim=True).to(torch.int32)
+        assert engines[0].graph_stats()["captures"] == 1
+        assert max(engines[0].replay_counts) > 1
+    finally:
+        for eng in engines:
+            eng.arena.shutdown()
+
+
+@pytest.mark.parametrize("k,mode", [(2, "whole"), (2, "prefix"), (4, "whole"), (4, "prefix")])
+def test_offload_block_graph_tokens_equal_eager_bf16(dev, monkeypatch, k, mode):
+    """Blocks of k in bf16 through the offload engine, the block size held at
+    k: graph and eager greedy tokens equal. Each graph key is captured once;
+    in whole mode the second request of the shape captures nothing new (in
+    prefix mode it may meet a suffix size for the first time)."""
+    monkeypatch.setenv("MOE_SPEC_BLOCK_MODE", mode)
+    g = torch.Generator(device=dev).manual_seed(k)
+    model = NllbModel(NllbSpec(**SPEC), compute_dtype=torch.bfloat16, device=dev)
+    params, _ = model.init_random(g, with_experts=False)
+    store = _store(k)
+    tok, mask = _inputs(dev, k)
+    ids, m = tok.cpu().numpy(), mask.cpu().numpy()
+    gen = dict(max_new_tokens=24, attention_mask=m, eos_token_id=None)
+    seqs, engines = [], []
+    try:
+        for gr in (True, False):  # int4 slots: the arena holds no bf16 field
+            eng = _engine(model, params, store, dev, None, slots=2 * E, speculative=True,
+                          spec_block=k, graphs=gr)
+            eng.adaptive_spec = False
+            engines.append(eng)
+            seqs.append(eng.generate(ids, **gen).sequences)
+        np.testing.assert_array_equal(seqs[0], seqs[1])
+        captures = engines[0].graph_stats()["captures"]
+        np.testing.assert_array_equal(engines[0].generate(ids, **gen).sequences, seqs[1])
+        st = engines[0].graph_stats()
+        assert st["recaptures"] == 0 and st["captures"] == st["graphs"]
+        assert mode == "prefix" or st["captures"] == captures
+    finally:
+        for eng in engines:
+            eng.arena.shutdown()
+
+
+def test_tickets_zero_after_replays_under_sync_guard(dev):
+    """At NLLB-MoE-54B's width and a capacity of 1024, K1 splits its keys and
+    K3 its reduction: after 50 replays, every ticket counter of the capture
+    stream reads 0, and every replay ran under
+    ``set_sync_debug_mode("error")``."""
+    model, params, experts = _resident(dev, WIDE, torch.bfloat16, 1)
+    tok, mask = _inputs(dev, 1)
+    gen = Seq2SeqGenerator(model, params, experts, ResidentProvider.for_layer, impl="pallas")
+    with torch.inference_mode():
+        step = gen.decoder(4, 1024, mask, _encoded(model, params, experts, tok, mask))
+        cur = torch.full((4, 1), 2, dtype=torch.int32, device=dev)
+        _, nxt = step(cur, 0)  # the capture
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(1, 51):
+                _, nxt = step(nxt[:, None].to(torch.int32), i)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    key = (dev, gen.graphs.backend.stream.cuda_stream)  # the capture stream's buffers
+    tickets, scratch = _build._tickets.get(key), _build._workspaces.get(key)
+    assert tickets is not None and scratch is not None  # split launches were captured
+    assert int(tickets.abs().sum()) == 0
+    assert gen.graph_stats()["replays"] == 51 and gen.graph_stats()["captures"] == 1
+
+
+def test_moved_pointer_recaptures(dev):
+    """A graph reads w by address: after w is replaced by a tensor elsewhere,
+    the cache captures anew and reads the new one; it never replays the old
+    graph."""
+    cache = GraphCache(CudaGraphBackend(dev), dev)
+    w = torch.arange(8, dtype=torch.float32, device=dev)
+
+    def fn(x, step):
+        return (x * torch.index_select(w, 0, step.long().reshape(1)),)
+
+    (out,) = cache.run("f", fn, {"x": torch.ones(8, device=dev), "step": 3}, [w])
+    assert out.tolist() == [3.0] * 8
+    w = w * 10  # a new tensor at another address
+    (out,) = cache.run("f", fn, {"x": torch.ones(8, device=dev), "step": 2}, [w])
+    assert out.tolist() == [20.0] * 8
+    assert (cache.captures, cache.recaptures) == (1, 1)
+
+
+def _ffn_graph(dev, arena, x, cw):
+    """K3's grouped FFN over the arena's slots as a graph whose inputs are
+    the routed ids and the slot row, captured before any hazard."""
+    cache = GraphCache(CudaGraphBackend(dev), dev)
+    tree = arena.pytree()
+
+    def fn(ids, row):
+        return (_ffn(x, ids, cw, row, tree),)
+
+    def run(ids, row):
+        return cache.run("ffn", fn, {"ids": ids, "row": row}, list(tree.values()))[0]
+
+    run(torch.zeros(6, 1, dtype=torch.int32, device=dev),
+        torch.full((E,), -1, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    return cache, run
+
+
+@pytest.mark.parametrize("tier_records", [0, 32])
+def test_evicted_slot_leaves_queued_replay_alone(dev, tier_records):
+    """``test_evicted_slot_leaves_queued_launch_alone`` with the K3 launches
+    as graph replays: a replay reading key A's slot is queued behind a spin
+    of some 0.3 s; A is released and B acquired into the same slot. The
+    queued replay must still see A's bytes, the next replay B's."""
+    store = _store(4)
+    tier = _tier(store, dev, tier_records) if tier_records else None
+    arena = ExpertArena(store, 1, compute_dtype=torch.float32, device=dev, num_threads=4,
+                        pinned_tier=tier)
+    resident = ResidentProvider.from_store(store, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(6, D, generator=g, device=dev)
+    cw = torch.ones(6, 1, device=dev)
+    a, b = (2, 5), (2, 6)
+    try:
+        cache, ffn = _ffn_graph(dev, arena, x, cw)
+        want, out = {}, {}
+        for key in (a, b):
+            w, row, bias = ResidentProvider.for_layer(resident.pytree(), key[0])
+            ids = torch.full((6, 1), key[1], dtype=torch.int32, device=dev)
+            want[key] = grouped_ffn(x, ids, cw, row, w, "relu", biases=bias, impl="pallas")
+        torch.cuda.synchronize()
+        for key in (a, b):
+            arena.acquire([key], key[0])
+            ids = torch.full((6, 1), key[1], dtype=torch.int32, device=dev)
+            row = torch.from_numpy(arena.slot_map(key[0])).to(dev)
+            with arena.locked_tree([key]):
+                if key == a:
+                    torch.cuda._sleep(500_000_000)
+                out[key] = ffn(ids, row).clone()  # the next replay overwrites it
+            arena.release([key])
+        torch.cuda.synchronize()
+        assert arena.hit_stats()["evictions"] == 1
+        assert cache.stats()["captures"] == 1 and cache.stats()["replays"] == 3
+        for key in (a, b):
+            assert torch.equal(out[key], want[key]), key
+    finally:
+        arena.shutdown()
+
+
+@pytest.mark.parametrize("tier_records", [0, 32])
+def test_snapshot_key_evicted_under_queued_replay_is_a_miss(dev, tier_records):
+    """``test_snapshot_key_evicted_under_queued_launch_is_a_miss`` with the
+    dispatch's K3 launches as a graph replay: A is evicted and B lands in
+    A's slot inside the dispatch scope, under the queued replay's read.
+    Verification counts A as a miss, and the accepted execution equals the
+    resident result bit for bit."""
+    store = _store(5)
+    tier = _tier(store, dev, tier_records) if tier_records else None
+    arena = ExpertArena(store, 1, compute_dtype=torch.float32, device=dev, num_threads=4,
+                        pinned_tier=tier)
+    resident = ResidentProvider.from_store(store, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(6, D, generator=g, device=dev)
+    cw = torch.ones(6, 1, device=dev)
+    a, b = (2, 5), (2, 6)
+    ids = torch.full((6, 1), a[1], dtype=torch.int32, device=dev)
+    calls = []
+    try:
+        w, row, bias = ResidentProvider.for_layer(resident.pytree(), a[0])
+        want = grouped_ffn(x, ids, cw, row, w, "relu", biases=bias, impl="pallas")
+        cache, ffn = _ffn_graph(dev, arena, x, cw)
+        arena.warm([a])
+
+        def run(tree, slot_rows):
+            calls.append(int(slot_rows[a[0], a[1]]))
+            if len(calls) == 1:
+                torch.cuda._sleep(500_000_000)
+            out = ffn(ids, slot_rows[a[0]])
+            trace = torch.full((1, 6, 1), a[1], dtype=torch.int32, device=dev)
+            if len(calls) == 1:  # evict A, land B in its slot, under the queued replay
+                arena.acquire([b], b[0])
+                arena.release([b])
+            return out, trace
+
+        (got,), _, execs = run_speculative(arena, [a[0]], run, 4)
+        torch.cuda.synchronize()
+        assert execs == 2 and arena.lease_evictions == 1
+        assert calls[0] >= 0
+        assert cache.stats()["captures"] == 1
+        assert torch.equal(got, want)
+    finally:
+        arena.shutdown()

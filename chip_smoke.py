@@ -16,7 +16,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    Mixtral's 16-wide chunk step, each with the plan it took; on Mixtral's
    down calls, where K3's error comes from (``[rounding]``); K1 with its
    split plan from the cache's capacity (as the NLLB decoder calls it)
-   against the plan from the live keys, at capacities 32 and 1024;
+   against the plan from the live keys, at capacities 32 and 1024; K2 at
+   head dim 64 in the three shapes of Switch-large-128's path (the encoder's
+   T5 and pad bias ``[B, 16, T, T]`` at T = 16 and 64, the decoder's T5
+   bias ``[1, 16, 1, 128]``, cross-attention's pad bias ``[B, 1, 1, 16]``,
+   B = 32, scale 1.0, bf16 and f32) and every few-row bias form; K1 and K4
+   at head dim 64 with the split plan's edges; K3 at Switch's int4 decode
+   and prefill shapes; and queue-3 fault F1 repaired: a graph of a split K3
+   call replayed after a later capture's warm-up grew the capture stream's
+   split scratch and the caches were emptied equals the eager call, with
+   every ticket counter at 0;
 3. the seq2seq main path: NLLB-MoE-54B geometry (d_model 2048, 16 heads,
    FFN 8192, 128 experts top-2, every 4th block sparse, vocab 256,206) with
    random weights from a seed, bf16 compute, packed int4 experts, resident
@@ -89,7 +98,25 @@ Phases, each printing its own lines; any failure exits non-zero:
    every accepted step's f32 logits equal between graph and eager (and the
    resident generator's likewise), and in bf16 graph and eager tokens
    equal at k = 1, 2 and 4 in both block modes; some step or block must
-   run more than once.
+   run more than once;
+13. Switch-large-128 (``bench.py``'s ``SWITCH_LARGE_128_SPEC``: d_model
+   1024, 16 heads of d_kv 64, d_ff 4096, 24+24 blocks with every second
+   sparse, 128 experts top-1 at capacity 64, the T5 relative bias, vocab
+   32,128, tied embeddings) resident at full width and depth: all 3,072
+   packed int4 experts made on the card, ``Seq2SeqGenerator`` with
+   impl="pallas" answering bench.py's 32 prompts of 16 with 64 greedy
+   tokens each, eagerly, then each step a graph replay; tokens/s against
+   the reference's 69.105 at batch 32; K2 (head dim 64) and K3 launches
+   held to 24 and 24 per encode, 48 and 24 per step;
+14. Switch-large-128 as ``bench.py``'s ``switch-servable`` preset builds it
+   (its int4 store, a 14 GiB layer-aligned page-locked tier, slots from
+   ``--hbm-gb 13``, the speculative engine at ``spec_block=4``) with graphs,
+   the same requests; launches held as in phase 11;
+15. its whole-path check at f32, full width and 4+4 blocks: the per-layer
+   and speculative (k = 1, 4) offload paths bit-equal to the resident path
+   (first-step logits, greedy tokens), graph logits bit-equal to eager over
+   24 steps; at bf16 the first step through the kernels against the plain
+   versions, reported.
 
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
@@ -101,11 +128,13 @@ and times alone (V2-Lite's decode step, long rows, H=128; the same inputs
 as in the whole run), then K5 under other split plans.
 ``python3 chip_smoke.py --offload`` runs the build and phases 9 to 12
 alone; ``--resident`` the build and phases 3, 5 and 7 (to hold those paths
-against another tree's in one call). Each prints no result line.
+against another tree's in one call); ``--switch`` the build and phases 13
+to 15. Each prints no result line.
 Every phase prints its seconds (``[phase]``).
 
 The line before the last is the per-kernel JSON record (launches: the sum
-of the counts of phases 3, 5, 7, 9 and 11, graph replays included: a graph
+of the counts of phases 3, 5, 7, 9, 11, 13 and 14, graph replays included;
+K2 at head dim 64 has its own row, ``flash_attend_dh64``: a graph
 counts at each replay the launches it recorded when it was captured); the
 last line is
 ``{"ok": true, "device": {...}}``.
@@ -767,11 +796,12 @@ def check_paged_decode(g, dev):
     )
 
 
-def _paged_case(g, dev, dtype, *, B, H, Hkv, P, NP, lengths, hole_share=0.1, dead=()):
+def _paged_case(g, dev, dtype, *, B, H, Hkv, P, NP, lengths, hole_share=0.1, dead=(),
+                Dh=128):
     """Inputs of one K4 call over a shuffled page table: (q, pool_k, pool_v,
     table, lengths, holes); ``dead`` lists (row, first key, last key) ranges
     that are all holes."""
-    Dh, S = 128, P * PAGE
+    S = P * PAGE
     q = torch.randn(B, H, Dh, generator=g, device=dev).to(dtype)
     pk = torch.randn(NP, PAGE, Hkv, Dh, generator=g, device=dev).to(dtype)
     pv = torch.randn(NP, PAGE, Hkv, Dh, generator=g, device=dev).to(dtype)
@@ -829,25 +859,26 @@ def check_decode_long(g, dev):
     return err
 
 
-def check_decode_edges(g, dev):
+def check_decode_edges(g, dev, Dh=128):
     """The decode body where its split plan has edges: a row of 0 live keys
     beside a long one, four splits that lie wholly in holes, a live length
     that is no multiple of the tile; rep 1, 2, 4 and 8; bf16 and f32; through
-    K4 and, on the gathered rows, through K1."""
+    K4 and, on the gathered rows, through K1; at head dim ``Dh``."""
     from moe_infinity_tpu_torch.ops import flash_attention as fa
 
-    B, Hkv, Dh, P, NP = 3, 2, 128, 64, 200
+    B, Hkv, P, NP = 3, 2, 64, 200
     S = P * PAGE
     errs = []
     for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, 2e-3)):
         for rep in (1, 2, 4, 8):
             q, pk, pv, table, lengths, holes = _paged_case(
                 g, dev, dtype, B=B, H=Hkv * rep, Hkv=Hkv, P=P, NP=NP,
-                lengths=[0, 1000, 333], dead=[(1, 128, 384)])
+                lengths=[0, 1000, 333], dead=[(1, 128, 384)], Dh=Dh)
             kc, ns = fa._decode_splits(B * Hkv, S)
             if not (ns > 6 and kc * 2 <= 128 and 384 <= kc * ns):
                 raise AssertionError(f"the plan ({kc}, {ns}) leaves no split wholly in holes")
-            name = f"rep={rep} {str(dtype).split('.')[-1]} lengths=(0,1000,333), keys 128-383 of row 1 holes"
+            name = (f"Dh={Dh} rep={rep} {str(dtype).split('.')[-1]} lengths=(0,1000,333), "
+                    "keys 128-383 of row 1 holes")
             want = fa.paged_flash_decode_plain(q, pk, pv, table, lengths, scale=Dh ** -0.5,
                                                pad_mask=holes)
             got = fa.paged_flash_decode(q, pk, pv, table, lengths, pad_mask=holes)
@@ -862,13 +893,15 @@ def check_decode_edges(g, dev):
     return max(errs)
 
 
-def check_attend_rows(g, dev):
+def check_attend_rows(g, dev, Dh=128):
     """K2's few-row route (the decode body with a bias, per-row positions and
     p rounded to V's type): every bias broadcast form, causal=False, a row
-    with no valid key, T * rep = 4 and 8 query rows per kv head, bf16 and f32."""
+    with no valid key, T * rep = 4 and 8 query rows per kv head, bf16 and f32,
+    at head dim ``Dh``."""
     from moe_infinity_tpu_torch.ops import flash_attention as fa
 
-    B, Hkv, rep, Dh, S = 3, 2, 4, 128, 200
+    B, Hkv, rep, S = 3, 2, 4, 200
+    key = "flash_attend" if Dh == 128 else f"flash_attend_dh{Dh}"
     H = Hkv * rep
     errs = []
     for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, 2e-3)):
@@ -885,17 +918,281 @@ def check_attend_rows(g, dev):
                 mask[1] = False  # row 1 has no valid key
                 causal = form == "none"
                 kw = dict(causal=causal, bias=bias, pad_mask=mask)
-                before = fa.LAUNCHES["flash_attend"]
+                before = fa.LAUNCHES[key]
                 got = fa.flash_attend(q, k, v, pos, 150, **kw)
-                if fa.LAUNCHES["flash_attend"] != before + 1:
+                if fa.LAUNCHES[key] != before + 1:
                     raise AssertionError("flash_attend must count one launch")
                 want = fa.flash_attend_plain(q, k, v, pos, 150, scale=Dh ** -0.5, **kw)
                 errs.append(compare(
-                    f"flash_attend rows T={T} rep={rep} {str(dtype).split('.')[-1]} bias={form} "
+                    f"flash_attend rows Dh={Dh} T={T} rep={rep} {str(dtype).split('.')[-1]} bias={form} "
                     f"causal={causal}, row 1 empty", got, want, tol))
                 if not bool((got[1] == 0).all()):
                     raise AssertionError("flash_attend: a row with no valid key must give 0")
     return max(errs)
+
+
+# Switch-large-128 (bench.py SWITCH_LARGE_128_SPEC): its attention is K2 at
+# head dim 64 with a T5 bias; its experts run through K3 at top-1
+SWITCH_LARGE_128 = dict(
+    vocab_size=32128, d_model=1024, d_kv=64, d_ff=4096, num_heads=16,
+    num_encoder_layers=24, num_decoder_layers=24,
+    encoder_sparse_step=2, decoder_sparse_step=2,
+    num_experts=128, expert_capacity=64, rel_buckets=32,
+    rel_max_distance=128, rms_eps=1e-6, tie_embeddings=True,
+    is_gated=False, dense_act_gelu=False, decoder_start_token_id=0,
+)
+SW_BATCH, SW_PROMPT, SW_TOKENS = 32, 16, 64  # bench.py's switch presets: batch 32
+SW_CAP = 128  # the decoder cache's capacity for 64 new tokens (_bucket_len(65))
+SWITCH_KERNELS = ("flash_attend_dh64", "gmm")
+
+
+def _switch_attention_case(g, dev, dtype, label):
+    """Inputs of K2 at one of Switch's three shapes, B=32 H=16 Dh=64, with
+    the bias the model builds there: (q, k, v, positions, kv_len, causal,
+    bias, live keys per row). ``encoder16``/``encoder64``: T = S, the T5
+    table gathered bidirectionally plus the pad bias (finfo.min) of rows 16,
+    12, 9 and 5 keys long (of 16; of 64: 64, 48, 36, 20), ``[B, 16, T, T]``;
+    ``self``: the last decode step of 64 (position 64 over a cache of 128,
+    causal), the unidirectional T5 bias ``[1, 16, 1, 128]``; ``cross``: one
+    query over the 16 encoder states, the pad bias ``[B, 1, 1, 16]``."""
+    from moe_infinity_tpu_torch.models.layers import t5_position_bias
+
+    B, H, Dh = SW_BATCH, 16, 64
+    table = torch.randn(32, H, generator=g, device=dev) * 0.5
+    if label.startswith("encoder"):
+        T = S = int(label[len("encoder"):])
+    else:
+        T, S = 1, (SW_CAP if label == "self" else SW_PROMPT)
+    q = torch.randn(B, T, H, Dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
+    cols = torch.arange(S, device=dev)
+    if label == "self":
+        pos = torch.full((B, 1), SW_TOKENS, dtype=torch.int32, device=dev)
+        bias = t5_position_bias(table, pos[0], cols.to(torch.int32), False)
+        return q, k, v, pos, S, True, bias, torch.full((B,), SW_TOKENS + 1, device=dev)
+    lens = torch.tensor([S, S * 3 // 4, S * 9 // 16, S * 5 // 16], device=dev).repeat(B // 4)
+    pad = torch.where(cols[None, :] < lens[:, None], 0.0, torch.finfo(torch.float32).min)
+    pad = pad[:, None, None, :]
+    pos = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T).contiguous()
+    if label == "cross":
+        return q, k, v, pos, S, False, pad, lens
+    bias = t5_position_bias(table, pos[0], pos[0], True) + pad
+    return q, k, v, pos, S, False, bias, lens
+
+
+def check_switch_attention(g, dev):
+    """K2 at head dim 64 in the three shapes of Switch-large-128's path
+    (``_switch_attention_case``), bf16 and f32, scale 1.0 (T5 attention is
+    unscaled), against its plain version; bf16 timed against its byte bound
+    and SDPA with an equivalent float mask. Returns the record of the
+    decoder's self-attention shape (24 of the 48 launches of every decode
+    step) with the largest error of all."""
+    import torch.nn.functional as F_
+
+    from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+    errs, recs = [], {}
+    for label in ("encoder16", "encoder64", "self", "cross"):
+        for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, 2e-3)):
+            q, k, v, pos, kv_len, causal, bias, lens = _switch_attention_case(g, dev, dtype, label)
+            kw = dict(scale=1.0, causal=causal, bias=bias)
+            before = fa.LAUNCHES["flash_attend_dh64"]
+            run = lambda: fa.flash_attend(q, k, v, pos, kv_len, **kw)  # noqa: E731
+            plain = lambda: fa.flash_attend_plain(q, k, v, pos, kv_len, **kw)  # noqa: E731
+            got = run()
+            if fa.LAUNCHES["flash_attend_dh64"] != before + 1:
+                raise AssertionError("flash_attend at Dh 64 must count one launch of its own")
+            name = (f"flash_attend Dh=64 Switch {label} B={q.shape[0]} T={q.shape[1]} "
+                    f"S={k.shape[1]} bias {list(bias.shape)} {str(dtype).split('.')[-1]}")
+            errs.append(compare(name, got, plain(), tol))
+            if dtype != torch.bfloat16:
+                continue
+            B, T, H, Dh = q.shape
+            S = k.shape[1]
+            live = int(lens.sum())  # keys of a row that count, over the rows
+            nbytes = (2 * B * T * H * Dh * 2 + 2 * live * H * Dh * 2  # q, out, live K and V
+                      + bias.numel() * 4 + B * T * 4)
+            b_ms, b_by = bound_ms(nbytes, 4 * T * H * Dh * live)
+            key = torch.arange(S, device=dev)
+            ok = key[None, None, :] <= pos[:, :, None] if causal else torch.ones(
+                B, T, S, dtype=torch.bool, device=dev)
+            fmask = torch.where(ok[:, None], bias.float(), float("-inf")).to(torch.bfloat16)
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            lib = lambda: F_.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=fmask, scale=1.0)
+            recs[label] = dict(
+                name="flash_attend_dh64", route="cuda",
+                source="moe_infinity_tpu_torch/csrc/flash_attention.cu",
+                replaces="moe_infinity_tpu/ops/flash_attention.py:81",
+                max_abs_err=0.0, ms=cuda_ms(run), plain_ms=cuda_ms(plain),
+                bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib),
+                shape=f"Switch {label}: B={B} T={T} H={H} Dh={Dh} S={S} bias "
+                      f"{list(bias.shape)} bf16 (library: SDPA, the bias and masks as a "
+                      f"float mask)",
+            )
+            say(f"[time] flash_attend Dh=64 Switch {label}: {json.dumps(recs[label])}")
+    errs.append(check_attend_rows(g, dev, Dh=64))
+    rec = recs["self"]
+    rec["max_abs_err"] = max(errs)
+    return rec
+
+
+def check_decode_dh64(g, dev):
+    """K1 and K4 at head dim 64 (on no path of Switch, whose attention all
+    carries a bias; they share the decode body with K2's few-row route): K1
+    at Switch's decode shape without the bias, K4 over a page pool, bf16
+    and f32, the split plan's edges; bf16 timed. Returns the largest error."""
+    import torch.nn.functional as F_
+
+    from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+    errs = []
+    B, H, Dh, S, step = SW_BATCH, 16, 64, SW_CAP, SW_TOKENS
+    for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, 2e-3)):
+        q = torch.randn(B, 1, H, Dh, generator=g, device=dev).to(dtype)
+        k = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
+        v = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
+        pos = torch.full((B, 1), step, dtype=torch.int32, device=dev)
+        before = fa.LAUNCHES["flash_decode_dh64"]
+        run = lambda: fa.flash_decode(q, k, v, pos, S, scale=1.0)  # noqa: E731
+        plain = lambda: fa.flash_decode_plain(q[:, 0], k, v, pos[:, 0], S, scale=1.0)  # noqa: E731
+        got = run()[:, 0]
+        if fa.LAUNCHES["flash_decode_dh64"] != before + 1:
+            raise AssertionError("flash_decode at Dh 64 must count one launch of its own")
+        errs.append(compare(f"flash_decode Dh=64 B={B} H={H} S={S} ({step + 1} live) "
+                            f"{str(dtype).split('.')[-1]}", got, plain(), tol))
+        if dtype == torch.bfloat16:
+            live = step + 1
+            mask = torch.full((B, 1, 1, S), float("-inf"), device=dev, dtype=dtype)
+            mask[..., :live] = 0
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            lib = lambda: F_.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask, scale=1.0)
+            b_ms, b_by = bound_ms(2 * B * H * Dh * 2 + 2 * B * live * H * Dh * 2 + B * 4,
+                                  4 * B * H * live * Dh)
+            say(f"[time] flash_decode Dh=64 (B={B} H={H} S={S}, {live} live keys, bf16): "
+                f"ms={cuda_ms(run):.5f} plain_ms={cuda_ms(plain):.4f} bound_ms={b_ms:.6f} "
+                f"({b_by}) library_ms={cuda_ms(lib):.5f} (SDPA)")
+    for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, 2e-3)):
+        Hkv, P, NP = 8, 32, 160
+        q, pk, pv, table, lengths, holes = _paged_case(
+            g, dev, dtype, B=4, H=32, Hkv=Hkv, P=P, NP=NP, lengths=[113, 200, 37, 512], Dh=Dh)
+        before = fa.LAUNCHES["paged_flash_decode_dh64"]
+        run = lambda: fa.paged_flash_decode(q, pk, pv, table, lengths, pad_mask=holes)  # noqa: E731
+        plain = lambda: fa.paged_flash_decode_plain(  # noqa: E731
+            q, pk, pv, table, lengths, scale=Dh ** -0.5, pad_mask=holes)
+        got = run()
+        if fa.LAUNCHES["paged_flash_decode_dh64"] != before + 1:
+            raise AssertionError("paged_flash_decode at Dh 64 must count one launch of its own")
+        errs.append(compare(f"paged_flash_decode Dh=64 B=4 H=32 Hkv={Hkv} page={PAGE} P={P} "
+                            f"lengths=(113,200,37,512) holes {str(dtype).split('.')[-1]}",
+                            got, plain(), tol))
+        if dtype == torch.bfloat16:
+            live = torch.arange(P * PAGE, device=dev)[None, :] < lengths[:, None]
+            valid = int((live & holes).sum())
+            b_ms, b_by = bound_ms(2 * valid * Hkv * Dh * 2 + int(lengths.sum())
+                                  + 2 * 4 * 32 * Dh * 2 + 4 * P * 4 + 16, 4 * 32 * Dh * valid)
+            # SDPA on a pre-gathered view, KV heads expanded beforehand, as for K4 at 128
+            idx = table.long()
+            kc = pk[idx].reshape(4, P * PAGE, Hkv, Dh).repeat_interleave(4, dim=2).transpose(1, 2)
+            vc = pv[idx].reshape(4, P * PAGE, Hkv, Dh).repeat_interleave(4, dim=2).transpose(1, 2)
+            fmask = torch.where(live & holes, 0.0, float("-inf")).to(dtype)[:, None, None, :]
+            qs = q[:, :, None, :]
+            lib = lambda: F_.scaled_dot_product_attention(qs, kc, vc, attn_mask=fmask)  # noqa: E731
+            say(f"[time] paged_flash_decode Dh=64 (Mixtral's rows, {valid} valid keys, bf16): "
+                f"ms={cuda_ms(run):.5f} plain_ms={cuda_ms(plain):.4f} bound_ms={b_ms:.6f} "
+                f"({b_by}) library_ms={cuda_ms(lib):.5f} (SDPA on a pre-gathered view)")
+    errs.append(check_decode_edges(g, dev, Dh=64))
+    return max(errs)
+
+
+def check_gmm_switch(g, dev):
+    """K3 at Switch-large-128's int4 shapes, top-1 over 128 experts, D=1024
+    F=4096: the decode layer (32 rows) and the prefill layer (32 x 16 = 512
+    rows), gate and down, timed. Returns the largest error."""
+    E, D, F = 128, 1024, 4096
+    errs, layer = [], {}
+    for label, rows in (("decode", SW_BATCH), ("prefill", SW_BATCH * SW_PROMPT)):
+        gid, gsz, active = _routed_rows(g, dev, rows, E, K=1)
+        for role, (d_in, f_out) in (("gate", (D, F)), ("down", (F, D))):
+            err, t = _gmm_case(
+                f"Switch int4 {label} {role} rows={rows} D={d_in} F={f_out} S={E} "
+                f"active={active}", g, dev, rows=rows, D=d_in, F=f_out, S=E, kind="int4",
+                gid=gid, gsz=gsz, active=active, time_it=True)
+            errs.append(err)
+            b_ms, b_by = bound_ms(t["nbytes"], t["flops"])
+            say(f"[time] gmm Switch int4 {label} {role} ({rows} rows, {active} experts): "
+                f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} bound_ms={b_ms:.5f} ({b_by})")
+            layer.setdefault(label, []).append((t, b_ms))
+    for label, parts in layer.items():
+        (tg, _), (td, _) = parts
+        b_ms, b_by = bound_ms(tg["nbytes"] + td["nbytes"], tg["flops"] + td["flops"])
+        say(f"[time] gmm Switch {label} MoE layer (gate + down, packed int4): "
+            f"ms={tg['ms'] + td['ms']:.4f} plain_ms={tg['plain_ms'] + td['plain_ms']:.4f} "
+            f"bound_ms={b_ms:.5f} ({b_by}) library_ms=None (no PyTorch call takes packed int4 "
+            f"with scales)")
+    return max(errs)
+
+
+def check_f1_replay(dev):
+    """Queue-3 fault F1, repaired: a graph of a split K3 call is captured;
+    a second graph of the same backend, whose warm-up needs more split
+    scratch, grows the capture stream's workspace; the allocators' caches
+    are emptied and a buffer is allocated and filled; the first graph then
+    replays. Its output must equal the eager call's bit for bit, every
+    ticket counter (the live ones and the outgrown ones) must read 0, the
+    filled buffer must be untouched, and the outgrown workspace must still
+    be held (``_build.grown``)."""
+    from moe_infinity_tpu_torch.ops import _build
+    from moe_infinity_tpu_torch.ops import gmm as gm
+    from moe_infinity_tpu_torch.runtime.graphs import CudaGraphBackend, GraphCache
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    S, D, F = 8, 4096, 4096
+    w = (torch.randn(S, D, F, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+
+    def sizes(rows):
+        return torch.full((S,), rows // S, dtype=torch.int32, device=dev)
+
+    small, large = sizes(8), sizes(256)
+    for rows in (8, 256):
+        if gm._gmm_plan(rows, S, D, F).splits < 2:
+            raise AssertionError(f"F1 check: a call of {rows} rows must split its reduction")
+    cache = GraphCache(CudaGraphBackend(dev), dev)
+    key = (dev, cache.backend.stream.cuda_stream)
+    x8 = torch.randn(8, D, generator=g, device=dev).to(torch.bfloat16)
+    x256 = torch.randn(256, D, generator=g, device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        want = gm.gmm(x8, w, small)
+        (first,) = cache.run("small", lambda x: (gm.gmm(x, w, small),), {"x": x8}, [w, small])
+        first = first.clone()
+        old = _build._workspaces[key]
+        old_ptr, old_n = old.data_ptr(), old.numel()
+        del old
+        cache.run("large", lambda x: (gm.gmm(x, w, large),), {"x": x256}, [w, large])
+        grew = _build._workspaces[key].numel()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        filler = torch.full((old_n,), 7.0, device=dev)
+        (again,) = cache.run("small", lambda x: (gm.gmm(x, w, small),), {"x": x8}, [w, small])
+        torch.cuda.synchronize()
+    held = any(t.data_ptr() == old_ptr for t in _build._retired)
+    counters = [t for (d, _), t in _build._tickets.items() if d == dev] + [
+        t for t in _build._retired if t.dtype == torch.int32]
+    zero = all(int(t.abs().sum()) == 0 for t in counters)
+    untouched = bool((filler == 7.0).all())
+    same = torch.equal(again, want) and torch.equal(first, want)
+    if (cache.captures, cache.recaptures, cache.replays) != (2, 0, 3):
+        raise AssertionError(f"F1 check: two captures and three replays expected ({cache.stats()})")
+    say(f"[check] F1: split K3 graph replayed after a later warm-up grew the capture stream's "
+        f"workspace from {old_n} to {grew} f32 and the caches were emptied: output "
+        f"{'equal to eager' if same else 'DIFFERS'}, ticket counters "
+        f"{'0' if zero else 'NOT 0'}, outgrown workspace {'held' if held else 'FREED'}, "
+        f"buffer allocated after it {'untouched' if untouched else 'OVERWRITTEN'}")
+    if not (same and zero and held and untouched and grew > old_n):
+        raise AssertionError("F1: a graph replayed over a buffer a later warm-up outgrew")
 
 
 def _mla_inputs(g, dev, *, B, H, S, lengths):
@@ -1077,14 +1374,17 @@ def check_gmm_deepseek(g, dev):
 def phase_kernels(dev):
     g = torch.Generator(device=dev)
     g.manual_seed(0)
+    check_f1_replay(dev)
     k2_err = check_flash_attend(g, dev)
     recs = [check_flash_decode(g, dev), check_flash_attend_chunk(g, dev), phase_gmm(dev),
-            check_paged_decode(g, dev), phase_mla(dev)]
+            check_paged_decode(g, dev), phase_mla(dev), check_switch_attention(g, dev)]
     recs[1]["max_abs_err"] = max(recs[1]["max_abs_err"], k2_err, check_attend_rows(g, dev))
     long_err = check_decode_long(g, dev)
     edge_err = check_decode_edges(g, dev)  # through K4 and K1 alike
-    recs[0]["max_abs_err"] = max(recs[0]["max_abs_err"], long_err, edge_err)
-    recs[3]["max_abs_err"] = max(recs[3]["max_abs_err"], long_err, edge_err)
+    dh64_err = check_decode_dh64(g, dev)  # K1 and K4 at head dim 64
+    recs[0]["max_abs_err"] = max(recs[0]["max_abs_err"], long_err, edge_err, dh64_err)
+    recs[3]["max_abs_err"] = max(recs[3]["max_abs_err"], long_err, edge_err, dh64_err)
+    recs[2]["max_abs_err"] = max(recs[2]["max_abs_err"], check_gmm_switch(g, dev))
     for r in recs:
         say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
@@ -1234,23 +1534,24 @@ def _profile(label, fn, n):
     return busy
 
 
-def _profile_main_path(model, params, provider, ids, mask, gen, tag):
+def _profile_main_path(model, params, provider, ids, mask, gen, tag, cap=32, what=""):
     """The encoder (once, eager in both modes) and the generator's decode
-    step at the timed shape under the profiler; then the host's time per
-    step: the calls alone (queueing), 16 steps ended by one synchronize."""
+    step at the timed shape (a cache of ``cap`` columns) under the
+    profiler; then the host's time per step: the calls alone (queueing), 16
+    steps ended by one synchronize. ``what`` prefixes the labels."""
     from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 
     dev, for_layer, experts = model.device, ResidentProvider.for_layer, provider.pytree()
     tok = torch.as_tensor(ids, dtype=torch.int32, device=dev)
     m = torch.as_tensor(mask, device=dev)
-    B = tok.shape[0]
+    B, T = tok.shape
 
     def encode():
         return model.cross_kv(params, model.encode(params, experts, tok, m, for_layer, "pallas"))
 
     with torch.inference_mode():
         cross = encode()
-        step_fn = gen.decoder(B, 32, m, cross)
+        step_fn = gen.decoder(B, cap, m, cross)
         cur = torch.full((B, 1), model.spec.decoder_start_token_id, dtype=torch.int32,
                          device=dev)
         step = [0]
@@ -1262,8 +1563,8 @@ def _profile_main_path(model, params, provider, ids, mask, gen, tag):
 
         decode()
         if tag == "eager":
-            _profile("encode (4 x 64 tokens) + cross K/V", encode, 2)
-        _profile(f"decode step (4 rows, {tag})", decode, 4)
+            _profile(f"{what}encode ({B} x {T} tokens) + cross K/V", encode, 2)
+        _profile(f"{what}decode step ({B} rows, {tag})", decode, 4)
         torch.cuda.synchronize()
         host, t0 = 0.0, time.perf_counter()
         for _ in range(16):
@@ -1271,7 +1572,7 @@ def _profile_main_path(model, params, provider, ids, mask, gen, tag):
             decode()
             host += time.perf_counter() - t1
         torch.cuda.synchronize()
-        say(f"[profile] decode step (4 rows, {tag}): host_ms_per_step={host * 1e3 / 16:.3f} "
+        say(f"[profile] {what}decode step ({B} rows, {tag}): host_ms_per_step={host * 1e3 / 16:.3f} "
             f"(the calls) wall_ms_per_step={(time.perf_counter() - t0) * 1e3 / 16:.3f} "
             f"(16 steps, one synchronize)")
 
@@ -2357,10 +2658,10 @@ def _offload_spec_run(dev, b, graphs, runs):
     return counts
 
 
-def _profile_spec_block(engine, ids, mask, tag):
+def _profile_spec_block(engine, ids, mask, tag, cap=32):
     """One encode through the engine, one block, then two blocks at the size
     the hill-climb holds, under the profiler and under cProfile, over the
-    buffers the engine's graphs read."""
+    buffers the engine's graphs read (a cache of ``cap`` columns)."""
     model = engine.model
     dev = model.device
     tok = torch.as_tensor(ids, dtype=torch.int32, device=dev)
@@ -2370,7 +2671,7 @@ def _profile_spec_block(engine, ids, mask, tag):
     with torch.inference_mode():
         _, cross = engine.run_encoder(tok, m, seq_ids)
         engine._prefetch_decoder_tier(seq_ids)
-        kvs, m, cross = engine.decode_state(B, 32, m, cross)
+        kvs, m, cross = engine.decode_state(B, cap, m, cross)
         state = {"cur": torch.full((B, 1), model.spec.decoder_start_token_id,
                                    dtype=torch.int32, device=dev), "step": 0}
 
@@ -2382,7 +2683,8 @@ def _profile_spec_block(engine, ids, mask, tag):
 
         block()
         r0 = len(engine.replay_counts)
-        _profile_streams(f"speculative block (4 rows, k={k}, 6 MoE layers, {tag})", block, 2)
+        _profile_streams(f"speculative block ({B} rows, k={k}, {len(engine.dec_mlis)} MoE "
+                         f"layers, {tag})", block, 2)
         _host_profile(f"speculative block (k={k}, {tag})", block, 2)
         say(f"[profile] executions of the profiled blocks {engine.replay_counts[r0:]}; "
             f"graphs {json.dumps(engine.graph_stats())}")
@@ -2605,6 +2907,359 @@ def _bf16_graph_parity(dev, spec, store, tier, seed, where):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 13 to 15: Switch-large-128 (K2 at head dim 64 with the T5 bias)
+# ---------------------------------------------------------------------------
+
+SW_BASELINE_TOKENS_PER_S = 69.105  # the reference at batch 32 (BASELINE.md:24)
+
+
+def _switch_requests(vocab, B=None):
+    """bench.py's Switch prompts (``bench_switch_throughput``, :775-778): 32
+    (or B) rows of 16 tokens, ``(arange(T) * 13 + row) % (vocab - 1)``,
+    unpadded."""
+    B, T = B or SW_BATCH, SW_PROMPT
+    ids = (np.arange(T)[None].repeat(B, 0) * 13 + np.arange(B)[:, None]) % (vocab - 1)
+    return ids.astype(np.int64), np.ones((B, T), dtype=np.float32)
+
+
+def _switch_store(spec, seed=0, cache_records=64):
+    """bench.py's ``bench_switch_servable`` store (:1823-1835): packed int4
+    ``wi``/``wo`` with f32 scales for every MoE layer, SyntheticStore records
+    distinct per expert, the encoder's 12 MoE layers first."""
+    from moe_infinity_tpu_torch.store.blob import SyntheticStore
+
+    D, F, E = spec.d_model, spec.d_ff, spec.num_experts
+    n_enc = sum(spec.is_sparse(i, False) for i in range(spec.num_encoder_layers))
+    fields = [("wi.weight", (D, F // 2), "int4"), ("wi.weight.scale", (F,), "float32"),
+              ("wo.weight", (F, D // 2), "int4"), ("wo.weight.scale", (D,), "float32")]
+    return SyntheticStore(spec.num_moe_layers, E, fields,
+                          meta={"arch": "switch", "num_encoder_moe_layers": n_enc}, seed=seed,
+                          distinct_records=True, cache_records=cache_records)
+
+
+def _free_host_cache():
+    """Return the caching host allocator's free page-locked blocks (an earlier
+    phase's tier) to the system, where this PyTorch has the call."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+
+
+def _want_launches(spec, encodes, steps):
+    """K2 and K3 launches of ``encodes`` encodes and ``steps`` decoder steps:
+    a self-attention per encoder block, a self- and a cross-attention per
+    decoder block, gate and down per MoE layer (Switch-large-128: 24 and 24
+    per encode, 48 and 24 per step)."""
+    n_enc = sum(spec.is_sparse(i, False) for i in range(spec.num_encoder_layers))
+    n_dec = spec.num_moe_layers - n_enc
+    return {"flash_attend_dh64": spec.num_encoder_layers * encodes
+            + 2 * spec.num_decoder_layers * steps,
+            "gmm": 2 * n_enc * encodes + 2 * n_dec * steps}
+
+
+def phase_switch(dev):
+    """Switch-large-128 resident: ``Seq2SeqGenerator`` over all 24 x 128
+    packed int4 experts made on the card, impl="pallas", bench.py's 32
+    prompts of 16 tokens, 64 greedy tokens; eagerly, then each decode step a
+    replay of its CUDA graph. Each run after a warm-up generate at its
+    shapes; launches held to 24 K2 and 24 K3 per encode and 48 K2 and 24
+    K3 per step (``_want_launches``); then a profile of one decode step."""
+    from moe_infinity_tpu_torch.models.switch import SwitchModel, SwitchSpec
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    spec = SwitchSpec(**SWITCH_LARGE_128)
+    say(f"[switch] Switch-large-128, depth {spec.num_encoder_layers}+{spec.num_decoder_layers} "
+        f"blocks ({spec.num_moe_layers} MoE layers x {spec.num_experts} experts, top-1, "
+        f"capacity {spec.expert_capacity}), d_kv {spec.d_kv}, bf16 compute, int4 experts, "
+        f"impl=pallas, batch {SW_BATCH}, prompts of {SW_PROMPT}, {SW_TOKENS} tokens")
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev)
+    g.manual_seed(2024)
+    t0 = time.perf_counter()
+    model = SwitchModel(spec, compute_dtype=torch.bfloat16, device=dev)
+    params, tree = model.init_random(g, expert_dtype="int4")
+    provider = ResidentProvider(tree)
+    torch.cuda.synchronize()
+    say(f"[switch] weights built on the card in {time.perf_counter() - t0:.1f} s; experts "
+        f"{provider.nbytes() / 1e9:.2f} GB, dense {_tree_bytes(params) / 1e9:.2f} GB, "
+        f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    ids, mask = _switch_requests(spec.vocab_size)
+    runs, counts = {}, {}
+    gen_kw = dict(max_new_tokens=SW_TOKENS, attention_mask=mask, eos_token_id=None)
+    for graphs in (False, True):
+        tag = "graphs" if graphs else "eager"
+        gen = Seq2SeqGenerator(model, params, provider.pytree(), ResidentProvider.for_layer,
+                               impl="pallas", graphs=graphs)
+        torch.cuda.reset_peak_memory_stats()
+        gen.generate(ids, **gen_kw)  # warm-up at the timed shapes: its capture
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = gen.generate(ids, **gen_kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        st, gst = res.stats, gen.graph_stats()
+        tps = SW_BATCH * SW_TOKENS / (st["decode_ms"] / 1e3)
+        say(f"[switch] {tag}: sequences shape {res.sequences.shape}; first row "
+            f"{res.sequences[0].tolist()}")
+        say(f"[switch] {tag}: tokens_per_s={tps:.1f} vs_baseline="
+            f"{tps / SW_BASELINE_TOKENS_PER_S:.3f} (the reference's "
+            f"{SW_BASELINE_TOKENS_PER_S} at batch 32) decode_ms_per_token="
+            f"{st['decode_ms'] / SW_TOKENS:.3f} encode_ms={st['encode_ms']:.3f} wall_s={wall:.3f} "
+            f"max_memory_allocated_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} graphs "
+            f"{json.dumps(gst)}")
+        want = _want_launches(spec, 1, SW_TOKENS)
+        say(f"[switch] {tag}: launches {json.dumps(counts)}; expected {json.dumps(want)}")
+        if res.sequences.shape != (SW_BATCH, SW_TOKENS + 1):
+            raise AssertionError(f"unexpected output shape {res.sequences.shape}")
+        if not np.all((res.sequences >= 0) & (res.sequences < spec.vocab_size)):
+            raise AssertionError("token ids out of range")
+        _require_launched(counts, SWITCH_KERNELS, f"Switch resident path ({tag})")
+        if any(counts.get(k) != n for k, n in want.items()):
+            raise AssertionError(f"Switch resident path: launches {counts} != {want}")
+        if graphs and (gst["captures"] != 1 or gst["recaptures"] or gst["replays"] != 2 * SW_TOKENS):
+            raise AssertionError(f"graphs: one capture and a replay per step expected ({gst})")
+        runs[tag] = res.sequences
+        _profile_main_path(model, params, provider, ids, mask, gen, tag, cap=SW_CAP,
+                           what="Switch ")
+        del gen
+        torch.cuda.empty_cache()
+    same = np.array_equal(runs["graphs"], runs["eager"])
+    say(f"[switch] graphs against eager greedy tokens: {'equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("Switch: graph and eager tokens differ")
+    logits = _first_step_logits(model, params, provider, ids, mask, "pallas")
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (SW_BATCH, 1, spec.vocab_size):
+        raise AssertionError(f"Switch first-step logits: shape {tuple(logits.shape)} or not finite")
+    say(f"[switch] first-step logits finite, shape {tuple(logits.shape)}")
+    del params, tree, provider, model, logits
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_switch_offload(dev):
+    """Switch-large-128 served as ``bench.py``'s ``switch-servable`` preset
+    builds it (``bench_switch_servable``, :1789-1900): bf16 dense weights
+    from a seed, the int4 store of 3,072 records, a 14 GiB page-locked tier
+    with layer-aligned segments (``--tier-gb 14``), slots from ``--hbm-gb
+    13`` less the dense bytes and 1.2 GiB of KV reserve, the EAMC tracer
+    (256 sequences, 12 encoder MoE layers) and predictor, prefetch with
+    lookahead 3, the ``priority`` policy, ``speculative=True``,
+    ``spec_block=4``, ``max_direct_layers=0``; each step and block a replay
+    of its CUDA graph. bench.py's warm-up generate (7 tokens) under the
+    sync-debug guard, then the timed one: 32 prompts of 16, 64 tokens; then
+    a profile of one block on the device and on the host."""
+    from moe_infinity_tpu_torch.models.switch import SwitchModel, SwitchSpec
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.engine import speculative_stats
+    from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
+
+    spec = SwitchSpec(**SWITCH_LARGE_128)
+    E = spec.num_experts
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    model = SwitchModel(spec, compute_dtype=torch.bfloat16, device=dev)
+    params, _ = model.init_random(g, with_experts=False)
+    dense = _tree_bytes(params)
+    store = _switch_store(spec, cache_records=spec.num_moe_layers * E)
+    tier = PinnedExpertTier(store, device=dev, shared_record=False, max_bytes=TIER_GB * 2**30,
+                            align_rows=E, synth_on_device=True)
+    torch.cuda.synchronize()
+    t_tier = time.perf_counter() - t0
+    n_rec = store.num_layers * E
+    union = (store.num_layers - store.meta["num_encoder_moe_layers"]) * min(E, SW_BATCH)
+    slots = max(E, union, int((HBM_GB * 2**30 - dense - int(1.2 * 2**30)) // store.stride))
+    engine = _offload_engine(model, params, store, slots, tier, speculative=True, spec_block=4)
+    arena = engine.arena
+    ids, mask = _switch_requests(spec.vocab_size)
+    say(f"[switch-offload] {store.num_layers} MoE layers x {E} experts = {n_rec} int4 records of "
+        f"{store.stride / 1e6:.2f} MB ({n_rec * store.stride / 1e9:.2f} GB); dense bf16 "
+        f"{dense / 1e9:.2f} GB; tier {json.dumps(tier.stats())} "
+        f"{'page-locked' if tier.fields['wi.weight'][0].is_pinned() else 'pageable'}, "
+        f"{tier.num_staged} of {n_rec} records; arena {slots} slots ({slots / n_rec:.3f} of the "
+        f"experts), {arena.nbytes() / 1e9:.2f} GB; set-up {time.perf_counter() - t0:.1f} s "
+        f"(tier {t_tier:.1f} s)")
+    cap = SW_CAP
+    try:
+        guarded, unguard = _sync_guard(engine)
+        t1 = time.perf_counter()
+        try:
+            engine.generate(ids, max_new_tokens=2 * engine.spec_block - 1, attention_mask=mask,
+                            eos_token_id=None, cache_len=cap)
+            torch.cuda.synchronize()
+        finally:
+            unguard()
+        say(f"[switch-offload] warm-up generate {time.perf_counter() - t1:.1f} s, {guarded[0]} "
+            f"replays under sync_debug_mode=error; executions {engine.replay_counts}, graphs "
+            f"{json.dumps(engine.graph_stats())}")
+        if guarded[0] == 0:
+            raise AssertionError("Switch offload: no replay ran under the sync guard")
+        f0, s0, g0 = arena.fetch_stats(), engine.stats(), engine.graph_stats()
+        pt0, x0, r0 = dict(engine.phase_timings), engine.executed_steps, len(engine.replay_counts)
+        host, untime = _host_timer(engine)
+        reset_launches()
+        t1 = time.perf_counter()
+        try:
+            res = engine.generate(ids, max_new_tokens=SW_TOKENS, attention_mask=mask,
+                                  eos_token_id=None, cache_len=cap)
+            torch.cuda.synchronize()
+        finally:
+            untime()
+        wall = time.perf_counter() - t1
+        counts = launch_counts()
+        steps = engine.executed_steps - x0
+        f1, s1, g1 = arena.fetch_stats(), engine.stats(), engine.graph_stats()
+        warm = g1.get("warmup_steps", 0) - g0.get("warmup_steps", 0)
+        cap_s = g1.get("capture_s", 0) - g0.get("capture_s", 0)
+        execs = engine.replay_counts[r0:]
+        dw, st = engine.decode_window_stats(), res.stats
+        tps = SW_BATCH * SW_TOKENS / (st["decode_ms"] / 1e3)
+        timings = {k: round(v - pt0.get(k, 0.0), 6) for k, v in engine.phase_timings.items()}
+        say(f"[switch-offload] sequences shape {res.sequences.shape}; first row "
+            f"{res.sequences[0].tolist()}")
+        say(f"[switch-offload] tokens_per_s={tps:.1f} vs_baseline="
+            f"{tps / SW_BASELINE_TOKENS_PER_S:.3f} decode_ms_per_token="
+            f"{st['decode_ms'] / SW_TOKENS:.3f} encode_ms={st['encode_ms']:.3f} wall_s="
+            f"{wall:.3f} host_ms_per_execution={host[0] * 1e3 / max(1, host[1]):.3f} (without "
+            f"captures {(host[0] - cap_s) * 1e3 / max(1, host[1]):.3f}; {host[1]} executions) "
+            f"max_memory_allocated_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        say(f"[switch-offload] slots={slots} decode hit_rate={dw['decode_hit_rate']:.4f} "
+            f"visits={dw['visits']} misses={dw['misses']} evictions={dw['evictions']}; timed "
+            f"generate: misses={s1['misses'] - s0['misses']} evictions="
+            f"{s1['evictions'] - s0['evictions']} prefetches={s1['prefetches'] - s0['prefetches']} "
+            f"fetches tier={f1['fetches_tier'] - f0['fetches_tier']} store="
+            f"{f1['fetches_store'] - f0['fetches_store']}")
+        say(f"[switch-offload] blocks={len(execs)} executions={execs} "
+            f"speculative_stats {json.dumps(speculative_stats(execs))} block size held "
+            f"k={engine.spec_block} chosen={engine._chosen} executed_steps={steps} "
+            f"speculative={engine.speculative}")
+        say(f"[switch-offload] graphs {json.dumps(g1)}; in the timed generate: captures "
+            f"{g1.get('captures', 0) - g0.get('captures', 0)}, replays "
+            f"{g1['replays'] - g0['replays']}, capture_s {cap_s:.3f}, warm-up steps {warm}")
+        say(f"[switch-offload] phase_timings (timed generate, s) {json.dumps(timings)}")
+        want = _want_launches(spec, 1, steps + warm)
+        say(f"[switch-offload] launches {json.dumps(counts)}; expected from {steps} executed "
+            f"steps, {warm} warm-up steps of captures and one encode {json.dumps(want)}")
+        if res.sequences.shape != (SW_BATCH, SW_TOKENS + 1):
+            raise AssertionError(f"unexpected output shape {res.sequences.shape}")
+        if not np.all((res.sequences >= 0) & (res.sequences < spec.vocab_size)):
+            raise AssertionError("token ids out of range")
+        _require_launched(counts, SWITCH_KERNELS, "Switch speculative offload path")
+        if any(counts.get(k) != n for k, n in want.items()):
+            raise AssertionError(f"Switch offload: launches {counts} != {want}")
+        if not engine.speculative or g1["recaptures"] or g1["replays"] - g0["replays"] != sum(execs):
+            raise AssertionError(f"Switch offload: every execution a replay, no recapture, the "
+                                 f"speculative path kept expected ({g0} -> {g1}, {execs})")
+        _profile_spec_block(engine, ids, mask, "Switch, graphs", cap=SW_CAP)
+    finally:
+        arena.shutdown()
+    del engine, arena, tier, store, params, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_switch_whole_path(dev):
+    """Switch at full width and 4+4 blocks (2+2 MoE layers), 8 rows of
+    bench.py's prompts padded to 16, 12, 9 and 5 tokens, experts from one
+    int4 store (the resident generator over its own records,
+    ``from_store``). At f32: the per-layer offload engine (128 slots,
+    evictions at every MoE layer) and the speculative one (k = 1 and k = 4,
+    graphs) against the resident path: greedy tokens equal and first-step
+    logits bit-equal; the resident generator's graph step against its eager
+    step, logits bit-equal over 24 steps. At bf16: the first step's logits
+    through the kernels against the plain versions, reported per request
+    with the argmax (as phase 4 reports NLLB's)."""
+    from moe_infinity_tpu_torch.models.switch import SwitchModel, SwitchSpec
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    spec = SwitchSpec(**dict(SWITCH_LARGE_128, num_encoder_layers=4, num_decoder_layers=4))
+    E, B = spec.num_experts, 8
+    ids, mask = _switch_requests(spec.vocab_size, B)
+    for i, n in enumerate((16, 12, 9, 5, 16, 12, 9, 5)):
+        mask[i, n:] = 0.0
+    gen = dict(max_new_tokens=PARITY_TOKENS, attention_mask=mask, eos_token_id=None)
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    model = SwitchModel(spec, compute_dtype=torch.float32, device=dev)
+    params, _ = model.init_random(g, with_experts=False)
+    store = _switch_store(spec, seed=31, cache_records=spec.num_moe_layers * E)
+    provider = ResidentProvider.from_store(store, dtype=torch.float32, device=dev)
+    resident = {gr: Seq2SeqGenerator(model, params, provider.pytree(), ResidentProvider.for_layer,
+                                     impl="pallas", graphs=gr) for gr in (True, False)}
+    want = resident[False].generate(ids, **gen)
+    if not np.array_equal(resident[True].generate(ids, **gen).sequences, want.sequences):
+        raise AssertionError("Switch resident: graph and eager tokens differ")
+    want_logits = _first_step_logits(model, params, provider, ids, mask, "pallas")
+    engine = _offload_engine(model, params, store, E, None)
+    try:
+        reset_launches()
+        got_logits = _offload_first_step(engine, ids, mask)
+        got = engine.generate(ids, **gen)
+        torch.cuda.synchronize()
+        counts, stats = launch_counts(), engine.stats()
+    finally:
+        engine.arena.shutdown()
+    _require_launched(counts, SWITCH_KERNELS, "Switch offload whole-path check")
+    same_logits = torch.equal(got_logits, want_logits)
+    same = np.array_equal(got.sequences, want.sequences)
+    say(f"[check] Switch per-layer offload vs resident f32 (full width, 4+4 blocks, int4 "
+        f"experts, {E}-slot arena, evictions {stats['evictions']}): first-step logits "
+        f"{'bit-equal' if same_logits else 'DIFFER by %.3e' % (got_logits - want_logits).abs().max()}, "
+        f"greedy tokens {'equal' if same else 'DIFFER'} {got.sequences[0].tolist()}")
+    if not (same and same_logits) or stats["evictions"] <= 0:
+        raise AssertionError("Switch offload differs from the resident path (or no eviction)")
+    for k in (1, 4):
+        res, logits, eng, _ = _spec_case(model, params, store, None, ids, gen, k, "whole", True,
+                                         "steps" if k == 1 else None)
+        same = np.array_equal(res.sequences, want.sequences)
+        first = logits and torch.equal(logits[0], want_logits)
+        say(f"[check] Switch speculative k={k} graphs vs resident f32: executions "
+            f"{eng.replay_counts}, graphs {json.dumps(eng.graph_stats())}, greedy tokens "
+            f"{'equal' if same else 'DIFFER'}"
+            + (f", first accepted step's logits {'bit-equal' if first else 'DIFFER'}"
+               if k == 1 else ""))
+        if not same or (k == 1 and not first) or not eng.speculative:
+            raise AssertionError(f"Switch speculative k={k}: differs from the resident path, "
+                                 f"or left the speculative path")
+        del res, logits, eng
+    _resident_graph_parity(model, params, provider, resident, ids, mask, 31)
+    del resident, provider, store, params, model
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(32)
+    model = SwitchModel(spec, compute_dtype=torch.bfloat16, device=dev)
+    params, tree = model.init_random(g, expert_dtype="int4")
+    provider = ResidentProvider(tree)
+    reset_launches()
+    got = _first_step_logits(model, params, provider, ids, mask, "pallas")
+    counts = launch_counts()
+    with _plain_kernels():
+        want = _first_step_logits(model, params, provider, ids, mask, "pallas")
+    if launch_counts() != counts:
+        raise AssertionError(f"the plain run launched kernels: {counts} -> {launch_counts()}")
+    _require_launched(counts, SWITCH_KERNELS, "Switch bf16 whole-path check")
+    rows = (got - want).abs().amax(dim=(1, 2)).tolist()
+    same = (got.argmax(-1) == want.argmax(-1)).all().item()
+    say(f"[check] Switch whole path logits bf16 (full width, 4+4 blocks, int4 experts), kernels "
+        f"against plain: per-request max_abs_err={['%.3e' % r for r in rows]} argmax "
+        f"equal={same} (reported, as phase 4's)")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("Switch bf16 whole-path logits are not finite")
+    del model, params, tree, provider, got, want
+    torch.cuda.empty_cache()
+
+
 def sweep_decode_plans(dev):
     """``--decode-plans``: K4 at the Mixtral decode shape and at the long rows
     under split plans aimed at 2 to 8 blocks per SM (the wrapper's
@@ -2763,6 +3418,12 @@ def main() -> int:
         timed(phase_deepseek)
         say(f"[card] {smi}")
         return 0
+    if "--switch" in sys.argv[1:]:
+        timed(phase_switch)
+        timed(phase_switch_offload)
+        timed(phase_switch_whole_path)
+        say(f"[card] {smi}")
+        return 0
     recs = timed(phase_kernels)
     counts = timed(phase_main_path)
     timed(phase_whole_path)
@@ -2774,9 +3435,13 @@ def main() -> int:
     timed(phase_offload_whole_path)
     spec_counts = timed(phase_offload_spec)
     timed(phase_offload_spec_whole_path)
+    _free_host_cache()  # the NLLB tier's page-locked memory, before Switch's
+    sw_counts = timed(phase_switch)
+    sw_off_counts = timed(phase_switch_offload)
+    timed(phase_switch_whole_path)
     for r in recs:
-        r["launches"] = sum(c[r["name"]] for c in (counts, mix_counts, mla_counts, off_counts,
-                                                  spec_counts))
+        r["launches"] = sum(c.get(r["name"], 0) for c in (
+            counts, mix_counts, mla_counts, off_counts, spec_counts, sw_counts, sw_off_counts))
         r.pop("shape")
     say(f"[card] {smi}")
     print(json.dumps({"kernels": recs}), flush=True)

@@ -1,5 +1,5 @@
-// Hand-written Hopper attention kernels: head_dim 128 (K1, K2, K4) and the
-// absorbed-MLA decode over a 512 + 64 wide latent cache (K5).
+// Hand-written Hopper attention kernels: head_dim 64 or 128 (K1, K2, K4) and
+// the absorbed-MLA decode over a 512 + 64 wide latent cache (K5).
 //
 // flash_decode_kernel  replaces moe_infinity_tpu/ops/flash_attention.py
 //                      _decode_kernel / flash_decode (one query token).
@@ -49,8 +49,42 @@
 
 namespace {
 
-constexpr int kDh = 128;  // a lane owns 4 of the 128 head dims
+// K1, K2 and K4 take the head dim DH as a template parameter, 64 (Switch's
+// T5 attention) or 128 (NLLB, Mixtral). Where a lane owns head dims of the
+// values, it owns DH / 32 consecutive ones: 4 at 128, 2 at 64.
 constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ void load2(const float* p, float o[2]) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  o[0] = v.x;
+  o[1] = v.y;
+}
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float o[2]) {
+  const unsigned v = *reinterpret_cast<const unsigned*>(p);
+  o[0] = __uint_as_float(v << 16);
+  o[1] = __uint_as_float(v & 0xffff0000u);
+}
+__device__ __forceinline__ void store2(float* p, const float x[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, const float x[2]) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x[0], x[1]);
+}
+// N (2 or 4) consecutive elements as float, and back; p aligned to N elements
+template <int N, typename T>
+__device__ __forceinline__ void load_lane(const T* p, float* o) {
+  if constexpr (N == 4)
+    mit::load4(p, o);
+  else
+    load2(p, o);
+}
+template <int N, typename T>
+__device__ __forceinline__ void store_lane(T* p, const float* x) {
+  if constexpr (N == 4)
+    mit::store4(p, x);
+  else
+    store2(p, x);
+}
 
 using mit::cp_async16;
 using mit::cp_async_commit;
@@ -63,10 +97,11 @@ using mit::cp_async_wait;
 // batch row, so those cache rows are read once for all its heads. It walks
 // them in tiles of kDecTile keys. Warp (row group, slot) owns 1 or 2 query
 // rows and the slot's 32 keys of every tile, with its own online-softmax
-// state: in the score phase lane j takes the 128-long dot product of key j
+// state: in the score phase lane j takes the DH-long dot product of key j
 // (rows are padded by 16 bytes, so the lanes of a quarter warp read 8
 // different bank groups), then one max, one sum and one rescale per 32 keys,
-// then lane j accumulates p * v for head dims [4j, 4j + 4). No block-wide
+// then lane j accumulates p * v for head dims [jN, jN + N), N = DH / 32. No
+// block-wide
 // exchange happens between the two phases; the block synchronises only on a
 // tile's arrival and release. At the end the two slots of a row merge through
 // shared memory, and the block either writes the result (a plan of one
@@ -108,38 +143,34 @@ struct DecArgs {
   float scale, softcap;
 };
 
-template <typename T>
-struct DecTile;
-template <>
-struct DecTile<__nv_bfloat16> {
-  static constexpr int kChunks = 16;      // 16-byte chunks of a 128-wide row
-  static constexpr int kPer = 8;          // elements per chunk
-  static constexpr int kRowBytes = 272;   // 256 + 16 of padding
-  static constexpr int kBufs = 2;         // the next tile loads during this one
-  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x << 16);
-    f[1] = __uint_as_float(u.x & 0xffff0000u);
-    f[2] = __uint_as_float(u.y << 16);
-    f[3] = __uint_as_float(u.y & 0xffff0000u);
-    f[4] = __uint_as_float(u.z << 16);
-    f[5] = __uint_as_float(u.z & 0xffff0000u);
-    f[6] = __uint_as_float(u.w << 16);
-    f[7] = __uint_as_float(u.w & 0xffff0000u);
-  }
+template <typename T, int DH>
+struct DecTile {
+  static constexpr int kPer = 16 / (int)sizeof(T);  // elements per 16-byte chunk
+  static constexpr int kChunks = DH / kPer;         // chunks of a row
+  static constexpr int kRowBytes = DH * (int)sizeof(T) + 16;  // 16 of padding
+  // the next tile loads during this one, except for f32 rows of 128, whose
+  // one buffer of K and V is as large as two of bf16
+  static constexpr int kBufs = DH * (int)sizeof(T) <= 256 ? 2 : 1;
 };
-template <>
-struct DecTile<float> {
-  static constexpr int kChunks = 32;
-  static constexpr int kPer = 4;
-  static constexpr int kRowBytes = 528;   // 512 + 16: one buffer of K and V
-  static constexpr int kBufs = 1;         // is as large as bf16's two
-  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-};
+
+__device__ __forceinline__ void dec_unpack(const uint4& u, float* f,
+                                           const __nv_bfloat16*) {
+  f[0] = __uint_as_float(u.x << 16);
+  f[1] = __uint_as_float(u.x & 0xffff0000u);
+  f[2] = __uint_as_float(u.y << 16);
+  f[3] = __uint_as_float(u.y & 0xffff0000u);
+  f[4] = __uint_as_float(u.z << 16);
+  f[5] = __uint_as_float(u.z & 0xffff0000u);
+  f[6] = __uint_as_float(u.w << 16);
+  f[7] = __uint_as_float(u.w & 0xffff0000u);
+}
+__device__ __forceinline__ void dec_unpack(const uint4& u, float* f,
+                                           const float*) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
 
 constexpr int kDecThreads = 256;  // all load; RowGroups * kDecSlots warps compute
 
@@ -149,9 +180,9 @@ struct DecShape {
   static constexpr int kRowGroups = MAXR / kRowsPerWarp;  // 1, 2, 4, 4
 };
 
-template <typename T>
+template <typename T, int DH>
 constexpr int dec_smem_bytes() {
-  return DecTile<T>::kBufs * 2 * kDecTile * DecTile<T>::kRowBytes;
+  return DecTile<T, DH>::kBufs * 2 * kDecTile * DecTile<T, DH>::kRowBytes;
 }
 
 // Live keys of batch row b: below kv_len (or lengths[b]) and S and, when
@@ -172,24 +203,25 @@ __device__ __forceinline__ int dec_live_splits(const DecArgs& a, int row_len) {
   return min(a.NS, max(1, (row_len + a.kc - 1) / a.kc));
 }
 
-template <typename T>
+template <typename T, int DH>
 __device__ __forceinline__ T* dec_out_row(const DecArgs& a, int b, int hk,
                                           int j) {
   const int t = j / a.rep, r = j % a.rep;
   return static_cast<T*>(a.out) +
-         (((size_t)b * a.Tq + t) * a.H + (size_t)hk * a.rep + r) * kDh;
+         (((size_t)b * a.Tq + t) * a.H + (size_t)hk * a.rep + r) * DH;
 }
 
 // Combine the live splits of (b, hk) and write the result: thread = (query
 // row, 4 head dims), `nthreads` threads. Reads past the L1 (other blocks
 // wrote the scratch).
-template <typename T>
+template <typename T, int DH>
 __device__ __forceinline__ void dec_merge(const DecArgs& a, int b, int hk,
                                           int live, int nthreads) {
+  constexpr int kD4 = DH / 4;
   const int nrows = a.Tq * a.rep;
   const size_t base = ((size_t)b * a.Hkv + hk) * a.NS;
-  for (int idx = threadIdx.x; idx < nrows * 32; idx += nthreads) {
-    const int j = idx >> 5, d4 = idx & 31;
+  for (int idx = threadIdx.x; idx < nrows * kD4; idx += nthreads) {
+    const int j = idx / kD4, d4 = idx % kD4;
     float M = mit::kNeg;
     for (int s = 0; s < live; ++s)
       M = fmaxf(M, __ldcg(a.part_ml + ((base + s) * nrows + j) * 2));
@@ -199,7 +231,7 @@ __device__ __forceinline__ void dec_merge(const DecArgs& a, int b, int hk,
       const float w = expf(__ldcg(a.part_ml + row * 2) - M);
       L += __ldcg(a.part_ml + row * 2 + 1) * w;
       const float4 pa = __ldcg(
-          reinterpret_cast<const float4*>(a.part_acc + row * kDh + d4 * 4));
+          reinterpret_cast<const float4*>(a.part_acc + row * DH + d4 * 4));
       A[0] = fmaf(pa.x, w, A[0]);
       A[1] = fmaf(pa.y, w, A[1]);
       A[2] = fmaf(pa.z, w, A[2]);
@@ -208,20 +240,21 @@ __device__ __forceinline__ void dec_merge(const DecArgs& a, int b, int hk,
     const float inv = L > 0.f ? 1.f / L : 0.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) A[i] *= inv;
-    mit::store4(dec_out_row<T>(a, b, hk, j) + d4 * 4, A);
+    mit::store4(dec_out_row<T, DH>(a, b, hk, j) + d4 * 4, A);
   }
 }
 
-template <typename T, int MAXR, bool PAGED>
+template <typename T, int MAXR, bool PAGED, int DH>
 __device__ __forceinline__ void decode_body(const DecArgs& a) {
-  using TL = DecTile<T>;
+  using TL = DecTile<T, DH>;
   using SH = DecShape<MAXR>;
   constexpr int RPW = SH::kRowsPerWarp;
+  constexpr int kLD = DH / 32;  // head dims of the values a lane owns
   constexpr int NT = kDecThreads;
   constexpr int kBufBytes = 2 * kDecTile * TL::kRowBytes;  // K then V
   extern __shared__ __align__(16) unsigned char dec_smem[];
-  __shared__ __align__(16) float q_s[MAXR][kDh];
-  __shared__ __align__(16) float mrg_s[MAXR][kDh + 4];  // slot 1: sum, m, l
+  __shared__ __align__(16) float q_s[MAXR][DH];
+  __shared__ __align__(16) float mrg_s[MAXR][DH + 4];  // slot 1: sum, m, l
   __shared__ int valid_s[TL::kBufs][kDecTile];
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
@@ -239,11 +272,11 @@ __device__ __forceinline__ void decode_body(const DecArgs& a) {
   const int fill_end = k_begin + ((k_end - k_begin + 31) & ~31);
   const T* kg = static_cast<const T*>(a.k);
   const T* vg = static_cast<const T*>(a.v);
-  const size_t srow = (size_t)a.Hkv * kDh;
+  const size_t srow = (size_t)a.Hkv * DH;
 
   bool row_ok[RPW];
   int pos[RPW];
-  float m[RPW], l[RPW], acc[RPW][4];
+  float m[RPW], l[RPW], acc[RPW][kLD];
 #pragma unroll
   for (int rr = 0; rr < RPW; ++rr) {
     const int j = rg * RPW + rr;
@@ -254,7 +287,7 @@ __device__ __forceinline__ void decode_body(const DecArgs& a) {
     m[rr] = mit::kNeg;
     l[rr] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[rr][i] = 0.f;
+    for (int i = 0; i < kLD; ++i) acc[rr][i] = 0.f;
   }
 
   // Loads: a thread owns one 16-byte chunk column of ITER rows of a tile.
@@ -297,7 +330,7 @@ __device__ __forceinline__ void decode_body(const DecArgs& a) {
             !PAGED ? (size_t)b * a.S + s
                    : (size_t)pg[n] * a.page +
                          (a.page_shift >= 0 ? s & (a.page - 1) : s % a.page);
-        const size_t e = r * srow + (size_t)hk * kDh + lc * TL::kPer;
+        const size_t e = r * srow + (size_t)hk * DH + lc * TL::kPer;
         cp_async16(kd, kg + e);
         cp_async16(vd, vg + e);
       } else if (s < fill_end) {
@@ -319,14 +352,14 @@ __device__ __forceinline__ void decode_body(const DecArgs& a) {
 
   // the block's query rows as f32, zero for a row past nrows (after the
   // first tile's loads are on their way, so that the two overlap)
-  for (int i = tid; i < MAXR * (kDh / 4); i += NT) {
-    const int j = i / (kDh / 4), c = (i % (kDh / 4)) * 4;
+  for (int i = tid; i < MAXR * (DH / 4); i += NT) {
+    const int j = i / (DH / 4), c = (i % (DH / 4)) * 4;
     float f[4] = {0.f, 0.f, 0.f, 0.f};
     if (j < nrows) {
       const int t = j / a.rep, r = j % a.rep;
       mit::load4(static_cast<const T*>(a.q) +
                      (((size_t)b * a.Tq + t) * a.H + (size_t)hk * a.rep + r) *
-                         kDh + c,
+                         DH + c,
                  f);
     }
     *reinterpret_cast<float4*>(&q_s[j][c]) = make_float4(f[0], f[1], f[2], f[3]);
@@ -356,7 +389,7 @@ __device__ __forceinline__ void decode_body(const DecArgs& a) {
 #pragma unroll 4
       for (int c = 0; c < TL::kChunks; ++c) {
         float kf[TL::kPer];
-        TL::unpack(*reinterpret_cast<const uint4*>(krow + c * 16), kf);
+        dec_unpack(*reinterpret_cast<const uint4*>(krow + c * 16), kf, kg);
 #pragma unroll
         for (int rr = 0; rr < RPW; ++rr) {
           const float4* qv = reinterpret_cast<const float4*>(
@@ -389,21 +422,21 @@ __device__ __forceinline__ void decode_body(const DecArgs& a) {
         pb[rr] = a.round_p ? mit::round_as(p, kg) : p;
         m[rr] = mn;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[rr][i] *= alpha;
+        for (int i = 0; i < kLD; ++i) acc[rr][i] *= alpha;
       }
       const unsigned char* vrow = vb + (size_t)slot * 32 * TL::kRowBytes;
       const int s_end = 32 - __clz(vmask);  // past the slot's last valid key
 #pragma unroll 8
       for (int s = 0; s < s_end; ++s) {
-        float vf[4];
-        mit::load4(reinterpret_cast<const T*>(vrow + s * TL::kRowBytes) +
-                       lane * 4,
-                   vf);
+        float vf[kLD];
+        load_lane<kLD>(reinterpret_cast<const T*>(vrow + s * TL::kRowBytes) +
+                           lane * kLD,
+                       vf);
 #pragma unroll
         for (int rr = 0; rr < RPW; ++rr) {
           const float pj = __shfl_sync(kFull, pb[rr], s);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[rr][i] = fmaf(pj, vf[i], acc[rr][i]);
+          for (int i = 0; i < kLD; ++i) acc[rr][i] = fmaf(pj, vf[i], acc[rr][i]);
         }
       }
     }
@@ -415,11 +448,10 @@ __device__ __forceinline__ void decode_body(const DecArgs& a) {
 #pragma unroll
     for (int rr = 0; rr < RPW; ++rr) {
       const int j = rg * RPW + rr;
-      *reinterpret_cast<float4*>(&mrg_s[j][lane * 4]) =
-          make_float4(acc[rr][0], acc[rr][1], acc[rr][2], acc[rr][3]);
+      store_lane<kLD>(&mrg_s[j][lane * kLD], acc[rr]);
       if (lane == 0) {
-        mrg_s[j][kDh] = m[rr];
-        mrg_s[j][kDh + 1] = l[rr];
+        mrg_s[j][DH] = m[rr];
+        mrg_s[j][DH + 1] = l[rr];
       }
     }
   }
@@ -428,23 +460,24 @@ __device__ __forceinline__ void decode_body(const DecArgs& a) {
   for (int rr = 0; rr < RPW; ++rr) {
     const int j = rg * RPW + rr;
     if (!computes || slot != 0 || j >= nrows) continue;
-    const float m1 = mrg_s[j][kDh], l1 = mrg_s[j][kDh + 1];
-    const float4 a1 = *reinterpret_cast<const float4*>(&mrg_s[j][lane * 4]);
+    const float m1 = mrg_s[j][DH], l1 = mrg_s[j][DH + 1];
+    float a1[kLD];
+    load_lane<kLD>(&mrg_s[j][lane * kLD], a1);
     const float M = fmaxf(m[rr], m1);
     const float c0 = expf(m[rr] - M), c1 = expf(m1 - M);
     const float L = l[rr] * c0 + l1 * c1;
-    float o[4] = {acc[rr][0] * c0 + a1.x * c1, acc[rr][1] * c0 + a1.y * c1,
-                  acc[rr][2] * c0 + a1.z * c1, acc[rr][3] * c0 + a1.w * c1};
+    float o[kLD];
+#pragma unroll
+    for (int i = 0; i < kLD; ++i) o[i] = acc[rr][i] * c0 + a1[i] * c1;
     if (a.NS == 1) {
       const float inv = L > 0.f ? 1.f / L : 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) o[i] *= inv;
-      mit::store4(dec_out_row<T>(a, b, hk, j) + lane * 4, o);
+      for (int i = 0; i < kLD; ++i) o[i] *= inv;
+      store_lane<kLD>(dec_out_row<T, DH>(a, b, hk, j) + lane * kLD, o);
     } else {  // this split's state, one writer per element
       const size_t row =
           (((size_t)b * a.Hkv + hk) * a.NS + split) * nrows + j;
-      *reinterpret_cast<float4*>(a.part_acc + row * kDh + lane * 4) =
-          make_float4(o[0], o[1], o[2], o[3]);
+      store_lane<kLD>(a.part_acc + row * DH + lane * kLD, o);
       if (lane == 0) {
         a.part_ml[row * 2] = M;
         a.part_ml[row * 2 + 1] = L;
@@ -466,37 +499,37 @@ __device__ __forceinline__ void decode_body(const DecArgs& a) {
   __syncthreads();
   if (!last_s) return;
   __threadfence();
-  dec_merge<T>(a, b, hk, live, NT);
+  dec_merge<T, DH>(a, b, hk, live, NT);
 }
 
-template <typename T, int MAXR>
+template <typename T, int MAXR, int DH>
 __global__ void __launch_bounds__(kDecThreads)
     flash_decode_kernel(const DecArgs a) {
-  decode_body<T, MAXR, false>(a);
+  decode_body<T, MAXR, false, DH>(a);
 }
 
-template <typename T, int MAXR>
+template <typename T, int MAXR, int DH>
 __global__ void __launch_bounds__(kDecThreads)
     paged_decode_kernel(const DecArgs a) {
-  decode_body<T, MAXR, true>(a);
+  decode_body<T, MAXR, true, DH>(a);
 }
 
-template <typename T, int MAXR>
+template <typename T, int MAXR, int DH>
 __global__ void __launch_bounds__(kDecThreads)
     attend_rows_kernel(const DecArgs a) {
-  decode_body<T, MAXR, false>(a);
+  decode_body<T, MAXR, false, DH>(a);
 }
 
 enum DecKind { kDecContig = 0, kDecPaged = 1, kDecAttend = 2 };
 
-template <typename T, int MAXR>
+template <typename T, int MAXR, int DH>
 int launch_rows_r(int kind, const DecArgs& a, int B, cudaStream_t stream) {
   void (*kern)(const DecArgs) =
-      kind == kDecContig  ? flash_decode_kernel<T, MAXR>
-      : kind == kDecPaged ? paged_decode_kernel<T, MAXR>
-                          : attend_rows_kernel<T, MAXR>;
+      kind == kDecContig  ? flash_decode_kernel<T, MAXR, DH>
+      : kind == kDecPaged ? paged_decode_kernel<T, MAXR, DH>
+                          : attend_rows_kernel<T, MAXR, DH>;
   static bool sized[3] = {false, false, false};
-  constexpr int smem = dec_smem_bytes<T>();
+  constexpr int smem = dec_smem_bytes<T, DH>();
   if (!sized[kind]) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -507,13 +540,21 @@ int launch_rows_r(int kind, const DecArgs& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int DH>
 int launch_rows(int kind, const DecArgs& a, int B, cudaStream_t stream) {
   const int nrows = a.Tq * a.rep;
-  if (nrows <= 1) return launch_rows_r<T, 1>(kind, a, B, stream);
-  if (nrows <= 2) return launch_rows_r<T, 2>(kind, a, B, stream);
-  if (nrows <= 4) return launch_rows_r<T, 4>(kind, a, B, stream);
-  if (nrows <= 8) return launch_rows_r<T, 8>(kind, a, B, stream);
+  if (nrows <= 1) return launch_rows_r<T, 1, DH>(kind, a, B, stream);
+  if (nrows <= 2) return launch_rows_r<T, 2, DH>(kind, a, B, stream);
+  if (nrows <= 4) return launch_rows_r<T, 4, DH>(kind, a, B, stream);
+  if (nrows <= 8) return launch_rows_r<T, 8, DH>(kind, a, B, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int launch_rows_dh(int kind, const DecArgs& a, int B, int head_dim,
+                   cudaStream_t stream) {
+  if (head_dim == 64) return launch_rows<T, 64>(kind, a, B, stream);
+  if (head_dim == 128) return launch_rows<T, 128>(kind, a, B, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -538,11 +579,15 @@ int launch_rows(int kind, const DecArgs& a, int B, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 constexpr int kMmaUnits = 4;       // units of a block; warp = (key half, unit)
 constexpr int kMmaTile = 64;       // keys a warp takes at a time
-constexpr int kMmaRowBytes = 272;
 
-template <int HALVES>
+template <int DH>
+__host__ __device__ constexpr int mma_row_bytes() {  // a bf16 row padded by 16 bytes
+  return DH * 2 + 16;
+}
+
+template <int HALVES, int DH>
 constexpr int mma_smem_bytes() {  // two buffers of K then V
-  return 2 * 2 * HALVES * kMmaTile * kMmaRowBytes;
+  return 2 * 2 * HALVES * kMmaTile * mma_row_bytes<DH>();
 }
 
 using mit::ldmatrix_x4;
@@ -550,7 +595,7 @@ using mit::ldmatrix_x4_trans;
 using mit::mma_bf16;
 using mit::pack_bf16;
 
-template <int HALVES>
+template <int HALVES, int DH>
 __global__ void __launch_bounds__(HALVES * kMmaUnits * 32) flash_attend_kernel(
     const __nv_bfloat16* __restrict__ q,   // [B, T, H, Dh]
     const __nv_bfloat16* __restrict__ k,   // [B, S, Hkv, Dh]
@@ -564,8 +609,12 @@ __global__ void __launch_bounds__(HALVES * kMmaUnits * 32) flash_attend_kernel(
     float softcap) {
   constexpr int kMmaWarps = HALVES * kMmaUnits;
   constexpr int kMmaStage = HALVES * kMmaTile;  // keys loaded at a time
+  constexpr int kMmaRowBytes = mma_row_bytes<DH>();
   constexpr int kMmaBufBytes = 2 * kMmaStage * kMmaRowBytes;
-  constexpr int kLoadRows = kMmaWarps * 2;  // rows one pass of the loader covers
+  constexpr int kRowChunks = DH / 8;  // 16-byte chunks of a row
+  constexpr int kLoadRows = kMmaWarps * 32 / kRowChunks;  // rows of one loader pass
+  constexpr int kKs = DH / 16;   // k-steps of the score product
+  constexpr int kDn = DH / 8;    // 8-wide head-dim groups of the P.V product
   extern __shared__ __align__(16) unsigned char att_smem[];
   __shared__ int valid_s[2][kMmaStage];
   __shared__ int wmax_s[kMmaWarps];
@@ -606,13 +655,13 @@ __global__ void __launch_bounds__(HALVES * kMmaUnits * 32) flash_attend_kernel(
   const int ntiles = (kv_end + kMmaStage - 1) / kMmaStage;  // stages
   const int fill_end = (kv_end + kMmaTile - 1) / kMmaTile * kMmaTile;
 
-  // Q as A fragments: 8 k-steps of 16 head dims
-  unsigned qa[8][4];
+  // Q as A fragments: DH / 16 k-steps of 16 head dims
+  unsigned qa[kKs][4];
   {
-    const __nv_bfloat16* qA = q + (((size_t)b * Tq + tA) * H + h) * kDh;
-    const __nv_bfloat16* qB = q + (((size_t)b * Tq + tB) * H + h) * kDh;
+    const __nv_bfloat16* qA = q + (((size_t)b * Tq + tA) * H + h) * DH;
+    const __nv_bfloat16* qB = q + (((size_t)b * Tq + tB) * H + h) * DH;
 #pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
+    for (int ks = 0; ks < kKs; ++ks) {
       const int c = ks * 16 + 2 * tq;
       qa[ks][0] = okA ? *reinterpret_cast<const unsigned*>(qA + c) : 0u;
       qa[ks][1] = okB ? *reinterpret_cast<const unsigned*>(qB + c) : 0u;
@@ -621,17 +670,17 @@ __global__ void __launch_bounds__(HALVES * kMmaUnits * 32) flash_attend_kernel(
     }
   }
 
-  float o[16][4];
+  float o[kDn][4];
 #pragma unroll
-  for (int dn = 0; dn < 16; ++dn)
+  for (int dn = 0; dn < kDn; ++dn)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
   float mA = mit::kNeg, mB = mit::kNeg, lA = 0.f, lB = 0.f;
 
-  const size_t srow = (size_t)Hkv * kDh;
-  // a thread owns chunk column lc of 8 rows of a stage, kLoadRows apart; the
+  const size_t srow = (size_t)Hkv * DH;
+  // a thread owns chunk column lc of the rows of a stage kLoadRows apart; the
   // mask bytes of its rows are read one stage ahead of the loads they gate
-  const int lc = tid & 15, lr0 = tid >> 4;
+  const int lc = tid % kRowChunks, lr0 = tid / kRowChunks;
   unsigned char mk[kMmaStage / kLoadRows];  // 0: not to be loaded
   auto fetch = [&](int ti) {
 #pragma unroll
@@ -653,7 +702,7 @@ __global__ void __launch_bounds__(HALVES * kMmaUnits * 32) flash_attend_kernel(
       unsigned char* vd = vb + row * kMmaRowBytes + lc * 16;
       if (lc == 0) valid_s[buf][row] = ok;
       if (ok) {
-        const size_t e = ((size_t)b * S + s) * srow + (size_t)hk * kDh + lc * 8;
+        const size_t e = ((size_t)b * S + s) * srow + (size_t)hk * DH + lc * 8;
         cp_async16(kd, k + e);
         cp_async16(vd, v + e);
       } else if (s < fill_end) {
@@ -681,7 +730,7 @@ __global__ void __launch_bounds__(HALVES * kMmaUnits * 32) flash_attend_kernel(
                                 (size_t)half * kMmaTile * kMmaRowBytes;
       const unsigned char* vb = kb + kMmaStage * kMmaRowBytes;
       const int* vs = valid_s[buf] + half * kMmaTile;
-      // scores: 8 key groups of 8, each over 8 k-steps
+      // scores: 8 key groups of 8, each over DH / 16 k-steps
       float s[8][4];
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
@@ -690,7 +739,7 @@ __global__ void __launch_bounds__(HALVES * kMmaUnits * 32) flash_attend_kernel(
         const unsigned char* rowp =
             kb + (nt * 8 + (lane & 7)) * kMmaRowBytes + (lane >> 3) * 16;
 #pragma unroll
-        for (int ks = 0; ks < 8; ks += 2) {
+        for (int ks = 0; ks < kKs; ks += 2) {
           unsigned kf[4];  // B fragments of k-steps ks and ks + 1
           ldmatrix_x4(kf, rowp + ks * 32);
           mma_bf16(s[nt], qa[ks], kf[0], kf[1]);
@@ -747,13 +796,13 @@ __global__ void __launch_bounds__(HALVES * kMmaUnits * 32) flash_attend_kernel(
       lA = lA * alA + sumA;  // this thread's share; the quad sums at the end
       lB = lB * alB + sumB;
 #pragma unroll
-      for (int dn = 0; dn < 16; ++dn) {
+      for (int dn = 0; dn < kDn; ++dn) {
         o[dn][0] *= alA;
         o[dn][1] *= alA;
         o[dn][2] *= alB;
         o[dn][3] *= alB;
       }
-      // P.V: 4 k-steps of 16 keys, 16 groups of 8 head dims
+      // P.V: 4 k-steps of 16 keys, DH / 8 groups of 8 head dims
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         unsigned pa[4];
@@ -764,7 +813,7 @@ __global__ void __launch_bounds__(HALVES * kMmaUnits * 32) flash_attend_kernel(
         const unsigned char* rowp =
             vb + (kk * 16 + (lane & 15)) * kMmaRowBytes + (lane >> 4) * 16;
 #pragma unroll
-        for (int dn = 0; dn < 16; dn += 2) {
+        for (int dn = 0; dn < kDn; dn += 2) {
           unsigned vf[4];  // B fragments of dim groups dn and dn + 1
           ldmatrix_x4_trans(vf, rowp + dn * 16);
           mma_bf16(o[dn], pa, vf[0], vf[1]);
@@ -780,28 +829,29 @@ __global__ void __launch_bounds__(HALVES * kMmaUnits * 32) flash_attend_kernel(
   lB += __shfl_xor_sync(kFull, lB, 1);
   lB += __shfl_xor_sync(kFull, lB, 2);
   if (HALVES == 2 && kv_end > kMmaTile) {  // the second halves hold keys
+    constexpr int kO = kDn * 4;  // a thread's sums
     float* mrg = reinterpret_cast<float*>(att_smem) +
-                 (size_t)(warp % kMmaUnits) * 68 * 32 + lane;  // [68][32]
+                 (size_t)(warp % kMmaUnits) * (kO + 4) * 32 + lane;  // [kO + 4][32]
     if (half == 1) {
 #pragma unroll
-      for (int dn = 0; dn < 16; ++dn)
+      for (int dn = 0; dn < kDn; ++dn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) mrg[(dn * 4 + e) * 32] = o[dn][e];
-      mrg[64 * 32] = mA;
-      mrg[65 * 32] = mB;
-      mrg[66 * 32] = lA;
-      mrg[67 * 32] = lB;
+      mrg[kO * 32] = mA;
+      mrg[(kO + 1) * 32] = mB;
+      mrg[(kO + 2) * 32] = lA;
+      mrg[(kO + 3) * 32] = lB;
     }
     __syncthreads();
     if (half == 0) {
-      const float m1A = mrg[64 * 32], m1B = mrg[65 * 32];
+      const float m1A = mrg[kO * 32], m1B = mrg[(kO + 1) * 32];
       const float MA = fmaxf(mA, m1A), MB = fmaxf(mB, m1B);
       const float c0A = __expf(mA - MA), c1A = __expf(m1A - MA);
       const float c0B = __expf(mB - MB), c1B = __expf(m1B - MB);
-      lA = lA * c0A + mrg[66 * 32] * c1A;
-      lB = lB * c0B + mrg[67 * 32] * c1B;
+      lA = lA * c0A + mrg[(kO + 2) * 32] * c1A;
+      lB = lB * c0B + mrg[(kO + 3) * 32] * c1B;
 #pragma unroll
-      for (int dn = 0; dn < 16; ++dn) {
+      for (int dn = 0; dn < kDn; ++dn) {
         o[dn][0] = o[dn][0] * c0A + mrg[(dn * 4) * 32] * c1A;
         o[dn][1] = o[dn][1] * c0A + mrg[(dn * 4 + 1) * 32] * c1A;
         o[dn][2] = o[dn][2] * c0B + mrg[(dn * 4 + 2) * 32] * c1B;
@@ -812,10 +862,10 @@ __global__ void __launch_bounds__(HALVES * kMmaUnits * 32) flash_attend_kernel(
   if (half != 0) return;
   const float invA = lA > 0.f ? 1.f / lA : 0.f;
   const float invB = lB > 0.f ? 1.f / lB : 0.f;
-  __nv_bfloat16* oA = out + (((size_t)b * Tq + tA) * H + h) * kDh + 2 * tq;
-  __nv_bfloat16* oB = out + (((size_t)b * Tq + tB) * H + h) * kDh + 2 * tq;
+  __nv_bfloat16* oA = out + (((size_t)b * Tq + tA) * H + h) * DH + 2 * tq;
+  __nv_bfloat16* oB = out + (((size_t)b * Tq + tB) * H + h) * DH + 2 * tq;
 #pragma unroll
-  for (int dn = 0; dn < 16; ++dn) {
+  for (int dn = 0; dn < kDn; ++dn) {
     if (okA)
       *reinterpret_cast<unsigned*>(oA + dn * 8) =
           pack_bf16(o[dn][0] * invA, o[dn][1] * invA);
@@ -832,13 +882,15 @@ __global__ void __launch_bounds__(HALVES * kMmaUnits * 32) flash_attend_kernel(
 // of one head (each output row has exactly one owner) and walks the live key
 // range in tiles of kBS keys staged in shared memory. In the score phase lane
 // j owns key j of the tile; in the P.V phase lane j owns head dims
-// [4j, 4j+4). Each warp carries the online-softmax state of 4 query rows.
+// [jN, jN + N), N = DH / 32. Each warp carries the online-softmax state of 4
+// query rows.
 // ---------------------------------------------------------------------------
 constexpr int kBT = 16;
 constexpr int kBS = 32;
 constexpr int kAttWarps = 4;
 constexpr int kRows = kBT / kAttWarps;
 
+template <int DH>
 __global__ void __launch_bounds__(kAttWarps * 32) flash_attend_f32_kernel(
     const float* __restrict__ q,         // [B, T, H, Dh]
     const float* __restrict__ k,         // [B, S, Hkv, Dh]
@@ -850,21 +902,22 @@ __global__ void __launch_bounds__(kAttWarps * 32) flash_attend_f32_kernel(
     float* __restrict__ out,             // [B, T, H, Dh]
     int Tq, int H, int Hkv, int S, int kv_len, int causal, float scale,
     float softcap) {
-  __shared__ float q_s[kBT][kDh];
-  __shared__ float k_s[kBS][kDh + 1];  // +1: lane j reads row j conflict-free
-  __shared__ __align__(16) float v_s[kBS][kDh];
+  constexpr int kLD = DH / 32;  // head dims of the values a lane owns
+  __shared__ float q_s[kBT][DH];
+  __shared__ float k_s[kBS][DH + 1];  // +1: lane j reads row j conflict-free
+  __shared__ __align__(16) float v_s[kBS][DH];
 
   const int t0 = blockIdx.x * kBT, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t qstride = (size_t)H * kDh;
-  const size_t kstride = (size_t)Hkv * kDh;
+  const size_t qstride = (size_t)H * DH;
+  const size_t kstride = (size_t)Hkv * DH;
 
-  for (int i = tid; i < kBT * (kDh / 4); i += blockDim.x) {
-    const int r = i / (kDh / 4), c = (i % (kDh / 4)) * 4;
+  for (int i = tid; i < kBT * (DH / 4); i += blockDim.x) {
+    const int r = i / (DH / 4), c = (i % (DH / 4)) * 4;
     float f[4] = {0.f, 0.f, 0.f, 0.f};
     if (t0 + r < Tq)
-      mit::load4(q + ((size_t)b * Tq + t0 + r) * qstride + (size_t)h * kDh + c,
+      mit::load4(q + ((size_t)b * Tq + t0 + r) * qstride + (size_t)h * DH + c,
                  f);
 #pragma unroll
     for (int e = 0; e < 4; ++e) q_s[r][c + e] = f[e];
@@ -888,23 +941,23 @@ __global__ void __launch_bounds__(kAttWarps * 32) flash_attend_f32_kernel(
     kv_end = min(kv_end, mx + 1);
   }
 
-  float m[kRows], l[kRows], acc[kRows][4];
+  float m[kRows], l[kRows], acc[kRows][kLD];
 #pragma unroll
   for (int rr = 0; rr < kRows; ++rr) {
     m[rr] = mit::kNeg;
     l[rr] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[rr][i] = 0.f;
+    for (int i = 0; i < kLD; ++i) acc[rr][i] = 0.f;
   }
 
   for (int s0 = 0; s0 < kv_end; s0 += kBS) {
     __syncthreads();  // the previous tile is consumed; q_s is staged
-    for (int i = tid; i < kBS * (kDh / 4); i += blockDim.x) {
-      const int j = i / (kDh / 4), c = (i % (kDh / 4)) * 4;
+    for (int i = tid; i < kBS * (DH / 4); i += blockDim.x) {
+      const int j = i / (DH / 4), c = (i % (DH / 4)) * 4;
       float kf[4] = {0.f, 0.f, 0.f, 0.f}, vf[4] = {0.f, 0.f, 0.f, 0.f};
       if (s0 + j < kv_end) {  // rows past the live range stay zero
         const size_t off =
-            ((size_t)b * S + s0 + j) * kstride + (size_t)hk * kDh + c;
+            ((size_t)b * S + s0 + j) * kstride + (size_t)hk * DH + c;
         mit::load4(k + off, kf);
         mit::load4(v + off, vf);
       }
@@ -922,7 +975,7 @@ __global__ void __launch_bounds__(kAttWarps * 32) flash_attend_f32_kernel(
     float sc[kRows];
 #pragma unroll
     for (int rr = 0; rr < kRows; ++rr) sc[rr] = 0.f;
-    for (int d = 0; d < kDh; ++d) {
+    for (int d = 0; d < DH; ++d) {
       const float kd = k_s[lane][d];
 #pragma unroll
       for (int rr = 0; rr < kRows; ++rr)
@@ -943,15 +996,14 @@ __global__ void __launch_bounds__(kAttWarps * 32) flash_attend_f32_kernel(
       const float p = valid ? expf(x - mn) : 0.f;
       l[rr] = l[rr] * alpha + mit::warp_sum(p);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[rr][i] *= alpha;
+      for (int i = 0; i < kLD; ++i) acc[rr][i] *= alpha;
 #pragma unroll 8
       for (int j = 0; j < kBS; ++j) {
         const float pj = __shfl_sync(kFull, p, j);
-        const float4 vv = *reinterpret_cast<const float4*>(&v_s[j][lane * 4]);
-        acc[rr][0] = fmaf(pj, vv.x, acc[rr][0]);
-        acc[rr][1] = fmaf(pj, vv.y, acc[rr][1]);
-        acc[rr][2] = fmaf(pj, vv.z, acc[rr][2]);
-        acc[rr][3] = fmaf(pj, vv.w, acc[rr][3]);
+        float vv[kLD];
+        load_lane<kLD>(&v_s[j][lane * kLD], vv);
+#pragma unroll
+        for (int i = 0; i < kLD; ++i) acc[rr][i] = fmaf(pj, vv[i], acc[rr][i]);
       }
       m[rr] = mn;
     }
@@ -961,15 +1013,16 @@ __global__ void __launch_bounds__(kAttWarps * 32) flash_attend_f32_kernel(
   for (int rr = 0; rr < kRows; ++rr) {
     if (!row_ok[rr]) continue;
     const int t = t0 + warp * kRows + rr;
-    float* o = out + ((size_t)b * Tq + t) * qstride + (size_t)h * kDh + lane * 4;
+    float* o = out + ((size_t)b * Tq + t) * qstride + (size_t)h * DH + lane * kLD;
     const float inv = l[rr] > 0.f ? 1.f / l[rr] : 0.f;
-    float r4[4];
+    float r[kLD];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) r4[i] = acc[rr][i] * inv;
-    mit::store4(o, r4);
+    for (int i = 0; i < kLD; ++i) r[i] = acc[rr][i] * inv;
+    store_lane<kLD>(o, r);
   }
 }
 
+template <int DH>
 int launch_attend_bf16(const void* q, const void* k, const void* v,
                        const void* qpos, const void* bias, long long bsb,
                        long long bsh, long long bst, const void* mask,
@@ -978,8 +1031,8 @@ int launch_attend_bf16(const void* q, const void* k, const void* v,
                        cudaStream_t stream) {
   // one warp per unit where a single 64-key tile holds every live key
   const int halves = min(kv_len, S) > kMmaTile ? 2 : 1;
-  auto kern = halves == 2 ? flash_attend_kernel<2> : flash_attend_kernel<1>;
-  const int smem = halves == 2 ? mma_smem_bytes<2>() : mma_smem_bytes<1>();
+  auto kern = halves == 2 ? flash_attend_kernel<2, DH> : flash_attend_kernel<1, DH>;
+  const int smem = halves == 2 ? mma_smem_bytes<2, DH>() : mma_smem_bytes<1, DH>();
   static bool sized[2] = {false, false};
   if (!sized[halves - 1]) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -999,6 +1052,7 @@ int launch_attend_bf16(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+template <int DH>
 int launch_attend_f32(const void* q, const void* k, const void* v,
                       const void* qpos, const void* bias, long long bsb,
                       long long bsh, long long bst, const void* mask,
@@ -1006,7 +1060,7 @@ int launch_attend_f32(const void* q, const void* k, const void* v,
                       int kv_len, int causal, float scale, float softcap,
                       cudaStream_t stream) {
   const dim3 grid((Tq + kBT - 1) / kBT, H, B);
-  flash_attend_f32_kernel<<<grid, kAttWarps * 32, 0, stream>>>(
+  flash_attend_f32_kernel<DH><<<grid, kAttWarps * 32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int32_t*>(qpos),
       static_cast<const float*>(bias), bsb, bsh, bst,
@@ -1705,7 +1759,8 @@ int launch_mla_f32(const MlaArgs& a, int B, cudaStream_t stream) {
 // pool, table [B, P], lengths [B], S = P * page) and 2 (K2 with
 // Tq * rep <= 8 query rows per kv head: bias, qpos [B, Tq], round_p). kc
 // (a multiple of 64) and NS are the wrapper's plan; scratch is used when
-// NS > 1: part_acc [B, Hkv, NS, Tq * rep, 128] and part_ml [.., 2], f32.
+// NS > 1: part_acc [B, Hkv, NS, Tq * rep, head_dim] and part_ml [.., 2], f32.
+// head_dim is 64 or 128.
 extern "C" int mit_decode_rows(
     int kind, const void* q, const void* k, const void* v, void* out,
     const void* qpos, const void* lengths, const void* table,
@@ -1713,10 +1768,11 @@ extern "C" int mit_decode_rows(
     long long bst, void* part_acc, void* part_ml, void* tickets, int B, int Tq,
     int H,
     int Hkv, int S, int P, int page, int kv_len, int causal, int round_p,
-    int kc, int NS, float scale, float softcap, int is_bf16, void* stream) {
+    int kc, int NS, float scale, float softcap, int is_bf16, int head_dim,
+    void* stream) {
   if (kind < 0 || kind > 2 || Hkv <= 0 || H % Hkv != 0 || kc <= 0 ||
       kc % kDecTile != 0 || NS <= 0 || NS > 65535 || B > 65535 ||
-      Hkv > 65535 ||
+      Hkv > 65535 || (head_dim != 64 && head_dim != 128) ||
       (NS > 1 && (part_acc == nullptr || part_ml == nullptr ||
                   tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -1754,8 +1810,8 @@ extern "C" int mit_decode_rows(
   a.scale = scale;
   a.softcap = softcap;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch_rows<__nv_bfloat16>(kind, a, B, st);
-  return launch_rows<float>(kind, a, B, st);
+  if (is_bf16) return launch_rows_dh<__nv_bfloat16>(kind, a, B, head_dim, st);
+  return launch_rows_dh<float>(kind, a, B, head_dim, st);
 }
 
 // K2 with more than 8 query rows per kv head: tensor cores for bf16, the
@@ -1766,16 +1822,26 @@ extern "C" int mit_flash_attend(const void* q, const void* k, const void* v,
                                 const void* mask, void* out, int B, int Tq,
                                 int H, int Hkv, int S, int kv_len, int causal,
                                 float scale, float softcap, int is_bf16,
-                                void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0 || B > 65535 || Hkv > 65535 || H > 65535)
+                                int head_dim, void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0 || B > 65535 || Hkv > 65535 || H > 65535 ||
+      (head_dim != 64 && head_dim != 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16 && head_dim == 64)
+    return launch_attend_bf16<64>(q, k, v, qpos, bias, bsb, bsh, bst, mask, out,
+                                  B, Tq, H, Hkv, S, kv_len, causal, scale,
+                                  softcap, st);
   if (is_bf16)
-    return launch_attend_bf16(q, k, v, qpos, bias, bsb, bsh, bst, mask, out,
-                              B, Tq, H, Hkv, S, kv_len, causal, scale,
-                              softcap, st);
-  return launch_attend_f32(q, k, v, qpos, bias, bsb, bsh, bst, mask, out, B,
-                           Tq, H, Hkv, S, kv_len, causal, scale, softcap, st);
+    return launch_attend_bf16<128>(q, k, v, qpos, bias, bsb, bsh, bst, mask,
+                                   out, B, Tq, H, Hkv, S, kv_len, causal, scale,
+                                   softcap, st);
+  if (head_dim == 64)
+    return launch_attend_f32<64>(q, k, v, qpos, bias, bsb, bsh, bst, mask, out,
+                                 B, Tq, H, Hkv, S, kv_len, causal, scale,
+                                 softcap, st);
+  return launch_attend_f32<128>(q, k, v, qpos, bias, bsb, bsh, bst, mask, out,
+                                B, Tq, H, Hkv, S, kv_len, causal, scale, softcap,
+                                st);
 }
 
 // R and P must be 512 and 64 (every published DeepSeek MLA geometry); kc

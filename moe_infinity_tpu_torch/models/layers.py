@@ -225,6 +225,56 @@ def attend_reference(
     return out.reshape(B, T, H, Dh).to(q.dtype)
 
 
+def pad_bias(mask):
+    """[B, S] key mask (1 = real token) -> additive f32 bias [B, 1, 1, S]:
+    0, or finfo(f32).min for a pad key, as the JAX models build it."""
+    return torch.where(
+        mask[:, None, None, :] > 0, 0.0, torch.finfo(torch.float32).min
+    ).to(torch.float32)
+
+
+# --------------------------------------------------------------------------
+# T5-style relative position bias (Switch Transformers)
+# --------------------------------------------------------------------------
+
+def t5_relative_bucket(relative_position, bidirectional: bool, num_buckets: int,
+                       max_distance: int):
+    """T5's bucket of each relative position (key - query), in the JAX
+    package's order of f32 operations, so that a position at a bucket's edge
+    lands in the same bucket. Everything runs on the positions' device: the
+    two constants are made there with ``torch.full`` (no host copy, so a CUDA
+    graph can capture it), and divisions are by tensors, as JAX divides."""
+    rel = relative_position
+    dev, f32 = rel.device, torch.float32
+    ret = torch.zeros_like(rel)
+    n = -rel
+    if bidirectional:
+        num_buckets //= 2
+        ret = ret + (n < 0).to(rel.dtype) * num_buckets
+        n = n.abs()
+    else:
+        n = n.clamp(min=0)
+    max_exact = num_buckets // 2
+    exact = torch.full((), float(max_exact), dtype=f32, device=dev)
+    span = torch.full((), max_distance / max_exact, dtype=f32, device=dev).log()
+    large = max_exact + (
+        torch.log(n.to(f32) / exact + 1e-9) / span * (num_buckets - max_exact)
+    ).to(rel.dtype)
+    large = large.clamp(max=num_buckets - 1)
+    return ret + torch.where(n < max_exact, n, large)
+
+
+def t5_position_bias(rel_bias_table, q_positions, k_positions, bidirectional: bool,
+                     num_buckets: int = 32, max_distance: int = 128):
+    """[1, H, T, S] additive attention bias from the ``[num_buckets, H]``
+    table for query positions [T] and key positions [S] (device tensors;
+    no host read)."""
+    rel = k_positions[None, :] - q_positions[:, None]  # [T, S]
+    buckets = t5_relative_bucket(rel, bidirectional, num_buckets, max_distance)
+    bias = rel_bias_table[buckets.long()]  # [T, S, H]
+    return bias.permute(2, 0, 1)[None]
+
+
 def sinusoidal_embedding(num_positions: int, dim: int,
                          padding_idx: Optional[int] = 1, device="cpu"):
     """M2M100-style sinusoidal table [num_positions, dim] (f32)."""

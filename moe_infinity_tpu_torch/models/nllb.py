@@ -37,6 +37,7 @@ from moe_infinity_tpu_torch.models.layers import (
     attend,
     layer_norm,
     linear,
+    pad_bias,
     sinusoidal_embedding,
 )
 from moe_infinity_tpu_torch.ops.moe import grouped_ffn
@@ -69,13 +70,6 @@ class NllbSpec:
         if decoder:
             base = self.encoder_layers // self.encoder_sparse_step
         return base + block // step
-
-
-def _pad_bias(mask):
-    """[B, S] (1 = real token) -> additive f32 bias [B, 1, 1, S]."""
-    return torch.where(
-        mask[:, None, None, :] > 0, 0.0, torch.finfo(torch.float32).min
-    ).to(torch.float32)
 
 
 class NllbModel:
@@ -259,7 +253,7 @@ class NllbModel:
     def enc_prelude(self, params, tokens, pad_mask):
         B, T = tokens.shape
         q_pos = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
-        return self._embed(params, tokens), _pad_bias(pad_mask), q_pos
+        return self._embed(params, tokens), pad_bias(pad_mask), q_pos
 
     def _enc_attn(self, b, x, bias, q_pos):
         T = x.shape[1]
@@ -283,7 +277,7 @@ class NllbModel:
         return layer_norm(x, params["enc_final_ln_w"], params["enc_final_ln_b"], 1e-5)
 
     def dec_prelude(self, params, positions, cache_len: int, enc_mask):
-        return None, _pad_bias(enc_mask)  # no self-attention bias in NLLB
+        return None, pad_bias(enc_mask)  # no self-attention bias in NLLB
 
     def dec_embed(self, params, dec_tokens, step=0):
         return self._embed(params, dec_tokens, step)

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -35,6 +35,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, ctypes._CFuncPtr] = {}
 _tickets: Dict[tuple, torch.Tensor] = {}  # (device, stream) -> zeroed counters
 _workspaces: Dict[tuple, torch.Tensor] = {}  # (device, stream) -> f32 scratch
+_retired: List[torch.Tensor] = []  # outgrown buffers, kept: a graph may hold their address
 
 
 def _nvcc() -> str:
@@ -120,15 +121,29 @@ def _stream_buffer(cache, what, dev, n, make) -> torch.Tensor:
     a CUDA graph capture it must exist already: one made there would come
     from the graph's pool, so the capture's warm-up on the same stream makes
     it (``runtime/graphs.py``)."""
-    stream = torch.cuda.current_stream(dev)
-    key = (dev, stream.cuda_stream)
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    return grown(cache, key, n, make, torch.cuda.is_current_stream_capturing(), what)
+
+
+def grown(cache, key, n, make, capturing: bool, what: str = "buffer") -> torch.Tensor:
+    """``cache[key]`` with at least ``n`` elements, made with ``make(n)`` where
+    it is missing or too small. A buffer that is outgrown is never freed: a
+    CUDA graph captured before the growth holds its address in its kernel
+    arguments and goes on replaying over it, so it moves to ``_retired`` for
+    the life of the process. A new buffer is at least twice the size of the
+    one it replaces, so the retired ones of a key add up to less than the
+    live one. ``capturing``: a buffer may not be made (raises)."""
     buf = cache.get(key)
-    if buf is None or buf.numel() < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                f"{what} for {n} elements would be made inside a CUDA graph capture; "
-                "run the captured function once on the capture stream first")
-        buf = cache[key] = make(n)
+    if buf is not None and buf.numel() >= n:
+        return buf
+    if capturing:
+        raise RuntimeError(
+            f"{what} for {n} elements would be made inside a CUDA graph capture; "
+            "run the captured function once on the capture stream first")
+    if buf is not None:
+        _retired.append(buf)
+        n = max(n, 2 * buf.numel())
+    buf = cache[key] = make(n)
     return buf
 
 
@@ -137,14 +152,16 @@ def tickets(dev, n: int) -> torch.Tensor:
     its splits: the last split of an output tile to finish draws the last
     ticket, merges, and sets the counter back to 0 (so they read 0 after
     every graph replay too). One buffer per device and stream, shared by the
-    kernels, since launches on one stream run in order; it only grows."""
+    kernels, since launches on one stream run in order; it only grows, and
+    an outgrown one is kept (``grown``)."""
     return _stream_buffer(_tickets, "ticket counters", dev, n, lambda n: torch.zeros(
         max(4096, n), dtype=torch.int32, device=dev))
 
 
 def workspace(dev, n: int) -> torch.Tensor:
     """``n`` f32 of scratch for a kernel's split partials, kept per device and
-    stream as ``tickets`` is; it only grows, so no call allocates one."""
+    stream as ``tickets`` is; it only grows, so no call allocates one, and an
+    outgrown one is kept (``grown``)."""
     return _stream_buffer(_workspaces, "split scratch", dev, n, lambda n: torch.empty(
         max(1 << 20, n), dtype=torch.float32, device=dev))
 

@@ -42,7 +42,8 @@ several clusters merges theirs in order through scratch and tickets from
 whatever it runs.
 
 The wrappers launch the kernel for CUDA tensors (raising on a shape it does
-not take: head_dim 128 and rep <= 8 for K1, K2 and K4; R 512 with P 64 for
+not take: head_dim 64 or 128 and rep <= 8 for K1, K2 and K4, each head dim
+its own instance of the kernels, never a padded copy; R 512 with P 64 for
 K5, at any S and H) and run the plain version for CPU tensors. The plain
 versions repeat the kernels' arithmetic, including what differs from the
 einsum oracle ``models.layers.attend_reference``: a row with no valid key
@@ -61,18 +62,21 @@ from moe_infinity_tpu_torch.ops import _build
 
 _NEG = -1e30  # finite -inf stand-in, as in the kernels
 
-# launches of each kernel since the last reset (plain runs never count)
+# launches of each kernel since the last reset (plain runs never count); K1,
+# K2 and K4 count their head-dim-64 instances under their own names
 LAUNCHES = {"flash_decode": 0, "flash_attend": 0, "paged_flash_decode": 0,
-            "mla_flash_decode": 0}
+            "mla_flash_decode": 0, "flash_decode_dh64": 0, "flash_attend_dh64": 0,
+            "paged_flash_decode_dh64": 0}
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _c = ctypes.c_void_p
 _ROWS_ARGS = [ctypes.c_int] + [_c] * 9 + [ctypes.c_longlong] * 3 + [_c] * 3 + [
     ctypes.c_int
-] * 12 + [ctypes.c_float] * 2 + [ctypes.c_int, _c]
+] * 12 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_int, _c]
 _ATTEND_ARGS = [_c] * 5 + [ctypes.c_longlong] * 3 + [_c] * 2 + [
     ctypes.c_int
-] * 7 + [ctypes.c_float] * 2 + [ctypes.c_int, _c]
+] * 7 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_int, _c]
+_HEAD_DIMS = (64, 128)  # the head dims K1, K2 and K4 are built for
 _DEC_CONTIG, _DEC_PAGED, _DEC_ATTEND = 0, 1, 2  # DecKind in csrc/flash_attention.cu
 _DEC_TILE = 64  # kDecTile: keys per tile of the decode body
 _DEC_ROWS = 8  # query rows of one kv head the decode body takes
@@ -85,11 +89,16 @@ _MLA_MIN_TILES = 2  # 32-key tiles a split reads at least: one 64-key tile of th
 _MLA_CLUSTER = 8  # kMlaMaxCluster: blocks of a cluster that merge in shared memory
 
 
+def _count(name: str, head_dim: int) -> None:
+    """One launch of ``name``'s kernel at ``head_dim``."""
+    LAUNCHES[name if head_dim == 128 else f"{name}_dh{head_dim}"] += 1
+
+
 def _check_qkv(q, k, v, name):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise ValueError(f"{name}: q/k/v must share dtype bf16 or f32")
-    if q.shape[-1] != 128:
-        raise ValueError(f"{name}: the kernel takes head_dim 128, got {q.shape[-1]}")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"{name}: the kernel takes head_dim 64 or 128, got {q.shape[-1]}")
     H, Hkv = q.shape[-2], k.shape[2]
     if H % Hkv != 0 or H // Hkv > 8:
         raise ValueError(f"{name}: H={H} over Hkv={Hkv} (rep <= 8 required)")
@@ -143,7 +152,7 @@ def _launch_rows(kind, name, q, k, v, *, Tq, S, live_max, kv_len=0, causal=False
     """Launch the decode body on q [B, Tq, H, Dh] (or [B, H, Dh], Tq = 1)
     and return the result in q's shape. ``live_max`` bounds every row's live
     keys; the split plan comes from it alone."""
-    B, H, Hkv = q.shape[0], q.shape[-2], k.shape[2]
+    B, H, Hkv, Dh = q.shape[0], q.shape[-2], k.shape[2], q.shape[-1]
     dev = _build.same_device(q, k, v, qpos, lengths, table, mask, bias)
     out = torch.empty_like(q)
     if B == 0:
@@ -151,8 +160,8 @@ def _launch_rows(kind, name, q, k, v, *, Tq, S, live_max, kv_len=0, causal=False
     kc, NS = _decode_splits(B * Hkv, max(0, live_max))
     part_acc = part_ml = tickets = None
     if NS > 1:  # each split's unnormalised sum and (m, l), for the merge
-        n_acc = B * Hkv * NS * Tq * (H // Hkv) * 128
-        scratch = torch.empty(n_acc + n_acc // 64, dtype=torch.float32, device=dev)
+        n_acc = B * Hkv * NS * Tq * (H // Hkv) * Dh
+        scratch = torch.empty(n_acc + n_acc // Dh * 2, dtype=torch.float32, device=dev)
         part_acc, part_ml = scratch[:n_acc], scratch[n_acc:]
         tickets = _build.tickets(dev, B * Hkv)
     fn = _build.function("flash_attention", "mit_decode_rows", _ROWS_ARGS)
@@ -162,11 +171,11 @@ def _launch_rows(kind, name, q, k, v, *, Tq, S, live_max, kv_len=0, causal=False
         _build.ptr(bias), *strides, _build.ptr(part_acc), _build.ptr(part_ml),
         _build.ptr(tickets),
         B, Tq, H, Hkv, S, P, page, kv_len, int(causal), int(round_p), kc, NS,
-        scale, float(logit_softcap or 0.0), int(q.dtype == torch.bfloat16),
+        scale, float(logit_softcap or 0.0), int(q.dtype == torch.bfloat16), Dh,
         _build.stream_ptr(dev),
     )
     _build.check(err, name)
-    LAUNCHES[name] += 1
+    _count(name, Dh)
     return out
 
 
@@ -304,11 +313,11 @@ def _attend_cuda(q, k, v, q_positions, kv_len, *, scale, causal,
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(qpos),
         _build.ptr(bias), *strides, _build.ptr(mask), _build.ptr(out),
         B, T, H, Hkv, S, kv_len, int(causal), scale,
-        float(logit_softcap or 0.0), int(q.dtype == torch.bfloat16),
+        float(logit_softcap or 0.0), int(q.dtype == torch.bfloat16), Dh,
         _build.stream_ptr(dev),
     )
     _build.check(err, "flash_attend")
-    LAUNCHES["flash_attend"] += 1
+    _count("flash_attend", Dh)
     return out
 
 

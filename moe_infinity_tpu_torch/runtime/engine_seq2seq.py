@@ -1,4 +1,4 @@
-"""Offload engine for encoder-decoder MoE models (NLLB), from
+"""Offload engine for encoder-decoder MoE models (NLLB, Switch), from
 ``moe_infinity_tpu/runtime/engine_seq2seq.py``.
 
 The engine owns the block loop and drives the model's stage protocol
@@ -98,6 +98,14 @@ from moe_infinity_tpu_torch.runtime.graphs import (
 from moe_infinity_tpu_torch.utils.logger import get_logger
 
 _log = get_logger("engine_seq2seq")
+
+
+def stack_depths(spec) -> tuple:
+    """(encoder blocks, decoder blocks) of a seq2seq spec: ``NllbSpec`` names
+    them ``encoder_layers``/``decoder_layers``, ``SwitchSpec``
+    ``num_encoder_layers``/``num_decoder_layers``."""
+    return tuple(getattr(spec, name, 0) or getattr(spec, "num_" + name, 0)
+                 for name in ("encoder_layers", "decoder_layers"))
 
 
 def _not_ported(what: str, item: str):
@@ -242,11 +250,10 @@ class Seq2SeqOffloadEngine:
             self._param_tensors = flat_tensors(params)
         self._spec_block_cache: dict = {}
         s = model.spec
-        self._n_enc = s.encoder_layers
-        self._n_dec = s.decoder_layers
+        self._n_enc, self._n_dec = stack_depths(s)
         # decoder sparse-layer ids, in order
         self.dec_mlis = [
-            s.moe_layer_id(i, True) for i in range(s.decoder_layers) if s.is_sparse(i, True)
+            s.moe_layer_id(i, True) for i in range(self._n_dec) if s.is_sparse(i, True)
         ]
 
     def reset_arena(self, arena, *, speculative: Optional[bool] = None, tracer=None,

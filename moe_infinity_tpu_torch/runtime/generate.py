@@ -215,7 +215,7 @@ class Generator:
 
 
 class Seq2SeqGenerator:
-    """Encoder-decoder generation (NLLB): encode once, precompute
+    """Encoder-decoder generation (NLLB, Switch): encode once, precompute
     cross-attention K/V, then greedy incremental decode."""
 
     def __init__(self, model, params, experts, for_layer: Callable, *,

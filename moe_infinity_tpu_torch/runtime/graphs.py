@@ -1,6 +1,7 @@
-"""CUDA graphs of the NLLB decode: the port's counterpart of the JAX engine's
-jitted step and block (``jax.jit`` of ``Seq2SeqGenerator._step``, of the
-speculative whole step and of the ``lax.scan`` of a k-step block).
+"""CUDA graphs of the seq2seq decode (NLLB, Switch): the port's counterpart
+of the JAX engine's jitted step and block (``jax.jit`` of
+``Seq2SeqGenerator._step``, of the speculative whole step and of the
+``lax.scan`` of a k-step block).
 
 A ``StepGraph`` is one function captured once and replayed: static input
 buffers (the token, the step as a 0-d int32, the arena's slot rows), the
@@ -22,7 +23,10 @@ The capture backend is an argument. ``CudaGraphBackend`` runs the function
 once on its own stream (the warm-up a capture needs: cuBLAS's handle for
 that stream, the kernels' ``cudaFuncSetAttribute`` on their first launch,
 and ``ops/_build.py``'s ticket counters and split scratch for that stream,
-which a capture may not make), then captures it there into one memory pool
+which a capture may not make; a later warm-up that outgrows them gets
+larger ones, and the outgrown ones, whose addresses earlier graphs hold,
+are kept for the life of the process, ``_build.grown``), then captures it
+there into one memory pool
 that all graphs of the backend share. Capture errors are
 thread-local, so the arena's fetch workers keep copying meanwhile. Tests on
 the CPU pass a stand-in with the same ``capture`` contract.

@@ -173,20 +173,32 @@ def test_attend_routes_to_k1_and_k2(rng, monkeypatch):
     assert calls == ["decode", "attend", "attend"] and out.shape == q.shape
 
 
-@pytest.mark.parametrize("what", ["head_dim_64", "rep_16", "dtype_mismatch"])
-def test_kernel_wrappers_reject_shapes_they_do_not_take(what):
+@pytest.mark.parametrize("what", ["head_dim_64", "head_dim_96", "rep_16", "dtype_mismatch"])
+def test_kernel_wrappers_reject_shapes_they_do_not_take(what, monkeypatch):
     """The CUDA path raises on a shape the kernel does not take (it never
     hands back None for an oracle to cover); the checks run before any
-    launch, so CPU tensors show them."""
+    launch, so CPU tensors show them. Head dim 64 is taken since the
+    kernels have a head-dim-64 instance (Switch): its calls pass the checks
+    and reach the launch, which is replaced here."""
     B, S = 1, 8
-    H, Hkv, Dh = {"head_dim_64": (2, 2, 64), "rep_16": (16, 1, 128),
+    H, Hkv, Dh = {"head_dim_64": (2, 2, 64), "head_dim_96": (2, 2, 96), "rep_16": (16, 1, 128),
                   "dtype_mismatch": (2, 2, 128)}[what]
     q = torch.zeros(B, H, Dh)
     k = torch.zeros(B, S, Hkv, Dh, dtype=torch.bfloat16 if what == "dtype_mismatch" else torch.float32)
-    with pytest.raises(ValueError):
+
+    class Launched(Exception):
+        pass
+
+    def launch(*a):
+        raise Launched
+
+    monkeypatch.setattr(fa._build, "function", lambda stem, name, argtypes: launch)
+    monkeypatch.setattr(fa._build, "stream_ptr", lambda dev: None)
+    raises = Launched if what == "head_dim_64" else ValueError
+    with pytest.raises(raises):
         fa._decode_cuda(q, k, k, torch.zeros(B, dtype=torch.int32), S, scale=1.0,
                         causal=True, logit_softcap=None, pad_mask=None)
-    with pytest.raises(ValueError):
+    with pytest.raises(raises):
         fa._attend_cuda(q[:, None], k, k, torch.zeros(B, 1, dtype=torch.int32), S,
                         scale=1.0, causal=True, logit_softcap=None, bias=None,
                         pad_mask=None)

@@ -308,3 +308,49 @@ def test_snapshot_key_evicted_under_queued_replay_is_a_miss(dev, tier_records):
         assert torch.equal(got, want)
     finally:
         arena.shutdown()
+
+
+def test_replay_after_a_later_warmup_grew_the_workspace(dev):
+    """Queue-3 fault F1: a graph of a split K3 call is captured; a second
+    graph of the same backend, whose warm-up needs more split scratch, grows
+    the capture stream's workspace; the allocators' caches are emptied and a
+    buffer of the old workspace's size is allocated and filled. The first
+    graph's replay then equals the eager call bit for bit, every ticket
+    counter reads 0, the filled buffer is untouched, and the outgrown
+    workspace is still held (``_build.grown``)."""
+    from moe_infinity_tpu_torch.ops import gmm as gm
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    S, D, F = 8, 4096, 4096
+    w = (torch.randn(S, D, F, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    small = torch.full((S,), 1, dtype=torch.int32, device=dev)
+    large = torch.full((S,), 32, dtype=torch.int32, device=dev)
+    assert gm._gmm_plan(8, S, D, F).splits > 1 and gm._gmm_plan(256, S, D, F).splits > 1
+    cache = GraphCache(CudaGraphBackend(dev), dev)
+    key = (dev, cache.backend.stream.cuda_stream)
+    x8 = torch.randn(8, D, generator=g, device=dev).to(torch.bfloat16)
+    x256 = torch.randn(256, D, generator=g, device=dev).to(torch.bfloat16)
+
+    def run_small(x):
+        return (gm.gmm(x, w, small),)
+
+    with torch.inference_mode():
+        want = gm.gmm(x8, w, small)
+        cache.run("small", run_small, {"x": x8}, [w, small])
+        old = _build._workspaces[key]
+        old_ptr, old_n = old.data_ptr(), old.numel()
+        del old
+        cache.run("large", lambda x: (gm.gmm(x, w, large),), {"x": x256}, [w, large])
+        assert _build._workspaces[key].numel() > old_n  # the warm-up grew it
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        filler = torch.full((old_n,), 7.0, device=dev)
+        (got,) = cache.run("small", run_small, {"x": x8}, [w, small])
+        torch.cuda.synchronize()
+    assert (cache.captures, cache.recaptures, cache.replays) == (2, 0, 3)
+    assert torch.equal(got, want)
+    assert any(t.data_ptr() == old_ptr for t in _build._retired)
+    assert bool((filler == 7.0).all())
+    counters = [t for (d, _), t in _build._tickets.items() if d == dev]
+    counters += [t for t in _build._retired if t.dtype == torch.int32]
+    assert all(int(t.abs().sum()) == 0 for t in counters)

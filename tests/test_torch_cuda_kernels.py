@@ -560,3 +560,106 @@ def test_flash_attend_gqa_rep4(dev, dtype, T, S, kv_len, softcap):
     got = fa.flash_attend(q, k, v, pos, kv_len, **kw)
     want = fa.flash_attend_plain(q, k, v, pos, kv_len, scale=Dh ** -0.5, **kw)
     _close(got, want, 2e-3 if dtype == torch.float32 else 2e-2)
+
+
+# ---- head dim 64 (Switch's T5 attention) --------------------------------------
+
+
+def _pad_rows(dev, B, S):
+    """[B, 1, 1, S] f32 pad bias, finfo(f32).min past rows of S, 3S/4, S/2 and
+    5 keys, as the Switch model's."""
+    lens = torch.tensor([S, 3 * S // 4, S // 2, 5], device=dev)[torch.arange(B) % 4]
+    keep = torch.arange(S, device=dev)[None, :] < lens[:, None]
+    return torch.where(keep, 0.0, torch.finfo(torch.float32).min)[:, None, None, :]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["encoder16", "encoder64", "self", "cross"])
+def test_flash_attend_dh64_switch_shapes(dev, dtype, form):
+    """K2 at head dim 64 with Switch's biases, scale 1.0: the encoder's T5
+    plus pad ``[B, H, T, T]`` (the tensor-core or f32 body), the decoder's
+    T5 ``[1, H, 1, S]`` at one causal query and cross-attention's pad
+    ``[B, 1, 1, S]`` (the decode body); counted under ``flash_attend_dh64``."""
+    from moe_infinity_tpu_torch.models.layers import t5_position_bias
+
+    g = _gen(dev)
+    B, H, Dh = 8, 16, 64
+    table = torch.randn(32, H, generator=g, device=dev) * 0.5
+    T, S = (int(form[7:]),) * 2 if form.startswith("encoder") else (1, 128 if form == "self" else 16)
+    q = torch.randn(B, T, H, Dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
+    cols = torch.arange(S, dtype=torch.int32, device=dev)
+    if form == "self":
+        pos = torch.full((B, 1), 64, dtype=torch.int32, device=dev)
+        bias, causal = t5_position_bias(table, pos[0], cols, False), True
+    else:
+        pos = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T).contiguous()
+        bias, causal = _pad_rows(dev, B, S), False
+        if form != "cross":
+            bias = t5_position_bias(table, pos[0], cols, True) + bias
+    before = fa.LAUNCHES["flash_attend_dh64"]
+    got = fa.flash_attend(q, k, v, pos, S, scale=1.0, causal=causal, bias=bias)
+    assert fa.LAUNCHES["flash_attend_dh64"] == before + 1
+    want = fa.flash_attend_plain(q, k, v, pos, S, scale=1.0, causal=causal, bias=bias)
+    _close(got, want, 2e-3 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,rep,S,kv_len", [(16, 1, 64, 64), (17, 4, 300, 266), (64, 1, 200, 200),
+                                            (9, 1, 40, 33)])
+def test_flash_attend_dh64_tiles(dev, dtype, T, rep, S, kv_len):
+    """K2 at head dim 64 past the decode body (T * rep > 8): one 64-key half
+    and two, causal with holes, GQA, a softcap."""
+    g = _gen(dev)
+    B, Hkv, Dh = 3, 2, 64
+    H = Hkv * rep
+    q = torch.randn(B, T, H, Dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, Hkv, Dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, Hkv, Dh, generator=g, device=dev).to(dtype)
+    pos = (kv_len - T + torch.arange(T, dtype=torch.int32, device=dev)).expand(B, T).contiguous()
+    mask = torch.rand(B, S, generator=g, device=dev) > 0.2
+    mask[:, kv_len - T:kv_len] = True
+    kw = dict(causal=True, logit_softcap=30.0, pad_mask=mask)
+    got = fa.flash_attend(q, k, v, pos, kv_len, **kw)
+    want = fa.flash_attend_plain(q, k, v, pos, kv_len, scale=Dh ** -0.5, **kw)
+    _close(got, want, 2e-3 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rep,S", [(1, 48), (4, 48), (2, 4000)])
+def test_flash_decode_and_paged_dh64(dev, dtype, rep, S):
+    """K1 and K4 at head dim 64 (4000 keys split the rows over blocks),
+    holes and a row with no valid key; K4 over the same rows paged equals
+    K1 on them gathered."""
+    g = _gen(dev)
+    B, Hkv, Dh, page = 3, 4, 64, 16
+    H = Hkv * rep
+    P = -(-S // page)
+    S = P * page
+    q = torch.randn(B, H, Dh, generator=g, device=dev).to(dtype)
+    pk = torch.randn(B * P + 5, page, Hkv, Dh, generator=g, device=dev).to(dtype)
+    pv = torch.randn(B * P + 5, page, Hkv, Dh, generator=g, device=dev).to(dtype)
+    table = torch.randperm(B * P + 5, generator=g, device=dev)[:B * P].reshape(B, P).to(torch.int32)
+    lengths = torch.tensor([S, S // 3, 7], dtype=torch.int32, device=dev)
+    holes = torch.rand(B, S, generator=g, device=dev) > 0.2
+    holes[2] = False
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    got = fa.paged_flash_decode(q, pk, pv, table, lengths, pad_mask=holes)
+    _close(got, fa.paged_flash_decode_plain(q, pk, pv, table, lengths, scale=Dh ** -0.5,
+                                            pad_mask=holes), tol)
+    idx = table.long()
+    k, v = pk[idx].reshape(B, S, Hkv, Dh), pv[idx].reshape(B, S, Hkv, Dh)
+    before = fa.LAUNCHES["flash_decode_dh64"]
+    got1 = fa.flash_decode(q[:, None], k, v, (lengths - 1)[:, None], S, pad_mask=holes)[:, 0]
+    assert fa.LAUNCHES["flash_decode_dh64"] == before + 1
+    _close(got1, got, tol)
+    assert bool((got[2] == 0).all() and (got1[2] == 0).all())
+
+
+def test_head_dims_other_than_64_and_128_raise(dev):
+    for Dh in (32, 96):
+        q = torch.zeros(2, 1, 4, Dh, device=dev)
+        with pytest.raises(ValueError, match="head_dim 64 or 128"):
+            fa.flash_attend(q, q, q, torch.zeros(2, 1, dtype=torch.int32, device=dev), 1,
+                            bias=torch.zeros(1, 4, 1, 1, device=dev))

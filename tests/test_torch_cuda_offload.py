@@ -296,3 +296,75 @@ def test_speculative_decode_equals_resident_bitwise(dev, monkeypatch, k, mode):
         assert engine.arena.hit_stats()["evictions"] > 0
     finally:
         engine.arena.shutdown()
+
+
+# ---- Switch (K2 at head dim 64 with the T5 bias) -------------------------------
+
+SWITCH = dict(
+    vocab_size=300, d_model=256, d_kv=64, d_ff=512, num_heads=4,
+    num_encoder_layers=4, num_decoder_layers=4, encoder_sparse_step=2, decoder_sparse_step=2,
+    num_experts=E, expert_capacity=8, rel_buckets=32, rel_max_distance=128, rms_eps=1e-6,
+    tie_embeddings=True, is_gated=False, dense_act_gelu=False, decoder_start_token_id=0,
+)
+
+
+def _switch_store(seed):
+    fields = [("wi.weight", (D, F // 2), "int4"), ("wi.weight.scale", (F,), "float32"),
+              ("wo.weight", (F, D // 2), "int4"), ("wo.weight.scale", (D,), "float32")]
+    return SyntheticStore(LAYERS, E, fields, meta={"arch": "switch", "num_encoder_moe_layers": 2},
+                          seed=seed, distinct_records=True, cache_records=LAYERS * E)
+
+
+@pytest.mark.parametrize("speculative,k", [(False, 1), (True, 1), (True, 4)])
+def test_switch_offload_equals_resident_bitwise(dev, speculative, k):
+    """Switch at f32 (head dim 64, the T5 bias, capacity 8 so that the
+    encoder drops tokens) through an arena of E slots (per-layer) or 2E
+    (speculative, k = 1 and blocks of 4, graphs), prefetch and 4 workers,
+    beside the resident path over the same store: per-layer, every step's
+    logits equal bit for bit over 24 steps; speculative, greedy tokens."""
+    from moe_infinity_tpu_torch.models.switch import SwitchModel, SwitchSpec
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    model = SwitchModel(SwitchSpec(**SWITCH), compute_dtype=torch.float32, device=dev)
+    params, _ = model.init_random(g, with_experts=False)
+    store = _switch_store(5)
+    resident = ResidentProvider.from_store(store, dtype=torch.float32, device=dev)
+    experts, for_layer = resident.pytree(), ResidentProvider.for_layer
+    tracer = ExpertTracer(64, LAYERS, E, num_encoder_layers=2)
+    arena = ExpertArena(store, 2 * E if speculative else E, compute_dtype=torch.float32,
+                        device=dev, num_threads=4)
+    engine = Seq2SeqOffloadEngine(model, params, arena, tracer=tracer,
+                                  predictor=ExpertPredictor(tracer), prefetch=True,
+                                  impl="pallas", speculative=speculative, spec_block=k)
+    tok, mask = _inputs(dev, 5)
+    mask[:, 20:] = 0.0  # padded rows beside the shorter sources
+    B = tok.shape[0]
+    try:
+        with torch.inference_mode():
+            if not speculative:
+                seq_ids = [engine.tracer.create_entry() for _ in range(B)]
+                _, cross_o = engine.run_encoder(tok, mask, seq_ids)
+                cross_r = model.cross_kv(params, model.encode(params, experts, tok, mask,
+                                                              for_layer, "pallas"))
+                kv_o, kv_r = engine.init_cache(B, 32), model.init_cache(B, 32)
+                cur = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+                for step in range(24):
+                    pos = torch.full((B, 1), step, dtype=torch.int32, device=dev)
+                    got = engine.decode_step(cur, step, kv_o, mask, cross_o, seq_ids)
+                    want, _, _ = model.decode_step(params, experts, cur, pos, kv_r, step, mask,
+                                                   cross_r, for_layer, "pallas")
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), f"step {step}"
+                    cur = torch.argmax(want[:, -1], -1, keepdim=True).to(torch.int32)
+                ev = engine.arena.policy.node_stats["evictions"].sum(axis=1)
+                assert (ev > 0).all(), ev
+            else:
+                ids, m = tok.cpu().numpy(), mask.cpu().numpy()
+                kw = dict(max_new_tokens=24, attention_mask=m, eos_token_id=None)
+                got = engine.generate(ids, **kw)
+                want = Seq2SeqGenerator(model, params, experts, for_layer,
+                                        impl="pallas").generate(ids, **kw)
+                np.testing.assert_array_equal(got.sequences, want.sequences)
+                assert engine.speculative and engine.graph_stats()["replays"] > 0
+    finally:
+        engine.arena.shutdown()

@@ -499,3 +499,31 @@ def test_graph_cache_keys_pointers_and_counts():
     assert cache.stats() == {"graphs": 2, "captures": 2, "recaptures": 1, "replays": 5,
                              "capture_s": cache.stats()["capture_s"], "warmup_steps": 3}
     reset_launches()
+
+
+def test_grown_keeps_outgrown_buffers(monkeypatch):
+    """``_build.grown`` (the per-stream tickets and split scratch): a buffer
+    large enough is returned as it is; a larger request makes a new one of
+    at least twice the size and keeps the outgrown one (a graph captured
+    before may hold its address), never freeing it; under a capture a
+    buffer may not be made."""
+    from moe_infinity_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "_retired", [])
+    cache = {}
+
+    def make(n):
+        return torch.zeros(n)
+
+    a = _build.grown(cache, "s", 10, make, False)
+    assert a.numel() == 10 and _build.grown(cache, "s", 8, make, True) is a
+    b = _build.grown(cache, "s", 12, make, False)
+    assert b.numel() == 20 and cache["s"] is b and _build._retired == [a]
+    c = _build.grown(cache, "s", 100, make, False)
+    assert c.numel() == 100 and _build._retired[1] is b
+    assert sum(t.numel() for t in _build._retired) < c.numel()
+    with pytest.raises(RuntimeError, match="inside a CUDA graph capture"):
+        _build.grown(cache, "s", 101, make, True)
+    with pytest.raises(RuntimeError, match="inside a CUDA graph capture"):
+        _build.grown(cache, "t", 1, make, True)
+    assert cache["s"] is c and "t" not in cache

@@ -205,13 +205,16 @@ def test_attend_cache_chunk_step_uses_gathered_view(rng):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("what", ["head_dim_64", "h_not_multiple", "rep_16", "mask_width"])
-def test_paged_cuda_path_rejects_what_the_kernel_does_not_take(what):
+@pytest.mark.parametrize("what", ["head_dim_64", "head_dim_96", "h_not_multiple", "rep_16",
+                                  "mask_width"])
+def test_paged_cuda_path_rejects_what_the_kernel_does_not_take(what, monkeypatch):
     """Checked before any launch, so CPU tensors show it; the wrapper never
-    hands back None for a slower path to cover."""
+    hands back None for a slower path to cover. Head dim 64 is taken since
+    the kernel has a head-dim-64 instance: the call reaches the launch,
+    which is replaced here."""
     B, P, Dh, H, Hkv = 2, 3, 128, 8, 2
-    if what == "head_dim_64":
-        Dh = 64
+    if what.startswith("head_dim"):
+        Dh = int(what[9:])
     elif what == "h_not_multiple":
         H = 6
         Hkv = 4
@@ -223,6 +226,15 @@ def test_paged_cuda_path_rejects_what_the_kernel_does_not_take(what):
     lengths = torch.ones(B, dtype=torch.int32)
     width = P * PAGE - (1 if what == "mask_width" else 0)
     mask = torch.ones(B, width, dtype=torch.bool)
-    with pytest.raises(ValueError):
+
+    class Launched(Exception):
+        pass
+
+    def launch(*a):
+        raise Launched
+
+    monkeypatch.setattr(fa._build, "function", lambda stem, name, argtypes: launch)
+    monkeypatch.setattr(fa._build, "stream_ptr", lambda dev: None)
+    with pytest.raises(Launched if what == "head_dim_64" else ValueError):
         fa._paged_cuda(q, pool, pool, table, lengths, scale=1.0,
                        logit_softcap=None, pad_mask=mask)

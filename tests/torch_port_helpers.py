@@ -1,6 +1,6 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): move
-JAX arrays to the port through numpy, and build tiny NLLB models in both
-packages from one seed."""
+JAX arrays to the port through numpy, build tiny NLLB models in both
+packages from one seed, and write NLLB and Switch expert stores."""
 
 from __future__ import annotations
 
@@ -131,5 +131,45 @@ def write_nllb_store(path, expert_layers, quant, num_encoder_moe_layers, seed=0)
                 n = a.shape[1]
                 w.write_tensor(layer, e, tail + ".bias",
                                (rng.standard_normal(n) * 0.02).astype(np.float32))
+    w.finalize()
+    return str(path)
+
+
+def write_switch_store(path, expert_layers, quant, num_encoder_moe_layers, gated=False):
+    """Write a Switch expert store with the JAX package's ExpertStoreWriter
+    from an expert tree's layers ([E, D, F] gate, optional [E, D, F] up,
+    [E, F, D] down, compute layout): the tails ``wi``/``wo``, or with
+    ``gated`` ``wi_0``/``wi_1``/``wo`` and ``gated`` in the meta (the
+    ``switch_gated`` roles). quant "float32" keeps the weights; "int4"
+    quantizes each output channel and packs the nibbles along the output
+    axis, as ``write_nllb_store`` does. Returns the path."""
+    from moe_infinity_tpu.store.blob import ExpertStoreWriter
+    from moe_infinity_tpu.store.quant import quantize_rowwise
+
+    roles = (("wi_0", "gate"), ("wi_1", "up"), ("wo", "down")) if gated else (
+        ("wi", "gate"), ("wo", "down"))
+    E = np.asarray(expert_layers[0]["gate"]).shape[0]
+    fields = []
+    for tail, role in roles:
+        d_in, d_out = np.asarray(expert_layers[0][role]).shape[1:]
+        if quant == "int4":
+            fields += [(tail + ".weight", (d_in, d_out // 2), "int4"),
+                       (tail + ".weight.scale", (d_out,), "float32")]
+        else:
+            fields.append((tail + ".weight", (d_in, d_out), "float32"))
+    meta = {"arch": "switch", "num_encoder_moe_layers": num_encoder_moe_layers}
+    if gated:
+        meta["gated"] = True
+    w = ExpertStoreWriter(str(path), len(expert_layers), E, fields, meta=meta)
+    for layer, lay in enumerate(expert_layers):
+        for e in range(E):
+            for tail, role in roles:
+                a = np.asarray(lay[role][e], np.float32)
+                if quant == "int4":
+                    q, s = quantize_rowwise(a.T, "int4")  # [out/2, in] packed, scale [out]
+                    w.write_tensor(layer, e, tail + ".weight", np.ascontiguousarray(q.T))
+                    w.write_tensor(layer, e, tail + ".weight.scale", s)
+                else:
+                    w.write_tensor(layer, e, tail + ".weight", a)
     w.finalize()
     return str(path)

@@ -116,7 +116,26 @@ Phases, each printing its own lines; any failure exits non-zero:
    and speculative (k = 1, 4) offload paths bit-equal to the resident path
    (first-step logits, greedy tokens), graph logits bit-equal to eager over
    24 steps; at bf16 the first step through the kernels against the plain
-   versions, reported.
+   versions, reported;
+16. Mixtral-8x7B at full width and depth through the decoder-only
+   ``OffloadEngine`` as ``bench.py``'s ``mixtral-offload`` preset builds it
+   (bf16 dense weights, the int8 store's shared record, the ``priority``
+   policy, 4 workers, lookahead 3, prefetch budget 4, ``speculative=True``,
+   ``spec_block=2``; one prompt of 16, 64 tokens at a capacity of 128): at
+   the preset's ``--hbm-gb 13`` (60 slots, fewer than one step routes: the
+   engine leaves speculation and serves per layer), then at 152 slots
+   eagerly and as graphs; s/token against the reference's 0.735, hit
+   rate, executions per block, host ms per execution, graphs, peak
+   memory; K1, K2 and K3 held to 32, 32 and 96 per step and prefill;
+17. its whole-path check at f32, full width and 3 layers: per-layer and
+   speculative step (graph and eager) offload bit-equal to the resident
+   path at every one of 25 steps, graph bit-equal to eager, blocks of 2
+   in both modes equal in tokens; evictions at every MoE layer;
+18. DeepSeek-V2-Lite at full width and 3 layers through the same engine,
+   eagerly: per-layer and speculative offload bit-equal to the resident
+   path at f32 (K5 held to 3 launches per executed step), and at bf16 the
+   first decode step through the kernels against the plain versions,
+   reported.
 
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
@@ -129,11 +148,13 @@ as in the whole run), then K5 under other split plans.
 ``python3 chip_smoke.py --offload`` runs the build and phases 9 to 12
 alone; ``--resident`` the build and phases 3, 5 and 7 (to hold those paths
 against another tree's in one call); ``--switch`` the build and phases 13
-to 15. Each prints no result line.
+to 15; ``--mixtral-offload`` the build and phases 16 to 18. Each prints no
+result line.
 Every phase prints its seconds (``[phase]``).
 
 The line before the last is the per-kernel JSON record (launches: the sum
-of the counts of phases 3, 5, 7, 9, 11, 13 and 14, graph replays included;
+of the counts of phases 3, 5, 7, 9, 11, 13, 14, 16 and 18, graph replays
+included;
 K2 at head dim 64 has its own row, ``flash_attend_dh64``: a graph
 counts at each replay the launches it recorded when it was captured); the
 last line is
@@ -687,6 +708,15 @@ def check_gmm_mixtral(g, dev):
         f"({w16['bound_by']}) library_ms=None (no PyTorch call takes int8 weights with "
         f"per-channel scales); {_layer_plans(x16, w, gsz16)}")
     say(f"[time] gmm Mixtral decode MoE layer: {_layer_plans(x, w, gsz)}")
+    # the offload engine's step at batch 1 (phase 16): 2 rows on 2 experts
+    gid1, gsz1 = compact_groups(torch.sort(flat[:2]).values, 2)
+    x1 = torch.randn(2, D, generator=g, device=dev).to(torch.bfloat16)
+    one = _check_layer("int8 Mixtral batch-1 decode rows=2 active=2", x1, w, sc, gsz1, 2,
+                       group_ids=gid1)
+    say(f"[time] gmm Mixtral batch-1 decode MoE layer (the offload step: gate + up + down, 2 "
+        f"rows over 2 experts, int8 + scales, D={D} F={F}): ms={one['ms']:.4f} plain_ms="
+        f"{one['plain_ms']:.4f} bound_ms={one['bound_ms']:.5f} ({one['bound_by']}); "
+        f"{_layer_plans(x1, w, gsz1)}")
     del w, sc
     torch.cuda.empty_cache()
     dec.pop("a")
@@ -3260,6 +3290,453 @@ def phase_switch_whole_path(dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 16 to 18: the decoder-only OffloadEngine (Mixtral-8x7B, DeepSeek-V2-Lite)
+# ---------------------------------------------------------------------------
+
+MX_PROMPT, MX_TOKENS, MX_CAP = 16, 64, 128  # bench.py's mixtral-offload: 16 + 64, _bucket_len(80)
+MX_BASELINE_S_PER_TOKEN = 0.735  # the reference, Mixtral-8x7B on one A5000 (bench.py:309)
+# an HBM budget whose arena holds a k=2 block's union at batch 1 (2 x 32 x 2
+# = 128 experts): the preset's 13 GiB arena (60 slots) holds less than one
+# step's 64, so its speculative path turns off at the first step
+MX_SPEC_HBM_GB = 28
+MIXTRAL_KERNELS = ("flash_decode", "flash_attend", "gmm")
+
+
+def _mixtral_offload_store(spec, distinct=False, seed=0):
+    """bench.py's mixtral-offload store (:240-247): int8 w1/w3/w2 with f32
+    per-channel scales; by default its one shared record (SyntheticStore's
+    default), ``distinct`` a record per expert (the whole-path checks)."""
+    from moe_infinity_tpu_torch.store.blob import SyntheticStore
+
+    D, F = spec.hidden_size, spec.intermediate_size
+    fields = []
+    for tail, shape in (("w1", (D, F)), ("w3", (D, F)), ("w2", (F, D))):
+        fields += [(tail + ".weight", shape, "int8"), (tail + ".weight.scale", shape[1:], "float32")]
+    return SyntheticStore(spec.num_layers, spec.num_experts, fields,
+                          meta={"arch": "mixtral", "gated": True, "num_encoder_moe_layers": 0},
+                          seed=seed, distinct_records=distinct,
+                          cache_records=spec.num_layers * spec.num_experts)
+
+
+def _decoder_engine(model, params, store, slots, *, prefetch_budget=4, **kw):
+    """bench.py's mixtral-offload engine (:265-286): the priority policy, 4
+    fetch workers, the EAMC tracer (256 sequences) and predictor, prefetch
+    with lookahead 3 and budget 4, K3 for every expert FFN."""
+    from moe_infinity_tpu_torch.memory import ExpertPredictor, ExpertTracer
+    from moe_infinity_tpu_torch.runtime.arena import ExpertArena
+    from moe_infinity_tpu_torch.runtime.engine import OffloadEngine
+
+    arena = ExpertArena(store, slots, policy="priority", compute_dtype=torch.bfloat16,
+                        device=model.device, num_threads=4)
+    tracer = ExpertTracer(256, store.num_layers, store.num_experts)
+    return OffloadEngine(model, params, arena, tracer=tracer, predictor=ExpertPredictor(tracer),
+                         prefetch=True, lookahead=3, prefetch_budget=prefetch_budget,
+                         impl="pallas", **kw)
+
+
+def _decoder_launches(spec, prefills, steps):
+    """K1, K2 and K3 launches of ``prefills`` prompt steps and ``steps``
+    one-token steps of a Mixtral model: an attention per layer (K2 in a
+    prefill, K1 in a step), gate, up and down per MoE layer."""
+    L = spec.num_layers
+    return {"flash_decode": L * steps, "flash_attend": L * prefills,
+            "gmm": 3 * L * (prefills + steps)}
+
+
+def _mixtral_offload_run(tag, b, slots, graphs):
+    """One engine over ``slots`` slots: the warm-up generate at the timed
+    capacity (its dispatches under the sync guard), the timed generate of
+    64 tokens, its numbers and its launches held exactly."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.engine import spec_block_diag, speculative_stats
+    from moe_infinity_tpu_torch.runtime.generate import Generator
+
+    import gc
+
+    spec = b.spec
+    gc.collect()  # an earlier leg's engine, and its arena, are gone before the peak is reset
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    say(f"[mixtral-offload] {tag}: allocated before the engine is built "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    engine = _decoder_engine(b.model, b.params, b.store, slots, speculative=True, spec_block=2,
+                             graphs=graphs)
+    arena, gen = engine.arena, Generator(stepper=engine, max_seq_len=256)
+    try:
+        guarded, unguard = _sync_guard(engine)
+        t0 = time.perf_counter()
+        try:
+            # 4 tokens: a block of 2 and a whole step, so the timed run captures nothing
+            gen.generate(b.prompt, max_new_tokens=4, cache_len=MX_CAP)
+            torch.cuda.synchronize()
+        finally:
+            unguard()
+        warm_s = time.perf_counter() - t0
+        say(f"[mixtral-offload] {tag}: warm-up generate {warm_s:.1f} s, {guarded[0]} dispatches "
+            f"under sync_debug_mode=error; executions {engine.replay_counts}, speculative="
+            f"{engine.speculative} spec_block={engine.spec_block}, graphs "
+            f"{json.dumps(engine.graph_stats())}")
+        f0, s0, g0 = arena.fetch_stats(), engine.stats(), engine.graph_stats()
+        pt0, x0, r0 = dict(engine.phase_timings), engine.executed_steps, len(engine.replay_counts)
+        host, untime = _host_timer(engine)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            res = gen.generate(b.prompt, max_new_tokens=MX_TOKENS, cache_len=MX_CAP)
+            torch.cuda.synchronize()
+        finally:
+            untime()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        steps = engine.executed_steps - x0
+        f1, s1, g1 = arena.fetch_stats(), engine.stats(), engine.graph_stats()
+        warm = g1.get("warmup_steps", 0) - g0.get("warmup_steps", 0)
+        cap_s = g1.get("capture_s", 0) - g0.get("capture_s", 0)
+        execs = engine.replay_counts[r0:]
+        visits, hits = s1["visits"] - s0["visits"], s1["hits"] - s0["hits"]
+        per_tok = wall / (MX_TOKENS + 1)  # bench.py: the prefill counts as one step
+        timings = {k: round(v - pt0.get(k, 0.0), 6) for k, v in engine.phase_timings.items()}
+        say(f"[mixtral-offload] {tag}: sequences shape {res.sequences.shape}; new tokens "
+            f"{res.sequences[0, MX_PROMPT:].tolist()}")
+        say(f"[mixtral-offload] {tag}: s_per_token={per_tok:.4f} vs_baseline="
+            f"{MX_BASELINE_S_PER_TOKEN / per_tok:.3f} (the reference's "
+            f"{MX_BASELINE_S_PER_TOKEN} s/token) tokens_per_s={MX_TOKENS / wall:.2f} wall_s="
+            f"{wall:.3f} hit_rate={hits / max(1, visits):.4f} (engine life "
+            f"{s1['hit_rate']:.4f}) max_memory_allocated_gb="
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        say(f"[mixtral-offload] {tag}: speculative={engine.speculative} executions per block or "
+            f"step {execs} ({json.dumps(speculative_stats(execs))}) block size held "
+            f"k={engine.spec_block} executed_steps={steps} host_ms_per_execution="
+            f"{host[0] * 1e3 / max(1, host[1]):.3f} (without captures "
+            f"{(host[0] - cap_s) * 1e3 / max(1, host[1]):.3f}; {host[1]} executions) "
+            f"diag {json.dumps(spec_block_diag(getattr(engine, 'spec_log', [])))}")
+        say(f"[mixtral-offload] {tag}: timed generate: visits={visits} misses="
+            f"{s1['misses'] - s0['misses']} evictions={s1['evictions'] - s0['evictions']} "
+            f"prefetches={s1['prefetches'] - s0['prefetches']} fetches store="
+            f"{f1['fetches_store'] - f0['fetches_store']} fetch_seconds_ewma="
+            f"{f1['fetch_seconds_ewma']:.6f}; graphs {json.dumps(g1)} (in the timed generate: "
+            f"captures {g1.get('captures', 0) - g0.get('captures', 0)}, replays "
+            f"{g1.get('replays', 0) - g0.get('replays', 0)}, warm-up steps {warm}); "
+            f"phase_timings (s) {json.dumps(timings)}")
+        want = _decoder_launches(spec, 1, steps + warm)
+        say(f"[mixtral-offload] {tag}: launches {json.dumps(counts)}; expected from one "
+            f"prefill, {steps} executed steps and {warm} warm-up steps of captures "
+            f"{json.dumps(want)}")
+        if res.sequences.shape != (1, MX_PROMPT + MX_TOKENS):
+            raise AssertionError(f"unexpected output shape {res.sequences.shape}")
+        if not np.all((res.sequences >= 0) & (res.sequences < spec.vocab_size)):
+            raise AssertionError("token ids out of range")
+        _require_launched(counts, MIXTRAL_KERNELS, f"Mixtral offload path ({tag})")
+        if any(counts.get(k) != n for k, n in want.items()):
+            raise AssertionError(f"Mixtral offload ({tag}): launches {counts} != {want}")
+        if s1["misses"] - s0["misses"] <= 0 or s1["evictions"] - s0["evictions"] <= 0:
+            raise AssertionError(f"Mixtral offload ({tag}): no miss or no eviction ({s0} -> {s1})")
+        if engine.speculative and engine.graphs is not None and (
+                g1["recaptures"] or g1["replays"] - g0["replays"] != sum(execs)):
+            raise AssertionError(f"Mixtral offload ({tag}): every execution a replay and no "
+                                 f"recapture expected ({g0} -> {g1}, {execs})")
+        return res.sequences, counts, engine.speculative
+    finally:
+        arena.shutdown()
+        del engine, arena, gen
+        torch.cuda.empty_cache()
+
+
+def phase_mixtral_offload(dev):
+    """Mixtral-8x7B at full width and depth (bench.py's MIXTRAL_8X7B_SPEC)
+    served by the decoder-only ``OffloadEngine`` as bench.py's
+    ``mixtral-offload`` preset builds it (:221-320): bf16 dense weights from
+    a seed, resident; the int8 ``SyntheticStore`` (its shared record: 256
+    experts of 176.29 MB); the priority policy, 4 fetch workers, lookahead 3,
+    prefetch budget 4, ``speculative=True``, ``spec_block=2``; one prompt of
+    16 tokens, 64 greedy tokens at a capacity of 128, after a warm-up at
+    that capacity. First at the preset's ``--hbm-gb 13`` (the arena holds
+    fewer experts than one step routes, so speculation turns off at the
+    first step and the per-layer path serves), then at an arena that holds a
+    block's union (``MX_SPEC_HBM_GB``): eagerly (``graphs=False``), then
+    each step and block a CUDA graph replay. Returns the launches of the
+    three timed generates."""
+    from moe_infinity_tpu_torch.models.mixtral import MixtralModel, MixtralSpec
+
+    spec = MixtralSpec(**MIXTRAL_8X7B)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    model = MixtralModel(spec, compute_dtype=torch.bfloat16, device=dev)
+    params, _ = model.init_random(g, with_experts=False)
+    dense = _tree_bytes(params)
+    store = _mixtral_offload_store(spec)
+    prompt = (np.arange(MX_PROMPT, dtype=np.int64)[None] * 37) % 31999  # bench.py:294
+    b = SimpleNamespace(spec=spec, model=model, params=params, store=store, prompt=prompt)
+    n_rec = spec.num_layers * spec.num_experts
+    slots = {gb: max(spec.num_experts, int((gb * 2**30 - dense) // store.stride))
+             for gb in (HBM_GB, MX_SPEC_HBM_GB)}  # bench.py:252-263
+    say(f"[mixtral-offload] Mixtral-8x7B, {spec.num_layers} layers x {spec.num_experts} "
+        f"experts = {n_rec} int8 records of {store.stride / 1e6:.2f} MB "
+        f"({n_rec * store.stride / 1e9:.2f} GB), dense bf16 {dense / 1e9:.2f} GB; arena "
+        f"{slots[HBM_GB]} slots at --hbm-gb {HBM_GB} ({slots[HBM_GB] / n_rec:.3f} of the "
+        f"experts), {slots[MX_SPEC_HBM_GB]} at {MX_SPEC_HBM_GB} "
+        f"({slots[MX_SPEC_HBM_GB] / n_rec:.3f}); prompt {MX_PROMPT}, {MX_TOKENS} tokens, "
+        f"capacity {MX_CAP}; set-up {time.perf_counter() - t0:.1f} s")
+    counts = {}
+    seqs, counts["preset"], spec_kept = _mixtral_offload_run(
+        f"--hbm-gb {HBM_GB}, graphs", b, slots[HBM_GB], True)
+    if spec_kept:
+        raise AssertionError("the preset's arena cannot hold a step's union, yet the "
+                             "speculative path stayed on")
+    runs = {}
+    for graphs in (False, True):
+        tag = "graphs" if graphs else "eager"
+        runs[tag], counts[tag], spec_kept = _mixtral_offload_run(
+            f"--hbm-gb {MX_SPEC_HBM_GB}, {tag}", b, slots[MX_SPEC_HBM_GB], graphs)
+        if not spec_kept:
+            raise AssertionError(f"Mixtral offload ({tag}): the speculative path turned off")
+    same = np.array_equal(runs["graphs"], runs["eager"])
+    say(f"[mixtral-offload] graphs against eager greedy tokens: "
+        f"{'equal' if same else 'DIFFER'}; the preset's per-layer tokens against them: "
+        f"{'equal' if np.array_equal(seqs, runs['eager']) else 'differ (bf16, reported)'}")
+    if not same:
+        raise AssertionError("Mixtral offload: graph and eager tokens differ")
+    del b, params, model, store
+    torch.cuda.empty_cache()
+    return {k: sum(c.get(k, 0) for c in counts.values()) for k in MIXTRAL_KERNELS}
+
+
+def _decoder_steps(engine, model, params, experts, prompt, n, cap, launches=None, tok=None):
+    """Prefill ``prompt`` [B, T] through the engine and the resident model,
+    then ``n`` greedy one-token steps of each, both fed the resident
+    path's tokens (or ``tok`` [B, 1] at the first step); yields (step,
+    engine logits, resident logits). ``launches``: a dict that gathers the
+    engine's kernel launches alone."""
+    from moe_infinity_tpu_torch.ops import launch_counts
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    dev = model.device
+    B, T = prompt.shape
+
+    def through_engine(*a):
+        c0 = launch_counts()
+        out = engine.forward(*a)[0]
+        if launches is not None:
+            for k, v in launch_counts().items():
+                launches[k] = launches.get(k, 0) + v - c0[k]
+        return out
+
+    x = torch.as_tensor(prompt, dtype=torch.int32, device=dev)
+    pos = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    seq_ids = engine.begin_sequences(B)
+    kv_o, kv_r = engine.init_cache(B, cap), model.init_cache(B, cap)
+    with torch.inference_mode():
+        got = through_engine(x, pos, kv_o, 0, seq_ids)
+        want, _, _ = model.forward(params, experts, x, pos, kv_r, 0,
+                                   for_layer=ResidentProvider.for_layer, impl="pallas")
+        yield -1, got, want
+        cur = tok if tok is not None else torch.argmax(want[:, -1], -1, keepdim=True).to(
+            torch.int32)
+        for step in range(T, T + n):
+            pos = torch.full((B, 1), step, dtype=torch.int32, device=dev)
+            got = through_engine(cur, pos, kv_o, step, seq_ids)
+            want, _, _ = model.forward(params, experts, cur, pos, kv_r, step,
+                                       for_layer=ResidentProvider.for_layer, impl="pallas")
+            yield step, got, want
+            cur = torch.argmax(want[:, -1], -1, keepdim=True).to(torch.int32)
+    engine.end_sequences(seq_ids)
+
+
+def _held_steps(label, engine, model, params, experts, prompt, n, launches, cap=MX_CAP):
+    """Every step's logits through ``engine`` bit-equal to the resident
+    model's; returns the engine's logits."""
+    out = []
+    for step, got, want in _decoder_steps(engine, model, params, experts, prompt, n, cap,
+                                          launches):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: step {step} differs from the resident path by "
+                                 f"{(got - want).abs().max().item():.3e}")
+        out.append(got.clone())
+    return out
+
+
+def phase_mixtral_offload_whole_path(dev):
+    """Mixtral at full width and 3 layers, f32 compute over int8 slots, one
+    row, a prompt of 16 and 24 steps at a capacity of 128 (K1 planned from
+    it: two splits, one live), experts from one int8 store with a record
+    per expert (the resident model over the same records,
+    ``ResidentProvider.from_store``): the per-layer path through an arena of
+    one layer plus 4 slots (evictions at every MoE layer) and the
+    speculative whole step as a graph through the same arena, each step's
+    logits bit-equal to the resident path's; the step eagerly against the
+    graph, bit-equal; blocks of 2 in both modes (graphs, 2E slots) through
+    ``Generator``, tokens equal to the resident ``Generator``'s."""
+    import os
+
+    from moe_infinity_tpu_torch.models.mixtral import MixtralModel, MixtralSpec
+    from moe_infinity_tpu_torch.runtime.generate import Generator
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    spec = MixtralSpec(**dict(MIXTRAL_8X7B, num_layers=3))
+    E, n = spec.num_experts, PARITY_TOKENS
+    g = torch.Generator(device=dev)
+    g.manual_seed(41)
+    model = MixtralModel(spec, compute_dtype=torch.float32, device=dev)
+    params, _ = model.init_random(g, with_experts=False)
+    store = _mixtral_offload_store(spec, distinct=True, seed=41)
+    experts = ResidentProvider.from_store(store, dtype=torch.bfloat16, device=dev).pytree()
+    prompt = np.random.default_rng(41).integers(0, spec.vocab_size, (1, MX_PROMPT))
+    logits = {}
+    for label, kw in (("per-layer", dict(speculative=False)),
+                      ("speculative step, graphs", dict(speculative=True)),
+                      ("speculative step, eager", dict(speculative=True, graphs=False))):
+        engine = _decoder_engine(model, params, store, E + 4, prefetch_budget=8, **kw)
+        counts = {}
+        try:
+            logits[label] = _held_steps(f"Mixtral f32 {label}", engine, model, params,
+                                        experts, prompt, n, counts)
+            ev = engine.arena.policy.node_stats["evictions"].sum(axis=1)
+        finally:
+            engine.arena.shutdown()
+        _require_launched(counts, MIXTRAL_KERNELS, f"Mixtral whole path ({label})")
+        say(f"[check] Mixtral {label} vs resident f32 (full width, 3 layers, int8 experts, "
+            f"{E + 4} slots): {n + 1} steps' logits bit-equal; evictions by layer "
+            f"{ev.tolist()}, executions {engine.replay_counts}, graphs "
+            f"{json.dumps(engine.graph_stats())}, engine launches {json.dumps(counts)}")
+        if label == "per-layer" and not (ev > 0).all():
+            raise AssertionError(f"Mixtral per-layer: no eviction at some MoE layer ({ev})")
+        if kw["speculative"] and (not engine.speculative or max(engine.replay_counts) < 2):
+            raise AssertionError(f"Mixtral {label}: left the speculative path, or no step "
+                                 f"ran again ({engine.replay_counts})")
+    how = [_same_or_close(f"Mixtral step {i}", a, b) for i, (a, b) in enumerate(
+        zip(logits["speculative step, graphs"], logits["speculative step, eager"]))]
+    say(f"[check] Mixtral f32 speculative step, graph against eager logits over {n + 1} "
+        f"steps: {sum(h == 'bit-equal' for h in how)} bit-equal, others {sorted(set(how))}")
+    want = Generator(model, params, experts, ResidentProvider.for_layer, impl="pallas").generate(
+        prompt, max_new_tokens=n, cache_len=MX_CAP).sequences
+    kept = os.environ.get("MOE_SPEC_BLOCK_MODE")
+    try:
+        for mode in ("whole", "prefix"):
+            os.environ["MOE_SPEC_BLOCK_MODE"] = mode
+            engine = _decoder_engine(model, params, store, 2 * E, prefetch_budget=8,
+                                     speculative=True, spec_block=2)
+            try:
+                got = Generator(stepper=engine).generate(prompt, max_new_tokens=n,
+                                                         cache_len=MX_CAP).sequences
+            finally:
+                engine.arena.shutdown()
+            same = np.array_equal(got, want)
+            say(f"[check] Mixtral f32 blocks of 2 ({mode}, graphs, {2 * E} slots) vs resident "
+                f"Generator: tokens {'equal' if same else 'DIFFER'}; executions "
+                f"{engine.replay_counts}, k held {engine.spec_block}, graphs "
+                f"{json.dumps(engine.graph_stats())}")
+            if not same or engine.spec_block != 2 or not engine.speculative:
+                raise AssertionError(f"Mixtral blocks ({mode}): differ from the resident path, "
+                                     f"or the block shrank")
+    finally:
+        if kept is None:
+            os.environ.pop("MOE_SPEC_BLOCK_MODE", None)
+        else:
+            os.environ["MOE_SPEC_BLOCK_MODE"] = kept
+    del model, params, store, experts
+    torch.cuda.empty_cache()
+
+
+def _deepseek_offload_store(spec, seed):
+    """V2-Lite's routed experts as bf16 gate/up/down records, one per expert
+    (the bench's DeepSeek experts are bf16)."""
+    from moe_infinity_tpu_torch.store.blob import SyntheticStore
+
+    D, F = spec.hidden_size, spec.moe_intermediate_size
+    n_moe = spec.num_layers - spec.first_k_dense_replace
+    fields = [("gate_proj.weight", (D, F), "bfloat16"), ("up_proj.weight", (D, F), "bfloat16"),
+              ("down_proj.weight", (F, D), "bfloat16")]
+    return SyntheticStore(n_moe, spec.num_experts, fields,
+                          meta={"arch": "deepseek", "num_encoder_moe_layers": 0}, seed=seed,
+                          distinct_records=True, cache_records=n_moe * spec.num_experts)
+
+
+def phase_deepseek_offload(dev):
+    """DeepSeek-V2-Lite at full width (phase 7's geometry) and 3 layers (the
+    dense first layer and 2 MoE layers of 64 experts top-6 plus 2 shared)
+    served by the decoder-only ``OffloadEngine``, eagerly (graphs of the MLA
+    step are ROADMAP item 10a part 2), bf16 slots from a store with a
+    record per expert, one arena of E + 8 slots. At f32 compute, two rows,
+    a prompt of 16 and 24 steps: the per-layer path and the speculative
+    whole step each bit-equal to the resident path at every step; the
+    engine's K5 held to one launch per layer of every one-token step, its
+    K3 to three per MoE layer of every step. At bf16: the first decode step
+    through the kernels against the plain versions, reported per request
+    with the argmax (as phase 4's). Returns the engine's f32 launches."""
+    import contextlib
+
+    from moe_infinity_tpu_torch.models.deepseek_v2 import DeepseekV2Model, DeepseekV2Spec
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    spec = DeepseekV2Spec(**dict(DSV2_LITE, num_layers=3))
+    E, n, B, slots = spec.num_experts, PARITY_TOKENS, 2, spec.num_experts + 8
+    store = _deepseek_offload_store(spec, 51)
+    prompt = np.random.default_rng(51).integers(0, spec.vocab_size, (B, MX_PROMPT))
+    counts = {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(51)
+    model = DeepseekV2Model(spec, compute_dtype=torch.float32, device=dev)
+    params, _ = model.init_random(g, with_experts=False)
+    experts = ResidentProvider.from_store(store, dtype=torch.bfloat16, device=dev).pytree()
+    for label, speculative in (("per-layer", False), ("speculative step", True)):
+        engine = _decoder_engine(model, params, store, slots, prefetch_budget=8,
+                                 speculative=speculative, graphs=False)
+        c = counts[label] = {}
+        try:
+            _held_steps(f"DeepSeek f32 {label}", engine, model, params, experts, prompt, n, c)
+        finally:
+            engine.arena.shutdown()
+        # one prefill and the executed one-token steps (replays included)
+        x = engine.executed_steps
+        _require_mla_counts(c, x, x + 1, f"DeepSeek offload {label}", layers=spec.num_layers)
+        st = engine.stats()
+        say(f"[check] DeepSeek-V2-Lite {label} vs resident f32 (full width, 1 dense + 2 MoE "
+            f"layers, bf16 experts, {slots} slots, eager): {n + 1} steps' logits bit-equal for "
+            f"{B} rows; evictions {st['evictions']}, executions {engine.replay_counts}; "
+            f"engine launches {json.dumps(c)}")
+        if speculative and (not engine.speculative or not engine.replay_counts):
+            raise AssertionError("DeepSeek offload: the speculative path was left")
+        if not speculative and st["evictions"] <= 0:
+            raise AssertionError("DeepSeek offload: no eviction")
+    del model, params
+    torch.cuda.empty_cache()
+
+    # bf16: the first decode step (token 7 for every row) through the kernels
+    # and through the plain versions on the card
+    g = torch.Generator(device=dev)
+    g.manual_seed(52)
+    model = DeepseekV2Model(spec, compute_dtype=torch.bfloat16, device=dev)
+    params, _ = model.init_random(g, with_experts=False)
+    tok = torch.full((B, 1), 7, dtype=torch.int32, device=dev)
+    out, kern = [], {}
+    for plain in (False, True):
+        engine = _decoder_engine(model, params, store, slots, prefetch_budget=8, graphs=False)
+        try:
+            with _plain_kernels() if plain else contextlib.nullcontext():
+                # run to its end: a suspended step generator keeps inference mode on
+                steps = list(_decoder_steps(engine, model, params, experts, prompt, 1, MX_CAP,
+                                            None if plain else kern, tok))
+            out.append(steps[1][1])
+        finally:
+            engine.arena.shutdown()
+    got, want = out
+    _require_launched(kern, MLA_KERNELS, "DeepSeek bf16 offload step")
+    rows = (got - want).abs().amax(dim=(1, 2)).tolist()
+    same = (got.argmax(-1) == want.argmax(-1)).all().item()
+    say(f"[check] DeepSeek-V2-Lite offload first decode step bf16, kernels against plain: "
+        f"per-request max_abs_err={['%.3e' % r for r in rows]} argmax equal={same} "
+        f"(reported, as phase 4's)")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("DeepSeek bf16 offload logits are not finite")
+    del model, params, experts
+    torch.cuda.empty_cache()
+    del store
+    return {k: sum(c.get(k, 0) for c in counts.values()) for k in MLA_KERNELS}
+
+
 def sweep_decode_plans(dev):
     """``--decode-plans``: K4 at the Mixtral decode shape and at the long rows
     under split plans aimed at 2 to 8 blocks per SM (the wrapper's
@@ -3424,6 +3901,12 @@ def main() -> int:
         timed(phase_switch_whole_path)
         say(f"[card] {smi}")
         return 0
+    if "--mixtral-offload" in sys.argv[1:]:
+        timed(phase_mixtral_offload)
+        timed(phase_mixtral_offload_whole_path)
+        timed(phase_deepseek_offload)
+        say(f"[card] {smi}")
+        return 0
     recs = timed(phase_kernels)
     counts = timed(phase_main_path)
     timed(phase_whole_path)
@@ -3439,9 +3922,14 @@ def main() -> int:
     sw_counts = timed(phase_switch)
     sw_off_counts = timed(phase_switch_offload)
     timed(phase_switch_whole_path)
+    _free_host_cache()
+    mx_off_counts = timed(phase_mixtral_offload)
+    timed(phase_mixtral_offload_whole_path)
+    ds_off_counts = timed(phase_deepseek_offload)
     for r in recs:
         r["launches"] = sum(c.get(r["name"], 0) for c in (
-            counts, mix_counts, mla_counts, off_counts, spec_counts, sw_counts, sw_off_counts))
+            counts, mix_counts, mla_counts, off_counts, spec_counts, sw_counts, sw_off_counts,
+            mx_off_counts, ds_off_counts))
         r.pop("shape")
     say(f"[card] {smi}")
     print(json.dumps({"kernels": recs}), flush=True)

@@ -172,7 +172,16 @@ def attend_cache(
     """``attend`` over a cache object. A one-token causal step without a
     bias over a paged cache goes to K4, which reads the pool's pages in
     place, with ``min(kv_len, q_pos + 1)`` live keys per row; everything
-    else runs ``attend`` on the cache's (gathered) logical view."""
+    else runs ``attend`` on the cache's (gathered) logical view.
+
+    ``kv_len`` is an int, or a 0-d tensor on the device (the step a CUDA
+    graph reads at replay), which is never read on the host: the causal
+    bound then limits each row, and the kernels take the cache's capacity
+    as ``kv_len`` and plan their splits from it."""
+    if isinstance(kv_len, torch.Tensor):
+        if not causal:
+            raise ValueError("attend_cache: a device kv_len needs the causal bound")
+        kv_len = kv.max_len
     if (_ATTN_IMPL == "flash" and q.shape[1] == 1 and causal and bias is None
             and hasattr(kv, "pool_k")):
         row_len = torch.clamp(q_positions[:, 0].to(torch.int32) + 1, max=int(kv_len))

@@ -74,6 +74,9 @@ class MixtralModel:
     whole-model and the per-layer paths)."""
 
     arch = "mixtral"
+    # a decode step takes its cache column as a 0-d device tensor and reads
+    # nothing on the host, so a CUDA graph can capture it
+    graph_step = True
 
     def __init__(self, spec: MixtralSpec, compute_dtype=torch.bfloat16,
                  device="cuda", mesh=None):
@@ -166,13 +169,15 @@ class MixtralModel:
     def embed(self, params, tokens):
         return params["embed"][tokens.long()].to(self.dtype)
 
-    def attn_block(self, pl, x, kv, positions, kv_len: int, pad_offsets=None,
+    def attn_block(self, pl, x, kv, positions, kv_len, pad_offsets=None,
                    rope_positions=None, key_valid=None):
         """positions are cache columns. With left padding, pad_offsets [B]
         shifts RoPE to sequence positions and masks the pad columns; on a
         per-row timeline, rope_positions [B, T] gives each row's sequence
-        positions and key_valid [B, S] masks hole columns. Writes this
-        step's K/V into ``kv`` (in place) and returns (x + attn, kv)."""
+        positions and key_valid [B, S] masks hole columns. ``kv_len``, the
+        cache column of the first token, is an int or a 0-d device tensor
+        (``graph_step``). Writes this step's K/V into ``kv`` (in place) and
+        returns (x + attn, kv)."""
         s = self.spec
         B, T, _ = x.shape
         h = rms_norm(x, pl["input_norm"], s.rms_eps)
@@ -211,7 +216,7 @@ class MixtralModel:
         return y.reshape(B, T, D)
 
     # ---- layer-step protocol -----------------------------------------------
-    def pre_moe(self, pl, x, kv, positions, kv_len: int, pad_offsets=None,
+    def pre_moe(self, pl, x, kv, positions, kv_len, pad_offsets=None,
                 rope_positions=None, key_valid=None):
         """Attention, post-norm and routing of one layer. Returns (x_resid,
         h_norm, combine, ids, kv)."""
@@ -235,10 +240,11 @@ class MixtralModel:
         return layer_idx
 
     # ---- full forward --------------------------------------------------------
-    def forward(self, params, experts, tokens, positions, kv_caches, kv_len: int,
+    def forward(self, params, experts, tokens, positions, kv_caches, kv_len,
                 *, for_layer, impl: str = "ragged", pad_offsets=None,
                 rope_positions=None, key_valid=None):
-        """Whole-model step over tokens [B, T] at cache column ``kv_len``.
+        """Whole-model step over tokens [B, T] at cache column ``kv_len`` (an
+        int, or a 0-d device tensor that a graph reads at replay).
         Returns (logits [B, T, V] f32, the caches (updated in place), router
         trace (ids [L, B, T, K] int32, weights [L, B, T, K] f32))."""
         x = self.embed(params, tokens)

@@ -209,8 +209,11 @@ def gffn_pallas(x, expert_ids, combine_weights, expert_to_slot,
     sorted_slots = flat_slots[order].long()
     inv_token = order // K
     xs = x[inv_token]
-    # compact the grid to the routed slots: at most T*K of S are active
-    group_ids, group_sizes = compact_groups(sorted_slots, min(S, flat_slots.shape[0]))
+    # compact the grid to the routed slots: at most T*K of S are active, and
+    # no more than the layer's E experts, so that a slot arena of any size
+    # launches the grid (and the split plan) of the resident layer
+    E = expert_to_slot.shape[0]
+    group_ids, group_sizes = compact_groups(sorted_slots, min(S, E, flat_slots.shape[0]))
 
     def run(role, xin):
         p = role + "4" in weights
@@ -236,6 +239,10 @@ def gffn_pallas(x, expert_ids, combine_weights, expert_to_slot,
     if biases is not None and "down_bias" in biases:
         out = out + biases["down_bias"][sorted_slots]
     out = out * combine_weights.reshape(-1)[order].float()[:, None]
-    combined = torch.zeros(T, D, dtype=torch.float32, device=x.device)
-    combined.index_add_(0, inv_token, out)
-    return combined.to(compute_dtype)
+    # back to (token, k) order and summed over k there: the order of the sum
+    # depends neither on the slots the experts sit in nor on atomics, so an
+    # offloaded layer sums as the resident one does, bit for bit (two terms
+    # add exactly in either order; three or more do not)
+    per_k = torch.empty_like(out)
+    per_k[order] = out
+    return per_k.reshape(T, K, -1).sum(dim=1).to(compute_dtype)

@@ -1,5 +1,6 @@
-"""Helpers of the offload engines, from ``moe_infinity_tpu/runtime/engine.py``:
-``_split_arena_tree`` and the speculative helpers the seq2seq engine runs.
+"""The decoder-only offload engine and the helpers of both offload engines,
+from ``moe_infinity_tpu/runtime/engine.py``: ``OffloadEngine``,
+``_split_arena_tree`` and the speculative helpers.
 
 Speculative execution runs a whole decode step, or a block of k steps, on
 the device against the arena's current slots, with no host read inside:
@@ -12,22 +13,52 @@ resident is exact, and only such an execution is accepted.
 
 Dispatch functions hand back device tensors; the helpers read the trace
 (``.cpu()``) once per dispatch, after its launches are queued, and the
-tokens once they are accepted. The decoder-only ``OffloadEngine`` and the
-host fallback (``host_exec.py``) wait for ROADMAP queue-1 items 14 and 8.
+tokens once they are accepted. The host fallback (``host_exec.py``) waits
+for ROADMAP queue-1 item 8.
+
+``OffloadEngine`` drives a decoder-only model's layer protocol (``embed``,
+``pre_moe``, ``dense_layer``, ``apply_moe``, ``head``) against an
+``ExpertArena`` and is a stepper of ``runtime/generate.py::Generator``.
+Per layer, the routed ids come back to the host at every MoE layer: trace,
+predict, plan prefetch, acquire, then K3 over the arena's slots. With
+``speculative=True`` a one-token step runs whole on the device against the
+arena's current slots (``run_speculative``), and the ``Generator`` asks for
+greedy k-step blocks (``decode_block``), replayed whole on a miss
+(``MOE_SPEC_BLOCK_MODE=whole``, the default) or accepted by verified prefix
+(``prefix``). On the card the whole step and each k-step block run as one
+CUDA graph per shape (``runtime/graphs.py``; ``graphs=False`` runs them
+eagerly), over the K/V caches the engine owns per (B, capacity). A model
+takes part in graphs only if its step reads nothing on the host
+(``graph_step``: Mixtral); DeepSeek-V2's speculative path runs eagerly.
 """
 
 from __future__ import annotations
 
+import os
 import time as _time
 from collections import deque
-from typing import Dict, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from moe_infinity_tpu_torch.memory.prefetch_plan import plan_prefetch
+from moe_infinity_tpu_torch.memory.prefetch_plan import adaptive_prefetch_budget, plan_prefetch
+from moe_infinity_tpu_torch.runtime.graphs import (
+    CudaGraphBackend,
+    DecodeBuffers,
+    GraphCache,
+    flat_tensors,
+    step_positions,
+)
+from moe_infinity_tpu_torch.utils.logger import get_logger
+
+_log = get_logger("engine")
 
 _BIAS_KEYS = ("gate_bias", "down_bias")
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported (ROADMAP queue-1 item {item})")
 
 
 def _split_arena_tree(tree: Dict[str, torch.Tensor]):
@@ -415,3 +446,371 @@ def spec_trace_and_prefetch(engine, ids_np, mlis, seq_ids, plan_floor=-1, n_feed
     # prefetch only, so a large ring cannot deadlock a small arena.
     union = [(mli, int(e)) for j, mli in enumerate(mlis) for e in np.unique(ids_np[j])]
     engine.arena.prefetch(orders, protect=rolling_protect(engine, union))
+
+
+class _LayerClock:
+    """The host seconds between two MoE layers (an EWMA) and the prefetch
+    budget the arena can land within the lookahead window at that pace."""
+
+    def _tick_layer_clock(self):
+        t = _time.perf_counter()
+        if self._last_layer_t is not None:
+            dt = t - self._last_layer_t
+            self._layer_seconds = (
+                dt if self._layer_seconds is None else 0.8 * self._layer_seconds + 0.2 * dt
+            )
+        self._last_layer_t = t
+
+    def _current_budget(self) -> int:
+        if not self.adaptive_budget:
+            return self.prefetch_budget
+        return adaptive_prefetch_budget(
+            self._layer_seconds,
+            self.arena.fetch_seconds_ewma,
+            self.arena.num_workers,
+            self.lookahead,
+            self.prefetch_budget,
+        )
+
+
+def _decoder_block_steps(model, params, impl: str, k: int):
+    """The body of a decoder-only k-step greedy block: ``steps(tree, rows,
+    tok0 [B, 1], step0, kvs) -> (toks [B, k], trace [L_moe, B, k, K])``,
+    step0 an int or a 0-d tensor on the device. (It holds no reference to
+    the engine, so that dropping the engine frees its arena at once.)"""
+
+    def steps(tree, rows, tok0, step0, kvs):
+        weights, biases = _split_arena_tree(tree)
+
+        def for_layer(_experts, mli):
+            return weights, rows[mli], biases
+
+        B = tok0.shape[0]
+        tok, toks, traces = tok0, [], []
+        for j in range(k):
+            step = step0 + j
+            logits, _, (ids, _w) = model.forward(
+                params, None, tok, step_positions(step, B, tok.device), kvs, step,
+                for_layer=for_layer, impl=impl)
+            tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+            toks.append(tok)
+            traces.append(ids)  # [L, B, 1, K]
+        return torch.cat(toks, dim=1), torch.cat(traces, dim=2)
+
+    return steps
+
+
+class OffloadEngine(_LayerClock):
+    """Drives a decoder-only model's layer protocol against an
+    ``ExpertArena``; the stepper protocol of ``Generator`` (``init_cache``,
+    ``begin_sequences``, ``forward``, ``end_sequences``, and with
+    ``speculative`` ``decode_block``).
+
+    One difference from the JAX engine: only capacity errors
+    (``is_spec_capacity_error``) change the path. A capacity error in a
+    speculative step turns ``speculative`` off for good, as in JAX; JAX
+    also runs the per-layer path for one step on any other ``RuntimeError``,
+    which here is raised (a failed CUDA launch is one)."""
+
+    def __init__(
+        self,
+        model,
+        params,
+        arena,
+        *,
+        tracer=None,
+        predictor=None,
+        prefetch: bool = True,
+        lookahead: int = 3,
+        prefetch_budget: Optional[int] = None,
+        impl: str = "ragged",
+        prefill_impl: Optional[str] = None,
+        adaptive_budget: bool = True,
+        speculative: bool = False,
+        max_replays: Optional[int] = None,
+        spec_block: int = 1,
+        dense_arena=None,
+        host_fallback: bool = False,
+        graphs: bool = True,
+        graph_backend=None,
+    ):
+        """impl: the grouped-FFN implementation of one-token steps
+        (``"pallas"`` is K3); prefill_impl: that of longer steps (default
+        ``impl``). speculative: one-token steps run whole on the device,
+        verified and run again on a miss; spec_block: the greedy block size
+        ``Generator`` asks ``decode_block`` for; max_replays bounds the
+        executions of one step or block (default: from the MoE depth and
+        k). graphs: run the speculative step and blocks as CUDA graphs on
+        the card (False runs them eagerly); graph_backend: the capture
+        backend (default ``CudaGraphBackend`` on a CUDA model; on the CPU
+        the steps run eagerly unless one is given). A model without
+        ``graph_step`` (DeepSeek-V2) takes ``graphs=False`` only."""
+        if dense_arena is not None:
+            raise _not_ported("dense_arena (paging of the dense layers)", "16")
+        if host_fallback:
+            raise _not_ported("host_fallback", "8")
+        if arena.num_slots < model.spec.num_experts:
+            raise ValueError(
+                f"arena num_slots={arena.num_slots} < num_experts={model.spec.num_experts}; "
+                "the slot arena must fit one full MoE layer")
+        self.model = model
+        self.params = params
+        self.arena = arena
+        self.tracer = tracer
+        self.predictor = predictor
+        self.prefetch = prefetch and predictor is not None
+        self.lookahead = lookahead
+        # no more than half the arena per plan; with adaptive_budget the live
+        # budget shrinks to what the arena can land inside the lookahead window
+        self.prefetch_budget = prefetch_budget or max(1, arena.num_slots // 2)
+        self.adaptive_budget = adaptive_budget
+        self._layer_seconds: Optional[float] = None
+        self._last_layer_t: Optional[float] = None
+        self._impl = impl
+        self._pimpl = prefill_impl or impl
+        self.speculative = speculative
+        self.max_replays = max_replays
+        self.spec_block = max(1, spec_block)
+        # executions per speculative step or block, in order
+        self.replay_counts: list = []
+        # cumulative seconds of the speculative loop by phase, and the misses
+        # that only an eviction inside a dispatch's scope made (_tally_lease)
+        self.phase_timings: dict = {}
+        self.lease_counts: dict = {}
+        # one-token decoder steps run on the device, replays included
+        self.executed_steps = 0
+        self._moe_lis = [mli for mli in map(model.moe_layer_index, range(model.spec.num_layers))
+                         if mli is not None]
+        self._spec_block_cache: dict = {}
+        self._graph_step = getattr(model, "graph_step", False)
+        # one graph per step shape (the JAX engine's jit cache), over the
+        # K/V caches the engine owns per (B, capacity)
+        self.graphs: Optional[GraphCache] = None
+        if graphs and (graph_backend is not None or model.device.type == "cuda"):
+            if not self._graph_step:
+                raise _not_ported(
+                    f"CUDA graphs of the {model.arch} decode step (pass graphs=False)",
+                    "10a part 2")
+            self.graphs = GraphCache(graph_backend or CudaGraphBackend(model.device),
+                                     model.device)
+            self._buffers = DecodeBuffers(model)
+            self._param_tensors = flat_tensors(params)
+
+    # ---- stepper protocol ----------------------------------------------------
+    def init_cache(self, batch: int, max_len: int):
+        """The K/V caches of one request: with graphs the engine's own of
+        this shape, which its graphs read by address; else new ones."""
+        if self.graphs is not None:
+            return self._buffers.caches(batch, max_len)
+        return self.model.init_cache(batch, max_len)
+
+    def begin_sequences(self, batch: int) -> Optional[List[str]]:
+        if self.tracer is None:
+            return None
+        return [self.tracer.create_entry() for _ in range(batch)]
+
+    def end_sequences(self, seq_ids) -> None:
+        if self.tracer is None or not seq_ids:
+            return
+        for sid in seq_ids:
+            self.tracer.finish_entry(sid)
+
+    def forward(self, tokens, positions, kv_caches, kv_len: int, seq_ids=None):
+        """One step of tokens [B, T] at cache column ``kv_len``: (logits
+        [B, T, V] f32, the caches (written in place), router trace (ids
+        [L_moe, B, T, K], weights)). A one-token step with ``speculative``
+        runs whole over the slots; anything else runs layer by layer."""
+        model, params = self.model, self.params
+        if self.speculative and tokens.shape[1] == 1:
+            try:
+                return self._speculative_step(tokens, kv_len, kv_caches, seq_ids)
+            except RuntimeError as e:
+                if not is_spec_capacity_error(e):
+                    raise
+                _log.warning("speculative decode disabled (%s); falling back to the "
+                             "per-layer path", e)
+                self.speculative = False
+        if tokens.shape[1] == 1:
+            self.executed_steps += 1
+        x = model.embed(params, tokens)
+        trace_ids, trace_w = [], []
+        self._last_layer_t = None  # the host's gap between steps is no layer period
+        for li in range(model.spec.num_layers):
+            self._tick_layer_clock()
+            mli = model.moe_layer_index(li)
+            pl = params["layers"][li]
+            if mli is None:  # a leading dense layer (DeepSeek)
+                x, kv_caches[li] = model.dense_layer(pl, x, kv_caches[li], positions, kv_len)
+                continue
+            x, h, cw, ids, kv_caches[li] = model.pre_moe(pl, x, kv_caches[li], positions, kv_len)
+            ids_np = ids.cpu().numpy()  # [B, T, K]; the host waits for the routing
+            keys = [(mli, int(e)) for e in np.unique(ids_np)]
+            self._trace_and_prefetch(ids_np, mli, seq_ids)
+            x = self._moe_apply(pl, x, h, cw, ids, keys, mli)
+            trace_ids.append(ids)
+            trace_w.append(cw)
+        return model.head(params, x), kv_caches, (torch.stack(trace_ids), torch.stack(trace_w))
+
+    def _moe_apply(self, pl, x, h, cw, ids, keys, mli):
+        """Acquire + grouped-FFN apply of one MoE layer over the slots."""
+        self.arena.acquire(keys, mli)
+        # a fresh host copy of the row, uploaded synchronously: the compute
+        # stream holds no queued work here (the routed ids were just read)
+        row = torch.from_numpy(self.arena.slot_map(mli)).to(self.model.device)
+        with self.arena.locked_tree(keys) as tree:
+            weights, biases = _split_arena_tree(tree)
+            impl = self._impl if h.shape[1] == 1 else self._pimpl
+            x = self.model.apply_moe(pl, x, h, cw, ids, weights, row, biases, impl)
+        self.arena.release(keys)
+        return x
+
+    def _trace_and_prefetch(self, ids_np, mli: int, seq_ids) -> None:
+        """Record this layer's routing in the tracer and, with prefetch on,
+        plan and enqueue the next layers' likely experts."""
+        if self.tracer is None or not seq_ids:
+            return
+        if self.prefetch:
+            score = None
+            for b, sid in enumerate(seq_ids):
+                # predict() also records the activations in the tracer
+                score = self.predictor.predict(sid, ids_np[b], mli)
+            self.arena.set_context(mli, self.tracer.get_entry_decoder(seq_ids[0]).matrix)
+            orders = plan_prefetch(score, mli, lookahead=self.lookahead,
+                                   budget=self._current_budget(),
+                                   is_resident=self.arena.is_resident)
+            if orders:
+                self.arena.prefetch(orders)
+        else:
+            for b, sid in enumerate(seq_ids):
+                self.tracer.update_entry(sid, ids_np[b], mli)
+
+    # ---- speculative decode --------------------------------------------------
+    def _step_arg(self, step: int):
+        """The step as the speculative path passes it: with graphs the int
+        (the graph's 0-d input buffer takes it); eagerly, for a model with
+        ``graph_step``, a 0-d device tensor, so that the eager path launches
+        what a replay does (K1 planned from the cache's capacity)."""
+        if self.graphs is None and self._graph_step:
+            return torch.full((), step, dtype=torch.int32, device=self.model.device)
+        return step
+
+    def _closes_over(self, tree, kvs) -> list:
+        """Every tensor a step's graph reads by address."""
+        return [*self._param_tensors, *flat_tensors(tree), *flat_tensors(kvs)]
+
+    def _spec_step(self, tree, slot_rows, tokens, step, kvs):
+        """One whole decoder step over the slots: (logits, weights trace,
+        ids trace). With graphs, one replay of the step's graph, whose
+        outputs the next replay overwrites."""
+        self.executed_steps += 1
+        model, B = self.model, tokens.shape[0]
+
+        def run(tok, step, rows):
+            weights, biases = _split_arena_tree(tree)
+            logits, _, (ids, w) = model.forward(
+                self.params, None, tok, step_positions(step, B, tok.device), kvs, step,
+                for_layer=lambda _experts, mli: (weights, rows[mli], biases), impl=self._impl)
+            return logits, w, ids
+
+        if self.graphs is None:
+            return run(tokens, step, slot_rows)
+        return self.graphs.run("step", run, {"tok": tokens, "step": step, "rows": slot_rows},
+                               self._closes_over(tree, kvs))
+
+    def _speculative_step(self, tokens, kv_len: int, kv_caches, seq_ids):
+        step = self._step_arg(kv_len)
+
+        def run(tree, slot_rows):
+            return self._spec_step(tree, slot_rows, tokens, step, kv_caches)
+
+        limit = self.max_replays or (len(self._moe_lis) + 2)
+        (logits, t_w), ids_np, execs = run_speculative(
+            self.arena, self._moe_lis, run, limit, timings=self.phase_timings,
+            counters=self.lease_counts)
+        self.replay_counts.append(execs)
+        spec_trace_and_prefetch(self, ids_np, self._moe_lis, seq_ids)
+        # copies: a later replay overwrites a graph's outputs
+        return logits.clone(), kv_caches, (torch.from_numpy(ids_np), t_w.clone())
+
+    def _spec_block_fn(self, k: int):
+        """A k-step greedy block over the slots: ``block(tree, slot_rows,
+        tok0 [B, 1], step0, kvs)`` queues k decode steps, each fed the
+        argmax of the step before, and returns (toks [B, k], kvs, trace
+        [L_moe, B, k, K]), all on the device. The body is cached per k, as
+        the JAX engine caches its jitted block; with graphs each call is one
+        replay of the block's graph."""
+        steps = self._spec_block_cache.get(k)
+        if steps is None:
+            steps = self._spec_block_cache[k] = _decoder_block_steps(
+                self.model, self.params, self._impl, k)
+
+        def block(tree, slot_rows, tok0, step0, kvs):
+            self.executed_steps += k
+            step0 = self._step_arg(step0)
+            if self.graphs is None:
+                toks, trace = steps(tree, slot_rows, tok0, step0, kvs)
+            else:
+                toks, trace = self.graphs.run(
+                    f"block{k}", lambda tok, step, rows: steps(tree, rows, tok, step, kvs),
+                    {"tok": tok0, "step": step0, "rows": slot_rows},
+                    self._closes_over(tree, kvs), steps=k)
+            return toks, kvs, trace
+
+        return block
+
+    def decode_block(self, tok, pos: int, kv_caches, k: int, seq_ids=None):
+        """k greedy decode steps from token ``tok`` [B, 1] at cache column
+        ``pos`` as one speculative block: ``whole`` (the default
+        ``MOE_SPEC_BLOCK_MODE``) runs the whole block again on a miss,
+        ``prefix`` accepts the verified prefix and runs the suffix again.
+        Returns (tokens [B, k] numpy, kv_caches). A capacity error (the
+        arena cannot hold the block's union) is raised for the caller to
+        take a smaller block."""
+        mlis = self._moe_lis
+        if os.environ.get("MOE_SPEC_BLOCK_MODE", "whole") == "whole":
+            fn = self._spec_block_fn(k)
+
+            def run(tree, slot_rows):
+                toks, kvs, tr = fn(tree, slot_rows, tok, pos, kv_caches)
+                return toks, kvs, tr.reshape(tr.shape[0], tr.shape[1], -1)
+
+            limit = self.max_replays or (len(mlis) + 2 + k)
+            on_replay, blog = make_block_monitor(self, mlis)
+            (toks, kvs), ids_np, execs = run_speculative(
+                self.arena, mlis, run, limit, on_replay=on_replay,
+                timings=self.phase_timings, counters=self.lease_counts)
+            record_block_log(self, blog)
+            self.replay_counts.append(execs)
+            spec_trace_and_prefetch(self, ids_np, mlis, seq_ids, budget_scale=k)
+            # a copy: the next dispatch replays the graph whose output this
+            # is (on the CPU, .numpy() shares it)
+            return toks.cpu().numpy().copy(), kvs
+
+        def dispatch(tree, slot_rows, cur, j0, kk, kvs_):
+            return self._spec_block_fn(kk)(tree, slot_rows, cur, pos + j0, kvs_)
+
+        limit = self.max_replays or (len(mlis) + 2) * k
+        toks, kvs, execs, acc_ids = run_speculative_block(
+            self.arena, mlis, dispatch, k, limit, tok, kv_caches,
+            timings=self.phase_timings, counters=self.lease_counts)
+        self.replay_counts.append(execs)
+        spec_trace_and_prefetch(self, acc_ids.reshape(acc_ids.shape[0], acc_ids.shape[1], -1),
+                                mlis, seq_ids, budget_scale=k)
+        return toks, kvs
+
+    # ---- metrics ---------------------------------------------------------------
+    def hit_rate(self) -> float:
+        return self.arena.policy.stats.hit_rate
+
+    def stats(self) -> dict:
+        out = self.arena.hit_stats()
+        out.update(speculative_stats(self.replay_counts))
+        return out
+
+    def node_stats(self) -> dict:
+        return self.arena.node_stats()
+
+    def graph_stats(self) -> dict:
+        """Captures, replays and capture seconds of the engine's graphs
+        (empty when it runs eagerly)."""
+        return self.graphs.stats() if self.graphs is not None else {}

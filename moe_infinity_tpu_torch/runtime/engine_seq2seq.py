@@ -67,8 +67,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from moe_infinity_tpu_torch.memory.prefetch_plan import adaptive_prefetch_budget, plan_prefetch
+from moe_infinity_tpu_torch.memory.prefetch_plan import plan_prefetch
 from moe_infinity_tpu_torch.runtime.engine import (
+    _LayerClock,
+    _not_ported,
     _split_arena_tree,
     is_spec_capacity_error,
     make_block_monitor,
@@ -108,10 +110,6 @@ def stack_depths(spec) -> tuple:
                  for name in ("encoder_layers", "decoder_layers"))
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported (ROADMAP queue-1 item {item})")
-
-
 def _block_steps(model, params, impl: str, k: int):
     """The body of a k-step greedy block: ``steps(tree, rows, tok0, step0,
     kvs, mask, cross) -> (toks [B, k], trace [L_moe, B, k, K'])``, step0 an
@@ -138,7 +136,7 @@ def _block_steps(model, params, impl: str, k: int):
     return steps
 
 
-class Seq2SeqOffloadEngine:
+class Seq2SeqOffloadEngine(_LayerClock):
     # the hill-climb of the block size: blocks per probed size, and blocks
     # between two probes of the whole halving chain
     _PROBE_BLOCKS = 3
@@ -274,26 +272,6 @@ class Seq2SeqOffloadEngine:
         return self.arena.is_resident(key)
 
     # ---- shared expert acquire/apply --------------------------------------
-    def _tick_layer_clock(self):
-        t = _time.perf_counter()
-        if self._last_layer_t is not None:
-            dt = t - self._last_layer_t
-            self._layer_seconds = (
-                dt if self._layer_seconds is None else 0.8 * self._layer_seconds + 0.2 * dt
-            )
-        self._last_layer_t = t
-
-    def _current_budget(self) -> int:
-        if not self.adaptive_budget:
-            return self.prefetch_budget
-        return adaptive_prefetch_budget(
-            self._layer_seconds,
-            self.arena.fetch_seconds_ewma,
-            self.arena.num_workers,
-            self.lookahead,
-            self.prefetch_budget,
-        )
-
     def init_cache(self, batch: int, cap: int):
         return self.model.init_cache(batch, cap)
 

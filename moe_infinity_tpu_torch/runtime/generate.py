@@ -1,10 +1,14 @@
 """Token generation, from ``moe_infinity_tpu/runtime/generate.py``.
 
-* ``Generator`` over a ``ResidentStepper`` (decoder-only models, every
-  expert resident): prefill the prompt in one forward (K2; an einsum
-  softmax for an MLA model), then greedy one-token steps over a contiguous
-  KV cache (K1, or K5 for MLA), reading each step's token on the host as
-  the JAX loop does.
+* ``Generator`` over a stepper (decoder-only models): a ``ResidentStepper``
+  (every expert resident) or the offload engine
+  (``runtime/engine.py::OffloadEngine``). It prefills the prompt in one
+  forward (K2; an einsum softmax for an MLA model), then takes greedy
+  one-token steps over a contiguous KV cache (K1, or K5 for MLA), reading
+  each step's token on the host as the JAX loop does. A speculative stepper
+  with ``decode_block`` decodes in greedy k-step blocks instead (JAX
+  ``runtime/generate.py:505-590``), halving its ``spec_block`` on a
+  capacity error.
 * ``Seq2SeqGenerator`` (encoder-decoder): encodes once, computes the
   cross-attention K/V, then decodes greedily in a Python loop. On the card
   each step is one replay of a CUDA graph per (B, capacity, S_enc)
@@ -29,6 +33,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from moe_infinity_tpu_torch.runtime.engine import is_spec_capacity_error, quantize_block
 from moe_infinity_tpu_torch.runtime.graphs import (
     CudaGraphBackend,
     DecodeBuffers,
@@ -36,6 +41,9 @@ from moe_infinity_tpu_torch.runtime.graphs import (
     flat_tensors,
     step_positions,
 )
+from moe_infinity_tpu_torch.utils.logger import get_logger
+
+_log = get_logger("generate")
 
 
 def eos_hit(tok, eos_token_id):
@@ -156,26 +164,34 @@ class Generator:
         eos_token_id: Optional[int] = None,
         pad_token_id: int = 0,
         collect_trace: bool = False,
+        cache_len: Optional[int] = None,
         **sampling,
     ) -> GenerationResult:
         """Greedy: prefill, then one step per new token. ``sampling`` takes
         the JAX signature's sampling keywords; any that asks for more than
-        argmax raises NotImplementedError."""
+        argmax raises NotImplementedError. cache_len: the KV capacity
+        (default: bucketed from the prompt and the new tokens), so that a
+        warm-up and a timed call share one capacity, and so one graph per
+        step shape. A speculative stepper with ``decode_block`` and a
+        ``spec_block`` above 1 decodes in greedy k-step blocks when no trace
+        is collected: each yields k tokens, consumed one per step by the
+        bookkeeping below; a capacity error halves ``spec_block``."""
         require_greedy(**sampling)
         input_ids = np.asarray(input_ids)
         if input_ids.ndim == 1:
             input_ids = input_ids[None]
         B, T = input_ids.shape
-        cap = min(self.max_seq_len, _bucket_len(T + max_new_tokens))
+        cap = cache_len or min(self.max_seq_len, _bucket_len(T + max_new_tokens))
         if T + max_new_tokens > cap:
             raise ValueError(f"prompt {T} + new {max_new_tokens} exceeds capacity {cap}")
-        dev = self.stepper.model.device
-        kv = self.stepper.init_cache(B, cap)
-        seq_ids = self.stepper.begin_sequences(B)
+        stepper = self.stepper
+        dev = stepper.model.device
+        kv = stepper.init_cache(B, cap)
+        seq_ids = stepper.begin_sequences(B)
 
         tokens = torch.as_tensor(input_ids, dtype=torch.int32).to(dev)
         positions = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
-        logits, kv, trace = self.stepper.forward(tokens, positions, kv, 0, seq_ids=seq_ids)
+        logits, kv, trace = stepper.forward(tokens, positions, kv, 0, seq_ids=seq_ids)
         traces = []
         if collect_trace:
             traces.append((trace[0].cpu().numpy(), trace[1].cpu().numpy()))
@@ -185,9 +201,12 @@ class Generator:
         out[:, :T] = input_ids
         finished = np.zeros(B, dtype=bool)
         num_gen = np.zeros(B, dtype=np.int64)
+        use_blocks = (not collect_trace and getattr(stepper, "speculative", False)
+                      and hasattr(stepper, "decode_block"))
+        pending: list = []  # a block's tokens not yet recorded, as numpy [B]
         cur = T
         for step in range(max_new_tokens):
-            tok_host = next_tok.cpu().numpy()
+            tok_host = next_tok if isinstance(next_tok, np.ndarray) else next_tok.cpu().numpy()
             out[~finished, cur] = tok_host[~finished]
             num_gen[~finished] += 1
             cur += 1
@@ -197,16 +216,34 @@ class Generator:
                     break
             if step == max_new_tokens - 1:
                 break
+            if pending:
+                next_tok = pending.pop(0)
+                continue
+            tok_dev = torch.as_tensor(tok_host[:, None], dtype=torch.int32).to(dev)
+            if use_blocks and stepper.spec_block > 1:
+                k = quantize_block(max_new_tokens - 1 - step, stepper.spec_block)
+                if k >= 2:
+                    try:
+                        toks, kv = stepper.decode_block(tok_dev, cur - 1, kv, k, seq_ids=seq_ids)
+                    except RuntimeError as e:
+                        if not is_spec_capacity_error(e):
+                            raise
+                        # the arena cannot hold a k-step union: halve the
+                        # block, and make this token's progress by one step
+                        stepper.spec_block = max(1, stepper.spec_block // 2)
+                        _log.warning("speculative block decode degraded to k=%d (%s)",
+                                     stepper.spec_block, e)
+                    else:
+                        next_tok = toks[:, 0].astype(np.int64)
+                        pending = [toks[:, j].astype(np.int64) for j in range(1, k)]
+                        continue
             positions = torch.full((B, 1), cur - 1, dtype=torch.int32, device=dev)
-            logits, kv, trace = self.stepper.forward(
-                torch.as_tensor(tok_host[:, None], dtype=torch.int32).to(dev),
-                positions, kv, cur - 1, seq_ids=seq_ids,
-            )
+            logits, kv, trace = stepper.forward(tok_dev, positions, kv, cur - 1, seq_ids=seq_ids)
             if collect_trace:
                 traces.append((trace[0].cpu().numpy(), trace[1].cpu().numpy()))
             next_tok = torch.argmax(logits[:, -1, :], dim=-1)
 
-        self.stepper.end_sequences(seq_ids)
+        stepper.end_sequences(seq_ids)
         return GenerationResult(
             sequences=out[:, :cur],
             num_generated=num_gen,

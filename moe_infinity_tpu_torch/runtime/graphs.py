@@ -1,7 +1,8 @@
-"""CUDA graphs of the seq2seq decode (NLLB, Switch): the port's counterpart
-of the JAX engine's jitted step and block (``jax.jit`` of
-``Seq2SeqGenerator._step``, of the speculative whole step and of the
-``lax.scan`` of a k-step block).
+"""CUDA graphs of the decode: the port's counterpart of the JAX engines'
+jitted step and block (``jax.jit`` of ``Seq2SeqGenerator._step``, of the
+speculative whole step and of the ``lax.scan`` of a k-step block), for the
+seq2seq paths (NLLB, Switch) and the decoder-only ``OffloadEngine``
+(Mixtral).
 
 A ``StepGraph`` is one function captured once and replayed: static input
 buffers (the token, the step as a 0-d int32, the arena's slot rows), the
@@ -188,12 +189,17 @@ class DecodeBuffers:
         self._kvs: Dict[tuple, list] = {}
         self._enc: Dict[tuple, tuple] = {}
 
-    def take(self, B: int, cap: int, mask, cross):
-        """(kvs, mask, cross) for one request, the last two its own copied
-        into the owner's buffers."""
+    def caches(self, B: int, cap: int) -> list:
+        """The K/V caches of (B, cap), made at the first request of the shape."""
         kvs = self._kvs.get((B, cap))
         if kvs is None:
             kvs = self._kvs[(B, cap)] = self.model.init_cache(B, cap)
+        return kvs
+
+    def take(self, B: int, cap: int, mask, cross):
+        """(kvs, mask, cross) for one request, the last two its own copied
+        into the owner's buffers."""
+        kvs = self.caches(B, cap)
         key = (B, mask.shape[1])
         enc = self._enc.get(key)
         if enc is None:

@@ -27,7 +27,7 @@ from moe_infinity_tpu_torch.runtime.arena import ExpertArena
 from moe_infinity_tpu_torch.store.blob import ExpertStore, SyntheticStore
 from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
 
-from torch_port_helpers import write_nllb_store
+from torch_port_helpers import write_nllb_store, one_intra_op_thread
 
 SPEC = dict(
     vocab_size=96, d_model=32, num_heads=4, encoder_layers=4, decoder_layers=4,

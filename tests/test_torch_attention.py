@@ -13,7 +13,7 @@ from moe_infinity_tpu.ops import flash_attention as jfa
 from moe_infinity_tpu_torch.models import layers
 from moe_infinity_tpu_torch.ops import flash_attention as fa
 
-from torch_port_helpers import np32, port_attention
+from torch_port_helpers import np32, port_attention, one_intra_op_thread
 
 
 @pytest.fixture(autouse=True)

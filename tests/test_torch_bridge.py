@@ -17,7 +17,7 @@ from moe_infinity_tpu.models.nllb import NllbModel as JNllbModel
 from moe_infinity_tpu.models.nllb import NllbSpec as JNllbSpec
 from moe_infinity_tpu_torch import bridge
 
-from torch_port_helpers import TINY_NLLB, jax_to_numpy
+from torch_port_helpers import TINY_NLLB, jax_to_numpy, one_intra_op_thread
 
 ROOT = Path(__file__).resolve().parent.parent
 

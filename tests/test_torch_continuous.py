@@ -27,7 +27,7 @@ from moe_infinity_tpu_torch.runtime.continuous import ContinuousBatcher, Request
 from moe_infinity_tpu_torch.runtime.generate import Generator
 from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 
-from torch_port_helpers import to_port
+from torch_port_helpers import to_port, one_intra_op_thread
 
 TINY = dict(
     vocab_size=128, hidden_size=48, intermediate_size=96, num_layers=2,

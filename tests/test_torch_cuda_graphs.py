@@ -1,4 +1,4 @@
-"""The NLLB decode as CUDA graphs on the card (``runtime/graphs.py``): graph
+"""The NLLB and Mixtral decode as CUDA graphs on the card (``runtime/graphs.py``): graph
 replays against the eager path, the ticket counters after replays, the
 sync guard, the graph cache's keys, and the arena's stream order under
 replays. Marked ``cuda``: they skip without a CUDA device. On a machine
@@ -23,7 +23,18 @@ from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
 from moe_infinity_tpu_torch.runtime.graphs import CudaGraphBackend, GraphCache
 from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 
-from test_torch_cuda_offload import D, E, SPEC, _engine, _ffn, _inputs, _store, _tier
+from test_torch_cuda_offload import (
+    D,
+    E,
+    SPEC,
+    _engine,
+    _ffn,
+    _inputs,
+    _store,
+    _tier,
+    mixtral_offload,
+    mixtral_steps,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -354,3 +365,34 @@ def test_replay_after_a_later_warmup_grew_the_workspace(dev):
     counters = [t for (d, _), t in _build._tickets.items() if d == dev]
     counters += [t for t in _build._retired if t.dtype == torch.int32]
     assert all(int(t.abs().sum()) == 0 for t in counters)
+
+
+def test_mixtral_offload_step_graph_equals_eager_f32(dev):
+    """The decoder-only engine's speculative whole step as a graph against
+    the same engine run eagerly (``graphs=False``: the step then as a 0-d
+    tensor too, so both plan K1 from the capacity), one row, 2E slots with
+    prefetch and 4 workers, 32 steps: every step's logits bit for bit, and
+    the graph replays in a step that follows one whose fetches evicted
+    slots it reads."""
+    runs, marks = {}, []
+    for graphs in (True, False):
+        model, params, experts, engine = mixtral_offload(dev, 13, 2 * E, speculative=True,
+                                                         graphs=graphs)
+        prompt = np.random.default_rng(13).integers(0, 300, (1, 16))
+        runs[graphs] = []
+        try:
+            with torch.inference_mode():
+                for _, got, _ in mixtral_steps(engine, model, params, experts, prompt, 32):
+                    runs[graphs].append(got.clone())
+                    if graphs:  # (evictions, replays) after each step
+                        marks.append((engine.arena.hit_stats()["evictions"],
+                                      engine.graph_stats()["replays"]))
+            if graphs:
+                st = engine.graph_stats()
+        finally:
+            engine.arena.shutdown()
+    for step, (a, b) in enumerate(zip(runs[True], runs[False])):
+        assert torch.equal(a, b), f"Mixtral offload step {step}"
+    assert st["captures"] == 1 and st["recaptures"] == 0 and st["replays"] > 32
+    assert any(e1 > e0 and r2 > r1 for (e0, _), (e1, r1), (_, r2)
+               in zip(marks, marks[1:], marks[2:]))

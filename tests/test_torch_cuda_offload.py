@@ -5,6 +5,10 @@ CUDA device. On a machine with one, run them with ``python3 -m pytest
 --noconftest -m cuda tests/test_torch_cuda_offload.py`` (``--noconftest``:
 the repo conftest imports jax).
 
+The decoder-only ``OffloadEngine`` (Mixtral, int8 slots, K1 planned from
+the cache's capacity on the speculative path) is held to the resident
+``Generator`` the same way.
+
 The hazards: a key is registered while its copy may still run on a worker
 stream (read after write), and a slot is evicted as soon as its key is
 released while the K3 launch that read it may only be queued (write after
@@ -20,12 +24,13 @@ import pytest
 import torch
 
 from moe_infinity_tpu_torch.memory import ExpertPredictor, ExpertTracer
+from moe_infinity_tpu_torch.models.mixtral import MixtralModel, MixtralSpec
 from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
 from moe_infinity_tpu_torch.ops.moe import grouped_ffn
 from moe_infinity_tpu_torch.runtime.arena import ExpertArena
-from moe_infinity_tpu_torch.runtime.engine import run_speculative
+from moe_infinity_tpu_torch.runtime.engine import OffloadEngine, run_speculative
 from moe_infinity_tpu_torch.runtime.engine_seq2seq import Seq2SeqOffloadEngine
-from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
+from moe_infinity_tpu_torch.runtime.generate import Generator, Seq2SeqGenerator
 from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 from moe_infinity_tpu_torch.store.blob import SyntheticStore
 from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
@@ -366,5 +371,116 @@ def test_switch_offload_equals_resident_bitwise(dev, speculative, k):
                                         impl="pallas").generate(ids, **kw)
                 np.testing.assert_array_equal(got.sequences, want.sequences)
                 assert engine.speculative and engine.graph_stats()["replays"] > 0
+    finally:
+        engine.arena.shutdown()
+
+
+# ---- Mixtral (the decoder-only OffloadEngine, int8 slots) ------------------------
+
+MIXTRAL = dict(
+    vocab_size=300, hidden_size=D, intermediate_size=F, num_layers=LAYERS, num_heads=4,
+    num_kv_heads=2, head_dim=128, num_experts=E, top_k=2, rms_eps=1e-5, rope_theta=1e6,
+    tie_embeddings=False,
+)
+# a capacity of 128: K1 planned from it splits the keys in two, while the
+# live keys (16 + 24) fit one split, as the resident path plans them
+CAP = 128
+
+
+def _mixtral_store(seed):
+    """bench.py's Mixtral store at MIXTRAL's width: int8 w1/w3/w2 with f32
+    per-channel scales, records distinct per expert."""
+    fields = []
+    for tail, shape in (("w1", (D, F)), ("w3", (D, F)), ("w2", (F, D))):
+        fields += [(tail + ".weight", shape, "int8"),
+                   (tail + ".weight.scale", shape[1:], "float32")]
+    return SyntheticStore(LAYERS, E, fields, meta={"arch": "mixtral", "gated": True,
+                                                   "num_encoder_moe_layers": 0},
+                          seed=seed, distinct_records=True, cache_records=LAYERS * E)
+
+
+def mixtral_offload(dev, seed, slots, prefetch=True, **kw):
+    """(model, params, the resident tree over the store's records, an
+    engine over ``slots`` slots with 4 workers, K3 throughout), f32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = MixtralModel(MixtralSpec(**MIXTRAL), compute_dtype=torch.float32, device=dev)
+    params, _ = model.init_random(g, with_experts=False)
+    store = _mixtral_store(seed)
+    experts = ResidentProvider.from_store(store, dtype=torch.float32, device=dev).pytree()
+    tracer = ExpertTracer(64, LAYERS, E)
+    arena = ExpertArena(store, slots, compute_dtype=torch.float32, device=dev, num_threads=4)
+    engine = OffloadEngine(model, params, arena, tracer=tracer,
+                           predictor=ExpertPredictor(tracer), prefetch=prefetch, lookahead=3,
+                           prefetch_budget=8, impl="pallas", **kw)
+    return model, params, experts, engine
+
+
+def mixtral_steps(engine, model, params, experts, prompt, n):
+    """Prefill ``prompt`` [B, T] through the engine and the resident model,
+    then ``n`` greedy one-token steps of each on the resident path's
+    tokens; yields (step, engine logits, resident logits)."""
+    dev = model.device
+    B, T = prompt.shape
+    tok = torch.as_tensor(prompt, dtype=torch.int32, device=dev)
+    pos = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    seq_ids = engine.begin_sequences(B)
+    kv_o, kv_r = engine.init_cache(B, CAP), model.init_cache(B, CAP)
+    got, _, _ = engine.forward(tok, pos, kv_o, 0, seq_ids)
+    want, _, _ = model.forward(params, experts, tok, pos, kv_r, 0,
+                               for_layer=ResidentProvider.for_layer, impl="pallas")
+    yield -1, got, want
+    cur = torch.argmax(want[:, -1], -1, keepdim=True).to(torch.int32)
+    for step in range(T, T + n):
+        pos = torch.full((B, 1), step, dtype=torch.int32, device=dev)
+        got, _, _ = engine.forward(cur, pos, kv_o, step, seq_ids)
+        want, _, _ = model.forward(params, experts, cur, pos, kv_r, step,
+                                   for_layer=ResidentProvider.for_layer, impl="pallas")
+        yield step, got, want
+        cur = torch.argmax(want[:, -1], -1, keepdim=True).to(torch.int32)
+    engine.end_sequences(seq_ids)
+
+
+@pytest.mark.parametrize("speculative", [False, True])
+def test_mixtral_offload_equals_resident_bitwise(dev, speculative):
+    """Mixtral at f32 beside the resident model over the same store, 24
+    steps after a 16-token prefill: per-layer through an arena of E slots (4
+    rows, evictions at every MoE layer), or the speculative whole step as a
+    graph through 2E slots (one row: its union fits); every step's logits
+    equal bit for bit."""
+    B, slots = (1, 2 * E) if speculative else (4, E)
+    model, params, experts, engine = mixtral_offload(dev, 11, slots, speculative=speculative)
+    prompt = np.random.default_rng(11).integers(0, 300, (B, 16))
+    try:
+        with torch.inference_mode():
+            for step, got, want in mixtral_steps(engine, model, params, experts, prompt, 24):
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), f"step {step}"
+        if speculative:
+            assert engine.speculative and max(engine.replay_counts) > 1
+            assert engine.graph_stats()["replays"] == sum(engine.replay_counts)
+        else:
+            ev = engine.arena.policy.node_stats["evictions"].sum(axis=1)
+            assert (ev > 0).all(), ev
+    finally:
+        engine.arena.shutdown()
+
+
+@pytest.mark.parametrize("mode", ["whole", "prefix"])
+def test_mixtral_speculative_blocks_equal_resident(dev, monkeypatch, mode):
+    """Greedy blocks of 2 steps through ``Generator`` as graphs, one row,
+    an arena of 3E slots without prefetch: the tokens of 24 new tokens
+    equal the resident ``Generator``'s; blocks run again on a miss."""
+    monkeypatch.setenv("MOE_SPEC_BLOCK_MODE", mode)
+    k = 2
+    model, params, experts, engine = mixtral_offload(dev, 12, 3 * E, prefetch=False,
+                                                     speculative=True, spec_block=k)
+    prompt = np.random.default_rng(12).integers(0, 300, (1, 16))
+    try:
+        got = Generator(stepper=engine).generate(prompt, max_new_tokens=24, cache_len=CAP)
+        want = Generator(model, params, experts, ResidentProvider.for_layer, impl="pallas"
+                         ).generate(prompt, max_new_tokens=24, cache_len=CAP)
+        np.testing.assert_array_equal(got.sequences, want.sequences)
+        assert engine.spec_block == k and max(engine.replay_counts) > 1
+        assert engine.graph_stats()["replays"] == sum(engine.replay_counts)
     finally:
         engine.arena.shutdown()

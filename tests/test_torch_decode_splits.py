@@ -14,7 +14,7 @@ from moe_infinity_tpu_torch.models import layers
 from moe_infinity_tpu_torch.ops import flash_attention as fa
 from moe_infinity_tpu_torch.runtime.paged_kv import PagedKVCache
 
-from torch_port_helpers import port_attention
+from torch_port_helpers import port_attention, one_intra_op_thread
 
 TOL = 1e-5
 TILE, SLOT = fa._DEC_TILE, 32

@@ -30,7 +30,13 @@ from moe_infinity_tpu_torch.runtime.generate import Generator
 from moe_infinity_tpu_torch.runtime.paged_kv import PagedKVCache
 from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 
-from torch_port_helpers import jax_to_numpy, np32, port_attention, to_port
+from torch_port_helpers import (
+    jax_to_numpy,
+    np32,
+    port_attention,
+    to_port,
+    one_intra_op_thread,
+)
 
 # the tiny spec of tests/test_fused.py:14-22
 TINY = dict(

@@ -12,7 +12,7 @@ from moe_infinity_tpu.ops.gmm import gmm as j_gmm
 from moe_infinity_tpu.ops.moe import pack_int4 as j_pack_int4
 from moe_infinity_tpu_torch.ops import gmm as gm
 
-from torch_port_helpers import np32
+from torch_port_helpers import np32, one_intra_op_thread
 
 
 def _x(rng, T, D):
@@ -82,6 +82,58 @@ def test_compact_groups_matches_unique_with_size(rng):
     ids, sizes = gm.compact_groups(torch.tensor(sorted_slots).long(), N)
     np.testing.assert_array_equal(ids.numpy(), np.asarray(want_ids))
     np.testing.assert_array_equal(sizes.numpy(), np.asarray(want_sizes))
+
+
+@pytest.mark.parametrize("T", [1, 16])
+def test_an_arena_launches_the_resident_layers_grid(rng, monkeypatch, T):
+    """gffn_pallas sizes K3's group grid from the layer's E experts as well
+    as from the rows: the same routed experts in an arena of 3E slots
+    (mapped to other slots) and in the resident layer (the identity) give
+    every K3 call the same G, so the same split plan and the same sums.
+    Mixtral's prefill down projection (T = 16, K = 2, D = 14336 in, 4096
+    out) splits its reduction at G = 8 but not at G = min(3E, T * K) = 24."""
+    E, K, D, F = 8, 2, 64, 32
+    calls = {}
+
+    def recorder(tag):
+        def gmm(x, w, sizes, scale=None, group_offset=0, group_ids=None, *, packed=False):
+            calls.setdefault(tag, []).append(sizes.shape[0])
+            return torch.zeros(x.shape[0], w.shape[2], dtype=torch.float32)
+        return gmm
+
+    x = torch.tensor(_x(rng, T, D))
+    ids = torch.tensor(rng.integers(0, E, (T, K)).astype(np.int32))
+    cw = torch.ones(T, K)
+    for tag, S, slots in (("resident", E, torch.arange(E, dtype=torch.int32)),
+                          ("arena", 3 * E, torch.tensor(rng.permutation(3 * E)[:E],
+                                                        dtype=torch.int32))):
+        w = {r: torch.zeros(S, *shape, dtype=torch.bfloat16)
+             for r, shape in (("gate", (D, F)), ("up", (D, F)), ("down", (F, D)))}
+        monkeypatch.setattr(gm, "gmm", recorder(tag))
+        gm.gffn_pallas(x, ids, cw, slots, w, "silu")
+    assert calls["arena"] == calls["resident"] == [min(E, T * K)] * 3
+    assert gm._gmm_plan(16, 8, 14336, 4096).splits > 1
+    assert gm._gmm_plan(16, 24, 14336, 4096).splits == 1
+
+
+@pytest.mark.parametrize("K", [2, 6])
+def test_an_arena_combines_as_the_resident_layer(rng, K):
+    """The same experts at other slots of a larger arena (DeepSeek routes 6
+    of 64) give the resident layer's output bit for bit: the K outputs of a
+    token are summed in routing order, not in the order of their slots."""
+    T, E, D, F = 5, 16, 32, 48
+    x = torch.tensor(_x(rng, T, D))
+    ids = torch.tensor(np.stack([rng.permutation(E)[:K] for _ in range(T)]).astype(np.int32))
+    cw = torch.tensor(rng.uniform(0, 1, (T, K)).astype(np.float32))
+    w = {r: torch.tensor(rng.standard_normal((E,) + shape).astype(np.float32) * 0.1).bfloat16()
+         for r, shape in (("gate", (D, F)), ("up", (D, F)), ("down", (F, D)))}
+    want = gm.gffn_pallas(x, ids, cw, torch.arange(E, dtype=torch.int32), w, "silu")
+    slots = torch.tensor(rng.permutation(3 * E)[:E], dtype=torch.int32)
+    arena = {r: torch.zeros((3 * E,) + t.shape[1:], dtype=t.dtype) for r, t in w.items()}
+    for r, t in w.items():
+        arena[r][slots.long()] = t
+    got = gm.gffn_pallas(x, ids, cw, slots, arena, "silu")
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("S,dtype", [(4, "bf16"), (64, "bf16"), (4, "f32")])

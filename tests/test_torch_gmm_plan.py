@@ -19,6 +19,8 @@ from moe_infinity_tpu_torch.ops import _build
 from moe_infinity_tpu_torch.ops import gmm as gm
 from moe_infinity_tpu_torch.ops.moe import unpack_int4
 
+from torch_port_helpers import one_intra_op_thread
+
 TOL = 1e-5
 KT, BN, BM = gm._K_TILE, gm._TILE_COLS, gm._ROWS_PER_CHUNK
 

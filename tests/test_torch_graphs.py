@@ -23,25 +23,38 @@ import torch
 from moe_infinity_tpu.memory import ExpertPredictor as JPredictor
 from moe_infinity_tpu.memory import ExpertTracer as JTracer
 from moe_infinity_tpu.models import layers as jlayers
+from moe_infinity_tpu.models.mixtral import MixtralModel as JMixtralModel
+from moe_infinity_tpu.models.mixtral import MixtralSpec as JMixtralSpec
 from moe_infinity_tpu.models.nllb import NllbModel as JNllbModel
 from moe_infinity_tpu.models.nllb import NllbSpec as JNllbSpec
 from moe_infinity_tpu.runtime.arena import ExpertArena as JArena
+from moe_infinity_tpu.runtime.engine import OffloadEngine as JOffloadEngine
 from moe_infinity_tpu.runtime.engine_seq2seq import Seq2SeqOffloadEngine as JEngine
+from moe_infinity_tpu.runtime.generate import Generator as JGenerator
 from moe_infinity_tpu.runtime.providers import ResidentProvider as JProvider
 from moe_infinity_tpu.store.blob import ExpertStore as JStore
 from moe_infinity_tpu_torch.memory import ExpertPredictor, ExpertTracer
 from moe_infinity_tpu_torch.models.layers import KVCache
+from moe_infinity_tpu_torch.models.mixtral import MixtralModel, MixtralSpec
 from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
 from moe_infinity_tpu_torch.ops import flash_attention as fa
 from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
 from moe_infinity_tpu_torch.runtime.arena import ExpertArena
+from moe_infinity_tpu_torch.runtime.engine import OffloadEngine
 from moe_infinity_tpu_torch.runtime.engine_seq2seq import Seq2SeqOffloadEngine
-from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
+from moe_infinity_tpu_torch.runtime.generate import Generator, Seq2SeqGenerator
 from moe_infinity_tpu_torch.runtime.graphs import GraphCache
 from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 from moe_infinity_tpu_torch.store.blob import ExpertStore
 
-from torch_port_helpers import TINY_NLLB, port_attention, to_port, write_nllb_store
+from torch_port_helpers import (
+    TINY_NLLB,
+    port_attention,
+    to_port,
+    write_decoder_store,
+    write_nllb_store,
+    one_intra_op_thread,
+)
 
 TOL = 1e-4
 SPEC = dict(
@@ -400,6 +413,75 @@ def test_engine_graph_outputs_survive_replays(monkeypatch, k, mode):
     finally:
         for eng in engines:
             eng.arena.shutdown()
+
+
+# the decoder-only engine: a tiny Mixtral (3 layers, 8 experts top-2, f32)
+MIXTRAL = dict(
+    vocab_size=160, hidden_size=48, intermediate_size=96, num_layers=3, num_heads=6,
+    num_kv_heads=2, head_dim=8, num_experts=8, top_k=2, rms_eps=1e-5, rope_theta=1e6,
+    tie_embeddings=False,
+)
+PROMPTS = np.array([[5, 17, 31, 7], [9, 4, 2, 61]])
+
+
+@pytest.fixture(scope="module")
+def mixtral_setup(tmp_path_factory):
+    jmodel = JMixtralModel(JMixtralSpec(**MIXTRAL), compute_dtype=jnp.float32)
+    jparams, jtree = jmodel.init_random(jax.random.PRNGKey(6), expert_dtype=jnp.float32)
+    path = write_decoder_store(tmp_path_factory.mktemp("torch_graphs_mixtral") / "store",
+                               jtree["layers"], "mixtral")
+    model = MixtralModel(MixtralSpec(**MIXTRAL), compute_dtype=torch.float32, device="cpu")
+    return jmodel, jparams, model, to_port(jparams), path
+
+
+@pytest.mark.parametrize("k,mode", [(1, "whole"), (2, "whole"), (2, "prefix"), (3, "prefix")])
+def test_decoder_engine_graphs_on_and_off_agree(mixtral_setup, monkeypatch, k, mode):
+    """The decoder-only ``OffloadEngine`` under ``Generator``: the whole step
+    (k = 1) or the k-step blocks as replays of graphs captured by the
+    stand-in backend equal the eager engine (``graphs=False``) and the JAX
+    engine over two requests of 10 tokens: tokens, executions, counters. An
+    arena of 12 slots (20 for blocks of 2, all 24 experts for blocks of 3:
+    a block's union is larger), one worker, no prefetch: steps run again on
+    a miss, so replays outnumber captures. Every execution is a replay; the
+    second request captures nothing new."""
+    monkeypatch.setenv("MOE_SPEC_BLOCK_MODE", mode)
+    jmodel, jparams, model, params, path = mixtral_setup
+    gen = dict(max_new_tokens=10, eos_token_id=None)
+    slots = {1: 12, 2: 20}.get(k, 24)
+    jarena = JArena(JStore(path), slots, compute_dtype=jnp.float32, num_threads=1)
+    jeng = JOffloadEngine(jmodel, jparams, jarena, prefetch=False, speculative=True,
+                          spec_block=k)
+    engines, seqs = {}, {}
+    try:
+        want = [JGenerator(stepper=jeng, max_seq_len=64).generate(PROMPTS, **gen).sequences
+                for _ in range(2)]
+        for graphs in (True, False):
+            arena = ExpertArena(ExpertStore(path), slots, compute_dtype=torch.float32,
+                                device="cpu", num_threads=1)
+            eng = engines[graphs] = OffloadEngine(
+                model, params, arena, prefetch=False, speculative=True, spec_block=k,
+                graphs=graphs, graph_backend=StandIn() if graphs else None)
+            g = Generator(stepper=eng, max_seq_len=64)
+            seqs[graphs] = [g.generate(PROMPTS, **gen).sequences]
+            if graphs:
+                first = eng.graph_stats()
+            seqs[graphs].append(g.generate(PROMPTS, **gen).sequences)
+        eng, eager = engines[True], engines[False]
+        for a, b, w in zip(seqs[True], seqs[False], want):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, w)
+        assert eng.replay_counts == eager.replay_counts == jeng.replay_counts
+        assert max(eng.replay_counts) > 1 and eng.spec_block == k
+        assert eng.executed_steps == eager.executed_steps
+        assert eng.stats() == eager.stats() == jeng.stats()
+        assert eager.graphs is None and eager.graph_stats() == {}
+        st = eng.graph_stats()
+        assert st["recaptures"] == 0 and st["replays"] == sum(eng.replay_counts)
+        assert 1 <= st["captures"] == first["captures"] < st["replays"]
+    finally:
+        jarena.shutdown()
+        for e in engines.values():
+            e.arena.shutdown()
 
 
 @pytest.mark.parametrize("graphs", [False, True])

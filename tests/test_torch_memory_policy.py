@@ -16,6 +16,8 @@ from moe_infinity_tpu_torch.memory import (
     plan_prefetch,
 )
 
+from torch_port_helpers import one_intra_op_thread
+
 L, E = 4, 8
 
 

@@ -29,7 +29,7 @@ from moe_infinity_tpu_torch.ops import moe
 from moe_infinity_tpu_torch.runtime.paged_kv import PagedKVCache
 from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 
-from torch_port_helpers import np32, port_attention, to_port
+from torch_port_helpers import np32, port_attention, to_port, one_intra_op_thread
 
 # the tiny spec of tests/test_continuous.py:19-23
 TINY = dict(

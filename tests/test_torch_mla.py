@@ -14,7 +14,7 @@ import torch
 from moe_infinity_tpu.ops import flash_attention as jfa
 from moe_infinity_tpu_torch.ops import flash_attention as fa
 
-from torch_port_helpers import np32
+from torch_port_helpers import np32, one_intra_op_thread
 
 ATOL = 2e-3
 

@@ -30,6 +30,8 @@ from moe_infinity_tpu.ops import flash_attention as jfa
 from moe_infinity_tpu_torch.ops import _build
 from moe_infinity_tpu_torch.ops import flash_attention as fa
 
+from torch_port_helpers import one_intra_op_thread
+
 TOL = 2e-5
 R, P = fa._MLA_R, fa._MLA_P
 TILE = fa._MLA_TILE

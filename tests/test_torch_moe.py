@@ -10,7 +10,7 @@ import torch
 from moe_infinity_tpu.ops import moe as jmoe
 from moe_infinity_tpu_torch.ops import moe
 
-from torch_port_helpers import np32
+from torch_port_helpers import np32, one_intra_op_thread
 
 
 def test_pack_unpack_int4_bit_exact_with_jax(rng):

@@ -24,6 +24,7 @@ from torch_port_helpers import (
     np32,
     port_attention,
     to_port,
+    one_intra_op_thread,
 )
 
 # right-padded batch (NLLB pads with token 1), and an unpadded one

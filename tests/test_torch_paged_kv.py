@@ -22,7 +22,7 @@ from moe_infinity_tpu_torch.runtime.paged_kv import (
     init_paged_caches,
 )
 
-from torch_port_helpers import np32, port_attention
+from torch_port_helpers import np32, port_attention, one_intra_op_thread
 
 PAGE = 8
 F32_TOL = 1e-5

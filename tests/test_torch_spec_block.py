@@ -27,6 +27,8 @@ from moe_infinity_tpu_torch.runtime.engine import (
 from moe_infinity_tpu_torch.runtime.engine_seq2seq import Seq2SeqOffloadEngine
 from moe_infinity_tpu_torch.store.blob import SyntheticStore
 
+from torch_port_helpers import one_intra_op_thread
+
 MLIS = [0, 1]
 E = 4
 B = 1

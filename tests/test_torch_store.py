@@ -20,7 +20,7 @@ from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 from moe_infinity_tpu_torch.store import blob, quant
 from moe_infinity_tpu_torch.utils import dtypes
 
-from torch_port_helpers import write_nllb_store
+from torch_port_helpers import write_nllb_store, one_intra_op_thread
 
 SPEC = dict(
     vocab_size=96, d_model=32, num_heads=4, encoder_layers=4, decoder_layers=4,

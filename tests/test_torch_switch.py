@@ -37,7 +37,7 @@ from moe_infinity_tpu_torch.ops import flash_attention as fa
 from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
 from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 
-from torch_port_helpers import jax_to_numpy, np32, port_attention, to_port
+from torch_port_helpers import jax_to_numpy, np32, port_attention, to_port, one_intra_op_thread
 
 SPEC = dict(
     vocab_size=96, d_model=32, d_kv=8, d_ff=64, num_heads=4,

@@ -38,7 +38,7 @@ from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 from moe_infinity_tpu_torch.store.blob import ExpertStore
 from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
 
-from torch_port_helpers import to_port, write_switch_store
+from torch_port_helpers import to_port, write_switch_store, one_intra_op_thread
 
 SPEC = dict(
     vocab_size=96, d_model=32, d_kv=8, d_ff=64, num_heads=4,

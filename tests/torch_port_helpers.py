@@ -1,6 +1,8 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): move
 JAX arrays to the port through numpy, build tiny NLLB models in both
-packages from one seed, and write NLLB and Switch expert stores."""
+packages from one seed, write NLLB, Switch, Mixtral and DeepSeek expert
+stores, and run each CPU test with one intra-op thread
+(``one_intra_op_thread``, which every CPU test file imports)."""
 
 from __future__ import annotations
 
@@ -11,9 +13,26 @@ import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
+import pytest
 import torch
 
 from moe_infinity_tpu_torch import bridge
+
+
+@pytest.fixture(autouse=True)
+def one_intra_op_thread():
+    """Run the test with one intra-op thread of torch's CPU pool. The tier-1
+    command runs six xdist workers; with torch's default (one thread per
+    core) each small op of the plain kernels opens a parallel region whose
+    spinning threads six processes share eight cores with, and a test that
+    takes 10 s alone took minutes. Restored afterwards."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev)
+
 
 TINY_NLLB = dict(
     vocab_size=96, d_model=256, num_heads=2,  # head_dim 128, as NLLB-54B
@@ -167,6 +186,50 @@ def write_switch_store(path, expert_layers, quant, num_encoder_moe_layers, gated
                 a = np.asarray(lay[role][e], np.float32)
                 if quant == "int4":
                     q, s = quantize_rowwise(a.T, "int4")  # [out/2, in] packed, scale [out]
+                    w.write_tensor(layer, e, tail + ".weight", np.ascontiguousarray(q.T))
+                    w.write_tensor(layer, e, tail + ".weight.scale", s)
+                else:
+                    w.write_tensor(layer, e, tail + ".weight", a)
+    w.finalize()
+    return str(path)
+
+
+DECODER_TAILS = {
+    "mixtral": (("w1", "gate"), ("w3", "up"), ("w2", "down")),
+    "deepseek": (("gate_proj", "gate"), ("up_proj", "up"), ("down_proj", "down")),
+}
+
+
+def write_decoder_store(path, expert_layers, arch, quant="float32"):
+    """Write a decoder-only expert store (``arch`` "mixtral" or "deepseek")
+    with the JAX package's ExpertStoreWriter from one expert tree's layers
+    ([E, D, F] gate and up, [E, F, D] down, compute layout, JAX or numpy
+    arrays), so that both packages read the same files: ``<tail>.weight``
+    per role, as the JAX bench's Mixtral store names them. quant "float32"
+    keeps the weights; "int8" quantizes each output channel
+    (``store/quant.py``) with an f32 ``<tail>.weight.scale``. Returns the
+    path."""
+    from moe_infinity_tpu.store.blob import ExpertStoreWriter
+    from moe_infinity_tpu.store.quant import quantize_rowwise
+
+    roles = DECODER_TAILS[arch]
+    E = np.asarray(expert_layers[0]["gate"]).shape[0]
+    fields = []
+    for tail, role in roles:
+        d_in, d_out = np.asarray(expert_layers[0][role]).shape[1:]
+        fields.append((tail + ".weight", (d_in, d_out), quant))
+        if quant == "int8":
+            fields.append((tail + ".weight.scale", (d_out,), "float32"))
+    meta = {"arch": arch, "num_encoder_moe_layers": 0}
+    if arch == "mixtral":
+        meta["gated"] = True
+    w = ExpertStoreWriter(str(path), len(expert_layers), E, fields, meta=meta)
+    for layer, lay in enumerate(expert_layers):
+        for e in range(E):
+            for tail, role in roles:
+                a = np.asarray(lay[role][e], np.float32)
+                if quant == "int8":
+                    q, s = quantize_rowwise(a.T, "int8")  # [out, in], scale [out]
                     w.write_tensor(layer, e, tail + ".weight", np.ascontiguousarray(q.T))
                     w.write_tensor(layer, e, tail + ".weight.scale", s)
                 else:

@@ -135,7 +135,32 @@ Phases, each printing its own lines; any failure exits non-zero:
    eagerly: per-layer and speculative offload bit-equal to the resident
    path at f32 (K5 held to 3 launches per executed step), and at bf16 the
    first decode step through the kernels against the plain versions,
-   reported.
+   reported;
+19. the user-facing entry point, ``MoE(checkpoint, config)``: a checkpoint of
+   Mixtral-8x7B's published ``config.json`` (hidden 4096, 32 heads over 8
+   KV heads, FFN 14336, 8 experts top-2, vocab 32,000, rope theta 1e6) cut
+   to 2 layers, weights from a seed made on the card and written under
+   HF's tensor names as sharded safetensors with an index (6.3 GB; the
+   disk's free space is checked first and the files are deleted at the
+   end), ingested by the port to int8 experts; the resident facade at its
+   defaults (``max_batch_size`` 8: the continuous batcher; ``moe_impl`` and
+   ``prefill_impl`` "pallas") serving 8 requests of 16 tokens, 16 new
+   tokens each, submitted together (K4, K2, K3 must launch); a resident
+   facade at ``max_batch_size`` 1 (``Generator``); the first decode step's
+   logits through the kernels against the plain versions, held at f32
+   compute (the same classes and store) and reported in bf16, argmax equal
+   in both; then
+   the offload facade (``dense_paging`` "off", a budget of 10 of the 16
+   experts, speculative blocks of 2, graphs) answering the same 8 requests
+   one at a time (K1, K2, K3 must launch), its greedy tokens equal to the
+   ``Generator`` facade's request by request, a sampled request the same
+   twice, temperature 0 greedy and ``logit_bias`` +100 forcing its token;
+20. the OpenAI-compatible server over phase 19's offload facade, with a
+   stand-in word-level tokenizer: /health, /v1/models, greedy completions
+   equal to the decode of ``MoE.generate``, a sampled completion at the
+   OpenAI defaults, ``n`` 2 with ``logprobs`` 3, a chat completion and the
+   same streamed (its deltas joined equal the text), /metrics; every reply
+   HTTP 200.
 
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
@@ -148,12 +173,13 @@ as in the whole run), then K5 under other split plans.
 ``python3 chip_smoke.py --offload`` runs the build and phases 9 to 12
 alone; ``--resident`` the build and phases 3, 5 and 7 (to hold those paths
 against another tree's in one call); ``--switch`` the build and phases 13
-to 15; ``--mixtral-offload`` the build and phases 16 to 18. Each prints no
-result line.
+to 15; ``--mixtral-offload`` the build and phases 16 to 18;
+``--entrypoints`` the build and phases 19 and 20. Each prints no result
+line.
 Every phase prints its seconds (``[phase]``).
 
 The line before the last is the per-kernel JSON record (launches: the sum
-of the counts of phases 3, 5, 7, 9, 11, 13, 14, 16 and 18, graph replays
+of the counts of phases 3, 5, 7, 9, 11, 13, 14, 16, 18 and 19, graph replays
 included;
 K2 at head dim 64 has its own row, ``flash_attend_dh64``: a graph
 counts at each replay the launches it recorded when it was captured); the
@@ -3737,6 +3763,404 @@ def phase_deepseek_offload(dev):
     return {k: sum(c.get(k, 0) for c in counts.values()) for k in MLA_KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# phases 19 and 20: the user-facing entry points
+# ---------------------------------------------------------------------------
+
+# mistralai/Mixtral-8x7B-v0.1's config.json, cut to 2 layers (depth is the cut
+# an entry-point path may take: the full checkpoint is 93 GB)
+EP_CONFIG = {
+    "architectures": ["MixtralForCausalLM"], "attention_dropout": 0.0, "bos_token_id": 1,
+    "eos_token_id": 2, "hidden_act": "silu", "hidden_size": 4096,
+    "initializer_range": 0.02, "intermediate_size": 14336,
+    "max_position_embeddings": 32768, "model_type": "mixtral", "num_attention_heads": 32,
+    "num_experts_per_tok": 2, "num_hidden_layers": 2, "num_key_value_heads": 8,
+    "num_local_experts": 8, "output_router_logits": False, "rms_norm_eps": 1e-05,
+    "rope_theta": 1000000.0, "router_aux_loss_coef": 0.02, "sliding_window": None,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "transformers_version": "4.36.0.dev0", "use_cache": True, "vocab_size": 32000,
+}
+EP_REQUESTS, EP_PROMPT, EP_NEW = 8, 16, 16
+EP_SLOTS = 10  # of the 16 experts: evictions happen
+EP_DISK_GB = 10.5  # checkpoint 6.3 + int8 store 2.8 + dense archive 0.7, with room
+EP_DIR = Path(__file__).resolve().parent / ".entrypoints"
+EP_IMPL = {"expert_dtype": "int8", "moe_impl": "pallas", "prefill_impl": "pallas"}
+
+
+def _write_safetensors(path, tensors):
+    """The safetensors format: an 8-byte little-endian header length, the
+    JSON header, then each tensor's bytes (bf16 only here)."""
+    header, off = {}, 0
+    for name, t in tensors:
+        n = t.numel() * 2
+        header[name] = {"dtype": "BF16", "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    header["__metadata__"] = {"format": "pt"}
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for _, t in tensors:
+            f.write(memoryview(t.cpu().view(torch.int16).numpy()))
+    return 8 + len(raw) + off
+
+
+def _write_mixtral_checkpoint(root, dev, seed=0):
+    """EP_CONFIG's checkpoint under HF's tensor names, bf16, weights normal
+    with std 0.02 made on the card from ``seed`` (norms one), one safetensors
+    shard per layer plus one for the embeddings, head and final norm, and
+    ``model.safetensors.index.json``. Returns its bytes."""
+    c = EP_CONFIG
+    D, F, E, V = c["hidden_size"], c["intermediate_size"], c["num_local_experts"], c["vocab_size"]
+    hd = D // c["num_attention_heads"]
+    kvd = c["num_key_value_heads"] * hd
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def mat(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device=dev).normal_(0.0, 0.02, generator=g)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16, device=dev)
+
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps(c, indent=2))
+    L = c["num_hidden_layers"]
+    weight_map, total = {}, 0
+    for shard in range(L + 1):
+        fname = f"model-{shard + 1:05d}-of-{L + 1:05d}.safetensors"
+        if shard < L:
+            p = f"model.layers.{shard}."
+            tensors = [(p + "input_layernorm.weight", ones(D)),
+                       (p + "post_attention_layernorm.weight", ones(D)),
+                       (p + "self_attn.q_proj.weight", mat(D, D)),
+                       (p + "self_attn.k_proj.weight", mat(kvd, D)),
+                       (p + "self_attn.v_proj.weight", mat(kvd, D)),
+                       (p + "self_attn.o_proj.weight", mat(D, D)),
+                       (p + "block_sparse_moe.gate.weight", mat(E, D))]
+            for e in range(E):
+                q = f"{p}block_sparse_moe.experts.{e}."
+                tensors += [(q + "w1.weight", mat(F, D)), (q + "w2.weight", mat(D, F)),
+                            (q + "w3.weight", mat(F, D))]
+        else:
+            tensors = [("model.embed_tokens.weight", mat(V, D)), ("model.norm.weight", ones(D)),
+                       ("lm_head.weight", mat(V, D))]
+        total += _write_safetensors(root / fname, tensors)
+        weight_map.update({name: fname for name, _ in tensors})
+        del tensors
+    (root / "model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}, indent=2))
+    return total
+
+
+def _ep_prompts():
+    rng = np.random.default_rng(19)
+    return [rng.integers(3, EP_CONFIG["vocab_size"], (1, EP_PROMPT)) for _ in range(EP_REQUESTS)]
+
+
+def _ep_build(tag, ckpt, cfg, dev):
+    from moe_infinity_tpu_torch.entrypoints.api import MoE
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = MoE(str(ckpt), cfg, device=dev)
+    torch.cuda.synchronize()
+    plan = ("offload" if m.engine is not None else "resident") + \
+        (", batcher" if m.batcher is not None else ", Generator")
+    say(f"[entry] {tag}: built in {time.perf_counter() - t0:.1f} s ({plan}); device memory "
+        f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    return m
+
+
+def _ep_first_step_logits(st, prompt, dev):
+    """Logits of the first decode step after a prefill of ``prompt``, through
+    the resident stepper ``st``."""
+    kv = st.init_cache(1, 32)
+    T = prompt.shape[1]
+    tok = torch.as_tensor(prompt, dtype=torch.int32, device=dev)
+    pos = torch.arange(T, dtype=torch.int32, device=dev)[None]
+    logits, kv, _ = st.forward(tok, pos, kv, 0)
+    nxt = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    out, _, _ = st.forward(nxt, torch.full((1, 1), T, dtype=torch.int32, device=dev), kv, T)
+    return out[:, -1]
+
+
+def _ep_logits_check(ref, store, prompt, dev):
+    """The first decode step's logits through the kernels against the plain
+    versions on the card. At f32 compute (the facade's model class, dense
+    params and int8 experts from the same store) they are held to the
+    tolerance of phases 4 and 6, with equal argmax; through the bf16 facade
+    the argmax is held and the error reported, as phases 4 and 6 report
+    bf16."""
+    from moe_infinity_tpu_torch.runtime.generate import ResidentStepper
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+    from moe_infinity_tpu_torch.store.blob import DenseArchive, ExpertStore
+
+    m32 = type(ref.model)(ref.model.spec, torch.float32, device=dev)
+    st32 = ResidentStepper(
+        m32, m32.load_params(DenseArchive(str(store))),
+        ResidentProvider.from_store(ExpertStore(str(store)), dtype=torch.float32,
+                                    device=dev).pytree(),
+        ResidentProvider.for_layer, impl="pallas")
+    for tag, st in (("f32", st32), ("bf16 facade", ref.generator.stepper)):
+        with _plain_kernels():
+            plain = _ep_first_step_logits(st, prompt, dev)
+        kern = _ep_first_step_logits(st, prompt, dev)
+        what = f"entry: first decode step's logits ({tag}), kernels against plain versions"
+        if tag == "f32":
+            compare(what, kern, plain)
+        else:
+            diff = (kern.float() - plain.float()).abs()
+            used = (diff / (TOL + TOL * plain.float().abs())).max().item()
+            say(f"[check] {what}: max_abs_err={diff.max().item():.3e} limit_used={used:.3f} "
+                f"(reported, not held to a tolerance)")
+            if not bool(torch.isfinite(kern).all()):
+                raise AssertionError(f"{what}: logits are not finite")
+        _ep_check(f"{what}: argmax equal", bool((kern.argmax(-1) == plain.argmax(-1)).all()))
+    del st32, m32
+    torch.cuda.empty_cache()
+
+
+def phase_entrypoints(dev):
+    """Phase 19: ``MoE`` from a checkpoint at Mixtral-8x7B's width. Returns
+    the launches of the resident batch and of the offload facade's run, and
+    leaves the offload facade and its checkpoint to phase 20 (which deletes
+    the checkpoint)."""
+    import concurrent.futures as cf
+    import shutil
+
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+
+    EP_DIR.mkdir(exist_ok=True)
+    free = shutil.disk_usage(EP_DIR).free
+    say(f"[entry] disk free under {EP_DIR.name}/: {free / 1e9:.1f} GB (needs {EP_DISK_GB})")
+    if free < EP_DISK_GB * 1e9:
+        raise RuntimeError(f"phase 19 needs {EP_DISK_GB} GB of disk under {EP_DIR}, "
+                           f"{free / 1e9:.1f} GB is free")
+    ckpt, store = EP_DIR / "ckpt", EP_DIR / "store"
+    t0 = time.perf_counter()
+    nbytes = _write_mixtral_checkpoint(ckpt, dev)
+    say(f"[entry] checkpoint: Mixtral-8x7B geometry at {EP_CONFIG['num_hidden_layers']} "
+        f"layers, {nbytes / 1e9:.2f} GB of bf16 safetensors in "
+        f"{len(list(ckpt.glob('*.safetensors')))} shards, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    from moe_infinity_tpu_torch.store.ingest import ingest_checkpoint
+    from moe_infinity_tpu_torch.utils.hf_config import read_hf_config
+
+    t0 = time.perf_counter()
+    ingest_checkpoint(str(ckpt), str(store), read_hf_config(str(ckpt)), expert_dtype="int8")
+    say(f"[entry] ingest (int8): {time.perf_counter() - t0:.1f} s; experts.blob "
+        f"{(store / 'experts.blob').stat().st_size / 1e9:.2f} GB, dense.blob "
+        f"{(store / 'dense.blob').stat().st_size / 1e9:.2f} GB")
+    prompts = _ep_prompts()
+    kw = dict(max_new_tokens=EP_NEW, eos_token_id=None)
+    base = dict(EP_IMPL, offload_path=str(store))
+
+    # ---- the resident facade at its defaults: the continuous batcher ----
+    torch.cuda.reset_peak_memory_stats()
+    res = _ep_build("resident (max_batch_size 8)", ckpt, base, dev)
+    if res.batcher is None or res.engine is not None:
+        raise AssertionError("the default facade should be resident with a batcher")
+    res.generate(prompts[0], max_new_tokens=2, eos_token_id=None)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(EP_REQUESTS) as ex:
+        batch = list(ex.map(lambda q: res.generate(q, **kw), prompts))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts_res = launch_counts()
+    say(f"[entry] resident batch: {EP_REQUESTS} requests x {EP_NEW} tokens in {wall:.3f} s: "
+        f"{EP_REQUESTS * EP_NEW / wall:.1f} tokens/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {json.dumps(counts_res)}")
+    say(f"[entry] batcher tokens (bf16, printed, not compared): "
+        f"{[b[0, EP_PROMPT:].tolist() for b in batch[:2]]} ...")
+    _require_launched(counts_res, BATCHER_KERNELS, "resident facade (batcher)")
+    sampled = dict(kw, temperature=0.8, top_p=0.9, top_k=50, seed=7)
+    a, b = res.generate(prompts[0], **sampled), res.generate(prompts[0], **sampled)
+    _ep_check("batcher: a sampled request twice gives the same tokens", np.array_equal(a, b))
+    res.shutdown()
+    del res
+    torch.cuda.empty_cache()
+
+    # ---- the reference: resident at max_batch_size 1, Generator --------
+    ref = _ep_build("resident (max_batch_size 1)", ckpt, dict(base, max_batch_size=1), dev)
+    want = [ref.generate(q, **kw) for q in prompts]
+    _ep_logits_check(ref, store, prompts[0], dev)
+    dense_bytes = _tree_bytes(ref.params)
+    del ref
+    torch.cuda.empty_cache()
+
+    # ---- the offload facade: 10 of 16 experts, speculative blocks of 2 --
+    from moe_infinity_tpu_torch.store.blob import ExpertStore
+
+    stride = ExpertStore(str(store)).stride
+    budget = dense_bytes + EP_SLOTS * stride + stride // 2
+    torch.cuda.reset_peak_memory_stats()
+    off = _ep_build("offload", ckpt, dict(
+        base, dense_paging="off", device_memory_bytes=budget, speculative_decode=True,
+        speculative_block=2, max_batch_size=1), dev)
+    if off.engine is None or off.engine.arena.num_slots != EP_SLOTS:
+        raise AssertionError(f"offload facade: expected {EP_SLOTS} slots")
+    off.generate(prompts[0], max_new_tokens=4, eos_token_id=None)  # warm-up: captures
+    torch.cuda.synchronize()
+    reset_launches()
+    s0 = off.stats()
+    walls, got = [], []
+    for q in prompts:
+        t0 = time.perf_counter()
+        got.append(off.generate(q, **kw))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts_off = launch_counts()
+    st = off.stats()
+    per_tok = [w / (EP_NEW + 1) for w in walls]
+    say(f"[entry] offload: {EP_REQUESTS} requests one at a time, s/token (wall over new "
+        f"tokens + 1) {['%.4f' % x for x in per_tok]} mean {np.mean(per_tok):.4f}; hit rate "
+        f"{(st['hits'] - s0['hits']) / max(1, st['visits'] - s0['visits']):.4f} (all "
+        f"{st['hit_rate']:.4f}); evictions {st['evictions'] - s0['evictions']}; executions "
+        f"per block {st.get('mean_step_executions', 0):.2f}; graphs "
+        f"{json.dumps(off.engine.graph_stats())}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {json.dumps(counts_off)}")
+    _require_launched(counts_off, MIXTRAL_KERNELS, "offload facade")
+    if st["evictions"] - s0["evictions"] <= 0:
+        raise AssertionError("offload facade: no eviction in the run")
+    for i, (g_, w_) in enumerate(zip(got, want)):
+        _ep_check(f"entry: request {i} offload tokens equal resident Generator's",
+                  np.array_equal(g_, w_))
+    a = off.generate(prompts[1], **sampled)
+    _ep_check("offload: a sampled request (t 0.8, top-p 0.9, top-k 50, seed 7) twice gives "
+              "the same tokens", np.array_equal(a, off.generate(prompts[1], **sampled)))
+    _ep_check("offload: temperature 0 gives the greedy tokens",
+              np.array_equal(off.generate(prompts[1], temperature=0.0, **kw), want[1]))
+    forced = off.generate(prompts[2], logit_bias={777: 100.0}, **kw)
+    _ep_check("offload: logit_bias +100 on id 777 makes every new token 777",
+              bool((forced[0, EP_PROMPT:] == 777).all()))
+    return {k: counts_res.get(k, 0) + counts_off.get(k, 0)
+            for k in set(counts_res) | set(counts_off)}, off, want
+
+
+def _ep_check(what, ok):
+    say(f"[check] {what}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(what)
+
+
+class WordTokenizer:
+    """A stand-in word-level tokenizer for the server: id i <-> ``tok{i}``;
+    any other word maps to an id by its CRC. Its EOS id is the vocabulary's
+    size, which the model never produces."""
+
+    chat_template = None
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+        self.eos_token_id = vocab
+
+    def _id(self, w):
+        import zlib
+
+        if w.startswith("tok") and w[3:].isdigit() and int(w[3:]) < self.vocab:
+            return int(w[3:])
+        return zlib.crc32(w.encode()) % self.vocab
+
+    def __call__(self, text, return_tensors="np"):
+        return SimpleNamespace(input_ids=np.array([[self._id(w) for w in text.split()]]))
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(f"tok{int(i)}" for i in ids
+                        if not (skip_special_tokens and int(i) == self.eos_token_id))
+
+
+def phase_server(dev, off, want):
+    """Phase 20: the OpenAI-compatible server over phase 19's offload facade."""
+    import shutil
+    import threading
+    import urllib.request
+
+    from moe_infinity_tpu_torch.entrypoints.openai.server import build_server
+
+    tok = WordTokenizer(EP_CONFIG["vocab_size"])
+    srv = build_server(off, tok, "mixtral-8x7b-2l", "127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def call(path, payload=None, raw=False):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(url + path, data, {"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            body, code = r.read(), r.status
+        say(f"[server] {path} {json.dumps(payload)[:80] if payload else ''} -> HTTP {code} "
+            f"in {time.perf_counter() - t0:.3f} s")
+        _ep_check(f"server: {path} answers HTTP 200", code == 200)
+        return body.decode() if raw else json.loads(body)
+
+    try:
+        _ep_check("server: /health", call("/health") == {"status": "ok"})
+        _ep_check("server: /v1/models", call("/v1/models")["data"][0]["id"] == "mixtral-8x7b-2l")
+        n = 8
+        for i in (3, 4):
+            prompt = " ".join(f"tok{t}" for t in _ep_prompts()[i][0])
+            text = call("/v1/completions", {"prompt": prompt, "max_tokens": n,
+                                            "temperature": 0.0})["choices"][0]["text"]
+            ids = tok(prompt).input_ids
+            gen = off.generate(ids, max_new_tokens=n, eos_token_id=tok.eos_token_id)
+            _ep_check(f"server: greedy completion {i} equals the decode of MoE.generate",
+                      text == tok.decode(gen[0, ids.shape[1]:]))
+            same = text == tok.decode(want[i][0, EP_PROMPT:EP_PROMPT + n])
+            say(f"[server] completion {i} against the resident Generator's first {n} tokens: "
+                f"{'equal' if same else 'differ'} (printed, not held)")
+        prompt = " ".join(f"tok{t}" for t in _ep_prompts()[5][0])
+        r = call("/v1/completions", {"prompt": prompt, "max_tokens": n, "seed": 1})
+        _ep_check("server: sampled completion at the OpenAI defaults",
+                  len(r["choices"][0]["text"].split()) == n)
+        r = call("/v1/completions", {"prompt": prompt, "max_tokens": n, "n": 2, "logprobs": 3,
+                                     "seed": 2})
+        _ep_check("server: n=2 with logprobs=3",
+                  len(r["choices"]) == 2 and all(
+                      len(c["logprobs"]["tokens"]) == n and
+                      all(len(t) <= 3 for t in c["logprobs"]["top_logprobs"])
+                      for c in r["choices"]))
+        chat = {"messages": [{"role": "user", "content": prompt}], "max_tokens": n,
+                "temperature": 0.0}
+        text = call("/v1/chat/completions", chat)["choices"][0]["message"]["content"]
+        body = call("/v1/chat/completions", dict(chat, stream=True), raw=True)
+        deltas = [json.loads(line[6:])["choices"][0]["delta"].get("content", "")
+                  for line in body.splitlines()
+                  if line.startswith("data: ") and line != "data: [DONE]"]
+        _ep_check("server: streamed chat deltas join to the chat text",
+                  "".join(deltas) == text and len(text.split()) == n)
+        m = call("/metrics")
+        say(f"[server] tokens_generated {m['tokens_generated']} over {m['requests']} "
+            f"requests; expert cache {json.dumps(m['expert_cache'])}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        off.shutdown()
+        shutil.rmtree(EP_DIR, ignore_errors=True)
+        say(f"[entry] deleted {EP_DIR.name}/")
+
+
+def phase_entrypoints_and_server(dev):
+    """Phases 19 and 20 (the server runs over phase 19's offload facade)."""
+    t0 = time.perf_counter()
+    try:
+        counts, off, want = phase_entrypoints(dev)
+    except BaseException:
+        import shutil
+
+        shutil.rmtree(EP_DIR, ignore_errors=True)
+        raise
+    say(f"[phase] phase_entrypoints: {time.perf_counter() - t0:.1f} s")
+    phase_server(dev, off, want)
+    del off
+    torch.cuda.empty_cache()
+    return counts
+
+
 def sweep_decode_plans(dev):
     """``--decode-plans``: K4 at the Mixtral decode shape and at the long rows
     under split plans aimed at 2 to 8 blocks per SM (the wrapper's
@@ -3907,6 +4331,10 @@ def main() -> int:
         timed(phase_deepseek_offload)
         say(f"[card] {smi}")
         return 0
+    if "--entrypoints" in sys.argv[1:]:
+        timed(phase_entrypoints_and_server)
+        say(f"[card] {smi}")
+        return 0
     recs = timed(phase_kernels)
     counts = timed(phase_main_path)
     timed(phase_whole_path)
@@ -3926,10 +4354,11 @@ def main() -> int:
     mx_off_counts = timed(phase_mixtral_offload)
     timed(phase_mixtral_offload_whole_path)
     ds_off_counts = timed(phase_deepseek_offload)
+    ep_counts = timed(phase_entrypoints_and_server)
     for r in recs:
         r["launches"] = sum(c.get(r["name"], 0) for c in (
             counts, mix_counts, mla_counts, off_counts, spec_counts, sw_counts, sw_off_counts,
-            mx_off_counts, ds_off_counts))
+            mx_off_counts, ds_off_counts, ep_counts))
         r.pop("shape")
     say(f"[card] {smi}")
     print(json.dumps({"kernels": recs}), flush=True)

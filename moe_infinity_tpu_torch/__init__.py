@@ -10,7 +10,17 @@ caller passes ``device="cpu"``.
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["MoE", "resolve_device"]
+
+
+def __getattr__(name):
+    # ``from moe_infinity_tpu_torch import MoE``: the entry point, imported
+    # on first use (its module imports this package)
+    if name == "MoE":
+        from moe_infinity_tpu_torch.entrypoints.api import MoE
+
+        return MoE
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def resolve_device(device="cuda") -> torch.device:

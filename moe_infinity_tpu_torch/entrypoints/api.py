@@ -1,0 +1,351 @@
+"""User-facing MoE engine facade, from ``moe_infinity_tpu/entrypoints/api.py``.
+
+``MoE(checkpoint, config, device="cuda").generate(input_ids, ...)``:
+
+  1. read the checkpoint's ``config.json`` (``utils/hf_config.py``, no
+     ``transformers``) and detect the architecture;
+  2. ingest the checkpoint into the expert-major offload store and the dense
+     archive (``store/ingest.py``; a warm start when the store exists);
+  3. build the port's model and load its dense params onto the device;
+  4. pick the plan: every expert resident when the experts fit the device
+     budget, otherwise the slot-arena offload engine under the EAMC tracer,
+     predictor and prefetch;
+  5. drive generation through ``Generator`` (decoder-only), a
+     ``ContinuousBatcher`` for concurrent requests (resident decoder-only,
+     ``max_batch_size`` > 1), ``Seq2SeqGenerator`` or the offload engines.
+
+The device budget is ``device_memory_bytes``, else the device's memory
+times ``device_memory_ratio``: ``torch.cuda.get_device_properties`` on the
+card, and the JAX package's 16 GiB on the CPU, so that the CPU tests plan as
+the JAX facade does. CUDA graphs are on wherever the port's engine has them
+(Mixtral's offload engine, NLLB and Switch); DeepSeek's offload engine runs
+eagerly. The choice is made by family.
+
+Plans and options the port does not serve raise ``NotImplementedError``
+naming their ROADMAP queue-1 item: grok, arctic and opt, and load modes
+other than ``mmap`` (14); dense paging (16); multihost and any parallel
+degree above 1 (18); the seq2seq batchers (``max_batch_size`` > 1 on
+Switch or NLLB), prompt-lookup speculation (``speculative_tokens``) and
+the batcher's arena mode (an offload plan with ``speculative_decode`` and
+``max_batch_size`` > 1) (15); the host fallback (8).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from moe_infinity_tpu_torch import resolve_device
+from moe_infinity_tpu_torch.runtime.engine import _not_ported
+from moe_infinity_tpu_torch.utils.config import EngineConfig
+from moe_infinity_tpu_torch.utils.logger import get_logger
+
+logger = get_logger("api")
+
+_SEQ2SEQ_ARCHS = ("switch", "nllb")
+# the JAX facade's default budget: the HBM of the TPU it was written for
+_JAX_DEFAULT_HBM = 16 * 2**30
+
+
+def _registry() -> Dict[str, tuple]:
+    from moe_infinity_tpu_torch.models.deepseek_v2 import DeepseekV2Model, DeepseekV2Spec
+    from moe_infinity_tpu_torch.models.mixtral import MixtralModel, MixtralSpec
+    from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
+    from moe_infinity_tpu_torch.models.switch import SwitchModel, SwitchSpec
+
+    return {
+        "mixtral": (MixtralSpec, MixtralModel),
+        "deepseek": (DeepseekV2Spec, DeepseekV2Model),
+        "deepseek_v3": (DeepseekV2Spec, DeepseekV2Model),
+        "switch": (SwitchSpec, SwitchModel),
+        "nllb": (NllbSpec, NllbModel),
+    }
+
+
+# families whose offload engine runs its speculative steps as CUDA graphs
+_GRAPH_FAMILIES = ("mixtral", "switch", "nllb")
+
+
+def _dense_bytes_estimate(dense, compute_itemsize: int) -> int:
+    """Device bytes of the dense side after load_params' casting rule
+    (matrices in the compute dtype, 1-D tensors in f32)."""
+    total = 0
+    for name in dense.names():
+        shape = dense.shape(name)
+        n = int(np.prod(shape, dtype=np.int64))
+        total += n * (compute_itemsize if len(shape) >= 2 else 4)
+    return total
+
+
+def _tensor_bytes(tree) -> int:
+    from moe_infinity_tpu_torch.runtime.graphs import flat_tensors
+
+    return sum(t.numel() * t.element_size() for t in flat_tensors(tree))
+
+
+def _check_config(config: EngineConfig) -> None:
+    """Raise for the options whose plans the port does not serve."""
+    if config.multihost:
+        raise _not_ported("multihost serving", "18")
+    for name in ("data_parallel", "tensor_parallel", "expert_parallel", "sequence_parallel"):
+        if getattr(config, name) > 1:
+            raise _not_ported(f"{name}={getattr(config, name)} (one card only)", "18")
+    if config.load_mode != "mmap":
+        raise _not_ported(f"load_mode {config.load_mode!r}", "14")
+    if config.host_fallback:
+        raise _not_ported("host_fallback (runtime/host_exec.py)", "8")
+    if config.speculative_tokens > 0:
+        raise _not_ported("prompt-lookup speculation (speculative_tokens > 0)", "15")
+    if config.dense_paging == "on":
+        raise _not_ported("dense paging (runtime/dense_arena.py)", "16")
+
+
+class MoE:
+    """``MoE(checkpoint, config, device="cuda")``: config is an
+    ``EngineConfig``, a dict of its fields, or None (defaults, with the
+    offload store next to the checkpoint). ``device="cpu"`` runs the plain
+    PyTorch versions of the kernels."""
+
+    def __init__(
+        self,
+        model_name_or_path: Union[str, os.PathLike],
+        config: Union[EngineConfig, Dict[str, Any], None] = None,
+        *,
+        device="cuda",
+    ):
+        from moe_infinity_tpu_torch.memory import ExpertPredictor, ExpertTracer
+        from moe_infinity_tpu_torch.runtime.generate import Generator, ResidentStepper
+        from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+        from moe_infinity_tpu_torch.store.blob import DenseArchive, ExpertStore
+        from moe_infinity_tpu_torch.store.ingest import ingest_checkpoint
+        from moe_infinity_tpu_torch.utils.hf_config import (
+            detect_arch,
+            parse_geometry,
+            read_hf_config,
+        )
+
+        if config is None:
+            config = EngineConfig()
+        elif isinstance(config, dict):
+            config = EngineConfig.load_from_json(config)
+        self.config = config
+        self.device = resolve_device(device)
+        _check_config(config)
+        checkpoint = str(model_name_or_path)
+        if not config.offload_path:
+            config.offload_path = os.path.join(
+                checkpoint if os.path.isdir(checkpoint) else ".", "moe_tpu_store")
+
+        self.hf_config = read_hf_config(checkpoint)
+        self.arch = detect_arch(self.hf_config)
+        registry = _registry()
+        if self.arch not in registry:
+            raise _not_ported(f"architecture {self.arch!r} (ported: {sorted(registry)})", "14")
+        self.geometry = parse_geometry(self.hf_config)
+        seq2seq = self.arch in _SEQ2SEQ_ARCHS
+        if seq2seq and config.max_batch_size > 1:
+            raise _not_ported(
+                f"the seq2seq batchers (max_batch_size={config.max_batch_size} on "
+                f"{self.arch}; runtime/continuous_s2s.py, runtime/batching.py)", "15")
+
+        ingest_checkpoint(checkpoint, config.offload_path, self.hf_config,
+                          expert_dtype=config.expert_dtype)
+        dense = DenseArchive(config.offload_path)
+
+        spec_cls, model_cls = registry[self.arch]
+        compute_dtype = torch.float32 if config.expert_dtype == "float32" else torch.bfloat16
+        self.model = model_cls(spec_cls.from_hf(self.hf_config), compute_dtype, device=self.device)
+
+        # ---- the budget, and dense residency before any device load ----
+        budget = config.device_memory_bytes
+        if budget is None:
+            total = (torch.cuda.get_device_properties(self.device).total_memory
+                     if self.device.type == "cuda" else _JAX_DEFAULT_HBM)
+            budget = int(total * config.device_memory_ratio)
+        self.budget = budget
+        dense_est = _dense_bytes_estimate(dense, torch.finfo(compute_dtype).bits // 8)
+        dense_share = 1.0 if self.geometry.num_experts == 0 else 0.6
+        if config.dense_paging == "auto" and dense_est > budget * dense_share:
+            raise _not_ported(
+                f"dense paging (the dense side, {dense_est} B, exceeds {dense_share} of the "
+                f"{budget} B budget; runtime/dense_arena.py)", "16")
+        self.params = self.model.load_params(dense)
+        if config.fold_mla and hasattr(self.model, "fold_mla_params"):
+            self.params = self.model.fold_mla_params(self.params)
+
+        self.batcher = None
+        self.engine = None
+        self.last_result = None
+        store = ExpertStore(config.offload_path, load_mode=config.load_mode)
+        pinned_tier = None
+        if config.pinned_tier:
+            from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
+
+            pinned_tier = PinnedExpertTier(store, device=self.device)
+        expert_bytes = store.stride * store.num_layers * store.num_experts
+        dense_bytes = _tensor_bytes(self.params)
+        fits = expert_bytes <= budget - dense_bytes
+        if not fits and config.speculative_decode and config.max_batch_size > 1 and not seq2seq:
+            raise _not_ported(
+                "the batcher's arena mode (an offload plan with speculative_decode and "
+                f"max_batch_size={config.max_batch_size})", "15")
+
+        def offload_parts():
+            from moe_infinity_tpu_torch.runtime.arena import ExpertArena
+
+            num_slots = config.num_slots or max(
+                store.num_experts, int((budget - dense_bytes) // store.stride))
+            logger.info("offload plan: %d arena slots of %d (L x E) experts",
+                        num_slots, store.num_layers * store.num_experts)
+            arena = ExpertArena(store, num_slots, compute_dtype=compute_dtype,
+                                device=self.device, num_threads=config.num_threads,
+                                dequant_on_write=config.dequant_on_write,
+                                pinned_tier=pinned_tier)
+            tracer = ExpertTracer(config.trace_capacity, store.num_layers, store.num_experts,
+                                  store.meta.get("num_encoder_moe_layers", 0))
+            if config.trace_path and os.path.exists(config.trace_path):
+                tracer.load_trace(config.trace_path)
+            return dict(arena=arena, tracer=tracer, predictor=ExpertPredictor(tracer),
+                        prefetch=config.prefetch, impl=config.moe_impl,
+                        prefill_impl=config.prefill_impl,
+                        speculative=config.speculative_decode,
+                        spec_block=config.speculative_block,
+                        graphs=self.arch in _GRAPH_FAMILIES)
+
+        def resident_experts():
+            logger.info("experts fit the device (%.2f GB <= %.2f GB budget): resident plan",
+                        expert_bytes / 2**30, (budget - dense_bytes) / 2**30)
+            tree = ResidentProvider.from_store(store, dtype=compute_dtype,
+                                               device=self.device).pytree()
+            if config.fuse_gateup:
+                from moe_infinity_tpu_torch.ops.moe import fuse_gateup
+
+                tree["layers"] = [fuse_gateup(w) for w in tree["layers"]]
+            return tree
+
+        # ---- seq2seq: the enc-dec generator or the enc-dec offload engine
+        if seq2seq:
+            if fits:
+                from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
+
+                self.generator = Seq2SeqGenerator(
+                    self.model, self.params, resident_experts(), ResidentProvider.for_layer,
+                    impl=config.moe_impl)
+            else:
+                from moe_infinity_tpu_torch.runtime.engine_seq2seq import Seq2SeqOffloadEngine
+
+                parts = offload_parts()
+                self.engine = Seq2SeqOffloadEngine(self.model, self.params, parts.pop("arena"),
+                                                   **parts)
+                self.generator = self.engine  # the same generate() surface
+            return
+
+        # ---- decoder-only: resident stepper or the offload engine -------
+        if fits:
+            experts = resident_experts()
+            stepper = ResidentStepper(self.model, self.params, experts,
+                                      ResidentProvider.for_layer, impl=config.moe_impl,
+                                      prefill_impl=config.prefill_impl)
+        else:
+            from moe_infinity_tpu_torch.runtime.engine import OffloadEngine
+
+            parts = offload_parts()
+            self.engine = OffloadEngine(self.model, self.params, parts.pop("arena"), **parts)
+            stepper = self.engine
+        self.generator = Generator(stepper=stepper, max_seq_len=config.max_seq_len)
+
+        # continuous batching for concurrent serving over resident experts
+        if fits and config.max_batch_size > 1 \
+                and "key_valid" in self.model.forward.__code__.co_varnames:
+            from moe_infinity_tpu_torch.runtime.continuous import ContinuousBatcher
+
+            page_size = min(config.kv_page_size, config.max_seq_len)
+            pages = max(8, (config.max_seq_len // page_size) * (config.max_batch_size + 1))
+            self.batcher = ContinuousBatcher(
+                self.model, self.params, experts, ResidentProvider.for_layer,
+                impl=config.moe_impl, max_batch_size=config.max_batch_size,
+                page_size=page_size, num_pages=pages, max_cols=config.max_seq_len,
+                prefill_chunk=config.prefill_chunk,
+            )
+
+    # ---- generation -----------------------------------------------------
+    def generate(self, input_ids, **kwargs) -> np.ndarray:
+        """HF-like generate: max_new_tokens, eos_token_id (default: the
+        config's; a list stops on any member), pad_token_id, do_sample
+        (True defaults the temperature to 1.0), temperature, top_k, top_p,
+        min_p, the penalties, logit_bias, logprobs, seed. Returns [B, T']
+        ids. Concurrent batch-1 callers share the continuous batcher when
+        one is active; the rest run the generator (under the arena's
+        ``client_lock`` on an offload plan)."""
+        from moe_infinity_tpu_torch.runtime.continuous import RequestSampling
+        from moe_infinity_tpu_torch.runtime.sampling import normalize_logit_bias
+
+        if isinstance(input_ids, torch.Tensor):
+            input_ids = input_ids.cpu().numpy()
+        arr = np.atleast_2d(np.asarray(input_ids))
+        cfg_eos = getattr(self.hf_config, "eos_token_id", None)
+        if isinstance(cfg_eos, (list, tuple)) and not cfg_eos:
+            cfg_eos = None
+        kwargs.setdefault("eos_token_id", cfg_eos)
+        if (self.batcher is not None and arr.shape[0] == 1
+                and not kwargs.get("logprobs") and not kwargs.get("collect_trace")):
+            do_sample = kwargs.get("do_sample")
+            temp = kwargs.get("temperature", 1.0 if do_sample else 0.0)
+            if do_sample is False or (do_sample is None and temp == 0.0):
+                temp = 0.0
+            out = self.batcher.generate(
+                arr[0],
+                max_new_tokens=kwargs.get("max_new_tokens", 32),
+                eos_token_id=kwargs.get("eos_token_id"),
+                sampling=RequestSampling(
+                    temperature=float(temp),
+                    logit_bias=normalize_logit_bias(kwargs.get("logit_bias")),
+                    top_k=int(kwargs.get("top_k", 0) or 0),
+                    top_p=float(kwargs.get("top_p", 1.0)),
+                    min_p=float(kwargs.get("min_p", 0.0)),
+                    repetition_penalty=float(kwargs.get("repetition_penalty", 1.0)),
+                    presence_penalty=float(kwargs.get("presence_penalty", 0.0)),
+                    frequency_penalty=float(kwargs.get("frequency_penalty", 0.0)),
+                    seed=int(kwargs.get("seed", 0)),
+                ),
+            )
+            return out[None]
+        kw = dict(kwargs)
+        # HF semantics: do_sample=True defaults the temperature to 1.0;
+        # without it, greedy (an explicit temperature still wins)
+        kw.setdefault("temperature", 1.0 if kw.get("do_sample") else 0.0)
+        kw.pop("max_length", None)
+        kw.setdefault("max_new_tokens", 32)
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        if self.engine is not None:
+            # a direct engine run must not protect arena keys while another
+            # run holds its own
+            with self.engine.arena.client_lock:
+                result = self.generator.generate(arr, **kw)
+        else:
+            result = self.generator.generate(arr, **kw)
+        self.last_result = result
+        return result.sequences
+
+    # ---- observability ---------------------------------------------------
+    def hit_rate(self) -> float:
+        return self.engine.hit_rate() if self.engine else 1.0
+
+    def stats(self) -> dict:
+        return self.engine.stats() if self.engine else {}
+
+    def save_trace(self, path: Optional[str] = None) -> None:
+        """Persist the EAMC trace collection ('knowledge checkpoint')."""
+        if self.engine and self.engine.tracer:
+            self.engine.tracer.save_trace(path or self.config.trace_path)
+
+    def shutdown(self) -> None:
+        # the batcher first: its scheduler thread launches on the device
+        if self.batcher is not None:
+            self.batcher.shutdown()
+        if self.engine is not None:
+            self.engine.arena.shutdown()

@@ -43,6 +43,7 @@ from moe_infinity_tpu_torch.models.layers import KVCache, linear, rms_norm
 from moe_infinity_tpu_torch.ops import flash_attention as fa
 from moe_infinity_tpu_torch.ops import gmm as gm
 from moe_infinity_tpu_torch.ops.moe import _activate, _gffn_gather, grouped_ffn, pack_int4
+from moe_infinity_tpu_torch.store.blob import param_getter
 
 
 @dataclass(frozen=True)
@@ -150,17 +151,62 @@ class DeepseekV2Model:
     def __init__(self, spec: DeepseekV2Spec, compute_dtype=torch.bfloat16,
                  device="cuda", mesh=None, shared_in_pool: bool = False):
         if mesh is not None:
-            raise NotImplementedError("expert-parallel meshes are not ported")
+            raise NotImplementedError(
+                "expert-parallel meshes are not ported (ROADMAP queue-1 item 18)")
         self.spec = spec
         self.dtype = compute_dtype
         self.device = resolve_device(device)
         self.shared_in_pool = shared_in_pool and spec.n_shared_experts > 0
 
     # ---- params ----------------------------------------------------------
-    def load_params(self, dense, device_put=None):
-        raise NotImplementedError(
-            "loading a checkpoint waits for the port of the store (store/blob.py)"
-        )
+    def load_params(self, dense) -> Dict[str, Any]:
+        """The dense param tree on the model's device from a ``DenseArchive``
+        (``store/blob.py``): ``kv_b_proj`` [H*(Dn+Dv), R] splits into the
+        absorbed ``w_uk`` [H, Dn, R] and ``w_uv`` [H, Dv, R]."""
+        s = self.spec
+        get = param_getter(dense, self.dtype, self.device)
+        layers = []
+        for i in range(s.num_layers):
+            p = f"model.layers.{i}."
+            pl: Dict[str, Any] = {
+                "input_norm": get(p + "input_layernorm.weight"),
+                "post_norm": get(p + "post_attention_layernorm.weight"),
+                "kv_a": get(p + "self_attn.kv_a_proj_with_mqa.weight"),
+                "kv_a_norm": get(p + "self_attn.kv_a_layernorm.weight"),
+                "o": get(p + "self_attn.o_proj.weight"),
+            }
+            if s.q_lora_rank is None:
+                pl["q"] = get(p + "self_attn.q_proj.weight")
+            else:
+                pl["q_a"] = get(p + "self_attn.q_a_proj.weight")
+                pl["q_a_norm"] = get(p + "self_attn.q_a_layernorm.weight")
+                pl["q_b"] = get(p + "self_attn.q_b_proj.weight")
+            kv_b = dense.tensor(p + "self_attn.kv_b_proj.weight").reshape(
+                s.num_heads, s.qk_nope_head_dim + s.v_head_dim, s.kv_lora_rank)
+            pl["w_uk"] = kv_b[:, : s.qk_nope_head_dim].to(self.device, self.dtype).contiguous()
+            pl["w_uv"] = kv_b[:, s.qk_nope_head_dim:].to(self.device, self.dtype).contiguous()
+            if i < s.first_k_dense_replace:
+                pl["mlp_gate"] = get(p + "mlp.gate_proj.weight")
+                pl["mlp_up"] = get(p + "mlp.up_proj.weight")
+                pl["mlp_down"] = get(p + "mlp.down_proj.weight")
+            else:
+                pl["router"] = get(p + "mlp.gate.weight", torch.float32)
+                if s.router_variant == "v3":
+                    pl["router_bias"] = get(p + "mlp.gate.e_score_correction_bias",
+                                            torch.float32)
+                if s.n_shared_experts:
+                    pl["shared_gate"] = get(p + "mlp.shared_experts.gate_proj.weight")
+                    pl["shared_up"] = get(p + "mlp.shared_experts.up_proj.weight")
+                    pl["shared_down"] = get(p + "mlp.shared_experts.down_proj.weight")
+            layers.append(pl)
+        params: Dict[str, Any] = {
+            "embed": get("model.embed_tokens.weight"),
+            "final_norm": get("model.norm.weight"),
+            "layers": layers,
+        }
+        if not s.tie_embeddings and "lm_head.weight" in dense:
+            params["lm_head"] = get("lm_head.weight")
+        return params
 
     def init_random(self, generator: torch.Generator, expert_dtype: str = "bf16",
                     with_experts: bool = True):
@@ -562,7 +608,7 @@ class DeepseekV2Model:
         if layout != "flat":
             raise NotImplementedError(
                 f"stack_experts layout {layout!r}: the pre-tiled weight layout "
-                "(pack_tiled) is not ported; use layout='flat'"
+                "(pack_tiled) is not ported (ROADMAP queue 2, part 2); use layout='flat'"
             )
         return {k: torch.cat([lt[k] for lt in layer_trees], dim=0) for k in layer_trees[0]}
 

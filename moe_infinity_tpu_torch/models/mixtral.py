@@ -32,6 +32,7 @@ from moe_infinity_tpu_torch.models.layers import (
     rope_cos_sin,
 )
 from moe_infinity_tpu_torch.ops.moe import grouped_ffn, pack_int4, topk_router
+from moe_infinity_tpu_torch.store.blob import param_getter
 
 
 @dataclass(frozen=True)
@@ -81,16 +82,38 @@ class MixtralModel:
     def __init__(self, spec: MixtralSpec, compute_dtype=torch.bfloat16,
                  device="cuda", mesh=None):
         if mesh is not None:
-            raise NotImplementedError("expert-parallel meshes are not ported")
+            raise NotImplementedError(
+                "expert-parallel meshes are not ported (ROADMAP queue-1 item 18)")
         self.spec = spec
         self.dtype = compute_dtype
         self.device = resolve_device(device)
 
     # ---- params ----------------------------------------------------------
-    def load_params(self, dense, device_put=None):
-        raise NotImplementedError(
-            "loading a checkpoint waits for the port of the store (store/blob.py)"
-        )
+    def load_params(self, dense) -> Dict[str, Any]:
+        """The dense param tree on the model's device from a ``DenseArchive``
+        (``store/blob.py``), under HF's tensor names."""
+        s = self.spec
+        get = param_getter(dense, self.dtype, self.device)
+        layers = []
+        for i in range(s.num_layers):
+            p = f"model.layers.{i}."
+            layers.append({
+                "input_norm": get(p + "input_layernorm.weight"),
+                "post_norm": get(p + "post_attention_layernorm.weight"),
+                "q": get(p + "self_attn.q_proj.weight"),
+                "k": get(p + "self_attn.k_proj.weight"),
+                "v": get(p + "self_attn.v_proj.weight"),
+                "o": get(p + "self_attn.o_proj.weight"),
+                "router": get(p + "block_sparse_moe.gate.weight", torch.float32),
+            })
+        params: Dict[str, Any] = {
+            "embed": get("model.embed_tokens.weight"),
+            "final_norm": get("model.norm.weight"),
+            "layers": layers,
+        }
+        if not s.tie_embeddings and "lm_head.weight" in dense:
+            params["lm_head"] = get("lm_head.weight")
+        return params
 
     def init_random(self, generator: torch.Generator, expert_dtype: str = "bf16",
                     with_experts: bool = True):

@@ -41,6 +41,7 @@ from moe_infinity_tpu_torch.models.layers import (
     sinusoidal_embedding,
 )
 from moe_infinity_tpu_torch.ops.moe import grouped_ffn
+from moe_infinity_tpu_torch.store.blob import param_getter
 
 
 @dataclass(frozen=True)
@@ -59,6 +60,26 @@ class NllbSpec:
     decoder_start_token_id: int
     max_positions: int
     scale_embedding: bool
+
+    @classmethod
+    def from_hf(cls, config) -> "NllbSpec":
+        """From an HF ``NllbMoeConfig``-like object (attributes only)."""
+        return cls(
+            vocab_size=config.vocab_size,
+            d_model=config.d_model,
+            num_heads=config.encoder_attention_heads,
+            encoder_layers=config.encoder_layers,
+            decoder_layers=config.decoder_layers,
+            encoder_ffn_dim=config.encoder_ffn_dim,
+            decoder_ffn_dim=config.decoder_ffn_dim,
+            encoder_sparse_step=config.encoder_sparse_step,
+            decoder_sparse_step=config.decoder_sparse_step,
+            num_experts=config.num_experts,
+            pad_token_id=config.pad_token_id,
+            decoder_start_token_id=config.decoder_start_token_id,
+            max_positions=config.max_position_embeddings,
+            scale_embedding=getattr(config, "scale_embedding", True),
+        )
 
     def is_sparse(self, block: int, decoder: bool) -> bool:
         step = self.decoder_sparse_step if decoder else self.encoder_sparse_step
@@ -92,6 +113,58 @@ class NllbModel:
         self.route_margin = 0
 
     # ---- params ---------------------------------------------------------
+    def load_params(self, dense) -> Dict[str, Any]:
+        """The dense param tree on the model's device from a ``DenseArchive``
+        (``store/blob.py``). A sparse block's ``router_bias`` is zero (HF's
+        router classifier has none); benches set it for skewed routing."""
+        s = self.spec
+        get = param_getter(dense, self.dtype, self.device)
+
+        def attn(prefix):
+            return {
+                "q": get(prefix + "q_proj.weight"), "qb": get(prefix + "q_proj.bias"),
+                "k": get(prefix + "k_proj.weight"), "kb": get(prefix + "k_proj.bias"),
+                "v": get(prefix + "v_proj.weight"), "vb": get(prefix + "v_proj.bias"),
+                "o": get(prefix + "out_proj.weight"), "ob": get(prefix + "out_proj.bias"),
+            }
+
+        def stack(prefix, n, decoder):
+            blocks = []
+            for i in range(n):
+                p = f"{prefix}.layers.{i}."
+                b: Dict[str, Any] = {
+                    "self_attn": attn(p + "self_attn."),
+                    "ln0_w": get(p + "self_attn_layer_norm.weight"),
+                    "ln0_b": get(p + "self_attn_layer_norm.bias"),
+                    "lnf_w": get(p + "ff_layer_norm.weight"),
+                    "lnf_b": get(p + "ff_layer_norm.bias"),
+                }
+                if decoder:
+                    b["cross_attn"] = attn(p + "cross_attention.")
+                    b["lnc_w"] = get(p + "cross_attention_layer_norm.weight")
+                    b["lnc_b"] = get(p + "cross_attention_layer_norm.bias")
+                if s.is_sparse(i, decoder):
+                    b["router"] = get(p + "ffn.router.classifier.weight", torch.float32)
+                    b["router_bias"] = torch.zeros(s.num_experts, dtype=torch.float32,
+                                                   device=self.device)
+                else:
+                    b["fc1"] = get(p + "ffn.fc1.weight")
+                    b["fc1b"] = get(p + "ffn.fc1.bias")
+                    b["fc2"] = get(p + "ffn.fc2.weight")
+                    b["fc2b"] = get(p + "ffn.fc2.bias")
+                blocks.append(b)
+            return blocks
+
+        return {
+            "embed": get("model.shared.weight"),
+            "enc_blocks": stack("model.encoder", s.encoder_layers, False),
+            "enc_final_ln_w": get("model.encoder.layer_norm.weight"),
+            "enc_final_ln_b": get("model.encoder.layer_norm.bias"),
+            "dec_blocks": stack("model.decoder", s.decoder_layers, True),
+            "dec_final_ln_w": get("model.decoder.layer_norm.weight"),
+            "dec_final_ln_b": get("model.decoder.layer_norm.bias"),
+        }
+
     def init_random(self, generator: torch.Generator, device=None, expert_dtype="int4",
                     with_experts: bool = True):
         """Random params and resident expert tree at spec geometry, built

@@ -46,6 +46,7 @@ from moe_infinity_tpu_torch.models.layers import (
     t5_position_bias,
 )
 from moe_infinity_tpu_torch.ops.moe import grouped_ffn
+from moe_infinity_tpu_torch.store.blob import param_getter
 
 
 @dataclass(frozen=True)
@@ -131,11 +132,55 @@ class SwitchModel:
         self.activation = "gelu_tanh" if spec.dense_act_gelu else "relu"
 
     # ---- params ---------------------------------------------------------
-    def load_params(self, dense, device_put=None):
-        raise NotImplementedError(
-            "loading Switch checkpoints is not ported (ROADMAP queue-1 item 14); "
-            "use init_random or bridge.to_torch"
-        )
+    def load_params(self, dense) -> Dict[str, Any]:
+        """The dense param tree on the model's device from a ``DenseArchive``
+        (``store/blob.py``); the T5 relative bias of each stack comes from
+        its block 0."""
+        s = self.spec
+        get = param_getter(dense, self.dtype, self.device)
+
+        def stack(prefix, n, decoder):
+            blocks = []
+            for i in range(n):
+                p = f"{prefix}.block.{i}.layer."
+                b: Dict[str, Any] = {
+                    "ln0": get(p + "0.layer_norm.weight"),
+                    "q": get(p + "0.SelfAttention.q.weight"),
+                    "k": get(p + "0.SelfAttention.k.weight"),
+                    "v": get(p + "0.SelfAttention.v.weight"),
+                    "o": get(p + "0.SelfAttention.o.weight"),
+                }
+                if i == 0:
+                    b["rel_bias"] = get(p + "0.SelfAttention.relative_attention_bias.weight",
+                                        torch.float32)
+                ff = "2" if decoder else "1"
+                if decoder:
+                    b["ln_cross"] = get(p + "1.layer_norm.weight")
+                    b["cq"] = get(p + "1.EncDecAttention.q.weight")
+                    b["ck"] = get(p + "1.EncDecAttention.k.weight")
+                    b["cv"] = get(p + "1.EncDecAttention.v.weight")
+                    b["co"] = get(p + "1.EncDecAttention.o.weight")
+                b["ln_ff"] = get(p + f"{ff}.layer_norm.weight")
+                if s.is_sparse(i, decoder):
+                    b["router"] = get(p + f"{ff}.mlp.router.classifier.weight", torch.float32)
+                else:
+                    # the dense FF is DenseActDense (is_gated_act picks only
+                    # the activation function)
+                    b["wi"] = get(p + f"{ff}.mlp.wi.weight")
+                    b["wo"] = get(p + f"{ff}.mlp.wo.weight")
+                blocks.append(b)
+            return blocks
+
+        params: Dict[str, Any] = {
+            "embed": get("shared.weight"),
+            "enc_blocks": stack("encoder", s.num_encoder_layers, False),
+            "enc_final_ln": get("encoder.final_layer_norm.weight"),
+            "dec_blocks": stack("decoder", s.num_decoder_layers, True),
+            "dec_final_ln": get("decoder.final_layer_norm.weight"),
+        }
+        if not s.tie_embeddings and "lm_head.weight" in dense:
+            params["lm_head"] = get("lm_head.weight")
+        return params
 
     def init_random(self, generator: torch.Generator, device=None, expert_dtype=None,
                     with_experts: bool = True):

@@ -21,13 +21,19 @@ gathered view. An MLA model (DeepSeek) reads the gathered view of its latent
 and rope-key pools on every step and hands it to K5 on a one-token step, as
 the JAX model does; the pools take each model's own cache slot shapes. One
 scheduler thread runs every step; the page table goes to
-the device and the argmax comes back to the host each step, as in the JAX
+the device and the tokens come back to the host each step, as in the JAX
 version. A step that raises fails every active request's future, rebuilds
 the pools and leaves the thread serving.
 
-Waits for later ports: sampled requests (``RequestSampling`` other than
-greedy raises ``NotImplementedError`` at ``submit``) and offload mode
-(``arena=``).
+Requests carry their own sampling settings (``RequestSampling``): the
+step's logits go through ``runtime/sampling.py::sample_rows`` with per-row
+temperature, top-k/p, min-p, penalties (counts [B, V] kept on the device)
+and ``logit_bias``; row b draws from the generator of (seed, tokens it has
+generated), so a request samples the same alone or batched. A batch of
+plain greedy requests takes the argmax alone.
+
+Offload mode (``arena=``, JAX's pooled speculative steps) is not ported
+(ROADMAP queue-1 item 15).
 """
 
 from __future__ import annotations
@@ -45,12 +51,18 @@ import torch
 
 from moe_infinity_tpu_torch.runtime.generate import eos_hit
 from moe_infinity_tpu_torch.runtime.paged_kv import PageAllocator, PagedKVCache
+from moe_infinity_tpu_torch.runtime.sampling import (
+    RowParams,
+    normalize_logit_bias,
+    reset_rows,
+    sample_rows,
+    update_counts,
+)
 
 
 @dataclass(frozen=True)
 class RequestSampling:
-    """Per-request sampling settings (the JAX signature). Only greedy
-    requests are served by the port."""
+    """Per-request sampling settings for batched serving."""
 
     temperature: float = 0.0
     top_k: int = 0
@@ -60,6 +72,8 @@ class RequestSampling:
     presence_penalty: float = 0.0
     frequency_penalty: float = 0.0
     seed: int = 0
+    # ((token_id, bias), ...) added to the row's raw logits every step
+    # (OpenAI logit_bias; normalized from a dict by submit())
     logit_bias: Optional[tuple] = None
 
     @property
@@ -70,6 +84,14 @@ class RequestSampling:
             and self.presence_penalty == 0.0
             and self.frequency_penalty == 0.0
             and not self.logit_bias
+        )
+
+    @property
+    def needs_counts(self) -> bool:
+        return (
+            self.repetition_penalty != 1.0
+            or self.presence_penalty != 0.0
+            or self.frequency_penalty != 0.0
         )
 
 
@@ -83,6 +105,7 @@ class _Req:
     max_new_tokens: int
     eos_token_id: Optional[int]
     on_token: Optional[Callable[[int], None]] = None
+    sampling: RequestSampling = _GREEDY
     future: Future = field(default_factory=Future)
 
 
@@ -123,7 +146,7 @@ class ContinuousBatcher:
     ):
         if arena is not None:
             raise NotImplementedError(
-                "offload mode (arena=) waits for the port of runtime/arena.py"
+                "the batcher's offload mode (arena=) is not ported (ROADMAP queue-1 item 15)"
             )
         if max_cols % page_size != 0:
             raise ValueError(
@@ -159,6 +182,13 @@ class ContinuousBatcher:
         self._valid = np.zeros((self.B, max_cols), dtype=bool)
         self._logical = np.zeros(self.B, dtype=np.int64)
         self._last_tokens = np.zeros(self.B, dtype=np.int64)
+        # per-row sampling state: token counts on the device for the
+        # penalties; logit_bias rows with a host mirror, uploaded on change
+        V = model.spec.vocab_size
+        self._counts_full = torch.zeros((self.B, V), dtype=torch.int32, device=self._device)
+        self._counts_gen = torch.zeros((self.B, V), dtype=torch.int32, device=self._device)
+        self._bias_host = np.zeros((self.B, V), np.float32)
+        self._bias_dev = torch.from_numpy(self._bias_host).to(self._device)
         self._slots = [_Slot() for _ in range(self.B)]
         self._col = 0  # shared cache-column clock
         # width -> [steps, host seconds] (each step ends in a host read)
@@ -181,19 +211,18 @@ class ContinuousBatcher:
                **sampling_kwargs) -> Future:
         """Queue one request; its future resolves to the prompt followed by
         the generated tokens. on_token: optional callback fired from the
-        scheduler thread for every generated token. Sampling settings (a
-        ``RequestSampling`` or its fields as keywords) must be greedy."""
+        scheduler thread for every generated token. Per-request sampling:
+        a ``RequestSampling`` or its fields as keywords (temperature, top_k,
+        top_p, min_p, the penalties, seed, logit_bias)."""
         if sampling is None:
             sampling_kwargs.pop("do_sample", None)
-            if not sampling_kwargs.get("logit_bias"):
+            if sampling_kwargs.get("logit_bias"):
+                sampling_kwargs["logit_bias"] = normalize_logit_bias(sampling_kwargs["logit_bias"])
+            else:
                 sampling_kwargs.pop("logit_bias", None)
             sampling = RequestSampling(**sampling_kwargs) if sampling_kwargs else _GREEDY
-        if not sampling.greedy_plain:
-            raise NotImplementedError(
-                "only greedy requests are ported; sampling, penalties and "
-                "logit_bias wait for the port of runtime/sampling.py"
-            )
-        r = _Req(np.asarray(input_ids).reshape(-1), max_new_tokens, eos_token_id, on_token)
+        r = _Req(np.asarray(input_ids).reshape(-1), max_new_tokens, eos_token_id, on_token,
+                 sampling)
         self._queue.put(r)
         return r.future
 
@@ -247,6 +276,19 @@ class ContinuousBatcher:
             slot.active = True
             self._valid[b, :] = False
             self._logical[b] = 0
+            if req.sampling.needs_counts:
+                keep = torch.ones(self.B, dtype=torch.int32, device=self._device)
+                keep[b] = 0
+                self._counts_full, self._counts_gen = reset_rows(
+                    self._counts_full, self._counts_gen, keep)
+            if req.sampling.logit_bias or self._bias_host[b].any():
+                # normalize here too: submit(sampling=RequestSampling(...))
+                # may carry a raw {token: bias} dict
+                self._bias_host[b] = 0.0
+                for t, v in normalize_logit_bias(req.sampling.logit_bias) or ():
+                    if 0 <= t < self._bias_host.shape[1]:
+                        self._bias_host[b, t] = v
+                self._bias_dev = torch.from_numpy(self._bias_host).to(self._device)
         return any(s.active for s in self._slots)
 
     def _finish(self, slot: _Slot):
@@ -279,6 +321,9 @@ class ContinuousBatcher:
             self._valid[:] = False
 
     def _loop(self):
+        if self._device.type == "cuda":
+            # a new thread launches on the current device: name it
+            torch.cuda.set_device(self._device)
         with torch.inference_mode():
             while not self._shutdown:
                 self._reset_if_idle()
@@ -297,6 +342,42 @@ class ContinuousBatcher:
             for_layer=self._for_layer, impl=self._impl,
             rope_positions=rope_pos, key_valid=valid,
         )
+
+    def _next_tokens(self, logits, toks, n_feed, W: int) -> np.ndarray:
+        """[B, W] next tokens on the host: the argmax of every column for a
+        batch of plain greedy requests; otherwise each row's token from its
+        last fed column through ``sample_rows``, after this step's fed
+        tokens are counted (prompt tokens for prefill rows, the previously
+        generated token for decode rows)."""
+        active = [s for s in self._slots if s.active]
+        if all(s.req.sampling.greedy_plain for s in active):
+            return torch.argmax(logits, dim=-1).cpu().numpy()
+        dev = self._device
+        if any(s.req.sampling.needs_counts for s in active):
+            fed_valid = np.zeros((self.B, W), dtype=bool)
+            gen_mask = np.zeros((self.B, W), dtype=bool)
+            for b, s in enumerate(self._slots):
+                if not s.active or n_feed[b] == 0:
+                    continue
+                fed_valid[b, : int(n_feed[b])] = True
+                # a decode row feeds a generated token at column 0; its first
+                # feed is the prompt's last token only while generated is empty
+                gen_mask[b, 0] = not s.prefilling and len(s.generated) > 0
+            update_counts(self._counts_full, self._counts_gen,
+                          torch.from_numpy(toks).to(dev), torch.from_numpy(fed_valid).to(dev),
+                          torch.from_numpy(gen_mask).to(dev))
+        sp = [s.req.sampling if s.active else _GREEDY for s in self._slots]
+        rp = RowParams.from_lists(
+            [p.temperature for p in sp], [p.top_k for p in sp], [p.top_p for p in sp],
+            [p.min_p for p in sp], [p.repetition_penalty for p in sp],
+            [p.presence_penalty for p in sp], [p.frequency_penalty for p in sp], device=dev)
+        idx = torch.from_numpy(np.maximum(n_feed - 1, 0)).to(dev)
+        row = logits.gather(1, idx[:, None, None].expand(-1, 1, logits.shape[-1]))[:, 0]
+        seeds = [p.seed if p.temperature > 0.0 else None for p in sp]
+        counters = [len(s.generated) if s.active else 0 for s in self._slots]
+        tok = sample_rows(row, seeds, counters, self._counts_full, self._counts_gen, rp,
+                          self._bias_dev).cpu().numpy()
+        return np.broadcast_to(tok[:, None], (self.B, W))
 
     def _step_iteration(self):
         t0 = time.perf_counter()
@@ -352,7 +433,7 @@ class ContinuousBatcher:
             torch.from_numpy(rope_pos).to(dev),
             torch.from_numpy(self._valid).to(dev),
         )
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()  # [B, W]
+        nxt = self._next_tokens(logits, toks, n_feed, W)
         self._col += W
         # ---- bookkeeping ------------------------------------------------
         for b, s in enumerate(self._slots):

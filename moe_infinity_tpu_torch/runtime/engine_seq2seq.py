@@ -53,9 +53,13 @@ One difference from the JAX engine: only capacity errors
 per-layer path; here a failed CUDA launch is a ``RuntimeError`` too, so such
 errors are raised, never hidden behind another path.
 
+Sampled requests (``runtime/sampling.py``) take the speculative step or
+the per-layer path, one token a step; the k-step blocks stay plain greedy,
+as in JAX.
+
 Not ported (each raises ``NotImplementedError``): direct-tier layers
-(ROADMAP queue-1 item 9.4), stream decode (13), dense-layer paging (16), the
-host fallback (8, ``host_exec.py``) and sampled decode (11).
+(ROADMAP queue-1 item 9.4), stream decode (13), dense-layer paging (16) and
+the host fallback (8, ``host_exec.py``).
 """
 
 from __future__ import annotations
@@ -87,8 +91,8 @@ from moe_infinity_tpu_torch.runtime.generate import (
     GenerationResult,
     _bucket_len,
     _Clock,
+    _Logprobs,
     eos_hit,
-    require_greedy,
 )
 from moe_infinity_tpu_torch.runtime.graphs import (
     CudaGraphBackend,
@@ -97,6 +101,7 @@ from moe_infinity_tpu_torch.runtime.graphs import (
     flat_tensors,
     step_positions,
 )
+from moe_infinity_tpu_torch.runtime.sampling import Sampler, params_from_kwargs
 from moe_infinity_tpu_torch.utils.logger import get_logger
 
 _log = get_logger("engine_seq2seq")
@@ -609,16 +614,32 @@ class Seq2SeqOffloadEngine(_LayerClock):
         eos_token_id: Optional[int] = 1,
         pad_token_id: int = 0,
         decoder_start_token_id: Optional[int] = None,
+        temperature: float = 0.0,
+        do_sample: Optional[bool] = None,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        min_p: float = 0.0,
+        repetition_penalty: float = 1.0,
+        presence_penalty: float = 0.0,
+        frequency_penalty: float = 0.0,
+        logprobs: int = 0,
+        logit_bias=None,
+        seed: int = 0,
         cache_len: Optional[int] = None,
-        **sampling,
     ) -> GenerationResult:
-        """Greedy decode of ``max_new_tokens`` per row. ``sampling`` takes
-        the JAX signature's sampling keywords; any that asks for more than
-        argmax raises NotImplementedError. cache_len: the decoder KV
+        """Decode ``max_new_tokens`` per row, each token picked by the sampler
+        (``runtime/sampling.py``); plain greedy requests run in speculative
+        k-step blocks when ``spec_block`` > 1. cache_len: the decoder KV
         capacity (default: bucketed from max_new_tokens). ``stats`` of the
         result: encode_ms and decode_ms on the device's timeline, and
         decode_steps, the tokens committed per row."""
-        require_greedy(**sampling)
+        sp = params_from_kwargs(
+            temperature=temperature, do_sample=do_sample, top_k=top_k, top_p=top_p,
+            min_p=min_p, repetition_penalty=repetition_penalty,
+            presence_penalty=presence_penalty, frequency_penalty=frequency_penalty,
+            logprobs=logprobs, logit_bias=logit_bias,
+        )
+        sampler, sstate, lps = Sampler(sp), None, _Logprobs(sp.logprobs)
         model, s = self.model, self.model.spec
         dev = model.device
         input_ids = np.atleast_2d(np.asarray(input_ids))
@@ -661,7 +682,7 @@ class Seq2SeqOffloadEngine(_LayerClock):
         step = steps = 0
         while step < max_new_tokens:
             it0 = _time.perf_counter()
-            if self.speculative and self.spec_block > 1:
+            if self.speculative and self.spec_block > 1 and sp.trivial:
                 k = quantize_block(max_new_tokens - step, self.spec_block)
                 try:
                     toks, kvs = self._speculative_block(cur_tok, step, kvs, mask, cross,
@@ -704,7 +725,12 @@ class Seq2SeqOffloadEngine(_LayerClock):
                     self.speculative = False
             if logits is None:
                 logits = self.decode_step(cur_tok, step, kvs, mask, cross, seq_ids)
-            nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy().astype(np.int64)
+            if sstate is None:
+                sstate = sampler.init(B, logits.shape[-1], prompt_ids=np.full((B, 1), start),
+                                      seed=seed, device=dev)
+            sout, sstate = sampler(logits[:, -1, :], sstate)
+            lps.record(sout)
+            nxt = sout.token.cpu().numpy().astype(np.int64)
             out[~finished, step + 1] = nxt[~finished]
             num_gen[~finished] += 1
             steps = step + 1
@@ -724,6 +750,7 @@ class Seq2SeqOffloadEngine(_LayerClock):
             num_generated=num_gen,
             stats={"encode_ms": clock.ms(t0, t1), "decode_ms": clock.ms(t1, t2),
                    "decode_steps": steps},
+            **lps.fields(),
         )
 
     def stats(self) -> dict:

@@ -3,25 +3,29 @@
 * ``Generator`` over a stepper (decoder-only models): a ``ResidentStepper``
   (every expert resident) or the offload engine
   (``runtime/engine.py::OffloadEngine``). It prefills the prompt in one
-  forward (K2; an einsum softmax for an MLA model), then takes greedy
-  one-token steps over a contiguous KV cache (K1, or K5 for MLA), reading
-  each step's token on the host as the JAX loop does. A speculative stepper
-  with ``decode_block`` decodes in greedy k-step blocks instead (JAX
-  ``runtime/generate.py:505-590``), halving its ``spec_block`` on a
+  forward (K2; an einsum softmax for an MLA model), then takes one-token
+  steps over a contiguous KV cache (K1, or K5 for MLA), reading each step's
+  token on the host as the JAX loop does. A speculative stepper with
+  ``decode_block`` decodes plain greedy requests in k-step blocks instead
+  (JAX ``runtime/generate.py:505-590``), halving its ``spec_block`` on a
   capacity error.
 * ``Seq2SeqGenerator`` (encoder-decoder): encodes once, computes the
-  cross-attention K/V, then decodes greedily in a Python loop. On the card
-  each step is one replay of a CUDA graph per (B, capacity, S_enc)
+  cross-attention K/V, then decodes in a Python loop. On the card each
+  step is one replay of a CUDA graph per (B, capacity, S_enc)
   (``runtime/graphs.py``), the counterpart of the JAX version's jitted
   ``_step``: the token and the step are its device inputs, and the
   generator owns the K/V caches, cross K/V and mask it reads
-  (``graphs=False`` runs the step eagerly). The loop keeps the tokens on
-  the device and copies them to the host once at the end; with
-  ``eos_token_id`` set it reads each step's tokens on the host, outside the
-  graph, to stop finished rows, as the JAX version does.
+  (``graphs=False`` runs the step eagerly). A plain greedy loop keeps the
+  tokens on the device and copies them to the host once at the end; with
+  ``eos_token_id`` set, or any sampling, it reads each step's tokens on the
+  host, as the JAX version does.
 
-Sampled decode, logprobs and ``decode_scan`` wait for the port of
-``runtime/sampling.py``; asking for them raises ``NotImplementedError``.
+Both take the JAX signature's sampling keywords (``runtime/sampling.py``:
+temperature, top-k/p, min-p, penalties, ``logit_bias``, logprobs with
+``top_logprobs``/``top_tokens`` in ``GenerationResult``); the sampler runs
+as tensor ops on the model's device after each step's logits.
+``decode_scan`` (the JAX on-device scan) raises ``NotImplementedError``
+(ROADMAP queue-1 item 11).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from moe_infinity_tpu_torch.runtime.graphs import (
     flat_tensors,
     step_positions,
 )
+from moe_infinity_tpu_torch.runtime.sampling import Sampler, params_from_kwargs
 from moe_infinity_tpu_torch.utils.logger import get_logger
 
 _log = get_logger("generate")
@@ -60,22 +65,6 @@ def _bucket_len(n: int, buckets=(16, 32, 64, 128, 256, 512, 1024, 2048, 4096)) -
     return ((n + 1023) // 1024) * 1024
 
 
-def require_greedy(*, temperature=0.0, do_sample=None, top_k=0, top_p=1.0,
-                   min_p=0.0, repetition_penalty=1.0, presence_penalty=0.0,
-                   frequency_penalty=0.0, logprobs=0, logit_bias=None,
-                   seed=0) -> None:
-    """Raise NotImplementedError for any sampling keyword that asks for more
-    than greedy argmax (top_k/top_p/min_p/seed only act when sampling)."""
-    sampled = do_sample if do_sample is not None else temperature != 0.0
-    if (sampled and temperature != 0.0) or repetition_penalty != 1.0 \
-            or presence_penalty != 0.0 or frequency_penalty != 0.0 \
-            or logprobs or logit_bias:
-        raise NotImplementedError(
-            "only greedy decode is ported; sampling, penalties, logprobs "
-            "and logit_bias wait for the port of runtime/sampling.py"
-        )
-
-
 @dataclass
 class GenerationResult:
     # decoder-only: [B, prompt + new] padded with pad_token_id;
@@ -85,6 +74,30 @@ class GenerationResult:
     router_trace: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None
     # encode_ms / decode_ms: device time (CUDA events) or host time (CPU)
     stats: dict = field(default_factory=dict)
+    # with logprobs: [B, steps], [B, steps, N], [B, steps, N]
+    token_logprobs: Optional[np.ndarray] = None
+    top_logprobs: Optional[np.ndarray] = None
+    top_tokens: Optional[np.ndarray] = None
+
+
+class _Logprobs:
+    """Host copies of each sampled step's logprobs, when asked for."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.tok, self.top, self.ids = [], [], []
+
+    def record(self, sout) -> None:
+        if self.n > 0:
+            self.tok.append(sout.logprob.cpu().numpy())
+            self.top.append(sout.top_logprobs.cpu().numpy())
+            self.ids.append(sout.top_tokens.cpu().numpy())
+
+    def fields(self) -> dict:
+        if not self.tok:
+            return {}
+        return {"token_logprobs": np.stack(self.tok, 1), "top_logprobs": np.stack(self.top, 1),
+                "top_tokens": np.stack(self.ids, 1)}
 
 
 class _Clock:
@@ -112,12 +125,16 @@ class ResidentStepper:
     """Whole-model forward over fully resident experts (decoder-only)."""
 
     def __init__(self, model, params, experts, for_layer: Callable, *,
-                 impl: str = "ragged"):
+                 impl: str = "ragged", prefill_impl: Optional[str] = None):
+        """impl: the grouped-FFN implementation of one-token steps
+        (``"pallas"`` is K3); prefill_impl: that of longer steps (default
+        ``impl``)."""
         self.model = model
         self.params = params
         self.experts = experts
         self._for_layer = for_layer
         self._impl = impl
+        self._prefill_impl = prefill_impl or impl
 
     def init_cache(self, batch: int, max_len: int):
         return self.model.init_cache(batch, max_len)
@@ -130,28 +147,31 @@ class ResidentStepper:
 
     def forward(self, tokens, positions, kv, kv_len: int, seq_ids=None):
         """(logits [B, T, V] f32, kv, router trace)."""
+        impl = self._impl if tokens.shape[1] == 1 else self._prefill_impl
         return self.model.forward(
             self.params, self.experts, tokens, positions, kv, kv_len,
-            for_layer=self._for_layer, impl=self._impl,
+            for_layer=self._for_layer, impl=impl,
         )
 
     def decode_scan(self, *args, **kwargs):
         raise NotImplementedError(
-            "decode_scan (the on-device decode loop) waits for the port of "
-            "runtime/sampling.py"
+            "decode_scan (the JAX package's on-device lax.scan decode loop) is not "
+            "ported (ROADMAP queue-1 item 11)"
         )
 
 
 class Generator:
-    """Host-side greedy generation loop over a stepper (decoder-only)."""
+    """Host-side generation loop over a stepper (decoder-only)."""
 
     def __init__(self, model=None, params=None, experts=None,
                  for_layer: Optional[Callable] = None, *, stepper=None,
-                 impl: str = "ragged", max_seq_len: int = 2048):
+                 impl: str = "ragged", prefill_impl: Optional[str] = None,
+                 max_seq_len: int = 2048):
         if stepper is None:
             if model is None or params is None:
                 raise ValueError("pass either stepper= or (model, params, experts, for_layer)")
-            stepper = ResidentStepper(model, params, experts, for_layer, impl=impl)
+            stepper = ResidentStepper(model, params, experts, for_layer, impl=impl,
+                                      prefill_impl=prefill_impl)
         self.stepper = stepper
         self.max_seq_len = max_seq_len
 
@@ -163,20 +183,29 @@ class Generator:
         *,
         eos_token_id: Optional[int] = None,
         pad_token_id: int = 0,
+        temperature: float = 0.0,
+        do_sample: Optional[bool] = None,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        min_p: float = 0.0,
+        repetition_penalty: float = 1.0,
+        presence_penalty: float = 0.0,
+        frequency_penalty: float = 0.0,
+        logprobs: int = 0,
+        logit_bias=None,
+        seed: int = 0,
         collect_trace: bool = False,
         cache_len: Optional[int] = None,
-        **sampling,
     ) -> GenerationResult:
-        """Greedy: prefill, then one step per new token. ``sampling`` takes
-        the JAX signature's sampling keywords; any that asks for more than
-        argmax raises NotImplementedError. cache_len: the KV capacity
-        (default: bucketed from the prompt and the new tokens), so that a
-        warm-up and a timed call share one capacity, and so one graph per
-        step shape. A speculative stepper with ``decode_block`` and a
-        ``spec_block`` above 1 decodes in greedy k-step blocks when no trace
-        is collected: each yields k tokens, consumed one per step by the
-        bookkeeping below; a capacity error halves ``spec_block``."""
-        require_greedy(**sampling)
+        """Prefill, then one step per new token, each token picked by the
+        sampler (``runtime/sampling.py``) from the step's logits.
+        cache_len: the KV capacity (default: bucketed from the prompt and
+        the new tokens), so that a warm-up and a timed call share one
+        capacity, and so one graph per step shape. A speculative stepper
+        with ``decode_block`` and a ``spec_block`` above 1 decodes plain
+        greedy requests (no penalty, bias or logprobs) in k-step blocks when
+        no trace is collected: each yields k tokens, consumed one per step
+        by the bookkeeping below; a capacity error halves ``spec_block``."""
         input_ids = np.asarray(input_ids)
         if input_ids.ndim == 1:
             input_ids = input_ids[None]
@@ -184,6 +213,13 @@ class Generator:
         cap = cache_len or min(self.max_seq_len, _bucket_len(T + max_new_tokens))
         if T + max_new_tokens > cap:
             raise ValueError(f"prompt {T} + new {max_new_tokens} exceeds capacity {cap}")
+        sp = params_from_kwargs(
+            temperature=temperature, do_sample=do_sample, top_k=top_k, top_p=top_p,
+            min_p=min_p, repetition_penalty=repetition_penalty,
+            presence_penalty=presence_penalty, frequency_penalty=frequency_penalty,
+            logprobs=logprobs, logit_bias=logit_bias,
+        )
+        sampler = Sampler(sp)
         stepper = self.stepper
         dev = stepper.model.device
         kv = stepper.init_cache(B, cap)
@@ -195,13 +231,18 @@ class Generator:
         traces = []
         if collect_trace:
             traces.append((trace[0].cpu().numpy(), trace[1].cpu().numpy()))
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1)
+        state = sampler.init(B, logits.shape[-1], prompt_ids=input_ids, seed=seed, device=dev)
+        lps = _Logprobs(sp.logprobs)
+        sout, state = sampler(logits[:, -1, :], state)
+        lps.record(sout)
+        next_tok = sout.token
 
         out = np.full((B, T + max_new_tokens), pad_token_id, dtype=np.int64)
         out[:, :T] = input_ids
         finished = np.zeros(B, dtype=bool)
         num_gen = np.zeros(B, dtype=np.int64)
-        use_blocks = (not collect_trace and getattr(stepper, "speculative", False)
+        use_blocks = (sp.trivial and not collect_trace
+                      and getattr(stepper, "speculative", False)
                       and hasattr(stepper, "decode_block"))
         pending: list = []  # a block's tokens not yet recorded, as numpy [B]
         cur = T
@@ -241,19 +282,22 @@ class Generator:
             logits, kv, trace = stepper.forward(tok_dev, positions, kv, cur - 1, seq_ids=seq_ids)
             if collect_trace:
                 traces.append((trace[0].cpu().numpy(), trace[1].cpu().numpy()))
-            next_tok = torch.argmax(logits[:, -1, :], dim=-1)
+            sout, state = sampler(logits[:, -1, :], state)
+            lps.record(sout)
+            next_tok = sout.token
 
         stepper.end_sequences(seq_ids)
         return GenerationResult(
             sequences=out[:, :cur],
             num_generated=num_gen,
             router_trace=traces if collect_trace else None,
+            **lps.fields(),
         )
 
 
 class Seq2SeqGenerator:
     """Encoder-decoder generation (NLLB, Switch): encode once, precompute
-    cross-attention K/V, then greedy incremental decode."""
+    cross-attention K/V, then incremental decode."""
 
     def __init__(self, model, params, experts, for_layer: Callable, *,
                  impl: str = "ragged", graphs: bool = True, graph_backend=None):
@@ -301,6 +345,12 @@ class Seq2SeqGenerator:
         (empty when it runs eagerly)."""
         return self.graphs.stats() if self.graphs is not None else {}
 
+    def decode_scan(self, *args, **kwargs):
+        raise NotImplementedError(
+            "decode_scan (the JAX package's on-device lax.scan decode loop) is not "
+            "ported (ROADMAP queue-1 item 11)"
+        )
+
     @torch.inference_mode()
     def generate(
         self,
@@ -323,15 +373,15 @@ class Seq2SeqGenerator:
         logit_bias=None,
         seed: int = 0,
     ) -> GenerationResult:
-        """Greedy decode of ``max_new_tokens`` per row. The sampling keywords
-        keep the JAX signature: any that asks for more than greedy argmax
-        raises NotImplementedError (``require_greedy``)."""
-        require_greedy(
-            temperature=temperature, do_sample=do_sample,
-            repetition_penalty=repetition_penalty,
-            presence_penalty=presence_penalty,
-            frequency_penalty=frequency_penalty, logprobs=logprobs,
-            logit_bias=logit_bias,
+        """Decode ``max_new_tokens`` per row, each token picked by the sampler
+        (``runtime/sampling.py``) from the step's logits; the repetition
+        penalty counts decoder ids only, as HF's does for an encoder-decoder
+        (at step 0 just the start token)."""
+        sp = params_from_kwargs(
+            temperature=temperature, do_sample=do_sample, top_k=top_k, top_p=top_p,
+            min_p=min_p, repetition_penalty=repetition_penalty,
+            presence_penalty=presence_penalty, frequency_penalty=frequency_penalty,
+            logprobs=logprobs, logit_bias=logit_bias,
         )
         model, dev = self.model, self.model.device
         input_ids = np.atleast_2d(np.asarray(input_ids))
@@ -357,21 +407,31 @@ class Seq2SeqGenerator:
         num_gen = np.zeros(B, dtype=np.int64)
         new_toks = torch.empty(B, max_new_tokens, dtype=torch.int64, device=dev)
         cur = torch.full((B, 1), start, dtype=torch.int32, device=dev)
+        sampler, state, lps = Sampler(sp), None, _Logprobs(sp.logprobs)
+        host_loop = eos_token_id is not None or not sp.trivial
         steps = 0
         for step in range(max_new_tokens):
-            _, nxt = step_fn(cur, step)
+            logits, nxt = step_fn(cur, step)
+            if not sp.trivial:
+                if state is None:
+                    state = sampler.init(B, logits.shape[-1], prompt_ids=np.full((B, 1), start),
+                                         seed=seed, device=dev)
+                sout, state = sampler(logits[:, -1, :], state)
+                lps.record(sout)
+                nxt = sout.token
             new_toks[:, step] = nxt
             steps = step + 1
-            if eos_token_id is not None:
+            if host_loop:
                 tok_host = nxt.cpu().numpy()
                 out[~finished, step + 1] = tok_host[~finished]
                 num_gen[~finished] += 1
-                finished |= eos_hit(tok_host, eos_token_id)
-                if finished.all():
-                    break
+                if eos_token_id is not None:
+                    finished |= eos_hit(tok_host, eos_token_id)
+                    if finished.all():
+                        break
             cur = nxt[:, None].to(torch.int32)
         t2 = clock.mark()
-        if eos_token_id is None:
+        if not host_loop:
             out[:, 1:steps + 1] = new_toks[:, :steps].cpu().numpy()  # one sync
             num_gen[:] = steps
         stats = {"encode_ms": clock.ms(t0, t1), "decode_ms": clock.ms(t1, t2),
@@ -380,4 +440,5 @@ class Seq2SeqGenerator:
             sequences=out[:, : int(num_gen.max()) + 1],
             num_generated=num_gen,
             stats=stats,
+            **lps.fields(),
         )

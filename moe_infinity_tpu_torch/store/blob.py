@@ -9,8 +9,13 @@ memory-maps the blob; ``get_record`` returns a zero-copy view.
 ``SyntheticStore`` has the same protocol with in-RAM pseudo-random records
 from numpy, byte-identical to the JAX class for the same seed.
 
+``dense.blob`` / ``dense.index.json`` hold the non-expert (dense) tensors,
+each 128-byte aligned (``DenseArchiveWriter``, ``DenseArchive``). Every file
+is byte-equal to what the JAX package writes for the same tensors.
+
 Not ported here: the ``ram``/``direct``/``sched`` load modes and the native
-reader (``store/native.py``), ``DenseArchive`` and ``ingest.py``.
+reader (``store/native.py``); ``ExpertStore`` raises for them (ROADMAP
+queue-1 item 14).
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from moe_infinity_tpu_torch.utils.dtypes import bf16_bits, dtype_name, np_dtype
+import torch
+
+from moe_infinity_tpu_torch.utils.dtypes import bf16_bits, dtype_name, np_dtype, to_tensor
 
 ALIGN = 4096  # page alignment of records
 FORMAT_VERSION = 1
@@ -128,7 +135,8 @@ class ExpertStore:
     def __init__(self, path: str, load_mode: str = "mmap"):
         if load_mode != "mmap":
             raise NotImplementedError(
-                f"load_mode {load_mode!r} is not ported; only 'mmap' is"
+                f"load_mode {load_mode!r} is not ported (ROADMAP queue-1 item 14); "
+                "only 'mmap' is"
             )
         self.path = path
         with open(os.path.join(path, "experts.index.json")) as f:
@@ -181,6 +189,91 @@ class ExpertStore:
     def warm(self, layer: int, expert: int) -> None:
         """Touch a record to promote it into the page cache."""
         self.get_record(layer, expert)[:: mmap.PAGESIZE].sum()
+
+
+class DenseArchiveWriter:
+    """Blob + JSON index for the non-expert (dense) parameters."""
+
+    def __init__(self, path: str):
+        os.makedirs(path, exist_ok=True)
+        self.path = path
+        self._f = open(os.path.join(path, "dense.blob"), "wb")
+        self._entries: List[dict] = []
+        self._off = 0
+
+    def write(self, name: str, array: np.ndarray) -> None:
+        """``array`` in a store dtype (bf16 as its ``uint16`` bits)."""
+        a = np.ascontiguousarray(array)
+        self._off = _align(self._off, 128)
+        self._f.seek(self._off)
+        self._f.write(a.tobytes())
+        self._entries.append(
+            {
+                "name": name,
+                "shape": list(a.shape),
+                "dtype": dtype_name(a.dtype),
+                "offset": self._off,
+            }
+        )
+        self._off += a.nbytes
+
+    def finalize(self) -> None:
+        self._f.flush()
+        os.fsync(self._f.fileno())
+        self._f.close()
+        with open(os.path.join(self.path, "dense.index.json"), "w") as f:
+            json.dump({"version": FORMAT_VERSION, "tensors": self._entries}, f)
+
+
+class DenseArchive:
+    """Reader of a dense archive: ``get`` returns a read-only view of the
+    memory-mapped blob (bf16 as ``uint16`` bits), ``tensor`` a CPU tensor
+    of the stored dtype (a copy)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        with open(os.path.join(path, "dense.index.json")) as f:
+            index = json.load(f)
+        self._entries = {e["name"]: e for e in index["tensors"]}
+        with open(os.path.join(path, "dense.blob"), "rb") as f:
+            self._mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        self._buf = np.frombuffer(self._mm, dtype=np.uint8)
+
+    def names(self) -> List[str]:
+        return list(self._entries)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._entries
+
+    def shape(self, name: str) -> List[int]:
+        return list(self._entries[name]["shape"])
+
+    def dtype(self, name: str) -> str:
+        return self._entries[name]["dtype"]
+
+    def get(self, name: str) -> np.ndarray:
+        e = self._entries[name]
+        dt = np_dtype(e["dtype"])
+        n = int(np.prod(e["shape"], dtype=np.int64)) * dt.itemsize
+        raw = self._buf[e["offset"] : e["offset"] + n]
+        return raw.view(dt).reshape(e["shape"])
+
+    def tensor(self, name: str) -> torch.Tensor:
+        return to_tensor(self.get(name), self.dtype(name))
+
+
+def param_getter(dense: "DenseArchive", compute_dtype: torch.dtype, device):
+    """``get(name, dtype=None)``: the archive's tensor ``name`` on ``device``,
+    matrices (2-D and up) in ``compute_dtype`` and the rest in f32 unless
+    ``dtype`` is given: the casting rule of the JAX models' ``load_params``."""
+
+    def get(name: str, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        t = dense.tensor(name)
+        if dtype is None:
+            dtype = compute_dtype if t.ndim >= 2 else torch.float32
+        return t.to(device=device, dtype=dtype)
+
+    return get
 
 
 class SyntheticStore:
@@ -262,3 +355,10 @@ class SyntheticStore:
     def get_expert(self, layer: int, expert: int, *, prio: int = 0, gen: int = 0
                    ) -> Dict[str, np.ndarray]:
         return dict(self._record(layer, expert))
+
+
+def store_exists(path: str) -> bool:
+    """A finished store: both index files are written last, by ``finalize``."""
+    return os.path.isfile(os.path.join(path, "experts.index.json")) and os.path.isfile(
+        os.path.join(path, "dense.index.json")
+    )

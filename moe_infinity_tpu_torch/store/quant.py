@@ -54,7 +54,8 @@ def quantize_rowwise(w: np.ndarray, dtype: str) -> Tuple[np.ndarray, np.ndarray]
         q = pack_int4_np(q.T).T
     elif dtype == "float8_e4m3fn":
         raise NotImplementedError(
-            "float8_e4m3fn quantization is not ported: K3 takes no fp8 weights yet"
+            "float8_e4m3fn quantization is not ported (ROADMAP queue 2, part 1: K3 "
+            "takes no fp8 weights yet)"
         )
     else:
         raise ValueError(f"unsupported quant dtype {dtype}")

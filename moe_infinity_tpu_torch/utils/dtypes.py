@@ -42,7 +42,8 @@ _TORCH_TO_NP_VIEW = {
 def _no_fp8(name: str) -> None:
     if name == "float8_e4m3fn":
         raise NotImplementedError(
-            "float8_e4m3fn fields are not ported: K3 takes no fp8 weights yet"
+            "float8_e4m3fn fields are not ported (ROADMAP queue 2, part 1: K3 takes no "
+            "fp8 weights yet)"
         )
 
 

@@ -186,27 +186,28 @@ def test_generator_matches_jax(models):
 
 def test_unported_options_raise(models):
     model, params, tree = models[:3]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 15"):
         ContinuousBatcher(model, params, tree, ResidentProvider.for_layer, arena=object())
     with pytest.raises(ValueError, match="multiple"):
         ContinuousBatcher(model, params, tree, ResidentProvider.for_layer,
                           page_size=8, max_cols=90)
     b = _batcher(models)
     try:
-        with pytest.raises(NotImplementedError):
-            b.submit(np.array([1, 2]), temperature=0.7)
-        with pytest.raises(NotImplementedError):
-            b.submit(np.array([1, 2]), sampling=RequestSampling(repetition_penalty=1.2))
-        with pytest.raises(NotImplementedError):
-            b.submit(np.array([1, 2]), logit_bias={3: 1.0})
+        # sampled, penalised and biased requests are served
+        # (tests/test_torch_sampling.py holds them to the JAX package)
+        for kw in (dict(temperature=0.7), dict(sampling=RequestSampling(repetition_penalty=1.2)),
+                   dict(logit_bias={3: 100.0})):
+            out = b.submit(np.array([1, 2]), max_new_tokens=2, **kw).result(TIMEOUT)
+            assert out.shape == (4,)
+        assert (out[2:] == 3).all()
         # greedy settings pass (temperature 0 with top_k is still argmax)
         b.submit(np.array([1, 2]), max_new_tokens=1, top_k=5, do_sample=False).result(TIMEOUT)
     finally:
         b.shutdown()
     gen = Generator(model, params, tree, ResidentProvider.for_layer)
-    with pytest.raises(NotImplementedError):
-        gen.generate(np.array([[1, 2]]), max_new_tokens=2, temperature=0.5)
-    with pytest.raises(NotImplementedError):
+    assert gen.generate(np.array([[1, 2]]), max_new_tokens=2,
+                        temperature=0.5).sequences.shape == (1, 4)
+    with pytest.raises(NotImplementedError, match="item 11"):
         gen.stepper.decode_scan(None, None, None, 2)
 
 

@@ -168,12 +168,22 @@ def test_init_random_structure_matches_jax():
 
 
 def test_generate_rejects_sampling(f32_models):
-    _, _, _, model, params, tree = f32_models
+    """Sampling keywords are served (runtime/sampling.py): a greedy run with
+    a repetition penalty and logprobs equals the JAX generator's (tokens,
+    top tokens, logprobs within 1e-5), and a sampled run is fixed by its
+    seed."""
+    jmodel, jparams, jtree, model, params, tree = f32_models
     gen = Seq2SeqGenerator(model, params, tree, ResidentProvider.for_layer)
-    with pytest.raises(NotImplementedError):
-        gen.generate(FULL_IDS, max_new_tokens=2, temperature=0.7)
-    with pytest.raises(NotImplementedError):
-        gen.generate(FULL_IDS, max_new_tokens=2, logprobs=2)
+    kw = dict(max_new_tokens=4, eos_token_id=None, repetition_penalty=1.4, logprobs=2)
+    want = JGenerator(jmodel, jparams, jtree, JProvider.for_layer).generate(FULL_IDS, **kw)
+    with port_attention("naive"):
+        got = gen.generate(FULL_IDS, **kw)
+        np.testing.assert_array_equal(got.sequences, want.sequences)
+        np.testing.assert_array_equal(got.top_tokens, want.top_tokens)
+        np.testing.assert_allclose(got.token_logprobs, want.token_logprobs, atol=1e-5)
+        sampled = dict(max_new_tokens=4, eos_token_id=None, temperature=0.7, seed=3)
+        np.testing.assert_array_equal(gen.generate(FULL_IDS, **sampled).sequences,
+                                      gen.generate(FULL_IDS, **sampled).sequences)
 
 
 def test_cuda_entry_point_without_card_raises(monkeypatch):

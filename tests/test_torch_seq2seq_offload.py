@@ -219,8 +219,11 @@ def test_unported_options_raise(setup):
             with pytest.raises(NotImplementedError):
                 Seq2SeqOffloadEngine(model, params, arena, **kw)
         eng = Seq2SeqOffloadEngine(model, params, arena)
-        with pytest.raises(NotImplementedError):
-            eng.generate(IDS, max_new_tokens=2, temperature=0.7, do_sample=True)
+        # sampling is served, one token a step; the seed fixes the draws
+        sampled = dict(max_new_tokens=2, temperature=0.7, do_sample=True, seed=1,
+                       eos_token_id=None)
+        np.testing.assert_array_equal(eng.generate(IDS, **sampled).sequences,
+                                      eng.generate(IDS, **sampled).sequences)
         with pytest.raises(ValueError, match="one full MoE layer"):
             Seq2SeqOffloadEngine(model, params, ExpertArena(ExpertStore(path), E - 1,
                                                             device="cpu"))

@@ -155,9 +155,6 @@ def test_init_random_and_bridge_match_jax_tree(tie):
 
 
 def test_unported_options_raise():
-    model = SwitchModel(SwitchSpec(**SPEC), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        model.load_params({})
     _, _, _, model, params, experts = _models()
     with pytest.raises(NotImplementedError, match="item 15"):
         model.decode_step(params, experts, torch.zeros(2, 1, dtype=torch.int32),

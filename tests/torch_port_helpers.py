@@ -236,3 +236,91 @@ def write_decoder_store(path, expert_layers, arch, quant="float32"):
                     w.write_tensor(layer, e, tail + ".weight", a)
     w.finalize()
     return str(path)
+
+
+# ---------------------------------------------------------------------------
+# tiny HF checkpoints of the four families the port serves (random weights,
+# no download), for the ingest and entry-point tests
+# ---------------------------------------------------------------------------
+
+HF_FAMILIES = ("mixtral", "deepseek", "switch", "nllb")
+
+
+def tiny_hf_model(family: str, seed: int = 1, dtype=torch.float32):
+    """(HF config, HF model in eval mode) of a tiny random checkpoint."""
+    import transformers as tf
+
+    common = dict(torch_dtype=dtype)
+    if family == "mixtral":
+        cfg = tf.MixtralConfig(
+            hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+            num_attention_heads=4, num_key_value_heads=2, num_local_experts=4,
+            num_experts_per_tok=2, vocab_size=128, max_position_embeddings=128,
+            architectures=["MixtralForCausalLM"], **common)
+        cls = tf.MixtralForCausalLM
+    elif family == "deepseek":
+        # as tests/test_deepseek_parity.py builds it
+        cfg = tf.DeepseekV2Config(
+            vocab_size=128, hidden_size=64, intermediate_size=96,
+            moe_intermediate_size=48, num_hidden_layers=3, num_attention_heads=4,
+            num_key_value_heads=4, q_lora_rank=None, kv_lora_rank=32,
+            qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32, head_dim=16,
+            n_routed_experts=8, num_experts_per_tok=2, n_shared_experts=1,
+            first_k_dense_replace=1, topk_method="greedy", routed_scaling_factor=1.0,
+            norm_topk_prob=False, aux_loss_alpha=0.0, seq_aux=False,
+            max_position_embeddings=128, architectures=["DeepseekV2ForCausalLM"],
+            attention_bias=False, **common)
+        cls = tf.DeepseekV2ForCausalLM
+    elif family == "switch":
+        # as tests/test_entrypoints_seq2seq.py builds it
+        cfg = tf.SwitchTransformersConfig(
+            vocab_size=96, d_model=32, d_kv=8, d_ff=64, num_layers=2,
+            num_decoder_layers=2, num_heads=4, num_experts=4, expert_capacity=8,
+            num_sparse_encoder_layers=1, num_sparse_decoder_layers=1,
+            relative_attention_num_buckets=8, relative_attention_max_distance=16,
+            dropout_rate=0.0, router_jitter_noise=0.0, decoder_start_token_id=0,
+            eos_token_id=1, pad_token_id=0,
+            architectures=["SwitchTransformersForConditionalGeneration"], **common)
+        cls = tf.SwitchTransformersForConditionalGeneration
+    elif family == "nllb":
+        # as tests/test_nllb_parity.py builds it
+        cfg = tf.NllbMoeConfig(
+            vocab_size=96, d_model=32, encoder_layers=4, decoder_layers=4,
+            encoder_attention_heads=4, decoder_attention_heads=4,
+            encoder_ffn_dim=64, decoder_ffn_dim=64, encoder_sparse_step=2,
+            decoder_sparse_step=2, num_experts=4, max_position_embeddings=64,
+            dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+            moe_token_dropout=0.0, router_jitter_noise=0.0, pad_token_id=1,
+            bos_token_id=0, eos_token_id=2, decoder_start_token_id=2,
+            architectures=["NllbMoeForConditionalGeneration"], **common)
+        cls = tf.NllbMoeForConditionalGeneration
+    else:
+        raise ValueError(family)
+    torch.manual_seed(seed)
+    return cfg, cls(cfg).to(dtype).eval()
+
+
+def save_tiny_checkpoint(family: str, path, *, safe: bool = True, shard: str = "40KB",
+                         seed: int = 1, dtype=torch.float32):
+    """Write a tiny HF checkpoint of ``family`` in shards (with an index);
+    returns (path as str, the HF model)."""
+    _, hf = tiny_hf_model(family, seed, dtype)
+    hf.save_pretrained(path, safe_serialization=safe, max_shard_size=shard)
+    return str(path), hf
+
+
+def word_tokenizer(path=None):
+    """A word-level HF tokenizer over ids 0..127 (``tok{i}``, with ``<eos>``
+    124, ``<unk>`` 125, ``hello`` 126, ``world`` 127), as
+    tests/test_entrypoints.py builds it; saved to ``path`` when given."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    vocab = {f"tok{i}": i for i in range(124)}
+    vocab.update({"<eos>": 124, "<unk>": 125, "hello": 126, "world": 127})
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    t = PreTrainedTokenizerFast(tokenizer_object=tok, eos_token="<eos>", unk_token="<unk>")
+    if path is not None:
+        t.save_pretrained(path)
+    return t

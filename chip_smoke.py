@@ -25,7 +25,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    and prefill shapes; and queue-3 fault F1 repaired: a graph of a split K3
    call replayed after a later capture's warm-up grew the capture stream's
    split scratch and the caches were emptied equals the eager call, with
-   every ticket counter at 0;
+   every ticket counter at 0; K3's e4m3 kind (float8_e4m3fn weights) at
+   Grok-1's batch-1 and W=8 MoE layers and Arctic's batch-1 layer (its row
+   ``gmm_fp8``), and K1, K2 (both bodies) and K4 at Grok-1's rep 6 with its
+   softcap 30 and score scale and at Arctic's rep 7, bf16 and f32, timed
+   beside SDPA for rep 7;
 3. the seq2seq main path: NLLB-MoE-54B geometry (d_model 2048, 16 heads,
    FFN 8192, 128 experts top-2, every 4th block sparse, vocab 256,206) with
    random weights from a seed, bf16 compute, packed int4 experts, resident
@@ -160,7 +164,29 @@ Phases, each printing its own lines; any failure exits non-zero:
    equal to the decode of ``MoE.generate``, a sampled completion at the
    OpenAI defaults, ``n`` 2 with ``logprobs`` 3, a chat completion and the
    same streamed (its deltas joined equal the text), /metrics; every reply
-   HTTP 200.
+   HTTP 200;
+21. Grok-1 at its published widths (hpcai-tech/grok-1: hidden 6144, 48
+   heads over 8 KV heads, FFN 32768, 8 experts top-2, vocab 131,072, the
+   softcap and multipliers), bf16 dense weights and fp8 experts made on the
+   card from a seed: 2 layers resident through ``Generator`` (a prompt of
+   16, 32 tokens) and the batcher (8 requests, 8 slots), the first decode
+   step's logits at f32 compute against the plain versions; 8 layers
+   offloaded (64 fp8 records of 604 MB, one shared, 40 slots, speculative
+   blocks of 2, eagerly and as graphs); at f32 and 2 layers the per-layer
+   and speculative offload paths bit-equal to the resident path at every
+   step over 16 distinct records in 10 slots, graphs bit-equal to eager;
+22. Snowflake Arctic at its published widths (hidden 7168, 56 heads over 8,
+   FFN 4864, 128 experts top-2, the parallel residual): 2 layers resident
+   with fp8 experts (26.8 GB) through the batcher and ``Generator``; 4
+   layers offloaded from an int8 store (per layer, then speculative blocks
+   of 2 as graphs); at f32 the offload paths bit-equal to the resident one
+   over 128 distinct int8 records, also with ``moe_layer_frequency`` 2
+   (``dense_layer`` on the card);
+23. ``MoE`` from a 1-layer checkpoint of Grok-1's published config (11.5
+   GB of bf16 safetensors from a seed, deleted at the end), ingested to
+   float8_e4m3fn experts: the resident facade and the offload facade at a
+   budget of 5 of 8 experts (an arena of one layer's 8 slots, speculative
+   blocks of 2, graphs), offload tokens equal to the resident ones.
 
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
@@ -174,13 +200,14 @@ as in the whole run), then K5 under other split plans.
 alone; ``--resident`` the build and phases 3, 5 and 7 (to hold those paths
 against another tree's in one call); ``--switch`` the build and phases 13
 to 15; ``--mixtral-offload`` the build and phases 16 to 18;
-``--entrypoints`` the build and phases 19 and 20. Each prints no result
-line.
+``--entrypoints`` the build and phases 19 and 20; ``--grok`` the build,
+phase 2's K3 e4m3 and rep 6/7 attention checks and phases 21 and 23;
+``--arctic`` the build and phase 22. Each prints no result line.
 Every phase prints its seconds (``[phase]``).
 
 The line before the last is the per-kernel JSON record (launches: the sum
-of the counts of phases 3, 5, 7, 9, 11, 13, 14, 16, 18 and 19, graph replays
-included;
+of the counts of phases 3, 5, 7, 9, 11, 13, 14, 16, 18, 19, 21, 22 and 23,
+graph replays included; K3's e4m3 kind has its own row, ``gmm_fp8``;
 K2 at head dim 64 has its own row, ``flash_attend_dh64``: a graph
 counts at each replay the launches it recorded when it was captured); the
 last line is
@@ -610,15 +637,15 @@ def _layer_weights(g, dev, S, D, F, kind):
     return w, sc
 
 
-def _check_layer(label, x, w, sc, gsz, active, **kw):
-    """One MoE layer on K3 (gate and up on x, down on silu(gate) * up) held
-    against gmm_plain role by role, then timed. Returns the error, the times,
-    the bound and the down projection's input."""
+def _check_layer(label, x, w, sc, gsz, active, act="silu", **kw):
+    """One MoE layer on K3 (gate and up on x, down on act(gate) * up, act
+    silu or gelu) held against gmm_plain role by role, then timed. Returns
+    the error, the times, the bound and the down projection's input."""
     import torch.nn.functional as F_
 
     from moe_infinity_tpu_torch.ops import gmm as gm
 
-    a = (F_.silu(gm.gmm(x, w["gate"], gsz, sc["gate"], **kw))
+    a = (getattr(F_, act)(gm.gmm(x, w["gate"], gsz, sc["gate"], **kw))
          * gm.gmm(x, w["up"], gsz, sc["up"], **kw)).to(torch.bfloat16)
 
     def calls(fn):
@@ -1441,6 +1468,10 @@ def phase_kernels(dev):
     recs[0]["max_abs_err"] = max(recs[0]["max_abs_err"], long_err, edge_err, dh64_err)
     recs[3]["max_abs_err"] = max(recs[3]["max_abs_err"], long_err, edge_err, dh64_err)
     recs[2]["max_abs_err"] = max(recs[2]["max_abs_err"], check_gmm_switch(g, dev))
+    recs.append(check_gmm_fp8(dev))  # K3's e4m3 kind, from its own generator
+    rep_errs = check_attention_rep67(dev)
+    for r in recs:
+        r["max_abs_err"] = max(r["max_abs_err"], rep_errs.get(r["name"], 0.0))
     for r in recs:
         say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
@@ -1765,10 +1796,10 @@ def _mixtral(dev, dtype, seed, **spec_overrides):
     return model, params, ResidentProvider(tree), g
 
 
-def _serve_batcher(tag, model, params, experts, g):
+def _serve_batcher(tag, model, params, experts, g, slots=SLOTS):
     """Serve PROMPT_LENS' 8 requests, submitted together, through a
-    ContinuousBatcher of 4 slots, 16 greedy tokens each, after a warm-up
-    request that runs both step widths. Prints the run's times and counts,
+    ContinuousBatcher of ``slots`` slots (4; 8 seats them all at once), 16
+    greedy tokens each, after a warm-up request that runs both step widths. Prints the run's times and counts,
     checks what came back, and returns (the batcher with its thread stopped,
     prompts, outputs, launch counts of the 8 requests, step stats)."""
     from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
@@ -1780,8 +1811,8 @@ def _serve_batcher(tag, model, params, experts, g):
                for n in PROMPT_LENS]
     batcher = ContinuousBatcher(
         model, params, experts, ResidentProvider.for_layer, impl="pallas",
-        max_batch_size=SLOTS, page_size=PAGE, max_cols=MAX_COLS,
-        num_pages=(MAX_COLS // PAGE) * (SLOTS + 1), prefill_chunk=CHUNK,
+        max_batch_size=slots, page_size=PAGE, max_cols=MAX_COLS,
+        num_pages=(MAX_COLS // PAGE) * (slots + 1), prefill_chunk=CHUNK,
     )
     try:
         batcher.submit(prompts[4], max_new_tokens=2).result(timeout=600)  # warm-up
@@ -3361,19 +3392,25 @@ def _decoder_engine(model, params, store, slots, *, prefetch_budget=4, **kw):
                          impl="pallas", **kw)
 
 
-def _decoder_launches(spec, prefills, steps):
+def _decoder_launches(spec, prefills, steps, k3="gmm", moe_layers=None):
     """K1, K2 and K3 launches of ``prefills`` prompt steps and ``steps``
-    one-token steps of a Mixtral model: an attention per layer (K2 in a
-    prefill, K1 in a step), gate, up and down per MoE layer."""
+    one-token steps of a Mixtral-like model: an attention per layer (K2 in a
+    prefill, K1 in a step), gate, up and down per MoE layer (every layer
+    unless ``moe_layers`` says), counted under ``k3`` (``gmm_fp8`` for
+    e4m3 experts)."""
     L = spec.num_layers
+    M = L if moe_layers is None else moe_layers
     return {"flash_decode": L * steps, "flash_attend": L * prefills,
-            "gmm": 3 * L * (prefills + steps)}
+            k3: 3 * M * (prefills + steps)}
 
 
-def _mixtral_offload_run(tag, b, slots, graphs):
+def _mixtral_offload_run(tag, b, slots, graphs, speculative=True):
     """One engine over ``slots`` slots: the warm-up generate at the timed
     capacity (its dispatches under the sync guard), the timed generate of
-    64 tokens, its numbers and its launches held exactly."""
+    ``b.tokens`` tokens (64 for Mixtral), its numbers and its launches held
+    exactly. ``b`` also names the run (``b.label``), the capacity
+    (``b.cap``), the kernels and K3's count (``b.kernels``, ``b.k3``) and
+    the MoE layers (``b.moe_layers``)."""
     from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
     from moe_infinity_tpu_torch.runtime.engine import spec_block_diag, speculative_stats
     from moe_infinity_tpu_torch.runtime.generate import Generator
@@ -3384,22 +3421,23 @@ def _mixtral_offload_run(tag, b, slots, graphs):
     gc.collect()  # an earlier leg's engine, and its arena, are gone before the peak is reset
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    say(f"[mixtral-offload] {tag}: allocated before the engine is built "
+    say(f"[{b.label}] {tag}: allocated before the engine is built "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    engine = _decoder_engine(b.model, b.params, b.store, slots, speculative=True, spec_block=2,
-                             graphs=graphs)
+    label, tokens, cap = b.label, b.tokens, b.cap
+    engine = _decoder_engine(b.model, b.params, b.store, slots, speculative=speculative,
+                             spec_block=2, graphs=graphs)
     arena, gen = engine.arena, Generator(stepper=engine, max_seq_len=256)
     try:
         guarded, unguard = _sync_guard(engine)
         t0 = time.perf_counter()
         try:
             # 4 tokens: a block of 2 and a whole step, so the timed run captures nothing
-            gen.generate(b.prompt, max_new_tokens=4, cache_len=MX_CAP)
+            gen.generate(b.prompt, max_new_tokens=4, cache_len=cap)
             torch.cuda.synchronize()
         finally:
             unguard()
         warm_s = time.perf_counter() - t0
-        say(f"[mixtral-offload] {tag}: warm-up generate {warm_s:.1f} s, {guarded[0]} dispatches "
+        say(f"[{label}] {tag}: warm-up generate {warm_s:.1f} s, {guarded[0]} dispatches "
             f"under sync_debug_mode=error; executions {engine.replay_counts}, speculative="
             f"{engine.speculative} spec_block={engine.spec_block}, graphs "
             f"{json.dumps(engine.graph_stats())}")
@@ -3409,7 +3447,7 @@ def _mixtral_offload_run(tag, b, slots, graphs):
         reset_launches()
         t0 = time.perf_counter()
         try:
-            res = gen.generate(b.prompt, max_new_tokens=MX_TOKENS, cache_len=MX_CAP)
+            res = gen.generate(b.prompt, max_new_tokens=tokens, cache_len=cap)
             torch.cuda.synchronize()
         finally:
             untime()
@@ -3421,23 +3459,24 @@ def _mixtral_offload_run(tag, b, slots, graphs):
         cap_s = g1.get("capture_s", 0) - g0.get("capture_s", 0)
         execs = engine.replay_counts[r0:]
         visits, hits = s1["visits"] - s0["visits"], s1["hits"] - s0["hits"]
-        per_tok = wall / (MX_TOKENS + 1)  # bench.py: the prefill counts as one step
+        per_tok = wall / (tokens + 1)  # bench.py: the prefill counts as one step
         timings = {k: round(v - pt0.get(k, 0.0), 6) for k, v in engine.phase_timings.items()}
-        say(f"[mixtral-offload] {tag}: sequences shape {res.sequences.shape}; new tokens "
-            f"{res.sequences[0, MX_PROMPT:].tolist()}")
-        say(f"[mixtral-offload] {tag}: s_per_token={per_tok:.4f} vs_baseline="
-            f"{MX_BASELINE_S_PER_TOKEN / per_tok:.3f} (the reference's "
-            f"{MX_BASELINE_S_PER_TOKEN} s/token) tokens_per_s={MX_TOKENS / wall:.2f} wall_s="
+        say(f"[{label}] {tag}: sequences shape {res.sequences.shape}; new tokens "
+            f"{res.sequences[0, b.prompt.shape[1]:].tolist()}")
+        vs = (f" vs_baseline={MX_BASELINE_S_PER_TOKEN / per_tok:.3f} (the reference's "
+              f"{MX_BASELINE_S_PER_TOKEN} s/token)" if label == "mixtral-offload"
+              else "")
+        say(f"[{label}] {tag}: s_per_token={per_tok:.4f}{vs} tokens_per_s={tokens / wall:.2f} wall_s="
             f"{wall:.3f} hit_rate={hits / max(1, visits):.4f} (engine life "
             f"{s1['hit_rate']:.4f}) max_memory_allocated_gb="
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
-        say(f"[mixtral-offload] {tag}: speculative={engine.speculative} executions per block or "
+        say(f"[{label}] {tag}: speculative={engine.speculative} executions per block or "
             f"step {execs} ({json.dumps(speculative_stats(execs))}) block size held "
             f"k={engine.spec_block} executed_steps={steps} host_ms_per_execution="
             f"{host[0] * 1e3 / max(1, host[1]):.3f} (without captures "
             f"{(host[0] - cap_s) * 1e3 / max(1, host[1]):.3f}; {host[1]} executions) "
             f"diag {json.dumps(spec_block_diag(getattr(engine, 'spec_log', [])))}")
-        say(f"[mixtral-offload] {tag}: timed generate: visits={visits} misses="
+        say(f"[{label}] {tag}: timed generate: visits={visits} misses="
             f"{s1['misses'] - s0['misses']} evictions={s1['evictions'] - s0['evictions']} "
             f"prefetches={s1['prefetches'] - s0['prefetches']} fetches store="
             f"{f1['fetches_store'] - f0['fetches_store']} fetch_seconds_ewma="
@@ -3445,22 +3484,22 @@ def _mixtral_offload_run(tag, b, slots, graphs):
             f"captures {g1.get('captures', 0) - g0.get('captures', 0)}, replays "
             f"{g1.get('replays', 0) - g0.get('replays', 0)}, warm-up steps {warm}); "
             f"phase_timings (s) {json.dumps(timings)}")
-        want = _decoder_launches(spec, 1, steps + warm)
-        say(f"[mixtral-offload] {tag}: launches {json.dumps(counts)}; expected from one "
+        want = _decoder_launches(spec, 1, steps + warm, b.k3, b.moe_layers)
+        say(f"[{label}] {tag}: launches {json.dumps(counts)}; expected from one "
             f"prefill, {steps} executed steps and {warm} warm-up steps of captures "
             f"{json.dumps(want)}")
-        if res.sequences.shape != (1, MX_PROMPT + MX_TOKENS):
+        if res.sequences.shape != (1, b.prompt.shape[1] + tokens):
             raise AssertionError(f"unexpected output shape {res.sequences.shape}")
         if not np.all((res.sequences >= 0) & (res.sequences < spec.vocab_size)):
             raise AssertionError("token ids out of range")
-        _require_launched(counts, MIXTRAL_KERNELS, f"Mixtral offload path ({tag})")
+        _require_launched(counts, b.kernels, f"{label} path ({tag})")
         if any(counts.get(k) != n for k, n in want.items()):
-            raise AssertionError(f"Mixtral offload ({tag}): launches {counts} != {want}")
+            raise AssertionError(f"{label} ({tag}): launches {counts} != {want}")
         if s1["misses"] - s0["misses"] <= 0 or s1["evictions"] - s0["evictions"] <= 0:
-            raise AssertionError(f"Mixtral offload ({tag}): no miss or no eviction ({s0} -> {s1})")
+            raise AssertionError(f"{label} ({tag}): no miss or no eviction ({s0} -> {s1})")
         if engine.speculative and engine.graphs is not None and (
                 g1["recaptures"] or g1["replays"] - g0["replays"] != sum(execs)):
-            raise AssertionError(f"Mixtral offload ({tag}): every execution a replay and no "
+            raise AssertionError(f"{label} ({tag}): every execution a replay and no "
                                  f"recapture expected ({g0} -> {g1}, {execs})")
         return res.sequences, counts, engine.speculative
     finally:
@@ -3494,7 +3533,9 @@ def phase_mixtral_offload(dev):
     dense = _tree_bytes(params)
     store = _mixtral_offload_store(spec)
     prompt = (np.arange(MX_PROMPT, dtype=np.int64)[None] * 37) % 31999  # bench.py:294
-    b = SimpleNamespace(spec=spec, model=model, params=params, store=store, prompt=prompt)
+    b = SimpleNamespace(spec=spec, model=model, params=params, store=store, prompt=prompt,
+                        label="mixtral-offload", tokens=MX_TOKENS, cap=MX_CAP,
+                        kernels=MIXTRAL_KERNELS, k3="gmm", moe_layers=None)
     n_rec = spec.num_layers * spec.num_experts
     slots = {gb: max(spec.num_experts, int((gb * 2**30 - dense) // store.stride))
              for gb in (HBM_GB, MX_SPEC_HBM_GB)}  # bench.py:252-263
@@ -4161,6 +4202,654 @@ def phase_entrypoints_and_server(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 21 to 23: Grok-1 and Snowflake Arctic (fp8 experts through K3's e4m3 kind)
+# ---------------------------------------------------------------------------
+
+# hpcai-tech/grok-1's config.json, as GrokSpec.from_hf reads it
+GROK_1 = dict(
+    vocab_size=131072, hidden_size=6144, intermediate_size=32768, num_layers=64,
+    num_heads=48, num_kv_heads=8, head_dim=128, num_experts=8, top_k=2, rms_eps=1e-5,
+    attn_output_multiplier=0.08838834764831845, max_attn_value=30.0,
+    embedding_multiplier_scale=78.38367176906169, output_multiplier_scale=0.5773502691896257,
+)
+# Snowflake/snowflake-arctic-instruct's config.json, as ArcticSpec.from_hf reads it
+ARCTIC = dict(
+    vocab_size=32000, hidden_size=7168, intermediate_size=4864, num_layers=35,
+    num_heads=56, num_kv_heads=8, head_dim=128, num_experts=128, top_k=2,
+    moe_layer_frequency=1, parallel_attn_mlp_res=True, rms_eps=1e-5, rope_theta=10000.0,
+)
+GA_PROMPT, GA_TOKENS, GA_CAP = 16, 16, 64  # the offload runs: prompt, new tokens, capacity
+GROK_OFF_LAYERS, GROK_OFF_SLOTS = 8, 40  # phase 21b: 64 records of 604 MB, 40 slots
+ARCTIC_OFF_LAYERS, ARCTIC_OFF_SLOTS = 4, 160  # phase 22b: 512 int8 records, 160 slots
+GA_PARITY_STEPS = 12  # the f32 whole-path checks' greedy steps after the prefill
+GROK_KERNELS = ("flash_decode", "flash_attend", "gmm_fp8")
+GROK_TAILS = (("linear", "gate"), ("linear_v", "up"), ("linear_1", "down"))
+# phase 2's e4m3 layers: (label, D, F, tokens at top-2)
+GMM_FP8_CASES = (("Grok-1 batch-1 decode", 6144, 32768, 1),
+                 ("Grok-1 W=8 batcher step", 6144, 32768, 8),
+                 ("Arctic batch-1 decode", 7168, 4864, 1))
+ARCTIC_TAILS = (("w1", "gate"), ("w3", "up"), ("w2", "down"))
+
+
+def _grok(dev, dtype, seed, expert_dtype="fp8", **overrides):
+    from moe_infinity_tpu_torch.models.grok import GrokModel, GrokSpec
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    model = GrokModel(GrokSpec(**dict(GROK_1, **overrides)), compute_dtype=dtype, device=dev)
+    params, tree = model.init_random(g, expert_dtype=expert_dtype,
+                                     with_experts=expert_dtype is not None)
+    return model, params, tree, g
+
+
+def _arctic(dev, dtype, seed, expert_dtype="fp8", **overrides):
+    from moe_infinity_tpu_torch.models.arctic import ArcticModel, ArcticSpec
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    model = ArcticModel(ArcticSpec(**dict(ARCTIC, **overrides)), compute_dtype=dtype,
+                        device=dev)
+    params, tree = model.init_random(g, expert_dtype=expert_dtype,
+                                     with_experts=expert_dtype is not None)
+    return model, params, tree, g
+
+
+def _gated_fields(D, F, tails, dtype):
+    """The record fields of a gated expert: gate and up [D, F], down [F, D],
+    each with its f32 per-channel scale."""
+    fields = []
+    for (tail, role) in tails:
+        shape = (F, D) if role == "down" else (D, F)
+        fields += [(tail + ".weight", shape, dtype), (tail + ".weight.scale", shape[1:], "float32")]
+    return fields
+
+
+class _CardStore:
+    """The expert-store protocol over an expert tree made on the card (one
+    dict of [E, ...] tensors per MoE layer, ``random_expert_layer``'s), each
+    record copied to the host once: the arena's slots then hold the resident
+    tree's bytes, and distinct records cost no host-side draws."""
+
+    def __init__(self, layers, tails, meta):
+        from moe_infinity_tpu_torch.store.blob import build_record_layout
+
+        w0 = layers[0]
+        dt = {torch.float8_e4m3fn: "float8_e4m3fn", torch.int8: "int8"}[w0["gate"].dtype]
+        D, F = w0["gate"].shape[1:]
+        self.fields, self.stride = build_record_layout(_gated_fields(D, F, tails, dt))
+        self._field_by_name = {f.name: f for f in self.fields}
+        self.field_names = [f.name for f in self.fields]
+        self.meta = dict(meta)
+        self.num_layers, self.num_experts = len(layers), w0["gate"].shape[0]
+
+        def host(t):
+            t = t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+            return t.cpu().numpy()
+
+        self._records = []
+        for w in layers:
+            per = {}
+            for tail, role in tails:
+                per[tail + ".weight"] = host(w[role])
+                per[tail + ".weight.scale"] = host(w[role + "_scale"])
+            self._records.append(per)
+
+    def get_expert(self, layer, expert, *, prio=0, gen=0):
+        return {n: a[expert] for n, a in self._records[layer].items()}
+
+
+# ---- phase 2: K3's e4m3 kind, K1, K2 and K4 at rep 6 and 7 -------------------
+
+def _fp8_layer(g, dev, S, D, F):
+    from moe_infinity_tpu_torch.models.layers import random_expert_layer
+
+    t = random_expert_layer(S, D, F, "fp8", g, dev)
+    return {r: t[r] for r in ROLES}, {r: t[r + "_scale"] for r in ROLES}
+
+
+def check_gmm_fp8(dev):
+    """K3's e4m3 kind (float8_e4m3fn codes, per-channel f32 scales after the
+    dot) at the MoE layers of phases 21 and 22, gate + up + GELU + down,
+    each role held to its plain version: Grok-1's batch-1 decode layer (2
+    rows over 2 of its 8 experts, D=6144 F=32768: 1.21 GB of routed
+    weights), a W=8 batcher step (16 rows over the 8 experts) and Arctic's
+    batch-1 layer (2 rows over 2 experts, D=7168 F=4864, 209 MB; 8 of the
+    layer's 128 expert rows are made, as the kernel reads only the routed
+    ones). Draws from its own generator. Returns ``gmm_fp8``'s record, timed
+    at Grok-1's batch-1 layer."""
+    from moe_infinity_tpu_torch.ops.gmm import compact_groups
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    recs = {}
+    for label, D, F, tokens in GMM_FP8_CASES:
+        S = 8
+        w, sc = _fp8_layer(g, dev, S, D, F)
+        flat = torch.stack([torch.randperm(S, generator=g, device=dev)[:2]
+                            for _ in range(tokens)]).reshape(-1)
+        gid, gsz = compact_groups(torch.sort(flat).values, min(S, flat.numel()))
+        active = int(torch.unique(flat).numel())
+        x = torch.randn(2 * tokens, D, generator=g, device=dev).to(torch.bfloat16)
+        r = _check_layer(f"fp8 {label} rows={2 * tokens} active={active}", x, w, sc, gsz,
+                         active, act="gelu", group_ids=gid)
+        r.pop("a")
+        recs[label] = r
+        say(f"[time] gmm_fp8 {label} MoE layer (gate + up + down, {2 * tokens} rows over "
+            f"{active} experts, e4m3 + scales, D={D} F={F}): ms={r['ms']:.4f} plain_ms="
+            f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) library_ms="
+            f"None (no single PyTorch call takes bf16 x e4m3 with per-channel scales: "
+            f"torch._scaled_mm rounds x to fp8); {_layer_plans(x, w, gsz)}")
+        del w, sc
+        torch.cuda.empty_cache()
+    dec = recs[GMM_FP8_CASES[0][0]]
+    dec["max_abs_err"] = max(r["max_abs_err"] for r in recs.values())
+    return dict(
+        name="gmm_fp8", route="cuda", source="moe_infinity_tpu_torch/csrc/gmm.cu",
+        replaces="moe_infinity_tpu/ops/gmm.py:46", library_ms=None,
+        shape="Grok-1 batch-1 decode MoE layer: gate + up + down, 2 rows over 2 experts, "
+              "e4m3 + scales, D=6144 F=32768", **dec,
+    )
+
+
+def check_attention_rep67(dev):
+    """K1, K2 (the decode body and both tiled kernels) and K4 at Grok-1's
+    GQA (48 query heads over 8: rep 6, scores times 0.0884 and softcapped
+    at 30) and Arctic's (56 over 8: rep 7), head dim 128, bf16 and f32:
+    rows of 113, 200, 37 and 512 keys with holes, contiguous (K1) and paged
+    (K4, page 16); K2 at T=1 with a pad bias (6 or 7 rows a kv head: the
+    decode body), T=2 (12 or 14 rows: a block's 4 units straddle query
+    chunks) and T=16. bf16 times beside SDPA for rep 7 (SDPA takes no
+    softcap: rep 6 has no yardstick). Draws from its own generator. Returns
+    the largest error of each kernel."""
+    import torch.nn.functional as F_
+
+    from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(67)
+    errs = {"flash_decode": 0.0, "flash_attend": 0.0, "paged_flash_decode": 0.0}
+    B, Hkv, Dh, P, NP = 4, 8, 128, MAX_COLS // PAGE, 160
+    S = P * PAGE
+    lengths = torch.tensor([113, 200, 37, 512], dtype=torch.int32, device=dev)
+    for rep, softcap, scale, who in ((6, 30.0, GROK_1["attn_output_multiplier"], "Grok-1"),
+                                     (7, None, None, "Arctic")):
+        H = Hkv * rep
+        sc = scale or Dh ** -0.5
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = "bf16" if dtype == torch.bfloat16 else "f32"
+            tol = TOL if dtype == torch.bfloat16 else 2e-3
+            q = (torch.randn(B, H, Dh, generator=g, device=dev) * 3).to(dtype)
+            pk = (torch.randn(NP, PAGE, Hkv, Dh, generator=g, device=dev) * 3).to(dtype)
+            pv = torch.randn(NP, PAGE, Hkv, Dh, generator=g, device=dev).to(dtype)
+            table = torch.randperm(NP, generator=g, device=dev)[:B * P].reshape(B, P).to(
+                torch.int32)
+            holes = torch.rand(B, S, generator=g, device=dev) > 0.1
+            kw = dict(scale=sc, logit_softcap=softcap, pad_mask=holes)
+            paged = lambda: fa.paged_flash_decode(q, pk, pv, table, lengths, **kw)  # noqa: E731
+            paged_plain = lambda: fa.paged_flash_decode_plain(  # noqa: E731
+                q, pk, pv, table, lengths, **kw)
+            errs["paged_flash_decode"] = max(errs["paged_flash_decode"], compare(
+                f"paged_flash_decode {who} rep {rep} {dn}", paged(), paged_plain(), tol))
+            idx = table.long()
+            k, v = pk[idx].reshape(B, S, Hkv, Dh), pv[idx].reshape(B, S, Hkv, Dh)
+            qpos = (lengths - 1)[:, None]
+            dec = lambda: fa.flash_decode(q[:, None], k, v, qpos, S, **kw)  # noqa: E731
+            dec_plain = lambda: fa.flash_decode_plain(q, k, v, lengths - 1, S, **kw)  # noqa
+            errs["flash_decode"] = max(errs["flash_decode"], compare(
+                f"flash_decode {who} rep {rep} {dn}", dec()[:, 0], dec_plain(), tol))
+            att = {}
+            for T in (1, 2, 16):
+                qq = (torch.randn(B, T, H, Dh, generator=g, device=dev) * 3).to(dtype)
+                pos = ((lengths - T).clamp(min=0)[:, None]
+                       + torch.arange(T, dtype=torch.int32, device=dev)[None])
+                bias = torch.zeros(B, 1, 1, S, device=dev) if T == 1 else None
+                kw2 = dict(kw, bias=bias)
+                run = lambda qq=qq, pos=pos, kw2=kw2: fa.flash_attend(  # noqa: E731
+                    qq, k, v, pos, S, **kw2)
+                plain = lambda qq=qq, pos=pos, kw2=kw2: fa.flash_attend_plain(  # noqa: E731
+                    qq, k, v, pos, S, **kw2)
+                errs["flash_attend"] = max(errs["flash_attend"], compare(
+                    f"flash_attend {who} rep {rep} T={T} ({T * rep} rows a kv head) {dn}",
+                    run(), plain(), tol))
+                att[T] = (run, plain, qq, pos)
+            if dtype != torch.bfloat16:
+                continue
+            live = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+            valid = int((live & holes).sum())
+            nbytes = 2 * valid * Hkv * Dh * 2 + int(lengths.sum()) + 2 * B * H * Dh * 2
+            lib = "None (SDPA takes no softcap)"
+            if softcap is None:
+                fmask = torch.where(live & holes, 0.0, float("-inf")).to(dtype)[:, None, None]
+                kx = k.repeat_interleave(rep, dim=2).transpose(1, 2)
+                vx = v.repeat_interleave(rep, dim=2).transpose(1, 2)
+                sd = lambda: F_.scaled_dot_product_attention(  # noqa: E731
+                    q[:, :, None], kx, vx, attn_mask=fmask)
+                lib = f"{cuda_ms(sd):.5f} (SDPA on a gathered view, KV heads expanded)"
+            for name, fn, pfn in (("paged_flash_decode", paged, paged_plain),
+                                  ("flash_decode", dec, dec_plain)):
+                b_ms, b_by = bound_ms(nbytes + (B * P * 4 if name.startswith("paged") else 0),
+                                      4 * H * Dh * valid)
+                say(f"[time] {name} {who} rep {rep} (B={B} H={H} Hkv={Hkv}, rows "
+                    f"{lengths.tolist()} with holes, {valid} valid keys, bf16): ms="
+                    f"{cuda_ms(fn):.5f} plain_ms={cuda_ms(pfn, iters=5, warmup=1):.4f} "
+                    f"bound_ms={b_ms:.5f} ({b_by}) library_ms={lib}")
+            for T in (2, 16):
+                run, plain, qq, pos = att[T]
+                key = torch.arange(S, device=dev)
+                ok = holes[:, None, :] & (key[None, None, :] <= pos[:, :, None])
+                read = int(ok.any(1).sum())
+                nb = 2 * B * T * H * Dh * 2 + 2 * read * Hkv * Dh * 2 + B * S + B * T * 4
+                b_ms, b_by = bound_ms(nb, 4 * H * Dh * int(ok.sum()))
+                lib2 = "None (SDPA takes no softcap)"
+                if softcap is None:
+                    kx = k.repeat_interleave(rep, dim=2).transpose(1, 2)
+                    vx = v.repeat_interleave(rep, dim=2).transpose(1, 2)
+                    fm = torch.where(ok, 0.0, float("-inf")).to(dtype)[:, None]
+                    qt = qq.transpose(1, 2)
+                    sd = lambda qt=qt, fm=fm: F_.scaled_dot_product_attention(  # noqa: E731
+                        qt, kx, vx, attn_mask=fm)
+                    lib2 = f"{cuda_ms(sd):.5f} (SDPA, KV heads expanded beforehand)"
+                say(f"[time] flash_attend {who} rep {rep} T={T} ({T * rep} rows a kv head, "
+                    f"{read} keys read, bf16): ms={cuda_ms(run):.5f} plain_ms="
+                    f"{cuda_ms(plain, iters=5, warmup=1):.4f} bound_ms={b_ms:.5f} ({b_by}) "
+                    f"library_ms={lib2}")
+    return errs
+
+
+# ---- phase 21: Grok-1 --------------------------------------------------------
+
+def _first_step_check(what, model, params, experts, prompt):
+    """The first decode step's logits after a prefill of ``prompt`` through
+    the kernels against the plain versions, at the model's compute type:
+    held to the tolerance with equal argmax at f32."""
+    from moe_infinity_tpu_torch.runtime.generate import ResidentStepper
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    st = ResidentStepper(model, params, experts, ResidentProvider.for_layer, impl="pallas")
+    dev = model.device
+    with torch.inference_mode():
+        with _plain_kernels():
+            plain = _ep_first_step_logits(st, prompt, dev)
+        kern = _ep_first_step_logits(st, prompt, dev)
+    compare(what, kern, plain)
+    if not bool((kern.argmax(-1) == plain.argmax(-1)).all()):
+        raise AssertionError(f"{what}: argmax differs")
+    say(f"[check] {what}: argmax equal: ok")
+
+
+def _resident_decoder_runs(tag, model, params, tree, g, gen_tokens=32):
+    """``Generator`` at batch 1 (a prompt of 16, ``gen_tokens`` new tokens,
+    eager), then 8 requests of 16 tokens through a ``ContinuousBatcher`` of
+    8 slots; returns the launches of both."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.generate import Generator
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    prompt = torch.randint(1, model.spec.vocab_size, (1, GA_PROMPT), generator=g,
+                           device=model.device).cpu().numpy()
+    gen = Generator(model, params, tree, ResidentProvider.for_layer, impl="pallas",
+                    max_seq_len=MAX_COLS)
+    gen.generate(prompt, max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = gen.generate(prompt, max_new_tokens=gen_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gen_counts = launch_counts()
+    new = res.sequences[0, GA_PROMPT:]
+    say(f"[{tag}] Generator batch 1, prompt {GA_PROMPT}, {gen_tokens} new tokens (eager): "
+        f"wall_s={wall:.3f} s_per_token={wall / (gen_tokens + 1):.4f} tokens_per_s="
+        f"{gen_tokens / wall:.2f}; launches {json.dumps(gen_counts)}; tokens {new.tolist()}")
+    if new.shape != (gen_tokens,) or not np.all((new >= 0) & (new < model.spec.vocab_size)):
+        raise AssertionError(f"{tag}: Generator output {res.sequences.shape} or ids out of range")
+    batcher, _, _, counts, _ = _serve_batcher(tag, model, params, tree, g, slots=8)
+    return gen_counts, counts
+
+
+def _ga_offload_build(label, model, params, store, kernels, k3, moe_layers):
+    prompt = (np.arange(GA_PROMPT, dtype=np.int64)[None] * 37) % (model.spec.vocab_size - 1)
+    return SimpleNamespace(spec=model.spec, model=model, params=params, store=store,
+                           prompt=prompt, label=label, tokens=GA_TOKENS, cap=GA_CAP,
+                           kernels=kernels, k3=k3, moe_layers=moe_layers)
+
+
+def _ga_whole_path(label, model, params, experts, store, slots, kernels, prompt):
+    """The per-layer path and the speculative step (graphs, then eager)
+    through an arena of ``slots`` slots, each step's logits bit-equal to
+    the resident path's; graph logits bit-equal to eager."""
+    logits = {}
+    for leg, kw in (("per-layer", dict(speculative=False)),
+                    ("speculative step, graphs", dict(speculative=True)),
+                    ("speculative step, eager", dict(speculative=True, graphs=False))):
+        engine = _decoder_engine(model, params, store, slots, prefetch_budget=4, **kw)
+        counts = {}
+        try:
+            logits[leg] = _held_steps(f"{label} f32 {leg}", engine, model, params, experts,
+                                      prompt, GA_PARITY_STEPS, counts, cap=GA_CAP)
+            ev = int(engine.arena.policy.node_stats["evictions"].sum())
+        finally:
+            engine.arena.shutdown()
+        _require_launched(counts, kernels, f"{label} whole path ({leg})")
+        say(f"[check] {label} {leg} vs resident f32 ({slots} slots for "
+            f"{store.num_layers * store.num_experts} records): {GA_PARITY_STEPS + 1} steps' "
+            f"logits bit-equal; evictions {ev}, executions {engine.replay_counts}, graphs "
+            f"{json.dumps(engine.graph_stats())}, engine launches {json.dumps(counts)}")
+        if kw["speculative"] and not engine.speculative:
+            raise AssertionError(f"{label} {leg}: left the speculative path")
+    for i, (a, b) in enumerate(zip(logits["speculative step, graphs"],
+                                   logits["speculative step, eager"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: graph and eager logits differ at step {i}")
+    say(f"[check] {label} f32 speculative step, graph against eager logits over "
+        f"{GA_PARITY_STEPS + 1} steps: all bit-equal")
+
+
+def phase_grok(dev):
+    """Phase 21: Grok-1 at its published widths (hpcai-tech/grok-1), bf16
+    dense weights and fp8 experts made on the card from a seed. (a) 2
+    layers resident (9.7 GB of experts): ``Generator`` at batch 1 and 8
+    requests through the batcher (K4 and K2 at rep 6 with the softcap, K3's
+    e4m3 kind at W=8), then the first decode step's logits at f32 compute,
+    kernels against plain versions. (b) 8 layers offloaded: 64 fp8 records
+    of 604 MB from a ``SyntheticStore``'s shared record, 40 slots,
+    speculative blocks of 2, eagerly and as graphs. (c) f32 compute at 2
+    layers, 10 slots for 16 distinct records: per layer and speculative
+    (graphs and eager), each step's logits bit-equal to the resident
+    path's. Returns the launches of (a) and (b)."""
+    from moe_infinity_tpu_torch.store.blob import SyntheticStore
+
+    t0 = time.perf_counter()
+    model, params, tree, g = _grok(dev, torch.bfloat16, 2101, num_layers=2)
+    torch.cuda.synchronize()
+    say(f"[grok] Grok-1 widths at 2 layers: built on the card in {time.perf_counter() - t0:.1f} "
+        f"s; dense {_tree_bytes(params) / 1e9:.2f} GB bf16, experts {_tree_bytes(tree) / 1e9:.2f} "
+        f"GB fp8 + scales")
+    gen_counts, counts = _resident_decoder_runs("grok", model, params, tree, g)
+    _require_launched(gen_counts, GROK_KERNELS, "Grok-1 Generator path")
+    _require_launched(counts, ("paged_flash_decode", "flash_attend", "gmm_fp8"),
+                      "Grok-1 batcher path")
+    prompt = torch.randint(1, GROK_1["vocab_size"], (1, GA_PROMPT), generator=g,
+                           device=dev).cpu().numpy()
+    del params
+    torch.cuda.empty_cache()
+    m32, p32, _, _ = _grok(dev, torch.float32, 2101, expert_dtype=None, num_layers=2)
+    _first_step_check("grok: first decode step's logits (f32 compute, fp8 experts), kernels "
+                      "against plain versions", m32, p32, tree, prompt)
+    del m32, p32, tree, model
+    torch.cuda.empty_cache()
+
+    # (b) offload at 8 layers
+    model, params, _, _ = _grok(dev, torch.bfloat16, 2102, expert_dtype=None,
+                                num_layers=GROK_OFF_LAYERS)
+    D, F, E = GROK_1["hidden_size"], GROK_1["intermediate_size"], GROK_1["num_experts"]
+    t0 = time.perf_counter()
+    store = SyntheticStore(GROK_OFF_LAYERS, E, _gated_fields(D, F, GROK_TAILS, "float8_e4m3fn"),
+                           meta={"arch": "grok", "gated": True, "num_encoder_moe_layers": 0})
+    say(f"[grok-offload] Grok-1 widths at {GROK_OFF_LAYERS} layers: {GROK_OFF_LAYERS * E} fp8 "
+        f"records of {store.stride / 1e6:.2f} MB (one shared, made in "
+        f"{time.perf_counter() - t0:.1f} s), dense {_tree_bytes(params) / 1e9:.2f} GB bf16; "
+        f"{GROK_OFF_SLOTS} slots; prompt {GA_PROMPT}, {GA_TOKENS} tokens, capacity {GA_CAP}")
+    b = _ga_offload_build("grok-offload", model, params, store, GROK_KERNELS, "gmm_fp8", None)
+    off = {}
+    runs = {}
+    for graphs in (False, True):
+        tag = "graphs" if graphs else "eager"
+        runs[tag], off[tag], kept = _mixtral_offload_run(tag, b, GROK_OFF_SLOTS, graphs)
+        if not kept:
+            raise AssertionError(f"Grok-1 offload ({tag}): the speculative path turned off")
+    if not np.array_equal(runs["graphs"], runs["eager"]):
+        raise AssertionError("Grok-1 offload: graph and eager tokens differ")
+    say("[grok-offload] graphs against eager greedy tokens: equal")
+    del b, model, params, store
+    torch.cuda.empty_cache()
+
+    # (c) f32 whole path, 2 layers, 16 distinct records, 10 slots
+    model, params, tree, g = _grok(dev, torch.float32, 2103, num_layers=2)
+    t0 = time.perf_counter()
+    store = _CardStore(tree["layers"], GROK_TAILS, {"arch": "grok", "num_encoder_moe_layers": 0})
+    say(f"[grok] f32 whole path: 16 distinct fp8 records copied to the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompt = np.random.default_rng(21).integers(0, GROK_1["vocab_size"], (1, GA_PROMPT))
+    _ga_whole_path("Grok-1 (2 layers, fp8 experts)", model, params, tree, store, 10,
+                   GROK_KERNELS, prompt)
+    del model, params, tree, store
+    torch.cuda.empty_cache()
+    return _sum_counts(gen_counts, counts, *off.values())
+
+
+def _sum_counts(*counts):
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+# ---- phase 22: Snowflake Arctic ------------------------------------------------
+
+def phase_arctic(dev):
+    """Phase 22: Snowflake Arctic at its published widths
+    (Snowflake/snowflake-arctic-instruct), bf16 dense weights from a seed on
+    the card. (a) 2 layers resident with fp8 experts (26.8 GB): the batcher
+    (8 requests of 16 tokens, 8 slots: K4 at rep 7) and ``Generator``. (b)
+    4 layers offloaded from an int8 ``SyntheticStore`` (512 records of
+    104.6 MB, one shared), 160 slots: the per-layer path, then speculative
+    blocks of 2 as graphs. (c) f32 compute over 128 distinct int8 records
+    of one MoE layer, per layer and speculative (graphs, eager), each step
+    bit-equal to the resident path; again with ``moe_layer_frequency`` 2
+    (a dense layer, then the MoE layer: ``dense_layer`` on the card).
+    Returns the launches of (a) and (b)."""
+    from moe_infinity_tpu_torch.store.blob import SyntheticStore
+
+    t0 = time.perf_counter()
+    model, params, tree, g = _arctic(dev, torch.bfloat16, 2201, num_layers=2)
+    torch.cuda.synchronize()
+    say(f"[arctic] Arctic widths at 2 layers: built on the card in "
+        f"{time.perf_counter() - t0:.1f} s; dense {_tree_bytes(params) / 1e9:.2f} GB bf16, "
+        f"experts {_tree_bytes(tree) / 1e9:.2f} GB fp8 + scales")
+    gen_counts, counts = _resident_decoder_runs("arctic", model, params, tree, g)
+    _require_launched(gen_counts, GROK_KERNELS, "Arctic Generator path")
+    _require_launched(counts, ("paged_flash_decode", "flash_attend", "gmm_fp8"),
+                      "Arctic batcher path")
+    del model, params, tree
+    torch.cuda.empty_cache()
+
+    # (b) offload with an int8 store at 4 layers
+    model, params, _, _ = _arctic(dev, torch.bfloat16, 2202, expert_dtype=None,
+                                  num_layers=ARCTIC_OFF_LAYERS)
+    D, F, E = ARCTIC["hidden_size"], ARCTIC["intermediate_size"], ARCTIC["num_experts"]
+    store = SyntheticStore(ARCTIC_OFF_LAYERS, E, _gated_fields(D, F, ARCTIC_TAILS, "int8"),
+                           meta={"arch": "arctic", "gated": True, "num_encoder_moe_layers": 0})
+    say(f"[arctic-offload] Arctic widths at {ARCTIC_OFF_LAYERS} layers: "
+        f"{ARCTIC_OFF_LAYERS * E} int8 records of {store.stride / 1e6:.2f} MB (one shared), "
+        f"dense {_tree_bytes(params) / 1e9:.2f} GB bf16; {ARCTIC_OFF_SLOTS} slots; prompt "
+        f"{GA_PROMPT}, {GA_TOKENS} tokens, capacity {GA_CAP}")
+    b = _ga_offload_build("arctic-offload", model, params, store, MIXTRAL_KERNELS, "gmm", None)
+    off = {}
+    _, off["per-layer"], _ = _mixtral_offload_run("per-layer, eager", b, ARCTIC_OFF_SLOTS,
+                                                  False, speculative=False)
+    _, off["graphs"], kept = _mixtral_offload_run("speculative, graphs", b, ARCTIC_OFF_SLOTS,
+                                                  True)
+    if not kept:
+        raise AssertionError("Arctic offload: the speculative path turned off")
+    del b, model, params, store
+    torch.cuda.empty_cache()
+
+    # (c) f32 whole path over 128 distinct int8 records of one MoE layer
+    for freq, layers in ((1, 1), (2, 2)):
+        model, params, tree, g = _arctic(dev, torch.float32, 2203, expert_dtype="int8",
+                                         num_layers=layers, moe_layer_frequency=freq)
+        t0 = time.perf_counter()
+        store = _CardStore(tree["layers"], ARCTIC_TAILS,
+                           {"arch": "arctic", "num_encoder_moe_layers": 0})
+        say(f"[arctic] f32 whole path, moe_layer_frequency {freq} ({layers} layers, "
+            f"{'a dense layer, then ' if freq == 2 else ''}1 MoE layer): {store.num_experts} "
+            f"distinct int8 records of {store.stride / 1e6:.2f} MB copied to the host in "
+            f"{time.perf_counter() - t0:.1f} s")
+        prompt = np.random.default_rng(22).integers(0, ARCTIC["vocab_size"], (1, GA_PROMPT))
+        _ga_whole_path(f"Arctic (moe_layer_frequency {freq}, int8 experts)", model, params,
+                       tree, store, E + 8, MIXTRAL_KERNELS, prompt)
+        del model, params, tree, store
+        torch.cuda.empty_cache()
+    return _sum_counts(gen_counts, counts, *off.values())
+
+
+# ---- phase 23: Grok-1 through MoE from a checkpoint ------------------------------
+
+GK_DIR = Path(__file__).resolve().parent / ".grok_entry"
+GK_DISK_GB = 21  # checkpoint 11.5 + fp8 store 4.9 + dense archive 1.8, with room
+GK_CONFIG = {  # hpcai-tech/grok-1's config.json, cut to 1 layer
+    "architectures": ["Grok1ModelForCausalLM"], "model_type": "grok-1",
+    "vocab_size": 131072, "hidden_size": 6144, "intermediate_size": 32768,
+    "num_hidden_layers": 1, "num_attention_heads": 48, "num_key_value_heads": 8,
+    "num_experts": 8, "num_experts_per_tok": 2, "rms_norm_eps": 1e-5,
+    "attn_output_multiplier": 0.08838834764831845, "max_attn_value": 30.0,
+    "embedding_multiplier_scale": 78.38367176906169,
+    "output_multiplier_scale": 0.5773502691896257, "max_position_embeddings": 8192,
+    "bos_token_id": 1, "eos_token_id": 2, "torch_dtype": "bfloat16",
+}
+GK_REQUESTS, GK_NEW = 4, 8
+
+
+def _write_grok_checkpoint(root, dev, seed=0):
+    """GK_CONFIG's checkpoint under Grok-1's tensor names, bf16, normal with
+    std 0.02 made on the card from ``seed`` (norm scales one), one
+    safetensors shard per expert and one for the rest, with an index.
+    Returns its bytes."""
+    c = GK_CONFIG
+    D, F, E, V = c["hidden_size"], c["intermediate_size"], c["num_experts"], c["vocab_size"]
+    hd = D // c["num_attention_heads"]
+    kvd = c["num_key_value_heads"] * hd
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def mat(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device=dev).normal_(0.0, 0.02, generator=g)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16, device=dev)
+
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps(c, indent=2))
+    p = "model.layers.0."
+    shards = [[("model.embed_tokens.weight", lambda: mat(V, D)), ("model.norm.scale", lambda: ones(D))]
+              + [(p + n + ".scale", lambda: ones(D)) for n in
+                 ("pre_attn_norm", "post_attn_norm", "pre_moe_norm", "post_moe_norm")]
+              + [(p + "attn.q_proj.weight", lambda: mat(D, D)),
+                 (p + "attn.k_proj.weight", lambda: mat(kvd, D)),
+                 (p + "attn.v_proj.weight", lambda: mat(kvd, D)),
+                 (p + "attn.o_proj.weight", lambda: mat(D, D)),
+                 (p + "moe_block.gate.weight", lambda: mat(E, D))]]
+    for e in range(E):
+        q = f"{p}moe_block.experts.{e}."
+        shards.append([(q + "linear.weight", lambda: mat(F, D)),
+                       (q + "linear_v.weight", lambda: mat(F, D)),
+                       (q + "linear_1.weight", lambda: mat(D, F))])
+    weight_map, total = {}, 0
+    for i, shard in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        tensors = [(name, make()) for name, make in shard]
+        total += _write_safetensors(root / fname, tensors)
+        weight_map.update({name: fname for name, _ in tensors})
+        del tensors
+    (root / "model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}, indent=2))
+    return total
+
+
+def phase_grok_entry(dev):
+    """Phase 23: ``MoE`` from a 1-layer checkpoint of Grok-1's published
+    config (bf16 sharded safetensors written from a seed under
+    ``.grok_entry/`` in the checkout, git-ignored; the free disk checked
+    first, the directory deleted at the end, also on failure), ingested to
+    float8_e4m3fn experts: the resident facade (``Generator``) and the
+    offload facade at a budget of 5 of the 8 experts (its arena takes the 8
+    slots of one MoE layer, the least the engine takes, so every fetch is a
+    first touch; speculative blocks of 2, graphs), 4 requests of 16
+    tokens, 8 new each; the offload tokens equal the resident ones. Returns
+    the offload facade's launches."""
+    import shutil
+
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.store.ingest import ingest_checkpoint
+    from moe_infinity_tpu_torch.utils.hf_config import read_hf_config
+
+    GK_DIR.mkdir(exist_ok=True)
+    try:
+        free = shutil.disk_usage(GK_DIR).free
+        say(f"[grok-entry] disk free under {GK_DIR.name}/: {free / 1e9:.1f} GB (needs "
+            f"{GK_DISK_GB})")
+        if free < GK_DISK_GB * 1e9:
+            raise RuntimeError(f"phase 23 needs {GK_DISK_GB} GB of disk under {GK_DIR}, "
+                               f"{free / 1e9:.1f} GB is free")
+        ckpt, store = GK_DIR / "ckpt", GK_DIR / "store"
+        t0 = time.perf_counter()
+        nbytes = _write_grok_checkpoint(ckpt, dev)
+        say(f"[grok-entry] checkpoint: Grok-1's config at 1 layer, {nbytes / 1e9:.2f} GB of "
+            f"bf16 safetensors in {len(list(ckpt.glob('*.safetensors')))} shards, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ingest_checkpoint(str(ckpt), str(store), read_hf_config(str(ckpt)),
+                          expert_dtype="float8_e4m3fn")
+        say(f"[grok-entry] ingest (float8_e4m3fn): {time.perf_counter() - t0:.1f} s; "
+            f"experts.blob {(store / 'experts.blob').stat().st_size / 1e9:.2f} GB, dense.blob "
+            f"{(store / 'dense.blob').stat().st_size / 1e9:.2f} GB")
+        rng = np.random.default_rng(23)
+        prompts = [rng.integers(3, GK_CONFIG["vocab_size"], (1, GA_PROMPT))
+                   for _ in range(GK_REQUESTS)]
+        kw = dict(max_new_tokens=GK_NEW, eos_token_id=None)
+        base = {"expert_dtype": "float8_e4m3fn", "moe_impl": "pallas", "prefill_impl": "pallas",
+                "offload_path": str(store), "max_batch_size": 1}
+        res = _ep_build("grok resident", ckpt, base, dev)
+        want = [res.generate(p, **kw) for p in prompts]
+        say(f"[grok-entry] resident tokens (request 1): {want[0][0, GA_PROMPT:].tolist()}")
+        dense_bytes = _tree_bytes(res.params)
+        res.shutdown()
+        del res
+        torch.cuda.empty_cache()
+        from moe_infinity_tpu_torch.store.blob import ExpertStore
+
+        # a budget of 5 of the 8 experts: the plan offloads, and its arena takes
+        # the 8 slots of one MoE layer, the least the engine takes
+        E = GK_CONFIG["num_experts"]
+        stride = ExpertStore(str(store)).stride
+        off = _ep_build("grok offload", ckpt, dict(
+            base, dense_paging="off", device_memory_bytes=dense_bytes + 5 * stride + stride // 2,
+            speculative_decode=True, speculative_block=2), dev)
+        try:
+            if off.engine is None or off.engine.arena.num_slots != E:
+                raise AssertionError(f"grok offload facade: expected an arena of {E} slots")
+            off.generate(prompts[0], **kw)  # warm-up: the graphs' captures
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            got = [off.generate(p, **kw) for p in prompts]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            st = off.stats()
+            say(f"[grok-entry] offload (a budget of 5 of 8 experts: {E} slots, speculative "
+                f"blocks of 2, graphs; fetches {json.dumps(off.engine.arena.fetch_stats())}): "
+                f"{GK_REQUESTS} requests, s_per_token={wall / (GK_REQUESTS * (GK_NEW + 1)):.4f}; "
+                f"hit rate {off.hit_rate():.4f}; evictions {st.get('evictions')}; graphs "
+                f"{json.dumps(off.engine.graph_stats())}; launches {json.dumps(counts)}")
+            for i, (a, b) in enumerate(zip(got, want)):
+                _ep_check(f"grok-entry: request {i} offload tokens equal the resident "
+                          f"Generator's", np.array_equal(a, b))
+            _require_launched(counts, GROK_KERNELS, "Grok-1 offload facade")
+        finally:
+            off.shutdown()
+        del off
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        shutil.rmtree(GK_DIR, ignore_errors=True)
+        say(f"[grok-entry] deleted {GK_DIR.name}/")
+
+
+
 def sweep_decode_plans(dev):
     """``--decode-plans``: K4 at the Mixtral decode shape and at the long rows
     under split plans aimed at 2 to 8 blocks per SM (the wrapper's
@@ -4335,6 +5024,20 @@ def main() -> int:
         timed(phase_entrypoints_and_server)
         say(f"[card] {smi}")
         return 0
+    if "--grok" in sys.argv[1:] or "--arctic" in sys.argv[1:]:
+        if "--grok" in sys.argv[1:]:
+            r = check_gmm_fp8(dev)
+            say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.4f} plain_ms="
+                f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
+                f"max_abs_err={r['max_abs_err']:.3e}")
+            say(f"[check] rep 6 and 7 attention: largest errors "
+                f"{json.dumps(check_attention_rep67(dev))}")
+            timed(phase_grok)
+            timed(phase_grok_entry)
+        if "--arctic" in sys.argv[1:]:
+            timed(phase_arctic)
+        say(f"[card] {smi}")
+        return 0
     recs = timed(phase_kernels)
     counts = timed(phase_main_path)
     timed(phase_whole_path)
@@ -4355,10 +5058,13 @@ def main() -> int:
     timed(phase_mixtral_offload_whole_path)
     ds_off_counts = timed(phase_deepseek_offload)
     ep_counts = timed(phase_entrypoints_and_server)
+    gk_counts = timed(phase_grok)
+    ac_counts = timed(phase_arctic)
+    ge_counts = timed(phase_grok_entry)
     for r in recs:
         r["launches"] = sum(c.get(r["name"], 0) for c in (
             counts, mix_counts, mla_counts, off_counts, spec_counts, sw_counts, sw_off_counts,
-            mx_off_counts, ds_off_counts, ep_counts))
+            mx_off_counts, ds_off_counts, ep_counts, gk_counts, ac_counts, ge_counts))
         r.pop("shape")
     say(f"[card] {smi}")
     print(json.dumps({"kernels": recs}), flush=True)

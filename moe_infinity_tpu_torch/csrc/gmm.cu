@@ -4,17 +4,21 @@
 //   out[r, :] = bf16(x[r, :]) @ bf16(w[group_ids[g] + group_offset]) * scale
 // for the rows r of group g (rows are sorted by group; group g owns rows
 // [group_start[g], group_start[g+1])). f32 accumulation, the per-output
-// channel scale applied after the sum. Weights: bf16, int8, or split-nibble
-// packed int4 (byte c of a row holds output channel c in its low nibble and
-// channel c + F/2 in its high nibble, sign-extended).
+// channel scale applied after the sum. Weights: bf16, int8, float8 e4m3
+// (the JAX kernel's float8_e4m3fn arena: its values convert to bf16 exactly,
+// so the products are still bf16(x) x bf16(w); x is never rounded to fp8,
+// which the fp8 tensor-core products would do), or split-nibble packed int4
+// (byte c of a row holds output channel c in its low nibble and channel
+// c + F/2 in its high nibble, sign-extended).
 //
 // What bounds it on the H100: the routed experts' weight bytes, at 3.35
 // TB/s. A decode step gives each routed expert a few rows (8 to 24 rows in
 // all), Mixtral's 16-wide chunk step about 16 and NLLB's prefill about 4:
 // at most some 64 operations per weight byte, far below the tensor cores'
 // 295 but above what the CUDA cores' 67 TFLOP/s keep up with. bf16 calls
-// are bound by the loads; int8 and int4 calls by the conversion to bf16 and
-// the products, whose instructions take longer than the loads they wait on;
+// are bound by the loads; int8, int4 and e4m3 calls by the conversion to
+// bf16 and the products, whose instructions take longer than the loads they
+// wait on;
 // every call pays about 4 us of launch and output zeroing (PERF.md). The
 // design:
 //
@@ -30,15 +34,18 @@
 //   chunk come after the live ones and return at once.
 // - Loads. The block walks its range in 64-deep k-tiles: 16-byte cp.async
 //   copies of the x tile (bf16) and of the weight tile in its stored type
-//   (16 KB bf16, 8 KB int8 or packed int4), as many stages deep as 72 KB of
+//   (16 KB bf16, 8 KB int8, e4m3 or packed int4), as many stages deep as 72 KB of
 //   shared memory hold, so that three one-tile blocks share an SM (the x
 //   tile is only as tall as the call's rows need). Each thread's copy sources are computed once and advanced by a
 //   k-tile per load. Rows past the chunk, columns past the weight's width and
 //   the tail of D are zero-filled by cp.async's source size, never read.
-// - Dequantization. Each warp converts its own 16 stored columns of an int8
-//   or int4 stage into a bf16 tile (exact: -128..127 and -8..7 are bf16
-//   values, built from the bytes with byte permutes and one add), so only a
-//   __syncwarp stands between conversion and use. This costs about ten bytes
+// - Dequantization. Each warp converts its own 16 stored columns of an int8,
+//   int4 or e4m3 stage into a bf16 tile (exact: -128..127 and -8..7 are
+//   bf16 values, built from the bytes with byte permutes and one add; an
+//   e4m3 pair becomes two halves by cvt.rn.f16x2.e4m3x2, each widened to f32
+//   and cut to its upper half, which loses nothing: e4m3 has 3 mantissa
+//   bits and bf16 7), so only a __syncwarp stands between conversion and
+//   use. This costs about ten bytes
 //   of shared-memory traffic per int4 byte read; converting straight into
 //   the B fragments in registers is the later fix.
 // - Products on the tensor cores: mma.sync m16n8k16 bf16 -> f32, A fragments
@@ -54,13 +61,15 @@
 //   workspace; the last split of a (column tile, chunk) to finish (a
 //   __threadfence() and a ticket counter it resets to 0) sums the partials in
 //   split order, applies the scale and stores: deterministic, one launch.
+#include <cuda_fp16.h>
+
 #include <algorithm>
 
 #include "common.cuh"
 
 namespace {
 
-enum WKind { kBF16 = 0, kINT8 = 1, kINT4 = 2 };
+enum WKind { kBF16 = 0, kINT8 = 1, kINT4 = 2, kE4M3 = 3 };
 
 constexpr int kThreads = 256;  // 8 warps; warp w owns stored columns [16w, 16w + 16)
 constexpr int kWarps = kThreads / 32;
@@ -167,6 +176,18 @@ __device__ __forceinline__ unsigned int4_pair(unsigned q, unsigned sel) {
   return *reinterpret_cast<const unsigned*>(&r);
 }
 
+// bf16 pair of the two e4m3 codes in the low (lo) and high byte of `v`:
+// cvt gives the f16 pair (every e4m3 value, NaN included, is an f16 value),
+// each half widens to f32 exactly, and the upper 16 bits of an f32 that a
+// bf16 holds are that bf16.
+__device__ __forceinline__ unsigned e4m3_pair(unsigned short v) {
+  unsigned h2;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(h2) : "h"(v));
+  const __half2 h = *reinterpret_cast<const __half2*>(&h2);
+  const float2 f = __half22float2(h);
+  return __byte_perm(__float_as_uint(f.x), __float_as_uint(f.y), 0x7632);
+}
+
 // Warp `warp` converts its 16 stored columns of the raw stage `raw` into
 // the bf16 tile `bq` (int4: low nibbles at columns [0, 128), high nibbles
 // at [128, 256)); lane l takes rows l, l + 32, ...
@@ -180,13 +201,18 @@ __device__ __forceinline__ void dequant(const unsigned char* raw, unsigned char*
     const uint4 v = *reinterpret_cast<const uint4*>(raw + row * C::kWRow + warp * 16);
     const unsigned u[4] = {v.x, v.y, v.z, v.w};
     unsigned char* dst = bq + row * C::kBRow + warp * 32;
-    if (KIND == kINT8) {
+    if (KIND == kINT8 || KIND == kE4M3) {
       unsigned o[8];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const unsigned b = u[j] ^ 0x80808080u;
-        o[2 * j] = int8_pair(b, 0x7440, 0x7441);
-        o[2 * j + 1] = int8_pair(b, 0x7442, 0x7443);
+        if (KIND == kINT8) {
+          const unsigned b = u[j] ^ 0x80808080u;
+          o[2 * j] = int8_pair(b, 0x7440, 0x7441);
+          o[2 * j + 1] = int8_pair(b, 0x7442, 0x7443);
+        } else {
+          o[2 * j] = e4m3_pair((unsigned short)(u[j] & 0xffffu));
+          o[2 * j + 1] = e4m3_pair((unsigned short)(u[j] >> 16));
+        }
       }
       reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
       reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
@@ -480,6 +506,8 @@ extern "C" int mit_gmm(const void* x, const void* w, const void* scale,
       return launch_kind<kINT8>(a, grid, mt, st);
     case kINT4:
       return launch_kind<kINT4>(a, grid, mt, st);
+    case kE4M3:
+      return launch_kind<kE4M3>(a, grid, mt, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -17,13 +17,15 @@
 The device budget is ``device_memory_bytes``, else the device's memory
 times ``device_memory_ratio``: ``torch.cuda.get_device_properties`` on the
 card, and the JAX package's 16 GiB on the CPU, so that the CPU tests plan as
-the JAX facade does. CUDA graphs are on wherever the port's engine has them
-(Mixtral's offload engine, NLLB and Switch); DeepSeek's offload engine runs
-eagerly. The choice is made by family.
+the JAX facade does. CUDA graphs are on wherever the port's engine has them:
+the seq2seq engines (NLLB and Switch) and the decoder-only offload engine
+for every model whose step sets ``graph_step`` (Mixtral, Grok-1, Arctic);
+DeepSeek's offload engine runs eagerly. Experts are stored as
+``expert_dtype`` says: bf16, f32, f16, int8, int4 or ``float8_e4m3fn``.
 
 Plans and options the port does not serve raise ``NotImplementedError``
-naming their ROADMAP queue-1 item: grok, arctic and opt, and load modes
-other than ``mmap`` (14); dense paging (16); multihost and any parallel
+naming their ROADMAP queue-1 item: opt, and load modes other than ``mmap``
+(14); dense paging (16); multihost and any parallel
 degree above 1 (18); the seq2seq batchers (``max_batch_size`` > 1 on
 Switch or NLLB), prompt-lookup speculation (``speculative_tokens``) and
 the batcher's arena mode (an offload plan with ``speculative_decode`` and
@@ -51,7 +53,9 @@ _JAX_DEFAULT_HBM = 16 * 2**30
 
 
 def _registry() -> Dict[str, tuple]:
+    from moe_infinity_tpu_torch.models.arctic import ArcticModel, ArcticSpec
     from moe_infinity_tpu_torch.models.deepseek_v2 import DeepseekV2Model, DeepseekV2Spec
+    from moe_infinity_tpu_torch.models.grok import GrokModel, GrokSpec
     from moe_infinity_tpu_torch.models.mixtral import MixtralModel, MixtralSpec
     from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
     from moe_infinity_tpu_torch.models.switch import SwitchModel, SwitchSpec
@@ -62,11 +66,9 @@ def _registry() -> Dict[str, tuple]:
         "deepseek_v3": (DeepseekV2Spec, DeepseekV2Model),
         "switch": (SwitchSpec, SwitchModel),
         "nllb": (NllbSpec, NllbModel),
+        "grok": (GrokSpec, GrokModel),
+        "arctic": (ArcticSpec, ArcticModel),
     }
-
-
-# families whose offload engine runs its speculative steps as CUDA graphs
-_GRAPH_FAMILIES = ("mixtral", "switch", "nllb")
 
 
 def _dense_bytes_estimate(dense, compute_itemsize: int) -> int:
@@ -213,7 +215,9 @@ class MoE:
                         prefill_impl=config.prefill_impl,
                         speculative=config.speculative_decode,
                         spec_block=config.speculative_block,
-                        graphs=self.arch in _GRAPH_FAMILIES)
+                        # the seq2seq engines capture their own steps; a
+                        # decoder-only model says whether its step can be one
+                        graphs=seq2seq or getattr(self.model, "graph_step", False))
 
         def resident_experts():
             logger.info("experts fit the device (%.2f GB <= %.2f GB budget): resident plan",

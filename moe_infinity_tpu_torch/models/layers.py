@@ -82,6 +82,51 @@ def apply_rope(q, k, cos, sin):
     return q_out.to(q.dtype), k_out.to(k.dtype)
 
 
+def random_expert_layer(E: int, D: int, F: int, expert_dtype: str,
+                        generator: torch.Generator, device) -> dict:
+    """One MoE layer's random gated experts ``gate``/``up`` ``[E, D, F]`` and
+    ``down`` ``[E, F, D]`` on ``device`` (where ``generator`` must live):
+    ``"bf16"`` normal, std 0.02; ``"int8"`` values in [-127, 127) with
+    per-channel f32 scales in [1e-3, 2e-3) under '<role>_scale' (the JAX
+    bench's resident int8 arenas); ``"int4"`` split-nibble packed '<role>4'
+    with scales in [3e-3, 5.6e-3); ``"fp8"`` float8_e4m3fn codes of normal
+    values of std 64 clamped to e4m3's 448 (7 sigma) with scales in
+    [2.5e-4, 3.75e-4), so weights of std about 0.02, drawn one expert at a
+    time (an f32 draw of a whole Grok-1 role would take 6.4 GB)."""
+    from moe_infinity_tpu_torch.ops.moe import pack_int4
+
+    if expert_dtype not in ("bf16", "int8", "int4", "fp8"):
+        raise ValueError(f"expert_dtype {expert_dtype!r}: bf16, int8, int4 or fp8")
+    g = generator
+
+    def scale(n, lo, hi):
+        return torch.empty((E, n), dtype=torch.float32, device=device).uniform_(
+            lo, hi, generator=g)
+
+    def ints(shape, lo, hi):
+        return torch.randint(lo, hi, shape, dtype=torch.int8, device=device, generator=g)
+
+    w = {}
+    for role, shape in (("gate", (E, D, F)), ("up", (E, D, F)), ("down", (E, F, D))):
+        if expert_dtype == "bf16":
+            w[role] = torch.empty(shape, dtype=torch.bfloat16, device=device).normal_(
+                0.0, 0.02, generator=g)
+        elif expert_dtype == "int8":
+            w[role] = ints(shape, -127, 127)
+            w[role + "_scale"] = scale(shape[2], 1e-3, 2e-3)
+        elif expert_dtype == "int4":
+            w[role + "4"] = pack_int4(ints(shape, -8, 8))
+            w[role + "_scale"] = scale(shape[2], 0.003, 0.0056)
+        else:
+            codes = torch.empty(shape, dtype=torch.float8_e4m3fn, device=device)
+            for e in range(E):
+                codes[e] = torch.empty(shape[1:], dtype=torch.float32, device=device).normal_(
+                    0.0, 64.0, generator=g).clamp_(-448.0, 448.0)
+            w[role] = codes
+            w[role + "_scale"] = scale(shape[2], 2.5e-4, 3.75e-4)
+    return w
+
+
 class KVCache:
     """Per-layer contiguous KV cache, k/v ``[B, S_max, Hkv, Dh]``, updated
     in place (the JAX version returns a new cache)."""

@@ -4,15 +4,17 @@ expert FFN built on it.
 ``gmm`` replaces ``moe_infinity_tpu/ops/gmm.py`` ``_gmm_kernel``/``gmm``:
 ``out[T, F] = bf16(x[T, D]) @ bf16(w[group_ids[g] + group_offset])`` over
 rows sorted by group, f32 accumulation, the per-output-channel ``scale``
-after the sum. Weights are bf16, int8 or split-nibble packed int4
-(``[S, D, F/2]`` int8; low nibbles are columns ``[0, F/2)``, high nibbles
-``[F/2, F)``). The kernel (``csrc/gmm.cu``) should be bound by the routed
-experts' weight bytes: a block owns 128 stored columns of a chunk of up to
+after the sum. Weights are bf16, int8, float8_e4m3fn (every e4m3 value is a
+bf16 value, so the products are the JAX kernel's ``bf16(x) x bf16(w)``) or
+split-nibble packed int4 (``[S, D, F/2]`` int8; low nibbles are columns
+``[0, F/2)``, high nibbles ``[F/2, F)``). The kernel (``csrc/gmm.cu``)
+should be bound by the routed experts' weight bytes: a block owns 128
+stored columns of a chunk of up to
 64 rows of one group, so a group of up to 64 rows reads its slab once;
-64-deep k-tiles arrive by ``cp.async`` several stages ahead, int8 and int4
-are converted to bf16 in shared memory, and the products run on the tensor
-cores (``mma.sync``). bf16 calls are bound by their loads; int8 and int4
-calls by that conversion and the products (``PERF.md``).
+64-deep k-tiles arrive by ``cp.async`` several stages ahead, int8, int4 and
+e4m3 are converted to bf16 in shared memory, and the products run on the
+tensor cores (``mma.sync``). bf16 calls are bound by their loads; int8, int4
+and e4m3 calls by that conversion and the products (``PERF.md``).
 Where the column tiles times the chunks leave the card short of blocks,
 ``_gmm_plan`` cuts the reduction into k-splits that the kernel merges in
 split order in the same launch. For CUDA tensors the wrapper
@@ -36,10 +38,11 @@ import torch
 
 from moe_infinity_tpu_torch.ops import _build
 
-# launches of the kernel since the last reset (plain runs never count)
-LAUNCHES = {"gmm": 0}
+# launches of the kernel since the last reset (plain runs never count); the
+# e4m3 instance counts under its own name
+LAUNCHES = {"gmm": 0, "gmm_fp8": 0}
 
-_KIND = {torch.bfloat16: 0, torch.int8: 1}  # WKind in csrc/gmm.cu
+_KIND = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 3}  # WKind in csrc/gmm.cu
 _INT4 = 2
 _c = ctypes.c_void_p
 _GMM_ARGS = [_c] * 7 + [ctypes.c_int] * 10 + [_c, _c]
@@ -136,7 +139,7 @@ def _gmm_cuda(x, w, group_sizes, scale, group_offset, group_ids, *, packed):
         _build.stream_ptr(dev),
     )
     _build.check(err, "gmm")
-    LAUNCHES["gmm"] += 1
+    LAUNCHES["gmm_fp8" if w.dtype == torch.float8_e4m3fn else "gmm"] += 1
     return out
 
 
@@ -190,8 +193,8 @@ def gffn_pallas(x, expert_ids, combine_weights, expert_to_slot,
                 weights: Dict[str, torch.Tensor], activation, biases=None):
     """Grouped FFN on the gmm kernel; signature of ops.moe._gffn_ragged.
     Takes 'gate'/'down' (NLLB), gated 'gate'/'up'/'down' (Mixtral) and fused
-    'gateup', each bf16, int8 with '<role>_scale', or packed int4 under
-    '<role>4'. A packed 'gateup4' needs no split: its low nibbles are the
+    'gateup', each bf16, int8 or float8_e4m3fn with '<role>_scale', or
+    packed int4 under '<role>4'. A packed 'gateup4' needs no split: its low nibbles are the
     gate columns and its high nibbles the up columns, so one gmm emits
     [gate | up]."""
     from moe_infinity_tpu_torch.ops.moe import _activate

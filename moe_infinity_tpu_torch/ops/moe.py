@@ -5,15 +5,17 @@ Port of ``moe_infinity_tpu/ops/moe.py``. Weight layout ("compute layout"):
 gate/up ``[S, D, F]``, down ``[S, F, D]``, or gate and up fused as
 ``gateup`` ``[S, D, 2F]`` (``fuse_gateup``); a packed int4 array lives under
 ``"<role>4"`` (``[S, D, F/2]`` int8, split nibbles) with its scale under
-``"<role>_scale"`` ``[S, out]``. A per-layer int32 ``expert_to_slot[E]``
-maps router expert ids to weight rows.
+``"<role>_scale"`` ``[S, out]``, as do int8 and ``float8_e4m3fn`` arrays
+under ``"<role>"``. A per-layer int32 ``expert_to_slot[E]`` maps router
+expert ids to weight rows.
 
 Implementations of ``grouped_ffn``:
   * ``"ragged"`` - plain PyTorch: sort by slot, one matmul per routed group
     (reads the group sizes on the host), combine;
   * ``"pallas"`` - the gmm kernel (K3) through ``ops.gmm.gffn_pallas``;
   * ``"gather"`` - plain PyTorch, no sort: each (token, k) row gathers its
-    expert's slab and runs a batched matvec (plain XLA in the JAX package);
+    expert's slab and runs a batched matvec (plain XLA in the JAX package;
+    as there, the first products round x to the slab's type, fp8 too);
   * ``"dense"`` - plain PyTorch reference: every slot for every token
     through one-hot masks, O(T*S*F*D), for tests and tiny models.
 """
@@ -24,6 +26,8 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from moe_infinity_tpu_torch.utils.dtypes import FP8_NAN_BOUND
 
 
 def topk_router(router_logits, k: int, *, pre_softmax: bool = True,
@@ -176,6 +180,17 @@ def grouped_ffn(
     raise ValueError(f"unknown grouped_ffn impl {impl!r}")
 
 
+def _as_operand(x, dtype):
+    """x cast to a weight's type as the JAX package casts it: f32 values
+    rounded to float8_e4m3fn for fp8 (NaN past 464, as ``jnp``'s cast),
+    else ``x.to(dtype)``."""
+    if dtype != torch.float8_e4m3fn:
+        return x.to(dtype)
+    x32 = x.float()
+    q = x32.to(torch.float8_e4m3fn).float()  # torch's cast saturates past 448
+    return torch.where(x32.abs() <= FP8_NAN_BOUND, q, torch.nan)
+
+
 def _row_dot(x, w):
     """Per-row ``x[t] @ w[t]`` with exact products of the operands and f32
     sums (einsum with preferred f32 in the JAX package)."""
@@ -187,7 +202,7 @@ def _gffn_gather(x, expert_ids, combine_weights, expert_to_slot, weights,
     """Decode-path grouped FFN as gather + batched matvec: each (token, k)
     row gathers its expert's slab; combine is a weighted sum over k. int8 and
     packed int4 slabs become bf16 (exact), and x is rounded to the slab's
-    type, as in the JAX package."""
+    type (bf16, f32 or fp8), as in the JAX package."""
     T, D = x.shape
     K = expert_ids.shape[1]
     compute_dtype = x.dtype
@@ -206,13 +221,13 @@ def _gffn_gather(x, expert_ids, combine_weights, expert_to_slot, weights,
 
     if "gateup" in weights or "gateup4" in weights:
         wgu = dq("gateup")
-        xb = x_rep.to(wgu.dtype)
+        xb = _as_operand(x_rep, wgu.dtype)
         hcat = scaled(_row_dot(xb, wgu), "gateup")
         F = hcat.shape[-1] // 2
         h = _activate(hcat[:, :F], hcat[:, F:], activation)
     else:
         wg = dq("gate")
-        xb = x_rep.to(wg.dtype)
+        xb = _as_operand(x_rep, wg.dtype)
         h = scaled(_row_dot(xb, wg), "gate")
         if biases is not None and "gate_bias" in biases:
             h = h + biases["gate_bias"][rows]

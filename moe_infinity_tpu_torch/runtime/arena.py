@@ -41,8 +41,11 @@ may have read the new record is never accepted.
 
 On the CPU (``device="cpu"``) copies are synchronous and no event is made.
 
-Not ported: ``dequant_on_write``, ``reserve_zero_slot`` (host fallback),
-``tp_mirrors`` and fp8 slots raise ``NotImplementedError``; the JAX
+Slots keep the stored bytes: int8, packed int4 and ``float8_e4m3fn`` codes
+(as the JAX arena's ``jnp.float8_e4m3fn`` slots), dequantized by K3.
+
+Not ported: ``dequant_on_write``, ``reserve_zero_slot`` (host fallback)
+and ``tp_mirrors`` raise ``NotImplementedError``; the JAX
 relay's upload knobs (``upload_chunk_bytes``, ``upload_threads``) have no
 counterpart.
 """
@@ -144,11 +147,11 @@ class ExpertArena:
                 continue
             key = _ROLE_KEYS[role]
             fdt = store._field_by_name[tail].dtype
-            torch_dtype(fdt)  # raises for fp8
-            quantized = fdt in ("int8", "int4")
-            # a packed int4 slot keeps the '<role>4' key; its scale the base key
-            add(key + "4" if fdt == "int4" else key, tail,
-                torch.int8 if quantized else compute_dtype)
+            # quantized slots keep the stored bytes (int8, packed int4, fp8
+            # codes) and K3 dequantizes; a packed int4 slot keeps the
+            # '<role>4' key, its scale the base key
+            sdt = torch_dtype(fdt) if fdt in ("int8", "int4", "float8_e4m3fn") else compute_dtype
+            add(key + "4" if fdt == "int4" else key, tail, sdt)
             if tail + ".scale" in field_names:
                 add(key + "_scale", tail + ".scale", torch.float32)
         for tail, key in _BIAS_TAILS.items():

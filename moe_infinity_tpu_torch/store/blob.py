@@ -31,9 +31,16 @@ import numpy as np
 
 import torch
 
-from moe_infinity_tpu_torch.utils.dtypes import bf16_bits, dtype_name, np_dtype, to_tensor
+from moe_infinity_tpu_torch.utils.dtypes import (
+    bf16_bits,
+    dtype_name,
+    fp8_bits,
+    np_dtype,
+    to_tensor,
+)
 
 ALIGN = 4096  # page alignment of records
+_FP8_PIECE = 1 << 24  # values of one draw of SyntheticStore's fp8 fields
 FORMAT_VERSION = 1
 
 
@@ -93,16 +100,15 @@ class ExpertStoreWriter:
         self._field_by_name = {f.name: f for f in self.fields}
 
     def write_tensor(self, layer: int, expert: int, name: str, array: np.ndarray) -> None:
-        """bf16 fields take their raw bits as ``uint16``; int4 fields packed
-        nibbles in ``int8``."""
+        """bf16 fields take their raw bits as ``uint16``, int4 fields packed
+        nibbles in ``int8``, fp8 fields their codes as ``uint8``."""
         f = self._field_by_name[name]
         a = np.ascontiguousarray(array)
         if tuple(a.shape) != f.shape:
             raise ValueError(
                 f"{name} shape {a.shape} != spec {f.shape} (L{layer} E{expert})"
             )
-        want = "int8" if f.dtype == "int4" else f.dtype
-        if dtype_name(a.dtype) != want:
+        if a.dtype != np_dtype(f.dtype):
             raise ValueError(f"{name} dtype {a.dtype} != spec {f.dtype}")
         base = (layer * self.num_experts + expert) * self.stride
         self._f.seek(base + f.offset)
@@ -325,6 +331,16 @@ class SyntheticStore:
             # than rng.integers at multi-MB field sizes
             n = int(np.prod(f.shape))
             return np.frombuffer(rng.bytes(n), dtype=np.int8).reshape(f.shape)
+        if f.dtype == "float8_e4m3fn":
+            # in pieces: one f64 draw of a Grok-1 expert's 604 M codes
+            # would take 4.8 GB; the draws continue one stream, so the
+            # codes equal one draw's
+            n = int(np.prod(f.shape))
+            out = np.empty(n, np.uint8)
+            for lo in range(0, n, _FP8_PIECE):
+                hi = min(n, lo + _FP8_PIECE)
+                out[lo:hi] = fp8_bits(rng.standard_normal(hi - lo) * 0.02)
+            return out.reshape(f.shape)
         x = rng.standard_normal(f.shape) * 0.02
         if f.dtype == "bfloat16":
             return bf16_bits(x)

@@ -12,9 +12,11 @@ Ingest is idempotent: a finished store (``store_exists``) is a warm start
 and is not rewritten unless ``force``.
 
 Tensors come from the port's own readers (``utils/checkpoints.py``): the
-safetensors format by memory map, ``.bin`` by ``torch.load``. GPTQ and
-block-fp8 checkpoints raise (ROADMAP queue-1 item 14), and so do
-``float8_e4m3fn`` experts (queue 2, part 1).
+safetensors format by memory map, ``.bin`` by ``torch.load``. Experts are
+stored as ``float32``/``bfloat16``/``float16`` or quantized row-wise to
+``int8``, ``int4`` or ``float8_e4m3fn`` (``store/quant.py``). GPTQ and
+block-fp8 checkpoints, and fp8 tensors in a checkpoint, raise (ROADMAP
+queue-1 item 14).
 """
 
 from __future__ import annotations
@@ -51,11 +53,6 @@ def _quant_method(config):
 def _check_supported(config, expert_dtype: str) -> None:
     if expert_dtype not in EXPERT_DTYPES:
         raise ValueError(f"unsupported expert_dtype {expert_dtype!r}")
-    if expert_dtype == "float8_e4m3fn":
-        raise NotImplementedError(
-            "float8_e4m3fn experts are not ported (ROADMAP queue 2, part 1: K3 with "
-            "fp8 weights)"
-        )
     method = _quant_method(config)
     if method == "gptq":
         raise NotImplementedError(

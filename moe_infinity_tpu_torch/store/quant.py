@@ -2,13 +2,15 @@
 ``moe_infinity_tpu/store/quant.py``.
 
 Symmetric per-output-channel scaling:
-  int8: q = round(w / s), s = rowmax(|w|) / 127
-  int4: q = round(w / s), s = rowmax(|w|) / 7, two values per byte
+  int8:          q = round(w / s), s = rowmax(|w|) / 127
+  int4:          q = round(w / s), s = rowmax(|w|) / 7, two values per byte
+  float8_e4m3fn: q = w / s,        s = rowmax(|w|) / 448, rounded to e4m3
+                 as ``ml_dtypes`` rounds (``utils.dtypes.fp8_bits``); the
+                 codes are ``uint8`` bytes
 
-Scales are float32 and stored alongside the quantized tensor in the expert
-record as '<name>.scale'; the dequantization is fused into K3
-(``ops/gmm.py``). ``float8_e4m3fn`` raises ``NotImplementedError`` until K3
-takes fp8 weights.
+A zero row takes the scale 1.0. Scales are float32 and stored alongside the
+quantized tensor in the expert record as '<name>.scale'; the dequantization
+is fused into K3 (``ops/gmm.py``).
 """
 
 from __future__ import annotations
@@ -17,8 +19,11 @@ from typing import Tuple
 
 import numpy as np
 
+from moe_infinity_tpu_torch.utils.dtypes import fp8_bits, fp8_values
+
 INT8_MAX = 127.0
 INT4_MAX = 7.0
+FP8_E4M3_MAX = 448.0
 
 
 def pack_int4_np(v: np.ndarray) -> np.ndarray:
@@ -53,14 +58,14 @@ def quantize_rowwise(w: np.ndarray, dtype: str) -> Tuple[np.ndarray, np.ndarray]
         q = np.clip(np.rint(w32 / scale[:, None]), -8, 7).astype(np.int8)
         q = pack_int4_np(q.T).T
     elif dtype == "float8_e4m3fn":
-        raise NotImplementedError(
-            "float8_e4m3fn quantization is not ported (ROADMAP queue 2, part 1: K3 "
-            "takes no fp8 weights yet)"
-        )
+        scale = np.where(absmax > 0, absmax / FP8_E4M3_MAX, 1.0).astype(np.float32)
+        q = fp8_bits(w32 / scale[:, None])
     else:
         raise ValueError(f"unsupported quant dtype {dtype}")
     return q, scale
 
 
 def dequantize_rowwise(q: np.ndarray, scale: np.ndarray) -> np.ndarray:
-    return q.astype(np.float32) * scale[:, None]
+    """f32 ``q * scale`` row-wise; ``uint8`` ``q`` holds e4m3 codes."""
+    vals = fp8_values(q) if q.dtype == np.uint8 else q.astype(np.float32)
+    return vals * scale[:, None]

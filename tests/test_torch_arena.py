@@ -241,8 +241,13 @@ def test_unported_options_raise(stores, tmp_path):
                dict(tp_mirrors=[("dev", None)])):
         with pytest.raises(NotImplementedError):
             make_arena(path, 4, **kw)
-    with pytest.raises(NotImplementedError):  # fp8 records: no store, no slot
-        SyntheticStore(1, 2, [("fc1.weight", (4, 4), "float8_e4m3fn")], meta={"arch": "nllb"})
+    # fp8 records are served since K3 takes e4m3: their slots keep the codes
+    fields = [("fc1.weight", (16, 16), "float8_e4m3fn"), ("fc2.weight", (16, 16), "float8_e4m3fn")]
+    fp8 = ExpertArena(SyntheticStore(1, 2, fields, meta={"arch": "nllb"}), 2, device="cpu")
+    try:
+        assert fp8.pytree()["gate"].dtype == torch.float8_e4m3fn
+    finally:
+        fp8.shutdown()
     with pytest.raises(NotImplementedError):
         PinnedExpertTier(ExpertStore(path), device="cpu").layer_stack(0)
 

@@ -4,7 +4,9 @@ one, run them with ``python3 -m pytest --noconftest -m cuda
 tests/test_torch_cuda_kernels.py`` (``--noconftest``: the repo conftest imports
 jax, which that machine need not have).
 Tolerance 2e-2 (rtol and atol) for bf16 operands, as the JAX suite's gmm
-tests, and 2e-3 for f32 attention (summation order only)."""
+tests, and 2e-3 for f32 attention (summation order only). K3's e4m3 weights
+are exact in bf16, so they take the bf16 tolerance; K1, K2 and K4 run at
+Grok-1's rep 6 with its softcap and score scale and at Arctic's rep 7."""
 
 import pytest
 import torch
@@ -38,7 +40,7 @@ def _close(got, want, tol):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rep,pad,softcap,causal", [
     (1, False, None, True), (2, True, None, True), (4, False, 30.0, True),
-    (2, True, None, False),
+    (2, True, None, False), (6, True, 30.0, True), (7, True, None, True),
 ])
 def test_flash_decode_kernel(dev, dtype, rep, pad, softcap, causal):
     g = _gen(dev)
@@ -80,7 +82,13 @@ def test_flash_attend_kernel(dev, dtype, T, causal, bias, pad):
     _close(got, want, 2e-3 if dtype == torch.float32 else 2e-2)
 
 
-@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def _fp8(dev, g, *shape):
+    """float8_e4m3fn weights of std 64 (clamped to e4m3's 448) from ``g``."""
+    return (torch.randn(*shape, generator=g, device=dev) * 64).clamp_(-448, 448).to(
+        torch.float8_e4m3fn)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4", "fp8"])
 def test_gmm_kernel(dev, kind):
     g = _gen(dev)
     S, D, F, T = 6, 384, 512, 40
@@ -89,6 +97,8 @@ def test_gmm_kernel(dev, kind):
     scale = None
     if kind == "bf16":
         w = (torch.randn(S, D, F, generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    elif kind == "fp8":
+        w, scale = _fp8(dev, g, S, D, F), torch.rand(S, F, generator=g, device=dev) * 4e-4
     else:
         Fw = F // 2 if kind == "int4" else F
         w = torch.randint(-128, 128, (S, D, Fw), generator=g, device=dev, dtype=torch.int8)
@@ -122,6 +132,8 @@ def _gmm_inputs(dev, kind, sizes, D, F, rows_past=0, S=None):
     scale = None
     if kind == "bf16":
         w = (torch.randn(S, D, F, generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    elif kind == "fp8":
+        w, scale = _fp8(dev, g, S, D, F), torch.rand(S, F, generator=g, device=dev) * 4e-4
     else:
         Fw = F // 2 if kind == "int4" else F
         w = torch.randint(-128, 128, (S, D, Fw), generator=g, device=dev, dtype=torch.int8)
@@ -129,7 +141,8 @@ def _gmm_inputs(dev, kind, sizes, D, F, rows_past=0, S=None):
     return x, w, torch.tensor(sizes, dtype=torch.int32, device=dev), scale
 
 
-@pytest.mark.parametrize("kind,F", [("bf16", 320), ("int8", 704), ("int4", 1408)])
+@pytest.mark.parametrize("kind,F", [("bf16", 320), ("int8", 704), ("int4", 1408),
+                                    ("fp8", 336)])
 @pytest.mark.parametrize("sizes", [
     [0, 1, 15, 16, 17, 0, 63, 64, 65, 150],  # the 64-row chunks' and m16 tiles' edges
     [64, 64],  # the last group ends at a chunk edge
@@ -145,7 +158,7 @@ def test_gmm_kernel_chunk_edges(dev, kind, F, sizes):
     assert bool((got[sum(sizes):] == 0).all())
 
 
-@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4", "fp8"])
 def test_gmm_kernel_several_splits_against_one(dev, kind, monkeypatch):
     """NLLB's decode down projection (8 rows, D=8192) under the plan's
     splits, then under one; the split run repeats to the bit (the tickets
@@ -162,6 +175,36 @@ def test_gmm_kernel_several_splits_against_one(dev, kind, monkeypatch):
     # the same f32 sums in another order: within 3e-5 of the largest output
     torch.testing.assert_close(split[0], one, rtol=0, atol=3e-5 * one.abs().max().item())
     _close(one, gm.gmm_plain(x, w, sz, scale, packed=packed), 2e-2)
+
+
+def test_gmm_kernel_fp8_codes_exactly(dev):
+    """Every e4m3 code through the kernel's conversion: an identity x picks
+    the weight rows, each code's value exactly (NaN where the code is NaN)."""
+    codes = torch.arange(256, dtype=torch.uint8, device=dev).reshape(16, 16)
+    w = codes.repeat(1, 8).contiguous().view(torch.float8_e4m3fn)[None]  # [1, 16, 128]
+    x = torch.eye(16, device=dev)
+    sizes = torch.tensor([16], dtype=torch.int32, device=dev)
+    before = gm.LAUNCHES["gmm_fp8"]
+    got = gm.gmm(x, w, sizes)
+    assert gm.LAUNCHES["gmm_fp8"] == before + 1
+    want = w[0].float()  # x = I: out = w exactly
+    torch.cuda.synchronize()
+    nan = torch.isnan(want).any(0, keepdim=True).expand_as(want)  # 0 * NaN spreads a column
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+@pytest.mark.parametrize("T,sizes,D,F", [
+    (2, [1, 1], 6144, 32768),  # Grok-1's batch-1 gate: 256 column tiles, one split
+    (2, [1, 1], 32768, 6144),  # ... and down: 512 k-tiles in 3 splits
+    (2, [1, 1], 7168, 4864),  # Arctic's gate: 38 column tiles, 4 splits
+    (2, [1, 1], 4864, 7168),  # ... and down
+    (16, [3, 1, 2, 4, 0, 2, 3, 1], 6144, 4096),  # a W = 8 step's rows over 8 experts
+])
+def test_gmm_kernel_fp8_grok_arctic_widths(dev, T, sizes, D, F):
+    x, w, sz, scale = _gmm_inputs(dev, "fp8", sizes, D, F, rows_past=T - sum(sizes))
+    got = gm.gmm(x, w, sz, scale)
+    _close(got, gm.gmm_plain(x, w, sz, scale), 2e-2)
 
 
 def test_gmm_kernel_on_a_second_stream_without_a_host_sync(dev):
@@ -223,6 +266,7 @@ def test_grouped_ffn_pallas_kernel_matches_plain(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rep,holes,softcap", [
     (4, True, None), (8, False, None), (4, False, 30.0), (1, True, None),
+    (6, True, 30.0), (7, True, None),
 ])
 def test_paged_flash_decode_kernel(dev, dtype, rep, holes, softcap):
     """Shuffled page table, hole mask, a row of length 0 (gives 0) and a
@@ -457,7 +501,7 @@ def test_deepseek_fused_step_kernels_match_cpu(dev, moe_impl):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("rep", [1, 2, 4, 6, 7, 8])
 def test_decode_body_split_edges(dev, dtype, rep):
     """The decode body where its split plan has edges, through K4 and, on the
     gathered rows, K1: a row of 0 live keys beside a long one, splits that lie
@@ -559,6 +603,29 @@ def test_flash_attend_gqa_rep4(dev, dtype, T, S, kv_len, softcap):
     kw = dict(causal=True, logit_softcap=softcap, pad_mask=mask)
     got = fa.flash_attend(q, k, v, pos, kv_len, **kw)
     want = fa.flash_attend_plain(q, k, v, pos, kv_len, scale=Dh ** -0.5, **kw)
+    _close(got, want, 2e-3 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 2, 16, 40])
+@pytest.mark.parametrize("rep,softcap,scale", [(6, 30.0, 0.08838834764831845), (7, None, None)])
+def test_flash_attend_gqa_rep6_rep7(dev, dtype, T, rep, softcap, scale):
+    """K2 at Grok-1's rep 6 (softcap 30, scale 0.0884) and Arctic's rep 7:
+    T = 1 takes the decode body (6 or 7 rows), T = 2 the tensor-core kernel
+    with 12 or 14 rows, whose blocks of 4 units straddle query chunks;
+    sharp scores (q and k x3) so that the softcap acts."""
+    g = _gen(dev)
+    B, Hkv, Dh, S, kv_len = 2, 8, 128, 300, 266
+    H = Hkv * rep
+    q = (torch.randn(B, T, H, Dh, generator=g, device=dev) * 3).to(dtype)
+    k = (torch.randn(B, S, Hkv, Dh, generator=g, device=dev) * 3).to(dtype)
+    v = torch.randn(B, S, Hkv, Dh, generator=g, device=dev).to(dtype)
+    pos = (kv_len - T + torch.arange(T, dtype=torch.int32, device=dev)).expand(B, T).contiguous()
+    mask = torch.rand(B, S, generator=g, device=dev) > 0.15
+    mask[:, kv_len - T:kv_len] = True
+    kw = dict(causal=True, logit_softcap=softcap, pad_mask=mask)
+    got = fa.flash_attend(q, k, v, pos, kv_len, scale=scale, **kw)
+    want = fa.flash_attend_plain(q, k, v, pos, kv_len, scale=scale or Dh ** -0.5, **kw)
     _close(got, want, 2e-3 if dtype == torch.float32 else 2e-2)
 
 

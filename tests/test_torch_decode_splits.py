@@ -124,7 +124,7 @@ def _qkv(rng, B, T, H, Hkv, S, Dh=128):
     return f(B, T, H, Dh), f(B, S, Hkv, Dh), f(B, S, Hkv, Dh)
 
 
-@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("rep", [1, 2, 4, 6, 7, 8])  # 6: Grok-1, 7: Arctic
 def test_emulation_matches_flash_decode_plain(rng, rep):
     """K1: a row of 0 live keys beside long ones, a live length that is no
     multiple of the tile, a split that lies wholly in holes, a softcap."""
@@ -208,6 +208,35 @@ def test_emulation_matches_flash_attend_plain(rng, T, bias_shape, causal):
     torch.testing.assert_close(got32, want32, rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("rep,softcap,scale", [(6, 30.0, 0.08838834764831845), (7, None, None)])
+def test_emulation_at_grok_and_arctic_rep(rng, rep, softcap, scale):
+    """K4 over pages and K2's few-row route at T = 1 with Grok-1's rep 6
+    (its softcap 30 and score scale 0.0884) and Arctic's rep 7: 6 and 7
+    query rows of a kv head share one pass."""
+    B, Hkv, Dh, page, P, NP = 3, 2, 128, 8, 40, 130
+    H, S = Hkv * rep, P * page
+    scale = scale or Dh ** -0.5
+    f = lambda *s: torch.tensor(rng.normal(size=s).astype(np.float32))  # noqa: E731
+    q, pk, pv = f(B, H, Dh) * 2, f(NP, page, Hkv, Dh) * 2, f(NP, page, Hkv, Dh)
+    table = torch.tensor(rng.permutation(NP)[:B * P].reshape(B, P).astype(np.int32))
+    lengths = torch.tensor([1, 320, 203], dtype=torch.int32)
+    mask = torch.tensor(rng.random((B, S)) > 0.1)
+    want = fa.paged_flash_decode(q, pk, pv, table, lengths, scale=scale,
+                                 logit_softcap=softcap, pad_mask=mask)
+    k = pk[table.long()].reshape(B, S, Hkv, Dh)
+    v = pv[table.long()].reshape(B, S, Hkv, Dh)
+    got, _ = _emulate(q[:, None], k, v, lengths, scale=scale, mask=mask, softcap=softcap)
+    torch.testing.assert_close(got[:, 0], want, rtol=TOL, atol=TOL)
+    qb, kb, vb = q[:, None].bfloat16(), k.bfloat16(), v.bfloat16()
+    pos = (lengths - 1).reshape(B, 1)
+    want2 = fa.flash_attend_plain(qb, kb, vb, pos, S, scale=scale, causal=True,
+                                  logit_softcap=softcap, bias=torch.zeros(B, 1, 1, S),
+                                  pad_mask=mask).float()
+    got2, _ = _emulate(qb.float(), kb.float(), vb.float(), lengths, scale=scale, mask=mask,
+                       bias=torch.zeros(B, 1, 1, S), pos=pos, round_p=True, softcap=softcap)
+    torch.testing.assert_close(got2, want2, rtol=4e-3, atol=4e-3)  # as the few-row test
+
+
 def test_a_plan_that_is_too_small_still_covers_every_key(rng):
     """The last split takes whatever a bound below a row's length left over."""
     B, H, Hkv, S = 1, 2, 2, 300
@@ -250,7 +279,9 @@ def test_paged_flash_decode_takes_max_len_on_the_cpu(rng):
 
 
 @pytest.mark.parametrize("T,rep,route", [(1, 1, "rows"), (1, 8, "rows"), (2, 4, "rows"),
-                                         (3, 4, "tiles"), (16, 4, "tiles"), (9, 1, "tiles")])
+                                         (3, 4, "tiles"), (16, 4, "tiles"), (9, 1, "tiles"),
+                                         (1, 6, "rows"), (1, 7, "rows"), (2, 6, "tiles"),
+                                         (2, 7, "tiles")])
 def test_flash_attend_route_by_query_rows(monkeypatch, T, rep, route):
     """T * rep <= 8 query rows per kv head go to the decode body (with p
     rounded and the queries' own positions), more to the tiled kernels;

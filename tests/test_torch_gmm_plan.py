@@ -3,7 +3,8 @@ split planner, the wrapper's launch arguments, and a plain-PyTorch emulation
 of the kernel's algorithm (64-row chunks of one group, m16 row tiles,
 128-column tiles, 64-deep k-tiles with zero-filled tails, per-split f32
 partials summed in split order, the scale after the sum) held against
-``gmm_plain``, which the parity tests hold against the JAX kernel.
+``gmm_plain``, which the parity tests hold against the JAX kernel, for
+bf16, int8, packed int4 and float8_e4m3fn weights.
 Tolerance 1e-5 at f32: the two differ in summation order only. The
 emulation rounds its sums to nearest; the tensor cores round each step's
 sum toward zero, which ``chip_smoke.py``'s ``[rounding]`` lines measure."""
@@ -41,6 +42,10 @@ KT, BN, BM = gm._K_TILE, gm._TILE_COLS, gm._ROWS_PER_CHUNK
     (512, 128, 2048, 4096, 1),  # NLLB prefill gate
     (512, 128, 8192, 1024, 1),  # NLLB prefill down
     (3, 2, 256, 256, 1),  # too shallow to split
+    (2, 2, 6144, 32768, 1),  # Grok-1's batch-1 gate: 256 column tiles
+    (2, 2, 32768, 6144, 3),  # Grok-1's down: 512 k-tiles
+    (2, 2, 7168, 4864, 4),  # Arctic's gate: 38 column tiles
+    (2, 2, 4864, 7168, 3),  # Arctic's down
 ])
 def test_split_choice(T, G, D, Fw, splits):
     plan = gm._gmm_plan(T, G, D, Fw)
@@ -124,22 +129,26 @@ def fake_kernel(monkeypatch):
     ("int8", 8, 8, 4096, 14336, 1),  # Mixtral decode gate: one split, no workspace
     ("bf16", 24, 24, 1408, 1024, 2),
     ("bf16", 24, 64, 2048, 1408, 1),  # uncompacted groups
+    ("fp8", 2, 2, 1024, 4096, 4),  # e4m3: its own kind, counted under gmm_fp8
+    ("fp8", 16, 8, 512, 2048, 2),
 ])
 def test_one_call_is_one_launch_without_a_host_read(fake_kernel, kind, T, G, D, Fw, splits):
-    dt = torch.bfloat16 if kind == "bf16" else torch.int8
+    dt = {"bf16": torch.bfloat16, "fp8": torch.float8_e4m3fn}.get(kind, torch.int8)
     w = torch.zeros(G, D, Fw, dtype=dt)
     F = 2 * Fw if kind == "int4" else Fw
     scale = None if kind == "bf16" else torch.ones(G, F)
     sizes = torch.zeros(G, dtype=torch.int32)
     ids = torch.arange(G, dtype=torch.int32)
-    before = gm.LAUNCHES["gmm"]
+    name = "gmm_fp8" if kind == "fp8" else "gmm"
+    before = dict(gm.LAUNCHES)
     out = gm._gmm_cuda(torch.zeros(T, D), w, sizes, scale, 0, ids, packed=kind == "int4")
-    gm.LAUNCHES["gmm"] = before  # nothing was launched
+    assert gm.LAUNCHES[name] == before[name] + 1  # the e4m3 kind counts under its name
+    gm.LAUNCHES.update(before)  # nothing was launched
     assert out.shape == (T, F) and out.dtype == torch.float32
     (call,) = fake_kernel
     assert call["splits"] == splits and call["T"] == T and call["F"] == F
     assert call["rows_per_chunk"] == BM and call["max_chunks"] == -(-T // BM) + G
-    assert call["kind"] == {"bf16": 0, "int8": 1, "int4": 2}[kind]
+    assert call["kind"] == {"bf16": 0, "int8": 1, "int4": 2, "fp8": 3}[kind]
     assert (call["part"].value is None) == (splits == 1)
     assert (call["tickets"].value is None) == (splits == 1)
 
@@ -198,13 +207,16 @@ def _weights(rng, kind, S, D, F):
     scale = torch.tensor(rng.uniform(0.001, 0.02, (S, F)), dtype=torch.float32)
     if kind == "int8":
         return torch.tensor(rng.integers(-128, 128, (S, D, F)), dtype=torch.int8), scale, False
+    if kind == "fp8":  # about int8's spread, in e4m3's 3-bit steps
+        vals = torch.tensor(rng.standard_normal((S, D, F)) * 64, dtype=torch.float32)
+        return vals.clamp(-448, 448).to(torch.float8_e4m3fn), scale, False
     return torch.tensor(rng.integers(-128, 128, (S, D, F // 2)), dtype=torch.int8), scale, True
 
 
 EDGE_SIZES = [0, 1, 15, 16, 17, 0, 63, 64, 65, 150]
 
 
-@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4", "fp8"])
 @pytest.mark.parametrize("splits", [1, 2, 4])
 def test_emulation_matches_gmm_plain_at_the_chunk_edges(rng, kind, splits):
     """Groups of every edge size with empty ones between, 3 rows past the
@@ -220,7 +232,7 @@ def test_emulation_matches_gmm_plain_at_the_chunk_edges(rng, kind, splits):
     assert bool((got[sum(EDGE_SIZES):] == 0).all())
 
 
-@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4", "fp8"])
 @pytest.mark.parametrize("sizes,ids", [
     ([64, 64], None),  # the last group ends at a chunk edge
     ([37, 27, 0, 0], [5, 2, 0, 0]),  # ... and at T; compacted ids, padded empty groups
@@ -273,3 +285,17 @@ def test_the_rounding_witness_rounds_as_it_says(rng, toward_zero):
     assert bool(((r == near) | (r == nxt)).all())
     assert torch.equal(r[:3], near[:3])
     assert bool((r != near).any())  # some casts rounded up in magnitude
+
+
+def test_emulation_at_grok_and_arctic_widths(rng):
+    """fp8 weights at a slice of Grok-1's down projection (D 32768: 512
+    k-tiles over the planned splits) and at Arctic's 38 column tiles of
+    F 4864: the emulation and the plain version agree."""
+    for T, sizes, D, F in ((2, [1, 1], 32768, 128), (2, [1, 1], 512, 4864)):
+        w, scale, _ = _weights(rng, "fp8", 2, D, F)
+        x = torch.tensor(rng.standard_normal((T, D)), dtype=torch.float32)
+        assert gm._gmm_plan(T, 2, D, F).splits > 1
+        got = _emulate(x, w, sizes, scale)
+        want = gm.gmm_plain(x, w, torch.tensor(sizes, dtype=torch.int32), scale)
+        tol = TOL * float(want.abs().max())
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL, atol=tol)

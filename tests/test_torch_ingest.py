@@ -5,8 +5,9 @@ DenseArchive parts of tests/test_store.py:
 * ``store/ingest.py``: for tiny HF Mixtral, DeepSeek-V2, Switch and NLLB
   checkpoints, sharded, in safetensors and in ``.bin``, the port writes a
   store byte-equal to the JAX ingest's (index files, expert records, dense
-  blob, name map) at f32, bf16, int8 and int4; a warm start writes nothing;
-  GPTQ, block-fp8 and fp8 experts raise, naming their items;
+  blob, name map) at f32, bf16, int8, int4 and float8_e4m3fn; a warm start
+  writes nothing; GPTQ and block-fp8 checkpoints and fp8 tensors in a
+  checkpoint raise, naming their item;
 * ``utils/checkpoints.py``: the port's safetensors reader is byte-equal to
   ``safetensors.safe_open``;
 * ``utils/hf_config.py``: ``read_hf_config`` gives the same geometry, expert
@@ -44,7 +45,7 @@ from moe_infinity_tpu_torch.utils.config import EngineConfig
 from torch_port_helpers import HF_FAMILIES, jax_to_numpy, one_intra_op_thread  # noqa: F401
 from torch_port_helpers import save_tiny_checkpoint
 
-DTYPES = ("float32", "bfloat16", "int8", "int4")
+DTYPES = ("float32", "bfloat16", "int8", "int4", "float8_e4m3fn")
 
 
 @pytest.fixture(scope="module")
@@ -129,10 +130,24 @@ def test_safetensors_reader_equals_safe_open(tmp_path):
 
 
 def test_unported_checkpoints_raise(checkpoints, tmp_path):
+    """GPTQ and block-fp8 checkpoints, and an fp8 tensor in a checkpoint,
+    raise naming item 14 (fp8 experts the ingest writes itself are served:
+    ``test_store_byte_equal_to_jax``)."""
+    from safetensors.torch import load_file, save_file
+
     ckpt = checkpoints["mixtral", True]
     cfg = phc.read_hf_config(ckpt)
-    with pytest.raises(NotImplementedError, match="queue 2, part 1"):
-        ingest_checkpoint(ckpt, str(tmp_path / "a"), cfg, expert_dtype="float8_e4m3fn")
+    fp8_dir = tmp_path / "fp8_ckpt"
+    fp8_dir.mkdir()
+    for path in get_checkpoint_paths(ckpt)[0]:
+        tensors = load_file(path)
+        tensors = {n: t.to(torch.float8_e4m3fn) if ".experts.0.w1." in n else t
+                   for n, t in tensors.items()}
+        save_file(tensors, str(fp8_dir / os.path.basename(path)), metadata={"format": "pt"})
+    for f in ("config.json", "model.safetensors.index.json"):
+        (fp8_dir / f).write_bytes(open(os.path.join(ckpt, f), "rb").read())
+    with pytest.raises(NotImplementedError, match="fp8 checkpoint tensors.*item 14"):
+        ingest_checkpoint(str(fp8_dir), str(tmp_path / "a"), cfg, expert_dtype="int8")
     for method, what in (("gptq", "GPTQ"), ("fp8", "block-fp8")):
         cfg.quantization_config = {"quant_method": method, "bits": 4}
         with pytest.raises(NotImplementedError, match=f"{what}.*item 14"):

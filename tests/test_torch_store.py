@@ -160,10 +160,13 @@ def test_quantize_rowwise_matches_jax(qdt):
 
 
 def test_fp8_and_other_load_modes_raise(stores):
-    with pytest.raises(NotImplementedError):
-        dtypes.np_dtype("float8_e4m3fn")
-    with pytest.raises(NotImplementedError):
-        quant.quantize_rowwise(np.ones((2, 2), np.float32), "float8_e4m3fn")
+    """fp8 fields are served (their codes as uint8 bytes, byte-equal to the
+    JAX quantizer: tests/test_torch_fp8.py); the load modes other than mmap
+    still raise."""
+    assert dtypes.np_dtype("float8_e4m3fn") == np.uint8
+    q, s = quant.quantize_rowwise(np.ones((2, 2), np.float32), "float8_e4m3fn")
+    jq, js = jquant.quantize_rowwise(np.ones((2, 2), np.float32), "float8_e4m3fn")
+    assert q.tobytes() == np.asarray(jq).view(np.uint8).tobytes() and s.tobytes() == js.tobytes()
     with pytest.raises(NotImplementedError):
         blob.ExpertStore(stores["float32"], load_mode="direct")
 

@@ -45,10 +45,13 @@ TINY_NLLB = dict(
 
 
 def jax_to_numpy(tree):
-    """JAX pytree -> numpy arrays, bf16 as uint16 bits (bridge convention)."""
+    """JAX pytree -> numpy arrays, bf16 as uint16 bits and fp8 as uint8
+    codes (bridge convention)."""
 
     def conv(a):
         a = np.asarray(a)
+        if a.dtype == ml_dtypes.float8_e4m3fn:
+            return a.view(np.uint8)
         return a.view(np.uint16) if a.dtype == ml_dtypes.bfloat16 else a
 
     return jax.tree.map(conv, tree)
@@ -196,19 +199,21 @@ def write_switch_store(path, expert_layers, quant, num_encoder_moe_layers, gated
 
 DECODER_TAILS = {
     "mixtral": (("w1", "gate"), ("w3", "up"), ("w2", "down")),
+    "arctic": (("w1", "gate"), ("w3", "up"), ("w2", "down")),
+    "grok": (("linear", "gate"), ("linear_v", "up"), ("linear_1", "down")),
     "deepseek": (("gate_proj", "gate"), ("up_proj", "up"), ("down_proj", "down")),
 }
 
 
 def write_decoder_store(path, expert_layers, arch, quant="float32"):
-    """Write a decoder-only expert store (``arch`` "mixtral" or "deepseek")
-    with the JAX package's ExpertStoreWriter from one expert tree's layers
-    ([E, D, F] gate and up, [E, F, D] down, compute layout, JAX or numpy
-    arrays), so that both packages read the same files: ``<tail>.weight``
-    per role, as the JAX bench's Mixtral store names them. quant "float32"
-    keeps the weights; "int8" quantizes each output channel
-    (``store/quant.py``) with an f32 ``<tail>.weight.scale``. Returns the
-    path."""
+    """Write a decoder-only expert store (``arch`` a key of
+    ``DECODER_TAILS``) with the JAX package's ExpertStoreWriter from one
+    expert tree's layers ([E, D, F] gate and up, [E, F, D] down, compute
+    layout, JAX or numpy arrays), so that both packages read the same files:
+    ``<tail>.weight`` per role, as the JAX bench's Mixtral store names them.
+    quant "float32" keeps the weights; "int8" and "float8_e4m3fn" quantize
+    each output channel (``store/quant.py``) with an f32
+    ``<tail>.weight.scale``. Returns the path."""
     from moe_infinity_tpu.store.blob import ExpertStoreWriter
     from moe_infinity_tpu.store.quant import quantize_rowwise
 
@@ -218,18 +223,18 @@ def write_decoder_store(path, expert_layers, arch, quant="float32"):
     for tail, role in roles:
         d_in, d_out = np.asarray(expert_layers[0][role]).shape[1:]
         fields.append((tail + ".weight", (d_in, d_out), quant))
-        if quant == "int8":
+        if quant != "float32":
             fields.append((tail + ".weight.scale", (d_out,), "float32"))
     meta = {"arch": arch, "num_encoder_moe_layers": 0}
-    if arch == "mixtral":
+    if arch != "deepseek":
         meta["gated"] = True
     w = ExpertStoreWriter(str(path), len(expert_layers), E, fields, meta=meta)
     for layer, lay in enumerate(expert_layers):
         for e in range(E):
             for tail, role in roles:
                 a = np.asarray(lay[role][e], np.float32)
-                if quant == "int8":
-                    q, s = quantize_rowwise(a.T, "int8")  # [out, in], scale [out]
+                if quant != "float32":
+                    q, s = quantize_rowwise(a.T, quant)  # [out, in], scale [out]
                     w.write_tensor(layer, e, tail + ".weight", np.ascontiguousarray(q.T))
                     w.write_tensor(layer, e, tail + ".weight.scale", s)
                 else:

@@ -186,7 +186,59 @@ Phases, each printing its own lines; any failure exits non-zero:
    GB of bf16 safetensors from a seed, deleted at the end), ingested to
    float8_e4m3fn experts: the resident facade and the offload facade at a
    budget of 5 of 8 experts (an arena of one layer's 8 slots, speculative
-   blocks of 2, graphs), offload tokens equal to the resident ones.
+   blocks of 2, graphs), offload tokens equal to the resident ones;
+24. the seq2seq continuous batcher on phase 3's build (run inside phase 3):
+   ``Seq2SeqContinuousBatcher(max_batch_size=8)``, the facade's default, 12
+   requests (sources of 64/48/40/24 tokens in turn, 8/12/16 new tokens in
+   turn) submitted together, so that 4 join mid-flight as slots free;
+   eagerly, then the shared decode step (per-row positions, ``row_offsets``)
+   as one CUDA graph for the batcher's life (one capture, a replay per step,
+   tokens equal to eager); then the same 12 through the wave batcher
+   (``Seq2SeqDynamicBatcher``); tokens/s, steps, joins, host ms per step,
+   peak memory; K1, K2 and K3 must launch;
+25. the same 12 through the continuous batcher in offload mode on phase
+   11's engine (run inside phase 11): each join encodes through the
+   engine's per-layer path, each shared step is one speculative execution
+   over the 388-slot arena, every execution a replay of one graph; hit
+   rate, executions per step, tokens/s;
+26. its whole-path check: f32, full width, 4+4 blocks over phase 10's store
+   (128 slots): 8 requests into 4 slots through the continuous batcher
+   resident and in offload mode and the wave batcher, each request's greedy
+   tokens equal to an isolated ``Seq2SeqGenerator``'s (slot reuse included),
+   the first step's logits within the tolerance; the experts through the
+   exact grouped FFN, eagerly (``F32_IMPL``: K3 rounds its activations to
+   bf16, so batches of other rows than the isolated run's part its logits
+   by ~1e-3 at f32);
+27. Switch-large-128 on phase 13's build (run inside phase 13): bench.py's
+   32 prompts of 16 into 8 slots of the continuous batcher, 32 tokens, as
+   graphs (K2 at head dim 64 with the per-row T5 bias); then at f32 and 4+4
+   blocks (``F32_IMPL``, eagerly), tokens equal to the isolated generator's;
+28. Arctic on phase 22's 4-layer int8 offload build (run inside phase 22):
+   ``ContinuousBatcher(arena=...)`` over 160 slots, 8 requests into 4 slots,
+   ``prefill_chunk`` 1, 16 tokens, each step a speculative execution over
+   the arena (K4, K3); hit rate, executions per step; then at f32 over phase
+   22's 128 distinct records (E + 8 slots, ``prefill_chunk`` 4: K2), tokens
+   equal to the resident batcher's;
+29. Mixtral-8x7B on phase 5's build (run inside phase 5):
+   ``SpeculativeDecoder(k=4)`` (prompt lookup) on a prompt that repeats a
+   span, beside ``Generator``, and ``DynamicBatcher`` on 4 left-padded
+   requests; acceptance rate and tokens/s in bf16; at f32 and 2 layers
+   (``F32_IMPL``) both equal to ``Generator``'s tokens;
+30. ``MoE`` from a checkpoint of google/switch-base-8's published
+   ``config.json`` (d_model 768, d_ff 3072, 12 heads of d_kv 64, 12+12
+   blocks with every second sparse, 8 experts, vocab 32,128), 1.24 GB of
+   bf16 safetensors written from a seed under ``.switch_entry/`` (deleted
+   at the end): at f32 the facade at its defaults (``max_batch_size`` 8: the
+   continuous batcher), ``s2s_batcher="wave"`` and an offload facade with
+   ``speculative_decode`` at half the experts' bytes (the batcher over the
+   engine's arena), each answering 8 concurrent ``generate`` calls from
+   threads with tokens equal to the ``max_batch_size`` 1 facade's; in bf16
+   (K3) the default facade against the ``max_batch_size`` 1 one, reported.
+   Phase 2 also holds the batchers' two new kernel inputs: K2 at head dim
+   64 with a per-row T5 bias ``[B, 16, 1, 128]`` (B = 8 and 32, bf16 and
+   f32, beside SDPA), and K1 at NLLB's B = 8, 16 heads with eight different
+   per-row positions over a capacity of 64 (beside every row at the
+   largest).
 
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
@@ -202,11 +254,14 @@ against another tree's in one call); ``--switch`` the build and phases 13
 to 15; ``--mixtral-offload`` the build and phases 16 to 18;
 ``--entrypoints`` the build and phases 19 and 20; ``--grok`` the build,
 phase 2's K3 e4m3 and rep 6/7 attention checks and phases 21 and 23;
-``--arctic`` the build and phase 22. Each prints no result line.
+``--arctic`` the build and phase 22; ``--batchers`` the build, phase 2's
+batcher inputs and phases 24 to 30, each on a build of its own. Each prints
+no result line.
 Every phase prints its seconds (``[phase]``).
 
 The line before the last is the per-kernel JSON record (launches: the sum
-of the counts of phases 3, 5, 7, 9, 11, 13, 14, 16, 18, 19, 21, 22 and 23,
+of the counts of phases 3, 5, 7, 9, 11, 13, 14, 16, 18, 19, 21, 22, 23 and
+24 to 30 (26's none: a check-only phase),
 graph replays included; K3's e4m3 kind has its own row, ``gmm_fp8``;
 K2 at head dim 64 has its own row, ``flash_attend_dh64``: a graph
 counts at each replay the launches it recorded when it was captured); the
@@ -1470,8 +1525,10 @@ def phase_kernels(dev):
     recs[2]["max_abs_err"] = max(recs[2]["max_abs_err"], check_gmm_switch(g, dev))
     recs.append(check_gmm_fp8(dev))  # K3's e4m3 kind, from its own generator
     rep_errs = check_attention_rep67(dev)
+    batcher_errs = check_batcher_attention(dev)  # per-row T5 bias (K2), per-row positions (K1)
     for r in recs:
-        r["max_abs_err"] = max(r["max_abs_err"], rep_errs.get(r["name"], 0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], rep_errs.get(r["name"], 0.0),
+                               batcher_errs.get(r["name"], 0.0))
     for r in recs:
         say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
@@ -1495,8 +1552,10 @@ def _requests(vocab, g, dev):
     return ids, mask
 
 
-def phase_main_path(dev):
-    from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
+def phase_main_path(dev, extra=None):
+    """Phase 3 (and with ``extra``, phase 24 on its build: its launches go
+    into ``extra``)."""
+    from moe_infinity_tpu_torch.models.nllb import NllbSpec
     from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
     from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
     from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
@@ -1506,12 +1565,8 @@ def phase_main_path(dev):
         f"{spec.decoder_layers} blocks, sparse_step {spec.encoder_sparse_step}, "
         f"bf16 compute, int4 experts, impl=pallas")
     torch.cuda.reset_peak_memory_stats()
-    g = torch.Generator(device=dev)
-    g.manual_seed(1234)
     t0 = time.perf_counter()
-    model = NllbModel(spec, compute_dtype=torch.bfloat16, device=dev)
-    params, tree = model.init_random(g, expert_dtype="int4")
-    provider = ResidentProvider(tree)
+    model, params, provider, g = _nllb_resident(dev)
     torch.cuda.synchronize()
     say(f"[main] weights built on the card in {time.perf_counter() - t0:.1f} s; "
         f"experts {provider.nbytes() / 1e9:.2f} GB, allocated "
@@ -1574,7 +1629,10 @@ def phase_main_path(dev):
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("non-finite logits")
     say(f"[main] first-step logits finite, shape {tuple(logits.shape)}")
-    del params, tree, provider, model
+    if extra is not None:
+        extra["phase_s2s_batchers"] = _subphase(phase_s2s_batchers, dev,
+                                                (model, params, provider))
+    del params, provider, model
     torch.cuda.empty_cache()
     return counts
 
@@ -1897,9 +1955,10 @@ def _hold_steps(what, dtype, got, want):
                 raise AssertionError(f"{full}: logits are not finite")
 
 
-def phase_mixtral(dev):
+def phase_mixtral(dev, extra=None):
     """Serve 8 requests through 4 slots; returns the launch counts of the
-    batcher's run and of the Generator's run."""
+    batcher's run and of the Generator's run. With ``extra``, phase 29 on
+    the same build."""
     from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
     from moe_infinity_tpu_torch.runtime.generate import Generator
     from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
@@ -1930,7 +1989,11 @@ def phase_mixtral(dev):
         f"(bf16, reported, not held); launches {json.dumps(gen_counts)}")
 
     _profile_batcher("", batcher, prompts)
-    del batcher, params, provider, experts, model
+    del batcher
+    if extra is not None:
+        extra["phase_mixtral_speculative"] = _subphase(phase_mixtral_speculative, dev,
+                                                       (model, params, experts))
+    del params, provider, experts, model
     torch.cuda.empty_cache()
     return {k: counts[k] + gen_counts[k] for k in counts}
 
@@ -2231,7 +2294,7 @@ def _offload_store(spec, seed=0, cache_records=64):
                           seed=seed, distinct_records=True, cache_records=cache_records)
 
 
-def _offload_engine(model, params, store, num_slots, tier, **kw):
+def _offload_engine(model, params, store, num_slots, tier, impl="pallas", **kw):
     """bench.py's engine (`_nllb_build`): EAMC tracer and predictor, prefetch
     with lookahead 3 and budget 8, the priority policy, 4 fetch workers, K3
     for every expert FFN; the per-layer path unless ``kw`` asks for the
@@ -2246,7 +2309,7 @@ def _offload_engine(model, params, store, num_slots, tier, **kw):
                         device=model.device, num_threads=4, pinned_tier=tier)
     return Seq2SeqOffloadEngine(model, params, arena, tracer=tracer,
                                 predictor=ExpertPredictor(tracer), prefetch=True, lookahead=3,
-                                prefetch_budget=8, impl="pallas", **kw)
+                                prefetch_budget=8, impl=impl, **kw)
 
 
 def _tree_bytes(tree):
@@ -2612,7 +2675,7 @@ def _host_timer(engine):
     return t, _wrap_dispatches(engine, timed, replays=False)
 
 
-def phase_offload_spec(dev):
+def phase_offload_spec(dev, extra=None):
     """Phase 9's build served by the speculative engine, as bench.py's
     ``nllb-offload`` preset builds it (``speculative=True``, ``spec_block=4``,
     route margin 2): blocks of up to 4 greedy steps on the device with no
@@ -2625,7 +2688,7 @@ def phase_offload_spec(dev):
     b = _offload_build(dev)
     runs = {}
     for graphs in (False, True):
-        counts = _offload_spec_run(dev, b, graphs, runs)
+        counts = _offload_spec_run(dev, b, graphs, runs, extra)
     same = np.array_equal(runs["graphs"], runs["eager"])
     say(f"[spec] graphs against eager greedy tokens: {'equal' if same else 'DIFFER'}")
     if not same:
@@ -2635,7 +2698,8 @@ def phase_offload_spec(dev):
     return counts
 
 
-def _offload_spec_run(dev, b, graphs, runs):
+def _offload_spec_run(dev, b, graphs, runs, extra=None):
+    """One leg of phase 11; with graphs and ``extra``, phase 25 on its engine."""
     from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
     from moe_infinity_tpu_torch.runtime.engine import spec_block_diag, speculative_stats
 
@@ -2738,6 +2802,9 @@ def _offload_spec_run(dev, b, graphs, runs):
                                  f"expected ({g0} -> {g1}, executions {execs})")
         runs[tag] = res.sequences
         _profile_spec_block(engine, ids, mask, tag)
+        if graphs and extra is not None:
+            extra["phase_s2s_batcher_offload"] = _subphase(phase_s2s_batcher_offload, dev,
+                                                           (b, engine))
     finally:
         arena.shutdown()
     del engine, arena
@@ -3047,14 +3114,14 @@ def _want_launches(spec, encodes, steps):
             "gmm": 2 * n_enc * encodes + 2 * n_dec * steps}
 
 
-def phase_switch(dev):
+def phase_switch(dev, extra=None):
     """Switch-large-128 resident: ``Seq2SeqGenerator`` over all 24 x 128
     packed int4 experts made on the card, impl="pallas", bench.py's 32
     prompts of 16 tokens, 64 greedy tokens; eagerly, then each decode step a
     replay of its CUDA graph. Each run after a warm-up generate at its
     shapes; launches held to 24 K2 and 24 K3 per encode and 48 K2 and 24
     K3 per step (``_want_launches``); then a profile of one decode step."""
-    from moe_infinity_tpu_torch.models.switch import SwitchModel, SwitchSpec
+    from moe_infinity_tpu_torch.models.switch import SwitchSpec
     from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
     from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
     from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
@@ -3065,12 +3132,8 @@ def phase_switch(dev):
         f"capacity {spec.expert_capacity}), d_kv {spec.d_kv}, bf16 compute, int4 experts, "
         f"impl=pallas, batch {SW_BATCH}, prompts of {SW_PROMPT}, {SW_TOKENS} tokens")
     torch.cuda.reset_peak_memory_stats()
-    g = torch.Generator(device=dev)
-    g.manual_seed(2024)
     t0 = time.perf_counter()
-    model = SwitchModel(spec, compute_dtype=torch.bfloat16, device=dev)
-    params, tree = model.init_random(g, expert_dtype="int4")
-    provider = ResidentProvider(tree)
+    model, params, provider = _switch_resident(dev)
     torch.cuda.synchronize()
     say(f"[switch] weights built on the card in {time.perf_counter() - t0:.1f} s; experts "
         f"{provider.nbytes() / 1e9:.2f} GB, dense {_tree_bytes(params) / 1e9:.2f} GB, "
@@ -3125,7 +3188,10 @@ def phase_switch(dev):
     if not bool(torch.isfinite(logits).all()) or logits.shape != (SW_BATCH, 1, spec.vocab_size):
         raise AssertionError(f"Switch first-step logits: shape {tuple(logits.shape)} or not finite")
     say(f"[switch] first-step logits finite, shape {tuple(logits.shape)}")
-    del params, tree, provider, model, logits
+    if extra is not None:
+        extra["phase_switch_batcher"] = _subphase(phase_switch_batcher, dev,
+                                                  (model, params, provider))
+    del params, provider, model, logits
     torch.cuda.empty_cache()
     return counts
 
@@ -4629,7 +4695,7 @@ def _sum_counts(*counts):
 
 # ---- phase 22: Snowflake Arctic ------------------------------------------------
 
-def phase_arctic(dev):
+def phase_arctic(dev, extra=None):
     """Phase 22: Snowflake Arctic at its published widths
     (Snowflake/snowflake-arctic-instruct), bf16 dense weights from a seed on
     the card. (a) 2 layers resident with fp8 experts (26.8 GB): the batcher
@@ -4674,23 +4740,27 @@ def phase_arctic(dev):
                                                   True)
     if not kept:
         raise AssertionError("Arctic offload: the speculative path turned off")
+    if extra is not None:
+        extra["phase_arctic_batcher"] = _subphase(phase_arctic_batcher, dev,
+                                                  (model, params, store))
     del b, model, params, store
     torch.cuda.empty_cache()
 
     # (c) f32 whole path over 128 distinct int8 records of one MoE layer
     for freq, layers in ((1, 1), (2, 2)):
-        model, params, tree, g = _arctic(dev, torch.float32, 2203, expert_dtype="int8",
-                                         num_layers=layers, moe_layer_frequency=freq)
         t0 = time.perf_counter()
-        store = _CardStore(tree["layers"], ARCTIC_TAILS,
-                           {"arch": "arctic", "num_encoder_moe_layers": 0})
+        model, params, tree, store = _arctic_f32_build(dev, freq, layers)
         say(f"[arctic] f32 whole path, moe_layer_frequency {freq} ({layers} layers, "
             f"{'a dense layer, then ' if freq == 2 else ''}1 MoE layer): {store.num_experts} "
-            f"distinct int8 records of {store.stride / 1e6:.2f} MB copied to the host in "
+            f"distinct int8 records of {store.stride / 1e6:.2f} MB built and copied to the host in "
             f"{time.perf_counter() - t0:.1f} s")
         prompt = np.random.default_rng(22).integers(0, ARCTIC["vocab_size"], (1, GA_PROMPT))
         _ga_whole_path(f"Arctic (moe_layer_frequency {freq}, int8 experts)", model, params,
                        tree, store, E + 8, MIXTRAL_KERNELS, prompt)
+        if freq == 1 and extra is not None:  # phase 28's f32 check on this build
+            extra["phase_arctic_batcher"] = _sum_counts(
+                extra["phase_arctic_batcher"],
+                _subphase(arctic_batcher_whole_path, model, params, tree, store))
         del model, params, tree, store
         torch.cuda.empty_cache()
     return _sum_counts(gen_counts, counts, *off.values())
@@ -4850,6 +4920,901 @@ def phase_grok_entry(dev):
 
 
 
+# ---------------------------------------------------------------------------
+# phases 24-30: the batchers
+# ---------------------------------------------------------------------------
+
+S2S_SLOTS = 8  # the facade's default max_batch_size
+S2S_REQUESTS, S2S_NEW = 12, (8, 12, 16)  # requests, and their max_new_tokens in turn
+S2S_CAP = 32  # the continuous batcher's decode cache: 16 new tokens and the start token
+SWB_NEW, SWB_CAP = 32, 64  # phase 27: new tokens, decode capacity (_bucket_len(33))
+ARB_SLOTS, ARB_PROMPTS = 4, (16, 9, 12, 16, 10, 14, 16, 11)  # phase 28: 8 requests, 4 slots
+MXS_SPAN, MXS_NEW = 12, 32  # phase 29: the repeated span, new tokens
+SB8_CONFIG = {  # google/switch-base-8's config.json
+    "architectures": ["SwitchTransformersForConditionalGeneration"], "d_ff": 3072,
+    "d_kv": 64, "d_model": 768, "decoder_sparse_step": 2, "decoder_start_token_id": 0,
+    "dense_act_fn": "relu", "dropout_rate": 0.1, "encoder_sparse_step": 2,
+    "eos_token_id": 1, "expert_capacity": 64, "initializer_factor": 1.0,
+    "is_encoder_decoder": True, "is_gated_act": False, "layer_norm_epsilon": 1e-06,
+    "model_type": "switch_transformers", "num_decoder_layers": 12, "num_experts": 8,
+    "num_heads": 12, "num_layers": 12, "num_sparse_decoder_layers": 6,
+    "num_sparse_encoder_layers": 6, "pad_token_id": 0,
+    "relative_attention_max_distance": 128, "relative_attention_num_buckets": 32,
+    "router_aux_loss_coef": 0.001, "router_bias": False, "router_dtype": "float32",
+    "router_ignore_padding_tokens": False, "router_jitter_noise": 0.01,
+    "router_type": "tokens_masked", "router_z_loss_coef": 0.001, "torch_dtype": "float32",
+    "transformers_version": "4.26.0.dev0", "use_cache": True, "vocab_size": 32128,
+}
+SB_DIR = Path(__file__).resolve().parent / ".switch_entry"
+SB_DISK_GB = 8  # checkpoint 1.2 + f32 store 2.1 + bf16 store 1.1 + dense archives, with room
+SB_REQUESTS, SB_PROMPT, SB_NEW = 8, 16, 12
+# The f32 token checks of batches against isolated runs: K3 rounds its
+# activations to bf16 (the JAX kernel's contract), so where the batch
+# differs the f32 sums' order moves a rounding and the logits part by ~1e-3;
+# these checks take the exact grouped FFN, the attention through K1 and K2.
+# It reads the group sizes on the host, so they run eagerly (graphs=False)
+F32_IMPL = "ragged"
+
+
+def _subphase(fn, *args):
+    """Run a phase on an earlier phase's build; print its seconds. Garbage
+    (reference cycles that hold device memory) is collected before and
+    after."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(f"[phase] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _submit_together(batcher, requests):
+    """Queue every request on a new queue that replaces the batcher's in one
+    assignment, so that its next admission sees them all, whatever its
+    thread was doing: the joins, and so each step's batch, are the same in
+    every run. ``requests``: (input_ids, submit's keywords). Returns the
+    futures."""
+    import queue
+
+    stage = SimpleNamespace(**vars(batcher))
+    stage._queue = queue.Queue()
+    futures = [type(batcher).submit(stage, ids, **kw) for ids, kw in requests]
+    batcher._queue = stage._queue
+    return futures
+
+
+def _s2s_requests(vocab, seed, n=S2S_REQUESTS):
+    """n sources of SRC_LENS' lengths in turn, each closed by eos 2, with
+    max_new_tokens 8, 12, 16 in turn."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        ids = rng.integers(3, vocab, SRC_LENS[i % len(SRC_LENS)])
+        ids[-1] = 2
+        out.append((ids, S2S_NEW[i % len(S2S_NEW)]))
+    return out
+
+
+def _serve_s2s(tag, batcher, reqs, start, vocab):
+    """reqs submitted together, greedy, no EOS: (outputs, wall s, tokens)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futures = _submit_together(batcher, [(ids, dict(max_new_tokens=n, eos_token_id=None))
+                                         for ids, n in reqs])
+    outs = [f.result(timeout=900) for f in futures]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for (_, n), o in zip(reqs, outs):
+        if o.shape != (n + 1,) or o[0] != start or not np.all((o >= 0) & (o < vocab)):
+            raise AssertionError(f"[{tag}] a request of {n} tokens came back as {o.tolist()}")
+    return outs, wall, sum(n for _, n in reqs)
+
+
+def _first_step_recorder(batcher):
+    """Wrap the batcher's step so that the logits of its first accepted
+    step are kept (in offload mode the last execution of that step)."""
+    rec = {"calls": [], "first": None}
+    step, once = batcher._step, batcher._step_once
+
+    def record(*a):
+        out = step(*a)
+        rec["calls"].append(out[0].clone())
+        return out
+
+    def one(start):
+        once(start)
+        if rec["first"] is None:
+            rec["first"] = rec["calls"][-1]
+
+    batcher._step, batcher._step_once = record, one
+    return rec
+
+
+def _same_tokens(what, got, want):
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if not np.array_equal(a, b)]
+    say(f"[check] {what}: {len(got) - len(bad)} of {len(got)} requests' greedy tokens equal"
+        + (f"; first differing request {bad[0]}: {got[bad[0]].tolist()} against "
+           f"{want[bad[0]].tolist()}" if bad else ""))
+    if bad:
+        raise AssertionError(f"{what}: tokens differ for requests {bad}")
+
+
+def _nllb_resident(dev):
+    """Phase 3's build: NLLB-MoE-54B at full width and depth, bf16, packed
+    int4 experts made on the card from seed 1234."""
+    from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1234)
+    model = NllbModel(NllbSpec(**NLLB_54B), compute_dtype=torch.bfloat16, device=dev)
+    params, tree = model.init_random(g, expert_dtype="int4")
+    return model, params, ResidentProvider(tree), g
+
+
+def phase_s2s_batchers(dev, built=None):
+    """Phase 24: phase 3's resident NLLB-MoE-54B through
+    ``Seq2SeqContinuousBatcher(max_batch_size=8)``: 12 requests (sources of
+    SRC_LENS' lengths in turn, 8, 12 and 16 new tokens in turn) submitted
+    together, so that 4 join mid-flight as slots free; eagerly, then with
+    the shared step as one CUDA graph (a warm-up run, whose first step
+    captures, then the timed run); then the same 12 through the wave
+    batcher. Returns the launches of the timed graph run and the wave run."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.batching import Seq2SeqDynamicBatcher
+    from moe_infinity_tpu_torch.runtime.continuous_s2s import Seq2SeqContinuousBatcher
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    model, params, provider = (built or _nllb_resident(dev))[:3]
+    spec, start = model.spec, model.spec.decoder_start_token_id
+    reqs = _s2s_requests(spec.vocab_size, 24)
+    kw = dict(impl="pallas", max_batch_size=S2S_SLOTS, max_src_len=max(SRC_LENS),
+              max_decode_len=S2S_CAP)
+    say(f"[s2s] NLLB-MoE-54B (phase 3's build) through Seq2SeqContinuousBatcher("
+        f"{json.dumps(kw)}): {len(reqs)} requests, sources {[len(i) for i, _ in reqs]}, "
+        f"max_new_tokens {[n for _, n in reqs]}, submitted together")
+    runs, counts = {}, {}
+    for graphs in (False, True):
+        tag = "graphs" if graphs else "eager"
+        torch.cuda.reset_peak_memory_stats()
+        b = Seq2SeqContinuousBatcher(model, params, provider.pytree(), ResidentProvider.for_layer,
+                                     graphs=graphs, **kw)
+        try:
+            warm_steps = 0
+            if graphs:  # the warm-up run: its first step captures
+                warm, _, _ = _serve_s2s(f"s2s {tag} warm-up", b, reqs, start, spec.vocab_size)
+                warm_steps = b.steps
+                b.steps, b.joins, b.step_seconds = 0, 0, 0.0
+            reset_launches()
+            outs, wall, n_tok = _serve_s2s(f"s2s {tag}", b, reqs, start, spec.vocab_size)
+            counts = launch_counts()
+            st, gst = b.step_stats(), b.graph_stats()
+        finally:
+            b.shutdown()
+        say(f"[s2s] {tag}: {n_tok} tokens in {wall:.3f} s: tokens_per_s={n_tok / wall:.1f} "
+            f"steps={st['steps']} joins={st['joins']} host_ms_per_step={st['ms_per_step']:.3f} "
+            f"max_memory_allocated_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} graphs "
+            f"{json.dumps(gst)}; launches {json.dumps(counts)}")
+        say(f"[s2s] {tag}: request 1 {outs[0].tolist()}")
+        _require_launched(counts, NLLB_KERNELS, f"NLLB continuous batcher ({tag})")
+        if st["joins"] != len(reqs):
+            raise AssertionError(f"continuous batcher: {st['joins']} joins for {len(reqs)}")
+        if graphs:
+            _same_tokens("s2s graphs: warm-up run against timed run", outs, warm)
+            if (gst["captures"], gst["recaptures"]) != (1, 0) or \
+                    gst["replays"] != warm_steps + st["steps"]:
+                raise AssertionError(f"continuous batcher: one capture and a replay per step "
+                                     f"expected ({gst}, steps {warm_steps} + {st['steps']})")
+        runs[tag] = outs
+    _same_tokens("s2s continuous batcher: graphs against eager (bf16, one batch)",
+                 runs["graphs"], runs["eager"])
+
+    w = Seq2SeqDynamicBatcher(model, params, provider.pytree(), ResidentProvider.for_layer,
+                              impl="pallas", max_batch_size=S2S_SLOTS, max_wait_s=0.05,
+                              max_seq_len=max(SRC_LENS))
+    try:
+        reset_launches()
+        wouts, wall, n_tok = _serve_s2s("s2s wave", w, reqs, start, spec.vocab_size)
+        wcounts = launch_counts()
+    finally:
+        w.shutdown()
+    agree = sum(np.array_equal(a, c) for a, c in zip(wouts, runs["graphs"]))
+    say(f"[s2s] wave: {n_tok} tokens in {wall:.3f} s: tokens_per_s={n_tok / wall:.1f}; "
+        f"{agree} of {len(reqs)} requests' tokens equal the continuous batcher's (bf16, other "
+        f"batches: reported, not held); launches {json.dumps(wcounts)}")
+    _require_launched(wcounts, NLLB_KERNELS, "NLLB wave batcher")
+    return _sum_counts(counts, wcounts)
+
+
+def phase_s2s_batcher_offload(dev, built=None):
+    """Phase 25: phase 11's build (the 388-slot int4 arena over the 14 GiB
+    tier, the speculative engine with graphs) serving phase 24's 12 requests
+    through the continuous batcher in offload mode: each join encodes
+    through the engine's per-layer path, each shared step is one
+    speculative execution over the arena, a replay of one graph. Returns
+    the launches."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.continuous_s2s import Seq2SeqContinuousBatcher
+
+    own = built is None
+    if own:
+        b = _offload_build(dev)
+        engine = _offload_engine(b.model, b.params, b.store, b.slots, b.tier, speculative=True,
+                                 spec_block=4)
+    else:
+        b, engine = built
+    arena = engine.arena
+    try:
+        reqs = _s2s_requests(b.spec.vocab_size, 25)
+        start = b.spec.decoder_start_token_id
+        batcher = Seq2SeqContinuousBatcher(b.model, b.params, None, None, engine=engine,
+                                           impl="pallas", max_batch_size=S2S_SLOTS,
+                                           max_src_len=max(SRC_LENS), max_decode_len=S2S_CAP)
+        s0, f0, g0 = arena.hit_stats(), arena.fetch_stats(), engine.graph_stats()
+        try:
+            reset_launches()
+            outs, wall, n_tok = _serve_s2s("s2s offload", batcher, reqs, start,
+                                           b.spec.vocab_size)
+            counts = launch_counts()
+            st, execs = batcher.step_stats(), list(batcher.replay_counts)
+        finally:
+            batcher.shutdown()
+        s1, f1, g1 = arena.hit_stats(), arena.fetch_stats(), engine.graph_stats()
+        visits = s1["visits"] - s0["visits"]
+        say(f"[s2s-offload] {len(reqs)} requests through {arena.num_slots} slots: {n_tok} tokens "
+            f"in {wall:.3f} s: tokens_per_s={n_tok / wall:.2f} steps={st['steps']} joins="
+            f"{st['joins']} host_ms_per_step={st['ms_per_step']:.3f}; hit rate "
+            f"{(s1['hits'] - s0['hits']) / max(1, visits):.4f} over {visits} visits, misses "
+            f"{s1['misses'] - s0['misses']}, evictions {s1['evictions'] - s0['evictions']}, "
+            f"fetches tier {f1['fetches_tier'] - f0['fetches_tier']} store "
+            f"{f1['fetches_store'] - f0['fetches_store']}; executions per step "
+            f"{sum(execs) / max(1, len(execs)):.3f} ({execs}); graphs {json.dumps(g1)}; "
+            f"launches {json.dumps(counts)}")
+        say(f"[s2s-offload] request 1 {outs[0].tolist()}")
+        _require_launched(counts, NLLB_KERNELS, "NLLB continuous batcher, offload mode")
+        if (g1["captures"] - g0["captures"], g1["recaptures"] - g0["recaptures"],
+                g1["replays"] - g0["replays"]) != (1, 0, sum(execs)):
+            raise AssertionError(f"offload batcher: one capture and every execution a replay "
+                                 f"expected ({g0} -> {g1}, executions {sum(execs)})")
+    finally:
+        if own:
+            arena.shutdown()
+    return counts
+
+
+def phase_s2s_batchers_whole_path(dev):
+    """Phase 26: f32, full width, 4+4 blocks over phase 10's store (seed 11,
+    128 records a layer): 8 requests into 4 slots (4 join mid-flight)
+    through the continuous batcher resident (graphs), in offload mode over
+    a 128-slot arena (the speculative engine's graphs) and the wave
+    batcher; each request's greedy tokens equal to an isolated
+    ``Seq2SeqGenerator``'s, and the first step's logits of the resident and
+    offload batchers within the tolerance of the isolated ones. The experts
+    run the exact grouped FFN (``F32_IMPL``), eagerly."""
+    from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
+    from moe_infinity_tpu_torch.runtime.batching import Seq2SeqDynamicBatcher
+    from moe_infinity_tpu_torch.runtime.continuous_s2s import Seq2SeqContinuousBatcher
+    from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    spec = NllbSpec(**dict(NLLB_54B, encoder_layers=4, decoder_layers=4,
+                           encoder_sparse_step=2, decoder_sparse_step=2))
+    E, start = spec.num_experts, spec.decoder_start_token_id
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    model = NllbModel(spec, compute_dtype=torch.float32, device=dev)
+    params, _ = model.init_random(g, with_experts=False)
+    store = _offload_store(spec, seed=11, cache_records=4 * E)
+    provider = ResidentProvider.from_store(store, dtype=torch.float32, device=dev)
+    experts = provider.pytree()
+    reqs = _s2s_requests(spec.vocab_size, 26, n=8)
+    gen = Seq2SeqGenerator(model, params, experts, ResidentProvider.for_layer, impl=F32_IMPL,
+                           graphs=False)
+    want = [gen.generate(ids[None], max_new_tokens=n, eos_token_id=None).sequences[0]
+            for ids, n in reqs]
+    first = [_first_step_logits(model, params, provider, ids[None],
+                                np.ones((1, len(ids)), np.float32), F32_IMPL)[0, -1]
+             for ids, _ in reqs[:4]]
+    kw = dict(impl=F32_IMPL, max_batch_size=4, max_src_len=max(SRC_LENS), max_decode_len=S2S_CAP,
+              graphs=False)
+    engine = _offload_engine(model, params, store, E, None, impl=F32_IMPL, speculative=True,
+                             graphs=False)
+    try:
+        for leg in ("resident", "offload"):
+            if leg == "resident":
+                b = Seq2SeqContinuousBatcher(model, params, experts, ResidentProvider.for_layer,
+                                             **kw)
+            else:
+                b = Seq2SeqContinuousBatcher(model, params, None, None, engine=engine, **kw)
+            rec = _first_step_recorder(b)
+            try:
+                outs, _, _ = _serve_s2s(f"s2s f32 {leg}", b, reqs, start, spec.vocab_size)
+                gst, execs = b.graph_stats(), list(b.replay_counts)
+            finally:
+                b.shutdown()
+            for i, w in enumerate(first):
+                compare(f"s2s batcher f32 {leg}: request {i}'s first-step logits against the "
+                        f"isolated generator's", rec["first"][i, -1], w)
+            _same_tokens(f"s2s batcher f32 {leg} (8 requests, 4 slots) against the isolated "
+                         f"generator", outs, want)
+            say(f"[check] s2s batcher f32 {leg}: graphs {json.dumps(gst)}"
+                + (f"; executions {execs}; arena {json.dumps(engine.stats())}"
+                   if leg == "offload" else ""))
+    finally:
+        engine.arena.shutdown()
+    w = Seq2SeqDynamicBatcher(model, params, experts, ResidentProvider.for_layer, impl=F32_IMPL,
+                              max_batch_size=4, max_wait_s=0.05, max_seq_len=max(SRC_LENS))
+    try:
+        outs, _, _ = _serve_s2s("s2s f32 wave", w, reqs, start, spec.vocab_size)
+    finally:
+        w.shutdown()
+    _same_tokens("s2s wave batcher f32 (waves of 4) against the isolated generator", outs, want)
+    del model, params, store, provider, experts, gen, engine
+    torch.cuda.empty_cache()
+
+
+def _switch_resident(dev):
+    """Phase 13's build: Switch-large-128 at full width and depth, bf16,
+    packed int4 experts made on the card from seed 2024."""
+    from moe_infinity_tpu_torch.models.switch import SwitchModel, SwitchSpec
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(2024)
+    model = SwitchModel(SwitchSpec(**SWITCH_LARGE_128), compute_dtype=torch.bfloat16, device=dev)
+    params, tree = model.init_random(g, expert_dtype="int4")
+    return model, params, ResidentProvider(tree)
+
+
+def phase_switch_batcher(dev, built=None):
+    """Phase 27: phase 13's Switch-large-128 through the continuous batcher:
+    bench.py's 32 prompts of 16 into 8 slots, 32 new tokens each, the step a
+    graph (a warm-up run, then the timed one); K2 at head dim 64 takes the
+    per-row T5 bias. Then at f32 and 4+4 blocks: 8 of the prompts into 4
+    slots, 12 tokens, each equal to an isolated ``Seq2SeqGenerator``'s.
+    Returns the launches of the timed run."""
+    from moe_infinity_tpu_torch.models.switch import SwitchModel, SwitchSpec
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.continuous_s2s import Seq2SeqContinuousBatcher
+    from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    model, params, provider = built or _switch_resident(dev)
+    spec, start = model.spec, model.spec.decoder_start_token_id
+    ids, _ = _switch_requests(spec.vocab_size)
+    reqs = [(row, SWB_NEW) for row in ids]
+    b = Seq2SeqContinuousBatcher(model, params, provider.pytree(), ResidentProvider.for_layer,
+                                 impl="pallas", max_batch_size=S2S_SLOTS, max_src_len=SW_PROMPT,
+                                 max_decode_len=SWB_CAP)
+    try:
+        warm, _, _ = _serve_s2s("switch batcher warm-up", b, reqs, start, spec.vocab_size)
+        warm_steps = b.steps
+        b.steps, b.joins, b.step_seconds = 0, 0, 0.0
+        reset_launches()
+        outs, wall, n_tok = _serve_s2s("switch batcher", b, reqs, start, spec.vocab_size)
+        counts = launch_counts()
+        st, gst = b.step_stats(), b.graph_stats()
+    finally:
+        b.shutdown()
+    tps = n_tok / wall
+    say(f"[switch-batcher] {len(reqs)} prompts of {SW_PROMPT} into {S2S_SLOTS} slots, {SWB_NEW} "
+        f"tokens each: {n_tok} tokens in {wall:.3f} s: tokens_per_s={tps:.1f} (vs_baseline "
+        f"{tps / SW_BASELINE_TOKENS_PER_S:.3f}) steps={st['steps']} joins={st['joins']} "
+        f"host_ms_per_step={st['ms_per_step']:.3f} graphs {json.dumps(gst)}; launches "
+        f"{json.dumps(counts)}")
+    _require_launched(counts, SWITCH_KERNELS, "Switch continuous batcher")
+    _same_tokens("switch batcher graphs: warm-up run against timed run", outs, warm)
+    if (gst["captures"], gst["recaptures"]) != (1, 0) or gst["replays"] != warm_steps + st["steps"]:
+        raise AssertionError(f"Switch batcher: one capture and a replay per step expected ({gst})")
+
+    # f32, 4+4 blocks: each request against the isolated generator
+    g = torch.Generator(device=dev)
+    g.manual_seed(2027)
+    m32 = SwitchModel(SwitchSpec(**dict(SWITCH_LARGE_128, num_encoder_layers=4,
+                                        num_decoder_layers=4)),
+                      compute_dtype=torch.float32, device=dev)
+    p32, t32 = m32.init_random(g, expert_dtype="int4")
+    experts = ResidentProvider(t32).pytree()
+    few = [(row, 12) for row in ids[:8]]
+    gen = Seq2SeqGenerator(m32, p32, experts, ResidentProvider.for_layer, impl=F32_IMPL,
+                           graphs=False)
+    want = [gen.generate(row[None], max_new_tokens=n, eos_token_id=None).sequences[0]
+            for row, n in few]
+    b = Seq2SeqContinuousBatcher(m32, p32, experts, ResidentProvider.for_layer, impl=F32_IMPL,
+                                 max_batch_size=4, max_src_len=SW_PROMPT, max_decode_len=SWB_CAP,
+                                 graphs=False)
+    try:
+        got, _, _ = _serve_s2s("switch batcher f32", b, few, start, spec.vocab_size)
+    finally:
+        b.shutdown()
+    _same_tokens("Switch batcher f32, 4+4 blocks (8 requests, 4 slots) against the isolated "
+                 "generator", got, want)
+    del m32, p32, t32, experts, gen
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _arena_batcher(model, params, store, slots, chunk, dtype):
+    """ContinuousBatcher in offload mode over a new arena of ``slots`` slots:
+    the priority policy, 4 workers, the EAMC tracer and predictor, K3."""
+    from moe_infinity_tpu_torch.memory import ExpertPredictor, ExpertTracer
+    from moe_infinity_tpu_torch.runtime.arena import ExpertArena
+    from moe_infinity_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    arena = ExpertArena(store, slots, policy="priority", compute_dtype=dtype, device=model.device,
+                        num_threads=4)
+    tracer = ExpertTracer(256, store.num_layers, store.num_experts)
+    return ContinuousBatcher(model, params, None, None, impl="pallas", arena=arena, tracer=tracer,
+                             predictor=ExpertPredictor(tracer), max_batch_size=ARB_SLOTS,
+                             page_size=PAGE, num_pages=(GA_CAP * 2 // PAGE) * (ARB_SLOTS + 1),
+                             max_cols=GA_CAP * 2, prefill_chunk=chunk)
+
+
+def _arctic_offload_build(dev):
+    """Phase 22b's build: Arctic's widths at 4 layers, bf16 dense weights
+    from seed 2202, the int8 SyntheticStore (one shared record)."""
+    from moe_infinity_tpu_torch.store.blob import SyntheticStore
+
+    model, params, _, _ = _arctic(dev, torch.bfloat16, 2202, expert_dtype=None,
+                                  num_layers=ARCTIC_OFF_LAYERS)
+    D, F, E = ARCTIC["hidden_size"], ARCTIC["intermediate_size"], ARCTIC["num_experts"]
+    store = SyntheticStore(ARCTIC_OFF_LAYERS, E, _gated_fields(D, F, ARCTIC_TAILS, "int8"),
+                           meta={"arch": "arctic", "gated": True, "num_encoder_moe_layers": 0})
+    return model, params, store
+
+
+def _arctic_prompts(vocab):
+    rng = np.random.default_rng(28)
+    return [rng.integers(1, vocab, n) for n in ARB_PROMPTS]
+
+
+def phase_arctic_batcher(dev, built=None):
+    """Phase 28: phase 22b's Arctic build (4 layers, the int8 store) served by
+    ``ContinuousBatcher(arena=...)`` over 160 slots: 8 requests into 4
+    slots, prefill_chunk 1 (a step's union stays within 4 x 4 x 2 = 32
+    experts), 16 tokens each, each step a speculative execution over the
+    arena. Returns the launches."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+
+    model, params, store = built or _arctic_offload_build(dev)
+    prompts = _arctic_prompts(model.spec.vocab_size)
+    b = _arena_batcher(model, params, store, ARCTIC_OFF_SLOTS, 1, torch.bfloat16)
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        futures = _submit_together(b, [(p, dict(max_new_tokens=GA_TOKENS)) for p in prompts])
+        outs = [f.result(timeout=900) for f in futures]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        s, execs, steps = b.stats(), list(b.replay_counts), b.step_stats()
+    finally:
+        b.shutdown()
+        b.arena.shutdown()
+    n_tok = len(prompts) * GA_TOKENS
+    say(f"[arctic-batcher] {len(prompts)} requests (prompts {list(ARB_PROMPTS)}) into "
+        f"{ARB_SLOTS} slots over {ARCTIC_OFF_SLOTS} of {store.num_layers * store.num_experts} "
+        f"experts, {GA_TOKENS} tokens each: {n_tok} tokens in {wall:.3f} s: tokens_per_s="
+        f"{n_tok / wall:.2f}; hit rate {s['hit_rate']:.4f} ({s['visits']} visits, "
+        f"{s['misses']} misses, {s['evictions']} evictions); executions per step "
+        f"{s['mean_step_executions']:.3f} over {s['speculative_steps']} steps; steps "
+        f"{json.dumps(steps)}; launches {json.dumps(counts)}")
+    for p, out in zip(prompts, outs):
+        if out.shape != (len(p) + GA_TOKENS,) or not np.array_equal(out[:len(p)], p):
+            raise AssertionError(f"Arctic batcher: a request of {len(p)} came back as {out.shape}")
+    _require_launched(counts, ("paged_flash_decode", "gmm"), "Arctic batcher in offload mode")
+    if max(execs) <= 1:
+        raise AssertionError("Arctic batcher: no step ran again after its misses")
+    if built is None:  # alone: phase 22c's f32 build for the whole-path check
+        del model, params, store
+        torch.cuda.empty_cache()
+        counts = _sum_counts(counts, arctic_batcher_whole_path(*_arctic_f32_build(dev, 1, 1)))
+    return counts
+
+
+def _arctic_f32_build(dev, freq, layers):
+    """Phase 22c's build: f32 compute, ``layers`` layers with a MoE layer
+    every ``freq``, int8 experts from seed 2203, and their records copied
+    to the host (``_CardStore``)."""
+    model, params, tree, _ = _arctic(dev, torch.float32, 2203, expert_dtype="int8",
+                                     num_layers=layers, moe_layer_frequency=freq)
+    store = _CardStore(tree["layers"], ARCTIC_TAILS, {"arch": "arctic", "num_encoder_moe_layers": 0})
+    return model, params, tree, store
+
+
+def arctic_batcher_whole_path(model, params, tree, store):
+    """Phase 28's f32 check, on phase 22c's build (one MoE layer of 128
+    distinct int8 records): the arena batcher over E + 8 slots at
+    prefill_chunk 4 (K2 for the chunk steps) against the resident batcher
+    on the same requests, token for token. Returns the arena batcher's
+    launches."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.continuous import ContinuousBatcher
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    prompts = _arctic_prompts(model.spec.vocab_size)
+    reqs = [(p, dict(max_new_tokens=8)) for p in prompts]
+    res = ContinuousBatcher(model, params, tree, ResidentProvider.for_layer, impl="pallas",
+                            max_batch_size=ARB_SLOTS, page_size=PAGE,
+                            num_pages=(GA_CAP * 2 // PAGE) * (ARB_SLOTS + 1), max_cols=GA_CAP * 2,
+                            prefill_chunk=4)
+    try:
+        want = [f.result(timeout=900) for f in _submit_together(res, reqs)]
+    finally:
+        res.shutdown()
+    b = _arena_batcher(model, params, store, store.num_experts + 8, 4, torch.float32)
+    try:
+        reset_launches()
+        got = [f.result(timeout=900) for f in _submit_together(b, reqs)]
+        counts = launch_counts()
+        s = b.stats()
+    finally:
+        b.shutdown()
+        b.arena.shutdown()
+    _same_tokens(f"Arctic arena batcher f32 (prefill_chunk 4, {store.num_experts + 8} slots, "
+                 f"{s['evictions']} evictions, executions per step "
+                 f"{s['mean_step_executions']:.3f}) against the resident batcher", got, want)
+    _require_launched(counts, ("paged_flash_decode", "flash_attend", "gmm"),
+                      "Arctic arena batcher, f32")
+    return counts
+
+
+def phase_mixtral_speculative(dev, built=None):
+    """Phase 29: phase 5's Mixtral-8x7B (full depth, int8) through
+    ``SpeculativeDecoder(k=4)`` on a prompt that repeats a span 4 times, 32
+    tokens, beside ``Generator`` on the same prompt; and through
+    ``DynamicBatcher`` on 4 left-padded requests (PROMPT_LENS' first four),
+    16 tokens. bf16 tokens are reported; at f32 and 2 layers both are held
+    to ``Generator``'s. Returns the launches of the two bf16 runs."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.batching import DynamicBatcher
+    from moe_infinity_tpu_torch.runtime.generate import Generator, ResidentStepper
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+    from moe_infinity_tpu_torch.runtime.speculative import SpeculativeDecoder
+
+    def drive(model, params, experts, seed, counts=None, impl="pallas"):
+        vocab = model.spec.vocab_size
+        rng = np.random.default_rng(seed)
+        prompt = np.tile(rng.integers(1, vocab, MXS_SPAN), 4)[None]
+        stepper = ResidentStepper(model, params, experts, ResidentProvider.for_layer, impl=impl)
+        gen = Generator(stepper=stepper, max_seq_len=MAX_COLS)
+        dec = SpeculativeDecoder(stepper, spec_tokens=4, max_seq_len=MAX_COLS)
+        dec.generate(prompt, max_new_tokens=4)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        r = dec.generate(prompt, max_new_tokens=MXS_NEW)
+        torch.cuda.synchronize()
+        t_spec = time.perf_counter() - t0
+        c_spec = launch_counts()
+        t0 = time.perf_counter()
+        ref = gen.generate(prompt, max_new_tokens=MXS_NEW).sequences
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        prompts = [rng.integers(1, vocab, n) for n in PROMPT_LENS[:4]]
+        wants = [gen.generate(p[None], max_new_tokens=NEW_TOKENS).sequences[0] for p in prompts]
+        w = DynamicBatcher(model, params, experts, ResidentProvider.for_layer, impl=impl,
+                           max_batch_size=4, max_wait_s=0.05, max_seq_len=MAX_COLS)
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            outs = [f.result(timeout=900) for f in _submit_together(
+                w, [(p, dict(max_new_tokens=NEW_TOKENS)) for p in prompts])]
+            torch.cuda.synchronize()
+            t_wave = time.perf_counter() - t0
+            c_wave = launch_counts()
+        finally:
+            w.shutdown()
+        if counts is not None:
+            counts.update(_sum_counts(c_spec, c_wave))
+        return r, ref, t_spec, t_gen, outs, wants, t_wave, c_spec, c_wave
+
+    model, params, experts = built if built is not None else _mixtral(dev, torch.bfloat16,
+                                                                      4321)[:3]
+    if not isinstance(experts, dict):
+        experts = experts.pytree()
+    counts = {}
+    r, ref, t_spec, t_gen, outs, wants, t_wave, c_spec, c_wave = drive(model, params, experts, 29,
+                                                                      counts)
+    st = r.stats
+    say(f"[mixtral-spec] SpeculativeDecoder(k=4), a span of {MXS_SPAN} repeated 4 times, "
+        f"{MXS_NEW} tokens: {st['spec_steps']} verification steps, {st['spec_accepted']} drafts "
+        f"accepted (acceptance rate {st['spec_accept_rate']:.3f}), {MXS_NEW / t_spec:.2f} "
+        f"tokens/s against Generator's {MXS_NEW / t_gen:.2f}; tokens equal to Generator's: "
+        f"{np.array_equal(r.sequences, ref)} (bf16: reported, not held); launches "
+        f"{json.dumps(c_spec)}")
+    say(f"[mixtral-spec] DynamicBatcher, 4 left-padded requests (prompts "
+        f"{list(PROMPT_LENS[:4])}), {NEW_TOKENS} tokens: {4 * NEW_TOKENS / t_wave:.2f} tokens/s; "
+        f"{sum(np.array_equal(a, b) for a, b in zip(outs, wants))} of 4 equal to Generator's "
+        f"(bf16: reported); launches {json.dumps(c_wave)}")
+    _require_launched(c_spec, ("flash_attend", "gmm"), "Mixtral prompt-lookup speculation")
+    _require_launched(c_wave, NLLB_KERNELS, "Mixtral DynamicBatcher")
+
+    m32, p32, prov32, _ = _mixtral(dev, torch.float32, 4329, num_layers=2)
+    r, ref, *_, outs, wants, _, _, _ = drive(m32, p32, prov32.pytree(), 30, impl=F32_IMPL)
+    _same_tokens("Mixtral f32, 2 layers: SpeculativeDecoder(k=4) against Generator",
+                 [r.sequences[0]], [ref[0]])
+    _same_tokens("Mixtral f32, 2 layers: DynamicBatcher (left padding) against Generator",
+                 outs, wants)
+    del m32, p32, prov32
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _write_switch_checkpoint(root, dev, seed=0):
+    """SB8_CONFIG's checkpoint under HF's tensor names (the key set
+    ``SwitchModel.load_params`` and the ingest read), bf16, matrices normal
+    with std 0.02, routers and relative biases std 0.5, norms one, made on
+    the card from ``seed``; one safetensors shard per block plus one for
+    the embedding and the final norms, and the index. Returns its bytes."""
+    from moe_infinity_tpu_torch.models.switch import SwitchSpec
+    from moe_infinity_tpu_torch.utils.hf_config import read_hf_config
+
+    c = SB8_CONFIG
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps(c, indent=2))
+    spec = SwitchSpec.from_hf(read_hf_config(str(root)))
+    D, F, E, V = c["d_model"], c["d_ff"], c["num_experts"], c["vocab_size"]
+    inner, R = c["num_heads"] * c["d_kv"], c["relative_attention_num_buckets"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def mat(*shape, std=0.02):
+        return torch.empty(shape, dtype=torch.bfloat16, device=dev).normal_(0.0, std, generator=g)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16, device=dev)
+
+    shards = []
+    for prefix, n, decoder in (("encoder", c["num_layers"], False),
+                               ("decoder", c["num_decoder_layers"], True)):
+        for i in range(n):
+            p = f"{prefix}.block.{i}.layer."
+            t = [(p + "0.layer_norm.weight", ones(D))]
+            t += [(p + f"0.SelfAttention.{w}.weight", mat(inner, D)) for w in "qkv"]
+            t.append((p + "0.SelfAttention.o.weight", mat(D, inner)))
+            if i == 0:
+                t.append((p + "0.SelfAttention.relative_attention_bias.weight",
+                          mat(R, c["num_heads"], std=0.5)))
+            ff = "2" if decoder else "1"
+            if decoder:
+                t.append((p + "1.layer_norm.weight", ones(D)))
+                t += [(p + f"1.EncDecAttention.{w}.weight", mat(inner, D)) for w in "qkv"]
+                t.append((p + "1.EncDecAttention.o.weight", mat(D, inner)))
+            t.append((p + f"{ff}.layer_norm.weight", ones(D)))
+            if spec.is_sparse(i, decoder):
+                t.append((p + f"{ff}.mlp.router.classifier.weight", mat(E, D, std=0.5)))
+                for e in range(E):
+                    q = f"{p}{ff}.mlp.experts.expert_{e}."
+                    t += [(q + "wi.weight", mat(F, D)), (q + "wo.weight", mat(D, F))]
+            else:
+                t += [(p + f"{ff}.mlp.wi.weight", mat(F, D)), (p + f"{ff}.mlp.wo.weight",
+                                                               mat(D, F))]
+            shards.append(t)
+    shards.append([("shared.weight", mat(V, D)), ("encoder.final_layer_norm.weight", ones(D)),
+                   ("decoder.final_layer_norm.weight", ones(D))])
+    weight_map, total = {}, 0
+    for k, tensors in enumerate(shards):
+        fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        total += _write_safetensors(root / fname, tensors)
+        weight_map.update({name: fname for name, _ in tensors})
+    (root / "model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}, indent=2))
+    return total
+
+
+def phase_switch_entry(dev):
+    """Phase 30: ``MoE`` from a checkpoint of google/switch-base-8's published
+    config (12+12 blocks, every second sparse, 8 experts), written from a
+    seed under ``.switch_entry/`` (deleted at the end, also on failure). At
+    f32 (float32 experts): the facade at its defaults (max_batch_size 8: the
+    continuous batcher) answering 8 concurrent ``generate`` calls from
+    threads, the wave batcher's facade, and an offload facade with
+    ``speculative_decode`` at a budget below the experts (the batcher over
+    the engine's arena), each request's tokens equal to the max_batch_size
+    1 facade's (the experts through the plain grouped FFN: K3 takes no
+    float32 weights); in bf16 (K3) the default facade against the
+    max_batch_size 1 one, reported. Returns the launches of the bf16
+    default facade's batch."""
+    import concurrent.futures as cf
+    import shutil
+
+    from moe_infinity_tpu_torch.entrypoints.api import MoE
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.continuous_s2s import Seq2SeqContinuousBatcher
+    from moe_infinity_tpu_torch.store.ingest import ingest_checkpoint
+    from moe_infinity_tpu_torch.utils.hf_config import read_hf_config
+
+    SB_DIR.mkdir(exist_ok=True)
+    free = shutil.disk_usage(SB_DIR).free
+    say(f"[sb8] disk free under {SB_DIR.name}/: {free / 1e9:.1f} GB (needs {SB_DISK_GB})")
+    if free < SB_DISK_GB * 1e9:
+        raise RuntimeError(f"phase 30 needs {SB_DISK_GB} GB of disk under {SB_DIR}")
+    try:
+        ckpt = SB_DIR / "ckpt"
+        t0 = time.perf_counter()
+        nbytes = _write_switch_checkpoint(ckpt, dev)
+        say(f"[sb8] checkpoint of google/switch-base-8's config: {nbytes / 1e9:.2f} GB of bf16 "
+            f"safetensors in {len(list(ckpt.glob('*.safetensors')))} shards, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(30)
+        prompts = [rng.integers(2, SB8_CONFIG["vocab_size"], (1, SB_PROMPT))
+                   for _ in range(SB_REQUESTS)]
+        kw = dict(max_new_tokens=SB_NEW, eos_token_id=None)
+
+        def build(tag, cfg):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = MoE(str(ckpt), cfg, device=dev)
+            say(f"[sb8] {tag}: built in {time.perf_counter() - t0:.1f} s ("
+                f"{'offload' if m.engine is not None else 'resident'}, "
+                f"{type(m.s2s_batcher).__name__ if m.s2s_batcher else 'no batcher'})")
+            return m
+
+        def batch(m):
+            with cf.ThreadPoolExecutor(SB_REQUESTS) as ex:
+                return list(ex.map(lambda q: m.generate(q, **kw), prompts))
+
+        counts = {}
+        for dtype in ("float32", "bfloat16"):
+            store = SB_DIR / f"store-{dtype}"
+            t0 = time.perf_counter()
+            ingest_checkpoint(str(ckpt), str(store), read_hf_config(str(ckpt)), expert_dtype=dtype)
+            say(f"[sb8] ingest ({dtype}): {time.perf_counter() - t0:.1f} s; experts.blob "
+                f"{(store / 'experts.blob').stat().st_size / 1e9:.2f} GB")
+            # K3 takes bf16, int8, int4 and e4m3 weights: float32 experts run
+            # the plain grouped FFN (moe_impl "ragged"), bf16 ones K3
+            base = {"expert_dtype": dtype, "offload_path": str(store)}
+            if dtype == "bfloat16":
+                base.update(moe_impl="pallas", prefill_impl="pallas")
+            ref = build(f"{dtype} max_batch_size 1", dict(base, max_batch_size=1))
+            want = [ref.generate(q, **kw) for q in prompts]
+            ref.shutdown()
+            del ref
+            legs = [("defaults", base)]
+            if dtype == "float32":  # offload: a budget of half the experts' bytes, 64 slots
+                half = (store / "experts.blob").stat().st_size // 2
+                legs += [("wave", dict(base, s2s_batcher="wave")),
+                         ("offload", dict(base, device_memory_bytes=half, dense_paging="off",
+                                          num_slots=64, speculative_decode=True))]
+            for leg, cfg in legs:
+                m = build(f"{dtype} {leg}", cfg)
+                try:
+                    if m.s2s_batcher is None or (leg == "offload") != (m.engine is not None):
+                        raise AssertionError(f"{leg}: unexpected plan")
+                    m.generate(prompts[0], max_new_tokens=2, eos_token_id=None)  # warm-up
+                    torch.cuda.synchronize()
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    got = batch(m)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    c = launch_counts()
+                    extra = ""
+                    if isinstance(m.s2s_batcher, Seq2SeqContinuousBatcher):
+                        extra = (f"; steps {json.dumps(m.s2s_batcher.step_stats())} graphs "
+                                 f"{json.dumps(m.s2s_batcher.graph_stats())}")
+                    if m.engine is not None:
+                        extra += f"; stats {json.dumps(m.stats())}"
+                finally:
+                    m.shutdown()
+                say(f"[sb8] {dtype} {leg}: {SB_REQUESTS} concurrent requests x {SB_NEW} tokens "
+                    f"in {wall:.3f} s: {SB_REQUESTS * SB_NEW / wall:.1f} tokens/s{extra}; "
+                    f"launches {json.dumps(c)}")
+                _require_launched(c, SWITCH_KERNELS if dtype == "bfloat16" else SWITCH_KERNELS[:1],
+                                  f"switch-base-8 facade ({dtype} {leg})")
+                what = f"switch-base-8 facade {dtype} {leg} against max_batch_size 1"
+                if dtype == "float32":
+                    _same_tokens(what, [x[0] for x in got], [x[0] for x in want])
+                else:
+                    agree = sum(np.array_equal(a, b) for a, b in zip(got, want))
+                    say(f"[sb8] {what}: {agree} of {SB_REQUESTS} requests' tokens equal (bf16: "
+                        f"reported, not held)")
+                if dtype == "bfloat16":
+                    counts = c
+                del m
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(SB_DIR, ignore_errors=True)
+    return counts
+
+
+def check_batcher_attention(dev):
+    """The two kernel inputs the batchers add, against the plain versions:
+    K2 at head dim 64 with a per-row T5 bias ``[B, 16, 1, 128]`` (Switch's
+    shared step, each row at its own position, causal) at B = 8 and 32, bf16
+    and f32, timed beside SDPA with the same float mask; K1 at NLLB's
+    B = 8, H = 16, Dh 128 with eight different per-row positions over a
+    capacity of 64 (``kv_len`` the capacity), timed against the same call
+    with every row at the largest position. Own generator. Returns
+    {record name: largest error}."""
+    from moe_infinity_tpu_torch.models.layers import t5_relative_bucket
+    from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    errs = {"flash_attend_dh64": 0.0, "flash_decode": 0.0}
+    H = 16
+    table = torch.randn(32, H, generator=g, device=dev) * 0.5
+    for B in (8, 32):
+        S = SW_CAP
+        offs = torch.randint(0, SW_TOKENS + 1, (B,), generator=g, device=dev).to(torch.int32)
+        rel = torch.arange(S, device=dev, dtype=torch.int32)[None, :] - offs[:, None]
+        bias = table[t5_relative_bucket(rel, False, 32, 128).long()].permute(0, 2, 1)[:, :, None]
+        for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, 2e-3)):
+            q = torch.randn(B, 1, H, 64, generator=g, device=dev).to(dtype)
+            k = torch.randn(B, S, H, 64, generator=g, device=dev).to(dtype)
+            v = torch.randn(B, S, H, 64, generator=g, device=dev).to(dtype)
+            pos = offs[:, None].contiguous()
+            run = lambda: fa.flash_attend(q, k, v, pos, S, scale=1.0, bias=bias)  # noqa: E731
+            plain = lambda: fa.flash_attend_plain(q, k, v, pos, S, scale=1.0,  # noqa: E731
+                                                  bias=bias)
+            errs["flash_attend_dh64"] = max(errs["flash_attend_dh64"], compare(
+                f"flash_attend Dh=64 per-row T5 bias {list(bias.shape)} B={B} S={S} causal "
+                f"{str(dtype).split('.')[-1]}", run(), plain(), tol))
+            if dtype != torch.bfloat16:
+                continue
+            # the kernel reads K, V and the bias only in each row's live
+            # columns (the causal bound): q in, out, K/V and bias columns, pos
+            live = int((offs + 1).sum())
+            nbytes = (2 * B * H * 64 * 2 + 2 * live * H * 64 * 2
+                      + live * H * bias.element_size() + B * 4)
+            b_ms, b_by = bound_ms(nbytes, 4 * H * 64 * live)
+            ok = torch.arange(S, device=dev)[None, :] <= offs[:, None]
+            fmask = torch.where(ok[:, None, None, :], bias, float("-inf")).to(torch.bfloat16)
+            lib = _sdpa_lib(q, k, v, fmask, 1.0)
+            say(f"[time] flash_attend Dh=64 per-row T5 bias B={B}: " + json.dumps(dict(
+                ms=cuda_ms(run), plain_ms=cuda_ms(plain), bound_ms=b_ms, bound_by=b_by,
+                library_ms=cuda_ms(lib), live_keys=live,
+                shape=f"B={B} T=1 H={H} Dh=64 S={S} bias {list(bias.shape)} bf16 (library: "
+                      f"SDPA, the bias and the causal bound as a float mask)")))
+    B, S, Dh = 8, 64, 128
+    pos = torch.tensor([0, 5, 11, 23, 31, 40, 52, 63], dtype=torch.int32, device=dev)[:, None]
+    q = torch.randn(B, 1, H, Dh, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, S, H, Dh, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, S, H, Dh, generator=g, device=dev).to(torch.bfloat16)
+    top = torch.full_like(pos, int(pos.max()))
+    run = lambda: fa.flash_decode(q, k, v, pos, S)  # noqa: E731
+    plain = lambda: fa.flash_decode_plain(q[:, 0], k, v, pos[:, 0], S,  # noqa: E731
+                                          scale=Dh ** -0.5)
+    errs["flash_decode"] = compare(f"flash_decode per-row positions {pos[:, 0].tolist()} B={B} "
+                                   f"H={H} capacity {S}", run()[:, 0], plain())
+    same = lambda: fa.flash_decode(q, k, v, top, S)  # noqa: E731
+    live = int((pos + 1).sum())
+    nbytes = 2 * B * H * Dh * 2 + 2 * live * H * Dh * 2 + B * 4
+    b_ms, b_by = bound_ms(nbytes, 4 * H * Dh * live)
+    ok = torch.arange(S, device=dev)[None, :] <= pos
+    fmask = torch.where(ok, 0.0, float("-inf"))[:, None, None, :].to(torch.bfloat16)
+    ms = [cuda_ms(f) for f in (run, same, run, same)]
+    say(f"[time] flash_decode NLLB per-row positions: " + json.dumps(dict(
+        ms=ms[0], ms_again=ms[2], all_rows_at_63_ms=ms[1], all_rows_at_63_again_ms=ms[3],
+        plain_ms=cuda_ms(plain), bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(_sdpa_lib(q, k, v, fmask, Dh ** -0.5)), live_keys=live,
+        shape=f"B={B} H={H} Dh={Dh} capacity {S}, positions {pos[:, 0].tolist()} bf16")))
+    return errs
+
+
+def _sdpa_lib(q, k, v, mask, scale):
+    import torch.nn.functional as F_
+
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return lambda: F_.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)
+
+
+def phase_batchers(dev, extra):
+    """``--batchers``: phases 24 to 30 on builds of their own."""
+    for fn in (phase_s2s_batchers, phase_s2s_batcher_offload, phase_s2s_batchers_whole_path,
+               phase_switch_batcher, phase_arctic_batcher, phase_mixtral_speculative,
+               phase_switch_entry):
+        extra[fn.__name__] = _subphase(fn, dev) or {}
+        _free_host_cache()
+
+
 def sweep_decode_plans(dev):
     """``--decode-plans``: K4 at the Mixtral decode shape and at the long rows
     under split plans aimed at 2 to 8 blocks per SM (the wrapper's
@@ -4989,11 +5954,20 @@ def main() -> int:
         say(f"[card] {smi}")
         return 0
 
-    def timed(fn):
+    def timed(fn, *args):
         t0 = time.perf_counter()
-        out = fn(dev)
+        out = fn(dev, *args)
         say(f"[phase] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
         return out
+
+    extra = {}  # the launches of phases 24-30, by phase
+    if "--batchers" in sys.argv[1:]:
+        say(f"[check] phase 2's batcher inputs: largest errors "
+            f"{json.dumps(check_batcher_attention(dev))}")
+        phase_batchers(dev, extra)
+        say(f"[batchers] launches by phase {json.dumps(extra)}")
+        say(f"[card] {smi}")
+        return 0
 
     if "--offload" in sys.argv[1:]:
         timed(phase_offload)
@@ -5039,18 +6013,19 @@ def main() -> int:
         say(f"[card] {smi}")
         return 0
     recs = timed(phase_kernels)
-    counts = timed(phase_main_path)
+    counts = timed(phase_main_path, extra)
     timed(phase_whole_path)
-    mix_counts = timed(phase_mixtral)
+    mix_counts = timed(phase_mixtral, extra)
     timed(phase_mixtral_whole_path)
     mla_counts = timed(phase_deepseek)
     timed(phase_deepseek_whole_path)
     off_counts = timed(phase_offload)
     timed(phase_offload_whole_path)
-    spec_counts = timed(phase_offload_spec)
+    spec_counts = timed(phase_offload_spec, extra)
     timed(phase_offload_spec_whole_path)
     _free_host_cache()  # the NLLB tier's page-locked memory, before Switch's
-    sw_counts = timed(phase_switch)
+    extra["phase_s2s_batchers_whole_path"] = timed(phase_s2s_batchers_whole_path) or {}
+    sw_counts = timed(phase_switch, extra)
     sw_off_counts = timed(phase_switch_offload)
     timed(phase_switch_whole_path)
     _free_host_cache()
@@ -5059,12 +6034,15 @@ def main() -> int:
     ds_off_counts = timed(phase_deepseek_offload)
     ep_counts = timed(phase_entrypoints_and_server)
     gk_counts = timed(phase_grok)
-    ac_counts = timed(phase_arctic)
+    ac_counts = timed(phase_arctic, extra)
     ge_counts = timed(phase_grok_entry)
+    extra["phase_switch_entry"] = timed(phase_switch_entry)
+    say(f"[batchers] launches by phase {json.dumps(extra)}")
     for r in recs:
         r["launches"] = sum(c.get(r["name"], 0) for c in (
             counts, mix_counts, mla_counts, off_counts, spec_counts, sw_counts, sw_off_counts,
-            mx_off_counts, ds_off_counts, ep_counts, gk_counts, ac_counts, ge_counts))
+            mx_off_counts, ds_off_counts, ep_counts, gk_counts, ac_counts, ge_counts,
+            *extra.values()))
         r.pop("shape")
     say(f"[card] {smi}")
     print(json.dumps({"kernels": recs}), flush=True)

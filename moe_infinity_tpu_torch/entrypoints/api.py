@@ -11,29 +11,36 @@
      budget, otherwise the slot-arena offload engine under the EAMC tracer,
      predictor and prefetch;
   5. drive generation through ``Generator`` (decoder-only), a
-     ``ContinuousBatcher`` for concurrent requests (resident decoder-only,
-     ``max_batch_size`` > 1), ``Seq2SeqGenerator`` or the offload engines.
+     ``ContinuousBatcher`` for concurrent requests (decoder-only at
+     ``max_batch_size`` > 1: over the resident experts, or over the offload
+     engine's arena with ``speculative_decode``), ``Seq2SeqGenerator`` or
+     the offload engines; encoder-decoder models at ``max_batch_size`` > 1
+     batch concurrent greedy requests through ``Seq2SeqContinuousBatcher``
+     (``s2s_batcher`` "continuous", the default: resident, or over the
+     offload engine with ``speculative_decode``) or the wave batcher
+     ``Seq2SeqDynamicBatcher`` ("wave", resident); ``speculative_tokens``
+     > 0 serves greedy batch-1 decoder-only requests by prompt lookup
+     (``runtime/speculative.py``).
 
 The device budget is ``device_memory_bytes``, else the device's memory
 times ``device_memory_ratio``: ``torch.cuda.get_device_properties`` on the
 card, and the JAX package's 16 GiB on the CPU, so that the CPU tests plan as
-the JAX facade does. CUDA graphs are on wherever the port's engine has them:
-the seq2seq engines (NLLB and Switch) and the decoder-only offload engine
-for every model whose step sets ``graph_step`` (Mixtral, Grok-1, Arctic);
-DeepSeek's offload engine runs eagerly. Experts are stored as
+the JAX facade does. CUDA graphs are on wherever the port has them: the
+seq2seq generator, batcher and engines (NLLB and Switch) and the
+decoder-only offload engine for every model whose step sets ``graph_step``
+(Mixtral, Grok-1, Arctic), where ``moe_impl`` can be captured
+(``ops.moe.capturable``: not "ragged"); DeepSeek's offload engine runs eagerly. Experts are stored as
 ``expert_dtype`` says: bf16, f32, f16, int8, int4 or ``float8_e4m3fn``.
 
 Plans and options the port does not serve raise ``NotImplementedError``
 naming their ROADMAP queue-1 item: opt, and load modes other than ``mmap``
 (14); dense paging (16); multihost and any parallel
-degree above 1 (18); the seq2seq batchers (``max_batch_size`` > 1 on
-Switch or NLLB), prompt-lookup speculation (``speculative_tokens``) and
-the batcher's arena mode (an offload plan with ``speculative_decode`` and
-``max_batch_size`` > 1) (15); the host fallback (8).
+degree above 1 (18); the host fallback (8).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Any, Dict, Optional, Union
 
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from moe_infinity_tpu_torch import resolve_device
+from moe_infinity_tpu_torch.ops.moe import capturable
 from moe_infinity_tpu_torch.runtime.engine import _not_ported
 from moe_infinity_tpu_torch.utils.config import EngineConfig
 from moe_infinity_tpu_torch.utils.logger import get_logger
@@ -99,8 +107,6 @@ def _check_config(config: EngineConfig) -> None:
         raise _not_ported(f"load_mode {config.load_mode!r}", "14")
     if config.host_fallback:
         raise _not_ported("host_fallback (runtime/host_exec.py)", "8")
-    if config.speculative_tokens > 0:
-        raise _not_ported("prompt-lookup speculation (speculative_tokens > 0)", "15")
     if config.dense_paging == "on":
         raise _not_ported("dense paging (runtime/dense_arena.py)", "16")
 
@@ -148,10 +154,6 @@ class MoE:
             raise _not_ported(f"architecture {self.arch!r} (ported: {sorted(registry)})", "14")
         self.geometry = parse_geometry(self.hf_config)
         seq2seq = self.arch in _SEQ2SEQ_ARCHS
-        if seq2seq and config.max_batch_size > 1:
-            raise _not_ported(
-                f"the seq2seq batchers (max_batch_size={config.max_batch_size} on "
-                f"{self.arch}; runtime/continuous_s2s.py, runtime/batching.py)", "15")
 
         ingest_checkpoint(checkpoint, config.offload_path, self.hf_config,
                           expert_dtype=config.expert_dtype)
@@ -179,8 +181,10 @@ class MoE:
             self.params = self.model.fold_mla_params(self.params)
 
         self.batcher = None
+        self.s2s_batcher = None
         self.engine = None
         self.last_result = None
+        self._spec = None  # the prompt-lookup decoder, made at its first request
         store = ExpertStore(config.offload_path, load_mode=config.load_mode)
         pinned_tier = None
         if config.pinned_tier:
@@ -190,10 +194,11 @@ class MoE:
         expert_bytes = store.stride * store.num_layers * store.num_experts
         dense_bytes = _tensor_bytes(self.params)
         fits = expert_bytes <= budget - dense_bytes
-        if not fits and config.speculative_decode and config.max_batch_size > 1 and not seq2seq:
-            raise _not_ported(
-                "the batcher's arena mode (an offload plan with speculative_decode and "
-                f"max_batch_size={config.max_batch_size})", "15")
+        # CUDA graphs of the decode step where the grouped FFN can be
+        # captured; a decoder-only model also says whether its step can be
+        # one (graph_step)
+        graphs = capturable(config.moe_impl) and (
+            seq2seq or getattr(self.model, "graph_step", False))
 
         def offload_parts():
             from moe_infinity_tpu_torch.runtime.arena import ExpertArena
@@ -214,10 +219,7 @@ class MoE:
                         prefetch=config.prefetch, impl=config.moe_impl,
                         prefill_impl=config.prefill_impl,
                         speculative=config.speculative_decode,
-                        spec_block=config.speculative_block,
-                        # the seq2seq engines capture their own steps; a
-                        # decoder-only model says whether its step can be one
-                        graphs=seq2seq or getattr(self.model, "graph_step", False))
+                        spec_block=config.speculative_block, graphs=graphs)
 
         def resident_experts():
             logger.info("experts fit the device (%.2f GB <= %.2f GB budget): resident plan",
@@ -230,14 +232,32 @@ class MoE:
                 tree["layers"] = [fuse_gateup(w) for w in tree["layers"]]
             return tree
 
-        # ---- seq2seq: the enc-dec generator or the enc-dec offload engine
+        # ---- seq2seq: the enc-dec generator or the enc-dec offload engine,
+        # and a batcher for concurrent greedy requests
         if seq2seq:
+            from moe_infinity_tpu_torch.runtime.continuous_s2s import Seq2SeqContinuousBatcher
+
+            batched = config.max_batch_size > 1
+            s2s = dict(impl=config.moe_impl, max_batch_size=config.max_batch_size,
+                       max_src_len=config.max_seq_len, max_decode_len=config.max_seq_len)
             if fits:
                 from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
 
+                experts = resident_experts()
                 self.generator = Seq2SeqGenerator(
-                    self.model, self.params, resident_experts(), ResidentProvider.for_layer,
-                    impl=config.moe_impl)
+                    self.model, self.params, experts, ResidentProvider.for_layer,
+                    impl=config.moe_impl, graphs=graphs)
+                if batched and config.s2s_batcher == "continuous":
+                    self.s2s_batcher = Seq2SeqContinuousBatcher(
+                        self.model, self.params, experts, ResidentProvider.for_layer,
+                        graphs=graphs, **s2s)
+                elif batched:
+                    from moe_infinity_tpu_torch.runtime.batching import Seq2SeqDynamicBatcher
+
+                    self.s2s_batcher = Seq2SeqDynamicBatcher(
+                        self.model, self.params, experts, ResidentProvider.for_layer,
+                        impl=config.moe_impl, max_batch_size=config.max_batch_size,
+                        max_seq_len=config.max_seq_len)
             else:
                 from moe_infinity_tpu_torch.runtime.engine_seq2seq import Seq2SeqOffloadEngine
 
@@ -245,6 +265,21 @@ class MoE:
                 self.engine = Seq2SeqOffloadEngine(self.model, self.params, parts.pop("arena"),
                                                    **parts)
                 self.generator = self.engine  # the same generate() surface
+                # concurrent offload serving: joins encode through the
+                # engine's per-layer path, each shared step is one verified
+                # speculative execution over the arena
+                if batched and config.speculative_decode and config.s2s_batcher == "continuous":
+                    self.s2s_batcher = Seq2SeqContinuousBatcher(
+                        self.model, self.params, None, None, engine=self.engine, **s2s)
+                elif batched:
+                    # the wave batcher needs a resident expert tree, and
+                    # offload batching rides speculative decode; concurrent
+                    # generate() calls still serialize on the arena's client_lock
+                    logger.warning(
+                        "seq2seq offload plan: concurrent batching needs "
+                        "speculative_decode=True and s2s_batcher='continuous' (got %s/%s); "
+                        "requests will serialize",
+                        config.speculative_decode, config.s2s_batcher)
             return
 
         # ---- decoder-only: resident stepper or the offload engine -------
@@ -261,19 +296,27 @@ class MoE:
             stepper = self.engine
         self.generator = Generator(stepper=stepper, max_seq_len=config.max_seq_len)
 
-        # continuous batching for concurrent serving over resident experts
-        if fits and config.max_batch_size > 1 \
-                and "key_valid" in self.model.forward.__code__.co_varnames:
+        # continuous batching for concurrent serving: over the resident
+        # experts, or (with speculative_decode) over the offload engine's
+        # arena, every batched step one verified speculative execution
+        if (config.max_batch_size > 1
+                and "key_valid" in self.model.forward.__code__.co_varnames
+                and (fits or config.speculative_decode)):
             from moe_infinity_tpu_torch.runtime.continuous import ContinuousBatcher
 
             page_size = min(config.kv_page_size, config.max_seq_len)
             pages = max(8, (config.max_seq_len // page_size) * (config.max_batch_size + 1))
-            self.batcher = ContinuousBatcher(
-                self.model, self.params, experts, ResidentProvider.for_layer,
-                impl=config.moe_impl, max_batch_size=config.max_batch_size,
-                page_size=page_size, num_pages=pages, max_cols=config.max_seq_len,
-                prefill_chunk=config.prefill_chunk,
-            )
+            common = dict(impl=config.moe_impl, max_batch_size=config.max_batch_size,
+                          page_size=page_size, num_pages=pages, max_cols=config.max_seq_len,
+                          prefill_chunk=config.prefill_chunk)
+            if fits:
+                self.batcher = ContinuousBatcher(
+                    self.model, self.params, experts, ResidentProvider.for_layer, **common)
+            else:
+                self.batcher = ContinuousBatcher(
+                    self.model, self.params, None, None, arena=self.engine.arena,
+                    tracer=self.engine.tracer, predictor=self.engine.predictor,
+                    prefetch=config.prefetch, **common)
 
     # ---- generation -----------------------------------------------------
     def generate(self, input_ids, **kwargs) -> np.ndarray:
@@ -281,9 +324,13 @@ class MoE:
         config's; a list stops on any member), pad_token_id, do_sample
         (True defaults the temperature to 1.0), temperature, top_k, top_p,
         min_p, the penalties, logit_bias, logprobs, seed. Returns [B, T']
-        ids. Concurrent batch-1 callers share the continuous batcher when
-        one is active; the rest run the generator (under the arena's
-        ``client_lock`` on an offload plan)."""
+        ids. Concurrent batch-1 callers share a batcher when one is active:
+        on an encoder-decoder model plain greedy requests only (any sampling
+        knob, logprobs, logit_bias, an attention_mask or a decoder start
+        token goes to the generator); greedy batch-1 requests of a
+        decoder-only model with ``speculative_tokens`` take prompt-lookup
+        speculation and the rest run the generator, both under the arena's
+        ``client_lock`` on an offload plan."""
         from moe_infinity_tpu_torch.runtime.continuous import RequestSampling
         from moe_infinity_tpu_torch.runtime.sampling import normalize_logit_bias
 
@@ -294,6 +341,26 @@ class MoE:
         if isinstance(cfg_eos, (list, tuple)) and not cfg_eos:
             cfg_eos = None
         kwargs.setdefault("eos_token_id", cfg_eos)
+        # the seq2seq batchers are plain batched greedy: any knob they do not
+        # take routes to the full generator
+        if (self.s2s_batcher is not None and arr.shape[0] == 1
+                and not kwargs.get("logprobs")
+                and not kwargs.get("do_sample")
+                and float(kwargs.get("temperature", 0.0) or 0.0) == 0.0
+                and not kwargs.get("logit_bias")
+                and not kwargs.get("collect_trace")
+                and float(kwargs.get("repetition_penalty", 1.0)) == 1.0
+                and not kwargs.get("presence_penalty")
+                and not kwargs.get("frequency_penalty")
+                and kwargs.get("attention_mask") is None
+                and kwargs.get("decoder_start_token_id") is None
+                and arr.shape[1] <= self.config.max_seq_len
+                # the continuous batcher's decode cache is max_seq_len columns
+                and kwargs.get("max_new_tokens", 32) + 1 <= self.config.max_seq_len):
+            out = self.s2s_batcher.generate(
+                arr[0], max_new_tokens=kwargs.get("max_new_tokens", 32),
+                eos_token_id=kwargs.get("eos_token_id"))
+            return out[None]
         if (self.batcher is not None and arr.shape[0] == 1
                 and not kwargs.get("logprobs") and not kwargs.get("collect_trace")):
             do_sample = kwargs.get("do_sample")
@@ -325,13 +392,27 @@ class MoE:
         kw.setdefault("max_new_tokens", 32)
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
-        if self.engine is not None:
-            # a direct engine run must not protect arena keys while another
-            # run holds its own
-            with self.engine.arena.client_lock:
-                result = self.generator.generate(arr, **kw)
+        # a direct engine run must not protect arena keys, nor replay the
+        # engine's graphs, while another run holds its own
+        lock = (self.engine.arena.client_lock if self.engine is not None
+                else contextlib.nullcontext())
+        # prompt-lookup speculation: greedy batch-1 decoder-only requests
+        if (self.config.speculative_tokens > 0 and arr.shape[0] == 1
+                and kw["temperature"] == 0.0 and not kw.get("logprobs")
+                and not kw.get("logit_bias") and hasattr(self.generator, "stepper")):
+            from moe_infinity_tpu_torch.runtime.speculative import SpeculativeDecoder
+
+            if self._spec is None:
+                self._spec = SpeculativeDecoder(
+                    self.generator.stepper, spec_tokens=self.config.speculative_tokens,
+                    max_seq_len=self.config.max_seq_len)
+            with lock:
+                result = self._spec.generate(arr, kw["max_new_tokens"],
+                                             eos_token_id=kw.get("eos_token_id"),
+                                             pad_token_id=kw.get("pad_token_id", 0))
         else:
-            result = self.generator.generate(arr, **kw)
+            with lock:
+                result = self.generator.generate(arr, **kw)
         self.last_result = result
         return result.sequences
 
@@ -340,7 +421,14 @@ class MoE:
         return self.engine.hit_rate() if self.engine else 1.0
 
     def stats(self) -> dict:
-        return self.engine.stats() if self.engine else {}
+        out = self.engine.stats() if self.engine else {}
+        # batched offload serving: the batcher drives the arena, so its
+        # speculative counters are the live ones
+        if self.batcher is not None and self.batcher.arena is not None:
+            out.update(self.batcher.stats())
+        if self.s2s_batcher is not None and getattr(self.s2s_batcher, "engine", None):
+            out.update(self.s2s_batcher.stats())
+        return out
 
     def save_trace(self, path: Optional[str] = None) -> None:
         """Persist the EAMC trace collection ('knowledge checkpoint')."""
@@ -348,8 +436,11 @@ class MoE:
             self.engine.tracer.save_trace(path or self.config.trace_path)
 
     def shutdown(self) -> None:
-        # the batcher first: its scheduler thread launches on the device
+        # the batchers first: their scheduler threads launch on the device and
+        # may hold arena keys
         if self.batcher is not None:
             self.batcher.shutdown()
+        if self.s2s_batcher is not None:
+            self.s2s_batcher.shutdown()
         if self.engine is not None:
             self.engine.arena.shutdown()

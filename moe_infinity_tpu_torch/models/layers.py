@@ -161,6 +161,18 @@ class KVCache:
         self.v[:, offset:offset + T] = v_new
         return self
 
+    def update_rows(self, k_new, v_new, offsets) -> "KVCache":
+        """Write [B, 1, Hkv, Dh] at per-row columns ``offsets`` [B] (an int
+        tensor on the cache's device, never read on the host), in place with
+        ``index_put_`` at (arange(B), offsets), so that a CUDA graph can
+        capture it. The JAX version rewrites the cache through a one-hot
+        select; the values written are the same."""
+        rows = torch.arange(k_new.shape[0], device=offsets.device)
+        cols = offsets.long()
+        self.k.index_put_((rows, cols), k_new[:, 0].to(self.k.dtype))
+        self.v.index_put_((rows, cols), v_new[:, 0].to(self.v.dtype))
+        return self
+
 
 # "flash" (the kernels) or "naive" (the einsum oracle, for parity tests)
 _ATTN_IMPL = "flash"

@@ -355,15 +355,18 @@ class NllbModel:
     def dec_embed(self, params, dec_tokens, step=0):
         return self._embed(params, dec_tokens, step)
 
-    def _dec_attn(self, b, x, kv, positions, kv_len, bias, ck, cv, cross_bias):
+    def _dec_attn(self, b, x, kv, positions, kv_len, bias, ck, cv, cross_bias,
+                  row_offsets=None):
         """``kv_len`` (the cache offset, an int or a 0-d tensor) only places
-        the step's K/V. The self-attention reads up to the cache's capacity
-        and the causal bound from ``positions`` (the cache columns) limits
-        each row, so no launch depends on the step, and the columns past a
-        row's own hold whatever an execution that was not accepted left."""
+        the step's K/V, or ``row_offsets`` [B] places each row's at its own
+        column. The self-attention reads up to the cache's capacity and the
+        causal bound from ``positions`` (the cache columns) limits each row,
+        so no launch depends on the step, and the columns past a row's own
+        (what an execution that was not accepted, or a slot's previous
+        occupant, left) stay unread."""
         h = layer_norm(x, b["ln0_w"], b["ln0_b"], 1e-5)
         k, v = self._kv(b["self_attn"], h)
-        kv = kv.update(k, v, kv_len)
+        kv = kv.update(k, v, kv_len) if row_offsets is None else kv.update_rows(k, v, row_offsets)
         x = x + self._attn(b["self_attn"], h, kv.k, kv.v, positions, kv.max_len, causal=True)
         h = layer_norm(x, b["lnc_w"], b["lnc_b"], 1e-5)
         x = x + self._attn(b["cross_attn"], h, ck, cv, positions, ck.shape[1],
@@ -378,8 +381,10 @@ class NllbModel:
         cw, ids, _ = self._route_top2(b, h)
         return x, h, cw.reshape(B, T, -1), ids.reshape(B, T, -1), kv
 
-    def dec_block_dense(self, b, x, kv, positions, kv_len, bias, ck, cv, cross_bias):
-        x, h, kv = self._dec_attn(b, x, kv, positions, kv_len, bias, ck, cv, cross_bias)
+    def dec_block_dense(self, b, x, kv, positions, kv_len, bias, ck, cv, cross_bias,
+                        row_offsets=None):
+        x, h, kv = self._dec_attn(b, x, kv, positions, kv_len, bias, ck, cv, cross_bias,
+                                  row_offsets)
         return x + self._dense_ff(b, h), kv
 
     def dec_final(self, params, x):
@@ -417,23 +422,32 @@ class NllbModel:
         return [self.cross_kv_block(b, enc_out) for b in params["dec_blocks"]]
 
     def decode_step(self, params, experts, dec_tokens, positions, kvs, kv_len,
-                    enc_mask, cross, for_layer, impl="ragged"):
+                    enc_mask, cross, for_layer, impl="ragged", row_offsets=None):
         """One decoder step for tokens [B, T] at cache offset ``kv_len`` (an
         int, or a 0-d integer tensor on the device, which a CUDA graph reads
         at replay); writes the step's K/V into ``kvs`` in place. Returns (logits
         [B, T, V] f32, kvs, trace): trace is the routed ids of the decoder's
         sparse layers in order, [L_dec_moe, B, T, 2 + route_margin] int32,
-        left on the device."""
+        left on the device.
+
+        row_offsets [B] (a device int tensor, T must be 1): per-row decode
+        positions, for the continuous batcher's slots at different depths:
+        each row embeds its own position and writes its K/V at its own
+        column (``KVCache.update_rows``); ``positions`` then holds the same
+        columns, ``kv_len`` is unused and nothing is read on the host."""
         s = self.spec
         B, T = dec_tokens.shape
+        if row_offsets is not None and T != 1:
+            raise ValueError("decode_step: row_offsets needs one token per row")
         bias, cross_bias = self.dec_prelude(params, positions, kvs[0].max_len, enc_mask)
-        x = self.dec_embed(params, dec_tokens, kv_len)
+        x = self.dec_embed(params, dec_tokens,
+                           kv_len if row_offsets is None else row_offsets[:, None])
         trace = []
         for i, b in enumerate(params["dec_blocks"]):
             ck, cv = cross[i]
             if s.is_sparse(i, True):
                 x, h, kvs[i] = self._dec_attn(b, x, kvs[i], positions, kv_len, bias, ck, cv,
-                                              cross_bias)
+                                              cross_bias, row_offsets)
                 cw, ids, trace_ids = self._route_top2(b, h, self.route_margin)
                 trace.append(trace_ids.reshape(B, T, -1))
                 weights, slot_map, biases = for_layer(experts, s.moe_layer_id(i, True))
@@ -441,7 +455,7 @@ class NllbModel:
                                   slot_map, biases, impl)
             else:
                 x, kvs[i] = self.dec_block_dense(
-                    b, x, kvs[i], positions, kv_len, bias, ck, cv, cross_bias)
+                    b, x, kvs[i], positions, kv_len, bias, ck, cv, cross_bias, row_offsets)
         if trace:
             trace = torch.stack(trace)
         else:

@@ -44,6 +44,7 @@ from moe_infinity_tpu_torch.models.layers import (
     pad_bias,
     rms_norm,
     t5_position_bias,
+    t5_relative_bucket,
 )
 from moe_infinity_tpu_torch.ops.moe import grouped_ffn
 from moe_infinity_tpu_torch.store.blob import param_getter
@@ -361,18 +362,32 @@ class SwitchModel:
                                 k_pos, False, s.rel_buckets, s.rel_max_distance)
         return bias, pad_bias(enc_mask)
 
+    def row_bias(self, params, row_offsets, cache_len: int):
+        """The decoder's self-attention bias [B, H, 1, cache_len] of one step
+        at per-row positions ``row_offsets`` [B]: the T5 bucket of
+        ``k_pos - row_offsets[b]`` gathered from the relative-bias table on
+        the device (no host read)."""
+        s = self.spec
+        k_pos = torch.arange(cache_len, dtype=torch.int32, device=row_offsets.device)
+        rel = k_pos[None, :] - row_offsets.to(torch.int32)[:, None]  # [B, S]
+        buckets = t5_relative_bucket(rel, False, s.rel_buckets, s.rel_max_distance)
+        table = params["dec_blocks"][0]["rel_bias"]
+        return table[buckets.long()].permute(0, 2, 1)[:, :, None, :]  # [B, H, 1, S]
+
     def dec_embed(self, params, dec_tokens, step=0):
         return params["embed"][dec_tokens.long()].to(self.dtype)
 
-    def _dec_attn(self, b, x, kv, positions, kv_len, bias, ck, cv, cross_bias):
-        """``kv_len`` (an int or a 0-d tensor) only places the step's K/V; the
+    def _dec_attn(self, b, x, kv, positions, kv_len, bias, ck, cv, cross_bias,
+                  row_offsets=None):
+        """``kv_len`` (an int or a 0-d tensor) only places the step's K/V, or
+        ``row_offsets`` [B] places each row's at its own column; the
         self-attention reads up to the cache's capacity under the causal
         bound of ``positions``, as ``NllbModel._dec_attn`` does."""
         s = self.spec
         B, T, _ = x.shape
         h = rms_norm(x, b["ln0"], s.rms_eps)
         k, v = self._kv(b, h)
-        kv = kv.update(k, v, kv_len)
+        kv = kv.update(k, v, kv_len) if row_offsets is None else kv.update_rows(k, v, row_offsets)
         q = linear(h, b["q"]).reshape(B, T, s.num_heads, s.d_kv)
         a = attend(q, kv.k, kv.v, positions, kv.max_len, scale=1.0, causal=True, bias=bias)
         x = x + linear(a.reshape(B, T, -1), b["o"])
@@ -387,8 +402,10 @@ class SwitchModel:
         cw, ids, _ = self.switch_route(b, h)
         return x, h, cw, ids, kv
 
-    def dec_block_dense(self, b, x, kv, positions, kv_len, bias, ck, cv, cross_bias):
-        x, h, kv = self._dec_attn(b, x, kv, positions, kv_len, bias, ck, cv, cross_bias)
+    def dec_block_dense(self, b, x, kv, positions, kv_len, bias, ck, cv, cross_bias,
+                        row_offsets=None):
+        x, h, kv = self._dec_attn(b, x, kv, positions, kv_len, bias, ck, cv, cross_bias,
+                                  row_offsets)
         return x + self._dense_ff(b, h), kv
 
     def dec_final(self, params, x):
@@ -441,29 +458,33 @@ class SwitchModel:
         (logits [B, T, V] f32, kvs, trace): the routed ids of the decoder's
         sparse layers in order, [L_dec_moe, B, T, 1 + route_margin] int32,
         left on the device (the JAX model returns a list of [B, T] ids at
-        margin 0)."""
-        if row_offsets is not None:
-            raise NotImplementedError(
-                "per-row decode positions (row_offsets) are not ported "
-                "(ROADMAP queue-1 item 15)"
-            )
+        margin 0).
+
+        row_offsets [B] (a device int tensor, T must be 1): per-row decode
+        positions, as ``NllbModel.decode_step`` takes them; each row's
+        self-attention bias comes from its own position (``row_bias``, a
+        per-row [B, H, 1, S] bias to K2)."""
         s = self.spec
         B, T = dec_tokens.shape
         bias, cross_bias = self.dec_prelude(params, positions, kvs[0].max_len, enc_mask)
+        if row_offsets is not None:
+            if T != 1:
+                raise ValueError("decode_step: row_offsets needs one token per row")
+            bias = self.row_bias(params, row_offsets, kvs[0].max_len)
         x = self.dec_embed(params, dec_tokens, kv_len)
         trace = []
         for i, b in enumerate(params["dec_blocks"]):
             ck, cv = cross[i]
             if s.is_sparse(i, True):
                 x, h, kvs[i] = self._dec_attn(b, x, kvs[i], positions, kv_len, bias, ck, cv,
-                                              cross_bias)
+                                              cross_bias, row_offsets)
                 y, tids = self._routed_ff(b, h, s.moe_layer_id(i, True), experts, for_layer,
                                           impl)
                 x = x + y
                 trace.append(tids)
             else:
                 x, kvs[i] = self.dec_block_dense(b, x, kvs[i], positions, kv_len, bias, ck, cv,
-                                                 cross_bias)
+                                                 cross_bias, row_offsets)
         if trace:
             trace = torch.stack(trace)
         else:

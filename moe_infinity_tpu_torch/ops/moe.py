@@ -134,6 +134,12 @@ def fuse_gateup(weights: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return w
 
 
+def capturable(impl: str) -> bool:
+    """Whether ``grouped_ffn`` under ``impl`` can run inside a CUDA graph:
+    every impl but "ragged", which reads its group sizes on the host."""
+    return impl != "ragged"
+
+
 def grouped_ffn(
     x: torch.Tensor,  # [T, D]
     expert_ids: torch.Tensor,  # [T, K] int router choices

@@ -32,8 +32,18 @@ and ``logit_bias``; row b draws from the generator of (seed, tokens it has
 generated), so a request samples the same alone or batched. A batch of
 plain greedy requests takes the argmax alone.
 
-Offload mode (``arena=``, JAX's pooled speculative steps) is not ported
-(ROADMAP queue-1 item 15).
+Offload mode (``arena=...``): the batch's experts live in an
+``ExpertArena`` instead of a resident tree, and every shared step runs
+speculatively: one execution over the arena's current slots, the routed ids
+verified on the host against the residency the execution saw, and run again
+after loading the misses (``runtime/engine.py::run_speculative``, pooled
+over the whole batch). Only the live columns of active rows are verified,
+so the garbage ids of idle rows and hole columns never force a fetch. The
+arena must hold one step's union of routed experts across the MoE layers and
+rows (a ``prefill_chunk`` of 1 keeps it smallest). Each execution rewrites
+the same pool columns, so a replay needs no copy of the pools. The accepted
+routing feeds the EAMC tracer per request and warms the next step's experts
+through the predictor. The step runs eagerly.
 """
 
 from __future__ import annotations
@@ -49,6 +59,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from moe_infinity_tpu_torch.runtime.engine import (
+    _split_arena_tree,
+    run_speculative,
+    spec_trace_and_prefetch,
+    speculative_stats,
+)
 from moe_infinity_tpu_torch.runtime.generate import eos_hit
 from moe_infinity_tpu_torch.runtime.paged_kv import PageAllocator, PagedKVCache
 from moe_infinity_tpu_torch.runtime.sampling import (
@@ -116,6 +132,7 @@ class _Slot:
     prompt_pos: int = 0  # next prompt token to feed
     generated: list = field(default_factory=list)
     active: bool = False
+    seq_id: Optional[str] = None  # EAMC tracer entry (offload mode)
 
     @property
     def prefilling(self) -> bool:
@@ -126,7 +143,9 @@ class ContinuousBatcher:
     """Serves requests through one persistent batch of ``max_batch_size``
     slots on the model's device. ``max_cols`` (the shared timeline) must be
     a multiple of ``page_size``, so that the hole mask covers exactly the
-    page table's columns."""
+    page table's columns. ``arena`` (with ``tracer``, ``predictor``,
+    ``prefetch`` and ``max_replays``) selects offload mode; ``experts`` and
+    ``for_layer`` are then unused."""
 
     def __init__(
         self,
@@ -143,11 +162,15 @@ class ContinuousBatcher:
         prefill_chunk: int = 1,
         idle_sleep_s: float = 0.005,
         arena=None,
+        tracer=None,
+        predictor=None,
+        prefetch: bool = True,
+        max_replays: Optional[int] = None,
     ):
-        if arena is not None:
-            raise NotImplementedError(
-                "the batcher's offload mode (arena=) is not ported (ROADMAP queue-1 item 15)"
-            )
+        if arena is not None and arena.num_slots < model.spec.num_experts:
+            raise ValueError(
+                f"arena num_slots={arena.num_slots} < num_experts={model.spec.num_experts}; "
+                "speculative batched decode needs at least one full MoE layer of slots")
         if max_cols % page_size != 0:
             raise ValueError(
                 f"max_cols={max_cols} must be a multiple of page_size={page_size}"
@@ -178,6 +201,19 @@ class ContinuousBatcher:
         self._experts = experts
         self._for_layer = for_layer
         self._impl = impl
+
+        # ---- offload (speculative) mode ---------------------------------
+        self.arena = arena
+        self.tracer = tracer
+        self.predictor = predictor
+        self.prefetch = bool(prefetch and predictor is not None and arena is not None)
+        self.max_replays = max_replays
+        self.replay_counts: list = []
+        if arena is not None:
+            self._moe_lis = [mli for mli in map(model.moe_layer_index, range(model.spec.num_layers))
+                             if mli is not None]
+            # no more than half the arena per plan
+            self.prefetch_budget = max(1, arena.num_slots // 2)
         # per-row timeline state
         self._valid = np.zeros((self.B, max_cols), dtype=bool)
         self._logical = np.zeros(self.B, dtype=np.int64)
@@ -244,6 +280,17 @@ class ContinuousBatcher:
     def reset_step_stats(self) -> None:
         self._step_time = {}
 
+    def stats(self) -> dict:
+        """The arena's hit counters (offload mode) and the speculative
+        executions per step."""
+        out = self.arena.hit_stats() if self.arena is not None else {}
+        out.update(speculative_stats(self.replay_counts))
+        return out
+
+    def _current_budget(self) -> int:
+        """The prefetch budget ``spec_trace_and_prefetch`` plans with."""
+        return self.prefetch_budget
+
     # ---- scheduler -------------------------------------------------------
     def _admit(self) -> bool:
         """Seat queued requests into free slots. Returns True if any slot
@@ -274,6 +321,7 @@ class ContinuousBatcher:
             slot.prompt_pos = 0
             slot.generated = []
             slot.active = True
+            slot.seq_id = self.tracer.create_entry() if self.tracer is not None else None
             self._valid[b, :] = False
             self._logical[b] = 0
             if req.sampling.needs_counts:
@@ -294,6 +342,9 @@ class ContinuousBatcher:
     def _finish(self, slot: _Slot):
         req = slot.req
         self.alloc.release(id(req))
+        if slot.seq_id is not None:
+            self.tracer.finish_entry(slot.seq_id)
+            slot.seq_id = None
         req.future.set_result(
             np.concatenate([req.input_ids, np.asarray(slot.generated, dtype=np.int64)])
         )
@@ -308,6 +359,9 @@ class ContinuousBatcher:
             if not s.active:
                 continue
             self.alloc.release(id(s.req))
+            if s.seq_id is not None:
+                self.tracer.finish_entry(s.seq_id)
+                s.seq_id = None
             s.req.future.set_exception(exc)
             s.req = None
             s.active = False
@@ -335,13 +389,47 @@ class ContinuousBatcher:
                 except Exception as e:  # noqa: BLE001 - the thread must survive
                     self._fail_all(e)
 
-    def _forward(self, toks, positions, kvs, col, rope_pos, valid):
+    def _forward(self, toks, positions, kvs, col, rope_pos, valid, experts, for_layer):
         """One shared step of the model: (logits [B, W, V], caches, trace)."""
         return self.model.forward(
-            self._params, self._experts, toks, positions, kvs, col,
-            for_layer=self._for_layer, impl=self._impl,
+            self._params, experts, toks, positions, kvs, col,
+            for_layer=for_layer, impl=self._impl,
             rope_positions=rope_pos, key_valid=valid,
         )
+
+    def _speculative_forward(self, toks, positions, kvs, col, rope_pos, valid, n_feed):
+        """Offload mode: the shared step as speculative executions over the
+        arena's slots, verified on the live columns of active rows; then the
+        accepted routing traced and the next step's experts prefetched.
+        Returns the accepted execution's logits."""
+        def run(tree, slot_rows):
+            weights, biases = _split_arena_tree(tree)
+            logits, _, (ids, _w) = self._forward(
+                toks, positions, kvs, col, rope_pos, valid, None,
+                lambda _experts, mli: (weights, slot_rows[mli], biases))
+            return logits, ids
+
+        # verify only live routing: idle rows and hole columns carry garbage
+        # ids that must not force fetches (their outputs reach no live row)
+        live = [(b, int(n_feed[b])) for b, s in enumerate(self._slots)
+                if s.active and n_feed[b] > 0]
+
+        def live_keys(ids, j):
+            if not live:
+                return np.empty(0, np.int64)
+            return np.unique(np.concatenate([ids[j, b, :n].ravel() for b, n in live]))
+
+        limit = self.max_replays or (len(self._moe_lis) + 2)
+        # client_lock: a concurrent direct engine.generate (the facade's
+        # path for what the batcher does not take) must not protect arena
+        # keys while this step holds its union
+        with self.arena.client_lock:
+            (logits,), ids_np, execs = run_speculative(
+                self.arena, self._moe_lis, run, limit, key_fn=live_keys)
+        self.replay_counts.append(execs)
+        seq_ids = [s.seq_id if s.active else None for s in self._slots]
+        spec_trace_and_prefetch(self, ids_np, self._moe_lis, seq_ids, n_feed=n_feed)
+        return logits
 
     def _next_tokens(self, logits, toks, n_feed, W: int) -> np.ndarray:
         """[B, W] next tokens on the host: the argmax of every column for a
@@ -428,11 +516,12 @@ class ContinuousBatcher:
         positions = torch.from_numpy(
             np.broadcast_to(self._col + np.arange(W, dtype=np.int32), (self.B, W)).copy()
         ).to(dev)
-        logits, _, _ = self._forward(
-            torch.from_numpy(toks).to(dev), positions, kvs, self._col,
-            torch.from_numpy(rope_pos).to(dev),
-            torch.from_numpy(self._valid).to(dev),
-        )
+        step_in = (torch.from_numpy(toks).to(dev), positions, kvs, self._col,
+                   torch.from_numpy(rope_pos).to(dev), torch.from_numpy(self._valid).to(dev))
+        if self.arena is not None:
+            logits = self._speculative_forward(*step_in, n_feed)
+        else:
+            logits, _, _ = self._forward(*step_in, self._experts, self._for_layer)
         nxt = self._next_tokens(logits, toks, n_feed, W)
         self._col += W
         # ---- bookkeeping ------------------------------------------------

@@ -44,10 +44,10 @@ import torch
 
 from moe_infinity_tpu_torch.memory.prefetch_plan import adaptive_prefetch_budget, plan_prefetch
 from moe_infinity_tpu_torch.runtime.graphs import (
-    CudaGraphBackend,
     DecodeBuffers,
     GraphCache,
     flat_tensors,
+    graph_cache,
     step_positions,
 )
 from moe_infinity_tpu_torch.utils.logger import get_logger
@@ -544,7 +544,9 @@ class OffloadEngine(_LayerClock):
         the card (False runs them eagerly); graph_backend: the capture
         backend (default ``CudaGraphBackend`` on a CUDA model; on the CPU
         the steps run eagerly unless one is given). A model without
-        ``graph_step`` (DeepSeek-V2) takes ``graphs=False`` only."""
+        ``graph_step`` (DeepSeek-V2) takes ``graphs=False`` only; on the card
+        an ``impl`` that cannot be captured ("ragged") raises ``ValueError``
+        unless graphs is False."""
         if dense_arena is not None:
             raise _not_ported("dense_arena (paging of the dense layers)", "16")
         if host_fallback:
@@ -591,8 +593,7 @@ class OffloadEngine(_LayerClock):
                 raise _not_ported(
                     f"CUDA graphs of the {model.arch} decode step (pass graphs=False)",
                     "10a part 2")
-            self.graphs = GraphCache(graph_backend or CudaGraphBackend(model.device),
-                                     model.device)
+            self.graphs = graph_cache(graphs, graph_backend, model.device, impl)
             self._buffers = DecodeBuffers(model)
             self._param_tensors = flat_tensors(params)
 

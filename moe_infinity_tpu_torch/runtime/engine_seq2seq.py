@@ -95,10 +95,10 @@ from moe_infinity_tpu_torch.runtime.generate import (
     eos_hit,
 )
 from moe_infinity_tpu_torch.runtime.graphs import (
-    CudaGraphBackend,
     DecodeBuffers,
     GraphCache,
     flat_tensors,
+    graph_cache,
     step_positions,
 )
 from moe_infinity_tpu_torch.runtime.sampling import Sampler, params_from_kwargs
@@ -186,7 +186,9 @@ class Seq2SeqOffloadEngine(_LayerClock):
         graphs: run the speculative steps and blocks as CUDA graphs on the
         card (False runs them eagerly); graph_backend: the capture backend
         (default ``CudaGraphBackend`` on a CUDA model; on the CPU the steps
-        run eagerly unless one is given)."""
+        run eagerly unless one is given). On the card an ``impl`` that
+        cannot be captured ("ragged") raises ``ValueError`` unless graphs is
+        False."""
         if stream_decode:
             raise _not_ported("stream_decode", "13")
         if dense_arena is not None:
@@ -245,10 +247,9 @@ class Seq2SeqOffloadEngine(_LayerClock):
             model.route_margin = max(0, int(os.environ.get("MOE_ROUTE_MARGIN", route_margin)))
         # one graph per step shape (the JAX engine's jit cache), and the
         # buffers those graphs read by address
-        self.graphs: Optional[GraphCache] = None
-        if graphs and (graph_backend is not None or model.device.type == "cuda"):
-            self.graphs = GraphCache(graph_backend or CudaGraphBackend(model.device),
-                                     model.device)
+        self.graphs: Optional[GraphCache] = graph_cache(graphs, graph_backend, model.device,
+                                                        impl)
+        if self.graphs is not None:
             self._buffers = DecodeBuffers(model)
             self._param_tensors = flat_tensors(params)
         self._spec_block_cache: dict = {}

@@ -39,10 +39,9 @@ import torch
 
 from moe_infinity_tpu_torch.runtime.engine import is_spec_capacity_error, quantize_block
 from moe_infinity_tpu_torch.runtime.graphs import (
-    CudaGraphBackend,
     DecodeBuffers,
-    GraphCache,
     flat_tensors,
+    graph_cache,
     step_positions,
 )
 from moe_infinity_tpu_torch.runtime.sampling import Sampler, params_from_kwargs
@@ -304,16 +303,15 @@ class Seq2SeqGenerator:
         """graphs: run each decode step as a CUDA graph on the card (False
         runs it eagerly); graph_backend: the capture backend (default
         ``CudaGraphBackend`` on a CUDA model; on the CPU the step runs
-        eagerly unless one is given)."""
+        eagerly unless one is given). On the card an ``impl`` that cannot be
+        captured ("ragged") raises ``ValueError`` unless graphs is False."""
         self.model = model
         self.params = params
         self.experts = experts
         self._for_layer = for_layer
         self._impl = impl
-        self.graphs = None
-        if graphs and (graph_backend is not None or model.device.type == "cuda"):
-            self.graphs = GraphCache(graph_backend or CudaGraphBackend(model.device),
-                                     model.device)
+        self.graphs = graph_cache(graphs, graph_backend, model.device, impl)
+        if self.graphs is not None:
             self._buffers = DecodeBuffers(model)
             self._weights = flat_tensors(params) + flat_tensors(experts)
 

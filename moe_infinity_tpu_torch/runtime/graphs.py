@@ -37,12 +37,13 @@ from __future__ import annotations
 
 import functools
 import time
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from moe_infinity_tpu_torch.models.layers import KVCache
 from moe_infinity_tpu_torch.ops import add_launches, launch_counts
+from moe_infinity_tpu_torch.ops.moe import capturable
 
 
 class CudaGraphBackend:
@@ -161,6 +162,24 @@ class GraphCache:
         return {"graphs": len(self._graphs), "captures": self.captures,
                 "recaptures": self.recaptures, "replays": self.replays,
                 "capture_s": round(self.capture_s, 3), "warmup_steps": self.warmup_steps}
+
+
+def graph_cache(graphs: bool, graph_backend, device, impl: str) -> Optional[GraphCache]:
+    """The ``GraphCache`` of a decode step whose grouped FFN runs ``impl``,
+    or None when the step runs eagerly: ``graphs`` off, or a CPU device and
+    no backend given. A capture on the card (``CudaGraphBackend``, the
+    default there) refuses an impl that cannot run inside a graph
+    (``ops.moe.capturable``) with a ``ValueError``; a stand-in backend runs
+    the step eagerly and takes any impl."""
+    device = torch.device(device)
+    if not graphs or (graph_backend is None and device.type != "cuda"):
+        return None
+    on_card = graph_backend is None or isinstance(graph_backend, CudaGraphBackend)
+    if on_card and not capturable(impl):
+        raise ValueError(
+            f"moe impl {impl!r} reads its group sizes on the host and cannot run inside a "
+            "CUDA graph: pass graphs=False or another impl (e.g. 'pallas')")
+    return GraphCache(graph_backend or CudaGraphBackend(device), device)
 
 
 def flat_tensors(tree) -> list:

@@ -25,9 +25,13 @@ from moe_infinity_tpu.runtime.providers import ResidentProvider as JProvider
 from moe_infinity_tpu_torch.models.mixtral import MixtralModel, MixtralSpec
 from moe_infinity_tpu_torch.runtime.continuous import ContinuousBatcher, RequestSampling
 from moe_infinity_tpu_torch.runtime.generate import Generator
+from moe_infinity_tpu_torch.runtime.arena import ExpertArena
 from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+from moe_infinity_tpu_torch.store.blob import ExpertStore
 
-from torch_port_helpers import to_port, one_intra_op_thread
+from torch_port_helpers import to_port, one_intra_op_thread  # noqa: F401
+from torch_port_helpers import queue_together, write_decoder_store
+from torch_decoder_family import Family
 
 TINY = dict(
     vocab_size=128, hidden_size=48, intermediate_size=96, num_layers=2,
@@ -184,10 +188,19 @@ def test_generator_matches_jax(models):
         np.testing.assert_array_equal(ids, jids)
 
 
-def test_unported_options_raise(models):
+def test_unported_options_raise(models, tmp_path):
     model, params, tree = models[:3]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ContinuousBatcher(model, params, tree, ResidentProvider.for_layer, arena=object())
+    # offload mode needs one MoE layer's experts in slots (the arena mode
+    # itself is held to the JAX batcher in TestOffloadSpeculativeBatcher)
+    store = write_decoder_store(tmp_path / "store", [
+        {r: tree["layers"][0][r].numpy() for r in ("gate", "up", "down")}], "mixtral")
+    arena = ExpertArena(ExpertStore(store), TINY["num_experts"] - 1,
+                        compute_dtype=torch.float32, device="cpu", num_threads=1)
+    try:
+        with pytest.raises(ValueError, match="full MoE layer"):
+            ContinuousBatcher(model, params, None, None, arena=arena)
+    finally:
+        arena.shutdown()
     with pytest.raises(ValueError, match="multiple"):
         ContinuousBatcher(model, params, tree, ResidentProvider.for_layer,
                           page_size=8, max_cols=90)
@@ -311,3 +324,173 @@ def test_deepseek_generator_matches_jax(ds_models, attn):
     np.testing.assert_array_equal(got.sequences, want.sequences)
     for (ids, _), (jids, _) in zip(got.router_trace, want.router_trace):
         np.testing.assert_array_equal(ids, jids)
+
+
+# ---- offload mode: the batcher over an ExpertArena ----------------------------
+# Mirrors tests/test_continuous.py::TestOffloadSpeculativeBatcher: every shared
+# step is one speculative execution over the arena's slots, verified on the
+# live columns and run again after loading the misses. A Mixtral of 8 experts
+# (stores from the JAX init_random weights, attention sharpened x40 in both
+# packages) in 13 slots of 16: a step's union (at most 3 rows x 2 x 2 layers)
+# fits, residency churns between steps. Tokens are held to the JAX
+# Generator's isolated runs; with prefetch off and one fetch worker, the
+# executions and the arena's counters to the JAX batcher's on the same
+# requests, queued together.
+
+TINY8 = dict(TINY, num_experts=8)
+OFF_SLOTS = 13
+
+
+def _arena_batcher(family, *, prefetch=True, threads=2, jax=False, slots=OFF_SLOTS, **kw):
+    """The port's (or with ``jax`` the JAX package's) batcher in offload mode
+    over ``family``'s f32 store."""
+    cfg = dict(max_batch_size=3, page_size=8, num_pages=48, max_cols=96)
+    cfg.update(kw)
+    path = family.stores["float32"]
+    n = ExpertStore(path).num_layers
+    if jax:
+        from moe_infinity_tpu.memory import ExpertPredictor as JPredictor
+        from moe_infinity_tpu.memory import ExpertTracer as JTracer
+        from moe_infinity_tpu.runtime.arena import ExpertArena as JArena
+        from moe_infinity_tpu.runtime.continuous import ContinuousBatcher as JBatcher
+        from moe_infinity_tpu.store.blob import ExpertStore as JStore
+
+        arena = JArena(JStore(path), slots, compute_dtype=jnp.float32, num_threads=threads)
+        tracer = JTracer(64, n, family.E)
+        return JBatcher(family.jmodel, family.jparams, None, None, arena=arena, tracer=tracer,
+                        predictor=JPredictor(tracer), prefetch=prefetch, **cfg)
+    from moe_infinity_tpu_torch.memory import ExpertPredictor, ExpertTracer
+
+    arena = ExpertArena(ExpertStore(path), slots, compute_dtype=torch.float32, device="cpu",
+                        num_threads=threads)
+    tracer = ExpertTracer(64, n, family.E)
+    return ContinuousBatcher(family.model, family.params, None, None, arena=arena,
+                             tracer=tracer, predictor=ExpertPredictor(tracer), prefetch=prefetch,
+                             **cfg)
+
+
+def _stop(batcher):
+    batcher.shutdown()
+    batcher.arena.shutdown()
+
+
+class TestOffloadSpeculativeBatcher:
+    @pytest.fixture(scope="class")
+    def family(self, tmp_path_factory):
+        fam = Family("mixtral", JMixtralModel(JMixtralSpec(**TINY8), compute_dtype=jnp.float32),
+                     MixtralModel(MixtralSpec(**TINY8), compute_dtype=torch.float32,
+                                  device="cpu"),
+                     11, tmp_path_factory.mktemp("cbo"))
+        jgen = JGenerator(fam.jmodel, fam.jparams, fam.jtree, JProvider.for_layer, max_seq_len=64)
+        cache = {}
+
+        def want(prompt, n):
+            key = (tuple(int(t) for t in prompt), n)
+            if key not in cache:
+                cache[key] = jgen.generate(np.asarray(prompt)[None],
+                                           max_new_tokens=n).sequences[0]
+            return cache[key]
+
+        fam.want = want
+        return fam
+
+    @pytest.fixture(scope="class")
+    def batcher(self, family):
+        b = _arena_batcher(family)
+        yield b
+        _stop(b)
+
+    def test_staggered_offload_matches_resident(self, family, batcher):
+        p1, p2 = np.array([5, 31, 8]), np.array([9, 3, 44, 6])
+        cb, holder, ready = _join_after(batcher, 2, p2, max_new_tokens=6)
+        f1 = batcher.submit(p1, max_new_tokens=8, on_token=cb)
+        np.testing.assert_array_equal(f1.result(timeout=TIMEOUT), family.want(p1, 8))
+        assert ready.wait(TIMEOUT)
+        np.testing.assert_array_equal(holder["f"].result(timeout=TIMEOUT), family.want(p2, 6))
+        assert batcher.replay_counts, "speculative path not exercised"
+        assert batcher.stats()["speculative_steps"] == len(batcher.replay_counts)
+
+    def test_offload_batcher_slot_reuse(self, family, batcher):
+        prompts = [np.array([7, 11]), np.array([13, 17, 19]), np.array([23]),
+                   np.array([29, 31]), np.array([37])]
+        futures = [batcher.submit(p, max_new_tokens=5) for p in prompts]
+        for p, f in zip(prompts, futures):
+            np.testing.assert_array_equal(f.result(timeout=TIMEOUT), family.want(p, 5))
+
+    def test_offload_batcher_survives_step_failure(self, family, batcher):
+        """A failed step fails the active futures and finishes their tracer
+        entries; the thread rebuilds the pools and serves on exactly."""
+        orig = batcher._forward
+        state = {"armed": True}
+
+        def poisoned(*a, **k):
+            if state["armed"]:
+                state["armed"] = False
+                raise RuntimeError("injected step failure")
+            return orig(*a, **k)
+
+        batcher._forward = poisoned
+        try:
+            f = batcher.submit(np.array([5, 31]), max_new_tokens=4)
+            with pytest.raises(RuntimeError, match="injected"):
+                f.result(timeout=TIMEOUT)
+        finally:
+            batcher._forward = orig
+        assert not batcher.tracer.trace
+        p = np.array([9, 3, 44])
+        np.testing.assert_array_equal(batcher.submit(p, max_new_tokens=5).result(timeout=TIMEOUT),
+                                      family.want(p, 5))
+
+    @pytest.mark.parametrize("chunk,slots", [(1, OFF_SLOTS), (4, 16)])
+    def test_counters_equal_jax_batcher(self, family, chunk, slots):
+        """Four requests into three slots, queued together; prefetch off and
+        one worker: tokens, executions per step and counters equal the JAX
+        batcher's. A 4-wide chunk step can route every expert of both
+        layers, so it takes an arena of all 16 (filled from empty)."""
+        reqs = [(np.array([5, 31, 8, 77, 12]), dict(max_new_tokens=6)),
+                (np.array([9, 3]), dict(max_new_tokens=7)),
+                (np.array([41, 43, 47, 53, 59, 61]), dict(max_new_tokens=4)),
+                (np.array([7, 11, 13]), dict(max_new_tokens=5))]
+        kw = dict(prefetch=False, threads=1, prefill_chunk=chunk, idle_sleep_s=0.05, slots=slots)
+        jb = _arena_batcher(family, jax=True, **kw)
+        b = _arena_batcher(family, **kw)
+        try:
+            jgot = [f.result(timeout=TIMEOUT) for f in queue_together(jb, reqs)]
+            got = [f.result(timeout=TIMEOUT) for f in queue_together(b, reqs)]
+            for (p, r), g, jg in zip(reqs, got, jgot):
+                np.testing.assert_array_equal(g, jg)
+                np.testing.assert_array_equal(g, family.want(p, r["max_new_tokens"]))
+            assert b.replay_counts == jb.replay_counts
+            assert b.stats() == jb.stats()
+            assert max(b.replay_counts) > 1  # some step ran again after its misses
+        finally:
+            _stop(jb)
+            _stop(b)
+
+
+def test_deepseek_offload_batcher_matches_jax(ds_models, tmp_path):
+    """DeepSeek-V2 (a dense first layer, MLA caches through K5's plain
+    version) in offload mode: only the MoE layer's routing is verified."""
+    from moe_infinity_tpu.models.deepseek_v2 import DeepseekV2ModelJax
+    from moe_infinity_tpu.models.deepseek_v2 import DeepseekV2Spec as JSpec
+    from moe_infinity_tpu_torch.memory import ExpertPredictor, ExpertTracer
+
+    model, params, _, want, _ = ds_models
+    _, jtree = DeepseekV2ModelJax(JSpec(**DS_TINY), compute_dtype=jnp.float32).init_random(
+        jax.random.PRNGKey(6))
+    path = write_decoder_store(tmp_path / "ds", jtree["layers"], "deepseek")
+    arena = ExpertArena(ExpertStore(path), 8, compute_dtype=torch.float32, device="cpu",
+                        num_threads=2)
+    tracer = ExpertTracer(16, ExpertStore(path).num_layers, DS_TINY["num_experts"])
+    b = ContinuousBatcher(model, params, None, None, arena=arena, tracer=tracer,
+                          predictor=ExpertPredictor(tracer), max_batch_size=3, page_size=8,
+                          num_pages=64, max_cols=128)
+    try:
+        prompts = [np.array([7, 11, 13]), np.array([29, 31, 37, 41]), np.array([23]),
+                   np.array([5, 9])]
+        futures = [b.submit(p, max_new_tokens=5) for p in prompts]
+        for p, f in zip(prompts, futures):
+            np.testing.assert_array_equal(f.result(timeout=TIMEOUT), want(p, 5))
+        assert b.replay_counts and b.stats()["visits"] > 0
+    finally:
+        _stop(b)

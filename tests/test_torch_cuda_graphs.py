@@ -396,3 +396,105 @@ def test_mixtral_offload_step_graph_equals_eager_f32(dev):
     assert st["captures"] == 1 and st["recaptures"] == 0 and st["replays"] > 32
     assert any(e1 > e0 and r2 > r1 for (e0, _), (e1, r1), (_, r2)
                in zip(marks, marks[1:], marks[2:]))
+
+
+# ---- the seq2seq continuous batcher's graph ---------------------------------------
+
+def _batchers(dev):
+    """A graphed and an eager Seq2SeqContinuousBatcher over one f32 model,
+    their threads stopped: the tests drive admission and steps by hand, and
+    record each step's logits."""
+    from moe_infinity_tpu_torch.runtime.continuous_s2s import Seq2SeqContinuousBatcher
+
+    model, params, experts = _resident(dev, SPEC, torch.float32, 3)
+    out = []
+    for graphs in (True, False):
+        b = Seq2SeqContinuousBatcher(model, params, experts, ResidentProvider.for_layer,
+                                     impl="pallas", max_batch_size=3, max_src_len=32,
+                                     max_decode_len=32, graphs=graphs)
+        b.shutdown()
+        b.logits = []
+        step = b._step
+
+        def record(*a, _step=step, _b=b):
+            lg, nxt, trace = _step(*a)
+            _b.logits.append(lg.clone())
+            return lg, nxt, trace
+
+        b._step = record
+        out.append(b)
+    return out
+
+
+def _sources(dev, seed, n):
+    tok, _ = _inputs(dev, seed)
+    ids = tok.cpu().numpy()
+    return [row[row != 1] for row in ids[:n]]
+
+
+def test_s2s_batcher_join_between_replays_equals_eager(dev):
+    """A row seated between two replays (its cross K/V and mask copied into
+    the buffers the graph reads) gives the eager step's logits, at every
+    step, bit for bit or within 1e-5."""
+    graphed, eager = _batchers(dev)
+    start = SPEC["decoder_start_token_id"]
+    srcs = _sources(dev, 5, 3)
+    with torch.inference_mode():
+        for b in (graphed, eager):
+            b.submit(srcs[0], max_new_tokens=12)
+            b._admit()
+            for i in range(10):
+                if i in (3, 6):  # joins mid-flight, between replays
+                    b.submit(srcs[1 + (i == 6)], max_new_tokens=8)
+                    b._admit()
+                b._step_once(start)
+    torch.cuda.synchronize()
+    assert len(graphed.logits) == len(eager.logits) == 10
+    for i, (lg, le) in enumerate(zip(graphed.logits, eager.logits)):
+        _same(lg, le, f"batcher step {i}")
+    st = graphed.graph_stats()
+    assert (st["captures"], st["recaptures"], st["replays"]) == (1, 0, 10)
+
+
+def test_s2s_batcher_graph_replays_after_a_failed_step(dev):
+    """After ``_fail_active`` the caches are zeroed in place: every address
+    the graph reads is unchanged, no capture follows, and the next requests'
+    logits equal the eager batcher's."""
+    graphed, eager = _batchers(dev)
+    start = SPEC["decoder_start_token_id"]
+    srcs = _sources(dev, 6, 2)
+
+    def addresses(b):
+        return [t.data_ptr() for t in (b._ck, b._cv, b._mask)] + [
+            t.data_ptr() for kv in b._kvs for t in (kv.k, kv.v)]
+
+    with torch.inference_mode():
+        graphed.submit(srcs[0], max_new_tokens=8)
+        graphed._admit()
+        for _ in range(3):
+            graphed._step_once(start)
+        before = addresses(graphed)
+        graphed._fail_active(RuntimeError("injected"))
+        assert addresses(graphed) == before
+        graphed.logits.clear()
+        for b in (graphed, eager):
+            for s in srcs:
+                b.submit(s, max_new_tokens=6)
+            b._admit()
+            for _ in range(6):
+                b._step_once(start)
+    torch.cuda.synchronize()
+    for i, (lg, le) in enumerate(zip(graphed.logits, eager.logits)):
+        _same(lg, le, f"step {i} after the failure")
+    st = graphed.graph_stats()
+    assert (st["captures"], st["recaptures"], st["replays"]) == (1, 0, 9)
+
+
+def test_s2s_batcher_defaults_refuse_on_the_card(dev):
+    """At its defaults ("ragged", graphs on) the batcher refuses on the card
+    with a ValueError at construction, before any request could fail."""
+    from moe_infinity_tpu_torch.runtime.continuous_s2s import Seq2SeqContinuousBatcher
+
+    model, params, experts = _resident(dev, SPEC, torch.float32, 3)
+    with pytest.raises(ValueError, match="cannot run inside a CUDA graph"):
+        Seq2SeqContinuousBatcher(model, params, experts, ResidentProvider.for_layer)

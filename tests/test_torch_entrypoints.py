@@ -5,8 +5,11 @@ checkpoint (HF ``MixtralForCausalLM``, seed 1, f32, sharded safetensors):
 
 * greedy tokens equal to the JAX ``MoE``'s and to HF ``generate``: the
   resident plan through the continuous batcher and at ``max_batch_size``
-  1, the offload plan per layer, and speculative with blocks of 1 and 2;
-  with prefetch off and one fetch worker ``stats()`` equals JAX's;
+  1, the offload plan per layer, speculative with blocks of 1 and 2 and
+  through the batcher over its arena (``max_batch_size`` 2), and prompt-lookup
+  speculation (``speculative_tokens``); with prefetch off and one fetch
+  worker ``stats()`` equals JAX's; prompt lookup on an offload plan holds
+  the arena's client_lock, so concurrent calls never overlap;
 * EOS from the config (and a list of EOS ids), ``logit_bias`` forcing and
   banning, sampled requests fixed by their seed;
 * the server: greedy JSON equal to the JAX server's apart from ids and
@@ -22,6 +25,7 @@ import concurrent.futures as cf
 import copy
 import json
 import threading
+import time
 import urllib.request
 
 import numpy as np
@@ -67,13 +71,17 @@ OFFLOAD = dict(BASE, device_memory_bytes=1, dense_paging="off", prefetch=False, 
           max_batch_size=1), "spec-k1"),
     (dict(OFFLOAD, num_slots=8, speculative_decode=True, speculative_block=2,
           max_batch_size=1), "spec-k2"),
+    # the batcher over the offload engine's arena (8 slots: both layers' experts)
+    (dict(OFFLOAD, num_slots=8, speculative_decode=True, max_batch_size=2,
+          kv_page_size=8), "arena-batcher"),
+    (dict(BASE, max_batch_size=1, speculative_tokens=2), "prompt-lookup"),
 ], ids=lambda v: v if isinstance(v, str) else "")
 def test_greedy_equals_jax_and_hf(tiny_ckpt, tmp_path, cfg, plan):
     path, hf = tiny_ckpt
     j, p = _both(path, tmp_path, cfg)
     try:
-        assert (p.batcher is not None) == (plan == "batcher")
-        assert (p.engine is not None) == (plan not in ("generator", "batcher"))
+        assert (p.batcher is not None) == plan.endswith("batcher")
+        assert (p.engine is not None) == (plan not in ("generator", "batcher", "prompt-lookup"))
         if plan.startswith("spec"):
             assert p.engine.speculative and p.engine.spec_block == cfg["speculative_block"]
         n = 7 if plan.startswith("spec") else 6
@@ -87,7 +95,10 @@ def test_greedy_equals_jax_and_hf(tiny_ckpt, tmp_path, cfg, plan):
             assert p.stats()["visits"] > 0
         else:
             assert p.hit_rate() == 1.0 and p.stats() == {}
-        if plan == "batcher":  # concurrent requests batch and still match
+        if plan == "prompt-lookup":
+            assert p.last_result.stats == j.last_result.stats
+            assert p.last_result.stats["spec_steps"] >= 1
+        if plan.endswith("batcher"):  # concurrent requests batch and still match
             prompts = [np.array([[5, 9, 33]]), np.array([[7, 21, 4, 90]])]
             with cf.ThreadPoolExecutor(2) as ex:
                 gots = list(ex.map(lambda q: p.generate(q, max_new_tokens=5), prompts))
@@ -187,9 +198,6 @@ def test_deepseek_through_the_facade(tmp_path):
     (dict(multihost=True), "item 18"),
     (dict(expert_parallel=2), "item 18"),
     (dict(tensor_parallel=2), "item 18"),
-    (dict(speculative_tokens=2), "item 15"),
-    (dict(device_memory_bytes=1, dense_paging="off", speculative_decode=True,
-          max_batch_size=2), "item 15"),
     (dict(host_fallback=True), "item 8"),
     (dict(load_mode="direct"), "item 14"),  # fp8 experts are served since K3 takes e4m3
 ])
@@ -370,6 +378,45 @@ def test_chat_streaming_joins_to_the_chat_text(servers):
     jchunks = [_strip(json.loads(line[6:])) for line in jbody.splitlines()
                if line.startswith("data: ") and line != "data: [DONE]"]
     assert [_strip(c) for c in chunks] == jchunks
+
+
+def test_offload_prompt_lookup_holds_the_client_lock(tiny_ckpt, tmp_path):
+    """Prompt lookup on an offload plan at ``max_batch_size`` 1: two
+    concurrent ``generate`` calls never run the engine's forward at once
+    (each holds the arena's client_lock), and each gives HF's tokens."""
+    path, hf = tiny_ckpt
+    p = MoE(path, dict(OFFLOAD, num_slots=8, speculative_tokens=2, max_batch_size=1,
+                       offload_path=str(tmp_path)), device="cpu")
+    forward = p.engine.forward
+    guard = threading.Lock()
+    state = {"inside": 0, "most": 0, "calls": 0}
+
+    def watched(*a, **k):
+        with guard:
+            state["inside"] += 1
+            state["calls"] += 1
+            state["most"] = max(state["most"], state["inside"])
+        try:
+            time.sleep(0.01)  # widen the window another caller could enter
+            return forward(*a, **k)
+        finally:
+            with guard:
+                state["inside"] -= 1
+
+    try:
+        assert p.engine is not None and p.batcher is None
+        p.engine.forward = watched
+        prompts = [np.array([[5, 9, 33, 5, 9]]), np.array([[7, 21, 4, 7, 21]])]
+        with cf.ThreadPoolExecutor(2) as ex:
+            futs = [ex.submit(p.generate, q, max_new_tokens=6, eos_token_id=None)
+                    for q in prompts]
+            gots = [f.result(timeout=120) for f in futs]
+        assert state["calls"] >= 4 and state["most"] == 1
+        for q, g in zip(prompts, gots):
+            np.testing.assert_array_equal(g, _hf(hf, q, 6, eos_token_id=None))
+        assert p.last_result.stats["spec_steps"] >= 1
+    finally:
+        p.shutdown()
 
 
 def test_offload_server_serializes_requests(tiny_ckpt, tmp_path):

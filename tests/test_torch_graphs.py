@@ -49,6 +49,7 @@ from moe_infinity_tpu_torch.store.blob import ExpertStore
 
 from torch_port_helpers import (
     TINY_NLLB,
+    StandIn,
     port_attention,
     to_port,
     write_decoder_store,
@@ -66,26 +67,6 @@ SPEC = dict(
 E, N_MOE, N_ENC, S_SLOTS = 4, 4, 2, 8
 IDS = np.array([[5, 31, 8, 77, 40, 2], [9, 3, 44, 2, 1, 1], [60, 7, 2, 1, 1, 1]])
 MASK = (IDS != 1).astype(np.float32)
-
-
-class StandIn:
-    """The capture backend of these tests (``CudaGraphBackend``'s contract):
-    ``capture(fn)`` runs ``fn`` once and returns (replay, its outputs, no
-    launches); ``replay()`` runs ``fn`` again with no arguments and copies
-    the new outputs into the first ones."""
-
-    def __init__(self):
-        self.captured = 0
-
-    def capture(self, fn):
-        self.captured += 1
-        out = fn()
-
-        def replay():
-            for o, n in zip(out, fn()):
-                o.copy_(n)
-
-        return replay, out, {}
 
 
 @pytest.fixture(autouse=True)

@@ -362,8 +362,9 @@ def test_moe_facade_equals_jax(grok_ckpt, tmp_path, quant, cfg, plan):
 
 def test_facade_asks_for_graphs_by_the_models_flag(grok_ckpt, tmp_path, monkeypatch):
     """The offload facade asks the engine for CUDA graphs because Grok's
-    model sets ``graph_step`` (no list of families to keep); on the CPU the
-    engine then runs eagerly."""
+    model sets ``graph_step`` (no list of families to keep), and not with the
+    "ragged" grouped FFN, which reads its group sizes on the host; on the CPU
+    the engine then runs eagerly."""
     from moe_infinity_tpu_torch.entrypoints.api import MoE
     from moe_infinity_tpu_torch.models.grok import GrokModel as Model
     from moe_infinity_tpu_torch.runtime import engine as eng_mod
@@ -377,11 +378,12 @@ def test_facade_asks_for_graphs_by_the_models_flag(grok_ckpt, tmp_path, monkeypa
 
     monkeypatch.setattr(eng_mod.OffloadEngine, "__init__", spy)
     cfg = dict(OFFLOAD, num_slots=9, expert_dtype="float32")
-    for flag in (True, False):
+    for flag, impl in ((True, "gather"), (False, "gather"), (True, "ragged")):
         monkeypatch.setattr(Model, "graph_step", flag)
-        p = MoE(grok_ckpt, dict(cfg, offload_path=str(tmp_path / f"s{flag}")), device="cpu")
+        p = MoE(grok_ckpt, dict(cfg, moe_impl=impl,
+                                offload_path=str(tmp_path / f"s{flag}{impl}")), device="cpu")
         try:
             assert p.engine.graphs is None  # the CPU has no capture backend
         finally:
             p.shutdown()
-    assert seen == [True, False]
+    assert seen == [True, False, False]

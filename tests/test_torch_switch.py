@@ -156,9 +156,11 @@ def test_init_random_and_bridge_match_jax_tree(tie):
 
 def test_unported_options_raise():
     _, _, _, model, params, experts = _models()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        model.decode_step(params, experts, torch.zeros(2, 1, dtype=torch.int32),
-                          torch.zeros(2, 1, dtype=torch.int32), model.init_cache(2, 8), 0,
+    # per-row positions are ported (tests/test_torch_continuous_s2s.py holds
+    # them to JAX); they take one token per row
+    with pytest.raises(ValueError, match="one token per row"):
+        model.decode_step(params, experts, torch.zeros(2, 2, dtype=torch.int32),
+                          torch.zeros(2, 2, dtype=torch.int32), model.init_cache(2, 8), 0,
                           torch.ones(2, 6), None, ResidentProvider.for_layer,
                           row_offsets=torch.zeros(2, dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="item 18"):

@@ -31,27 +31,11 @@ from moe_infinity_tpu_torch.runtime.generate import Generator
 from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 from moe_infinity_tpu_torch.store.blob import ExpertStore
 
-from torch_port_helpers import to_port, write_decoder_store
+from torch_port_helpers import StandIn, to_port, write_decoder_store  # noqa: F401
 
 ONE = np.array([[5, 17, 31, 7]])
 TWO = np.array([[5, 17, 31, 7], [9, 4, 2, 61]])
 QUANTS = ("float32", "int8", "float8_e4m3fn")
-
-
-class StandIn:
-    """A capture backend with ``CudaGraphBackend``'s contract for the CPU
-    (tests/test_torch_graphs.py has the same): ``capture(fn)`` runs ``fn``
-    once and returns (replay, its outputs, no launches); ``replay()`` runs
-    ``fn`` again and copies the new outputs into the first ones."""
-
-    def capture(self, fn):
-        out = fn()
-
-        def replay():
-            for o, n in zip(out, fn()):
-                o.copy_(n)
-
-        return replay, out, {}
 
 
 class Family:

@@ -329,3 +329,70 @@ def word_tokenizer(path=None):
     if path is not None:
         t.save_pretrained(path)
     return t
+
+
+def sharpen_seq2seq(params, embed=8.0, qk=10.0, vo=15.0):
+    """A JAX NLLB or Switch param tree with the token embedding and the
+    attention projections scaled up (in place, returned). With
+    ``init_random``'s std-0.02 weights the sinusoidal positions and near
+    uniform attention leave the greedy tokens all but independent of the
+    source, so a batcher that fed a row another row's cross K/V, mask or
+    position would go unseen; scaled, the tiny models' outputs differ from
+    source to source and change within a sequence."""
+    params["embed"] = params["embed"] * embed
+    for blk in params["enc_blocks"] + params["dec_blocks"]:
+        for attn in ("self_attn", "cross_attn"):  # NLLB: nested per attention
+            if attn in blk:
+                for n, f in (("q", qk), ("k", qk), ("v", vo), ("o", vo)):
+                    blk[attn][n] = blk[attn][n] * f
+        for n, f in (("q", qk), ("k", qk), ("v", vo), ("o", vo),  # Switch: flat
+                     ("cq", qk), ("ck", qk), ("cv", vo), ("co", vo)):
+            if n in blk:
+                blk[n] = blk[n] * f
+    return params
+
+
+def wait_for(cond, timeout=60.0, what="condition"):
+    """Poll ``cond()`` until it holds; fail the test after ``timeout`` s."""
+    import time
+
+    t_end = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > t_end:
+            pytest.fail(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def queue_together(batcher, requests):
+    """Submit every request to ``batcher`` (either package's) at once: they
+    are queued on a new queue that replaces the batcher's in one assignment,
+    so its first admission sees them all, whatever its thread was doing.
+    ``requests``: (input_ids, kwargs of submit). Returns the futures."""
+    import queue
+    import types
+
+    stage = types.SimpleNamespace(**vars(batcher))
+    stage._queue = queue.Queue()
+    futures = [type(batcher).submit(stage, ids, **kw) for ids, kw in requests]
+    batcher._queue = stage._queue
+    return futures
+
+
+class StandIn:
+    """A capture backend for the CPU tests (``CudaGraphBackend``'s contract):
+    ``capture(fn)`` runs ``fn`` once and returns (replay, its outputs, no
+    launches); ``replay()`` runs ``fn`` again with no arguments and copies
+    the new outputs into the first ones."""
+
+    def __init__(self):
+        self.captured = 0
+
+    def capture(self, fn):
+        self.captured += 1
+        out = fn()
+
+        def replay():
+            for o, n in zip(out, fn()):
+                o.copy_(n)
+
+        return replay, out, {}

@@ -238,7 +238,41 @@ Phases, each printing its own lines; any failure exits non-zero:
    64 with a per-row T5 bias ``[B, 16, 1, 128]`` (B = 8 and 32, bf16 and
    f32, beside SDPA), and K1 at NLLB's B = 8, 16 heads with eight different
    per-row positions over a capacity of 64 (beside every row at the
-   largest).
+   largest); and the port's own kernel ``stream_gather``
+   (``csrc/stream.cu``, no Pallas counterpart) against its plain version on
+   NLLB-MoE-54B's int4 record (6 roles, 16.86 MB) in a 128-record
+   page-locked tier: U = 8 and 64 across segments with rows of -1 (zeros,
+   nothing read), U = 13 with a segment on the card among pinned ones,
+   every byte equal; its time and GB/s beside the host link's bound (the
+   present rows' bytes over PCIe Gen5 x16) and a ``copy_`` per present
+   record role on a copy engine, kernel and copies three times back to
+   back;
+31. stream decode (``Seq2SeqOffloadEngine(stream_decode=True)``) at
+   NLLB-MoE-54B's full width and depth (24+24 blocks), built as bench.py
+   builds its ``--stream`` leg: phase 9's weights and store, a 14 GiB
+   layer-aligned page-locked tier (768 of 768 decoder records staged,
+   required), an arena of ``max(E, min(slots, 2E))`` = 256 slots for the
+   encoder; phase 3's 4 requests x 16 tokens at ``stream_unique`` 8 in
+   blocks of k = 1 and 4, then bench.py's leg itself (``--spec-block 1
+   --stream-unique 8``: 32 prompts of 16, 8 tokens), each eagerly and as
+   graphs (one per (k, U)); tokens/s beside phase 11's, executions per
+   block and token, U's path, host ms per step, the tier's GB read per
+   step, peak memory; K1, K2, K3 and ``stream_gather`` held to their
+   counts per executed step, every graph execution a replay, graph tokens
+   equal to eager;
+32. direct-tier layers on the same build: bench.py's ``--hbm-gb 13
+   --direct-layers 2`` (the deepest two decoder MoE layers promoted to the
+   card, 4.3 GB, 132 slots), then ``max_direct_layers=None`` (all 6, 12.9
+   GB, 128 slots), each per layer and speculatively at k = 4 as graphs;
+   hit rate, executions per block, tokens/s beside phase 11's; with every
+   decoder layer direct, no decoder visit and every block accepted at its
+   first dispatch;
+33. their whole-path check at f32, full width, 4+4 blocks over phase 10's
+   store with the decoder records in a layer-aligned tier: stream decode
+   (k = 1 and 4, U escalating from 2, graphs and eager) and direct layers
+   (all and the deepest one; per layer, speculative k = 1 and 4, graphs and
+   eager) bit-equal to the resident path in greedy tokens and first-step
+   logits, graph logits against eager at every accepted k = 1 step.
 
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
@@ -248,8 +282,9 @@ layers under other split plans, and stops the same way;
 ``python3 chip_smoke.py --mla`` does the same for K5: phase 2's K5 checks
 and times alone (V2-Lite's decode step, long rows, H=128; the same inputs
 as in the whole run), then K5 under other split plans.
-``python3 chip_smoke.py --offload`` runs the build and phases 9 to 12
-alone; ``--resident`` the build and phases 3, 5 and 7 (to hold those paths
+``python3 chip_smoke.py --offload`` runs the build and phases 9 to 12,
+phase 2's ``stream_gather`` checks and phases 31 to 33 alone;
+``--stream`` the build, the ``stream_gather`` checks and phases 31 to 33; ``--resident`` the build and phases 3, 5 and 7 (to hold those paths
 against another tree's in one call); ``--switch`` the build and phases 13
 to 15; ``--mixtral-offload`` the build and phases 16 to 18;
 ``--entrypoints`` the build and phases 19 and 20; ``--grok`` the build,
@@ -260,8 +295,8 @@ no result line.
 Every phase prints its seconds (``[phase]``).
 
 The line before the last is the per-kernel JSON record (launches: the sum
-of the counts of phases 3, 5, 7, 9, 11, 13, 14, 16, 18, 19, 21, 22, 23 and
-24 to 30 (26's none: a check-only phase),
+of the counts of phases 3, 5, 7, 9, 11, 13, 14, 16, 18, 19, 21, 22, 23,
+24 to 30 (26's none: a check-only phase), 31 and 32,
 graph replays included; K3's e4m3 kind has its own row, ``gmm_fp8``;
 K2 at head dim 64 has its own row, ``flash_attend_dh64``: a graph
 counts at each replay the launches it recorded when it was captured); the
@@ -284,6 +319,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+HOST_LINK_BYTES_PER_S = 32e9 * 128 / 130 * 16 / 8  # H100 SXM host link: PCIe Gen5 x16, one way
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 TOL = 2e-2  # rtol = atol for bf16 operands (the JAX suite's gmm tolerance)
 
@@ -1524,6 +1560,7 @@ def phase_kernels(dev):
     recs[3]["max_abs_err"] = max(recs[3]["max_abs_err"], long_err, edge_err, dh64_err)
     recs[2]["max_abs_err"] = max(recs[2]["max_abs_err"], check_gmm_switch(g, dev))
     recs.append(check_gmm_fp8(dev))  # K3's e4m3 kind, from its own generator
+    recs.append(check_stream_gather(dev))  # the port's own kernel, its own generator
     rep_errs = check_attention_rep67(dev)
     batcher_errs = check_batcher_attention(dev)  # per-row T5 bias (K2), per-row positions (K1)
     for r in recs:
@@ -2298,7 +2335,9 @@ def _offload_engine(model, params, store, num_slots, tier, impl="pallas", **kw):
     """bench.py's engine (`_nllb_build`): EAMC tracer and predictor, prefetch
     with lookahead 3 and budget 8, the priority policy, 4 fetch workers, K3
     for every expert FFN; the per-layer path unless ``kw`` asks for the
-    speculative one."""
+    speculative one; no direct-tier layer unless ``kw`` asks
+    (``max_direct_layers``, bench.py's ``--direct-layers`` 0)."""
+    kw.setdefault("max_direct_layers", 0)
     from moe_infinity_tpu_torch.memory import ExpertPredictor, ExpertTracer
     from moe_infinity_tpu_torch.runtime.arena import ExpertArena
     from moe_infinity_tpu_torch.runtime.engine_seq2seq import Seq2SeqOffloadEngine
@@ -2320,12 +2359,13 @@ def _tree_bytes(tree):
     return tree.numel() * tree.element_size()
 
 
-def _offload_build(dev):
+def _offload_build(dev, align=False):
     """Phase 9's and 11's set-up: bf16 dense weights from a seed, the int4
     store, a 14 GiB page-locked tier (decoder records first, made on the
-    card), and the slot count of bench.py's --hbm-gb 13 budget; the records
-    the tier does not hold are kept in host memory after their first read,
-    as a page-cached store keeps them."""
+    card; with ``align`` in segments of one layer's E records), and the
+    slot count of bench.py's --hbm-gb 13 budget; the records the tier does
+    not hold are kept in host memory after their first read, as a
+    page-cached store keeps them."""
     from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
     from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
 
@@ -2340,7 +2380,7 @@ def _offload_build(dev):
     dense = _tree_bytes(params)
     store = _offload_store(spec, cache_records=spec.encoder_layers * E)
     tier = PinnedExpertTier(store, device=dev, shared_record=False, max_bytes=TIER_GB * 2**30,
-                            synth_on_device=True)
+                            synth_on_device=True, align_rows=E if align else None)
     torch.cuda.synchronize()
     t_tier = time.perf_counter() - t0
     slots = max(E, int((HBM_GB * 2**30 - dense - KV_RESERVE) // store.stride))
@@ -2611,9 +2651,10 @@ NLLB_STEP_LAUNCHES = {"flash_decode": 24, "flash_attend": 24, "gmm": 12}  # one 
 def _wrap_dispatches(engine, wrap, replays=True):
     """Wrap each speculative dispatch of ``engine`` in ``wrap(fn)``: with
     graphs and ``replays``, each replay (input copies included; a capture is
-    not wrapped); else each call of its whole step and k-step block (with
-    graphs: the graph cache's lookup, and a capture where a shape has
-    none). Returns a function that takes the wrappers off."""
+    not wrapped); else each call of its whole step and k-step block, or of
+    its stream block under stream decode (with graphs: the graph cache's
+    lookup, and a capture where a shape has none). Returns a function that
+    takes the wrappers off."""
     from moe_infinity_tpu_torch.runtime import graphs
 
     if engine.graphs is not None and replays:
@@ -2622,6 +2663,14 @@ def _wrap_dispatches(engine, wrap, replays=True):
 
         def off():
             graphs.StepGraph.replay = replay
+
+        return off
+    if getattr(engine, "_stream", False):
+        stream_fn = engine._stream_block_fn
+        engine._stream_block_fn = lambda k: wrap(stream_fn(k))
+
+        def off():
+            del engine._stream_block_fn
 
         return off
     block_fn, step_fn = engine._spec_block_fn, engine._spec_step
@@ -2750,6 +2799,7 @@ def _offload_spec_run(dev, b, graphs, runs, extra=None):
         say(f"[spec] {tag}: sequences shape {res.sequences.shape}; first row "
             f"{res.sequences[0].tolist()}")
         cap_s = g1.get("capture_s", 0) - g0.get("capture_s", 0)
+        TOKENS_PER_S[tag] = len(SRC_LENS) * NEW_TOKENS / (st["decode_ms"] / 1e3)
         say(f"[spec] {tag}: encode_ms={st['encode_ms']:.3f} decode_ms_per_token="
             f"{st['decode_ms'] / NEW_TOKENS:.3f} tokens_per_s="
             f"{len(SRC_LENS) * NEW_TOKENS / (st['decode_ms'] / 1e3):.1f} wall_s={wall:.3f} "
@@ -2861,17 +2911,18 @@ def _same_or_close(what, got, want):
     return f"within {err:.3e}"
 
 
-def _spec_case(model, params, store, tier, ids, gen, k, mode, graphs, record):
+def _spec_case(model, params, store, tier, ids, gen, k, mode, graphs, record, **kw):
     """One speculative generate at block size k in ``mode``, with graphs on
-    or off. record: "steps" keeps every accepted whole step's logits (k=1),
-    "step0" step 0's logits of every eager execution (the last is the
-    accepted one), None nothing. Returns (result, logits, engine, counts)."""
+    or off (``kw``: more engine options). record: "steps" keeps every
+    accepted whole step's logits (k=1), "step0" step 0's logits of every
+    eager execution (the last is the accepted one), None nothing. Returns
+    (result, logits, engine, counts)."""
     import os
 
     from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
 
     engine = _offload_engine(model, params, store, store.num_experts, tier, speculative=True,
-                             spec_block=k, graphs=graphs)
+                             spec_block=k, graphs=graphs, **kw)
     logits = []
     if record == "steps":
         step_fn = engine._speculative_step
@@ -5929,6 +5980,507 @@ def sweep_mla_plans(dev):
         fa._MLA_BLOCKS, fa._MLA_MIN_TILES = kept
 
 
+# ---------------------------------------------------------------------------
+# phase 2's stream_gather; phases 31 to 33: stream decode and direct-tier
+# layers (bench.py's stream-decode leg, --direct-layers)
+# ---------------------------------------------------------------------------
+
+ST_UNIQUE = 8  # bench.py's stream leg: --stream-unique 8
+# the leg's batch (bench.py: --batch 1 means 32), prompt and new tokens
+# (min(8, --tokens)), its warm-up generate's tokens (2k - 1 at k = 1, at least
+# 2) and the cache both take (_bucket_len(8 + 1))
+ST_BATCH, ST_PROMPT, ST_TOKENS, ST_WARM, ST_CAP = 32, 16, 8, 2, 16
+STREAM_KERNELS = NLLB_KERNELS + ("stream_gather",)
+TOKENS_PER_S = {}  # phase 11's tokens/s by leg, printed beside phases 31 and 32's
+
+
+def check_stream_gather(dev):
+    """``stream_gather`` (``csrc/stream.cu``) against its plain version on
+    NLLB-MoE-54B's int4 record (6 roles, 16.86 MB) in a 128-record
+    page-locked tier made as phase 9 makes it (segments of 30 records): U = 8
+    (the main path's width: phase 31) and 64, rows crossing segments and rows
+    of -1 (zeros, nothing read), and U = 13 with one segment promoted to the
+    card among pinned ones; every byte equal. Times the kernel, the plain
+    version and, as the library yardstick, one ``copy_(non_blocking=True)`` per present record
+    role from pinned memory (a copy engine's cudaMemcpyAsync) and a
+    ``zero_`` per absent one, at U = 8 and 64: kernel and copies three times
+    each, back to back, their medians in the row. The bound counts the
+    present rows' bytes over the host link. Returns the kernel's record at
+    U = 8."""
+    from moe_infinity_tpu_torch.models.nllb import NllbSpec
+    from moe_infinity_tpu_torch.ops import stream as st
+    from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
+
+    spec = NllbSpec(**NLLB_54B)
+    store = _offload_store(spec, cache_records=1)
+    n_rec = min(128, store.num_layers * spec.num_experts)
+    tier = PinnedExpertTier(store, device=dev, shared_record=False,
+                            max_bytes=n_rec * store.stride, synth_on_device=True)
+    seg_rows, R = tier._seg_rows, store.stride
+    src = st.StreamSource({k: list(v) for k, v in tier.fields.items()}, None, seg_rows)
+    mixed = st.StreamSource({k: [a.to(dev) if s == 1 else a for s, a in enumerate(v)]
+                             for k, v in tier.fields.items()}, None, seg_rows)
+    g = torch.Generator().manual_seed(16)
+    err, recs = 0.0, {}
+    for U, source, label in ((8, src, "pinned"), (64, src, "pinned"),
+                             (13, mixed, "segment 1 on the card")):
+        rows = torch.randperm(n_rec, generator=g)[:U].to(torch.int32)
+        rows[::5] = -1
+        rows_d = rows.to(dev)
+        got = st.stream_gather(source, rows_d)
+        want = st.stream_gather_plain(source.fields, seg_rows, rows)
+        torch.cuda.synchronize()
+        for role, w in want.items():
+            a = got[role].cpu()
+            err = max(err, (a.float() - w.float()).abs().max().item())
+            if not torch.equal(a, w):
+                raise AssertionError(f"stream_gather U={U} ({label}): role {role} differs")
+            if w[rows < 0].any():
+                raise AssertionError(f"stream_gather U={U}: a row of -1 is not zeros")
+        present = [r for r in rows.tolist() if r >= 0]
+        host = R * sum(label == "pinned" or r // seg_rows != 1 for r in present)
+        say(f"[check] stream_gather U={U} ({label}, rows of -1 at {rows.tolist()[::5]}, "
+            f"segments of {seg_rows} records): every byte equal to the plain version, rows "
+            f"of -1 zeros; {host / 1e6:.1f} MB from page-locked memory")
+        if label != "pinned":
+            continue
+        run = lambda: st.stream_gather(src, rows_d)  # noqa: E731
+        plain = lambda: st.stream_gather_plain(src.fields, seg_rows, rows_d)  # noqa: E731
+        outs = {k: torch.empty((U,) + v[0].shape[1:], dtype=v[0].dtype, device=dev)
+                for k, v in src.fields.items()}
+        r = rows.tolist()
+
+        def lib():
+            for k, segs in src.fields.items():
+                for u, row in enumerate(r):
+                    if row < 0:
+                        outs[k][u].zero_()
+                    else:
+                        outs[k][u].copy_(segs[row // seg_rows][row % seg_rows],
+                                         non_blocking=True)
+
+        # kernel and copy engine back to back, three times: a swing of the
+        # link's rate shows in both, one of the kernel's in the kernel alone
+        pairs = [(cuda_ms(run), cuda_ms(lib, iters=5)) for _ in range(3)]
+        ms, lib_ms = (float(np.median([p[i] for p in pairs])) for i in (0, 1))
+        b_ms = max(host / HOST_LINK_BYTES_PER_S, U * R / HBM_BYTES_PER_S) * 1e3
+        recs[U] = dict(name="stream_gather", route="cuda",
+                       source="moe_infinity_tpu_torch/csrc/stream.cu",
+                       replaces="none: moe_infinity_tpu/ops/stream.py:133 gathers with "
+                                "dynamic_slice and device_put, no pallas_call",
+                       max_abs_err=0.0, ms=ms, plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                       bound_ms=b_ms, bound_by="bytes", library_ms=lib_ms,
+                       shape=f"U={U} slots, {len(present)} records of {R / 1e6:.2f} MB (6 "
+                             f"roles) from page-locked memory over PCIe Gen5 x16 "
+                             f"({HOST_LINK_BYTES_PER_S / 1e9:.2f} GB/s), {U - len(present)} "
+                             "rows of -1")
+        rc = recs[U]
+        say(f"[stream_gather] U={U} ({len(present)} present rows, {host / 1e6:.1f} MB): "
+            f"ms={ms:.4f} ({host / ms / 1e6:.1f} GB/s) plain_ms={rc['plain_ms']:.3f} "
+            f"library_ms={lib_ms:.4f} ({6 * len(present)} copy_ calls, "
+            f"{host / lib_ms / 1e6:.1f} GB/s) bound_ms={b_ms:.4f}; back to back (kernel, "
+            f"copies) {[(round(a, 4), round(b, 4)) for a, b in pairs]}")
+    recs[8]["max_abs_err"] = err
+    del src, mixed, tier, store
+    _free_host_cache()
+    return recs[8]
+
+
+def _stream_build(dev):
+    """Phases 31 and 32's set-up: bench.py's nllb-offload build with
+    ``--stream`` (``_nllb_build``, :933-1075): phase 9's dense weights and
+    int4 store, and its 14 GiB page-locked tier made on the card, in
+    layer-aligned segments (``align_rows`` = E, as bench.py's
+    ``_make_nllb_tier``), decoder records first. Every decoder record must be
+    staged: the tier stages less, quietly, when MemAvailable is short."""
+    b = _offload_build(dev, align=True)
+    spec, store, tier, E = b.spec, b.store, b.tier, b.spec.num_experts
+    n_enc = store.meta["num_encoder_moe_layers"]
+    staged = sum(tier.record_index(l, e) is not None
+                 for l in range(n_enc, store.num_layers) for e in range(E))
+    total = (store.num_layers - n_enc) * E
+    say(f"[stream] build: decoder records staged {staged} of {total}; tier "
+        f"{json.dumps(tier.stats())}, segments of {tier._seg_rows} records; set-up "
+        f"{time.perf_counter() - b.t0:.1f} s")
+    if staged != total:
+        raise AssertionError(f"the tier staged {staged} of {total} decoder records")
+    b.dec_mlis = list(range(n_enc, store.num_layers))
+    return b
+
+
+def _bench_slots(b, n_direct=0, stream=False):
+    """bench.py's arena for ``--hbm-gb 13`` (:1018-1048): the budget less the
+    dense weights, the KV reserve and ``n_direct`` promoted layers, at most
+    the union a batch of 32 routes over the other decoder layers, at least
+    E; with ``--stream`` at most 2E (the arena serves the encoder alone)."""
+    E, stride = b.spec.num_experts, b.store.stride
+    union = (len(b.dec_mlis) - n_direct) * min(E, 2 * ST_BATCH)
+    budget = int((HBM_GB * 2**30 - b.dense - KV_RESERVE - n_direct * E * stride) // stride)
+    slots = max(E, min(union, budget))
+    return max(E, min(slots, 2 * E)) if stream else slots
+
+
+def _stream_probe(engine):
+    """Per stream block: the U it started and ended at, and the executions.
+    Returns the log and a function that takes the probe off."""
+    log, block = [], engine._stream_block
+
+    def probe(*a):
+        u0, n0 = engine._stream_U, len(engine.replay_counts)
+        out = block(*a)
+        log.append((u0, engine._stream_U, engine.replay_counts[n0:], a[-1]))
+        return out
+
+    engine._stream_block = probe
+
+    def off():
+        del engine._stream_block
+
+    return log, off
+
+
+def _leg(b, tag, engine, ids, mask, new_tokens, warm_tokens, kernels, cap=None, guard=True):
+    """One leg of phases 31 and 32 on ``engine``: a warm-up generate (every
+    dispatch under the sync guard where ``guard``), then the timed one with
+    its launches, executions and host time. Returns (sequences, numbers)."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.engine import speculative_stats
+
+    gen = dict(attention_mask=mask, eos_token_id=None, cache_len=cap)
+    t0 = time.perf_counter()
+    n_guard, unguard = _sync_guard(engine) if guard else ([0], lambda: None)
+    try:
+        engine.generate(ids, max_new_tokens=warm_tokens, **gen)
+        torch.cuda.synchronize()
+    finally:
+        unguard()
+    warm_s = time.perf_counter() - t0
+    if guard and n_guard[0] == 0:
+        raise AssertionError(f"{tag}: no dispatch ran under the sync guard")
+    g0, x0, r0 = engine.graph_stats(), engine.executed_steps, len(engine.replay_counts)
+    s0, pt0 = engine.stats(), dict(engine.phase_timings)
+    stream = getattr(engine, "_stream", False)
+    ulog, unprobe = _stream_probe(engine) if stream else ([], lambda: None)
+    rec0 = getattr(engine, "stream_records", 0)
+    host, untime = _host_timer(engine)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = engine.generate(ids, max_new_tokens=new_tokens, **gen)
+        torch.cuda.synchronize()
+    finally:
+        untime()
+        unprobe()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    g1, s1 = engine.graph_stats(), engine.stats()
+    steps = engine.executed_steps - x0
+    warm = g1.get("warmup_steps", 0) - g0.get("warmup_steps", 0)
+    execs = engine.replay_counts[r0:]
+    B, st = ids.shape[0], res.stats
+    tps = B * new_tokens / (st["decode_ms"] / 1e3)
+    n = dict(tokens_per_s=tps, decode_ms_per_token=st["decode_ms"] / new_tokens,
+             encode_ms=st["encode_ms"], wall_s=wall, warm_s=warm_s, executions=execs,
+             executions_per_block=float(np.mean(execs)) if execs else 0.0,
+             executions_per_token=sum(execs) / new_tokens if execs else 0.0,
+             host_ms_per_step=host[0] * 1e3 / max(1, new_tokens),
+             host_ms_per_dispatch=host[0] * 1e3 / max(1, host[1]),
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9, graphs=g1)
+    if stream:
+        # U path, and the tier's bytes: the records the gathers read (the
+        # staged ones among each (layer, step)'s first U distinct experts)
+        path = [ulog[0][0]] if ulog else []
+        for u0, u1, ex, k in ulog:
+            u = u0
+            for _ in ex:
+                if u not in path:
+                    path.append(u)
+                u = min(b.spec.num_experts, 2 * u)
+        nbytes = (engine.stream_records - rec0) * b.store.stride
+        n.update(u_path=path, tier_gb_per_step=nbytes / 1e9 / new_tokens)
+    else:
+        dw = engine.decode_window_stats()
+        n.update(decode_hit_rate=dw["decode_hit_rate"], decode_visits=dw["visits"],
+                 misses=dw["misses"])
+    say(f"[{tag}] sequences shape {res.sequences.shape}; first row {res.sequences[0].tolist()}")
+    say(f"[{tag}] {json.dumps({k: (round(v, 4) if isinstance(v, float) else v) for k, v in n.items()})}"
+        f"; speculative_stats {json.dumps(speculative_stats(execs))}; phase_timings (timed "
+        f"generate, s) {json.dumps({k: round(v - pt0.get(k, 0.0), 4) for k, v in engine.phase_timings.items()})}; "
+        f"arena visits {s1['visits'] - s0['visits']}")
+    spec = b.spec
+    n_enc = sum(spec.is_sparse(i, False) for i in range(spec.encoder_layers))
+    encode = {"flash_attend": spec.encoder_layers, "gmm": 2 * n_enc}  # NLLB-54B: 24, 12
+    per_step = {"flash_decode": spec.decoder_layers, "flash_attend": spec.decoder_layers,
+                "gmm": 2 * len(b.dec_mlis), "stream_gather": len(b.dec_mlis) if stream else 0}
+    want = {k: encode.get(k, 0) + c * (steps + warm) for k, c in per_step.items()}
+    say(f"[{tag}] launches {json.dumps(counts)}; expected from {steps} executed steps, {warm} "
+        f"warm-up steps of captures and one encode {json.dumps(want)}")
+    if res.sequences.shape != (B, new_tokens + 1):
+        raise AssertionError(f"{tag}: unexpected output shape {res.sequences.shape}")
+    if not np.all((res.sequences >= 0) & (res.sequences < b.spec.vocab_size)):
+        raise AssertionError(f"{tag}: token ids out of range")
+    _require_launched(counts, kernels, tag)
+    if engine.speculative and any(counts.get(k, 0) != c for k, c in want.items()):
+        raise AssertionError(f"{tag}: launches {counts} != {want}")
+    if engine.graphs is not None and engine.speculative and (
+            g1["recaptures"] or g1["replays"] - g0.get("replays", 0) != sum(execs)):
+        raise AssertionError(f"{tag}: every execution a replay, none recaptured expected "
+                             f"({g0} -> {g1}, executions {execs})")
+    return res.sequences, n, counts
+
+
+def _beside_phase_11(tps):
+    p11 = TOKENS_PER_S.get("graphs")
+    return (f"{tps:.2f} tokens/s beside phase 11's {p11:.2f} (graphs)" if p11
+            else f"{tps:.2f} tokens/s (phase 11 not run in this call)")
+
+
+def _bench_prompts(vocab):
+    """bench.py's nllb-offload prompts (``bench_nllb_offload``, :1234-1238):
+    32 rows of ``(arange(16) * 131 + 7) % (vocab - 10)``, unpadded."""
+    T = ST_PROMPT
+    ids = (np.arange(T, dtype=np.int64)[None].repeat(ST_BATCH, 0) * 131 + 7) % (vocab - 10)
+    return ids, np.ones((ST_BATCH, T), dtype=np.float32)
+
+
+def phase_stream_decode(dev, built=None):
+    """Phase 31: NLLB-MoE-54B at full width and depth (24+24 blocks) through
+    stream decode, as bench.py builds its stream leg (``_stream_build``, an
+    arena of ``max(E, min(slots, 2E))`` = 256 slots for the encoder): phase
+    3's 4 requests x 16 tokens at ``stream_unique`` 8, blocks of k = 1 and
+    then k = 4; then bench.py's leg itself (``--spec-block 1
+    --stream-unique 8``: 32 prompts of 16, a warm-up of 2 tokens, 8 timed,
+    a cache of 16); each eagerly, then as graphs (one per (k, U)). K1, K2, K3
+    and ``stream_gather`` launch exactly as the executed steps say, every
+    graph execution is a replay, graph tokens equal eager ones. Returns
+    (launches, the build) for phase 32."""
+    from moe_infinity_tpu_torch.runtime.generate import _bucket_len
+
+    b = built or _stream_build(dev)
+    slots = _bench_slots(b, stream=True)
+    say(f"[stream] arena {slots} slots (bench.py's --stream sizing), U0={ST_UNIQUE}")
+    counts_all = []
+    # the warm-up generate at the timed one's cache capacity and over every
+    # block size of the halving chain (2k - 1 tokens), so that the timed one
+    # finds its graphs captured
+    cap = _bucket_len(NEW_TOKENS + 1)
+    legs = [(f"4 requests x {NEW_TOKENS}, k={k}", b.ids, b.mask, NEW_TOKENS, 2 * k - 1, k, cap)
+            for k in (1, 4)]
+    legs.append((f"bench.py's leg: {ST_BATCH} prompts of {ST_PROMPT}, k=1, {ST_TOKENS} tokens",
+                 *_bench_prompts(b.spec.vocab_size), ST_TOKENS, ST_WARM, 1, ST_CAP))
+    for label, ids, mask, n_new, n_warm, k, cap in legs:
+        seqs = {}
+        for graphs in (False, True):
+            tag = f"stream {'graphs' if graphs else 'eager'}"
+            engine = _offload_engine(b.model, b.params, b.store, slots, b.tier, speculative=True,
+                                     spec_block=k, stream_decode=True, stream_unique=ST_UNIQUE,
+                                     max_direct_layers=0, graphs=graphs)
+            try:
+                say(f"[{tag}] {label}")
+                seqs[graphs], n, counts = _leg(b, tag, engine, ids, mask, n_new, max(n_warm, 2),
+                                               STREAM_KERNELS, cap=cap)
+                counts_all.append(counts)
+                say(f"[{tag}] {label}: {_beside_phase_11(n['tokens_per_s'])}; executions per "
+                    f"block {n['executions_per_block']:.3f} (per token "
+                    f"{n['executions_per_token']:.3f}), U path {n['u_path']}, host ms per step "
+                    f"{n['host_ms_per_step']:.3f}, tier GB read per step "
+                    f"{n['tier_gb_per_step']:.3f}, peak {n['peak_gb']:.2f} GB")
+            finally:
+                engine.arena.shutdown()
+            del engine
+            torch.cuda.empty_cache()
+        same = np.array_equal(seqs[True], seqs[False])
+        say(f"[stream] {label}: graph against eager greedy tokens "
+            f"{'equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"stream decode ({label}): graph and eager tokens differ")
+    return _sum_counts(*counts_all), b
+
+
+def phase_direct_layers(dev, built=None):
+    """Phase 32: direct-tier layers on phase 31's build and tier. First at
+    bench.py's sizing for ``--hbm-gb 13 --direct-layers 2`` (the deepest two
+    decoder MoE layers promoted to the card, 4.3 GB; the arena's slots from
+    the rest of the budget), then at ``max_direct_layers=None``: all 6
+    decoder MoE layers, 12.9 GB. Each per layer (eager: it reads the routing
+    on the host) and speculatively at k = 4 as graphs, on phase 3's 4
+    requests x 16 tokens; with every decoder layer direct, every block
+    accepts at its first dispatch and the decoder never visits the arena."""
+    b = built or _stream_build(dev)
+    counts_all = []
+    for n_direct in (2, None):
+        slots = _bench_slots(b, n_direct=n_direct or len(b.dec_mlis))
+        for speculative in (False, True):
+            tag = f"direct {'spec' if speculative else 'per-layer'}"
+            before = torch.cuda.memory_allocated()
+            engine = _offload_engine(b.model, b.params, b.store, slots, b.tier,
+                                     speculative=speculative, spec_block=4,
+                                     max_direct_layers=n_direct)
+            try:
+                direct = sorted(engine._direct_mlis)
+                say(f"[{tag}] max_direct_layers={n_direct}: direct MoE layers {direct} "
+                    f"(promoted {sum(t.numel() * t.element_size() for d in engine._direct.values() for t in d.values()) / 1e9:.2f} GB "
+                    f"on the card; allocated {before / 1e9:.2f} -> "
+                    f"{torch.cuda.memory_allocated() / 1e9:.2f} GB), arena {slots} slots")
+                want = b.dec_mlis[-(n_direct or len(b.dec_mlis)):]
+                if direct != want:
+                    raise AssertionError(f"{tag}: direct layers {direct}, expected {want}")
+                _, n, counts = _leg(b, tag, engine, b.ids, b.mask, NEW_TOKENS, NEW_TOKENS,
+                                    NLLB_KERNELS, guard=speculative)
+                counts_all.append(counts)
+                say(f"[{tag}] max_direct_layers={n_direct}: {_beside_phase_11(n['tokens_per_s'])}; "
+                    f"decode hit rate {n['decode_hit_rate']:.4f} over {n['decode_visits']} "
+                    f"visits, executions per block {n['executions_per_block']:.3f}")
+                if n_direct is None and (n["decode_visits"] or (speculative and any(
+                        e != 1 for e in n["executions"]))):
+                    raise AssertionError(f"{tag}: all layers direct, yet visits "
+                                         f"{n['decode_visits']} or executions {n['executions']}")
+            finally:
+                engine.arena.shutdown()
+            del engine
+            torch.cuda.empty_cache()
+    return _sum_counts(*counts_all)
+
+
+def _stream_first_step(engine, ids, mask):
+    """The first decode step's logits through the engine's encoder and its
+    stream sources at the engine's present U (the gather and K3)."""
+    model = engine.model
+    dev = model.device
+    tok = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+    m = torch.as_tensor(mask, device=dev)
+    with torch.inference_mode():
+        _, cross = engine.run_encoder(tok, m)
+        start = torch.full((tok.shape[0], 1), model.spec.decoder_start_token_id,
+                           dtype=torch.int32, device=dev)
+        sources, ident = engine._stream_sources(engine._stream_U), engine._identity
+        logits, _, _ = model.decode_step(
+            engine.params, None, start, torch.zeros_like(start), engine.init_cache(
+                tok.shape[0], 32), 0, m, cross, lambda _e, mli: (sources[mli], ident, None),
+            engine._impl)
+    return logits
+
+
+def phase_stream_whole_path(dev):
+    """Phase 33: stream decode and direct-tier layers at f32, full width, 4+4
+    blocks (2+2 MoE layers), over phase 10's store (seed 11) with its
+    decoder records copied into a layer-aligned tier, against the resident
+    ``Seq2SeqGenerator`` over the same records: greedy tokens and the first
+    step's logits bit-equal. Stream at k = 1 and 4 from ``stream_unique`` 2
+    (U escalates), with graphs and eagerly; direct layers all and some (1),
+    per layer and speculative at k = 4 (graphs and eager) and k = 1 (graph
+    logits against eager at every accepted step)."""
+    from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+    from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
+
+    spec = NllbSpec(**dict(NLLB_54B, encoder_layers=4, decoder_layers=4,
+                           encoder_sparse_step=2, decoder_sparse_step=2))
+    E, seed = spec.num_experts, 11
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    model = NllbModel(spec, compute_dtype=torch.float32, device=dev)
+    params, _ = model.init_random(g, with_experts=False)
+    store = _offload_store(spec, seed=seed, cache_records=4 * E)
+    provider = ResidentProvider.from_store(store, dtype=torch.float32, device=dev)
+    n_dec = (store.num_layers - store.meta["num_encoder_moe_layers"]) * E
+    tier = PinnedExpertTier(store, device=dev, shared_record=False, max_bytes=n_dec * store.stride,
+                            synth_on_device=False, align_rows=E)
+    ids, mask = _requests(spec.vocab_size, g, dev)
+    gen = dict(max_new_tokens=NEW_TOKENS, attention_mask=mask, eos_token_id=None)
+    want = Seq2SeqGenerator(model, params, provider.pytree(), ResidentProvider.for_layer,
+                            impl="pallas", graphs=False).generate(ids, **gen).sequences
+    want_logits = _first_step_logits(model, params, provider, ids, mask, "pallas")
+
+    def check(what, got, logits=None, kernels=NLLB_KERNELS, counts=None):
+        same = np.array_equal(got, want)
+        bit = logits is None or torch.equal(logits, want_logits)
+        say(f"[check] {what} vs resident f32 (full width, 4+4 blocks, int4 experts): greedy "
+            f"tokens {'equal' if same else 'DIFFER'}"
+            + ("" if logits is None else ", first-step logits " + (
+                "bit-equal" if bit else f"DIFFER by {(logits - want_logits).abs().max():.3e}")))
+        if counts is not None:
+            _require_launched(counts, kernels, what)
+        if not (same and bit):
+            raise AssertionError(f"{what}: differs from the resident path")
+
+    for k in (1, 4):
+        seqs = {}
+        for graphs in (True, False):
+            what = f"stream k={k} from U=2 {'graphs' if graphs else 'eager'}"
+            engine = _offload_engine(model, params, store, E, tier, speculative=True,
+                                     spec_block=k, stream_decode=True, stream_unique=2,
+                                     max_direct_layers=0, graphs=graphs)
+            try:
+                reset_launches()
+                seqs[graphs] = engine.generate(ids, **gen).sequences
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                say(f"[check] {what}: executions {engine.replay_counts}, U {engine._stream_U}, "
+                    f"graphs {json.dumps(engine.graph_stats())}")
+                if engine._stream_U <= 2 or max(engine.replay_counts) <= 1:
+                    raise AssertionError(f"{what}: U never escalated")
+                check(what, seqs[graphs], _stream_first_step(engine, ids, mask),
+                      STREAM_KERNELS, counts)
+            finally:
+                engine.arena.shutdown()
+            del engine
+        if not np.array_equal(seqs[True], seqs[False]):
+            raise AssertionError(f"stream k={k}: graph and eager tokens differ")
+    for n_direct in (None, 1):
+        label = f"direct {'all' if n_direct is None else 'deepest 1'}"
+        engine = _offload_engine(model, params, store, E, tier, max_direct_layers=n_direct)
+        try:
+            logits = _offload_first_step(engine, ids, mask)
+            reset_launches()
+            got = engine.generate(ids, **gen).sequences
+            torch.cuda.synchronize()
+            say(f"[check] {label} per layer: direct layers {sorted(engine._direct_mlis)}, "
+                f"decode window {json.dumps({k: v for k, v in engine.decode_window_stats().items() if k in ('visits', 'misses', 'evictions')})}")
+            check(f"{label} per layer", got, logits, counts=launch_counts())
+        finally:
+            engine.arena.shutdown()
+        del engine
+        for k in (1, 4):
+            runs = {}
+            for graphs in (True, False):
+                res, logits, engine, counts = _spec_case(
+                    model, params, store, tier, ids, gen, k, "whole", graphs,
+                    "steps" if k == 1 else None, max_direct_layers=n_direct)
+                what = f"{label} speculative k={k} {'graphs' if graphs else 'eager'}"
+                say(f"[check] {what}: executions {engine.replay_counts}, graphs "
+                    f"{json.dumps(engine.graph_stats())}")
+                check(what, res.sequences, logits[0] if logits else None, counts=counts)
+                if n_direct is None and any(e != 1 for e in engine.replay_counts):
+                    raise AssertionError(f"{what}: every block should accept at once")
+                runs[graphs] = logits
+                del engine
+            if k == 1:
+                how = [_same_or_close(f"{label} k=1 step {i}", a, b)
+                       for i, (a, b) in enumerate(zip(runs[True], runs[False]))]
+                say(f"[check] {label} k=1 f32 graph against eager logits over {len(how)} "
+                    f"accepted steps: {sum(h == 'bit-equal' for h in how)} bit-equal, others "
+                    f"{sorted(set(how))}")
+    del model, params, provider, store, tier
+    torch.cuda.empty_cache()
+    _free_host_cache()
+
+
+def phase_stream(dev):
+    """``--stream`` and the whole run: phase 9's tier released, then phases
+    31 to 33 (31 and 32 on one build). Returns the launches of 31 and 32."""
+    _free_host_cache()
+    counts, b = _subphase(phase_stream_decode, dev)
+    counts = _sum_counts(counts, _subphase(phase_direct_layers, dev, b))
+    del b
+    _free_host_cache()
+    _subphase(phase_stream_whole_path, dev)
+    return counts
+
+
 def main() -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -5969,11 +6521,16 @@ def main() -> int:
         say(f"[card] {smi}")
         return 0
 
-    if "--offload" in sys.argv[1:]:
-        timed(phase_offload)
-        timed(phase_offload_whole_path)
-        timed(phase_offload_spec)
-        timed(phase_offload_spec_whole_path)
+    if "--stream" in sys.argv[1:] or "--offload" in sys.argv[1:]:
+        if "--offload" in sys.argv[1:]:
+            timed(phase_offload)
+            timed(phase_offload_whole_path)
+            timed(phase_offload_spec)
+            timed(phase_offload_spec_whole_path)
+        r = check_stream_gather(dev)
+        say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) library_ms={r['library_ms']:.4f}")
+        say(f"[stream] launches of phases 31 and 32 {json.dumps(timed(phase_stream))}")
         say(f"[card] {smi}")
         return 0
     if "--resident" in sys.argv[1:]:
@@ -6023,6 +6580,7 @@ def main() -> int:
     timed(phase_offload_whole_path)
     spec_counts = timed(phase_offload_spec, extra)
     timed(phase_offload_spec_whole_path)
+    st_counts = timed(phase_stream)  # phases 31-33, after phase 9's tier is released
     _free_host_cache()  # the NLLB tier's page-locked memory, before Switch's
     extra["phase_s2s_batchers_whole_path"] = timed(phase_s2s_batchers_whole_path) or {}
     sw_counts = timed(phase_switch, extra)
@@ -6040,8 +6598,8 @@ def main() -> int:
     say(f"[batchers] launches by phase {json.dumps(extra)}")
     for r in recs:
         r["launches"] = sum(c.get(r["name"], 0) for c in (
-            counts, mix_counts, mla_counts, off_counts, spec_counts, sw_counts, sw_off_counts,
-            mx_off_counts, ds_off_counts, ep_counts, gk_counts, ac_counts, ge_counts,
+            counts, mix_counts, mla_counts, off_counts, spec_counts, st_counts, sw_counts,
+            sw_off_counts, mx_off_counts, ds_off_counts, ep_counts, gk_counts, ac_counts, ge_counts,
             *extra.values()))
         r.pop("shape")
     say(f"[card] {smi}")

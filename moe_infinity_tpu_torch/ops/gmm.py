@@ -26,7 +26,8 @@ arithmetic (x and w rounded to bf16, exact products, f32 sums).
 device, gate gmm (and up gmm, or one fused gateup gmm whose output halves
 are ``[gate | up]``), gate bias, activation, down gmm, down bias, and the
 combine-weighted ``index_add_``. No host sync: the groups are compacted to
-``min(S, T*K)`` and an empty one owns no work in the kernel.
+``min(E, T*K)`` (E: the layer's experts) and an empty one owns no work in
+the kernel.
 """
 
 from __future__ import annotations
@@ -203,8 +204,6 @@ def gffn_pallas(x, expert_ids, combine_weights, expert_to_slot,
         raise ValueError("gffn_pallas: pre-tiled [S, F/tf, D, tf] weights are not ported")
     T, D = x.shape
     K = expert_ids.shape[1]
-    S = next(weights[k].shape[0] for k in ("gateup4", "gateup", "gate4", "gate")
-             if k in weights)
     compute_dtype = x.dtype
 
     flat_slots = expert_to_slot[expert_ids.long()].reshape(-1)
@@ -212,11 +211,13 @@ def gffn_pallas(x, expert_ids, combine_weights, expert_to_slot,
     sorted_slots = flat_slots[order].long()
     inv_token = order // K
     xs = x[inv_token]
-    # compact the grid to the routed slots: at most T*K of S are active, and
-    # no more than the layer's E experts, so that a slot arena of any size
-    # launches the grid (and the split plan) of the resident layer
+    # compact the grid to the routed slots: at most T*K are active, and no
+    # more than the layer's E experts (expert_to_slot's length), so that a
+    # slot arena of any size, or a stream's scratch of U records, launches
+    # the grid (and the split plan) of the resident layer; groups past the
+    # routed slots are empty
     E = expert_to_slot.shape[0]
-    group_ids, group_sizes = compact_groups(sorted_slots, min(S, E, flat_slots.shape[0]))
+    group_ids, group_sizes = compact_groups(sorted_slots, min(E, flat_slots.shape[0]))
 
     def run(role, xin):
         p = role + "4" in weights

@@ -18,6 +18,9 @@ Implementations of ``grouped_ffn``:
     as there, the first products round x to the slab's type, fp8 too);
   * ``"dense"`` - plain PyTorch reference: every slot for every token
     through one-hot masks, O(T*S*F*D), for tests and tiny models.
+
+A ``StreamSource`` in place of the weights gathers the routed experts from
+the pinned tier inside the step (``ops/stream.py``).
 """
 
 from __future__ import annotations
@@ -155,7 +158,14 @@ def grouped_ffn(
     weights: 'gate' [S, D, F], optional 'up' [S, D, F] (gated, e.g. SiLU
     for Mixtral), or fused 'gateup' [S, D, 2F]; 'down' [S, F, D]; optional
     '<role>_scale' [S, out]. biases (NLLB): 'gate_bias' [S, F], 'down_bias'
-    [S, D]."""
+    [S, D]. weights may instead be a ``StreamSource`` (``ops/stream.py``):
+    the routed experts are gathered from the pinned tier in the step, and
+    expert_to_slot is not read."""
+    if hasattr(weights, "rec_row"):
+        from moe_infinity_tpu_torch.ops.stream import gffn_stream
+
+        return gffn_stream(x, expert_ids, combine_weights, weights, activation,
+                           max_unique=weights.max_unique, impl=weights.impl or impl)
     # a -1 slot (non-resident expert) contributes zero, never a stale slot
     expert_ids = expert_ids.long()
     invalid = expert_to_slot[expert_ids] < 0

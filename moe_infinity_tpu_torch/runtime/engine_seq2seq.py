@@ -47,19 +47,37 @@ the same launches eagerly (for comparison); on CPU tensors the steps run
 eagerly unless a capture backend is given. The per-layer path and the
 encoder stay eager: they read the routing on the host at every MoE layer.
 
+**Direct-tier layers.** A MoE layer whose whole expert set sits in one
+segment of a layer-aligned pinned tier (``align_rows=num_experts``) runs its
+grouped FFN straight from that segment (``PinnedExpertTier.layer_stack``,
+copied to the card once) with an identity slot row: no slot, no fetch, no
+miss, no replay for that layer, on every path. ``max_direct_layers`` takes
+the deepest such layers (None: all; 0: none). Speculative verification and
+prefetch leave them out.
+
+**Stream decode** (``stream_decode=True``, with a tier and
+``speculative=True``). Greedy blocks of k steps (k = 1 too) gather each
+decoder MoE layer's routed experts from the tier inside the step
+(``ops/stream.py``: ``stream_gather``, then K3 over the scratch), so the
+decoder needs no arena residency and has no replay. The trace is read once
+per dispatch; a layer that routed more than U distinct experts (or an
+unstaged one) at some step had those contributions masked, so the block
+runs again at twice the U, which stays (one graph per (k, U)). At U = E an
+unstaged expert raises. The encoder keeps the per-layer arena path.
+
 One difference from the JAX engine: only capacity errors
 (``is_spec_capacity_error``) change the path. JAX treats any other
 ``RuntimeError`` as transient and single-steps or falls back to the
-per-layer path; here a failed CUDA launch is a ``RuntimeError`` too, so such
-errors are raised, never hidden behind another path.
+per-layer path, and turns stream decode off for good when a stream
+dispatch fails; here a failed CUDA launch is a ``RuntimeError`` too, so
+such errors are raised, never hidden behind another path.
 
 Sampled requests (``runtime/sampling.py``) take the speculative step or
 the per-layer path, one token a step; the k-step blocks stay plain greedy,
 as in JAX.
 
-Not ported (each raises ``NotImplementedError``): direct-tier layers
-(ROADMAP queue-1 item 9.4), stream decode (13), dense-layer paging (16) and
-the host fallback (8, ``host_exec.py``).
+Not ported (each raises ``NotImplementedError``): dense-layer paging
+(ROADMAP queue-1 item 16) and the host fallback (8, ``host_exec.py``).
 """
 
 from __future__ import annotations
@@ -116,16 +134,11 @@ def stack_depths(spec) -> tuple:
 
 
 def _block_steps(model, params, impl: str, k: int):
-    """The body of a k-step greedy block: ``steps(tree, rows, tok0, step0,
+    """The body of a k-step greedy block: ``steps(for_layer, tok0, step0,
     kvs, mask, cross) -> (toks [B, k], trace [L_moe, B, k, K'])``, step0 an
     int or a 0-d tensor on the device."""
 
-    def steps(tree, rows, tok0, step0, kvs, mask, cross):
-        weights, biases = _split_arena_tree(tree)
-
-        def for_layer(_experts, mli):
-            return weights, rows[mli], biases
-
+    def steps(for_layer, tok0, step0, kvs, mask, cross):
         B = tok0.shape[0]
         tok, toks, traces = tok0, [], []
         for j in range(k):
@@ -139,6 +152,21 @@ def _block_steps(model, params, impl: str, k: int):
         return torch.cat(toks, dim=1), torch.cat(traces, dim=2)
 
     return steps
+
+
+def _slot_layers(tree, rows, direct, ident):
+    """``for_layer`` of a step over the arena's slot tensors and the slot rows
+    ``[L, E]``; a direct-tier layer (``direct``: MoE layer -> (weights,
+    biases)) gets its stack and the identity row ``ident``."""
+    weights, biases = _split_arena_tree(tree)
+
+    def for_layer(_experts, mli):
+        d = direct.get(mli)
+        if d is not None:
+            return d[0], ident, d[1]
+        return weights, rows[mli], biases
+
+    return for_layer
 
 
 class Seq2SeqOffloadEngine(_LayerClock):
@@ -165,8 +193,9 @@ class Seq2SeqOffloadEngine(_LayerClock):
         max_replays: Optional[int] = None,
         spec_block: int = 1,
         route_margin: int = 2,
-        max_direct_layers: Optional[int] = 0,
+        max_direct_layers: Optional[int] = None,
         stream_decode: bool = False,
+        stream_unique: int = 32,
         dense_arena=None,
         host_fallback: bool = False,
         graphs: bool = True,
@@ -175,9 +204,11 @@ class Seq2SeqOffloadEngine(_LayerClock):
         """impl: the grouped-FFN implementation of one-token decode steps
         (``"pallas"`` is K3); prefill_impl: that of the encoder and of
         steps of more than one token (default ``impl``).
-        max_direct_layers: 0 keeps every layer on the arena; any other value
-        asks for direct-tier layers, which are not ported and raise when the
-        tier holds a layer that could serve them.
+        max_direct_layers: of the layers a layer-aligned tier stages whole,
+        how many (the deepest) run direct from the tier (None: all, 0: none).
+        stream_decode: decode greedy blocks by gathering the routed experts
+        from the tier in the step (needs the tier and speculative);
+        stream_unique: the first U of that gather (at least 2).
         speculative: decode by speculative steps (``spec_block`` 1) or
         k-step blocks; max_replays bounds the executions of one step or
         block (default: from the MoE depth and k); route_margin: runner-up
@@ -189,8 +220,6 @@ class Seq2SeqOffloadEngine(_LayerClock):
         run eagerly unless one is given). On the card an ``impl`` that
         cannot be captured ("ragged") raises ``ValueError`` unless graphs is
         False."""
-        if stream_decode:
-            raise _not_ported("stream_decode", "13")
         if dense_arena is not None:
             raise _not_ported("dense_arena (paging of the dense layers)", "16")
         if host_fallback:
@@ -198,10 +227,13 @@ class Seq2SeqOffloadEngine(_LayerClock):
         if arena.num_slots < model.spec.num_experts:
             raise ValueError("arena must fit one full MoE layer of experts")
         tier = arena._tier
-        if max_direct_layers != 0 and tier is not None and any(
-            tier.direct_segment(mli) is not None for mli in range(arena.num_layers)
-        ):
-            raise _not_ported("direct-tier dispatch (layers staged whole in the tier)", "9.4")
+        if stream_decode:
+            if tier is None or not tier.fields:
+                raise ValueError("stream_decode requires a pinned tier")
+            if not speculative:
+                raise ValueError("stream_decode rides the block-decode loop; pass "
+                                 "speculative=True")
+            route_margin = 0  # a margin column would count as a routed expert
         self.model = model
         self.params = params
         self.arena = arena
@@ -242,7 +274,50 @@ class Seq2SeqOffloadEngine(_LayerClock):
         self.step_times: list = []
         # decoder steps run on the device, replays included
         self.executed_steps = 0
-        self._direct_mlis = frozenset()  # direct-tier layers: item 9.4
+        # tier records the stream gathers read, over every executed step
+        self.stream_records = 0
+        E = model.spec.num_experts
+        self._identity = torch.arange(E, dtype=torch.int32, device=model.device)
+        # ---- direct-tier layers: role -> the layer's [E, ...] stack on the card
+        self._direct: dict = {}
+        if tier is not None:
+            candidates = [mli for mli in range(arena.num_layers)
+                          if tier.layer_stack(mli, promote=False) is not None]
+            if max_direct_layers is not None:
+                # deepest first: deep layers churn most and settle last
+                candidates = candidates[max(0, len(candidates) - max_direct_layers):]
+            for mli in candidates:
+                stack = tier.layer_stack(mli)
+                self._direct[str(mli)] = {akey: stack[tail]
+                                          for akey, tail in arena._role_to_tail.items()
+                                          if akey in arena._arena}
+        self._direct_mlis = frozenset(int(k) for k in self._direct)
+        self._direct_split = {int(k): _split_arena_tree(d) for k, d in self._direct.items()}
+        if self._direct:
+            _log.info("direct-tier dispatch for %d/%d MoE layers: %s", len(self._direct),
+                      arena.num_layers, sorted(self._direct_mlis))
+        # ---- stream decode: the tier's segments, read in the step
+        self._stream = bool(stream_decode)
+        if self._stream:
+            self._stream_fields = {akey: list(tier.fields[tail])
+                                   for akey, tail in arena._role_to_tail.items()
+                                   if akey in arena._arena}
+            self._stream_rec_rows = {mli: tier._rec_row[mli * E:(mli + 1) * E].copy()
+                                     for mli in range(arena.num_layers)}
+            self._stream_rows_dev = {mli: torch.from_numpy(r).to(model.device)
+                                     for mli, r in self._stream_rec_rows.items()}
+            self._stream_seg_rows = tier._seg_rows
+            self._stream_U = max(2, int(stream_unique))
+            self._stream_src_cache: dict = {}
+            self._stream_block_cache: dict = {}
+            # the segments' device addresses, checked and made once, shared by
+            # every layer's source
+            self._stream_table = None
+            if model.device.type == "cuda":
+                self._stream_table = self._stream_source(0, self._stream_U).device_table(
+                    model.device)
+            _log.info("stream decode: in-step gather from %d tier segments, U0=%d",
+                      len(next(iter(self._stream_fields.values()))), self._stream_U)
         if speculative:
             model.route_margin = max(0, int(os.environ.get("MOE_ROUTE_MARGIN", route_margin)))
         # one graph per step shape (the JAX engine's jit cache), and the
@@ -275,7 +350,9 @@ class Seq2SeqOffloadEngine(_LayerClock):
         self._last_layer_t = None
 
     def is_resident(self, key) -> bool:
-        return self.arena.is_resident(key)
+        """Residency counting direct-tier layers: the planners never order a
+        fetch of an expert that is computed in place."""
+        return key[0] in self._direct_mlis or self.arena.is_resident(key)
 
     # ---- shared expert acquire/apply --------------------------------------
     def init_cache(self, batch: int, cap: int):
@@ -317,14 +394,18 @@ class Seq2SeqOffloadEngine(_LayerClock):
                 self.tracer.update_entry(sid, ids_np[b], mli)
 
     def _moe_dispatch(self, x, h, cw, ids, keys, mli):
-        """Acquire + apply one MoE layer against the slot arena."""
+        """Acquire + apply one MoE layer against the slot arena (a direct-tier
+        layer: straight from its stack, nothing acquired)."""
+        impl = self._impl if h.shape[1] == 1 else self._pimpl
+        if mli in self._direct_mlis:
+            weights, biases = self._direct_split[mli]
+            return self.model.apply_ff(x, h, cw, ids, weights, self._identity, biases, impl)
         self.arena.acquire(keys, mli)
         # a fresh host copy of the row, uploaded synchronously: the compute
         # stream holds no queued work here (the routed ids were just read)
         row = torch.from_numpy(self.arena.slot_map(mli)).to(self.model.device)
         with self.arena.locked_tree(keys) as tree:
             weights, biases = _split_arena_tree(tree)
-            impl = self._impl if h.shape[1] == 1 else self._pimpl
             x = self.model.apply_ff(x, h, cw, ids, weights, row, biases, impl)
         self.arena.release(keys)
         return x
@@ -388,22 +469,23 @@ class Seq2SeqOffloadEngine(_LayerClock):
 
     # ---- speculative decode -----------------------------------------------
     def _closes_over(self, tree, kvs, mask, cross) -> list:
-        """Every tensor a step's graph reads by address."""
-        return [*self._param_tensors, *flat_tensors(tree), *flat_tensors(kvs), mask,
-                *flat_tensors(cross)]
+        """Every tensor a step's graph reads by address (the direct-tier
+        stacks too)."""
+        return [*self._param_tensors, *flat_tensors(tree), *flat_tensors(self._direct),
+                *flat_tensors(kvs), mask, *flat_tensors(cross)]
 
     def _spec_step(self, tree, slot_rows, tok, positions, step, kvs, mask, cross):
         """One whole decoder step over the slots: (logits, kvs, trace). With
         graphs, one replay of the step's graph (``positions`` then comes from
         the step, a device input); the logits are its static output."""
         self.executed_steps += 1
-        model = self.model
+        model, params, impl = self.model, self.params, self._impl
+        direct, ident = self._direct_split, self._identity
 
         def run(tok, step, rows, positions):
-            weights, biases = _split_arena_tree(tree)
             logits, _, trace = model.decode_step(
-                self.params, None, tok, positions, kvs, step, mask, cross,
-                lambda _experts, mli: (weights, rows[mli], biases), self._impl,
+                params, None, tok, positions, kvs, step, mask, cross,
+                _slot_layers(tree, rows, direct, ident), impl,
             )
             return logits, trace
 
@@ -434,12 +516,15 @@ class Seq2SeqOffloadEngine(_LayerClock):
 
         def block(tree, slot_rows, tok0, step0, kvs, mask, cross):
             self.executed_steps += k
+            direct, ident = self._direct_split, self._identity
             if self.graphs is None:
-                toks, trace = steps(tree, slot_rows, tok0, step0, kvs, mask, cross)
+                toks, trace = steps(_slot_layers(tree, slot_rows, direct, ident), tok0, step0,
+                                    kvs, mask, cross)
             else:
                 toks, trace = self.graphs.run(
                     f"block{k}",
-                    lambda tok, step, rows: steps(tree, rows, tok, step, kvs, mask, cross),
+                    lambda tok, step, rows: steps(_slot_layers(tree, rows, direct, ident), tok,
+                                                  step, kvs, mask, cross),
                     {"tok": tok0, "step": step0, "rows": slot_rows},
                     self._closes_over(tree, kvs, mask, cross), steps=k)
             return toks, kvs, trace
@@ -448,10 +533,111 @@ class Seq2SeqOffloadEngine(_LayerClock):
 
     def _direct_filtered(self, key_fn, margin_fn, mlis):
         """(key_fn, margin_fn) with direct-tier layers dropped from
-        verification and margin prefetch; with no direct layer, unchanged."""
-        if self._direct_mlis:
-            raise _not_ported("direct-tier dispatch", "9.4")
-        return key_fn, margin_fn
+        verification and acquisition (their experts are always in place) and
+        from margin prefetch; with no direct layer, unchanged."""
+        if not self._direct_mlis:
+            return key_fn, margin_fn
+        base = key_fn or (lambda ids, j: np.unique(ids[j]))
+        direct = self._direct_mlis
+
+        def kf(ids, j):
+            return np.empty(0, np.int64) if mlis[j] in direct else base(ids, j)
+
+        mf = None
+        if margin_fn is not None:
+            def mf(ids_np):
+                return [key for key in margin_fn(ids_np) if key[0] not in direct]
+
+        return kf, mf
+
+    # ---- stream decode ----------------------------------------------------
+    def _stream_source(self, mli: int, U: int):
+        from moe_infinity_tpu_torch.ops.stream import StreamSource
+
+        return StreamSource(self._stream_fields, self._stream_rows_dev[mli],
+                            self._stream_seg_rows, max_unique=U, impl=self._impl,
+                            table=self._stream_table)
+
+    def _stream_sources(self, U: int) -> dict:
+        """MoE layer -> its ``StreamSource`` at gather width U (made once per U)."""
+        src = self._stream_src_cache.get(U)
+        if src is None:
+            src = self._stream_src_cache[U] = {
+                mli: self._stream_source(mli, U) for mli in self._stream_rec_rows}
+        return src
+
+    def _stream_block_fn(self, k: int):
+        """A k-step greedy block whose MoE layers gather their routed experts
+        from the tier: ``block(U, tok0 [B, 1], step0, kvs, mask, cross)`` ->
+        (toks [B, k], kvs, trace [L_moe, B, k, K]), on the device. With
+        graphs each call is one replay of the graph of (k, U), as the JAX
+        engine compiles one block per (k, U)."""
+        steps = self._stream_block_cache.get(k)
+        if steps is None:
+            steps = self._stream_block_cache[k] = _block_steps(
+                self.model, self.params, self._impl, k)
+
+        def block(U, tok0, step0, kvs, mask, cross):
+            self.executed_steps += k
+            sources, ident = self._stream_sources(U), self._identity
+
+            def for_layer(_experts, mli):
+                return sources[mli], ident, None
+
+            if self.graphs is None:
+                toks, trace = steps(for_layer, tok0, step0, kvs, mask, cross)
+            else:
+                reads = [*self._param_tensors, *flat_tensors(kvs), mask, *flat_tensors(cross),
+                         *self._stream_rows_dev.values(), self._stream_table]
+                toks, trace = self.graphs.run(
+                    f"stream{k}u{U}",
+                    lambda tok, step: steps(for_layer, tok, step, kvs, mask, cross),
+                    {"tok": tok0, "step": step0}, [t for t in reads if t is not None],
+                    steps=k)
+            return toks, kvs, trace
+
+        return block
+
+    def _stream_block(self, cur_tok, step: int, kvs, mask, cross, dec_mlis, seq_ids, k: int):
+        """k greedy decode steps with the experts gathered in the step. The
+        only re-dispatch is the host's exact check of the trace: a (layer,
+        step) that routed more than U distinct experts, or an unstaged one,
+        had those contributions masked, so the block runs again at twice the
+        U, which stays (routing width belongs to the workload, not to one
+        block). Returns (tokens [B, k] numpy, kvs)."""
+        from moe_infinity_tpu_torch.ops.stream import stream_overflow, stream_records
+
+        E = self.model.spec.num_experts
+        fn = self._stream_block_fn(k)
+        execs = 0
+        while True:
+            t0 = _time.perf_counter()
+            toks, kvs, tr = fn(self._stream_U, cur_tok, step, kvs, mask, cross)
+            ids_np = tr.cpu().numpy()  # [L, B, k, K]
+            toks = toks.cpu().numpy().copy()  # a copy: the next replay overwrites the output
+            self.phase_timings["dispatch_s"] = (
+                self.phase_timings.get("dispatch_s", 0.0) + _time.perf_counter() - t0)
+            execs += 1
+            self.stream_records += sum(
+                stream_records(ids_np[j, :, jj], self._stream_U, self._stream_rec_rows[mli])
+                for j, mli in enumerate(dec_mlis) for jj in range(k))
+            over = any(stream_overflow(ids_np[j, :, jj], self._stream_U,
+                                       self._stream_rec_rows[mli])
+                       for j, mli in enumerate(dec_mlis) for jj in range(k))
+            if not over:
+                break
+            if self._stream_U >= E:
+                raise RuntimeError("stream decode: an unstaged expert was routed at U=E; "
+                                   "stage the full decoder tier or disable stream_decode")
+            self._stream_U = min(E, self._stream_U * 2)
+            _log.info("stream decode U escalated to %d", self._stream_U)
+        self.replay_counts.append(execs)
+        if self.tracer is not None and seq_ids:
+            for j, mli in enumerate(dec_mlis):
+                for b, sid in enumerate(seq_ids):
+                    if sid is not None:
+                        self.tracer.update_entry(sid, ids_np[j, b].ravel(), mli)
+        return toks, kvs
 
     def _trace_and_prefetch(self, top, dec_mlis, seq_ids, k, extra_orders=()):
         t0 = _time.perf_counter()
@@ -468,7 +654,10 @@ class Seq2SeqOffloadEngine(_LayerClock):
         """k greedy decode steps as one speculative block. ``whole`` (the
         default ``MOE_SPEC_BLOCK_MODE``) replays the whole block on a miss;
         ``prefix`` accepts the verified prefix and runs the suffix again.
-        Returns (tokens [B, k] numpy, kvs)."""
+        Under stream decode, a stream block instead. Returns (tokens [B, k]
+        numpy, kvs)."""
+        if self._stream:
+            return self._stream_block(cur_tok, step, kvs, mask, cross, dec_mlis, seq_ids, k)
         margin = self.model.route_margin
         if os.environ.get("MOE_SPEC_BLOCK_MODE", "whole") == "whole":
             fn = self._spec_block_fn(k)
@@ -683,7 +872,9 @@ class Seq2SeqOffloadEngine(_LayerClock):
         step = steps = 0
         while step < max_new_tokens:
             it0 = _time.perf_counter()
-            if self.speculative and self.spec_block > 1 and sp.trivial:
+            # stream decode takes the block path at k = 1 too: its block is
+            # the in-step gather, with no arena verification
+            if self.speculative and (self.spec_block > 1 or self._stream) and sp.trivial:
                 k = quantize_block(max_new_tokens - step, self.spec_block)
                 try:
                     toks, kvs = self._speculative_block(cur_tok, step, kvs, mask, cross,

@@ -15,8 +15,13 @@
   (``runtime/graphs.py``), the counterpart of the JAX version's jitted
   ``_step``: the token and the step are its device inputs, and the
   generator owns the K/V caches, cross K/V and mask it reads
-  (``graphs=False`` runs the step eagerly). A plain greedy loop keeps the
-  tokens on the device and copies them to the host once at the end; with
+  (``graphs=False`` runs the step eagerly). With graphs one request decodes
+  at a time: concurrent ``generate`` calls of one shape would share those
+  buffers and the graph's static outputs, so each holds the generator's
+  lock from copying its inputs in to its last read of an output, and the
+  next request's stream waits for the last replay's (the JAX version keeps
+  no per-call buffers, so its calls are independent). A plain greedy loop
+  keeps the tokens on the device and copies them to the host once at the end; with
   ``eos_token_id`` set, or any sampling, it reads each step's tokens on the
   host, as the JAX version does.
 
@@ -30,7 +35,9 @@ as tensor ops on the model's device after each step's logits.
 
 from __future__ import annotations
 
+import threading
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
 
@@ -314,6 +321,29 @@ class Seq2SeqGenerator:
         if self.graphs is not None:
             self._buffers = DecodeBuffers(model)
             self._weights = flat_tensors(params) + flat_tensors(experts)
+            self._lock = threading.Lock()
+            self._done: Optional[torch.cuda.Event] = None  # the last decode's replays
+
+    @contextmanager
+    def _decoding(self):
+        """One request's hold on the buffers and graphs, with graphs on: the
+        lock, and on the card the current stream ordered after the replays of
+        the decode before (the host lock does not order the device: another
+        thread's stream could copy its mask in while they are still queued).
+        Whatever leaves the scope must be a copy of a graph output."""
+        if self.graphs is None:
+            yield
+            return
+        dev = self.model.device
+        with self._lock:
+            if self._done is not None:
+                torch.cuda.current_stream(dev).wait_event(self._done)
+            try:
+                yield
+            finally:
+                if dev.type == "cuda":
+                    self._done = torch.cuda.Event()
+                    self._done.record(torch.cuda.current_stream(dev))
 
     def decoder(self, B: int, cap: int, mask, cross):
         """``step(cur [B, 1] int32, step) -> (logits [B, 1, V] f32, next
@@ -397,7 +427,6 @@ class Seq2SeqGenerator:
                                self._for_layer, self._impl)
         cross = model.cross_kv(self.params, enc_out)
         t1 = clock.mark()
-        step_fn = self.decoder(B, _bucket_len(max_new_tokens + 1), mask, cross)
 
         out = np.full((B, max_new_tokens + 1), pad_token_id, dtype=np.int64)
         out[:, 0] = start
@@ -408,26 +437,30 @@ class Seq2SeqGenerator:
         sampler, state, lps = Sampler(sp), None, _Logprobs(sp.logprobs)
         host_loop = eos_token_id is not None or not sp.trivial
         steps = 0
-        for step in range(max_new_tokens):
-            logits, nxt = step_fn(cur, step)
-            if not sp.trivial:
-                if state is None:
-                    state = sampler.init(B, logits.shape[-1], prompt_ids=np.full((B, 1), start),
-                                         seed=seed, device=dev)
-                sout, state = sampler(logits[:, -1, :], state)
-                lps.record(sout)
-                nxt = sout.token
-            new_toks[:, step] = nxt
-            steps = step + 1
-            if host_loop:
-                tok_host = nxt.cpu().numpy()
-                out[~finished, step + 1] = tok_host[~finished]
-                num_gen[~finished] += 1
-                if eos_token_id is not None:
-                    finished |= eos_hit(tok_host, eos_token_id)
-                    if finished.all():
-                        break
-            cur = nxt[:, None].to(torch.int32)
+        with self._decoding():
+            step_fn = self.decoder(B, _bucket_len(max_new_tokens + 1), mask, cross)
+            for step in range(max_new_tokens):
+                logits, nxt = step_fn(cur, step)
+                if not sp.trivial:
+                    if state is None:
+                        state = sampler.init(B, logits.shape[-1],
+                                             prompt_ids=np.full((B, 1), start), seed=seed,
+                                             device=dev)
+                    # the sampler's state and logprobs are new tensors, not views
+                    sout, state = sampler(logits[:, -1, :], state)
+                    lps.record(sout)
+                    nxt = sout.token
+                new_toks[:, step] = nxt
+                steps = step + 1
+                if host_loop:
+                    tok_host = nxt.cpu().numpy()
+                    out[~finished, step + 1] = tok_host[~finished]
+                    num_gen[~finished] += 1
+                    if eos_token_id is not None:
+                        finished |= eos_hit(tok_host, eos_token_id)
+                        if finished.all():
+                            break
+                cur = nxt[:, None].to(torch.int32)  # a copy: int64 -> int32
         t2 = clock.mark()
         if not host_loop:
             out[:, 1:steps + 1] = new_toks[:, :steps].cpu().numpy()  # one sync

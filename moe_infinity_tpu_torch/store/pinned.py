@@ -210,9 +210,25 @@ class PinnedExpertTier:
         return int(rows[0] // E)
 
     def layer_stack(self, layer: int, promote: bool = True):
-        raise NotImplementedError(
-            "layer_stack (direct-tier dispatch) is not ported (ROADMAP queue-1 item 9, step 4)"
-        )
+        """Per-field ``[E, *shape]`` tensors of ``layer`` when its FULL expert
+        set is staged in one segment (``direct_segment``), else None: the
+        direct-dispatch view, from which an engine computes the layer's
+        grouped FFN with an identity slot row (no slot, no fetch, no
+        replay). promote: copy the segment to the card once (E records,
+        2.16 GB for an NLLB-MoE-54B int4 layer) and put the device tensor in
+        the tier's place, so the arena's tier path and the direct dispatch
+        read one copy; a no-op on a CPU tier."""
+        s = self.direct_segment(layer)
+        if s is None:
+            return None
+        out = {}
+        for name, segs in self.fields.items():
+            a = segs[s]
+            if promote and a.device.type != "cuda" and self.device.type == "cuda":
+                a = a.to(self.device)
+                segs[s] = a  # one resident copy, not two
+            out[name] = a
+        return out
 
     def record_index(self, layer: int, expert: int) -> Optional[int]:
         """Staged row for (layer, expert), or None if it must come from the

@@ -248,8 +248,10 @@ def test_unported_options_raise(stores, tmp_path):
         assert fp8.pytree()["gate"].dtype == torch.float8_e4m3fn
     finally:
         fp8.shutdown()
-    with pytest.raises(NotImplementedError):
-        PinnedExpertTier(ExpertStore(path), device="cpu").layer_stack(0)
+    # layer_stack is served: a tier that is not layer-aligned has no layer
+    # stack, as the JAX tier's returns None
+    assert PinnedExpertTier(ExpertStore(path), device="cpu").layer_stack(0) is None
+    assert JTier(JStore(path), shared_record=False).layer_stack(0, promote=False) is None
 
 
 # ---------------------------------------------------------------------------
@@ -387,6 +389,35 @@ def test_direct_segment():
     assert [tier.direct_segment(layer) for layer in range(3)] == [2, 0, 1]
     assert PinnedExpertTier(store, device="cpu", shared_record=False,
                             synth_on_device=False).direct_segment(1) is None
+
+
+@pytest.mark.parametrize("quant", ["float32", "int4"])
+@pytest.mark.parametrize("records", [None, 10])
+def test_layer_stack_equals_jax(stores, quant, records):
+    """A layer-aligned tier (``align_rows`` = E): the layers staged whole
+    give the same [E, ...] stacks as the JAX tier's ``layer_stack`` on the
+    same store, byte for byte, decoder layers first; under a byte budget
+    the layers not staged whole give None in both. ``promote`` on a CPU
+    tier changes nothing."""
+    path = stores[quant]
+    store = ExpertStore(path)
+    E = store.num_experts
+    kw = dict(max_bytes=None if records is None else records * store.stride)
+    tier = PinnedExpertTier(store, device="cpu", shared_record=False, align_rows=E, **kw)
+    jtier = JTier(JStore(path), shared_record=False, align_rows=E, **kw)
+    whole = 0
+    for layer in range(store.num_layers):
+        got, want = tier.layer_stack(layer), jtier.layer_stack(layer, promote=False)
+        assert (got is None) == (want is None), layer
+        if got is None:
+            continue
+        whole += 1
+        assert set(got) == set(want)
+        for name, a in got.items():
+            np.testing.assert_array_equal(a.view(torch.uint8).numpy(),
+                                          np.asarray(want[name]).view(np.uint8), err_msg=name)
+        assert tier.layer_stack(layer, promote=False)[name] is a
+    assert whole == (store.num_layers if records is None else records // E)
 
 
 # ---------------------------------------------------------------------------

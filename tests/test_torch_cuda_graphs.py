@@ -102,6 +102,56 @@ def test_generator_graph_equals_eager_f32(dev):
     assert (st["captures"], st["recaptures"]) == (1, 0)
 
 
+def test_generator_serves_two_threads_on_two_streams(dev):
+    """Fault F3 on the card: two threads, each on a stream of its own, send
+    their own two rows (one shape) 5 times to one resident generator with
+    graphs, whose graph and decoder buffers the two share. Every output
+    equals the eager run's alone: the generator's lock serializes the
+    requests and its event orders each after the replays of the one before.
+    The embedding and attention are scaled up so that tokens depend on the
+    source."""
+    import threading
+
+    model, params, experts = _resident(dev, SPEC, torch.float32, 0)
+    params["embed"] = params["embed"] * 8.0
+    for blk in params["enc_blocks"] + params["dec_blocks"]:
+        for attn in ("self_attn", "cross_attn"):
+            for n, f in (("q", 10.0), ("k", 10.0), ("v", 15.0), ("o", 15.0)):
+                if attn in blk:
+                    blk[attn][n] = blk[attn][n] * f
+    graphed = Seq2SeqGenerator(model, params, experts, ResidentProvider.for_layer,
+                               impl="pallas")
+    eager = Seq2SeqGenerator(model, params, experts, ResidentProvider.for_layer,
+                             impl="pallas", graphs=False)
+    tok, mask = _inputs(dev, 0)
+    ids, m = tok.cpu().numpy(), mask.cpu().numpy()
+    reqs = [(ids[:2], m[:2]), (ids[2:], m[2:])]
+    gen = dict(max_new_tokens=24, eos_token_id=None)
+    want = [eager.generate(i, attention_mask=mm, **gen).sequences for i, mm in reqs]
+    assert not np.array_equal(want[0], want[1])
+    got, errors = [[None] * 5 for _ in reqs], []
+
+    def serve(i):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                for n in range(5):
+                    got[i][n] = graphed.generate(reqs[i][0], attention_mask=reqs[i][1],
+                                                 **gen).sequences
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for i in range(2):
+        for out in got[i]:
+            np.testing.assert_array_equal(out, want[i])
+    assert graphed.graph_stats()["captures"] == 1
+
+
 @pytest.mark.parametrize("seed", [7, 8])
 def test_offload_step_graph_equals_eager_f32(dev, seed):
     """The speculative whole step (k=1) of the offload engine over an arena

@@ -730,3 +730,59 @@ def test_head_dims_other_than_64_and_128_raise(dev):
         with pytest.raises(ValueError, match="head_dim 64 or 128"):
             fa.flash_attend(q, q, q, torch.zeros(2, 1, dtype=torch.int32, device=dev), 1,
                             bias=torch.zeros(1, 4, 1, 1, device=dev))
+
+
+# ---- stream_gather (csrc/stream.cu) -----------------------------------------
+
+def _stream_source(dev, n_rec, seg_rows, promote=(), shapes=((64, 256), (512,), (256, 32))):
+    """A StreamSource over page-locked segments of int8/f32 records (the
+    segments in ``promote`` on the card), and the records stacked on the
+    host."""
+    from moe_infinity_tpu_torch.ops.stream import StreamSource
+
+    g = torch.Generator().manual_seed(n_rec)
+    fields, stacks = {}, {}
+    for i, shape in enumerate(shapes):
+        if len(shape) == 2:
+            full = torch.randint(-128, 128, (n_rec,) + shape, dtype=torch.int8, generator=g)
+        else:
+            full = torch.randn((n_rec,) + shape, generator=g)
+        segs = []
+        for s, lo in enumerate(range(0, n_rec, seg_rows)):
+            seg = full[lo:lo + seg_rows].clone().pin_memory()
+            segs.append(seg.to(dev) if s in promote else seg)
+        fields[f"role{i}"], stacks[f"role{i}"] = segs, full
+    return StreamSource(fields, rec_row=None, seg_rows=seg_rows), stacks
+
+
+@pytest.mark.parametrize("U,promote", [(8, ()), (64, ()), (13, (1,))])
+def test_stream_gather_kernel(dev, U, promote):
+    """The gather kernel against its plain version and the host's indexing:
+    records across segments (the last one shorter), rows of -1 reading
+    nothing (zeros), a promoted (device) segment among pinned ones; launches
+    counted."""
+    from moe_infinity_tpu_torch.ops import stream as st
+
+    n_rec, seg_rows = 100, 30
+    source, stacks = _stream_source(dev, n_rec, seg_rows, promote)
+    g = torch.Generator().manual_seed(U)
+    rows = torch.randint(0, n_rec, (U,), generator=g, dtype=torch.int32)
+    rows[::5] = -1
+    before = st.LAUNCHES["stream_gather"]
+    got = st.stream_gather(source, rows.to(dev))
+    torch.cuda.synchronize()
+    assert st.LAUNCHES["stream_gather"] == before + 1
+    plain = st.stream_gather_plain(source.fields, seg_rows, rows)
+    for role, full in stacks.items():
+        want = full[rows.clamp(min=0).long()]
+        want[rows < 0] = 0
+        assert torch.equal(got[role].cpu(), want), role
+        assert torch.equal(plain[role], want), role
+
+
+def test_stream_gather_refuses_pageable_segments(dev):
+    from moe_infinity_tpu_torch.ops.stream import StreamSource, stream_gather
+
+    src = StreamSource({"w": [torch.zeros(4, 64, dtype=torch.int8)]}, rec_row=None, seg_rows=4)
+    with pytest.raises(ValueError, match="not readable by the card"):
+        stream_gather(src, torch.zeros(2, dtype=torch.int32, device=dev))

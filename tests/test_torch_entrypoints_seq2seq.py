@@ -111,9 +111,9 @@ def _hf_each(hf, prompts, n):
                 for q in prompts]
 
 
-def _concurrently(engine, prompts, n):
+def _concurrently(engine, prompts, n, **kw):
     with cf.ThreadPoolExecutor(len(prompts)) as ex:
-        futs = [ex.submit(engine.generate, q, max_new_tokens=n) for q in prompts]
+        futs = [ex.submit(engine.generate, q, max_new_tokens=n, **kw) for q in prompts]
         return [f.result(timeout=120) for f in futs]
 
 
@@ -172,6 +172,38 @@ def test_offload_continuous_batching(ckpt, tmp_path):
         assert p.stats().get("speculative_steps", 0) > 0
     finally:
         j.shutdown()
+        p.shutdown()
+
+
+def test_concurrent_generator_requests_with_graphs(ckpt, tmp_path, monkeypatch):
+    """Fault F3 through the facade: at ``max_batch_size`` 1 every request
+    goes to the resident generator, whose decode runs as graphs (the CPU
+    stand-in backend, as on the card) over buffers shared per shape.
+    Concurrent calls from threads, several per prompt, each equal the same
+    prompt's call alone. The tiny checkpoints' weights are sharpened in
+    place (``sharpen_seq2seq``) so that tokens depend on the prompt."""
+    from moe_infinity_tpu_torch.runtime import generate
+    from torch_port_helpers import StandIn, sharpen_seq2seq
+
+    init = generate.Seq2SeqGenerator.__init__
+
+    def with_backend(self, *a, **kw):
+        init(self, *a, graph_backend=StandIn(), **kw)
+
+    monkeypatch.setattr(generate.Seq2SeqGenerator, "__init__", with_backend)
+    _, path, _ = ckpt
+    p = MoE(path, {"expert_dtype": "float32", "max_batch_size": 1, "moe_impl": "pallas",
+                   "offload_path": str(tmp_path)}, device="cpu")
+    try:
+        assert p.generator.graphs is not None and p.s2s_batcher is None
+        sharpen_seq2seq(p.params)  # the generator's own dict
+        prompts = [CONCURRENT[0], CONCURRENT[2]]
+        alone = [p.generate(q, max_new_tokens=12, eos_token_id=None) for q in prompts]
+        assert not np.array_equal(alone[0][:, 1:], alone[1][:, 1:])
+        got = _concurrently(p, prompts * 4, 12, eos_token_id=None)
+        for i, out in enumerate(got):
+            np.testing.assert_array_equal(out, alone[i % 2])
+    finally:
         p.shutdown()
 
 

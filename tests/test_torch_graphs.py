@@ -46,6 +46,7 @@ from moe_infinity_tpu_torch.runtime.generate import Generator, Seq2SeqGenerator
 from moe_infinity_tpu_torch.runtime.graphs import GraphCache
 from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 from moe_infinity_tpu_torch.store.blob import ExpertStore
+from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
 
 from torch_port_helpers import (
     TINY_NLLB,
@@ -523,6 +524,118 @@ def test_generator_graphs_on_and_off_agree(tiny, eos):
             (lg, ng), (le, ne) = (s(cur, step) for s in steps)
             assert torch.equal(lg, le) and torch.equal(ng, ne), step
             cur = ne[:, None].to(torch.int32)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_stream_blocks_graphs_on_and_off_agree(setup, k):
+    """Stream decode through the stand-in backend and eagerly, from U = 2 on
+    sharpened weights: equal tokens and executions; one graph per (k, U)
+    met, each execution a replay after its capture, none recaptured."""
+    from torch_port_helpers import sharpen_seq2seq
+
+    jparams, _, path = setup
+    params = to_port(sharpen_seq2seq(jax.tree.map(lambda a: a, jparams)))
+    runs = {}
+    for graphs in (True, False):
+        store = ExpertStore(path)
+        arena = ExpertArena(store, E, compute_dtype=torch.float32, device="cpu", num_threads=1,
+                            pinned_tier=PinnedExpertTier(store, device="cpu",
+                                                         shared_record=False))
+        model = NllbModel(NllbSpec(**SPEC), compute_dtype=torch.float32, device="cpu")
+        eng = Seq2SeqOffloadEngine(model, params, arena, prefetch=False, speculative=True,
+                                   spec_block=k, stream_decode=True, stream_unique=2,
+                                   graphs=graphs, graph_backend=StandIn() if graphs else None)
+        try:
+            runs[graphs] = (eng.generate(IDS, **GEN).sequences, eng.replay_counts,
+                            eng.graph_stats(), eng._stream_U)
+        finally:
+            arena.shutdown()
+    (seq_g, ex_g, st, u_g), (seq_e, ex_e, st_e, u_e) = runs[True], runs[False]
+    np.testing.assert_array_equal(seq_g, seq_e)
+    assert ex_g == ex_e and u_g == u_e and max(ex_g) > 1 and st_e == {}
+    assert st["recaptures"] == 0 and st["replays"] == sum(ex_g)
+    assert st["captures"] == st["graphs"] == len({2, 4} & set(range(2, u_g + 1)))
+
+
+@pytest.mark.parametrize("k,mode", [(1, "whole"), (4, "whole"), (4, "prefix")])
+def test_direct_stacks_graphs_on_and_off_agree(setup, monkeypatch, k, mode):
+    """Speculative steps and blocks with the two deepest layers direct (a
+    layer-aligned tier) through the stand-in backend and eagerly: equal
+    tokens and executions; the graphs read the direct stacks by address, so
+    a stack that moves is captured anew."""
+    monkeypatch.setenv("MOE_SPEC_BLOCK_MODE", mode)
+    _, params, path = setup
+    engines = []
+    for graphs in (True, False):
+        store = ExpertStore(path)
+        arena = ExpertArena(store, 2 * E, compute_dtype=torch.float32, device="cpu",
+                            num_threads=1, pinned_tier=PinnedExpertTier(
+                                store, device="cpu", shared_record=False, align_rows=E))
+        model = NllbModel(NllbSpec(**SPEC), compute_dtype=torch.float32, device="cpu")
+        engines.append(Seq2SeqOffloadEngine(
+            model, params, arena, prefetch=False, speculative=True, spec_block=k,
+            max_direct_layers=2, graphs=graphs, graph_backend=StandIn() if graphs else None))
+    g, e = engines
+    try:
+        assert g._direct_mlis == {N_MOE - 2, N_MOE - 1}
+        np.testing.assert_array_equal(g.generate(IDS, **GEN).sequences,
+                                      e.generate(IDS, **GEN).sequences)
+        assert g.replay_counts == e.replay_counts
+        assert g.graph_stats()["recaptures"] == 0
+        stack = g._direct[str(N_MOE - 1)]
+        stack["gate"] = stack["gate"].clone()  # moved: the graphs must not replay over it
+        g._direct_split[N_MOE - 1][0]["gate"] = stack["gate"]
+        np.testing.assert_array_equal(g.generate(IDS, **GEN).sequences,
+                                      e.generate(IDS, **GEN).sequences)
+        assert g.graph_stats()["recaptures"] > 0
+    finally:
+        g.arena.shutdown()
+        e.arena.shutdown()
+
+
+def test_generator_graphs_serve_concurrent_requests():
+    """Fault F3: two threads send their own 6-token prompt 10 times each, 24
+    new tokens, to one resident generator with graphs (the stand-in backend),
+    whose graph and decoder buffers per shape the two share. Every output
+    equals the isolated eager run's (before the generator's lock, 16 of the
+    20 differed)."""
+    import threading
+
+    from moe_infinity_tpu.models.nllb import NllbModel as JModel, NllbSpec as JSpec
+    from torch_port_helpers import int4_expert_tree, sharpen_seq2seq
+
+    jmodel = JModel(JSpec(**TINY_NLLB), compute_dtype=jnp.float32)
+    jparams, _ = jmodel.init_random(jax.random.PRNGKey(3), with_experts=False)
+    params = to_port(sharpen_seq2seq(jparams))
+    tree = to_port(int4_expert_tree(np.random.default_rng(3), TINY_NLLB, 2))
+    model = NllbModel(NllbSpec(**TINY_NLLB), compute_dtype=torch.float32, device="cpu")
+    for_layer = ResidentProvider.for_layer
+    graphed = Seq2SeqGenerator(model, params, tree, for_layer, impl="pallas",
+                               graph_backend=StandIn())
+    eager = Seq2SeqGenerator(model, params, tree, for_layer, impl="pallas", graphs=False)
+    prompts = [np.array([[5, 31, 8, 77, 40, 2]]), np.array([[9, 3, 44, 61, 17, 2]])]
+    gen = dict(max_new_tokens=24, eos_token_id=None)
+    want = [eager.generate(p, **gen).sequences for p in prompts]
+    assert not np.array_equal(want[0], want[1])  # the race would show
+    got = [[None] * 10 for _ in prompts]
+    errors = []
+
+    def serve(i):
+        try:
+            for n in range(10):
+                got[i][n] = graphed.generate(prompts[i], **gen).sequences
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    same = sum(np.array_equal(g, want[i]) for i in range(2) for g in got[i])
+    assert same == 20, f"{same} of 20 outputs equal the isolated runs"
+    assert graphed.graph_stats()["captures"] == 1
 
 
 # ---- the graph cache -------------------------------------------------------

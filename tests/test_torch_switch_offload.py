@@ -316,3 +316,39 @@ def test_speculative_graph_replays_equal_jax(setup, k):
     finally:
         jeng.arena.shutdown()
         eng.arena.shutdown()
+
+
+@pytest.mark.parametrize("k,U", [(3, 2), (1, 4)])
+def test_stream_decode_equals_jax_and_resident(setup, k, U):
+    """Stream decode on Switch (top-1, capacity 2 in the encoder): greedy
+    tokens equal the JAX engine's and the resident path's, with the same
+    executions and the same final U; from U = 2 some block runs again at a
+    larger U. The weights are sharpened (a copy) so that rows route apart."""
+    from moe_infinity_tpu.store.pinned import PinnedExpertTier as JTier
+    from torch_port_helpers import sharpen_seq2seq
+
+    jparams, _, _, stores = setup
+    jparams = sharpen_seq2seq(jax.tree.map(lambda a: a, jparams))
+    params = to_port(jparams)
+    jmodel, model = _models()
+    path = stores["float32"]
+    jstore, store = JStore(path), ExpertStore(path)
+    jarena = JArena(jstore, E, compute_dtype=jnp.float32, num_threads=1,
+                    pinned_tier=JTier(jstore, shared_record=False))
+    jeng = JEngine(jmodel, jparams, jarena, prefetch=False, speculative=True, spec_block=k,
+                   stream_decode=True, stream_unique=U)
+    eng = _port_engine(model, params, path, E, False, 1, speculative=True, spec_block=k,
+                       stream_decode=True, stream_unique=U,
+                       tier=PinnedExpertTier(store, device="cpu", shared_record=False))
+    res, _ = _resident(model, params, path)
+    try:
+        want = jeng.generate(IDS, **GEN)
+        got = eng.generate(IDS, **GEN)
+        np.testing.assert_array_equal(got.sequences, want.sequences)
+        np.testing.assert_array_equal(got.sequences, res.generate(IDS, **GEN).sequences)
+        assert eng.replay_counts == jeng.replay_counts and eng._stream_U == jeng._stream_U
+        assert (max(eng.replay_counts) > 1) == (U < E)
+        assert len(eng.replay_counts) == (8 if k == 1 else 4)  # blocks of 3, 3, 1, 1
+    finally:
+        jeng.arena.shutdown()
+        eng.arena.shutdown()

@@ -97,7 +97,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    and some block must run more than once;
 12. its whole-path check: phase 10's set-up through the speculative engine
    at k=1 and at k=4 in both ``MOE_SPEC_BLOCK_MODE`` modes, on both seeds,
-   24 tokens, with graphs and eagerly: greedy tokens equal to the resident
+   16 tokens (cut from 24 for the whole run's time limit), with graphs
+   and eagerly: greedy tokens equal to the resident
    path's, the first accepted step's logits within the tolerance, at k=1
    every accepted step's f32 logits equal between graph and eager (and the
    resident generator's likewise), and in bf16 graph and eager tokens
@@ -130,7 +131,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    engine leaves speculation and serves per layer), then at 152 slots
    eagerly and as graphs; s/token against the reference's 0.735, hit
    rate, executions per block, host ms per execution, graphs, peak
-   memory; K1, K2 and K3 held to 32, 32 and 96 per step and prefill;
+   memory; K1, K2 and K3 held to 32, 32 and 96 per step and prefill (the
+   whole run takes 8 layers, each arena cut to the same quarter: 15 and 38
+   slots, for its time limit; ``--mixtral-offload`` the full 32);
 17. its whole-path check at f32, full width and 3 layers: per-layer and
    speculative step (graph and eager) offload bit-equal to the resident
    path at every one of 25 steps, graph bit-equal to eager, blocks of 2
@@ -272,7 +275,54 @@ Phases, each printing its own lines; any failure exits non-zero:
    (k = 1 and 4, U escalating from 2, graphs and eager) and direct layers
    (all and the deepest one; per layer, speculative k = 1 and 4, graphs and
    eager) bit-equal to the resident path in greedy tokens and first-step
-   logits, graph logits against eager at every accepted k = 1 step.
+   logits, graph logits against eager at every accepted k = 1 step;
+34. OPT-66B at its published width (facebook/opt-66b: hidden 9216, FFN
+   36864, 72 heads of 128, vocab 50,272, 2048 positions, ReLU, pre-norm),
+   bf16, weights from a seed: (a) 8 distinct layers (16.3 GB) resident
+   through ``ResidentStepper`` and ``Generator``, then copied to page-locked
+   host memory and paged through ``PagedDenseEngine`` with 3 slots, 4
+   left-padded requests x 16 greedy tokens: tokens equal, the prefill's
+   logits bit-equal; (b) the full depth, 64 host layers aliasing the 8 (16.3
+   GB of host memory, every step copies all 64 layers), paged with 4 slots
+   at batch 1 and 8, 8 greedy tokens each (a copy-bound step of the same
+   work each time; fewer steps keep the whole run well inside its time
+   limit): tokens/s, s per token, GB copied per step, the dense
+   hit rate, peak memory, the device's busy share; K1 and K2 must launch;
+   phase 2 holds K1 at OPT-66B's decode (B = 1 and 8, rep 1) and K2 at its
+   prefill against the plain versions, beside SDPA;
+35. its whole-path check at f32, full width, 2 distinct layers in a stack of
+   4 over 2 slots: the prefill's and a decode step's logits through the
+   kernels against the plain versions, and paged against resident (logits
+   bit-equal, tokens equal);
+36. ``MoE`` from a checkpoint of OPT-66B's published ``config.json`` cut to
+   4 layers (9.2 GB of bf16 safetensors from a seed under ``.opt_entry/``,
+   deleted at the end): resident, then at a ``device_memory_bytes`` leaving
+   2 dense slots, where ``dense_paging="auto"`` pages; 2 requests, tokens
+   equal;
+37. NLLB-MoE-54B at full width and depth on phase 9's build with its 48
+   blocks paged through 16 slots and the experts offloaded (the per-layer
+   engine with a ``DenseLayerArena``): phase 3's 4 requests x 16 tokens equal
+   to phase 9's engine on the same build; the dense hit rate, GB of blocks
+   copied, the landings the wrapped window makes and nothing reads, tokens/s;
+38. the host fallback on the same build (an arena with its zero slot, the
+   store read through the tier where it stages a record): at the default
+   deadline (0.25 s) and phase 9's slots, ``host_exec_count`` and the tokens
+   against phase 9's (held equal when no expert ran on the host in the
+   timed run); with a slot for every expert, all warmed, tokens equal to
+   phase 9's and no expert on the host; at a
+   deadline of 0 with prefetch off, one request of 16 source tokens and 8
+   new ones, every miss on the host (tokens/s, ``host_exec_count``, host ms
+   per expert, the step's wait on the host), and the same with
+   ``dequant_on_write`` (bf16 slots, no direct layer; phase 2 holds K3's
+   bf16 kind at those slots' shapes); then NLLB at 2+2 blocks and
+   Mixtral-8x7B at 2 layers (int8) with every expert on the host (fetch
+   workers held back): the first step's logits within 1e-4 at f32 through
+   the exact grouped FFN (Mixtral: the prefill's, and greedy tokens equal);
+   in bf16 through K3, one MoE layer's output within 2e-2 of its scale, the
+   first router row whose top-2 differ (or the combine weights' largest
+   move) reported, and the logits within 2e-2 (NLLB as rtol = atol,
+   Mixtral of their scale) when the host run replays the other run's
+   routing.
 
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
@@ -290,13 +340,15 @@ to 15; ``--mixtral-offload`` the build and phases 16 to 18;
 ``--entrypoints`` the build and phases 19 and 20; ``--grok`` the build,
 phase 2's K3 e4m3 and rep 6/7 attention checks and phases 21 and 23;
 ``--arctic`` the build and phase 22; ``--batchers`` the build, phase 2's
-batcher inputs and phases 24 to 30, each on a build of its own. Each prints
-no result line.
+batcher inputs and phases 24 to 30, each on a build of its own;
+``--paging`` the build, phase 2's OPT and dequantized-slot checks and phases
+34 to 37; ``--host-fallback`` the build and phases 37 and 38 (with
+``--paging``, 34 to 38). Each prints no result line.
 Every phase prints its seconds (``[phase]``).
 
 The line before the last is the per-kernel JSON record (launches: the sum
 of the counts of phases 3, 5, 7, 9, 11, 13, 14, 16, 18, 19, 21, 22, 23,
-24 to 30 (26's none: a check-only phase), 31 and 32,
+24 to 30 (26's none: a check-only phase), 31, 32, 34 and 36 to 38,
 graph replays included; K3's e4m3 kind has its own row, ``gmm_fp8``;
 K2 at head dim 64 has its own row, ``flash_attend_dh64``: a graph
 counts at each replay the launches it recorded when it was captured); the
@@ -640,7 +692,7 @@ def _layer_plans(x, w, gsz):
 
 
 def _gmm_case(name, g, dev, *, rows, D, F, S, kind, gid=None, gsz=None,
-              active=None, time_it=False):
+              active=None, time_it=False, keep=False):
     from moe_infinity_tpu_torch.ops import gmm as gm
 
     x = torch.randn(rows, D, generator=g, device=dev).to(torch.bfloat16)
@@ -664,10 +716,13 @@ def _gmm_case(name, g, dev, *, rows, D, F, S, kind, gid=None, gsz=None,
         return err, None
     wbytes = active * D * Fw * w.element_size()
     nbytes = rows * D * 2 + wbytes + active * F * 4 + rows * F * 4
-    return err, dict(
+    out = dict(
         ms=cuda_ms(run), plain_ms=cuda_ms(plain, iters=5, warmup=1),
         nbytes=nbytes, flops=2 * rows * D * F,
     )
+    if keep:  # the inputs, for a library yardstick on the same tensors
+        out.update(x=x, w=w, run=run)
+    return err, out
 
 
 def check_gmm(g, dev):
@@ -703,6 +758,96 @@ def check_gmm(g, dev):
     say(f"[time] gmm NLLB decode MoE layer (gate + down, 8 rows, packed int4, "
         f"D=2048 F=8192 S=128): ms={gate['ms'] + down['ms']:.4f} plain_ms="
         f"{gate['plain_ms'] + down['plain_ms']:.4f} bound_ms={b_ms:.5f} ({b_by})")
+    return max(errs)
+
+
+def check_opt_attention(g, dev):
+    """K1 at OPT-66B's decode (B = 1 and 8, 72 heads over 72, head dim 128,
+    the last of 16 steps after a prompt of 32: 48 live keys of a 64-column
+    cache) and K2 at its prefill (B = 8, T = 32 over the cache's first 32
+    columns, causal), bf16, against the plain versions, timed beside SDPA.
+    Returns the largest error per kernel."""
+    from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+    H, Dh, S, T = 72, 128, 64, OPT_PROMPT
+    live = T + NEW_TOKENS
+    errs = {}
+    for B in (1, 8):
+        q = torch.randn(B, 1, H, Dh, generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn(B, S, H, Dh, generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, S, H, Dh, generator=g, device=dev).to(torch.bfloat16)
+        pos = torch.full((B, 1), live - 1, dtype=torch.int32, device=dev)
+        run = lambda: fa.flash_decode(q, k, v, pos, live)  # noqa: E731
+        plain = lambda: fa.flash_decode_plain(  # noqa: E731
+            q[:, 0], k, v, pos[:, 0], live, scale=Dh ** -0.5)
+        err = compare(f"flash_decode OPT-66B B={B} H=72 rep 1 S={S} ({live} live)",
+                      run()[:, 0], plain())
+        errs["flash_decode"] = max(errs.get("flash_decode", 0.0), err)
+        mask = torch.full((B, 1, 1, S), float("-inf"), device=dev, dtype=torch.bfloat16)
+        mask[..., :live] = 0
+        b_ms, b_by = bound_ms(2 * B * H * Dh * 2 + 2 * B * live * H * Dh * 2 + B * 4,
+                              4 * B * H * live * Dh)
+        say(f"[time] flash_decode OPT-66B decode B={B} H=72 Dh=128 {live} live keys: "
+            f"ms={cuda_ms(run):.5f} plain_ms={cuda_ms(plain):.4f} bound_ms={b_ms:.6f} ({b_by}) "
+            f"library_ms={cuda_ms(_sdpa_mask_call(q, k, v, mask)):.5f} (SDPA) launches per "
+            f"step 64")
+    B = 8
+    q = torch.randn(B, T, H, Dh, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, S, H, Dh, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, S, H, Dh, generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T).contiguous()
+    run = lambda: fa.flash_attend(q, k, v, pos, T, causal=True)  # noqa: E731
+    plain = lambda: fa.flash_attend_plain(q, k, v, pos, T, scale=Dh ** -0.5,  # noqa: E731
+                                          causal=True)
+    errs["flash_attend"] = compare(f"flash_attend OPT-66B prefill B={B} T={T} H=72 causal",
+                                   run(), plain())
+    qi = torch.arange(T, device=dev)[:, None]
+    ki = torch.arange(S, device=dev)[None, :]
+    mask = torch.where((ki <= qi) & (ki < T), 0.0, float("-inf")).to(torch.bfloat16)[None, None]
+    b_ms, b_by = bound_ms(2 * B * T * H * Dh * 2 + 2 * B * T * H * Dh * 2 + B * T * 4,
+                          4 * B * H * Dh * T * (T + 1) // 2)
+    say(f"[time] flash_attend OPT-66B prefill B={B} T={T} H=72 Dh=128 causal: "
+        f"ms={cuda_ms(run):.5f} plain_ms={cuda_ms(plain):.4f} bound_ms={b_ms:.6f} ({b_by}) "
+        f"library_ms={cuda_ms(_sdpa_mask_call(q, k, v, mask)):.5f} (SDPA) launches per "
+        f"prefill 64")
+    return errs
+
+
+def check_gmm_dequant(g, dev):
+    """K3's bf16 kind over NLLB-MoE-54B's expert slots as ``dequant_on_write``
+    lands them (bf16, 2048 x 8192 and 8192 x 2048): a decode layer's gate
+    and down, 8 rows over the routed experts of 16 slots, against the plain
+    version, timed beside its bound and beside ``torch._grouped_mm`` on the
+    same inputs (one call a projection, each slot's rows as device offsets).
+    Returns the largest error."""
+    D, F, S = 2048, 8192, 16
+    gid, gsz, active = _routed_rows(g, dev, len(SRC_LENS), S)
+    errs, t = [], {}
+    for role, (d_in, f_out) in (("gate", (D, F)), ("down", (F, D))):
+        err, t[role] = _gmm_case(f"bf16 (dequant-on-write slots) decode {role} rows=8 "
+                                 f"D={d_in} F={f_out} S={S} active={active}", g, dev,
+                                 rows=2 * len(SRC_LENS), D=d_in, F=f_out, S=S, kind="bf16",
+                                 gid=gid, gsz=gsz, active=active, time_it=True, keep=True)
+        errs.append(err)
+    b_ms, b_by = bound_ms(t["gate"]["nbytes"] + t["down"]["nbytes"],
+                          t["gate"]["flops"] + t["down"]["flops"])
+    if hasattr(torch, "_grouped_mm"):
+        # the rows are sorted by slot: slot s takes the next sizes[s] rows
+        sizes = torch.zeros(S, dtype=torch.int32, device=dev).index_add_(0, gid.long(), gsz)
+        ends = torch.cumsum(sizes, 0).to(torch.int32)
+        lib = lambda: [torch._grouped_mm(t[r]["x"], t[r]["w"], offs=ends)  # noqa: E731
+                       for r in ("gate", "down")]
+        torch.cuda.synchronize()
+        gap = max((got.float() - t[r]["run"]().float()).abs().max().item()
+                  for got, r in zip(lib(), ("gate", "down")))
+        lib_txt = (f"{cuda_ms(lib):.4f} (torch._grouped_mm x2 over all {S} slots, bf16 out; "
+                   f"max_abs_diff={gap:.3e}, reported, not held)")
+    else:
+        lib_txt = "None (this torch has no torch._grouped_mm)"
+    say(f"[time] gmm NLLB decode MoE layer over dequantized bf16 slots (gate + down, 8 rows "
+        f"over {active} experts, D=2048 F=8192): ms={t['gate']['ms'] + t['down']['ms']:.4f} "
+        f"plain_ms={t['gate']['plain_ms'] + t['down']['plain_ms']:.4f} bound_ms={b_ms:.5f} "
+        f"({b_by}) library_ms={lib_txt}")
     return max(errs)
 
 
@@ -1558,7 +1703,11 @@ def phase_kernels(dev):
     dh64_err = check_decode_dh64(g, dev)  # K1 and K4 at head dim 64
     recs[0]["max_abs_err"] = max(recs[0]["max_abs_err"], long_err, edge_err, dh64_err)
     recs[3]["max_abs_err"] = max(recs[3]["max_abs_err"], long_err, edge_err, dh64_err)
-    recs[2]["max_abs_err"] = max(recs[2]["max_abs_err"], check_gmm_switch(g, dev))
+    recs[2]["max_abs_err"] = max(recs[2]["max_abs_err"], check_gmm_switch(g, dev),
+                                 check_gmm_dequant(g, dev))
+    opt_errs = check_opt_attention(g, dev)  # OPT-66B's K1 and K2 shapes
+    recs[0]["max_abs_err"] = max(recs[0]["max_abs_err"], opt_errs["flash_decode"])
+    recs[1]["max_abs_err"] = max(recs[1]["max_abs_err"], opt_errs["flash_attend"])
     recs.append(check_gmm_fp8(dev))  # K3's e4m3 kind, from its own generator
     recs.append(check_stream_gather(dev))  # the port's own kernel, its own generator
     rep_errs = check_attention_rep67(dev)
@@ -2314,6 +2463,7 @@ def phase_deepseek_whole_path(dev):
 # bench.py's --tier-gb and --hbm-gb defaults, and the KV reserve it keeps
 # out of the HBM budget (bench.py:1029, :1037-1041)
 TIER_GB, HBM_GB, KV_RESERVE = 14, 13, int(1.4 * 2**30)
+PHASE9_TOKENS = {}  # phase 9's timed generate, when it ran in this process
 
 
 def _offload_store(spec, seed=0, cache_records=64):
@@ -2331,12 +2481,13 @@ def _offload_store(spec, seed=0, cache_records=64):
                           seed=seed, distinct_records=True, cache_records=cache_records)
 
 
-def _offload_engine(model, params, store, num_slots, tier, impl="pallas", **kw):
+def _offload_engine(model, params, store, num_slots, tier, impl="pallas", arena_kw=None, **kw):
     """bench.py's engine (`_nllb_build`): EAMC tracer and predictor, prefetch
     with lookahead 3 and budget 8, the priority policy, 4 fetch workers, K3
     for every expert FFN; the per-layer path unless ``kw`` asks for the
     speculative one; no direct-tier layer unless ``kw`` asks
-    (``max_direct_layers``, bench.py's ``--direct-layers`` 0)."""
+    (``max_direct_layers``, bench.py's ``--direct-layers`` 0). arena_kw: more
+    of the arena's options (``reserve_zero_slot``, ``dequant_on_write``)."""
     kw.setdefault("max_direct_layers", 0)
     from moe_infinity_tpu_torch.memory import ExpertPredictor, ExpertTracer
     from moe_infinity_tpu_torch.runtime.arena import ExpertArena
@@ -2345,7 +2496,8 @@ def _offload_engine(model, params, store, num_slots, tier, impl="pallas", **kw):
     n_enc = store.meta["num_encoder_moe_layers"]
     tracer = ExpertTracer(256, store.num_layers, store.num_experts, num_encoder_layers=n_enc)
     arena = ExpertArena(store, num_slots, policy="priority", compute_dtype=model.dtype,
-                        device=model.device, num_threads=4, pinned_tier=tier)
+                        device=model.device, num_threads=4, pinned_tier=tier,
+                        **(arena_kw or {}))
     return Seq2SeqOffloadEngine(model, params, arena, tracer=tracer,
                                 predictor=ExpertPredictor(tracer), prefetch=True, lookahead=3,
                                 prefetch_budget=8, impl=impl, **kw)
@@ -2430,6 +2582,7 @@ def phase_offload(dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
+        PHASE9_TOKENS["sequences"] = res.sequences  # phases 37 and 38 hold theirs to these
         f1, s1 = arena.fetch_stats(), engine.stats()
         dw = engine.decode_window_stats()
         st = res.stats
@@ -2491,7 +2644,7 @@ def _profile_streams(label, fn, n):
             by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n
     if not spans:
         say(f"[profile] {label}: device time not measured (no CUDA events traced)")
-        return
+        return None
     busy_us, end = 0.0, -1.0
     for a, b in sorted(spans):
         if b > end:
@@ -2505,6 +2658,7 @@ def _profile_streams(label, fn, n):
         f"copy_share_of_busy={min(1.0, copies / busy):.3f}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         say(f"[profile]   {ms:8.3f} ms  {name[:110]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy, kernels_ms=kernels, copies_ms=copies)
 
 
 def _profile_offload_step(engine, ids, mask):
@@ -2896,7 +3050,8 @@ def _profile_spec_block(engine, ids, mask, tag, cap=32):
         engine.tracer.finish_entry(sid)
 
 
-PARITY_TOKENS = 24  # phase 12's greedy tokens per request
+PARITY_TOKENS = 24  # the f32 whole paths' greedy tokens per request (phases 15, 17, 18)
+SPEC_PARITY_TOKENS = 16  # phase 12's (cut from 24 for the whole run's time limit)
 
 
 def _same_or_close(what, got, want):
@@ -2965,7 +3120,8 @@ def phase_offload_spec_whole_path(dev):
     """The speculative engine at full width, 4+4 blocks with every 2nd
     sparse, an arena of E slots, prefetch on and 4 workers (phase 10's
     set-up), on seeds 11 (store only) and 12 (decoder records in a tier
-    copied from the store), 24 greedy tokens per request:
+    copied from the store), ``SPEC_PARITY_TOKENS`` greedy tokens per
+    request:
 
     * f32, against the resident Seq2SeqGenerator: whole steps (k=1) and
       blocks of 4 in both MOE_SPEC_BLOCK_MODE modes, each with graphs (the
@@ -3001,14 +3157,15 @@ def phase_offload_spec_whole_path(dev):
                                     max_bytes=n_dec * store.stride, synth_on_device=False)
         ids, mask = _requests(spec.vocab_size, g, dev)
         where = f"{'tier + store' if staged else 'store only'}"
-        gen = dict(max_new_tokens=PARITY_TOKENS, attention_mask=mask, eos_token_id=None)
+        gen = dict(max_new_tokens=SPEC_PARITY_TOKENS, attention_mask=mask, eos_token_id=None)
         resident = {gr: Seq2SeqGenerator(model, params, provider.pytree(),
                                          ResidentProvider.for_layer, impl="pallas", graphs=gr)
                     for gr in (True, False)}
         want = resident[True].generate(ids, **gen)
         if not np.array_equal(want.sequences, resident[False].generate(ids, **gen).sequences):
             raise AssertionError(f"resident graph and eager tokens differ (seed {seed})")
-        _resident_graph_parity(model, params, provider, resident, ids, mask, seed)
+        _resident_graph_parity(model, params, provider, resident, ids, mask, seed,
+                               SPEC_PARITY_TOKENS)
         want_logits = _first_step_logits(model, params, provider, ids, mask, "pallas")
         for k, mode in ((1, "whole"), (4, "whole"), (4, "prefix")):
             runs = {}
@@ -3042,13 +3199,14 @@ def phase_offload_spec_whole_path(dev):
                 replays += engine.replay_counts
                 del engine
             if k == 1:
-                if len(runs["graphs"]) != PARITY_TOKENS or len(runs["eager"]) != PARITY_TOKENS:
+                if (len(runs["graphs"]) != SPEC_PARITY_TOKENS
+                        or len(runs["eager"]) != SPEC_PARITY_TOKENS):
                     raise AssertionError(f"k=1: {len(runs['graphs'])} and {len(runs['eager'])} "
-                                         f"accepted steps recorded, {PARITY_TOKENS} expected")
+                                         f"accepted steps recorded, {SPEC_PARITY_TOKENS} expected")
                 how = [_same_or_close(f"offload k=1 step {i} seed {seed}", a, b)
                        for i, (a, b) in enumerate(zip(runs["graphs"], runs["eager"]))]
                 say(f"[check] offload k=1 f32 graph against eager logits over "
-                    f"{PARITY_TOKENS} accepted steps, seed {seed}: "
+                    f"{SPEC_PARITY_TOKENS} accepted steps, seed {seed}: "
                     f"{sum(h == 'bit-equal' for h in how)} bit-equal, others {sorted(set(how))}")
         del model, params, provider, resident
         torch.cuda.empty_cache()
@@ -3059,9 +3217,10 @@ def phase_offload_spec_whole_path(dev):
         raise AssertionError("speculative whole-path check: no step or block ran twice")
 
 
-def _resident_graph_parity(model, params, provider, resident, ids, mask, seed):
+def _resident_graph_parity(model, params, provider, resident, ids, mask, seed,
+                           n=PARITY_TOKENS):
     """The resident generator's decode step, graph against eager, at f32
-    over 24 steps fed the eager argmax."""
+    over n steps fed the eager argmax."""
     from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 
     dev = model.device
@@ -3074,13 +3233,13 @@ def _resident_graph_parity(model, params, provider, resident, ids, mask, seed):
         cur = torch.full((tok.shape[0], 1), model.spec.decoder_start_token_id,
                          dtype=torch.int32, device=dev)
         how = []
-        for i in range(PARITY_TOKENS):
+        for i in range(n):
             (lg, ng), (le, ne) = (st(cur, i) for st in steps)
             how.append(_same_or_close(f"resident step {i} seed {seed}", lg, le))
             if not torch.equal(ng, ne):
                 raise AssertionError(f"resident step {i}: graph and eager tokens differ")
             cur = ne[:, None].to(torch.int32)
-    say(f"[check] resident f32 graph against eager logits over {PARITY_TOKENS} steps, seed "
+    say(f"[check] resident f32 graph against eager logits over {n} steps, seed "
         f"{seed}: {sum(h == 'bit-equal' for h in how)} bit-equal, others {sorted(set(how))}")
 
 
@@ -3094,7 +3253,7 @@ def _bf16_graph_parity(dev, spec, store, tier, seed, where):
     model = NllbModel(spec, compute_dtype=torch.bfloat16, device=dev)
     params, _ = model.init_random(g, with_experts=False)
     ids, mask = _requests(spec.vocab_size, g, dev)
-    gen = dict(max_new_tokens=PARITY_TOKENS, attention_mask=mask, eos_token_id=None)
+    gen = dict(max_new_tokens=SPEC_PARITY_TOKENS, attention_mask=mask, eos_token_id=None)
     for k, mode in ((1, "whole"), (2, "whole"), (2, "prefix"), (4, "whole"), (4, "prefix")):
         seqs, execs = [], []
         for graphs in (True, False):
@@ -3474,6 +3633,9 @@ MX_BASELINE_S_PER_TOKEN = 0.735  # the reference, Mixtral-8x7B on one A5000 (ben
 # = 128 experts): the preset's 13 GiB arena (60 slots) holds less than one
 # step's 64, so its speculative path turns off at the first step
 MX_SPEC_HBM_GB = 28
+# phase 16's depth in the whole run (its arenas cut by the same share), for
+# the run's time limit; --mixtral-offload runs the full 32
+MX_WHOLE_RUN_DEPTH = 8
 MIXTRAL_KERNELS = ("flash_decode", "flash_attend", "gmm")
 
 
@@ -3625,7 +3787,7 @@ def _mixtral_offload_run(tag, b, slots, graphs, speculative=True):
         torch.cuda.empty_cache()
 
 
-def phase_mixtral_offload(dev):
+def phase_mixtral_offload(dev, depth=None):
     """Mixtral-8x7B at full width and depth (bench.py's MIXTRAL_8X7B_SPEC)
     served by the decoder-only ``OffloadEngine`` as bench.py's
     ``mixtral-offload`` preset builds it (:221-320): bf16 dense weights from
@@ -3638,10 +3800,13 @@ def phase_mixtral_offload(dev):
     first step and the per-layer path serves), then at an arena that holds a
     block's union (``MX_SPEC_HBM_GB``): eagerly (``graphs=False``), then
     each step and block a CUDA graph replay. Returns the launches of the
-    three timed generates."""
+    three timed generates. ``depth``: fewer layers, each arena cut by the
+    same share (the whole run's time limit), so each holds the same share
+    of the experts and of a step's union as at full depth."""
     from moe_infinity_tpu_torch.models.mixtral import MixtralModel, MixtralSpec
 
-    spec = MixtralSpec(**MIXTRAL_8X7B)
+    full = MIXTRAL_8X7B["num_layers"]
+    spec = MixtralSpec(**dict(MIXTRAL_8X7B, num_layers=depth or full))
     t0 = time.perf_counter()
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -3654,8 +3819,11 @@ def phase_mixtral_offload(dev):
                         label="mixtral-offload", tokens=MX_TOKENS, cap=MX_CAP,
                         kernels=MIXTRAL_KERNELS, k3="gmm", moe_layers=None)
     n_rec = spec.num_layers * spec.num_experts
-    slots = {gb: max(spec.num_experts, int((gb * 2**30 - dense) // store.stride))
-             for gb in (HBM_GB, MX_SPEC_HBM_GB)}  # bench.py:252-263
+    layer = _tree_bytes(params["layers"][0])
+    full_dense = dense + (full - spec.num_layers) * layer  # the dense bytes at full depth
+    slots = {gb: max(spec.num_experts,
+                     int((gb * 2**30 - full_dense) // store.stride) * spec.num_layers // full)
+             for gb in (HBM_GB, MX_SPEC_HBM_GB)}  # bench.py:252-263, cut with the depth
     say(f"[mixtral-offload] Mixtral-8x7B, {spec.num_layers} layers x {spec.num_experts} "
         f"experts = {n_rec} int8 records of {store.stride / 1e6:.2f} MB "
         f"({n_rec * store.stride / 1e9:.2f} GB), dense bf16 {dense / 1e9:.2f} GB; arena "
@@ -6481,6 +6649,949 @@ def phase_stream(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 34-38: serving past the card's memory (OPT-66B paged through the
+# card, NLLB-MoE-54B with paged dense blocks, the host fallback)
+# ---------------------------------------------------------------------------
+
+# facebook/opt-66b's config.json: hidden 9216, FFN 36864, 72 heads, 64
+# layers, vocab 50272, 2048 positions, ReLU, pre-norm
+OPT_66B = dict(vocab_size=50272, hidden_size=9216, ffn_dim=36864, num_layers=64,
+               num_heads=72, max_positions=2048, activation="relu")
+OPT_DISTINCT = 8  # seeded layers drawn; phase 34b's 64 host layers alias them
+OPT_PROMPT = 32  # phase 34's prompt length (34a's shorter prompts left-padded to it)
+OPT_PROMPT_LENS = (32, 27, 20, 12)  # 34a's 4 requests
+OPT_SLOTS = 3  # 34a's dense slots (of 8 layers)
+OPT_SLOTS_FULL = 4  # 34b's (of 64)
+OPT_FULL_TOKENS = 8  # 34b's new tokens per generate (the prefill and 7 steps)
+OPT_KERNELS = ("flash_decode", "flash_attend")
+OPT_EP_DIR = Path(__file__).resolve().parent / ".opt_entry"
+OPT_EP_DISK_GB = 24  # checkpoint 9.2 + dense archive 9.2, with room
+OPT_EP_CONFIG = {  # facebook/opt-66b's config.json, cut to 4 layers, bf16
+    "_remove_final_layer_norm": False, "activation_dropout": 0.0,
+    "activation_function": "relu", "architectures": ["OPTForCausalLM"],
+    "attention_dropout": 0.0, "bos_token_id": 2, "do_layer_norm_before": True,
+    "dropout": 0.1, "eos_token_id": 2, "ffn_dim": 36864, "hidden_size": 9216,
+    "init_std": 0.02, "layerdrop": 0.0, "max_position_embeddings": 2048,
+    "model_type": "opt", "num_attention_heads": 72, "num_hidden_layers": 4,
+    "pad_token_id": 1, "torch_dtype": "bfloat16", "use_cache": True,
+    "vocab_size": 50272, "word_embed_proj_dim": 9216,
+}
+# a budget that leaves 2 of the 4 layers' slots: (B - top - B/10) // 2.04 GB
+OPT_EP_BUDGET = int(6.5e9)
+NLLB_DENSE_SLOTS = 16  # phase 37's dense slots, of NLLB-MoE-54B's 48 blocks
+HF_SRC = 8  # phase 38's deadline-0 request: one source of 8 tokens, 4 new ones
+HF_NEW = 4
+HF_DQ_SLOTS = 160  # phase 38's dequant-on-write arena (bf16 slots of 67.1 MB)
+
+
+def _host_free_gb() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def _pinned_copy(tree):
+    """A page-locked host copy of a tree of card tensors."""
+    from moe_infinity_tpu_torch.runtime.dense_arena import tree_map
+
+    return tree_map(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t), tree)
+
+
+def _opt_prompts(vocab, B, seed, lens=None):
+    """B prompts of OPT_PROMPT tokens from a seed; with ``lens``, row i keeps
+    its last lens[i] tokens and is left-padded with OPT's pad id 1 (the
+    Generator takes rows of one length; OPT, as in JAX, masks no pad)."""
+    ids = np.random.default_rng(seed).integers(3, vocab, (B, OPT_PROMPT))
+    for i, n in enumerate(lens or ()):
+        ids[i, :OPT_PROMPT - n] = 1
+    return ids
+
+
+def _opt_prefill_logits(stepper, ids):
+    model = stepper.model
+    B, T = ids.shape
+    kv = stepper.init_cache(B, 64)
+    tok = torch.as_tensor(ids, dtype=torch.int32, device=model.device)
+    pos = torch.arange(T, dtype=torch.int32, device=model.device).expand(B, T)
+    with torch.inference_mode():
+        return stepper.forward(tok, pos, kv, 0)[0]
+
+
+def _opt_generate(stepper, ids, n=NEW_TOKENS):
+    from moe_infinity_tpu_torch.runtime.generate import Generator
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = Generator(stepper=stepper, max_seq_len=64).generate(ids, max_new_tokens=n,
+                                                              pad_token_id=1)
+    torch.cuda.synchronize()
+    return res.sequences, time.perf_counter() - t0
+
+
+def _logits_verdict(what, got, want):
+    """Bit-equal, or the largest difference (reported, then held to TOL)."""
+    torch.cuda.synchronize()
+    if torch.equal(got, want):
+        say(f"[check] {what}: bit-equal")
+        return 0.0
+    return compare(what, got, want)
+
+
+def phase_opt(dev):
+    """Phase 34: OPT-66B at its published width, bf16, weights from a seed.
+    (a) depth 8, distinct layers, resident through ``ResidentStepper`` and
+    then paged through ``PagedDenseEngine`` with 3 slots; (b) full depth, 64
+    host layers aliasing the 8, paged with 4 slots, batch 1 and 8."""
+    from moe_infinity_tpu_torch.models.opt import OPTModel, OPTSpec
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.dense_arena import DenseLayerArena, PagedDenseEngine
+    from moe_infinity_tpu_torch.runtime.generate import ResidentStepper
+
+    say(f"[opt] host memory available at the start of phase 34: {_host_free_gb():.1f} GiB")
+    total = {}
+
+    def count(c):
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(66)
+    torch.cuda.reset_peak_memory_stats()
+    spec8 = OPTSpec(**dict(OPT_66B, num_layers=OPT_DISTINCT))
+    model8 = OPTModel(spec8, torch.bfloat16, device=dev)
+    t0 = time.perf_counter()
+    params = model8.init_random(g)
+    torch.cuda.synchronize()
+    layer_gb = _tree_bytes(params["layers"][0]) / 1e9
+    say(f"[opt] OPT-66B width (hidden 9216, FFN 36864, 72 heads of 128, vocab 50272), "
+        f"{OPT_DISTINCT} distinct layers of {layer_gb:.3f} GB drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s; embeddings {_tree_bytes(params['embed']) / 1e9:.3f} GB")
+    ids = _opt_prompts(spec8.vocab_size, len(OPT_PROMPT_LENS), 34, OPT_PROMPT_LENS)
+    # (a) resident, then paged
+    resident = ResidentStepper(model8, params, {}, lambda experts, mli: experts)
+    reset_launches()
+    want_logits = _opt_prefill_logits(resident, ids)
+    want, wall = _opt_generate(resident, ids)
+    c = launch_counts()
+    count(c)
+    _require_launched(c, OPT_KERNELS, "OPT-66B depth 8 resident")
+    say(f"[opt] depth 8 resident: {len(ids)} requests x {NEW_TOKENS} tokens in {wall:.3f} s "
+        f"({len(ids) * NEW_TOKENS / wall:.1f} tokens/s); launches {json.dumps(c)}; first row "
+        f"{want[0, OPT_PROMPT:].tolist()}")
+    t0 = time.perf_counter()
+    host = _pinned_copy(params["layers"])
+    torch.cuda.synchronize()
+    t_pin = time.perf_counter() - t0
+    top = {k: v for k, v in params.items() if k != "layers"}
+    del params, resident
+    torch.cuda.empty_cache()
+    say(f"[opt] the {OPT_DISTINCT} layers copied to page-locked host memory "
+        f"({OPT_DISTINCT * layer_gb:.1f} GB) in {t_pin:.1f} s; card copies freed")
+    arena = DenseLayerArena(host, OPT_SLOTS, device=dev, num_threads=2)
+    try:
+        engine = PagedDenseEngine(model8, dict(top, layers=[None] * OPT_DISTINCT), arena)
+        reset_launches()
+        got_logits = _opt_prefill_logits(engine, ids)
+        got, wall = _opt_generate(engine, ids)
+        c = launch_counts()
+        count(c)
+        _require_launched(c, OPT_KERNELS, "OPT-66B depth 8 paged")
+        st, cs = arena.stats(), arena.copy_stats()
+    finally:
+        arena.shutdown()
+    say(f"[opt] depth 8 paged ({OPT_SLOTS} slots): {wall:.3f} s; dense stats {json.dumps(st)}; "
+        f"copies {json.dumps(cs)}; launches {json.dumps(c)}")
+    _logits_verdict("OPT-66B depth 8: the prefill's logits paged vs resident", got_logits,
+                    want_logits)
+    same = np.array_equal(got, want)
+    say(f"[check] OPT-66B depth 8 paged vs resident greedy tokens: {'equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("OPT-66B paged tokens differ from the resident run's")
+    if st["dense_misses"] <= 0:
+        raise AssertionError("OPT-66B depth 8 paged: no dense miss")
+    # (b) the full depth, paged
+    spec64 = OPTSpec(**OPT_66B)
+    model64 = OPTModel(spec64, torch.bfloat16, device=dev)
+    host64 = [host[i % OPT_DISTINCT] for i in range(spec64.num_layers)]
+    arena = DenseLayerArena(host64, OPT_SLOTS_FULL, device=dev, num_threads=2)
+    say(f"[opt] depth 64: 64 host layers alias the {OPT_DISTINCT} drawn ones (host memory "
+        f"{arena.host_bytes / 1e9:.1f} GB; every step copies all 64 layers, "
+        f"{sum(arena.layer_bytes) / 1e9:.1f} GB); {arena.num_slots} slots, ahead "
+        f"{arena.ahead}; pinning at arena build {arena.pin_seconds:.2f} s (already pinned)")
+    try:
+        engine = PagedDenseEngine(model64, dict(top, layers=[None] * spec64.num_layers), arena)
+        for B in (1, 8):
+            ids = _opt_prompts(spec64.vocab_size, B, 340 + B)
+            torch.cuda.reset_peak_memory_stats()
+            s0, c0 = arena.stats(), arena.copy_stats()
+            reset_launches()
+            seqs, wall = _opt_generate(engine, ids, OPT_FULL_TOKENS)
+            c = launch_counts()
+            count(c)
+            _require_launched(c, OPT_KERNELS, f"OPT-66B depth 64 paged batch {B}")
+            s1, c1 = arena.stats(), arena.copy_stats()
+            steps = OPT_FULL_TOKENS  # the prefill and the one-token steps
+            hits, misses = (s1["dense_hits"] - s0["dense_hits"],
+                            s1["dense_misses"] - s0["dense_misses"])
+            gb = (c1["bytes_landed"] - c0["bytes_landed"]) / steps / 1e9
+            landed = c1["landings"] - c0["landings"]
+            say(f"[opt-64] batch {B}: {steps} tokens in {wall:.3f} s: "
+                f"{B * steps / wall:.4f} tokens/s, {wall / steps:.4f} s per token "
+                f"(per step); {landed} landings, {gb:.2f} GB copied per step "
+                f"({gb / (wall / steps):.1f} GB/s); "
+                f"dense hit rate {hits / max(1, hits + misses):.4f} ({hits} hits, {misses} "
+                f"misses); peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+                f"launches {json.dumps(c)}")
+            # a hit counts a landing once its copies are queued (the JAX
+            # arena counts a dispatched write so): the ring pages every layer
+            # a step, so landings, not misses, show the paging
+            if (seqs.shape != (B, OPT_PROMPT + steps)
+                    or landed < steps * (spec64.num_layers - arena.num_slots)):
+                raise AssertionError(f"OPT-66B depth 64 batch {B}: shape {seqs.shape}, "
+                                     f"{landed} landings")
+        if arena.stats()["dense_misses"] <= 0:
+            raise AssertionError("OPT-66B depth 64: no dense miss")
+        # the device's busy share over one step (a prefill and one step)
+        ids = _opt_prompts(spec64.vocab_size, 1, 341)
+        prof = _profile_streams("OPT-66B depth 64 paged, batch 1, a prefill and one step",
+                                lambda: _opt_generate(engine, ids, 2), 1)
+        if prof:
+            say(f"[opt-64] compute busy share {prof['kernels_ms'] / prof['wall_ms']:.4f}, "
+                f"copies {prof['copies_ms']:.1f} ms of {prof['wall_ms']:.1f} ms")
+    finally:
+        arena.shutdown()
+    del host, host64, top, arena, engine
+    torch.cuda.empty_cache()
+    _free_host_cache()
+    return total
+
+
+def phase_opt_whole_path(dev):
+    """Phase 35: OPT at full width and f32, 2 distinct layers in a stack of 4
+    (so 2 slots evict): the prefill's and a decode step's logits through the
+    kernels against the plain versions on the card, and paged against
+    resident (logits and 8 greedy tokens)."""
+    from moe_infinity_tpu_torch.models.opt import OPTModel, OPTSpec
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.dense_arena import DenseLayerArena, PagedDenseEngine
+    from moe_infinity_tpu_torch.runtime.generate import ResidentStepper
+
+    spec = OPTSpec(**dict(OPT_66B, num_layers=4))
+    g = torch.Generator(device=dev)
+    g.manual_seed(35)
+    model = OPTModel(spec, torch.float32, device=dev)
+    params = model.init_random(g, num_distinct=2)
+    ids = _opt_prompts(spec.vocab_size, 2, 35)
+    resident = ResidentStepper(model, params, {}, lambda experts, mli: experts)
+
+    def two_steps(stepper):
+        B, T = ids.shape
+        kv = stepper.init_cache(B, 64)
+        tok = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+        pos = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+        with torch.inference_mode():
+            a = stepper.forward(tok, pos, kv, 0)[0]
+            nxt = torch.argmax(a[:, -1], -1).to(torch.int32)[:, None]
+            b = stepper.forward(nxt, torch.full((B, 1), T, dtype=torch.int32, device=dev),
+                                kv, T)[0]
+        return a, b
+
+    reset_launches()
+    k_pre, k_dec = two_steps(resident)
+    c = launch_counts()
+    _require_launched(c, OPT_KERNELS, "OPT f32 whole path")
+    with _plain_kernels():
+        p_pre, p_dec = two_steps(resident)
+    compare("OPT f32 (full width, 4 layers) prefill logits, kernels vs plain", k_pre, p_pre)
+    compare("OPT f32 decode-step logits, kernels vs plain", k_dec, p_dec)
+    want, _ = _opt_generate(resident, ids, 8)
+    host = _pinned_copy(params["layers"][:2])
+    arena = DenseLayerArena([host[i % 2] for i in range(4)], 2, device=dev, num_threads=2)
+    try:
+        engine = PagedDenseEngine(model, dict(params, layers=[None] * 4), arena)
+        g_pre, g_dec = two_steps(engine)
+        got, _ = _opt_generate(engine, ids, 8)
+        st, landings = arena.stats(), arena.copy_stats()["landings"]
+    finally:
+        arena.shutdown()
+    _logits_verdict("OPT f32 prefill logits, paged vs resident", g_pre, k_pre)
+    _logits_verdict("OPT f32 decode-step logits, paged vs resident", g_dec, k_dec)
+    same = np.array_equal(got, want)
+    say(f"[check] OPT f32 paged vs resident tokens: {'equal' if same else 'DIFFER'}; "
+        f"dense stats {json.dumps(st)}, {landings} landings")
+    # 2 slots for 4 layers: every pass through the stack lands again
+    if not same or landings <= 2 * 4:
+        raise AssertionError("OPT f32 whole path: tokens differ, or no eviction")
+    del params, resident, host, engine
+    torch.cuda.empty_cache()
+    _free_host_cache()
+
+
+def _write_opt_checkpoint(root, dev, seed=0):
+    """OPT_EP_CONFIG's checkpoint under HF's tensor names, bf16, matrices
+    normal with std 0.02 made on the card from ``seed``, biases zero, norms
+    one, the LM head tied (not written): a shard per layer and one for the
+    embeddings and final norm, with the index. Returns its bytes."""
+    c = OPT_EP_CONFIG
+    D, F, V = c["hidden_size"], c["ffn_dim"], c["vocab_size"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def mat(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device=dev).normal_(0.0, 0.02, generator=g)
+
+    def full(n, v):
+        return torch.full((n,), v, dtype=torch.bfloat16, device=dev)
+
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps(c, indent=2))
+    L = c["num_hidden_layers"]
+    weight_map, total = {}, 0
+    for shard in range(L + 1):
+        fname = f"model-{shard + 1:05d}-of-{L + 1:05d}.safetensors"
+        if shard < L:
+            p = f"model.decoder.layers.{shard}."
+            tensors = []
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                tensors += [(f"{p}self_attn.{proj}.weight", mat(D, D)),
+                            (f"{p}self_attn.{proj}.bias", full(D, 0.0))]
+            tensors += [(p + "self_attn_layer_norm.weight", full(D, 1.0)),
+                        (p + "self_attn_layer_norm.bias", full(D, 0.0)),
+                        (p + "fc1.weight", mat(F, D)), (p + "fc1.bias", full(F, 0.0)),
+                        (p + "fc2.weight", mat(D, F)), (p + "fc2.bias", full(D, 0.0)),
+                        (p + "final_layer_norm.weight", full(D, 1.0)),
+                        (p + "final_layer_norm.bias", full(D, 0.0))]
+        else:
+            tensors = [("model.decoder.embed_tokens.weight", mat(V, D)),
+                       ("model.decoder.embed_positions.weight",
+                        mat(c["max_position_embeddings"] + 2, D)),
+                       ("model.decoder.final_layer_norm.weight", full(D, 1.0)),
+                       ("model.decoder.final_layer_norm.bias", full(D, 0.0))]
+        total += _write_safetensors(root / fname, tensors)
+        weight_map.update({name: fname for name, _ in tensors})
+        del tensors
+    (root / "model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}, indent=2))
+    return total
+
+
+def phase_opt_entry(dev):
+    """Phase 36: ``MoE`` from a checkpoint of OPT-66B's config.json cut to 4
+    layers: resident (the default budget), then at a ``device_memory_bytes``
+    that leaves 2 dense slots, where ``dense_paging="auto"`` pages; 2
+    requests, tokens equal. The checkpoint and store are deleted at the end."""
+    import shutil
+
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+
+    OPT_EP_DIR.mkdir(exist_ok=True)
+    free = shutil.disk_usage(OPT_EP_DIR).free
+    say(f"[opt-entry] disk free under {OPT_EP_DIR.name}/: {free / 1e9:.1f} GB "
+        f"(needs {OPT_EP_DISK_GB})")
+    if free < OPT_EP_DISK_GB * 1e9:
+        raise RuntimeError(f"phase 36 needs {OPT_EP_DISK_GB} GB of disk under {OPT_EP_DIR}, "
+                           f"{free / 1e9:.1f} GB is free")
+    total = {}
+    try:
+        ckpt, store = OPT_EP_DIR / "ckpt", OPT_EP_DIR / "store"
+        t0 = time.perf_counter()
+        nbytes = _write_opt_checkpoint(ckpt, dev)
+        say(f"[opt-entry] checkpoint: OPT-66B's config at {OPT_EP_CONFIG['num_hidden_layers']} "
+            f"layers, {nbytes / 1e9:.2f} GB of bf16 safetensors, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        prompts = _opt_prompts(OPT_EP_CONFIG["vocab_size"], 2, 36)
+        out = {}
+        for tag, extra in (("resident", {}),
+                           ("paged", {"device_memory_bytes": OPT_EP_BUDGET})):
+            cfg = dict(offload_path=str(store), max_seq_len=64, **extra)
+            m = _ep_build(f"OPT {tag}", ckpt, cfg, dev)
+            try:
+                paged = m.dense_arena is not None
+                say(f"[opt-entry] {tag}: dense paging {'on' if paged else 'off'}"
+                    + (f", {m.dense_arena.num_slots} slots of {m.dense_arena.L} layers"
+                       if paged else ""))
+                if paged != (tag == "paged") or (paged and m.dense_arena.num_slots != 2):
+                    raise AssertionError(f"OPT {tag}: unexpected plan")
+                reset_launches()
+                t0 = time.perf_counter()
+                out[tag] = m.generate(prompts, max_new_tokens=NEW_TOKENS, eos_token_id=None)
+                torch.cuda.synchronize()
+                c = launch_counts()
+                for k, v in c.items():
+                    total[k] = total.get(k, 0) + v
+                _require_launched(c, OPT_KERNELS, f"OPT facade ({tag})")
+                say(f"[opt-entry] {tag}: 2 requests x {NEW_TOKENS} tokens in "
+                    f"{time.perf_counter() - t0:.2f} s; stats {json.dumps(m.stats())}; "
+                    f"launches {json.dumps(c)}")
+            finally:
+                m.shutdown()
+                del m
+                torch.cuda.empty_cache()
+                _free_host_cache()
+        same = np.array_equal(out["paged"], out["resident"])
+        say(f"[check] OPT facade paged vs resident tokens: {'equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("OPT facade: paged tokens differ from the resident facade's")
+    finally:
+        shutil.rmtree(OPT_EP_DIR, ignore_errors=True)
+    return total
+
+
+class _TierStore:
+    """The build's store as a deployment has it: records the tier stages are
+    the tier's (a tier is a copy of its store), the rest the store's. The
+    host fallback reads records through it."""
+
+    def __init__(self, store, tier):
+        self._store, self._tier = store, tier
+
+    def __getattr__(self, name):
+        return getattr(self._store, name)
+
+    def get_expert(self, layer, expert, *, prio=0, gen=0):
+        row = self._tier.record_index(layer, expert)
+        if row is None:
+            return self._store.get_expert(layer, expert, prio=prio, gen=gen)
+        seg, local = self._tier.segment_for(row)
+        return {f.name: seg[f.name][local].numpy() for f in self._store.fields}
+
+
+class _GatedStore(_TierStore):
+    """A store whose fetch workers wait on ``gate`` (the main thread, where
+    the host executor reads, passes): with the gate shut nothing lands, so
+    every routed expert runs on the host."""
+
+    def __init__(self, store, tier=None):
+        super().__init__(store, tier)
+        import threading
+
+        self.gate = threading.Event()
+
+    def get_expert(self, layer, expert, *, prio=0, gen=0):
+        import threading
+
+        if threading.current_thread() is not threading.main_thread():
+            self.gate.wait(timeout=600.0)
+        if self._tier is None:
+            return self._store.get_expert(layer, expert, prio=prio, gen=gen)
+        return super().get_expert(layer, expert, prio=prio, gen=gen)
+
+
+def _paged_offload_build(dev):
+    """Phase 9's build for phases 37 and 38, the store read through the tier
+    where it stages a record, and the reference: phase 9's tokens (its
+    per-layer engine, no paging and no fallback, on phase 3's 4 requests x
+    16 tokens), from phase 9 when it ran in this process, else from a run
+    of its engine on this build."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+
+    _free_host_cache()
+    say(f"[paged] host memory available at the start of phase 37: {_host_free_gb():.1f} GiB")
+    b = _offload_build(dev)
+    b.tstore = _TierStore(b.store, b.tier)
+    b.ids1, b.mask1 = b.ids[:1, :HF_SRC].copy(), np.ones((1, HF_SRC), np.float32)
+    b.ids1[0, -1] = 2  # phase 38's deadline-0 request
+    b.want, b.ref_counts = PHASE9_TOKENS.get("sequences"), {}
+    if b.want is not None:
+        say(f"[paged] the reference: phase 9's tokens; first row {b.want[0].tolist()}")
+        return b
+    engine = _offload_engine(b.model, b.params, b.tstore, b.slots, b.tier)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = engine.generate(b.ids, max_new_tokens=NEW_TOKENS, attention_mask=b.mask,
+                              eos_token_id=None)
+        torch.cuda.synchronize()
+        b.ref_counts = launch_counts()
+        b.want = res.sequences
+        say(f"[paged] the reference, phase 9's per-layer engine (no paging, no fallback): "
+            f"{time.perf_counter() - t0:.1f} s, tokens/s "
+            f"{len(SRC_LENS) * NEW_TOKENS / (res.stats['decode_ms'] / 1e3):.2f}; first row "
+            f"{b.want[0].tolist()}")
+    finally:
+        engine.arena.shutdown()
+    return b
+
+
+def phase_nllb_paged(dev, b):
+    """Phase 37: NLLB-MoE-54B at full width and depth with its 48 dense
+    blocks paged through 16 slots and the experts offloaded (phase 9's
+    engine with a ``DenseLayerArena``): tokens equal to phase 9's run."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.dense_arena import DenseLayerArena
+
+    t0 = time.perf_counter()
+    blocks = _pinned_copy(list(b.params["enc_blocks"]) + list(b.params["dec_blocks"]))
+    torch.cuda.synchronize()
+    t_pin = time.perf_counter() - t0
+    top = {k: v for k, v in b.params.items() if k not in ("enc_blocks", "dec_blocks")}
+    top["enc_blocks"], top["dec_blocks"] = [{}], [{}]  # NLLB's preludes read no block
+    arena = DenseLayerArena(blocks, NLLB_DENSE_SLOTS, device=dev, num_threads=2)
+    n_enc = b.spec.encoder_layers
+    dec_gb = sum(arena.layer_bytes[n_enc:]) / 1e9
+    say(f"[paged] {arena.L} blocks ({sum(arena.layer_bytes) / 1e9:.2f} GB, decoder "
+        f"{dec_gb:.2f} GB) pinned in {t_pin:.1f} s; {arena.num_slots} slots in groups "
+        f"{[n for n, _ in arena.group_slots]} of {[m for _, m in arena.group_slots]}"
+        f" blocks; ahead {arena.ahead}")
+    engine = _offload_engine(b.model, top, b.tstore, b.slots, b.tier, dense_arena=arena)
+    _say_offload_setup("paged", b, engine.arena)
+    try:
+        reset_launches()
+        c0 = arena.copy_stats()
+        res = engine.generate(b.ids, max_new_tokens=NEW_TOKENS, attention_mask=b.mask,
+                              eos_token_id=None)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        c1, st = arena.copy_stats(), engine.stats()
+        dms = res.stats["decode_ms"]
+        # decode alone, driven step by step: encoder blocks that land while
+        # the decoder runs are the wrapped window's (decode never reads them)
+        tok = torch.as_tensor(b.ids, dtype=torch.int32, device=dev)
+        m = torch.as_tensor(b.mask, device=dev)
+        with torch.inference_mode():
+            _, cross = engine.run_encoder(tok, m)
+            l0 = arena.landings_by_layer()
+            kvs = engine.init_cache(tok.shape[0], 32)
+            cur = torch.full((tok.shape[0], 1), b.spec.decoder_start_token_id,
+                             dtype=torch.int32, device=dev)
+            for step in range(NEW_TOKENS):
+                logits = engine.decode_step(cur, step, kvs, m, cross)
+                cur = torch.argmax(logits[:, -1], -1, keepdim=True).to(torch.int32)
+            torch.cuda.synchronize()
+            l1 = arena.landings_by_layer()
+    finally:
+        engine.arena.shutdown()
+        arena.shutdown()
+    n_enc = b.spec.encoder_layers
+    lb = arena.layer_bytes
+    enc = [(l1[i] - l0[i], (l1[i] - l0[i]) * lb[i]) for i in range(n_enc)]
+    dec = [(l1[i] - l0[i], (l1[i] - l0[i]) * lb[i]) for i in range(n_enc, arena.L)]
+    say(f"[paged] {NEW_TOKENS} decode steps alone: decoder blocks landed "
+        f"{sum(n for n, _ in dec)} times ({sum(x for _, x in dec) / 1e9:.2f} GB, "
+        f"{sum(x for _, x in dec) / NEW_TOKENS / 1e9:.3f} GB per step, for "
+        f"{sum(lb[n_enc:]) / 1e9:.2f} GB of decoder blocks); encoder blocks landed "
+        f"{sum(n for n, _ in enc)} times ({sum(x for _, x in enc) / 1e9:.2f} GB, "
+        f"{sum(x for _, x in enc) / NEW_TOKENS / 1e9:.3f} GB per step): the wrapped window's "
+        f"cost, never read")
+    gb = (c1["bytes_landed"] - c0["bytes_landed"]) / 1e9
+    unread = (c1["unread_bytes"] - c0["unread_bytes"]) / 1e9
+    say(f"[paged] NLLB-MoE-54B paged + offload: decode {dms / NEW_TOKENS:.2f} ms per step, "
+        f"{len(SRC_LENS) * NEW_TOKENS / (dms / 1e3):.2f} tokens/s; dense hit rate "
+        f"{st['dense_hit_rate']:.4f} ({st['dense_hits']} hits, {st['dense_misses']} misses); "
+        f"{gb:.2f} GB of dense blocks copied over the generate ({gb / NEW_TOKENS:.3f} GB per "
+        f"step with the encode's); landings never read (the wrapped window's and the "
+        f"window's evictions of nearer blocks): "
+        f"{c1['unread_landings'] - c0['unread_landings']}, {unread:.2f} GB; expert hit rate "
+        f"{st['hit_rate']:.4f}; launches {json.dumps(counts)}")
+    same = np.array_equal(res.sequences, b.want)
+    say(f"[check] NLLB paged + offload vs phase 9's per-layer run: tokens "
+        f"{'equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("NLLB paged tokens differ from phase 9's run")
+    _require_launched(counts, NLLB_KERNELS, "NLLB paged + offload")
+    if st["dense_misses"] <= 0:
+        raise AssertionError("NLLB paged: no dense miss")
+    del blocks, top, arena, engine
+    torch.cuda.empty_cache()
+    _free_host_cache()
+    return counts
+
+
+def _timed_host_fallback():
+    """Wrap the host fallback's delta and the executor's FFN to measure them;
+    returns (numbers, undo)."""
+    from moe_infinity_tpu_torch.runtime import host_exec
+
+    n = {"delta_s": 0.0, "deltas": 0, "ffn_s": 0.0, "ffns": 0}
+    delta0, ffn0 = host_exec.host_moe_delta, host_exec.HostExpertExecutor.ffn
+
+    def delta(*a, **k):
+        t = time.perf_counter()
+        out = delta0(*a, **k)
+        n["delta_s"] += time.perf_counter() - t
+        n["deltas"] += 1
+        return out
+
+    def ffn(self, *a, **k):
+        t = time.perf_counter()
+        out = ffn0(self, *a, **k)
+        n["ffn_s"] += time.perf_counter() - t
+        n["ffns"] += 1
+        return out
+
+    host_exec.host_moe_delta, host_exec.HostExpertExecutor.ffn = delta, ffn
+
+    def undo():
+        host_exec.host_moe_delta, host_exec.HostExpertExecutor.ffn = delta0, ffn0
+
+    return n, undo
+
+
+def phase_host_fallback(dev, b):
+    """Phase 38: the host fallback on phase 9's build (an arena with its zero
+    slot): at the default deadline (measured at phase 9's slots; tokens
+    equal to phase 9's with every expert resident), at a
+    deadline of 0 with prefetch off (measured), the same with
+    ``dequant_on_write``; then the whole-path checks (NLLB at 2+2 blocks and
+    Mixtral-8x7B at 2 layers, every expert on the host)."""
+    import gc
+
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+
+    total = {}
+
+    def count(c):
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+
+    # the default deadline (0.25 s), prefetch on. At phase 9's slots a fetch
+    # can miss it (35-36 experts a generate on one machine, none on others):
+    # measured, with the host runs by MoE layer, and the tokens held to phase
+    # 9's when no expert ran on the host in the timed run (bf16 tokens part
+    # when one did: the combine weights move, see the whole-path check).
+    # With a slot for every expert, all warmed, nothing misses: held always.
+    every = [(l, e) for l in range(b.store.num_layers) for e in range(b.store.num_experts)]
+    for label, slots in (("phase 9's slots", b.slots), ("a slot for every expert, warmed",
+                                                        len(every))):
+        engine = _offload_engine(b.model, b.params, b.tstore, slots, b.tier, host_fallback=True,
+                                 arena_kw=dict(reserve_zero_slot=True))
+        by_layer = {}
+
+        def counted(layer, expert, x, _ffn=engine._host_exec.ffn):
+            by_layer[layer] = by_layer.get(layer, 0) + 1
+            return _ffn(layer, expert, x)
+
+        engine._host_exec.ffn = counted
+        try:
+            if slots == len(every):
+                engine.arena.warm(every)
+                if not all(engine.arena.is_resident(k) for k in every):
+                    raise AssertionError("host fallback: warming every expert left one out")
+            else:
+                engine.generate(b.ids, max_new_tokens=NEW_TOKENS, attention_mask=b.mask,
+                                eos_token_id=None)
+            warm = engine.host_exec_count
+            reset_launches()
+            res = engine.generate(b.ids, max_new_tokens=NEW_TOKENS, attention_mask=b.mask,
+                                  eos_token_id=None)
+            torch.cuda.synchronize()
+            c = launch_counts()
+            count(c)
+        finally:
+            engine.arena.shutdown()
+        timed = engine.host_exec_count - warm
+        same = np.array_equal(res.sequences, b.want)
+        say(f"[host-fallback] deadline 0.25 s, {label} ({slots}): host_exec_count {warm} in the "
+            f"warm-up, {timed} in the timed run; tokens/s "
+            f"{len(SRC_LENS) * NEW_TOKENS / (res.stats['decode_ms'] / 1e3):.2f}; fetches "
+            f"{json.dumps(engine.arena.fetch_stats())}; host runs by MoE layer (the first "
+            f"{b.store.meta['num_encoder_moe_layers']} encode) {dict(sorted(by_layer.items()))}; "
+            f"tokens {'equal' if same else 'DIFFER'} "
+            f"to phase 9's run{'' if same or timed else ' with no expert on the host'}")
+        if not same and (timed == 0 or slots == len(every)):
+            raise AssertionError(f"host fallback at the default deadline, {label}: tokens "
+                                 f"differ from phase 9's run")
+        if slots == len(every) and timed:
+            raise AssertionError("host fallback with every expert resident ran one on the host")
+        del engine, res
+        gc.collect()  # the engine's reference cycles hold its arena's slots
+        torch.cuda.empty_cache()
+    # deadline 0, prefetch off: every miss on the host
+    for label, slots, akw in (("int4 slots", b.slots, {}),
+                              ("dequant_on_write, bf16 slots", HF_DQ_SLOTS,
+                               {"dequant_on_write": True})):
+        engine = _offload_engine(b.model, b.params, b.tstore, slots, b.tier, host_fallback=True,
+                                 host_fallback_timeout=0.0,
+                                 arena_kw=dict(reserve_zero_slot=True, **akw))
+        engine.prefetch = False
+        n, undo = _timed_host_fallback()
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            res = engine.generate(b.ids1, max_new_tokens=HF_NEW, attention_mask=b.mask1,
+                                  eos_token_id=None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = launch_counts()
+            count(c)
+            direct = len(engine._direct_mlis)
+        finally:
+            undo()
+            engine.arena.shutdown()
+        say(f"[host-fallback] deadline 0, prefetch off, {label} ({slots} slots, {direct} "
+            f"direct layers): 1 request of {HF_SRC} source tokens, {HF_NEW} tokens in "
+            f"{wall:.2f} s (encode {res.stats['encode_ms']:.1f} ms, decode "
+            f"{res.stats['decode_ms'] / HF_NEW:.1f} ms per step, "
+            f"{HF_NEW / (res.stats['decode_ms'] / 1e3):.3f} tokens/s); host_exec_count "
+            f"{engine.host_exec_count}; host ms per expert (2048 x 8192 int4 fc1 + fc2, "
+            f"dequantized at f32) {1e3 * n['ffn_s'] / max(1, n['ffns']):.2f} over {n['ffns']}; "
+            f"the host's deltas {1e3 * n['delta_s']:.1f} ms in all, "
+            f"{1e3 * n['delta_s'] / (1 + HF_NEW):.1f} ms per step (encode included); "
+            f"launches {json.dumps(c)}")
+        if engine.host_exec_count <= 0 or (akw and direct):
+            raise AssertionError(f"host fallback at deadline 0 ({label}): no expert ran on "
+                                 f"the host, or a direct layer under dequant_on_write")
+    count(_host_fallback_whole_path(dev))
+    return total
+
+
+class _RouterTape:
+    """The routing of each router call of one run, in call order, with the
+    gap between its 2nd and 3rd logits; with ``replay``, a recorded run's
+    routing returned in place of the router's own, so that this run
+    dispatches the same experts with the same combine weights."""
+
+    def __init__(self, model, replay=None):
+        from moe_infinity_tpu_torch.models.layers import linear
+
+        self.model, self.calls = model, []
+        self.name = "_route_top2" if hasattr(model, "_route_top2") else "route"
+        inner = getattr(model, self.name)
+
+        def hooked(pl, h, *a):
+            out = inner(pl, h, *a)
+            logits = linear(h.float(), pl["router"]).reshape(-1, pl["router"].shape[0])
+            if pl.get("router_bias") is not None:
+                logits = logits + pl["router_bias"]
+            top3 = logits.topk(3, dim=-1).values
+            n = logits.shape[0]
+            self.calls.append((out[1].reshape(n, -1), out[0].reshape(n, -1).float(),
+                               top3[:, 1] - top3[:, 2]))
+            if replay is not None:
+                out = replay.outs[len(self.outs)]
+            self.outs.append(out)
+            return out
+
+        self.outs = []
+        setattr(model, self.name, hooked)
+
+    def close(self):
+        delattr(self.model, self.name)
+
+
+def _say_route_diff(what, want, got):
+    """Report the first router call and row whose top-2 differ between two
+    tapes, with that row's 2nd-to-3rd logit gap in ``want``'s run; or, where
+    every row routes alike, the largest change of a combine weight."""
+    cw_gap = 0.0
+    for i, ((a, wa, gap), (b, wb, _)) in enumerate(zip(want.calls, got.calls)):
+        sa, ia = a.sort(-1)
+        sb, ib = b.sort(-1)
+        rows = (sa != sb).any(-1).nonzero()
+        if rows.numel():
+            r = int(rows[0])
+            say(f"[check] {what}: the routing first differs at router call {i} of "
+                f"{len(want.calls)}, row {r} ({rows.numel()} rows differ there): top-2 "
+                f"{a[r].tolist()} without fallback, {b[r].tolist()} with; the 2nd-to-3rd "
+                f"logit gap there without fallback {gap[r].item():.3e} (smallest of the "
+                f"call {gap.min().item():.3e})")
+            return
+        cw_gap = max(cw_gap, (wa.gather(1, ia) - wb.gather(1, ib)).abs().max().item())
+    say(f"[check] {what}: the same top-2 in all {len(want.calls)} router calls; the "
+        f"combine weights move by up to {cw_gap:.3e}")
+
+
+def _fallback_pair(make_engine, store, first_step, model=None):
+    """(without fallback, every expert on the host) results of
+    ``first_step(engine)``; the second over a gated store. With ``model``,
+    each run's router calls are taped, the first routing difference is
+    reported, and a third result is appended: every expert on the host
+    again, with the first run's routing replayed."""
+    out, tapes = [], []
+    runs = (False, True, True) if model is not None else (False, True)
+    for i, gated in enumerate(runs):
+        st = _GatedStore(store) if gated else store
+        eng = make_engine(st, gated)
+        if model is not None:
+            tapes.append(_RouterTape(model, replay=tapes[0] if i == 2 else None))
+        try:
+            out.append(first_step(eng))
+            torch.cuda.synchronize()
+            if gated and eng.host_exec_count <= 0:
+                raise AssertionError("the gated run ran no expert on the host")
+            if gated:
+                say(f"[host-fallback]   every expert on the host{' (routing replayed)' if i == 2 else ''}: "
+                    f"host_exec_count {eng.host_exec_count}")
+        finally:
+            if model is not None:
+                tapes[-1].close()
+            if gated:
+                st.gate.set()
+            eng.arena.shutdown()
+    if model is not None:
+        _say_route_diff("every expert on the host vs none", tapes[0], tapes[1])
+    return out
+
+
+def _moe_layer_out(engine, seq2seq: bool, T=16, seed=383):
+    """One MoE layer (MoE layer 0) through the engine's per-layer path on
+    random hidden states of T tokens routed top-2 over distinct experts:
+    the layer's expert output (the residual is zero)."""
+    model = engine.model
+    dev = model.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    D = getattr(model.spec, "d_model", None) or model.spec.hidden_size
+    E = model.spec.num_experts
+    h = torch.randn(1, T, D, generator=g, device=dev).to(model.dtype)
+    ids = torch.stack([torch.randperm(E, generator=g, device=dev)[:2]
+                       for _ in range(T)])[None].to(torch.int32)
+    cw = torch.rand(1, T, 2, generator=g, device=dev)
+    cw = cw / cw.sum(-1, keepdim=True)
+    ids_np = ids.cpu().numpy()
+    keys = [(0, int(e)) for e in np.unique(ids_np)]
+    x0 = torch.zeros_like(h)
+    with torch.inference_mode():
+        if seq2seq:
+            return engine._moe_dispatch(x0, h, cw, ids, ids_np, keys, 0)
+        return engine._moe_apply(engine.params["layers"][0], x0, h, cw, ids, ids_np, keys, 0)
+
+
+def _compare_scaled(name, got, want, tol=TOL) -> float:
+    """The largest difference over the largest magnitude of ``want``, held to
+    ``tol``: for outputs far from unit scale (the synthetic records' int
+    codes times N(0, 0.02) scales), where an elementwise rtol/atol would read
+    the rounding of near-zero elements against the scale of the rest."""
+    torch.cuda.synchronize()
+    d = (got.float() - want.float()).abs().max().item()
+    m = want.float().abs().max().item()
+    ok = bool(torch.isfinite(got.float()).all()) and d <= tol * m
+    say(f"[check] {name}: max_abs_err={d:.3e} of max |want| {m:.3e}: {d / m:.3e} "
+        f"(tol {tol}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: outside {tol} of the output's scale")
+    return d
+
+
+def _say_gap(name, got, want):
+    """Report (not hold) a bf16 whole path's largest difference."""
+    torch.cuda.synchronize()
+    d = (got.float() - want.float()).abs().max().item()
+    m = want.float().abs().max().item()
+    finite = bool(torch.isfinite(got.float()).all())
+    say(f"[check] {name}: max_abs_err={d:.3e} of max |want| {m:.3e} (reported, bf16)")
+    if not finite:
+        raise AssertionError(f"{name}: not finite")
+
+
+def _host_fallback_whole_path(dev):
+    """Every expert on the host (fetch workers held back) against none: NLLB
+    at full width and 2+2 blocks, the first step's logits within 1e-4 at
+    f32 through the exact grouped FFN; Mixtral-8x7B at full width, 2 layers,
+    int8, at f32 through the exact grouped FFN: the prefill's logits within
+    1e-4 and greedy tokens equal. In bf16 through K3 (which rounds the down
+    projection's input to bf16, where the host stays at f32): one MoE
+    layer's output within the JAX suite's 2e-2 of its largest magnitude
+    (``_compare_scaled``); the logits with each run's own routing reported,
+    beside the first router row whose top-2 differ (or the combine weights'
+    largest move); and, with the host run replaying the other run's routing
+    (``_RouterTape``), the logits within 2e-2: NLLB's as rtol = atol,
+    Mixtral's of their largest magnitude."""
+    from moe_infinity_tpu_torch.models.mixtral import MixtralModel, MixtralSpec
+    from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.arena import ExpertArena
+    from moe_infinity_tpu_torch.runtime.engine import OffloadEngine
+    from moe_infinity_tpu_torch.runtime.generate import Generator
+
+    reset_launches()
+    spec = NllbSpec(**dict(NLLB_54B, encoder_layers=2, decoder_layers=2,
+                           encoder_sparse_step=2, decoder_sparse_step=2))
+    E = spec.num_experts
+    store = _offload_store(spec, seed=38, cache_records=2 * E)
+    g = torch.Generator(device=dev)
+    g.manual_seed(38)
+    ids, mask = _requests(spec.vocab_size, g, dev)
+    ids, mask = ids[:1, :8].copy(), np.ones((1, 8), np.float32)
+    ids[:, -1] = 2
+    for dtype, impl in ((torch.float32, "ragged"), (torch.bfloat16, "pallas")):
+        g.manual_seed(380)
+        model = NllbModel(spec, compute_dtype=dtype, device=dev)
+        params, _ = model.init_random(g, with_experts=False)
+
+        def make(st, gated):
+            kw = dict(host_fallback=True, host_fallback_timeout=0.0) if gated else {}
+            return _offload_engine(model, params, st, E, None, impl=impl, graphs=False,
+                                   arena_kw=dict(reserve_zero_slot=gated), **kw)
+
+        bf16 = dtype == torch.bfloat16
+        res = _fallback_pair(make, store, lambda eng: (
+            _offload_first_step(eng, ids, mask), _moe_layer_out(eng, True)),
+            model=model if bf16 else None)
+        (want, want_y), (got, got_y) = res[:2]
+        what = f"NLLB ({dtype}, {impl}, full width, 2+2 blocks), every expert on the host vs none"
+        if not bf16:
+            compare(f"{what}: first-step logits", got, want, tol=1e-4)
+        else:
+            _compare_scaled(f"{what}: one MoE layer's output", got_y, want_y)
+            _say_gap(f"{what}: first-step logits, own routing", got, want)
+            compare(f"{what}: first-step logits, routing replayed", res[2][0], want)
+        del model, params
+    mspec = MixtralSpec(**dict(MIXTRAL_8X7B, num_layers=2))
+    mstore = _mixtral_offload_store(mspec, distinct=True, seed=38)
+    prompt = np.random.default_rng(38).integers(0, mspec.vocab_size, (1, 8))
+    for dtype, impl in ((torch.float32, "ragged"), (torch.bfloat16, "pallas")):
+        g.manual_seed(381)
+        model = MixtralModel(mspec, compute_dtype=dtype, device=dev)
+        params, _ = model.init_random(g, with_experts=False)
+
+        def make(st, gated):
+            kw = dict(host_fallback=True, host_fallback_timeout=0.0) if gated else {}
+            arena = ExpertArena(st, mspec.num_experts, compute_dtype=dtype, device=dev,
+                                num_threads=4, reserve_zero_slot=gated)
+            return OffloadEngine(model, params, arena, prefetch=False, impl=impl,
+                                 graphs=False, **kw)
+
+        what = f"Mixtral-8x7B ({dtype}, {impl}, 2 layers, int8), every expert on the host vs none"
+        if dtype == torch.float32:
+            (want_l, want), (got_l, got) = _fallback_pair(make, mstore, lambda eng: (
+                _opt_prefill_logits(eng, prompt),
+                Generator(stepper=eng).generate(prompt, max_new_tokens=2).sequences))
+            compare(f"{what}: prefill logits", got_l, want_l, tol=1e-4)
+            same = np.array_equal(got, want)
+            say(f"[check] {what}: greedy tokens {'equal' if same else 'DIFFER'}")
+            if not same:
+                raise AssertionError("Mixtral host fallback at f32: tokens differ")
+        else:
+            res = _fallback_pair(make, mstore, lambda eng: (
+                _opt_prefill_logits(eng, prompt), _moe_layer_out(eng, False)), model=model)
+            (want, want_y), (got, got_y) = res[:2]
+            _compare_scaled(f"{what}: one MoE layer's output", got_y, want_y)
+            _say_gap(f"{what}: prefill logits, own routing", got, want)
+            # the synthetic int8 records make expert outputs of up to ~1e7,
+            # so bf16's relative rounding of K3's activations is held
+            # against the logits' scale, as for the layer's output
+            _compare_scaled(f"{what}: prefill logits, routing replayed", res[2][0], want)
+        del model, params
+    torch.cuda.empty_cache()
+    return launch_counts()
+
+
+def phase_paged_offload(dev):
+    """Phases 37 and 38 on one build."""
+    def timed_(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(dev, *args)
+        say(f"[phase] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    b = timed_(_paged_offload_build)
+    counts = {}
+    for fn in (phase_nllb_paged, phase_host_fallback):
+        for k, v in timed_(fn, b).items():
+            counts[k] = counts.get(k, 0) + v
+    for k, v in b.ref_counts.items():
+        counts[k] = counts.get(k, 0) + v
+    del b
+    torch.cuda.empty_cache()
+    _free_host_cache()
+    return counts
+
+
 def main() -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -6555,6 +7666,24 @@ def main() -> int:
         timed(phase_entrypoints_and_server)
         say(f"[card] {smi}")
         return 0
+    if "--paging" in sys.argv[1:] or "--host-fallback" in sys.argv[1:]:
+        if "--paging" in sys.argv[1:]:
+            g = torch.Generator(device=dev)
+            g.manual_seed(0)
+            say(f"[check] OPT-66B's K1 and K2 shapes: largest errors "
+                f"{json.dumps(check_opt_attention(g, dev))}")
+            say(f"[check] K3 over dequantized slots: largest error "
+                f"{check_gmm_dequant(g, dev):.3e}")
+            timed(phase_opt)
+            timed(phase_opt_whole_path)
+            timed(phase_opt_entry)
+        if "--host-fallback" in sys.argv[1:]:
+            timed(phase_paged_offload)  # phases 37 and 38 on one build
+        else:
+            b = timed(_paged_offload_build)
+            timed(phase_nllb_paged, b)
+        say(f"[card] {smi}")
+        return 0
     if "--grok" in sys.argv[1:] or "--arctic" in sys.argv[1:]:
         if "--grok" in sys.argv[1:]:
             r = check_gmm_fp8(dev)
@@ -6587,7 +7716,7 @@ def main() -> int:
     sw_off_counts = timed(phase_switch_offload)
     timed(phase_switch_whole_path)
     _free_host_cache()
-    mx_off_counts = timed(phase_mixtral_offload)
+    mx_off_counts = timed(phase_mixtral_offload, MX_WHOLE_RUN_DEPTH)
     timed(phase_mixtral_offload_whole_path)
     ds_off_counts = timed(phase_deepseek_offload)
     ep_counts = timed(phase_entrypoints_and_server)
@@ -6595,6 +7724,11 @@ def main() -> int:
     ac_counts = timed(phase_arctic, extra)
     ge_counts = timed(phase_grok_entry)
     extra["phase_switch_entry"] = timed(phase_switch_entry)
+    _free_host_cache()
+    extra["phase_opt"] = timed(phase_opt)  # phases 34-38: serving past the card's memory
+    timed(phase_opt_whole_path)
+    extra["phase_opt_entry"] = timed(phase_opt_entry)
+    extra["phase_paged_offload"] = timed(phase_paged_offload)
     say(f"[batchers] launches by phase {json.dumps(extra)}")
     for r in recs:
         r["launches"] = sum(c.get(r["name"], 0) for c in (

@@ -7,9 +7,12 @@
   2. ingest the checkpoint into the expert-major offload store and the dense
      archive (``store/ingest.py``; a warm start when the store exists);
   3. build the port's model and load its dense params onto the device;
-  4. pick the plan: every expert resident when the experts fit the device
-     budget, otherwise the slot-arena offload engine under the EAMC tracer,
-     predictor and prefetch;
+  4. pick the plan: the dense layers resident, or paged through a
+     ``DenseLayerArena`` when they do not fit their share of the budget
+     (``dense_paging``); every expert resident when the experts fit the
+     device budget, otherwise the slot-arena offload engine under the EAMC
+     tracer, predictor and prefetch; a dense-only model (OPT) through
+     ``ResidentStepper`` or, paged, ``PagedDenseEngine``;
   5. drive generation through ``Generator`` (decoder-only), a
      ``ContinuousBatcher`` for concurrent requests (decoder-only at
      ``max_batch_size`` > 1: over the resident experts, or over the offload
@@ -32,10 +35,14 @@ decoder-only offload engine for every model whose step sets ``graph_step``
 (``ops.moe.capturable``: not "ragged"); DeepSeek's offload engine runs eagerly. Experts are stored as
 ``expert_dtype`` says: bf16, f32, f16, int8, int4 or ``float8_e4m3fn``.
 
+With paged dense layers the expert plan is offload and decoding takes the
+per-layer path (no speculative decode, no batcher), eagerly.
+``host_fallback`` gives the expert arena its zero slot and lets the offload
+engines run a missed expert on the host (``runtime/host_exec.py``).
+
 Plans and options the port does not serve raise ``NotImplementedError``
-naming their ROADMAP queue-1 item: opt, and load modes other than ``mmap``
-(14); dense paging (16); multihost and any parallel
-degree above 1 (18); the host fallback (8).
+naming their ROADMAP queue-1 item: load modes other than ``mmap`` (14);
+multihost and any parallel degree above 1 (18).
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ def _registry() -> Dict[str, tuple]:
     from moe_infinity_tpu_torch.models.grok import GrokModel, GrokSpec
     from moe_infinity_tpu_torch.models.mixtral import MixtralModel, MixtralSpec
     from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
+    from moe_infinity_tpu_torch.models.opt import OPTModel, OPTSpec
     from moe_infinity_tpu_torch.models.switch import SwitchModel, SwitchSpec
 
     return {
@@ -76,6 +84,7 @@ def _registry() -> Dict[str, tuple]:
         "nllb": (NllbSpec, NllbModel),
         "grok": (GrokSpec, GrokModel),
         "arctic": (ArcticSpec, ArcticModel),
+        "opt": (OPTSpec, OPTModel),
     }
 
 
@@ -96,6 +105,12 @@ def _tensor_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in flat_tensors(tree))
 
 
+def _to_device(tree, device):
+    from moe_infinity_tpu_torch.runtime.dense_arena import tree_map
+
+    return tree_map(lambda t: t.to(device) if isinstance(t, torch.Tensor) else t, tree)
+
+
 def _check_config(config: EngineConfig) -> None:
     """Raise for the options whose plans the port does not serve."""
     if config.multihost:
@@ -105,10 +120,6 @@ def _check_config(config: EngineConfig) -> None:
             raise _not_ported(f"{name}={getattr(config, name)} (one card only)", "18")
     if config.load_mode != "mmap":
         raise _not_ported(f"load_mode {config.load_mode!r}", "14")
-    if config.host_fallback:
-        raise _not_ported("host_fallback (runtime/host_exec.py)", "8")
-    if config.dense_paging == "on":
-        raise _not_ported("dense paging (runtime/dense_arena.py)", "16")
 
 
 class MoE:
@@ -155,13 +166,16 @@ class MoE:
         self.geometry = parse_geometry(self.hf_config)
         seq2seq = self.arch in _SEQ2SEQ_ARCHS
 
+        # the spec first: a variant the model does not take is refused before
+        # anything is ingested
+        spec_cls, model_cls = registry[self.arch]
+        spec = spec_cls.from_hf(self.hf_config)
         ingest_checkpoint(checkpoint, config.offload_path, self.hf_config,
                           expert_dtype=config.expert_dtype)
         dense = DenseArchive(config.offload_path)
 
-        spec_cls, model_cls = registry[self.arch]
         compute_dtype = torch.float32 if config.expert_dtype == "float32" else torch.bfloat16
-        self.model = model_cls(spec_cls.from_hf(self.hf_config), compute_dtype, device=self.device)
+        self.model = model_cls(spec, compute_dtype, device=self.device)
 
         # ---- the budget, and dense residency before any device load ----
         budget = config.device_memory_bytes
@@ -171,20 +185,38 @@ class MoE:
             budget = int(total * config.device_memory_ratio)
         self.budget = budget
         dense_est = _dense_bytes_estimate(dense, torch.finfo(compute_dtype).bits // 8)
+        # the dense share of the budget: all of it for a dense-only model, a
+        # part otherwise (experts and K/V take the rest)
         dense_share = 1.0 if self.geometry.num_experts == 0 else 0.6
-        if config.dense_paging == "auto" and dense_est > budget * dense_share:
-            raise _not_ported(
-                f"dense paging (the dense side, {dense_est} B, exceeds {dense_share} of the "
-                f"{budget} B budget; runtime/dense_arena.py)", "16")
-        self.params = self.model.load_params(dense)
-        if config.fold_mla and hasattr(self.model, "fold_mla_params"):
-            self.params = self.model.fold_mla_params(self.params)
+        page_dense = config.dense_paging == "on" or (
+            config.dense_paging == "auto" and dense_est > budget * dense_share)
+        self.dense_arena = None
+        if page_dense:
+            self._page_dense_layers(dense, model_cls, seq2seq, budget)
+        else:
+            self.params = self.model.load_params(dense)
+            if config.fold_mla and hasattr(self.model, "fold_mla_params"):
+                self.params = self.model.fold_mla_params(self.params)
 
         self.batcher = None
         self.s2s_batcher = None
         self.engine = None
         self.last_result = None
         self._spec = None  # the prompt-lookup decoder, made at its first request
+
+        # ---- dense-only models (OPT): no experts, no residency plan -----
+        if self.geometry.num_experts == 0:
+            if self.dense_arena is not None:
+                from moe_infinity_tpu_torch.runtime.dense_arena import PagedDenseEngine
+
+                self.engine = PagedDenseEngine(self.model, self.params, self.dense_arena)
+                stepper = self.engine
+            else:
+                stepper = ResidentStepper(self.model, self.params, {},
+                                          lambda experts, mli: experts)
+            self.generator = Generator(stepper=stepper, max_seq_len=config.max_seq_len)
+            return
+
         store = ExpertStore(config.offload_path, load_mode=config.load_mode)
         pinned_tier = None
         if config.pinned_tier:
@@ -193,7 +225,12 @@ class MoE:
             pinned_tier = PinnedExpertTier(store, device=self.device)
         expert_bytes = store.stride * store.num_layers * store.num_experts
         dense_bytes = _tensor_bytes(self.params)
-        fits = expert_bytes <= budget - dense_bytes
+        if self.dense_arena is not None:
+            # the paged stack takes its arena's slots, not its full size
+            dense_bytes += self.dense_arena.device_bytes
+        # paged dense layers need the engine's per-layer path
+        fits = expert_bytes <= budget - dense_bytes and self.dense_arena is None
+        paged = self.dense_arena is not None
         # CUDA graphs of the decode step where the grouped FFN can be
         # captured; a decoder-only model also says whether its step can be
         # one (graph_step)
@@ -210,6 +247,7 @@ class MoE:
             arena = ExpertArena(store, num_slots, compute_dtype=compute_dtype,
                                 device=self.device, num_threads=config.num_threads,
                                 dequant_on_write=config.dequant_on_write,
+                                reserve_zero_slot=config.host_fallback,
                                 pinned_tier=pinned_tier)
             tracer = ExpertTracer(config.trace_capacity, store.num_layers, store.num_experts,
                                   store.meta.get("num_encoder_moe_layers", 0))
@@ -218,8 +256,11 @@ class MoE:
             return dict(arena=arena, tracer=tracer, predictor=ExpertPredictor(tracer),
                         prefetch=config.prefetch, impl=config.moe_impl,
                         prefill_impl=config.prefill_impl,
-                        speculative=config.speculative_decode,
-                        spec_block=config.speculative_block, graphs=graphs)
+                        # paged dense layers force the per-layer path
+                        speculative=config.speculative_decode and not paged,
+                        spec_block=config.speculative_block, graphs=graphs,
+                        dense_arena=self.dense_arena, host_fallback=config.host_fallback,
+                        host_fallback_timeout=config.host_fallback_timeout_s)
 
         def resident_experts():
             logger.info("experts fit the device (%.2f GB <= %.2f GB budget): resident plan",
@@ -268,7 +309,8 @@ class MoE:
                 # concurrent offload serving: joins encode through the
                 # engine's per-layer path, each shared step is one verified
                 # speculative execution over the arena
-                if batched and config.speculative_decode and config.s2s_batcher == "continuous":
+                if (batched and config.speculative_decode and not paged
+                        and config.s2s_batcher == "continuous"):
                     self.s2s_batcher = Seq2SeqContinuousBatcher(
                         self.model, self.params, None, None, engine=self.engine, **s2s)
                 elif batched:
@@ -299,7 +341,7 @@ class MoE:
         # continuous batching for concurrent serving: over the resident
         # experts, or (with speculative_decode) over the offload engine's
         # arena, every batched step one verified speculative execution
-        if (config.max_batch_size > 1
+        if (config.max_batch_size > 1 and not paged
                 and "key_valid" in self.model.forward.__code__.co_varnames
                 and (fits or config.speculative_decode)):
             from moe_infinity_tpu_torch.runtime.continuous import ContinuousBatcher
@@ -317,6 +359,40 @@ class MoE:
                     self.model, self.params, None, None, arena=self.engine.arena,
                     tracer=self.engine.tracer, predictor=self.engine.predictor,
                     prefetch=config.prefetch, **common)
+
+    def _page_dense_layers(self, dense, model_cls, seq2seq: bool, budget: int):
+        """Load the layer stack to the host and page it through a
+        ``DenseLayerArena``; the rest of the params goes to the device. A
+        seq2seq stack is the encoder's blocks then the decoder's, and its
+        ``enc_blocks``/``dec_blocks`` become one-element stubs holding only
+        what the preludes read (Switch's ``rel_bias``)."""
+        from moe_infinity_tpu_torch.runtime.dense_arena import DenseLayerArena
+
+        config = self.config
+        host = model_cls(self.model.spec, self.model.dtype, device="cpu").load_params(dense)
+        if seq2seq:
+            enc, dec = host.pop("enc_blocks"), host.pop("dec_blocks")
+            layers = list(enc) + list(dec)
+            self.params = _to_device(host, self.device)
+            for name, blocks in (("enc_blocks", enc), ("dec_blocks", dec)):
+                self.params[name] = [{"rel_bias": blocks[0]["rel_bias"].to(self.device)}
+                                     if "rel_bias" in blocks[0] else {}]
+        else:
+            layers = host.pop("layers")
+            self.params = _to_device(host, self.device)
+        top_bytes = _tensor_bytes(self.params)
+        layer_bytes = max(1, int(np.mean([_tensor_bytes(lt) for lt in layers])))
+        avail = max(0, budget - top_bytes - budget // 10)
+        want = avail // layer_bytes if self.geometry.num_experts == 0 \
+            else int(0.45 * avail) // layer_bytes
+        slots = min(config.dense_slots or max(2, int(want)), len(layers))
+        logger.info("dense paging: %d layer slots of %d layers (%.2f GB/layer)",
+                    slots, len(layers), layer_bytes / 2**30)
+        self.dense_arena = DenseLayerArena(layers, slots, device=self.device,
+                                           num_threads=config.num_threads)
+        if not seq2seq:
+            # the engines never read params["layers"] when paging
+            self.params["layers"] = [None] * len(layers)
 
     # ---- generation -----------------------------------------------------
     def generate(self, input_ids, **kwargs) -> np.ndarray:
@@ -442,5 +518,7 @@ class MoE:
             self.batcher.shutdown()
         if self.s2s_batcher is not None:
             self.s2s_batcher.shutdown()
+        if self.dense_arena is not None:
+            self.dense_arena.shutdown()  # idempotent
         if self.engine is not None:
             self.engine.arena.shutdown()

@@ -42,10 +42,19 @@ may have read the new record is never accepted.
 On the CPU (``device="cpu"``) copies are synchronous and no event is made.
 
 Slots keep the stored bytes: int8, packed int4 and ``float8_e4m3fn`` codes
-(as the JAX arena's ``jnp.float8_e4m3fn`` slots), dequantized by K3.
+(as the JAX arena's ``jnp.float8_e4m3fn`` slots), dequantized by K3. With
+``dequant_on_write`` they hold the compute dtype instead (int4 unpacked to
+its full ``2P`` columns, keyed without the ``4``, and no scale tensors): a
+landing copies the stored bytes and dequantizes them into the slot, on the
+card on the worker's stream after the copy and before the landing event,
+and K3 runs its bf16 kind over them.
 
-Not ported: ``dequant_on_write``, ``reserve_zero_slot`` (host fallback)
-and ``tp_mirrors`` raise ``NotImplementedError``; the JAX
+``reserve_zero_slot`` gives every slot tensor one more row, ``zero_slot =
+num_slots``, all zeros and never allocated, landed into or evicted: the
+engines' host fallback (``runtime/host_exec.py``) points a missed expert's
+slot row there, so the grouped FFN contributes exactly 0 for it.
+
+Not ported: ``tp_mirrors`` raises ``NotImplementedError``; the JAX
 relay's upload knobs (``upload_chunk_bytes``, ``upload_threads``) have no
 counterpart.
 """
@@ -64,6 +73,7 @@ import torch
 
 from moe_infinity_tpu_torch import resolve_device
 from moe_infinity_tpu_torch.memory.cache_policy import ExpertCachePolicy
+from moe_infinity_tpu_torch.ops.moe import unpack_int4
 from moe_infinity_tpu_torch.runtime.providers import _BIAS_TAILS, _ROLE_KEYS, role_map_for
 from moe_infinity_tpu_torch.utils.dtypes import host_copy, torch_dtype
 from moe_infinity_tpu_torch.utils.logger import get_logger
@@ -95,19 +105,12 @@ class ExpertArena:
     ):
         """compute_dtype: the slot dtype of unquantized roles; int8 and
         packed int4 roles keep their stored bytes (K3 dequantizes), scales
-        and biases are f32. pinned_tier: a ``store.pinned.PinnedExpertTier``
-        over the same store; its staged records land from pinned memory,
-        the rest through the store path."""
-        if dequant_on_write:
-            raise NotImplementedError(
-                "dequant_on_write is not ported (ROADMAP queue-1 item 8): slots keep "
-                "the stored bytes and K3 dequantizes"
-            )
-        if reserve_zero_slot:
-            raise NotImplementedError(
-                "reserve_zero_slot (the host-fallback escape hatch) is not ported "
-                "(ROADMAP queue-1 item 8)"
-            )
+        and biases are f32. dequant_on_write: quantized roles land
+        dequantized into compute-dtype slots. reserve_zero_slot: one more
+        all-zero row per slot tensor at ``zero_slot`` (the host fallback's).
+        pinned_tier: a ``store.pinned.PinnedExpertTier`` over the same store;
+        its staged records land from pinned memory, the rest through the
+        store path."""
         if tp_mirrors:
             raise NotImplementedError(
                 "tp_mirrors (tensor-parallel columns) are not ported (ROADMAP queue-1 item 18)"
@@ -116,6 +119,10 @@ class ExpertArena:
             raise ValueError("num_slots must be >= 1")
         self.store = store
         self.num_slots = num_slots
+        # the all-zero row past the allocatable slots (the host fallback's)
+        self.zero_slot: Optional[int] = num_slots if reserve_zero_slot else None
+        rows = num_slots + (1 if reserve_zero_slot else 0)
+        self.dequant_on_write = bool(dequant_on_write)
         self.num_layers = store.num_layers
         self.num_experts = store.num_experts
         self.device = resolve_device(device)
@@ -133,30 +140,51 @@ class ExpertArena:
         roles = role_map_for(store.meta)
         field_names = set(store.field_names)
         self._role_to_tail: Dict[str, str] = {}
-        self._field_dtype: Dict[str, str] = {}  # arena key -> store dtype name
+        self._field_dtype: Dict[str, str] = {}  # source key -> store dtype name
+        # source key -> (shape, dtype) of what a landing copies for it: the
+        # slot's for a slot tensor, the stored record's for a role that is
+        # dequantized on write (and its scale)
+        self._src_spec: Dict[str, tuple] = {}
+        self._dequant: Dict[str, str] = {}  # slot key -> its scale's source key
         arena: Dict[str, torch.Tensor] = {}
 
-        def add(key, tail, dtype):
+        def add(key, tail, dtype, slot_shape=None):
             f = store._field_by_name[tail]
             self._role_to_tail[key] = tail
             self._field_dtype[key] = f.dtype
-            arena[key] = torch.zeros((num_slots,) + f.shape, dtype=dtype, device=self.device)
+            self._src_spec[key] = (f.shape, dtype)
+            if slot_shape is not None:
+                arena[key] = torch.zeros((rows,) + slot_shape, dtype=dtype, device=self.device)
 
         for role, tail in roles.items():
             if tail is None:
                 continue
             key = _ROLE_KEYS[role]
-            fdt = store._field_by_name[tail].dtype
+            f = store._field_by_name[tail]
+            quantized = f.dtype in ("int8", "int4", "float8_e4m3fn")
+            if quantized and dequant_on_write:
+                # stored bytes travel, the slot holds the compute dtype; an
+                # int4 slot holds its unpacked 2P columns under the base key
+                self._role_to_tail[key] = tail
+                self._field_dtype[key] = f.dtype
+                self._src_spec[key] = (f.shape, torch_dtype(f.dtype))
+                shape = (f.shape[0], f.shape[1] * 2) if f.dtype == "int4" else f.shape
+                arena[key] = torch.zeros((rows,) + shape, dtype=compute_dtype,
+                                         device=self.device)
+                add(key + "_scale", tail + ".scale", torch.float32)
+                self._dequant[key] = key + "_scale"
+                continue
             # quantized slots keep the stored bytes (int8, packed int4, fp8
             # codes) and K3 dequantizes; a packed int4 slot keeps the
             # '<role>4' key, its scale the base key
-            sdt = torch_dtype(fdt) if fdt in ("int8", "int4", "float8_e4m3fn") else compute_dtype
-            add(key + "4" if fdt == "int4" else key, tail, sdt)
+            sdt = torch_dtype(f.dtype) if quantized else compute_dtype
+            add(key + "4" if f.dtype == "int4" else key, tail, sdt, f.shape)
             if tail + ".scale" in field_names:
-                add(key + "_scale", tail + ".scale", torch.float32)
+                add(key + "_scale", tail + ".scale", torch.float32,
+                    store._field_by_name[tail + ".scale"].shape)
         for tail, key in _BIAS_TAILS.items():
             if tail in field_names:
-                add(key, tail, torch.float32)
+                add(key, tail, torch.float32, store._field_by_name[tail].shape)
         self._arena = arena
         self._tier = pinned_tier
 
@@ -375,9 +403,18 @@ class ExpertArena:
     ) -> Tuple[List[Key], List[Key]]:
         """acquire() with a deadline: returns (resident, missing). Missing
         keys are unprotected and NOT resident - their fetches continue in
-        the background. The caller must release() only the resident list."""
+        the background. The caller must release() only the resident list.
+
+        Only the deadline makes a key missing: a fetch that failed, in this
+        call or in the background after an earlier call's deadline, raises
+        here (with every key of the call unprotected)."""
         with self._cv:
-            events = self._enqueue_ondemand_locked(keys, layer)
+            # a background fetch that failed after an earlier deadline left
+            # its error; enqueueing would drop it
+            err = next((self._errors.pop(k) for k in keys if k in self._errors), None)
+            events = [] if err is not None else self._enqueue_ondemand_locked(keys, layer)
+        if err is not None:
+            raise err
         deadline = _time.perf_counter() + timeout
         missing: List[Key] = []
         for key, ev in events:
@@ -387,10 +424,16 @@ class ExpertArena:
                     continue
                 self.policy.unprotect(key)
                 self._escalated.discard(key)
-                self._errors.pop(key, None)
+                failed = self._errors.pop(key, None)
                 missing.append(key)
+            if failed is not None and err is None:
+                err = failed
         gone = set(missing)
-        return [k for k in keys if k not in gone], missing
+        resident = [k for k in keys if k not in gone]
+        if err is not None:
+            self.release(resident)
+            raise err
+        return resident, missing
 
     def release(self, keys: Sequence[Key]) -> None:
         with self._lock:
@@ -546,13 +589,14 @@ class ExpertArena:
                     path = "tier"
                 else:
                     record = self.store.get_expert(*key, prio=prio, gen=gen)
-                    if stream is None:  # the CPU: write the slot in place
+                    if stream is None and not self._dequant:
+                        # the CPU: write the slot in place
                         dsts = {k: a[slot] for k, a in self._arena.items()}
                         srcs = {}
                     else:
                         if staging is None:
-                            staging = {k: torch.empty(a.shape[1:], dtype=a.dtype, pin_memory=True)
-                                       for k, a in self._arena.items()}
+                            staging = {k: torch.empty(shape, dtype=dt, pin_memory=self._cuda)
+                                       for k, (shape, dt) in self._src_spec.items()}
                         dsts = srcs = staging
                     for akey, tail in self._role_to_tail.items():
                         # quantized bytes as stored, others cast on the host
@@ -585,17 +629,34 @@ class ExpertArena:
         """Copy one record into ``slot``. On the card: on the worker's
         stream, after ``fences``, returning the landing event."""
         if stream is None:
-            for akey, src in srcs.items():
-                self._arena[akey][slot].copy_(src)
+            self._write_slot(srcs, slot, False)
             return None
         with torch.cuda.stream(stream):
             for ev in fences:
                 stream.wait_event(ev)
-            for akey, src in srcs.items():
-                self._arena[akey][slot].copy_(src, non_blocking=True)
+            self._write_slot(srcs, slot, True)
             landed = torch.cuda.Event()
             landed.record(stream)
         return landed
+
+    def _write_slot(self, srcs: Dict[str, torch.Tensor], slot: int, non_blocking: bool):
+        """Copy each slot tensor's source into ``slot``; a role dequantized
+        on write is copied as stored and written as codes times its scale."""
+        for akey, src in srcs.items():
+            dst = self._arena.get(akey)
+            if dst is None:  # a scale that a dequantized role consumes
+                continue
+            scale_key = self._dequant.get(akey)
+            if scale_key is None:
+                dst[slot].copy_(src, non_blocking=non_blocking)
+                continue
+            codes = src.to(self.device, non_blocking=non_blocking)
+            scale = srcs[scale_key].to(self.device, non_blocking=non_blocking)
+            if codes.dtype == torch.uint8:  # e4m3 codes as a tier holds them
+                codes = codes.view(torch.float8_e4m3fn)
+            if codes.shape[-1] * 2 == dst.shape[-1]:  # packed int4
+                codes = unpack_int4(codes)
+            dst[slot].copy_((codes.float() * scale.float()[None, :]).to(dst.dtype))
 
     def _finish_fetch(self, key: Key, slot: int, prio: int, landed, path: str):
         with self._lock:

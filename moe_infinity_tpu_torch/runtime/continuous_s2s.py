@@ -261,8 +261,12 @@ class Seq2SeqContinuousBatcher:
 
     def _fail_active(self, exc: BaseException):
         """Fail every active request; the scheduler thread survives and no
-        future hangs. The caches are zeroed in place: new tensors would move
-        the addresses a captured graph reads."""
+        future hangs. The caches are zeroed in place first (new tensors would
+        move the addresses a captured graph reads), so a caller woken by the
+        failure finds them zeroed."""
+        for kv in self._kvs:
+            kv.k.zero_()
+            kv.v.zero_()
         for sl in self._slots:
             if sl.active:
                 sl.req.future.set_exception(exc)
@@ -271,9 +275,6 @@ class Seq2SeqContinuousBatcher:
                     sl.seq_id = None
                 sl.req = None
                 sl.active = False
-        for kv in self._kvs:
-            kv.k.zero_()
-            kv.v.zero_()
 
     def _loop(self):
         if self._device.type == "cuda":

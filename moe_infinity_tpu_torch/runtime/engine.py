@@ -13,8 +13,8 @@ resident is exact, and only such an execution is accepted.
 
 Dispatch functions hand back device tensors; the helpers read the trace
 (``.cpu()``) once per dispatch, after its launches are queued, and the
-tokens once they are accepted. The host fallback (``host_exec.py``) waits
-for ROADMAP queue-1 item 8.
+tokens once they are accepted. The speculative path never runs the host
+fallback, as in JAX.
 
 ``OffloadEngine`` drives a decoder-only model's layer protocol (``embed``,
 ``pre_moe``, ``dense_layer``, ``apply_moe``, ``head``) against an
@@ -66,6 +66,39 @@ def _split_arena_tree(tree: Dict[str, torch.Tensor]):
     weights = {k: v for k, v in tree.items() if k not in _BIAS_KEYS}
     biases = {k: v for k, v in tree.items() if k in _BIAS_KEYS}
     return weights, (biases or None)
+
+
+def apply_over_slots(engine, keys, mli: int, h, cw, ids_np, apply):
+    """Acquire one MoE layer's routed experts and run ``apply(weights, row,
+    biases)`` over the arena's slots (both offload engines' per-layer
+    path). With ``engine.host_fallback``, an expert that is not resident
+    within ``engine.host_fallback_timeout`` reads the arena's zero slot and
+    its contribution is computed on the host (``runtime/host_exec.py``) from
+    ``h`` and ``cw``, read to the host only then, and added in the output's
+    dtype; only the resident keys are released."""
+    arena = engine.arena
+    if engine.host_fallback:
+        resident, missing = arena.try_acquire(keys, mli, engine.host_fallback_timeout)
+    else:
+        arena.acquire(keys, mli)
+        resident, missing = keys, []
+    row = arena.slot_map(mli)  # a copy
+    if missing:
+        row[[e for _, e in missing]] = arena.zero_slot
+    # uploaded synchronously: the compute stream holds no queued work here
+    # (the routed ids were just read)
+    row = torch.from_numpy(row).to(engine.model.device)
+    with arena.locked_tree(resident) as tree:
+        weights, biases = _split_arena_tree(tree)
+        x = apply(weights, row, biases)
+    if missing:
+        from moe_infinity_tpu_torch.runtime.host_exec import host_moe_delta
+
+        engine.host_exec_count += len(missing)
+        delta = host_moe_delta(engine._host_exec, mli, missing, h.cpu(), cw.cpu(), ids_np)
+        x = x + delta.to(device=x.device, dtype=x.dtype)
+    arena.release(resident)
+    return x
 
 
 def is_spec_capacity_error(e: BaseException) -> bool:
@@ -531,6 +564,7 @@ class OffloadEngine(_LayerClock):
         spec_block: int = 1,
         dense_arena=None,
         host_fallback: bool = False,
+        host_fallback_timeout: float = 0.25,
         graphs: bool = True,
         graph_backend=None,
     ):
@@ -546,11 +580,29 @@ class OffloadEngine(_LayerClock):
         the steps run eagerly unless one is given). A model without
         ``graph_step`` (DeepSeek-V2) takes ``graphs=False`` only; on the card
         an ``impl`` that cannot be captured ("ragged") raises ``ValueError``
-        unless graphs is False."""
-        if dense_arena is not None:
-            raise _not_ported("dense_arena (paging of the dense layers)", "16")
+        unless graphs is False.
+        dense_arena: a ``DenseLayerArena`` paging the layer stack
+        (``params["layers"]`` is then not read); it forces the per-layer
+        path, since a speculative step needs every dense layer resident.
+        host_fallback: a routed expert that is not resident within
+        ``host_fallback_timeout`` seconds runs on the host from its store
+        record (``runtime/host_exec.py``) while the grouped FFN reads the
+        arena's zero slot for it (the per-layer path only)."""
+        if dense_arena is not None and speculative:
+            raise ValueError(
+                "speculative decode requires the dense side resident; "
+                "disable speculative_decode when dense paging is active")
+        self.dense_arena = dense_arena
+        self.host_fallback = host_fallback
+        self.host_fallback_timeout = host_fallback_timeout
+        self.host_exec_count = 0
+        self._host_exec = None
         if host_fallback:
-            raise _not_ported("host_fallback", "8")
+            if arena.zero_slot is None:
+                raise ValueError("host_fallback requires an arena built with reserve_zero_slot=True")
+            from moe_infinity_tpu_torch.runtime.host_exec import HostExpertExecutor, activation_for
+
+            self._host_exec = HostExpertExecutor(arena.store, activation_for(arena.store.meta))
         if arena.num_slots < model.spec.num_experts:
             raise ValueError(
                 f"arena num_slots={arena.num_slots} < num_experts={model.spec.num_experts}; "
@@ -588,7 +640,9 @@ class OffloadEngine(_LayerClock):
         # one graph per step shape (the JAX engine's jit cache), over the
         # K/V caches the engine owns per (B, capacity)
         self.graphs: Optional[GraphCache] = None
-        if graphs and (graph_backend is not None or model.device.type == "cuda"):
+        # (paged layers run eagerly: they take the per-layer path only)
+        if graphs and dense_arena is None and (graph_backend is not None
+                                               or model.device.type == "cuda"):
             if not self._graph_step:
                 raise _not_ported(
                     f"CUDA graphs of the {model.arch} decode step (pass graphs=False)",
@@ -639,6 +693,13 @@ class OffloadEngine(_LayerClock):
         for li in range(model.spec.num_layers):
             self._tick_layer_clock()
             mli = model.moe_layer_index(li)
+            if self.dense_arena is not None:
+                x, kv_caches[li], routed = self._paged_layer(
+                    li, mli, x, kv_caches[li], positions, kv_len, seq_ids)
+                if routed is not None:
+                    trace_ids.append(routed[0])
+                    trace_w.append(routed[1])
+                continue
             pl = params["layers"][li]
             if mli is None:  # a leading dense layer (DeepSeek)
                 x, kv_caches[li] = model.dense_layer(pl, x, kv_caches[li], positions, kv_len)
@@ -647,23 +708,43 @@ class OffloadEngine(_LayerClock):
             ids_np = ids.cpu().numpy()  # [B, T, K]; the host waits for the routing
             keys = [(mli, int(e)) for e in np.unique(ids_np)]
             self._trace_and_prefetch(ids_np, mli, seq_ids)
-            x = self._moe_apply(pl, x, h, cw, ids, keys, mli)
+            x = self._moe_apply(pl, x, h, cw, ids, ids_np, keys, mli)
             trace_ids.append(ids)
             trace_w.append(cw)
         return model.head(params, x), kv_caches, (torch.stack(trace_ids), torch.stack(trace_w))
 
-    def _moe_apply(self, pl, x, h, cw, ids, keys, mli):
+    def _paged_layer(self, li, mli, x, kv, positions, kv_len, seq_ids):
+        """One layer on its dense-arena slot (and, for a MoE layer, K3 over
+        the expert arena): (x, kv, (ids, cw) or None). As in JAX, its MoE
+        block acquires with no host fallback and runs ``impl``."""
+        da, model = self.dense_arena, self.model
+        slot = da.acquire(li)
+        try:
+            pl = da.layer_view(li, slot)
+            if mli is None:
+                x, kv = model.dense_layer(pl, x, kv, positions, kv_len)
+                return x, kv, None
+            x, h, cw, ids, kv = model.pre_moe(pl, x, kv, positions, kv_len)
+            ids_np = ids.cpu().numpy()
+            keys = [(mli, int(e)) for e in np.unique(ids_np)]
+            self._trace_and_prefetch(ids_np, mli, seq_ids)
+            self.arena.acquire(keys, mli)
+            row = torch.from_numpy(self.arena.slot_map(mli)).to(model.device)
+            with self.arena.locked_tree(keys) as tree:
+                weights, biases = _split_arena_tree(tree)
+                x = model.apply_moe(pl, x, h, cw, ids, weights, row, biases, self._impl)
+            self.arena.release(keys)
+            return x, kv, (ids, cw)
+        finally:
+            da.release(li)
+
+    def _moe_apply(self, pl, x, h, cw, ids, ids_np, keys, mli):
         """Acquire + grouped-FFN apply of one MoE layer over the slots."""
-        self.arena.acquire(keys, mli)
-        # a fresh host copy of the row, uploaded synchronously: the compute
-        # stream holds no queued work here (the routed ids were just read)
-        row = torch.from_numpy(self.arena.slot_map(mli)).to(self.model.device)
-        with self.arena.locked_tree(keys) as tree:
-            weights, biases = _split_arena_tree(tree)
-            impl = self._impl if h.shape[1] == 1 else self._pimpl
-            x = self.model.apply_moe(pl, x, h, cw, ids, weights, row, biases, impl)
-        self.arena.release(keys)
-        return x
+        impl = self._impl if h.shape[1] == 1 else self._pimpl
+        return apply_over_slots(
+            self, keys, mli, h, cw, ids_np,
+            lambda weights, row, biases: self.model.apply_moe(
+                pl, x, h, cw, ids, weights, row, biases, impl))
 
     def _trace_and_prefetch(self, ids_np, mli: int, seq_ids) -> None:
         """Record this layer's routing in the tracer and, with prefetch on,
@@ -806,6 +887,10 @@ class OffloadEngine(_LayerClock):
     def stats(self) -> dict:
         out = self.arena.hit_stats()
         out.update(speculative_stats(self.replay_counts))
+        if self.dense_arena is not None:
+            out.update(self.dense_arena.stats())
+        if self.host_fallback:
+            out["host_exec_count"] = self.host_exec_count
         return out
 
     def node_stats(self) -> dict:

@@ -76,8 +76,18 @@ Sampled requests (``runtime/sampling.py``) take the speculative step or
 the per-layer path, one token a step; the k-step blocks stay plain greedy,
 as in JAX.
 
-Not ported (each raises ``NotImplementedError``): dense-layer paging
-(ROADMAP queue-1 item 16) and the host fallback (8, ``host_exec.py``).
+**Dense-layer paging** (``dense_arena``): the blocks page through a
+``DenseLayerArena`` over the combined stack (encoder block i -> layer i,
+decoder block i -> ``n_enc + i``; ``params["enc_blocks"]`` and
+``["dec_blocks"]`` may then be one-element stubs holding only what the
+preludes read, Switch's ``rel_bias``), on the per-layer path only, eagerly.
+
+**Host fallback** (``host_fallback``): on the per-layer path, a routed
+expert that is not resident within ``host_fallback_timeout`` reads the
+arena's zero slot and runs on the host (``runtime/host_exec.py``). Under the
+arena's ``dequant_on_write`` no layer runs direct from the tier and stream
+decode is refused: the tier holds the stored codes, the slots the compute
+dtype.
 """
 
 from __future__ import annotations
@@ -92,8 +102,8 @@ import torch
 from moe_infinity_tpu_torch.memory.prefetch_plan import plan_prefetch
 from moe_infinity_tpu_torch.runtime.engine import (
     _LayerClock,
-    _not_ported,
     _split_arena_tree,
+    apply_over_slots,
     is_spec_capacity_error,
     make_block_monitor,
     margin_key_fns,
@@ -198,6 +208,7 @@ class Seq2SeqOffloadEngine(_LayerClock):
         stream_unique: int = 32,
         dense_arena=None,
         host_fallback: bool = False,
+        host_fallback_timeout: float = 0.25,
         graphs: bool = True,
         graph_backend=None,
     ):
@@ -219,17 +230,35 @@ class Seq2SeqOffloadEngine(_LayerClock):
         (default ``CudaGraphBackend`` on a CUDA model; on the CPU the steps
         run eagerly unless one is given). On the card an ``impl`` that
         cannot be captured ("ragged") raises ``ValueError`` unless graphs is
-        False."""
-        if dense_arena is not None:
-            raise _not_ported("dense_arena (paging of the dense layers)", "16")
+        False.
+        dense_arena: a ``DenseLayerArena`` over the combined block stack
+        (forces the per-layer path); host_fallback: a routed expert not
+        resident within ``host_fallback_timeout`` seconds runs on the host
+        (needs the arena's zero slot)."""
+        if dense_arena is not None and speculative:
+            raise ValueError(
+                "speculative decode requires the dense side resident; "
+                "disable speculative_decode when dense paging is active")
+        self.dense_arena = dense_arena
+        self.host_fallback = host_fallback
+        self.host_fallback_timeout = host_fallback_timeout
+        self.host_exec_count = 0
+        self._host_exec = None
         if host_fallback:
-            raise _not_ported("host_fallback", "8")
+            if arena.zero_slot is None:
+                raise ValueError("host_fallback requires an arena built with reserve_zero_slot=True")
+            from moe_infinity_tpu_torch.runtime.host_exec import HostExpertExecutor, activation_for
+
+            self._host_exec = HostExpertExecutor(arena.store, activation_for(arena.store.meta))
         if arena.num_slots < model.spec.num_experts:
             raise ValueError("arena must fit one full MoE layer of experts")
         tier = arena._tier
         if stream_decode:
             if tier is None or not tier.fields:
                 raise ValueError("stream_decode requires a pinned tier")
+            if arena.dequant_on_write:
+                raise ValueError("stream_decode computes from the tier's stored dtype; "
+                                 "disable dequant_on_write")
             if not speculative:
                 raise ValueError("stream_decode rides the block-decode loop; pass "
                                  "speculative=True")
@@ -280,7 +309,9 @@ class Seq2SeqOffloadEngine(_LayerClock):
         self._identity = torch.arange(E, dtype=torch.int32, device=model.device)
         # ---- direct-tier layers: role -> the layer's [E, ...] stack on the card
         self._direct: dict = {}
-        if tier is not None:
+        # (a dequant-on-write arena's slots hold the compute dtype, the
+        # tier the stored codes: those keep the slot path)
+        if tier is not None and not arena.dequant_on_write:
             candidates = [mli for mli in range(arena.num_layers)
                           if tier.layer_stack(mli, promote=False) is not None]
             if max_direct_layers is not None:
@@ -322,8 +353,9 @@ class Seq2SeqOffloadEngine(_LayerClock):
             model.route_margin = max(0, int(os.environ.get("MOE_ROUTE_MARGIN", route_margin)))
         # one graph per step shape (the JAX engine's jit cache), and the
         # buffers those graphs read by address
-        self.graphs: Optional[GraphCache] = graph_cache(graphs, graph_backend, model.device,
-                                                        impl)
+        # (paged blocks run eagerly: they take the per-layer path only)
+        self.graphs: Optional[GraphCache] = graph_cache(
+            graphs and dense_arena is None, graph_backend, model.device, impl)
         if self.graphs is not None:
             self._buffers = DecodeBuffers(model)
             self._param_tensors = flat_tensors(params)
@@ -371,7 +403,7 @@ class Seq2SeqOffloadEngine(_LayerClock):
         ids_np = ids.cpu().numpy()  # [B, T, K]; the host waits for the routing
         keys = [(mli, int(e)) for e in np.unique(ids_np)]
         self._plan_layer(ids_np, mli, seq_ids)
-        return self._moe_dispatch(x, h, cw, ids, keys, mli)
+        return self._moe_dispatch(x, h, cw, ids, ids_np, keys, mli)
 
     def _plan_layer(self, ids_np, mli, seq_ids):
         """Trace this layer's routing and enqueue lookahead prefetch."""
@@ -393,22 +425,18 @@ class Seq2SeqOffloadEngine(_LayerClock):
             for b, sid in enumerate(seq_ids):
                 self.tracer.update_entry(sid, ids_np[b], mli)
 
-    def _moe_dispatch(self, x, h, cw, ids, keys, mli):
-        """Acquire + apply one MoE layer against the slot arena (a direct-tier
+    def _moe_dispatch(self, x, h, cw, ids, ids_np, keys, mli):
+        """Acquire + apply one MoE layer against the slot arena, with the
+        host fallback for experts that miss its deadline (a direct-tier
         layer: straight from its stack, nothing acquired)."""
         impl = self._impl if h.shape[1] == 1 else self._pimpl
         if mli in self._direct_mlis:
             weights, biases = self._direct_split[mli]
             return self.model.apply_ff(x, h, cw, ids, weights, self._identity, biases, impl)
-        self.arena.acquire(keys, mli)
-        # a fresh host copy of the row, uploaded synchronously: the compute
-        # stream holds no queued work here (the routed ids were just read)
-        row = torch.from_numpy(self.arena.slot_map(mli)).to(self.model.device)
-        with self.arena.locked_tree(keys) as tree:
-            weights, biases = _split_arena_tree(tree)
-            x = self.model.apply_ff(x, h, cw, ids, weights, row, biases, impl)
-        self.arena.release(keys)
-        return x
+        return apply_over_slots(
+            self, keys, mli, h, cw, ids_np,
+            lambda weights, row, biases: self.model.apply_ff(
+                x, h, cw, ids, weights, row, biases, impl))
 
     def _prefetch_decoder_tier(self, seq_ids) -> None:
         """Encode->decode transition prefetch: plan the whole decoder tier
@@ -431,11 +459,56 @@ class Seq2SeqOffloadEngine(_LayerClock):
         if orders:
             self.arena.prefetch(orders)
 
+    # ---- dense-layer paging: block i of the encoder is layer i of the
+    # dense arena, block i of the decoder layer n_enc + i --------------------
+    def _enc_block_paged(self, i, x, bias, q_pos, seq_ids):
+        da, m, s = self.dense_arena, self.model, self.model.spec
+        slot = da.acquire(i)
+        try:
+            b = da.layer_view(i, slot)
+            if s.is_sparse(i, False):
+                x, h, cw, ids = m.enc_block_sparse_pre(b, x, bias, q_pos)
+                # the expert acquire blocks inside the block's protection:
+                # the block cannot be evicted mid-layer
+                return self._moe(x, h, cw, ids, s.moe_layer_id(i, False), seq_ids)
+            return m.enc_block_dense(b, x, bias, q_pos)
+        finally:
+            da.release(i)
+
+    def _dec_block_paged(self, i, x, kv, positions, step, bias, ck, cv, cross_bias, seq_ids):
+        da, m, s = self.dense_arena, self.model, self.model.spec
+        li = self._n_enc + i
+        slot = da.acquire(li)
+        try:
+            b = da.layer_view(li, slot)
+            if s.is_sparse(i, True):
+                x, h, cw, ids, kv = m.dec_block_sparse_pre(b, x, kv, positions, step, bias,
+                                                           ck, cv, cross_bias)
+                return self._moe(x, h, cw, ids, s.moe_layer_id(i, True), seq_ids), kv
+            return m.dec_block_dense(b, x, kv, positions, step, bias, ck, cv, cross_bias)
+        finally:
+            da.release(li)
+
+    def _cross_paged(self, enc_out):
+        """Cross-attention K/V of each decoder block, each on its slot."""
+        da, out = self.dense_arena, []
+        for i in range(self._n_dec):
+            li = self._n_enc + i
+            slot = da.acquire(li)
+            try:
+                out.append(self.model.cross_kv_block(da.layer_view(li, slot), enc_out))
+            finally:
+                da.release(li)
+        return out
+
     def run_encoder(self, input_ids, mask, seq_ids=None):
         """Per-layer (acquire/prefetch) encoder pass + cross K/V."""
         model, params, s = self.model, self.params, self.model.spec
         x, bias, q_pos = model.enc_prelude(params, input_ids, mask)
         for i in range(self._n_enc):
+            if self.dense_arena is not None:
+                x = self._enc_block_paged(i, x, bias, q_pos, seq_ids)
+                continue
             b = params["enc_blocks"][i]
             if s.is_sparse(i, False):
                 x, h, cw, ids = model.enc_block_sparse_pre(b, x, bias, q_pos)
@@ -443,6 +516,8 @@ class Seq2SeqOffloadEngine(_LayerClock):
             else:
                 x = model.enc_block_dense(b, x, bias, q_pos)
         enc_out = model.enc_final(params, x)
+        if self.dense_arena is not None:
+            return enc_out, self._cross_paged(enc_out)
         return enc_out, model.cross_kv(params, enc_out)
 
     def decode_step(self, cur_tok, step: int, kvs, mask, cross, seq_ids=None):
@@ -457,6 +532,10 @@ class Seq2SeqOffloadEngine(_LayerClock):
         x = model.dec_embed(params, cur_tok, step)
         for i in range(self._n_dec):
             ck, cv = cross[i]
+            if self.dense_arena is not None:
+                x, kvs[i] = self._dec_block_paged(i, x, kvs[i], positions, step, bias, ck, cv,
+                                                  cross_bias, seq_ids)
+                continue
             b = params["dec_blocks"][i]
             if s.is_sparse(i, True):
                 x, h, cw, ids, kvs[i] = model.dec_block_sparse_pre(
@@ -948,6 +1027,10 @@ class Seq2SeqOffloadEngine(_LayerClock):
     def stats(self) -> dict:
         out = self.arena.hit_stats()
         out.update(speculative_stats(self.replay_counts))
+        if self.dense_arena is not None:
+            out.update(self.dense_arena.stats())
+        if self.host_fallback:
+            out["host_exec_count"] = self.host_exec_count
         return out
 
     def graph_stats(self) -> dict:

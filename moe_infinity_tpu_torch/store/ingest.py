@@ -31,7 +31,7 @@ from moe_infinity_tpu_torch.common.arch import expert_layout
 from moe_infinity_tpu_torch.store.blob import DenseArchiveWriter, ExpertStoreWriter, store_exists
 from moe_infinity_tpu_torch.store.quant import quantize_rowwise
 from moe_infinity_tpu_torch.utils.checkpoints import iter_checkpoint_arrays
-from moe_infinity_tpu_torch.utils.dtypes import bf16_bits
+from moe_infinity_tpu_torch.utils.dtypes import bf16_bits, to_tensor
 from moe_infinity_tpu_torch.utils.hf_config import detect_arch, parse_expert_param, parse_geometry
 from moe_infinity_tpu_torch.utils.logger import get_logger
 
@@ -69,7 +69,7 @@ def _as_f32(a: np.ndarray, dtype: str) -> np.ndarray:
     """float32 values of an array of store dtype ``dtype`` (bf16 from its
     bits, exactly)."""
     if dtype == "bfloat16":
-        return (a.astype(np.uint32) << 16).view(np.float32)
+        return to_tensor(a, dtype).float().numpy()
     if dtype in ("float8_e4m3fn",):
         raise NotImplementedError(
             "fp8 checkpoint tensors are not ported (ROADMAP queue-1 item 14)"

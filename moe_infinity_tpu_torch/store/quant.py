@@ -1,5 +1,8 @@
-"""Weight-only quantization for offloaded experts (host side, numpy), from
-``moe_infinity_tpu/store/quant.py``.
+"""Weight-only quantization for offloaded experts (host side), from
+``moe_infinity_tpu/store/quant.py``. ``quantize_rowwise`` runs on CPU
+tensors, so torch's intra-op threads share the work; each operation is the
+JAX package's numpy one (an f32 division, rounding half to even), so the
+bytes are the same.
 
 Symmetric per-output-channel scaling:
   int8:          q = round(w / s), s = rowmax(|w|) / 127
@@ -18,6 +21,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from moe_infinity_tpu_torch.utils.dtypes import fp8_bits, fp8_values
 
@@ -42,27 +46,28 @@ def unpack_int4_np(w8: np.ndarray) -> np.ndarray:
     return np.concatenate([lo, hi], axis=-1)
 
 
+_QMAX = {"int8": INT8_MAX, "int4": INT4_MAX, "float8_e4m3fn": FP8_E4M3_MAX}
+
+
 def quantize_rowwise(w: np.ndarray, dtype: str) -> Tuple[np.ndarray, np.ndarray]:
     """Quantize a 2-D weight [out, in] row-wise; returns (q, scale[out])."""
     assert w.ndim == 2, w.shape
-    w32 = w.astype(np.float32)
-    absmax = np.abs(w32).max(axis=1)
-    if dtype == "int8":
-        scale = np.where(absmax > 0, absmax / INT8_MAX, 1.0).astype(np.float32)
-        q = np.clip(np.rint(w32 / scale[:, None]), -127, 127).astype(np.int8)
-    elif dtype == "int4":
+    if dtype not in _QMAX:
+        raise ValueError(f"unsupported quant dtype {dtype}")
+    w32 = torch.from_numpy(np.ascontiguousarray(w, dtype=np.float32))
+    absmax = w32.abs().amax(dim=1)
+    scale = torch.where(absmax > 0, absmax / _QMAX[dtype], 1.0)
+    v = w32 / scale[:, None]
+    if dtype == "float8_e4m3fn":
+        return fp8_bits(v.numpy()), scale.numpy()
+    lo, hi = (-127, 127) if dtype == "int8" else (-8, 7)
+    q = torch.round(v).clamp_(lo, hi).to(torch.int8).numpy()
+    if dtype == "int4":
         # pack adjacent OUT channels per byte: HF layout is [out, in] and
         # the compute layout transposes to [in, out], where ops.moe expects
         # the packed axis last. Returns q [out//2, in] + scale [out].
-        scale = np.where(absmax > 0, absmax / INT4_MAX, 1.0).astype(np.float32)
-        q = np.clip(np.rint(w32 / scale[:, None]), -8, 7).astype(np.int8)
         q = pack_int4_np(q.T).T
-    elif dtype == "float8_e4m3fn":
-        scale = np.where(absmax > 0, absmax / FP8_E4M3_MAX, 1.0).astype(np.float32)
-        q = fp8_bits(w32 / scale[:, None])
-    else:
-        raise ValueError(f"unsupported quant dtype {dtype}")
-    return q, scale
+    return q, scale.numpy()
 
 
 def dequantize_rowwise(q: np.ndarray, scale: np.ndarray) -> np.ndarray:

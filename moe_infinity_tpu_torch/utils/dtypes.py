@@ -80,13 +80,13 @@ def fp8_bits(a: np.ndarray) -> np.ndarray:
     ties to even, subnormals below 2^-6 kept; a magnitude above 464, an
     infinity or a NaN becomes the NaN code of its sign (torch's cast would
     saturate those to 448)."""
-    a32 = np.ascontiguousarray(a, dtype=np.float32)
-    codes = torch.from_numpy(a32).to(torch.float8_e4m3fn).view(torch.uint8).numpy()
-    over = ~(np.abs(a32) <= FP8_NAN_BOUND)
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    codes = t.to(torch.float8_e4m3fn).view(torch.uint8)
+    over = ~(t.abs() <= FP8_NAN_BOUND)
     if over.any():
-        codes = codes.copy()
-        codes[over] = np.where(np.signbit(a32[over]), 0xFF, 0x7F).astype(np.uint8)
-    return codes
+        codes = codes.clone()
+        codes[over] = torch.where(torch.signbit(t[over]), 0xFF, 0x7F).to(torch.uint8)
+    return codes.numpy()
 
 
 def fp8_values(codes: np.ndarray) -> np.ndarray:

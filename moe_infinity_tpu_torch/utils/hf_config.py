@@ -306,6 +306,14 @@ _FAMILY_DEFAULTS: Dict[str, Dict[str, Any]] = {
         "decoder_sparse_step": 4, "pad_token_id": 1, "bos_token_id": 0,
         "eos_token_id": 2,
     },
+    "opt": {  # OPTConfig
+        "vocab_size": 50272, "hidden_size": 768, "num_hidden_layers": 12,
+        "ffn_dim": 3072, "max_position_embeddings": 2048,
+        "do_layer_norm_before": True, "word_embed_proj_dim": None,
+        "num_attention_heads": 12, "activation_function": "relu",
+        "enable_bias": True, "pad_token_id": 1, "bos_token_id": 2,
+        "eos_token_id": 2,
+    },
 }
 
 
@@ -339,4 +347,6 @@ def read_hf_config(checkpoint: str) -> SimpleNamespace:
                             ("decoder", cfg["num_decoder_layers"])):
             n_sparse = cfg[f"num_sparse_{side}_layers"]
             cfg.setdefault(f"{side}_sparse_step", n_all // n_sparse if n_sparse > 0 else n_all)
+    if arch == "opt" and cfg["word_embed_proj_dim"] is None:
+        cfg["word_embed_proj_dim"] = cfg["hidden_size"]
     return SimpleNamespace(**cfg)

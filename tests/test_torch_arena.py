@@ -237,10 +237,20 @@ def test_counters_equal_jax_arena(stores, quant, slots, policy):
 
 def test_unported_options_raise(stores, tmp_path):
     path = stores["int4"]
-    for kw in (dict(dequant_on_write=True), dict(reserve_zero_slot=True),
-               dict(tp_mirrors=[("dev", None)])):
-        with pytest.raises(NotImplementedError):
-            make_arena(path, 4, **kw)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        make_arena(path, 4, tp_mirrors=[("dev", None)])
+    # served since the host fallback (tests/test_torch_host_fallback.py):
+    # the zero slot, one more all-zero row, and dequantized compute-dtype slots
+    for kw in (dict(dequant_on_write=True), dict(reserve_zero_slot=True)):
+        arena = make_arena(path, 4, **kw)
+        try:
+            if "reserve_zero_slot" in kw:
+                assert arena.zero_slot == 4 and arena.pytree()["gate4"].shape[0] == 5
+            else:
+                assert arena.zero_slot is None and arena.pytree()["gate"].dtype != torch.int8
+                assert not any(k.endswith("_scale") for k in arena.pytree())
+        finally:
+            arena.shutdown()
     # fp8 records are served since K3 takes e4m3: their slots keep the codes
     fields = [("fc1.weight", (16, 16), "float8_e4m3fn"), ("fc2.weight", (16, 16), "float8_e4m3fn")]
     fp8 = ExpertArena(SyntheticStore(1, 2, fields, meta={"arch": "nllb"}), 2, device="cpu")

@@ -484,3 +484,63 @@ def test_mixtral_speculative_blocks_equal_resident(dev, monkeypatch, mode):
         assert engine.graph_stats()["replays"] == sum(engine.replay_counts)
     finally:
         engine.arena.shutdown()
+
+
+def test_dense_landing_waits_for_queued_reads(dev):
+    """Write after read on the dense arena: a read of layer 0's slot is
+    queued behind a spin of some 0.3 s and layer 0 released; acquiring layer
+    1 evicts layer 0 (the ring's furthest next use) and lands layer 1 in the
+    same slot on a worker's stream. The queued read must still see layer 0,
+    and a read queued after the acquire must see layer 1."""
+    from moe_infinity_tpu_torch.runtime.dense_arena import DenseLayerArena
+
+    g = torch.Generator().manual_seed(0)
+    layers = [{"w": torch.randn(1024, 1024, generator=g)} for _ in range(3)]
+    arena = DenseLayerArena(layers, 2, device=dev, ahead=0, num_threads=2)
+    x = torch.randn(64, 1024, generator=g).to(dev)
+    try:
+        want = [x @ lt["w"].to(dev) for lt in layers]
+        torch.cuda.synchronize()
+        arena.acquire(2)
+        arena.release(2)
+        s0 = arena.acquire(0)
+        torch.cuda._sleep(500_000_000)
+        out0 = x @ arena.layer_view(0, s0)["w"]
+        arena.release(0)
+        s1 = arena.acquire(1)
+        out1 = x @ arena.layer_view(1, s1)["w"]
+        arena.release(1)
+        torch.cuda.synchronize()
+        assert s1 == s0 and 0 not in arena.layer_to_slot
+        assert torch.equal(out0, want[0]) and torch.equal(out1, want[1])
+    finally:
+        arena.shutdown()
+
+
+def test_zero_slot_through_k3_contributes_zero(dev):
+    """The host fallback's zero slot through K3 (int4 slots, NLLB's biases):
+    an expert pointed at it contributes exactly 0, as a masked (-1) one
+    does, bit for bit."""
+    store = _store(5)
+    arena = ExpertArena(store, E, compute_dtype=torch.bfloat16, device=dev, num_threads=2,
+                        reserve_zero_slot=True)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(8, D, generator=g, device=dev).to(torch.bfloat16)
+    ids = torch.randint(0, E, (8, 2), generator=g, device=dev, dtype=torch.int32)
+    cw = torch.rand(8, 2, generator=g, device=dev)
+    try:
+        keys = [(2, e) for e in range(E)]
+        arena.acquire(keys, 2)
+        row = arena.slot_map(2)
+        zero, masked = row.copy(), row.copy()
+        zero[::2] = arena.zero_slot
+        masked[::2] = -1
+        with arena.locked_tree(keys) as tree:
+            outs = [_ffn(x, ids, cw, torch.from_numpy(r).to(dev), tree)
+                    for r in (zero, masked, np.full(E, arena.zero_slot, np.int32))]
+        arena.release(keys)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])
+        assert not outs[2].any()
+    finally:
+        arena.shutdown()

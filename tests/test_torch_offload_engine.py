@@ -419,9 +419,13 @@ def test_unported_options_raise(mixtral, deepseek):
     arena = ExpertArena(ExpertStore(stores["float32"]), E, compute_dtype=torch.float32,
                         device="cpu", num_threads=1)
     try:
-        with pytest.raises(NotImplementedError, match="item 16"):
-            OffloadEngine(model, params, arena, dense_arena=object())
-        with pytest.raises(NotImplementedError, match="item 8"):
+        # dense paging and the host fallback are served
+        # (tests/test_torch_dense_paging.py, test_torch_host_fallback.py); what
+        # stays refused: a speculative engine over paged layers, and the
+        # fallback over an arena without its zero slot
+        with pytest.raises(ValueError, match="speculative decode requires"):
+            OffloadEngine(model, params, arena, dense_arena=object(), speculative=True)
+        with pytest.raises(ValueError, match="reserve_zero_slot"):
             OffloadEngine(model, params, arena, host_fallback=True)
         with pytest.raises(ValueError, match="one\\s+full MoE layer"):
             OffloadEngine(model, params, ExpertArena(

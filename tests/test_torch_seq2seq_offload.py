@@ -214,8 +214,11 @@ def test_unported_options_raise(setup):
     path = stores["int4"]
     arena = ExpertArena(ExpertStore(path), E, compute_dtype=torch.float32, device="cpu")
     try:
-        for kw in (dict(dense_arena=object()), dict(host_fallback=True)):
-            with pytest.raises(NotImplementedError):
+        # dense paging and the host fallback are served; a speculative engine
+        # over paged blocks, and the fallback without a zero slot, are refused
+        for kw, what in ((dict(dense_arena=object(), speculative=True), "speculative decode"),
+                         (dict(host_fallback=True), "reserve_zero_slot")):
+            with pytest.raises(ValueError, match=what):
                 Seq2SeqOffloadEngine(model, params, arena, **kw)
         # stream decode is served, with a tier and on the speculative path
         with pytest.raises(ValueError, match="requires a pinned tier"):

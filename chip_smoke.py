@@ -81,7 +81,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    sparse), an arena of 128 slots, against the resident ``Seq2SeqGenerator``
    over the same store's records (``ResidentProvider.from_store``): greedy
    tokens equal and first-step logits within the tolerance, on two seeds,
-   the second with the decoder records in a tier copied from the store;
+   the second with the decoder records in a tier copied from the store (the
+   whole run takes the second alone, for its time limit; ``--offload``
+   both);
 11. the offload main path at ``bench.py``'s defaults: phase 9's build served
    by the speculative engine (``speculative=True``, ``spec_block=4``, route
    margin 2): blocks of up to 4 greedy steps on the device with no host
@@ -96,8 +98,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    every execution of the graph run must be a replay, evictions must occur
    and some block must run more than once;
 12. its whole-path check: phase 10's set-up through the speculative engine
-   at k=1 and at k=4 in both ``MOE_SPEC_BLOCK_MODE`` modes, on both seeds,
-   16 tokens (cut from 24 for the whole run's time limit), with graphs
+   at k=1 and at k=4 in both ``MOE_SPEC_BLOCK_MODE`` modes, on both seeds
+   (the whole run: phase 10's second),
+   8 tokens (cut from 24, then 16, for the whole run's time limit), with graphs
    and eagerly: greedy tokens equal to the resident
    path's, the first accepted step's logits within the tolerance, at k=1
    every accepted step's f32 logits equal between graph and eager (and the
@@ -132,8 +135,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    eagerly and as graphs; s/token against the reference's 0.735, hit
    rate, executions per block, host ms per execution, graphs, peak
    memory; K1, K2 and K3 held to 32, 32 and 96 per step and prefill (the
-   whole run takes 8 layers, each arena cut to the same quarter: 15 and 38
-   slots, for its time limit; ``--mixtral-offload`` the full 32);
+   whole run takes 6 layers, each arena cut by the same share: 11 and 28
+   slots, and 32 tokens, for its time limit; ``--mixtral-offload`` the full
+   32 layers and 64 tokens);
 17. its whole-path check at f32, full width and 3 layers: per-layer and
    speculative step (graph and eager) offload bit-equal to the resident
    path at every one of 25 steps, graph bit-equal to eager, blocks of 2
@@ -204,7 +208,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    engine's per-layer path, each shared step is one speculative execution
    over the 388-slot arena, every execution a replay of one graph; hit
    rate, executions per step, tokens/s;
-26. its whole-path check: f32, full width, 4+4 blocks over phase 10's store
+26. its whole-path check: f32, full width, 4+4 blocks (2+2 in the whole run,
+   for its time limit) over phase 10's store
    (128 slots): 8 requests into 4 slots through the continuous batcher
    resident and in offload mode and the wave batcher, each request's greedy
    tokens equal to an isolated ``Seq2SeqGenerator``'s (slot reuse included),
@@ -270,7 +275,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    hit rate, executions per block, tokens/s beside phase 11's; with every
    decoder layer direct, no decoder visit and every block accepted at its
    first dispatch;
-33. their whole-path check at f32, full width, 4+4 blocks over phase 10's
+33. their whole-path check at f32, full width, 4+4 blocks (2+2 in the whole
+   run, for its time limit) over phase 10's
    store with the decoder records in a layer-aligned tier: stream decode
    (k = 1 and 4, U escalating from 2, graphs and eager) and direct layers
    (all and the deepest one; per layer, speculative k = 1 and 4, graphs and
@@ -283,7 +289,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    host memory and paged through ``PagedDenseEngine`` with 3 slots, 4
    left-padded requests x 16 greedy tokens: tokens equal, the prefill's
    logits bit-equal; (b) the full depth, 64 host layers aliasing the 8 (16.3
-   GB of host memory, every step copies all 64 layers), paged with 4 slots
+   GB of host memory, every step copies all 64 layers; 16 layers in the whole
+   run, for its time limit, 64 with ``--paging``), paged with 4 slots
    at batch 1 and 8, 8 greedy tokens each (a copy-bound step of the same
    work each time; fewer steps keep the whole run well inside its time
    limit): tokens/s, s per token, GB copied per step, the dense
@@ -322,7 +329,37 @@ Phases, each printing its own lines; any failure exits non-zero:
    first router row whose top-2 differ (or the combine weights' largest
    move) reported, and the logits within 2e-2 (NLLB as rtol = atol,
    Mixtral of their scale) when the host run replays the other run's
-   routing.
+   routing;
+39. ``MoE`` from a GPTQ checkpoint: Mixtral-8x7B's published ``config.json``
+   cut to 2 layers with AutoGPTQ's v1 ``quantization_config`` (4 bits,
+   groups of 128), every attention projection and expert linear packed on
+   the card by the port's ``pack_gptq`` from a seed (router, embeddings,
+   head and norms bf16) under ``.gptq_entry/`` (deleted at the end),
+   ingested to int4 experts; 8 sampled store records byte-equal to
+   ``dequant_gptq`` then ``quantize_rowwise`` on the host; K3's int4 kind at
+   the batch-1 decode layer of the store's records against its plain
+   version, timed; then phase 19's offload facade once per load mode
+   (``mmap``, ``ram``, ``direct``, ``sched``), each answering phase 19's 8
+   requests: greedy tokens equal across the four, K1, K2 and K3 launched on
+   each; ingest seconds, ``is_direct``, tokens/s, s/token and the escalated
+   reads under ``sched``;
+40. ``MoE`` from DeepSeek-V3's official block-fp8 layout at its published
+   width (deepseek-ai/DeepSeek-V3's ``config.json``: hidden 7168, 128 heads,
+   q_lora 1536, kv_lora 512, rope 64, 256 routed experts of 2048 top-8 in 8
+   groups top-4, a shared expert, ``noaux_tc``; cut to 2 layers, the first
+   dense): e4m3 codes plus ``weight_scale_inv`` at 128 x 128 for every
+   attention projection, the dense MLP, the shared and the routed experts
+   (15.8 GB from a seed under ``.dsv3_entry/``, deleted at the end),
+   ingested to float8_e4m3fn experts; 8 sampled records byte-equal to
+   ``dequant_fp8_block`` then ``quantize_rowwise``; K3's e4m3 kind at the
+   batch-1 MoE layer (8 rows over 8 experts, D 7168, F 2048), timed; the
+   resident facade (``Generator``, 4 requests of 16 tokens, 16 new each: K5
+   at 128 heads on every layer of every one-token step, K3 e4m3 three times
+   on every MoE layer call), the first decode step's logits through the
+   kernels against the plain versions (f32 held, bf16 reported); then the
+   offload facade at a budget of 160 of the 256 experts (the arena takes the
+   256 slots of the one MoE layer), eagerly, under ``direct`` and ``mmap``
+   with tokens equal.
 
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
@@ -343,12 +380,13 @@ phase 2's K3 e4m3 and rep 6/7 attention checks and phases 21 and 23;
 batcher inputs and phases 24 to 30, each on a build of its own;
 ``--paging`` the build, phase 2's OPT and dequantized-slot checks and phases
 34 to 37; ``--host-fallback`` the build and phases 37 and 38 (with
-``--paging``, 34 to 38). Each prints no result line.
+``--paging``, 34 to 38); ``--loading`` the build and phases 39 and 40. Each
+prints no result line.
 Every phase prints its seconds (``[phase]``).
 
 The line before the last is the per-kernel JSON record (launches: the sum
 of the counts of phases 3, 5, 7, 9, 11, 13, 14, 16, 18, 19, 21, 22, 23,
-24 to 30 (26's none: a check-only phase), 31, 32, 34 and 36 to 38,
+24 to 30 (26's none: a check-only phase), 31, 32, 34, 36 to 38, 39 and 40,
 graph replays included; K3's e4m3 kind has its own row, ``gmm_fp8``;
 K2 at head dim 64 has its own row, ``flash_attend_dh64``: a graph
 counts at each replay the launches it recorded when it was captured); the
@@ -384,6 +422,16 @@ NLLB_54B = dict(
     max_positions=1024, scale_embedding=True,
 )
 SRC_LENS = (64, 48, 40, 24)  # the 4 requests' source lengths, padded to 64
+# phases 10 and 12: (seed, decoder records staged in a tier); the whole run
+# takes the second alone (the tier and the store), for its time limit
+PARITY_SEEDS = ((11, False), (12, True))
+WHOLE_RUN_PARITY_SEEDS = PARITY_SEEDS[1:]
+# the f32 whole paths of phases 10, 12, 26 and 33: blocks a stack, every 2nd
+# sparse; the whole run takes 26 and 33 at 2+2 (one MoE layer a stack), for
+# its time limit (10 and 12 need 4+4: at 2+2 an arena of E slots holds every
+# expert the requests route, and nothing is evicted)
+PARITY_BLOCKS = 4
+WHOLE_RUN_PARITY_BLOCKS = 2
 NEW_TOKENS = 16
 
 # bench.py MIXTRAL_8X7B_SPEC
@@ -2728,7 +2776,7 @@ def _offload_first_step(engine, ids, mask):
         return engine.decode_step(start, 0, kvs, m, cross)
 
 
-def phase_offload_whole_path(dev):
+def phase_offload_whole_path(dev, seeds=PARITY_SEEDS, blocks=PARITY_BLOCKS):
     """The offload engine against the resident Seq2SeqGenerator at f32, full
     width, 4+4 blocks with every 2nd sparse (2+2 MoE layers), an arena of E
     slots (evictions at every MoE layer), prefetch on and 4 workers. The
@@ -2743,10 +2791,10 @@ def phase_offload_whole_path(dev):
     from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
     from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
 
-    spec = NllbSpec(**dict(NLLB_54B, encoder_layers=4, decoder_layers=4,
+    spec = NllbSpec(**dict(NLLB_54B, encoder_layers=blocks, decoder_layers=blocks,
                            encoder_sparse_step=2, decoder_sparse_step=2))
     E = spec.num_experts
-    for seed, staged in ((11, False), (12, True)):
+    for seed, staged in seeds:
         g = torch.Generator(device=dev)
         g.manual_seed(seed)
         model = NllbModel(spec, compute_dtype=torch.float32, device=dev)
@@ -2781,7 +2829,7 @@ def phase_offload_whole_path(dev):
         say(f"[check] offload seed {seed} ({'tier + store' if staged else 'store only'}): "
             f"{E} slots, evictions by MoE layer {ev_by_layer}, misses {stats['misses']}, "
             f"fetches {json.dumps(fetch)}")
-        compare(f"offload vs resident first-step logits f32 seed {seed} (full width, 4+4 "
+        compare(f"offload vs resident first-step logits f32 seed {seed} (full width, {blocks}+{blocks} "
                 f"blocks, int4 experts, {E}-slot arena)", got_logits, want_logits)
         same = np.array_equal(got.sequences, want.sequences)
         say(f"[check] offload vs resident greedy tokens seed {seed}: "
@@ -3051,7 +3099,7 @@ def _profile_spec_block(engine, ids, mask, tag, cap=32):
 
 
 PARITY_TOKENS = 24  # the f32 whole paths' greedy tokens per request (phases 15, 17, 18)
-SPEC_PARITY_TOKENS = 16  # phase 12's (cut from 24 for the whole run's time limit)
+SPEC_PARITY_TOKENS = 8  # phase 12's (cut from 24 to 16, then 8, for the whole run's time limit)
 
 
 def _same_or_close(what, got, want):
@@ -3116,7 +3164,7 @@ def _spec_case(model, params, store, tier, ids, gen, k, mode, graphs, record, **
     return res, logits, engine, counts
 
 
-def phase_offload_spec_whole_path(dev):
+def phase_offload_spec_whole_path(dev, seeds=PARITY_SEEDS, blocks=PARITY_BLOCKS):
     """The speculative engine at full width, 4+4 blocks with every 2nd
     sparse, an arena of E slots, prefetch on and 4 workers (phase 10's
     set-up), on seeds 11 (store only) and 12 (decoder records in a tier
@@ -3139,11 +3187,11 @@ def phase_offload_spec_whole_path(dev):
     from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
     from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
 
-    spec = NllbSpec(**dict(NLLB_54B, encoder_layers=4, decoder_layers=4,
+    spec = NllbSpec(**dict(NLLB_54B, encoder_layers=blocks, decoder_layers=blocks,
                            encoder_sparse_step=2, decoder_sparse_step=2))
     E = spec.num_experts
     replays = []
-    for seed, staged in ((11, False), (12, True)):
+    for seed, staged in seeds:
         g = torch.Generator(device=dev)
         g.manual_seed(seed)
         model = NllbModel(spec, compute_dtype=torch.float32, device=dev)
@@ -3186,7 +3234,7 @@ def phase_offload_spec_whole_path(dev):
                     f"graphs {json.dumps(engine.graph_stats())}")
                 if logits:
                     compare(f"speculative vs resident first accepted step's logits f32 {what} "
-                            f"(full width, 4+4 blocks, int4 experts, {E}-slot arena)",
+                            f"(full width, {blocks}+{blocks} blocks, int4 experts, {E}-slot arena)",
                             logits[0] if record == "steps" else logits[-1], want_logits)
                 elif record is not None:
                     raise AssertionError(f"{what}: step 0 never ran speculatively")
@@ -3635,7 +3683,8 @@ MX_BASELINE_S_PER_TOKEN = 0.735  # the reference, Mixtral-8x7B on one A5000 (ben
 MX_SPEC_HBM_GB = 28
 # phase 16's depth in the whole run (its arenas cut by the same share), for
 # the run's time limit; --mixtral-offload runs the full 32
-MX_WHOLE_RUN_DEPTH = 8
+MX_WHOLE_RUN_DEPTH = 6
+MX_WHOLE_RUN_TOKENS = 32  # and its tokens a generate in the whole run, for the same limit
 MIXTRAL_KERNELS = ("flash_decode", "flash_attend", "gmm")
 
 
@@ -3787,7 +3836,7 @@ def _mixtral_offload_run(tag, b, slots, graphs, speculative=True):
         torch.cuda.empty_cache()
 
 
-def phase_mixtral_offload(dev, depth=None):
+def phase_mixtral_offload(dev, depth=None, tokens=MX_TOKENS):
     """Mixtral-8x7B at full width and depth (bench.py's MIXTRAL_8X7B_SPEC)
     served by the decoder-only ``OffloadEngine`` as bench.py's
     ``mixtral-offload`` preset builds it (:221-320): bf16 dense weights from
@@ -3800,7 +3849,8 @@ def phase_mixtral_offload(dev, depth=None):
     first step and the per-layer path serves), then at an arena that holds a
     block's union (``MX_SPEC_HBM_GB``): eagerly (``graphs=False``), then
     each step and block a CUDA graph replay. Returns the launches of the
-    three timed generates. ``depth``: fewer layers, each arena cut by the
+    three timed generates. ``tokens``: new tokens a generate. ``depth``:
+    fewer layers, each arena cut by the
     same share (the whole run's time limit), so each holds the same share
     of the experts and of a step's union as at full depth."""
     from moe_infinity_tpu_torch.models.mixtral import MixtralModel, MixtralSpec
@@ -3816,7 +3866,7 @@ def phase_mixtral_offload(dev, depth=None):
     store = _mixtral_offload_store(spec)
     prompt = (np.arange(MX_PROMPT, dtype=np.int64)[None] * 37) % 31999  # bench.py:294
     b = SimpleNamespace(spec=spec, model=model, params=params, store=store, prompt=prompt,
-                        label="mixtral-offload", tokens=MX_TOKENS, cap=MX_CAP,
+                        label="mixtral-offload", tokens=tokens, cap=MX_CAP,
                         kernels=MIXTRAL_KERNELS, k3="gmm", moe_layers=None)
     n_rec = spec.num_layers * spec.num_experts
     layer = _tree_bytes(params["layers"][0])
@@ -3829,7 +3879,7 @@ def phase_mixtral_offload(dev, depth=None):
         f"({n_rec * store.stride / 1e9:.2f} GB), dense bf16 {dense / 1e9:.2f} GB; arena "
         f"{slots[HBM_GB]} slots at --hbm-gb {HBM_GB} ({slots[HBM_GB] / n_rec:.3f} of the "
         f"experts), {slots[MX_SPEC_HBM_GB]} at {MX_SPEC_HBM_GB} "
-        f"({slots[MX_SPEC_HBM_GB] / n_rec:.3f}); prompt {MX_PROMPT}, {MX_TOKENS} tokens, "
+        f"({slots[MX_SPEC_HBM_GB] / n_rec:.3f}); prompt {MX_PROMPT}, {tokens} tokens, "
         f"capacity {MX_CAP}; set-up {time.perf_counter() - t0:.1f} s")
     counts = {}
     seqs, counts["preset"], spec_kept = _mixtral_offload_run(
@@ -4113,13 +4163,19 @@ EP_DIR = Path(__file__).resolve().parent / ".entrypoints"
 EP_IMPL = {"expert_dtype": "int8", "moe_impl": "pallas", "prefill_impl": "pallas"}
 
 
+_SAFE_DTYPE = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32",
+               torch.int32: "I32", torch.float8_e4m3fn: "F8_E4M3"}
+
+
 def _write_safetensors(path, tensors):
     """The safetensors format: an 8-byte little-endian header length, the
-    JSON header, then each tensor's bytes (bf16 only here)."""
+    JSON header, then each tensor's bytes (bf16, f16, f32, int32 or
+    float8_e4m3fn tensors)."""
     header, off = {}, 0
     for name, t in tensors:
-        n = t.numel() * 2
-        header[name] = {"dtype": "BF16", "shape": list(t.shape), "data_offsets": [off, off + n]}
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _SAFE_DTYPE[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
         off += n
     header["__metadata__"] = {"format": "pt"}
     raw = json.dumps(header, separators=(",", ":")).encode()
@@ -4128,7 +4184,7 @@ def _write_safetensors(path, tensors):
         f.write(len(raw).to_bytes(8, "little"))
         f.write(raw)
         for _, t in tensors:
-            f.write(memoryview(t.cpu().view(torch.int16).numpy()))
+            f.write(memoryview(t.contiguous().cpu().reshape(-1).view(torch.uint8).numpy()))
     return 8 + len(raw) + off
 
 
@@ -4212,29 +4268,28 @@ def _ep_first_step_logits(st, prompt, dev):
     return out[:, -1]
 
 
-def _ep_logits_check(ref, store, prompt, dev):
+def _ep_logits_check(ref, store, prompt, dev, tag="entry"):
     """The first decode step's logits through the kernels against the plain
     versions on the card. At f32 compute (the facade's model class, dense
-    params and int8 experts from the same store) they are held to the
+    params from the same store, and the facade's quantized experts: the
+    store's bytes, which f32 compute takes as they are) they are held to the
     tolerance of phases 4 and 6, with equal argmax; through the bf16 facade
     the argmax is held and the error reported, as phases 4 and 6 report
     bf16."""
     from moe_infinity_tpu_torch.runtime.generate import ResidentStepper
     from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
-    from moe_infinity_tpu_torch.store.blob import DenseArchive, ExpertStore
+    from moe_infinity_tpu_torch.store.blob import DenseArchive
 
     m32 = type(ref.model)(ref.model.spec, torch.float32, device=dev)
-    st32 = ResidentStepper(
-        m32, m32.load_params(DenseArchive(str(store))),
-        ResidentProvider.from_store(ExpertStore(str(store)), dtype=torch.float32,
-                                    device=dev).pytree(),
-        ResidentProvider.for_layer, impl="pallas")
-    for tag, st in (("f32", st32), ("bf16 facade", ref.generator.stepper)):
+    st32 = ResidentStepper(m32, m32.load_params(DenseArchive(str(store))),
+                           ref.generator.stepper.experts, ResidentProvider.for_layer,
+                           impl="pallas")
+    for kind, st in (("f32", st32), ("bf16 facade", ref.generator.stepper)):
         with _plain_kernels():
             plain = _ep_first_step_logits(st, prompt, dev)
         kern = _ep_first_step_logits(st, prompt, dev)
-        what = f"entry: first decode step's logits ({tag}), kernels against plain versions"
-        if tag == "f32":
+        what = f"{tag}: first decode step's logits ({kind}), kernels against plain versions"
+        if kind == "f32":
             compare(what, kern, plain)
         else:
             diff = (kern.float() - plain.float()).abs()
@@ -5405,7 +5460,7 @@ def phase_s2s_batcher_offload(dev, built=None):
     return counts
 
 
-def phase_s2s_batchers_whole_path(dev):
+def phase_s2s_batchers_whole_path(dev, blocks=PARITY_BLOCKS):
     """Phase 26: f32, full width, 4+4 blocks over phase 10's store (seed 11,
     128 records a layer): 8 requests into 4 slots (4 join mid-flight)
     through the continuous batcher resident (graphs), in offload mode over
@@ -5420,7 +5475,7 @@ def phase_s2s_batchers_whole_path(dev):
     from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
     from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 
-    spec = NllbSpec(**dict(NLLB_54B, encoder_layers=4, decoder_layers=4,
+    spec = NllbSpec(**dict(NLLB_54B, encoder_layers=blocks, decoder_layers=blocks,
                            encoder_sparse_step=2, decoder_sparse_step=2))
     E, start = spec.num_experts, spec.decoder_start_token_id
     g = torch.Generator(device=dev)
@@ -6530,7 +6585,7 @@ def _stream_first_step(engine, ids, mask):
     return logits
 
 
-def phase_stream_whole_path(dev):
+def phase_stream_whole_path(dev, blocks=PARITY_BLOCKS):
     """Phase 33: stream decode and direct-tier layers at f32, full width, 4+4
     blocks (2+2 MoE layers), over phase 10's store (seed 11) with its
     decoder records copied into a layer-aligned tier, against the resident
@@ -6545,7 +6600,7 @@ def phase_stream_whole_path(dev):
     from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
     from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
 
-    spec = NllbSpec(**dict(NLLB_54B, encoder_layers=4, decoder_layers=4,
+    spec = NllbSpec(**dict(NLLB_54B, encoder_layers=blocks, decoder_layers=blocks,
                            encoder_sparse_step=2, decoder_sparse_step=2))
     E, seed = spec.num_experts, 11
     g = torch.Generator(device=dev)
@@ -6566,7 +6621,7 @@ def phase_stream_whole_path(dev):
     def check(what, got, logits=None, kernels=NLLB_KERNELS, counts=None):
         same = np.array_equal(got, want)
         bit = logits is None or torch.equal(logits, want_logits)
-        say(f"[check] {what} vs resident f32 (full width, 4+4 blocks, int4 experts): greedy "
+        say(f"[check] {what} vs resident f32 (full width, {blocks}+{blocks} blocks, int4 experts): greedy "
             f"tokens {'equal' if same else 'DIFFER'}"
             + ("" if logits is None else ", first-step logits " + (
                 "bit-equal" if bit else f"DIFFER by {(logits - want_logits).abs().max():.3e}")))
@@ -6637,15 +6692,16 @@ def phase_stream_whole_path(dev):
     _free_host_cache()
 
 
-def phase_stream(dev):
+def phase_stream(dev, blocks=PARITY_BLOCKS):
     """``--stream`` and the whole run: phase 9's tier released, then phases
-    31 to 33 (31 and 32 on one build). Returns the launches of 31 and 32."""
+    31 to 33 (31 and 32 on one build; 33 at ``blocks``). Returns the launches
+    of 31 and 32."""
     _free_host_cache()
     counts, b = _subphase(phase_stream_decode, dev)
     counts = _sum_counts(counts, _subphase(phase_direct_layers, dev, b))
     del b
     _free_host_cache()
-    _subphase(phase_stream_whole_path, dev)
+    _subphase(phase_stream_whole_path, dev, blocks)
     return counts
 
 
@@ -6664,6 +6720,7 @@ OPT_PROMPT_LENS = (32, 27, 20, 12)  # 34a's 4 requests
 OPT_SLOTS = 3  # 34a's dense slots (of 8 layers)
 OPT_SLOTS_FULL = 4  # 34b's (of 64)
 OPT_FULL_TOKENS = 8  # 34b's new tokens per generate (the prefill and 7 steps)
+OPT_WHOLE_RUN_DEPTH = 16  # 34b's layers in the whole run, for its time limit; --paging runs 64
 OPT_KERNELS = ("flash_decode", "flash_attend")
 OPT_EP_DIR = Path(__file__).resolve().parent / ".opt_entry"
 OPT_EP_DISK_GB = 24  # checkpoint 9.2 + dense archive 9.2, with room
@@ -6741,11 +6798,12 @@ def _logits_verdict(what, got, want):
     return compare(what, got, want)
 
 
-def phase_opt(dev):
+def phase_opt(dev, depth=None):
     """Phase 34: OPT-66B at its published width, bf16, weights from a seed.
     (a) depth 8, distinct layers, resident through ``ResidentStepper`` and
     then paged through ``PagedDenseEngine`` with 3 slots; (b) full depth, 64
-    host layers aliasing the 8, paged with 4 slots, batch 1 and 8."""
+    host layers aliasing the 8, paged with 4 slots, batch 1 and 8 (``depth``:
+    fewer layers, the whole run's time limit)."""
     from moe_infinity_tpu_torch.models.opt import OPTModel, OPTSpec
     from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
     from moe_infinity_tpu_torch.runtime.dense_arena import DenseLayerArena, PagedDenseEngine
@@ -6813,13 +6871,14 @@ def phase_opt(dev):
         raise AssertionError("OPT-66B paged tokens differ from the resident run's")
     if st["dense_misses"] <= 0:
         raise AssertionError("OPT-66B depth 8 paged: no dense miss")
-    # (b) the full depth, paged
-    spec64 = OPTSpec(**OPT_66B)
+    # (b) the full depth (or ``depth``), paged
+    spec64 = OPTSpec(**dict(OPT_66B, num_layers=depth or OPT_66B["num_layers"]))
+    n = spec64.num_layers
     model64 = OPTModel(spec64, torch.bfloat16, device=dev)
     host64 = [host[i % OPT_DISTINCT] for i in range(spec64.num_layers)]
     arena = DenseLayerArena(host64, OPT_SLOTS_FULL, device=dev, num_threads=2)
-    say(f"[opt] depth 64: 64 host layers alias the {OPT_DISTINCT} drawn ones (host memory "
-        f"{arena.host_bytes / 1e9:.1f} GB; every step copies all 64 layers, "
+    say(f"[opt] depth {n}: {n} host layers alias the {OPT_DISTINCT} drawn ones (host memory "
+        f"{arena.host_bytes / 1e9:.1f} GB; every step copies all {n} layers, "
         f"{sum(arena.layer_bytes) / 1e9:.1f} GB); {arena.num_slots} slots, ahead "
         f"{arena.ahead}; pinning at arena build {arena.pin_seconds:.2f} s (already pinned)")
     try:
@@ -6832,14 +6891,14 @@ def phase_opt(dev):
             seqs, wall = _opt_generate(engine, ids, OPT_FULL_TOKENS)
             c = launch_counts()
             count(c)
-            _require_launched(c, OPT_KERNELS, f"OPT-66B depth 64 paged batch {B}")
+            _require_launched(c, OPT_KERNELS, f"OPT-66B depth {n} paged batch {B}")
             s1, c1 = arena.stats(), arena.copy_stats()
             steps = OPT_FULL_TOKENS  # the prefill and the one-token steps
             hits, misses = (s1["dense_hits"] - s0["dense_hits"],
                             s1["dense_misses"] - s0["dense_misses"])
             gb = (c1["bytes_landed"] - c0["bytes_landed"]) / steps / 1e9
             landed = c1["landings"] - c0["landings"]
-            say(f"[opt-64] batch {B}: {steps} tokens in {wall:.3f} s: "
+            say(f"[opt-{n}] batch {B}: {steps} tokens in {wall:.3f} s: "
                 f"{B * steps / wall:.4f} tokens/s, {wall / steps:.4f} s per token "
                 f"(per step); {landed} landings, {gb:.2f} GB copied per step "
                 f"({gb / (wall / steps):.1f} GB/s); "
@@ -6851,16 +6910,16 @@ def phase_opt(dev):
             # a step, so landings, not misses, show the paging
             if (seqs.shape != (B, OPT_PROMPT + steps)
                     or landed < steps * (spec64.num_layers - arena.num_slots)):
-                raise AssertionError(f"OPT-66B depth 64 batch {B}: shape {seqs.shape}, "
+                raise AssertionError(f"OPT-66B depth {n} batch {B}: shape {seqs.shape}, "
                                      f"{landed} landings")
         if arena.stats()["dense_misses"] <= 0:
-            raise AssertionError("OPT-66B depth 64: no dense miss")
+            raise AssertionError(f"OPT-66B depth {n}: no dense miss")
         # the device's busy share over one step (a prefill and one step)
         ids = _opt_prompts(spec64.vocab_size, 1, 341)
-        prof = _profile_streams("OPT-66B depth 64 paged, batch 1, a prefill and one step",
+        prof = _profile_streams(f"OPT-66B depth {n} paged, batch 1, a prefill and one step",
                                 lambda: _opt_generate(engine, ids, 2), 1)
         if prof:
-            say(f"[opt-64] compute busy share {prof['kernels_ms'] / prof['wall_ms']:.4f}, "
+            say(f"[opt-{n}] compute busy share {prof['kernels_ms'] / prof['wall_ms']:.4f}, "
                 f"copies {prof['copies_ms']:.1f} ms of {prof['wall_ms']:.1f} ms")
     finally:
         arena.shutdown()
@@ -7592,6 +7651,518 @@ def phase_paged_offload(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 39-40: the rest of loading (GPTQ and block-fp8 checkpoints, the
+# native store's load modes)
+# ---------------------------------------------------------------------------
+
+LOAD_MODES = ("mmap", "ram", "direct", "sched")
+LOAD_SAMPLES = 8  # expert records held byte for byte against a recomputation on the host
+GQ_DIR = Path(__file__).resolve().parent / ".gptq_entry"
+GQ_DISK_GB = 6  # checkpoint 2.0 + int4 store 1.4 + dense archive 0.7, with room
+# EP_CONFIG (Mixtral-8x7B's config.json at 2 layers) quantized as AutoGPTQ's v1
+# format writes it: 4 bits, groups of 128, asymmetric, no act-order
+GQ_CONFIG = dict(EP_CONFIG, quantization_config={
+    "bits": 4, "group_size": 128, "damp_percent": 0.01, "desc_act": False, "sym": False,
+    "true_sequential": True, "quant_method": "gptq"})
+DS_DIR = Path(__file__).resolve().parent / ".dsv3_entry"
+DS_DISK_GB = 36  # checkpoint 15.8 + fp8 store 11.3 + dense archive 5.3, with room
+DSV3_CONFIG = {  # deepseek-ai/DeepSeek-V3's config.json, cut in depth only (2 layers, the first dense)
+    "architectures": ["DeepseekV3ForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "aux_loss_alpha": 0.001, "bos_token_id": 0,
+    "eos_token_id": 1, "ep_size": 1, "first_k_dense_replace": 1, "hidden_act": "silu",
+    "hidden_size": 7168, "initializer_range": 0.02, "intermediate_size": 18432,
+    "kv_lora_rank": 512, "max_position_embeddings": 163840, "model_type": "deepseek_v3",
+    "moe_intermediate_size": 2048, "moe_layer_freq": 1, "n_group": 8,
+    "n_routed_experts": 256, "n_shared_experts": 1, "norm_topk_prob": True,
+    "num_attention_heads": 128, "num_experts_per_tok": 8, "num_hidden_layers": 2,
+    "num_key_value_heads": 128, "num_nextn_predict_layers": 1, "pretraining_tp": 1,
+    "q_lora_rank": 1536, "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+    "quantization_config": {"activation_scheme": "dynamic", "fmt": "e4m3",
+                            "quant_method": "fp8", "weight_block_size": [128, 128]},
+    "rms_norm_eps": 1e-06,
+    "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 1.0,
+                     "mscale_all_dim": 1.0, "original_max_position_embeddings": 4096,
+                     "type": "yarn"},
+    "rope_theta": 10000, "routed_scaling_factor": 2.5, "scoring_func": "sigmoid",
+    "seq_aux": True, "tie_word_embeddings": False, "topk_group": 4, "topk_method": "noaux_tc",
+    "torch_dtype": "bfloat16", "transformers_version": "4.33.1", "use_cache": True,
+    "v_head_dim": 128, "vocab_size": 129280,
+}
+DS_REQUESTS, DS_PROMPT, DS_NEW = 4, 16, 16
+DS_OFF_BUDGET = 160  # experts the offload plan's budget holds, of 256
+DS_EXPERT_SHARD = 32  # routed experts per safetensors shard
+DS_KERNELS = ("mla_flash_decode", "gmm_fp8")
+
+
+def _check_disk(dirpath, need_gb, phase, tag):
+    import shutil
+
+    free = shutil.disk_usage(dirpath).free
+    say(f"[{tag}] disk free under {dirpath.name}/: {free / 1e9:.1f} GB (needs {need_gb})")
+    if free < need_gb * 1e9:
+        raise RuntimeError(f"phase {phase} needs {need_gb} GB of disk under {dirpath}, "
+                           f"{free / 1e9:.1f} GB is free")
+
+
+def _write_shards(root, shards, config):
+    """``shards``: an iterable of [(name, tensor)] lists, each written as one
+    safetensors shard as it comes (the tensors freed after), then
+    ``model.safetensors.index.json`` and ``config.json``. Returns the bytes."""
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps(config, indent=2))
+    weight_map, total = {}, 0
+    for k, tensors in enumerate(shards):
+        fname = f"model-{k + 1:05d}.safetensors"
+        total += _write_safetensors(root / fname, tensors)
+        weight_map.update({name: fname for name, _ in tensors})
+        del tensors
+    (root / "model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}, indent=2))
+    return total
+
+
+def _write_gptq_checkpoint(root, dev, seed=0):
+    """GQ_CONFIG's checkpoint under HF's tensor names: weights normal with std
+    0.02 made on the card from ``seed`` in bf16 (norms one); every attention
+    projection and expert linear packed by the port's ``pack_gptq`` on the
+    card (qweight, qzeros, scales, g_idx), the router, embeddings, head and
+    norms bf16; a shard per layer and one for the rest. Returns its bytes."""
+    from moe_infinity_tpu_torch.store.gptq import pack_gptq
+
+    c = GQ_CONFIG
+    D, F, E, V = c["hidden_size"], c["intermediate_size"], c["num_local_experts"], c["vocab_size"]
+    hd = D // c["num_attention_heads"]
+    kvd = c["num_key_value_heads"] * hd
+    qc = c["quantization_config"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def mat(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device=dev).normal_(0.0, 0.02, generator=g)
+
+    def packed(prefix, *shape):
+        t = pack_gptq(mat(*shape), bits=qc["bits"], group_size=qc["group_size"])
+        return [(f"{prefix}.{comp}", v) for comp, v in t.items()]
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16, device=dev)
+
+    def shards():
+        for layer in range(c["num_hidden_layers"]):
+            p = f"model.layers.{layer}."
+            t = [(p + "input_layernorm.weight", ones(D)),
+                 (p + "post_attention_layernorm.weight", ones(D)),
+                 (p + "block_sparse_moe.gate.weight", mat(E, D))]
+            for name, shape in (("q_proj", (D, D)), ("k_proj", (kvd, D)), ("v_proj", (kvd, D)),
+                                ("o_proj", (D, D))):
+                t += packed(p + "self_attn." + name, *shape)
+            for e in range(E):
+                q = f"{p}block_sparse_moe.experts.{e}."
+                t += packed(q + "w1", F, D) + packed(q + "w2", D, F) + packed(q + "w3", F, D)
+            yield t
+        yield [("model.embed_tokens.weight", mat(V, D)), ("model.norm.weight", ones(D)),
+               ("lm_head.weight", mat(V, D))]
+
+    return _write_shards(root, shards(), c)
+
+
+def _write_dsv3_checkpoint(root, dev, seed=0):
+    """DSV3_CONFIG's checkpoint in DeepSeek-V3's official layout: weights
+    normal with std 0.02 made on the card from ``seed``; every attention
+    projection, the dense MLP, the shared expert and every routed expert as
+    e4m3 codes plus ``weight_scale_inv`` (blocks of 128 x 128, packed by the
+    port's ``pack_fp8_block`` on the card; ``kv_a_proj_with_mqa``'s 576 rows
+    end in a half block); the embeddings, head, norms and router bf16, the
+    router's ``e_score_correction_bias`` f32 (uniform in [-0.1, 0.1)). A
+    shard per layer's dense tensors, one per 32 routed experts and one for
+    the rest. Returns its bytes."""
+    from moe_infinity_tpu_torch.store.fp8_block import pack_fp8_block
+
+    c = DSV3_CONFIG
+    D, V, H = c["hidden_size"], c["vocab_size"], c["num_attention_heads"]
+    Fm, Fd, E = c["moe_intermediate_size"], c["intermediate_size"], c["n_routed_experts"]
+    R, P, Dn, Dv, Q = (c["kv_lora_rank"], c["qk_rope_head_dim"], c["qk_nope_head_dim"],
+                       c["v_head_dim"], c["q_lora_rank"])
+    block = tuple(c["quantization_config"]["weight_block_size"])
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def mat(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device=dev).normal_(0.0, 0.02, generator=g)
+
+    def fp8(name, *shape):
+        q, s = pack_fp8_block(mat(*shape), block)
+        return [(name + ".weight", q.view(torch.float8_e4m3fn)),
+                (name + ".weight_scale_inv", s)]
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16, device=dev)
+
+    def mlp(prefix, F):
+        return (fp8(prefix + "gate_proj", F, D) + fp8(prefix + "up_proj", F, D)
+                + fp8(prefix + "down_proj", D, F))
+
+    def shards():
+        for layer in range(c["num_hidden_layers"]):
+            p = f"model.layers.{layer}."
+            t = [(p + "input_layernorm.weight", ones(D)),
+                 (p + "post_attention_layernorm.weight", ones(D)),
+                 (p + "self_attn.q_a_layernorm.weight", ones(Q)),
+                 (p + "self_attn.kv_a_layernorm.weight", ones(R))]
+            t += (fp8(p + "self_attn.q_a_proj", Q, D) + fp8(p + "self_attn.q_b_proj", H * (Dn + P), Q)
+                  + fp8(p + "self_attn.kv_a_proj_with_mqa", R + P, D)
+                  + fp8(p + "self_attn.kv_b_proj", H * (Dn + Dv), R)
+                  + fp8(p + "self_attn.o_proj", D, H * Dv))
+            if layer < c["first_k_dense_replace"]:
+                yield t + mlp(p + "mlp.", Fd)
+                continue
+            bias = torch.empty(E, dtype=torch.float32, device=dev).uniform_(-0.1, 0.1, generator=g)
+            yield t + [(p + "mlp.gate.weight", mat(E, D)),
+                       (p + "mlp.gate.e_score_correction_bias", bias)] + mlp(
+                           p + "mlp.shared_experts.", Fm)
+            for e0 in range(0, E, DS_EXPERT_SHARD):
+                yield [kv for e in range(e0, min(E, e0 + DS_EXPERT_SHARD))
+                       for kv in mlp(f"{p}mlp.experts.{e}.", Fm)]
+        yield [("model.embed_tokens.weight", mat(V, D)), ("model.norm.weight", ones(D)),
+               ("lm_head.weight", mat(V, D))]
+
+    return _write_shards(root, shards(), c)
+
+
+def _checkpoint_arrays(ckpt):
+    """{name: (array, store dtype)} over every shard of ``ckpt``: read-only
+    views of the memory-mapped files, read when touched."""
+    from moe_infinity_tpu_torch.utils.checkpoints import get_checkpoint_paths, iter_safetensors
+
+    return {name: (a, src) for path in get_checkpoint_paths(str(ckpt))[0]
+            for name, a, src in iter_safetensors(path)}
+
+
+def _check_sampled_records(tag, ckpt, store_dir, dequant, expert_dtype, seed):
+    """``LOAD_SAMPLES`` expert records of the store, each byte for byte equal
+    to its recomputation on the host from the checkpoint's own tensors:
+    ``dequant(arrays, prefix)`` (the weight as f32 [out, in]) then
+    ``quantize_rowwise``, transposed into compute layout, each field at its
+    offset and the padding zero."""
+    from moe_infinity_tpu_torch.store.blob import ExpertStore
+    from moe_infinity_tpu_torch.store.quant import quantize_rowwise
+
+    st = ExpertStore(str(store_dir))
+    name_map = json.loads((Path(store_dir) / "name_map.json").read_text())
+    by_record = {}
+    for name, entry in name_map.items():
+        if entry[0] == "expert":
+            by_record.setdefault((entry[1], entry[2]), []).append((name, entry[3]))
+    arrays = _checkpoint_arrays(ckpt)
+    rng = np.random.default_rng(seed)
+    keys = sorted(by_record)
+    picks = [keys[i] for i in sorted(rng.choice(len(keys), LOAD_SAMPLES, replace=False))]
+    offset = {f.name: f.offset for f in st.fields}
+    for key in picks:
+        want = np.zeros(st.stride, np.uint8)
+        for name, tail in by_record[key]:
+            q, scale = quantize_rowwise(dequant(arrays, name[: -len(".weight")]), expert_dtype)
+            for field, a in ((tail, np.ascontiguousarray(q.T)), (tail + ".scale", scale)):
+                raw = a.reshape(-1).view(np.uint8)
+                want[offset[field]: offset[field] + raw.size] = raw
+        _ep_check(f"{tag}: record (L{key[0]}, E{key[1]}) byte-equal to its recomputation from "
+                  f"the checkpoint on the host", bytes(st.get_record(*key)) == want.tobytes())
+    return picks
+
+
+def _store_layer(store_dir, layer, experts, tails, dev):
+    """gate, up and down weights ``[S, in, out]`` (as stored) and scales of
+    ``experts`` of one store layer, on the card."""
+    from moe_infinity_tpu_torch.store.blob import ExpertStore
+    from moe_infinity_tpu_torch.utils.dtypes import to_tensor
+
+    st = ExpertStore(str(store_dir))
+    dt = {f.name: f.dtype for f in st.fields}
+    recs = [st.get_expert(layer, e) for e in experts]
+    w, sc = {}, {}
+    for role, tail in zip(ROLES, tails):
+        w[role] = to_tensor(np.stack([r[tail] for r in recs]), dt[tail]).to(dev)
+        sc[role] = torch.from_numpy(np.stack([r[tail + ".scale"] for r in recs])).to(dev)
+    return w, sc
+
+
+def _time_store_layer(label, kind, x, w, sc, active, **kw):
+    """K3 at one decode layer of a store built from a checkpoint (``_check_layer``),
+    printed as a [time] line."""
+    gsz = torch.ones(active, dtype=torch.int32, device=x.device) * (x.shape[0] // active)
+    gid = torch.arange(active, dtype=torch.int32, device=x.device)
+    r = _check_layer(label, x, w, sc, gsz, active, group_ids=gid, **kw)
+    r.pop("a")
+    D, F = x.shape[1], sc["gate"].shape[1]
+    say(f"[time] {kind} {label} (gate + up + down, {x.shape[0]} rows over {active} experts, "
+        f"D={D} F={F}): ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms="
+        f"{r['bound_ms']:.5f} ({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e}; "
+        f"{_layer_plans(x, w, gsz)}")
+    return r
+
+
+def _serve_offload(tag, m, prompts, kw):
+    """Warm-up, then ``prompts`` one at a time through the offload facade
+    ``m``: (tokens, launches, wall seconds, the summary line's fields)."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+
+    store = m.engine.arena.store
+    escalated = []
+    plain_escalate = store.escalate
+    store.escalate = lambda *key: (escalated.append(key), plain_escalate(*key))[1]
+    m.generate(prompts[0], max_new_tokens=4, eos_token_id=None)  # warm-up (captures)
+    torch.cuda.synchronize()
+    reset_launches()
+    s0 = m.stats()
+    escalated.clear()
+    t0 = time.perf_counter()
+    got = [m.generate(q, **kw) for q in prompts]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    st = m.stats()
+    n_tok = len(prompts) * (kw["max_new_tokens"] + 1)
+    say(f"[{tag}] load_mode {store.load_mode} (is_direct {store.is_direct}): {len(prompts)} "
+        f"requests one at a time in {wall:.3f} s: {len(prompts) * kw['max_new_tokens'] / wall:.2f} "
+        f"tokens/s, s/token (wall over new tokens + 1) {wall / n_tok:.4f}; hit rate "
+        f"{(st['hits'] - s0['hits']) / max(1, st['visits'] - s0['visits']):.4f}; fetches "
+        f"{json.dumps(m.engine.arena.fetch_stats())}; escalated reads {len(escalated)}; "
+        f"launches {json.dumps(counts)}")
+    return got, counts
+
+
+def phase_gptq_entry(dev):
+    """Phase 39: ``MoE`` from a GPTQ checkpoint of Mixtral-8x7B at its
+    published width (GQ_CONFIG: 2 layers, 4 bits, groups of 128), written
+    from a seed under ``.gptq_entry/`` (git-ignored; the free disk checked
+    first, the directory deleted at the end, also on failure) and ingested
+    to int4 experts; 8 sampled records byte-equal to ``dequant_gptq`` then
+    ``quantize_rowwise`` on the host; K3's int4 kind at a decode layer of
+    the store's records, timed; then the offload facade (phase 19's plan:
+    10 of 16 experts, speculative blocks of 2, graphs) once per load mode
+    (``mmap``, ``ram``, ``direct``, ``sched``), each answering phase 19's 8
+    requests with the same greedy tokens and launching K1, K2 and K3.
+    Returns the launches of the four runs summed."""
+    import shutil
+
+    from moe_infinity_tpu_torch.entrypoints.api import _dense_bytes_estimate
+    from moe_infinity_tpu_torch.store.blob import DenseArchive, ExpertStore
+    from moe_infinity_tpu_torch.store.gptq import dequant_gptq
+    from moe_infinity_tpu_torch.store.ingest import ingest_checkpoint
+    from moe_infinity_tpu_torch.utils.hf_config import read_hf_config
+
+    GQ_DIR.mkdir(exist_ok=True)
+    try:
+        _check_disk(GQ_DIR, GQ_DISK_GB, 39, "gptq")
+        ckpt, store = GQ_DIR / "ckpt", GQ_DIR / "store"
+        t0 = time.perf_counter()
+        nbytes = _write_gptq_checkpoint(ckpt, dev)
+        say(f"[gptq] checkpoint: Mixtral-8x7B's config at {GQ_CONFIG['num_hidden_layers']} "
+            f"layers, GPTQ v1 4-bit groups of 128 (attention and experts packed on the card), "
+            f"{nbytes / 1e9:.2f} GB in {len(list(ckpt.glob('*.safetensors')))} shards, written "
+            f"in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ingest_checkpoint(str(ckpt), str(store), read_hf_config(str(ckpt)), expert_dtype="int4")
+        say(f"[gptq] ingest (GPTQ -> int4): {time.perf_counter() - t0:.1f} s; experts.blob "
+            f"{(store / 'experts.blob').stat().st_size / 1e9:.2f} GB, dense.blob "
+            f"{(store / 'dense.blob').stat().st_size / 1e9:.2f} GB")
+        qc = GQ_CONFIG["quantization_config"]
+
+        def dequant(arrays, prefix):
+            parts = {c: arrays[f"{prefix}.{c}"][0] for c in ("qweight", "qzeros", "scales", "g_idx")}
+            return dequant_gptq(parts["qweight"], parts["qzeros"], parts["scales"], parts["g_idx"],
+                                bits=qc["bits"], group_size=qc["group_size"])
+
+        t0 = time.perf_counter()
+        _check_sampled_records("gptq", ckpt, store, dequant, "int4", seed=39)
+        say(f"[gptq] {LOAD_SAMPLES} sampled records checked in {time.perf_counter() - t0:.1f} s")
+
+        # K3's int4 kind at the offload step's layer: 2 rows over 2 experts
+        w, sc = _store_layer(store, 0, (0, 1), ("w1.weight", "w3.weight", "w2.weight"), dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(39)
+        x = torch.randn(2, GQ_CONFIG["hidden_size"], generator=g, device=dev).to(torch.bfloat16)
+        _time_store_layer("Mixtral-8x7B batch-1 decode layer from the GPTQ store", "gmm int4",
+                          x, w, sc, 2, packed=True)
+        del w, sc
+
+        prompts = _ep_prompts()
+        kw = dict(max_new_tokens=EP_NEW, eos_token_id=None)
+        stride = ExpertStore(str(store)).stride
+        budget = _dense_bytes_estimate(DenseArchive(str(store)), 2) + EP_SLOTS * stride + stride // 2
+        cfg = dict(EP_IMPL, expert_dtype="int4", offload_path=str(store), dense_paging="off",
+                   device_memory_bytes=budget, speculative_decode=True, speculative_block=2,
+                   max_batch_size=1)
+        tokens, total = {}, {}
+        for mode in LOAD_MODES:
+            m = _ep_build(f"gptq offload ({mode})", ckpt, dict(cfg, load_mode=mode), dev)
+            try:
+                if m.engine is None or m.engine.arena.num_slots != EP_SLOTS:
+                    raise AssertionError(f"gptq offload facade: expected {EP_SLOTS} slots")
+                tokens[mode], counts = _serve_offload("gptq", m, prompts, kw)
+                _require_launched(counts, MIXTRAL_KERNELS, f"GPTQ offload facade ({mode})")
+                total = _sum_counts(total, counts)
+            finally:
+                m.shutdown()
+            del m
+            torch.cuda.empty_cache()
+        say(f"[gptq] tokens (request 1, mmap): {tokens['mmap'][0][0, EP_PROMPT:].tolist()}")
+        for mode in LOAD_MODES[1:]:
+            _ep_check(f"gptq: every request's greedy tokens equal between load modes mmap and "
+                      f"{mode}", all(np.array_equal(a, b)
+                                     for a, b in zip(tokens["mmap"], tokens[mode])))
+        return total
+    finally:
+        shutil.rmtree(GQ_DIR, ignore_errors=True)
+        say(f"[gptq] deleted {GQ_DIR.name}/")
+
+
+def phase_dsv3_entry(dev):
+    """Phase 40: ``MoE`` from a block-fp8 checkpoint of DeepSeek-V3 at its
+    published width (DSV3_CONFIG, cut to 2 layers, the first dense), written
+    from a seed in the official layout under ``.dsv3_entry/`` (git-ignored;
+    the free disk checked first, the directory deleted at the end, also on
+    failure) and ingested to float8_e4m3fn experts; 8 sampled records
+    byte-equal to ``dequant_fp8_block`` then ``quantize_rowwise`` on the
+    host; K3's e4m3 kind at the batch-1 MoE layer of the store's records,
+    timed; the resident facade (``Generator``) answering 4 requests of 16
+    tokens with 16 new each, K5 (H = 128) held to 2 launches on every
+    one-token step and K3 e4m3 to 3 on every MoE layer call; the first
+    decode step's logits through the kernels against the plain versions (f32
+    held at the bf16 tolerance, the bf16 facade reported); then the offload
+    facade at a budget of 160 of the 256 experts (its arena takes the 256
+    slots of the one MoE layer, the least the engine takes, so every fetch
+    is a first touch), eagerly, under ``direct`` and under ``mmap``, tokens
+    equal. Returns the launches of its runs."""
+    import shutil
+
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.store.blob import ExpertStore
+    from moe_infinity_tpu_torch.store.fp8_block import dequant_fp8_block
+    from moe_infinity_tpu_torch.store.ingest import ingest_checkpoint
+    from moe_infinity_tpu_torch.utils.hf_config import read_hf_config
+
+    DS_DIR.mkdir(exist_ok=True)
+    try:
+        _check_disk(DS_DIR, DS_DISK_GB, 40, "dsv3")
+        ckpt, store = DS_DIR / "ckpt", DS_DIR / "store"
+        t0 = time.perf_counter()
+        nbytes = _write_dsv3_checkpoint(ckpt, dev)
+        say(f"[dsv3] checkpoint: DeepSeek-V3's config at {DSV3_CONFIG['num_hidden_layers']} "
+            f"layers, block-fp8 (e4m3 + weight_scale_inv, 128 x 128), {nbytes / 1e9:.2f} GB in "
+            f"{len(list(ckpt.glob('*.safetensors')))} shards, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ingest_checkpoint(str(ckpt), str(store), read_hf_config(str(ckpt)),
+                          expert_dtype="float8_e4m3fn")
+        say(f"[dsv3] ingest (block-fp8 -> float8_e4m3fn): {time.perf_counter() - t0:.1f} s; "
+            f"experts.blob {(store / 'experts.blob').stat().st_size / 1e9:.2f} GB, dense.blob "
+            f"{(store / 'dense.blob').stat().st_size / 1e9:.2f} GB")
+        block = tuple(DSV3_CONFIG["quantization_config"]["weight_block_size"])
+
+        def dequant(arrays, prefix):
+            return dequant_fp8_block(arrays[prefix + ".weight"][0],
+                                     arrays[prefix + ".weight_scale_inv"][0], block)
+
+        t0 = time.perf_counter()
+        picks = _check_sampled_records("dsv3", ckpt, store, dequant, "float8_e4m3fn", seed=40)
+        say(f"[dsv3] {LOAD_SAMPLES} sampled records checked in {time.perf_counter() - t0:.1f} s")
+        for f in ckpt.glob("*.safetensors"):  # the facades read the store; free the disk
+            f.unlink()
+
+        # K3's e4m3 kind at the batch-1 MoE layer: one token's 8 rows over 8 experts
+        layer = picks[0][0]
+        tails = ("gate_proj.weight", "up_proj.weight", "down_proj.weight")
+        w, sc = _store_layer(store, layer, [e for _, e in picks], tails, dev)
+        w = {r: t.view(torch.float8_e4m3fn) for r, t in w.items()}
+        g = torch.Generator(device=dev)
+        g.manual_seed(40)
+        x = torch.randn(LOAD_SAMPLES, DSV3_CONFIG["hidden_size"], generator=g,
+                        device=dev).to(torch.bfloat16)
+        _time_store_layer("DeepSeek-V3 batch-1 decode MoE layer from the block-fp8 store",
+                          "gmm_fp8", x, w, sc, LOAD_SAMPLES)
+        del w, sc
+        torch.cuda.empty_cache()
+
+        rng = np.random.default_rng(40)
+        prompts = [rng.integers(3, DSV3_CONFIG["vocab_size"], (1, DS_PROMPT))
+                   for _ in range(DS_REQUESTS)]
+        kw = dict(max_new_tokens=DS_NEW, eos_token_id=None)
+        base = {"expert_dtype": "float8_e4m3fn", "moe_impl": "pallas", "prefill_impl": "pallas",
+                "offload_path": str(store), "max_batch_size": 1}
+        torch.cuda.reset_peak_memory_stats()
+        res = _ep_build("dsv3 resident", ckpt, base, dev)
+        try:
+            if res.engine is not None:
+                raise AssertionError("the DeepSeek-V3 facade should be resident")
+            res.generate(prompts[0], max_new_tokens=2, eos_token_id=None)  # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            want = [res.generate(p, **kw) for p in prompts]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            say(f"[dsv3] resident (Generator): {DS_REQUESTS} requests x {DS_NEW} tokens in "
+                f"{wall:.3f} s: {DS_REQUESTS * DS_NEW / wall:.2f} tokens/s; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {json.dumps(counts)}")
+            say(f"[dsv3] resident tokens (request 1): {want[0][0, DS_PROMPT:].tolist()}")
+            _require_launched(counts, DS_KERNELS, "DeepSeek-V3 resident facade")
+            layers = DSV3_CONFIG["num_hidden_layers"]
+            moe_layers = layers - DSV3_CONFIG["first_k_dense_replace"]
+            need = {"mla_flash_decode": layers * (DS_NEW - 1) * DS_REQUESTS,
+                    "gmm_fp8": 3 * moe_layers * DS_NEW * DS_REQUESTS}
+            got = {k: counts.get(k, 0) for k in need}
+            _ep_check(f"dsv3: K5 (H = 128) on every layer of every one-token step and K3 e4m3 "
+                      f"on every MoE layer call: launches {got}, expected {need}", got == need)
+            _ep_logits_check(res, store, prompts[0], dev, tag="dsv3")
+            dense_bytes = _tree_bytes(res.params)
+        finally:
+            res.shutdown()
+        del res
+        torch.cuda.empty_cache()
+
+        stride = ExpertStore(str(store)).stride
+        budget = dense_bytes + DS_OFF_BUDGET * stride + stride // 2
+        tokens = {}
+        for mode in ("direct", "mmap"):
+            # a budget of 160 of the 256 experts: the plan offloads, and its arena
+            # takes the 256 slots of its one MoE layer, the least the engine takes
+            # (so every fetch is a first touch, read from the store in ``mode``)
+            off = _ep_build(f"dsv3 offload ({mode})", ckpt, dict(
+                base, dense_paging="off", device_memory_bytes=budget, load_mode=mode), dev)
+            try:
+                E = DSV3_CONFIG["n_routed_experts"]
+                if off.engine is None or off.engine.arena.num_slots != E:
+                    raise AssertionError(f"dsv3 offload facade: expected an arena of {E} slots")
+                tokens[mode], c = _serve_offload("dsv3", off, prompts, kw)
+                _require_launched(c, DS_KERNELS, f"DeepSeek-V3 offload facade ({mode})")
+                counts = _sum_counts(counts, c)
+            finally:
+                off.shutdown()
+            del off
+            torch.cuda.empty_cache()
+        _ep_check("dsv3: offload tokens equal between load modes direct and mmap",
+                  all(np.array_equal(a, b) for a, b in zip(tokens["direct"], tokens["mmap"])))
+        say(f"[dsv3] offload tokens equal the resident facade's (reported): "
+            f"{all(np.array_equal(a, b) for a, b in zip(tokens['mmap'], want))}")
+        return counts
+    finally:
+        shutil.rmtree(DS_DIR, ignore_errors=True)
+        say(f"[dsv3] deleted {DS_DIR.name}/")
+
+
+def phase_loading(dev):
+    """Phases 39 and 40, each timed. Returns their launches summed."""
+    counts = {}
+    for fn in (phase_gptq_entry, phase_dsv3_entry):
+        t0 = time.perf_counter()
+        counts = _sum_counts(counts, fn(dev))
+        say(f"[phase] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -7684,6 +8255,10 @@ def main() -> int:
             timed(phase_nllb_paged, b)
         say(f"[card] {smi}")
         return 0
+    if "--loading" in sys.argv[1:]:
+        say(f"[loading] launches of phases 39 and 40 {json.dumps(timed(phase_loading))}")
+        say(f"[card] {smi}")
+        return 0
     if "--grok" in sys.argv[1:] or "--arctic" in sys.argv[1:]:
         if "--grok" in sys.argv[1:]:
             r = check_gmm_fp8(dev)
@@ -7706,17 +8281,18 @@ def main() -> int:
     mla_counts = timed(phase_deepseek)
     timed(phase_deepseek_whole_path)
     off_counts = timed(phase_offload)
-    timed(phase_offload_whole_path)
+    timed(phase_offload_whole_path, WHOLE_RUN_PARITY_SEEDS)
     spec_counts = timed(phase_offload_spec, extra)
-    timed(phase_offload_spec_whole_path)
-    st_counts = timed(phase_stream)  # phases 31-33, after phase 9's tier is released
+    timed(phase_offload_spec_whole_path, WHOLE_RUN_PARITY_SEEDS)
+    st_counts = timed(phase_stream, WHOLE_RUN_PARITY_BLOCKS)  # phases 31-33, after phase 9's tier is released
     _free_host_cache()  # the NLLB tier's page-locked memory, before Switch's
-    extra["phase_s2s_batchers_whole_path"] = timed(phase_s2s_batchers_whole_path) or {}
+    extra["phase_s2s_batchers_whole_path"] = timed(phase_s2s_batchers_whole_path,
+                                                   WHOLE_RUN_PARITY_BLOCKS) or {}
     sw_counts = timed(phase_switch, extra)
     sw_off_counts = timed(phase_switch_offload)
     timed(phase_switch_whole_path)
     _free_host_cache()
-    mx_off_counts = timed(phase_mixtral_offload, MX_WHOLE_RUN_DEPTH)
+    mx_off_counts = timed(phase_mixtral_offload, MX_WHOLE_RUN_DEPTH, MX_WHOLE_RUN_TOKENS)
     timed(phase_mixtral_offload_whole_path)
     ds_off_counts = timed(phase_deepseek_offload)
     ep_counts = timed(phase_entrypoints_and_server)
@@ -7725,10 +8301,11 @@ def main() -> int:
     ge_counts = timed(phase_grok_entry)
     extra["phase_switch_entry"] = timed(phase_switch_entry)
     _free_host_cache()
-    extra["phase_opt"] = timed(phase_opt)  # phases 34-38: serving past the card's memory
+    extra["phase_opt"] = timed(phase_opt, OPT_WHOLE_RUN_DEPTH)  # phases 34-38: past the card
     timed(phase_opt_whole_path)
     extra["phase_opt_entry"] = timed(phase_opt_entry)
     extra["phase_paged_offload"] = timed(phase_paged_offload)
+    extra["phase_loading"] = timed(phase_loading)  # phases 39-40: GPTQ, block-fp8, load modes
     say(f"[batchers] launches by phase {json.dumps(extra)}")
     for r in recs:
         r["launches"] = sum(c.get(r["name"], 0) for c in (

@@ -40,9 +40,14 @@ per-layer path (no speculative decode, no batcher), eagerly.
 ``host_fallback`` gives the expert arena its zero slot and lets the offload
 engines run a missed expert on the host (``runtime/host_exec.py``).
 
+The store opens in ``load_mode``: ``mmap``, ``ram``, or the native
+reader's ``direct`` and ``sched`` (``store/native.py``, built at first use).
+Checkpoints may be plain, GPTQ or DeepSeek-V3's block-fp8 ones
+(``store/ingest.py``).
+
 Plans and options the port does not serve raise ``NotImplementedError``
-naming their ROADMAP queue-1 item: load modes other than ``mmap`` (14);
-multihost and any parallel degree above 1 (18).
+naming their ROADMAP queue-1 item: multihost and any parallel degree above
+1 (18).
 """
 
 from __future__ import annotations
@@ -118,8 +123,6 @@ def _check_config(config: EngineConfig) -> None:
     for name in ("data_parallel", "tensor_parallel", "expert_parallel", "sequence_parallel"):
         if getattr(config, name) > 1:
             raise _not_ported(f"{name}={getattr(config, name)} (one card only)", "18")
-    if config.load_mode != "mmap":
-        raise _not_ported(f"load_mode {config.load_mode!r}", "14")
 
 
 class MoE:
@@ -162,7 +165,8 @@ class MoE:
         self.arch = detect_arch(self.hf_config)
         registry = _registry()
         if self.arch not in registry:
-            raise _not_ported(f"architecture {self.arch!r} (ported: {sorted(registry)})", "14")
+            raise NotImplementedError(f"arch {self.arch!r} not wired into the MoE entry point; "
+                                      f"available: {sorted(registry)}")
         self.geometry = parse_geometry(self.hf_config)
         seq2seq = self.arch in _SEQ2SEQ_ARCHS
 

@@ -1,11 +1,14 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface (``_build/<name>-<hash>.so``, the hash covering the
 sources, headers and flags), loaded with ``ctypes``. All stale libraries
-build in parallel at first use, one ``nvcc`` per source. Nothing here runs
-at import time: a machine without ``nvcc`` can import every module of the
-port and run its plain PyTorch versions.
+build in parallel at first use, one ``nvcc`` per source. Host C++ (the
+native store's ``csrc/aio_reader.cc`` and ``sched.cc``) compiles with
+``g++`` (or ``c++``) into the same ``_build/`` directory, under a hash of
+its sources and flags (``build_host``). Nothing here runs at import time: a
+machine without ``nvcc`` can import every module of the port and run its
+plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -87,6 +90,43 @@ def build_all() -> Dict[str, Path]:
         if errors:
             raise RuntimeError("\n".join(errors))
     return {stem: out for stem, (_, out) in targets.items()}
+
+
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared"]
+
+
+def cxx() -> str:
+    """The host C++ compiler: ``$CXX``, else ``g++``, else ``c++``."""
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler (g++ or c++) found: the native store cannot be built")
+
+
+def build_host(name: str, sources: List[str]) -> Path:
+    """Compile the host C++ files ``csrc/<sources>`` into one shared library,
+    ``_build/<name>-<hash>.so`` (the hash covering the sources, the compiler
+    and its flags), unless it exists. Returns its path; raises with the
+    compiler's output if the build fails."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    compiler = cxx()
+    h.update(compiler.encode())
+    for src in sources:
+        h.update((CSRC / src).read_bytes())
+    out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [compiler, *CXX_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in sources)]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{os.path.basename(compiler)} failed for {name} "
+                           f"({' '.join(sources)}):\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a reader never sees half a file
+    return out
 
 
 def function(stem: str, name: str, argtypes) -> ctypes._CFuncPtr:

@@ -368,6 +368,12 @@ class ExpertArena:
             # (re-)enqueue at top priority; a duplicate entry is fine,
             # the worker skips already-resident keys
             self._escalated.add(key)
+            if key in self._fetching:
+                # a worker already started a (prefetch-priority) read:
+                # boost it in the store's native scheduler
+                esc = getattr(self.store, "escalate", None)
+                if esc is not None:
+                    esc(*key)
             heapq.heappush(self._queue, (PRIO_ONDEMAND, self._gen, next(self._seq), key))
             self._cv.notify_all()
             events.append((key, ev))

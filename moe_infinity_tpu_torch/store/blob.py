@@ -4,7 +4,10 @@
 fixed-stride expert records, layer-major then expert-minor, each record
 4096-aligned. A record is the concatenation of one expert's tensors (plus
 quantization scales) at fixed offsets shared by all experts. The reader
-memory-maps the blob; ``get_record`` returns a zero-copy view.
+memory-maps the blob (``mmap``), reads it whole into RAM (``ram``), or reads
+each record with the native store (``store/native.py``): one O_DIRECT read
+(``direct``), or a read ordered by priority in the native scheduler with
+prefetches preempted block by block (``sched``).
 
 ``SyntheticStore`` has the same protocol with in-RAM pseudo-random records
 from numpy, byte-identical to the JAX class for the same seed.
@@ -12,10 +15,6 @@ from numpy, byte-identical to the JAX class for the same seed.
 ``dense.blob`` / ``dense.index.json`` hold the non-expert (dense) tensors,
 each 128-byte aligned (``DenseArchiveWriter``, ``DenseArchive``). Every file
 is byte-equal to what the JAX package writes for the same tensors.
-
-Not ported here: the ``ram``/``direct``/``sched`` load modes and the native
-reader (``store/native.py``); ``ExpertStore`` raises for them (ROADMAP
-queue-1 item 14).
 """
 
 from __future__ import annotations
@@ -135,15 +134,22 @@ class ExpertStoreWriter:
 
 
 class ExpertStore:
-    """Read side of the expert store, page-cache backed (``mmap``): the first
-    touch of a record faults it in from disk."""
+    """Read side of the expert store.
+
+    load_mode:
+      * 'mmap'   - page-cache backed; the first touch of a record faults it
+        in from disk.
+      * 'ram'    - the whole blob read into anonymous memory at open.
+      * 'direct' - the native O_DIRECT reader: a record streams from disk
+        without filling the page cache (records are 4096-strided, so every
+        read is aligned).
+      * 'sched'  - the native priority scheduler: reads are ordered by
+        (prio, FIFO) across the caller's threads, prefetches (prio >= 1)
+        preempted block by block by on-demand reads; ``escalate`` boosts an
+        in-flight read.
+    """
 
     def __init__(self, path: str, load_mode: str = "mmap"):
-        if load_mode != "mmap":
-            raise NotImplementedError(
-                f"load_mode {load_mode!r} is not ported (ROADMAP queue-1 item 14); "
-                "only 'mmap' is"
-            )
         self.path = path
         with open(os.path.join(path, "experts.index.json")) as f:
             index = json.load(f)
@@ -163,10 +169,31 @@ class ExpertStore:
         expected = self.stride * self.num_layers * self.num_experts
         if self.blob_nbytes != expected:
             raise ValueError(f"blob size {self.blob_nbytes} != expected {expected}")
-        with open(blob_path, "rb") as f:
-            self._mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
-        self._buf = np.frombuffer(self._mm, dtype=np.uint8)
+        self._buf = self._native = self._sched = None
+        if load_mode == "mmap":
+            with open(blob_path, "rb") as f:
+                self._mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+            self._buf = np.frombuffer(self._mm, dtype=np.uint8)
+        elif load_mode == "ram":
+            self._buf = np.fromfile(blob_path, dtype=np.uint8)
+        elif load_mode == "direct":
+            from moe_infinity_tpu_torch.store.native import NativeBlobReader
+
+            self._native = NativeBlobReader(blob_path)
+        elif load_mode == "sched":
+            from moe_infinity_tpu_torch.store.native import NativeFetchScheduler
+
+            self._sched = NativeFetchScheduler(blob_path)
+        else:
+            raise ValueError(f"unknown load_mode {load_mode!r}")
         self.load_mode = load_mode
+
+    @property
+    def is_direct(self) -> bool:
+        """Whether the native reader's open took O_DIRECT (a file system
+        that refuses it is read buffered); False for mmap and ram."""
+        reader = self._native or self._sched
+        return bool(reader is not None and reader.is_direct)
 
     @property
     def field_names(self) -> List[str]:
@@ -178,11 +205,27 @@ class ExpertStore:
         return (layer * self.num_experts + expert) * self.stride
 
     def get_record(self, layer: int, expert: int, *, prio: int = 0, gen: int = 0) -> np.ndarray:
-        """Read-only uint8 view of the whole record (stride bytes)."""
+        """uint8 array of the whole record (stride bytes): a read-only view
+        (mmap) or a view (ram) of the blob, or a buffer of its own filled by
+        one aligned read (direct) or by a priority-ordered read (sched: prio
+        0 preempts prefetch reads at block granularity)."""
         base = self._record_base(layer, expert)
+        if self._sched is not None:
+            self._sched.submit(layer, expert, base, self.stride, prio=prio, gen=gen)
+            return self._sched.wait(layer, expert)
+        if self._native is not None:
+            return self._native.read(base, self.stride)
         return self._buf[base: base + self.stride]
 
+    def _fields_from(self, rec: np.ndarray) -> Dict[str, np.ndarray]:
+        return {
+            f.name: rec[f.offset: f.offset + f.nbytes].view(np_dtype(f.dtype)).reshape(f.shape)
+            for f in self.fields
+        }
+
     def get_tensor(self, layer: int, expert: int, name: str) -> np.ndarray:
+        if self._buf is None:  # direct/sched: one whole-record read
+            return self._fields_from(self.get_record(layer, expert))[name]
         f = self._field_by_name[name]
         base = self._record_base(layer, expert)
         raw = self._buf[base + f.offset: base + f.offset + f.nbytes]
@@ -190,7 +233,15 @@ class ExpertStore:
 
     def get_expert(self, layer: int, expert: int, *, prio: int = 0, gen: int = 0
                    ) -> Dict[str, np.ndarray]:
+        if self._buf is None:
+            return self._fields_from(self.get_record(layer, expert, prio=prio, gen=gen))
         return {f.name: self.get_tensor(layer, expert, f.name) for f in self.fields}
+
+    def escalate(self, layer: int, expert: int) -> None:
+        """Boost an in-flight scheduled read to on-demand priority (nothing
+        outside ``sched``)."""
+        if self._sched is not None:
+            self._sched.escalate(layer, expert)
 
     def warm(self, layer: int, expert: int) -> None:
         """Touch a record to promote it into the page cache."""

@@ -14,24 +14,30 @@ and is not rewritten unless ``force``.
 Tensors come from the port's own readers (``utils/checkpoints.py``): the
 safetensors format by memory map, ``.bin`` by ``torch.load``. Experts are
 stored as ``float32``/``bfloat16``/``float16`` or quantized row-wise to
-``int8``, ``int4`` or ``float8_e4m3fn`` (``store/quant.py``). GPTQ and
-block-fp8 checkpoints, and fp8 tensors in a checkpoint, raise (ROADMAP
-queue-1 item 14).
+``int8``, ``int4`` or ``float8_e4m3fn`` (``store/quant.py``). Quantized
+checkpoints are dequantized to f32 as their tensors stream in: DeepSeek-V3's
+block-fp8 (``store/fp8_block.py``) and GPTQ (``store/gptq.py``); an fp8
+tensor of any other checkpoint is read as its f32 values.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 import numpy as np
+import torch
 
 from moe_infinity_tpu_torch.common.arch import expert_layout
 from moe_infinity_tpu_torch.store.blob import DenseArchiveWriter, ExpertStoreWriter, store_exists
+from moe_infinity_tpu_torch.store.fp8_block import Fp8BlockReassembler, fp8_block_config
+from moe_infinity_tpu_torch.store.gptq import GPTQ_COMPONENTS, GptqReassembler, gptq_config
 from moe_infinity_tpu_torch.store.quant import quantize_rowwise
 from moe_infinity_tpu_torch.utils.checkpoints import iter_checkpoint_arrays
-from moe_infinity_tpu_torch.utils.dtypes import bf16_bits, to_tensor
+from moe_infinity_tpu_torch.utils.dtypes import bf16_bits, fp8_values, to_tensor
 from moe_infinity_tpu_torch.utils.hf_config import detect_arch, parse_expert_param, parse_geometry
 from moe_infinity_tpu_torch.utils.logger import get_logger
 
@@ -41,40 +47,75 @@ QUANT_DTYPES = ("int8", "int4", "float8_e4m3fn")
 EXPERT_DTYPES = ("float32", "bfloat16", "float16") + QUANT_DTYPES
 
 
-def _quant_method(config):
-    qc = getattr(config, "quantization_config", None)
-    if qc is None:
-        return None
-    if not isinstance(qc, dict):
-        qc = qc.to_dict() if hasattr(qc, "to_dict") else vars(qc)
-    return qc.get("quant_method")
-
-
-def _check_supported(config, expert_dtype: str) -> None:
+def _check_supported(expert_dtype: str) -> None:
     if expert_dtype not in EXPERT_DTYPES:
         raise ValueError(f"unsupported expert_dtype {expert_dtype!r}")
-    method = _quant_method(config)
-    if method == "gptq":
-        raise NotImplementedError(
-            "GPTQ checkpoints are not ported (ROADMAP queue-1 item 14: store/gptq.py)"
-        )
-    if method == "fp8":
-        raise NotImplementedError(
-            "block-fp8 checkpoints are not ported (ROADMAP queue-1 item 14: "
-            "store/fp8_block.py)"
-        )
 
 
 def _as_f32(a: np.ndarray, dtype: str) -> np.ndarray:
     """float32 values of an array of store dtype ``dtype`` (bf16 from its
-    bits, exactly)."""
+    bits and fp8 from its codes, exactly)."""
     if dtype == "bfloat16":
         return to_tensor(a, dtype).float().numpy()
-    if dtype in ("float8_e4m3fn",):
-        raise NotImplementedError(
-            "fp8 checkpoint tensors are not ported (ROADMAP queue-1 item 14)"
-        )
-    return a.astype(np.float32)
+    if dtype == "float8_e4m3fn":
+        return fp8_values(a)
+    return np.asarray(a, dtype=np.float32)
+
+
+def _iter_model_tensors(checkpoint: str, config):
+    """(name, array, store dtype name) of the checkpoint's tensors, with
+    quantized linears reconstructed as plain f32 ``.weight`` tensors:
+    DeepSeek-V3's block-fp8 checkpoints, then GPTQ's packed 2/4/8-bit ones,
+    else the plain stream. Each linear is emitted when its last tensor
+    arrives, so the dense archive's order is the JAX ingest's."""
+    f8cfg = fp8_block_config(config)
+    if f8cfg is not None:
+        logger.info("FP8 block-quantized checkpoint (block=%s): dequantizing at ingest",
+                    f8cfg["block"])
+        asm8 = Fp8BlockReassembler(f8cfg)
+        for name, arr, src in iter_checkpoint_arrays(checkpoint):
+            is_fp8 = src == "float8_e4m3fn"
+            is_scale = name.endswith(Fp8BlockReassembler.SCALE_SUFFIX)
+            if is_scale or is_fp8 and name.endswith(".weight"):
+                # the codes as uint8, the scales as f32 (bf16 from its bits)
+                part = _as_f32(arr, src) if is_scale else arr
+                for out_name, out in asm8.feed(name, part, is_fp8):
+                    yield out_name, out, "float32"
+            else:  # what the reassembler passes through as it comes
+                yield name, arr, src
+        for out_name, out in asm8.flush():
+            yield out_name, out, "float32"
+        return
+
+    qcfg = gptq_config(config)
+    if qcfg is None:
+        yield from iter_checkpoint_arrays(checkpoint)
+        return
+    logger.info("GPTQ checkpoint detected (bits=%d group_size=%d): dequantizing at ingest",
+                qcfg["bits"], qcfg["group_size"])
+    asm = GptqReassembler(qcfg)
+    for name, arr, src in iter_checkpoint_arrays(checkpoint):
+        if any(name.endswith("." + c) for c in GPTQ_COMPONENTS):
+            if name.endswith(".scales"):
+                arr = _as_f32(arr, src)  # fp16 as numpy holds it; bf16 from its bits
+            for out_name, out in asm.feed(name, arr):
+                yield out_name, out, "float32"
+        else:
+            yield name, arr, src
+    for out_name, out in asm.flush():
+        yield out_name, out, "float32"
+
+
+_SAME_SIZE = {1: np.int8, 2: np.int16, 4: np.int32, 8: np.int64}
+
+
+def _transposed(a: np.ndarray) -> np.ndarray:
+    """``np.ascontiguousarray(a.T)`` of a 2-D array, copied by torch (a
+    blocked copy on the intra-op threads; numpy's is slow for one-byte
+    dtypes): the same bytes."""
+    v = a.view(_SAME_SIZE[a.itemsize])
+    t = torch.from_numpy(v if v.flags.writeable else v.copy())
+    return t.T.contiguous().numpy().view(a.dtype)
 
 
 def _cast_np(a: np.ndarray, src: str, dtype: str) -> np.ndarray:
@@ -86,6 +127,20 @@ def _cast_np(a: np.ndarray, src: str, dtype: str) -> np.ndarray:
     if dtype == "bfloat16":
         return bf16_bits(f)
     return f.astype(np.float16 if dtype == "float16" else np.float32)
+
+
+_EXPERT_THREADS = 4  # expert tensors in flight (each op also uses torch's intra-op threads)
+
+
+def _expert_arrays(arr: np.ndarray, src: str, expert_dtype: str):
+    """[(field suffix, array)] of one expert tensor as the record stores it:
+    a 2-D weight transposed into compute layout ([in, out]), quantized with a
+    per-output-channel scale (``.scale``) for a quantized store dtype."""
+    if expert_dtype in QUANT_DTYPES and arr.ndim == 2:
+        q, scale = quantize_rowwise(_as_f32(arr, src), expert_dtype)
+        return [("", _transposed(q)), (".scale", scale)]
+    a = _cast_np(arr, src, expert_dtype if expert_dtype not in QUANT_DTYPES else "bfloat16")
+    return [("", _transposed(a) if a.ndim == 2 else a)]
 
 
 def _expert_fields(layout, expert_dtype: str):
@@ -120,7 +175,7 @@ def ingest_checkpoint(
         logger.info("store already present at %s (warm start)", offload_path)
         with open(os.path.join(offload_path, "experts.index.json")) as f:
             return json.load(f)["meta"]
-    _check_supported(config, expert_dtype)
+    _check_supported(expert_dtype)
 
     arch = detect_arch(config)
     geometry = parse_geometry(config)
@@ -149,30 +204,33 @@ def ingest_checkpoint(
     n_expert_tensors = 0
     n_dense = 0
 
-    for name, arr, src in iter_checkpoint_arrays(checkpoint):
-        parsed = parse_expert_param(name, config)
-        if parsed is not None:
-            layer, expert, tail = parsed
-            # expert 2-D weights go transposed into compute layout ([in, out]);
-            # scales stay per output channel (common/arch.py)
-            if expert_dtype in QUANT_DTYPES and arr.ndim == 2:
-                q, scale = quantize_rowwise(_as_f32(arr, src), expert_dtype)
-                writer.write_tensor(layer, expert, tail, np.ascontiguousarray(q.T))
-                writer.write_tensor(layer, expert, tail + ".scale", scale)
+    # expert tensors are quantized and transposed on a few threads while the
+    # stream goes on; their writes, like every other write, stay in order here
+    pending: deque = deque()
+
+    def write_pending(keep: int) -> None:
+        while len(pending) > keep:
+            layer, expert, tail, fut = pending.popleft()
+            for suffix, a in fut.result():
+                writer.write_tensor(layer, expert, tail + suffix, a)
+
+    with ThreadPoolExecutor(_EXPERT_THREADS) as pool:
+        for name, arr, src in _iter_model_tensors(checkpoint, config):
+            parsed = parse_expert_param(name, config)
+            if parsed is not None:
+                layer, expert, tail = parsed
+                pending.append((layer, expert, tail,
+                                pool.submit(_expert_arrays, arr, src, expert_dtype)))
+                write_pending(_EXPERT_THREADS)
+                name_map[name] = ["expert", layer, expert, tail]
+                n_expert_tensors += 1
             else:
-                dt = expert_dtype if expert_dtype not in QUANT_DTYPES else "bfloat16"
-                a = _cast_np(arr, src, dt)
-                if a.ndim == 2:
-                    a = np.ascontiguousarray(a.T)
-                writer.write_tensor(layer, expert, tail, a)
-            name_map[name] = ["expert", layer, expert, tail]
-            n_expert_tensors += 1
-        else:
-            # small norm/bias tensors stay f32; matrices take the dense dtype
-            dt = dense_dtype if arr.ndim >= 2 else "float32"
-            dense_writer.write(name, _cast_np(arr, src, dt))
-            name_map[name] = ["dense"]
-            n_dense += 1
+                # small norm/bias tensors stay f32; matrices take the dense dtype
+                dt = dense_dtype if arr.ndim >= 2 else "float32"
+                dense_writer.write(name, _cast_np(arr, src, dt))
+                name_map[name] = ["dense"]
+                n_dense += 1
+        write_pending(0)
 
     missing = int((~writer._written).sum())
     if missing:

@@ -23,7 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from moe_infinity_tpu_torch.utils.dtypes import fp8_bits, fp8_values
+from moe_infinity_tpu_torch.utils.dtypes import FP8_NAN_BOUND, f32_view, fp8_bits, fp8_values
 
 INT8_MAX = 127.0
 INT4_MAX = 7.0
@@ -50,24 +50,32 @@ _QMAX = {"int8": INT8_MAX, "int4": INT4_MAX, "float8_e4m3fn": FP8_E4M3_MAX}
 
 
 def quantize_rowwise(w: np.ndarray, dtype: str) -> Tuple[np.ndarray, np.ndarray]:
-    """Quantize a 2-D weight [out, in] row-wise; returns (q, scale[out])."""
+    """Quantize a 2-D weight [out, in] row-wise; returns (q, scale[out]).
+    ``w`` may be strided (a transposed view): q keeps its memory order where
+    the ops do, and a caller's transpose of it is then free."""
     assert w.ndim == 2, w.shape
     if dtype not in _QMAX:
         raise ValueError(f"unsupported quant dtype {dtype}")
-    w32 = torch.from_numpy(np.ascontiguousarray(w, dtype=np.float32))
+    w32 = torch.from_numpy(f32_view(w))
     absmax = w32.abs().amax(dim=1)
     scale = torch.where(absmax > 0, absmax / _QMAX[dtype], 1.0)
     v = w32 / scale[:, None]
     if dtype == "float8_e4m3fn":
+        # a row's largest |v| is its absmax / scale (division is monotonic):
+        # within e4m3's range torch's cast is fp8_bits, without its scan
+        if bool((absmax / scale <= FP8_NAN_BOUND).all()):
+            return v.to(torch.float8_e4m3fn).view(torch.uint8).numpy(), scale.numpy()
         return fp8_bits(v.numpy()), scale.numpy()
     lo, hi = (-127, 127) if dtype == "int8" else (-8, 7)
-    q = torch.round(v).clamp_(lo, hi).to(torch.int8).numpy()
+    q = torch.round(v).clamp_(lo, hi).to(torch.int8)
     if dtype == "int4":
         # pack adjacent OUT channels per byte: HF layout is [out, in] and
         # the compute layout transposes to [in, out], where ops.moe expects
-        # the packed axis last. Returns q [out//2, in] + scale [out].
-        q = pack_int4_np(q.T).T
-    return q, scale.numpy()
+        # the packed axis last. Returns q [out//2, in] + scale [out]:
+        # pack_int4_np(q.T).T, packed along the out axis in place
+        n = q.shape[0] // 2
+        q = (q[n:] << 4) | (q[:n] & 0x0F)
+    return q.numpy(), scale.numpy()
 
 
 def dequantize_rowwise(q: np.ndarray, scale: np.ndarray) -> np.ndarray:

@@ -74,13 +74,20 @@ def bf16_bits(a: np.ndarray) -> np.ndarray:
     return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
 
 
+def f32_view(a: np.ndarray) -> np.ndarray:
+    """``a`` as a writable f32 array in its own memory order (no copy for a
+    writable f32 array, strided or not), ready for ``torch.from_numpy``."""
+    a = np.asarray(a, dtype=np.float32)
+    return a if a.flags.writeable else a.copy(order="K")
+
+
 def fp8_bits(a: np.ndarray) -> np.ndarray:
     """Round to float8_e4m3fn and return the codes as ``uint8``, as
     ``astype(ml_dtypes.float8_e4m3fn)`` rounds: through f32, to nearest with
     ties to even, subnormals below 2^-6 kept; a magnitude above 464, an
     infinity or a NaN becomes the NaN code of its sign (torch's cast would
     saturate those to 448)."""
-    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    t = torch.from_numpy(f32_view(a))
     codes = t.to(torch.float8_e4m3fn).view(torch.uint8)
     over = ~(t.abs() <= FP8_NAN_BOUND)
     if over.any():
@@ -90,8 +97,10 @@ def fp8_bits(a: np.ndarray) -> np.ndarray:
 
 
 def fp8_values(codes: np.ndarray) -> np.ndarray:
-    """f32 values of ``uint8`` e4m3fn codes (exact)."""
-    t = torch.from_numpy(np.ascontiguousarray(codes, dtype=np.uint8))
+    """f32 values of ``uint8`` e4m3fn codes (exact); read-only codes (a
+    memory-mapped checkpoint) are copied first."""
+    a = np.ascontiguousarray(codes, dtype=np.uint8)
+    t = torch.from_numpy(a if a.flags.writeable else a.copy())
     return t.view(torch.float8_e4m3fn).float().numpy()
 
 

@@ -18,7 +18,8 @@ checkpoint (HF ``MixtralForCausalLM``, seed 1, f32, sharded safetensors):
 * DeepSeek-V2 through the facade, resident and offload, against JAX's;
 * every plan the port does not serve raises, naming its ROADMAP item
   (Grok-1 and Arctic are served: tests/test_torch_grok.py and
-  tests/test_torch_arctic.py).
+  tests/test_torch_arctic.py; every load mode is served:
+  tests/test_torch_native_store.py and tests/test_torch_native_sched.py).
 """
 
 import concurrent.futures as cf
@@ -192,11 +193,11 @@ def test_deepseek_through_the_facade(tmp_path):
 
 
 @pytest.mark.parametrize("cfg,item", [
-    (dict(load_mode="ram"), "item 14"),
+    (dict(data_parallel=2), "item 18"),
     (dict(multihost=True), "item 18"),
     (dict(expert_parallel=2), "item 18"),
     (dict(tensor_parallel=2), "item 18"),
-    (dict(load_mode="direct"), "item 14"),  # fp8 experts are served since K3 takes e4m3
+    (dict(sequence_parallel=2), "item 18"),
 ])
 def test_unported_plans_raise(tiny_ckpt, tmp_path, cfg, item):
     path, _ = tiny_ckpt

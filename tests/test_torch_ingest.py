@@ -6,8 +6,9 @@ DenseArchive parts of tests/test_store.py:
   checkpoints, sharded, in safetensors and in ``.bin``, the port writes a
   store byte-equal to the JAX ingest's (index files, expert records, dense
   blob, name map) at f32, bf16, int8, int4 and float8_e4m3fn; a warm start
-  writes nothing; GPTQ and block-fp8 checkpoints and fp8 tensors in a
-  checkpoint raise, naming their item;
+  writes nothing; GPTQ at 3 bits and an unknown expert dtype raise (GPTQ,
+  block-fp8 and fp8 tensors: tests/test_torch_gptq.py and
+  tests/test_torch_fp8_checkpoint.py);
 * ``utils/checkpoints.py``: the port's safetensors reader is byte-equal to
   ``safetensors.safe_open``;
 * ``utils/hf_config.py``: ``read_hf_config`` gives the same geometry, expert
@@ -130,29 +131,41 @@ def test_safetensors_reader_equals_safe_open(tmp_path):
 
 
 def test_unported_checkpoints_raise(checkpoints, tmp_path):
-    """GPTQ and block-fp8 checkpoints, and an fp8 tensor in a checkpoint,
-    raise naming item 14 (fp8 experts the ingest writes itself are served:
-    ``test_store_byte_equal_to_jax``)."""
+    """What the port's ingest still refuses, as JAX's does: GPTQ at a width
+    other than 2/4/8 bits (``NotImplementedError`` from ``dequant_gptq``)
+    and an expert dtype the store has no kind for (``ValueError``; JAX's
+    fails at its first record). GPTQ and block-fp8 checkpoints and fp8
+    tensors are served: tests/test_torch_gptq.py and
+    tests/test_torch_fp8_checkpoint.py."""
     from safetensors.torch import load_file, save_file
 
+    from moe_infinity_tpu.store.gptq import pack_gptq
+
     ckpt = checkpoints["mixtral", True]
-    cfg = phc.read_hf_config(ckpt)
-    fp8_dir = tmp_path / "fp8_ckpt"
-    fp8_dir.mkdir()
+    gptq_dir = tmp_path / "gptq3"
+    gptq_dir.mkdir()
     for path in get_checkpoint_paths(ckpt)[0]:
-        tensors = load_file(path)
-        tensors = {n: t.to(torch.float8_e4m3fn) if ".experts.0.w1." in n else t
-                   for n, t in tensors.items()}
-        save_file(tensors, str(fp8_dir / os.path.basename(path)), metadata={"format": "pt"})
-    for f in ("config.json", "model.safetensors.index.json"):
-        (fp8_dir / f).write_bytes(open(os.path.join(ckpt, f), "rb").read())
-    with pytest.raises(NotImplementedError, match="fp8 checkpoint tensors.*item 14"):
-        ingest_checkpoint(str(fp8_dir), str(tmp_path / "a"), cfg, expert_dtype="int8")
-    for method, what in (("gptq", "GPTQ"), ("fp8", "block-fp8")):
-        cfg.quantization_config = {"quant_method": method, "bits": 4}
-        with pytest.raises(NotImplementedError, match=f"{what}.*item 14"):
-            ingest_checkpoint(ckpt, str(tmp_path / method), cfg)
-    assert not os.path.exists(tmp_path / "gptq")
+        tensors = {}
+        for n, t in load_file(path).items():
+            if ".experts.0.w1." in n:
+                for comp, arr in pack_gptq(t.float().numpy(), bits=4, group_size=16).items():
+                    tensors[n[: -len(".weight")] + "." + comp] = torch.from_numpy(
+                        np.ascontiguousarray(arr))
+            else:
+                tensors[n] = t
+        save_file(tensors, str(gptq_dir / os.path.basename(path)), metadata={"format": "pt"})
+    (gptq_dir / "model.safetensors.index.json").write_bytes(
+        open(os.path.join(ckpt, "model.safetensors.index.json"), "rb").read())
+    cfg = json.load(open(os.path.join(ckpt, "config.json")))
+    cfg["quantization_config"] = {"quant_method": "gptq", "bits": 3, "group_size": 16}
+    (gptq_dir / "config.json").write_text(json.dumps(cfg))
+    with pytest.raises(NotImplementedError, match="GPTQ bits=3"):
+        ingest_checkpoint(str(gptq_dir), str(tmp_path / "a"), phc.read_hf_config(str(gptq_dir)))
+    with pytest.raises(NotImplementedError, match="GPTQ bits=3"):
+        j_ingest(str(gptq_dir), str(tmp_path / "j"), AutoConfig.from_pretrained(str(gptq_dir)))
+    with pytest.raises(ValueError, match="unsupported expert_dtype 'int2'"):
+        ingest_checkpoint(ckpt, str(tmp_path / "b"), phc.read_hf_config(ckpt), expert_dtype="int2")
+    assert not os.path.exists(tmp_path / "b")
 
 
 # ---------------------------------------------------------------------------

@@ -161,14 +161,21 @@ def test_quantize_rowwise_matches_jax(qdt):
 
 def test_fp8_and_other_load_modes_raise(stores):
     """fp8 fields are served (their codes as uint8 bytes, byte-equal to the
-    JAX quantizer: tests/test_torch_fp8.py); the load modes other than mmap
-    still raise."""
+    JAX quantizer: tests/test_torch_fp8.py); every load mode of the JAX store
+    is served (tests/test_torch_native_store.py), and another raises, as
+    JAX's does."""
     assert dtypes.np_dtype("float8_e4m3fn") == np.uint8
     q, s = quant.quantize_rowwise(np.ones((2, 2), np.float32), "float8_e4m3fn")
     jq, js = jquant.quantize_rowwise(np.ones((2, 2), np.float32), "float8_e4m3fn")
     assert q.tobytes() == np.asarray(jq).view(np.uint8).tobytes() and s.tobytes() == js.tobytes()
-    with pytest.raises(NotImplementedError):
-        blob.ExpertStore(stores["float32"], load_mode="direct")
+    for mode in ("ram", "direct"):
+        st, ref = blob.ExpertStore(stores["float32"], load_mode=mode), \
+            blob.ExpertStore(stores["float32"])
+        assert st.get_record(0, 0).tobytes() == ref.get_record(0, 0).tobytes()
+    with pytest.raises(ValueError, match="unknown load_mode"):
+        blob.ExpertStore(stores["float32"], load_mode="tape")
+    with pytest.raises(ValueError, match="unknown load_mode"):
+        jblob.ExpertStore(stores["float32"], load_mode="tape")
 
 
 def test_dtypes_bridge():

@@ -274,7 +274,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    GB, 128 slots), each per layer and speculatively at k = 4 as graphs;
    hit rate, executions per block, tokens/s beside phase 11's; with every
    decoder layer direct, no decoder visit and every block accepted at its
-   first dispatch;
+   first dispatch (the whole run takes the two-layer plan at 8 tokens, for
+   its time limit; ``--stream`` and ``--offload`` at 16);
 33. their whole-path check at f32, full width, 4+4 blocks (2+2 in the whole
    run, for its time limit) over phase 10's
    store with the decoder records in a layer-aligned tier: stream decode
@@ -289,7 +290,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    host memory and paged through ``PagedDenseEngine`` with 3 slots, 4
    left-padded requests x 16 greedy tokens: tokens equal, the prefill's
    logits bit-equal; (b) the full depth, 64 host layers aliasing the 8 (16.3
-   GB of host memory, every step copies all 64 layers; 16 layers in the whole
+   GB of host memory, every step copies all 64 layers; 8 layers in the whole
    run, for its time limit, 64 with ``--paging``), paged with 4 slots
    at batch 1 and 8, 8 greedy tokens each (a copy-bound step of the same
    work each time; fewer steps keep the whole run well inside its time
@@ -340,7 +341,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    the batch-1 decode layer of the store's records against its plain
    version, timed; then phase 19's offload facade once per load mode
    (``mmap``, ``ram``, ``direct``, ``sched``), each answering phase 19's 8
-   requests: greedy tokens equal across the four, K1, K2 and K3 launched on
+   requests (the whole run's first 2, for its time limit; ``--loading``
+   all 8): greedy tokens equal across the four, K1, K2 and K3 launched on
    each; ingest seconds, ``is_direct``, tokens/s, s/token and the escalated
    reads under ``sched``;
 40. ``MoE`` from DeepSeek-V3's official block-fp8 layout at its published
@@ -359,7 +361,35 @@ Phases, each printing its own lines; any failure exits non-zero:
    kernels against the plain versions (f32 held, bf16 reported); then the
    offload facade at a budget of 160 of the 256 experts (the arena takes the
    256 slots of the one MoE layer), eagerly, under ``direct`` and ``mmap``
-   with tokens equal.
+   with tokens equal;
+41. ``decode_scan`` on the builds of phases 3 (NLLB-54B, through
+   ``Seq2SeqGenerator.decode_scan``), 5 (Mixtral-8x7B) and 7
+   (DeepSeek-V2-Lite, both through ``ResidentStepper.decode_scan`` after a
+   prefill of 4 prompts of 16 into caches of 256 columns), each greedy at
+   32 steps eagerly and as CUDA graphs of 8 steps: a warm-up call captures,
+   the timed call replays under ``torch.cuda.set_sync_debug_mode("error")``
+   (any host read raises), graph and eager bit-equal, one capture per block
+   length and a replay per block; tokens against the per-step path's
+   (NLLB's generate, whose graphed steps plan K1 from the same capacity:
+   held; ``Generator``: reported with the per-step top-2 gap at a
+   divergence); one sampled setting (temperature 0.8, top-p 0.9,
+   repetition penalty 1.1): a seed twice equal, graph equal to eager, two
+   seeds differ; ms per token and tokens/s of both loops, captures and
+   replays; phase 2 times K5 at its rows under the capacity plan and the
+   live one;
+42. the resident mesh: Mixtral-8x7B at its published width and 2 layers,
+   two ranks spawned with a ``file://`` rendezvous (gloo on one card, its
+   CUDA tensors staged through the host; NCCL with a card a rank), each
+   holding every plan (``expert=2``, ``model=2``, ``data=2`` with 4 rows)
+   against its own unsharded run of the same seed's weights: at f32 through
+   K3 (prefill logits within 2e-4 under ``expert=2``, whose ranks launch the
+   unsharded layer's grid; within 5e-2 under ``model=2`` and ``data=2``,
+   whose K3 inputs differ in their last bits) and through the exact grouped
+   FFN (within 2e-4), greedy tokens equal, all held; at bf16 through K3, the gaps reported; K1,
+   K2 and K3 launched by each rank's sharded runs (their launches go into
+   the ``kernels`` line); a rank that fails or outlives 420 s fails
+   the phase. Where the machine has two cards, K1 and K3 on ``cuda:1``
+   against their plain versions first.
 
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
@@ -380,14 +410,15 @@ phase 2's K3 e4m3 and rep 6/7 attention checks and phases 21 and 23;
 batcher inputs and phases 24 to 30, each on a build of its own;
 ``--paging`` the build, phase 2's OPT and dequantized-slot checks and phases
 34 to 37; ``--host-fallback`` the build and phases 37 and 38 (with
-``--paging``, 34 to 38); ``--loading`` the build and phases 39 and 40. Each
-prints no result line.
+``--paging``, 34 to 38); ``--loading`` the build and phases 39 and 40;
+``--scan`` the build and phases 3, 5 and 7 with phase 41 on their builds;
+``--mesh`` the build and phase 42. Each prints no result line.
 Every phase prints its seconds (``[phase]``).
 
 The line before the last is the per-kernel JSON record (launches: the sum
 of the counts of phases 3, 5, 7, 9, 11, 13, 14, 16, 18, 19, 21, 22, 23,
-24 to 30 (26's none: a check-only phase), 31, 32, 34, 36 to 38, 39 and 40,
-graph replays included; K3's e4m3 kind has its own row, ``gmm_fp8``;
+24 to 30 (26's none: a check-only phase), 31, 32, 34, 36 to 38, 39, 40,
+41's timed calls and both ranks' sharded runs of 42, graph replays included; K3's e4m3 kind has its own row, ``gmm_fp8``;
 K2 at head dim 64 has its own row, ``flash_attend_dh64``: a graph
 counts at each replay the launches it recorded when it was captured); the
 last line is
@@ -1672,6 +1703,52 @@ def check_mla_heads(g, dev):
                       scale=192 ** -0.5, library=True)
 
 
+def check_mla_capacity(g, dev):
+    """K5 as ``decode_scan`` calls it (phase 41): a cache of SCAN_CAP (256)
+    columns, rows of 17, 24, 33 and 48 live keys (phase 41's DeepSeek rows),
+    B=4 H=16, bf16, no holes; planned from the capacity (its ``kv_len`` a
+    0-d device tensor: most splits lie past every row's live keys) and from
+    the live length, each against the plain version and timed."""
+    from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+    B, H, S = SCAN_BATCH, DSV2_LITE["num_heads"], SCAN_CAP
+    a = _mla_inputs(g, dev, B=B, H=H, S=S, lengths=[17, 24, 33, 48])
+    scale = (DSV2_LITE["qk_nope_head_dim"] + 64) ** -0.5
+    pos, live = a["lengths"] - 1, 48
+    args = (a["q_lat"], a["q_pe"], a["c"], a["kpe"], pos)
+    step = torch.tensor(S - 1, dtype=torch.int32, device=dev)  # any device value: not read
+    want = fa.mla_flash_decode_plain(*args, S, scale=scale)
+    runs = {"capacity": lambda: fa.mla_flash_decode(*args, step, scale=scale),
+            "live": lambda: fa.mla_flash_decode(*args, live, scale=scale)}
+    valid = int(a["lengths"].sum())
+    nbytes = valid * (512 + 64) * 2 + B * 4 + B * H * (512 + 64) * 4 + B * H * 512 * 4
+    b_ms, b_by = bound_ms(nbytes, 2 * H * valid * (2 * 512 + 64))
+    r = {"bound_ms": b_ms, "max_abs_err": 0.0}
+    for plan, run in runs.items():
+        r["max_abs_err"] = max(r["max_abs_err"], compare(f"K5 {plan} plan, decode_scan rows",
+                                                         run(), want))
+        r[plan] = cuda_ms(run)
+    r["plain_ms"] = cuda_ms(lambda: fa.mla_flash_decode_plain(*args, S, scale=scale), iters=5,
+                            warmup=1)
+    # one SDPA call: q = [q_lat | q_pe], the shared key expanded over the heads,
+    # value c, the live keys as a float mask
+    import torch.nn.functional as F_
+
+    qs = torch.cat([a["q_lat"], a["q_pe"]], -1).to(torch.bfloat16)[:, :, None, :]
+    ks = torch.cat([a["c"], a["kpe"]], -1)[:, None].expand(B, H, S, 512 + 64)
+    vs = a["c"][:, None].expand(B, H, S, 512)
+    keep = torch.arange(S, device=dev)[None, :] < a["lengths"][:, None]
+    bias = torch.where(keep, 0.0, float("-inf")).to(torch.bfloat16)[:, None, None, :]
+    r["library_ms"] = cuda_ms(lambda: F_.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=bias, scale=scale))
+    say(f"[time] mla_flash_decode decode_scan rows B={B} H={H} S={S} lengths=(17,24,33,48) "
+        f"({valid} keys): capacity plan (kc, splits)={fa._mla_splits(B, H, S)} "
+        f"ms={r['capacity']:.5f}; live plan {fa._mla_splits(B, H, live)} ms={r['live']:.5f}; "
+        f"bound_ms={b_ms:.5f} ({b_by}) plain_ms={r['plain_ms']:.4f} library_ms="
+        f"{r['library_ms']:.4f} (SDPA over the key expanded to {H} heads)")
+    return r
+
+
 def phase_mla(dev):
     """Every K5 check of phase 2 (``--mla`` runs these alone); returns K5's
     record with the largest error of them all. The cases draw from their own
@@ -1680,7 +1757,7 @@ def phase_mla(dev):
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     rec = check_mla_decode(g, dev)
-    for r in (check_mla_long(g, dev), check_mla_heads(g, dev)):
+    for r in (check_mla_long(g, dev), check_mla_heads(g, dev), check_mla_capacity(g, dev)):
         rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
     return rec
 
@@ -1786,9 +1863,9 @@ def _requests(vocab, g, dev):
     return ids, mask
 
 
-def phase_main_path(dev, extra=None):
+def phase_main_path(dev, extra=None, scan=None):
     """Phase 3 (and with ``extra``, phase 24 on its build: its launches go
-    into ``extra``)."""
+    into ``extra``; with ``scan``, phase 41's NLLB part, into ``scan``)."""
     from moe_infinity_tpu_torch.models.nllb import NllbSpec
     from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
     from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
@@ -1866,6 +1943,9 @@ def phase_main_path(dev, extra=None):
     if extra is not None:
         extra["phase_s2s_batchers"] = _subphase(phase_s2s_batchers, dev,
                                                 (model, params, provider))
+    if scan is not None:
+        scan["nllb"] = _subphase(phase_decode_scan, dev, "nllb",
+                                 (model, params, provider.pytree(), ids, mask))
     del params, provider, model
     torch.cuda.empty_cache()
     return counts
@@ -2189,10 +2269,10 @@ def _hold_steps(what, dtype, got, want):
                 raise AssertionError(f"{full}: logits are not finite")
 
 
-def phase_mixtral(dev, extra=None):
+def phase_mixtral(dev, extra=None, scan=None):
     """Serve 8 requests through 4 slots; returns the launch counts of the
     batcher's run and of the Generator's run. With ``extra``, phase 29 on
-    the same build."""
+    the same build; with ``scan``, phase 41's Mixtral part."""
     from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
     from moe_infinity_tpu_torch.runtime.generate import Generator
     from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
@@ -2227,6 +2307,8 @@ def phase_mixtral(dev, extra=None):
     if extra is not None:
         extra["phase_mixtral_speculative"] = _subphase(phase_mixtral_speculative, dev,
                                                        (model, params, experts))
+    if scan is not None:
+        scan["mixtral"] = _subphase(phase_decode_scan, dev, "mixtral", (model, params, experts))
     del params, provider, experts, model
     torch.cuda.empty_cache()
     return {k: counts[k] + gen_counts[k] for k in counts}
@@ -2353,9 +2435,10 @@ def _require_mla_counts(counts, one_token_steps, steps, what, layers=DSV2_LITE["
         raise AssertionError(f"{what}: launches {got}, expected {want}")
 
 
-def phase_deepseek(dev):
+def phase_deepseek(dev, scan=None):
     """Serve 8 requests through 4 slots, then request 1 through Generator and
-    through FusedRunner; returns the three runs' launch counts summed."""
+    through FusedRunner; returns the three runs' launch counts summed. With
+    ``scan``, phase 41's DeepSeek part on the same build."""
     import warnings
 
     from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
@@ -2412,6 +2495,8 @@ def phase_deepseek(dev):
             f"step ({L} layers)" + (f", {view_ms / busy:.3f} of the W=1 step's device busy time"
                                     if busy else ""))
     del batcher, kv0
+    if scan is not None:
+        scan["deepseek"] = _subphase(phase_decode_scan, dev, "deepseek", (model, params, experts))
 
     # request 1 through the fused runner: one stacked pool, K3 at offsets li * E
     torch.cuda.synchronize()
@@ -6521,18 +6606,25 @@ def phase_stream_decode(dev, built=None):
     return _sum_counts(*counts_all), b
 
 
-def phase_direct_layers(dev, built=None):
+# phase 32's legs, (max_direct_layers, new tokens): bench.py's two direct
+# layers, then all six; the whole run takes the two-layer plan at 8 tokens,
+# for its time limit (phases 41-42 took its share)
+DIRECT_LEGS = ((2, NEW_TOKENS), (None, NEW_TOKENS))
+WHOLE_RUN_DIRECT = ((2, 8), (None, NEW_TOKENS))
+
+
+def phase_direct_layers(dev, built=None, legs=DIRECT_LEGS):
     """Phase 32: direct-tier layers on phase 31's build and tier. First at
     bench.py's sizing for ``--hbm-gb 13 --direct-layers 2`` (the deepest two
     decoder MoE layers promoted to the card, 4.3 GB; the arena's slots from
     the rest of the budget), then at ``max_direct_layers=None``: all 6
     decoder MoE layers, 12.9 GB. Each per layer (eager: it reads the routing
     on the host) and speculatively at k = 4 as graphs, on phase 3's 4
-    requests x 16 tokens; with every decoder layer direct, every block
+    requests x the leg's tokens (``legs``); with every decoder layer direct, every block
     accepts at its first dispatch and the decoder never visits the arena."""
     b = built or _stream_build(dev)
     counts_all = []
-    for n_direct in (2, None):
+    for n_direct, new_tokens in legs:
         slots = _bench_slots(b, n_direct=n_direct or len(b.dec_mlis))
         for speculative in (False, True):
             tag = f"direct {'spec' if speculative else 'per-layer'}"
@@ -6549,7 +6641,7 @@ def phase_direct_layers(dev, built=None):
                 want = b.dec_mlis[-(n_direct or len(b.dec_mlis)):]
                 if direct != want:
                     raise AssertionError(f"{tag}: direct layers {direct}, expected {want}")
-                _, n, counts = _leg(b, tag, engine, b.ids, b.mask, NEW_TOKENS, NEW_TOKENS,
+                _, n, counts = _leg(b, tag, engine, b.ids, b.mask, new_tokens, new_tokens,
                                     NLLB_KERNELS, guard=speculative)
                 counts_all.append(counts)
                 say(f"[{tag}] max_direct_layers={n_direct}: {_beside_phase_11(n['tokens_per_s'])}; "
@@ -6692,13 +6784,13 @@ def phase_stream_whole_path(dev, blocks=PARITY_BLOCKS):
     _free_host_cache()
 
 
-def phase_stream(dev, blocks=PARITY_BLOCKS):
+def phase_stream(dev, blocks=PARITY_BLOCKS, direct_legs=DIRECT_LEGS):
     """``--stream`` and the whole run: phase 9's tier released, then phases
-    31 to 33 (31 and 32 on one build; 33 at ``blocks``). Returns the launches
-    of 31 and 32."""
+    31 to 33 (31 and 32 on one build, 32 at each leg of ``direct_legs``; 33
+    at ``blocks``). Returns the launches of 31 and 32."""
     _free_host_cache()
     counts, b = _subphase(phase_stream_decode, dev)
-    counts = _sum_counts(counts, _subphase(phase_direct_layers, dev, b))
+    counts = _sum_counts(counts, _subphase(phase_direct_layers, dev, b, direct_legs))
     del b
     _free_host_cache()
     _subphase(phase_stream_whole_path, dev, blocks)
@@ -6720,7 +6812,7 @@ OPT_PROMPT_LENS = (32, 27, 20, 12)  # 34a's 4 requests
 OPT_SLOTS = 3  # 34a's dense slots (of 8 layers)
 OPT_SLOTS_FULL = 4  # 34b's (of 64)
 OPT_FULL_TOKENS = 8  # 34b's new tokens per generate (the prefill and 7 steps)
-OPT_WHOLE_RUN_DEPTH = 16  # 34b's layers in the whole run, for its time limit; --paging runs 64
+OPT_WHOLE_RUN_DEPTH = 8  # 34b's layers in the whole run, for its time limit; --paging runs 64
 OPT_KERNELS = ("flash_decode", "flash_attend")
 OPT_EP_DIR = Path(__file__).resolve().parent / ".opt_entry"
 OPT_EP_DISK_GB = 24  # checkpoint 9.2 + dense archive 9.2, with room
@@ -7657,6 +7749,9 @@ def phase_paged_offload(dev):
 # ---------------------------------------------------------------------------
 
 LOAD_MODES = ("mmap", "ram", "direct", "sched")
+# phase 39's requests per load mode in the whole run, for its time limit
+# (phases 41-42 took their share); --loading answers all EP_REQUESTS
+WHOLE_RUN_LOAD_REQUESTS = 2
 LOAD_SAMPLES = 8  # expert records held byte for byte against a recomputation on the host
 GQ_DIR = Path(__file__).resolve().parent / ".gptq_entry"
 GQ_DISK_GB = 6  # checkpoint 2.0 + int4 store 1.4 + dense archive 0.7, with room
@@ -7932,7 +8027,7 @@ def _serve_offload(tag, m, prompts, kw):
     return got, counts
 
 
-def phase_gptq_entry(dev):
+def phase_gptq_entry(dev, requests=EP_REQUESTS):
     """Phase 39: ``MoE`` from a GPTQ checkpoint of Mixtral-8x7B at its
     published width (GQ_CONFIG: 2 layers, 4 bits, groups of 128), written
     from a seed under ``.gptq_entry/`` (git-ignored; the free disk checked
@@ -7941,9 +8036,9 @@ def phase_gptq_entry(dev):
     ``quantize_rowwise`` on the host; K3's int4 kind at a decode layer of
     the store's records, timed; then the offload facade (phase 19's plan:
     10 of 16 experts, speculative blocks of 2, graphs) once per load mode
-    (``mmap``, ``ram``, ``direct``, ``sched``), each answering phase 19's 8
-    requests with the same greedy tokens and launching K1, K2 and K3.
-    Returns the launches of the four runs summed."""
+    of LOAD_MODES (``mmap`` first), each answering the first ``requests`` of
+    phase 19's 8 requests with the same greedy tokens and launching K1, K2
+    and K3. Returns the launches of the runs summed."""
     import shutil
 
     from moe_infinity_tpu_torch.entrypoints.api import _dense_bytes_estimate
@@ -7987,7 +8082,7 @@ def phase_gptq_entry(dev):
                           x, w, sc, 2, packed=True)
         del w, sc
 
-        prompts = _ep_prompts()
+        prompts = _ep_prompts()[:requests]
         kw = dict(max_new_tokens=EP_NEW, eos_token_id=None)
         stride = ExpertStore(str(store)).stride
         budget = _dense_bytes_estimate(DenseArchive(str(store)), 2) + EP_SLOTS * stride + stride // 2
@@ -8153,14 +8248,434 @@ def phase_dsv3_entry(dev):
         say(f"[dsv3] deleted {DS_DIR.name}/")
 
 
-def phase_loading(dev):
-    """Phases 39 and 40, each timed. Returns their launches summed."""
+def phase_loading(dev, requests=EP_REQUESTS):
+    """Phases 39 (``requests`` per load mode) and 40, each timed. Returns
+    their launches summed."""
     counts = {}
-    for fn in (phase_gptq_entry, phase_dsv3_entry):
+    for fn, args in ((phase_gptq_entry, (requests,)), (phase_dsv3_entry, ())):
         t0 = time.perf_counter()
-        counts = _sum_counts(counts, fn(dev))
+        counts = _sum_counts(counts, fn(dev, *args))
         say(f"[phase] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 41: decode_scan (ROADMAP item 11) on the builds of phases 3, 5 and 7
+# ---------------------------------------------------------------------------
+
+SCAN_TOKENS = 32  # bench.py's presets' --tokens
+SCAN_BATCH, SCAN_PROMPT = 4, 16  # decoder-only rows and their prompt
+SCAN_CAP = 256  # bench.py's decode_scan caches (bench.py:370)
+SCAN_SAMPLING = dict(temperature=0.8, top_p=0.9, repetition_penalty=1.1)
+SCAN_KERNELS = {"nllb": NLLB_KERNELS, "mixtral": ("flash_decode", "gmm"),
+                "deepseek": MLA_KERNELS}
+
+
+def _scan_guarded(fn):
+    """(fn's result, device ms, wall s): fn runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, so any host read or
+    synchronisation inside it raises; CUDA events bracket it."""
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    prev = torch.cuda.get_sync_debug_mode()
+    t0 = time.perf_counter()
+    e0.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1), time.perf_counter() - t0
+
+
+def _scan_report(kind, what, got, want, gaps=None):
+    """Greedy tokens of decode_scan against the per-step path's, per row:
+    equal, or (bf16) the first differing step and the per-step path's top-2
+    logit gap there, reported."""
+    rows = [b for b in range(got.shape[0]) if not np.array_equal(got[b], want[b])]
+    line = f"[scan] {kind}: decode_scan against {what}: {got.shape[0] - len(rows)} of " \
+           f"{got.shape[0]} rows' greedy tokens equal"
+    for b in rows:
+        j = int(np.argmax(got[b] != want[b]))
+        gap = "" if gaps is None else f", per-step top-2 gap there {gaps[b, j]:.4e}"
+        line += f"; row {b} first differs at step {j}{gap}"
+    say(line + (" (bf16, reported)" if rows else ""))
+    return not rows
+
+
+def _scan_gaps(stepper, prompt, n, dev):
+    """The per-step path's (int kv_len, as ``Generator`` steps) top-2 logit
+    gap at each of its ``n`` decode steps after the prefill: [B, n]."""
+    B, P = prompt.shape
+    kv = stepper.init_cache(B, SCAN_CAP)
+    pos = torch.arange(P, dtype=torch.int32, device=dev).expand(B, P)
+    logits, kv, _ = stepper.forward(prompt, pos, kv, 0)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    gaps = []
+    for i in range(n):
+        at = P + i
+        logits, kv, _ = stepper.forward(tok, torch.full((B, 1), at, dtype=torch.int32,
+                                                        device=dev), kv, at)
+        top = torch.topk(logits[:, -1].float(), 2, dim=-1).values
+        gaps.append((top[:, 0] - top[:, 1]).cpu().numpy())
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    return np.stack(gaps, 1)
+
+
+def phase_decode_scan(dev, kind, built):
+    """Phase 41 on one build (``kind``: nllb, mixtral or deepseek): greedy
+    ``decode_scan`` of SCAN_TOKENS steps eagerly and as CUDA graphs (a
+    warm-up call captures; the timed call replays under the sync guard),
+    bit-equal; its tokens against the per-step path's; one sampled setting
+    (SCAN_SAMPLING): a seed twice, graph against eager, two seeds. Returns
+    the timed call's launches."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.generate import (
+        Generator,
+        ResidentStepper,
+        Seq2SeqGenerator,
+        _scan_blocks,
+    )
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+    from moe_infinity_tpu_torch.runtime.sampling import SamplingParams
+
+    N, sp = SCAN_TOKENS, SamplingParams(**SCAN_SAMPLING)
+    fl = ResidentProvider.for_layer
+    if kind == "nllb":
+        model, params, experts, ids, mask = built
+        B = ids.shape[0]
+        src = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+        msk = torch.as_tensor(mask, device=dev)
+        graphed = Seq2SeqGenerator(model, params, experts, fl, impl="pallas")
+        eager = Seq2SeqGenerator(model, params, experts, fl, impl="pallas", graphs=False)
+
+        def scan(gen, **kw):
+            return gen.decode_scan(src, N, attention_mask=msk, **kw)[0]
+
+        def per_step():
+            return graphed.generate(ids, max_new_tokens=N, attention_mask=mask,
+                                    eos_token_id=None).sequences[:, 1:]
+    else:
+        model, params, experts = built
+        B, P = SCAN_BATCH, SCAN_PROMPT
+        g = torch.Generator(device=dev)
+        g.manual_seed(41)
+        prompt = torch.randint(3, model.spec.vocab_size, (B, P), generator=g, device=dev,
+                               dtype=torch.int32)
+        graphed = ResidentStepper(model, params, experts, fl, impl="pallas")
+        eager = ResidentStepper(model, params, experts, fl, impl="pallas", graphs=False)
+        pos0 = torch.full((B,), P, dtype=torch.int32, device=dev)
+        starts = {}
+
+        def start(st):
+            kv = st.init_cache(B, SCAN_CAP)
+            pos = torch.arange(P, dtype=torch.int32, device=dev).expand(B, P)
+            logits, kv, _ = st.forward(prompt, pos, kv, 0)
+            return torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None], kv
+
+        def scan(st, **kw):
+            if st not in starts:
+                starts[st] = start(st)
+            tok0, kv = starts[st]
+            toks, kv = st.decode_scan(tok0, pos0, kv, N, **kw)
+            starts[st] = (tok0, kv)  # graphs: the stepper's own caches, no copy next time
+            return toks
+
+        host_prompt = prompt.cpu().numpy()
+
+        def per_step():
+            return Generator(stepper=eager).generate(
+                host_prompt, max_new_tokens=N + 1, cache_len=SCAN_CAP).sequences[:, P + 1:]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = scan(eager).cpu().numpy()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / N
+    t0 = time.perf_counter()
+    warm = scan(graphed).cpu().numpy()  # captures every block length's graph
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    st0 = graphed.graph_stats()
+    reset_launches()
+    toks, ms, wall = _scan_guarded(lambda: scan(graphed))
+    counts = launch_counts()
+    toks = toks.cpu().numpy()
+    gst = graphed.graph_stats()
+    blocks = _scan_blocks(N)
+    if not (np.array_equal(toks, want) and np.array_equal(warm, want)):
+        raise AssertionError(f"{kind}: decode_scan as graphs differs from eager")
+    if (gst["captures"] != st0["captures"] or gst["recaptures"]
+            or gst["replays"] - st0["replays"] != len(blocks)
+            or gst["captures"] != len(set(blocks))):
+        raise AssertionError(f"{kind}: one capture per block length, one replay per block "
+                             f"expected ({st0} -> {gst})")
+    _require_launched(counts, SCAN_KERNELS[kind], f"{kind} decode_scan")
+    if toks.shape != (B, N) or not np.all((toks >= 0) & (toks < model.spec.vocab_size)):
+        raise AssertionError(f"{kind}: decode_scan returned {toks.shape}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = per_step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    if kind == "nllb":
+        # the generator's graphed steps plan K1 from the same capacity: held
+        if not _scan_report(kind, "Seq2SeqGenerator.generate", toks, ref):
+            raise AssertionError("nllb: decode_scan tokens differ from generate's")
+        step_ms = step_s * 1e3 / N
+    else:
+        t1 = time.perf_counter()
+        start(eager)
+        torch.cuda.synchronize()
+        step_ms = (step_s - (time.perf_counter() - t1)) * 1e3 / N  # the prefill taken off
+        if not _scan_report(kind, "Generator", toks, ref):
+            _scan_report(kind, "Generator", toks, ref, _scan_gaps(eager, prompt, N, dev))
+    say(f"[scan] {kind}: B={B} N={N} greedy decode_scan as graphs (blocks {blocks}): "
+        f"{ms / N:.4f} ms per token of device time ({B * N / (ms / 1e3):.1f} tokens/s; wall "
+        f"{wall * 1e3 / N:.4f} ms, the sync guard on); eager and the warm-up capture bit-equal; "
+        f"eager decode_scan {eager_ms:.4f} ms per token (host clock, the build's first "
+        f"scan); per-step path {step_ms:.4f} ms per token "
+        f"({B * N / (step_ms * N / 1e3):.1f} tokens/s, host clock); graphs {json.dumps(gst)} (the warm-up call with its captures "
+        f"{capture_s:.2f} s); launches {json.dumps({k: n for k, n in counts.items() if n})}")
+    a = scan(graphed, sampling=sp, seed=7).cpu().numpy()
+    checks = {"seed twice": np.array_equal(a, scan(graphed, sampling=sp, seed=7).cpu().numpy()),
+              "graph == eager": np.array_equal(a, scan(eager, sampling=sp, seed=7).cpu().numpy()),
+              "two seeds differ": not np.array_equal(
+                  a, scan(graphed, sampling=sp, seed=8).cpu().numpy())}
+    say(f"[scan] {kind}: sampled {json.dumps(SCAN_SAMPLING)}: {json.dumps(checks)}; graphs "
+        f"{json.dumps(graphed.graph_stats())}")
+    if not all(checks.values()):
+        raise AssertionError(f"{kind}: sampled decode_scan {checks}")
+    del graphed, eager
+    return {k: n for k, n in counts.items() if n}
+
+
+# ---------------------------------------------------------------------------
+# phase 42: the resident mesh (item 18a) on two ranks
+# ---------------------------------------------------------------------------
+
+MESH_DEPTH = 2  # Mixtral-8x7B's layers, as phase 19 cuts it
+MESH_PLANS = (dict(expert=2), dict(model=2), dict(data=2))
+MESH_ROWS, MESH_PROMPT, MESH_NEW = 4, 16, 8
+MESH_TIMEOUT = 420  # seconds for both ranks; a rank still alive then is killed
+MESH_KERNELS = ("flash_decode", "flash_attend", "gmm")
+# each rank's runs, in order: f32 through K3, f32 through the exact grouped
+# FFN ("dense": every slot for every token in f32, whose rows depend neither
+# on the batch nor on the plan), bf16 through K3; f32 runs are held, bf16
+# reported
+MESH_RUNS = ((torch.float32, "pallas"), (torch.float32, "dense"), (torch.bfloat16, "pallas"))
+MESH_TOL = 2e-4  # largest error of the prefill logits (the JAX suite's, tests/test_parallel.py)
+# f32 through K3 under model=2 and data=2: the o projection's sum over
+# ranks, and attention and K3 planned for fewer rows, change the last f32
+# bits of K3's inputs, and K3 rounds its operands to bf16, which turns some
+# of those into bf16 steps (1.24e-2 on logits up to 6.4). The limit lies
+# between that and the planted faults' 6.3 to 8.6 (PERF.md section 6).
+# Under expert=2 the ranks launch the unsharded grid and are held at MESH_TOL.
+MESH_K3_TOL = 5e-2
+
+
+def _rank_device(rank):
+    """A rank's card: ``cuda:(rank % device_count)``, so both ranks share one."""
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def _mesh_tol(dtype, impl, plan):
+    """The held limit of a run, or None where it is reported."""
+    if dtype != torch.float32:
+        return None
+    return MESH_TOL if impl == "dense" or "expert" in plan else MESH_K3_TOL
+
+
+def _mesh_rank(rank, world, init, out_dir, backend):
+    """One rank of phase 42 (spawned): the same seed's Mixtral-8x7B at
+    MESH_DEPTH layers unsharded (this process alone), then sharded under each
+    plan of MESH_PLANS, for each run of MESH_RUNS. Writes its readings and
+    the sharded runs' launches to ``out_dir/rank<r>.json``; raises on a
+    failed check."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        from moe_infinity_tpu_torch.models.mixtral import MixtralModel, MixtralSpec
+        from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+        from moe_infinity_tpu_torch.parallel import mesh as pm
+        from moe_infinity_tpu_torch.runtime.generate import Generator, ResidentStepper
+        from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+        dev = _rank_device(rank)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+        spec = MixtralSpec(**dict(MIXTRAL_8X7B, num_layers=MESH_DEPTH))
+        fl = ResidentProvider.for_layer
+        g = torch.Generator(device=dev)
+        g.manual_seed(4242)
+        prompt = torch.randint(3, spec.vocab_size, (MESH_ROWS, MESH_PROMPT), generator=g,
+                               device=dev, dtype=torch.int32)
+        host_prompt = prompt.cpu().numpy()
+        pos = torch.arange(MESH_PROMPT, dtype=torch.int32, device=dev).expand(MESH_ROWS, -1)
+
+        def run(stepper):
+            kv = stepper.init_cache(MESH_ROWS, 64)
+            logits = stepper.forward(prompt, pos, kv, 0)[0]
+            toks = Generator(stepper=stepper).generate(
+                host_prompt, max_new_tokens=MESH_NEW, cache_len=64).sequences
+            return logits, toks
+
+        out, counts = {"readings": []}, {}
+        built = None
+        for dtype, impl in MESH_RUNS:
+            if built is None or built[0] != dtype:
+                built = None
+                torch.cuda.empty_cache()
+                single = MixtralModel(spec, compute_dtype=dtype, device=dev)
+                g.manual_seed(7)
+                params, tree = single.init_random(g, expert_dtype="bf16")
+                built = (dtype, single, params, ResidentProvider(tree).pytree())
+                del tree
+            _, single, params, experts = built
+            kernels = MESH_KERNELS if impl == "pallas" else MESH_KERNELS[:2]
+            want, want_toks = run(ResidentStepper(single, params, experts, fl, impl=impl,
+                                                  graphs=False))
+            scale = want.abs().max().item()
+            for plan in MESH_PLANS:
+                mesh = pm.make_mesh(pm.MeshPlan(**plan))
+                model = MixtralModel(spec, compute_dtype=dtype, device=dev, mesh=mesh)
+                p = (pm.shard_params(params, pm.mixtral_param_shardings(mesh, params))
+                     if mesh.shape["model"] > 1 else params)
+                e = pm.shard_params(experts, pm.expert_shardings(mesh, experts))
+                st = ResidentStepper(model, p, e, fl, impl=impl, graphs=False)
+                if mesh.shape["data"] > 1:
+                    st.set_data_sharding(mesh)
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got, toks = run(st)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                c = launch_counts()
+                counts = {k: counts.get(k, 0) + n for k, n in c.items()}
+                missing = [k for k in kernels if c.get(k, 0) <= 0]
+                err = (got - want).abs().max().item()
+                tol = _mesh_tol(dtype, impl, plan)
+                ok = err <= (tol or MESH_TOL)
+                same = bool(np.array_equal(toks, want_toks))
+                name = str(dtype).split(".")[-1]
+                out["readings"].append(dict(
+                    dtype=name, impl=impl, plan=plan, max_abs_err=err, logit_scale=scale,
+                    tol=tol, within=ok, tokens_equal=same, seconds=secs, launches=c,
+                    coords=mesh.coords, expert_slots=int(e["layers"][0]["gate"].shape[0]),
+                    kv_heads=int(model.num_kv_heads)))
+                if missing or (tol is not None and not (ok and same)):
+                    raise AssertionError(
+                        f"rank {rank} {name} impl={impl} {plan}: max_abs_err {err:.3e} (limit "
+                        f"{tol or MESH_TOL:g}, logits up to {scale:.3g}), tokens equal {same}, "
+                        f"kernels not launched {missing}")
+                del model, p, e, st
+                torch.cuda.empty_cache()
+        del built, single, params, experts
+        torch.cuda.empty_cache()
+        out["launches"] = counts
+        dist.barrier()
+        dist.destroy_process_group()
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    except BaseException:
+        Path(out_dir, f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def check_other_device(dev):
+    """K1 and K3 on the second card against their plain versions, where the
+    machine has one: the wrappers launch on their tensors' device."""
+    if torch.cuda.device_count() < 2:
+        say("[mesh] one card: K1 and K3 on cuda:1 could not be run (needs two)")
+        return
+    from moe_infinity_tpu_torch.ops import flash_attention as fa
+    from moe_infinity_tpu_torch.ops import gmm as gm
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+
+    d1 = torch.device("cuda", 1)
+    before = launch_counts()
+    g = torch.Generator(device=d1)
+    g.manual_seed(1)
+    q = torch.randn(4, 32, 128, generator=g, device=d1, dtype=torch.bfloat16)
+    k = torch.randn(4, 64, 8, 128, generator=g, device=d1, dtype=torch.bfloat16)
+    v = torch.randn(4, 64, 8, 128, generator=g, device=d1, dtype=torch.bfloat16)
+    qpos = torch.tensor([40, 12, 63, 5], dtype=torch.int32, device=d1)
+    compare("K1 on cuda:1", fa._decode_cuda(q, k, v, qpos, 64, scale=0.088, causal=True,
+                                            logit_softcap=None, pad_mask=None),
+            fa.flash_decode_plain(q, k, v, qpos, 64, scale=0.088))
+    x = torch.randn(24, 4096, generator=g, device=d1, dtype=torch.bfloat16)
+    w = torch.randn(8, 4096, 512, generator=g, device=d1, dtype=torch.bfloat16) * 0.02
+    sizes = torch.tensor([3, 0, 5, 2, 6, 1, 4, 3], dtype=torch.int32, device=d1)
+    compare("K3 on cuda:1", gm.gmm(x, w, sizes), gm.gmm_plain(x, w, sizes))
+    reset_launches()
+    from moe_infinity_tpu_torch.ops import add_launches
+
+    add_launches(before)  # the comparisons' launches do not count
+
+
+def phase_mesh(dev):
+    """Phase 42: two ranks, spawned, with a ``file://`` rendezvous in a
+    temporary directory; gloo on one card, NCCL with a card a rank. Each
+    rank holds every plan to its own unsharded run (f32 logits within
+    ``_mesh_tol``, greedy tokens equal; bf16 reported). Returns the ranks'
+    launches."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    check_other_device(dev)
+    n = torch.cuda.device_count()
+    backend = "nccl" if n >= 2 else "gloo"
+    say(f"[mesh] Mixtral-8x7B at {MESH_DEPTH} layers, published width, bf16 experts "
+        f"(f32 through K3 and through the exact grouped FFN, bf16 through K3); 2 ranks on {min(n, 2)} card(s), backend {backend}"
+        + (" (CUDA tensors staged through the host)" if backend == "gloo" else "")
+        + f"; plans {json.dumps(MESH_PLANS)}; {MESH_ROWS} rows, prompt "
+          f"{MESH_PROMPT}, {MESH_NEW} greedy tokens")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_mesh_rank, args=(r, 2, f"file://{tmp}/rendezvous", tmp,
+                                                       backend)) for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_TIMEOUT
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(30)
+        errs = "".join(Path(tmp, f"rank{r}.err").read_text() for r in range(2)
+                       if Path(tmp, f"rank{r}.err").exists())
+        if hung:
+            raise AssertionError(f"mesh: ranks {hung} did not finish in {MESH_TIMEOUT} s\n{errs}")
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise AssertionError(f"mesh: rank exit codes {codes}\n{errs}")
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(2)]
+    counts = {}
+    for r, res in enumerate(ranks):
+        for rd in res["readings"]:
+            held = f"held at {rd['tol']:g}" if rd["tol"] else "reported"
+            say(f"[mesh] rank {r} {rd['dtype']} impl={rd['impl']} {json.dumps(rd['plan'])} coords "
+                f"{json.dumps(rd['coords'])}: prefill logits (up to {rd['logit_scale']:.4g}) "
+                f"against the unsharded run max_abs_err={rd['max_abs_err']:.4e} (within: "
+                f"{rd['within']}, {held}), greedy tokens equal {rd['tokens_equal']} "
+                f"({'held' if rd['tol'] else 'reported'}), expert slots "
+                f"{rd['expert_slots']}, KV heads {rd['kv_heads']}, {rd['seconds']:.2f} s; "
+                f"launches {json.dumps({k: n for k, n in rd['launches'].items() if n})}")
+        counts = {k: counts.get(k, 0) + n for k, n in res["launches"].items()}
+    counts = {k: n for k, n in counts.items() if n}
+    say(f"[mesh] launches of both ranks' sharded runs {json.dumps(counts)}")
+    return counts
+
 
 
 def main() -> int:
@@ -8213,6 +8728,18 @@ def main() -> int:
         say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) library_ms={r['library_ms']:.4f}")
         say(f"[stream] launches of phases 31 and 32 {json.dumps(timed(phase_stream))}")
+        say(f"[card] {smi}")
+        return 0
+    if "--scan" in sys.argv[1:]:
+        scan = {}
+        timed(phase_main_path, None, scan)
+        timed(phase_mixtral, None, scan)
+        timed(phase_deepseek, scan)
+        say(f"[scan] launches of phase 41's timed calls {json.dumps(scan)}")
+        say(f"[card] {smi}")
+        return 0
+    if "--mesh" in sys.argv[1:]:
+        timed(phase_mesh)
         say(f"[card] {smi}")
         return 0
     if "--resident" in sys.argv[1:]:
@@ -8274,17 +8801,19 @@ def main() -> int:
         say(f"[card] {smi}")
         return 0
     recs = timed(phase_kernels)
-    counts = timed(phase_main_path, extra)
+    scan = {}  # phase 41's launches, by model
+    counts = timed(phase_main_path, extra, scan)
     timed(phase_whole_path)
-    mix_counts = timed(phase_mixtral, extra)
+    mix_counts = timed(phase_mixtral, extra, scan)
     timed(phase_mixtral_whole_path)
-    mla_counts = timed(phase_deepseek)
+    mla_counts = timed(phase_deepseek, scan)
     timed(phase_deepseek_whole_path)
     off_counts = timed(phase_offload)
     timed(phase_offload_whole_path, WHOLE_RUN_PARITY_SEEDS)
     spec_counts = timed(phase_offload_spec, extra)
     timed(phase_offload_spec_whole_path, WHOLE_RUN_PARITY_SEEDS)
-    st_counts = timed(phase_stream, WHOLE_RUN_PARITY_BLOCKS)  # phases 31-33, after phase 9's tier is released
+    # phases 31-33, after phase 9's tier is released
+    st_counts = timed(phase_stream, WHOLE_RUN_PARITY_BLOCKS, WHOLE_RUN_DIRECT)
     _free_host_cache()  # the NLLB tier's page-locked memory, before Switch's
     extra["phase_s2s_batchers_whole_path"] = timed(phase_s2s_batchers_whole_path,
                                                    WHOLE_RUN_PARITY_BLOCKS) or {}
@@ -8305,13 +8834,15 @@ def main() -> int:
     timed(phase_opt_whole_path)
     extra["phase_opt_entry"] = timed(phase_opt_entry)
     extra["phase_paged_offload"] = timed(phase_paged_offload)
-    extra["phase_loading"] = timed(phase_loading)  # phases 39-40: GPTQ, block-fp8, load modes
+    extra["phase_loading"] = timed(phase_loading, WHOLE_RUN_LOAD_REQUESTS)  # phases 39-40
+    mesh_counts = timed(phase_mesh)  # phase 42: the ranks' launches
     say(f"[batchers] launches by phase {json.dumps(extra)}")
+    say(f"[scan] launches of phase 41's timed calls {json.dumps(scan)}")
     for r in recs:
         r["launches"] = sum(c.get(r["name"], 0) for c in (
             counts, mix_counts, mla_counts, off_counts, spec_counts, st_counts, sw_counts,
             sw_off_counts, mx_off_counts, ds_off_counts, ep_counts, gk_counts, ac_counts, ge_counts,
-            *extra.values()))
+            *extra.values(), *scan.values(), mesh_counts))
         r.pop("shape")
     say(f"[card] {smi}")
     print(json.dumps({"kernels": recs}), flush=True)

@@ -129,3 +129,26 @@ FFN_ROLES: Dict[str, Dict[str, Optional[str]]] = {
         "down": "down_proj.weight",
     },
 }
+
+
+# TP x EP: which dim of each STACKED expert array ([slots, ...]) shards over
+# the `model` mesh axis (the d_ff hidden dim). Keys absent here (down_bias
+# [S, d_model], down_scale) replicate across the model axis. The fused
+# 'gateup' and the packed int4 '<role>4' arrays are listed as the JAX
+# package lists them, but the port's ``parallel/mesh.py`` refuses to cut
+# them: a slice of [gate | up] would mix the two halves, and a slice of a
+# split-nibble array holds columns that are not the slice of `down`'s rows.
+TP_MODEL_DIMS: Dict[str, int] = {
+    "gate": 2,
+    "up": 2,
+    "gateup": 2,
+    "down": 1,
+    "gate_bias": 1,
+    "gate4": 2,
+    "up4": 2,
+    "gateup4": 2,
+    "down4": 1,
+    "gate_scale": 1,
+    "up_scale": 1,
+    "gateup_scale": 1,
+}

@@ -5,6 +5,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace mit {
 
 // Finite stand-in for -inf in online softmax (keeps exp() NaN-free on rows
@@ -116,6 +118,21 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
   return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Raise a kernel's dynamic shared-memory limit to `smem`, once per device:
+// the attribute belongs to the device current at the call (the wrappers
+// launch under a guard for their tensors' device), so `done` keeps a bit
+// per device (devices 64 and up set it at every call).
+inline int smem_once(const void* kern, int smem, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load() & bit) return 0;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return (int)err;
 }
 
 }  // namespace mit

@@ -528,14 +528,10 @@ int launch_rows_r(int kind, const DecArgs& a, int B, cudaStream_t stream) {
       kind == kDecContig  ? flash_decode_kernel<T, MAXR, DH>
       : kind == kDecPaged ? paged_decode_kernel<T, MAXR, DH>
                           : attend_rows_kernel<T, MAXR, DH>;
-  static bool sized[3] = {false, false, false};
+  static std::atomic<unsigned long long> sized[3];  // per kind, a bit per device
   constexpr int smem = dec_smem_bytes<T, DH>();
-  if (!sized[kind]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    sized[kind] = true;
-  }
+  const int err = mit::smem_once(reinterpret_cast<const void*>(kern), smem, sized[kind]);
+  if (err != 0) return err;
   kern<<<dim3(a.NS, a.Hkv, B), kDecThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -1033,13 +1029,9 @@ int launch_attend_bf16(const void* q, const void* k, const void* v,
   const int halves = min(kv_len, S) > kMmaTile ? 2 : 1;
   auto kern = halves == 2 ? flash_attend_kernel<2, DH> : flash_attend_kernel<1, DH>;
   const int smem = halves == 2 ? mma_smem_bytes<2, DH>() : mma_smem_bytes<1, DH>();
-  static bool sized[2] = {false, false};
-  if (!sized[halves - 1]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    sized[halves - 1] = true;
-  }
+  static std::atomic<unsigned long long> sized[2];  // per instance, a bit per device
+  const int err = mit::smem_once(reinterpret_cast<const void*>(kern), smem, sized[halves - 1]);
+  if (err != 0) return err;
   const int units = ((Tq + 15) / 16) * (H / Hkv);
   const dim3 grid((units + kMmaUnits - 1) / kMmaUnits, Hkv, B);
   kern<<<grid, halves * kMmaUnits * 32, smem, stream>>>(
@@ -1705,19 +1697,6 @@ __global__ void __launch_bounds__(kMlaThreads)
   mla_finish(a, b, hg, h0, min(kMlaHeads, a.H - h0), live, st_acc, st_ml);
 }
 
-// Raise a kernel's dynamic shared-memory limit to `smem`, once per device.
-int smem_once(const void* kern, int smem, std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (done.load() & bit) return 0;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err == cudaSuccess) done.fetch_or(bit);
-  return (int)err;
-}
-
 // A launch in clusters of a.CL blocks along the splits.
 template <typename Kern>
 int launch_mla(Kern kern, int smem, const MlaArgs& a, int B, cudaStream_t stream) {
@@ -1739,7 +1718,7 @@ int launch_mla(Kern kern, int smem, const MlaArgs& a, int B, cudaStream_t stream
 
 int launch_mla_bf16(const MlaArgs& a, int B, cudaStream_t stream) {
   static std::atomic<unsigned long long> sized{0};
-  const int err = smem_once(reinterpret_cast<const void*>(mla_decode_kernel),
+  const int err = mit::smem_once(reinterpret_cast<const void*>(mla_decode_kernel),
                             kMlaSmem, sized);
   if (err != 0) return err;
   return launch_mla(mla_decode_kernel, kMlaSmem, a, B, stream);
@@ -1747,7 +1726,7 @@ int launch_mla_bf16(const MlaArgs& a, int B, cudaStream_t stream) {
 
 int launch_mla_f32(const MlaArgs& a, int B, cudaStream_t stream) {
   static std::atomic<unsigned long long> sized{0};
-  const int err = smem_once(reinterpret_cast<const void*>(mla_decode_f32_kernel),
+  const int err = mit::smem_once(reinterpret_cast<const void*>(mla_decode_f32_kernel),
                             kMlaF32Smem, sized);
   if (err != 0) return err;
   return launch_mla(mla_decode_f32_kernel, kMlaF32Smem, a, B, stream);

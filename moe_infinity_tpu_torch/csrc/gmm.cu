@@ -442,13 +442,11 @@ __global__ void __launch_bounds__(kThreads, 2) gmm_kernel(const Args a) {
 template <int KIND, int MT>
 int launch(const Args& a, dim3 grid, cudaStream_t st) {
   using C = Tile<KIND, MT>;
-  static bool sized = false;  // the kernel may take C::kSmem of dynamic shared memory
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gmm_kernel<KIND, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
-    if (err != cudaSuccess) return (int)err;
-    sized = true;
-  }
+  // the kernel may take C::kSmem of dynamic shared memory: a bit per device
+  static std::atomic<unsigned long long> sized;
+  const int err =
+      mit::smem_once(reinterpret_cast<const void*>(gmm_kernel<KIND, MT>), C::kSmem, sized);
+  if (err != 0) return err;
   gmm_kernel<KIND, MT><<<grid, kThreads, C::kSmem, st>>>(a);
   return (int)cudaGetLastError();
 }

@@ -45,9 +45,22 @@ reader's ``direct`` and ``sched`` (``store/native.py``, built at first use).
 Checkpoints may be plain, GPTQ or DeepSeek-V3's block-fp8 ones
 (``store/ingest.py``).
 
+A resident mesh (``data_parallel``, ``tensor_parallel`` and
+``expert_parallel``, ``parallel/mesh.py``) runs SPMD, one process per rank:
+the caller initialises ``torch.distributed`` (e.g. ``torchrun
+--nproc-per-node N``) and every rank builds ``MoE(...)`` and calls
+``generate`` with the same inputs. Each rank's device is
+``cuda:(rank % device_count)``; the experts are sharded on their slots over
+the expert axis and on d_ff over the model axis, Mixtral's dense weights by
+heads and vocabulary over the model axis (other families replicate theirs,
+as the JAX facade does), and the batch rows over the data axis. A mesh serves
+through the generators only (no batcher), eagerly (its collectives are not
+captured in CUDA graphs), with unfused experts.
+
 Plans and options the port does not serve raise ``NotImplementedError``
-naming their ROADMAP queue-1 item: multihost and any parallel degree above
-1 (18).
+naming their ROADMAP queue-1 item: multihost, offload (or paged dense
+layers) under a mesh, and a mesh over a checkpoint with no experts (18b);
+``sequence_parallel`` above 1 (18c).
 """
 
 from __future__ import annotations
@@ -119,10 +132,18 @@ def _to_device(tree, device):
 def _check_config(config: EngineConfig) -> None:
     """Raise for the options whose plans the port does not serve."""
     if config.multihost:
-        raise _not_ported("multihost serving", "18")
-    for name in ("data_parallel", "tensor_parallel", "expert_parallel", "sequence_parallel"):
-        if getattr(config, name) > 1:
-            raise _not_ported(f"{name}={getattr(config, name)} (one card only)", "18")
+        raise _not_ported("multihost serving", "18b")
+    if config.sequence_parallel > 1:
+        raise _not_ported(f"sequence_parallel={config.sequence_parallel}", "18c")
+
+
+def _mesh_plan(config: EngineConfig):
+    """The resident mesh's ``MeshPlan``, or None for one rank."""
+    from moe_infinity_tpu_torch.parallel.mesh import MeshPlan
+
+    plan = MeshPlan(data=config.data_parallel, model=config.tensor_parallel,
+                    expert=config.expert_parallel)
+    return plan if plan.num_devices > 1 else None
 
 
 class MoE:
@@ -154,8 +175,15 @@ class MoE:
         elif isinstance(config, dict):
             config = EngineConfig.load_from_json(config)
         self.config = config
-        self.device = resolve_device(device)
         _check_config(config)
+        self.mesh = None
+        plan = _mesh_plan(config)
+        if plan is not None:
+            from moe_infinity_tpu_torch.parallel.mesh import make_mesh, mesh_device
+
+            self.mesh = make_mesh(plan)  # raises without a process group of the plan's size
+            device = mesh_device(device)
+        self.device = resolve_device(device)
         checkpoint = str(model_name_or_path)
         if not config.offload_path:
             config.offload_path = os.path.join(
@@ -169,6 +197,8 @@ class MoE:
                                       f"available: {sorted(registry)}")
         self.geometry = parse_geometry(self.hf_config)
         seq2seq = self.arch in _SEQ2SEQ_ARCHS
+        if self.mesh is not None and self.geometry.num_experts == 0:
+            raise _not_ported("a mesh over a checkpoint with no experts", "18b")
 
         # the spec first: a variant the model does not take is refused before
         # anything is ingested
@@ -179,7 +209,8 @@ class MoE:
         dense = DenseArchive(config.offload_path)
 
         compute_dtype = torch.float32 if config.expert_dtype == "float32" else torch.bfloat16
-        self.model = model_cls(spec, compute_dtype, device=self.device)
+        self.model = model_cls(spec, compute_dtype, device=self.device,
+                               **({"mesh": self.mesh} if self.mesh is not None else {}))
 
         # ---- the budget, and dense residency before any device load ----
         budget = config.device_memory_bytes
@@ -195,12 +226,22 @@ class MoE:
         page_dense = config.dense_paging == "on" or (
             config.dense_paging == "auto" and dense_est > budget * dense_share)
         self.dense_arena = None
+        if page_dense and self.mesh is not None:
+            raise _not_ported("paged dense layers under a mesh", "18b")
         if page_dense:
             self._page_dense_layers(dense, model_cls, seq2seq, budget)
         else:
             self.params = self.model.load_params(dense)
             if config.fold_mla and hasattr(self.model, "fold_mla_params"):
                 self.params = self.model.fold_mla_params(self.params)
+            if self.mesh is not None and self.arch == "mixtral" and config.tensor_parallel > 1:
+                from moe_infinity_tpu_torch.parallel.mesh import (
+                    mixtral_param_shardings,
+                    shard_params,
+                )
+
+                self.params = shard_params(self.params,
+                                           mixtral_param_shardings(self.mesh, self.params))
 
         self.batcher = None
         self.s2s_batcher = None
@@ -228,6 +269,8 @@ class MoE:
 
             pinned_tier = PinnedExpertTier(store, device=self.device)
         expert_bytes = store.stride * store.num_layers * store.num_experts
+        if self.mesh is not None:  # a rank's share of the experts
+            expert_bytes //= config.expert_parallel * config.tensor_parallel
         dense_bytes = _tensor_bytes(self.params)
         if self.dense_arena is not None:
             # the paged stack takes its arena's slots, not its full size
@@ -235,10 +278,12 @@ class MoE:
         # paged dense layers need the engine's per-layer path
         fits = expert_bytes <= budget - dense_bytes and self.dense_arena is None
         paged = self.dense_arena is not None
+        if self.mesh is not None and not fits:
+            raise _not_ported("offload under a mesh (the experts do not fit the ranks)", "18b")
         # CUDA graphs of the decode step where the grouped FFN can be
         # captured; a decoder-only model also says whether its step can be
-        # one (graph_step)
-        graphs = capturable(config.moe_impl) and (
+        # one (graph_step). A mesh's collectives are not captured.
+        graphs = capturable(config.moe_impl) and self.mesh is None and (
             seq2seq or getattr(self.model, "graph_step", False))
 
         def offload_parts():
@@ -271,6 +316,10 @@ class MoE:
                         expert_bytes / 2**30, (budget - dense_bytes) / 2**30)
             tree = ResidentProvider.from_store(store, dtype=compute_dtype,
                                                device=self.device).pytree()
+            if self.mesh is not None:
+                from moe_infinity_tpu_torch.parallel.mesh import expert_shardings, shard_params
+
+                return shard_params(tree, expert_shardings(self.mesh, tree))
             if config.fuse_gateup:
                 from moe_infinity_tpu_torch.ops.moe import fuse_gateup
 
@@ -282,7 +331,7 @@ class MoE:
         if seq2seq:
             from moe_infinity_tpu_torch.runtime.continuous_s2s import Seq2SeqContinuousBatcher
 
-            batched = config.max_batch_size > 1
+            batched = config.max_batch_size > 1 and self.mesh is None
             s2s = dict(impl=config.moe_impl, max_batch_size=config.max_batch_size,
                        max_src_len=config.max_seq_len, max_decode_len=config.max_seq_len)
             if fits:
@@ -333,7 +382,10 @@ class MoE:
             experts = resident_experts()
             stepper = ResidentStepper(self.model, self.params, experts,
                                       ResidentProvider.for_layer, impl=config.moe_impl,
-                                      prefill_impl=config.prefill_impl)
+                                      prefill_impl=config.prefill_impl,
+                                      graphs=self.mesh is None)
+            if config.data_parallel > 1:
+                stepper.set_data_sharding(self.mesh)
         else:
             from moe_infinity_tpu_torch.runtime.engine import OffloadEngine
 
@@ -345,7 +397,7 @@ class MoE:
         # continuous batching for concurrent serving: over the resident
         # experts, or (with speculative_decode) over the offload engine's
         # arena, every batched step one verified speculative execution
-        if (config.max_batch_size > 1 and not paged
+        if (config.max_batch_size > 1 and not paged and self.mesh is None
                 and "key_valid" in self.model.forward.__code__.co_varnames
                 and (fits or config.speculative_decode)):
             from moe_infinity_tpu_torch.runtime.continuous import ContinuousBatcher

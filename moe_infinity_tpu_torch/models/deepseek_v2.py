@@ -42,7 +42,7 @@ from moe_infinity_tpu_torch.models import layers
 from moe_infinity_tpu_torch.models.layers import KVCache, linear, rms_norm
 from moe_infinity_tpu_torch.ops import flash_attention as fa
 from moe_infinity_tpu_torch.ops import gmm as gm
-from moe_infinity_tpu_torch.ops.moe import _activate, _gffn_gather, grouped_ffn, pack_int4
+from moe_infinity_tpu_torch.ops.moe import _activate, _gffn_gather, pack_int4, routed_ffn
 from moe_infinity_tpu_torch.store.blob import param_getter
 
 
@@ -150,9 +150,7 @@ class DeepseekV2Model:
 
     def __init__(self, spec: DeepseekV2Spec, compute_dtype=torch.bfloat16,
                  device="cuda", mesh=None, shared_in_pool: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(
-                "expert-parallel meshes are not ported (ROADMAP queue-1 item 18)")
+        self.mesh = mesh  # parallel/mesh.py: the experts under ops.moe.routed_ffn
         self.spec = spec
         self.dtype = compute_dtype
         self.device = resolve_device(device)
@@ -492,8 +490,8 @@ class DeepseekV2Model:
             ids = torch.cat([ids, extra], dim=-1)
             cw = torch.cat([cw, torch.ones(B, T, n, dtype=cw.dtype, device=cw.device)], dim=-1)
         K = ids.shape[-1]
-        y = grouped_ffn(
-            h.reshape(B * T, D), ids.reshape(B * T, K),
+        y = routed_ffn(
+            self.mesh, h.reshape(B * T, D), ids.reshape(B * T, K),
             cw.reshape(B * T, K).float(), slot_map, weights, "silu",
             biases=biases, impl=impl,
         ).reshape(B, T, D)
@@ -511,7 +509,9 @@ class DeepseekV2Model:
     def forward(self, params, experts, tokens, positions, kv_caches, kv_len: int,
                 *, for_layer, impl: str = "ragged", pad_offsets=None,
                 rope_positions=None, key_valid=None):
-        """Whole-model step over tokens [B, T] at cache column ``kv_len``.
+        """Whole-model step over tokens [B, T] at cache column ``kv_len`` (an
+        int, or a 0-d device tensor that is never read on the host, as
+        ``decode_scan`` gives it: K5 then plans from the cache's capacity).
         Returns (logits [B, T, V] f32, the caches (updated in place), router
         trace of the MoE layers (ids [Lm, B, T, K] int32, weights f32))."""
         s = self.spec

@@ -36,7 +36,7 @@ from moe_infinity_tpu_torch.models.layers import (
     rms_norm,
     rope_cos_sin,
 )
-from moe_infinity_tpu_torch.ops.moe import grouped_ffn, topk_router
+from moe_infinity_tpu_torch.ops.moe import routed_ffn, topk_router
 from moe_infinity_tpu_torch.store.blob import param_getter
 
 
@@ -89,9 +89,7 @@ class GrokModel:
 
     def __init__(self, spec: GrokSpec, compute_dtype=torch.bfloat16, device="cuda",
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "expert-parallel meshes are not ported (ROADMAP queue-1 item 18)")
+        self.mesh = mesh  # parallel/mesh.py: the experts under ops.moe.routed_ffn
         self.spec = spec
         self.dtype = compute_dtype
         self.device = resolve_device(device)
@@ -219,8 +217,8 @@ class GrokModel:
         """GELU-gated experts, the post-MoE norm and the residual."""
         B, T, D = h.shape
         K = ids.shape[-1]
-        y = grouped_ffn(
-            h.reshape(B * T, D), ids.reshape(B * T, K), cw.reshape(B * T, K).float(),
+        y = routed_ffn(
+            self.mesh, h.reshape(B * T, D), ids.reshape(B * T, K), cw.reshape(B * T, K).float(),
             slot_map, weights, "gelu", biases=biases, impl=impl,
         )
         return x + rms_norm(y.reshape(B, T, D), pl["post_moe"], self.spec.rms_eps)

@@ -40,7 +40,7 @@ from moe_infinity_tpu_torch.models.layers import (
     pad_bias,
     sinusoidal_embedding,
 )
-from moe_infinity_tpu_torch.ops.moe import grouped_ffn
+from moe_infinity_tpu_torch.ops.moe import routed_ffn
 from moe_infinity_tpu_torch.store.blob import param_getter
 
 
@@ -313,14 +313,10 @@ class NllbModel:
     # ---- stage protocol (the offload engine drives these) ----------------
     def apply_ff(self, x, h, cw, ids, weights, slot_map, biases, impl):
         """x + the routed expert FFN of h [B, T, D] (ids, cw [B, T, K])."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "expert-parallel dispatch under a mesh is not ported (ROADMAP queue-1 item 18)"
-            )
         B, T, D = h.shape
         K = ids.shape[-1]
-        y = grouped_ffn(h.reshape(B * T, D), ids.reshape(B * T, K), cw.reshape(B * T, K),
-                        slot_map, weights, "relu", biases=biases, impl=impl)
+        y = routed_ffn(self.mesh, h.reshape(B * T, D), ids.reshape(B * T, K),
+                       cw.reshape(B * T, K), slot_map, weights, "relu", biases=biases, impl=impl)
         return x + y.reshape(B, T, D)
 
     def enc_prelude(self, params, tokens, pad_mask):

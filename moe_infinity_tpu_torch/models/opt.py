@@ -70,7 +70,7 @@ class OPTModel:
     def __init__(self, spec: OPTSpec, compute_dtype=torch.bfloat16, device="cuda", mesh=None):
         if mesh is not None:
             raise NotImplementedError(
-                "expert-parallel meshes are not ported (ROADMAP queue-1 item 18)")
+                "a mesh over a model with no experts is not ported (ROADMAP queue-1 item 18b)")
         self.spec = spec
         self.dtype = compute_dtype
         self.device = resolve_device(device)

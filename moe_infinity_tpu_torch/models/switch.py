@@ -46,7 +46,7 @@ from moe_infinity_tpu_torch.models.layers import (
     t5_position_bias,
     t5_relative_bucket,
 )
-from moe_infinity_tpu_torch.ops.moe import grouped_ffn
+from moe_infinity_tpu_torch.ops.moe import routed_ffn
 from moe_infinity_tpu_torch.store.blob import param_getter
 
 
@@ -299,13 +299,10 @@ class SwitchModel:
 
     def apply_ff(self, x, h, cw, ids, weights, slot_map, biases, impl):
         """x + the routed expert FF of h [B, T, D] (ids, cw [B, T, 1])."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "expert-parallel dispatch under a mesh is not ported (ROADMAP queue-1 item 18)"
-            )
         B, T, D = h.shape
-        y = grouped_ffn(h.reshape(B * T, D), ids.reshape(B * T, 1), cw.reshape(B * T, 1),
-                        slot_map, weights, self.activation, biases=biases, impl=impl)
+        y = routed_ffn(self.mesh, h.reshape(B * T, D), ids.reshape(B * T, 1),
+                       cw.reshape(B * T, 1), slot_map, weights, self.activation,
+                       biases=biases, impl=impl)
         return x + y.reshape(B, T, D)
 
     def _routed_ff(self, b, h, mli, experts, for_layer, impl):

@@ -13,6 +13,7 @@ plain PyTorch versions.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -154,6 +155,17 @@ def check(err: int, what: str) -> None:
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def launch(fn, dev: torch.device, *args) -> int:
+    """Call the C entry point ``fn(*args, stream)`` under a device guard for
+    ``dev``, on that device's current stream: the kernel launches on the
+    device its tensors live on whatever device is current, and its
+    once-per-device set-up (the dynamic shared-memory limit) is made for
+    that device. (A CPU ``dev`` takes no guard: the tests that stand in for
+    the kernel call the wrappers with CPU tensors.)"""
+    with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+        return fn(*args, stream_ptr(dev))
 
 
 def _stream_buffer(cache, what, dev, n, make) -> torch.Tensor:

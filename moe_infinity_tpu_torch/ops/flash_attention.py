@@ -165,14 +165,13 @@ def _launch_rows(kind, name, q, k, v, *, Tq, S, live_max, kv_len=0, causal=False
         part_acc, part_ml = scratch[:n_acc], scratch[n_acc:]
         tickets = _build.tickets(dev, B * Hkv)
     fn = _build.function("flash_attention", "mit_decode_rows", _ROWS_ARGS)
-    err = fn(
+    err = _build.launch(fn, dev,
         kind, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         _build.ptr(qpos), _build.ptr(lengths), _build.ptr(table), _build.ptr(mask),
         _build.ptr(bias), *strides, _build.ptr(part_acc), _build.ptr(part_ml),
         _build.ptr(tickets),
         B, Tq, H, Hkv, S, P, page, kv_len, int(causal), int(round_p), kc, NS,
-        scale, float(logit_softcap or 0.0), int(q.dtype == torch.bfloat16), Dh,
-        _build.stream_ptr(dev),
+        scale, float(logit_softcap or 0.0), int(q.dtype == torch.bfloat16), Dh
     )
     _build.check(err, name)
     _count(name, Dh)
@@ -309,12 +308,11 @@ def _attend_cuda(q, k, v, q_positions, kv_len, *, scale, causal,
     if B == 0:
         return out
     fn = _build.function("flash_attention", "mit_flash_attend", _ATTEND_ARGS)
-    err = fn(
+    err = _build.launch(fn, dev,
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(qpos),
         _build.ptr(bias), *strides, _build.ptr(mask), _build.ptr(out),
         B, T, H, Hkv, S, kv_len, int(causal), scale,
-        float(logit_softcap or 0.0), int(q.dtype == torch.bfloat16), Dh,
-        _build.stream_ptr(dev),
+        float(logit_softcap or 0.0), int(q.dtype == torch.bfloat16), Dh
     )
     _build.check(err, "flash_attend")
     _count("flash_attend", Dh)
@@ -437,14 +435,23 @@ def mla_flash_decode(
     c_cache: torch.Tensor,  # [B, S, R] compressed latent cache
     kpe_cache: torch.Tensor,  # [B, S, P] roped shared key cache
     q_positions: torch.Tensor,  # [B] int cache column of the query
-    kv_len: int,  # valid cache entries
+    kv_len,  # valid cache entries: an int, or a 0-d device tensor
     *,
     scale: float,
     pad_mask: Optional[torch.Tensor] = None,  # [B, S] True = valid key
 ) -> torch.Tensor:
     """One query token per row of absorbed MLA: returns out_lat [B, H, R] f32
     (the caller applies w_uv or o_fold). Row b attends to the keys
-    ``s < min(kv_len, q_positions[b] + 1, S)`` whose mask entry is set."""
+    ``s < min(kv_len, q_positions[b] + 1, S)`` whose mask entry is set.
+
+    A ``kv_len`` that is a 0-d tensor (the step of a CUDA graph or of
+    ``decode_scan``, which changes on the device) is never read on the
+    host: the split plan then comes from the cache's capacity S, and each
+    row's live keys from ``q_positions`` alone (``min(q_pos + 1, S)``), as
+    K1 takes them (``models.layers.attend_cache``). The splits wholly past a
+    row's live keys read nothing and add nothing to its merge."""
+    if isinstance(kv_len, torch.Tensor):
+        kv_len = c_cache.shape[1]
     fn = _mla_cuda if q_lat.is_cuda else mla_flash_decode_plain
     return fn(q_lat, q_pe, c_cache, kpe_cache, q_positions.reshape(-1),
               int(kv_len), scale=float(scale), pad_mask=pad_mask)
@@ -510,11 +517,11 @@ def _mla_cuda(q_lat, q_pe, c, kpe, q_positions, kv_len, *, scale, pad_mask):
         part_acc, part_ml = scratch[:n_acc], scratch[n_acc:n_acc + n_ml]
         tickets = _build.tickets(dev, B * -(-H // _MLA_HEADS) * CL)
     fn = _build.function("flash_attention", "mit_mla_flash_decode", _MLA_ARGS)
-    err = fn(
+    err = _build.launch(fn, dev,
         _build.ptr(ql), _build.ptr(qp), _build.ptr(c), _build.ptr(kpe),
         _build.ptr(qpos), _build.ptr(mask), _build.ptr(part_acc),
         _build.ptr(part_ml), _build.ptr(tickets), _build.ptr(out), B, H, S, R, P,
-        kv_len, kc, NS, CL, scale, int(c.dtype == torch.bfloat16), _build.stream_ptr(dev),
+        kv_len, kc, NS, CL, scale, int(c.dtype == torch.bfloat16)
     )
     _build.check(err, "mla_flash_decode")
     LAUNCHES["mla_flash_decode"] += 1

@@ -133,11 +133,10 @@ def _gmm_cuda(x, w, group_sizes, scale, group_offset, group_ids, *, packed):
         part = _build.workspace(dev, plan.splits * T * F)
         tickets = _build.tickets(dev, plan.chunks * plan.tiles)
     fn = _build.function("gmm", "mit_gmm", _GMM_ARGS)
-    err = fn(
+    err = _build.launch(fn, dev,
         _build.ptr(xb), _build.ptr(w), _build.ptr(scale), _build.ptr(sizes), _build.ptr(gids),
         _build.ptr(part), _build.ptr(tickets), group_offset, G, plan.chunks,
-        _ROWS_PER_CHUNK, T, D, Fw, F, kind, plan.splits, _build.ptr(out),
-        _build.stream_ptr(dev),
+        _ROWS_PER_CHUNK, T, D, Fw, F, kind, plan.splits, _build.ptr(out)
     )
     _build.check(err, "gmm")
     LAUNCHES["gmm_fp8" if w.dtype == torch.float8_e4m3fn else "gmm"] += 1

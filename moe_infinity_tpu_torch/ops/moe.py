@@ -21,6 +21,10 @@ Implementations of ``grouped_ffn``:
 
 A ``StreamSource`` in place of the weights gathers the routed experts from
 the pinned tier inside the step (``ops/stream.py``).
+
+``grouped_ffn_ep`` is the expert-parallel grouped FFN of a mesh
+(``parallel/mesh.py``): each rank computes its local experts' share of its
+tokens and the ranks sum the shares with one ``all_reduce``.
 """
 
 from __future__ import annotations
@@ -333,3 +337,73 @@ def _gffn_ragged(x, expert_ids, combine_weights, expert_to_slot, weights,
     combined = torch.zeros(T, D, dtype=torch.float32, device=x.device)
     combined.index_add_(0, inv_token, out)
     return combined.to(compute_dtype)
+
+
+def _num_slots(weights: Dict[str, torch.Tensor]) -> int:
+    for k in ("gateup", "gateup4", "gate", "gate4"):
+        if k in weights:
+            return weights[k].shape[0]
+    raise KeyError("weight dict has no gate/gateup entry")
+
+
+def grouped_ffn_ep(
+    x: torch.Tensor,  # [T, D] this rank's tokens (its data shard)
+    expert_ids: torch.Tensor,  # [T, K]
+    combine_weights: torch.Tensor,  # [T, K]
+    expert_to_slot: torch.Tensor,  # [E] global slot ids, or [dp, E] one row per data rank
+    weights: Dict[str, torch.Tensor],  # this rank's slots (``parallel.shard_params``)
+    activation: str,
+    *,
+    mesh,
+    biases: Optional[Dict[str, torch.Tensor]] = None,
+    expert_axis: str = "expert",
+    data_axis: str = "data",
+    model_axis: str = "model",
+    impl: str = "ragged",
+) -> torch.Tensor:
+    """Expert-parallel grouped FFN, JAX ``ops/moe.py::grouped_ffn_ep``: this
+    rank computes its local experts' contribution to its tokens (through
+    K3 for ``impl="pallas"`` on the card, on the unsharded layer's grid), a
+    route to a remote expert taking weight 0, and the ranks of the expert axis sum the contributions with
+    one ``all_reduce``: the sum is the combine, and no token all-to-all is
+    needed. Rank c of the expert axis holds global slots
+    ``[c * S, (c + 1) * S)`` of its ``S`` local ones.
+
+    A 2-D ``expert_to_slot`` ([dp, E]) is the joint DP x EP mode: the slot
+    stack is sharded over both axes, data-major (global slot
+    ``(d * ep + c) * S + s`` on coordinate (d, c)), and each data rank reads
+    its own row. Under a model axis above 1 the weights hold a d_ff slice
+    (``common/arch.py::TP_MODEL_DIMS``) and the sum runs over the model axis
+    too; ``down_bias`` is added on model coordinate 0 only. Returns this
+    rank's [T, D] in x's dtype."""
+    joint = expert_to_slot.dim() == 2
+    ep, tp = mesh.shape[expert_axis], mesh.shape[model_axis]
+    shard = mesh.axis_index(expert_axis)
+    slot_map = expert_to_slot
+    if joint:
+        d = mesh.axis_index(data_axis)
+        shard = d * ep + shard
+        slot_map = expert_to_slot[d]
+    s_local = _num_slots(weights)
+    # every expert keeps its entry (-1 where remote: grouped_ffn gives such a
+    # route weight 0), so K3 launches the unsharded layer's grid and split
+    # plan, and a routed row sums its reduction in the unsharded order
+    local = slot_map.long() - shard * s_local
+    local = torch.where((local >= 0) & (local < s_local), local, -1).to(torch.int32)
+    if tp > 1 and biases is not None and "down_bias" in biases and mesh.axis_index(model_axis):
+        biases = {k: (torch.zeros_like(v) if k == "down_bias" else v) for k, v in biases.items()}
+    out = grouped_ffn(x, expert_ids, combine_weights, local, weights, activation,
+                      biases=biases, impl=impl)
+    return mesh.all_reduce(out, expert_axis, model_axis)
+
+
+def routed_ffn(mesh, x, expert_ids, combine_weights, expert_to_slot, weights, activation, *,
+               biases=None, impl: str = "ragged") -> torch.Tensor:
+    """A model's routed experts: ``grouped_ffn_ep`` under a mesh whose expert
+    or model axis is above 1 (the experts then hold a slice of the slots or
+    of d_ff, ``parallel.expert_shardings``), else ``grouped_ffn``."""
+    if mesh is not None and (mesh.shape["expert"] > 1 or mesh.shape["model"] > 1):
+        return grouped_ffn_ep(x, expert_ids, combine_weights, expert_to_slot, weights,
+                              activation, mesh=mesh, biases=biases, impl=impl)
+    return grouped_ffn(x, expert_ids, combine_weights, expert_to_slot, weights, activation,
+                       biases=biases, impl=impl)

@@ -132,9 +132,9 @@ def stream_gather(source: StreamSource, rows: torch.Tensor) -> Dict[str, torch.T
         *(segs[0][0].numel() * segs[0].element_size() for segs in source.fields.values()))
     dst = (ctypes.c_void_p * n)(*(o.data_ptr() for o in out.values()))
     fn = _build.function("stream", "mit_stream_gather", _GATHER_ARGS)
-    err = fn(_build.ptr(table), _build.ptr(rows), U, n, table.shape[1], int(source.seg_rows),
-             ctypes.cast(rec_bytes, ctypes.c_void_p), ctypes.cast(dst, ctypes.c_void_p),
-             _build.stream_ptr(dev))
+    err = _build.launch(fn, dev, _build.ptr(table), _build.ptr(rows), U, n, table.shape[1],
+                        int(source.seg_rows), ctypes.cast(rec_bytes, ctypes.c_void_p),
+                        ctypes.cast(dst, ctypes.c_void_p))
     _build.check(err, "stream_gather")
     LAUNCHES["stream_gather"] += 1
     return out

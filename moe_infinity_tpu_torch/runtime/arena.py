@@ -54,7 +54,7 @@ num_slots``, all zeros and never allocated, landed into or evicted: the
 engines' host fallback (``runtime/host_exec.py``) points a missed expert's
 slot row there, so the grouped FFN contributes exactly 0 for it.
 
-Not ported: ``tp_mirrors`` raises ``NotImplementedError``; the JAX
+Not ported: ``tp_mirrors`` raises ``NotImplementedError`` (item 18b); the JAX
 relay's upload knobs (``upload_chunk_bytes``, ``upload_threads``) have no
 counterpart.
 """
@@ -113,7 +113,7 @@ class ExpertArena:
         store path."""
         if tp_mirrors:
             raise NotImplementedError(
-                "tp_mirrors (tensor-parallel columns) are not ported (ROADMAP queue-1 item 18)"
+                "tp_mirrors (tensor-parallel columns) are not ported (ROADMAP queue-1 item 18b)"
             )
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")

@@ -29,12 +29,28 @@ Both take the JAX signature's sampling keywords (``runtime/sampling.py``:
 temperature, top-k/p, min-p, penalties, ``logit_bias``, logprobs with
 ``top_logprobs``/``top_tokens`` in ``GenerationResult``); the sampler runs
 as tensor ops on the model's device after each step's logits.
-``decode_scan`` (the JAX on-device scan) raises ``NotImplementedError``
-(ROADMAP queue-1 item 11).
+
+``decode_scan`` (``ResidentStepper`` and ``Seq2SeqGenerator``), the JAX
+package's whole decode loop as one jitted ``lax.scan``: the token, the
+positions and the sampler's state (its penalty counts, updated in place,
+and a CUDA generator registered with the graphs, so that every replay draws
+fresh noise and a seed gives the eager run's tokens) live in device
+buffers; on the card the steps run as replays of CUDA graphs of
+``SCAN_BLOCK`` steps (and one of the remainder), keyed by the block, the
+sampling parameters, the batch and the cache capacity, never by the start
+position, which is a device input. Nothing is read on the host between the
+first step and the copy of the tokens the caller makes. ``graphs=False``
+and the CPU run the same steps eagerly.
+
+Under a mesh (``parallel/mesh.py``) ``ResidentStepper.set_data_sharding``
+gives each data rank its share of the batch rows; ``forward`` and
+``decode_scan`` return the whole batch on every rank, gathered with an
+``all_reduce`` of a zero-filled buffer.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from contextlib import contextmanager
@@ -51,7 +67,15 @@ from moe_infinity_tpu_torch.runtime.graphs import (
     graph_cache,
     step_positions,
 )
-from moe_infinity_tpu_torch.runtime.sampling import Sampler, params_from_kwargs
+from moe_infinity_tpu_torch.runtime.sampling import (
+    Sampler,
+    SamplerState,
+    SamplingParams,
+    _bias_row,
+    gumbel,
+    params_from_kwargs,
+    sample_step,
+)
 from moe_infinity_tpu_torch.utils.logger import get_logger
 
 _log = get_logger("generate")
@@ -127,23 +151,191 @@ class _Clock:
         return (b - a) * 1e3
 
 
+# decode_scan's graph length: the steps one CUDA graph replays. A replay costs
+# the host one launch, some microseconds, against about a millisecond of the
+# card's time per step of Mixtral-8x7B, so 8 steps leave its share of a token
+# under a percent; a longer block only makes the capture longer (its warm-up
+# runs the block once) and the graph larger. 8 divides the bench's 16- and
+# 32-token runs, which then need no graph of a remainder.
+SCAN_BLOCK = 8
+
+
+def _scan_blocks(num_steps: int, block: int = SCAN_BLOCK) -> List[int]:
+    """The graph lengths of a ``num_steps`` scan: whole blocks, then the rest."""
+    full, rest = divmod(int(num_steps), block)
+    return [block] * full + ([rest] if rest else [])
+
+
+def _scan_params(sampling: Optional[SamplingParams], vocab: int, device):
+    """(params of the in-graph sampler or None for argmax, the logit bias
+    [V] or an empty tensor). The bias is a tensor made before any capture
+    (``process_logits`` would copy it from the host inside the graph), and
+    logprobs, which ``decode_scan`` does not return, are not computed."""
+    if sampling is None:
+        return None, torch.zeros(0, dtype=torch.float32, device=device)
+    bias = _bias_row(sampling.logit_bias, vocab, torch.float32, device)
+    sp = dataclasses.replace(sampling, logit_bias=None, logprobs=0)
+    if bias is None:
+        bias = torch.zeros(0, dtype=torch.float32, device=device)
+    return (None if sp.trivial else sp), bias
+
+
+def _scan_state(tok0, B: int, vocab: int, sp) -> dict:
+    """The sampler's device state of a scan: the fed-back token [B, 1] int32
+    and the penalty counts [B, V] int32 (zero-size when a penalty is off),
+    which start empty as in the JAX scan (no prompt counted)."""
+    dev = tok0.device
+
+    def counts(on):
+        return torch.zeros((B, vocab if on else 0), dtype=torch.int32, device=dev)
+
+    return {"tok": tok0.to(torch.int32).reshape(B, 1).clone(),
+            "counts_full": counts(sp is not None and sp.needs_full_counts),
+            "counts_gen": counts(sp is not None and sp.needs_gen_counts)}
+
+
+def _scan_pick(logits, sp, bias, counts_full, counts_gen, generator, noise_rows=None):
+    """The next token [B] int64 of a scan step from its raw [B, V] logits:
+    the bias, then argmax, or the sampler with its counts updated in place.
+    ``noise_rows`` (lo, hi, batch): a data rank's rows of the whole batch's
+    noise, so that the draws do not depend on the sharding."""
+    if bias.numel():
+        logits = logits + bias
+    if sp is None:
+        return torch.argmax(logits, dim=-1)
+    noise = None
+    if not sp.greedy and noise_rows is not None:
+        lo, hi, batch = noise_rows
+        noise = gumbel((batch, logits.shape[-1]), generator, logits.device, logits.dtype)[lo:hi]
+    out, _ = sample_step(logits, SamplerState(generator, counts_full, counts_gen), sp,
+                         noise, inplace=True)
+    return out.token
+
+
+def _scan_generator(sp, device, seed: int, graphs, cache: dict, key):
+    """The generator of a sampled scan: a fresh one, seeded, when it runs
+    eagerly; with graphs one per key, which the graphs close over (on the
+    card registered with each of them, ``CudaGraphBackend.capture``) and
+    ``_run_scan`` reseeds per call."""
+    if sp is None or sp.greedy:
+        return None
+    if graphs is None:
+        return torch.Generator(device=device).manual_seed(int(seed))
+    gen = cache.get(key)
+    if gen is None:
+        gen = cache[key] = torch.Generator(device=device)
+    return gen
+
+
+def _run_scan(graphs, name, make_block, state: dict, closes_over, num_steps: int,
+              B: int, gen, seed: int, device):
+    """The scan's tokens [B, num_steps] int64: eagerly, ``make_block(n)(**state)``
+    per block; with graphs, every block length's graph is captured first
+    (their warm-ups run on copies of the state and move the generator on),
+    the generator is reseeded, and each block is one replay fed the state
+    the replay before left in its buffers."""
+    out = torch.empty(B, num_steps, dtype=torch.int64, device=device)
+    blocks = _scan_blocks(num_steps)
+    if graphs is None:
+        done = 0
+        for n in blocks:
+            toks, *rest = make_block(n)(**state)
+            state = dict(zip(state, rest))
+            out[:, done:done + n] = toks
+            done += n
+        return out
+    gens = [gen] if gen is not None and torch.device(device).type == "cuda" else []
+    made = {n: graphs.get((name, n), make_block(n), state, closes_over, steps=n,
+                          generators=gens)
+            for n in sorted(set(blocks))}
+    if gen is not None:
+        gen.manual_seed(int(seed))
+    done = 0
+    for n in blocks:
+        toks, *rest = graphs.replay(made[n], state)
+        state = dict(zip(state, rest))
+        out[:, done:done + n] = toks
+        done += n
+    return out
+
+
+class _Serial:
+    """One decode at a time over a graph owner's buffers: a lock, and on the
+    card the current stream ordered after the last decode's replays (the
+    host lock does not order the device: another thread's stream could
+    copy its inputs in while they are still queued). Whatever leaves the
+    scope must be a copy of a graph output."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._done: Optional[torch.cuda.Event] = None
+
+    @contextmanager
+    def hold(self, dev: torch.device):
+        with self._lock:
+            if self._done is not None:
+                torch.cuda.current_stream(dev).wait_event(self._done)
+            try:
+                yield
+            finally:
+                if dev.type == "cuda":
+                    self._done = torch.cuda.Event()
+                    self._done.record(torch.cuda.current_stream(dev))
+
+
 class ResidentStepper:
     """Whole-model forward over fully resident experts (decoder-only)."""
 
     def __init__(self, model, params, experts, for_layer: Callable, *,
-                 impl: str = "ragged", prefill_impl: Optional[str] = None):
+                 impl: str = "ragged", prefill_impl: Optional[str] = None,
+                 graphs: bool = True, graph_backend=None):
         """impl: the grouped-FFN implementation of one-token steps
         (``"pallas"`` is K3); prefill_impl: that of longer steps (default
-        ``impl``)."""
+        ``impl``). graphs / graph_backend: ``decode_scan`` as CUDA graphs
+        (``runtime/graphs.py::graph_cache``; on the card an ``impl`` that
+        cannot be captured raises there unless graphs is False)."""
         self.model = model
         self.params = params
         self.experts = experts
         self._for_layer = for_layer
         self._impl = impl
         self._prefill_impl = prefill_impl or impl
+        self._graphs_on = graphs
+        self._graph_backend = graph_backend
+        self.graphs = None  # made at the first decode_scan that uses graphs
+        self._scan_gens: dict = {}
+        self._dp_mesh = None
+        self._dp_axis = "data"
+
+    def set_data_sharding(self, mesh, axis: str = "data") -> None:
+        """Data parallelism over ``axis`` of ``mesh`` (``parallel/mesh.py``):
+        each rank of the axis steps its ``B / n`` batch rows over a cache of
+        those rows, and ``forward`` and ``decode_scan`` return the whole batch
+        on every rank. A batch that ``n`` does not divide runs replicated,
+        every rank stepping every row, as the JAX version's ``put`` leaves
+        such an array replicated."""
+        self._dp_mesh = mesh
+        self._dp_axis = axis
+
+    def _rows(self, batch: int) -> Tuple[int, int]:
+        """This rank's batch rows [lo, hi)."""
+        mesh = self._dp_mesh
+        n = 1 if mesh is None else mesh.shape[self._dp_axis]
+        if n == 1 or batch % n:
+            return 0, batch
+        i = mesh.axis_index(self._dp_axis)
+        return i * batch // n, (i + 1) * batch // n
+
+    def _gather(self, t, batch: int):
+        """The whole batch's tensor from this rank's rows of it (dim 0)."""
+        lo, hi = self._rows(batch)
+        if hi - lo == batch:
+            return t
+        return self._dp_mesh.gather_rows(t, lo, batch, self._dp_axis)
 
     def init_cache(self, batch: int, max_len: int):
-        return self.model.init_cache(batch, max_len)
+        lo, hi = self._rows(batch)
+        return self.model.init_cache(hi - lo, max_len)
 
     def begin_sequences(self, batch: int):
         return None
@@ -154,16 +346,95 @@ class ResidentStepper:
     def forward(self, tokens, positions, kv, kv_len: int, seq_ids=None):
         """(logits [B, T, V] f32, kv, router trace)."""
         impl = self._impl if tokens.shape[1] == 1 else self._prefill_impl
-        return self.model.forward(
-            self.params, self.experts, tokens, positions, kv, kv_len,
+        B = tokens.shape[0]
+        lo, hi = self._rows(B)
+        logits, kv, trace = self.model.forward(
+            self.params, self.experts, tokens[lo:hi], positions[lo:hi], kv, kv_len,
             for_layer=self._for_layer, impl=impl,
         )
+        if hi - lo == B:
+            return logits, kv, trace
+        ids, w = trace
+        return (self._gather(logits, B), kv,
+                (self._gather(ids.transpose(0, 1), B).transpose(0, 1),
+                 self._gather(w.transpose(0, 1), B).transpose(0, 1)))
 
-    def decode_scan(self, *args, **kwargs):
-        raise NotImplementedError(
-            "decode_scan (the JAX package's on-device lax.scan decode loop) is not "
-            "ported (ROADMAP queue-1 item 11)"
-        )
+    @torch.inference_mode()
+    def decode_scan(self, tok0, pos0, kv, num_steps: int,
+                    sampling: Optional[SamplingParams] = None, seed: int = 0):
+        """Decode ``num_steps`` tokens from ``tok0`` [B, 1] at cache columns
+        ``pos0`` [B] over ``kv`` (the caches of ``init_cache``, holding the
+        prompt): step i feeds token i back at ``pos0 + i`` with
+        ``kv_len = pos[0]``, as the JAX body does. Greedy unless
+        ``sampling`` (``SamplingParams``) says otherwise. Returns ([B, N]
+        int64 tokens on the device, the caches). With graphs the caches
+        returned are the stepper's own buffers of that shape (``kv`` is
+        copied in unless it is them), which its next ``decode_scan`` of the
+        shape overwrites."""
+        model, dev = self.model, self.model.device
+        tok0 = torch.as_tensor(tok0).to(dev)
+        B = tok0.shape[0]
+        pos0 = torch.as_tensor(pos0).to(dev).to(torch.int32).reshape(B)
+        lo, hi = self._rows(B)
+        b, cap = hi - lo, kv[0].max_len
+        vocab = model.spec.vocab_size
+        sp, bias = _scan_params(sampling, vocab, dev)
+        state = _scan_state(tok0[lo:hi], b, vocab, sp)
+        state["pos"] = pos0[lo:hi].clone()
+        state["bias"] = bias
+        graphs = self._scan_graphs()
+        if graphs is not None and self._dp_mesh is not None:
+            raise ValueError("decode_scan under a mesh runs its collectives on the host "
+                             "(gloo): build the stepper with graphs=False")
+        noise_rows = (lo, hi, B) if b != B else None
+        gen = _scan_generator(sp, dev, seed, graphs, self._scan_gens, (sampling, b))
+
+        def run(kvs):
+            def make_block(n):
+                def block(tok, counts_full, counts_gen, pos, bias):
+                    toks = []
+                    for _ in range(n):
+                        logits, _, _ = model.forward(
+                            self.params, self.experts, tok, pos[:, None], kvs, pos[0],
+                            for_layer=self._for_layer, impl=self._impl)
+                        nxt = _scan_pick(logits[:, -1, :], sp, bias, counts_full, counts_gen,
+                                         gen, noise_rows)
+                        tok.copy_(nxt[:, None])
+                        pos.add_(1)
+                        toks.append(nxt)
+                    return torch.stack(toks, 1), tok, counts_full, counts_gen, pos, bias
+                return block
+
+            closes = [] if graphs is None else [*self._weights, *flat_tensors(kvs)]
+            return _run_scan(graphs, ("scan", sampling), make_block, state, closes,
+                             num_steps, b, gen, seed, dev)
+
+        if graphs is None:
+            toks = run(kv)
+        else:
+            with self._serial.hold(dev):
+                kvs = self._buffers.caches(b, cap)
+                if kvs[0].k.data_ptr() != kv[0].k.data_ptr():
+                    for dst, src in zip(flat_tensors(kvs), flat_tensors(kv)):
+                        dst.copy_(src)
+                kv = kvs
+                toks = run(kvs)
+        return self._gather(toks, B), kv
+
+    def _scan_graphs(self):
+        """The graph cache of ``decode_scan`` (None when it runs eagerly)."""
+        if self.graphs is None and self._graphs_on:
+            self.graphs = graph_cache(True, self._graph_backend, self.model.device, self._impl)
+            if self.graphs is not None:
+                self._buffers = DecodeBuffers(self.model)
+                self._weights = flat_tensors(self.params) + flat_tensors(self.experts)
+                self._serial = _Serial()
+        return self.graphs
+
+    def graph_stats(self) -> dict:
+        """Captures, replays and capture seconds of ``decode_scan``'s graphs
+        (empty when none was made)."""
+        return self.graphs.stats() if self.graphs is not None else {}
 
 
 class Generator:
@@ -318,32 +589,21 @@ class Seq2SeqGenerator:
         self._for_layer = for_layer
         self._impl = impl
         self.graphs = graph_cache(graphs, graph_backend, model.device, impl)
+        self._scan_gens: dict = {}
         if self.graphs is not None:
             self._buffers = DecodeBuffers(model)
             self._weights = flat_tensors(params) + flat_tensors(experts)
-            self._lock = threading.Lock()
-            self._done: Optional[torch.cuda.Event] = None  # the last decode's replays
+            self._serial = _Serial()
 
     @contextmanager
     def _decoding(self):
-        """One request's hold on the buffers and graphs, with graphs on: the
-        lock, and on the card the current stream ordered after the replays of
-        the decode before (the host lock does not order the device: another
-        thread's stream could copy its mask in while they are still queued).
-        Whatever leaves the scope must be a copy of a graph output."""
+        """One request's hold on the buffers and graphs, with graphs on
+        (``_Serial``); ``generate`` and ``decode_scan`` share it."""
         if self.graphs is None:
             yield
             return
-        dev = self.model.device
-        with self._lock:
-            if self._done is not None:
-                torch.cuda.current_stream(dev).wait_event(self._done)
-            try:
-                yield
-            finally:
-                if dev.type == "cuda":
-                    self._done = torch.cuda.Event()
-                    self._done.record(torch.cuda.current_stream(dev))
+        with self._serial.hold(self.model.device):
+            yield
 
     def decoder(self, B: int, cap: int, mask, cross):
         """``step(cur [B, 1] int32, step) -> (logits [B, 1, V] f32, next
@@ -373,11 +633,70 @@ class Seq2SeqGenerator:
         (empty when it runs eagerly)."""
         return self.graphs.stats() if self.graphs is not None else {}
 
-    def decode_scan(self, *args, **kwargs):
-        raise NotImplementedError(
-            "decode_scan (the JAX package's on-device lax.scan decode loop) is not "
-            "ported (ROADMAP queue-1 item 11)"
-        )
+    @torch.inference_mode()
+    def decode_scan(self, input_ids: np.ndarray, num_steps: int, *,
+                    attention_mask: Optional[np.ndarray] = None,
+                    decoder_start_token_id: Optional[int] = None,
+                    sampling: Optional[SamplingParams] = None, seed: int = 0):
+        """Encode ``input_ids`` [B, T] (numpy, or tensors on the model's
+        device, which are read nowhere on the host) once, compute the cross
+        K/V, then decode ``num_steps``
+        tokens over a cache of ``_bucket_len(num_steps + 1)`` columns, step i
+        at column i, with no host read between the first step and the copy
+        of the tokens (``generate`` reads each step's token when it stops at
+        EOS or samples). Greedy unless ``sampling`` says otherwise. Returns
+        ([B, num_steps] int64 tokens on the device, the K/V caches; with
+        graphs the generator's buffers, which its next decode of the shape
+        overwrites)."""
+        model, dev = self.model, self.model.device
+        if not isinstance(input_ids, torch.Tensor):  # a device tensor is taken as it is
+            input_ids = np.atleast_2d(np.asarray(input_ids))
+        B, T = input_ids.shape
+        start = (decoder_start_token_id if decoder_start_token_id is not None
+                 else model.spec.decoder_start_token_id)
+        tokens = torch.as_tensor(input_ids, dtype=torch.int32).to(dev)
+        mask = (torch.as_tensor(attention_mask, dtype=torch.float32).to(dev)
+                if attention_mask is not None
+                else torch.ones(B, T, dtype=torch.float32, device=dev))
+        enc_out = model.encode(self.params, self.experts, tokens, mask,
+                               self._for_layer, self._impl)
+        cross = model.cross_kv(self.params, enc_out)
+        cap = _bucket_len(num_steps + 1)
+        vocab = model.spec.vocab_size
+        sp, bias = _scan_params(sampling, vocab, dev)
+        state = _scan_state(torch.full((B, 1), start, dtype=torch.int32, device=dev),
+                            B, vocab, sp)
+        state["step"] = torch.zeros((), dtype=torch.int32, device=dev)
+        state["bias"] = bias
+        gen = _scan_generator(sp, dev, seed, self.graphs, self._scan_gens, (sampling, B))
+
+        def run(kvs, mask, cross):
+            def make_block(n):
+                def block(tok, counts_full, counts_gen, step, bias):
+                    toks = []
+                    for _ in range(n):
+                        logits, _, _ = model.decode_step(
+                            self.params, self.experts, tok, step_positions(step, B, dev), kvs,
+                            step, mask, cross, self._for_layer, self._impl)
+                        nxt = _scan_pick(logits[:, -1, :], sp, bias, counts_full, counts_gen,
+                                         gen)
+                        tok.copy_(nxt[:, None])
+                        step.add_(1)
+                        toks.append(nxt)
+                    return torch.stack(toks, 1), tok, counts_full, counts_gen, step, bias
+                return block
+
+            closes = ([] if self.graphs is None
+                      else [*self._weights, *flat_tensors(kvs), mask, *flat_tensors(cross)])
+            return _run_scan(self.graphs, ("scan", sampling), make_block, state, closes,
+                             num_steps, B, gen, seed, dev)
+
+        if self.graphs is None:
+            kvs = model.init_cache(B, cap)
+            return run(kvs, mask, cross), kvs
+        with self._decoding():
+            kvs, mask, cross = self._buffers.take(B, cap, mask, cross)
+            return run(kvs, mask, cross), kvs
 
     @torch.inference_mode()
     def generate(

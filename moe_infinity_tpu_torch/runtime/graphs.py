@@ -36,6 +36,7 @@ the CPU pass a stand-in with the same ``capture`` contract.
 from __future__ import annotations
 
 import functools
+import gc
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -54,10 +55,14 @@ class CudaGraphBackend:
         self.stream = torch.cuda.Stream(self.device)
         self.pool = torch.cuda.graph_pool_handle()
 
-    def capture(self, fn: Callable[[], tuple]):
+    def capture(self, fn: Callable[[], tuple], generators: Sequence[torch.Generator] = ()):
         """(replay, static outputs, launches per replay) of ``fn``, after one
         warm-up run of it on the capture stream, ordered after the current
-        stream's queued work and before its next."""
+        stream's queued work and before its next. ``generators``: the CUDA
+        generators ``fn`` draws from, registered with the graph so that each
+        replay draws at the generator's offset then and moves it on by what
+        the captured draws take (a captured draw of an unregistered one
+        raises)."""
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
@@ -69,17 +74,29 @@ class CudaGraphBackend:
         # encoder's next blocks and the fetch path's staging buffers would
         # then be allocated anew
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(self.stream):
-            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
-            try:
-                out = fn()
-            except BaseException:
+        for g in generators:
+            graph.register_generator_state(g)
+        # no cyclic garbage collection inside the capture: a collection there
+        # that frees another graph destroys its executable in the middle of
+        # the capture, which invalidates it (on the card, a CUDA error 901 at
+        # the next launch)
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(self.stream):
+                graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
                 try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass  # the capture is already invalid; the first error is the one
-                raise
-            graph.capture_end()
+                    out = fn()
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass  # the capture is already invalid; the first error is the one
+                    raise
+                graph.capture_end()
+        finally:
+            if gc_was_on:
+                gc.enable()
         after = launch_counts()
         launches = {k: n - before[k] for k, n in after.items() if n != before[k]}
         add_launches({k: -n for k, n in launches.items()})  # the capture ran nothing
@@ -90,7 +107,7 @@ class StepGraph:
     """One captured function with its static inputs and outputs."""
 
     def __init__(self, backend, fn: Callable[..., tuple], inputs: Dict[str, object],
-                 device, ptrs: Tuple[int, ...]):
+                 device, ptrs: Tuple[int, ...], generators: Sequence[torch.Generator] = ()):
         self.ptrs = ptrs
         self.inputs = {
             name: (torch.empty_like(v) if isinstance(v, torch.Tensor)
@@ -98,8 +115,9 @@ class StepGraph:
             for name, v in inputs.items()
         }
         self._load(inputs)
+        kw = {"generators": generators} if generators else {}
         self._replay, self.outputs, self.launches = backend.capture(
-            functools.partial(fn, **self.inputs))
+            functools.partial(fn, **self.inputs), **kw)
 
     def _load(self, inputs):
         for name, v in inputs.items():
@@ -139,6 +157,14 @@ class GraphCache:
         (tensors or ints), capturing ``fn(**buffers)`` first if there is
         none. ``closes_over``: every tensor ``fn`` reads by address.
         ``steps``: decoder steps one run of ``fn`` executes."""
+        return self.replay(self.get(name, fn, inputs, closes_over, steps), inputs)
+
+    def get(self, name: str, fn: Callable[..., tuple], inputs: Dict[str, object],
+            closes_over: Sequence[torch.Tensor], steps: int = 1,
+            generators: Sequence[torch.Generator] = ()) -> StepGraph:
+        """The graph of ``name`` at these shapes, captured if there is none
+        (its warm-up runs ``fn`` once on copies of ``inputs``); not replayed.
+        ``generators``: the CUDA generators ``fn`` draws from."""
         key = (name, tuple((n, _sig(v)) for n, v in inputs.items()),
                tuple(_sig(t) for t in closes_over))
         ptrs = tuple(t.data_ptr() for t in closes_over)
@@ -152,9 +178,14 @@ class GraphCache:
             # the old graph goes only after the new one is captured: on the
             # card a capture into a pool with no live graph left failed (an
             # internal assertion of PyTorch's caching allocator)
-            g = self._graphs[key] = StepGraph(self.backend, fn, inputs, self.device, ptrs)
+            g = self._graphs[key] = StepGraph(self.backend, fn, inputs, self.device, ptrs,
+                                              generators)
             self.capture_s += time.perf_counter() - t0
             self.warmup_steps += steps
+        return g
+
+    def replay(self, g: StepGraph, inputs: Dict[str, object]) -> tuple:
+        """One replay of ``g`` (from ``get``) with ``inputs``."""
         self.replays += 1
         return g.replay(**inputs)
 

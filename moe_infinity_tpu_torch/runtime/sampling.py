@@ -18,7 +18,10 @@ by the row's ``(seed, counter)``, as the JAX version keys them by
 ``fold_in(PRNGKey(seed), counter)``, so a request's tokens do not depend on
 its neighbours. The PRNG streams differ from JAX's, so sampled tokens do
 too; the processed logits do not. Everything stays on the device; the
-callers read the token on the host, as the JAX loops do.
+callers read the token on the host, as the JAX loops do, except
+``decode_scan`` (``runtime/generate.py``), which keeps the sampler's state
+in device buffers (``sample_step(..., inplace=True)`` adds the penalty
+counts to them) and draws from a CUDA generator registered with its graphs.
 """
 
 from __future__ import annotations
@@ -244,10 +247,11 @@ def _top_lowest_first(x, n: int):
 
 
 def sample_step(logits, state: SamplerState, params: SamplingParams,
-                noise=None) -> Tuple[StepOutput, SamplerState]:
+                noise=None, *, inplace: bool = False) -> Tuple[StepOutput, SamplerState]:
     """One sampling step on [B, V] raw f32 logits. ``noise`` ([B, V]): the
     Gumbel noise of a sampled step (default: drawn from the state's
-    generator)."""
+    generator). ``inplace``: the penalty counts are added to the state's own
+    tensors (a CUDA graph's buffers, ``decode_scan``) instead of new ones."""
     processed = process_logits(logits, state, params)
     if params.greedy:
         token = torch.argmax(processed, dim=-1)
@@ -266,10 +270,11 @@ def sample_step(logits, state: SamplerState, params: SamplingParams,
         top_tok = torch.zeros((B, 0), dtype=torch.int64, device=logits.device)
     one = torch.ones((B, 1), dtype=torch.int32, device=logits.device)
     counts_full, counts_gen = state.counts_full, state.counts_gen
+    add = "scatter_add_" if inplace else "scatter_add"
     if params.needs_full_counts:
-        counts_full = counts_full.scatter_add(1, token[:, None], one)
+        counts_full = getattr(counts_full, add)(1, token[:, None], one)
     if params.needs_gen_counts:
-        counts_gen = counts_gen.scatter_add(1, token[:, None], one)
+        counts_gen = getattr(counts_gen, add)(1, token[:, None], one)
     return (StepOutput(token, chosen, top_lp, top_tok),
             SamplerState(state.generator, counts_full, counts_gen))
 

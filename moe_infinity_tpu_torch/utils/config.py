@@ -173,8 +173,9 @@ class EngineConfig:
     data_parallel: int = 1
     tensor_parallel: int = 1
     expert_parallel: int = 1
-    """Mesh axis sizes (data, model, expert). Product must divide the number
-    of addressable devices; 1/1/1 means single chip."""
+    """Mesh axis sizes (data, model, expert). Their product is the world
+    size of the process group the caller initialised (one process per
+    rank, ``parallel/mesh.py``); 1/1/1 means one rank."""
 
     sequence_parallel: int = 1
     """Long-context ring size: > 1 shards prompts over a `seq` mesh axis
@@ -184,12 +185,12 @@ class EngineConfig:
 
     multihost: bool = False
     """Multi-host offload serving in the JAX package (a pod engine over an
-    expert-axis mesh). The port serves one card: the facade raises for it,
-    and for any parallel degree above 1 (ROADMAP item 18)."""
+    expert-axis mesh). Not ported: the facade raises for it (ROADMAP
+    item 18b)."""
 
     coordinator_address: str = ""
     """Coordinator address (host:port) of a multi-host run; the port
-    serves one card (multihost raises, ROADMAP item 18)."""
+    does not serve multihost (ROADMAP item 18b)."""
 
     num_processes: int = 0
     process_id: int = -1

@@ -237,7 +237,7 @@ def test_counters_equal_jax_arena(stores, quant, slots, policy):
 
 def test_unported_options_raise(stores, tmp_path):
     path = stores["int4"]
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(NotImplementedError, match="item 18b"):
         make_arena(path, 4, tp_mirrors=[("dev", None)])
     # served since the host fallback (tests/test_torch_host_fallback.py):
     # the zero slot, one more all-zero row, and dequantized compute-dtype slots

@@ -220,8 +220,16 @@ def test_unported_options_raise(models, tmp_path):
     gen = Generator(model, params, tree, ResidentProvider.for_layer)
     assert gen.generate(np.array([[1, 2]]), max_new_tokens=2,
                         temperature=0.5).sequences.shape == (1, 4)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        gen.stepper.decode_scan(None, None, None, 2)
+    # decode_scan is served (tests/test_torch_decode_scan.py holds it to the
+    # JAX package): after a prefill, its greedy tokens are generate's
+    greedy = gen.generate(np.array([[1, 2]]), max_new_tokens=3).sequences
+    st = gen.stepper
+    kv = st.init_cache(1, 8)
+    logits, kv, _ = st.forward(torch.tensor([[1, 2]], dtype=torch.int32),
+                               torch.arange(2, dtype=torch.int32)[None], kv, 0)
+    tok0 = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    toks, _ = st.decode_scan(tok0, torch.tensor([2], dtype=torch.int32), kv, 2)
+    np.testing.assert_array_equal(toks.numpy(), greedy[:, 3:])
 
 
 # ---- DeepSeek-V2 (MLA) through the same batcher -----------------------------------

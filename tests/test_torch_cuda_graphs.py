@@ -548,3 +548,45 @@ def test_s2s_batcher_defaults_refuse_on_the_card(dev):
     model, params, experts = _resident(dev, SPEC, torch.float32, 3)
     with pytest.raises(ValueError, match="cannot run inside a CUDA graph"):
         Seq2SeqContinuousBatcher(model, params, experts, ResidentProvider.for_layer)
+
+
+def test_sampled_decode_scan_replays_draw_fresh_noise(dev):
+    """A generator registered with a graph (``decode_scan``'s): two replays
+    of one capture draw different noise, the two draws an eager run of the
+    same seed makes; reseeding replays them again."""
+    from moe_infinity_tpu_torch.runtime.sampling import gumbel
+
+    gen = torch.Generator(device=dev)
+    cache = GraphCache(CudaGraphBackend(dev), dev)
+    x = torch.zeros(4, 1000, device=dev)
+    g = cache.get("noise", lambda x: (x + gumbel(x.shape, gen, dev),), {"x": x}, [],
+                  generators=[gen])
+    gen.manual_seed(3)
+    a = cache.replay(g, {"x": x})[0].clone()
+    b = cache.replay(g, {"x": x})[0].clone()
+    assert not torch.equal(a, b)
+    e = torch.Generator(device=dev).manual_seed(3)
+    assert torch.equal(a, gumbel(x.shape, e, dev)) and torch.equal(b, gumbel(x.shape, e, dev))
+    gen.manual_seed(3)
+    assert torch.equal(cache.replay(g, {"x": x})[0], a)
+
+
+def test_sampled_decode_scan_graph_equals_eager(dev):
+    """``Seq2SeqGenerator.decode_scan`` sampled (temperature 0.8, top-p 0.9,
+    repetition penalty 1.1) over 20 steps (two blocks and a remainder):
+    graph and eager tokens equal at one seed, a seed gives the same tokens
+    twice, two seeds differ."""
+    from moe_infinity_tpu_torch.runtime.sampling import SamplingParams
+
+    model, params, experts = _resident(dev, SPEC, torch.float32, 0)
+    tok, _ = _inputs(dev, 0)
+    src = tok.cpu().numpy()
+    sp = SamplingParams(temperature=0.8, top_p=0.9, repetition_penalty=1.1)
+    graphed = Seq2SeqGenerator(model, params, experts, ResidentProvider.for_layer, impl="pallas")
+    eager = Seq2SeqGenerator(model, params, experts, ResidentProvider.for_layer, impl="pallas",
+                             graphs=False)
+    a = graphed.decode_scan(src, 20, sampling=sp, seed=11)[0].clone()
+    assert torch.equal(a, graphed.decode_scan(src, 20, sampling=sp, seed=11)[0])
+    assert torch.equal(a, eager.decode_scan(src, 20, sampling=sp, seed=11)[0])
+    assert not torch.equal(a, graphed.decode_scan(src, 20, sampling=sp, seed=12)[0])
+    assert graphed.graph_stats()["captures"] == 2

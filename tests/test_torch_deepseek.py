@@ -30,12 +30,15 @@ from moe_infinity_tpu_torch.runtime.generate import Generator
 from moe_infinity_tpu_torch.runtime.paged_kv import PagedKVCache
 from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 
+from moe_infinity_tpu_torch.parallel import mesh as pm
 from torch_port_helpers import (
+    ThreadMesh,
     jax_to_numpy,
     np32,
-    port_attention,
-    to_port,
     one_intra_op_thread,
+    port_attention,
+    run_ranks,
+    to_port,
 )
 
 # the tiny spec of tests/test_fused.py:14-22
@@ -503,8 +506,24 @@ def test_bridge_carries_deepseek_trees(base):
 
 def test_unported_parts_raise(base):
     model, params, tree = base[3:]
-    with pytest.raises(NotImplementedError, match="item 18"):
-        DeepseekV2Model(DeepseekV2Spec(**TINY), device="cpu", mesh=object())
+    # a mesh is served: its ranks (threads, ``ThreadMesh``), each on its slice
+    # of the routed experts (slots over the expert axis, d_ff over the model
+    # axis; the dense weights and shared experts replicated), give the
+    # unsharded logits
+    tok = torch.tensor(PROMPT, dtype=torch.int32)
+    pos = torch.arange(5, dtype=torch.int32).expand(2, 5)
+    want = model.forward(params, tree, tok, pos, model.init_cache(2, 8), 0,
+                         for_layer=ResidentProvider.for_layer)[0]
+
+    def rank(mesh):
+        m = DeepseekV2Model(DeepseekV2Spec(**TINY), torch.float32, "cpu", mesh=mesh)
+        t = pm.shard_params(tree, pm.expert_shardings(mesh, tree))
+        return m.forward(params, t, tok, pos, m.init_cache(2, 8), 0,
+                         for_layer=ResidentProvider.for_layer)[0]
+
+    for sizes in (dict(expert=2), dict(model=2)):
+        for got in run_ranks(rank, ThreadMesh.grid(**sizes)):
+            torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
     with pytest.raises(NotImplementedError, match="tiled.*queue 2, part 2"):
         model.stack_experts(tree["layers"], layout="tiled")
     with pytest.raises(ValueError):

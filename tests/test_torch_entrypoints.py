@@ -35,6 +35,7 @@ import torch
 
 from moe_infinity_tpu.entrypoints.api import MoE as JMoE
 from moe_infinity_tpu_torch.entrypoints.api import MoE
+from torch_mesh_workers import spawn_ranks
 from torch_port_helpers import one_intra_op_thread  # noqa: F401
 from torch_port_helpers import save_tiny_checkpoint, word_tokenizer
 
@@ -193,16 +194,42 @@ def test_deepseek_through_the_facade(tmp_path):
 
 
 @pytest.mark.parametrize("cfg,item", [
-    (dict(data_parallel=2), "item 18"),
-    (dict(multihost=True), "item 18"),
-    (dict(expert_parallel=2), "item 18"),
-    (dict(tensor_parallel=2), "item 18"),
-    (dict(sequence_parallel=2), "item 18"),
+    (dict(data_parallel=2), None),
+    (dict(multihost=True), "item 18b"),
+    (dict(expert_parallel=2), None),
+    (dict(tensor_parallel=2), None),
+    (dict(sequence_parallel=2), "item 18c"),
+    (dict(expert_parallel=2, device_memory_bytes=1, dense_paging="off"), "item 18b"),
 ])
 def test_unported_plans_raise(tiny_ckpt, tmp_path, cfg, item):
+    """multihost, sequence parallelism and offload under a mesh raise; the
+    resident mesh's degrees are served: two gloo ranks on the CPU
+    (tests/torch_mesh_workers.py) each return the one-rank facade's greedy
+    tokens, and without a process group of the plan's size the facade
+    raises."""
     path, _ = tiny_ckpt
+    config = dict(BASE, offload_path=str(tmp_path / "st"), **cfg)
+    if item is None:
+        with pytest.raises(RuntimeError, match="process group"):
+            MoE(path, config, device="cpu")
+        one = MoE(path, dict(BASE, offload_path=str(tmp_path / "st")), device="cpu")
+        try:
+            want = one.generate(np.array([[5, 9, 33], [7, 2, 40]]), max_new_tokens=3)
+        finally:
+            one.shutdown()
+        ranks = spawn_ranks("facade", 2, tmp_path / "ranks", dict(
+            path=path, config=config, prompt=np.array([[5, 9, 33], [7, 2, 40]]),
+            new_tokens=3))
+        for r in ranks:
+            np.testing.assert_array_equal(r["tokens"].numpy(), want)
+        return
+    if "expert_parallel" in cfg:  # a mesh plan reaches its offload refusal on its ranks
+        with pytest.raises(AssertionError, match=item):
+            spawn_ranks("facade", 2, tmp_path / "ranks", dict(
+                path=path, config=config, prompt=PROMPT, new_tokens=1))
+        return
     with pytest.raises(NotImplementedError, match=item):
-        MoE(path, dict(BASE, offload_path=str(tmp_path), **cfg), device="cpu")
+        MoE(path, config, device="cpu")
 
 
 @pytest.mark.parametrize("cfg", [

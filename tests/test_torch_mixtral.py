@@ -29,7 +29,8 @@ from moe_infinity_tpu_torch.ops import moe
 from moe_infinity_tpu_torch.runtime.paged_kv import PagedKVCache
 from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 
-from torch_port_helpers import np32, port_attention, to_port, one_intra_op_thread
+from moe_infinity_tpu_torch.parallel import mesh as pm
+from torch_port_helpers import ThreadMesh, np32, one_intra_op_thread, port_attention, run_ranks, to_port
 
 # the tiny spec of tests/test_continuous.py:19-23
 TINY = dict(
@@ -356,9 +357,36 @@ def test_int8_model_kernel_impls_agree():
     torch.testing.assert_close(out["pallas"], out["ragged"], rtol=2e-2, atol=2e-2)
 
 
-def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="item 18"):
-        MixtralModel(MixtralSpec(**TINY), device="cpu", mesh=object())
+@pytest.mark.parametrize("sizes", [dict(expert=2), dict(model=2), dict(model=2, expert=2)],
+                         ids=["ep2", "tp2", "tp2-ep2"])
+def test_unported_parts_raise(sizes):
+    """A mesh is served (tests/test_torch_parallel.py holds it to JAX on
+    gloo ranks): here its ranks run as threads (``ThreadMesh``), each on
+    its slice of the experts (and, under a model axis, of the heads, the
+    vocabulary and the experts' d_ff), and every rank's logits equal the
+    unsharded model's within 1e-5. A model axis that does not divide the KV
+    heads raises; so does an fp8 ``init_random``."""
+    spec = MixtralSpec(**TINY)
+    single = MixtralModel(spec, compute_dtype=torch.float32, device="cpu")
+    params, tree = single.init_random(torch.Generator().manual_seed(4))
+    tok = torch.tensor(PROMPT, dtype=torch.int32)
+    pos = torch.arange(5, dtype=torch.int32).expand(2, 5)
+    want, _, _ = single.forward(params, tree, tok, pos, single.init_cache(2, 8), 0,
+                                for_layer=ResidentProvider.for_layer)
+
+    def rank(mesh):
+        model = MixtralModel(spec, compute_dtype=torch.float32, device="cpu", mesh=mesh)
+        p = (pm.shard_params(params, pm.mixtral_param_shardings(mesh, params))
+             if mesh.shape["model"] > 1 else params)
+        t = pm.shard_params(tree, pm.expert_shardings(mesh, tree))
+        kv = model.init_cache(2, 8)
+        assert kv[0].k.shape[2] == TINY["num_kv_heads"] // mesh.shape["model"]
+        return model.forward(p, t, tok, pos, kv, 0, for_layer=ResidentProvider.for_layer)[0]
+
+    for got in run_ranks(rank, ThreadMesh.grid(**sizes)):
+        torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+    with pytest.raises(ValueError, match="KV heads"):
+        MixtralModel(spec, device="cpu", mesh=ThreadMesh.grid(model=4)[0])
     model = MixtralModel(MixtralSpec(**TINY), device="cpu")
     with pytest.raises(ValueError):
         model.init_random(torch.Generator(), expert_dtype="fp8")

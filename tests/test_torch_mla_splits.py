@@ -155,6 +155,26 @@ def test_emulation_matches_plain_under_any_plan(rng, plan):
     _close(got, _plain(t, S, 0.07))
 
 
+@pytest.mark.parametrize("H", [16, 128])
+def test_capacity_plan_adds_nothing_past_the_live_keys(rng, H):
+    """A step of ``decode_scan`` hands K5 the cache's capacity (256 here)
+    while its rows hold 20, 5, 1 and 0 keys: the plan from the capacity has
+    splits wholly past every row's live keys, which join the merge as
+    empty states. They add nothing (no NaN from an all-masked split), so
+    the result equals the live-length plan's (one split) and the plain
+    version's."""
+    S = 256
+    a, t = _inputs(rng, 4, H, S, [20, 5, 1, 0])
+    args = (t["q_lat"], t["q_pe"], t["c"], t["kpe"], t["pos"])
+    capacity = _emulate(*args, S, 0.07, t["mask"])
+    live = _emulate(*args, 20, 0.07, t["mask"])
+    kc, ns = fa._mla_splits(4, H, S)
+    assert ns * kc == S and kc < S and fa._mla_splits(4, H, 20)[1] == 1
+    assert torch.isfinite(capacity).all() and torch.all(capacity[3] == 0)
+    _close(capacity, live)
+    _close(capacity, _plain(t, S, 0.07))
+
+
 @pytest.mark.parametrize("H", [16, 5])
 def test_emulation_matches_pallas_interpret(rng, H):
     """The JAX kernel in interpret mode on the same numpy inputs (bf16
@@ -298,3 +318,30 @@ def test_one_call_is_one_launch_without_a_host_read(fake_kernel, dtype, B, H, S,
     assert call["part_ml"].value == ws.data_ptr() + 4 * n_acc
     assert given["tickets"].numel() == B * -(-H // 16) * cl
     assert call["tickets"].value == given["tickets"].data_ptr()
+
+
+def test_a_device_kv_len_plans_from_the_capacity(fake_kernel, monkeypatch):
+    """``mla_flash_decode`` given its ``kv_len`` as a 0-d tensor (a step of
+    ``decode_scan``) reads it nowhere on the host (the fixture makes every
+    host read raise) and launches the capacity's plan with ``kv_len = S``;
+    the plain version then equals the live-length call."""
+    calls, _ = fake_kernel
+    monkeypatch.setattr(fa, "mla_flash_decode_plain", fa._mla_cuda)  # the CPU call launches
+    B, H, S = 4, 16, 256
+    z = torch.zeros
+    before = fa.LAUNCHES["mla_flash_decode"]
+    fa.mla_flash_decode(z(B, H, R), z(B, H, P), z(B, S, R, dtype=torch.bfloat16),
+                        z(B, S, P, dtype=torch.bfloat16), z(B, dtype=torch.int32),
+                        torch.tensor(21, dtype=torch.int32), scale=1.0)
+    fa.LAUNCHES["mla_flash_decode"] = before
+    (call,) = calls
+    kc, ns = fa._mla_splits(B, H, S)
+    assert (call["kv_len"], call["kc"], call["NS"]) == (S, kc, ns)
+
+
+def test_a_device_kv_len_gives_the_live_result(rng):
+    a, t = _inputs(rng, 2, 16, 64, [21, 9])
+    got = fa.mla_flash_decode(t["q_lat"], t["q_pe"], t["c"], t["kpe"], t["pos"],
+                              torch.tensor(21, dtype=torch.int32), scale=0.07,
+                              pad_mask=t["mask"])
+    torch.testing.assert_close(got, _plain(t, 21, 0.07), rtol=0, atol=0)

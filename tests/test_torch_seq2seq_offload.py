@@ -35,7 +35,13 @@ from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 from moe_infinity_tpu_torch.store.blob import ExpertStore
 from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
 
-from torch_port_helpers import port_attention, to_port, write_nllb_store, one_intra_op_thread
+from torch_port_helpers import (
+    mesh_apply_ff,
+    one_intra_op_thread,
+    port_attention,
+    to_port,
+    write_nllb_store,
+)
 
 SPEC = dict(
     vocab_size=96, d_model=32, num_heads=4, encoder_layers=4, decoder_layers=4,
@@ -210,7 +216,7 @@ def test_init_random_without_experts():
 
 
 def test_unported_options_raise(setup):
-    _, _, model, params, stores = setup
+    jmodel, _, model, params, stores = setup
     path = stores["int4"]
     arena = ExpertArena(ExpertStore(path), E, compute_dtype=torch.float32, device="cpu")
     try:
@@ -232,9 +238,21 @@ def test_unported_options_raise(setup):
         with pytest.raises(ValueError, match="one full MoE layer"):
             Seq2SeqOffloadEngine(model, params, ExpertArena(ExpertStore(path), E - 1,
                                                             device="cpu"))
-        with pytest.raises(NotImplementedError):
-            NllbModel(NllbSpec(**SPEC), device="cpu", mesh="mesh").apply_ff(
-                None, torch.zeros(1, 1, 32), None, None, None, None, None, "ragged")
+        # a mesh is served: ranks as threads (``ThreadMesh``), each on its
+        # slice of a layer's experts and biases, give the unsharded output
+        # (down_bias added once over the model axis)
+        g = torch.Generator().manual_seed(2)
+        h = torch.randn(2, 3, SPEC["d_model"], generator=g)
+        ids = torch.randint(0, E, (2, 3, 2), generator=g, dtype=torch.int32)
+        cw = torch.rand(2, 3, 2, generator=g)
+        layer = ResidentProvider.for_layer(to_port(jmodel.init_random(
+            jax.random.PRNGKey(5))[1]), 0)
+        want = model.apply_ff(torch.zeros_like(h), h, cw, ids, *layer, "ragged")
+        for sizes in (dict(expert=2), dict(model=2)):
+            for got in mesh_apply_ff(lambda mesh: NllbModel(NllbSpec(**SPEC), torch.float32,
+                                                            "cpu", mesh=mesh),
+                                     layer, h, cw, ids, sizes):
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     finally:
         arena.shutdown()
     # a tier that stages whole layers in layer-aligned segments serves them

@@ -37,7 +37,14 @@ from moe_infinity_tpu_torch.ops import flash_attention as fa
 from moe_infinity_tpu_torch.runtime.generate import Seq2SeqGenerator
 from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
 
-from torch_port_helpers import jax_to_numpy, np32, port_attention, to_port, one_intra_op_thread
+from torch_port_helpers import (
+    jax_to_numpy,
+    mesh_apply_ff,
+    np32,
+    one_intra_op_thread,
+    port_attention,
+    to_port,
+)
 
 SPEC = dict(
     vocab_size=96, d_model=32, d_kv=8, d_ff=64, num_heads=4,
@@ -163,9 +170,20 @@ def test_unported_options_raise():
                           torch.zeros(2, 2, dtype=torch.int32), model.init_cache(2, 8), 0,
                           torch.ones(2, 6), None, ResidentProvider.for_layer,
                           row_offsets=torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        SwitchModel(SwitchSpec(**SPEC), device="cpu", mesh="mesh").apply_ff(
-            None, torch.zeros(1, 1, 32), None, None, None, None, None, "ragged")
+    # a mesh is served: its ranks (threads here, ``ThreadMesh``), each on its
+    # slice of a layer's experts (the slots over the expert axis, d_ff over
+    # the model axis), give the unsharded layer's output
+    g = torch.Generator().manual_seed(2)
+    h = torch.randn(2, 3, SPEC["d_model"], generator=g)
+    ids = torch.randint(0, SPEC["num_experts"], (2, 3, 1), generator=g, dtype=torch.int32)
+    cw = torch.rand(2, 3, 1, generator=g)
+    layer = ResidentProvider.for_layer(experts, 0)
+    want = model.apply_ff(torch.zeros_like(h), h, cw, ids, *layer, "ragged")
+    for sizes in (dict(expert=2), dict(model=2), dict(model=2, expert=2)):
+        for got in mesh_apply_ff(lambda mesh: SwitchModel(SwitchSpec(**SPEC), torch.float32,
+                                                          "cpu", mesh=mesh),
+                                 layer, h, cw, ids, sizes):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             SwitchModel(SwitchSpec(**SPEC))

@@ -396,3 +396,105 @@ class StandIn:
                 o.copy_(n)
 
         return replay, out, {}
+
+
+class ThreadMesh:
+    """The ranks of a mesh as threads of one process, for single-process
+    tests of a model's mesh branch: ``shape``, ``coords``, ``axis_index``,
+    ``all_reduce``, ``gather_rows`` and ``gather_cols`` as
+    ``parallel.mesh.Mesh`` has them. Every rank calls each collective at the
+    same point (SPMD); ``all_reduce`` sums the ranks that share this one's
+    coordinates off ``axes``, in rank order, between two barriers."""
+
+    def __init__(self, shape, coords, rank, board):
+        self.shape, self.coords, self.rank, self._board = shape, coords, rank, board
+
+    @classmethod
+    def grid(cls, **sizes):
+        """One mesh per rank of a grid of ``sizes`` (axes data, model,
+        expert, seq; rank order as ``parallel.make_mesh``'s)."""
+        import itertools
+        import threading
+
+        from moe_infinity_tpu_torch.parallel.mesh import AXES
+
+        shape = {a: sizes.get(a, 1) for a in AXES}
+        coords = [dict(zip(AXES, c)) for c in itertools.product(*(range(shape[a]) for a in AXES))]
+        board = {"parts": {}, "coords": coords, "barrier": threading.Barrier(len(coords))}
+        return [cls(shape, c, r, board) for r, c in enumerate(coords)]
+
+    def axis_index(self, axis):
+        return self.coords[axis]
+
+    def all_reduce(self, t, *axes):
+        live = [a for a in self.shape if a in axes and self.shape[a] > 1]
+        if not live:
+            return t
+        b = self._board
+        b["parts"][self.rank] = t.clone()
+        b["barrier"].wait()
+
+        def off(r):
+            return tuple(c for a, c in b["coords"][r].items() if a not in live)
+
+        total = None
+        for r in sorted(b["parts"]):
+            if off(r) == off(self.rank):
+                total = b["parts"][r].clone() if total is None else total + b["parts"][r]
+        b["barrier"].wait()
+        t.copy_(total)
+        return t
+
+    def gather_rows(self, t, lo, total, axis):
+        from moe_infinity_tpu_torch.parallel.mesh import Mesh
+
+        return Mesh.gather_rows(self, t, lo, total, axis)
+
+    def gather_cols(self, t, axis):
+        from moe_infinity_tpu_torch.parallel.mesh import Mesh
+
+        return Mesh.gather_cols(self, t, axis)
+
+
+def run_ranks(fn, meshes, timeout=120.0):
+    """``fn(mesh)`` on a thread per rank; returns the results in rank order
+    (raises what a rank raised, or when one is still running at the
+    timeout)."""
+    import threading
+
+    out, errs = [None] * len(meshes), []
+
+    def go(i, m):
+        try:
+            out[i] = fn(m)
+        except BaseException as e:  # reported below, in the test's thread
+            errs.append(e)
+            m._board["barrier"].abort()
+
+    threads = [threading.Thread(target=go, args=(i, m), daemon=True) for i, m in enumerate(meshes)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    if errs:
+        raise errs[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"a rank did not finish in {timeout} s")
+    return out
+
+
+def mesh_apply_ff(make_model, layer, h, cw, ids, sizes, impl="ragged"):
+    """Every rank's ``apply_ff`` of a seq2seq model under a ``ThreadMesh`` of
+    ``sizes``, each on its slice of one layer's experts (``layer``: the
+    weights, slot map and biases of ``ResidentProvider.for_layer``)."""
+    from moe_infinity_tpu_torch.parallel import mesh as pm
+
+    w, slot_map, biases = layer
+
+    def rank(mesh):
+        model = make_model(mesh)
+        wl = pm.shard_params(w, pm.expert_shardings(mesh, w))
+        bl = None if biases is None else pm.shard_params(biases, pm.expert_shardings(mesh, biases))
+        return model.apply_ff(torch.zeros_like(h), h, cw, ids, wl, slot_map, bl, impl)
+
+    return run_ranks(rank, ThreadMesh.grid(**sizes))

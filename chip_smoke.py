@@ -389,7 +389,25 @@ Phases, each printing its own lines; any failure exits non-zero:
    K2 and K3 launched by each rank's sharded runs (their launches go into
    the ``kernels`` line); a rank that fails or outlives 420 s fails
    the phase. Where the machine has two cards, K1 and K3 on ``cuda:1``
-   against their plain versions first.
+   against their plain versions first;
+43. offload across ranks (``runtime/pod_engine.py``): the one-rank
+   engines of the same seeds first, in this process, then ranks spawned as
+   in 42 with an exchange timeout of 120 s: on 2 ranks, NLLB-MoE-54B at its
+   published width and 4+4 blocks (f32 over int4, one MoE layer's share a
+   coordinate, 4 requests x 8 tokens) through ``PodSeq2SeqOffloadEngine``
+   under ``expert=2``, and Mixtral-8x7B at 2 layers (f32 over int8, 4 rows
+   x 8 tokens) through ``PodOffloadEngine`` per layer and speculative
+   (blocks of 4); on 4 ranks, the NLLB under ``model=2, expert=2`` (int4
+   columns repacked), its host fallback with column 1 of coordinate 0
+   never landing a record (1 request x 4 tokens; the reference runs that
+   coordinate's experts on the host, as the agreed rows make the ranks do),
+   and Mixtral under ``data=2,
+   expert=2``. Each rank's greedy tokens equal the reference's and its
+   first-step logits within 2e-4 (``expert=2``) or 5e-2 (a model or data
+   axis: K3 planned for a d_ff column or half the rows), all held; 43c's
+   host executions above 0, held; each rank's hits, misses, evictions,
+   fetches, barrier joins and seconds printed; K1, K2 and K3 launched in
+   every leg of every rank (their launches go into the ``kernels`` line).
 
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
@@ -412,13 +430,15 @@ batcher inputs and phases 24 to 30, each on a build of its own;
 34 to 37; ``--host-fallback`` the build and phases 37 and 38 (with
 ``--paging``, 34 to 38); ``--loading`` the build and phases 39 and 40;
 ``--scan`` the build and phases 3, 5 and 7 with phase 41 on their builds;
-``--mesh`` the build and phase 42. Each prints no result line.
+``--mesh`` the build and phase 42; ``--pod`` the build and phase 43. Each
+prints no result line.
 Every phase prints its seconds (``[phase]``).
 
 The line before the last is the per-kernel JSON record (launches: the sum
 of the counts of phases 3, 5, 7, 9, 11, 13, 14, 16, 18, 19, 21, 22, 23,
 24 to 30 (26's none: a check-only phase), 31, 32, 34, 36 to 38, 39, 40,
-41's timed calls and both ranks' sharded runs of 42, graph replays included; K3's e4m3 kind has its own row, ``gmm_fp8``;
+41's timed calls, both ranks' sharded runs of 42 and every rank's legs of
+43, graph replays included; K3's e4m3 kind has its own row, ``gmm_fp8``;
 K2 at head dim 64 has its own row, ``flash_attend_dh64``: a graph
 counts at each replay the launches it recorded when it was captured); the
 last line is
@@ -428,6 +448,7 @@ last line is
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3769,7 +3790,7 @@ MX_SPEC_HBM_GB = 28
 # phase 16's depth in the whole run (its arenas cut by the same share), for
 # the run's time limit; --mixtral-offload runs the full 32
 MX_WHOLE_RUN_DEPTH = 6
-MX_WHOLE_RUN_TOKENS = 32  # and its tokens a generate in the whole run, for the same limit
+MX_WHOLE_RUN_TOKENS = 16  # and its tokens a generate in the whole run, for the same limit
 MIXTRAL_KERNELS = ("flash_decode", "flash_attend", "gmm")
 
 
@@ -5288,6 +5309,9 @@ S2S_REQUESTS, S2S_NEW = 12, (8, 12, 16)  # requests, and their max_new_tokens in
 S2S_CAP = 32  # the continuous batcher's decode cache: 16 new tokens and the start token
 SWB_NEW, SWB_CAP = 32, 64  # phase 27: new tokens, decode capacity (_bucket_len(33))
 ARB_SLOTS, ARB_PROMPTS = 4, (16, 9, 12, 16, 10, 14, 16, 11)  # phase 28: 8 requests, 4 slots
+# phase 29's requests in the whole run (still more than its slots), for its
+# time limit; --batchers runs all 8
+WHOLE_RUN_ARB_REQUESTS = 5
 MXS_SPAN, MXS_NEW = 12, 32  # phase 29: the repeated span, new tokens
 SB8_CONFIG = {  # google/switch-base-8's config.json
     "architectures": ["SwitchTransformersForConditionalGeneration"], "d_ff": 3072,
@@ -7751,7 +7775,7 @@ def phase_paged_offload(dev):
 LOAD_MODES = ("mmap", "ram", "direct", "sched")
 # phase 39's requests per load mode in the whole run, for its time limit
 # (phases 41-42 took their share); --loading answers all EP_REQUESTS
-WHOLE_RUN_LOAD_REQUESTS = 2
+WHOLE_RUN_LOAD_REQUESTS = 1
 LOAD_SAMPLES = 8  # expert records held byte for byte against a recomputation on the host
 GQ_DIR = Path(__file__).resolve().parent / ".gptq_entry"
 GQ_DISK_GB = 6  # checkpoint 2.0 + int4 store 1.4 + dense archive 0.7, with room
@@ -8264,6 +8288,7 @@ def phase_loading(dev, requests=EP_REQUESTS):
 # ---------------------------------------------------------------------------
 
 SCAN_TOKENS = 32  # bench.py's presets' --tokens
+WHOLE_RUN_SCAN_TOKENS = 16  # phase 41's steps in the whole run, for its time limit; --scan runs 32
 SCAN_BATCH, SCAN_PROMPT = 4, 16  # decoder-only rows and their prompt
 SCAN_CAP = 256  # bench.py's decode_scan caches (bench.py:370)
 SCAN_SAMPLING = dict(temperature=0.8, top_p=0.9, repetition_penalty=1.1)
@@ -8677,6 +8702,395 @@ def phase_mesh(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 43: offload across ranks (item 18b) on two and four ranks
+# ---------------------------------------------------------------------------
+
+POD_BLOCKS = PARITY_BLOCKS  # NLLB-MoE-54B's 4+4 blocks, every 2nd sparse (phases 10 and 12)
+POD_NLLB_NEW = 8  # greedy tokens a request in 43a
+POD_FALLBACK_NEW = 4  # 43c's greedy tokens, one request (the shortest source, 24 tokens)
+# 43c's deadline, seconds: the held column rank waits it out at every MoE
+# layer; the other ranks' fetches land well inside it, so that only the held
+# coordinate's experts run on the host
+POD_FALLBACK_TIMEOUT = 1.0
+POD_SEEDS = {"nllb": 43, "mixtral": 44}
+# the legs of each spawn: (leg, model, plan, options); 43c is 43a's model=2 x
+# expert=2 build with the host fallback and one column rank's store held
+POD_LEGS = {
+    2: (("43a", "nllb", dict(expert=2), {}),
+        ("43b", "mixtral", dict(expert=2), {}),
+        ("43b-spec", "mixtral", dict(expert=2), dict(speculative=True, spec_block=4))),
+    4: (("43a", "nllb", dict(model=2, expert=2), {}),
+        ("43c", "nllb", dict(model=2, expert=2), dict(host_fallback=True)),
+        ("43b", "mixtral", dict(data=2, expert=2), {})),
+}
+POD_TIMEOUT = 420  # seconds a spawn's ranks have in all; a rank still alive then is killed
+POD_MESH_TIMEOUT = 120.0  # seconds an exchange waits for a peer before it raises
+POD_KERNELS = ("flash_decode", "flash_attend", "gmm")
+
+
+class _HeldStore:
+    """A store whose records never reach the arena's fetch workers (threads
+    ``arena-fetch-*``) until ``release``: every expert it serves misses the
+    host fallback's deadline. Other readers (the host executor, on the
+    rank's own thread) pass."""
+
+    def __init__(self, inner):
+        import threading
+
+        self._inner = inner
+        self._open = threading.Event()
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def release(self):
+        self._open.set()
+
+    def get_expert(self, layer, expert, **kw):
+        import threading
+
+        if threading.current_thread().name.startswith("arena-fetch"):
+            self._open.wait(timeout=POD_TIMEOUT)
+        return self._inner.get_expert(layer, expert, **kw)
+
+
+def _pod_nllb(dev):
+    """NLLB-MoE-54B at its published width, POD_BLOCKS+POD_BLOCKS blocks,
+    f32, params from POD_SEEDS["nllb"] (a model with no mesh)."""
+    from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
+
+    spec = NllbSpec(**dict(NLLB_54B, encoder_layers=POD_BLOCKS, decoder_layers=POD_BLOCKS,
+                           encoder_sparse_step=2, decoder_sparse_step=2))
+    g = torch.Generator(device=dev)
+    g.manual_seed(POD_SEEDS["nllb"])
+    params, _ = NllbModel(spec, compute_dtype=torch.float32, device=dev).init_random(
+        g, with_experts=False)
+    ids, mask = _requests(spec.vocab_size, g, dev)
+    return spec, params, ids, mask
+
+
+def _pod_mixtral(dev):
+    """Mixtral-8x7B at MESH_DEPTH layers, f32 compute, int8 experts (a
+    record per expert), from POD_SEEDS["mixtral"]."""
+    from moe_infinity_tpu_torch.models.mixtral import MixtralModel, MixtralSpec
+
+    spec = MixtralSpec(**dict(MIXTRAL_8X7B, num_layers=MESH_DEPTH))
+    g = torch.Generator(device=dev)
+    g.manual_seed(POD_SEEDS["mixtral"])
+    params, _ = MixtralModel(spec, compute_dtype=torch.float32, device=dev).init_random(
+        g, with_experts=False)
+    prompt = np.random.default_rng(POD_SEEDS["mixtral"]).integers(
+        3, spec.vocab_size, (MESH_ROWS, MESH_PROMPT))
+    return spec, params, prompt
+
+
+def _pod_nllb_store(spec):
+    return _offload_store(spec, seed=POD_SEEDS["nllb"], cache_records=spec.num_experts)
+
+
+def _nllb_run(engine, ids, mask, new):
+    """(first-step logits [B, V] on the host, greedy tokens) of a seq2seq
+    offload engine."""
+    logits = _offload_first_step(engine, ids, mask)[:, -1].float().cpu().numpy()
+    toks = engine.generate(ids, max_new_tokens=new, attention_mask=mask,
+                           eos_token_id=None).sequences
+    return logits, np.asarray(toks)
+
+
+def _mixtral_run(engine, prompt):
+    """(prefill logits [B, V] of the last column on the host, greedy
+    tokens) of a decoder-only stepper."""
+    from moe_infinity_tpu_torch.runtime.generate import Generator
+
+    dev = engine.model.device
+    B, T = prompt.shape
+    pos = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    logits = engine.forward(torch.as_tensor(prompt, dtype=torch.int32, device=dev), pos,
+                            engine.init_cache(B, 64), 0)[0][:, -1].float().cpu().numpy()
+    toks = Generator(stepper=engine).generate(prompt, max_new_tokens=MESH_NEW,
+                                              cache_len=64).sequences
+    return logits, np.asarray(toks)
+
+
+def _pod_references(dev, out_dir):
+    """The one-rank engines of the same seeds, in this process: the NLLB
+    ``Seq2SeqOffloadEngine`` (E slots, bench.py's engine) on the four
+    requests, and on the first alone with the host fallback and experts of
+    coordinate 0 (of 2) held back, as 43c's column rank holds them; the
+    Mixtral ``OffloadEngine`` (E slots, eager). Saved to ``out_dir``."""
+    from moe_infinity_tpu_torch.models.mixtral import MixtralModel
+    from moe_infinity_tpu_torch.models.nllb import NllbModel
+
+    spec, params, ids, mask = _pod_nllb(dev)
+    E = spec.num_experts
+    model = NllbModel(spec, compute_dtype=torch.float32, device=dev)
+    engine = _offload_engine(model, params, _pod_nllb_store(spec), E, None)
+    try:
+        logits, toks = _nllb_run(engine, ids, mask, POD_NLLB_NEW)
+    finally:
+        engine.arena.shutdown()
+    np.savez(Path(out_dir, "ref_nllb.npz"), logits=logits, tokens=toks)
+    from moe_infinity_tpu_torch.runtime.arena import ExpertArena
+    from moe_infinity_tpu_torch.runtime.engine_seq2seq import Seq2SeqOffloadEngine
+
+    # 43c's reference: coordinate 0's experts (of 2) run on the host at every
+    # MoE layer, the rest through the arena, as 43c's agreed rows make them
+    arena = ExpertArena(_pod_nllb_store(spec), E, policy="priority", compute_dtype=torch.float32,
+                        device=dev, num_threads=4, reserve_zero_slot=True)
+    acquire = arena.acquire
+
+    def coordinate_0_missing(keys, layer, timeout):
+        rest = [k for k in keys if k[1] >= E // 2]
+        acquire(rest, layer)
+        return rest, [k for k in keys if k[1] < E // 2]
+
+    arena.try_acquire = coordinate_0_missing
+    engine = Seq2SeqOffloadEngine(model, params, arena, prefetch=False, impl="pallas",
+                                  host_fallback=True, host_fallback_timeout=POD_FALLBACK_TIMEOUT)
+    try:
+        logits, toks = _nllb_run(engine, ids[-1:], mask[-1:], POD_FALLBACK_NEW)
+        host = engine.host_exec_count
+    finally:
+        engine.arena.shutdown()
+    np.savez(Path(out_dir, "ref_fallback.npz"), logits=logits, tokens=toks, host=host)
+    del model, params, engine, arena
+    torch.cuda.empty_cache()
+    mspec, mparams, prompt = _pod_mixtral(dev)
+    mmodel = MixtralModel(mspec, compute_dtype=torch.float32, device=dev)
+    store = _mixtral_offload_store(mspec, distinct=True, seed=POD_SEEDS["mixtral"])
+    engine = _decoder_engine(mmodel, mparams, store, mspec.num_experts, graphs=False)
+    try:
+        logits, toks = _mixtral_run(engine, prompt)
+    finally:
+        engine.arena.shutdown()
+    np.savez(Path(out_dir, "ref_mixtral.npz"), logits=logits, tokens=toks)
+    del mmodel, mparams, store, engine
+    torch.cuda.empty_cache()
+
+
+def _pod_leg(leg, kind, plan, opts, mesh, built, dev):
+    """One leg on this rank: the pod engine over this rank's executor,
+    first-step logits and greedy tokens, its counters. The executor holds
+    one MoE layer's share of its coordinate's experts (two layers' for the
+    speculative leg, the least that holds a step's union)."""
+    from moe_infinity_tpu_torch.memory import ExpertPredictor, ExpertTracer
+    from moe_infinity_tpu_torch.parallel.pod import PodOffloadExecutor
+    from moe_infinity_tpu_torch.runtime.pod_engine import (
+        PodOffloadEngine,
+        PodSeq2SeqOffloadEngine,
+    )
+
+    ep = mesh.shape["expert"]
+    spec, params = built[kind][:2]
+    E = spec.num_experts
+    slots = E // ep * (2 if opts.get("speculative") else 1)
+    held = None
+    if kind == "nllb":
+        from moe_infinity_tpu_torch.models.nllb import NllbModel
+
+        ids, mask = built[kind][2:]
+        store = _pod_nllb_store(spec)
+        if opts.get("host_fallback") and (mesh.coords["expert"], mesh.coords["model"]) == (0, 1):
+            store = held = _HeldStore(store)  # this column rank never lands a record
+        model = NllbModel(spec, compute_dtype=torch.float32, device=dev, mesh=mesh)
+        n_enc = store.meta["num_encoder_moe_layers"]
+        tracer = ExpertTracer(256, store.num_layers, E, num_encoder_layers=n_enc)
+        ex = PodOffloadExecutor(mesh, store, slots, compute_dtype=torch.float32, device=dev,
+                                num_threads=4, host_fallback=bool(opts.get("host_fallback")),
+                                host_fallback_timeout=POD_FALLBACK_TIMEOUT)
+        eng = PodSeq2SeqOffloadEngine(model, params, ex, tracer=tracer,
+                                      predictor=ExpertPredictor(tracer),
+                                      prefetch=not opts.get("host_fallback"), lookahead=3,
+                                      prefetch_budget=8, impl="pallas")
+        rows = slice(-1, None) if opts.get("host_fallback") else slice(None)
+        new = POD_FALLBACK_NEW if opts.get("host_fallback") else POD_NLLB_NEW
+
+        def run():
+            return _nllb_run(eng, ids[rows], mask[rows], new)
+    else:
+        from moe_infinity_tpu_torch.models.mixtral import MixtralModel
+
+        prompt = built[kind][2]
+        store = built[kind][3]
+        model = MixtralModel(spec, compute_dtype=torch.float32, device=dev, mesh=mesh,
+                             shard_dense=False)
+        tracer = ExpertTracer(256, store.num_layers, E)
+        ex = PodOffloadExecutor(mesh, store, slots, compute_dtype=torch.bfloat16, device=dev,
+                                num_threads=4)
+        eng = PodOffloadEngine(model, params, ex, tracer=tracer, predictor=ExpertPredictor(tracer),
+                               prefetch=True, lookahead=3, prefetch_budget=4, impl="pallas",
+                               speculative=bool(opts.get("speculative")),
+                               spec_block=opts.get("spec_block", 1))
+
+        def run():
+            return _mixtral_run(eng, prompt)
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, toks = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        st = eng.stats()
+        fetch = ex.arena.fetch_stats()
+    finally:
+        if held is not None:
+            held.release()
+        ex.shutdown()
+    return {"leg": leg, "kind": kind, "plan": plan, "coords": dict(mesh.coords), "slots": slots,
+            "seconds": secs, "launches": counts,
+            "stats": {k: st.get(k) for k in ("hits", "misses", "evictions", "barrier_joins",
+                                             "host_exec_count", "column_disagreements",
+                                             "speculative_steps", "mean_step_executions")},
+            "fetches": fetch["fetches_store"] + fetch["fetches_tier"]}, logits, toks
+
+
+def _pod_rank(rank, world, init, out_dir, backend):
+    """One rank of phase 43 (spawned): the legs of POD_LEGS[world], each
+    model built once from its seed. Writes its readings (and logits and
+    tokens) to ``out_dir``; raises on a failed leg."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        from moe_infinity_tpu_torch.parallel import mesh as pm
+        from moe_infinity_tpu_torch.parallel.multihost import global_mesh
+
+        dev = _rank_device(rank)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        # the ranks share the host's cores (43c's host deltas run on them)
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+        built, meshes, out = {}, {}, {"legs": []}
+        for leg, kind, plan, opts in POD_LEGS[world]:
+            if kind not in built:
+                if kind == "nllb":
+                    built[kind] = _pod_nllb(dev)
+                else:
+                    mspec, mparams, prompt = _pod_mixtral(dev)
+                    built[kind] = (mspec, mparams, prompt, _mixtral_offload_store(
+                        mspec, distinct=True, seed=POD_SEEDS["mixtral"]))
+            key = json.dumps(plan, sort_keys=True)
+            if key not in meshes:
+                meshes[key] = global_mesh(pm.MeshPlan(**plan), timeout=POD_MESH_TIMEOUT)
+            reading, logits, toks = _pod_leg(leg, kind, plan, opts, meshes[key], built, dev)
+            np.savez(Path(out_dir, f"{leg}_{world}_rank{rank}.npz"), logits=logits, tokens=toks)
+            out["legs"].append(reading)
+        del built
+        torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+        Path(out_dir, f"rank{rank}_{world}.json").write_text(json.dumps(out))
+    except BaseException:
+        Path(out_dir, f"rank{rank}_{world}.err").write_text(traceback.format_exc())
+        raise
+
+
+def _pod_spawn(world, tmp, backend):
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_pod_rank, args=(r, world, f"file://{tmp}/rendezvous{world}",
+                                                 tmp, backend)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + POD_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    errs = "".join(Path(tmp, f"rank{r}_{world}.err").read_text() for r in range(world)
+                   if Path(tmp, f"rank{r}_{world}.err").exists())
+    if hung:
+        raise AssertionError(f"pod: ranks {hung} of {world} did not finish in {POD_TIMEOUT} s"
+                             f"\n{errs}")
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"pod: rank exit codes {codes} of {world}\n{errs}")
+    return [json.loads(Path(tmp, f"rank{r}_{world}.json").read_text()) for r in range(world)]
+
+
+def phase_pod(dev):
+    """Phase 43: offload across ranks (``runtime/pod_engine.py``) on two
+    and four ranks spawned on the card(s), a ``file://`` rendezvous, gloo
+    on one card (NCCL with a card a rank). The engines are built directly
+    (the facade's multihost plan needs a checkpoint on disk; the stores are
+    seeded ``SyntheticStore``s). 43a: NLLB-MoE-54B at its published width
+    through ``PodSeq2SeqOffloadEngine`` under expert=2, then model=2 x
+    expert=2 (int4 columns repacked); 43b: Mixtral-8x7B at 2 layers
+    through ``PodOffloadEngine`` per layer and speculative (blocks of 4)
+    under expert=2, then data=2 x expert=2; 43c: the model=2 x expert=2
+    NLLB with the host fallback and column 1 of coordinate 0 never landing
+    a record (its coordinate's experts run on the host on every rank). Each
+    rank's greedy tokens are held equal to the one-rank engine's of the same
+    seed and its first-step logits within MESH_TOL (expert=2) or
+    MESH_K3_TOL (a model or data axis: K3 planned for a d_ff column or half
+    the rows). Returns the ranks' launches."""
+    import tempfile
+
+    n = torch.cuda.device_count()
+    say(f"[pod] NLLB-MoE-54B at its published width, {POD_BLOCKS}+{POD_BLOCKS} blocks, f32 over "
+        f"int4 experts; Mixtral-8x7B at {MESH_DEPTH} layers, f32 over int8 experts; ranks on "
+        f"{n} card(s); legs "
+        f"{json.dumps({w: [(l, p) for l, _k, p, _o in legs] for w, legs in POD_LEGS.items()})}")
+    torch.cuda.empty_cache()
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _pod_references(dev, tmp)
+        say(f"[pod] one-rank references: {time.perf_counter() - t0:.1f} s")
+        refs = {k: dict(np.load(Path(tmp, f"ref_{k}.npz"))) for k in ("nllb", "fallback",
+                                                                       "mixtral")}
+        torch.cuda.empty_cache()
+        for world in sorted(POD_LEGS):
+            backend = "nccl" if n >= world else "gloo"
+            t0 = time.perf_counter()
+            ranks = _pod_spawn(world, tmp, backend)
+            say(f"[pod] {world} ranks over {backend}: {time.perf_counter() - t0:.1f} s")
+            for r, res in enumerate(ranks):
+                for rd in res["legs"]:
+                    leg = rd["leg"]
+                    got = np.load(Path(tmp, f"{leg}_{world}_rank{r}.npz"))
+                    ref = refs["fallback" if leg == "43c" else rd["kind"]]
+                    err = float(np.abs(got["logits"] - ref["logits"]).max())
+                    tol = MESH_TOL if set(rd["plan"]) == {"expert"} else MESH_K3_TOL
+                    same = bool(np.array_equal(got["tokens"], ref["tokens"]))
+                    missing = [k for k in POD_KERNELS if rd["launches"].get(k, 0) <= 0]
+                    extra = ""
+                    if leg == "43c":
+                        extra = (f", host executions {rd['stats']['host_exec_count']} (the "
+                                 f"one-rank reference's {int(ref['host'])})")
+                    say(f"[pod] {leg} rank {r} {json.dumps(rd['plan'])} coords "
+                        f"{json.dumps(rd['coords'])}: first-step logits (up to "
+                        f"{np.abs(ref['logits']).max():.4g}) max_abs_err={err:.4e} (held at "
+                        f"{tol:g}), greedy tokens equal {same}; {rd['slots']} slots, "
+                        f"{json.dumps(rd['stats'])}, fetches {rd['fetches']}, "
+                        f"{rd['seconds']:.2f} s{extra}; launches "
+                        f"{json.dumps({k: v for k, v in rd['launches'].items() if v})}")
+                    bad = err > tol or not same or missing
+                    if leg == "43c" and not rd["stats"]["host_exec_count"]:
+                        bad = True
+                    if bad:
+                        raise AssertionError(
+                            f"pod {leg} rank {r} {rd['plan']}: max_abs_err {err:.3e} (limit "
+                            f"{tol:g}), tokens equal {same}, kernels not launched {missing}, "
+                            f"stats {rd['stats']}")
+                    counts = {k: counts.get(k, 0) + v for k, v in rd["launches"].items()}
+    counts = {k: v for k, v in counts.items() if v}
+    say(f"[pod] launches of every rank's legs {json.dumps(counts)}")
+    return counts
+
 
 def main() -> int:
     smi = phase_device()
@@ -8742,6 +9156,10 @@ def main() -> int:
         timed(phase_mesh)
         say(f"[card] {smi}")
         return 0
+    if "--pod" in sys.argv[1:]:
+        timed(phase_pod)
+        say(f"[card] {smi}")
+        return 0
     if "--resident" in sys.argv[1:]:
         timed(phase_main_path)
         timed(phase_mixtral)
@@ -8801,6 +9219,10 @@ def main() -> int:
         say(f"[card] {smi}")
         return 0
     recs = timed(phase_kernels)
+    # the whole run's cuts of earlier paths' steps and requests, for its time
+    # limit (each path whole under its flag; PERF.md section 6)
+    global SCAN_TOKENS, ARB_PROMPTS
+    SCAN_TOKENS, ARB_PROMPTS = WHOLE_RUN_SCAN_TOKENS, ARB_PROMPTS[:WHOLE_RUN_ARB_REQUESTS]
     scan = {}  # phase 41's launches, by model
     counts = timed(phase_main_path, extra, scan)
     timed(phase_whole_path)
@@ -8836,13 +9258,14 @@ def main() -> int:
     extra["phase_paged_offload"] = timed(phase_paged_offload)
     extra["phase_loading"] = timed(phase_loading, WHOLE_RUN_LOAD_REQUESTS)  # phases 39-40
     mesh_counts = timed(phase_mesh)  # phase 42: the ranks' launches
+    pod_counts = timed(phase_pod)  # phase 43: the ranks' launches
     say(f"[batchers] launches by phase {json.dumps(extra)}")
     say(f"[scan] launches of phase 41's timed calls {json.dumps(scan)}")
     for r in recs:
         r["launches"] = sum(c.get(r["name"], 0) for c in (
             counts, mix_counts, mla_counts, off_counts, spec_counts, st_counts, sw_counts,
             sw_off_counts, mx_off_counts, ds_off_counts, ep_counts, gk_counts, ac_counts, ge_counts,
-            *extra.values(), *scan.values(), mesh_counts))
+            *extra.values(), *scan.values(), mesh_counts, pod_counts))
         r.pop("shape")
     say(f"[card] {smi}")
     print(json.dumps({"kernels": recs}), flush=True)

@@ -55,12 +55,21 @@ the expert axis and on d_ff over the model axis, Mixtral's dense weights by
 heads and vocabulary over the model axis (other families replicate theirs,
 as the JAX facade does), and the batch rows over the data axis. A mesh serves
 through the generators only (no batcher), eagerly (its collectives are not
-captured in CUDA graphs), with unfused experts.
+captured in CUDA graphs), with unfused experts. The mesh is built only for a
+resident plan (a rank's share of the experts fits its budget, dense layers
+not paged); otherwise the degrees go unused, as in the JAX facade (logged),
+and each process serves alone: a checkpoint with no experts, paged dense
+layers, an offload plan without ``multihost``.
 
-Plans and options the port does not serve raise ``NotImplementedError``
-naming their ROADMAP queue-1 item: multihost, offload (or paged dense
-layers) under a mesh, and a mesh over a checkpoint with no experts (18b);
-``sequence_parallel`` above 1 (18c).
+``multihost`` serves offload across ranks (``runtime/pod_engine.py``: each
+rank's expert coordinate in its own arena, a slot-row exchange every MoE
+layer), with ``coordinator_address`` initialising the process group
+(``parallel/multihost.py``) or the caller's group otherwise. It needs
+``expert_parallel`` > 1 and resident dense layers, and seq2seq models take
+``data_parallel`` 1, as in the JAX facade.
+
+``sequence_parallel`` above 1 raises ``NotImplementedError`` naming ROADMAP
+queue-1 item 18c.
 """
 
 from __future__ import annotations
@@ -131,10 +140,25 @@ def _to_device(tree, device):
 
 def _check_config(config: EngineConfig) -> None:
     """Raise for the options whose plans the port does not serve."""
-    if config.multihost:
-        raise _not_ported("multihost serving", "18b")
     if config.sequence_parallel > 1:
         raise _not_ported(f"sequence_parallel={config.sequence_parallel}", "18c")
+
+
+def _rank_share_bytes(params, shardings, plan) -> int:
+    """A rank's bytes of ``params`` under ``shardings`` (a tree of
+    ``parallel.mesh.Sharding``): each leaf over the product of its sharded
+    axes' sizes in ``plan``."""
+    if isinstance(params, dict):
+        return sum(_rank_share_bytes(v, shardings[k], plan) for k, v in params.items())
+    if isinstance(params, (list, tuple)):
+        return sum(_rank_share_bytes(v, sv, plan) for v, sv in zip(params, shardings))
+    if not isinstance(params, torch.Tensor):
+        return 0
+    n = 1
+    for axes in shardings.spec:
+        for a in ((axes,) if isinstance(axes, str) else (axes or ())):
+            n *= getattr(plan, a)
+    return params.numel() * params.element_size() // n
 
 
 def _mesh_plan(config: EngineConfig):
@@ -178,11 +202,17 @@ class MoE:
         _check_config(config)
         self.mesh = None
         plan = _mesh_plan(config)
-        if plan is not None:
-            from moe_infinity_tpu_torch.parallel.mesh import make_mesh, mesh_device
+        if config.multihost and config.coordinator_address:
+            from moe_infinity_tpu_torch.parallel.multihost import init_multihost
 
-            self.mesh = make_mesh(plan)  # raises without a process group of the plan's size
-            device = mesh_device(device)
+            init_multihost(config.coordinator_address,
+                           num_processes=config.num_processes or None,
+                           process_id=None if config.process_id < 0 else config.process_id)
+        if (plan is not None or config.multihost) and torch.distributed.is_available() \
+                and torch.distributed.is_initialized():
+            from moe_infinity_tpu_torch.parallel.mesh import mesh_device
+
+            device = mesh_device(device)  # each rank's own card
         self.device = resolve_device(device)
         checkpoint = str(model_name_or_path)
         if not config.offload_path:
@@ -197,8 +227,6 @@ class MoE:
                                       f"available: {sorted(registry)}")
         self.geometry = parse_geometry(self.hf_config)
         seq2seq = self.arch in _SEQ2SEQ_ARCHS
-        if self.mesh is not None and self.geometry.num_experts == 0:
-            raise _not_ported("a mesh over a checkpoint with no experts", "18b")
 
         # the spec first: a variant the model does not take is refused before
         # anything is ingested
@@ -209,8 +237,8 @@ class MoE:
         dense = DenseArchive(config.offload_path)
 
         compute_dtype = torch.float32 if config.expert_dtype == "float32" else torch.bfloat16
-        self.model = model_cls(spec, compute_dtype, device=self.device,
-                               **({"mesh": self.mesh} if self.mesh is not None else {}))
+        # the mesh, if any, comes with the plan below (the model is rebuilt on it)
+        self.model = model_cls(spec, compute_dtype, device=self.device)
 
         # ---- the budget, and dense residency before any device load ----
         budget = config.device_memory_bytes
@@ -226,22 +254,12 @@ class MoE:
         page_dense = config.dense_paging == "on" or (
             config.dense_paging == "auto" and dense_est > budget * dense_share)
         self.dense_arena = None
-        if page_dense and self.mesh is not None:
-            raise _not_ported("paged dense layers under a mesh", "18b")
         if page_dense:
             self._page_dense_layers(dense, model_cls, seq2seq, budget)
         else:
             self.params = self.model.load_params(dense)
             if config.fold_mla and hasattr(self.model, "fold_mla_params"):
                 self.params = self.model.fold_mla_params(self.params)
-            if self.mesh is not None and self.arch == "mixtral" and config.tensor_parallel > 1:
-                from moe_infinity_tpu_torch.parallel.mesh import (
-                    mixtral_param_shardings,
-                    shard_params,
-                )
-
-                self.params = shard_params(self.params,
-                                           mixtral_param_shardings(self.mesh, self.params))
 
         self.batcher = None
         self.s2s_batcher = None
@@ -251,6 +269,11 @@ class MoE:
 
         # ---- dense-only models (OPT): no experts, no residency plan -----
         if self.geometry.num_experts == 0:
+            if config.multihost:
+                raise NotImplementedError(
+                    "multihost pod serving needs an MoE architecture "
+                    "(expert-parallel mesh); this checkpoint has no experts")
+            self._unused_degrees(plan, "a checkpoint with no experts")
             if self.dense_arena is not None:
                 from moe_infinity_tpu_torch.runtime.dense_arena import PagedDenseEngine
 
@@ -263,23 +286,37 @@ class MoE:
             return
 
         store = ExpertStore(config.offload_path, load_mode=config.load_mode)
+        expert_bytes = store.stride * store.num_layers * store.num_experts
+        dense_bytes = _tensor_bytes(self.params)
+        if self.dense_arena is not None:
+            # the paged stack takes its arena's slots, not its full size
+            dense_bytes += self.dense_arena.device_bytes
+        if config.multihost:
+            self._serve_pod(store, model_cls, spec, compute_dtype, budget, dense_bytes, seq2seq)
+            return
         pinned_tier = None
         if config.pinned_tier:
             from moe_infinity_tpu_torch.store.pinned import PinnedExpertTier
 
             pinned_tier = PinnedExpertTier(store, device=self.device)
-        expert_bytes = store.stride * store.num_layers * store.num_experts
-        if self.mesh is not None:  # a rank's share of the experts
-            expert_bytes //= config.expert_parallel * config.tensor_parallel
-        dense_bytes = _tensor_bytes(self.params)
-        if self.dense_arena is not None:
-            # the paged stack takes its arena's slots, not its full size
-            dense_bytes += self.dense_arena.device_bytes
-        # paged dense layers need the engine's per-layer path
-        fits = expert_bytes <= budget - dense_bytes and self.dense_arena is None
         paged = self.dense_arena is not None
-        if self.mesh is not None and not fits:
-            raise _not_ported("offload under a mesh (the experts do not fit the ranks)", "18b")
+        if plan is not None and not paged:
+            # a resident mesh serves when a rank's share of the experts fits
+            share = expert_bytes // (plan.model * plan.expert)
+            dense_share = dense_bytes
+            if self.arch == "mixtral" and plan.model > 1:
+                from moe_infinity_tpu_torch.parallel.mesh import mixtral_param_shardings
+
+                dense_share = _rank_share_bytes(
+                    self.params, mixtral_param_shardings(None, self.params), plan)
+            if share <= budget - dense_share:
+                self._build_mesh(plan, model_cls, spec, compute_dtype)
+                expert_bytes, dense_bytes = share, dense_share
+        if plan is not None and self.mesh is None:
+            self._unused_degrees(plan, "paged dense layers" if paged
+                                 else "an offload plan without multihost")
+        # paged dense layers need the engine's per-layer path
+        fits = expert_bytes <= budget - dense_bytes and not paged
         # CUDA graphs of the decode step where the grouped FFN can be
         # captured; a decoder-only model also says whether its step can be
         # one (graph_step). A mesh's collectives are not captured.
@@ -415,6 +452,84 @@ class MoE:
                     self.model, self.params, None, None, arena=self.engine.arena,
                     tracer=self.engine.tracer, predictor=self.engine.predictor,
                     prefetch=config.prefetch, **common)
+
+    def _unused_degrees(self, plan, why: str) -> None:
+        if plan is not None:
+            logger.info("%s: data/tensor/expert parallel %d/%d/%d unused (no mesh); this "
+                        "process serves alone", why, plan.data, plan.model, plan.expert)
+
+    def _build_mesh(self, plan, model_cls, spec, compute_dtype) -> None:
+        """The resident mesh: the model rebuilt on it, Mixtral's dense
+        weights sharded over its model axis."""
+        from moe_infinity_tpu_torch.parallel.mesh import (
+            make_mesh,
+            mixtral_param_shardings,
+            shard_params,
+        )
+
+        self.mesh = make_mesh(plan)  # raises without a process group of the plan's size
+        self.model = model_cls(spec, self.model.dtype, device=self.device, mesh=self.mesh)
+        if self.arch == "mixtral" and plan.model > 1:
+            self.params = shard_params(self.params, mixtral_param_shardings(self.mesh, self.params))
+
+    def _serve_pod(self, store, model_cls, spec, compute_dtype, budget: int, dense_bytes: int,
+                   seq2seq: bool) -> None:
+        """``multihost``: offload across ranks (``runtime/pod_engine.py``)
+        over ``global_mesh``, slots a coordinate from this rank's budget, as
+        the JAX facade's two multihost branches plan it."""
+        from moe_infinity_tpu_torch.memory import ExpertPredictor, ExpertTracer
+        from moe_infinity_tpu_torch.parallel.mesh import MeshPlan
+        from moe_infinity_tpu_torch.parallel.multihost import global_mesh
+        from moe_infinity_tpu_torch.parallel.pod import PodOffloadExecutor
+        from moe_infinity_tpu_torch.runtime.generate import Generator
+        from moe_infinity_tpu_torch.runtime.pod_engine import (
+            PodOffloadEngine,
+            PodSeq2SeqOffloadEngine,
+        )
+
+        config = self.config
+        ep, tp = config.expert_parallel, config.tensor_parallel
+        if ep <= 1:
+            raise ValueError("multihost serving needs expert_parallel > 1 (the expert axis "
+                             "spans every addressable device)")
+        if seq2seq and config.data_parallel != 1:
+            raise NotImplementedError(
+                "seq2seq multihost serving composes model x expert (data_parallel must be 1; "
+                "the decoder-only pod path additionally composes the data axis)")
+        if self.dense_arena is not None:
+            # dense layers have no sparsity to exploit: paging them refetches
+            # all their bytes every token, where expert slots hit their cache
+            raise NotImplementedError(
+                "multihost serving keeps the dense side resident by design (dense layers "
+                "have no sparsity to exploit; shard them over the model axis instead)")
+        dp = 1 if seq2seq else config.data_parallel
+        self.mesh = global_mesh(MeshPlan(data=dp, model=tp, expert=ep))
+        kw = {"shard_dense": False} if self.arch == "mixtral" else {}
+        self.model = model_cls(spec, compute_dtype, device=self.device, mesh=self.mesh, **kw)
+        # TP x EP: a slot holds 1/tp of a record, so the budget affords tp x the slots
+        per_coord = config.num_slots or max(-(-store.num_experts // ep),
+                                            int((budget - dense_bytes) * tp // store.stride))
+        logger.info("pod offload plan: data axis %d x model axis %d x expert axis %d, "
+                    "%d slots/coordinate", dp, tp, ep, per_coord)
+        executor = PodOffloadExecutor(self.mesh, store, per_coord, compute_dtype=compute_dtype,
+                                      device=self.device, num_threads=config.num_threads,
+                                      host_fallback=config.host_fallback,
+                                      host_fallback_timeout=config.host_fallback_timeout_s)
+        tracer = ExpertTracer(config.trace_capacity, store.num_layers, store.num_experts,
+                              store.meta.get("num_encoder_moe_layers", 0))
+        if config.trace_path and os.path.exists(config.trace_path):
+            tracer.load_trace(config.trace_path)
+        common = dict(tracer=tracer, predictor=ExpertPredictor(tracer), prefetch=config.prefetch,
+                      impl=config.moe_impl)
+        if seq2seq:
+            self.engine = PodSeq2SeqOffloadEngine(self.model, self.params, executor,
+                                                  prefill_impl=config.prefill_impl, **common)
+            self.generator = self.engine  # the same generate() surface
+        else:
+            self.engine = PodOffloadEngine(self.model, self.params, executor,
+                                           speculative=config.speculative_decode,
+                                           spec_block=config.speculative_block, **common)
+            self.generator = Generator(stepper=self.engine, max_seq_len=config.max_seq_len)
 
     def _page_dense_layers(self, dense, model_cls, seq2seq: bool, budget: int):
         """Load the layer stack to the host and page it through a
@@ -577,4 +692,5 @@ class MoE:
         if self.dense_arena is not None:
             self.dense_arena.shutdown()  # idempotent
         if self.engine is not None:
-            self.engine.arena.shutdown()
+            # a pod engine's arena is its executor's (every rank's own)
+            getattr(self.engine, "executor", self.engine.arena).shutdown()

@@ -89,15 +89,18 @@ class MixtralModel:
     graph_step = True
 
     def __init__(self, spec: MixtralSpec, compute_dtype=torch.bfloat16,
-                 device="cuda", mesh=None):
+                 device="cuda", mesh=None, shard_dense: bool = True):
         """mesh: a ``parallel.mesh.Mesh``; its model axis splits the heads
         and the vocabulary (raises where they do not divide: JAX's GSPMD
-        would reshard a KV head across ranks, the port does not)."""
+        would reshard a KV head across ranks, the port does not).
+        shard_dense=False keeps the dense weights whole on every rank and
+        splits only the experts over the model axis, as the pod engines run
+        (``runtime/pod_engine.py``)."""
         self.spec = spec
         self.dtype = compute_dtype
         self.device = resolve_device(device)
         self.mesh = mesh
-        tp = 1 if mesh is None else mesh.shape["model"]
+        tp = 1 if mesh is None or not shard_dense else mesh.shape["model"]
         if spec.num_kv_heads % tp or spec.num_heads % tp or spec.vocab_size % tp:
             raise ValueError(
                 f"a model axis of {tp} must divide the KV heads ({spec.num_kv_heads}), the "

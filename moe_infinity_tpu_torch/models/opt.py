@@ -67,10 +67,7 @@ class OPTSpec:
 class OPTModel:
     arch = "opt"
 
-    def __init__(self, spec: OPTSpec, compute_dtype=torch.bfloat16, device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh over a model with no experts is not ported (ROADMAP queue-1 item 18b)")
+    def __init__(self, spec: OPTSpec, compute_dtype=torch.bfloat16, device="cuda"):
         self.spec = spec
         self.dtype = compute_dtype
         self.device = resolve_device(device)

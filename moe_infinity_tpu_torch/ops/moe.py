@@ -360,6 +360,7 @@ def grouped_ffn_ep(
     data_axis: str = "data",
     model_axis: str = "model",
     impl: str = "ragged",
+    reduce: bool = True,
 ) -> torch.Tensor:
     """Expert-parallel grouped FFN, JAX ``ops/moe.py::grouped_ffn_ep``: this
     rank computes its local experts' contribution to its tokens (through
@@ -375,7 +376,8 @@ def grouped_ffn_ep(
     its own row. Under a model axis above 1 the weights hold a d_ff slice
     (``common/arch.py::TP_MODEL_DIMS``) and the sum runs over the model axis
     too; ``down_bias`` is added on model coordinate 0 only. Returns this
-    rank's [T, D] in x's dtype."""
+    rank's [T, D] in x's dtype (``reduce=False``: this rank's partial, before
+    the sum, for a caller that sums it with more)."""
     joint = expert_to_slot.dim() == 2
     ep, tp = mesh.shape[expert_axis], mesh.shape[model_axis]
     shard = mesh.axis_index(expert_axis)
@@ -394,6 +396,8 @@ def grouped_ffn_ep(
         biases = {k: (torch.zeros_like(v) if k == "down_bias" else v) for k, v in biases.items()}
     out = grouped_ffn(x, expert_ids, combine_weights, local, weights, activation,
                       biases=biases, impl=impl)
+    if not reduce:
+        return out
     return mesh.all_reduce(out, expert_axis, model_axis)
 
 
@@ -401,8 +405,27 @@ def routed_ffn(mesh, x, expert_ids, combine_weights, expert_to_slot, weights, ac
                biases=None, impl: str = "ragged") -> torch.Tensor:
     """A model's routed experts: ``grouped_ffn_ep`` under a mesh whose expert
     or model axis is above 1 (the experts then hold a slice of the slots or
-    of d_ff, ``parallel.expert_shardings``), else ``grouped_ffn``."""
+    of d_ff, ``parallel.expert_shardings``), else ``grouped_ffn``.
+
+    A 2-D ``expert_to_slot`` ([dp, E], the pod engines' exchanged tables,
+    ``parallel/pod.py``) comes with the whole batch on every rank, as the
+    pod engines keep their activations replicated: each data rank computes
+    its equal share of the tokens in the joint mode, and one ``all_reduce``
+    over the data, expert and model axes both combines the experts and
+    gathers the rows (each rank adds only its rows; the rest are zeros)."""
     if mesh is not None and (mesh.shape["expert"] > 1 or mesh.shape["model"] > 1):
+        if expert_to_slot.dim() == 2 and mesh.shape["data"] > 1:
+            T, dp = x.shape[0], mesh.shape["data"]
+            if T % dp:
+                raise ValueError(f"{T} tokens do not split over the data axis ({dp})")
+            n = T // dp
+            lo = mesh.axis_index("data") * n
+            part = grouped_ffn_ep(x[lo:lo + n], expert_ids[lo:lo + n],
+                                  combine_weights[lo:lo + n], expert_to_slot, weights,
+                                  activation, mesh=mesh, biases=biases, impl=impl, reduce=False)
+            full = part.new_zeros((T, *part.shape[1:]))
+            full[lo:lo + n] = part
+            return mesh.all_reduce(full, "data", "expert", "model")
         return grouped_ffn_ep(x, expert_ids, combine_weights, expert_to_slot, weights,
                               activation, mesh=mesh, biases=biases, impl=impl)
     return grouped_ffn(x, expert_ids, combine_weights, expert_to_slot, weights, activation,

@@ -1,7 +1,8 @@
 """Parallel serving over ``torch.distributed``, from
-``moe_infinity_tpu/parallel``: the resident mesh (``mesh.py``). Pod offload
-(``pod.py``) and sequence parallelism (``sequence.py``) are not ported: their
-names raise ``NotImplementedError`` naming ROADMAP items 18b and 18c."""
+``moe_infinity_tpu/parallel``: the resident mesh (``mesh.py``), several
+processes (``multihost.py``) and expert-parallel offload across ranks
+(``pod.py``). Sequence parallelism (``sequence.py``) is not ported: its names
+raise ``NotImplementedError`` naming ROADMAP item 18c."""
 
 from moe_infinity_tpu_torch.parallel.mesh import (
     MeshPlan,
@@ -10,11 +11,14 @@ from moe_infinity_tpu_torch.parallel.mesh import (
     mixtral_param_shardings,
     shard_params,
 )
+from moe_infinity_tpu_torch.parallel.pod import (
+    PodExpertPlan,
+    PodOffloadExecutor,
+    PodPrefetchCoordinator,
+    PodSpecView,
+)
 
-_LATER = {
-    "PodExpertPlan": "18b", "PodPrefetchCoordinator": "18b",
-    "sp_prefill": "18c", "sp_encode": "18c", "SPDecoder": "18c", "caches_from_sp": "18c",
-}
+_LATER = {"sp_prefill": "18c", "sp_encode": "18c", "SPDecoder": "18c", "caches_from_sp": "18c"}
 
 __all__ = [
     "MeshPlan",
@@ -22,6 +26,10 @@ __all__ = [
     "mixtral_param_shardings",
     "expert_shardings",
     "shard_params",
+    "PodExpertPlan",
+    "PodPrefetchCoordinator",
+    "PodOffloadExecutor",
+    "PodSpecView",
 ]
 
 

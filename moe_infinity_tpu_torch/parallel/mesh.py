@@ -7,8 +7,9 @@ trees, and collectives that XLA inserts. The port runs SPMD over
 ``torch.distributed``: one process per rank, each holding its own slice of
 every sharded tensor and calling the same code on the same inputs, with the
 collectives written out where GSPMD would insert them. The caller starts the
-processes and initialises the process group (``torchrun``, a test, or
-``chip_smoke.py``) and picks its backend; nothing here does.
+processes and initialises the process group (``torchrun``, a test,
+``chip_smoke.py``, or ``multihost.init_multihost``) and picks its backend;
+nothing here does.
 
 Axes:
   data   - batch rows (``runtime/generate.py::ResidentStepper.set_data_sharding``)
@@ -22,12 +23,21 @@ is an ``all_reduce`` of a zero-filled buffer holding each rank's part. Gloo
 takes CUDA tensors for those three alone (staging them through the host),
 which is how two ranks share one card; over NCCL, with one rank a card, the
 same code runs unchanged.
+
+The host channel: the pod protocol (``parallel/pod.py``) exchanges small
+host-side tables every MoE layer (slot fragments, resident sets, error
+flags). CPU tensors cannot ride NCCL groups, so ``make_mesh`` also makes a
+gloo group for every group it makes (the same groups when the default
+backend is gloo), and ``Mesh.host_all_reduce``, ``host_broadcast`` and
+``barrier`` run over those. Every wait there is bounded: a group made with a
+``timeout`` raises ``RuntimeError`` when a peer does not arrive within it.
 """
 
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass
+from datetime import timedelta
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -36,9 +46,9 @@ import torch.distributed as dist
 
 DATA, MODEL, EXPERT, SEQ = "data", "model", "expert", "seq"
 AXES = (DATA, MODEL, EXPERT, SEQ)
-# the groups a mesh makes: one per axis line, and the (model, expert) plane
-# that the TP x EP grouped FFN sums over
-_GROUP_AXES = ((DATA,), (MODEL,), (EXPERT,), (SEQ,), (MODEL, EXPERT))
+# the ranks a host exchange or barrier spans: the whole mesh
+WORLD = AXES
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
 
 
 @dataclass(frozen=True)
@@ -59,28 +69,68 @@ class Mesh:
     line of ranks along an axis (and each (model, expert) plane)."""
 
     def __init__(self, plan: MeshPlan, grid: np.ndarray, rank: int,
-                 groups: Dict[Tuple[str, ...], Any]):
+                 groups: Dict[Tuple[str, ...], Any], host_groups: Dict[Tuple[str, ...], Any],
+                 timeout: Optional[float] = None):
         self.plan = plan
         self.grid = grid  # [data, model, expert, seq] -> rank
         self.rank = rank
         self.shape = dict(zip(AXES, grid.shape))
         self.coords = dict(zip(AXES, (int(i) for i in np.argwhere(grid == rank)[0])))
+        self.timeout = timeout
         self._groups = groups
+        self._host_groups = host_groups
 
     def axis_index(self, axis: str) -> int:
         return self.coords[axis]
+
+    def _live(self, axes) -> Tuple[str, ...]:
+        return tuple(a for a in AXES if a in axes and self.shape[a] > 1)
+
+    @staticmethod
+    def _group(groups, live):
+        group = groups.get(live)
+        if group is None:
+            raise ValueError(f"no process group over {live}")
+        return group
 
     def all_reduce(self, t: torch.Tensor, *axes: str) -> torch.Tensor:
         """Sum ``t`` in place over the ranks that share this rank's
         coordinates on every axis but ``axes``; axes of size 1 take no
         collective."""
-        live = tuple(a for a in AXES if a in axes and self.shape[a] > 1)
+        live = self._live(axes)
         if live:
-            group = self._groups.get(live)
-            if group is None:
-                raise ValueError(f"no process group over {live}")
-            dist.all_reduce(t, group=group)
+            dist.all_reduce(t, group=self._group(self._groups, live))
         return t
+
+    def host_all_reduce(self, t: torch.Tensor, op: str, *axes: str) -> torch.Tensor:
+        """Reduce the CPU tensor ``t`` in place (``op``: "sum", "max" or
+        "min") over the ranks that share this rank's coordinates off
+        ``axes`` (``WORLD``: every rank), over the host channel. Raises
+        ``RuntimeError`` when a peer does not arrive within the mesh's
+        timeout."""
+        live = self._live(axes)
+        if live:
+            dist.all_reduce(t, op=_OPS[op], group=self._group(self._host_groups, live))
+        return t
+
+    def host_broadcast(self, t: torch.Tensor, *axes: str) -> torch.Tensor:
+        """The CPU tensor ``t`` of the first rank (the lowest) of this rank's
+        line over ``axes``, in place on every rank of it."""
+        live = self._live(axes)
+        if live:
+            group = self._group(self._host_groups, live)
+            dist.broadcast(t, src=min(dist.get_process_group_ranks(group)), group=group)
+        return t
+
+    def barrier(self, timeout: Optional[float] = None) -> None:
+        """Wait for every rank of the mesh, at most ``timeout`` seconds (the
+        mesh's by default); raises ``RuntimeError`` naming a rank that did
+        not arrive (gloo's ``monitored_barrier``)."""
+        live = self._live(WORLD)
+        if live:
+            secs = timeout if timeout is not None else (self.timeout or 1800.0)
+            dist.monitored_barrier(group=self._group(self._host_groups, live),
+                                   timeout=timedelta(seconds=secs))
 
     def gather_rows(self, t: torch.Tensor, lo: int, total: int, axis: str) -> torch.Tensor:
         """The [total, ...] tensor whose rows [lo, lo + len(t)) are this
@@ -113,12 +163,17 @@ def rank_grid(plan: MeshPlan, *, tp_inner: bool = False) -> np.ndarray:
     return ranks.reshape(plan.data, plan.model, plan.expert, plan.seq)
 
 
-def make_mesh(plan: MeshPlan, *, tp_inner: bool = False) -> Mesh:
+def make_mesh(plan: MeshPlan, *, tp_inner: bool = False,
+              timeout: Optional[float] = None) -> Mesh:
     """The mesh of ``plan`` over the initialised default process group, rank
     r at the coordinate JAX's ``make_mesh`` gives device r (``rank_grid``).
-    Every rank makes every group, in the same order, as
-    ``dist.new_group`` requires. Raises when no process group is
-    initialised or its world size is not the plan's."""
+    It makes a group for every set of axes above size 1 (each axis line,
+    each plane of two or three axes, the whole mesh), and a gloo group
+    beside each where the default backend is not gloo (the host channel).
+    Every rank makes every group, in the same order, as ``dist.new_group``
+    requires. timeout: seconds a collective of these groups waits for a
+    peer before it raises (the backend's default when None). Raises when no
+    process group is initialised or its world size is not the plan's."""
     if plan.seq > 1:
         raise NotImplementedError(
             "a seq mesh axis (sequence parallelism) is not ported (ROADMAP queue-1 item 18c)")
@@ -131,19 +186,22 @@ def make_mesh(plan: MeshPlan, *, tp_inner: bool = False) -> Mesh:
         raise ValueError(f"{plan} needs {plan.num_devices} ranks, the process group has {world}")
     grid = rank_grid(plan, tp_inner=tp_inner)
     rank = dist.get_rank()
-    groups = {}
-    for axes in _GROUP_AXES:
-        dims = [AXES.index(a) for a in axes]
-        if np.prod([grid.shape[d] for d in dims]) == 1:
-            continue
-        rest = [d for d in range(4) if d not in dims]
-        moved = np.moveaxis(grid, rest + dims, list(range(4)))
-        for idx in itertools.product(*(range(grid.shape[d]) for d in rest)):
-            members = [int(r) for r in moved[idx].reshape(-1)]
-            g = dist.new_group(members)
-            if rank in members:
-                groups[axes] = g
-    return Mesh(plan, grid, rank, groups)
+    kw = {} if timeout is None else {"timeout": timedelta(seconds=timeout)}
+    host_too = dist.get_backend() != "gloo"
+    live = [a for a in AXES if grid.shape[AXES.index(a)] > 1]
+    groups, host_groups = {}, {}
+    for n in range(1, len(live) + 1):
+        for axes in itertools.combinations(live, n):
+            dims = [AXES.index(a) for a in axes]
+            rest = [d for d in range(4) if d not in dims]
+            moved = np.moveaxis(grid, rest + dims, list(range(4)))
+            for idx in itertools.product(*(range(grid.shape[d]) for d in rest)):
+                members = [int(r) for r in moved[idx].reshape(-1)]
+                g = dist.new_group(members, **kw)
+                h = dist.new_group(members, backend="gloo", **kw) if host_too else g
+                if rank in members:
+                    groups[axes], host_groups[axes] = g, h
+    return Mesh(plan, grid, rank, groups, host_groups, timeout)
 
 
 # ---------------------------------------------------------------------------

@@ -54,9 +54,12 @@ num_slots``, all zeros and never allocated, landed into or evicted: the
 engines' host fallback (``runtime/host_exec.py``) points a missed expert's
 slot row there, so the grouped FFN contributes exactly 0 for it.
 
-Not ported: ``tp_mirrors`` raises ``NotImplementedError`` (item 18b); the JAX
-relay's upload knobs (``upload_chunk_bytes``, ``upload_threads``) have no
-counterpart.
+Tensor-parallel columns: the JAX arena lands every column of an expert
+coordinate on its devices from one process (``tp_mirrors``). The port puts
+each column on a rank of its own, whose arena runs over its column's view
+(``store/column.py``, ``parallel/pod.py``), so ``tp_mirrors`` raises
+``NotImplementedError`` saying so. The JAX relay's upload knobs
+(``upload_chunk_bytes``, ``upload_threads``) have no counterpart.
 """
 
 from __future__ import annotations
@@ -113,8 +116,9 @@ class ExpertArena:
         store path."""
         if tp_mirrors:
             raise NotImplementedError(
-                "tp_mirrors (tensor-parallel columns) are not ported (ROADMAP queue-1 item 18b)"
-            )
+                "tp_mirrors: the port puts each tensor-parallel column on a rank of its own, "
+                "whose arena runs over store.column.column_views(store, tp)[m] "
+                "(parallel.pod.PodOffloadExecutor)")
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         self.store = store
@@ -278,12 +282,14 @@ class ExpertArena:
                     self._read_done = ev
 
     @contextmanager
-    def dispatch_snapshot(self, timings: Optional[dict] = None):
+    def dispatch_snapshot(self, timings: Optional[dict] = None, upload: bool = True):
         """Yield (slot tensors, slot rows [L, E] int32 on the device, resident
         keys) for one speculative dispatch, taken together under the
         residency lock; the rows are a copy, uploaded once, synchronously,
-        before the scope's launches. Queue every read of the slots inside the
-        scope, all on the current stream; the stream first waits on every
+        before the scope's launches (``upload=False``: the numpy copy, for a
+        caller that builds its own rows from it, as the pod's snapshot
+        does). Queue every read of the slots inside the scope, all on the
+        current stream; the stream first waits on every
         landing it has not waited on yet, so each resident slot holds its
         record. A key evicted while the scope is open leaves the resident
         set when the scope ends (its slot may have been overwritten under
@@ -302,7 +308,7 @@ class ExpertArena:
             self._fresh_slots.clear()
         try:
             # the upload waits for the stream, so it goes before the waits
-            slot_rows = torch.from_numpy(rows).to(self.device)
+            slot_rows = torch.from_numpy(rows).to(self.device) if upload else rows
             if self._cuda:
                 stream = torch.cuda.current_stream(self.device)
                 for ev in fresh:

@@ -250,7 +250,9 @@ class Seq2SeqOffloadEngine(_LayerClock):
             from moe_infinity_tpu_torch.runtime.host_exec import HostExpertExecutor, activation_for
 
             self._host_exec = HostExpertExecutor(arena.store, activation_for(arena.store.meta))
-        if arena.num_slots < model.spec.num_experts:
+        # the pod subclass sets arena_multiplicity to the expert axis's size:
+        # the constraint is on the global slot count
+        if arena.num_slots * getattr(self, "arena_multiplicity", 1) < model.spec.num_experts:
             raise ValueError("arena must fit one full MoE layer of experts")
         tier = arena._tier
         if stream_decode:

@@ -175,7 +175,10 @@ class EngineConfig:
     expert_parallel: int = 1
     """Mesh axis sizes (data, model, expert). Their product is the world
     size of the process group the caller initialised (one process per
-    rank, ``parallel/mesh.py``); 1/1/1 means one rank."""
+    rank, ``parallel/mesh.py``); 1/1/1 means one rank. A resident plan
+    (the experts fit a rank's share of the budget) serves on the mesh;
+    otherwise, without ``multihost``, the degrees go unused (logged) and
+    each process serves alone, as the JAX facade does."""
 
     sequence_parallel: int = 1
     """Long-context ring size: > 1 shards prompts over a `seq` mesh axis
@@ -184,18 +187,25 @@ class EngineConfig:
     exclusive with tensor/expert_parallel."""
 
     multihost: bool = False
-    """Multi-host offload serving in the JAX package (a pod engine over an
-    expert-axis mesh). Not ported: the facade raises for it (ROADMAP
-    item 18b)."""
+    """Offload serving across ranks (``runtime/pod_engine.py``): each rank
+    holds its expert coordinate's share of the experts in its own arena
+    (and, with ``tensor_parallel`` > 1, its column of them), the ranks
+    exchange their slot rows every MoE layer, and the dense weights stay
+    whole on every rank. Needs ``expert_parallel`` > 1 (seq2seq models:
+    ``data_parallel`` 1), a process group of the plan's size (one process
+    per rank) and resident dense layers. Each rank's budget is its own:
+    pass ``device_memory_bytes`` where ranks share a card."""
 
     coordinator_address: str = ""
-    """Coordinator address (host:port) of a multi-host run; the port
-    does not serve multihost (ROADMAP item 18b)."""
+    """host:port of the rendezvous of a ``multihost`` run: the facade then
+    initialises the process group itself (``parallel/multihost.py::
+    init_multihost``: NCCL with a card a rank, else gloo); empty: the caller
+    owns the group (``torchrun`` and ``init_process_group``)."""
 
     num_processes: int = 0
     process_id: int = -1
-    """Explicit process topology for CPU multi-process tests; ignored when
-    coordinator_address is empty."""
+    """This run's world size and this process's rank, for
+    ``coordinator_address``; ignored when it is empty."""
 
     # ---- misc -----------------------------------------------------------
     seed: int = 0

@@ -237,8 +237,22 @@ def test_counters_equal_jax_arena(stores, quant, slots, policy):
 
 def test_unported_options_raise(stores, tmp_path):
     path = stores["int4"]
-    with pytest.raises(NotImplementedError, match="item 18b"):
+    # tensor-parallel columns are ranks of their own (tests/test_torch_pod_tp.py):
+    # tp_mirrors raises saying so, and an arena over a column view is served,
+    # its slots the column's repacked int4 records
+    with pytest.raises(NotImplementedError, match="rank of its own"):
         make_arena(path, 4, tp_mirrors=[("dev", None)])
+    from moe_infinity_tpu_torch.store.column import ColumnShardStore
+
+    view = ColumnShardStore(ExpertStore(path), 1, 2)
+    col = ExpertArena(view, 2, compute_dtype=torch.float32, device="cpu", num_threads=1)
+    try:
+        col.acquire([(0, 3)], 0)
+        assert col.pytree()["gate4"].shape[1:] == view._field_by_name["fc1.weight"].shape
+        _assert_slot_is_record(col, view, (0, 3))
+        col.release([(0, 3)])
+    finally:
+        col.shutdown()
     # served since the host fallback (tests/test_torch_host_fallback.py):
     # the zero slot, one more all-zero row, and dequantized compute-dtype slots
     for kw in (dict(dequant_on_write=True), dict(reserve_zero_slot=True)):

@@ -16,10 +16,12 @@ checkpoint (HF ``MixtralForCausalLM``, seed 1, f32, sharded safetensors):
   timestamps, then ``n``, ``best_of``, stop strings, logprobs, chat, chat
   streaming and ``/metrics``;
 * DeepSeek-V2 through the facade, resident and offload, against JAX's;
-* every plan the port does not serve raises, naming its ROADMAP item
-  (Grok-1 and Arctic are served: tests/test_torch_grok.py and
+* sequence parallelism raises, naming its ROADMAP item; the mesh's degrees
+  are served, or left unused as the JAX facade leaves them (Grok-1 and
+  Arctic are served: tests/test_torch_grok.py and
   tests/test_torch_arctic.py; every load mode is served:
-  tests/test_torch_native_store.py and tests/test_torch_native_sched.py).
+  tests/test_torch_native_store.py and tests/test_torch_native_sched.py;
+  ``multihost``: tests/test_torch_pod_engine.py and test_torch_multihost.py).
 """
 
 import concurrent.futures as cf
@@ -195,18 +197,22 @@ def test_deepseek_through_the_facade(tmp_path):
 
 @pytest.mark.parametrize("cfg,item", [
     (dict(data_parallel=2), None),
-    (dict(multihost=True), "item 18b"),
+    (dict(multihost=True), "expert_parallel > 1"),
     (dict(expert_parallel=2), None),
     (dict(tensor_parallel=2), None),
     (dict(sequence_parallel=2), "item 18c"),
-    (dict(expert_parallel=2, device_memory_bytes=1, dense_paging="off"), "item 18b"),
+    (dict(expert_parallel=2, device_memory_bytes=1, dense_paging="off"), "served"),
+    (dict(expert_parallel=2, tensor_parallel=2, dense_paging="on"), "served"),
 ])
 def test_unported_plans_raise(tiny_ckpt, tmp_path, cfg, item):
-    """multihost, sequence parallelism and offload under a mesh raise; the
-    resident mesh's degrees are served: two gloo ranks on the CPU
+    """Sequence parallelism raises (item 18c), and multihost without an
+    expert axis raises the JAX facade's own ``ValueError``; the resident
+    mesh's degrees are served: two gloo ranks on the CPU
     (tests/torch_mesh_workers.py) each return the one-rank facade's greedy
     tokens, and without a process group of the plan's size the facade
-    raises."""
+    raises. An offload plan or paged dense layers leave the degrees unused,
+    as the JAX facade does (no mesh, no process group needed): the same
+    plan and tokens as the JAX facade's."""
     path, _ = tiny_ckpt
     config = dict(BASE, offload_path=str(tmp_path / "st"), **cfg)
     if item is None:
@@ -223,10 +229,24 @@ def test_unported_plans_raise(tiny_ckpt, tmp_path, cfg, item):
         for r in ranks:
             np.testing.assert_array_equal(r["tokens"].numpy(), want)
         return
-    if "expert_parallel" in cfg:  # a mesh plan reaches its offload refusal on its ranks
-        with pytest.raises(AssertionError, match=item):
-            spawn_ranks("facade", 2, tmp_path / "ranks", dict(
-                path=path, config=config, prompt=PROMPT, new_tokens=1))
+    if item == "served":
+        j, p = _both(path, tmp_path, dict(BASE, **cfg))
+        try:
+            assert p.mesh is None and j.mesh is None
+            assert type(p.engine).__name__ == type(j.engine).__name__ == "OffloadEngine"
+            assert (p.dense_arena is None) == (j.dense_arena is None)
+            got = p.generate(PROMPT, max_new_tokens=6, eos_token_id=None)
+            np.testing.assert_array_equal(got, j.generate(PROMPT, max_new_tokens=6,
+                                                          eos_token_id=None))
+        finally:
+            j.shutdown()
+            p.shutdown()
+        return
+    if item == "expert_parallel > 1":
+        with pytest.raises(ValueError, match=item):
+            JMoE(path, dict(config, offload_path=str(tmp_path / "jax")))
+        with pytest.raises(ValueError, match=item):
+            MoE(path, config, device="cpu")
         return
     with pytest.raises(NotImplementedError, match=item):
         MoE(path, config, device="cpu")

@@ -208,6 +208,33 @@ def test_facade_left_padded_batch_equals_jax(tiny_opt, tmp_path):
         jeng.shutdown()
 
 
+def test_facade_leaves_mesh_degrees_unused(tiny_opt, tmp_path):
+    """A checkpoint with no experts under mesh degrees: the JAX facade builds
+    no mesh and serves alone, and so does the port's (no process group
+    needed; ``OPTModel`` takes no mesh, as JAX's); the same tokens. Under
+    ``multihost`` both raise the JAX facade's ``NotImplementedError``."""
+    path, hf = tiny_opt
+    cfg = {"expert_dtype": "float32", "max_seq_len": 64, "expert_parallel": 2,
+           "data_parallel": 2}
+    prompt = np.array([[5, 9, 33, 7]])
+    eng = MoE(path, dict(cfg, offload_path=str(tmp_path / "port")), device="cpu")
+    jeng = JMoE(path, dict(cfg, offload_path=str(tmp_path / "jax")))
+    try:
+        assert eng.mesh is None and jeng.mesh is None and eng.engine is None
+        got = eng.generate(prompt, max_new_tokens=6, eos_token_id=None)
+        np.testing.assert_array_equal(got, jeng.generate(prompt, max_new_tokens=6,
+                                                         eos_token_id=None))
+        np.testing.assert_array_equal(got, _hf_tokens(hf, prompt, 6))
+    finally:
+        eng.shutdown()
+        jeng.shutdown()
+    for make in (lambda c: MoE(path, c, device="cpu"), lambda c: JMoE(path, c)):
+        with pytest.raises(NotImplementedError, match="no experts"):
+            make(dict(cfg, offload_path=str(tmp_path / "pod"), multihost=True))
+    with pytest.raises(TypeError):
+        OPTModel(OPTSpec.from_hf(OPTConfig(**TINY)), device="cpu", mesh=object())
+
+
 @pytest.mark.parametrize("variant", ["published", "minimal"])
 def test_config_reader_gives_autoconfigs_spec(tmp_path, variant):
     raw = dict(OPT_66B)

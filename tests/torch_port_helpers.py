@@ -401,16 +401,19 @@ class StandIn:
 class ThreadMesh:
     """The ranks of a mesh as threads of one process, for single-process
     tests of a model's mesh branch: ``shape``, ``coords``, ``axis_index``,
-    ``all_reduce``, ``gather_rows`` and ``gather_cols`` as
+    ``all_reduce``, ``gather_rows``, ``gather_cols`` and the host channel
+    (``host_all_reduce``, ``host_broadcast``, ``barrier``) as
     ``parallel.mesh.Mesh`` has them. Every rank calls each collective at the
-    same point (SPMD); ``all_reduce`` sums the ranks that share this one's
-    coordinates off ``axes``, in rank order, between two barriers."""
+    same point (SPMD); a reduction combines the ranks that share this one's
+    coordinates off ``axes``, in rank order, between two barriers. A
+    barrier that waits longer than ``timeout`` seconds, or that a failed
+    rank broke (``run_ranks``), raises ``threading.BrokenBarrierError``."""
 
     def __init__(self, shape, coords, rank, board):
         self.shape, self.coords, self.rank, self._board = shape, coords, rank, board
 
     @classmethod
-    def grid(cls, **sizes):
+    def grid(cls, timeout=120.0, **sizes):
         """One mesh per rank of a grid of ``sizes`` (axes data, model,
         expert, seq; rank order as ``parallel.make_mesh``'s)."""
         import itertools
@@ -420,30 +423,64 @@ class ThreadMesh:
 
         shape = {a: sizes.get(a, 1) for a in AXES}
         coords = [dict(zip(AXES, c)) for c in itertools.product(*(range(shape[a]) for a in AXES))]
-        board = {"parts": {}, "coords": coords, "barrier": threading.Barrier(len(coords))}
+        board = {"parts": {}, "coords": coords,
+                 "barrier": threading.Barrier(len(coords), timeout=timeout)}
         return [cls(shape, c, r, board) for r, c in enumerate(coords)]
 
     def axis_index(self, axis):
         return self.coords[axis]
 
-    def all_reduce(self, t, *axes):
+    def _line(self, axes):
+        """The ranks of this one's line over ``axes`` (None: no live axis)."""
         live = [a for a in self.shape if a in axes and self.shape[a] > 1]
         if not live:
+            return None
+        coords = self._board["coords"]
+
+        def off(r):
+            return tuple(c for a, c in coords[r].items() if a not in live)
+
+        return [r for r in range(len(coords)) if off(r) == off(self.rank)]
+
+    def _combine(self, t, axes, fold):
+        line = self._line(axes)
+        if line is None:
             return t
         b = self._board
         b["parts"][self.rank] = t.clone()
         b["barrier"].wait()
-
-        def off(r):
-            return tuple(c for a, c in b["coords"][r].items() if a not in live)
-
-        total = None
-        for r in sorted(b["parts"]):
-            if off(r) == off(self.rank):
-                total = b["parts"][r].clone() if total is None else total + b["parts"][r]
+        total = fold([b["parts"][r] for r in line])
         b["barrier"].wait()
         t.copy_(total)
         return t
+
+    def all_reduce(self, t, *axes):
+        def total(parts):
+            out = parts[0].clone()
+            for p in parts[1:]:
+                out = out + p
+            return out
+
+        return self._combine(t, axes, total)
+
+    def host_all_reduce(self, t, op, *axes):
+        if op == "sum":
+            return self.all_reduce(t, *axes)
+        fn = {"max": torch.maximum, "min": torch.minimum}[op]
+
+        def fold(parts):
+            out = parts[0].clone()
+            for p in parts[1:]:
+                out = fn(out, p)
+            return out
+
+        return self._combine(t, axes, fold)
+
+    def host_broadcast(self, t, *axes):
+        return self._combine(t, axes, lambda parts: parts[0].clone())
+
+    def barrier(self, timeout=None):
+        self._board["barrier"].wait(timeout)
 
     def gather_rows(self, t, lo, total, axis):
         from moe_infinity_tpu_torch.parallel.mesh import Mesh

@@ -136,7 +136,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    rate, executions per block, host ms per execution, graphs, peak
    memory; K1, K2 and K3 held to 32, 32 and 96 per step and prefill (the
    whole run takes 6 layers, each arena cut by the same share: 11 and 28
-   slots, and 32 tokens, for its time limit; ``--mixtral-offload`` the full
+   slots, and 8 tokens, for its time limit; ``--mixtral-offload`` the full
    32 layers and 64 tokens);
 17. its whole-path check at f32, full width and 3 layers: per-layer and
    speculative step (graph and eager) offload bit-equal to the resident
@@ -407,7 +407,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    axis: K3 planned for a d_ff column or half the rows), all held; 43c's
    host executions above 0, held; each rank's hits, misses, evictions,
    fetches, barrier joins and seconds printed; K1, K2 and K3 launched in
-   every leg of every rank (their launches go into the ``kernels`` line).
+   every leg of every rank (their launches go into the ``kernels`` line);
+44. sequence parallelism (``parallel/sequence.py``, ``ops/ring_attention.py``):
+   the one-rank runs of the same seeds first, in this process, then two
+   ranks spawned as in 42, once for three legs: (a) ``MoE(...,
+   sequence_parallel=2)`` over Mixtral-8x7B at its published width and 2
+   layers (int8 experts from a store written directly under ``.sp_entry/``,
+   git-ignored, deleted after), one greedy request of 4,097 tokens (4,096
+   through the ring, 2,048 a rank, and 1 through the tail) and 16 new ones,
+   then a 1-token request (the resident path, no hop); (b) ``SPDecoder``
+   over DeepSeek-V2-Lite at its published width and 2 layers, 2,048 + 8
+   tokens; (c) ``sp_encode`` over NLLB-MoE-54B's published width, 2 encoder
+   blocks (one MoE), one unpadded 1,024-token document. Each leg at f32
+   through the plain grouped FFN (within 2e-4 of the one-rank run: the
+   prefill's last logits, the encoder output; greedy tokens equal) and
+   through K3 (within 5e-2, tokens equal), held; at bf16 through K3,
+   reported; each rank's K3 launches go into the ``kernels`` line, and a
+   rank that launched none fails the phase. Then (d): ``ring_attention``
+   and ``sp_decode_attention`` on four ranks at Mixtral's attention width
+   (4,096 tokens, 1,024 a rank), within 2e-5 of plain attention. ``[sp]``
+   lines give per leg and rank the seconds, the prefill's tokens/s, the
+   decode step's ms and the bytes the hops sent.
 
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
@@ -430,15 +450,19 @@ batcher inputs and phases 24 to 30, each on a build of its own;
 34 to 37; ``--host-fallback`` the build and phases 37 and 38 (with
 ``--paging``, 34 to 38); ``--loading`` the build and phases 39 and 40;
 ``--scan`` the build and phases 3, 5 and 7 with phase 41 on their builds;
-``--mesh`` the build and phase 42; ``--pod`` the build and phase 43. Each
-prints no result line.
-Every phase prints its seconds (``[phase]``).
+``--mesh`` the build and phase 42; ``--pod`` the build and phase 43;
+``--sp`` the build and phase 44. Each prints no result line.
+Every phase prints its seconds (``[phase]``). For its time limit the whole
+run generates ``WHOLE_RUN_NEW_TOKENS`` (8) greedy tokens a request after
+phase 2 where a phase's flag generates 16, runs the f32 whole paths of 15,
+17, 18, 21 and 22 over half their tokens and steps, and phase 43's NLLB at
+2+2 blocks; each flag runs its phases in full.
 
 The line before the last is the per-kernel JSON record (launches: the sum
 of the counts of phases 3, 5, 7, 9, 11, 13, 14, 16, 18, 19, 21, 22, 23,
 24 to 30 (26's none: a check-only phase), 31, 32, 34, 36 to 38, 39, 40,
-41's timed calls, both ranks' sharded runs of 42 and every rank's legs of
-43, graph replays included; K3's e4m3 kind has its own row, ``gmm_fp8``;
+41's timed calls, both ranks' sharded runs of 42, every rank's legs of
+43 and both ranks' K3 runs of 44, graph replays included; K3's e4m3 kind has its own row, ``gmm_fp8``;
 K2 at head dim 64 has its own row, ``flash_attend_dh64``: a graph
 counts at each replay the launches it recorded when it was captured); the
 last line is
@@ -485,6 +509,13 @@ WHOLE_RUN_PARITY_SEEDS = PARITY_SEEDS[1:]
 PARITY_BLOCKS = 4
 WHOLE_RUN_PARITY_BLOCKS = 2
 NEW_TOKENS = 16
+# the whole run's greedy tokens a request in the phases after phase 2, and the
+# f32 whole paths' tokens and steps (phases 15, 17, 18; 21 and 22), for its
+# time limit (PR 21: phase 44 added, the run read 1,322 s); each phase's flag
+# runs NEW_TOKENS, PARITY_TOKENS and GA_PARITY_STEPS
+WHOLE_RUN_NEW_TOKENS = 8
+WHOLE_RUN_PARITY_TOKENS = 12
+WHOLE_RUN_GA_STEPS = 6
 
 # bench.py MIXTRAL_8X7B_SPEC
 MIXTRAL_8X7B = dict(
@@ -3790,7 +3821,7 @@ MX_SPEC_HBM_GB = 28
 # phase 16's depth in the whole run (its arenas cut by the same share), for
 # the run's time limit; --mixtral-offload runs the full 32
 MX_WHOLE_RUN_DEPTH = 6
-MX_WHOLE_RUN_TOKENS = 16  # and its tokens a generate in the whole run, for the same limit
+MX_WHOLE_RUN_TOKENS = 8  # and its tokens a generate in the whole run, for the same limit
 MIXTRAL_KERNELS = ("flash_decode", "flash_attend", "gmm")
 
 
@@ -8288,7 +8319,7 @@ def phase_loading(dev, requests=EP_REQUESTS):
 # ---------------------------------------------------------------------------
 
 SCAN_TOKENS = 32  # bench.py's presets' --tokens
-WHOLE_RUN_SCAN_TOKENS = 16  # phase 41's steps in the whole run, for its time limit; --scan runs 32
+WHOLE_RUN_SCAN_TOKENS = 8  # phase 41's steps in the whole run, for its time limit; --scan runs 32
 SCAN_BATCH, SCAN_PROMPT = 4, 16  # decoder-only rows and their prompt
 SCAN_CAP = 256  # bench.py's decode_scan caches (bench.py:370)
 SCAN_SAMPLING = dict(temperature=0.8, top_p=0.9, repetition_penalty=1.1)
@@ -8949,14 +8980,18 @@ def _pod_leg(leg, kind, plan, opts, mesh, built, dev):
             "fetches": fetch["fetches_store"] + fetch["fetches_tier"]}, logits, toks
 
 
-def _pod_rank(rank, world, init, out_dir, backend):
+def _pod_rank(rank, world, init, out_dir, backend, blocks=POD_BLOCKS):
     """One rank of phase 43 (spawned): the legs of POD_LEGS[world], each
-    model built once from its seed. Writes its readings (and logits and
-    tokens) to ``out_dir``; raises on a failed leg."""
+    model built once from its seed, NLLB at ``blocks``+``blocks`` (the
+    parent's POD_BLOCKS: a spawned rank imports this module afresh). Writes
+    its readings (and logits and tokens) to ``out_dir``; raises on a failed
+    leg."""
     import traceback
 
     import torch.distributed as dist
 
+    global POD_BLOCKS
+    POD_BLOCKS = blocks
     try:
         from moe_infinity_tpu_torch.parallel import mesh as pm
         from moe_infinity_tpu_torch.parallel.multihost import global_mesh
@@ -8997,7 +9032,8 @@ def _pod_spawn(world, tmp, backend):
 
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_pod_rank, args=(r, world, f"file://{tmp}/rendezvous{world}",
-                                                 tmp, backend)) for r in range(world)]
+                                                 tmp, backend, POD_BLOCKS))
+             for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + POD_TIMEOUT
@@ -9092,6 +9128,625 @@ def phase_pod(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 44: sequence parallelism (item 18c) on two ranks, its ring on four
+# ---------------------------------------------------------------------------
+
+SP_DEPTH = 2  # Mixtral-8x7B's and DeepSeek-V2-Lite's layers, NLLB-MoE-54B's encoder blocks
+SP_PROMPT = 4097  # (a): 4,096 tokens through the ring (2,048 a rank) and 1 through the tail
+SP_SHORT = 1  # (a)'s second request, shorter than the ring: the resident path
+SP_NEW = 16
+SP_MLA_PROMPT, SP_MLA_NEW = 2048, 8  # (b)
+SP_DOC = 1024  # (c): one unpadded document
+SP_MAX_SEQ = 4608  # (a)'s max_seq_len: the one-rank cache, and the tail's columns (tail_cap)
+SP_SEEDS = {"mixtral": 45, "mla": 46, "nllb": 47, "ring": 48}
+# each rank's runs of legs (a)-(c), in order: f32 through the plain grouped
+# FFN ("ragged": one f32 matmul per routed group, the products exact), f32
+# through K3, bf16 through K3; f32 runs are held, bf16 reported
+SP_RUNS = ((torch.float32, "ragged"), (torch.float32, "pallas"), (torch.bfloat16, "pallas"))
+SP_RING = 4  # (d): ring_attention and sp_decode_attention on four ranks
+SP_RING_TOL = 2e-5  # the JAX suite's for the ring primitives (tests/test_sequence_parallel.py)
+SP_TIMEOUT = 420  # seconds a spawn's ranks have in all; a rank still alive then is killed
+SP_DIR = Path(__file__).resolve().parent / ".sp_entry"
+SP_DISK_GB = 5  # int8 store 2.8 + dense archive 0.7, with room
+SP_KERNELS = ("gmm",)
+
+
+def _sp_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _bf16_params(tree, key=None):
+    """The dense tree at bf16 compute, as ``load_params`` casts it: every
+    floating matrix but a router to bf16, vectors and routers as they are."""
+    if isinstance(tree, dict):
+        return {k: _bf16_params(v, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_bf16_params(v, key) for v in tree)
+    if (isinstance(tree, torch.Tensor) and tree.dim() >= 2 and tree.is_floating_point()
+            and key != "router"):
+        return tree.to(torch.bfloat16)
+    return tree
+
+
+def _write_sp_store(root, dev, seed=SP_SEEDS["mixtral"]):
+    """Leg (a)'s model directory with no checkpoint in it: EP_CONFIG's
+    ``config.json`` and, under ``store/``, what the port's ingest writes for
+    it at int8 (a record per expert: w1/w3/w2 int8 in [in, out] with f32
+    per-channel scales; the dense archive in bf16 under HF's names), its
+    values made on the card from ``seed``, so that ``MoE`` starts warm and
+    nothing is quantized on the host. Returns the bytes written."""
+    from moe_infinity_tpu_torch.store.blob import DenseArchiveWriter, ExpertStoreWriter
+
+    c = EP_CONFIG
+    D, F, E = c["hidden_size"], c["intermediate_size"], c["num_local_experts"]
+    V, L, H = c["vocab_size"], c["num_hidden_layers"], c["num_attention_heads"]
+    kvd = c["num_key_value_heads"] * (D // H)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps(c, indent=2))
+    store = root / "store"
+    roles = (("w1", (D, F)), ("w3", (D, F)), ("w2", (F, D)))
+    fields = []
+    for tail, shape in roles:
+        fields += [(tail + ".weight", shape, "int8"), (tail + ".weight.scale", shape[1:], "float32")]
+    meta = {"arch": "mixtral", "num_moe_layers": L, "num_experts": E, "num_encoder_moe_layers": 0,
+            "expert_dtype": "int8", "dense_dtype": "bfloat16", "activation": "silu",
+            "gated": True}
+    w = ExpertStoreWriter(str(store), L, E, fields, meta=meta)
+    total = 0
+    for layer in range(L):
+        for e in range(E):
+            for tail, (din, dout) in roles:
+                q = torch.randint(-127, 128, (din, dout), generator=g, device=dev,
+                                  dtype=torch.int8)
+                s = torch.empty(dout, device=dev).uniform_(2e-4, 3.5e-4, generator=g)
+                w.write_tensor(layer, e, tail + ".weight", q.cpu().numpy())
+                w.write_tensor(layer, e, tail + ".weight.scale", s.cpu().numpy())
+                total += q.numel() + 4 * s.numel()
+    w.finalize()
+    d = DenseArchiveWriter(str(store))
+
+    def put(name, *shape, ones=False):
+        t = (torch.ones(shape, dtype=torch.bfloat16, device=dev) if ones else
+             torch.empty(shape, dtype=torch.bfloat16, device=dev).normal_(0.0, 0.02, generator=g))
+        d.write(name, t.cpu().view(torch.int16).numpy().view(np.uint16))
+        return 2 * t.numel()
+
+    for i in range(L):
+        p = f"model.layers.{i}."
+        total += put(p + "input_layernorm.weight", D, ones=True)
+        total += put(p + "post_attention_layernorm.weight", D, ones=True)
+        total += put(p + "self_attn.q_proj.weight", D, D)
+        total += put(p + "self_attn.k_proj.weight", kvd, D)
+        total += put(p + "self_attn.v_proj.weight", kvd, D)
+        total += put(p + "self_attn.o_proj.weight", D, D)
+        total += put(p + "block_sparse_moe.gate.weight", E, D)
+    total += put("model.embed_tokens.weight", V, D)
+    total += put("model.norm.weight", D, ones=True)
+    total += put("lm_head.weight", V, D)
+    d.finalize()
+    return total
+
+
+def _sp_config(dtype, impl, seq):
+    """Leg (a)'s facade: f32 compute over the store's int8 experts (taken as
+    they are), or bf16; one request at a time."""
+    return {"offload_path": str(SP_DIR / "store"),
+            "expert_dtype": "float32" if dtype == torch.float32 else "int8",
+            "moe_impl": impl, "max_seq_len": SP_MAX_SEQ, "max_batch_size": 1,
+            "sequence_parallel": seq, "dense_paging": "off"}
+
+
+def _sp_prompts():
+    rng = np.random.default_rng(SP_SEEDS["mixtral"])
+    return (rng.integers(3, EP_CONFIG["vocab_size"], (1, SP_PROMPT)),
+            rng.integers(3, EP_CONFIG["vocab_size"], (1, SP_SHORT)))
+
+
+def _sp_mla(dev):
+    """DeepSeek-V2-Lite at SP_DEPTH layers (the dense first one and a MoE
+    layer), bf16 experts, its prompt."""
+    from moe_infinity_tpu_torch.models.deepseek_v2 import DeepseekV2Model, DeepseekV2Spec
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    spec = DeepseekV2Spec(**dict(DSV2_LITE, num_layers=SP_DEPTH))
+    model = DeepseekV2Model(spec, compute_dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SP_SEEDS["mla"])
+    params, tree = model.init_random(g, expert_dtype="bf16")
+    prompt = np.random.default_rng(SP_SEEDS["mla"]).integers(3, spec.vocab_size,
+                                                              (1, SP_MLA_PROMPT))
+    return spec, params, ResidentProvider(tree).pytree(), prompt
+
+
+def _sp_nllb(dev):
+    """NLLB-MoE-54B with SP_DEPTH encoder blocks (the second sparse, int4
+    experts) and one dense decoder block, f32, one unpadded document."""
+    from moe_infinity_tpu_torch.models.nllb import NllbModel, NllbSpec
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    spec = NllbSpec(**dict(NLLB_54B, encoder_layers=SP_DEPTH, decoder_layers=1,
+                           encoder_sparse_step=2, decoder_sparse_step=0))
+    g = torch.Generator(device=dev)
+    g.manual_seed(SP_SEEDS["nllb"])
+    params, tree = NllbModel(spec, compute_dtype=torch.float32, device=dev).init_random(g)
+    doc = np.random.default_rng(SP_SEEDS["nllb"]).integers(3, spec.vocab_size, (1, SP_DOC))
+    doc[0, -1] = 2  # eos closes the document
+    return spec, params, ResidentProvider(tree).pytree(), doc
+
+
+def _sp_model(kind, spec, dtype, dev):
+    from moe_infinity_tpu_torch.models.deepseek_v2 import DeepseekV2Model
+    from moe_infinity_tpu_torch.models.mixtral import MixtralModel
+    from moe_infinity_tpu_torch.models.nllb import NllbModel
+
+    cls = {"mixtral": MixtralModel, "mla": DeepseekV2Model, "nllb": NllbModel}[kind]
+    return cls(spec, compute_dtype=dtype, device=dev)
+
+
+def check_gmm_sp(dev):
+    """K3 at one rank's Mixtral-8x7B MoE layer in leg (a)'s prefill: 2,048
+    tokens x top-2 = 4,096 rows over the 8 experts, int8 with per-channel
+    scales, D=4096 F=14336, gate + up + down, each role held against
+    gmm_plain, then timed."""
+    E, D, F = (MIXTRAL_8X7B["num_experts"], MIXTRAL_8X7B["hidden_size"],
+               MIXTRAL_8X7B["intermediate_size"])
+    g = torch.Generator(device=dev)
+    g.manual_seed(SP_SEEDS["mixtral"])
+    w, sc = _layer_weights(g, dev, E, D, F, "int8")
+    tokens = (SP_PROMPT - 1) // 2
+    gid, gsz, active = _routed_rows(g, dev, tokens, E)
+    x = torch.randn(2 * tokens, D, generator=g, device=dev).to(torch.bfloat16)
+    r = _check_layer(f"int8 Mixtral SP prefill rows={2 * tokens} active={active}", x, w, sc,
+                     gsz, active, group_ids=gid)
+    say(f"[time] gmm Mixtral sequence-parallel prefill MoE layer of one rank (gate + up + down, "
+        f"{2 * tokens} rows over {active} experts, group sizes {gsz.tolist()}, int8 + scales, "
+        f"D={D} F={F}): ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+        f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) library_ms=None (no PyTorch call takes "
+        f"int8 weights with per-channel scales) max_abs_err={r['max_abs_err']:.3e}")
+    del w, sc, x, r
+    torch.cuda.empty_cache()
+
+
+def _sp_references(dev, out_dir):
+    """The one-rank runs of legs (a)-(c), in this process, for each run of
+    SP_RUNS: (a) the facade's weights (``MoE`` with sequence_parallel 1)
+    through a ``ResidentStepper``: the logits after the ring's 4,096 tokens
+    and ``Generator``'s greedy tokens, and the facade's own tokens for the
+    short request; (b) DeepSeek-V2-Lite's prefill logits and greedy tokens;
+    (c) NLLB's ``encode``. Saved to ``out_dir``; returns the seconds of the
+    one-rank prefills (the encode), by leg and run."""
+    from moe_infinity_tpu_torch.entrypoints.api import MoE
+    from moe_infinity_tpu_torch.runtime.generate import Generator, ResidentStepper
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    fl = ResidentProvider.for_layer
+    secs = {}
+
+    def decoder_refs(kind, model, params, experts, prompt, n, ring_len, extra=None):
+        for dtype, impl in SP_RUNS:
+            f32 = dtype == torch.float32
+            m = model if f32 else _sp_model(kind, model.spec, dtype, dev)
+            st = ResidentStepper(m, params if f32 else _bf16_params(params), experts, fl,
+                                 impl=impl, graphs=False)
+            ids = torch.as_tensor(prompt[:, :ring_len], dtype=torch.int32, device=dev)
+            pos = torch.arange(ring_len, dtype=torch.int32, device=dev)[None]
+            _sp_sync(dev)
+            t0 = time.perf_counter()
+            logits = st.forward(ids, pos, st.init_cache(1, ring_len), 0)[0][:, -1]
+            _sp_sync(dev)
+            secs[f"{kind}_{impl}_{str(dtype)[6:]}"] = time.perf_counter() - t0
+            toks = Generator(stepper=st, max_seq_len=SP_MAX_SEQ).generate(
+                prompt, max_new_tokens=n, eos_token_id=None).sequences
+            np.savez(Path(out_dir, f"ref_{kind}_{impl}_{str(dtype)[6:]}.npz"),
+                     out=logits.float().cpu().numpy(), tokens=np.asarray(toks), **(extra or {}))
+            del st, logits
+            torch.cuda.empty_cache()
+
+    prompt, short = _sp_prompts()
+    ref = MoE(str(SP_DIR), _sp_config(torch.float32, "ragged", 1), device=dev)
+    try:
+        short_toks = ref.generate(short, max_new_tokens=SP_NEW, eos_token_id=None)
+        decoder_refs("mixtral", ref.model, ref.params, ref.generator.stepper.experts, prompt,
+                     SP_NEW, SP_PROMPT - 1, extra={"short": short_toks})
+    finally:
+        ref.shutdown()
+    del ref
+    torch.cuda.empty_cache()
+    spec, params, experts, mprompt = _sp_mla(dev)
+    decoder_refs("mla", _sp_model("mla", spec, torch.float32, dev), params, experts, mprompt,
+                 SP_MLA_NEW, SP_MLA_PROMPT)
+    del params, experts
+    torch.cuda.empty_cache()
+    spec, params, experts, doc = _sp_nllb(dev)
+    mask = torch.ones(doc.shape, dtype=torch.float32, device=dev)
+    ids = torch.as_tensor(doc, device=dev)
+    for dtype, impl in SP_RUNS:
+        f32 = dtype == torch.float32
+        m = _sp_model("nllb", spec, dtype, dev)
+        _sp_sync(dev)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = m.encode(params if f32 else _bf16_params(params), experts, ids, mask, fl, impl)
+        _sp_sync(dev)
+        secs[f"nllb_{impl}_{str(dtype)[6:]}"] = time.perf_counter() - t0
+        np.savez(Path(out_dir, f"ref_nllb_{impl}_{str(dtype)[6:]}.npz"),
+                 out=out.float().cpu().numpy())
+        del out
+    del params, experts
+    torch.cuda.empty_cache()
+    return secs
+
+
+def _sp_timed(dec, dev):
+    """Record the seconds of ``dec``'s prefill and of each of its steps."""
+    t = {"prefill": 0.0, "steps": []}
+    prefill, step = dec.prefill, dec.step
+
+    def timed_prefill(tokens):
+        _sp_sync(dev)
+        t0 = time.perf_counter()
+        out = prefill(tokens)
+        _sp_sync(dev)
+        t["prefill"] = time.perf_counter() - t0
+        return out
+
+    def timed_step(token, g):
+        _sp_sync(dev)
+        t0 = time.perf_counter()
+        out = step(token, g)
+        _sp_sync(dev)
+        t["steps"].append(time.perf_counter() - t0)
+        return out
+
+    dec.prefill, dec.step = timed_prefill, timed_step
+    return t
+
+
+def _sp_run(leg, kind, dtype, impl, mesh, dev, fn, out_dir, rank, tokens_in):
+    """One run of a leg on this rank: ``fn()`` -> (output to hold, tokens or
+    None, timings or None), its K3 launches and hop bytes. Saves the arrays;
+    returns the reading."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+
+    hops = mesh.hop_bytes
+    reset_launches()
+    _sp_sync(dev)
+    t0 = time.perf_counter()
+    out, toks, times = fn()
+    _sp_sync(dev)
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    name = str(dtype)[6:]
+    np.savez(Path(out_dir, f"{leg}_{impl}_{name}_rank{rank}.npz"), out=out.float().cpu().numpy(),
+             **({} if toks is None else {"tokens": np.asarray(toks)}))
+    pre = times["prefill"] if times else secs
+    steps = times["steps"] if times else []
+    return {"leg": leg, "kind": kind, "dtype": name, "impl": impl, "seconds": secs,
+            "prefill_s": pre, "prefill_tokens": tokens_in, "tokens_per_s": tokens_in / pre,
+            "step_ms": 1e3 * float(np.mean(steps)) if steps else None, "steps": len(steps),
+            "hop_bytes": mesh.hop_bytes - hops, "launches": counts}
+
+
+def _sp_legs(rank, mesh, dev, out_dir):
+    """Legs (a)-(c) on this rank; returns their readings."""
+    from moe_infinity_tpu_torch.entrypoints.api import MoE
+    from moe_infinity_tpu_torch.parallel.sequence import SPDecoder, sp_encode
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    fl = ResidentProvider.for_layer
+    readings = []
+    # (a) through the facade: f32 (the plain grouped FFN, then K3 in the same
+    # SPDecoder), then bf16 through K3 over the facade's weights cast
+    prompt, short = _sp_prompts()
+    moe = MoE(str(SP_DIR), _sp_config(torch.float32, "ragged", 2), device="cuda"
+              if dev.type == "cuda" else "cpu")
+    try:
+        if moe.sp_decoder is None or moe.mesh.shape["seq"] != 2:
+            raise AssertionError("sp (a): the facade built no long-context lane")
+        dec = moe.sp_decoder
+        # a short request through the lane first: the rank's first kernels,
+        # handles and allocations are not timed below
+        moe.generate(prompt[:, :64], max_new_tokens=2, eos_token_id=None)
+        times = _sp_timed(dec, dev)
+        for dtype, impl in SP_RUNS:
+            if dtype == torch.float32:
+                dec.impl = impl
+
+                def run():
+                    toks = moe.generate(prompt, max_new_tokens=SP_NEW, eos_token_id=None)
+                    return dec.last_logits, toks, dict(times)
+            else:
+                bf = SPDecoder(_sp_model("mixtral", moe.model.spec, dtype, dev),
+                               _bf16_params(moe.params), dec.experts, moe.mesh, for_layer=fl,
+                               impl=impl, tail_cap=SP_MAX_SEQ)
+                bt = _sp_timed(bf, dev)
+
+                def run():
+                    toks = bf.generate(prompt, max_new_tokens=SP_NEW)
+                    return bf.last_logits, toks[None], bt
+            times["steps"] = []
+            readings.append(_sp_run("a", "mixtral", dtype, impl, moe.mesh, dev, run, out_dir,
+                                    rank, SP_PROMPT - 1))
+        dec.impl = "ragged"
+        hops = moe.mesh.hop_bytes
+        short_toks = moe.generate(short, max_new_tokens=SP_NEW, eos_token_id=None)
+        np.savez(Path(out_dir, f"a_short_rank{rank}.npz"), tokens=short_toks,
+                 hops=moe.mesh.hop_bytes - hops)
+    finally:
+        moe.shutdown()
+    del moe, dec
+    torch.cuda.empty_cache()
+    # (b) SPDecoder over DeepSeek-V2-Lite
+    spec, params, experts, mprompt = _sp_mla(dev)
+    for dtype, impl in SP_RUNS:
+        f32 = dtype == torch.float32
+        d = SPDecoder(_sp_model("mla", spec, dtype, dev), params if f32 else _bf16_params(params),
+                      experts, mesh, for_layer=fl, impl=impl, tail_cap=SP_MLA_NEW)
+        t = _sp_timed(d, dev)
+
+        def run():
+            toks = d.generate(mprompt, max_new_tokens=SP_MLA_NEW, eos_token_id=None)
+            return d.last_logits, toks[None], t
+        readings.append(_sp_run("b", "mla", dtype, impl, mesh, dev, run, out_dir, rank,
+                                SP_MLA_PROMPT))
+        del d
+    del params, experts
+    torch.cuda.empty_cache()
+    # (c) sp_encode over NLLB-MoE-54B
+    spec, params, experts, doc = _sp_nllb(dev)
+    for dtype, impl in SP_RUNS:
+        f32 = dtype == torch.float32
+        m = _sp_model("nllb", spec, dtype, dev)
+        p = params if f32 else _bf16_params(params)
+
+        def run():
+            with torch.inference_mode():
+                return sp_encode(m, p, experts, doc, mesh, for_layer=fl, impl=impl), None, None
+        readings.append(_sp_run("c", "nllb", dtype, impl, mesh, dev, run, out_dir, rank, SP_DOC))
+    del params, experts
+    torch.cuda.empty_cache()
+    return readings
+
+
+def _sp_ring_inputs(dev):
+    """(d)'s inputs at Mixtral-8x7B's attention width, f32, the same on
+    every rank: q/k/v [1, 4096, H, 128] (rope-free), a one-token query and
+    a tail of 16 columns."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(SP_SEEDS["ring"])
+    H, Hkv, Dh, T = (MIXTRAL_8X7B["num_heads"], MIXTRAL_8X7B["num_kv_heads"],
+                     MIXTRAL_8X7B["head_dim"], SP_PROMPT - 1)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
+
+    return (rnd(1, T, H, Dh), rnd(1, T, Hkv, Dh), rnd(1, T, Hkv, Dh), rnd(1, 1, H, Dh),
+            rnd(1, 16, Hkv, Dh), rnd(1, 16, Hkv, Dh))
+
+
+SP_RING_TAIL = 5  # (d)'s valid tail columns
+
+
+def _sp_ring(rank, mesh, dev, out_dir):
+    """(d) on this rank of four: its time block through ``ring_attention``
+    (three hops) and the decode merge over its shard."""
+    from moe_infinity_tpu_torch.ops.ring_attention import ring_attention, sp_decode_attention
+
+    q, k, v, q1, tk, tv = _sp_ring_inputs(dev)
+    Tl = q.shape[1] // SP_RING
+    blk = slice(rank * Tl, (rank + 1) * Tl)
+    _sp_sync(dev)
+    t0 = time.perf_counter()
+    out = ring_attention(q[:, blk], k[:, blk], v[:, blk], mesh)
+    _sp_sync(dev)
+    ring_s = time.perf_counter() - t0
+    dec = sp_decode_attention(q1, k[:, blk], v[:, blk], tk, tv, SP_RING_TAIL, mesh)
+    np.savez(Path(out_dir, f"d_rank{rank}.npz"), out=out.cpu().numpy(), dec=dec.cpu().numpy())
+    return {"ring_s": ring_s, "hop_bytes": mesh.hop_bytes}
+
+
+def _sp_rank(rank, world, init, out_dir, backend):
+    """One rank of phase 44 (spawned): legs (a)-(c) on a ``seq`` mesh of two,
+    or (d) on a ring of four. Writes its readings to ``out_dir``; raises on
+    a failed step."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        from moe_infinity_tpu_torch.parallel import mesh as pm
+
+        dev = _rank_device(rank)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+        mesh = pm.make_mesh(pm.MeshPlan(seq=world))
+        if world == SP_RING:
+            out = _sp_ring(rank, mesh, dev, out_dir)
+        else:
+            out = {"legs": _sp_legs(rank, mesh, dev, out_dir)}
+        torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+        Path(out_dir, f"sp_rank{rank}_{world}.json").write_text(json.dumps(out))
+    except BaseException:
+        Path(out_dir, f"sp_rank{rank}_{world}.err").write_text(traceback.format_exc())
+        raise
+
+
+def _sp_spawn(world, tmp, backend):
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_sp_rank, args=(r, world, f"file://{tmp}/sp_rendezvous{world}",
+                                                tmp, backend)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SP_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    errs = "".join(Path(tmp, f"sp_rank{r}_{world}.err").read_text() for r in range(world)
+                   if Path(tmp, f"sp_rank{r}_{world}.err").exists())
+    if hung:
+        raise AssertionError(f"sp: ranks {hung} of {world} did not finish in {SP_TIMEOUT} s"
+                             f"\n{errs}")
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"sp: rank exit codes {codes} of {world}\n{errs}")
+    return [json.loads(Path(tmp, f"sp_rank{r}_{world}.json").read_text()) for r in range(world)]
+
+
+def _sp_ring_check(dev, tmp, ranks):
+    """(d)'s blocks against the port's plain attention over the whole
+    sequence (``models.layers.attend_reference``, f32), held at
+    SP_RING_TOL."""
+    from moe_infinity_tpu_torch.models.layers import attend_reference
+
+    q, k, v, q1, tk, tv = _sp_ring_inputs(dev)
+    T = q.shape[1]
+    pos = torch.arange(T, dtype=torch.int32, device=dev)[None]
+    want = attend_reference(q, k, v, pos, T).cpu().numpy()
+    kf = torch.cat([k, tk[:, :SP_RING_TAIL]], dim=1)
+    vf = torch.cat([v, tv[:, :SP_RING_TAIL]], dim=1)
+    S = T + SP_RING_TAIL
+    want_dec = attend_reference(q1, kf, vf, torch.full((1, 1), S - 1, dtype=torch.int32,
+                                                       device=dev), S).cpu().numpy()
+    del q, k, v, kf, vf
+    torch.cuda.empty_cache()
+    Tl = T // SP_RING
+    for r, res in enumerate(ranks):
+        got = np.load(Path(tmp, f"d_rank{r}.npz"))
+        err = float(np.abs(got["out"] - want[:, r * Tl:(r + 1) * Tl]).max())
+        dec_err = float(np.abs(got["dec"] - want_dec).max())
+        say(f"[sp] (d) rank {r} of {SP_RING}: ring_attention over {T} tokens ({Tl} a rank, "
+            f"H={q1.shape[2]} over {tk.shape[2]} KV heads, f32) against plain attention "
+            f"max_abs_err={err:.4e}, the decode merge over the shards and {SP_RING_TAIL} tail "
+            f"columns max_abs_err={dec_err:.4e} (held at {SP_RING_TOL:g}); ring {res['ring_s']:.3f} s, "
+            f"{res['hop_bytes']} bytes hopped")
+        if not (err <= SP_RING_TOL and dec_err <= SP_RING_TOL):
+            raise AssertionError(f"sp (d) rank {r}: ring max_abs_err {err:.3e}, decode "
+                                 f"{dec_err:.3e} (limit {SP_RING_TOL:g})")
+
+
+def phase_sp(dev):
+    """Phase 44: sequence parallelism (``parallel/sequence.py``,
+    ``ops/ring_attention.py``) on two ranks spawned once for three legs, a
+    ``file://`` rendezvous, gloo on one card (NCCL with a card a rank): (a)
+    ``MoE(..., sequence_parallel=2)`` over Mixtral-8x7B at its published
+    width and SP_DEPTH layers (int8 experts from a store written directly
+    under SP_DIR), one greedy request of SP_PROMPT tokens (4,096 through
+    the ring, 1 through the tail) and SP_NEW new ones, then a request
+    shorter than the ring (the resident path); (b) ``SPDecoder`` over
+    DeepSeek-V2-Lite at SP_DEPTH layers, SP_MLA_PROMPT tokens and
+    SP_MLA_NEW new; (c) ``sp_encode`` over NLLB-MoE-54B's SP_DEPTH encoder
+    blocks and one unpadded SP_DOC-token document (K3 first, alone, at one
+    rank's MoE layer of (a)'s prefill). Each f32 run is held to
+    the one-rank run of the same seed (this process): MESH_TOL through the
+    plain grouped FFN, MESH_K3_TOL through K3 (each rank's K3 sees half the
+    rows), greedy tokens equal; bf16 is reported. Then (d): the ring itself
+    on four ranks, where a hop's direction matters. Returns the ranks' K3
+    launches."""
+    import shutil
+    import tempfile
+
+    n = torch.cuda.device_count()
+    backend = "nccl" if n >= 2 else "gloo"
+    say(f"[sp] 2 ranks on {min(n, 2)} card(s), backend {backend}"
+        + (" (CUDA tensors staged through the host)" if backend == "gloo" else "")
+        + f": (a) MoE(sequence_parallel=2) over Mixtral-8x7B at {SP_DEPTH} layers, int8 "
+          f"experts, a {SP_PROMPT}-token request and {SP_NEW} new tokens; (b) SPDecoder over "
+          f"DeepSeek-V2-Lite at {SP_DEPTH} layers, {SP_MLA_PROMPT} + {SP_MLA_NEW} tokens; (c) "
+          f"sp_encode over NLLB-MoE-54B's {SP_DEPTH} encoder blocks, a {SP_DOC}-token document; "
+          f"runs {[(str(d)[6:], i) for d, i in SP_RUNS]}; (d) the ring on {SP_RING} ranks")
+    _check_disk(SP_DIR.parent, SP_DISK_GB, "44", "sp")
+    check_gmm_sp(dev)
+    counts = {}
+    try:
+        t0 = time.perf_counter()
+        nbytes = _write_sp_store(SP_DIR, dev)
+        say(f"[sp] (a)'s store written directly: {nbytes / 1e9:.2f} GB in "
+            f"{time.perf_counter() - t0:.1f} s")
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            one = _sp_references(dev, tmp)
+            say(f"[sp] one-rank references: {time.perf_counter() - t0:.1f} s (prefills and "
+                "encodes: " + ", ".join(f"{k} {v:.3f} s" for k, v in one.items()) + ")")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            ranks = _sp_spawn(2, tmp, backend)
+            say(f"[sp] 2 ranks over {backend}: {time.perf_counter() - t0:.1f} s")
+            _sp_hold(tmp, ranks, one, counts)
+            t0 = time.perf_counter()
+            ring = _sp_spawn(SP_RING, tmp, "nccl" if n >= SP_RING else "gloo")
+            say(f"[sp] {SP_RING} ranks: {time.perf_counter() - t0:.1f} s")
+            _sp_ring_check(dev, tmp, ring)
+    finally:
+        shutil.rmtree(SP_DIR, ignore_errors=True)
+    counts = {k: v for k, v in counts.items() if v}
+    say(f"[sp] K3 launches of both ranks' legs {json.dumps(counts)}")
+    return counts
+
+
+def _sp_hold(tmp, ranks, one, counts):
+    """Each rank's runs against the one-rank references; adds the ranks'
+    launches to ``counts``."""
+    for r, res in enumerate(ranks):
+        for rd in res["legs"]:
+            leg, kind, impl, name = rd["leg"], rd["kind"], rd["impl"], rd["dtype"]
+            got = np.load(Path(tmp, f"{leg}_{impl}_{name}_rank{r}.npz"))
+            ref = np.load(Path(tmp, f"ref_{kind}_{impl}_{name}.npz"))
+            want = ref["out"]
+            if leg == "c":  # this rank's block of the encoder output
+                Tl = want.shape[1] // 2
+                want = want[:, r * Tl:(r + 1) * Tl]
+            err = float(np.abs(got["out"] - want).max())
+            held = name == "float32"
+            tol = MESH_TOL if impl != "pallas" else MESH_K3_TOL
+            same = None if leg == "c" else bool(np.array_equal(got["tokens"], ref["tokens"]))
+            missing = [k for k in SP_KERNELS if impl == "pallas" and rd["launches"].get(k, 0) <= 0]
+            what = {"a": "prefill's last logits", "b": "prefill's last logits",
+                    "c": "encoder output"}[leg]
+            steps = (f", decode step {rd['step_ms']:.2f} ms ({rd['steps']} steps)"
+                     if rd["step_ms"] is not None else "")
+            say(f"[sp] ({leg}) rank {r} {name} impl={impl}: {what} (up to "
+                f"{np.abs(want).max():.4g}) max_abs_err={err:.4e} ("
+                + (f"held at {tol:g}" if held else "reported") + ")"
+                + ("" if same is None else f", greedy tokens equal {same}"
+                   + (" (held)" if held else " (reported)"))
+                + f"; {rd['seconds']:.2f} s, prefill {rd['prefill_tokens']} tokens in "
+                  f"{rd['prefill_s']:.3f} s ({rd['tokens_per_s']:.1f} tokens/s; one rank "
+                  f"{rd['prefill_tokens'] / one[f'{kind}_{impl}_{name}']:.1f}){steps}, hops sent "
+                  f"{rd['hop_bytes']} bytes; launches "
+                  f"{json.dumps({k: v for k, v in rd['launches'].items() if v})}")
+            if missing or (held and (err > tol or same is False)):
+                raise AssertionError(
+                    f"sp ({leg}) rank {r} {name} impl={impl}: max_abs_err {err:.3e} (limit "
+                    f"{tol:g}), tokens equal {same}, kernels not launched {missing}")
+            if not np.isfinite(got["out"]).all():
+                raise AssertionError(f"sp ({leg}) rank {r} {name} impl={impl}: not finite")
+            counts.update({k: counts.get(k, 0) + v for k, v in rd["launches"].items()})
+        short = np.load(Path(tmp, f"a_short_rank{r}.npz"))
+        ref = np.load(Path(tmp, "ref_mixtral_ragged_float32.npz"))
+        same = bool(np.array_equal(short["tokens"], ref["short"]))
+        say(f"[sp] (a) rank {r}: a {SP_SHORT}-token request (shorter than the ring) took the "
+            f"resident path: greedy tokens equal {same} (held), hops sent {int(short['hops'])} "
+            f"bytes (held at 0)")
+        if not same or int(short["hops"]):
+            raise AssertionError(f"sp (a) rank {r}: the short request's tokens equal {same}, "
+                                 f"hops {int(short['hops'])}")
+
+
 def main() -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -9160,6 +9815,10 @@ def main() -> int:
         timed(phase_pod)
         say(f"[card] {smi}")
         return 0
+    if "--sp" in sys.argv[1:]:
+        timed(phase_sp)
+        say(f"[card] {smi}")
+        return 0
     if "--resident" in sys.argv[1:]:
         timed(phase_main_path)
         timed(phase_mixtral)
@@ -9221,8 +9880,10 @@ def main() -> int:
     recs = timed(phase_kernels)
     # the whole run's cuts of earlier paths' steps and requests, for its time
     # limit (each path whole under its flag; PERF.md section 6)
-    global SCAN_TOKENS, ARB_PROMPTS
+    global SCAN_TOKENS, ARB_PROMPTS, NEW_TOKENS, PARITY_TOKENS, GA_PARITY_STEPS, POD_BLOCKS
     SCAN_TOKENS, ARB_PROMPTS = WHOLE_RUN_SCAN_TOKENS, ARB_PROMPTS[:WHOLE_RUN_ARB_REQUESTS]
+    NEW_TOKENS, PARITY_TOKENS = WHOLE_RUN_NEW_TOKENS, WHOLE_RUN_PARITY_TOKENS
+    GA_PARITY_STEPS, POD_BLOCKS = WHOLE_RUN_GA_STEPS, WHOLE_RUN_PARITY_BLOCKS
     scan = {}  # phase 41's launches, by model
     counts = timed(phase_main_path, extra, scan)
     timed(phase_whole_path)
@@ -9259,13 +9920,14 @@ def main() -> int:
     extra["phase_loading"] = timed(phase_loading, WHOLE_RUN_LOAD_REQUESTS)  # phases 39-40
     mesh_counts = timed(phase_mesh)  # phase 42: the ranks' launches
     pod_counts = timed(phase_pod)  # phase 43: the ranks' launches
+    sp_counts = timed(phase_sp)  # phase 44: the ranks' K3 launches
     say(f"[batchers] launches by phase {json.dumps(extra)}")
     say(f"[scan] launches of phase 41's timed calls {json.dumps(scan)}")
     for r in recs:
         r["launches"] = sum(c.get(r["name"], 0) for c in (
             counts, mix_counts, mla_counts, off_counts, spec_counts, st_counts, sw_counts,
             sw_off_counts, mx_off_counts, ds_off_counts, ep_counts, gk_counts, ac_counts, ge_counts,
-            *extra.values(), *scan.values(), mesh_counts, pod_counts))
+            *extra.values(), *scan.values(), mesh_counts, pod_counts, sp_counts))
         r.pop("shape")
     say(f"[card] {smi}")
     print(json.dumps({"kernels": recs}), flush=True)

@@ -68,8 +68,14 @@ layer), with ``coordinator_address`` initialising the process group
 ``expert_parallel`` > 1 and resident dense layers, and seq2seq models take
 ``data_parallel`` 1, as in the JAX facade.
 
-``sequence_parallel`` above 1 raises ``NotImplementedError`` naming ROADMAP
-queue-1 item 18c.
+``sequence_parallel`` above 1 opens the long-context lane on a resident
+decoder-only plan, as the JAX facade does: the caller starts that many ranks
+(as for a mesh), and a batch-1 greedy request whose prompt is at least one
+ring long is served by ``parallel.SPDecoder`` (ring-attention prefill,
+decode over the frozen time shards) over a ``seq`` mesh; every other request
+takes the resident path on each rank, eagerly. It is exclusive with the
+other degrees (``NotImplementedError``, the JAX facade's message); an
+offload or paged plan, a seq2seq or a dense-only model leaves it unused.
 """
 
 from __future__ import annotations
@@ -83,7 +89,6 @@ import torch
 
 from moe_infinity_tpu_torch import resolve_device
 from moe_infinity_tpu_torch.ops.moe import capturable
-from moe_infinity_tpu_torch.runtime.engine import _not_ported
 from moe_infinity_tpu_torch.utils.config import EngineConfig
 from moe_infinity_tpu_torch.utils.logger import get_logger
 
@@ -136,12 +141,6 @@ def _to_device(tree, device):
     from moe_infinity_tpu_torch.runtime.dense_arena import tree_map
 
     return tree_map(lambda t: t.to(device) if isinstance(t, torch.Tensor) else t, tree)
-
-
-def _check_config(config: EngineConfig) -> None:
-    """Raise for the options whose plans the port does not serve."""
-    if config.sequence_parallel > 1:
-        raise _not_ported(f"sequence_parallel={config.sequence_parallel}", "18c")
 
 
 def _rank_share_bytes(params, shardings, plan) -> int:
@@ -199,8 +198,8 @@ class MoE:
         elif isinstance(config, dict):
             config = EngineConfig.load_from_json(config)
         self.config = config
-        _check_config(config)
         self.mesh = None
+        self.sp_decoder = None  # the long-context lane (sequence_parallel)
         plan = _mesh_plan(config)
         if config.multihost and config.coordinator_address:
             from moe_infinity_tpu_torch.parallel.multihost import init_multihost
@@ -208,8 +207,8 @@ class MoE:
             init_multihost(config.coordinator_address,
                            num_processes=config.num_processes or None,
                            process_id=None if config.process_id < 0 else config.process_id)
-        if (plan is not None or config.multihost) and torch.distributed.is_available() \
-                and torch.distributed.is_initialized():
+        if (plan is not None or config.multihost or config.sequence_parallel > 1) \
+                and torch.distributed.is_available() and torch.distributed.is_initialized():
             from moe_infinity_tpu_torch.parallel.mesh import mesh_device
 
             device = mesh_device(device)  # each rank's own card
@@ -310,6 +309,10 @@ class MoE:
                 dense_share = _rank_share_bytes(
                     self.params, mixtral_param_shardings(None, self.params), plan)
             if share <= budget - dense_share:
+                if config.sequence_parallel > 1 and not seq2seq:
+                    raise NotImplementedError(
+                        "sequence_parallel is currently exclusive with "
+                        "data/tensor/expert_parallel")
                 self._build_mesh(plan, model_cls, spec, compute_dtype)
                 expert_bytes, dense_bytes = share, dense_share
         if plan is not None and self.mesh is None:
@@ -326,8 +329,11 @@ class MoE:
         def offload_parts():
             from moe_infinity_tpu_torch.runtime.arena import ExpertArena
 
-            num_slots = config.num_slots or max(
-                store.num_experts, int((budget - dense_bytes) // store.stride))
+            # the budget's slots, at most one for every expert of the store:
+            # a slot past L x E is never used, and each one is zero-filled
+            num_slots = config.num_slots or min(
+                store.num_layers * store.num_experts,
+                max(store.num_experts, int((budget - dense_bytes) // store.stride)))
             logger.info("offload plan: %d arena slots of %d (L x E) experts",
                         num_slots, store.num_layers * store.num_experts)
             arena = ExpertArena(store, num_slots, compute_dtype=compute_dtype,
@@ -416,6 +422,12 @@ class MoE:
 
         # ---- decoder-only: resident stepper or the offload engine -------
         if fits:
+            if config.sequence_parallel > 1:
+                # the long-context lane's ranks: the rest of the plan serves
+                # as under a mesh (eagerly, no batcher)
+                from moe_infinity_tpu_torch.parallel.mesh import MeshPlan, make_mesh
+
+                self.mesh = make_mesh(MeshPlan(seq=config.sequence_parallel))
             experts = resident_experts()
             stepper = ResidentStepper(self.model, self.params, experts,
                                       ResidentProvider.for_layer, impl=config.moe_impl,
@@ -423,6 +435,13 @@ class MoE:
                                       graphs=self.mesh is None)
             if config.data_parallel > 1:
                 stepper.set_data_sharding(self.mesh)
+            if config.sequence_parallel > 1:
+                from moe_infinity_tpu_torch.parallel.sequence import SPDecoder
+
+                self.sp_decoder = SPDecoder(
+                    self.model, self.params, experts, self.mesh,
+                    for_layer=ResidentProvider.for_layer, impl=config.moe_impl,
+                    tail_cap=config.max_seq_len)
         else:
             from moe_infinity_tpu_torch.runtime.engine import OffloadEngine
 
@@ -608,6 +627,20 @@ class MoE:
                 arr[0], max_new_tokens=kwargs.get("max_new_tokens", 32),
                 eos_token_id=kwargs.get("eos_token_id"))
             return out[None]
+        # the long-context lane: greedy batch-1 prompts at least one ring long
+        if (self.sp_decoder is not None and arr.shape[0] == 1
+                and not kwargs.get("do_sample")
+                and float(kwargs.get("temperature", 0.0) or 0.0) == 0.0
+                and not kwargs.get("logprobs")
+                and not kwargs.get("logit_bias")
+                and not kwargs.get("collect_trace")
+                and arr.shape[1] >= self.sp_decoder.s):
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            seq = self.sp_decoder.generate(
+                arr, max_new_tokens=kwargs.get("max_new_tokens", 32),
+                eos_token_id=kwargs.get("eos_token_id"))
+            return seq[None]
         if (self.batcher is not None and arr.shape[0] == 1
                 and not kwargs.get("logprobs") and not kwargs.get("collect_trace")):
             do_sample = kwargs.get("do_sample")

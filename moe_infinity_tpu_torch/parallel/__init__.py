@@ -1,8 +1,8 @@
 """Parallel serving over ``torch.distributed``, from
 ``moe_infinity_tpu/parallel``: the resident mesh (``mesh.py``), several
-processes (``multihost.py``) and expert-parallel offload across ranks
-(``pod.py``). Sequence parallelism (``sequence.py``) is not ported: its names
-raise ``NotImplementedError`` naming ROADMAP item 18c."""
+processes (``multihost.py``), expert-parallel offload across ranks
+(``pod.py``) and sequence parallelism (``sequence.py``: ring-attention
+prefill and encode, decode over the frozen time shards)."""
 
 from moe_infinity_tpu_torch.parallel.mesh import (
     MeshPlan,
@@ -17,8 +17,12 @@ from moe_infinity_tpu_torch.parallel.pod import (
     PodPrefetchCoordinator,
     PodSpecView,
 )
-
-_LATER = {"sp_prefill": "18c", "sp_encode": "18c", "SPDecoder": "18c", "caches_from_sp": "18c"}
+from moe_infinity_tpu_torch.parallel.sequence import (
+    SPDecoder,
+    caches_from_sp,
+    sp_encode,
+    sp_prefill,
+)
 
 __all__ = [
     "MeshPlan",
@@ -30,12 +34,8 @@ __all__ = [
     "PodPrefetchCoordinator",
     "PodOffloadExecutor",
     "PodSpecView",
+    "sp_prefill",
+    "sp_encode",
+    "caches_from_sp",
+    "SPDecoder",
 ]
-
-
-def __getattr__(name):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"moe_infinity_tpu_torch.parallel.{name} is not ported "
-            f"(ROADMAP queue-1 item {_LATER[name]})")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

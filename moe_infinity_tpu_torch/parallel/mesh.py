@@ -16,13 +16,17 @@ Axes:
   model  - tensor parallelism: Mixtral's attention heads and vocabulary, and
            the experts' d_ff (``common/arch.py::TP_MODEL_DIMS``)
   expert - expert parallelism: dim 0 of every stacked expert array
-  seq    - sequence parallelism: not ported (ROADMAP item 18c)
+  seq    - sequence parallelism: a prompt's time blocks
+           (``parallel/sequence.py``, ``ops/ring_attention.py``)
 
-Collectives are ``all_reduce``, ``broadcast`` and ``barrier`` only: a gather
-is an ``all_reduce`` of a zero-filled buffer holding each rank's part. Gloo
-takes CUDA tensors for those three alone (staging them through the host),
-which is how two ranks share one card; over NCCL, with one rank a card, the
-same code runs unchanged.
+Collectives are ``all_reduce`` (a sum, or a max or min), ``broadcast``,
+``barrier`` and the ring hop: a gather is an ``all_reduce`` of a zero-filled
+buffer holding each rank's part. Gloo takes CUDA tensors for the first
+three (staging them through the host), which is how two ranks share one
+card; its point-to-point sends take CPU tensors only, so ``ring_hop`` stages
+a CUDA tensor through host buffers under gloo and sends the device tensor
+itself over NCCL, where the rest of the code runs unchanged with one rank a
+card.
 
 The host channel: the pod protocol (``parallel/pod.py``) exchanges small
 host-side tables every MoE layer (slot fragments, resident sets, error
@@ -79,6 +83,7 @@ class Mesh:
         self.timeout = timeout
         self._groups = groups
         self._host_groups = host_groups
+        self.hop_bytes = 0  # bytes this rank sent on ring hops (``ring_hop``)
 
     def axis_index(self, axis: str) -> int:
         return self.coords[axis]
@@ -93,14 +98,42 @@ class Mesh:
             raise ValueError(f"no process group over {live}")
         return group
 
-    def all_reduce(self, t: torch.Tensor, *axes: str) -> torch.Tensor:
-        """Sum ``t`` in place over the ranks that share this rank's
-        coordinates on every axis but ``axes``; axes of size 1 take no
-        collective."""
+    def all_reduce(self, t: torch.Tensor, *axes: str, op: str = "sum") -> torch.Tensor:
+        """Reduce ``t`` in place (``op``: "sum", "max" or "min") over the
+        ranks that share this rank's coordinates on every axis but ``axes``;
+        axes of size 1 take no collective."""
         live = self._live(axes)
         if live:
-            dist.all_reduce(t, group=self._group(self._groups, live))
+            dist.all_reduce(t, op=_OPS[op], group=self._group(self._groups, live))
         return t
+
+    def ring_hop(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """One hop of a ring over ``axis``: sends ``t`` to the next rank of
+        this rank's line (coordinate i + 1, the last to the first) and
+        returns the tensor the previous one sent, of ``t``'s shape and type.
+        Both ops are posted at once (``batch_isend_irecv``), so no rank
+        waits on a send its peer has not matched. Under gloo a CUDA tensor
+        rides host buffers: gloo's sends take CPU tensors only, and one
+        handed a CUDA tensor does not refuse it but aborts the process in
+        its I/O thread. Counts the bytes sent in ``hop_bytes``."""
+        n = self.shape[axis]
+        if n == 1:
+            return t
+        group = self._group(self._groups, (axis,))
+        i = self.axis_index(axis)
+        nxt = dist.get_global_rank(group, (i + 1) % n)
+        prv = dist.get_global_rank(group, (i - 1) % n)
+        staged = t.is_cuda and dist.get_backend(group) == "gloo"
+        send = t.contiguous()
+        if staged:
+            send = send.cpu()
+        recv = torch.empty_like(send)
+        reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, nxt, group),
+                                       dist.P2POp(dist.irecv, recv, prv, group)])
+        for r in reqs:
+            r.wait()
+        self.hop_bytes += send.numel() * send.element_size()
+        return recv.to(t.device) if staged else recv
 
     def host_all_reduce(self, t: torch.Tensor, op: str, *axes: str) -> torch.Tensor:
         """Reduce the CPU tensor ``t`` in place (``op``: "sum", "max" or
@@ -174,9 +207,6 @@ def make_mesh(plan: MeshPlan, *, tp_inner: bool = False,
     requires. timeout: seconds a collective of these groups waits for a
     peer before it raises (the backend's default when None). Raises when no
     process group is initialised or its world size is not the plan's."""
-    if plan.seq > 1:
-        raise NotImplementedError(
-            "a seq mesh axis (sequence parallelism) is not ported (ROADMAP queue-1 item 18c)")
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
             f"a mesh of {plan} needs an initialised torch.distributed process group "

@@ -16,7 +16,8 @@ checkpoint (HF ``MixtralForCausalLM``, seed 1, f32, sharded safetensors):
   timestamps, then ``n``, ``best_of``, stop strings, logprobs, chat, chat
   streaming and ``/metrics``;
 * DeepSeek-V2 through the facade, resident and offload, against JAX's;
-* sequence parallelism raises, naming its ROADMAP item; the mesh's degrees
+* the long-context lane (``sequence_parallel``) on two gloo ranks, and
+  raising beside another degree; the mesh's degrees
   are served, or left unused as the JAX facade leaves them (Grok-1 and
   Arctic are served: tests/test_torch_grok.py and
   tests/test_torch_arctic.py; every load mode is served:
@@ -65,6 +66,10 @@ def _both(path, tmp_path, cfg):
 
 BASE = {"expert_dtype": "float32", "max_seq_len": 64}
 OFFLOAD = dict(BASE, device_memory_bytes=1, dense_paging="off", prefetch=False, num_threads=1)
+# a budget that leaves both facades' paged plans an arena of tens of slots
+# (58 at the JAX facade's sizing; the port's takes the tiny store's 8): the
+# JAX facade's default 16 GiB sized it at 629,143
+PAGED_BUDGET = 1_500_000
 
 
 @pytest.mark.parametrize("cfg,plan", [
@@ -200,21 +205,52 @@ def test_deepseek_through_the_facade(tmp_path):
     (dict(multihost=True), "expert_parallel > 1"),
     (dict(expert_parallel=2), None),
     (dict(tensor_parallel=2), None),
-    (dict(sequence_parallel=2), "item 18c"),
+    (dict(sequence_parallel=2), "item 18c"),  # the long-context lane, served
     (dict(expert_parallel=2, device_memory_bytes=1, dense_paging="off"), "served"),
-    (dict(expert_parallel=2, tensor_parallel=2, dense_paging="on"), "served"),
+    (dict(expert_parallel=2, tensor_parallel=2, dense_paging="on",
+          device_memory_bytes=PAGED_BUDGET), "served"),
+    (dict(sequence_parallel=2, expert_parallel=2), "exclusive"),
+    (dict(sequence_parallel=2, device_memory_bytes=1, dense_paging="off"), "served"),
 ])
 def test_unported_plans_raise(tiny_ckpt, tmp_path, cfg, item):
-    """Sequence parallelism raises (item 18c), and multihost without an
-    expert axis raises the JAX facade's own ``ValueError``; the resident
-    mesh's degrees are served: two gloo ranks on the CPU
-    (tests/torch_mesh_workers.py) each return the one-rank facade's greedy
-    tokens, and without a process group of the plan's size the facade
-    raises. An offload plan or paged dense layers leave the degrees unused,
-    as the JAX facade does (no mesh, no process group needed): the same
-    plan and tokens as the JAX facade's."""
+    """Multihost without an expert axis raises the JAX facade's own
+    ``ValueError``, sequence parallelism with another degree its
+    ``NotImplementedError``; the resident mesh's degrees are served: two
+    gloo ranks on the CPU (tests/torch_mesh_workers.py) each return the
+    one-rank facade's greedy tokens, and without a process group of the
+    plan's size the facade raises. The long-context lane
+    (``sequence_parallel=2``) on two gloo ranks returns the JAX facade's
+    greedy tokens for a prompt at least one ring long (through the ring:
+    its hops sent bytes) and for a shorter one (the resident path, no hop).
+    An offload plan or paged dense layers leave the degrees unused, as the
+    JAX facade does (no mesh, no process group needed): the same plan and
+    tokens as the JAX facade's."""
     path, _ = tiny_ckpt
     config = dict(BASE, offload_path=str(tmp_path / "st"), **cfg)
+    if item == "item 18c":
+        prompts = [np.array([[5, 9, 33, 7, 2, 40, 11, 3, 8]]), np.array([[5]])]
+        j = JMoE(path, dict(config, offload_path=str(tmp_path / "jax")))
+        try:
+            want = [j.generate(p, max_new_tokens=6) for p in prompts]
+        finally:
+            j.shutdown()
+        # the store first, on its own: two ranks ingesting one directory race
+        MoE(path, dict(BASE, offload_path=config["offload_path"]), device="cpu").shutdown()
+        ranks = spawn_ranks("sp_facade", 2, tmp_path / "ranks", dict(
+            path=path, config=config, prompts=prompts, new_tokens=6))
+        for r, got in enumerate(ranks):
+            assert got["lane"] and got["coords"]["seq"] == r
+            for toks, w in zip(got["tokens"], want):
+                np.testing.assert_array_equal(toks.numpy(), w)
+            assert got["hop_bytes"][0] > 0 and got["hop_bytes"][1] == got["hop_bytes"][0]
+        return
+    if item == "exclusive":
+        msg = "sequence_parallel is currently exclusive with data/tensor/expert_parallel"
+        with pytest.raises(NotImplementedError, match=msg):
+            JMoE(path, dict(config, offload_path=str(tmp_path / "jax")))
+        with pytest.raises(NotImplementedError, match=msg):
+            MoE(path, config, device="cpu")
+        return
     if item is None:
         with pytest.raises(RuntimeError, match="process group"):
             MoE(path, config, device="cpu")
@@ -253,7 +289,7 @@ def test_unported_plans_raise(tiny_ckpt, tmp_path, cfg, item):
 
 
 @pytest.mark.parametrize("cfg", [
-    dict(dense_paging="on"),
+    dict(dense_paging="on", device_memory_bytes=PAGED_BUDGET),
     dict(device_memory_bytes=1),  # dense_paging "auto" pages, the experts offload
     dict(host_fallback=True),
     dict(device_memory_bytes=1, dense_paging="off", host_fallback=True,

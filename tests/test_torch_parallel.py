@@ -208,11 +208,20 @@ def test_facade_expert_parallel_returns_unsharded_tokens(tmp_path):
 
 
 def test_mesh_needs_a_process_group_of_its_size():
-    with pytest.raises(RuntimeError, match="process group"):
-        parallel.make_mesh(parallel.MeshPlan(expert=2))
-    with pytest.raises(NotImplementedError, match="item 18c"):
-        parallel.make_mesh(parallel.MeshPlan(seq=2))
-    with pytest.raises(NotImplementedError, match="item 18c"):
-        parallel.SPDecoder
+    """A ``seq`` axis makes a mesh as the other axes do (two gloo ranks:
+    tests/test_torch_ring_attention.py), ``seq`` innermost in the rank grid
+    as in JAX's ``make_mesh``; sequence parallelism imports from the
+    package (tests/test_torch_sequence.py)."""
+    from moe_infinity_tpu_torch.parallel.mesh import rank_grid
+
+    for plan in (parallel.MeshPlan(expert=2), parallel.MeshPlan(seq=2)):
+        with pytest.raises(RuntimeError, match="process group"):
+            parallel.make_mesh(plan)
+    plan = dict(data=2, expert=2, seq=2)
+    devices = jax.devices()
+    want = np.vectorize(devices.index)(jmake_mesh(JMeshPlan(**plan)).devices)
+    np.testing.assert_array_equal(rank_grid(parallel.MeshPlan(**plan)), want)
+    assert parallel.SPDecoder.__module__ == "moe_infinity_tpu_torch.parallel.sequence"
+    assert {"sp_prefill", "sp_encode", "caches_from_sp", "SPDecoder"} <= set(parallel.__all__)
     # offload across ranks is served (tests/test_torch_pod_engine.py)
     assert parallel.PodExpertPlan.__module__ == "moe_infinity_tpu_torch.parallel.pod"

@@ -1,5 +1,6 @@
-"""Rank workers of tests/test_torch_parallel.py: each runs in a process of
-its own (``spawn``), joins a gloo process group through a ``file://``
+"""Rank workers of tests/test_torch_parallel.py, test_torch_ring_attention.py
+and test_torch_entrypoints.py: each runs in a process of its own
+(``spawn``), joins a gloo process group through a ``file://``
 rendezvous, runs one task on the CPU and saves what it computed with
 ``torch.save``. Imports torch and the port only (no JAX), so that a rank
 starts quickly; pytest does not collect it (no ``test_`` prefix).
@@ -224,7 +225,48 @@ def pod_fail(rank, *, store_dir, spec, fault, timeout):
     return {"error": err, "seconds": time.monotonic() - t0}
 
 
-TASKS = {"ep_ffn": ep_ffn, "mixtral": mixtral, "facade": facade, "pod_facade": pod_facade,
+def ring(rank, *, world, q, k, v, q1, tail_k, tail_v, g):
+    """The real mesh's ring hop and ``all_reduce(max)`` on a ``seq`` axis of
+    ``world`` gloo ranks, then ``ring_attend`` and ``sp_decode_attention``
+    over them (the shards of ``k``/``v`` by rank)."""
+    from moe_infinity_tpu_torch.ops.ring_attention import ring_attend, sp_decode_attention
+
+    mesh = pm.make_mesh(pm.MeshPlan(seq=world))
+    t = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * rank
+    out = {"hop": mesh.ring_hop(t, "seq"),
+           "hop_bf16": mesh.ring_hop(t.to(torch.bfloat16), "seq"),
+           "hop_bytes": mesh.hop_bytes,
+           "max": mesh.all_reduce(torch.tensor([rank, -rank, 7], dtype=torch.float32), "seq",
+                                  op="max"),
+           "sum": mesh.all_reduce(torch.tensor([rank, 1], dtype=torch.int32), "seq")}
+    q, k, v = torch.tensor(q), torch.tensor(k), torch.tensor(v)
+    out["attend"] = ring_attend(q, k, v, mesh)
+    Ts = k.shape[1] // world
+    out["decode"] = sp_decode_attention(torch.tensor(q1), k[:, rank * Ts:(rank + 1) * Ts],
+                                        v[:, rank * Ts:(rank + 1) * Ts], torch.tensor(tail_k),
+                                        torch.tensor(tail_v), g, mesh)
+    return out
+
+
+def sp_facade(rank, *, path, config, prompts, new_tokens):
+    """``MoE(..., sequence_parallel=2)``: each prompt's greedy tokens and the
+    bytes this rank's ring hops had sent after it."""
+    from moe_infinity_tpu_torch.entrypoints.api import MoE
+
+    moe = MoE(path, config, device="cpu")
+    try:
+        out = {"tokens": [], "hop_bytes": [], "lane": moe.sp_decoder is not None,
+               "coords": dict(moe.mesh.coords)}
+        for p in prompts:
+            out["tokens"].append(torch.from_numpy(
+                moe.generate(np.asarray(p), max_new_tokens=new_tokens)))
+            out["hop_bytes"].append(moe.mesh.hop_bytes)
+        return out
+    finally:
+        moe.shutdown()
+
+
+TASKS = {"ep_ffn": ep_ffn, "ring": ring, "sp_facade": sp_facade, "mixtral": mixtral, "facade": facade, "pod_facade": pod_facade,
          "pod_facade_coordinator": pod_facade, "pod_fail": pod_fail}
 SELF_INIT = {"pod_facade_coordinator"}
 NO_BARRIER = {"pod_fail"}

@@ -33,6 +33,12 @@ PROMPT = np.array([[5, 9, 33, 7]])
 TWO = np.array([[5, 9, 33, 7], [3, 14, 15, 9]])
 NEW = 6
 CAP = 64
+# the host fallback's deadlines: an ungated arena's fetches land well inside
+# OPEN_DEADLINE on a loaded machine, a gated arena's never land, so only the
+# gated coordinates' experts run on the host and the host count does not
+# depend on the machine's load
+OPEN_DEADLINE = 30.0
+GATED_DEADLINE = 0.02
 
 
 def tiny_mixtral(root, expert_dtypes=("float32",)):
@@ -64,6 +70,13 @@ class Gate:
 
     def release(self):
         self.open.set()
+
+
+def short_deadline(arena):
+    """Make ``arena`` wait GATED_DEADLINE for its fetches, whatever deadline
+    the executor passes (a gated arena's fetches never land)."""
+    inner = arena.try_acquire
+    arena.try_acquire = lambda keys, layer, timeout: inner(keys, layer, GATED_DEADLINE)
 
 
 def gated(base):
@@ -122,10 +135,11 @@ def jax_run(tiny, plan, s_local, prompt, n=NEW, *, gate_coords=(), host_fallback
     model = JMixtral(JSpec.from_hf(cfg), compute_dtype=jnp.float32, mesh=mesh)
     params = model.load_params(JDense(store_dir))
     ex = JExec(mesh, JStore(store_dir), s_local, compute_dtype=jnp.float32, num_threads=1,
-               host_fallback=host_fallback, host_fallback_timeout=0.02)
+               host_fallback=host_fallback, host_fallback_timeout=OPEN_DEADLINE)
     gate = Gate()
     for key in gate_coords:  # the arenas share one store: gate this arena's alone
         ex.arenas[key].store = GateWrap(ex.arenas[key].store, gate)
+        short_deadline(ex.arenas[key])
     kw = {}
     if prefetch:
         tracer = JTracer(16, model.spec.num_layers, E)
@@ -177,7 +191,9 @@ def port_run(tiny, sizes, s_local, prompt, n=NEW, *, gate_coords=(), host_fallba
         params = model.load_params(DenseArchive(store_dir))
         ex = PodOffloadExecutor(mesh, store, s_local, compute_dtype=torch.float32, device="cpu",
                                 num_threads=1, host_fallback=host_fallback,
-                                host_fallback_timeout=0.02)
+                                host_fallback_timeout=OPEN_DEADLINE)
+        if gated_here:
+            short_deadline(ex.arena)
         kw = {}
         if prefetch:
             tracer = ExpertTracer(16, spec.num_layers, E)

@@ -402,8 +402,8 @@ class ThreadMesh:
     """The ranks of a mesh as threads of one process, for single-process
     tests of a model's mesh branch: ``shape``, ``coords``, ``axis_index``,
     ``all_reduce``, ``gather_rows``, ``gather_cols`` and the host channel
-    (``host_all_reduce``, ``host_broadcast``, ``barrier``) as
-    ``parallel.mesh.Mesh`` has them. Every rank calls each collective at the
+    (``host_all_reduce``, ``host_broadcast``, ``barrier``) and ``ring_hop``
+    as ``parallel.mesh.Mesh`` has them. Every rank calls each collective at the
     same point (SPMD); a reduction combines the ranks that share this one's
     coordinates off ``axes``, in rank order, between two barriers. A
     barrier that waits longer than ``timeout`` seconds, or that a failed
@@ -411,6 +411,7 @@ class ThreadMesh:
 
     def __init__(self, shape, coords, rank, board):
         self.shape, self.coords, self.rank, self._board = shape, coords, rank, board
+        self.hop_bytes = 0
 
     @classmethod
     def grid(cls, timeout=120.0, **sizes):
@@ -454,19 +455,8 @@ class ThreadMesh:
         t.copy_(total)
         return t
 
-    def all_reduce(self, t, *axes):
-        def total(parts):
-            out = parts[0].clone()
-            for p in parts[1:]:
-                out = out + p
-            return out
-
-        return self._combine(t, axes, total)
-
-    def host_all_reduce(self, t, op, *axes):
-        if op == "sum":
-            return self.all_reduce(t, *axes)
-        fn = {"max": torch.maximum, "min": torch.minimum}[op]
+    def all_reduce(self, t, *axes, op="sum"):
+        fn = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}[op]
 
         def fold(parts):
             out = parts[0].clone()
@@ -475,6 +465,26 @@ class ThreadMesh:
             return out
 
         return self._combine(t, axes, fold)
+
+    def host_all_reduce(self, t, op, *axes):
+        return self.all_reduce(t, *axes, op=op)
+
+    def ring_hop(self, t, axis):
+        """The tensor the previous rank of this one's line over ``axis``
+        passed (each rank passes ``t`` to coordinate i + 1)."""
+        n = self.shape[axis]
+        if n == 1:
+            return t
+        coords = self._board["coords"]
+        want = dict(self.coords, **{axis: (self.coords[axis] - 1) % n})
+        prev = coords.index(want)
+        b = self._board
+        b["parts"][self.rank] = t.clone()
+        b["barrier"].wait()
+        got = b["parts"][prev]
+        b["barrier"].wait()
+        self.hop_bytes += t.numel() * t.element_size()
+        return got
 
     def host_broadcast(self, t, *axes):
         return self._combine(t, axes, lambda parts: parts[0].clone())

@@ -29,7 +29,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    Grok-1's batch-1 and W=8 MoE layers and Arctic's batch-1 layer (its row
    ``gmm_fp8``), and K1, K2 (both bodies) and K4 at Grok-1's rep 6 with its
    softcap 30 and score scale and at Arctic's rep 7, bf16 and f32, timed
-   beside SDPA for rep 7;
+   beside SDPA for rep 7; and K1, K2 (the few-row route and the tiled
+   kernels) and K4 on the zero-padded instances (``flash_attention_pad128.cu``
+   and ``pad256.cu``)
+   and on row groups: OPT-2.7B's decode (B = 4 and 8, H = 32, head dim 80)
+   and prefill (T = 32, causal), head dim 256, head dim 97 (rows of no
+   multiple of 16 bytes) and rep 16 (64 heads over 4 at 128), bf16 and f32,
+   timed beside SDPA in bf16, each launch under its instance's name;
 3. the seq2seq main path: NLLB-MoE-54B geometry (d_model 2048, 16 heads,
    FFN 8192, 128 experts top-2, every 4th block sparse, vocab 256,206) with
    random weights from a seed, bf16 compute, packed int4 experts, resident
@@ -427,7 +433,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    and ``sp_decode_attention`` on four ranks at Mixtral's attention width
    (4,096 tokens, 1,024 a rank), within 2e-5 of plain attention. ``[sp]``
    lines give per leg and rank the seconds, the prefill's tokens/s, the
-   decode step's ms and the bytes the hops sent.
+   decode step's ms and the bytes the hops sent;
+45. OPT-2.7B at its published width and full depth (facebook/opt-2.7b:
+   hidden 2560, FFN 10240, 32 layers, 32 heads of 80, vocab 50,272, 2048
+   positions, ReLU, pre-norm), weights from a seed, through the padded
+   instances of K1 and K2 (``flash_decode_pad128``, ``flash_attend_pad128``;
+   the head-dim-128 instances must not launch): (a) bf16 resident through
+   ``ResidentStepper`` and ``Generator``, 4 requests x 8 greedy tokens after a
+   warm-up generate, tokens/s and ms a step; then at f32 the prefill's and a
+   decode step's logits within 1e-3 (rtol = atol) of the same model under the
+   einsum oracle and the greedy tokens equal, held; (b) ``MoE`` from a
+   checkpoint of its published ``config.json`` cut to 2 layers (bf16
+   safetensors from a seed under ``.opt27_entry/``, deleted at the end),
+   ingested at f32: tokens equal to a direct ``Generator`` over the
+   archive's params.
 
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
@@ -451,7 +470,8 @@ batcher inputs and phases 24 to 30, each on a build of its own;
 ``--paging``, 34 to 38); ``--loading`` the build and phases 39 and 40;
 ``--scan`` the build and phases 3, 5 and 7 with phase 41 on their builds;
 ``--mesh`` the build and phase 42; ``--pod`` the build and phase 43;
-``--sp`` the build and phase 44. Each prints no result line.
+``--sp`` the build and phase 44; ``--opt27`` the build, phase 2's checks at
+other head dims and rep 16, and phase 45. Each prints no result line.
 Every phase prints its seconds (``[phase]``). For its time limit the whole
 run generates ``WHOLE_RUN_NEW_TOKENS`` (8) greedy tokens a request after
 phase 2 where a phase's flag generates 16, runs the f32 whole paths of 15,
@@ -462,8 +482,10 @@ The line before the last is the per-kernel JSON record (launches: the sum
 of the counts of phases 3, 5, 7, 9, 11, 13, 14, 16, 18, 19, 21, 22, 23,
 24 to 30 (26's none: a check-only phase), 31, 32, 34, 36 to 38, 39, 40,
 41's timed calls, both ranks' sharded runs of 42, every rank's legs of
-43 and both ranks' K3 runs of 44, graph replays included; K3's e4m3 kind has its own row, ``gmm_fp8``;
-K2 at head dim 64 has its own row, ``flash_attend_dh64``: a graph
+43, both ranks' K3 runs of 44 and 45, graph replays included; K3's e4m3 kind has its own row, ``gmm_fp8``;
+K2 at head dim 64 has its own row, ``flash_attend_dh64``, and K1 and K2 on
+their padded instance of width 128 theirs, ``flash_decode_pad128`` and
+``flash_attend_pad128`` (phase 45's OPT-2.7B at head dim 80): a graph
 counts at each replay the launches it recorded when it was captured); the
 last line is
 ``{"ok": true, "device": {...}}``.
@@ -610,7 +632,8 @@ def phase_device():
 
     t0 = time.perf_counter()
     libs = _build.build_all()
-    say(f"[build] {len(libs)} libraries built in {time.perf_counter() - t0:.1f} s")
+    say(f"[build] {len(libs)} libraries built in {time.perf_counter() - t0:.1f} s "
+        f"(each nvcc's seconds: {json.dumps(_build.BUILD_SECONDS)})")
     for stem, path in libs.items():
         log = path.with_suffix(".log")
         if log.exists():
@@ -942,6 +965,158 @@ def check_opt_attention(g, dev):
         f"library_ms={cuda_ms(_sdpa_mask_call(q, k, v, mask)):.5f} (SDPA) launches per "
         f"prefill 64")
     return errs
+
+
+# ---- phase 2: K1, K2 and K4 at other head dims and rep 16 ----------------------
+
+# (label, B values, H, Hkv, Dh, what the shape stands for); each timed in bf16
+HEAD_DIM_CASES = (
+    ("OPT-2.7B", (4, 8), 32, 32, 80, "decode and prefill of phase 45"),
+    ("Dh 256", (4,), 16, 8, 256, "the width-256 instance at its full width"),
+    ("Dh 97", (4,), 8, 4, 97, "rows of no multiple of 16 bytes in bf16 or f32"),
+    ("rep 16", (4,), 64, 4, 128, "Qwen3-235B-A22B's 64 query heads over 4"),
+)
+HD_LIVE = 48  # the decode rows' live keys of a 64-column cache (32 + 16, as phase 34's)
+HD_T = 32  # the prefill's queries (causal over the cache's first 32 columns)
+
+
+def _sdpa_gqa(q, k, v, mask):
+    """SDPA over [B, T, H, Dh] queries with the KV heads expanded to H
+    beforehand (not timed), a float mask."""
+    import torch.nn.functional as F_
+
+    rep = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kx = k.repeat_interleave(rep, dim=2).transpose(1, 2)
+    vx = v.repeat_interleave(rep, dim=2).transpose(1, 2)
+    return lambda: F_.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask)
+
+
+def _hd_time(name, label, run, plain, nbytes, flops, lib, launches):
+    """One [time] line; returns its record (ms, plain_ms, bound, library_ms)."""
+    b_ms, b_by = bound_ms(nbytes, flops)
+    rec = dict(ms=cuda_ms(run), plain_ms=cuda_ms(plain, iters=5, warmup=1), bound_ms=b_ms,
+               bound_by=b_by, library_ms=cuda_ms(lib))
+    say(f"[time] {name} {label}: ms={rec['ms']:.5f} plain_ms={rec['plain_ms']:.4f} "
+        f"bound_ms={b_ms:.6f} ({b_by}) library_ms={rec['library_ms']:.5f} (SDPA, KV heads "
+        f"expanded beforehand where rep > 1) launches {launches}")
+    return rec
+
+
+def check_head_dims(dev):
+    """K1, K2 (the few-row route and the tiled kernels) and K4 on the
+    padded instances (``csrc/flash_attention_pad128.cu``, ``pad256.cu``) and on row groups
+    (rep 16), against the plain versions, bf16 (2e-2) and f32 (2e-3):
+    OPT-2.7B's decode (B = 4 and 8, H = 32, Dh = 80, 48 live keys of a
+    64-column cache, contiguous and paged through a shuffled page table of
+    16-key pages with 10% holes) and prefill (T = 32, causal; and one token
+    with a pad bias, the few-row route), the same at Dh 256 (rep 2), Dh 97
+    (rep 2) and rep 16 (64 heads over 4 at Dh 128). bf16 times beside SDPA.
+    Each launch is counted under its instance's name. Draws from its own
+    generator. Returns ({launch name: largest error}, {launch name: the
+    record of its OPT-2.7B B = 4 shape, for the kernels line})."""
+    from moe_infinity_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(22)
+    errs, recs = {}, {}
+    S, P = 64, 64 // PAGE
+    for label, batches, H, Hkv, Dh, what in HEAD_DIM_CASES:
+        sfx = fa._instance(Dh)[2]
+        sc = Dh ** -0.5
+        for B in batches:
+            for dtype in (torch.bfloat16, torch.float32):
+                dn = "bf16" if dtype == torch.bfloat16 else "f32"
+                tol = TOL if dtype == torch.bfloat16 else 2e-3
+                es = 2 if dtype == torch.bfloat16 else 4
+                tag = f"{label} ({what}) B={B} H={H} Hkv={Hkv} Dh={Dh} {dn}"
+                NP = B * P + 8
+                q, pk, pv, table, lengths, holes = _paged_case(
+                    g, dev, dtype, B=B, H=H, Hkv=Hkv, P=P, NP=NP, lengths=[HD_LIVE] * B,
+                    Dh=Dh)
+                idx = table.long()
+                k, v = pk[idx].reshape(B, S, Hkv, Dh), pv[idx].reshape(B, S, Hkv, Dh)
+                qpos = torch.full((B, 1), HD_LIVE - 1, dtype=torch.int32, device=dev)
+                before = dict(fa.LAUNCHES)
+                dec = lambda: fa.flash_decode(q[:, None], k, v, qpos, HD_LIVE)  # noqa: E731
+                dec_plain = lambda: fa.flash_decode_plain(  # noqa: E731
+                    q, k, v, qpos[:, 0], HD_LIVE, scale=sc)
+                paged = lambda: fa.paged_flash_decode(  # noqa: E731
+                    q, pk, pv, table, lengths, pad_mask=holes)
+                paged_plain = lambda: fa.paged_flash_decode_plain(  # noqa: E731
+                    q, pk, pv, table, lengths, scale=sc, pad_mask=holes)
+                qq = torch.randn(B, HD_T, H, Dh, generator=g, device=dev).to(dtype)
+                pos = torch.arange(HD_T, dtype=torch.int32, device=dev).expand(B, HD_T).contiguous()
+                pre = lambda: fa.flash_attend(qq, k, v, pos, HD_T, causal=True)  # noqa: E731
+                pre_plain = lambda: fa.flash_attend_plain(  # noqa: E731
+                    qq, k, v, pos, HD_T, scale=sc, causal=True)
+                bias = torch.where(holes, 0.0, torch.finfo(torch.float32).min)[:, None, None]
+                q1, pos1 = qq[:, -1:].contiguous(), pos[:, -1:].contiguous()
+                one = lambda: fa.flash_attend(  # noqa: E731
+                    q1, k, v, pos1, S, causal=False, bias=bias)
+                one_plain = lambda: fa.flash_attend_plain(  # noqa: E731
+                    q1, k, v, pos1, S, scale=sc, causal=False, bias=bias)
+                for name, got, want in (
+                        ("flash_decode", lambda: dec()[:, 0], dec_plain),
+                        ("paged_flash_decode", paged, paged_plain),
+                        ("flash_attend", pre, pre_plain),
+                        ("flash_attend", one, one_plain)):
+                    key = name + sfx
+                    errs[key] = max(errs.get(key, 0.0),
+                                    compare(f"{key} {tag}", got(), want(), tol))
+                ran = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES
+                       if fa.LAUNCHES[n] != before[n]}
+                want_runs = {"flash_decode" + sfx: 1, "paged_flash_decode" + sfx: 1,
+                             "flash_attend" + sfx: 2}
+                if ran != want_runs:
+                    raise AssertionError(f"{tag}: launches {ran}, expected {want_runs}")
+                if dtype != torch.bfloat16:
+                    continue
+                # bf16 times: bytes of q and out, the K/V rows read once
+                # (decode: the live ones under the holes for K4), the ints
+                valid = int(holes[:, :HD_LIVE].sum())
+                live_mask = torch.zeros(B, 1, 1, S, dtype=dtype, device=dev)
+                live_mask[..., HD_LIVE:] = float("-inf")
+                hole_mask = torch.where(holes & (torch.arange(S, device=dev) < HD_LIVE),
+                                        0.0, float("-inf")).to(dtype)[:, None, None]
+                qi = torch.arange(HD_T, device=dev)[:, None]
+                ki = torch.arange(S, device=dev)[None, :]
+                causal_mask = torch.where((ki <= qi) & (ki < HD_T), 0.0, float("-inf")).to(
+                    dtype)[None, None]
+                opt = label == "OPT-2.7B"
+                r1 = _hd_time(
+                    "flash_decode" + sfx, tag + f", {HD_LIVE} live keys", lambda: dec()[:, 0],
+                    dec_plain, 2 * B * H * Dh * es + 2 * B * HD_LIVE * Hkv * Dh * es + B * 4,
+                    4 * B * H * HD_LIVE * Dh, _sdpa_gqa(q[:, None], k, v, live_mask),
+                    "32 per step (phase 45)" if opt else "phase 2 only")
+                _hd_time("paged_flash_decode" + sfx, tag + f", {valid} valid keys", paged,
+                         paged_plain,
+                         2 * B * H * Dh * es + 2 * valid * Hkv * Dh * es + B * P * 4
+                         + B * HD_LIVE + B * 4,
+                         4 * H * valid * Dh, _sdpa_gqa(q[:, None], k, v, hole_mask),
+                         "phase 2 only (the paged batcher)")
+                r2 = _hd_time(
+                    "flash_attend" + sfx, tag + f", prefill T={HD_T} causal", pre, pre_plain,
+                    2 * B * HD_T * H * Dh * es + 2 * B * HD_T * Hkv * Dh * es + B * HD_T * 4,
+                    4 * B * H * Dh * HD_T * (HD_T + 1) // 2,
+                    _sdpa_gqa(qq, k, v, causal_mask),
+                    "32 per prefill (phase 45)" if opt else "phase 2 only")
+                if opt and B == batches[0]:
+                    for name, r, shape in (
+                            ("flash_decode" + sfx, r1,
+                             f"OPT-2.7B decode B={B} H={H} Dh={Dh} {HD_LIVE} live keys bf16"),
+                            ("flash_attend" + sfx, r2,
+                             f"OPT-2.7B prefill B={B} T={HD_T} H={H} Dh={Dh} causal bf16")):
+                        recs[name] = dict(
+                            name=name, route="cuda",
+                            source="moe_infinity_tpu_torch/csrc/flash_attention_pad128.cu",
+                            replaces=("moe_infinity_tpu/ops/flash_attention.py:308"
+                                      if name.startswith("flash_decode")
+                                      else "moe_infinity_tpu/ops/flash_attention.py:81"),
+                            shape=shape, **r)
+    for r in recs.values():
+        r["max_abs_err"] = errs[r["name"]]
+    return errs, recs
 
 
 def check_gmm_dequant(g, dev):
@@ -1889,9 +2064,11 @@ def phase_kernels(dev):
     recs.append(check_stream_gather(dev))  # the port's own kernel, its own generator
     rep_errs = check_attention_rep67(dev)
     batcher_errs = check_batcher_attention(dev)  # per-row T5 bias (K2), per-row positions (K1)
+    hd_errs, hd_recs = check_head_dims(dev)  # the padded instances, rep 16
+    recs.extend(hd_recs.values())
     for r in recs:
         r["max_abs_err"] = max(r["max_abs_err"], rep_errs.get(r["name"], 0.0),
-                               batcher_errs.get(r["name"], 0.0))
+                               batcher_errs.get(r["name"], 0.0), hd_errs.get(r["name"], 0.0))
     for r in recs:
         say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
@@ -6936,6 +7113,21 @@ def _opt_generate(stepper, ids, n=NEW_TOKENS):
     return res.sequences, time.perf_counter() - t0
 
 
+def _opt_two_steps(stepper, ids, dev):
+    """The prefill's logits over ``ids`` and those of one greedy decode step
+    after it, in a 64-column cache."""
+    B, T = ids.shape
+    kv = stepper.init_cache(B, 64)
+    tok = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+    pos = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    with torch.inference_mode():
+        a = stepper.forward(tok, pos, kv, 0)[0]
+        nxt = torch.argmax(a[:, -1], -1).to(torch.int32)[:, None]
+        b = stepper.forward(nxt, torch.full((B, 1), T, dtype=torch.int32, device=dev),
+                            kv, T)[0]
+    return a, b
+
+
 def _logits_verdict(what, got, want):
     """Bit-equal, or the largest difference (reported, then held to TOL)."""
     torch.cuda.synchronize()
@@ -7095,16 +7287,7 @@ def phase_opt_whole_path(dev):
     resident = ResidentStepper(model, params, {}, lambda experts, mli: experts)
 
     def two_steps(stepper):
-        B, T = ids.shape
-        kv = stepper.init_cache(B, 64)
-        tok = torch.as_tensor(ids, dtype=torch.int32, device=dev)
-        pos = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
-        with torch.inference_mode():
-            a = stepper.forward(tok, pos, kv, 0)[0]
-            nxt = torch.argmax(a[:, -1], -1).to(torch.int32)[:, None]
-            b = stepper.forward(nxt, torch.full((B, 1), T, dtype=torch.int32, device=dev),
-                                kv, T)[0]
-        return a, b
+        return _opt_two_steps(stepper, ids, dev)
 
     reset_launches()
     k_pre, k_dec = two_steps(resident)
@@ -7137,12 +7320,13 @@ def phase_opt_whole_path(dev):
     _free_host_cache()
 
 
-def _write_opt_checkpoint(root, dev, seed=0):
-    """OPT_EP_CONFIG's checkpoint under HF's tensor names, bf16, matrices
-    normal with std 0.02 made on the card from ``seed``, biases zero, norms
-    one, the LM head tied (not written): a shard per layer and one for the
-    embeddings and final norm, with the index. Returns its bytes."""
-    c = OPT_EP_CONFIG
+def _write_opt_checkpoint(root, dev, seed=0, config=None):
+    """``config``'s (default OPT_EP_CONFIG's) checkpoint under HF's tensor
+    names, bf16, matrices normal with std 0.02 made on the card from
+    ``seed``, biases zero, norms one, the LM head tied (not written): a
+    shard per layer and one for the embeddings and final norm, with the
+    index. Returns its bytes."""
+    c = config or OPT_EP_CONFIG
     D, F, V = c["hidden_size"], c["ffn_dim"], c["vocab_size"]
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -7244,6 +7428,154 @@ def phase_opt_entry(dev):
             raise AssertionError("OPT facade: paged tokens differ from the resident facade's")
     finally:
         shutil.rmtree(OPT_EP_DIR, ignore_errors=True)
+    return total
+
+
+# ---- phase 45: OPT-2.7B (head dim 80) ------------------------------------------
+
+OPT_2_7B = dict(vocab_size=50272, hidden_size=2560, ffn_dim=10240, num_layers=32,
+                num_heads=32, max_positions=2048)  # facebook/opt-2.7b: head dim 80
+OPT27_CONFIG = {  # facebook/opt-2.7b's config.json, cut to 2 layers
+    "_name_or_path": "facebook/opt-2.7b", "activation_dropout": 0.0,
+    "activation_function": "relu", "architectures": ["OPTForCausalLM"],
+    "attention_dropout": 0.0, "bos_token_id": 2, "do_layer_norm_before": True,
+    "dropout": 0.1, "eos_token_id": 2, "ffn_dim": 10240, "hidden_size": 2560,
+    "init_std": 0.02, "layerdrop": 0.0, "max_position_embeddings": 2048,
+    "model_type": "opt", "num_attention_heads": 32, "num_hidden_layers": 2,
+    "pad_token_id": 1, "prefix": "</s>", "torch_dtype": "float16", "use_cache": True,
+    "vocab_size": 50272, "word_embed_proj_dim": 2560,
+}
+OPT27_KERNELS = ("flash_decode_pad128", "flash_attend_pad128")
+OPT27_REQUESTS, OPT27_TOKENS = 4, 8
+# f32 logits through the kernels against the einsum oracle, all 32 layers:
+# rtol = atol (set before the first run; phase 35 read 1.5e-5 at 4 layers)
+OPT27_TOL = 1e-3
+OPT27_EP_DIR = Path(__file__).resolve().parent / ".opt27_entry"
+OPT27_EP_DISK_GB = 3  # checkpoint 0.6 + f32 dense archive 1.2, with room
+
+
+def phase_opt27(dev):
+    """Phase 45: OPT-2.7B at its published width and full depth through the
+    padded instances of K1 and K2 (head dim 80). (a) bf16 weights from a
+    seed, resident through ``ResidentStepper`` and ``Generator``: 4 requests
+    x 8 greedy tokens after a warm-up generate, tokens/s and ms a step;
+    then at f32 (no TF32) the prefill's and a decode step's logits and the
+    greedy tokens through the kernels against the same model under the
+    einsum oracle (``set_attention_impl("naive")``): tokens equal, logits
+    within OPT27_TOL. (b) ``MoE`` from a checkpoint of OPT-2.7B's
+    config.json cut to 2 layers (bf16 safetensors from a seed, ingested at
+    f32, deleted at the end): its greedy tokens equal a direct ``Generator``
+    over the same archive's params at f32. Returns the launches."""
+    import shutil
+
+    from moe_infinity_tpu_torch.models import layers as tl
+    from moe_infinity_tpu_torch.models.opt import OPTModel, OPTSpec
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.generate import ResidentStepper
+    from moe_infinity_tpu_torch.store.blob import DenseArchive
+    from moe_infinity_tpu_torch.utils.hf_config import read_hf_config
+
+    total = {}
+
+    def count(what):
+        c = launch_counts()
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+        _require_launched(c, OPT27_KERNELS, what)
+        if c["flash_decode"] or c["flash_attend"]:
+            raise AssertionError(f"{what}: head dim 80 reached the head-dim-128 instances {c}")
+        return {k: v for k, v in c.items() if v}
+
+    spec = OPTSpec(**OPT_2_7B)
+    ids = _opt_prompts(spec.vocab_size, OPT27_REQUESTS, 45)
+    # (a) bf16, resident
+    g = torch.Generator(device=dev)
+    g.manual_seed(45)
+    torch.cuda.reset_peak_memory_stats()
+    model = OPTModel(spec, torch.bfloat16, device=dev)
+    params = model.init_random(g)
+    torch.cuda.synchronize()
+    say(f"[opt27] OPT-2.7B (hidden 2560, FFN 10240, 32 layers, 32 heads of {spec.head_dim}, "
+        f"vocab 50272): {_tree_bytes(params) / 1e9:.2f} GB of bf16 weights drawn on the card")
+    stepper = ResidentStepper(model, params, {}, lambda experts, mli: experts)
+    reset_launches()
+    warm, _ = _opt_generate(stepper, ids, OPT27_TOKENS)
+    seqs, wall = _opt_generate(stepper, ids, OPT27_TOKENS)
+    c = count("OPT-2.7B bf16 resident")
+    same = np.array_equal(seqs, warm)
+    say(f"[opt27] bf16 resident: {OPT27_REQUESTS} requests x {OPT27_TOKENS} tokens in "
+        f"{wall:.4f} s: {OPT27_REQUESTS * OPT27_TOKENS / wall:.2f} tokens/s, "
+        f"{wall / OPT27_TOKENS * 1e3:.3f} ms a step (the prefill and {OPT27_TOKENS - 1} "
+        f"steps); peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches of "
+        f"both generates {json.dumps(c)}; tokens equal to the warm-up's: {same}; first row "
+        f"{seqs[0, OPT_PROMPT:].tolist()}")
+    if not same or seqs.shape != (OPT27_REQUESTS, OPT_PROMPT + OPT27_TOKENS):
+        raise AssertionError("OPT-2.7B bf16: tokens differ between two generates, or shape")
+    del params, stepper, model
+    torch.cuda.empty_cache()
+    # (a) f32 through the kernels against the einsum oracle
+    g.manual_seed(45)
+    model = OPTModel(spec, torch.float32, device=dev)
+    params = model.init_random(g)
+    stepper = ResidentStepper(model, params, {}, lambda experts, mli: experts)
+    reset_launches()
+    k_pre, k_dec = _opt_two_steps(stepper, ids, dev)
+    k_seqs, k_wall = _opt_generate(stepper, ids, OPT27_TOKENS)
+    count("OPT-2.7B f32 through the kernels")
+    prev = tl.get_attention_impl()
+    tl.set_attention_impl("naive")
+    try:
+        reset_launches()
+        n_pre, n_dec = _opt_two_steps(stepper, ids, dev)
+        n_seqs, n_wall = _opt_generate(stepper, ids, OPT27_TOKENS)
+        if any(launch_counts().values()):
+            raise AssertionError("OPT-2.7B under the einsum oracle launched a kernel")
+    finally:
+        tl.set_attention_impl(prev)
+    compare("OPT-2.7B f32 (32 layers) prefill logits, kernels vs einsum oracle", k_pre, n_pre,
+            OPT27_TOL)
+    compare("OPT-2.7B f32 decode-step logits, kernels vs einsum oracle", k_dec, n_dec,
+            OPT27_TOL)
+    same = np.array_equal(k_seqs, n_seqs)
+    say(f"[check] OPT-2.7B f32 greedy tokens, kernels vs einsum oracle: "
+        f"{'equal' if same else 'DIFFER'} ({OPT27_REQUESTS} x {OPT27_TOKENS}; {k_wall:.3f} s "
+        f"vs {n_wall:.3f} s)")
+    if not same:
+        raise AssertionError("OPT-2.7B f32: kernel tokens differ from the einsum oracle's")
+    del params, stepper, model
+    torch.cuda.empty_cache()
+    # (b) the facade from a checkpoint of the published config cut to 2 layers
+    OPT27_EP_DIR.mkdir(exist_ok=True)
+    _check_disk(OPT27_EP_DIR, OPT27_EP_DISK_GB, 45, "opt27-entry")
+    try:
+        ckpt, store = OPT27_EP_DIR / "ckpt", OPT27_EP_DIR / "store"
+        nbytes = _write_opt_checkpoint(ckpt, dev, seed=46, config=OPT27_CONFIG)
+        m = _ep_build("OPT-2.7B f32", ckpt, dict(offload_path=str(store), max_seq_len=64,
+                                                 expert_dtype="float32"), dev)
+        try:
+            reset_launches()
+            got = m.generate(ids, max_new_tokens=OPT27_TOKENS, eos_token_id=None)
+            c = count("OPT-2.7B facade")
+        finally:
+            m.shutdown()
+            del m
+        direct_model = OPTModel(OPTSpec.from_hf(read_hf_config(str(ckpt))), torch.float32,
+                                device=dev)
+        direct = ResidentStepper(direct_model, direct_model.load_params(DenseArchive(str(store))),
+                                 {}, lambda experts, mli: experts)
+        reset_launches()
+        want, _ = _opt_generate(direct, ids, OPT27_TOKENS)
+        count("OPT-2.7B direct Generator")
+        same = np.array_equal(got, want)
+        say(f"[check] OPT-2.7B facade (2 layers, {nbytes / 1e9:.2f} GB checkpoint, f32) vs a "
+            f"direct Generator over its archive: {'equal' if same else 'DIFFER'}; facade "
+            f"launches {json.dumps(c)}")
+        if not same:
+            raise AssertionError("OPT-2.7B facade tokens differ from the direct Generator's")
+        del direct, direct_model
+    finally:
+        shutil.rmtree(OPT27_EP_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
     return total
 
 
@@ -9859,6 +10191,13 @@ def main() -> int:
             timed(phase_nllb_paged, b)
         say(f"[card] {smi}")
         return 0
+    if "--opt27" in sys.argv[1:]:
+        errs, _ = check_head_dims(dev)
+        say(f"[check] K1, K2 and K4 at other head dims and rep 16: largest errors "
+            f"{json.dumps(errs)}")
+        say(f"[opt27] launches of phase 45 {json.dumps(timed(phase_opt27))}")
+        say(f"[card] {smi}")
+        return 0
     if "--loading" in sys.argv[1:]:
         say(f"[loading] launches of phases 39 and 40 {json.dumps(timed(phase_loading))}")
         say(f"[card] {smi}")
@@ -9916,6 +10255,7 @@ def main() -> int:
     extra["phase_opt"] = timed(phase_opt, OPT_WHOLE_RUN_DEPTH)  # phases 34-38: past the card
     timed(phase_opt_whole_path)
     extra["phase_opt_entry"] = timed(phase_opt_entry)
+    extra["phase_opt27"] = timed(phase_opt27)  # phase 45
     extra["phase_paged_offload"] = timed(phase_paged_offload)
     extra["phase_loading"] = timed(phase_loading, WHOLE_RUN_LOAD_REQUESTS)  # phases 39-40
     mesh_counts = timed(phase_mesh)  # phase 42: the ranks' launches

@@ -12,9 +12,10 @@ The per-layer stage protocol (``embed_step``, ``dense_layer``, ``head``) is
 what dense paging (``runtime/dense_arena.py::PagedDenseEngine``) drives;
 ``forward`` is the whole-model step of ``ResidentStepper``. Attention goes
 through ``models/layers.py::attend``: K1 for one-token steps, K2 for the
-prefill. The kernels take head dim 64 or 128 (OPT-125m to 1.3B, and 6.7B
-up to OPT-66B's 9216 / 72); OPT-2.7B's 80 is refused on the card (ROADMAP
-queue 2 part 3).
+prefill. The kernels take any head dim up to 256: 64 (OPT-125m to 1.3B)
+and 128 (6.7B up to OPT-66B's 9216 / 72) on instances of their own,
+OPT-2.7B's 80 on the zero-padded instance of width 128, which reads only the
+80 live columns of a row. A head dim above 256 is refused on the card.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from moe_infinity_tpu_torch.models.layers import KVCache, attend, layer_norm, li
 from moe_infinity_tpu_torch.store.blob import param_getter
 
 _EPS = 1e-5  # nn.LayerNorm's default; OPTConfig carries no eps
-_KERNEL_HEAD_DIMS = (64, 128)
+_MAX_KERNEL_HEAD_DIM = 256  # K1's and K2's widest instance
 
 
 @dataclass(frozen=True)
@@ -71,10 +72,11 @@ class OPTModel:
         self.spec = spec
         self.dtype = compute_dtype
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and spec.head_dim not in _KERNEL_HEAD_DIMS:
+        if self.device.type == "cuda" and spec.head_dim > _MAX_KERNEL_HEAD_DIM:
             raise NotImplementedError(
-                f"OPT at head dim {spec.head_dim}: K1 and K2 take 64 or 128 "
-                "(head dim 80, OPT-2.7B, is ROADMAP queue 2 part 3)")
+                f"OPT at head dim {spec.head_dim}: K1 and K2 take at most "
+                f"{_MAX_KERNEL_HEAD_DIM} (head dims above it are ROADMAP queue 2 part 3's "
+                "remainder)")
 
     # ---- cache -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> List[KVCache]:

@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, List
 
@@ -40,6 +41,7 @@ _fns: Dict[tuple, ctypes._CFuncPtr] = {}
 _tickets: Dict[tuple, torch.Tensor] = {}  # (device, stream) -> zeroed counters
 _workspaces: Dict[tuple, torch.Tensor] = {}  # (device, stream) -> f32 scratch
 _retired: List[torch.Tensor] = []  # outgrown buffers, kept: a graph may hold their address
+BUILD_SECONDS: Dict[str, float] = {}  # each nvcc of the last build_all, from its start
 
 
 def _nvcc() -> str:
@@ -69,21 +71,23 @@ def build_all() -> Dict[str, Path]:
     if stale:
         nvcc = _nvcc()
         procs = {}
+        t0 = time.perf_counter()
         for stem, (src, out) in stale.items():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-            procs[stem] = (
-                subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-                ),
-                tmp,
-                out,
-            )
+            with open(out.with_suffix(".log"), "w") as log:
+                procs[stem] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                               tmp, out)
+        BUILD_SECONDS.clear()
+        while len(BUILD_SECONDS) < len(procs):
+            for stem, (proc, _, _) in procs.items():
+                if stem not in BUILD_SECONDS and proc.poll() is not None:
+                    BUILD_SECONDS[stem] = round(time.perf_counter() - t0, 1)
+            time.sleep(0.05)
         errors = []
         for stem, (proc, tmp, out) in procs.items():
-            log, _ = proc.communicate()
-            out.with_suffix(".log").write_text(log)
             if proc.returncode != 0:
+                log = out.with_suffix(".log").read_text()
                 errors.append(f"nvcc failed for {stem}.cu:\n{log}")
                 tmp.unlink(missing_ok=True)
             else:

@@ -20,8 +20,8 @@ PyTorch versions.
   latent itself, and one key stream serves all H heads; q and the result
   are f32 whatever the cache type.
 
-What bounds the kernels (``csrc/flash_attention.cu``) on the H100, and what
-their design does about it: a decode step moves the live K/V rows once and
+What bounds the kernels (``csrc/flash_attention.cuh``, ``.cu``) on the H100,
+and what their design does about it: a decode step moves the live K/V rows once and
 does 4 operations per byte, so bytes bound it, and at the serving paths'
 sizes those bytes take under a microsecond: what is left is a launch and
 every dependent trip to device memory. K1, K4 and K2 with at most 8 query
@@ -42,9 +42,15 @@ several clusters merges theirs in order through scratch and tickets from
 whatever it runs.
 
 The wrappers launch the kernel for CUDA tensors (raising on a shape it does
-not take: head_dim 64 or 128 and rep <= 8 for K1, K2 and K4, each head dim
-its own instance of the kernels, never a padded copy; R 512 with P 64 for
-K5, at any S and H) and run the plain version for CPU tensors. The plain
+not take) and run the plain version for CPU tensors. K1, K2 and K4 take any
+head dim from 1 to 256 and any ``rep = H / Hkv``: head dims 64 and 128 have
+instances of their own (``csrc/flash_attention.cu``), every other dim runs a
+zero-padded instance of width 128 (below 128) or 256
+(``csrc/flash_attention_pad128.cu``, ``pad256.cu``) that reads only the true dh columns of a
+row, so bytes bound it as they bound the others; never a padded copy of the
+cache. A kv head with more than 8 query rows is split over
+``ceil(rows / 8)`` blocks of the decode body. K5 takes R 512 with P 64, at
+any S and H. The plain
 versions repeat the kernels' arithmetic, including what differs from the
 einsum oracle ``models.layers.attend_reference``: a row with no valid key
 returns 0, and ``flash_attend`` rounds p to V's dtype before the P.V product
@@ -63,23 +69,27 @@ from moe_infinity_tpu_torch.ops import _build
 _NEG = -1e30  # finite -inf stand-in, as in the kernels
 
 # launches of each kernel since the last reset (plain runs never count); K1,
-# K2 and K4 count their head-dim-64 instances under their own names
+# K2 and K4 count their head-dim-64 and padded instances under their own
+# names (``_instance``)
 LAUNCHES = {"flash_decode": 0, "flash_attend": 0, "paged_flash_decode": 0,
             "mla_flash_decode": 0, "flash_decode_dh64": 0, "flash_attend_dh64": 0,
-            "paged_flash_decode_dh64": 0}
+            "paged_flash_decode_dh64": 0, "flash_decode_pad128": 0,
+            "flash_attend_pad128": 0, "paged_flash_decode_pad128": 0,
+            "flash_decode_pad256": 0, "flash_attend_pad256": 0,
+            "paged_flash_decode_pad256": 0}
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _c = ctypes.c_void_p
 _ROWS_ARGS = [ctypes.c_int] + [_c] * 9 + [ctypes.c_longlong] * 3 + [_c] * 3 + [
     ctypes.c_int
-] * 12 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_int, _c]
+] * 13 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_int, _c]
 _ATTEND_ARGS = [_c] * 5 + [ctypes.c_longlong] * 3 + [_c] * 2 + [
     ctypes.c_int
 ] * 7 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_int, _c]
-_HEAD_DIMS = (64, 128)  # the head dims K1, K2 and K4 are built for
-_DEC_CONTIG, _DEC_PAGED, _DEC_ATTEND = 0, 1, 2  # DecKind in csrc/flash_attention.cu
+_MAX_HEAD_DIM = 256  # kMaxHeadDim: the widest instance of K1, K2 and K4
+_DEC_CONTIG, _DEC_PAGED, _DEC_ATTEND = 0, 1, 2  # DecKind in csrc/flash_attention.cuh
 _DEC_TILE = 64  # kDecTile: keys per tile of the decode body
-_DEC_ROWS = 8  # query rows of one kv head the decode body takes
+_DEC_ROWS = 8  # kDecMaxRows: query rows of one kv head a block of the decode body takes
 _DEC_BLOCKS = 792  # blocks aimed at: six per SM of an H100, three resident at a time
 _MLA_ARGS = [_c] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, _c]
 _MLA_R, _MLA_P = 512, 64  # kMlaR, kMlaP in csrc/flash_attention.cu
@@ -89,19 +99,32 @@ _MLA_MIN_TILES = 2  # 32-key tiles a split reads at least: one 64-key tile of th
 _MLA_CLUSTER = 8  # kMlaMaxCluster: blocks of a cluster that merge in shared memory
 
 
-def _count(name: str, head_dim: int) -> None:
-    """One launch of ``name``'s kernel at ``head_dim``."""
-    LAUNCHES[name if head_dim == 128 else f"{name}_dh{head_dim}"] += 1
+def _instance(head_dim: int):
+    """(library stem, C-name suffix, launch-count suffix, width) of the
+    instance of K1, K2 and K4 that takes ``head_dim``: its own at 64 and
+    128, else the zero-padded one of width 128 (below 128) or 256."""
+    if head_dim in (64, 128):
+        return "flash_attention", "", "" if head_dim == 128 else "_dh64", head_dim
+    width = 128 if head_dim < 128 else _MAX_HEAD_DIM
+    return f"flash_attention_pad{width}", "_pad", f"_pad{width}", width
+
+
+def _row_groups(nrows: int) -> int:
+    """Blocks of the decode body along a kv head's ``nrows`` query rows."""
+    return max(1, -(-nrows // _DEC_ROWS))
 
 
 def _check_qkv(q, k, v, name):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise ValueError(f"{name}: q/k/v must share dtype bf16 or f32")
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"{name}: the kernel takes head_dim 64 or 128, got {q.shape[-1]}")
+    Dh = q.shape[-1]
+    if not 1 <= Dh <= _MAX_HEAD_DIM:
+        raise ValueError(
+            f"{name}: the kernels take head_dim 1 to {_MAX_HEAD_DIM}, got {Dh} (head dims "
+            "above 256 are ROADMAP queue 2 part 3's remainder)")
     H, Hkv = q.shape[-2], k.shape[2]
-    if H % Hkv != 0 or H // Hkv > 8:
-        raise ValueError(f"{name}: H={H} over Hkv={Hkv} (rep <= 8 required)")
+    if Hkv == 0 or H % Hkv != 0:
+        raise ValueError(f"{name}: H={H} is not a multiple of Hkv={Hkv}")
     for n, t in (("q", q), ("k", k), ("v", v)):
         _build.check_aligned(f"{name} {n}", t)
 
@@ -157,24 +180,26 @@ def _launch_rows(kind, name, q, k, v, *, Tq, S, live_max, kv_len=0, causal=False
     out = torch.empty_like(q)
     if B == 0:
         return out
-    kc, NS = _decode_splits(B * Hkv, max(0, live_max))
+    stem, sfx, count_sfx, width = _instance(Dh)
+    G = _row_groups(Tq * (H // Hkv))
+    kc, NS = _decode_splits(B * Hkv * G, max(0, live_max))
     part_acc = part_ml = tickets = None
     if NS > 1:  # each split's unnormalised sum and (m, l), for the merge
-        n_acc = B * Hkv * NS * Tq * (H // Hkv) * Dh
-        scratch = torch.empty(n_acc + n_acc // Dh * 2, dtype=torch.float32, device=dev)
-        part_acc, part_ml = scratch[:n_acc], scratch[n_acc:]
-        tickets = _build.tickets(dev, B * Hkv)
-    fn = _build.function("flash_attention", "mit_decode_rows", _ROWS_ARGS)
+        n_rows = B * Hkv * NS * Tq * (H // Hkv)
+        scratch = torch.empty(n_rows * (width + 2), dtype=torch.float32, device=dev)
+        part_acc, part_ml = scratch[:n_rows * width], scratch[n_rows * width:]
+        tickets = _build.tickets(dev, B * Hkv * G)
+    fn = _build.function(stem, "mit_decode_rows" + sfx, _ROWS_ARGS)
     err = _build.launch(fn, dev,
         kind, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         _build.ptr(qpos), _build.ptr(lengths), _build.ptr(table), _build.ptr(mask),
         _build.ptr(bias), *strides, _build.ptr(part_acc), _build.ptr(part_ml),
         _build.ptr(tickets),
-        B, Tq, H, Hkv, S, P, page, kv_len, int(causal), int(round_p), kc, NS,
+        B, Tq, H, Hkv, S, P, page, kv_len, int(causal), int(round_p), kc, NS, G,
         scale, float(logit_softcap or 0.0), int(q.dtype == torch.bfloat16), Dh
     )
     _build.check(err, name)
-    _count(name, Dh)
+    LAUNCHES[name + count_sfx] += 1
     return out
 
 
@@ -307,7 +332,8 @@ def _attend_cuda(q, k, v, q_positions, kv_len, *, scale, causal,
     out = torch.empty_like(q)
     if B == 0:
         return out
-    fn = _build.function("flash_attention", "mit_flash_attend", _ATTEND_ARGS)
+    stem, sfx, count_sfx, _ = _instance(Dh)
+    fn = _build.function(stem, "mit_flash_attend" + sfx, _ATTEND_ARGS)
     err = _build.launch(fn, dev,
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(qpos),
         _build.ptr(bias), *strides, _build.ptr(mask), _build.ptr(out),
@@ -315,7 +341,7 @@ def _attend_cuda(q, k, v, q_positions, kv_len, *, scale, causal,
         float(logit_softcap or 0.0), int(q.dtype == torch.bfloat16), Dh
     )
     _build.check(err, "flash_attend")
-    _count("flash_attend", Dh)
+    LAUNCHES["flash_attend" + count_sfx] += 1
     return out
 
 

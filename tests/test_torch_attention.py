@@ -173,16 +173,19 @@ def test_attend_routes_to_k1_and_k2(rng, monkeypatch):
     assert calls == ["decode", "attend", "attend"] and out.shape == q.shape
 
 
-@pytest.mark.parametrize("what", ["head_dim_64", "head_dim_96", "rep_16", "dtype_mismatch"])
+@pytest.mark.parametrize("what", ["head_dim_64", "head_dim_96", "rep_16", "dtype_mismatch",
+                                  "head_dim_320", "h_not_multiple"])
 def test_kernel_wrappers_reject_shapes_they_do_not_take(what, monkeypatch):
     """The CUDA path raises on a shape the kernel does not take (it never
-    hands back None for an oracle to cover); the checks run before any
-    launch, so CPU tensors show them. Head dim 64 is taken since the
-    kernels have a head-dim-64 instance (Switch): its calls pass the checks
+    hands back None for an oracle to cover): a head dim above 256, H not a
+    multiple of Hkv, q/k/v of two dtypes; the checks run before any launch,
+    so CPU tensors show them. Every head dim up to 256 (64 on its own
+    instance, 96 on the padded one) and every rep (16 here) pass the checks
     and reach the launch, which is replaced here."""
     B, S = 1, 8
     H, Hkv, Dh = {"head_dim_64": (2, 2, 64), "head_dim_96": (2, 2, 96), "rep_16": (16, 1, 128),
-                  "dtype_mismatch": (2, 2, 128)}[what]
+                  "dtype_mismatch": (2, 2, 128), "head_dim_320": (2, 2, 320),
+                  "h_not_multiple": (6, 4, 128)}[what]
     q = torch.zeros(B, H, Dh)
     k = torch.zeros(B, S, Hkv, Dh, dtype=torch.bfloat16 if what == "dtype_mismatch" else torch.float32)
 
@@ -194,7 +197,7 @@ def test_kernel_wrappers_reject_shapes_they_do_not_take(what, monkeypatch):
 
     monkeypatch.setattr(fa._build, "function", lambda stem, name, argtypes: launch)
     monkeypatch.setattr(fa._build, "stream_ptr", lambda dev: None)
-    raises = Launched if what == "head_dim_64" else ValueError
+    raises = Launched if what in ("head_dim_64", "head_dim_96", "rep_16") else ValueError
     with pytest.raises(raises):
         fa._decode_cuda(q, k, k, torch.zeros(B, dtype=torch.int32), S, scale=1.0,
                         causal=True, logit_softcap=None, pad_mask=None)

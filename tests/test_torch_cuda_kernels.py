@@ -6,7 +6,9 @@ jax, which that machine need not have).
 Tolerance 2e-2 (rtol and atol) for bf16 operands, as the JAX suite's gmm
 tests, and 2e-3 for f32 attention (summation order only). K3's e4m3 weights
 are exact in bf16, so they take the bf16 tolerance; K1, K2 and K4 run at
-Grok-1's rep 6 with its softcap and score scale and at Arctic's rep 7."""
+Grok-1's rep 6 with its softcap and score scale and at Arctic's rep 7, and
+on their zero-padded instances (head dims 80, 33, 200, 256) and row groups
+(rep 16)."""
 
 import pytest
 import torch
@@ -725,11 +727,69 @@ def test_flash_decode_and_paged_dh64(dev, dtype, rep, S):
 
 
 def test_head_dims_other_than_64_and_128_raise(dev):
+    """Head dims 32 and 96 run on the padded instance of width 128 and hold
+    against the plain version (K2's few-row route, a per-head bias); a head
+    dim above 256 raises."""
+    g = _gen(dev)
     for Dh in (32, 96):
-        q = torch.zeros(2, 1, 4, Dh, device=dev)
-        with pytest.raises(ValueError, match="head_dim 64 or 128"):
-            fa.flash_attend(q, q, q, torch.zeros(2, 1, dtype=torch.int32, device=dev), 1,
-                            bias=torch.zeros(1, 4, 1, 1, device=dev))
+        q, k, v = (torch.randn(2, n, 4, Dh, generator=g, device=dev) for n in (1, 8, 8))
+        pos = torch.zeros(2, 1, dtype=torch.int32, device=dev)
+        bias = torch.randn(1, 4, 1, 8, generator=g, device=dev)
+        before = fa.LAUNCHES["flash_attend_pad128"]
+        got = fa.flash_attend(q, k, v, pos, 8, causal=False, bias=bias)
+        assert fa.LAUNCHES["flash_attend_pad128"] == before + 1
+        _close(got, fa.flash_attend_plain(q, k, v, pos, 8, scale=Dh ** -0.5, causal=False,
+                                          bias=bias), 2e-3)
+    q = torch.zeros(2, 1, 4, 320, device=dev)
+    with pytest.raises(ValueError, match="head_dim 1 to 256"):
+        fa.flash_attend(q, q, q, torch.zeros(2, 1, dtype=torch.int32, device=dev), 1,
+                        bias=torch.zeros(1, 4, 1, 1, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [80, 33, 200, 256, 128])
+@pytest.mark.parametrize("rep", [1, 16])
+def test_padded_head_dims_and_rep16(dev, dtype, Dh, rep):
+    """K4, K1 and K2 (both routes) at OPT-2.7B's head dim 80, an odd one
+    (33: rows of no multiple of 16 bytes), two above 128 (the width-256
+    instance) and 128, at rep 1 and 16 (two blocks of 8 rows a kv head):
+    rows of 100, 0 and 77 live keys with holes over two splits, against the
+    plain versions, each launch counted under its instance's name."""
+    g = _gen(dev)
+    B, Hkv, page, P, NP = 3, 2, 16, 8, 40
+    S, H = P * page, Hkv * rep
+    sfx = fa._instance(Dh)[2]
+    assert fa._decode_splits(B * Hkv * fa._row_groups(rep), S)[1] == 2  # the merge runs
+    q = torch.randn(B, H, Dh, generator=g, device=dev).to(dtype)
+    pk = torch.randn(NP, page, Hkv, Dh, generator=g, device=dev).to(dtype)
+    pv = torch.randn(NP, page, Hkv, Dh, generator=g, device=dev).to(dtype)
+    table = torch.randperm(NP, generator=g, device=dev)[:B * P].reshape(B, P).to(torch.int32)
+    lengths = torch.tensor([100, 0, 77], dtype=torch.int32, device=dev)
+    holes = torch.rand(B, S, generator=g, device=dev) > 0.2
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    before = dict(fa.LAUNCHES)
+    got = fa.paged_flash_decode(q, pk, pv, table, lengths, pad_mask=holes)
+    _close(got, fa.paged_flash_decode_plain(q, pk, pv, table, lengths, scale=Dh ** -0.5,
+                                            pad_mask=holes), tol)
+    assert bool((got[1] == 0).all())
+    idx = table.long()
+    k, v = pk[idx].reshape(B, S, Hkv, Dh), pv[idx].reshape(B, S, Hkv, Dh)
+    got1 = fa.flash_decode(q[:, None], k, v, (lengths - 1)[:, None], S, pad_mask=holes)[:, 0]
+    _close(got1, got, tol)
+    T = 20
+    qq = torch.randn(B, T, H, Dh, generator=g, device=dev).to(dtype)
+    pos = (60 + torch.arange(T, dtype=torch.int32, device=dev)).expand(B, T).contiguous()
+    kw = dict(causal=True, pad_mask=holes)
+    _close(fa.flash_attend(qq, k, v, pos, 90, **kw),
+           fa.flash_attend_plain(qq, k, v, pos, 90, scale=Dh ** -0.5, **kw), tol)
+    bias = torch.randn(B, 1, 1, S, generator=g, device=dev)
+    kw = dict(causal=False, bias=bias, pad_mask=holes)
+    q1, pos1 = qq[:, :1].contiguous(), pos[:, :1].contiguous()
+    _close(fa.flash_attend(q1, k, v, pos1, S, **kw),
+           fa.flash_attend_plain(q1, k, v, pos1, S, scale=Dh ** -0.5, **kw), tol)
+    for name in ("paged_flash_decode", "flash_decode"):
+        assert fa.LAUNCHES[name + sfx] == before[name + sfx] + 1
+    assert fa.LAUNCHES["flash_attend" + sfx] == before["flash_attend" + sfx] + 2
 
 
 # ---- stream_gather (csrc/stream.cu) -----------------------------------------

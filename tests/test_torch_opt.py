@@ -5,7 +5,8 @@ the JAX package and HF, mirroring tests/test_opt.py:
   the JAX ``load_params`` through ``bridge``): the prefill's and a decode
   step's logits at f32 (rtol = atol = 1e-4) and bf16 (2e-2, the JAX
   suite's bf16 tolerance), both attention paths: the einsum oracle and
-  the plain versions of K1 and K2;
+  the plain versions of K1 and K2; at head dim 8 and at OPT-2.7B's 80
+  (hidden 160 over 2 heads), as the facade's greedy tokens below;
 * ``load_params`` equal to the JAX model's, the ingest byte-equal to the
   JAX ingest (no expert records), ``read_hf_config`` giving
   ``AutoConfig``'s spec for OPT-66B's published and a minimal
@@ -15,7 +16,7 @@ the JAX package and HF, mirroring tests/test_opt.py:
   through ``ResidentStepper``; rows left-padded with the pad id against the
   JAX facade;
 * the refusals: the post-norm variant, a projected embedding, and on the
-  card a head dim other than 64 or 128 (OPT-2.7B's 80).
+  card a head dim above 256 (OPT-2.7B's 80 is built).
 """
 
 import dataclasses
@@ -53,24 +54,56 @@ OPT_66B = {"architectures": ["OPTForCausalLM"], "model_type": "opt",
            "torch_dtype": "float16", "pad_token_id": 1, "bos_token_id": 2, "eos_token_id": 2}
 
 
-@pytest.fixture(scope="module")
-def tiny_opt(tmp_path_factory):
-    torch.manual_seed(9)
-    hf = OPTForCausalLM(OPTConfig(**TINY)).eval()
-    path = tmp_path_factory.mktemp("torch_opt") / "ckpt"
-    hf.save_pretrained(path, safe_serialization=True)
-    return str(path), hf
+# the tiny geometry (head dim 8), and one at OPT-2.7B's head dim 80 (hidden
+# 160 over 2 heads), which K1 and K2 run on their padded instance on the card
+GEOMETRIES = {"dh8": TINY, "dh80": dict(TINY, hidden_size=160, ffn_dim=320,
+                                        num_attention_heads=2)}
 
 
 @pytest.fixture(scope="module")
-def stores(tiny_opt, tmp_path_factory):
-    path, _ = tiny_opt
-    root = tmp_path_factory.mktemp("torch_opt_stores")
-    j_meta = j_ingest(path, str(root / "jax"), AutoConfig.from_pretrained(path),
-                      expert_dtype="float32")
-    p_meta = ingest_checkpoint(path, str(root / "port"), phc.read_hf_config(path),
-                               expert_dtype="float32")
-    return root, j_meta, p_meta
+def opt_ckpts(tmp_path_factory):
+    """geometry -> (checkpoint path, HF model), each made once per module."""
+    made = {}
+
+    def get(geometry):
+        if geometry not in made:
+            torch.manual_seed(9)
+            hf = OPTForCausalLM(OPTConfig(**GEOMETRIES[geometry])).eval()
+            path = tmp_path_factory.mktemp(f"torch_opt_{geometry}") / "ckpt"
+            hf.save_pretrained(path, safe_serialization=True)
+            made[geometry] = (str(path), hf)
+        return made[geometry]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def opt_stores(opt_ckpts, tmp_path_factory):
+    """geometry -> (root, JAX ingest meta, port ingest meta), made once."""
+    made = {}
+
+    def get(geometry):
+        if geometry not in made:
+            path, _ = opt_ckpts(geometry)
+            root = tmp_path_factory.mktemp(f"torch_opt_stores_{geometry}")
+            j_meta = j_ingest(path, str(root / "jax"), AutoConfig.from_pretrained(path),
+                              expert_dtype="float32")
+            p_meta = ingest_checkpoint(path, str(root / "port"), phc.read_hf_config(path),
+                                       expert_dtype="float32")
+            made[geometry] = (root, j_meta, p_meta)
+        return made[geometry]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def tiny_opt(opt_ckpts):
+    return opt_ckpts("dh8")
+
+
+@pytest.fixture(scope="module")
+def stores(opt_stores):
+    return opt_stores("dh8")
 
 
 def _models(path, dtype):
@@ -116,13 +149,16 @@ def test_load_params_equal_jax(tiny_opt, stores, dtype):
         assert torch.equal(g[k], w[k]), k
 
 
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 @pytest.mark.parametrize("attn", ["naive", "flash"])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
-def test_forward_logits_equal_jax(tiny_opt, stores, dtype, tol, attn):
+def test_forward_logits_equal_jax(opt_ckpts, opt_stores, dtype, tol, attn, geometry):
     from moe_infinity_tpu.models.layers import KVCache as JKV
 
-    path, _ = tiny_opt
+    path, _ = opt_ckpts(geometry)
+    stores = opt_stores(geometry)
     jmodel, model = _models(path, dtype)
+    assert model.spec.head_dim == {"dh8": 8, "dh80": 80}[geometry]
     jparams = jmodel.load_params(JDense(str(stores[0] / "jax")))
     params = to_port(jparams)
     tokens = np.array([[5, 9, 33, 7, 100], [3, 14, 15, 92, 6]], dtype=np.int32)
@@ -168,12 +204,13 @@ def _hf_tokens(hf, prompt, n):
                        eos_token_id=None, pad_token_id=1).numpy()
 
 
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 @pytest.mark.parametrize("prompt,n", [
     (np.array([[5, 9, 33, 7]]), 8),
     (np.array([[3, 14, 15, 92, 6], [2, 71, 8, 28, 18]]), 5),  # a batched prefill
 ], ids=["batch1", "batched"])
-def test_facade_matches_jax_and_hf(tiny_opt, tmp_path, prompt, n):
-    path, hf = tiny_opt
+def test_facade_matches_jax_and_hf(opt_ckpts, tmp_path, prompt, n, geometry):
+    path, hf = opt_ckpts(geometry)
     cfg = {"expert_dtype": "float32", "max_seq_len": 64}
     eng = MoE(path, dict(cfg, offload_path=str(tmp_path / "port")), device="cpu")
     jeng = JMoE(path, dict(cfg, offload_path=str(tmp_path / "jax")))
@@ -265,16 +302,19 @@ def test_refusals():
                 spec_cls.from_hf(cfg)
     spec = OPTSpec.from_hf(base)
     assert spec.head_dim == 8
-    # OPT-2.7B: 2560 / 32 = 80; on the card K1 and K2 take 64 or 128
+    # OPT-2.7B: 2560 / 32 = 80, on the card K1's and K2's padded instance;
+    # a head dim above 256 (here 320) is refused on the card
     s27 = dataclasses.replace(spec, hidden_size=2560, num_heads=32)
+    wide = dataclasses.replace(spec, hidden_size=2560, num_heads=8)
     import moe_infinity_tpu_torch.models.opt as opt_mod
 
     orig = opt_mod.resolve_device
     opt_mod.resolve_device = lambda d: torch.device(d)
     try:
+        assert OPTModel(s27, device="cuda").spec.head_dim == 80
         with pytest.raises(NotImplementedError, match="queue 2 part 3"):
-            OPTModel(s27, device="cuda")
+            OPTModel(wide, device="cuda")
         OPTModel(dataclasses.replace(spec, hidden_size=9216, num_heads=72), device="cuda")
     finally:
         opt_mod.resolve_device = orig
-    assert OPTModel(s27, device="cpu").spec.head_dim == 80  # plain versions on the CPU
+    assert OPTModel(wide, device="cpu").spec.head_dim == 320  # plain versions on the CPU

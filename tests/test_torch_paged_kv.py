@@ -206,12 +206,12 @@ def test_attend_cache_chunk_step_uses_gathered_view(rng):
 
 
 @pytest.mark.parametrize("what", ["head_dim_64", "head_dim_96", "h_not_multiple", "rep_16",
-                                  "mask_width"])
+                                  "mask_width", "head_dim_320"])
 def test_paged_cuda_path_rejects_what_the_kernel_does_not_take(what, monkeypatch):
     """Checked before any launch, so CPU tensors show it; the wrapper never
-    hands back None for a slower path to cover. Head dim 64 is taken since
-    the kernel has a head-dim-64 instance: the call reaches the launch,
-    which is replaced here."""
+    hands back None for a slower path to cover. Every head dim up to 256
+    (64 on its own instance, 96 on the padded one) and every rep (16 here)
+    reach the launch, which is replaced here; a head dim above 256 raises."""
     B, P, Dh, H, Hkv = 2, 3, 128, 8, 2
     if what.startswith("head_dim"):
         Dh = int(what[9:])
@@ -235,6 +235,7 @@ def test_paged_cuda_path_rejects_what_the_kernel_does_not_take(what, monkeypatch
 
     monkeypatch.setattr(fa._build, "function", lambda stem, name, argtypes: launch)
     monkeypatch.setattr(fa._build, "stream_ptr", lambda dev: None)
-    with pytest.raises(Launched if what == "head_dim_64" else ValueError):
+    with pytest.raises(Launched if what in ("head_dim_64", "head_dim_96", "rep_16")
+                       else ValueError):
         fa._paged_cuda(q, pool, pool, table, lengths, scale=1.0,
                        logit_softcap=None, pad_mask=mask)

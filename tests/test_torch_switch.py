@@ -336,21 +336,26 @@ def test_flash_attend_plain_dh64_equals_jax_interpret(form):
 
 
 def test_wrappers_take_head_dim_64_and_raise_otherwise(monkeypatch):
-    """On CUDA tensors K1, K2 and K4 take head dims 64 and 128 (each its own
-    instance of the kernel, counted under its own name) and raise for any
-    other; the launch itself is replaced, so this runs on the CPU."""
+    """On CUDA tensors K1, K2 and K4 take head dims 64 and 128 on instances
+    of their own and every other dim up to 256 on a padded instance of
+    width 128 or 256 (each counted under its own name, launched from its own
+    library), and raise above 256; the launch itself is replaced, so this
+    runs on the CPU."""
     seen = []
 
     def fake(stem, name, argtypes):
         def call(*args):
-            seen.append((name, args[-2]))  # the head dim, before the stream
+            seen.append((stem, name, args[-2]))  # the head dim, before the stream
             return 0
         return call
 
     monkeypatch.setattr(fa._build, "function", fake)
     monkeypatch.setattr(fa._build, "stream_ptr", lambda dev: None)
     monkeypatch.setattr(fa._build, "check_aligned", lambda *a, **k: None)
-    for Dh in (64, 128):
+    for Dh, suffix, stem in ((64, "_dh64", "flash_attention"), (128, "", "flash_attention"),
+                             (32, "_pad128", "flash_attention_pad128"),
+                             (96, "_pad128", "flash_attention_pad128"),
+                             (256, "_pad256", "flash_attention_pad256")):
         B, T, H, S = 2, 16, 4, 24
         q = torch.zeros(B, T, H, Dh)
         k = torch.zeros(B, S, H, Dh)
@@ -362,12 +367,11 @@ def test_wrappers_take_head_dim_64_and_raise_otherwise(monkeypatch):
                         pad_mask=None)
         fa._decode_cuda(q[:, 0], k, k, torch.zeros(B, dtype=torch.int32), S, scale=1.0,
                         causal=True, logit_softcap=None, pad_mask=None)
-        suffix = "" if Dh == 128 else "_dh64"
         for name, n in (("flash_attend", 2), ("flash_decode", 1)):
             assert fa.LAUNCHES[name + suffix] == before[name + suffix] + n
-        assert [d for _, d in seen[-3:]] == [Dh] * 3
-    for Dh in (32, 96, 256):
-        with pytest.raises(ValueError, match="head_dim 64 or 128"):
+        assert [(s, d) for s, _, d in seen[-3:]] == [(stem, Dh)] * 3
+    for Dh in (257, 320):
+        with pytest.raises(ValueError, match="head_dim 1 to 256"):
             fa._decode_cuda(torch.zeros(1, 4, Dh), torch.zeros(1, 8, 4, Dh),
                             torch.zeros(1, 8, 4, Dh), torch.zeros(1, dtype=torch.int32), 8,
                             scale=1.0, causal=True, logit_softcap=None, pad_mask=None)

@@ -35,7 +35,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    and on row groups: OPT-2.7B's decode (B = 4 and 8, H = 32, head dim 80)
    and prefill (T = 32, causal), head dim 256, head dim 97 (rows of no
    multiple of 16 bytes) and rep 16 (64 heads over 4 at 128), bf16 and f32,
-   timed beside SDPA in bf16, each launch under its instance's name;
+   timed beside SDPA in bf16, each launch under its instance's name; K3 over
+   the pre-tiled weight layout ``[S, F/tf, D, tf]`` (``pack_tiled``, JAX's
+   default pool) at V2-Lite's decode layer in bf16 (group offsets 0 and 128,
+   f32 rows), int8 and e4m3, in the default slabs and in slabs of 352 that a
+   column tile straddles, and at a 512-row prefill, each call bit-equal to
+   the flat call and held to the plain version, the layer timed over both
+   layouts (row ``gmm_tiled``); K5's zero-padded instance (``mla_pad.cu``)
+   at (R, P) = (128, 32), (256, 32) with 40 heads, (256, 64), (384, 64) and
+   (512, 20) (rope rows copied by element), bf16 and f32, timed beside SDPA
+   (row ``mla_flash_decode_pad``);
 3. the seq2seq main path: NLLB-MoE-54B geometry (d_model 2048, 16 heads,
    FFN 8192, 128 experts top-2, every 4th block sparse, vocab 256,206) with
    random weights from a seed, bf16 compute, packed int4 experts, resident
@@ -66,7 +75,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    with phase 5's traffic, then request 1 alone through ``Generator``, then
    through ``FusedRunner`` (prefill and a 15-token ``decode`` over the
    stacked expert pool, K3 at group offsets above 0); K5 and K3 must launch
-   on each of the three, K5 27 times per one-token step;
+   on each of the three, K5 27 times per one-token step; then (7b) the pool
+   rebuilt, role by role, in the pre-tiled layout JAX's ``stack_experts``
+   builds by default, and the same request through ``FusedRunner`` over it:
+   prefill logits bit-equal to the flat pool's and tokens equal, K3 held to
+   3 x 26 ``gmm_tiled`` launches a forward;
 8. its whole-path check: at full width and 1 dense + 2 MoE layers, the
    same two steps over paged caches with holes, logits through the kernels
    against the plain versions (f32 on three seeds, bf16 on one), and once
@@ -447,6 +460,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    safetensors from a seed under ``.opt27_entry/``, deleted at the end),
    ingested at f32: tokens equal to a direct ``Generator`` over the
    archive's params.
+46. K5's padded instance on a model's path: DeepSeek-V2-Lite's geometry at
+   latent width 256 and rope width 32 (``MLA_PAD_SHAPE``; no published
+   model of a served family has an MLA geometry other than 512/64), 1 dense
+   + 2 MoE layers, random weights: request 1 through ``Generator`` in bf16
+   (``mla_flash_decode_pad`` held to 3 launches a one-token step, the 512/64
+   instance to none), then the batcher's two steps at f32 against the plain
+   versions on three seeds.
 
 ``python3 chip_smoke.py --decode-plans`` instead times K4 under split plans
 of 2 to 8 blocks per SM and stops (no main path, no result lines);
@@ -458,7 +478,7 @@ and times alone (V2-Lite's decode step, long rows, H=128; the same inputs
 as in the whole run), then K5 under other split plans.
 ``python3 chip_smoke.py --offload`` runs the build and phases 9 to 12,
 phase 2's ``stream_gather`` checks and phases 31 to 33 alone;
-``--stream`` the build, the ``stream_gather`` checks and phases 31 to 33; ``--resident`` the build and phases 3, 5 and 7 (to hold those paths
+``--stream`` the build, the ``stream_gather`` checks and phases 31 to 33; ``--resident`` the build and phases 3, 5, 7 and 46 (to hold those paths
 against another tree's in one call); ``--switch`` the build and phases 13
 to 15; ``--mixtral-offload`` the build and phases 16 to 18;
 ``--entrypoints`` the build and phases 19 and 20; ``--grok`` the build,
@@ -476,13 +496,21 @@ Every phase prints its seconds (``[phase]``). For its time limit the whole
 run generates ``WHOLE_RUN_NEW_TOKENS`` (8) greedy tokens a request after
 phase 2 where a phase's flag generates 16, runs the f32 whole paths of 15,
 17, 18, 21 and 22 over half their tokens and steps, and phase 43's NLLB at
-2+2 blocks; each flag runs its phases in full.
+2+2 blocks; and, for the same limit, phase 32's leg over all six direct
+layers at 8 tokens (``WHOLE_RUN_DIRECT``), phases 19 and 39 at 8 tokens a
+request (``WHOLE_RUN_EP_NEW``), phase 40's facades at 2 requests of 8 tokens
+(``WHOLE_RUN_DS_REQUESTS``, ``WHOLE_RUN_DS_NEW``), phase 38's deadline-0
+legs at 2 tokens (``WHOLE_RUN_HF_NEW``) and phase 28's requests at 8 tokens
+(``WHOLE_RUN_ARB_TOKENS``): fewer tokens and requests, every path and check
+kept; each flag runs its phases in full.
 
 The line before the last is the per-kernel JSON record (launches: the sum
 of the counts of phases 3, 5, 7, 9, 11, 13, 14, 16, 18, 19, 21, 22, 23,
 24 to 30 (26's none: a check-only phase), 31, 32, 34, 36 to 38, 39, 40,
 41's timed calls, both ranks' sharded runs of 42, every rank's legs of
-43, both ranks' K3 runs of 44 and 45, graph replays included; K3's e4m3 kind has its own row, ``gmm_fp8``;
+43, both ranks' K3 runs of 44, 45 and 46, graph replays included; K3's e4m3 kind has its own row, ``gmm_fp8``,
+and its calls over the pre-tiled pool theirs, ``gmm_tiled`` (phase 7b); K5's padded instance
+``mla_flash_decode_pad`` (phase 46);
 K2 at head dim 64 has its own row, ``flash_attend_dh64``, and K1 and K2 on
 their padded instance of width 128 theirs, ``flash_decode_pad128`` and
 ``flash_attend_pad128`` (phase 45's OPT-2.7B at head dim 80): a graph
@@ -503,6 +531,8 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+
+START = time.perf_counter()  # the whole run's clock, the imports before it excepted
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
@@ -1162,13 +1192,18 @@ ROLES = ("gate", "up", "down")
 
 def _layer_weights(g, dev, S, D, F, kind):
     """gate, up and down weights of S experts from the generator: bf16, int8
-    with per-channel scales, or packed int4 with scales."""
+    with per-channel scales, e4m3 with scales, or packed int4 with scales."""
     w, sc = {}, {}
     for role, (d_in, d_out) in zip(ROLES, ((D, F), (D, F), (F, D))):
         if kind == "bf16":
             w[role] = (torch.randn(S, d_in, d_out, generator=g, device=dev) * 0.02
                        ).to(torch.bfloat16)
             sc[role] = None
+            continue
+        if kind == "fp8":  # about int8's spread, in e4m3's steps
+            w[role] = (torch.randn(S, d_in, d_out, generator=g, device=dev) * 40
+                       ).clamp(-448, 448).to(torch.float8_e4m3fn)
+            sc[role] = torch.rand(S, d_out, generator=g, device=dev) * 0.0009 + 0.001
             continue
         fw = d_out // 2 if kind == "int4" else d_out
         w[role] = torch.randint(-128, 128, (S, d_in, fw), generator=g, device=dev,
@@ -1197,7 +1232,7 @@ def _check_layer(label, x, w, sc, gsz, active, act="silu", **kw):
     err = max(compare(f"gmm {label} {r}", got, want)
               for r, got, want in zip(ROLES, run(), plain()))
     (rows, D), F = x.shape, a.shape[1]
-    nbytes = (sum(active * v.shape[1] * v.shape[2] * v.element_size() for v in w.values())
+    nbytes = (sum(active * v[0].numel() * v.element_size() for v in w.values())
               + (0 if sc["gate"] is None else active * (2 * F + D) * 4)  # scales
               + 2 * rows * D * 2 + rows * F * 2  # x read twice, a
               + 2 * rows * F * 4 + rows * D * 4)  # f32 outputs
@@ -1349,7 +1384,7 @@ def check_gmm_edges(g, dev):
 
 def phase_gmm(dev):
     """Every K3 check of phase 2 (``--gmm`` runs these alone); returns K3's
-    record with the largest error of them all. The cases draw from their own
+    record with the largest error of them all, and the tiled layout's. The cases draw from their own
     generator, in this order, so that their inputs stay the same whatever
     other phases draw: a new case goes last."""
     g = torch.Generator(device=dev)
@@ -1358,7 +1393,7 @@ def phase_gmm(dev):
     rec, w16_err = check_gmm_mixtral(g, dev)
     rec["max_abs_err"] = max(rec["max_abs_err"], err, w16_err, check_gmm_deepseek(g, dev),
                              check_gmm_edges(g, dev))
-    return rec
+    return rec, check_gmm_tiled(g, dev)
 
 
 def check_paged_decode(g, dev):
@@ -1820,10 +1855,9 @@ def check_f1_replay(dev):
         raise AssertionError("F1: a graph replayed over a buffer a later warm-up outgrew")
 
 
-def _mla_inputs(g, dev, *, B, H, S, lengths):
+def _mla_inputs(g, dev, *, B, H, S, lengths, R=512, P=64):
     """f32 queries and caches of one K5 call, the caches also in bf16, the
     rows' live lengths and a mask with 10% holes."""
-    R, P = 512, 64
     q_lat = torch.randn(B, H, R, generator=g, device=dev)
     q_pe = torch.randn(B, H, P, generator=g, device=dev)
     c32 = torch.randn(B, S, R, generator=g, device=dev)
@@ -1835,7 +1869,7 @@ def _mla_inputs(g, dev, *, B, H, S, lengths):
 
 
 def _mla_check(what, a, *, scale, dtype=torch.bfloat16, mask=None, q_mult=1.0,
-               library=False):
+               library=False, tol=TOL):
     """One K5 check: the kernel against its plain version on the same inputs
     (``q_mult`` folds the scale into q), its time and its bound, and with
     ``library`` the SDPA yardstick. Returns a dict of the readings."""
@@ -1853,7 +1887,7 @@ def _mla_check(what, a, *, scale, dtype=torch.bfloat16, mask=None, q_mult=1.0,
     plain = lambda: fa.mla_flash_decode_plain(  # noqa: E731
         q_lat, q_pe, c, kpe, pos, S, scale=scale, pad_mask=mask)
     out = run()
-    err = compare(f"{what} {str(dtype).split('.')[-1]} caches", out, plain())
+    err = compare(f"{what} {str(dtype).split('.')[-1]} caches", out, plain(), tol)
     live = torch.arange(S, device=c.device)[None, :] < lengths[:, None]
     valid = int((live & mask).sum())
     nbytes = (valid * (R + P) * c.element_size()  # live latent and rope-key rows
@@ -1976,17 +2010,61 @@ def check_mla_capacity(g, dev):
     return r
 
 
+# (R, P, H) of K5's padded instance in phase 2: every R that is a multiple of
+# 128 below 512, P below 64 (20: a 40-byte bf16 rope row, copied by element),
+# a head count that leaves a head group part full
+MLA_WIDTHS = ((128, 32, 16), (256, 32, 40), (256, 64, 16), (384, 64, 16), (512, 20, 16))
+MLA_PAD_SHAPE = (256, 32)  # the widths phase 46's model serves, whose case K5's record times
+
+
+def check_mla_widths(g, dev):
+    """K5's zero-padded instance (``csrc/mla_pad.cu``) at each of
+    ``MLA_WIDTHS``: V2-Lite's batcher rows (113, 200, 37 and 512 live keys
+    with holes) in bf16 caches (2e-2) and f32 (2e-3), and a row without a
+    valid key (0), each timed beside its bound and SDPA with the key
+    expanded. Returns the ``mla_flash_decode_pad`` record."""
+    B, S = SLOTS, MAX_COLS
+    rec, errs = None, []
+    for R, P, H in MLA_WIDTHS:
+        a = _mla_inputs(g, dev, B=B, H=H, S=S, lengths=[113, 200, 37, 512], R=R, P=P)
+        scale = (R // 4 + P) ** -0.5
+        what = f"mla_flash_decode_pad B={B} H={H} R={R} P={P} S={S} lengths=(113,200,37,512) holes"
+        r = _mla_check(what, a, scale=scale, library=True)
+        errs += [r["max_abs_err"], _mla_check(what, a, scale=scale, dtype=torch.float32,
+                                              tol=2e-3)["max_abs_err"]]
+        empty = a["holes"].clone()
+        empty[2] = False
+        e = _mla_check(f"{what}, row 2 without a valid key", a, scale=scale, mask=empty)
+        if not bool((e["out"][2] == 0).all()):
+            raise AssertionError("mla_flash_decode_pad: a row with no valid key must give 0")
+        errs.append(e["max_abs_err"])
+        if (R, P) == MLA_PAD_SHAPE:
+            rec = dict(
+                name="mla_flash_decode_pad", route="cuda",
+                source="moe_infinity_tpu_torch/csrc/mla_pad.cu",
+                replaces="moe_infinity_tpu/ops/flash_attention.py:507", ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=r["library_ms"],
+                shape=f"B={B} H={H} R={R} P={P} S={S}, {r['valid']} valid keys, bf16 caches "
+                      f"(library: SDPA over the key expanded to {H} heads)",
+            )
+        del a, r, e
+    rec["max_abs_err"] = max(errs)
+    return rec
+
+
 def phase_mla(dev):
     """Every K5 check of phase 2 (``--mla`` runs these alone); returns K5's
     record with the largest error of them all. The cases draw from their own
     generator, in this order, so that their inputs stay the same whatever
-    other phases draw: a new case goes last."""
+    other phases draw: a new case goes last. Also returns the padded
+    instance's record."""
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     rec = check_mla_decode(g, dev)
     for r in (check_mla_long(g, dev), check_mla_heads(g, dev), check_mla_capacity(g, dev)):
         rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
-    return rec
+    return rec, check_mla_widths(g, dev)
 
 
 def check_gmm_deepseek(g, dev):
@@ -2042,13 +2120,114 @@ def check_gmm_deepseek(g, dev):
     return max(errs)
 
 
+def _tiled_equal(label, x, w, wt, sc, gsz, tol=TOL, **kw):
+    """Each role of one MoE layer on K3 over the pre-tiled weights ``wt``:
+    bit-equal to the same call over the flat ``w`` (the same products in the
+    same order) and held to ``gmm_plain`` within ``tol``. Returns the error."""
+    from moe_infinity_tpu_torch.ops import gmm as gm
+
+    a = (torch.nn.functional.silu(gm.gmm(x, wt["gate"], gsz, sc["gate"], **kw))
+         * gm.gmm(x, wt["up"], gsz, sc["up"], **kw)).to(x.dtype)
+    err = 0.0
+    for role, xin in zip(ROLES, (x, x, a)):
+        got = gm.gmm(xin, wt[role], gsz, sc[role], **kw)
+        flat = gm.gmm(xin, w[role], gsz, sc[role], **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(got, flat)
+        say(f"[check] gmm tiled {label} {role} (tf {wt[role].shape[3]}, {wt[role].shape[1]} "
+            f"slabs): bit-equal to the flat call: {same}")
+        if not same:
+            raise AssertionError(f"gmm tiled {label} {role}: differs from the flat call")
+        err = max(err, compare(f"gmm tiled {label} {role}", got,
+                               gm.gmm_plain(xin, wt[role], gsz, sc[role], **kw), tol))
+    return err
+
+
+def check_gmm_tiled(g, dev):
+    """K3 over the pre-tiled layout [S, F/tf, D, tf] that JAX's
+    ``stack_experts`` builds by default (``pack_tiled``'s slabs: tf 128 for
+    V2-Lite's gate and up, 512 for down) and over gate and up in slabs of
+    352, whose 128-column tiles read two slabs: V2-Lite's decode layer (24
+    rows, all 64 groups passed) in bf16 at group offsets 0 and 128, int8
+    and e4m3 with scales, bf16 with f32 rows (2e-3: the x rounding and the
+    sums' order only), and a prefill of 512 rows over compacted groups; each
+    role bit-equal to the flat call and held to the plain version. The bf16
+    layer at offset 0 is timed over both layouts, beside its bound and
+    ``torch._grouped_mm`` on the flat one, and over the slabs of 352.
+    Returns the ``gmm_tiled`` record."""
+    from moe_infinity_tpu_torch.ops import gmm as gm
+
+    E, K = DSV2_LITE["num_experts"], DSV2_LITE["top_k"]
+    D, F = DSV2_LITE["hidden_size"], DSV2_LITE["moe_intermediate_size"]
+    rows = SLOTS * K
+    flat = torch.stack([torch.randperm(E, generator=g, device=dev)[:K]
+                        for _ in range(SLOTS)]).reshape(-1)
+    gsz = torch.zeros(E, dtype=torch.int32, device=dev)
+    gsz.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    active = int((gsz > 0).sum())
+    x = torch.randn(rows, D, generator=g, device=dev).to(torch.bfloat16)
+    def pack(w, tf):  # slabs of tf where they divide the role's width, else the default
+        return {r: gm.pack_tiled(w[r], tf if tf and w[r].shape[2] % tf == 0 else 0)
+                for r in ROLES}
+
+    errs, rec = [], None
+    for kind, offset, tf in (("bf16", 0, 0), ("bf16", 2 * E, 352), ("int8", 0, 352),
+                             ("fp8", 0, 352)):
+        w, sc = _layer_weights(g, dev, offset + E, D, F, kind)
+        wt = pack(w, tf)
+        label = (f"{kind} V2-Lite decode rows={rows} active={active} of {E} offset={offset} "
+                 f"tf={tf or 'default'}")
+        errs.append(_tiled_equal(label, x, w, wt, sc, gsz, group_offset=offset))
+        if kind == "bf16" and offset == 0:
+            errs.append(_tiled_equal(f"{label} f32 rows", x.float(), w, wt, sc, gsz, tol=2e-3))
+            t = _check_layer(f"tiled {label}", x, wt, sc, gsz, active)
+            f = _check_layer(f"flat {label}", x, w, sc, gsz, active)
+            lib, lib_txt = None, "None (this torch has no torch._grouped_mm)"
+            if hasattr(torch, "_grouped_mm"):
+                ends = torch.cumsum(gsz, 0).to(torch.int32)
+                lib = cuda_ms(lambda: [torch._grouped_mm(xin, w[n], offs=ends)
+                                       for n, xin in zip(ROLES, (x, x, t["a"]))])
+                lib_txt = f"{lib:.4f} (torch._grouped_mm x3 on the flat layout, bf16 out)"
+            t352 = _check_layer(f"tiled 352 {label}", x, pack(w, 352), sc, gsz, active)
+            say(f"[time] gmm_tiled DeepSeek-V2-Lite decode MoE layer (gate + up + down, {rows} "
+                f"rows over {active} of {E} experts, bf16, D={D} F={F}, tf "
+                f"{'/'.join(str(wt[r].shape[3]) for r in ROLES)}): ms={t['ms']:.4f} flat "
+                f"ms={f['ms']:.4f} (tiled/flat {t['ms'] / f['ms']:.3f}); gate and up in slabs of "
+                f"352 ms={t352['ms']:.4f} ({t352['ms'] / f['ms']:.3f}); plain_ms="
+                f"{t['plain_ms']:.4f} bound_ms={t['bound_ms']:.5f} ({t['bound_by']}) "
+                f"library_ms={lib_txt}")
+            rec = dict(
+                name="gmm_tiled", route="cuda", source="moe_infinity_tpu_torch/csrc/gmm.cu",
+                replaces="moe_infinity_tpu/ops/gmm.py:46", ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=lib,
+                shape=f"one DeepSeek-V2-Lite decode MoE layer over the pre-tiled pool: gate + "
+                      f"up + down, {rows} rows over {active} of {E} experts, bf16, D={D} F={F}",
+            )
+            del t, f, t352
+        del w, wt, sc
+        torch.cuda.empty_cache()
+    # a prefill of 256 tokens x top-2: 512 rows over compacted groups
+    gid, gsz512, active = _routed_rows(g, dev, 256, E)
+    x512 = torch.randn(512, D, generator=g, device=dev).to(torch.bfloat16)
+    w, sc = _layer_weights(g, dev, E, D, F, "bf16")
+    wt = {r: gm.pack_tiled(w[r]) for r in ROLES}
+    errs.append(_tiled_equal(f"bf16 V2-Lite prefill rows=512 active={active}", x512, w, wt,
+                             sc, gsz512, group_ids=gid))
+    del w, wt, sc
+    torch.cuda.empty_cache()
+    rec["max_abs_err"] = max(errs)
+    return rec
+
+
 def phase_kernels(dev):
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     check_f1_replay(dev)
     k2_err = check_flash_attend(g, dev)
-    recs = [check_flash_decode(g, dev), check_flash_attend_chunk(g, dev), phase_gmm(dev),
-            check_paged_decode(g, dev), phase_mla(dev), check_switch_attention(g, dev)]
+    gmm_rec, tiled_rec = phase_gmm(dev)
+    mla_rec, mla_pad_rec = phase_mla(dev)
+    recs = [check_flash_decode(g, dev), check_flash_attend_chunk(g, dev), gmm_rec,
+            check_paged_decode(g, dev), mla_rec, check_switch_attention(g, dev)]
     recs[1]["max_abs_err"] = max(recs[1]["max_abs_err"], k2_err, check_attend_rows(g, dev))
     long_err = check_decode_long(g, dev)
     edge_err = check_decode_edges(g, dev)  # through K4 and K1 alike
@@ -2066,6 +2245,7 @@ def phase_kernels(dev):
     batcher_errs = check_batcher_attention(dev)  # per-row T5 bias (K2), per-row positions (K1)
     hd_errs, hd_recs = check_head_dims(dev)  # the padded instances, rep 16
     recs.extend(hd_recs.values())
+    recs += [tiled_rec, mla_pad_rec]  # K3 over the pre-tiled pool, K5's padded instance
     for r in recs:
         r["max_abs_err"] = max(r["max_abs_err"], rep_errs.get(r["name"], 0.0),
                                batcher_errs.get(r["name"], 0.0), hd_errs.get(r["name"], 0.0))
@@ -2653,12 +2833,16 @@ def _deepseek(dev, dtype, seed, **spec_overrides):
     return model, params, ResidentProvider(tree), g
 
 
-def _require_mla_counts(counts, one_token_steps, steps, what, layers=DSV2_LITE["num_layers"]):
+def _require_mla_counts(counts, one_token_steps, steps, what, layers=DSV2_LITE["num_layers"],
+                        k5="mla_flash_decode", k3="gmm"):
     """K5 launches once per layer of every one-token step and nowhere else;
-    K3 three times (gate, up, down) per MoE layer of every step."""
-    _require_launched(counts, MLA_KERNELS, what)
+    K3 three times (gate, up, down) per MoE layer of every step; each under
+    the named instance (``k5``: the padded one, ``k3``: the tiled layout's)
+    and none under the others."""
+    _require_launched(counts, (k5, k3), what)
     moe_layers = layers - DSV2_LITE["first_k_dense_replace"]
-    want = {"mla_flash_decode": layers * one_token_steps, "gmm": 3 * moe_layers * steps}
+    want = {"mla_flash_decode": 0, "mla_flash_decode_pad": 0, "gmm": 0, "gmm_tiled": 0}
+    want.update({k5: layers * one_token_steps, k3: 3 * moe_layers * steps})
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
@@ -2666,8 +2850,11 @@ def _require_mla_counts(counts, one_token_steps, steps, what, layers=DSV2_LITE["
 
 def phase_deepseek(dev, scan=None):
     """Serve 8 requests through 4 slots, then request 1 through Generator and
-    through FusedRunner; returns the three runs' launch counts summed. With
-    ``scan``, phase 41's DeepSeek part on the same build."""
+    through FusedRunner over a flat pool, then again through FusedRunner over
+    the pool JAX's ``stack_experts`` builds by default, pre-tiled (phase 7b:
+    rebuilt from the flat one role by role, its prefill logits bit-equal to
+    the flat run's, its tokens equal); returns the four runs' launch counts
+    summed. With ``scan``, phase 41's DeepSeek part on the same build."""
     import warnings
 
     from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
@@ -2731,7 +2918,7 @@ def phase_deepseek(dev, scan=None):
     torch.cuda.synchronize()
     say(f"[deepseek] peak memory of the batcher and Generator runs: "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    pool = model.stack_experts(experts["layers"])
+    pool = model.stack_experts(experts["layers"], layout="flat")
     del experts, provider
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2741,13 +2928,13 @@ def phase_deepseek(dev, scan=None):
     pos = torch.arange(T, dtype=torch.int32, device=dev)[None]
     pos0 = torch.full((1,), T, dtype=torch.int32, device=dev)
 
-    def fused():
+    def fused(runner):
         logits, kv = runner.prefill(tok, pos, runner.init_cache(1, 64), 0)
         tok0 = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
         toks, _ = runner.decode(tok0, pos0, kv, NEW_TOKENS - 1)
-        return torch.cat([tok0, toks], dim=1)
+        return logits, torch.cat([tok0, toks], dim=1)
 
-    fused()  # warm-up
+    fused(runner)  # warm-up
     torch.cuda.synchronize()
     reset_launches()
     prev = torch.cuda.get_sync_debug_mode()
@@ -2756,7 +2943,7 @@ def phase_deepseek(dev, scan=None):
         torch.cuda.set_sync_debug_mode("warn")
         try:
             t0 = time.perf_counter()
-            new = fused()
+            flat_logits, new = fused(runner)
             queued_s = time.perf_counter() - t0
         finally:
             torch.cuda.set_sync_debug_mode(prev)
@@ -2764,6 +2951,7 @@ def phase_deepseek(dev, scan=None):
     fused_s = time.perf_counter() - t0
     fused_counts = launch_counts()
     _require_mla_counts(fused_counts, NEW_TOKENS - 1, NEW_TOKENS, "DeepSeek FusedRunner path")
+    new_dev = new
     new = new[0].cpu().numpy()
     if new.shape != (NEW_TOKENS,) or not np.all((new >= 0) & (new < vocab)):
         raise AssertionError(f"FusedRunner returned {new.shape}")
@@ -2778,9 +2966,62 @@ def phase_deepseek(dev, scan=None):
         f"launches {json.dumps(fused_counts)}")
     for w in syncs:
         say(f"[deepseek]   host read at {Path(w.filename).name}:{w.lineno}")
+    tiled_counts = _deepseek_tiled(model, params, runner, fused, flat_logits, new_dev)
     del runner, pool, params, model
     torch.cuda.empty_cache()
-    return {k: counts[k] + gen_counts[k] + fused_counts[k] for k in counts}
+    return {k: counts[k] + gen_counts[k] + fused_counts[k] + tiled_counts[k] for k in counts}
+
+
+def _deepseek_tiled(model, params, runner, fused, flat_logits, flat_new):
+    """Phase 7b: the flat pool of ``runner`` rebuilt as the pre-tiled one
+    that JAX's ``stack_experts`` builds by default, role by role (each flat
+    role freed as its tiled copy lands, so the card never holds a third copy
+    of the experts), then the same request through a FusedRunner over it:
+    prefill logits bit-equal to the flat run's, the tokens equal, K3 held to
+    3 x 26 ``gmm_tiled`` launches a forward and none on the flat layout.
+    Returns the timed run's launch counts."""
+    from moe_infinity_tpu_torch.ops import gmm as gm
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.fused import FusedRunner
+
+    flat = runner.pool
+    runner.pool = runner.stacked = None  # the flat runner goes; its pool dict empties below
+    t0 = time.perf_counter()
+    tiled = {}
+    for role in list(flat):
+        w = flat.pop(role)
+        tiled[role] = gm.pack_tiled(w) if w.dim() == 3 else w
+        del w
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shapes = {r: tuple(t.shape) for r, t in tiled.items() if t.dim() == 4}
+    trun = FusedRunner(model, params, tiled, moe_impl="gmm")
+    fused(trun)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, new = fused(trun)
+    queued_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    tiled_s = time.perf_counter() - t0
+    counts = launch_counts()
+    _require_mla_counts(counts, NEW_TOKENS - 1, NEW_TOKENS, "DeepSeek FusedRunner over the "
+                        "pre-tiled pool", k3="gmm_tiled")
+    same_logits = torch.equal(logits, flat_logits)
+    same_tokens = torch.equal(new, flat_new)
+    say(f"[deepseek] FusedRunner over the pre-tiled pool {json.dumps(shapes)} (rebuilt from the "
+        f"flat one role by role in {build_s:.2f} s), request 1: prefill + {NEW_TOKENS - 1}-token "
+        f"decode {tiled_s * 1e3 / NEW_TOKENS:.3f} ms per token (host had queued all of it after "
+        f"{queued_s * 1e3 / NEW_TOKENS:.3f} ms per token); prefill logits bit-equal to the "
+        f"flat pool's: {same_logits}; tokens equal: {same_tokens}; "
+        f"max_memory_allocated_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}; "
+        f"launches {json.dumps(counts)}")
+    if not (same_logits and same_tokens):
+        raise AssertionError("FusedRunner over the pre-tiled pool differs from the flat pool's")
+    del trun, tiled
+    return counts
 
 
 def phase_deepseek_whole_path(dev):
@@ -2816,6 +3057,66 @@ def phase_deepseek_whole_path(dev):
                     f"1 dense + 2 MoE layers, bf16 experts, paged, holes)", dtype, got, want)
         del model, params, provider, experts, got, want
         torch.cuda.empty_cache()
+
+
+def phase_deepseek_widths(dev):
+    """Phase 46: K5's padded instance on a model's path. No published model
+    of a served family has an MLA geometry other than R 512 with P 64, so
+    this is DeepSeek-V2-Lite's geometry with the latent and rope widths of
+    ``MLA_PAD_SHAPE`` (R 256, P 32) at 1 dense + 2 MoE layers, random
+    weights: request 1 through Generator at bf16 (K5 held to 3 padded
+    launches a one-token step and none of the 512/64 instance), then the
+    batcher's two steps at f32 against the plain versions on three seeds,
+    as phase 8 holds them. Returns the Generator run's launch counts."""
+    from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
+    from moe_infinity_tpu_torch.runtime.generate import Generator
+    from moe_infinity_tpu_torch.runtime.providers import ResidentProvider
+
+    R, P = MLA_PAD_SHAPE
+    widths = dict(num_layers=3, kv_lora_rank=R, qk_rope_head_dim=P)
+    say(f"[widths] DeepSeek-V2-Lite geometry at kv_lora_rank={R}, qk_rope_head_dim={P}, "
+        f"1 dense + 2 MoE layers, bf16 experts, impl=pallas")
+    model, params, provider, g = _deepseek(dev, torch.bfloat16, 4680, **widths)
+    experts = provider.pytree()
+    prompt = torch.randint(3, model.spec.vocab_size, (1, PROMPT_LENS[0]), generator=g,
+                           device=dev).cpu().numpy()
+    gen = Generator(model, params, experts, ResidentProvider.for_layer, impl="pallas",
+                    max_seq_len=MAX_COLS)
+    gen.generate(prompt, max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = gen.generate(prompt, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = launch_counts()
+    _require_mla_counts(counts, NEW_TOKENS - 1, NEW_TOKENS, "DeepSeek padded widths Generator",
+                        layers=3, k5="mla_flash_decode_pad")
+    new = res.sequences[0][PROMPT_LENS[0]:]
+    if new.shape != (NEW_TOKENS,) or not np.all((new >= 0) & (new < model.spec.vocab_size)):
+        raise AssertionError(f"padded widths Generator returned {new.shape}")
+    say(f"[widths] Generator, request 1: {gen_s * 1e3 / NEW_TOKENS:.3f} ms per token (prefill of "
+        f"{PROMPT_LENS[0]} included); launches {json.dumps(counts)}")
+    del gen, model, params, provider, experts
+    torch.cuda.empty_cache()
+    for seed in (77, 78, 79):
+        model, params, provider, g = _deepseek(dev, torch.float32, seed, **widths)
+        experts = provider.pytree()
+        inputs = _paged_step_inputs(model, g)
+        with torch.inference_mode():
+            reset_launches()
+            got = _batcher_steps(model, params, experts, inputs)
+            steps = launch_counts()
+            with _plain_kernels():
+                want = _batcher_steps(model, params, experts, inputs)
+        _require_mla_counts(steps, 1, 2, "DeepSeek padded widths whole-path check", layers=3,
+                            k5="mla_flash_decode_pad")
+        _hold_steps(f"DeepSeek padded widths (R {R}, P {P}) whole path logits float32 seed "
+                    f"{seed}, {{step}} (1 dense + 2 MoE layers, paged, holes)", torch.float32,
+                    got, want)
+        del model, params, provider, experts, got, want
+        torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -4471,6 +4772,7 @@ EP_CONFIG = {
     "transformers_version": "4.36.0.dev0", "use_cache": True, "vocab_size": 32000,
 }
 EP_REQUESTS, EP_PROMPT, EP_NEW = 8, 16, 16
+WHOLE_RUN_EP_NEW = 8  # phases 19 and 39's new tokens a request in the whole run, for its time limit
 EP_SLOTS = 10  # of the 16 experts: evictions happen
 EP_DISK_GB = 10.5  # checkpoint 6.3 + int8 store 2.8 + dense archive 0.7, with room
 EP_DIR = Path(__file__).resolve().parent / ".entrypoints"
@@ -5520,6 +5822,8 @@ ARB_SLOTS, ARB_PROMPTS = 4, (16, 9, 12, 16, 10, 14, 16, 11)  # phase 28: 8 reque
 # phase 29's requests in the whole run (still more than its slots), for its
 # time limit; --batchers runs all 8
 WHOLE_RUN_ARB_REQUESTS = 5
+ARB_TOKENS = 16  # phase 28's new tokens a request (GA_TOKENS)
+WHOLE_RUN_ARB_TOKENS = 8  # and in the whole run, for its time limit
 MXS_SPAN, MXS_NEW = 12, 32  # phase 29: the repeated span, new tokens
 SB8_CONFIG = {  # google/switch-base-8's config.json
     "architectures": ["SwitchTransformersForConditionalGeneration"], "d_ff": 3072,
@@ -5967,7 +6271,7 @@ def phase_arctic_batcher(dev, built=None):
     """Phase 28: phase 22b's Arctic build (4 layers, the int8 store) served by
     ``ContinuousBatcher(arena=...)`` over 160 slots: 8 requests into 4
     slots, prefill_chunk 1 (a step's union stays within 4 x 4 x 2 = 32
-    experts), 16 tokens each, each step a speculative execution over the
+    experts), ``ARB_TOKENS`` tokens each, each step a speculative execution over the
     arena. Returns the launches."""
     from moe_infinity_tpu_torch.ops import launch_counts, reset_launches
 
@@ -5978,7 +6282,7 @@ def phase_arctic_batcher(dev, built=None):
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        futures = _submit_together(b, [(p, dict(max_new_tokens=GA_TOKENS)) for p in prompts])
+        futures = _submit_together(b, [(p, dict(max_new_tokens=ARB_TOKENS)) for p in prompts])
         outs = [f.result(timeout=900) for f in futures]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -5987,16 +6291,16 @@ def phase_arctic_batcher(dev, built=None):
     finally:
         b.shutdown()
         b.arena.shutdown()
-    n_tok = len(prompts) * GA_TOKENS
+    n_tok = len(prompts) * ARB_TOKENS
     say(f"[arctic-batcher] {len(prompts)} requests (prompts {list(ARB_PROMPTS)}) into "
         f"{ARB_SLOTS} slots over {ARCTIC_OFF_SLOTS} of {store.num_layers * store.num_experts} "
-        f"experts, {GA_TOKENS} tokens each: {n_tok} tokens in {wall:.3f} s: tokens_per_s="
+        f"experts, {ARB_TOKENS} tokens each: {n_tok} tokens in {wall:.3f} s: tokens_per_s="
         f"{n_tok / wall:.2f}; hit rate {s['hit_rate']:.4f} ({s['visits']} visits, "
         f"{s['misses']} misses, {s['evictions']} evictions); executions per step "
         f"{s['mean_step_executions']:.3f} over {s['speculative_steps']} steps; steps "
         f"{json.dumps(steps)}; launches {json.dumps(counts)}")
     for p, out in zip(prompts, outs):
-        if out.shape != (len(p) + GA_TOKENS,) or not np.array_equal(out[:len(p)], p):
+        if out.shape != (len(p) + ARB_TOKENS,) or not np.array_equal(out[:len(p)], p):
             raise AssertionError(f"Arctic batcher: a request of {len(p)} came back as {out.shape}")
     _require_launched(counts, ("paged_flash_decode", "gmm"), "Arctic batcher in offload mode")
     if max(execs) <= 1:
@@ -6839,10 +7143,10 @@ def phase_stream_decode(dev, built=None):
 
 
 # phase 32's legs, (max_direct_layers, new tokens): bench.py's two direct
-# layers, then all six; the whole run takes the two-layer plan at 8 tokens,
-# for its time limit (phases 41-42 took its share)
+# layers, then all six; the whole run takes both at 8 tokens, for its time
+# limit (phases 41-42 took its share)
 DIRECT_LEGS = ((2, NEW_TOKENS), (None, NEW_TOKENS))
-WHOLE_RUN_DIRECT = ((2, 8), (None, NEW_TOKENS))
+WHOLE_RUN_DIRECT = ((2, WHOLE_RUN_NEW_TOKENS), (None, WHOLE_RUN_NEW_TOKENS))
 
 
 def phase_direct_layers(dev, built=None, legs=DIRECT_LEGS):
@@ -7063,6 +7367,7 @@ OPT_EP_BUDGET = int(6.5e9)
 NLLB_DENSE_SLOTS = 16  # phase 37's dense slots, of NLLB-MoE-54B's 48 blocks
 HF_SRC = 8  # phase 38's deadline-0 request: one source of 8 tokens, 4 new ones
 HF_NEW = 4
+WHOLE_RUN_HF_NEW = 2  # the deadline-0 legs' new tokens in the whole run, for its time limit
 HF_DQ_SLOTS = 160  # phase 38's dequant-on-write arena (bf16 slots of 67.1 MB)
 
 
@@ -8172,6 +8477,9 @@ DSV3_CONFIG = {  # deepseek-ai/DeepSeek-V3's config.json, cut in depth only (2 l
     "v_head_dim": 128, "vocab_size": 129280,
 }
 DS_REQUESTS, DS_PROMPT, DS_NEW = 4, 16, 16
+# phase 40's facades in the whole run, for its time limit (its ingest, some
+# 45 s of the host's, stays whole); --loading answers 4 requests of 16
+WHOLE_RUN_DS_REQUESTS, WHOLE_RUN_DS_NEW = 2, 8
 DS_OFF_BUDGET = 160  # experts the offload plan's budget holds, of 256
 DS_EXPERT_SHARD = 32  # routed experts per safetensors shard
 DS_KERNELS = ("mla_flash_decode", "gmm_fp8")
@@ -8508,8 +8816,9 @@ def phase_dsv3_entry(dev):
     failure) and ingested to float8_e4m3fn experts; 8 sampled records
     byte-equal to ``dequant_fp8_block`` then ``quantize_rowwise`` on the
     host; K3's e4m3 kind at the batch-1 MoE layer of the store's records,
-    timed; the resident facade (``Generator``) answering 4 requests of 16
-    tokens with 16 new each, K5 (H = 128) held to 2 launches on every
+    timed; the resident facade (``Generator``) answering ``DS_REQUESTS``
+    requests of 16 tokens with ``DS_NEW`` new each (4 of 16; 2 of 8 in the
+    whole run), K5 (H = 128) held to 2 launches on every
     one-token step and K3 e4m3 to 3 on every MoE layer call; the first
     decode step's logits through the kernels against the plain versions (f32
     held at the bf16 tolerance, the bf16 facade reported); then the offload
@@ -10087,19 +10396,19 @@ def main() -> int:
         say(f"[card] {smi}")
         return 0
     if "--gmm" in sys.argv[1:]:
-        r = phase_gmm(dev)
-        say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.4f} "
-            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
-            f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e}")
+        for r in phase_gmm(dev):
+            say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+                f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e}")
         sweep_gmm_plans(dev)
         say(f"[card] {smi}")
         return 0
     if "--mla" in sys.argv[1:]:
-        r = phase_mla(dev)
-        say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.5f} "
-            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
-            f"({r['bound_by']}) library_ms={r['library_ms']:.4f} "
-            f"max_abs_err={r['max_abs_err']:.3e}")
+        for r in phase_mla(dev):
+            say(f"[time] {r['name']} ({r['shape']}): ms={r['ms']:.5f} "
+                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+                f"({r['bound_by']}) library_ms={r['library_ms']:.4f} "
+                f"max_abs_err={r['max_abs_err']:.3e}")
         sweep_mla_plans(dev)
         say(f"[card] {smi}")
         return 0
@@ -10155,6 +10464,7 @@ def main() -> int:
         timed(phase_main_path)
         timed(phase_mixtral)
         timed(phase_deepseek)
+        timed(phase_deepseek_widths)
         say(f"[card] {smi}")
         return 0
     if "--switch" in sys.argv[1:]:
@@ -10220,6 +10530,9 @@ def main() -> int:
     # the whole run's cuts of earlier paths' steps and requests, for its time
     # limit (each path whole under its flag; PERF.md section 6)
     global SCAN_TOKENS, ARB_PROMPTS, NEW_TOKENS, PARITY_TOKENS, GA_PARITY_STEPS, POD_BLOCKS
+    global EP_NEW, DS_REQUESTS, DS_NEW, HF_NEW, ARB_TOKENS
+    EP_NEW, DS_REQUESTS, DS_NEW = WHOLE_RUN_EP_NEW, WHOLE_RUN_DS_REQUESTS, WHOLE_RUN_DS_NEW
+    HF_NEW, ARB_TOKENS = WHOLE_RUN_HF_NEW, WHOLE_RUN_ARB_TOKENS
     SCAN_TOKENS, ARB_PROMPTS = WHOLE_RUN_SCAN_TOKENS, ARB_PROMPTS[:WHOLE_RUN_ARB_REQUESTS]
     NEW_TOKENS, PARITY_TOKENS = WHOLE_RUN_NEW_TOKENS, WHOLE_RUN_PARITY_TOKENS
     GA_PARITY_STEPS, POD_BLOCKS = WHOLE_RUN_GA_STEPS, WHOLE_RUN_PARITY_BLOCKS
@@ -10230,6 +10543,7 @@ def main() -> int:
     timed(phase_mixtral_whole_path)
     mla_counts = timed(phase_deepseek, scan)
     timed(phase_deepseek_whole_path)
+    widths_counts = timed(phase_deepseek_widths)  # phase 46
     off_counts = timed(phase_offload)
     timed(phase_offload_whole_path, WHOLE_RUN_PARITY_SEEDS)
     spec_counts = timed(phase_offload_spec, extra)
@@ -10263,9 +10577,11 @@ def main() -> int:
     sp_counts = timed(phase_sp)  # phase 44: the ranks' K3 launches
     say(f"[batchers] launches by phase {json.dumps(extra)}")
     say(f"[scan] launches of phase 41's timed calls {json.dumps(scan)}")
+    say(f"[run] the whole run: {time.perf_counter() - START:.1f} s, the build included")
     for r in recs:
         r["launches"] = sum(c.get(r["name"], 0) for c in (
-            counts, mix_counts, mla_counts, off_counts, spec_counts, st_counts, sw_counts,
+            counts, mix_counts, mla_counts, widths_counts, off_counts, spec_counts, st_counts,
+            sw_counts,
             sw_off_counts, mx_off_counts, ds_off_counts, ep_counts, gk_counts, ac_counts, ge_counts,
             *extra.values(), *scan.values(), mesh_counts, pod_counts, sp_counts))
         r.pop("shape")

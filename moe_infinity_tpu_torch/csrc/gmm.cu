@@ -11,6 +11,16 @@
 // (byte c of a row holds output channel c in its low nibble and channel
 // c + F/2 in its high nibble, sign-extended).
 //
+// Two weight layouts, one kernel: flat [S, D, Fw] and the JAX kernel's
+// pre-tiled [S, Fw / tf, D, tf] (ops/gmm.py::pack_tiled: slab fi holds
+// stored columns [fi tf, (fi + 1) tf)). The flat layout is the tiled one with
+// a single slab, tf = Fw, so column c at k-row d of slot gw lies at element
+// ((gw nf + c / tf) D + d) tf + c % tf either way. A 16-byte piece lies in
+// one slab when tf * elt is a multiple of 16; a column tile of 128 may still
+// straddle two slabs (slabs of 352 columns, say), each piece reading its own. The
+// products and their order are the same in both layouts, so a tiled call is
+// bit-equal to the flat call on the same values.
+//
 // What bounds it on the H100: the routed experts' weight bytes, at 3.35
 // TB/s. A decode step gives each routed expert a few rows (8 to 24 rows in
 // all), Mixtral's 16-wide chunk step about 16 and NLLB's prefill about 4:
@@ -105,6 +115,7 @@ struct Args {
   float* part;             // [splits, T, F] partial sums when splits > 1
   int32_t* tickets;        // [chunks, tiles], zero between launches, when splits > 1
   int G, goff, T, D, Fw, F, kps, splits;
+  int tf;      // stored columns of a slab: Fw when flat
   float* out;  // [T, F]
 };
 
@@ -282,9 +293,10 @@ __global__ void __launch_bounds__(kThreads, 2) gmm_kernel(const Args a) {
     wdst[j] = kk * C::kWRow + ch * 16;
     wk[j] = kk;
     wok[j] = col < a.Fw;
-    wsrc[j] = wg + ((size_t)(kt0 * kBK + kk) * a.Fw + col) * C::kElt;
+    wsrc[j] = wg + (((size_t)(col / a.tf) * a.D + kt0 * kBK + kk) * a.tf + col % a.tf) *
+                       C::kElt;
   }
-  const size_t wstep = (size_t)kBK * a.Fw * C::kElt;
+  const size_t wstep = (size_t)kBK * a.tf * C::kElt;
   // stage s <- the next k-tile, kt
   auto load = [&](int kt, int s) {
     unsigned char* xs = smem + s * C::kStage;
@@ -460,7 +472,9 @@ int launch_kind(const Args& a, dim3 grid, int mt, cudaStream_t st) {
 
 }  // namespace
 
-// `splits` whole-k-tile splits of ceil(ceil(D / 64) / splits) k-tiles each,
+// w is [S, Fw / tf, D, tf] (tf = Fw: the flat [S, D, Fw]), tf * elt a
+// multiple of 16 bytes. `splits` whole-k-tile splits of
+// ceil(ceil(D / 64) / splits) k-tiles each,
 // none empty; with more than one, `part` holds splits * T * F floats and
 // `tickets` max_chunks * ceil(Fw / 128) zeroed counters. rows_per_chunk
 // must equal kBM; max_chunks bounds the chunk count (rows / kBM + G) and
@@ -468,14 +482,15 @@ int launch_kind(const Args& a, dim3 grid, int mt, cudaStream_t st) {
 extern "C" int mit_gmm(const void* x, const void* w, const void* scale,
                        const void* sizes, const void* gids, void* part, void* tickets,
                        int goff, int G, int max_chunks, int rows_per_chunk, int T,
-                       int D, int Fw, int F, int kind, int splits, void* out,
-                       void* stream) {
+                       int D, int Fw, int F, int kind, int splits, int tf,
+                       void* out, void* stream) {
   const int nk = (D + kBK - 1) / kBK;
   const int kps = splits > 0 ? (nk + splits - 1) / splits : 0;
   const int elt = kind == kBF16 ? 2 : 1;
   if (rows_per_chunk != kBM || G < 1 || max_chunks > 65535 || splits < 1 ||
       splits > 65535 || (splits - 1) * kps >= nk || D % 8 != 0 ||
-      (Fw * elt) % 16 != 0 || (splits > 1 && (part == nullptr || tickets == nullptr)))
+      (Fw * elt) % 16 != 0 || tf <= 0 || Fw % tf != 0 || (tf * elt) % 16 != 0 ||
+      (splits > 1 && (part == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.x = static_cast<const __nv_bfloat16*>(x);
@@ -493,6 +508,7 @@ extern "C" int mit_gmm(const void* x, const void* w, const void* scale,
   a.F = F;
   a.kps = kps;
   a.splits = splits;
+  a.tf = tf;
   a.out = static_cast<float*>(out);
   const dim3 grid((Fw + kBN - 1) / kBN, splits, max_chunks);
   const int mt = (std::min(T, kBM) + 15) / 16;

@@ -15,8 +15,12 @@ A one-token step goes to K5 (``ops.flash_attention.mla_flash_decode``),
 which streams the live latent and rope caches once for all heads; a step of
 T > 1 tokens (prefill, the batcher's chunk steps) is a masked einsum softmax,
 as in the JAX package, and so is every step under
-``set_attention_impl("naive")``. RoPE pairs ``(x[2i], x[2i+1])`` and stays in
-f32.
+``set_attention_impl("naive")`` and every step at a latent width R that is
+not a multiple of 128, where the JAX kernel declines (returns None) and its
+model takes the einsum. That choice is made from the shapes before any
+call, never by catching a kernel's error: there is no fallback, and K5
+raises on the card for a shape it does not take. RoPE pairs
+``(x[2i], x[2i+1])`` and stays in f32.
 
 Routing: softmax scores with greedy or group-limited top-k (V2), or sigmoid
 scores with a correction bias and sum-of-top-2 group scores (V3); ties go to
@@ -380,7 +384,7 @@ class DeepseekV2Model:
             q_lat = torch.einsum("bthd,hdr->bthr", q_nope.float(), pl["w_uk"].float())
         scale = 1.0 if folded else s.qk_head_dim ** -0.5
 
-        if T == 1 and layers.get_attention_impl() == "flash":
+        if T == 1 and layers.get_attention_impl() == "flash" and c_cache.shape[-1] % 128 == 0:
             mask = key_valid
             if mask is None and pad_offsets is not None:
                 mask = torch.arange(S, device=x.device)[None, :] >= pad_offsets[:, None]
@@ -601,16 +605,24 @@ class DeepseekV2Model:
         return {k: torch.stack([pl[k] for pl in moe_pls]) for k in moe_pls[0]}
 
     @staticmethod
-    def stack_experts(layer_trees, layout="flat"):
+    def stack_experts(layer_trees, layout="tiled"):
         """Per-layer expert dicts ([E, ...] tensors) -> one [Lm*E, ...] pool
-        per role: the layout K3's ``group_offset`` reads. Only ``"flat"``
-        ([S, D, F] rows); the TPU kernel's pre-tiled layout is not ported."""
-        if layout != "flat":
-            raise NotImplementedError(
-                f"stack_experts layout {layout!r}: the pre-tiled weight layout "
-                "(pack_tiled) is not ported (ROADMAP queue 2, part 2); use layout='flat'"
-            )
-        return {k: torch.cat([lt[k] for lt in layer_trees], dim=0) for k in layer_trees[0]}
+        per role: the layout K3's ``group_offset`` reads. ``"tiled"`` (the
+        JAX package's default) packs each 3-D role as ``ops.gmm.pack_tiled``
+        does, [Lm*E, F/tf, D, tf]; ``"flat"`` keeps [Lm*E, D, F] rows, which
+        the gather decode path needs. The tiled pool is one ``cat`` of each
+        layer's tiled view, written straight into the pool, so building it
+        holds the layer trees and one pool, never a third copy of the
+        experts."""
+        if layout not in ("tiled", "flat"):
+            raise ValueError(f"stack_experts: layout {layout!r} is not 'tiled' or 'flat'")
+        out = {}
+        for k in layer_trees[0]:
+            parts = [lt[k] for lt in layer_trees]
+            if layout == "tiled" and parts[0].dim() == 3:
+                parts = [gm.tiled_view(p) for p in parts]
+            out[k] = torch.cat(parts, dim=0)
+        return out
 
     def _fused_moe_gather(self, h, cw, ids, pool, offset: int):
         """Decode-path MoE as gather + batched matvec over the stacked pool:
@@ -618,6 +630,10 @@ class DeepseekV2Model:
         of the pool as its slots. Plain PyTorch, as it is plain XLA in the JAX
         package (whose fused variant also rounds the activation to bf16 under
         f32 compute; here it stays in the compute dtype)."""
+        if pool["gate"].dim() != 3:
+            raise ValueError(
+                "the gather decode path reads flat [S, D, F] rows: build its pool with "
+                "stack_experts(..., layout='flat'), not the tiled layout")
         B, T, D = h.shape
         K = ids.shape[-1]
         slots = torch.arange(offset, offset + self.spec.num_experts, device=h.device)
@@ -626,9 +642,9 @@ class DeepseekV2Model:
         return y.reshape(B, T, D)
 
     def _fused_moe(self, h, cw, ids, pool, offset: int):
-        """Grouped FFN against the stacked expert pool on K3 with a per-layer
-        group offset: all E groups, the empty ones owning no work in the
-        kernel. No host read."""
+        """Grouped FFN against the stacked expert pool, flat or tiled, on K3
+        with a per-layer group offset: all E groups, the empty ones owning no
+        work in the kernel. No host read."""
         E = self.spec.num_experts
         B, T, D = h.shape
         K = ids.shape[-1]

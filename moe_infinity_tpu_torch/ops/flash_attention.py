@@ -49,8 +49,14 @@ zero-padded instance of width 128 (below 128) or 256
 (``csrc/flash_attention_pad128.cu``, ``pad256.cu``) that reads only the true dh columns of a
 row, so bytes bound it as they bound the others; never a padded copy of the
 cache. A kv head with more than 8 query rows is split over
-``ceil(rows / 8)`` blocks of the decode body. K5 takes R 512 with P 64, at
-any S and H. The plain
+``ceil(rows / 8)`` blocks of the decode body. K5 takes R 512 with P 64 on
+its own instance (``csrc/flash_attention.cu``, the templates in ``mla.cuh``)
+and every other R that is a multiple of 128 up to 512 with every P from 1 to
+64 on a zero-padded instance of the same layout (``csrc/mla_pad.cu``, a
+library of its own) that reads only the live columns, at any S and H. R not
+a multiple of 128 is not taken, as the JAX kernel declines it: the model
+decides that from the shape and takes its einsum (``models/deepseek_v2.py``);
+nothing here falls back. The plain
 versions repeat the kernels' arithmetic, including what differs from the
 einsum oracle ``models.layers.attend_reference``: a row with no valid key
 returns 0, and ``flash_attend`` rounds p to V's dtype before the P.V product
@@ -76,7 +82,7 @@ LAUNCHES = {"flash_decode": 0, "flash_attend": 0, "paged_flash_decode": 0,
             "paged_flash_decode_dh64": 0, "flash_decode_pad128": 0,
             "flash_attend_pad128": 0, "paged_flash_decode_pad128": 0,
             "flash_decode_pad256": 0, "flash_attend_pad256": 0,
-            "paged_flash_decode_pad256": 0}
+            "paged_flash_decode_pad256": 0, "mla_flash_decode_pad": 0}
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _c = ctypes.c_void_p
@@ -92,7 +98,7 @@ _DEC_TILE = 64  # kDecTile: keys per tile of the decode body
 _DEC_ROWS = 8  # kDecMaxRows: query rows of one kv head a block of the decode body takes
 _DEC_BLOCKS = 792  # blocks aimed at: six per SM of an H100, three resident at a time
 _MLA_ARGS = [_c] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, _c]
-_MLA_R, _MLA_P = 512, 64  # kMlaR, kMlaP in csrc/flash_attention.cu
+_MLA_R, _MLA_P = 512, 64  # kMlaR, kMlaP in csrc/mla.cuh: the widest instance
 _MLA_TILE, _MLA_HEADS = 32, 16  # kMlaTile, kMlaHeads
 _MLA_BLOCKS = 132  # blocks aimed at: one per SM of an H100 (its shared memory holds one)
 _MLA_MIN_TILES = 2  # 32-key tiles a split reads at least: one 64-key tile of the kernel
@@ -509,6 +515,23 @@ def _mla_splits(B: int, H: int, live_max: int):
     return per * _MLA_TILE, max(1, -(-tiles // per))
 
 
+def _mla_instance(R: int, P: int):
+    """(library stem, C name, launch-count key) of K5's instance for latent
+    width R and rope width P: its own at 512/64, else the padded one. Raises
+    for widths no instance takes."""
+    if R % 128 or R < 128 or P < 1:
+        raise ValueError(
+            f"mla_flash_decode: the kernel takes R a multiple of 128 and P >= 1, got R={R} "
+            f"P={P} (the JAX kernel declines such R; the model takes its einsum)")
+    if R > _MLA_R or P > _MLA_P:
+        raise ValueError(
+            f"mla_flash_decode: the kernel takes R up to {_MLA_R} and P up to {_MLA_P}, got "
+            f"R={R} P={P} (wider instances are ROADMAP queue 2 part 4's remainder)")
+    if (R, P) == (_MLA_R, _MLA_P):
+        return "flash_attention", "mit_mla_flash_decode", "mla_flash_decode"
+    return "mla_pad", "mit_mla_flash_decode_pad", "mla_flash_decode_pad"
+
+
 def _mla_cluster(splits: int) -> int:
     """Blocks of a cluster for a plan of ``splits``: the power of two that
     holds them all, at most ``_MLA_CLUSTER``; the splits are padded to a
@@ -518,11 +541,7 @@ def _mla_cluster(splits: int) -> int:
 
 def _mla_cuda(q_lat, q_pe, c, kpe, q_positions, kv_len, *, scale, pad_mask):
     B, H, R, P, S = _mla_check(q_lat, q_pe, c, kpe, q_positions)
-    if (R, P) != (_MLA_R, _MLA_P):
-        raise ValueError(
-            f"mla_flash_decode: the kernel takes R={_MLA_R} with P={_MLA_P}, "
-            f"got R={R} P={P}"
-        )
+    stem, cname, count = _mla_instance(R, P)
     ql = q_lat.to(torch.float32).contiguous()
     qp = q_pe.to(torch.float32).contiguous()
     for n, t in (("q_lat", ql), ("q_pe", qp), ("c_cache", c), ("kpe_cache", kpe)):
@@ -542,7 +561,7 @@ def _mla_cuda(q_lat, q_pe, c, kpe, q_positions, kv_len, *, scale, pad_mask):
         scratch = _build.workspace(dev, n_acc + n_ml)
         part_acc, part_ml = scratch[:n_acc], scratch[n_acc:n_acc + n_ml]
         tickets = _build.tickets(dev, B * -(-H // _MLA_HEADS) * CL)
-    fn = _build.function("flash_attention", "mit_mla_flash_decode", _MLA_ARGS)
+    fn = _build.function(stem, cname, _MLA_ARGS)
     err = _build.launch(fn, dev,
         _build.ptr(ql), _build.ptr(qp), _build.ptr(c), _build.ptr(kpe),
         _build.ptr(qpos), _build.ptr(mask), _build.ptr(part_acc),
@@ -550,7 +569,7 @@ def _mla_cuda(q_lat, q_pe, c, kpe, q_positions, kv_len, *, scale, pad_mask):
         kv_len, kc, NS, CL, scale, int(c.dtype == torch.bfloat16)
     )
     _build.check(err, "mla_flash_decode")
-    LAUNCHES["mla_flash_decode"] += 1
+    LAUNCHES[count] += 1
     return out
 
 

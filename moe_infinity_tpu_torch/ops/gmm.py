@@ -7,8 +7,12 @@ rows sorted by group, f32 accumulation, the per-output-channel ``scale``
 after the sum. Weights are bf16, int8, float8_e4m3fn (every e4m3 value is a
 bf16 value, so the products are the JAX kernel's ``bf16(x) x bf16(w)``) or
 split-nibble packed int4 (``[S, D, F/2]`` int8; low nibbles are columns
-``[0, F/2)``, high nibbles ``[F/2, F)``). The kernel (``csrc/gmm.cu``)
-should be bound by the routed experts' weight bytes: a block owns 128
+``[0, F/2)``, high nibbles ``[F/2, F)``). ``w`` is flat ``[S, D, F]`` or
+the JAX kernel's pre-tiled ``[S, F/tf, D, tf]`` (``pack_tiled``: slab ``fi``
+holds columns ``[fi·tf, (fi+1)·tf)``), which the kernel reads in place with
+the same products in the same order, so a tiled call is bit-equal to the
+flat one; packed int4 is flat only, as in the JAX package. The kernel
+(``csrc/gmm.cu``) should be bound by the routed experts' weight bytes: a block owns 128
 stored columns of a chunk of up to
 64 rows of one group, so a group of up to 64 rows reads its slab once;
 64-deep k-tiles arrive by ``cp.async`` several stages ahead, int8, int4 and
@@ -40,13 +44,17 @@ import torch
 from moe_infinity_tpu_torch.ops import _build
 
 # launches of the kernel since the last reset (plain runs never count); the
-# e4m3 instance counts under its own name
-LAUNCHES = {"gmm": 0, "gmm_fp8": 0}
+# e4m3 instance and calls on pre-tiled weights count under their own names.
+# ``gmm_tiled`` counts every call on a 4-D weight, whatever its kind: the one
+# tiled pool on a served path (DeepSeek's FusedRunner) is bf16, so its record
+# and bound are bf16's; key it by kind too once a tiled e4m3 or int8 pool
+# reaches a path
+LAUNCHES = {"gmm": 0, "gmm_fp8": 0, "gmm_tiled": 0}
 
 _KIND = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 3}  # WKind in csrc/gmm.cu
 _INT4 = 2
 _c = ctypes.c_void_p
-_GMM_ARGS = [_c] * 7 + [ctypes.c_int] * 10 + [_c, _c]
+_GMM_ARGS = [_c] * 7 + [ctypes.c_int] * 11 + [_c, _c]
 # kBM, kBN and kBK in csrc/gmm.cu: a block owns one chunk of up to 64 rows of
 # a group and 128 stored columns, and walks the reduction in 64-deep k-tiles
 _ROWS_PER_CHUNK = 64
@@ -54,6 +62,40 @@ _TILE_COLS = 128
 _K_TILE = 64
 _GMM_BLOCKS = 264  # blocks a call should bring: two per SM of the H100's 132
 _GMM_MIN_KTILES = 4  # k-tiles of a split at the least
+_TILED_TF_CAP = 512  # pack_tiled's widest slab
+
+
+def _largest_divisor_leq(n: int, cap: int) -> int:
+    """Largest divisor of n that is <= cap and a multiple of 128, else any
+    divisor <= cap: the JAX package's slab-width rule (ops/gmm.py)."""
+    for c in range(min(n, cap) // 128 * 128, 0, -128):
+        if n % c == 0:
+            return c
+    for c in range(min(n, cap), 0, -1):
+        if n % c == 0:
+            return c
+    return n
+
+
+def tiled_view(w: torch.Tensor, tf: int = 0) -> torch.Tensor:
+    """[S, D, F] viewed as the pre-tiled [S, F/tf, D, tf] (slab fi holds
+    columns [fi·tf, (fi+1)·tf)), not copied; tf defaults to the JAX
+    package's rule, the largest divisor of F up to 512."""
+    S, D, F = w.shape
+    if tf == 0:
+        tf = _largest_divisor_leq(F, _TILED_TF_CAP)
+    return w.reshape(S, D, F // tf, tf).permute(0, 2, 1, 3)
+
+
+def pack_tiled(w: torch.Tensor, tf: int = 0) -> torch.Tensor:
+    """[S, D, F] -> the pre-tiled [S, F/tf, D, tf], contiguous: the JAX
+    package's ``pack_tiled``."""
+    return tiled_view(w, tf).contiguous()
+
+
+def _flat_slab(wg: torch.Tensor) -> torch.Tensor:
+    """One slot's weights as [D, F]: a tiled slot [F/tf, D, tf] viewed flat."""
+    return wg.permute(1, 0, 2).reshape(wg.shape[1], -1) if wg.dim() == 3 else wg
 
 
 class GmmPlan(NamedTuple):
@@ -80,7 +122,7 @@ def _gmm_plan(T: int, G: int, D: int, Fw: int) -> GmmPlan:
 
 def gmm(
     x: torch.Tensor,  # [T, D] rows sorted by group
-    w: torch.Tensor,  # [S_total, D, F] or packed int4 [S_total, D, F // 2]
+    w: torch.Tensor,  # [S_total, D, F], [S_total, F/tf, D, tf] or int4 [S_total, D, F // 2]
     group_sizes: torch.Tensor,  # [G] int
     scale: Optional[torch.Tensor] = None,  # [S_total, F] f32
     group_offset: int = 0,  # base row into w and scale
@@ -90,13 +132,21 @@ def gmm(
 ) -> torch.Tensor:
     """Grouped matmul; returns f32 [T, F]. Rows past sum(group_sizes) are
     zero."""
+    if w.dim() == 4 and packed:
+        raise ValueError("packed int4 gmm takes 3D [S, D, F//2] weights")
     fn = _gmm_cuda if x.is_cuda else gmm_plain
     return fn(x, w, group_sizes, scale, int(group_offset), group_ids, packed=packed)
 
 
 def _gmm_cuda(x, w, group_sizes, scale, group_offset, group_ids, *, packed):
     T, D = x.shape
-    S_total, Dw, Fw = w.shape
+    tiled = w.dim() == 4
+    if tiled:
+        S_total, nf, Dw, tf = w.shape
+        Fw = nf * tf
+    else:
+        S_total, Dw, Fw = w.shape
+        tf = Fw
     F = 2 * Fw if packed else Fw
     G = group_sizes.shape[0]
     if Dw != D:
@@ -111,6 +161,10 @@ def _gmm_cuda(x, w, group_sizes, scale, group_offset, group_ids, *, packed):
             f"gmm: the kernel copies rows in 16-byte pieces, so D must be a multiple "
             f"of 8 (got {D}) and a stored weight row a multiple of 16 bytes (got "
             f"{Fw} x {w.element_size()})")
+    if (tf * w.element_size()) % 16:
+        raise ValueError(
+            f"gmm: a tiled weight's slab row must be a multiple of 16 bytes, so that "
+            f"no 16-byte piece straddles two slabs (got tf {tf} x {w.element_size()})")
     plan = _gmm_plan(T, G, D, Fw)
     if (group_ids is not None and G != group_ids.shape[0]) or plan.chunks > 65535:
         raise ValueError("gmm: group_ids must match group_sizes; rows/64 + G <= 65535")
@@ -136,21 +190,22 @@ def _gmm_cuda(x, w, group_sizes, scale, group_offset, group_ids, *, packed):
     err = _build.launch(fn, dev,
         _build.ptr(xb), _build.ptr(w), _build.ptr(scale), _build.ptr(sizes), _build.ptr(gids),
         _build.ptr(part), _build.ptr(tickets), group_offset, G, plan.chunks,
-        _ROWS_PER_CHUNK, T, D, Fw, F, kind, plan.splits, _build.ptr(out)
+        _ROWS_PER_CHUNK, T, D, Fw, F, kind, plan.splits, tf, _build.ptr(out)
     )
     _build.check(err, "gmm")
-    LAUNCHES["gmm_fp8" if w.dtype == torch.float8_e4m3fn else "gmm"] += 1
+    LAUNCHES["gmm_tiled" if tiled else
+             "gmm_fp8" if w.dtype == torch.float8_e4m3fn else "gmm"] += 1
     return out
 
 
 def gmm_plain(x, w, group_sizes, scale=None, group_offset=0, group_ids=None,
               *, packed=False):
     """K3's arithmetic in PyTorch, one f32 matmul per non-empty group (reads
-    the group sizes on the host)."""
+    the group sizes on the host). A tiled slot is viewed flat."""
     from moe_infinity_tpu_torch.ops.moe import unpack_int4
 
     T, D = x.shape
-    F = 2 * w.shape[2] if packed else w.shape[2]
+    F = w.shape[1] * w.shape[3] if w.dim() == 4 else 2 * w.shape[2] if packed else w.shape[2]
     G = group_sizes.shape[0]
     if group_ids is None:
         group_ids = torch.arange(G)
@@ -159,7 +214,7 @@ def gmm_plain(x, w, group_sizes, scale=None, group_offset=0, group_ids=None,
     start = 0
     for n, gid in zip(group_sizes.tolist(), group_ids.tolist()):
         if n:
-            wg = w[gid + group_offset]
+            wg = _flat_slab(w[gid + group_offset])
             wf = unpack_int4(wg).float() if packed else wg.to(torch.bfloat16).float()
             seg = xb[start:start + n] @ wf
             if scale is not None:
@@ -193,14 +248,12 @@ def gffn_pallas(x, expert_ids, combine_weights, expert_to_slot,
                 weights: Dict[str, torch.Tensor], activation, biases=None):
     """Grouped FFN on the gmm kernel; signature of ops.moe._gffn_ragged.
     Takes 'gate'/'down' (NLLB), gated 'gate'/'up'/'down' (Mixtral) and fused
-    'gateup', each bf16, int8 or float8_e4m3fn with '<role>_scale', or
-    packed int4 under '<role>4'. A packed 'gateup4' needs no split: its low nibbles are the
-    gate columns and its high nibbles the up columns, so one gmm emits
-    [gate | up]."""
+    'gateup', each bf16, int8 or float8_e4m3fn with '<role>_scale', flat or
+    pre-tiled (``pack_tiled``), or packed int4 under '<role>4'. A packed
+    'gateup4' needs no split: its low nibbles are the gate columns and its
+    high nibbles the up columns, so one gmm emits [gate | up]."""
     from moe_infinity_tpu_torch.ops.moe import _activate
 
-    if any(w.dim() != 3 for k, w in weights.items() if not k.endswith("_scale")):
-        raise ValueError("gffn_pallas: pre-tiled [S, F/tf, D, tf] weights are not ported")
     T, D = x.shape
     K = expert_ids.shape[1]
     compute_dtype = x.dtype

@@ -236,9 +236,10 @@ class Seq2SeqContinuousBatcher:
                 self._ck[:, b, :S1].copy_(torch.stack([c[0][0] for c in rows]))
                 self._cv[:, b, :S1].copy_(torch.stack([c[1][0] for c in rows]))
             except Exception as e:  # noqa: BLE001 - a failed join fails only this request
-                req.future.set_exception(e)
+                # the tracer entry is finished before the waiter can wake
                 if seq_id is not None:
                     self.engine.tracer.finish_entry(seq_id)
+                req.future.set_exception(e)
                 continue
             self._mask[b].copy_(m_d[0])
             slot.seq_id = seq_id
@@ -263,18 +264,20 @@ class Seq2SeqContinuousBatcher:
         """Fail every active request; the scheduler thread survives and no
         future hangs. The caches are zeroed in place first (new tensors would
         move the addresses a captured graph reads), so a caller woken by the
-        failure finds them zeroed."""
+        failure finds them zeroed, its tracer entry finished and its slot
+        free."""
         for kv in self._kvs:
             kv.k.zero_()
             kv.v.zero_()
         for sl in self._slots:
             if sl.active:
-                sl.req.future.set_exception(exc)
+                req = sl.req
                 if sl.seq_id is not None:
                     self.engine.tracer.finish_entry(sl.seq_id)
                     sl.seq_id = None
                 sl.req = None
                 sl.active = False
+                req.future.set_exception(exc)
 
     def _loop(self):
         if self._device.type == "cuda":

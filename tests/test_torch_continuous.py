@@ -242,12 +242,13 @@ def test_unported_options_raise(models, tmp_path):
 DS_TINY = dict(
     vocab_size=128, hidden_size=64, intermediate_size=96,
     moe_intermediate_size=48, num_layers=2, num_heads=4,
-    q_lora_rank=None, kv_lora_rank=32, qk_nope_head_dim=32,
+    q_lora_rank=None, kv_lora_rank=128, qk_nope_head_dim=32,
     qk_rope_head_dim=16, v_head_dim=32, num_experts=8, top_k=2,
     n_shared_experts=1, first_k_dense_replace=1, topk_method="greedy",
     n_group=None, topk_group=None, routed_scaling_factor=1.0,
     rms_eps=1e-6, rope_theta=10000.0, tie_embeddings=False,
-)  # the spec of tests/test_continuous.py:75-83
+)  # the spec of tests/test_continuous.py:75-83 with a latent of 128: at its 32 the
+# port's model, as JAX's, takes the einsum (K5 takes R % 128 == 0)
 
 
 @pytest.fixture(scope="module")
@@ -284,7 +285,8 @@ def ds_batcher(request, ds_models):
 
 def test_deepseek_pools_take_the_asymmetric_cache(ds_batcher):
     for pk, pv in ds_batcher._pools:
-        assert tuple(pk.shape) == (64, 8, 1, 32) and tuple(pv.shape) == (64, 8, 1, 16)
+        assert tuple(pk.shape) == (64, 8, 1, DS_TINY["kv_lora_rank"])
+        assert tuple(pv.shape) == (64, 8, 1, 16)
 
 
 def test_deepseek_staggered_requests_match_jax(ds_batcher, ds_models):

@@ -347,6 +347,35 @@ def test_offload_batcher_survives_step_failure(nllb, store):
         b.engine.arena.shutdown()
 
 
+def test_offload_batcher_survives_join_failure(nllb, store):
+    """A join whose encode raises fails only its request, and its tracer
+    entry is finished before the future raises: a done-callback, which runs
+    where the exception is set, finds the trace empty. The next request is
+    served exactly."""
+    resident = _resident_want(nllb, store)
+    b = _port_batcher(nllb, store, 6, False, 1)
+    orig = b.engine.run_encoder
+    seen = []
+
+    def poisoned(*a, **k):
+        b.engine.run_encoder = orig
+        raise RuntimeError("injected encode failure")
+
+    b.engine.run_encoder = poisoned
+    try:
+        f = b.submit(PROMPTS[0], max_new_tokens=4, eos_token_id=None)
+        f.add_done_callback(lambda _f: seen.append(len(b.engine.tracer.trace)))
+        with pytest.raises(RuntimeError, match="injected encode"):
+            f.result(timeout=TIMEOUT)
+        assert seen == [0] and b.joins == 0
+        with port_attention("naive"):
+            got = b.submit(PROMPTS[1], max_new_tokens=5, eos_token_id=None).result(TIMEOUT)
+        np.testing.assert_array_equal(got, resident(PROMPTS[1], 5))
+    finally:
+        b.shutdown()
+        b.engine.arena.shutdown()
+
+
 def test_offload_batcher_needs_a_layer_of_slots(nllb, store):
     model, params = nllb[3:5]
     arena = ExpertArena(ExpertStore(store), E, compute_dtype=torch.float32, device="cpu",

@@ -424,8 +424,8 @@ def test_mla_flash_decode_on_a_second_stream_without_a_host_sync(dev):
 def test_mla_flash_decode_kernel_rejects_what_it_does_not_take(dev):
     z = lambda *s: torch.zeros(*s, device=dev)  # noqa: E731
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="R=512"):
-        fa.mla_flash_decode(z(1, 4, 128), z(1, 4, 32), z(1, 8, 128), z(1, 8, 32), pos, 8, scale=1.0)
+    with pytest.raises(ValueError, match="queue 2 part 4's remainder"):
+        fa.mla_flash_decode(z(1, 4, 640), z(1, 4, 64), z(1, 8, 640), z(1, 8, 64), pos, 8, scale=1.0)
     with pytest.raises(ValueError, match="different devices"):
         fa.mla_flash_decode(z(1, 4, 512), z(1, 4, 64), z(1, 8, 512), z(1, 8, 64),
                             torch.zeros(1, dtype=torch.int32), 8, scale=1.0)
@@ -460,6 +460,62 @@ def test_gmm_kernel_deepseek_widths(dev, kind, offset):
     _close(got, want, 2e-2)
 
 
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("D,F,tf", [(2048, 1408, 0), (2048, 1408, 352), (1408, 2048, 0)])
+def test_gmm_kernel_tiled_is_bit_equal_to_flat(dev, kind, D, F, tf):
+    """The pre-tiled layout at V2-Lite's widths: gate/up in pack_tiled's
+    default slabs (tf 128) and in slabs of 352 (a 128-column tile then reads
+    two slabs), down in slabs of 512, at group offset 128 into a stacked
+    pool: the kernel's products and their order are the flat call's, so the
+    outputs are bit-equal; counted under gmm_tiled."""
+    g = _gen(dev)
+    E, rows, offset = 64, 24, 128
+    S = offset + E
+    flat = torch.randint(0, E, (rows,), generator=g, device=dev)
+    sizes = torch.zeros(E, dtype=torch.int32, device=dev)
+    sizes.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    x = torch.randn(rows, D, generator=g, device=dev)
+    scale = None
+    if kind == "bf16":
+        w = (torch.randn(S, D, F, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    else:
+        w = torch.randn(S, D, F, generator=g, device=dev) * 40
+        w = w.clamp(-128, 127).to(torch.int8) if kind == "int8" else w.to(torch.float8_e4m3fn)
+        scale = torch.rand(S, F, generator=g, device=dev) * 0.01
+    wt = gm.pack_tiled(w, tf)
+    width = tf or {1408: 128, 2048: 512}[F]
+    assert wt.shape[1:] == (F // width, D, width)
+    before = gm.LAUNCHES["gmm_tiled"]
+    got = gm.gmm(x, wt, sizes, scale, group_offset=offset)
+    assert gm.LAUNCHES["gmm_tiled"] == before + 1
+    assert torch.equal(got, gm.gmm(x, w, sizes, scale, group_offset=offset))
+    _close(got, gm.gmm_plain(x, wt, sizes, scale, group_offset=offset), 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,P", [(256, 32), (384, 64)])
+def test_mla_flash_decode_padded_widths(dev, dtype, R, P):
+    """K5's padded instance at R 256 and 384 against its plain version:
+    V2-Lite's rows (113, 200, 37 and 512 live keys) with holes, a row with
+    no valid key (gives 0), counted under mla_flash_decode_pad."""
+    g = _gen(dev)
+    B, H, S = 4, 16, 512
+    q_lat = torch.randn(B, H, R, generator=g, device=dev)
+    q_pe = torch.randn(B, H, P, generator=g, device=dev)
+    c = torch.randn(B, S, R, generator=g, device=dev).to(dtype)
+    kpe = torch.randn(B, S, P, generator=g, device=dev).to(dtype)
+    pos = torch.tensor([112, 199, 36, 511], dtype=torch.int32, device=dev)
+    mask = torch.rand(B, S, generator=g, device=dev) > 0.1
+    mask[2] = False
+    before = fa.LAUNCHES["mla_flash_decode_pad"]
+    got = fa.mla_flash_decode(q_lat, q_pe, c, kpe, pos, S, scale=0.07, pad_mask=mask)
+    assert fa.LAUNCHES["mla_flash_decode_pad"] == before + 1
+    want = fa.mla_flash_decode_plain(q_lat, q_pe, c, kpe, pos, S, scale=0.07, pad_mask=mask)
+    assert tuple(got.shape) == (B, H, R)
+    _close(got, want, 2e-3 if dtype == torch.float32 else 2e-2)
+    assert bool((got[2] == 0).all())
+
+
 @pytest.mark.parametrize("moe_impl", ["gmm", "gather"])
 def test_deepseek_fused_step_kernels_match_cpu(dev, moe_impl):
     """A narrow DeepSeek model at R 512, P 64 on the card (K5, and K3 with a
@@ -486,7 +542,7 @@ def test_deepseek_fused_step_kernels_match_cpu(dev, moe_impl):
     out = {}
     for name, m, p, t in (("card", model, params, tree),
                           ("cpu", cpu_model, to_cpu(params), to_cpu(tree))):
-        runner = FusedRunner(m, p, m.stack_experts(t["layers"]), moe_impl=moe_impl)
+        runner = FusedRunner(m, p, m.stack_experts(t["layers"], layout="flat"), moe_impl=moe_impl)
         d = m.device
         kv = runner.init_cache(2, 32)
         before = dict(fa.LAUNCHES), dict(gm.LAUNCHES)

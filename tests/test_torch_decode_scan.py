@@ -3,7 +3,7 @@ package's on the same numpy-made weights, at f32 on the CPU:
 
 * ``ResidentStepper.decode_scan`` on tiny Mixtral (K1's plain version) and
   tiny DeepSeek-V2 (MLA through K5's plain version, planned from the cache's
-  capacity): greedy tokens equal, the returned caches within 1e-5 (both
+  capacity; a latent of 128, which K5 takes): greedy tokens equal, the returned caches within 1e-5 (both
   frameworks' f32 sums, a few ulps apart);
 * ``Seq2SeqGenerator.decode_scan`` on tiny NLLB and Switch: tokens equal to
   the JAX ``decode_scan``'s, which tests/test_switch_parity.py holds to
@@ -57,7 +57,7 @@ MIXTRAL = dict(
 DEEPSEEK = dict(
     vocab_size=128, hidden_size=64, intermediate_size=96,
     moe_intermediate_size=128, num_layers=3, num_heads=4,
-    q_lora_rank=None, kv_lora_rank=32, qk_nope_head_dim=32,
+    q_lora_rank=None, kv_lora_rank=128, qk_nope_head_dim=32,
     qk_rope_head_dim=16, v_head_dim=32, num_experts=8, top_k=2,
     n_shared_experts=1, first_k_dense_replace=1, topk_method="greedy",
     n_group=None, topk_group=None, routed_scaling_factor=1.0,

@@ -267,10 +267,14 @@ def test_forward_paged_with_timeline_matches_jax(models, jax_runs, attn):
 
 
 def test_flash_routes_one_token_steps_to_k5(base, monkeypatch):
-    """Under "flash" every layer of a one-token step calls mla_flash_decode
-    once (3 layers: 1 dense + 2 MoE) and a T > 1 step never does; under
-    "naive" no step does."""
+    """Under "flash", at a latent width that is a multiple of 128, every
+    layer of a one-token step calls mla_flash_decode once (3 layers: 1 dense
+    + 2 MoE) and a T > 1 step never does; under "naive" no step does. At the
+    tiny spec's latent width 32 no step does either: the JAX kernel declines
+    such R and its model takes the einsum, and so does the port's."""
     _, _, _, model, params, tree = base
+    wide = DeepseekV2Model(DeepseekV2Spec(**dict(TINY, kv_lora_rank=128)), torch.float32, "cpu")
+    wparams, wtree = wide.init_random(torch.Generator().manual_seed(0))
     calls = []
     real = fa.mla_flash_decode
 
@@ -280,13 +284,15 @@ def test_flash_routes_one_token_steps_to_k5(base, monkeypatch):
 
     monkeypatch.setattr(fa, "mla_flash_decode", spy)
     with port_attention("flash"):
-        _run(model, params, tree, model.init_cache(2, 16), 0)
+        _run(wide, wparams, wtree, wide.init_cache(2, 16), 0)
         assert calls == []
+        _run(wide, wparams, wtree, wide.init_cache(2, 16), 1)
+        assert calls == [((2, 4, 128), 48 ** -0.5)] * 3
+        calls.clear()
         _run(model, params, tree, model.init_cache(2, 16), 1)
-    assert calls == [((2, 4, 32), 48 ** -0.5)] * 3
-    calls.clear()
+        assert calls == []
     with port_attention("naive"):
-        _run(model, params, tree, model.init_cache(2, 16), 1)
+        _run(wide, wparams, wtree, wide.init_cache(2, 16), 1)
     assert calls == []
 
 
@@ -375,7 +381,7 @@ def test_stacks_match_jax(base):
     for k in got:
         np.testing.assert_array_equal(np32(got[k]), want[k])
     jpool = jax_to_numpy(jmodel.stack_experts(jtree["layers"], layout="flat"))
-    pool = model.stack_experts(tree["layers"])
+    pool = model.stack_experts(tree["layers"], layout="flat")
     assert sorted(pool) == sorted(jpool)
     for k in pool:
         assert tuple(pool[k].shape)[0] == 2 * 8
@@ -388,7 +394,9 @@ def test_fused_runner_matches_generator_and_jax(base, jax_tokens, moe_impl):
     tokens equal to the port's Generator and to the JAX Generator. With
     "gmm" the MoE layers run K3's plain version at group_offset 0 and 8."""
     _, _, _, model, params, tree = base
-    runner = FusedRunner(model, params, model.stack_experts(tree["layers"]), moe_impl=moe_impl)
+    # "gmm" over the default (tiled) pool, "gather" over flat rows
+    pool = model.stack_experts(tree["layers"], layout="flat" if moe_impl == "gather" else "tiled")
+    runner = FusedRunner(model, params, pool, moe_impl=moe_impl)
     prompt = np.array([[5, 31, 8, 77]])
     B, T, N = 1, 4, 6
     tok = torch.tensor(prompt, dtype=torch.int32)
@@ -524,8 +532,10 @@ def test_unported_parts_raise(base):
     for sizes in (dict(expert=2), dict(model=2)):
         for got in run_ranks(rank, ThreadMesh.grid(**sizes)):
             torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
-    with pytest.raises(NotImplementedError, match="tiled.*queue 2, part 2"):
-        model.stack_experts(tree["layers"], layout="tiled")
+    # the tiled pool builds (the default), and the gather path refuses it
+    gather = FusedRunner(model, params, model.stack_experts(tree["layers"]), moe_impl="gather")
+    with pytest.raises(ValueError, match="layout='flat'"):
+        gather.prefill(tok, pos, gather.init_cache(2, 8), 0)
     with pytest.raises(ValueError):
         model.init_random(torch.Generator(), expert_dtype="fp8")
     with pytest.raises(ValueError, match="moe_impl"):

@@ -173,12 +173,13 @@ def test_gffn_pallas_nllb_packed_matches_jax(rng, S, dtype):
 
 
 def test_gffn_pallas_rejects_unported_roles():
-    """The gated roles are ported; a pre-tiled [S, F/tf, D, tf] weight
-    (ops/gmm.py::pack_tiled of the JAX package) is not."""
-    w = {"gate": torch.zeros(2, 1, 4, 4, dtype=torch.bfloat16),
-         "down": torch.zeros(2, 4, 4, dtype=torch.bfloat16)}
-    with pytest.raises(ValueError, match="not ported"):
-        gm.gffn_pallas(torch.zeros(2, 4), torch.zeros(2, 2, dtype=torch.int32),
+    """Pre-tiled [S, F/tf, D, tf] weights are taken (test_torch_gmm_tiled);
+    packed int4 in a 4-D layout is not, in the JAX kernel's words, on the
+    CPU as on the card."""
+    w = {"gate4": torch.zeros(2, 1, 8, 8, dtype=torch.int8),
+         "down": torch.zeros(2, 16, 8, dtype=torch.bfloat16)}
+    with pytest.raises(ValueError, match=r"packed int4 gmm takes 3D \[S, D, F//2\] weights"):
+        gm.gffn_pallas(torch.zeros(2, 8), torch.zeros(2, 2, dtype=torch.int32),
                        torch.ones(2, 2), torch.arange(2), w, "silu")
 
 

@@ -98,7 +98,7 @@ def test_the_planner_takes_integers_only():
 # ---- the wrapper's launch, with the kernel replaced ------------------------------
 
 _NAMES = ["x", "w", "scale", "sizes", "gids", "part", "tickets", "goff", "G", "max_chunks",
-          "rows_per_chunk", "T", "D", "Fw", "F", "kind", "splits", "out", "stream"]
+          "rows_per_chunk", "T", "D", "Fw", "F", "kind", "splits", "tf", "out", "stream"]
 
 
 @pytest.fixture
@@ -147,6 +147,7 @@ def test_one_call_is_one_launch_without_a_host_read(fake_kernel, kind, T, G, D, 
     assert out.shape == (T, F) and out.dtype == torch.float32
     (call,) = fake_kernel
     assert call["splits"] == splits and call["T"] == T and call["F"] == F
+    assert call["Fw"] == call["tf"] == Fw  # flat: one slab as wide as the row
     assert call["rows_per_chunk"] == BM and call["max_chunks"] == -(-T // BM) + G
     assert call["kind"] == {"bf16": 0, "int8": 1, "int4": 2, "fp8": 3}[kind]
     assert (call["part"].value is None) == (splits == 1)
@@ -155,10 +156,22 @@ def test_one_call_is_one_launch_without_a_host_read(fake_kernel, kind, T, G, D, 
 
 # ---- the kernel's algorithm in plain PyTorch -----------------------------------
 
+def _slot(w, gw):
+    """Slot gw's stored [D, Fw] read element by element through the kernel's
+    addressing, ((gw nf + c / tf) D + d) tf + c % tf: tf = Fw for a flat
+    [S, D, Fw] weight, the slab width for a tiled [S, Fw / tf, D, tf] one."""
+    nf, D, tf = w.shape[1:] if w.dim() == 4 else (1, *w.shape[1:])
+    flat = w.reshape(-1)
+    bits = flat.view(torch.uint8) if w.dtype == torch.float8_e4m3fn else flat
+    d, c = torch.arange(D)[:, None], torch.arange(nf * tf)[None, :]
+    got = bits[((gw * nf + c // tf) * D + d) * tf + c % tf]
+    return got.view(w.dtype) if w.dtype == torch.float8_e4m3fn else got
+
+
 def _emulate(x, w, sizes, scale=None, offset=0, ids=None, *, packed=False, splits=None):
     """K3's algorithm at f32: returns [T, F]. ``splits`` overrides the plan's."""
     T, D = x.shape
-    Fw = w.shape[2]
+    Fw = w.shape[1] * w.shape[3] if w.dim() == 4 else w.shape[2]
     G = len(sizes)
     plan = gm._gmm_plan(T, G, D, Fw)
     nk = -(-D // KT)
@@ -171,7 +184,7 @@ def _emulate(x, w, sizes, scale=None, offset=0, ids=None, *, packed=False, split
     start = 0
     for g, n in enumerate(sizes):
         gw = ids[g] + offset
-        wg = unpack_int4(w[gw]).float() if packed else w[gw].to(torch.bfloat16).float()
+        wg = unpack_int4(_slot(w, gw)).float() if packed else _slot(w, gw).to(torch.bfloat16).float()
         halves = [wg[:, :Fw], wg[:, Fw:]] if packed else [wg]
         for c0 in range(0, n, BM):  # the group's chunks
             r0, nr = start + c0, min(BM, n - c0)

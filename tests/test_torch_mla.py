@@ -154,12 +154,13 @@ def test_wrapper_rejects_malformed_inputs(bad):
                             scale=1.0, pad_mask=t["mask"])
 
 
-@pytest.mark.parametrize("R,P", [(128, 32), (512, 128), (256, 64)])
+@pytest.mark.parametrize("R,P", [(640, 64), (1024, 64), (512, 128)])
 def test_kernel_route_raises_on_a_width_it_does_not_take(R, P):
-    """The CUDA route takes R 512 with P 64 and raises otherwise, before it
-    builds or launches anything: there is no einsum to fall back on."""
+    """The CUDA route takes R a multiple of 128 up to 512 with P up to 64
+    (test_torch_mla_widths) and raises for wider ones, before it builds or
+    launches anything: there is no einsum to fall back on."""
     z = torch.zeros
-    with pytest.raises(ValueError, match="R=512"):
+    with pytest.raises(ValueError, match="queue 2 part 4's remainder"):
         fa._mla_cuda(z(1, 2, R), z(1, 2, P), z(1, 4, R), z(1, 4, P),
                      z(1, dtype=torch.int32), 4, scale=1.0, pad_mask=None)
 
